@@ -1,0 +1,161 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use by ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`` into ``consensusml_tpu_torch/build/`` (listed in
+``.gitignore``), then loaded with :mod:`ctypes`. The library's file name
+carries a hash of its source and flags, so an edited source rebuilds
+and a stale library is never loaded. :func:`build` starts one ``nvcc``
+per missing source, all at once, and waits for them together.
+
+Nothing here runs at import: the CPU tests import every module of the
+package on a machine without ``nvcc``.
+
+Launch counts live on each kernel's wrapper as a plain integer
+(``wrapper.launches``); :func:`launch_counts` reads them all and
+:func:`reset_launch_counts` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import importlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+__all__ = [
+    "KERNELS",
+    "BUILD_DIR",
+    "build",
+    "load",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_PKG = Path(__file__).resolve().parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+# kernel name -> (module, wrapper attribute): the source is csrc/<name>.cu
+KERNELS = {
+    "paged_attention": (
+        "consensusml_tpu_torch.models.paged_attention", "paged_attention"
+    ),
+    "flash_attention_fwd": (
+        "consensusml_tpu_torch.models.flash_attention", "flash_attention"
+    ),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the "
+            "CUDA kernels are built from source at first use"
+        )
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build(names=tuple(KERNELS)) -> dict[str, dict]:
+    """Compile every named kernel whose library is missing, one ``nvcc``
+    per source, all started together. Returns per kernel ``{"seconds",
+    "cached", "ptxas"}`` (``ptxas`` = the register/spill report lines).
+    Raises with the compiler's output when a build fails."""
+    with _lock:
+        return _build_locked(list(names))
+
+
+def _build_locked(names: list[str]) -> dict[str, dict]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out: dict[str, dict] = {}
+    procs = {}
+    for name in names:
+        if name not in KERNELS:
+            raise ValueError(f"unknown kernel {name!r} (one of {sorted(KERNELS)})")
+        lib = _lib_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[name] = {"seconds": 0.0, "cached": True, "ptxas": _ptxas(log)}
+            continue
+        # write to a private name, then rename: a concurrent process never
+        # sees a half-written library
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+            time.perf_counter(), tmp, lib, log,
+        )
+    failed = []
+    for name, (proc, t0, tmp, lib, log) in procs.items():
+        text, _ = proc.communicate()
+        text = text.decode(errors="replace")
+        log.write_text(text)
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name} (exit {proc.returncode}) ---\n{text}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = {
+            "seconds": time.perf_counter() - t0, "cached": False,
+            "ptxas": _ptxas(log),
+        }
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def _ptxas(log: Path) -> list[str]:
+    if not log.exists():
+        return []
+    return [
+        ln.split(":", 1)[-1].strip() if "ptxas info" in ln else ln.strip()
+        for ln in log.read_text().splitlines()
+        if "ptxas info    : Used" in ln or "spill stores" in ln
+    ]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded shared library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _build_locked([name])
+            lib = _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        return lib
+
+
+def _wrappers():
+    for name, (module, attr) in KERNELS.items():
+        yield name, getattr(importlib.import_module(module), attr)
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches since the last reset, per kernel."""
+    return {name: fn.launches for name, fn in _wrappers()}
+
+
+def reset_launch_counts() -> None:
+    for _name, fn in _wrappers():
+        fn.launches = 0

@@ -1,0 +1,44 @@
+"""Guards of the port: it never imports the JAX stack or the JAX package,
+and its entry points never run on the CPU unless asked to."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from consensusml_tpu_torch import configs
+from consensusml_tpu_torch.models.paged_attention import resolve_attention_impl
+from consensusml_tpu_torch.serve import Engine
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "consensusml_tpu")
+FILES = sorted((ROOT / "consensusml_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        configs.build_model("gpt2_topk", "smoke")
+    model = configs.build_model("gpt2_topk", "smoke", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model)
+
+
+def test_auto_tier_on_cpu_is_the_plain_version():
+    assert resolve_attention_impl("auto", "cpu") == "torch"
+    assert resolve_attention_impl("auto", torch.device("cpu")) == "torch"

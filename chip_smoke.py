@@ -47,10 +47,17 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 
-PAGED_TOL = 1.6e-2  # ~1 bf16 ulp of outputs of order 1
-FLASH_TOL = 1.6e-2
-LSE_TOL = 1e-3  # f32 logsumexp, different summation order
-LOGITS_REL_TOL = 5e-2  # |kernel - plain| / max|plain| after 24 bf16 layers
+# Kernel against plain version, element by element:
+# |kernel - plain| <= ATOL + RTOL * |plain|. Both sides sum in f32 in
+# different orders and round to bf16, so an element may land one bf16 ulp
+# (at most 2**-7 of its value) away. A dropped 16-key block on a
+# 1024-key row moves outputs by ~10% of their size.
+PAGED_ATOL, PAGED_RTOL = 1e-5, 2.0**-7
+# the flash kernel also rounds its per-tile probabilities to bf16 against
+# a running max the plain version does not have: two ulps
+FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0**-6
+LSE_TOL = 1e-5  # f32 logsumexp (~7 in size), different summation order
+LOGITS_REL_TOL = 2.5e-2  # |kernel - plain| / max|plain| after 24 bf16 layers
 
 
 def emit(obj) -> None:
@@ -70,6 +77,17 @@ def cuda_ms(torch, fn, iters: int, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tol_check(name, got, want, atol, rtol) -> dict:
+    """Hold ``got`` to ``want`` element by element: every
+    ``|got - want| <= atol + rtol * |want|``; raises otherwise."""
+    err = (got.float() - want.float()).abs()
+    ratio = (err / (atol + rtol * want.float().abs())).max().item()
+    out = {"max_abs_err": err.max().item(), "atol": atol, "rtol": rtol, "worst_err_over_tol": ratio}
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: outside tolerance {out}")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -103,9 +121,7 @@ def check_paged(torch, tpa, dev):
         got = tpa.paged_attention(q, k, v, table, pos)
         want = tpa.paged_attention_plain(q, k, v, table, pos)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= PAGED_TOL:
-            raise AssertionError(f"paged_attention W={w}: max abs err {err} > {PAGED_TOL}")
+        errs = tol_check(f"paged_attention W={w}", got, want, PAGED_ATOL, PAGED_RTOL)
         kernel_ms = cuda_ms(torch, lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos), 100)
         plain_ms = cuda_ms(torch, lambda i: tpa.paged_attention_plain(q, *sets[i % 4], table, pos), 10)
         keys = int(lengths.sum())  # keys each head must read once (union over W)
@@ -113,7 +129,7 @@ def check_paged(torch, tpa, dev):
         nbytes = 2 * keys * h * d * 2 + 2 * q.numel() * 2 + table.numel() * 4 + pos.numel() * 4
         bms, by = bound_ms(nbytes, 4 * pairs * h * d)
         out[w] = {
-            "max_abs_err": err, "tol": PAGED_TOL, "ms": kernel_ms, "plain_ms": plain_ms,
+            **errs, "ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bms, "bound_by": by,
         }
     return out
@@ -134,13 +150,10 @@ def check_flash(torch, tfa, dev):
         got, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
         want, want_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
+        errs = tol_check(f"flash_attention S={s}", got, want, FLASH_ATOL, FLASH_RTOL)
         lse_err = (lse - want_lse).abs().max().item()
-        if not (err <= FLASH_TOL and lse_err <= LSE_TOL):
-            raise AssertionError(
-                f"flash_attention S={s}: max abs err {err} (tol {FLASH_TOL}), "
-                f"lse err {lse_err} (tol {LSE_TOL})"
-            )
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_attention S={s}: lse err {lse_err} > {LSE_TOL}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         kernel_ms = cuda_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=True), 50)
         plain_ms = cuda_ms(torch, lambda i: tfa.flash_attention_plain(q, k, v, causal=True), 10)
@@ -149,7 +162,7 @@ def check_flash(torch, tfa, dev):
         )
         bms, by = bound_ms(4 * q.numel() * 2, 4 * 16 * 64 * s * (s + 1) // 2)
         out[s] = {
-            "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": FLASH_TOL, "ms": kernel_ms,
+            **errs, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
         }
     return out
@@ -298,6 +311,8 @@ def serve_phase(torch, dev):
             }
             if not rel <= LOGITS_REL_TOL:
                 raise AssertionError(f"{name} logits: rel err {rel} > {LOGITS_REL_TOL}")
+            if not logit_checks[name]["argmax_equal"]:
+                raise AssertionError(f"{name} logits: the kernels' argmax differs from the plain tier's")
         del wpages
         step_profile = profile_decode(torch, gdecode, gpages, table, tokens, positions, samp)
         del gpages

@@ -19,7 +19,6 @@ __all__ = [
     "dot_product_attention",
     "blockwise_attention",
     "cached_attention",
-    "cached_attention_window",
     "paged_update_kv_cache",
     "gather_paged_kv",
 ]
@@ -217,17 +216,3 @@ def cached_attention(
     kv_mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
     return dot_product_attention(q, k_cache, v_cache, kv_mask=kv_mask, dtype=dtype, impl="dense")
 
-
-def cached_attention_window(
-    q: torch.Tensor,  # (B, W, H, D)
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
-    *,
-    positions: torch.Tensor,  # (B, W) absolute position of each query token
-    dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """Window decode attention: query ``w`` attends cache rows
-    ``<= positions[b, w]``."""
-    t = k_cache.shape[1]
-    mask = torch.arange(t, device=q.device)[None, None, :] <= positions[:, :, None]
-    return dot_product_attention(q, k_cache, v_cache, mask=mask, dtype=dtype, impl="dense")

@@ -35,7 +35,10 @@ from consensusml_tpu_torch.models.attention import (
     dot_product_attention,
     paged_update_kv_cache,
 )
-from consensusml_tpu_torch.models.paged_attention import fused_paged_attention
+from consensusml_tpu_torch.models.paged_attention import (
+    fused_paged_attention,
+    resolve_attention_impl,
+)
 
 __all__ = ["GPT2Config", "GPT2LM"]
 
@@ -102,11 +105,12 @@ class DecoderBlock(nn.Module):
         self.mlp_in = Dense(c.hidden, c.mlp_dim, c.dtype, device)
         self.mlp_out = Dense(c.mlp_dim, c.hidden, c.dtype, device)
 
-    def forward(self, x, *, cache=None, positions=None, block_table=None, attn_impl="torch"):
+    def forward(self, x, *, cache=None, positions=None, block_table=None, attn_impl="auto"):
         """``(x, kv)``: ``kv`` is this layer's ``(k, v)`` (B, S, H, D) on
         the full/prefill path, ``None`` on the paged decode path (whose
         K/V go into ``cache`` in place)."""
         c = self.config
+        attn_impl = resolve_attention_impl(attn_impl, x.device)
         b, s, _ = x.shape
         dh = c.head_dim
         qkv = self.qkv(self.ln_1(x)).view(b, s, c.heads, 3 * dh)
@@ -120,7 +124,7 @@ class DecoderBlock(nn.Module):
             )
         else:
             attn = dot_product_attention(
-                q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl != "torch"
+                q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl == "cuda"
             )
             kv = (k, v)
         x = x + self.out(attn.reshape(b, s, c.hidden))
@@ -164,7 +168,7 @@ class GPT2LM(nn.Module):
         kv_cache: list | None = None,
         block_table: torch.Tensor | None = None,
         return_kv: bool = False,
-        attn_impl: str = "torch",
+        attn_impl: str = "auto",
     ):
         """f32 logits ``(B, S, V)``.
 
@@ -172,11 +176,12 @@ class GPT2LM(nn.Module):
         ``kv_cache`` (per-layer ``{"k", "v"}`` page pools) with
         ``block_table`` and ``positions`` runs one single-token decode
         step, writing this token's K/V into the pages in place.
-        ``attn_impl`` is a resolved tier of
-        :func:`.paged_attention.resolve_attention_impl`: on the decode
-        path it picks gather / plain / kernel paged attention, on the
-        prefill path ``"torch"`` sends flash-sized buckets to the flash
-        kernel's plain version instead of the kernel.
+        ``attn_impl`` goes through
+        :func:`.paged_attention.resolve_attention_impl`: ``"auto"`` is
+        the CUDA kernels for CUDA tensors and their plain versions on the
+        CPU; ``"torch"`` asks for the plain versions by name (paged
+        attention on the decode path, flash attention for flash-sized
+        prefill buckets).
         """
         c = self.config
         if kv_cache is not None and return_kv:
@@ -184,6 +189,7 @@ class GPT2LM(nn.Module):
         if (kv_cache is None) != (block_table is None):
             raise ValueError("the paged decode step needs both kv_cache and block_table")
         b, s = input_ids.shape
+        attn_impl = resolve_attention_impl(attn_impl, input_ids.device)
         if kv_cache is not None and (s != 1 or positions is None):
             raise ValueError(f"decode steps are single-token with positions, got seq len {s}")
         pos = (

@@ -11,14 +11,12 @@ as the reference's ``_fused_call`` serves both. Query row ``w`` of slot
 
 Tiers (``attn_impl``), resolved once by :func:`resolve_attention_impl`:
 
-- ``"gather"``: the two-step reference — :func:`.attention.gather_paged_kv`
-  materializes each slot's KV view, then dense masked attention;
 - ``"torch"``: :func:`paged_attention_plain`, the kernel's function in
   plain PyTorch (what the CPU runs, and the card's comparison baseline);
 - ``"cuda"``: :func:`paged_attention`, the kernel wrapper.
 
 ``"auto"`` is the kernel tier on a CUDA device and the plain tier on the
-CPU — never silently the gather reference.
+CPU.
 """
 
 from __future__ import annotations
@@ -29,11 +27,7 @@ import numpy as np
 import torch
 
 from consensusml_tpu_torch import kernels
-from consensusml_tpu_torch.models.attention import (
-    cached_attention,
-    cached_attention_window,
-    gather_paged_kv,
-)
+from consensusml_tpu_torch.models.attention import gather_paged_kv
 
 __all__ = [
     "ATTENTION_IMPLS",
@@ -44,7 +38,7 @@ __all__ = [
     "paged_attention_plain",
 ]
 
-ATTENTION_IMPLS = ("gather", "torch", "cuda")
+ATTENTION_IMPLS = ("torch", "cuda")
 _NEG_INF = -1e30
 _SMEM_LIMIT = 48 * 1024  # default dynamic shared memory per block
 
@@ -168,6 +162,7 @@ paged_attention.launches = 0
 
 
 def _fused(q, k_pages, v_pages, block_table, positions, dtype, impl):
+    impl = resolve_attention_impl(impl, q.device)
     fn = paged_attention if impl == "cuda" else paged_attention_plain
     return fn(
         q.contiguous(), k_pages, v_pages, block_table.to(torch.int32).contiguous(),
@@ -186,12 +181,6 @@ def fused_paged_attention(
     impl: str = "auto",
 ) -> torch.Tensor:
     """Single-token paged decode attention through the chosen tier."""
-    impl = resolve_attention_impl(impl, q.device)
-    if impl == "gather":
-        kg, vg = _expand_heads(
-            *gather_paged_kv(k_pages, v_pages, block_table), q.shape[2] // k_pages.shape[2]
-        )
-        return cached_attention(q, kg, vg, lengths=lengths, dtype=dtype)
     # the decode mask `t < lengths` is the window mask `t <= lengths - 1`
     return _fused(q, k_pages, v_pages, block_table, (lengths - 1)[:, None], dtype, impl)
 
@@ -208,10 +197,4 @@ def fused_paged_attention_window(
 ) -> torch.Tensor:
     """W-token window paged attention: row ``w`` attends cache rows
     ``<= positions[s, w]``."""
-    impl = resolve_attention_impl(impl, q.device)
-    if impl == "gather":
-        kg, vg = _expand_heads(
-            *gather_paged_kv(k_pages, v_pages, block_table), q.shape[2] // k_pages.shape[2]
-        )
-        return cached_attention_window(q, kg, vg, positions=positions, dtype=dtype)
     return _fused(q, k_pages, v_pages, block_table, positions, dtype, impl)

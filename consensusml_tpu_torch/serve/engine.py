@@ -66,7 +66,7 @@ class ServeConfig:
     num_blocks: int = 0  # pool size; 0 = num_slots * max_len / block_size + 1
     prefill_budget: int = 0  # prefill tokens per tick; 0 = one max_len bucket
     # paged-attention tier: "auto" = the CUDA kernel on the card, its
-    # plain version on the CPU; "torch" / "gather" / "cuda" by name
+    # plain version on the CPU; "torch" / "cuda" by name
     attn_impl: str = "auto"
 
 

@@ -21,7 +21,7 @@ from consensusml_tpu_torch.serve.sampling import sample_token
 __all__ = ["make_paged_prefill_fn", "make_paged_decode_fn", "AdmissionScheduler"]
 
 
-def make_paged_prefill_fn(dm: Any, attn_impl: str = "torch") -> Callable:
+def make_paged_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
     """``prefill(pages, ids (1, L), length, block_row (L // bs,),
     temperature, top_p, seed)`` -> ``(first_token (), last_logits (V,))``.
 
@@ -58,7 +58,7 @@ def make_paged_prefill_fn(dm: Any, attn_impl: str = "torch") -> Callable:
     return prefill
 
 
-def make_paged_decode_fn(dm: Any, attn_impl: str = "torch") -> Callable:
+def make_paged_decode_fn(dm: Any, attn_impl: str = "auto") -> Callable:
     """``decode(pages, block_table (S, nb), tokens (S,), positions (S,),
     temperature (S,), top_p (S,), seeds (S,))`` -> ``(next_tokens (S,),
     logits (S, V))``.

@@ -86,11 +86,12 @@ def test_prefill_return_kv_matches(dtype_name):
 
 
 @pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
-@pytest.mark.parametrize("impl", ["gather", "torch"])
+@pytest.mark.parametrize("impl", ["default", "torch"])
 def test_paged_decode_step_matches(dtype_name, impl):
     """Two slots with different lengths decode one token against pages
     that hold the same (numpy) history in both frameworks; a free lane
-    rides along writing into the trash block."""
+    rides along writing into the trash block. ``"default"`` names no
+    tier, which resolves to the plain version for CPU tensors."""
     jdt, tdt = DTYPES[dtype_name]
     jmodel, params, tmodel = pair(dtype_name, seed=4)
     rng = np.random.default_rng(5)
@@ -112,7 +113,8 @@ def test_paged_decode_step_matches(dtype_name, impl):
     with torch.inference_mode():
         got = tmodel(
             torch.from_numpy(tokens)[:, None], positions=torch.from_numpy(positions),
-            kv_cache=tpages, block_table=torch.from_numpy(table), attn_impl=impl,
+            kv_cache=tpages, block_table=torch.from_numpy(table),
+            **({} if impl == "default" else {"attn_impl": impl}),
         )
     # the live lanes' logits; lane 2 is a free lane (garbage by design)
     np.testing.assert_allclose(got[:2].numpy(), np.asarray(want)[:2], **TOL[dtype_name])

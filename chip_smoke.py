@@ -12,10 +12,14 @@ Phases, each printed as one JSON line:
 2. ``build``: compiles every CUDA kernel of ``consensusml_tpu_torch/csrc``
    with ``nvcc`` (all sources at once) and reports each build's time and
    ptxas register/spill lines.
-3. ``check``: each kernel at the serving path's shapes against its plain
-   PyTorch version on the card (max abs error against a stated
-   tolerance), timed with CUDA events beside the plain version and, where
-   one PyTorch call computes the same function, that call.
+3. ``check``: each kernel at its main path's shapes against its plain
+   PyTorch version on the card (element-wise tolerance, zero for the
+   CHOCO encode), timed with CUDA events beside the plain version and,
+   where one PyTorch call computes the same function, that call: paged
+   attention and the flash forward at the serving shapes, the flash
+   forward and backward (dq and dk/dv) at the training shape B=8, S=1024
+   (and 600), H=16, D=64, causal, and the fused CHOCO encode on a
+   (4*8192, 512) f32 pair.
 4. ``serve``: GPT-2-medium at full width (numpy-seeded parameters through
    ``gpt2_from_flax``) in ``Engine(ServeConfig(num_slots=8, block_size=16,
    attn_impl="auto"))``: one prefill's and one decode step's logits held
@@ -24,9 +28,19 @@ Phases, each printed as one JSON line:
    tokens, greedy and sampled, two of them through ``ServeServer`` over a
    localhost socket, with the kernels' launch counters zeroed just before
    and read just after.
+5. ``train``: consensus-SGD training of ``gpt2_topk`` at full width and
+   depth (GPT-2-medium) with ``--workers 4 --codec int8 --codec-warmup
+   1``: four workers stacked on the card, ring gossip, CHOCO through the
+   fused int8 wire. First one worker step's gradients through the kernels
+   against the same step on the plain versions (``attn_impl="torch"``);
+   then one warm-up round, three counted rounds (launch counters zeroed
+   just before, read just after; loss, consensus error, round ms with the
+   host's garbage-collection pauses in each, tokens/s, wire bytes, peak
+   memory) and one more round under ``torch.profiler`` for the
+   device-busy share.
 
 Then the ``kernels`` line (per kernel: route, source, the TPU kernel it
-replaces, launches on the serving path, error, times and bound), the
+replaces, launches on its main paths, error, times and bound), the
 card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero without the last line. Without a CUDA device, or outside
@@ -35,6 +49,7 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -58,9 +73,32 @@ PAGED_ATOL, PAGED_RTOL = 1e-5, 2.0**-7
 FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0**-6
 LSE_TOL = 1e-5  # f32 logsumexp (~7 in size), different summation order
 LOGITS_REL_TOL = 2.5e-2  # |kernel - plain| / max|plain| after 24 bf16 layers
+# flash backward against its plain version, element by element. Both sum
+# in f32 in different orders (the kernel over 4-lane partial dots, the
+# plain version by einsum) and round dq, dk, dv to bf16; dk and dq sum
+# ds terms of both signs over up to 1024 rows, so an element small next
+# to its row's terms carries the absolute error of the large ones.
+# Readings at atol 1e-2: max error 3.9e-3 (one bf16 ulp in [0.5, 1)),
+# worst err/tolerance 0.2, so small elements erred by at most ~2e-3. At
+# atol 3e-3 (S=1024): worst err/tolerance 0.41, against median |dq| 0.050,
+# |dk| 0.029, |dv| 0.030 (printed beside the errors).
+FLASH_BWD_ATOL, FLASH_BWD_RTOL = 3e-3, 2.0**-6
+# one worker step's gradients, kernels against plain versions (same
+# weights, batch and dropout masks): ||g_k - g_p|| / ||g_p||, over the
+# whole tree and per leaf. bf16 attention outputs differ by an ulp or two
+# between the two, and 24 layers of bf16 backward carry that on: the
+# first reading was 1.5e-2 (tree) and 1.7e-2 (worst leaf); a backward
+# that dropped attention's gradient reads ~1.
+GRAD_REL_TOL, LEAF_REL_TOL = 3e-2, 4e-2
+
+
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """One JSON line; phase lines carry the seconds since the script began."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -166,6 +204,123 @@ def check_flash(torch, tfa, dev):
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
         }
     return out
+
+
+def check_flash_bwd(torch, tfa, dev):
+    """Training shapes: batch 8, 16 heads, head dim 64, causal; S = 1024
+    (the training sequence) and 600 (ragged). The forward kernel's
+    ``out`` and ``lse`` are held against ``flash_attention_plain`` (at
+    b > 0 the kernel offsets its rows by the batch index, which batch 1
+    never does); dq, dk, dv of both backward kernels, fed the kernel's
+    forward, are held against ``flash_attention_bwd_plain`` fed the
+    plain forward, so a fault in either pass shows. Returns the backward's
+    readings and the forward's at these shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out, fwd = {}, {}
+    for s in (600, 1024):
+        b, h, d = 8, 16, 64
+        q, k, v, do = (
+            torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(4)
+        )
+        o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        want_o, want_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        fwd_errs = tol_check(f"flash_attention B={b} S={s}", o, want_o, FLASH_ATOL, FLASH_RTOL)
+        lse_err = (lse - want_lse).abs().max().item()
+        if not lse_err <= LSE_TOL:
+            raise AssertionError(f"flash_attention B={b} S={s}: lse err {lse_err} > {LSE_TOL}")
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+        want = tfa.flash_attention_bwd_plain(q, k, v, want_o, do, want_lse, causal=True)
+        torch.cuda.synchronize()
+        errs = {
+            name: {
+                **tol_check(f"flash_attention_bwd {name} S={s}", g, w, FLASH_BWD_ATOL, FLASH_BWD_RTOL),
+                "median_abs": w.float().abs().median().item(),
+            }
+            for name, g, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))
+        }
+        del want, want_o, want_lse
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = b * h * s * (s + 1) // 2  # (query, key) pairs of the causal mask
+        fwd_bound = bound_ms(4 * q.numel() * 2 + b * h * s * 4, 4 * d * pairs)  # q k v read, out lse written
+        fwd[s] = {
+            **fwd_errs, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL,
+            "ms": cuda_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=True, return_lse=True), 20),
+            "plain_ms": cuda_ms(torch, lambda i: tfa.flash_attention_plain(q, k, v, causal=True), 5),
+            "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20),
+            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+        }
+        dq_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True), 20)
+        dkv_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True), 20)
+        plain_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True), 5)
+        # the library yardstick: SDPA's backward, as (forward + backward) - forward
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd(i):
+            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(y, (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            sdpa_fwd = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        library_ms = cuda_ms(torch, sdpa_fwd_bwd, 20) - sdpa_fwd
+        elems = b * s * h * d
+        rows = b * h * s
+        dq_bound = bound_ms(5 * elems * 2 + 2 * rows * 4, 6 * d * pairs)  # read q k v do lse delta, write dq
+        dkv_bound = bound_ms(6 * elems * 2 + 2 * rows * 4, 8 * d * pairs)  # ... write dk dv
+        out[s] = {
+            **{f"{n}_{key}": val for n, e in errs.items() for key, val in e.items()},
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
+            "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+        }
+    return out, fwd
+
+
+def check_encode(torch, tck, dev):
+    """The fused CHOCO encode on a (4 * 8192, 512) f32 pair (4 workers'
+    copies of a 4 MiB-wire bucket), held BIT FOR BIT against its plain
+    version: q, scales and xhat'. Row 0 has a zero delta (scale 0), row 1
+    x = 0 over an xhat of mixed +0/-0 (xhat' must be +0), row 2 deltas on
+    the round-half points of the quantizer."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows, chunk = 4 * 8192, 512
+    x = torch.randn(rows, chunk, generator=gen, device=dev)
+    xhat = x + 0.1 * torch.randn(rows, chunk, generator=gen, device=dev)
+    x[0] = xhat[0]
+    x[1] = 0.0
+    xhat[1] = torch.where(torch.arange(chunk, device=dev) % 2 == 1, -0.0, 0.0)
+    half = torch.randint(-126, 127, (chunk,), generator=gen, device=dev).float() + 0.5
+    x[2] = xhat[2] + half
+    x[2, 0] = xhat[2, 0] + 127.0
+    got = tck.fused_pack_quantize(x, xhat)
+    want = tck.fused_pack_quantize_plain(x, xhat)
+    torch.cuda.synchronize()
+    names = ("q", "scales", "xhat")
+    mismatched = {
+        n: int((g.view(torch.int32 if g.dtype == torch.float32 else torch.int8)
+                != w.view(torch.int32 if w.dtype == torch.float32 else torch.int8)).sum())
+        for n, g, w in zip(names, got, want)
+    }
+    if any(mismatched.values()):
+        raise AssertionError(f"fused_choco_encode differs from its plain version: {mismatched}")
+    if not (got[1][0] == 0 and got[1][2] == 1.0 and not torch.signbit(got[2][1]).any()):
+        raise AssertionError("fused_choco_encode: zero row, round-half row or -0 row wrong")
+    sets = [(torch.randn(rows, chunk, generator=gen, device=dev), xhat) for _ in range(3)]
+    kernel_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize(*sets[i % 3]), 50)
+    plain_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize_plain(*sets[i % 3]), 10)
+    n = rows * chunk
+    bms, by = bound_ms(2 * 4 * n + n + 4 * rows + 4 * n, 5 * n)
+    return {
+        "rows": rows, "chunk": chunk, "mismatched": mismatched, "max_abs_err": 0.0,
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
+    }
 
 
 def gpt2_medium_flax_tree(cfg, seed: int) -> dict:
@@ -392,6 +547,200 @@ def serve_phase(torch, dev):
     return serve, counts
 
 
+def grad_check(torch, bundle, params0, batch, dev):
+    """One worker step's gradients through the kernels against the same
+    step on the plain versions (same weights, batch and dropout masks)."""
+    from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
+
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = {n: p.detach().requires_grad_(True) for n, p in params0.items()}
+        gen = torch.Generator(device=dev).manual_seed(11)
+        loss, _ = gpt2_loss_fn(bundle.model, attn_impl=impl)(leaves, {}, batch, gen)
+        grads[impl] = (float(loss.detach()), torch.autograd.grad(loss, list(leaves.values())))
+        del leaves, loss
+    (lk, gk), (lp, gp) = grads["cuda"], grads["torch"]
+    diff2 = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(gk, gp))
+    ref2 = sum(float((b.float() ** 2).sum()) for b in gp)
+    leaf = [
+        (float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)), n)
+        for n, a, b in zip(params0, gk, gp)
+    ]
+    worst, worst_name = max(leaf)
+    qkv_none = sum(g is None for n, g in zip(params0, gk) if n.endswith("qkv.kernel"))
+    out = {
+        "loss_kernels": lk, "loss_plain": lp, "grad_rel_err": (diff2 / ref2) ** 0.5,
+        "grad_rel_tol": GRAD_REL_TOL, "worst_leaf": worst_name, "worst_leaf_rel_err": worst,
+        "leaf_rel_tol": LEAF_REL_TOL, "qkv_grads_missing": qkv_none,
+    }
+    if qkv_none or not out["grad_rel_err"] <= GRAD_REL_TOL or not worst <= LEAF_REL_TOL:
+        raise AssertionError(f"gradients through the kernels disagree with the plain versions: {out}")
+    return out
+
+
+def profile_round(torch, step, state, batch):
+    """Device-busy share of one training round: device kernel time under
+    ``torch.profiler`` (CUPTI) over the round's host wall time. Device
+    activity only: recording the round's ~10^5 host-side ops as well made
+    the trace's processing take tens of seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _m = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    device_ms = sum(dev_us(e) for e in cuda) / 1e3
+    top = sorted(cuda, key=dev_us, reverse=True)[:8]
+    return state, {
+        "trace_processing_s": time.perf_counter() - t1,
+        "wall_ms": wall_ms, "device_kernel_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "kernels": sum(e.count for e in cuda),
+        "top_kernels": [
+            {"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top
+        ],
+    }
+
+
+class GcPauses:
+    """A ``gc.callbacks`` hook: the host's time inside Python's garbage
+    collector, in all and in full (generation 2) collections."""
+
+    def __init__(self):
+        self.ms = self.gen2_ms = 0.0
+        self.gen2 = 0
+        self._t = 0.0
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+            return
+        ms = 1e3 * (time.perf_counter() - self._t)
+        self.ms += ms
+        if info["generation"] == 2:
+            self.gen2 += 1
+            self.gen2_ms += ms
+
+    def snapshot(self) -> tuple:
+        return self.ms, self.gen2, self.gen2_ms
+
+    def since(self, snap: tuple) -> dict:
+        return {"gc_ms": self.ms - snap[0], "gc_full_collections": self.gen2 - snap[1],
+                "gc_full_ms": self.gen2_ms - snap[2]}
+
+
+def train_phase(torch, dev):
+    """gpt2_topk full, --workers 4 --codec int8 --codec-warmup 1."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    world, counted = 4, 3
+    bundle = configs.build("gpt2_topk", "full", world=world, codec="int8", codec_warmup=1, device=dev)
+    cfg, mcfg = bundle.cfg, bundle.model.config
+    engine = cfg.engine()
+    if not engine.fused_wire_active or cfg.gossip.compressor.impl != "cuda":
+        raise AssertionError(f"codec path is not the fused CUDA wire: {bundle.codec_path}")
+    marks = [("start", time.perf_counter())]
+    init = bundle.init_params(0)
+    batches = list(bundle.batches(2 + counted, 0))
+    marks.append(("init_params_and_batches", time.perf_counter()))
+    ids = batches[0]["input_ids"]
+    params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in init.items()}
+    grads = grad_check(torch, bundle, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
+    del params0
+    torch.cuda.empty_cache()
+    marks.append(("grad_check", time.perf_counter()))
+
+    params = {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}
+    del init
+    state = init_stacked_state(cfg, params, world, seed=0)
+    del params
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    n_buckets = len(state.gossip.xhat)
+    per_worker = {n: p[0] for n, p in state.params.items()}
+    wire = engine.wire_bytes_per_round({"params": per_worker, "model_state": {}})
+    n_params = sum(p.numel() for p in per_worker.values())
+    del per_worker
+
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])  # round 0: warm (dense mixing), not counted
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+
+    # the earlier phases leave garbage in reference cycles (the serve
+    # phase's profiler trace): its full collection took ~0.7 s of the first
+    # counted round until it was collected here, before the timed rounds
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gc_pauses = GcPauses()
+    gc.callbacks.append(gc_pauses)
+    kernels.reset_launch_counts()
+    rounds = []
+    try:
+        for batch in batches[1:1 + counted]:
+            gc0 = gc_pauses.snapshot()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])  # both synchronise
+            ms = 1e3 * (time.perf_counter() - t0)
+            rounds.append({
+                "step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                "tokens_per_s_per_chip": world * cfg.h * ids.shape[2] * ids.shape[3] / (ms / 1e3),
+                **gc_pauses.since(gc0),
+            })
+    finally:
+        gc.callbacks.remove(gc_pauses)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    marks.append(("rounds", time.perf_counter()))
+    state, prof = profile_round(torch, step, state, batches[1 + counted])
+    marks.append(("profiled_round", time.perf_counter()))
+
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            raise AssertionError(f"round {r['step']}: loss or consensus error not finite and positive: {r}")
+    worker_steps = world * cfg.h * counted
+    expect = {
+        "flash_attention_fwd": mcfg.layers * worker_steps,
+        "flash_attention_bwd_dq": mcfg.layers * worker_steps,
+        "flash_attention_bwd_dkv": mcfg.layers * worker_steps,
+        "fused_choco_encode": n_buckets * counted,
+        "paged_attention": 0,
+    }
+    if counts != expect:
+        raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
+    round_ms_mean = sum(r["round_ms"] for r in rounds) / counted
+    if prof["device_kernel_ms"] is not None:
+        # the profiler slows the host; against an unprofiled round's wall
+        prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
+    out = {
+        "phase": "train", "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec int8 --codec-warmup 1",
+        "codec_path": bundle.codec_path, "workers": world, "h": cfg.h, "batch": ids.shape[2],
+        "seq": ids.shape[3], "layers": mcfg.layers, "params_per_worker": n_params,
+        "buckets": n_buckets, "wire_bytes_per_round": wire,
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "grad_check": grads, "warmup_round": warm, "rounds": rounds,
+        "round_ms_mean": round_ms_mean,
+        "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "profiled_round": prof,
+    }
+    del state
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -414,11 +763,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.compress import kernels as tck
     from consensusml_tpu_torch.models import flash_attention as tfa
     from consensusml_tpu_torch.models import paged_attention as tpa
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # stated, not assumed: f32 products in full f32 (the gossip's W @ x)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -433,23 +786,53 @@ def main() -> int:
 
     paged = check_paged(torch, tpa, dev)
     flash = check_flash(torch, tfa, dev)
+    bwd, flash_b8 = check_flash_bwd(torch, tfa, dev)
+    enc = check_encode(torch, tck, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
-          "flash_attention_fwd": {f"S={s}": r for s, r in flash.items()}})
-
-    serve, counts = serve_phase(torch, dev)
-    emit(serve)
-
+          "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
+                                  **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
+          "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
+          "fused_choco_encode": enc})
+    torch.cuda.empty_cache()
+    b = bwd[1024]
     rows = [
         ("paged_attention", "consensusml_tpu_torch/csrc/paged_attention.cu",
          "consensusml_tpu/models/paged_attention.py:191", paged[1]),
+        # the training shape carries most of the forward's launches; the
+        # serving shape's readings stand beside it
         ("flash_attention_fwd", "consensusml_tpu_torch/csrc/flash_attention_fwd.cu",
-         "consensusml_tpu/models/flash_attention.py:193", flash[1024]),
+         "consensusml_tpu/models/flash_attention.py:193",
+         {**flash_b8[1024], "by_shape": {"train B=8 S=1024": flash_b8[1024],
+                                         "serve B=1 S=1024": flash[1024]}}),
+        ("flash_attention_bwd_dq", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
+         "consensusml_tpu/models/flash_attention.py:362",
+         {"max_abs_err": b["dq_max_abs_err"], "ms": b["dq_ms"], "plain_ms": b["plain_ms"],
+          "bound_ms": b["dq_bound_ms"], "bound_by": b["dq_bound_by"], "library_ms": b["library_ms"]}),
+        ("flash_attention_bwd_dkv", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
+         "consensusml_tpu/models/flash_attention.py:400",
+         {"max_abs_err": max(b["dk_max_abs_err"], b["dv_max_abs_err"]), "ms": b["dkv_ms"],
+          "plain_ms": b["plain_ms"], "bound_ms": b["dkv_bound_ms"], "bound_by": b["dkv_bound_by"],
+          "library_ms": b["library_ms"]}),
+        ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
+         "consensusml_tpu/compress/kernels.py:953", enc),
     ]
+    launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
+    serve, counts = serve_phase(torch, dev)
+    emit(serve)
+    for name, n in counts.items():
+        launches[name]["serve"] = n
+    torch.cuda.empty_cache()
+    train, counts = train_phase(torch, dev)
+    emit(train)
+    for name, n in counts.items():
+        launches[name]["train"] = n
+
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], **({"by_shape": r["by_shape"]} if "by_shape" in r else {})}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

@@ -1,0 +1,285 @@
+"""The gossip round on the simulated backend: exact mixing or CHOCO
+compressed mixing (port of ``consensusml_tpu/consensus/engine.py``).
+
+CHOCO-SGD update (gamma = consensus step size, Q = compressor):
+
+    q_i     = Q(x_i - xhat_i)               # compressed innovation
+    xhat_i <- xhat_i + dec(q_i)             # everyone can track this
+    s_i    <- s_i + sum_j W[i,j] dec(q_j)   # only q travels the wire
+    x_i    <- x_i + gamma * (s_i - xhat_i)
+
+This slice ports the bucketed wire of the simulated backend: exact
+mixing over dense buckets, and CHOCO over codec buckets through the fused
+one-pass encode (one kernel launch per bucket per exchange). The warm-up
+and periodic dense-refresh rounds of the reference (``lax.cond`` on the
+round counter) are a Python ``if`` on the host's round counter here.
+
+Not ported yet, and refused with ``NotImplementedError`` when set: the
+per-leaf wire (``bucket_bytes=None``), the two-step bucketed wire
+(``fused_wire=False``, or a codec without a fused wire), ``path_filter``,
+``compress_filter`` other than ``"auto"`` (and exact-mixed
+``model_state`` leaves under it), faults, push-sum, ``fused_codec``,
+overlap gossip and its pipelining, stochastic codecs, and the collective
+backend.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from consensusml_tpu_torch.comm import simulated
+from consensusml_tpu_torch.compress.base import Compressor
+from consensusml_tpu_torch.consensus.bucketing import (
+    BucketPlan,
+    FusedWirePlan,
+    build_fused_plan,
+    build_plan,
+)
+from consensusml_tpu_torch.topology import Topology
+from consensusml_tpu_torch.utils import tree as T
+
+__all__ = ["GossipConfig", "ChocoState", "ConsensusEngine"]
+
+
+class ChocoState(NamedTuple):
+    """Compressed-gossip state: per-bucket f32 buffers, ``(W, total)``
+    stacked (or ``(total,)`` per worker)."""
+
+    xhat: list
+    s: list
+
+
+# field -> its default; any other value is a path this slice does not port
+_NOT_PORTED = {
+    "path_filter": None,
+    "compress_filter": "auto",
+    "faults": None,
+    "push_sum": False,
+    "fused_codec": False,
+    "overlap": False,
+    "pipeline_depth": 1,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipConfig:
+    """How one consensus round is performed (the reference's fields; those
+    this slice reads are documented there)."""
+
+    topology: Topology
+    compressor: Compressor | None = None  # None => exact mixing
+    gamma: float = 1.0
+    path_filter: Any = None
+    compress_filter: Any = "auto"
+    faults: Any = None
+    push_sum: bool | str = False
+    fused_codec: bool = False
+    overlap: bool = False
+    gossip_steps: int = 1
+    codec_warmup_rounds: int = 0
+    codec_refresh_every: int = 0
+    bucket_bytes: int | None = 4 * 2**20
+    fused_wire: bool | str = "auto"
+    pipeline_depth: int = 1
+
+    def __post_init__(self):
+        for name, default in _NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"GossipConfig.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(only the default {default!r})"
+                )
+        if self.bucket_bytes is None:
+            raise NotImplementedError("the per-leaf wire (bucket_bytes=None) is not ported yet")
+        if self.bucket_bytes <= 0:
+            raise ValueError(f"bucket_bytes must be positive, got {self.bucket_bytes}")
+        if self.fused_wire not in (True, False, "auto"):
+            raise ValueError(f"fused_wire must be True, False or 'auto', got {self.fused_wire!r}")
+        comp = self.compressor
+        if comp is not None:
+            from consensusml_tpu_torch.compress.kernels import fused_bucket_codec
+
+            if comp.stochastic:
+                raise NotImplementedError("stochastic codecs are not ported yet")
+            if self.fused_wire is False or fused_bucket_codec(comp) is None:
+                raise NotImplementedError(
+                    f"{type(comp).__name__} with fused_wire={self.fused_wire!r}: only the fused "
+                    "one-pass wire (per-chunk int8) is ported; the two-step and per-leaf "
+                    "wires are not"
+                )
+        elif self.fused_wire is True:
+            raise NotImplementedError("fused_wire=True without a compressor has nothing to fuse")
+        if self.gossip_steps < 1:
+            raise ValueError(f"gossip_steps must be >= 1, got {self.gossip_steps}")
+        for name in ("codec_warmup_rounds", "codec_refresh_every"):
+            value = getattr(self, name)
+            if value < 0:
+                raise ValueError(f"{name} must be >= 0, got {value}")
+            if value > 0 and comp is None:
+                raise NotImplementedError(f"{name} without a compressor is meaningless")
+
+
+def _check_bucket_state(packed: list, xhat: list) -> None:
+    shapes = lambda xs: [tuple(b.shape) for b in xs]
+    if len(xhat) != len(packed) or shapes(xhat) != shapes(packed):
+        raise ValueError(
+            "bucketed CHOCO state does not match this round's bucket layout: params pack "
+            f"to {shapes(packed)} but the state holds {shapes(xhat)}. For stacked params, "
+            "init_state needs world_size=...; rebuild state after changing bucket_bytes, "
+            "the codec, or the tree."
+        )
+
+
+def _check_no_model_state(tree: Any) -> None:
+    # compress_filter="auto" mixes model_state leaves exactly; that split
+    # (BatchNorm statistics) comes with the ResNet slice
+    for path, _ in T.flatten_with_paths(tree):
+        if path and path[0] == "model_state":
+            raise NotImplementedError(
+                "exact-mixed model_state leaves (compress_filter='auto') are not ported yet"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class ConsensusEngine:
+    config: GossipConfig
+
+    @property
+    def topology(self) -> Topology:
+        return self.config.topology
+
+    @property
+    def compressed(self) -> bool:
+        return self.config.compressor is not None
+
+    @property
+    def bucketed(self) -> bool:
+        """Always true in this slice (the config refuses the per-leaf wire)."""
+        return True
+
+    @property
+    def fused_wire_active(self) -> bool:
+        """True for every compressed config (the config refuses the rest)."""
+        return self.compressed
+
+    def _dense_plan(self, leaves: list, stacked: bool = False) -> BucketPlan:
+        return build_plan(
+            [(tuple(x.shape[1:] if stacked else x.shape), x.dtype) for x in leaves],
+            bucket_bytes=self.config.bucket_bytes,
+        )
+
+    def _codec_plan(self, leaves: list, stacked: bool = False) -> BucketPlan:
+        """CHOCO layout: f32 buffers, leaves padded to the codec's chunk,
+        buckets capped on the estimated codec payload."""
+        comp = self.config.compressor
+        align = comp.bucket_alignment()
+        rate = comp.wire_bytes((align,), torch.float32)
+        return build_plan(
+            [(tuple(x.shape[1:] if stacked else x.shape), torch.float32) for x in leaves],
+            bucket_bytes=self.config.bucket_bytes,
+            align=align,
+            wire_bytes=lambda n, dtype: (n // align) * rate,
+        )
+
+    def bucket_plan(self, params: Any, stacked: bool = False) -> BucketPlan:
+        leaves = T.leaves(params)
+        if self.compressed:
+            return self._codec_plan(leaves, stacked=stacked)
+        return self._dense_plan(leaves, stacked=stacked)
+
+    # ---- state ----------------------------------------------------------
+    def init_state(self, params: Any, world_size: int | None = None) -> ChocoState | None:
+        """Zero per-bucket CHOCO state for ``params`` (stacked leaves with
+        ``world_size``, per-worker leaves without), or ``None`` for exact
+        mixing."""
+        if not self.compressed:
+            return None
+        _check_no_model_state(params)
+        leaves = T.leaves(params)
+        plan = self._codec_plan(leaves, stacked=world_size is not None)
+        device = leaves[0].device if leaves else None
+        lead = () if world_size is None else (world_size,)
+        xhat = [torch.zeros(lead + (b.total,), dtype=torch.float32, device=device) for b in plan.buckets]
+        return ChocoState(xhat=xhat, s=[torch.zeros_like(z) for z in xhat])
+
+    # ---- simulated round ------------------------------------------------
+    def round_simulated(self, params: Any, state: ChocoState | None, w: torch.Tensor,
+                        step: int | None = None):
+        """One gossip round on stacked tensors (leading axis = workers).
+        ``step`` is the round counter, needed when warm-up or refresh
+        rounds are configured. Returns ``(new_params, new_state)``."""
+        cfg = self.config
+        if step is None and (cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0):
+            raise ValueError("codec_warmup_rounds/codec_refresh_every need the round counter (step=...)")
+        n_iter = cfg.gossip_steps
+        leaves, spec = T.flatten(params)
+        if not self.compressed:
+            plan = self._dense_plan(leaves, stacked=True)
+            bufs = plan.pack(leaves, stacked=True)
+            for _ in range(n_iter):
+                bufs = [simulated.mix_stacked(b, w) for b in bufs]
+            return T.unflatten(spec, plan.unpack(bufs, stacked=True)), None
+
+        _check_no_model_state(params)
+        x32 = [x.to(torch.float32) for x in leaves]
+        plan = self._codec_plan(x32, stacked=True)
+        fused = build_fused_plan(plan, cfg.compressor)
+        x = plan.pack(x32, stacked=True)
+        del x32
+        xhat, s = list(state.xhat), list(state.s)
+        _check_bucket_state(x, xhat)
+
+        def track(x, xhat, s):
+            return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
+
+        warm, refresh = cfg.codec_warmup_rounds, cfg.codec_refresh_every
+        if (warm > 0 and step < warm) or (refresh > 0 and step % refresh == 0):
+            # dense mixing, while the innovation exchange keeps xhat/s warm
+            xhat, s = track(x, xhat, s)
+            for _ in range(n_iter):
+                x = [simulated.mix_stacked(b, w) for b in x]
+        else:
+            for _ in range(n_iter):
+                xhat, s = track(x, xhat, s)
+                x = [xi + cfg.gamma * (si - hi) for xi, si, hi in zip(x, s, xhat)]
+        new = [piece.to(old.dtype) for piece, old in zip(plan.unpack(x, stacked=True), leaves)]
+        return T.unflatten(spec, new), ChocoState(xhat=xhat, s=s)
+
+    def _innovation_exchange_fused_simulated(self, x: list, xhat: list, s: list,
+                                             w: torch.Tensor, fused: FusedWirePlan):
+        """The fused wire's exchange on stacked ``(W, total)`` buffers: one
+        encode launch per bucket (the worker axis only adds rows), then the
+        decoded innovations mix through the matrix. Bucket by bucket, so
+        only one bucket's temporaries are alive at a time; the buckets are
+        independent, so this is the reference's all-buckets-at-once math."""
+        fused._check(x, "encode")
+        new_hat, new_s = [], []
+        for xb, hb, sb in zip(x, xhat, s):
+            q, hat = fused.codec.encode(xb, hb)
+            recv = simulated.mix_stacked(fused.codec.decode(q), w)
+            new_hat.append(hat)
+            new_s.append(sb + recv)
+        return new_hat, new_s
+
+    # ---- accounting -----------------------------------------------------
+    def wire_bytes_per_round(self, params: Any) -> int:
+        """Bytes ONE worker sends per steady-state round (``params`` are
+        per-worker leaves; only their shapes are read): the codec payload
+        of every bucket (dense f32 for exact mixing), times the neighbour
+        sends, times ``gossip_steps``. Warm-up and refresh rounds ship the
+        dense params besides and are not folded in, as in the reference."""
+        comp = self.config.compressor
+        leaves = T.leaves(params)
+        if comp is None:
+            payload = sum(4 * int(torch.Size(x.shape).numel()) for x in leaves)
+        else:
+            plan = self._codec_plan(leaves)
+            payload = sum(comp.wire_bytes((b.total,), torch.float32) for b in plan.buckets)
+        # one payload per neighbour shift (the ring's two)
+        return int(payload * len(self.topology.shifts) * self.config.gossip_steps)
+
+    def consensus_error_simulated(self, params: Any) -> torch.Tensor:
+        return simulated.consensus_error_stacked(params, self.topology.world_size)

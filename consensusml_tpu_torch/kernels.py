@@ -30,6 +30,7 @@ from pathlib import Path
 
 __all__ = [
     "KERNELS",
+    "SOURCES",
     "BUILD_DIR",
     "build",
     "load",
@@ -45,15 +46,29 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-# kernel name -> (module, wrapper attribute): the source is csrc/<name>.cu
+# kernel name -> (module, wrapper attribute, source): the source is
+# csrc/<source>.cu; one source may hold several kernels (the flash
+# backward's dq and dk/dv)
 KERNELS = {
     "paged_attention": (
-        "consensusml_tpu_torch.models.paged_attention", "paged_attention"
+        "consensusml_tpu_torch.models.paged_attention", "paged_attention", "paged_attention"
     ),
     "flash_attention_fwd": (
-        "consensusml_tpu_torch.models.flash_attention", "flash_attention"
+        "consensusml_tpu_torch.models.flash_attention", "flash_attention", "flash_attention_fwd"
+    ),
+    "flash_attention_bwd_dq": (
+        "consensusml_tpu_torch.models.flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd",
+    ),
+    "flash_attention_bwd_dkv": (
+        "consensusml_tpu_torch.models.flash_attention", "flash_attention_bwd_dkv",
+        "flash_attention_bwd",
+    ),
+    "fused_choco_encode": (
+        "consensusml_tpu_torch.compress.kernels", "fused_pack_quantize", "fused_choco_encode"
     ),
 }
+SOURCES = tuple(dict.fromkeys(src for _m, _a, src in KERNELS.values()))
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -79,11 +94,12 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
-def build(names=tuple(KERNELS)) -> dict[str, dict]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together. Returns per kernel ``{"seconds",
-    "cached", "ptxas"}`` (``ptxas`` = the register/spill report lines).
-    Raises with the compiler's output when a build fails."""
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every named source (``csrc/<name>.cu``) whose library is
+    missing, one ``nvcc`` per source, all started together. Returns per
+    source ``{"seconds", "cached", "ptxas"}`` (``ptxas`` = the
+    register/spill report lines). Raises with the compiler's output when
+    a build fails."""
     with _lock:
         return _build_locked(list(names))
 
@@ -93,8 +109,8 @@ def _build_locked(names: list[str]) -> dict[str, dict]:
     out: dict[str, dict] = {}
     procs = {}
     for name in names:
-        if name not in KERNELS:
-            raise ValueError(f"unknown kernel {name!r} (one of {sorted(KERNELS)})")
+        if name not in SOURCES:
+            raise ValueError(f"unknown kernel source {name!r} (one of {list(SOURCES)})")
         lib = _lib_path(name)
         log = lib.with_suffix(".log")
         if lib.exists():
@@ -137,7 +153,7 @@ def _ptxas(log: Path) -> list[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name``, built first if needed."""
+    """The loaded shared library of source ``name``, built first if needed."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -147,7 +163,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _wrappers():
-    for name, (module, attr) in KERNELS.items():
+    for name, (module, attr, _src) in KERNELS.items():
         yield name, getattr(importlib.import_module(module), attr)
 
 

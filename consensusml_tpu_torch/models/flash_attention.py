@@ -1,12 +1,22 @@
-"""Flash-attention forward: CUDA kernel + its plain PyTorch version.
+"""Flash attention, forward and backward: CUDA kernels + plain versions.
 
-Port of ``consensusml_tpu/models/flash_attention.py`` (forward only; the
-backward kernels come with the training slice). The kernel is
-``csrc/flash_attention_fwd.cu``; :func:`flash_attention_plain` computes
-the same function — f32 logits, f32 softmax, f32 probabilities in the PV
-product, output in ``dtype``, plus the per-row logsumexp — densely in
-PyTorch. :func:`flash_attention` runs the plain version for tensors on the
-CPU and the kernel for CUDA tensors (or raises); it never falls back.
+Port of ``consensusml_tpu/models/flash_attention.py``. Three kernels:
+
+- ``csrc/flash_attention_fwd.cu`` (wrapper :func:`flash_attention`): the
+  forward and its per-row logsumexp; plain version
+  :func:`flash_attention_plain` (f32 logits, f32 softmax, f32
+  probabilities in the PV product, output in ``dtype``);
+- ``csrc/flash_attention_bwd.cu`` (wrappers :func:`flash_attention_bwd_dq`
+  and :func:`flash_attention_bwd_dkv`): the backward from the saved
+  logsumexp; plain version :func:`flash_attention_bwd_plain` (dense
+  recomputation, same f32 math, outputs in the input dtype).
+
+Under autograd :func:`flash_attention` is a ``torch.autograd.Function``
+(the reference's ``custom_vjp``): the forward saves ``q, k, v, o, lse``;
+the backward computes ``delta = sum(do * o)`` in f32 with plain ops (the
+reference does this outside its kernels too) and launches the dq and
+dk/dv kernels. Every wrapper runs its plain version for tensors on the
+CPU and its kernel for CUDA tensors (or raises); it never falls back.
 """
 
 from __future__ import annotations
@@ -17,7 +27,13 @@ import torch
 
 from consensusml_tpu_torch import kernels
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = [
+    "flash_attention",
+    "flash_attention_plain",
+    "flash_attention_bwd_plain",
+    "flash_attention_bwd_dq",
+    "flash_attention_bwd_dkv",
+]
 
 _NEG_INF = -1e30
 _KERNEL_HEAD_DIM = 64
@@ -77,43 +93,37 @@ def _lib():
     return fn
 
 
-def flash_attention(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = False,
-    kv_mask: torch.Tensor | None = None,
-    dtype: torch.dtype = torch.bfloat16,
-    return_lse: bool = False,
-):
-    """Self-attention through the CUDA flash forward (the reference's
-    ``flash_attention`` contract, layout ``(B, S, H, D)``).
+def _bwd_lib(name: str, n_out: int):
+    fn = getattr(kernels.load("flash_attention_bwd"), name)
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    return fn
 
-    A CPU tensor runs :func:`flash_attention_plain`. A CUDA tensor
-    launches ``csrc/flash_attention_fwd.cu`` on the current stream: bf16,
-    contiguous, head dim 64; ``kv_mask`` is not in this kernel yet and
-    raises ``NotImplementedError``. Each launch adds one to
-    ``flash_attention.launches``.
-    """
-    if not q.is_cuda:
-        return flash_attention_plain(
-            q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype, return_lse=return_lse
-        )
-    _check_self_attention(q, k, v)
-    if kv_mask is not None:
-        raise NotImplementedError("the CUDA flash forward has no kv_mask yet")
+
+def _check_kernel_operands(q, tensors, align: int) -> None:
     b, s, h, d = q.shape
     if d != _KERNEL_HEAD_DIM:
-        raise NotImplementedError(f"the CUDA flash forward takes head dim 64, got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 4:
-            raise ValueError(
-                f"{name} must be a contiguous, 4-byte aligned bf16 tensor on {q.device}, "
-                f"got {t.dtype} contiguous={t.is_contiguous()} on {t.device}"
-            )
+        raise NotImplementedError(f"the CUDA flash kernels take head dim 64, got {d}")
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h} exceeds the grid's y limit 65535")
+    for name, t in tensors:
+        if (t.dtype != torch.bfloat16 or t.shape != q.shape or not t.is_contiguous()
+                or t.device != q.device or t.data_ptr() % align):
+            raise ValueError(
+                f"{name} must be a contiguous, {align}-byte aligned bf16 tensor of shape "
+                f"{tuple(q.shape)} on {q.device}, got {t.dtype} {tuple(t.shape)} "
+                f"contiguous={t.is_contiguous()} on {t.device}"
+            )
+
+
+def _forward(q, k, v, causal: bool, return_lse: bool):
+    """The forward kernel: ``(out (B, S, H, D) bf16, lse (B, H, S) f32 or
+    None)``. Each launch adds one to ``flash_attention.launches``."""
+    _check_self_attention(q, k, v)
+    _check_kernel_operands(q, (("q", q), ("k", k), ("v", v)), 4)
+    b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     rc = _lib()(
@@ -125,8 +135,159 @@ def flash_attention(
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    return out, lse
+
+
+def _bwd_plain_parts(q, k, v, dout, lse, delta, causal: bool):
+    """Dense recomputation of the backward from the saved logsumexp, f32
+    math: ``(dq, dk, dv)`` in q's dtype."""
+    _check_self_attention(q, k, v)
+    s = q.shape[1]
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    logits = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        valid = valid.tril()
+    p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
+    del logits
+    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
+    ds = p * (dp - delta[..., None])
+    del dp
+    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``sum(do * o)`` per query row in f32, laid out (B, H, S)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = False):
+    """The backward kernels' function in plain PyTorch: ``(dq, dk, dv)`` of
+    self-attention with output ``out`` and its logsumexp ``lse`` (B, H, S),
+    for the output cotangent ``dout`` — the reference's ``_bwd`` (delta,
+    then the dq and dk/dv recomputations) op for op, densely."""
+    return _bwd_plain_parts(q, k, v, dout, lse, _delta(out, dout), causal)
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False):
+    """dq through ``csrc/flash_attention_bwd.cu`` for CUDA tensors (bf16,
+    contiguous, 16-byte aligned, head dim 64; ``lse``/``delta`` (B, H, S)
+    f32), the plain version for CPU tensors. Each launch adds one to
+    ``flash_attention_bwd_dq.launches``."""
+    if not q.is_cuda:
+        return _bwd_plain_parts(q, k, v, dout, lse, delta, causal)[0]
+    ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
+    _check_kernel_operands(q, ops, 16)
+    _check_row_stats(q, lse, delta)
+    b, s, h, d = q.shape
+    dq = torch.empty_like(q)
+    rc = _bwd_lib("cml_flash_attention_bwd_dq_bf16", 1)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, s, h, d, int(causal), 1.0 / float(d) ** 0.5,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {rc}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False):
+    """``(dk, dv)`` through ``csrc/flash_attention_bwd.cu`` for CUDA
+    tensors, the plain version for CPU tensors (same operand rules as
+    :func:`flash_attention_bwd_dq`). Each launch adds one to
+    ``flash_attention_bwd_dkv.launches``."""
+    if not q.is_cuda:
+        return _bwd_plain_parts(q, k, v, dout, lse, delta, causal)[1:]
+    ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
+    _check_kernel_operands(q, ops, 16)
+    _check_row_stats(q, lse, delta)
+    b, s, h, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _bwd_lib("cml_flash_attention_bwd_dkv_bf16", 2)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, h, d, int(causal),
+        1.0 / float(d) ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {rc}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _check_row_stats(q, lse, delta) -> None:
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, h, s) or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous (B, H, S) = {(b, h, s)} f32 tensor on {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` around the flash forward: saves
+    ``q, k, v, o, lse``; the backward is the dq and dk/dv wrappers (the
+    kernels for CUDA tensors, their plain version for CPU ones)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        if q.is_cuda:
+            out, lse = _forward(q, k, v, causal, True)
+        else:
+            out, lse = flash_attention_plain(q, k, v, causal=causal, dtype=q.dtype, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        ctx.causal = causal
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = _delta(out, dout)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: torch.Tensor | None = None,
+    dtype: torch.dtype = torch.bfloat16,
+    return_lse: bool = False,
+):
+    """Self-attention through the CUDA flash kernels (the reference's
+    ``flash_attention`` contract, layout ``(B, S, H, D)``).
+
+    A CPU tensor runs the plain versions. A CUDA tensor launches
+    ``csrc/flash_attention_fwd.cu`` on the current stream (bf16,
+    contiguous, head dim 64) and, when autograd records the call, the
+    backward kernels of ``csrc/flash_attention_bwd.cu``. ``kv_mask`` is
+    not in these kernels yet and raises ``NotImplementedError`` on the
+    card.
+    """
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if kv_mask is not None and (q.is_cuda or needs_grad):
+        raise NotImplementedError("the flash kernels and their autograd path have no kv_mask yet")
+    if needs_grad:
+        out, lse = _FlashAttention.apply(q, k, v, causal)
+        out = out.to(dtype)
+        return (out, lse) if return_lse else out
+    if not q.is_cuda:
+        return flash_attention_plain(
+            q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype, return_lse=return_lse
+        )
+    out, lse = _forward(q, k, v, causal, return_lse)
     out = out.to(dtype)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0

@@ -48,7 +48,7 @@ class DecodeModel:
             max_len=c.max_len,
             vocab_size=c.vocab_size,
             cache_dtype=c.dtype,
-            device=model.wte.device,
+            device=model.wte.embedding.device,
         )
 
 

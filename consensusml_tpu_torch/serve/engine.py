@@ -72,14 +72,18 @@ class ServeConfig:
 
 class Engine:
     """In-process serving engine. ``Engine(model, config, device=...)``
-    moves ``model`` to ``device`` (``None`` = CUDA; raises without a GPU),
-    then :meth:`submit` from any thread. Use as a context manager or call
+    moves ``model`` to ``device`` (``None`` = CUDA; raises without a GPU)
+    and casts its Dense and embedding parameters to the compute dtype in
+    place (:meth:`GPT2LM.to_compute_dtype`), then :meth:`submit` from any
+    thread. Use as a context manager or call
     :meth:`shutdown`, which drains in-flight work by default."""
 
     def __init__(self, model: Any, config: ServeConfig | None = None, *, device=None):
         self.config = cfg = config or ServeConfig()
         self.device = resolve_device(device)
-        model = model.to(self.device).eval()
+        # the compute-dtype cast happens once here (the model's f32 masters
+        # are a training concern): per-op casts then do nothing
+        model = model.to(self.device).eval().to_compute_dtype()
         self._dm = dm = DecodeModel.wrap(model)
         self.max_len = cfg.max_len or dm.max_len
         if not 0 < self.max_len <= dm.max_len:

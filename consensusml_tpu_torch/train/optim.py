@@ -1,0 +1,82 @@
+"""Adam with optax's exact update, as plain tensor ops.
+
+The reference trains with ``optax.adam`` (a library, so there is no JAX
+module to mirror). ``torch.optim.Adam`` is a different optimiser in the
+last bits: it adds ``eps`` after dividing the square root by the bias
+correction and may run fused multi-tensor paths. This module is optax's
+``scale_by_adam`` followed by ``scale_by_learning_rate``, op for op:
+
+    mu    = (1 - b1) * g + b1 * mu
+    nu    = (1 - b2) * g**2 + b2 * nu
+    count = count + 1                       (int32, saturating)
+    u     = (mu / (1 - b1**count)) / (sqrt(nu / (1 - b2**count)) + eps)
+    p     = p + (-lr) * u
+
+with the bias corrections computed in float32 from the integer count.
+State is stacked over workers (leading axis), and :meth:`Adam.update_`
+updates one worker's views in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["Adam", "AdamState", "adam"]
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+
+@dataclasses.dataclass
+class AdamState:
+    count: torch.Tensor  # (W,) int32 on the host: steps taken per worker
+    mu: dict[str, torch.Tensor]  # stacked (W, ...) f32, like params
+    nu: dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Adam:
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params: dict[str, torch.Tensor], world_size: int) -> AdamState:
+        return AdamState(
+            count=torch.zeros((world_size,), dtype=torch.int32),
+            mu={n: torch.zeros_like(p) for n, p in params.items()},
+            nu={n: torch.zeros_like(p) for n, p in params.items()},
+        )
+
+    def _correction(self, decay: float, count: int, device) -> torch.Tensor:
+        # optax: 1 - decay**count in float32, divided by as a tensor (a
+        # Python-scalar divisor may become a reciprocal product)
+        d = np.float32(decay) ** np.float32(count)
+        return torch.tensor(np.float32(1.0) - d, dtype=torch.float32, device=device)
+
+    @torch.no_grad()
+    def update_(self, params: dict, grads: dict, state: AdamState, worker: int) -> None:
+        """One step of worker ``worker``: ``params[n]`` are that worker's
+        (views of the stacked) f32 parameters, updated in place with the
+        moments ``state.mu[n][worker]`` / ``state.nu[n][worker]``."""
+        count = min(int(state.count[worker]) + 1, _INT32_MAX)
+        state.count[worker] = count
+        bc1 = bc2 = None
+        for name, p in params.items():
+            g = grads[name]
+            if bc1 is None:
+                bc1 = self._correction(self.b1, count, p.device)
+                bc2 = self._correction(self.b2, count, p.device)
+            mu = state.mu[name][worker]
+            nu = state.nu[name][worker]
+            mu.copy_((1 - self.b1) * g + self.b1 * mu)
+            nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            p.copy_(p + (-self.lr) * u)
+
+
+def adam(lr: float) -> Adam:
+    """``optax.adam(lr)`` with optax's defaults."""
+    return Adam(lr=lr)

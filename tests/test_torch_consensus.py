@@ -1,0 +1,168 @@
+"""The port's bucketed CHOCO round (simulated backend) against the JAX
+package's.
+
+- Bucket layout: the port's plan over its GPT-2 parameters (flax paths,
+  flax shapes, the reference's flatten order) equals the reference's plan
+  over the flax tree, at the smoke size and at GPT-2-medium (shapes only).
+- Rounds: from the same stacked parameters, one warm round (dense mixing
+  plus the innovation exchange) then one CHOCO round, through the fused
+  int8 wire (JAX: its Pallas kernel in interpret mode). The parameters
+  and the per-bucket ``xhat``/``s`` state are held BIT FOR BIT: the
+  mixing product ``W @ x`` of a 4x4 matrix sums the same four products
+  in the same order in both, and the port computes the reference's fused
+  multiply-adds with one rounding (``compress/reference.py:fma_f32``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from consensusml_tpu.comm import simulated as jsim
+from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
+from consensusml_tpu.consensus import ConsensusEngine as JaxEngine
+from consensusml_tpu.consensus import GossipConfig as JaxGossip
+from consensusml_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
+from consensusml_tpu.models.gpt2 import GPT2LM as JaxGPT2LM
+from consensusml_tpu.topology import RingTopology as JaxRing
+from consensusml_tpu_torch.comm import simulated
+from consensusml_tpu_torch.compress import PallasInt8Compressor
+from consensusml_tpu_torch.configs import gpt2_config
+from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+from consensusml_tpu_torch.models.convert import gpt2_from_flax
+from consensusml_tpu_torch.models.gpt2 import GPT2LM
+from consensusml_tpu_torch.topology import RingTopology
+
+SMOKE = dict(vocab_size=64, hidden=32, layers=2, heads=2, max_len=32, dropout=0.0)
+WORLD = 4
+
+
+def _flax_shapes(geom):
+    model = JaxGPT2LM(config=JaxGPT2Config(**geom))
+    return jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
+
+
+def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1):
+    jeng = JaxEngine(JaxGossip(
+        topology=JaxRing(WORLD), compressor=JaxInt8(chunk=chunk, impl="interpret"), gamma=gamma,
+        codec_warmup_rounds=warm, bucket_bytes=bucket_bytes, gossip_steps=steps,
+    ))
+    teng = ConsensusEngine(GossipConfig(
+        topology=RingTopology(WORLD), compressor=PallasInt8Compressor(chunk=chunk), gamma=gamma,
+        codec_warmup_rounds=warm, bucket_bytes=bucket_bytes, gossip_steps=steps,
+    ))
+    return jeng, teng
+
+
+def _layout(plan):
+    return [
+        (b.total, [(bl.index, tuple(bl.shape), bl.size, bl.padded, bl.offset) for bl in b.leaves])
+        for b in plan.buckets
+    ]
+
+
+@pytest.mark.parametrize("scale,bucket_bytes", [("smoke", 4 * 2**20), ("smoke", 3000), ("full", 4 * 2**20)])
+def test_bucket_plan_matches_reference(scale, bucket_bytes):
+    geom = SMOKE if scale == "smoke" else {}
+    chunk = 128 if scale == "smoke" else 512
+    jeng, teng = _engines(chunk=chunk, bucket_bytes=bucket_bytes)
+    jtree = {"params": _flax_shapes(geom), "model_state": {}}
+    meta = GPT2LM(gpt2_config(scale), device="meta")
+    ttree = {"params": dict(meta.named_parameters()), "model_state": {}}
+    jplan, tplan = jeng.bucket_plan(jtree), teng.bucket_plan(ttree)
+    assert _layout(tplan) == _layout(jplan)
+    assert teng.wire_bytes_per_round(ttree) == jeng.wire_bytes_per_round(jtree)
+    if scale == "full":
+        # the encode launches per round on the card (one per bucket)
+        assert tplan.num_buckets == jplan.num_buckets == 123
+
+
+def _stacked_params(seed):
+    """Stacked (W, ...) flax-layout parameters, numpy-seeded per worker."""
+    rng = np.random.default_rng(seed)
+    shapes = _flax_shapes(SMOKE)
+    return jax.tree.map(
+        lambda s: rng.normal(0.0, 0.5, size=(WORLD,) + s.shape).astype(np.float32), shapes
+    )
+
+
+def _bits(x):
+    return np.asarray(x, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("steps", [1, 2])
+def test_warm_then_choco_rounds_bit_equal(steps):
+    jeng, teng = _engines(warm=1, bucket_bytes=3000, steps=steps)  # several buckets
+    params = _stacked_params(0)
+    jtree = {"params": jax.tree.map(jnp.asarray, params), "model_state": {}}
+    ttree = {"params": gpt2_from_flax(params), "model_state": {}}
+    jstate = jeng.init_state(jtree, world_size=WORLD)
+    tstate = teng.init_state(ttree, world_size=WORLD)
+    assert [tuple(x.shape) for x in tstate.xhat] == [x.shape for x in jstate.xhat]
+    assert len(tstate.xhat) > 1
+    jw = jsim.mixing_matrix(jeng.topology)
+    tw = simulated.mixing_matrix(teng.topology)
+    jround = jax.jit(lambda p, s, step: jeng.round_simulated(p, s, jw, step=step))
+    for step in range(3):  # 0: warm (dense mixing), then CHOCO
+        jtree, jstate = jround(jtree, jstate, jnp.int32(step))
+        ttree, tstate = teng.round_simulated(ttree, tstate, tw, step=step)
+        want = gpt2_from_flax(jax.tree.map(np.asarray, jtree["params"]))
+        for name, got in ttree["params"].items():
+            np.testing.assert_array_equal(_bits(got.numpy()), _bits(want[name]), err_msg=f"{step} {name}")
+        for got, want_b in zip(tstate.xhat + tstate.s, list(jstate.xhat) + list(jstate.s)):
+            np.testing.assert_array_equal(_bits(got.numpy()), _bits(want_b), err_msg=f"state, round {step}")
+    err = teng.consensus_error_simulated(ttree["params"])
+    want_err = float(jeng.consensus_error_simulated(jtree["params"]))
+    # f32 sums over all leaves, reduced in different orders: a few ulps
+    assert abs(float(err) - want_err) <= 1e-6 * want_err
+
+
+def test_fused_wire_plan_encode_bit_equal():
+    """The reference's all-buckets encode/decode of ``FusedWirePlan`` (the
+    simulated round drives the codec bucket by bucket instead)."""
+    from consensusml_tpu.consensus.bucketing import build_fused_plan as jax_build_fused_plan
+    from consensusml_tpu_torch.consensus.bucketing import build_fused_plan
+
+    jeng, teng = _engines(bucket_bytes=3000)
+    params = _stacked_params(2)
+    ttree = {"params": gpt2_from_flax(params), "model_state": {}}
+    jtree = {"params": params, "model_state": {}}
+    tplan = teng.bucket_plan(ttree, stacked=True)
+    jplan = jeng.bucket_plan(jtree, stacked=True)
+    tf = build_fused_plan(tplan, teng.config.compressor)
+    jf = jax_build_fused_plan(jplan, JaxInt8(chunk=128, impl="interpret"))
+    tx = tplan.pack([t for t in ttree["params"].values()], stacked=True)
+    jx = jplan.pack(jax.tree.leaves(jax.tree.map(jnp.asarray, jtree)), stacked=True)
+    th = [torch.full_like(b, 0.25) for b in tx]
+    tq, tnew = tf.encode(tx, th)
+    jq, jnew = jf.encode(jx, [jnp.full_like(b, 0.25) for b in jx])
+    for a, b in zip(tnew + tf.decode(tq), list(jnew) + list(jf.decode(jq))):
+        np.testing.assert_array_equal(_bits(a.numpy()), _bits(b))
+
+
+def test_exact_mixing_round_bit_equal():
+    jeng = JaxEngine(JaxGossip(topology=JaxRing(WORLD), bucket_bytes=3000))
+    teng = ConsensusEngine(GossipConfig(topology=RingTopology(WORLD), bucket_bytes=3000))
+    params = _stacked_params(1)
+    jw, tw = jsim.mixing_matrix(jeng.topology), simulated.mixing_matrix(teng.topology)
+    jout, jstate = jax.jit(lambda p: jeng.round_simulated(p, None, jw))({"params": params, "model_state": {}})
+    tout, tstate = teng.round_simulated({"params": gpt2_from_flax(params), "model_state": {}}, None, tw)
+    assert tstate is None and jstate is None
+    want = gpt2_from_flax(jax.tree.map(np.asarray, jout["params"]))
+    for name, got in tout["params"].items():
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want[name]), err_msg=name)
+
+
+def test_unported_options_refuse():
+    topo = RingTopology(WORLD)
+    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"fused_wire": False},
+                   {"bucket_bytes": None}, {"path_filter": lambda p: True}):
+        with pytest.raises(NotImplementedError):
+            GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), **kwargs)
+    with pytest.raises(NotImplementedError):
+        GossipConfig(topology=topo, codec_warmup_rounds=1)
+    eng = ConsensusEngine(GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128)))
+    with pytest.raises(NotImplementedError):
+        eng.init_state({"params": {"w": torch.zeros(4, 3)}, "model_state": {"bn": torch.zeros(4, 2)}},
+                       world_size=WORLD)

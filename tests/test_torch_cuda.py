@@ -126,3 +126,84 @@ def test_gpt2_on_card_defaults_to_the_kernels(dev):
     assert tfa.flash_attention.launches == flash0 + cfg.layers
     assert tpa.paged_attention.launches == paged0 + cfg.layers
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+
+
+@pytest.mark.parametrize("s", [600, 1024])
+def test_flash_autograd_matches_plain_autograd(dev, s):
+    """The autograd ``flash_attention`` on CUDA tensors (forward kernel,
+    then the dq and dk/dv kernels), for one output cotangent, against
+
+    - ``flash_attention_bwd_plain`` on the plain forward's output and
+      logsumexp (the reference's backward, delta from the bf16 output),
+      at chip_smoke.py's gate (atol 3e-3, rtol 2**-6);
+    - autograd through ``flash_attention_plain``. That differentiates the
+      f32 output before its bf16 rounding, so its delta moves by up to
+      ~|do|·|o|·2**-9 over 64 dims; on short causal rows (|o| ~ 1, few
+      keys) that shifts dq and dk by up to ~1.5e-2 (8.3e-3 read at
+      S=600), hence atol 2e-2 here.
+    """
+    gen = torch.Generator(device=dev).manual_seed(s + 1)
+    base = [torch.randn(2, s, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3)]
+    do = torch.randn(2, s, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+    grads = {}
+    counts = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    for fn in (tfa.flash_attention, tfa.flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_() for t in base)
+        out = fn(q, k, v, causal=True)
+        assert out.grad_fn is not None
+        out.backward(do)
+        grads[fn] = (q.grad, k.grad, v.grad)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    o, lse = tfa.flash_attention_plain(*base, causal=True, return_lse=True)
+    ref = tfa.flash_attention_bwd_plain(*base, o, do, lse, causal=True)
+    for got, want, auto in zip(grads[tfa.flash_attention], ref, grads[tfa.flash_attention_plain]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-6, atol=3e-3)
+        torch.testing.assert_close(got.float(), auto.float(), rtol=2.0**-6, atol=2e-2)
+
+
+def test_gpt2_training_on_card_reaches_every_qkv_weight(dev):
+    """A training step of ``GPT2LM`` on CUDA with no tier named: the forward
+    and both backward flash kernels launch once per layer, and every qkv
+    kernel gets a finite, non-zero gradient (a result without a grad_fn
+    would leave attention out of the backward)."""
+    from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
+
+    cfg = GPT2Config(vocab_size=64, hidden=128, layers=2, heads=2, max_len=1024, dropout=0.1)
+    model = GPT2LM(cfg, device=dev).init_weights(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(0, 64, (2, 600), device=dev)  # 600 * 600 > 512**2: flash
+    n0 = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+          tfa.flash_attention_bwd_dkv.launches)
+    logits = model(ids, deterministic=False, generator=torch.Generator(device=dev).manual_seed(1))
+    torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, 64), ids[:, 1:].reshape(-1)).backward()
+    torch.cuda.synchronize()
+    n1 = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+          tfa.flash_attention_bwd_dkv.launches)
+    assert [b - a for a, b in zip(n0, n1)] == [cfg.layers] * 3
+    for blk in model.blocks:
+        g = blk.qkv.kernel.grad
+        assert g is not None and g.dtype == torch.float32
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
+
+
+def test_fused_encode_kernel_bit_equal_to_plain(dev):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for rows, chunk in ((1000, 512), (37, 128)):
+        x = torch.randn(rows, chunk, generator=gen, device=dev)
+        xhat = x + 0.1 * torch.randn(rows, chunk, generator=gen, device=dev)
+        x[0] = xhat[0]
+        x[1] = 0.0
+        xhat[1] = torch.where(torch.arange(chunk, device=dev) % 2 == 1, -0.0, 0.0)
+        before = tck.fused_pack_quantize.launches
+        got = tck.fused_pack_quantize(x, xhat)
+        want = tck.fused_pack_quantize_plain(x, xhat)
+        torch.cuda.synchronize()
+        assert tck.fused_pack_quantize.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+    with pytest.raises(ValueError):
+        tck.fused_pack_quantize(torch.zeros(4, 100, device=dev), torch.zeros(4, 100, device=dev))

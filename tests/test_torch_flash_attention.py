@@ -7,6 +7,7 @@ f32 inputs agree to 2e-5; bf16 inputs differ by at most one bf16 ulp of
 the rounded output (1.6e-2 absolute on outputs of order 1).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,3 +47,52 @@ def test_logsumexp_is_the_softmax_normalizer():
     logits = logits.masked_fill(~torch.ones(40, 40, dtype=torch.bool).tril(), -torch.inf)
     torch.testing.assert_close(lse, torch.logsumexp(logits, -1), rtol=1e-5, atol=1e-5)
     assert tfa.flash_attention.launches == before  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_plain_backward_matches_jax_grad_of_interpret(name):
+    """dq, dk, dv of the port's autograd ``flash_attention`` on CPU tensors
+    (its plain forward, then ``flash_attention_bwd_plain``) against
+    ``jax.grad`` through the Pallas forward and backward kernels in
+    interpret mode, causal, S = 600, for the same output cotangent.
+
+    Tolerances: in f32 both recompute the same probabilities from the
+    same logsumexp and differ only in summation order (2e-5 on gradients
+    of order 1; 2.9e-6 read). In bf16 the gradients are rounded to bf16
+    at the end and the forward's bf16 output (which feeds delta) may sit
+    one ulp apart: one bf16 ulp of the value (rtol 2**-7) plus 2e-3 for
+    elements that are small next to the sums they come from (9.8e-4
+    read, on gradients up to 3)."""
+    jdt, tdt = DT[name]
+    q, k, v = _qkv(seed=4)
+    ct = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, causal=True, dtype=jdt, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(ct))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True, dtype=tdt)
+    assert out.grad_fn is not None
+    (out.float() * torch.from_numpy(ct)).sum().backward()
+    tol = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2.0**-7, atol=2e-3)}[name]
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), **tol)
+
+
+def test_autograd_backward_is_the_plain_backward_on_cpu():
+    """The Function's backward on CPU tensors is ``flash_attention_bwd_plain``
+    on the saved tensors, bit for bit, and launches nothing."""
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(seed=6, s=70))
+    do = torch.from_numpy(np.random.default_rng(7).normal(size=(1, 70, 2, 16)).astype(np.float32))
+    counts = (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches)
+    out = tfa.flash_attention(q, k, v, causal=True, dtype=torch.float32)
+    out.backward(do)
+    with torch.no_grad():
+        o, lse = tfa.flash_attention_plain(q, k, v, causal=True, dtype=torch.float32, return_lse=True)
+        want = tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, w, rtol=0, atol=0)
+    assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == counts

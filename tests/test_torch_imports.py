@@ -37,6 +37,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     model = configs.build_model("gpt2_topk", "smoke", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        configs.build("gpt2_topk", "smoke", codec="int8")
+    from consensusml_tpu_torch.train.__main__ import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--scale", "smoke", "--rounds", "1"])
+    assert configs.build("gpt2_topk", "smoke", codec="int8", device="cpu").cfg.gossip.compressor.impl == "torch"
 
 
 def test_auto_tier_on_cpu_is_the_plain_version():

@@ -18,8 +18,12 @@ Phases, each printed as one JSON line:
    where one PyTorch call computes the same function, that call: paged
    attention and the flash forward at the serving shapes, the flash
    forward and backward (dq and dk/dv) at the training shape B=8, S=1024
-   (and 600), H=16, D=64, causal, and the fused CHOCO encode on a
-   (4*8192, 512) f32 pair.
+   (and 600), H=16, D=64, causal, the fused CHOCO encode on a
+   (4*8192, 512) f32 pair, and the top-k codec's four kernels at the
+   shapes of ``gpt2_topk``'s bucket plan (chunked top-k and chunk scatter
+   on the largest bucket, 4 workers x 100,514 rows of 512, and on the
+   median one; int8 quantize/dequantize on the largest bucket's value
+   rows), all four held bit for bit.
 4. ``serve``: GPT-2-medium at full width (numpy-seeded parameters through
    ``gpt2_from_flax``) in ``Engine(ServeConfig(num_slots=8, block_size=16,
    attn_impl="auto"))``: one prefill's and one decode step's logits held
@@ -38,6 +42,15 @@ Phases, each printed as one JSON line:
    host's garbage-collection pauses in each, tokens/s, wire bytes, peak
    memory) and one more round under ``torch.profiler`` for the
    device-busy share.
+6. ``train_topk``: the same model and workers on the config's own codec
+   (``--workers 4 --codec-warmup 1``, no ``--codec``): chunked top-k (8
+   of 512) + int8 values on the two-step bucketed wire, 25 buckets, each
+   exchange launching the top-k, quantize, dequantize and scatter kernels
+   once a bucket. The same initial parameters as ``train`` (drawn once),
+   one warm-up round, three counted rounds (launch counts gated against
+   the code's prediction, buckets and wire bytes against the plan's) and
+   one profiled round, which reads each of the port's kernels' device
+   time by its CUDA symbol.
 
 Then the ``kernels`` line (per kernel: route, source, the TPU kernel it
 replaces, launches on its main paths, error, times and bound), the
@@ -52,6 +65,7 @@ from __future__ import annotations
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -61,6 +75,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (the codec kernels' compares and products)
 
 # Kernel against plain version, element by element:
 # |kernel - plain| <= ATOL + RTOL * |plain|. Both sides sum in f32 in
@@ -91,6 +106,20 @@ FLASH_BWD_ATOL, FLASH_BWD_RTOL = 3e-3, 2.0**-6
 # that dropped attention's gradient reads ~1.
 GRAD_REL_TOL, LEAF_REL_TOL = 3e-2, 4e-2
 
+
+# each kernel's CUDA symbol in csrc/*.cu, to find its device time in a
+# profiler trace
+KERNEL_SYMBOLS = {
+    "paged_attention": "paged_attention_kernel",
+    "flash_attention_fwd": "flash_fwd_kernel",
+    "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+    "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+    "fused_choco_encode": "choco_encode_int8_kernel",
+    "chunked_topk": "chunked_topk_kernel",
+    "quantize_int8": "quantize_int8_kernel",
+    "dequantize_int8": "dequantize_int8_kernel",
+    "chunk_scatter": "chunk_scatter_kernel",
+}
 
 _T0 = time.perf_counter()
 
@@ -128,9 +157,9 @@ def tol_check(name, got, want, atol, rtol) -> dict:
     return out
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / BF16_FLOPS
+    t_ops = flops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -312,15 +341,164 @@ def check_encode(torch, tck, dev):
         raise AssertionError(f"fused_choco_encode differs from its plain version: {mismatched}")
     if not (got[1][0] == 0 and got[1][2] == 1.0 and not torch.signbit(got[2][1]).any()):
         raise AssertionError("fused_choco_encode: zero row, round-half row or -0 row wrong")
+    err = max_abs_err(torch, *zip(got, want))
+    del got, want
     sets = [(torch.randn(rows, chunk, generator=gen, device=dev), xhat) for _ in range(3)]
     kernel_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize(*sets[i % 3]), 50)
     plain_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize_plain(*sets[i % 3]), 10)
     n = rows * chunk
     bms, by = bound_ms(2 * 4 * n + n + 4 * rows + 4 * n, 5 * n)
     return {
-        "rows": rows, "chunk": chunk, "mismatched": mismatched, "max_abs_err": 0.0,
+        "rows": rows, "chunk": chunk, "mismatched": mismatched, "max_abs_err": err,
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
     }
+
+
+def topk_bucket_totals(torch, dev) -> list[int]:
+    """Per-worker lengths of the buckets of ``gpt2_topk`` full on its own
+    codec (the engine's plan over GPT-2-medium's shapes)."""
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.models.gpt2 import GPT2LM
+
+    bundle = configs.build("gpt2_topk", "full", world=4, device=dev)
+    meta = GPT2LM(configs.gpt2_config("full"), device="meta")
+    plan = bundle.cfg.engine().bucket_plan({"params": dict(meta.named_parameters()), "model_state": {}})
+    return [b.total for b in plan.buckets]
+
+
+def mismatches(torch, got, want) -> int:
+    """Elements whose bits differ (shapes and dtypes must agree)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    view = torch.int8 if got.element_size() == 1 else torch.int32
+    return int((got.view(view) != want.view(view)).sum())
+
+
+def max_abs_err(torch, *pairs) -> float:
+    """max |got - want| over (got, want) pairs, in f32 (int8 codes as
+    their values)."""
+    return max(float((g.float() - w.float()).abs().max()) if g.numel() else 0.0 for g, w in pairs)
+
+
+def seed_codec_rows(torch, x, gen) -> None:
+    """The codec kernels' hazards in the first rows of an (R, C) f32
+    tensor: a zero row, a row of +0/-0, round-half points of the int8
+    quantizer (scale 1), a tie of opposite signs among fewer non-zeros
+    than k, a row of equal magnitudes."""
+    c = x.shape[1]
+    col = torch.arange(c, device=x.device)
+    x[0] = 0.0
+    x[1] = torch.where(col % 2 == 1, -0.0, 0.0)
+    x[2] = torch.randint(-126, 127, (c,), generator=gen, device=x.device).float() + 0.5
+    x[2, 0] = 127.0
+    x[3] = 0.0
+    x[3, 5], x[3, 9], x[3, 40] = -3.0, 3.0, -0.0
+    x[4] = torch.where(col % 3 == 0, 2.0, -2.0)
+
+
+def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
+    """The top-k codec's four kernels at the main path's shapes, each held
+    BIT FOR BIT against its plain version (zero mismatched elements) and
+    timed beside it:
+
+    - chunked top-k and the no-acc chunk scatter on the largest bucket
+      (the ``wte`` leaf: 4 workers x 100,514 rows of 512) and the median
+      one, the scatter fed the top-k's own winners; the acc form (the
+      collective receive, weight 1/3) on the largest;
+    - int8 quantize and dequantize on the largest bucket's value rows (per
+      worker 100,514 x 8 values, zero-padded to rows of 512).
+
+    Library yardsticks (timed, never used by the port): ``abs``, then
+    ``torch.topk`` then ``gather`` for the selection (three calls);
+    ``torch.scatter`` onto zeros for the no-acc scatter and
+    ``torch.scatter_add`` of pre-scaled values for the acc form; none for
+    the int8 pair (``quantize_per_channel`` takes its scales as input; the
+    dequantize is a cast and a product)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    largest, median = max(totals), sorted(totals)[len(totals) // 2]
+    out = {"topk": {}, "scatter": {}, "buckets": len(totals)}
+    for label, total in (("largest", largest), ("median", median)):
+        rows = world * total // chunk
+        x = torch.randn(rows, chunk, generator=gen, device=dev)
+        seed_codec_rows(torch, x, gen)
+        v, i = tck.chunked_topk(x, k)
+        vp, ip = tck.chunked_topk_plain(x, k)
+        torch.cuda.synchronize()
+        bad = {"values": mismatches(torch, v, vp), "indices": mismatches(torch, i, ip)}
+        if any(bad.values()) or i[3, :2].tolist() != [5, 9]:
+            raise AssertionError(f"chunked_topk {label} differs from its plain version: {bad}")
+        err = max_abs_err(torch, (v, vp))
+        del vp, ip
+        bms, by = bound_ms(rows * chunk * 4 + rows * k * 8, k * rows * chunk, F32_FLOPS)
+        out["topk"][label] = {
+            "rows": rows, "chunk": chunk, "k": k, "mismatched": bad, "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda _: tck.chunked_topk(x, k), 20),
+            "plain_ms": cuda_ms(torch, lambda _: tck.chunked_topk_plain(x, k), 5),
+            "library_ms": cuda_ms(torch, lambda _: torch.gather(x, 1, torch.topk(x.abs(), k, dim=1).indices), 10),
+            "library": "abs + torch.topk + gather (three calls)", "bound_ms": bms, "bound_by": by,
+        }
+        zeros = torch.zeros(rows, chunk, device=dev)
+        i64 = i.long()
+        forms = [("no_acc", None, 1.0)] + ([("acc", x, 1 / 3)] if label == "largest" else [])
+        for form, acc, w in forms:
+            got = tck.chunk_scatter(v, i, chunk, acc, weight=w)
+            want = tck.chunk_scatter_plain(v, i, chunk, acc, weight=w)
+            torch.cuda.synchronize()
+            bad = mismatches(torch, got, want)
+            if bad or torch.signbit(got[got == 0]).any():
+                raise AssertionError(f"chunk_scatter {label} {form}: {bad} elements differ, or a -0.0 survived")
+            err = max_abs_err(torch, (got, want))
+            del got, want
+            if acc is None:
+                lib = lambda _: torch.scatter(zeros, 1, i64, v)
+                nbytes = rows * chunk * 4 + rows * k * 8
+            else:
+                wv = v * w
+                lib = lambda _: torch.scatter_add(acc, 1, i64, wv)
+                nbytes = 2 * rows * chunk * 4 + rows * k * 8
+            bms, by = bound_ms(nbytes, 2 * rows * k, F32_FLOPS)
+            out["scatter"][f"{label} {form}"] = {
+                "rows": rows, "chunk": chunk, "k": k, "weight": w, "mismatched": bad, "max_abs_err": err,
+                "ms": cuda_ms(torch, lambda _: tck.chunk_scatter(v, i, chunk, acc, weight=w), 20),
+                "plain_ms": cuda_ms(torch, lambda _: tck.chunk_scatter_plain(v, i, chunk, acc, weight=w), 5),
+                "library_ms": cuda_ms(torch, lib, 20),
+                "library": "torch.scatter onto zeros" if acc is None else "torch.scatter_add of pre-scaled values",
+                "bound_ms": bms, "bound_by": by,
+            }
+        if label == "largest":
+            # the value vectors: each worker's (rows/world) x k winners, padded to whole rows
+            vals = v.reshape(world, -1)
+            vrows = -(-vals.shape[1] // chunk)
+            vals = torch.nn.functional.pad(vals, (0, vrows * chunk - vals.shape[1])).reshape(-1, chunk)
+            seed_codec_rows(torch, vals, gen)
+        del x, v, i, i64, zeros
+    q, sc = tck.quantize_int8(vals)
+    qp, scp = tck.quantize_int8_plain(vals)
+    d = tck.dequantize_int8(q, sc)
+    dp = tck.dequantize_int8_plain(q, sc)
+    torch.cuda.synchronize()
+    bad_q = {"q": mismatches(torch, q, qp), "scales": mismatches(torch, sc, scp)}
+    bad_d = mismatches(torch, d, dp)
+    if any(bad_q.values()) or bad_d or not (sc[0] == 0 and sc[2] == 1.0):
+        raise AssertionError(f"int8 kernels differ from their plain versions: {bad_q}, dequantize {bad_d}")
+    r, n = vals.shape[0], vals.numel()
+    qb, qby = bound_ms(4 * n + n + 4 * r, 3 * n, F32_FLOPS)
+    db, dby = bound_ms(n + 4 * r + 4 * n, n, F32_FLOPS)
+    out["quantize_int8"] = {
+        "rows": r, "chunk": chunk, "mismatched": bad_q, "max_abs_err": max_abs_err(torch, (q, qp), (sc, scp)),
+        "ms": cuda_ms(torch, lambda _: tck.quantize_int8(vals), 50),
+        "plain_ms": cuda_ms(torch, lambda _: tck.quantize_int8_plain(vals), 10),
+        "library_ms": None, "library": "none: quantize_per_channel takes the scales as input",
+        "bound_ms": qb, "bound_by": qby,
+    }
+    out["dequantize_int8"] = {
+        "rows": r, "chunk": chunk, "mismatched": bad_d, "max_abs_err": max_abs_err(torch, (d, dp)),
+        "ms": cuda_ms(torch, lambda _: tck.dequantize_int8(q, sc), 50),
+        "plain_ms": cuda_ms(torch, lambda _: tck.dequantize_int8_plain(q, sc), 10),
+        "library_ms": None, "library": "none: a cast and a product are two calls",
+        "bound_ms": db, "bound_by": dby,
+    }
+    return out
 
 
 def gpt2_medium_flax_tree(cfg, seed: int) -> dict:
@@ -598,6 +776,12 @@ def profile_round(torch, step, state, batch):
 
     device_ms = sum(dev_us(e) for e in cuda) / 1e3
     top = sorted(cuda, key=dev_us, reverse=True)[:8]
+    port = {}  # the port's kernels in this round, by name (templates summed)
+    for name, sym in KERNEL_SYMBOLS.items():
+        pat = re.compile(rf"(?<![A-Za-z0-9_]){sym}(?![A-Za-z0-9_])")
+        hits = [e for e in cuda if pat.search(e.key)]
+        if hits:
+            port[name] = {"ms": sum(dev_us(e) for e in hits) / 1e3, "calls": sum(e.count for e in hits)}
     return state, {
         "trace_processing_s": time.perf_counter() - t1,
         "wall_ms": wall_ms, "device_kernel_ms": device_ms if device_ms > 0 else None,
@@ -606,6 +790,7 @@ def profile_round(torch, step, state, batch):
         "top_kernels": [
             {"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top
         ],
+        "port_kernels": port,
     }
 
 
@@ -636,31 +821,39 @@ class GcPauses:
                 "gc_full_ms": self.gen2_ms - snap[2]}
 
 
-def train_phase(torch, dev):
-    """gpt2_topk full, --workers 4 --codec int8 --codec-warmup 1."""
+CODEC_KERNELS = ("chunked_topk", "quantize_int8", "dequantize_int8", "chunk_scatter")
+
+
+def train_phase(torch, dev, init, codec):
+    """gpt2_topk full, --workers 4 --codec-warmup 1, on ``codec``: "int8"
+    (the fused wire; the ``train`` line, with the gradient check) or None
+    (the config's own top-k + int8 codec on the two-step wire; the
+    ``train_topk`` line). ``init`` is the stacked numpy initial parameters
+    (``bundle.init_params(0)``), drawn once for both."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
     world, counted = 4, 3
-    bundle = configs.build("gpt2_topk", "full", world=world, codec="int8", codec_warmup=1, device=dev)
+    bundle = configs.build("gpt2_topk", "full", world=world, codec=codec, codec_warmup=1, device=dev)
     cfg, mcfg = bundle.cfg, bundle.model.config
     engine = cfg.engine()
-    if not engine.fused_wire_active or cfg.gossip.compressor.impl != "cuda":
-        raise AssertionError(f"codec path is not the fused CUDA wire: {bundle.codec_path}")
+    fused = codec == "int8"
+    if engine.fused_wire_active != fused:
+        raise AssertionError(f"codec path is not the expected wire: {bundle.codec_path}")
     marks = [("start", time.perf_counter())]
-    init = bundle.init_params(0)
     batches = list(bundle.batches(2 + counted, 0))
-    marks.append(("init_params_and_batches", time.perf_counter()))
+    marks.append(("batches", time.perf_counter()))
     ids = batches[0]["input_ids"]
-    params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in init.items()}
-    grads = grad_check(torch, bundle, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
-    del params0
-    torch.cuda.empty_cache()
-    marks.append(("grad_check", time.perf_counter()))
+    grads = None
+    if fused:  # the model-level gradient check runs once, for both phases
+        params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in init.items()}
+        grads = grad_check(torch, bundle, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
+        del params0
+        torch.cuda.empty_cache()
+        marks.append(("grad_check", time.perf_counter()))
 
     params = {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}
-    del init
     state = init_stacked_state(cfg, params, world, seed=0)
     del params
     marks.append(("state_on_device", time.perf_counter()))
@@ -670,6 +863,8 @@ def train_phase(torch, dev):
     wire = engine.wire_bytes_per_round({"params": per_worker, "model_state": {}})
     n_params = sum(p.numel() for p in per_worker.values())
     del per_worker
+    if not fused and (n_buckets, wire) != (25, 33_366_424):
+        raise AssertionError(f"top-k plan: {n_buckets} buckets, {wire} wire bytes; expected 25, 33366424")
 
     t0 = time.perf_counter()
     state, m = step(state, batches[0])  # round 0: warm (dense mixing), not counted
@@ -711,12 +906,14 @@ def train_phase(torch, dev):
         if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
             raise AssertionError(f"round {r['step']}: loss or consensus error not finite and positive: {r}")
     worker_steps = world * cfg.h * counted
+    exchanges = counted * cfg.gossip.gossip_steps  # CHOCO rounds: one exchange a gossip step
     expect = {
         "flash_attention_fwd": mcfg.layers * worker_steps,
         "flash_attention_bwd_dq": mcfg.layers * worker_steps,
         "flash_attention_bwd_dkv": mcfg.layers * worker_steps,
-        "fused_choco_encode": n_buckets * counted,
+        "fused_choco_encode": n_buckets * exchanges if fused else 0,
         "paged_attention": 0,
+        **{name: 0 if fused else n_buckets * exchanges for name in CODEC_KERNELS},
     }
     if counts != expect:
         raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
@@ -724,14 +921,20 @@ def train_phase(torch, dev):
     if prof["device_kernel_ms"] is not None:
         # the profiler slows the host; against an unprofiled round's wall
         prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
+        if not fused:  # the codec kernels' device time in the round, read from the trace
+            prof["codec_kernels_ms"] = sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in CODEC_KERNELS)
+    flags = "--workers 4 --codec int8 --codec-warmup 1" if fused else "--workers 4 --codec-warmup 1"
     out = {
-        "phase": "train", "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec int8 --codec-warmup 1",
-        "codec_path": bundle.codec_path, "workers": world, "h": cfg.h, "batch": ids.shape[2],
+        "phase": "train" if fused else "train_topk", "config": f"gpt2_topk full (GPT-2-medium), {flags}",
+        "codec_path": bundle.codec_path, "wire": "fused one-pass" if fused else "two-step",
+        "workers": world, "h": cfg.h, "batch": ids.shape[2],
         "seq": ids.shape[3], "layers": mcfg.layers, "params_per_worker": n_params,
         "buckets": n_buckets, "wire_bytes_per_round": wire,
         "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
-        "grad_check": grads, "warmup_round": warm, "rounds": rounds,
+        **({"grad_check": grads} if grads is not None else {}),
+        "warmup_round": warm, "rounds": rounds,
         "round_ms_mean": round_ms_mean,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
         "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
         "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
         "profiled_round": prof,
@@ -788,11 +991,12 @@ def main() -> int:
     flash = check_flash(torch, tfa, dev)
     bwd, flash_b8 = check_flash_bwd(torch, tfa, dev)
     enc = check_encode(torch, tck, dev)
+    codec = check_codec(torch, tck, dev, topk_bucket_totals(torch, dev))
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
-          "fused_choco_encode": enc})
+          "fused_choco_encode": enc, "topk_codec": codec})
     torch.cuda.empty_cache()
     b = bwd[1024]
     rows = [
@@ -815,17 +1019,41 @@ def main() -> int:
           "library_ms": b["library_ms"]}),
         ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
          "consensusml_tpu/compress/kernels.py:953", enc),
+        # the largest bucket's shapes carry the top-k phase's time; the
+        # median bucket's and the acc form's readings stand beside them
+        ("chunked_topk", "consensusml_tpu_torch/csrc/chunked_topk.cu",
+         "consensusml_tpu/compress/kernels.py:374",
+         {**codec["topk"]["largest"], "by_shape": codec["topk"]}),
+        ("quantize_int8", "consensusml_tpu_torch/csrc/int8_codec.cu",
+         "consensusml_tpu/compress/kernels.py:123", codec["quantize_int8"]),
+        ("dequantize_int8", "consensusml_tpu_torch/csrc/int8_codec.cu",
+         "consensusml_tpu/compress/kernels.py:156", codec["dequantize_int8"]),
+        ("chunk_scatter", "consensusml_tpu_torch/csrc/chunk_scatter.cu",
+         "consensusml_tpu/compress/kernels.py:481",
+         {**codec["scatter"]["largest no_acc"], "by_shape": codec["scatter"]}),
     ]
+    if sorted(r[0] for r in rows) != sorted(kernels.KERNELS):
+        raise AssertionError(f"the kernels line must list every kernel of {list(kernels.KERNELS)}")
     launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
     serve, counts = serve_phase(torch, dev)
     emit(serve)
     for name, n in counts.items():
         launches[name]["serve"] = n
     torch.cuda.empty_cache()
-    train, counts = train_phase(torch, dev)
-    emit(train)
-    for name, n in counts.items():
-        launches[name]["train"] = n
+    from consensusml_tpu_torch import configs
+
+    # the stacked numpy initial parameters, drawn once for both train phases
+    t0 = time.perf_counter()
+    init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
+    init_s = time.perf_counter() - t0
+    for path, codec_name in (("train", "int8"), ("train_topk", None)):
+        line, counts = train_phase(torch, dev, init, codec_name)
+        if path == "train":
+            line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
+        emit(line)
+        for name, n in counts.items():
+            launches[name][path] = n
+    del init
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,9 +1,19 @@
 """Compressor interface and payloads (port of ``consensusml_tpu/compress/base.py``).
 
-This slice carries the API the bucketed CHOCO wire reads
+This module carries the API the bucketed CHOCO wires read
 (``bucket_alignment``, ``fused_wire``, ``stochastic``, ``wire_bytes``,
-``compress_tree``/``decompress_tree``) and the int8 payload. The top-k,
-int4 and fp8 payloads come with their codecs in later slices.
+``compress_tree``/``decompress_tree``, ``decompress_accumulate``), the
+int8 and top-k payloads, and :class:`ComposedCompressor` (an outer codec
+on a top-k payload's values). The int4 and fp8 payloads, and their
+codecs, are not ported yet.
+
+Stacked workers: the reference vmaps ``compress``/``decompress`` over the
+worker axis of the simulated backend. Here that axis is written out:
+``compress(x, stacked=True)`` treats ``x``'s leading axis as workers,
+compresses each worker's slice on its own (its own chunking and padding),
+and returns a payload whose every tensor carries that leading axis;
+``decompress`` reads the axis off the payload. A payload's ``shape`` is
+always the per-worker shape.
 """
 
 from __future__ import annotations
@@ -16,21 +26,77 @@ import torch
 
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["Compressor", "Int8Payload"]
+__all__ = [
+    "Compressor",
+    "Int8Payload",
+    "TopKPayload",
+    "LocalTopKPayload",
+    "ComposedCompressor",
+    "static_k",
+    "worker_rows",
+]
+
+
+def static_k(size: int, ratio: float, k: int | None) -> int:
+    """The static per-tensor k: explicit ``k`` wins, else ``round(ratio *
+    size)``, clamped to ``[1, size]`` (the reference's shared policy)."""
+    if k is not None:
+        return max(1, min(k, size))
+    return max(1, min(size, int(round(size * ratio))))
+
+
+def worker_rows(x: torch.Tensor, stacked: bool) -> tuple[tuple[int, ...], torch.Tensor]:
+    """``(lead, flat)``: ``flat`` is ``(L, n)`` f32 with one row per worker
+    (``L = 1`` unstacked), ``lead`` the leading shape payloads carry."""
+    lead = (x.shape[0],) if stacked else ()
+    return lead, x.reshape(x.shape[0] if stacked else 1, -1).to(torch.float32)
+
+
+def _wire(t) -> tuple[torch.Tensor, ...]:
+    return t.wire_tensors() if hasattr(t, "wire_tensors") else (t,)
 
 
 @dataclasses.dataclass(frozen=True)
 class Int8Payload:
     """Per-chunk symmetric int8 quantization: int8 data + f32 chunk scales."""
 
-    data: torch.Tensor  # (padded_n,) int8, or (..., padded_n) stacked
-    scales: torch.Tensor  # (num_chunks,) float32
+    data: torch.Tensor  # (padded_n,) int8, or (W, padded_n) stacked
+    scales: torch.Tensor  # (num_chunks,) float32, or (W, num_chunks)
     shape: tuple[int, ...]
     dtype: Any
     chunk: int
 
     def wire_tensors(self) -> tuple[torch.Tensor, ...]:
         return (self.data, self.scales)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKPayload:
+    """Top-k sparse tensor: k signed values + flat int32 indices."""
+
+    values: Any  # (k,) tensor or a nested payload; (W, k) stacked
+    indices: torch.Tensor  # (k,) int32 into the flattened tensor; (W, k) stacked
+    shape: tuple[int, ...]
+    dtype: Any
+
+    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
+        return (*_wire(self.values), self.indices)
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalTopKPayload:
+    """Chunked top-k with narrow chunk-local indices: ``indices[c, j]`` is
+    the position of winner ``j`` inside chunk ``c`` (uint16; chunks are at
+    most 65536 wide), made global at decode."""
+
+    values: Any  # (nchunks * k,) tensor or a nested payload; (W, ...) stacked
+    indices: torch.Tensor  # (nchunks, k) uint16; (W, nchunks, k) stacked
+    shape: tuple[int, ...]
+    dtype: Any
+    chunk: int
+
+    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
+        return (*_wire(self.values), self.indices)
 
 
 class Compressor(abc.ABC):
@@ -51,7 +117,7 @@ class Compressor(abc.ABC):
         return None
 
     @abc.abstractmethod
-    def compress(self, x: torch.Tensor):
+    def compress(self, x: torch.Tensor, stacked: bool = False):
         ...
 
     @abc.abstractmethod
@@ -73,3 +139,54 @@ class Compressor(abc.ABC):
         """Decompress a payload tree; ``like`` gives the original structure."""
         # payloads are leaves of the payload tree (dataclasses are not containers)
         return T.unflatten(T.flatten(like)[1], [self.decompress(p) for p in T.leaves(payload_tree)])
+
+    def decompress_accumulate(self, payload, acc: torch.Tensor, weight) -> torch.Tensor:
+        """The receive: ``acc + weight * decompress(payload)``, the product
+        and the sum each rounded (sparse codecs override it with a
+        scatter-add)."""
+        return acc + weight * self.decompress(payload).to(acc.dtype)
+
+    def decompress_accumulate_tree(self, payload_tree: Any, acc_tree: Any, weight) -> Any:
+        """Leaf-wise :meth:`decompress_accumulate` over a payload tree."""
+        acc_leaves, spec = T.flatten(acc_tree)
+        out = [self.decompress_accumulate(p, a, weight)
+               for p, a in zip(T.leaves(payload_tree), acc_leaves)]
+        return T.unflatten(spec, out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ComposedCompressor(Compressor):
+    """``outer(inner)``: the outer codec quantizes the values of the inner
+    codec's top-k payload; the indices stay exact (int32 global for
+    :class:`TopKPayload`, uint16 chunk-local for :class:`LocalTopKPayload`).
+    The config-5 codec "top-k sparsified + 8-bit quantized gossip"."""
+
+    inner: Compressor  # produces a TopKPayload or LocalTopKPayload
+    outer: Compressor  # applied to payload.values
+
+    @property
+    def stochastic(self) -> bool:  # type: ignore[override]
+        return self.inner.stochastic or self.outer.stochastic
+
+    def bucket_alignment(self) -> int | None:
+        # the inner codec sees the bucket layout; the outer one only
+        # quantizes the selected values
+        return self.inner.bucket_alignment()
+
+    def compress(self, x: torch.Tensor, stacked: bool = False):
+        if self.stochastic:
+            raise NotImplementedError("stochastic codecs are not ported yet")
+        p = self.inner.compress(x, stacked=stacked)
+        if not isinstance(p, (TopKPayload, LocalTopKPayload)):
+            raise TypeError("ComposedCompressor.inner must produce a top-k payload")
+        return dataclasses.replace(p, values=self.outer.compress(p.values, stacked=stacked))
+
+    def decompress(self, payload) -> torch.Tensor:
+        return self.inner.decompress(self._inner_payload(payload))
+
+    def decompress_accumulate(self, payload, acc: torch.Tensor, weight) -> torch.Tensor:
+        # decode the (small) values, then the inner codec's scatter-add
+        return self.inner.decompress_accumulate(self._inner_payload(payload), acc, weight)
+
+    def _inner_payload(self, payload):
+        return dataclasses.replace(payload, values=self.outer.decompress(payload.values))

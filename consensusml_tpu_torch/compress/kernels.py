@@ -1,15 +1,22 @@
 """Kernel-backed codecs (port of ``consensusml_tpu/compress/kernels.py``).
 
-This slice ports the fused one-pass CHOCO encode of the bucketed gossip
-wire, int8 format: :func:`fused_pack_quantize` launches
-``csrc/fused_choco_encode.cu`` for CUDA tensors and runs its plain
-version :func:`fused_pack_quantize_plain` for tensors on the CPU (never
-as a fallback). Each launch adds one to ``fused_pack_quantize.launches``.
+Each kernel has a wrapper and a plain PyTorch version beside it. The
+wrapper runs the plain version for tensors on the CPU (and for shape-only
+``meta`` tensors, which ``Compressor.wire_bytes`` compresses) and
+launches its CUDA kernel for CUDA tensors, raising on what the kernel
+does not take (never falling back). Each launch adds one to the
+wrapper's ``launches``.
 
-Still to port (ROADMAP Queue B): the stand-alone ``quantize_int8`` /
-``dequantize_int8`` kernels behind :class:`PallasInt8Compressor`'s
-``compress``/``decompress`` (this slice computes them in plain ops on the
-CPU and raises on the card), the int4/fp8 formats, and the receive-side
+- :func:`quantize_int8` / :func:`dequantize_int8`: ``csrc/int8_codec.cu``;
+- :func:`chunked_topk`: ``csrc/chunked_topk.cu``;
+- :func:`chunk_scatter`: ``csrc/chunk_scatter.cu``;
+- :func:`fused_pack_quantize` (the fused one-pass CHOCO encode of the
+  bucketed wire, int8): ``csrc/fused_choco_encode.cu``.
+
+The codecs: :class:`PallasInt8Compressor` (names kept from the reference
+so a reader finds the counterpart), :class:`ChunkedTopKCompressor`, and
+the fused wire's :class:`FusedBucketCodec`. Still to port (ROADMAP Queue
+B): the int4/fp8 formats and the receive-side
 ``fused_dequantize_accumulate`` kernel (:meth:`FusedBucketCodec.
 decode_accumulate` is plain ops here; the simulated backend mixes the
 decoded innovations with the mixing matrix and never calls it).
@@ -19,32 +26,53 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 
+import numpy as np
 import torch
-import torch.nn.functional as F
 
 from consensusml_tpu_torch import kernels
-from consensusml_tpu_torch.compress.base import Compressor, Int8Payload
+from consensusml_tpu_torch.compress.base import (
+    Compressor,
+    Int8Payload,
+    LocalTopKPayload,
+    TopKPayload,
+    worker_rows,
+)
 from consensusml_tpu_torch.compress.reference import (
-    Int8Compressor,
+    chunk_rows,
     fma_f32,
+    int8_unchunk,
     quantize_rows,
     round_clip_int8,
+    topk_by_magnitude,
 )
 
 __all__ = [
     "CODEC_IMPLS",
     "PallasInt8Compressor",
+    "ChunkedTopKCompressor",
     "FusedBucketCodec",
     "fused_bucket_codec",
     "resolve_codec_impl",
+    "quantize_int8",
+    "quantize_int8_plain",
+    "dequantize_int8",
+    "dequantize_int8_plain",
+    "chunked_topk",
+    "chunked_topk_plain",
+    "chunk_scatter",
+    "chunk_scatter_plain",
     "fused_pack_quantize",
     "fused_pack_quantize_plain",
-    "fused_quant_plain",
 ]
 
 CODEC_IMPLS = ("torch", "cuda")
-_LANE = 128  # the reference's chunk granularity; the CUDA kernel's too (32 lanes x float4)
+_LANE = 128  # the reference's chunk granularity; the CUDA kernels' too (32 lanes x float4)
+_TOPK_MAX_CHUNK = 1024  # the top-k kernel holds a row in registers
+# the top-k kernel keeps at most two winners a lane; equals kMaxK in
+# csrc/chunked_topk.cu, and ChunkedTopKCompressor branches on it
+_TOPK_MAX_K = 64
 
 
 def _round_up(a: int, b: int) -> int:
@@ -62,33 +90,211 @@ def resolve_codec_impl(requested: str = "auto", device=None) -> str:
     return requested
 
 
+def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
+    if t.dtype != dtype or not t.is_contiguous() or t.device != device or t.data_ptr() % 16:
+        raise ValueError(
+            f"{name} must be a contiguous, 16-byte aligned {dtype} tensor on {device}, "
+            f"got {t.dtype} contiguous={t.is_contiguous()} on {t.device}"
+        )
+
+
+def _check_chunk(what: str, chunk: int) -> None:
+    if chunk % _LANE:
+        raise ValueError(f"the CUDA {what} takes chunks that are multiples of {_LANE}, got {chunk}")
+
+
+def _bind(source: str, symbol: str, argtypes: list):
+    fn = getattr(kernels.load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launched(wrapper, what: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
+    wrapper.launches += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+# ---------------------------------------------------------------------------
+# int8 quantize / dequantize: kernels + plain versions
+# ---------------------------------------------------------------------------
+
+
+def quantize_int8_plain(chunks: torch.Tensor):
+    """``(R, C)`` f32 rows -> ``(q int8 (R, C), scales (R,))``: the
+    reference's ``_quant_kernel`` as XLA compiles it."""
+    scales, inv = quantize_rows(chunks)
+    return round_clip_int8(chunks * inv[:, None]), scales
+
+
+def quantize_int8(chunks: torch.Tensor):
+    """Per-row symmetric int8 of ``(R, C)`` f32 rows: ``(q int8 (R, C),
+    scales (R,) f32)``. CPU tensors run :func:`quantize_int8_plain`; CUDA
+    tensors launch ``csrc/int8_codec.cu`` (contiguous f32, C a multiple of
+    128) or raise."""
+    if chunks.dim() != 2:
+        raise ValueError(f"chunks must be (R, C), got {tuple(chunks.shape)}")
+    if not chunks.is_cuda:
+        return quantize_int8_plain(chunks)
+    rows, chunk = chunks.shape
+    _check_chunk("int8 quantize", chunk)
+    _check_operand("chunks", chunks, torch.float32, chunks.device)
+    q = torch.empty((rows, chunk), dtype=torch.int8, device=chunks.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=chunks.device)
+    if rows:
+        fn = _bind("int8_codec", "cml_quantize_int8", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(chunks.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, chunk, _stream(chunks))
+        _launched(quantize_int8, "quantize_int8", rc)
+    return q, scales
+
+
+quantize_int8.launches = 0
+
+
+def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``float(q) * scale`` per row, one rounding: ``_dequant_kernel``."""
+    return q.to(torch.float32) * scales[:, None]
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_int8`: ``(R, C)`` int8 and ``(R,)`` f32
+    scales -> ``(R, C)`` f32. CPU tensors run :func:`dequantize_int8_plain`;
+    CUDA tensors launch ``csrc/int8_codec.cu`` or raise."""
+    if q.dim() != 2 or scales.shape != q.shape[:1]:
+        raise ValueError(f"q must be (R, C) and scales (R,), got {tuple(q.shape)} {tuple(scales.shape)}")
+    if not q.is_cuda:
+        return dequantize_int8_plain(q, scales)
+    rows, chunk = q.shape
+    _check_chunk("int8 dequantize", chunk)
+    _check_operand("q", q, torch.int8, q.device)
+    _check_operand("scales", scales, torch.float32, q.device)
+    out = torch.empty((rows, chunk), dtype=torch.float32, device=q.device)
+    if rows:
+        fn = _bind("int8_codec", "cml_dequantize_int8", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, chunk, _stream(q))
+        _launched(dequantize_int8, "dequantize_int8", rc)
+    return out
+
+
+dequantize_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# chunked top-k: kernel + plain version
+# ---------------------------------------------------------------------------
+
+
+def chunked_topk_plain(chunks: torch.Tensor, k: int):
+    """Per row of ``(R, C)`` f32, the k largest ``|x|`` in descending
+    order, equal magnitudes to the lower index: ``(values f32 (R, k),
+    chunk-local indices int32 (R, k))``, the reference's ``_topk_kernel``.
+    Its value is a masked row sum, so a ``-0.0`` winner comes out ``+0.0``
+    (``+ 0.0`` does the same here)."""
+    idx = topk_by_magnitude(chunks, k)
+    return torch.gather(chunks, 1, idx.long()) + 0.0, idx
+
+
+def chunked_topk(chunks: torch.Tensor, k: int):
+    """Top-k by magnitude per row of ``(R, C)`` f32 (see
+    :func:`chunked_topk_plain`). CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/chunked_topk.cu`` (C a multiple of 128 up to
+    1024, k at most 64) or raise."""
+    if chunks.dim() != 2 or not 0 < k <= chunks.shape[1]:
+        raise ValueError(f"chunks must be (R, C) with 0 < k <= C, got {tuple(chunks.shape)}, k={k}")
+    if not chunks.is_cuda:
+        return chunked_topk_plain(chunks, k)
+    rows, chunk = chunks.shape
+    if chunk % _LANE or chunk > _TOPK_MAX_CHUNK or k > _TOPK_MAX_K:
+        raise ValueError(
+            f"the CUDA top-k holds a row of a multiple of {_LANE} up to {_TOPK_MAX_CHUNK} in "
+            f"registers and at most {_TOPK_MAX_K} winners, got C={chunk}, k={k}"
+        )
+    _check_operand("chunks", chunks, torch.float32, chunks.device)
+    vals = torch.empty((rows, k), dtype=torch.float32, device=chunks.device)
+    idx = torch.empty((rows, k), dtype=torch.int32, device=chunks.device)
+    if rows:
+        fn = _bind("chunked_topk", "cml_chunked_topk", [_P, _P, _P, _LL, _I, _I, _P])
+        rc = fn(chunks.data_ptr(), vals.data_ptr(), idx.data_ptr(), rows, chunk, k, _stream(chunks))
+        _launched(chunked_topk, "chunked_topk", rc)
+    return vals, idx
+
+
+chunked_topk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# chunk-local scatter: kernel + plain version
+# ---------------------------------------------------------------------------
+
+
+def chunk_scatter_plain(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
+                        acc: torch.Tensor | None = None, weight: float = 1.0) -> torch.Tensor:
+    """``(R, k)`` values at distinct chunk-local indices -> dense ``(R,
+    chunk)`` f32, on top of ``acc`` (or zeros): the reference's
+    ``chunk_scatter``. Its roundings: the values are pre-scaled (``v *
+    weight``, one rounding) and then added (a second). Its kernel adds a
+    masked ``+0.0`` to every element k times, so a ``-0.0`` in ``acc``
+    comes out ``+0.0``, and so does a ``-0.0`` value (``+ 0.0`` here)."""
+    v = vals.to(torch.float32) * torch.tensor(np.float32(weight), device=vals.device) + 0.0
+    base = acc.to(torch.float32) if acc is not None else torch.zeros(
+        (vals.shape[0], chunk), dtype=torch.float32, device=vals.device)
+    base = base + 0.0
+    i = idx.long()
+    return base.scatter(1, i, torch.gather(base, 1, i) + v)
+
+
+def chunk_scatter(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
+                  acc: torch.Tensor | None = None, weight: float = 1.0) -> torch.Tensor:
+    """Densify ``(R, k)`` f32 values at distinct int32 chunk-local indices
+    into ``(R, chunk)`` f32, optionally ``acc + weight * dense`` (see
+    :func:`chunk_scatter_plain`). CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/chunk_scatter.cu`` (chunk a multiple of 128) or
+    raise."""
+    if vals.dim() != 2 or idx.shape != vals.shape:
+        raise ValueError(f"vals and idx must be one (R, k) shape, got {tuple(vals.shape)} {tuple(idx.shape)}")
+    if acc is not None and tuple(acc.shape) != (vals.shape[0], chunk):
+        raise ValueError(f"acc must be ({vals.shape[0]}, {chunk}), got {tuple(acc.shape)}")
+    if not vals.is_cuda:
+        return chunk_scatter_plain(vals, idx, chunk, acc, weight)
+    rows, k = vals.shape
+    _check_chunk("chunk scatter", chunk)
+    _check_operand("vals", vals, torch.float32, vals.device)
+    if idx.dtype != torch.int32 or not idx.is_contiguous() or idx.device != vals.device:
+        raise ValueError(f"idx must be a contiguous int32 tensor on {vals.device}, got {idx.dtype} on {idx.device}")
+    if acc is not None:
+        _check_operand("acc", acc, torch.float32, vals.device)
+    out = torch.empty((rows, chunk), dtype=torch.float32, device=vals.device)
+    if rows:
+        fn = _bind("chunk_scatter", "cml_chunk_scatter", [_P, _P, _P, _P, _LL, _I, _I, ctypes.c_float, _P])
+        rc = fn(vals.data_ptr(), idx.data_ptr(), acc.data_ptr() if acc is not None else None,
+                out.data_ptr(), rows, k, chunk, float(np.float32(weight)), _stream(vals))
+        _launched(chunk_scatter, "chunk_scatter", rc)
+    return out
+
+
+chunk_scatter.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # fused CHOCO encode: kernel + plain version
 # ---------------------------------------------------------------------------
-
-
-def fused_quant_plain(d: torch.Tensor):
-    """``(R, chunk)`` f32 delta rows -> ``(q int8 (R, chunk), scales (R,))``:
-    the reference's ``_fused_quant`` for ``"int8"``."""
-    scales, inv = quantize_rows(d)
-    return round_clip_int8(d * inv[:, None]), scales
 
 
 def fused_pack_quantize_plain(x: torch.Tensor, xhat: torch.Tensor):
     """``(q, scales, xhat')`` with ``xhat' = q * scale + xhat`` rounded
     once: the reference's ``xhat + dec`` as XLA compiles it (a fused
     multiply-add; rounding the product first differs in ~8% of elements)."""
-    q, scales = fused_quant_plain(x - xhat)
+    q, scales = quantize_int8_plain(x - xhat)
     return q, scales, fma_f32(q, scales[:, None], xhat)
-
-
-def _encode_lib():
-    fn = kernels.load("fused_choco_encode").cml_fused_choco_encode_int8
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, p]
-        fn.restype = i
-    return fn
 
 
 def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8"):
@@ -107,25 +313,17 @@ def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8
     if not x.is_cuda:
         return fused_pack_quantize_plain(x, xhat)
     rows, chunk = x.shape
-    if chunk % _LANE:
-        raise ValueError(f"the CUDA encode takes chunks that are multiples of {_LANE}, got {chunk}")
+    _check_chunk("encode", chunk)
     for name, t in (("x", x), ("xhat", xhat)):
-        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device or t.data_ptr() % 16:
-            raise ValueError(
-                f"{name} must be a contiguous, 16-byte aligned f32 tensor on {x.device}, "
-                f"got {t.dtype} contiguous={t.is_contiguous()} on {t.device}"
-            )
+        _check_operand(name, t, torch.float32, x.device)
     q = torch.empty((rows, chunk), dtype=torch.int8, device=x.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=x.device)
     hat = torch.empty_like(x)
     if rows:
-        rc = _encode_lib()(
-            x.data_ptr(), xhat.data_ptr(), q.data_ptr(), scales.data_ptr(), hat.data_ptr(),
-            rows, chunk, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-        if rc != 0:
-            raise RuntimeError(f"fused_choco_encode launch failed: CUDA error {rc}")
-        fused_pack_quantize.launches += 1
+        fn = _bind("fused_choco_encode", "cml_fused_choco_encode_int8", [_P, _P, _P, _P, _P, _LL, _I, _P])
+        rc = fn(x.data_ptr(), xhat.data_ptr(), q.data_ptr(), scales.data_ptr(), hat.data_ptr(),
+                rows, chunk, _stream(x))
+        _launched(fused_pack_quantize, "fused_choco_encode", rc)
     return q, scales, hat
 
 
@@ -139,17 +337,12 @@ fused_pack_quantize.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class PallasInt8Compressor(Compressor):
-    """Per-chunk symmetric int8 codec (name kept from the reference so a
-    reader finds the counterpart). Its payloads equal
-    :class:`~.reference.Int8Compressor`'s; the chunk is clamped to the
-    tensor rounded up to 128, as the reference's kernel path does.
-
-    ``compress``/``decompress`` run plain ops for CPU (and shape-only
-    ``meta``) tensors and raise for CUDA tensors: their stand-alone
-    kernels (``quantize_int8``/``dequantize_int8``) are ported with the
-    top-k codec. On this slice's path the codec rides the fused wire
-    (:class:`FusedBucketCodec`), whose encode is a kernel.
-    """
+    """Per-chunk symmetric int8 codec on :func:`quantize_int8` /
+    :func:`dequantize_int8`. Its payloads equal
+    :class:`~.reference.Int8Compressor`'s, except that the chunk is clamped
+    to the tensor rounded up to 128, as the reference's kernel path does
+    (its off-TPU ``impl="auto"`` takes the jnp path, which clamps to the
+    tensor itself)."""
 
     chunk: int = 512
     impl: str = "auto"
@@ -165,28 +358,142 @@ class PallasInt8Compressor(Compressor):
     def fused_wire(self) -> str | None:
         return "int8"
 
-    def _refuse_cuda(self, t: torch.Tensor, what: str) -> None:
-        if t.is_cuda:
-            raise NotImplementedError(
-                f"PallasInt8Compressor.{what} on the card needs the stand-alone "
-                "quantize_int8/dequantize_int8 kernels, not ported yet; the "
-                "bucketed CHOCO wire uses the fused encode kernel instead"
-            )
-
-    def compress(self, x: torch.Tensor) -> Int8Payload:
-        self._refuse_cuda(x, "compress")
-        n = x.numel()
-        chunk = min(self.chunk, _round_up(n, _LANE))
-        flat = x.reshape(-1).to(torch.float32)
-        chunks = F.pad(flat, (0, (-n) % chunk)).reshape(-1, chunk)
-        scales, inv = quantize_rows(chunks)
-        q = round_clip_int8(chunks * inv[:, None])
-        return Int8Payload(data=q.reshape(-1), scales=scales, shape=tuple(x.shape),
-                           dtype=x.dtype, chunk=chunk)
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Int8Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, _round_up(flat.shape[1], _LANE))
+        q, scales = quantize_int8(chunk_rows(flat, chunk).contiguous())
+        return Int8Payload(data=q.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
 
     def decompress(self, payload: Int8Payload) -> torch.Tensor:
-        self._refuse_cuda(payload.data, "decompress")
-        return Int8Compressor(chunk=payload.chunk).decompress(payload)
+        q = payload.data.reshape(-1, payload.chunk)
+        return int8_unchunk(dequantize_int8(q, payload.scales.reshape(-1)), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedTopKCompressor(Compressor):
+    """Per-chunk top-k: ``k_per_chunk`` winners by magnitude in every
+    ``chunk`` elements (:func:`chunked_topk`), with uint16 chunk-local
+    indices (:class:`LocalTopKPayload`, ``narrow_indices``) or int32 global
+    ones (:class:`TopKPayload`). Decoding is :func:`chunk_scatter` for the
+    narrow payload and a generic scatter-add for the wide one.
+
+    The reference's own crossover is kept: past ``_TOPK_MAX_K = 64``
+    winners its kernel (one sweep per winner) loses to one sort, so for
+    CUDA tensors a larger k selects by a stable sort in plain ops (the
+    reference's ``lax.top_k`` branch, which keeps a ``-0.0`` winner's
+    sign). That is a branch on k, not a fallback: it launches no kernel
+    and counts none. Padded-tail winners (past the tensor's end) carry
+    value 0.
+    """
+
+    chunk: int = 512
+    k_per_chunk: int = 16
+    narrow_indices: bool = True
+
+    def __post_init__(self):
+        if self.chunk % _LANE:
+            raise ValueError(f"chunk must be a multiple of {_LANE}, got {self.chunk}")
+        if not 0 < self.k_per_chunk <= self.chunk:
+            raise ValueError("k_per_chunk must be in (0, chunk]")
+        if self.narrow_indices and self.chunk > 2**16:
+            raise ValueError(
+                f"narrow_indices stores chunk-local positions as uint16, so chunk must be "
+                f"<= {2**16} (got {self.chunk}); pass narrow_indices=False for wider chunks"
+            )
+
+    def bucket_alignment(self) -> int | None:
+        # selection is chunk-local: with every leaf chunk-aligned in a
+        # bucket, each chunk sees one leaf's elements (plus zero padding)
+        return self.chunk
+
+    def compress(self, x: torch.Tensor, stacked: bool = False):
+        lead, flat = worker_rows(x, stacked)
+        n = flat.shape[1]
+        chunk = min(self.chunk, _round_up(n, _LANE))
+        k = min(self.k_per_chunk, chunk)
+        chunks = chunk_rows(flat, chunk).contiguous()
+        rows = chunks.shape[0] // flat.shape[0]
+        if chunks.is_cuda and k > _TOPK_MAX_K:
+            lidx = topk_by_magnitude(chunks, k)
+            vals = torch.gather(chunks, 1, lidx.long())
+        else:
+            vals, lidx = chunked_topk(chunks, k)
+        gidx = None
+        if n % chunk or not self.narrow_indices:
+            gidx = self._offsets(chunks.shape[0], rows, chunk, chunks.device) + lidx
+            vals = torch.where(gidx < n, vals, torch.zeros_like(vals))
+        values = vals.to(x.dtype).reshape(lead + (-1,))
+        shape = tuple(x.shape[len(lead):])
+        if self.narrow_indices:
+            return LocalTopKPayload(values=values, indices=lidx.to(torch.uint16).reshape(lead + (rows, k)),
+                                    shape=shape, dtype=x.dtype, chunk=chunk)
+        gidx = torch.where(gidx < n, gidx, torch.zeros_like(gidx))
+        return TopKPayload(values=values, indices=gidx.reshape(lead + (-1,)), shape=shape, dtype=x.dtype)
+
+    @staticmethod
+    def _offsets(total_rows: int, rows: int, chunk: int, device) -> torch.Tensor:
+        """int32 ``(total_rows, 1)``: each chunk row's start in its worker's
+        flat tensor (the worker axis only repeats the rows)."""
+        r = torch.arange(total_rows, dtype=torch.int32, device=device) % rows
+        return (r * chunk)[:, None]
+
+    @staticmethod
+    def _global_indices(payload) -> torch.Tensor:
+        """int64 ``(L, m)`` flat scatter targets of either payload form
+        (padded-tail slots clamp to 0; their values are zero, so they add
+        nothing)."""
+        n = math.prod(payload.shape)
+        if isinstance(payload, LocalTopKPayload):
+            lidx = payload.indices.to(torch.int32)
+            rows, k = lidx.shape[-2:]
+            lead = lidx.shape[:-2]
+            lidx = lidx.reshape(-1, k)
+            g = ChunkedTopKCompressor._offsets(lidx.shape[0], rows, payload.chunk, lidx.device) + lidx
+            g = torch.where(g < n, g, torch.zeros_like(g)).reshape(lead + (-1,))
+        else:
+            g = payload.indices
+        return g.reshape(-1, g.shape[-1]).long()
+
+    def _kernel_scatter(self, payload: LocalTopKPayload, acc: torch.Tensor | None, weight) -> torch.Tensor:
+        """:func:`chunk_scatter` of a narrow payload: dense
+        ``decompress`` (``acc`` None) or ``acc + weight * dense``."""
+        n = math.prod(payload.shape)
+        k = payload.indices.shape[-1]
+        lead = tuple(payload.indices.shape[:-2])
+        workers = lead[0] if lead else 1
+        idx = payload.indices.reshape(-1, k).to(torch.int32)
+        # the values are stored flat (per worker); the indices carry (rows, k)
+        vals = payload.values.to(torch.float32).reshape(idx.shape).contiguous()
+        if acc is not None:
+            flat = acc.reshape(workers, -1).to(torch.float32)
+            base = chunk_rows(flat, payload.chunk).contiguous()
+            dense = chunk_scatter(vals, idx, payload.chunk, base, weight=weight)
+            shape, dtype = tuple(acc.shape), acc.dtype
+        else:
+            dense = chunk_scatter(vals, idx, payload.chunk)
+            shape, dtype = lead + tuple(payload.shape), payload.dtype
+        out = dense.reshape(workers, -1)[:, :n]
+        return out.to(dtype).reshape(shape)
+
+    def decompress(self, payload) -> torch.Tensor:
+        if isinstance(payload, LocalTopKPayload):
+            return self._kernel_scatter(payload, None, 1.0)
+        g = self._global_indices(payload)
+        out = torch.zeros((g.shape[0], math.prod(payload.shape)), dtype=payload.dtype, device=g.device)
+        out.scatter_add_(1, g, payload.values.reshape(g.shape).to(payload.dtype))
+        return out.reshape(tuple(payload.values.shape[:-1]) + tuple(payload.shape))
+
+    def decompress_accumulate(self, payload, acc: torch.Tensor, weight) -> torch.Tensor:
+        """The scatter-add receive, ``acc + weight * decompress(payload)``
+        without the dense temporary (padded-tail slots carry zero
+        values, so their duplicate index-0 entries add nothing)."""
+        if acc.dtype == torch.float32 and isinstance(payload, LocalTopKPayload):
+            return self._kernel_scatter(payload, acc, weight)
+        g = self._global_indices(payload)
+        flat = acc.reshape(g.shape[0], -1)
+        vals = weight * payload.values.reshape(g.shape).to(flat.dtype)
+        return flat.scatter_add(1, g, vals).reshape(acc.shape)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,24 +1,45 @@
 """Reference codec semantics in plain PyTorch (port of
-``consensusml_tpu/compress/reference.py``, the int8 part).
+``consensusml_tpu/compress/reference.py``: the int8 and top-k codecs).
 
 These define the numbers every kernel must reproduce bit for bit:
 flatten, zero-pad to whole chunks, ``scale = absmax * f32(1/127)`` per
 chunk (see :func:`quantize_rows`),
 ``inv = 1 / scale`` (0 for a zero chunk), ``q = clip(rint(x * inv),
-±127)`` with round-half-to-even, decode ``q * scale``.
+±127)`` with round-half-to-even, decode ``q * scale``. Top-k picks the k
+largest magnitudes, equal magnitudes going to the lower index (the
+``jax.lax.top_k`` order; ``torch.topk`` promises no order among ties, so
+selection here is a stable descending sort, :func:`topk_by_magnitude`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from consensusml_tpu_torch.compress.base import Compressor, Int8Payload
+from consensusml_tpu_torch.compress.base import (
+    ComposedCompressor,
+    Compressor,
+    Int8Payload,
+    TopKPayload,
+    static_k,
+    worker_rows,
+)
 
-__all__ = ["Int8Compressor", "chunk_for_quantization", "quantize_rows", "fma_f32"]
+__all__ = [
+    "Int8Compressor",
+    "TopKCompressor",
+    "topk_int8_compressor",
+    "quantize_rows",
+    "round_clip_int8",
+    "chunk_rows",
+    "int8_unchunk",
+    "topk_by_magnitude",
+    "fma_f32",
+]
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -60,21 +81,35 @@ def round_clip_int8(y: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8)
 
 
-def chunk_for_quantization(x: torch.Tensor, chunk: int, levels: float = 127.0):
-    """Flatten, clamp the chunk to the tensor, zero-pad, and compute
-    per-chunk scales: ``(chunks (C, chunk) f32, scales, inv, chunk)``."""
-    flat = x.reshape(-1).to(torch.float32)
-    n = flat.numel()
-    chunk = min(chunk, n)
-    pad = (-n) % chunk
-    chunks = F.pad(flat, (0, pad)).reshape(-1, chunk)
-    scales, inv = quantize_rows(chunks, levels)
-    return chunks, scales, inv, chunk
+def chunk_rows(flat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``(L, n)`` rows, each zero-padded to whole chunks on its own, as
+    ``(L * ceil(n / chunk), chunk)``."""
+    pad = (-flat.shape[1]) % chunk
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat.reshape(-1, chunk)
+
+
+def topk_by_magnitude(rows: torch.Tensor, k: int) -> torch.Tensor:
+    """int32 ``(R, k)`` positions of each row's k largest ``|x|``, in
+    descending order, equal magnitudes to the lower index."""
+    order = torch.sort(rows.abs(), dim=1, descending=True, stable=True).indices
+    return order[:, :k].to(torch.int32)
+
+
+def int8_unchunk(dense: torch.Tensor, payload) -> torch.Tensor:
+    """Decoded ``(rows, chunk)`` back to the payload's (stacked) shape:
+    per worker, drop the padding."""
+    lead = tuple(payload.data.shape[:-1])
+    n = math.prod(payload.shape)
+    flat = dense.reshape((lead[0] if lead else 1), -1)[:, :n]
+    return flat.to(payload.dtype).reshape(lead + tuple(payload.shape))
 
 
 @dataclasses.dataclass(frozen=True)
 class Int8Compressor(Compressor):
-    """Symmetric per-chunk int8 quantization (the semantics oracle)."""
+    """Symmetric per-chunk int8 quantization (the semantics oracle); the
+    chunk is clamped to the tensor."""
 
     chunk: int = 256
 
@@ -84,16 +119,77 @@ class Int8Compressor(Compressor):
     def fused_wire(self) -> str | None:
         return "int8"
 
-    def compress(self, x: torch.Tensor) -> Int8Payload:
-        chunks, scales, inv, chunk = chunk_for_quantization(x, self.chunk)
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Int8Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, flat.shape[1])
+        chunks = chunk_rows(flat, chunk)
+        scales, inv = quantize_rows(chunks)
         q = round_clip_int8(chunks * inv[:, None])
-        return Int8Payload(data=q.reshape(-1), scales=scales, shape=tuple(x.shape),
-                           dtype=x.dtype, chunk=chunk)
+        return Int8Payload(data=q.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
 
     def decompress(self, payload: Int8Payload) -> torch.Tensor:
         chunks = payload.data.reshape(-1, payload.chunk).to(torch.float32)
-        flat = (chunks * payload.scales[:, None]).reshape(-1)
-        n = 1
-        for d in payload.shape:
-            n *= d
-        return flat[:n].to(payload.dtype).reshape(payload.shape)
+        return int8_unchunk(chunks * payload.scales.reshape(-1, 1), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKCompressor(Compressor):
+    """Magnitude top-k over the whole tensor with a static k
+    (``round(ratio * size)`` or ``k``): the semantics oracle of
+    ``topk_int8_compressor(impl="reference")``. Its ``bucket_alignment`` is
+    ``None``: global selection does not decompose per chunk, so the engine
+    would take the per-leaf wire, which is not ported."""
+
+    ratio: float = 0.01
+    k: int | None = None
+
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> TopKPayload:
+        lead, flat = worker_rows(x, stacked)
+        k = static_k(flat.shape[1], self.ratio, self.k)
+        idx = topk_by_magnitude(flat, k)
+        values = torch.gather(x.reshape(flat.shape), 1, idx.long())
+        return TopKPayload(values=values.reshape(lead + (k,)), indices=idx.reshape(lead + (k,)),
+                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype)
+
+    def decompress(self, payload: TopKPayload) -> torch.Tensor:
+        lead, idx = self._rows(payload)
+        vals = payload.values.reshape(idx.shape).to(payload.dtype)
+        out = torch.zeros((idx.shape[0], math.prod(payload.shape)), dtype=payload.dtype, device=idx.device)
+        return out.scatter_(1, idx, vals).reshape(lead + tuple(payload.shape))
+
+    def decompress_accumulate(self, payload: TopKPayload, acc: torch.Tensor, weight) -> torch.Tensor:
+        """Scatter-add the k weighted values into ``acc`` (indices are
+        distinct: no dense temporary, same numbers as decode + axpy)."""
+        _lead, idx = self._rows(payload)
+        flat = acc.reshape(idx.shape[0], -1)
+        vals = weight * payload.values.reshape(idx.shape).to(flat.dtype)
+        return flat.scatter_add(1, idx, vals).reshape(acc.shape)
+
+    @staticmethod
+    def _rows(payload: TopKPayload):
+        lead = tuple(payload.indices.shape[:-1])
+        return lead, payload.indices.reshape(-1, payload.indices.shape[-1]).long()
+
+
+def topk_int8_compressor(ratio: float = 0.01, chunk: int = 256, k: int | None = None,
+                         impl: str = "reference") -> ComposedCompressor:
+    """Config-5 codec: top-k sparsify, then int8-quantize the k values.
+
+    ``impl="reference"``: global top-k + :class:`Int8Compressor` (the
+    semantics oracle). ``impl="auto"``: the kernel-backed pair, per-chunk
+    top-k (``k_per_chunk = k or round(ratio * chunk)`` winners per
+    ``chunk`` elements) then :class:`PallasInt8Compressor` at ``max(chunk,
+    128)``, the reference's kernel path; its wrappers launch the kernels
+    for CUDA tensors and run the plain versions for CPU ones."""
+    if impl == "reference":
+        return ComposedCompressor(inner=TopKCompressor(ratio=ratio, k=k), outer=Int8Compressor(chunk=chunk))
+    if impl != "auto":
+        raise ValueError(f"unknown topk_int8 impl {impl!r} (reference|auto)")
+    from consensusml_tpu_torch.compress.kernels import ChunkedTopKCompressor, PallasInt8Compressor
+
+    k_per_chunk = k if k is not None else max(1, round(ratio * chunk))
+    return ComposedCompressor(
+        inner=ChunkedTopKCompressor(chunk=chunk, k_per_chunk=k_per_chunk),
+        outer=PallasInt8Compressor(chunk=max(chunk, 128)),
+    )

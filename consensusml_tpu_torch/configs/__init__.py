@@ -12,10 +12,16 @@ CHOCO compressed gossip on a ring.
   2 heads, max_len 32, dropout 0), 4 workers, batch 8 x seq 16, h = 2,
   Adam(3e-3), gamma 0.5, no warm-up or refresh.
 
-The config's default codec (chunked top-k + int8, four kernels) is not
-ported yet; ``codec="int8"`` is the reference's ``train.py --codec int8``
-variant: ``PallasInt8Compressor`` at the config's chunk (512 full, 128
-smoke), which rides the fused one-pass bucketed wire.
+Codecs (``codec=None`` is the config's own, as ``train.py`` without
+``--codec``):
+
+- ``"topk_int8"``, the config's: ``topk_int8_compressor(chunk=512, k=8)``
+  full, ``topk_int8_compressor(ratio=0.1, chunk=128)`` (13 of 128) smoke;
+  chunked top-k then int8 on the values, on the two-step bucketed wire
+  (four kernels an exchange: top-k, quantize, dequantize, scatter);
+- ``"int8"``, the reference's ``train.py --codec int8`` variant:
+  ``PallasInt8Compressor`` at the config's chunk, which rides the fused
+  one-pass bucketed wire.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 __all__ = ["CONFIGS", "RunBundle", "build", "gpt2_config", "build_model", "gpt2_init_params"]
 
 CONFIGS = ("gpt2_topk",)
-CODECS = ("int8",)
+CODECS = ("topk_int8", "int8")
 
 
 def gpt2_config(scale: str = "smoke", dtype: torch.dtype = torch.bfloat16) -> GPT2Config:
@@ -109,7 +115,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     ``codec_warmup`` = ``--codec-warmup``). ``device`` (``None`` = CUDA)
     resolves the codec path: the CUDA kernels on a CUDA device, their
     plain versions on the CPU."""
-    from consensusml_tpu_torch.compress import PallasInt8Compressor, resolve_codec_impl
+    from consensusml_tpu_torch.compress import PallasInt8Compressor, resolve_codec_impl, topk_int8_compressor
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
     from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
@@ -119,10 +125,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
 
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
-    if codec is None:
-        raise NotImplementedError(
-            "gpt2_topk's default codec (chunked top-k + int8) is not ported yet; pass codec='int8'"
-        )
+    codec = codec or "topk_int8"
     if codec not in CODECS:
         raise NotImplementedError(f"codec {codec!r} is not ported yet (one of {CODECS})")
     full = scale == "full"
@@ -131,9 +134,16 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     batch, seq = (8, 1024) if full else (8, 16)
     chunk = 512 if full else 128
     impl = resolve_codec_impl("auto", resolve_device(device))
+    if codec == "topk_int8":
+        # train.py --codec topk_int8 reads the config's chunk and k: the same codec
+        comp = (topk_int8_compressor(chunk=512, k=8, impl="auto") if full
+                else topk_int8_compressor(ratio=0.1, chunk=128, impl="auto"))
+        codec_name = f"topk_int8/{chunk} k={comp.inner.k_per_chunk}"
+    else:
+        comp, codec_name = PallasInt8Compressor(chunk=chunk, impl=impl), f"int8/{chunk}"
     gossip = GossipConfig(
         topology=topology_from_name("ring", world),
-        compressor=PallasInt8Compressor(chunk=chunk, impl=impl),
+        compressor=comp,
         gamma=(0.1 if full else 0.5) if gamma is None else gamma,
         codec_warmup_rounds=(50 if full else 0) if codec_warmup is None else codec_warmup,
         codec_refresh_every=50 if full else 0,
@@ -152,6 +162,6 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
             data, world, cfg.h, batch, rounds, seed, start=start
         ),
         init_params=lambda seed: gpt2_init_params(mcfg, seed, world),
-        codec_path=f"{codec}/{chunk} -> {path}",
-        description="GPT-2 pretrain with int8 compressed gossip (CHOCO, fused wire)",
+        codec_path=f"{codec_name} -> {path}",
+        description=f"GPT-2 pretrain with {codec} compressed gossip (CHOCO)",
     )

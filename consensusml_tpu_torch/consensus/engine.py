@@ -8,19 +8,22 @@ CHOCO-SGD update (gamma = consensus step size, Q = compressor):
     s_i    <- s_i + sum_j W[i,j] dec(q_j)   # only q travels the wire
     x_i    <- x_i + gamma * (s_i - xhat_i)
 
-This slice ports the bucketed wire of the simulated backend: exact
-mixing over dense buckets, and CHOCO over codec buckets through the fused
-one-pass encode (one kernel launch per bucket per exchange). The warm-up
-and periodic dense-refresh rounds of the reference (``lax.cond`` on the
-round counter) are a Python ``if`` on the host's round counter here.
+The bucketed wire of the simulated backend is ported: exact mixing over
+dense buckets, and CHOCO over codec buckets either through the fused
+one-pass encode (int8: one kernel launch per bucket per exchange) or
+through the two-step wire (any other codec with a ``bucket_alignment``,
+or ``fused_wire=False``: per bucket, ``compress`` then ``decompress`` of
+the innovation on the stacked buffer, the worker axis written out where
+the reference vmaps). The warm-up and periodic dense-refresh rounds of
+the reference (``lax.cond`` on the round counter) are a Python ``if`` on
+the host's round counter here.
 
 Not ported yet, and refused with ``NotImplementedError`` when set: the
-per-leaf wire (``bucket_bytes=None``), the two-step bucketed wire
-(``fused_wire=False``, or a codec without a fused wire), ``path_filter``,
-``compress_filter`` other than ``"auto"`` (and exact-mixed
-``model_state`` leaves under it), faults, push-sum, ``fused_codec``,
-overlap gossip and its pipelining, stochastic codecs, and the collective
-backend.
+per-leaf wire (``bucket_bytes=None``, or a codec without a
+``bucket_alignment``), ``path_filter``, ``compress_filter`` other than
+``"auto"`` (and exact-mixed ``model_state`` leaves under it), faults,
+push-sum, ``fused_codec``, overlap gossip and its pipelining, stochastic
+codecs, and the collective backend.
 """
 
 from __future__ import annotations
@@ -104,11 +107,16 @@ class GossipConfig:
 
             if comp.stochastic:
                 raise NotImplementedError("stochastic codecs are not ported yet")
-            if self.fused_wire is False or fused_bucket_codec(comp) is None:
+            if comp.bucket_alignment() is None:
                 raise NotImplementedError(
-                    f"{type(comp).__name__} with fused_wire={self.fused_wire!r}: only the fused "
-                    "one-pass wire (per-chunk int8) is ported; the two-step and per-leaf "
-                    "wires are not"
+                    f"{type(comp).__name__} does not decompose per chunk (bucket_alignment() is "
+                    "None), so it needs the per-leaf wire, which is not ported yet"
+                )
+            if self.fused_wire is True and fused_bucket_codec(comp) is None:
+                raise NotImplementedError(
+                    f"fused_wire=True but {type(comp).__name__} has no fused one-pass wire "
+                    "(only the per-chunk int8 quantizer fuses); use fused_wire='auto' for the "
+                    "two-step bucketed wire"
                 )
         elif self.fused_wire is True:
             raise NotImplementedError("fused_wire=True without a compressor has nothing to fuse")
@@ -157,13 +165,20 @@ class ConsensusEngine:
 
     @property
     def bucketed(self) -> bool:
-        """Always true in this slice (the config refuses the per-leaf wire)."""
+        """Always true here (the config refuses the per-leaf wire)."""
         return True
 
     @property
     def fused_wire_active(self) -> bool:
-        """True for every compressed config (the config refuses the rest)."""
-        return self.compressed
+        """Whether compressed rounds run the fused one-pass wire: a codec
+        with a fused wire and the config not opting out (the reference's
+        rule); otherwise CHOCO runs the two-step bucketed wire."""
+        cfg = self.config
+        if cfg.compressor is None or cfg.fused_wire is False:
+            return False
+        from consensusml_tpu_torch.compress.kernels import fused_bucket_codec
+
+        return fused_bucket_codec(cfg.compressor) is not None
 
     def _dense_plan(self, leaves: list, stacked: bool = False) -> BucketPlan:
         return build_plan(
@@ -226,14 +241,16 @@ class ConsensusEngine:
         _check_no_model_state(params)
         x32 = [x.to(torch.float32) for x in leaves]
         plan = self._codec_plan(x32, stacked=True)
-        fused = build_fused_plan(plan, cfg.compressor)
+        fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
         x = plan.pack(x32, stacked=True)
         del x32
         xhat, s = list(state.xhat), list(state.s)
         _check_bucket_state(x, xhat)
 
         def track(x, xhat, s):
-            return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
+            if fused is not None:
+                return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
+            return self._innovation_exchange_simulated(x, xhat, s, w)
 
         warm, refresh = cfg.codec_warmup_rounds, cfg.codec_refresh_every
         if (warm > 0 and step < warm) or (refresh > 0 and step % refresh == 0):
@@ -262,6 +279,20 @@ class ConsensusEngine:
             recv = simulated.mix_stacked(fused.codec.decode(q), w)
             new_hat.append(hat)
             new_s.append(sb + recv)
+        return new_hat, new_s
+
+    def _innovation_exchange_simulated(self, x: list, xhat: list, s: list, w: torch.Tensor):
+        """The two-step wire's exchange on stacked ``(W, total)`` buffers:
+        ``dec = decompress(compress(x - xhat))`` with every worker's slice
+        compressed on its own (the reference's vmap; one launch of each
+        codec kernel covers all workers), ``xhat += dec``, ``s += W @
+        dec``. Bucket by bucket, as the fused exchange."""
+        comp = self.config.compressor
+        new_hat, new_s = [], []
+        for xb, hb, sb in zip(x, xhat, s):
+            dec = comp.decompress(comp.compress(xb - hb, stacked=True))
+            new_hat.append(hb + dec)
+            new_s.append(sb + simulated.mix_stacked(dec, w))
         return new_hat, new_s
 
     # ---- accounting -----------------------------------------------------

@@ -15,10 +15,9 @@
 // multiply-add (in its jitted rounds and its Pallas kernels alike; each
 // differs from the naive reading in the last bit of ~8% of values). So
 // every rounding is spelled out here and nothing is left to nvcc's
-// contraction: __fsub_rn/__fmul_rn for d and d * inv, __fmul_rn by the
-// reciprocal for the scale, __fdiv_rn (the IEEE quotient, never
-// __fdividef) for inv, __fmaf_rn for xhat', and rintf, which rounds half
-// to even like jnp.rint.
+// contraction: __fsub_rn/__fmul_rn for d and d * inv, the int8 math of
+// int8_quant.cuh (shared with the stand-alone quantize kernel), and
+// __fmaf_rn for xhat'.
 //
 // What bounds it on the H100: bytes. Each element reads 8 bytes (x, xhat)
 // and writes 5 (q, xhat'), with a handful of flops: ~0.4 flop/byte, far
@@ -30,23 +29,18 @@
 // L1/L2 rather than holding it in registers, so one kernel serves every
 // chunk that is a multiple of 128.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_quant.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
+using cml::kWarp;
 constexpr int kRowsPerBlock = 8;
-constexpr int kRecip127Bits = 0x3c010204;  // f32(1/127), the constant XLA multiplies by
-
-// jnp.max propagates NaN; fmaxf would drop it
-__device__ __forceinline__ float max_nan(float m, float a) { return (a > m || a != a) ? a : m; }
 
 __device__ __forceinline__ void quant(float xv, float hv, float inv, float scale, signed char& q,
                                       float& out) {
-  const float r = rintf(__fmul_rn(__fsub_rn(xv, hv), inv));
-  // through int: a rounded -0.0 decodes as +0, as the reference's int8 does
-  const int qi = (r != r) ? 0 : static_cast<int>(fminf(fmaxf(r, -127.f), 127.f));
+  const int qi = cml::round_clip_int8(__fmul_rn(__fsub_rn(xv, hv), inv));
   q = static_cast<signed char>(qi);
   out = __fmaf_rn(static_cast<float>(qi), scale, hv);
 }
@@ -66,15 +60,14 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock) choco_encode_int8_kerne
   for (int i = lane; i < n4; i += kWarp) {
     const float4 a = x4[i];
     const float4 b = h4[i];
-    m = max_nan(m, fabsf(__fsub_rn(a.x, b.x)));
-    m = max_nan(m, fabsf(__fsub_rn(a.y, b.y)));
-    m = max_nan(m, fabsf(__fsub_rn(a.z, b.z)));
-    m = max_nan(m, fabsf(__fsub_rn(a.w, b.w)));
+    m = cml::max_nan(m, fabsf(__fsub_rn(a.x, b.x)));
+    m = cml::max_nan(m, fabsf(__fsub_rn(a.y, b.y)));
+    m = cml::max_nan(m, fabsf(__fsub_rn(a.z, b.z)));
+    m = cml::max_nan(m, fabsf(__fsub_rn(a.w, b.w)));
   }
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) m = max_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
-  const float scale = __fmul_rn(m, __int_as_float(kRecip127Bits));
-  const float inv = scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f;
+  m = cml::warp_max_nan(m);
+  const float scale = cml::int8_scale(m);
+  const float inv = cml::int8_inv(scale);
   if (lane == 0) scales[row] = scale;
 
   char4* q4 = reinterpret_cast<char4*>(q + base);

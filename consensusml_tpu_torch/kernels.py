@@ -67,6 +67,10 @@ KERNELS = {
     "fused_choco_encode": (
         "consensusml_tpu_torch.compress.kernels", "fused_pack_quantize", "fused_choco_encode"
     ),
+    "quantize_int8": ("consensusml_tpu_torch.compress.kernels", "quantize_int8", "int8_codec"),
+    "dequantize_int8": ("consensusml_tpu_torch.compress.kernels", "dequantize_int8", "int8_codec"),
+    "chunked_topk": ("consensusml_tpu_torch.compress.kernels", "chunked_topk", "chunked_topk"),
+    "chunk_scatter": ("consensusml_tpu_torch.compress.kernels", "chunk_scatter", "chunk_scatter"),
 }
 SOURCES = tuple(dict.fromkeys(src for _m, _a, src in KERNELS.values()))
 
@@ -89,7 +93,9 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # every header of csrc/ goes into the hash, so an edited shared header
+    # rebuilds the sources that include it
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

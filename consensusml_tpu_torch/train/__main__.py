@@ -1,9 +1,11 @@
 """``python -m consensusml_tpu_torch.train``: consensus-SGD training of the
 port, mirroring ``train.py``'s flags for the slice that is ported
-(``gpt2_topk`` with ``--codec int8`` on the simulated backend)::
+(``gpt2_topk`` on the simulated backend, on its own codec or ``--codec
+int8``)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec int8
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).
 Prints the resolved codec path, then one line per logged round: loss,
@@ -23,8 +25,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
-    p.add_argument("--codec", default="int8", choices=["int8"],
-                   help="int8: PallasInt8Compressor on the fused one-pass wire")
+    p.add_argument("--codec", default=None, choices=["topk_int8", "int8"],
+                   help="default: the config's own (topk_int8: chunked top-k + int8 on the two-step "
+                        "bucketed wire); int8: PallasInt8Compressor on the fused one-pass wire")
     p.add_argument("--codec-warmup", type=int, default=None,
                    help="exact warm-up rounds (default: the config's)")
     p.add_argument("--gamma", type=float, default=None, help="CHOCO consensus step (default: the config's)")
@@ -47,9 +50,10 @@ def main(argv=None) -> int:
         args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
         codec_warmup=args.codec_warmup, device=dev,
     )
-    print(f"codec: {bundle.codec_path}; fused one-pass bucketed wire "
-          f"(fused_wire={bundle.cfg.gossip.fused_wire}, active="
-          f"{bundle.cfg.engine().fused_wire_active})", flush=True)
+    fused = bundle.cfg.engine().fused_wire_active
+    wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
+    print(f"codec: {bundle.codec_path}; {wire} "
+          f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
     params = {n: t.to(dev) for n, t in gpt2_from_flax(bundle.init_params(args.seed)).items()}
     state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)

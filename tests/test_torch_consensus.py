@@ -11,6 +11,10 @@ package's.
   mixing product ``W @ x`` of a 4x4 matrix sums the same four products
   in the same order in both, and the port computes the reference's fused
   multiply-adds with one rounding (``compress/reference.py:fma_f32``).
+- The two-step wire: the config's own codec (chunked top-k + int8, JAX
+  ``impl="interpret"``, the TPU kernel path), and the int8 codec with
+  ``fused_wire=False``: the bucket layout (25 buckets at GPT-2-medium)
+  and the same warm and CHOCO rounds, bit for bit.
 """
 
 import jax
@@ -21,13 +25,14 @@ import torch
 
 from consensusml_tpu.comm import simulated as jsim
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
+from consensusml_tpu.compress.reference import topk_int8_compressor as jax_topk_int8
 from consensusml_tpu.consensus import ConsensusEngine as JaxEngine
 from consensusml_tpu.consensus import GossipConfig as JaxGossip
 from consensusml_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
 from consensusml_tpu.models.gpt2 import GPT2LM as JaxGPT2LM
 from consensusml_tpu.topology import RingTopology as JaxRing
 from consensusml_tpu_torch.comm import simulated
-from consensusml_tpu_torch.compress import PallasInt8Compressor
+from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int8_compressor
 from consensusml_tpu_torch.configs import gpt2_config
 from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.models.convert import gpt2_from_flax
@@ -43,14 +48,25 @@ def _flax_shapes(geom):
     return jax.eval_shape(model.init, jax.random.key(0), jnp.zeros((1, 8), jnp.int32))["params"]
 
 
-def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1):
+def _codecs(codec, chunk):
+    """(JAX codec, port codec): ``"int8"`` or the config's ``"topk_int8"``
+    (k 8 at chunk 512, 13 at 128, as ``gpt2_topk`` full and smoke)."""
+    if codec == "int8":
+        return JaxInt8(chunk=chunk, impl="interpret"), PallasInt8Compressor(chunk=chunk)
+    k = 8 if chunk == 512 else 13
+    return (jax_topk_int8(chunk=chunk, k=k, impl="interpret"),
+            topk_int8_compressor(chunk=chunk, k=k, impl="auto"))
+
+
+def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1, codec="int8", fused_wire="auto"):
+    jcomp, tcomp = _codecs(codec, chunk)
     jeng = JaxEngine(JaxGossip(
-        topology=JaxRing(WORLD), compressor=JaxInt8(chunk=chunk, impl="interpret"), gamma=gamma,
-        codec_warmup_rounds=warm, bucket_bytes=bucket_bytes, gossip_steps=steps,
+        topology=JaxRing(WORLD), compressor=jcomp, gamma=gamma, codec_warmup_rounds=warm,
+        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire,
     ))
     teng = ConsensusEngine(GossipConfig(
-        topology=RingTopology(WORLD), compressor=PallasInt8Compressor(chunk=chunk), gamma=gamma,
-        codec_warmup_rounds=warm, bucket_bytes=bucket_bytes, gossip_steps=steps,
+        topology=RingTopology(WORLD), compressor=tcomp, gamma=gamma, codec_warmup_rounds=warm,
+        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire,
     ))
     return jeng, teng
 
@@ -62,20 +78,29 @@ def _layout(plan):
     ]
 
 
+@pytest.mark.parametrize("codec", ["int8", "topk_int8"])
 @pytest.mark.parametrize("scale,bucket_bytes", [("smoke", 4 * 2**20), ("smoke", 3000), ("full", 4 * 2**20)])
-def test_bucket_plan_matches_reference(scale, bucket_bytes):
+def test_bucket_plan_matches_reference(scale, bucket_bytes, codec):
     geom = SMOKE if scale == "smoke" else {}
     chunk = 128 if scale == "smoke" else 512
-    jeng, teng = _engines(chunk=chunk, bucket_bytes=bucket_bytes)
+    jeng, teng = _engines(chunk=chunk, bucket_bytes=bucket_bytes, codec=codec)
     jtree = {"params": _flax_shapes(geom), "model_state": {}}
     meta = GPT2LM(gpt2_config(scale), device="meta")
     ttree = {"params": dict(meta.named_parameters()), "model_state": {}}
     jplan, tplan = jeng.bucket_plan(jtree), teng.bucket_plan(ttree)
     assert _layout(tplan) == _layout(jplan)
     assert teng.wire_bytes_per_round(ttree) == jeng.wire_bytes_per_round(jtree)
-    if scale == "full":
+    assert teng.fused_wire_active == jeng.fused_wire_active == (codec == "int8")
+    if scale == "full" and codec == "int8":
         # the encode launches per round on the card (one per bucket)
         assert tplan.num_buckets == jplan.num_buckets == 123
+    if scale == "full" and codec == "topk_int8":
+        # 148 wire bytes a 512-chunk (the kernel path's layout): each of
+        # the four codec kernels launches once a bucket per exchange
+        assert tplan.num_buckets == jplan.num_buckets == 25
+        assert teng.wire_bytes_per_round(ttree) == 33_366_424
+    if scale == "smoke" and bucket_bytes > 3000:
+        assert tplan.num_buckets == 1
 
 
 def _stacked_params(seed):
@@ -91,9 +116,11 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.uint32)
 
 
+@pytest.mark.parametrize("codec,fused_wire", [("int8", "auto"), ("topk_int8", "auto"), ("int8", False)])
 @pytest.mark.parametrize("steps", [1, 2])
-def test_warm_then_choco_rounds_bit_equal(steps):
-    jeng, teng = _engines(warm=1, bucket_bytes=3000, steps=steps)  # several buckets
+def test_warm_then_choco_rounds_bit_equal(steps, codec, fused_wire):
+    jeng, teng = _engines(warm=1, bucket_bytes=3000, steps=steps, codec=codec, fused_wire=fused_wire)
+    assert teng.fused_wire_active == jeng.fused_wire_active == (codec == "int8" and fused_wire == "auto")
     params = _stacked_params(0)
     jtree = {"params": jax.tree.map(jnp.asarray, params), "model_state": {}}
     ttree = {"params": gpt2_from_flax(params), "model_state": {}}
@@ -156,10 +183,18 @@ def test_exact_mixing_round_bit_equal():
 
 def test_unported_options_refuse():
     topo = RingTopology(WORLD)
-    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"fused_wire": False},
+    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True},
                    {"bucket_bytes": None}, {"path_filter": lambda p: True}):
         with pytest.raises(NotImplementedError):
             GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), **kwargs)
+    # the two-step wire is ported; the fused one needs a codec that fuses,
+    # and global top-k needs the per-leaf wire
+    assert not ConsensusEngine(GossipConfig(
+        topology=topo, compressor=PallasInt8Compressor(chunk=128), fused_wire=False)).fused_wire_active
+    with pytest.raises(NotImplementedError):
+        GossipConfig(topology=topo, compressor=topk_int8_compressor(chunk=128, k=8, impl="auto"), fused_wire=True)
+    with pytest.raises(NotImplementedError):
+        GossipConfig(topology=topo, compressor=topk_int8_compressor(chunk=128, k=8, impl="reference"))
     with pytest.raises(NotImplementedError):
         GossipConfig(topology=topo, codec_warmup_rounds=1)
     eng = ConsensusEngine(GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128)))

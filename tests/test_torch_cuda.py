@@ -11,7 +11,9 @@ the same as ``chip_smoke.py``'s: both sides sum in f32 in different
 orders and round to bf16, so a paged-attention output may land one bf16
 ulp away (rtol 2**-7); the flash kernel also rounds its per-tile
 probabilities against a running max, so it is allowed two (2**-6). The
-f32 logsumexp differs in summation order only.
+f32 logsumexp differs in summation order only. The codec kernels (the
+CHOCO encode, int8 quantize/dequantize, chunked top-k, chunk scatter)
+are held bit for bit: integer selection and one rounding per operation.
 """
 
 import pytest
@@ -207,3 +209,123 @@ def test_fused_encode_kernel_bit_equal_to_plain(dev):
         assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
     with pytest.raises(ValueError):
         tck.fused_pack_quantize(torch.zeros(4, 100, device=dev), torch.zeros(4, 100, device=dev))
+
+
+def _codec_rows(dev, rows, chunk, seed):
+    """f32 rows with the codec kernels' hazards: a zero row, a row of
+    +0/-0, round-half points (scale 1), a tie of opposite signs among
+    fewer non-zeros than k, and a row of equal magnitudes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 3 * torch.randn(rows, chunk, generator=gen, device=dev)
+    x[0] = 0.0
+    x[1] = torch.where(torch.arange(chunk, device=dev) % 2 == 1, -0.0, 0.0)
+    x[2] = torch.randint(-126, 127, (chunk,), generator=gen, device=dev).float() + 0.5
+    x[2, 0] = 127.0
+    x[3] = 0.0
+    x[3, 5], x[3, 9], x[3, 40] = -3.0, 3.0, -0.0
+    x[4] = torch.where(torch.arange(chunk, device=dev) % 3 == 0, 2.0, -2.0)
+    return x
+
+
+def _same_bits(a, b):
+    view = {torch.float32: torch.int32, torch.int32: torch.int32, torch.int8: torch.int8}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("rows,chunk", [(4 * 1571, 512), (37, 128), (9, 1024)])
+def test_int8_kernels_bit_equal_to_plain(dev, rows, chunk):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    x = _codec_rows(dev, rows, chunk, rows)
+    before = (tck.quantize_int8.launches, tck.dequantize_int8.launches)
+    q, s = tck.quantize_int8(x)
+    d = tck.dequantize_int8(q, s)
+    torch.cuda.synchronize()
+    assert (tck.quantize_int8.launches, tck.dequantize_int8.launches) == (before[0] + 1, before[1] + 1)
+    qp, sp = tck.quantize_int8_plain(x)
+    assert _same_bits(q, qp) and _same_bits(s, sp)
+    assert _same_bits(d, tck.dequantize_int8_plain(q, s))
+    assert s[0] == 0 and s[2] == 1.0
+
+
+@pytest.mark.parametrize("chunk", [128, 256, 384, 512, 1024])
+@pytest.mark.parametrize("k", [1, 8, 13, 64])
+def test_chunked_topk_kernel_bit_equal_to_plain(dev, chunk, k):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    x = _codec_rows(dev, 1000, chunk, chunk + k)
+    before = tck.chunked_topk.launches
+    v, i = tck.chunked_topk(x, k)
+    torch.cuda.synchronize()
+    assert tck.chunked_topk.launches == before + 1
+    vp, ip = tck.chunked_topk_plain(x, k)
+    assert _same_bits(i, ip) and _same_bits(v, vp)
+    if k >= 2:
+        assert i[3, :2].tolist() == [5, 9]
+
+
+@pytest.mark.parametrize("with_acc,weight", [(False, 1.0), (True, 1.0), (True, 0.3)])
+@pytest.mark.parametrize("chunk,k", [(512, 8), (128, 13), (256, 100)])
+def test_chunk_scatter_kernel_bit_equal_to_plain(dev, chunk, k, with_acc, weight):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(chunk + k)
+    rows = 3000
+    vals = torch.randn(rows, k, generator=gen, device=dev)
+    vals[0, 0] = -0.0
+    idx = torch.argsort(torch.rand(rows, chunk, generator=gen, device=dev), dim=1)[:, :k].to(torch.int32)
+    acc = torch.randn(rows, chunk, generator=gen, device=dev)
+    acc[1] = -0.0
+    acc[0, idx[0, 0]] = -0.0
+    acc = acc if with_acc else None
+    before = tck.chunk_scatter.launches
+    got = tck.chunk_scatter(vals, idx, chunk, acc, weight=weight)
+    torch.cuda.synchronize()
+    assert tck.chunk_scatter.launches == before + 1
+    assert _same_bits(got, tck.chunk_scatter_plain(vals, idx, chunk, acc, weight=weight))
+    assert not torch.signbit(got[got == 0]).any()
+
+
+def test_topk_int8_codec_on_card_equals_cpu(dev, monkeypatch):
+    """The config's codec on a stacked (4, n) CUDA buffer launches each of
+    its four kernels once and never reaches a plain version (patched to
+    raise here); payload and decode are bit-equal to the same codec on
+    the CPU (plain versions)."""
+    from consensusml_tpu_torch.compress import kernels as tck
+    from consensusml_tpu_torch.compress import topk_int8_compressor
+
+    x = torch.randn(4, 300 * 512, generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    comp = topk_int8_compressor(chunk=512, k=8, impl="auto")
+    want = comp.compress(x.cpu(), stacked=True)
+    want_dec = comp.decompress(want)
+    names = ("quantize_int8", "dequantize_int8", "chunked_topk", "chunk_scatter")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in names:
+        monkeypatch.setattr(tck, f"{name}_plain", refuse)
+    before = {n: getattr(tck, n).launches for n in names}
+    p = comp.compress(x, stacked=True)
+    dec = comp.decompress(p)
+    torch.cuda.synchronize()
+    assert {n: getattr(tck, n).launches - before[n] for n in names} == dict.fromkeys(names, 1)
+    assert p.indices.dtype == torch.uint16 and p.indices.shape == (4, 300, 8)
+    assert torch.equal(p.indices.cpu().to(torch.int32), want.indices.to(torch.int32))
+    assert _same_bits(p.values.data.cpu(), want.values.data) and _same_bits(p.values.scales.cpu(), want.values.scales)
+    assert _same_bits(dec.cpu(), want_dec)
+
+
+def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    with pytest.raises(ValueError):
+        tck.quantize_int8(torch.zeros(4, 100, device=dev))
+    with pytest.raises(ValueError):
+        tck.chunked_topk(torch.zeros(4, 2048, device=dev), 8)
+    with pytest.raises(ValueError):
+        tck.chunked_topk(torch.zeros(4, 512, device=dev), 65)
+    with pytest.raises(ValueError):
+        tck.chunk_scatter(torch.zeros(4, 8, device=dev), torch.zeros(4, 8, dtype=torch.int64, device=dev), 512)
+    with pytest.raises(ValueError):
+        tck.dequantize_int8(torch.zeros(4, 512, dtype=torch.int8, device=dev), torch.zeros(4, device=dev).double())

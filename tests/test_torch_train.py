@@ -1,6 +1,25 @@
-"""Consensus-SGD training of ``gpt2_topk`` (smoke, ``--codec int8``) on the
-port against the JAX package, from the same initial parameters (the
-reference's per-worker flax init, converted) and the same batches.
+"""Consensus-SGD training of ``gpt2_topk`` (smoke) on the port against the
+JAX package, from the same initial parameters (the reference's per-worker
+flax init, converted) and the same batches: on ``--codec int8`` (the fused
+wire) and on the config's own codec (chunked top-k + int8, the two-step
+wire; the smoke model packs into one bucket, where the reference's jnp
+and kernel paths give the same payloads).
+
+The top-k curves are held twice. In f32 (the model computed in f32 in
+both frameworks) they agree to ~2e-6 (loss) and ~3e-7 (relative
+consensus error), well inside the tolerances below. In bf16, the
+config's own precision, the two frameworks' Adam steps differ by up to
+~2 lr in a few elements (see below), and top-k amplifies that: the 32
+LayerNorm scales of a chunk all sit within ~6e-3 of 1.0, so which 13 of
+128 are shipped is decided by that noise, and a flipped pick moves a
+parameter by ~0.3 (read after round 0). Readings in bf16, loss and
+relative consensus error: round 0 7.7e-4 and 3.2e-5 (inside the
+tolerances below: the loss is taken before any pick, and the picks of
+the first exchange mostly agree), round 1 3.6e-3 and 1.8e-4, round 2
+1.2e-3 and 7.1e-5, the gossip being bit-exact
+(tests/test_torch_consensus.py). So round 0 is held to the tolerances
+below and the later rounds to 1e-2 and 1e-3 (about 3x and 5x the
+readings, and still 20x and 100x below what a wrong round moves).
 
 Tolerances (loss and consensus-error curves over three rounds): the two
 frameworks run the bf16 model with different summation orders and bf16
@@ -17,6 +36,7 @@ the loss by 0.2).
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -24,11 +44,14 @@ from consensusml_tpu import configs as jax_configs
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
 from consensusml_tpu.data.synthetic import SyntheticLM as JaxSyntheticLM
 from consensusml_tpu.data.synthetic import lm_round_batches as jax_lm_round_batches
+from consensusml_tpu.models.gpt2 import GPT2LM as JaxGPT2LM
+from consensusml_tpu.models.gpt2 import gpt2_loss_fn as jax_gpt2_loss_fn
 from consensusml_tpu.train import init_stacked_state as jax_init_stacked_state
 from consensusml_tpu.train import make_simulated_train_step as jax_train_step
 from consensusml_tpu_torch import configs
 from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
 from consensusml_tpu_torch.models.convert import gpt2_from_flax
+from consensusml_tpu_torch.models.gpt2 import GPT2LM, gpt2_loss_fn
 from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
 ROUNDS = 3
@@ -43,16 +66,22 @@ def test_lm_round_batches_identical():
             np.testing.assert_array_equal(g["input_ids"].numpy(), np.asarray(w["input_ids"]))
 
 
-def _reference_run(seed):
+def _reference_run(seed, codec="int8", f32=False):
     import dataclasses
 
     bundle = jax_configs.build("gpt2_topk", "smoke")
-    # train.py --codec int8 off-TPU: the Pallas int8 codec in interpret mode
-    gossip = dataclasses.replace(bundle.cfg.gossip, compressor=JaxInt8(chunk=128, impl="interpret"))
-    cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
+    cfg = bundle.cfg
+    loss_fn = bundle.loss_fn
+    if f32:
+        geom = dataclasses.replace(bundle.model.config, dtype=jnp.float32)
+        loss_fn = jax_gpt2_loss_fn(JaxGPT2LM(config=geom))
+    if codec == "int8":
+        # train.py --codec int8 off-TPU: the Pallas int8 codec in interpret mode
+        gossip = dataclasses.replace(bundle.cfg.gossip, compressor=JaxInt8(chunk=128, impl="interpret"))
+        cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
     state = jax_init_stacked_state(cfg, bundle.init_params, jax.random.key(seed), bundle.world_size)
     init = jax.tree.map(np.asarray, state.params)
-    step = jax_train_step(cfg, bundle.loss_fn)
+    step = jax_train_step(cfg, loss_fn)
     curves = []
     for batch in bundle.batches(ROUNDS, seed):
         state, m = step(state, batch)
@@ -60,28 +89,73 @@ def _reference_run(seed):
     return init, curves, cfg.engine().fused_wire_active
 
 
-def test_smoke_training_curves_match_reference():
-    init, want, fused = _reference_run(seed=0)
-    assert fused
-    bundle = configs.build("gpt2_topk", "smoke", codec="int8", device="cpu")
-    assert bundle.cfg.engine().fused_wire_active
+def _port_run(init, codec, f32=False):
+    bundle = configs.build("gpt2_topk", "smoke", codec=codec, device="cpu")
+    loss_fn = bundle.loss_fn
+    if f32:
+        loss_fn = gpt2_loss_fn(GPT2LM(configs.gpt2_config("smoke", torch.float32), device="meta"))
     state = init_stacked_state(bundle.cfg, gpt2_from_flax(init), bundle.world_size)
-    step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
+    step = make_simulated_train_step(bundle.cfg, loss_fn)
     got = []
     for batch in bundle.batches(ROUNDS, 0):
         state, m = step(state, batch)
         got.append((float(m["loss"]), float(m["consensus_error"])))
+    return bundle, state, got
+
+
+def _assert_curves_match(got, want, later=(2e-3, 1e-4)):
+    """Loss within 2e-3 and consensus error within 1e-4 relative in round
+    0; ``later`` holds the other rounds (bf16 top-k, module docstring)."""
     for r, ((gl, ge), (wl, we)) in enumerate(zip(got, want)):
-        assert abs(gl - wl) <= 2e-3, (r, got, want)
-        assert abs(ge - we) <= 1e-4 * we, (r, got, want)
+        loss_tol, err_tol = later if r else (2e-3, 1e-4)
+        assert abs(gl - wl) <= loss_tol, (r, got, want)
+        assert abs(ge - we) <= err_tol * we, (r, got, want)
     assert got[-1][1] < got[0][1]  # gossip contracts the disagreement
+
+
+def test_smoke_training_curves_match_reference():
+    init, want, fused = _reference_run(seed=0)
+    assert fused
+    bundle, _state, got = _port_run(init, "int8")
+    assert bundle.cfg.engine().fused_wire_active
+    _assert_curves_match(got, want)
+
+
+def test_smoke_training_curves_default_codec_match_reference():
+    """``configs.build`` with no codec is the config's own, as the
+    reference's ``train.py`` without ``--codec`` (model in f32, see the
+    module docstring)."""
+    init, want, fused = _reference_run(seed=0, codec=None, f32=True)
+    assert not fused
+    bundle, state, got = _port_run(init, None, f32=True)
+    comp = bundle.cfg.gossip.compressor
+    assert not bundle.cfg.engine().fused_wire_active and len(state.gossip.xhat) == 1
+    assert (comp.inner.chunk, comp.inner.k_per_chunk, comp.outer.chunk) == (128, 13, 128)
+    _assert_curves_match(got, want)
+
+
+def test_smoke_training_curves_default_codec_bf16_match_reference():
+    """The config's own codec at the config's precision (bf16 compute):
+    round 0 at the tolerances of the other curves, later rounds at the
+    limits set from the readings in the module docstring."""
+    init, want, fused = _reference_run(seed=0, codec=None)
+    assert not fused
+    _bundle, _state, got = _port_run(init, None)
+    _assert_curves_match(got, want, later=(1e-2, 1e-3))
 
 
 def test_train_cli_on_cpu(capsys):
     from consensusml_tpu_torch.train.__main__ import main
 
+    # no --codec: the config's own (top-k + int8, the two-step wire)
     assert main(["--device", "cpu", "--scale", "smoke", "--rounds", "2"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith("codec: int8/128 -> plain PyTorch versions") and "active=True" in out[0]
+    assert out[0].startswith("codec: topk_int8/128 k=13 -> plain PyTorch versions")
+    assert "two-step bucketed wire" in out[0] and "active=False" in out[0]
     rounds = [line for line in out if line.startswith("round ")]
     assert len(rounds) == 2 and all("consensus_error" in r and "round_ms" in r for r in rounds)
+    # --codec int8 still rides the fused wire
+    assert main(["--device", "cpu", "--scale", "smoke", "--rounds", "1", "--codec", "int8"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("codec: int8/128 -> plain PyTorch versions") and "active=True" in out[0]
+    assert "fused one-pass bucketed wire" in out[0]

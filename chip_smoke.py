@@ -51,6 +51,26 @@ Phases, each printed as one JSON line:
    the code's prediction, buckets and wire bytes against the plan's) and
    one profiled round, which reads each of the port's kernels' device
    time by its CUDA symbol.
+7. ``train_resnet``: consensus-SGD training of ``cifar_resnet50`` at full
+   width and depth (ResNet-50, CIFAR stem, bf16 compute, 8 workers on a
+   ring, exact bucketed gossip of the weights and BN statistics, SGD
+   with momentum, batch 128 of 32x32x3) with ``--norm-impl pallas``:
+   every BN through the four fused-BN kernels. One warm round, then one
+   worker step's gradients through the kernels against the same step on
+   their plain versions, three counted rounds (launch counters zeroed
+   just before and gated at 53 BN layers x 8 workers x 3 rounds = 1272 a
+   BN kernel, the other kernels at 0; loss, consensus error, round ms,
+   images/s, peak memory, 23 buckets) and one profiled round (device-busy
+   share, each BN kernel's device time by CUDA symbol).
+8. ``train_resnet_flax``: the config's default BN (PyTorch's batch norm)
+   on the same initial parameters: one warm round, two counted rounds,
+   one profiled round with the BN kernels' device time: the yardstick,
+   end to end.
+
+The ``check`` phase also holds the four fused-BN kernels against their
+plain versions at ResNet-50's (131072, 256), (131072, 64) and (2048,
+2048) BN views in bf16, relu on and off, beside one ``F.batch_norm``
+training forward (and its autograd backward) as the library yardstick.
 
 Then the ``kernels`` line (per kernel: route, source, the TPU kernel it
 replaces, launches on its main paths, error, times and bound), the
@@ -105,6 +125,23 @@ FLASH_BWD_ATOL, FLASH_BWD_RTOL = 3e-3, 2.0**-6
 # first reading was 1.5e-2 (tree) and 1.7e-2 (worst leaf); a backward
 # that dropped attention's gradient reads ~1.
 GRAD_REL_TOL, LEAF_REL_TOL = 3e-2, 4e-2
+# fused BN kernels against their plain versions, fed the same per-channel
+# vectors: the normalize and dx passes round every step as the plain
+# versions do, in the same order, so they must be equal (error 0); the
+# two reductions sum in f32 in another order, so each per-channel sum is
+# held to BN_SUM_RTOL times the sum of its terms' magnitudes (a dropped
+# row of (131072, C) moves a sum by ~7.6e-6 of it). Readings: at most
+# 3.5e-7, and norm and dx equal.
+BN_SUM_RTOL = 2e-6
+# one ResNet-50 worker step (bf16) through the fused-BN kernels against
+# the same step on their plain versions: ||g_k - g_p|| / ||g_p|| over the
+# tree and per leaf. The reductions' other summation order moves a BN's
+# f32 scale and shift by an ulp or so, which flips the bf16 rounding of a
+# few outputs, and 53 bf16 layers carry that on. First readings: 2.4e-3
+# (tree) and 3.1e-2 (worst leaf: the last block's first BN bias, a sum
+# over only 2048 rows of gradients of both signs); a BN backward that
+# dropped the statistics' terms reads ~1.
+RESNET_GRAD_REL_TOL, RESNET_LEAF_REL_TOL = 1e-2, 5e-2
 
 
 # each kernel's CUDA symbol in csrc/*.cu, to find its device time in a
@@ -119,7 +156,15 @@ KERNEL_SYMBOLS = {
     "quantize_int8": "quantize_int8_kernel",
     "dequantize_int8": "dequantize_int8_kernel",
     "chunk_scatter": "chunk_scatter_kernel",
+    # the reductions' second launch folds the stripes' partials
+    "bn_stats": "bn_stats(?:_fold)?_kernel",
+    "bn_norm": "bn_norm_kernel",
+    "bn_bwd_reduce": "bn_bwd_reduce(?:_fold)?_kernel",
+    "bn_bwd_dx": "bn_bwd_dx_kernel",
 }
+BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+# PyTorch's own batch-norm kernels (cuDNN's or its native ones) in a trace
+LIBRARY_BN = re.compile(r"batch_?norm|(?<![A-Za-z0-9_])bn_(?:fw|bw)_", re.IGNORECASE)
 
 _T0 = time.perf_counter()
 
@@ -144,6 +189,27 @@ def cuda_ms(torch, fn, iters: int, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, warm: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn(i)``: the kernels' own time
+    under ``torch.profiler`` (CUPTI), summed over every kernel the call
+    launches. Unlike :func:`cuda_ms`, the host's time between launches is
+    not counted, so a small kernel whose wrapper the host cannot call fast
+    enough to keep the card busy still reads its own time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return sum(
+        getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+        for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / 1e3 / iters
 
 
 def tol_check(name, got, want, atol, rtol) -> dict:
@@ -782,6 +848,7 @@ def profile_round(torch, step, state, batch):
         hits = [e for e in cuda if pat.search(e.key)]
         if hits:
             port[name] = {"ms": sum(dev_us(e) for e in hits) / 1e3, "calls": sum(e.count for e in hits)}
+    library_bn = [e for e in cuda if LIBRARY_BN.search(e.key)]
     return state, {
         "trace_processing_s": time.perf_counter() - t1,
         "wall_ms": wall_ms, "device_kernel_ms": device_ms if device_ms > 0 else None,
@@ -791,6 +858,10 @@ def profile_round(torch, step, state, batch):
             {"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top
         ],
         "port_kernels": port,
+        "library_bn_kernels": {
+            "ms": sum(dev_us(e) for e in library_bn) / 1e3, "calls": sum(e.count for e in library_bn),
+            "names": sorted({e.key[:80] for e in library_bn}),
+        },
     }
 
 
@@ -914,6 +985,7 @@ def train_phase(torch, dev, init, codec):
         "fused_choco_encode": n_buckets * exchanges if fused else 0,
         "paged_attention": 0,
         **{name: 0 if fused else n_buckets * exchanges for name in CODEC_KERNELS},
+        **dict.fromkeys(BN_KERNELS, 0),
     }
     if counts != expect:
         raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
@@ -944,6 +1016,271 @@ def train_phase(torch, dev, init, codec):
     return out, counts
 
 
+def bn_case(torch, dev, gen, m, c):
+    """bf16 (M, C) x and dy, f32 gamma and beta, as a BN layer of ResNet-50
+    sees them."""
+    x = (2 * torch.randn(m, c, generator=gen, device=dev) + 0.3).to(torch.bfloat16)
+    dy = torch.randn(m, c, generator=gen, device=dev).to(torch.bfloat16)
+    gamma = 1 + 0.5 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+    return x, dy, gamma, beta
+
+
+def sum_err(torch, got, want, terms) -> float:
+    """Worst per-channel |got - want| over the sum of its terms' magnitudes."""
+    return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
+
+
+def check_bn(torch, tbn, dev):
+    """The four fused-BN kernels at ResNet-50's (131072, 256), (131072, 64)
+    and (2048, 2048) BN views (batch 128 at 32x32, 32x32 and 4x4), bf16,
+    relu off and on, each against its plain version fed the same
+    per-channel vectors: normalize and dx equal (error 0), the reductions
+    within ``BN_SUM_RTOL`` of their terms' magnitudes. Timed (relu on)
+    beside the plain versions and, as the library yardstick of each pair,
+    one ``F.batch_norm`` training forward (stats + normalize) and its
+    autograd backward ((forward + backward) - forward) on the same values
+    as a channels_last (128, C, H, W) tensor: ``ms`` is device time by the
+    profiler (:func:`device_ms`), ``event_ms`` CUDA events over
+    back-to-back calls, which at the small shapes reads the host's time
+    per wrapper call instead."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {}
+    for m, c in ((131072, 256), (131072, 64), (2048, 2048)):
+        x, dy, gamma, beta = bn_case(torch, dev, gen, m, c)
+        xf = x.float()
+        s, sq = tbn.bn_stats(x)
+        sp, sqp = tbn.bn_stats_plain(x)
+        torch.cuda.synchronize()
+        errs = {"stats": max(sum_err(torch, s, sp, xf.abs().sum(0)), sum_err(torch, sq, sqp, (xf * xf).sum(0)))}
+        abs_errs = {"stats": max(float((s - sp).abs().max()), float((sq - sqp).abs().max()))}
+        mean = sp / m
+        var = torch.clamp_min(sqp / m - mean * mean, 0.0)
+        scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
+        xhat = (xf - mean) * rsqrt
+        for relu in (False, True):
+            y, yp = tbn.bn_norm(x, scale, shift, relu), tbn.bn_norm_plain(x, scale, shift, relu)
+            db, dg = tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, relu)
+            dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, relu)
+            c1, c2 = dbp / m, dgp / m
+            dx = tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
+            dxp = tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
+            torch.cuda.synchronize()
+            g = dy.float() * ((xf * scale + shift > 0) if relu else 1.0)
+            for name, e, a in (
+                ("norm", 0.0, float((y.float() - yp.float()).abs().max())),
+                ("bwd_reduce", max(sum_err(torch, db, dbp, g.abs().sum(0)),
+                                   sum_err(torch, dg, dgp, (g * xhat).abs().sum(0))),
+                 max(float((db - dbp).abs().max()), float((dg - dgp).abs().max()))),
+                ("bwd_dx", 0.0, float((dx.float() - dxp.float()).abs().max())),
+            ):
+                errs[name] = max(errs.get(name, 0.0), e)
+                abs_errs[name] = max(abs_errs.get(name, 0.0), a)
+            del y, yp, dx, dxp, g
+        if errs["stats"] > BN_SUM_RTOL or errs["bwd_reduce"] > BN_SUM_RTOL or abs_errs["norm"] or abs_errs["bwd_dx"]:
+            raise AssertionError(f"fused BN kernels at ({m}, {c}) differ from their plain versions: "
+                                 f"{errs} (sums, rtol {BN_SUM_RTOL}), {abs_errs} (max abs)")
+        del xhat
+        c1, c2 = db / m, dg / m
+        times = {
+            "bn_stats": (lambda _: tbn.bn_stats(x), lambda _: tbn.bn_stats_plain(x)),
+            "bn_norm": (lambda _: tbn.bn_norm(x, scale, shift, True),
+                        lambda _: tbn.bn_norm_plain(x, scale, shift, True)),
+            "bn_bwd_reduce": (lambda _: tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, True),
+                              lambda _: tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, True)),
+            "bn_bwd_dx": (lambda _: tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, True),
+                          lambda _: tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, True)),
+        }
+        hw = m // 128
+        side = int(round(hw ** 0.5))
+        x4 = x.view(128, side, side, c).permute(0, 3, 1, 2).detach().requires_grad_()
+        dy4 = dy.view(128, side, side, c).permute(0, 3, 1, 2)
+        g32, b32 = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
+
+        def lib_fwd_bwd(_):
+            yl = F.batch_norm(x4, None, None, g32, b32, training=True)
+            torch.autograd.grad(yl, (x4, g32, b32), dy4)
+
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, lambda _: F.batch_norm(x4, None, None, g32, b32, training=True), 50)
+            lib_fwd_ev = cuda_ms(torch, lambda _: F.batch_norm(x4, None, None, g32, b32, training=True), 50)
+        lib_bwd = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd
+        lib_bwd_ev = cuda_ms(torch, lib_fwd_bwd, 50) - lib_fwd_ev
+        n = m * c
+        vec = 4 * c  # one f32 per-channel vector
+        bounds = {  # bytes: bf16 (M, C) operands once each; flops at the f32 rate (no tensor cores)
+            "bn_stats": bound_ms(2 * n + 2 * vec, 3 * n, F32_FLOPS),
+            "bn_norm": bound_ms(4 * n + 2 * vec, 3 * n, F32_FLOPS),
+            "bn_bwd_reduce": bound_ms(4 * n + 6 * vec, 9 * n, F32_FLOPS),
+            "bn_bwd_dx": bound_ms(6 * n + 6 * vec, 10 * n, F32_FLOPS),
+        }
+        err_of = {"bn_stats": "stats", "bn_norm": "norm", "bn_bwd_reduce": "bwd_reduce", "bn_bwd_dx": "bwd_dx"}
+        out[(m, c)] = {
+            name: {
+                "m": m, "c": c, "max_abs_err": abs_errs[err_of[name]],
+                "sum_rel_err": errs[err_of[name]] if name in ("bn_stats", "bn_bwd_reduce") else None,
+                "ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
+                "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
+                "library_ms": lib_fwd if name in ("bn_stats", "bn_norm") else lib_bwd,
+                "library_event_ms": lib_fwd_ev if name in ("bn_stats", "bn_norm") else lib_bwd_ev,
+                "library": ("F.batch_norm training forward (stats + normalize together)"
+                            if name in ("bn_stats", "bn_norm") else
+                            "F.batch_norm autograd backward (reduce + dx together)"),
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            }
+            for name, (kern, plain) in times.items()
+        }
+        del x, dy, x4, dy4, xf
+        torch.cuda.empty_cache()
+    return out
+
+
+def resnet_grad_check(torch, state, batch, dev):
+    """One worker step of ResNet-50 (worker 0's parameters and statistics,
+    its microbatch) through the fused-BN kernels (``norm_impl="pallas"``)
+    against the same step on their plain versions (``"jnp"``)."""
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.models.resnet import resnet_loss_fn
+
+    grads = {}
+    stats = {"batch_stats": {n: t[0] for n, t in state.model_state["batch_stats"].items()}}
+    micro = {k: v[0, 0].to(dev) for k, v in batch.items()}
+    for impl in ("pallas", "jnp"):
+        leaves = {n: p[0].detach().requires_grad_(True) for n, p in state.params.items()}
+        loss, new = resnet_loss_fn(configs.resnet_model("full", impl))(leaves, stats, micro, None)
+        grads[impl] = (float(loss.detach()), torch.autograd.grad(loss, list(leaves.values())), new)
+        del leaves, loss
+    (lk, gk, sk), (lp, gp, sp) = grads["pallas"], grads["jnp"]
+    names = list(state.params)
+    diff2 = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(gk, gp))
+    ref2 = sum(float((b.float() ** 2).sum()) for b in gp)
+    worst, worst_name = max(
+        (float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)), n)
+        for n, a, b in zip(names, gk, gp)
+    )
+    stats_err = max(float((sk["batch_stats"][n] - sp["batch_stats"][n]).abs().max()) for n in sk["batch_stats"])
+    out = {
+        "loss_kernels": lk, "loss_plain": lp, "grad_rel_err": (diff2 / ref2) ** 0.5,
+        "grad_rel_tol": RESNET_GRAD_REL_TOL, "worst_leaf": worst_name, "worst_leaf_rel_err": worst,
+        "leaf_rel_tol": RESNET_LEAF_REL_TOL, "batch_stats_max_abs_err": stats_err,
+        "zero_grad_leaves": sum(float(b.abs().max()) == 0.0 for b in gp),
+    }
+    if not out["grad_rel_err"] <= RESNET_GRAD_REL_TOL or not worst <= RESNET_LEAF_REL_TOL:
+        raise AssertionError(f"ResNet gradients through the BN kernels disagree with the plain versions: {out}")
+    return out
+
+
+def resnet_init_named(init: dict, norm_impl: str) -> dict:
+    """``norm_impl="flax"`` initial variables under the names of
+    ``norm_impl``'s BN layers (``FusedBatchNorm_N`` for the fused path; the
+    values do not depend on the BN kind)."""
+    if norm_impl == "flax":
+        return init
+    rename = lambda k: re.sub(r"(^|\.)BatchNorm_", r"\1FusedBatchNorm_", k)  # noqa: E731
+    return {col: {rename(k): v for k, v in leaves.items()} for col, leaves in init.items()}
+
+
+def train_resnet_phase(torch, dev, init, norm_impl, counted):
+    """cifar_resnet50 full (8 workers) with ``norm_impl``: "pallas" (the
+    ``train_resnet`` line: the fused-BN kernels, with the gradient check)
+    or "flax" (``train_resnet_flax``: PyTorch's batch norm). ``init`` is
+    the stacked numpy initial variables, drawn once for both."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    bundle = configs.build("cifar_resnet50", "full", norm_impl=norm_impl, device=dev)
+    cfg, world = bundle.cfg, bundle.world_size
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(2 + counted, 0))
+    marks.append(("batches", time.perf_counter()))
+    params, model_state = bundle.convert(init)
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in params.items()}, world, seed=0,
+                               model_state=T.tree_map(lambda t: t.to(dev), model_state))
+    del params, model_state
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    engine = cfg.engine()
+    n_buckets = engine.bucket_plan({"params": state.params, "model_state": state.model_state},
+                                   stacked=True).num_buckets
+    n_params = sum(p[0].numel() for p in state.params.values())
+    if (n_buckets, n_params) != (23, 23_520_842):
+        raise AssertionError(f"ResNet-50 plan: {n_buckets} buckets, {n_params} params; expected 23, 23520842")
+
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])  # warm: first calls, cuDNN's algorithm choices
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+    marks.append(("warm_round", time.perf_counter()))
+    grads = None
+    if norm_impl == "pallas":
+        grads = resnet_grad_check(torch, state, batches[1], dev)
+        torch.cuda.empty_cache()
+        marks.append(("grad_check", time.perf_counter()))
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gc_pauses = GcPauses()
+    gc.callbacks.append(gc_pauses)
+    kernels.reset_launch_counts()
+    rounds = []
+    try:
+        for batch in batches[1:1 + counted]:
+            gc0 = gc_pauses.snapshot()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            rounds.append({
+                "step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                "imgs_per_s_per_chip": m["imgs_per_s"], "buckets": n_buckets,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev), **gc_pauses.since(gc0),
+            })
+    finally:
+        gc.callbacks.remove(gc_pauses)
+    counts = kernels.launch_counts()
+    marks.append(("rounds", time.perf_counter()))
+    state, prof = profile_round(torch, step, state, batches[1 + counted])
+    marks.append(("profiled_round", time.perf_counter()))
+
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            raise AssertionError(f"round {r['step']}: loss or consensus error not finite and positive: {r}")
+    if not rounds[-1]["consensus_error"] < rounds[0]["consensus_error"]:
+        raise AssertionError(f"the consensus error did not fall over the counted rounds: {rounds}")
+    n_bn = sum(1 for n in state.model_state["batch_stats"] if n.endswith(".mean"))
+    per_kernel = n_bn * world * cfg.h * counted if norm_impl == "pallas" else 0
+    expect = {name: per_kernel if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+    if n_bn != 53 or counts != expect:
+        raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect} ({n_bn} BN layers)")
+    round_ms_mean = sum(r["round_ms"] for r in rounds) / counted
+    bn_ms = (sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in BN_KERNELS)
+             if norm_impl == "pallas" else prof["library_bn_kernels"]["ms"])
+    if prof["device_kernel_ms"] is not None:
+        prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
+    out = {
+        "phase": "train_resnet" if norm_impl == "pallas" else "train_resnet_flax",
+        "config": f"cifar_resnet50 full (ResNet-50, CIFAR stem), --norm-impl {norm_impl}",
+        "norm_path": bundle.norm_path, "workers": world, "h": cfg.h, "batch": batches[0]["image"].shape[2],
+        "image": list(batches[0]["image"].shape[3:]), "bn_layers": n_bn, "params_per_worker": n_params,
+        "buckets": n_buckets, "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        **({"grad_check": grads} if grads is not None else {}),
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": round_ms_mean,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "imgs_per_s_per_chip_mean": sum(r["imgs_per_s_per_chip"] for r in rounds) / counted,
+        "peak_memory_bytes": max(r["peak_memory_bytes"] for r in rounds),
+        "launches": counts, "launches_expected": expect,
+        "bn_device_ms_in_profiled_round": bn_ms, "profiled_round": prof,
+    }
+    del state
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -968,6 +1305,7 @@ def main() -> int:
     from consensusml_tpu_torch import kernels
     from consensusml_tpu_torch.compress import kernels as tck
     from consensusml_tpu_torch.models import flash_attention as tfa
+    from consensusml_tpu_torch.models import fused_bn as tbn
     from consensusml_tpu_torch.models import paged_attention as tpa
 
     dev = torch.device("cuda", 0)
@@ -992,11 +1330,13 @@ def main() -> int:
     bwd, flash_b8 = check_flash_bwd(torch, tfa, dev)
     enc = check_encode(torch, tck, dev)
     codec = check_codec(torch, tck, dev, topk_bucket_totals(torch, dev))
+    bn = check_bn(torch, tbn, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
-          "fused_choco_encode": enc, "topk_codec": codec})
+          "fused_choco_encode": enc, "topk_codec": codec,
+          "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL})
     torch.cuda.empty_cache()
     b = bwd[1024]
     rows = [
@@ -1032,6 +1372,14 @@ def main() -> int:
          "consensusml_tpu/compress/kernels.py:481",
          {**codec["scatter"]["largest no_acc"], "by_shape": codec["scatter"]}),
     ]
+    # the fused-BN kernels: the largest BN view's readings, the other two
+    # shapes beside them. All four reach pl.pallas_call through _grid_call
+    # (fused_bn.py:175); each is named by its kernel body's line
+    for name, line in (("bn_stats", 118), ("bn_norm", 130), ("bn_bwd_reduce", 145), ("bn_bwd_dx", 159)):
+        by_shape = {f"({m}, {c})": r[name] for (m, c), r in bn.items()}
+        worst = max(r[name]["max_abs_err"] for r in bn.values())
+        rows.append((name, "consensusml_tpu_torch/csrc/fused_bn.cu", f"consensusml_tpu/models/fused_bn.py:{line}",
+                     {**bn[(131072, 256)][name], "max_abs_err": worst, "by_shape": by_shape}))
     if sorted(r[0] for r in rows) != sorted(kernels.KERNELS):
         raise AssertionError(f"the kernels line must list every kernel of {list(kernels.KERNELS)}")
     launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
@@ -1054,13 +1402,27 @@ def main() -> int:
         for name, n in counts.items():
             launches[name][path] = n
     del init
+    torch.cuda.empty_cache()
+
+    # ResNet-50's stacked initial variables, drawn once for both ResNet phases
+    t0 = time.perf_counter()
+    init = configs.build("cifar_resnet50", "full", device=dev).init_params(0)
+    init_s = time.perf_counter() - t0
+    for path, norm_impl, counted in (("train_resnet", "pallas", 3), ("train_resnet_flax", "flax", 2)):
+        line, counts = train_resnet_phase(torch, dev, resnet_init_named(init, norm_impl), norm_impl, counted)
+        line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
+        emit(line)
+        for name, n in counts.items():
+            launches[name][path] = n
+    del init
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"], **({"by_shape": r["by_shape"]} if "by_shape" in r else {})}
+         "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
+         **({"by_shape": r["by_shape"]} if "by_shape" in r else {})}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

@@ -1,5 +1,21 @@
 """Run configurations of the port (counterpart of ``consensusml_tpu.configs``).
 
+``cifar_resnet50`` is the reference's ``_cifar_resnet50``
+(``consensusml_tpu/configs/__init__.py:278-325``): ResNet-50 consensus
+SGD on a ring with exact (uncompressed) bucketed gossip of the weights
+and the BN statistics, ``optax.sgd(lr, momentum=0.9)``, h = 1, on
+``SyntheticClassification(noise=0.25)``:
+
+- ``scale="full"``: ``resnet50(num_classes=10, stem="cifar")`` (bf16
+  compute, f32 params and statistics), 8 workers, batch 128 of 32x32x3
+  from n = 4096 images, lr 0.1;
+- ``scale="smoke"``: ``ResNet([1, 1], BottleneckBlock, width 8, f32)``,
+  8 workers, batch 8 of 16x16x3 from n = 512, lr 0.05.
+
+``norm_impl`` is the model's own field, ``"flax"`` by default as in the
+reference (PyTorch's batch norm); ``"pallas"`` runs every BN through the
+fused-BN CUDA kernels.
+
 ``gpt2_topk`` is the reference's ``_gpt2_topk``
 (``consensusml_tpu/configs/__init__.py:443-512``): GPT-2 pretraining by
 CHOCO compressed gossip on a ring.
@@ -35,9 +51,11 @@ import torch
 from consensusml_tpu_torch.device import resolve_device
 from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
-__all__ = ["CONFIGS", "RunBundle", "build", "gpt2_config", "build_model", "gpt2_init_params"]
+__all__ = [
+    "CONFIGS", "RunBundle", "build", "gpt2_config", "build_model", "gpt2_init_params", "resnet_model",
+]
 
-CONFIGS = ("gpt2_topk",)
+CONFIGS = ("gpt2_topk", "cifar_resnet50")
 CODECS = ("topk_int8", "int8")
 
 
@@ -58,9 +76,10 @@ def build_model(
     seed: int = 0,
 ) -> GPT2LM:
     """The config's model on ``device`` (``None`` = CUDA; raises without a
-    GPU) with random weights drawn from a generator seeded by ``seed``."""
-    if name not in CONFIGS:
-        raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
+    GPU) with random weights drawn from a generator seeded by ``seed``
+    (``gpt2_topk``: the serving model)."""
+    if name != "gpt2_topk":
+        raise ValueError(f"build_model serves gpt2_topk only, got {name!r}")
     dev = resolve_device(device)
     model = GPT2LM(gpt2_config(scale, dtype), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -92,6 +111,19 @@ def gpt2_init_params(cfg: GPT2Config, seed: int, world_size: int) -> dict[str, n
     return out
 
 
+def resnet_model(scale: str = "smoke", norm_impl: str = "flax"):
+    """``cifar_resnet50``'s model at ``scale``: structure only (``meta``),
+    the parameters live in the train state."""
+    from consensusml_tpu_torch.models.resnet import BottleneckBlock, ResNet, resnet50
+
+    if scale == "full":
+        return resnet50(num_classes=10, stem="cifar", norm_impl=norm_impl, device="meta")
+    if scale == "smoke":
+        return ResNet([1, 1], BottleneckBlock, num_classes=10, width=8, stem="cifar", dtype=torch.float32,
+                      norm_impl=norm_impl, device="meta")
+    raise ValueError(f"unknown scale {scale!r} (smoke|full)")
+
+
 @dataclasses.dataclass
 class RunBundle:
     """Everything a run needs, as the reference's ``RunBundle``."""
@@ -99,32 +131,92 @@ class RunBundle:
     name: str
     world_size: int
     cfg: Any  # train.local_sgd.LocalSGDConfig
-    model: GPT2LM  # structure only (meta device); parameters live in the train state
+    model: Any  # structure only (meta device); parameters live in the train state
     loss_fn: Callable
-    batches: Callable  # (rounds, seed, start=0) -> iterator of {"input_ids": (W, H, B, S)}
-    init_params: Callable  # (seed) -> stacked {flax path: (W, ...) f32 numpy}
+    batches: Callable  # (rounds, seed, start=0) -> iterator of stacked (W, H, B, ...) batches
+    init_params: Callable  # (seed) -> stacked numpy variables in flax layout
+    convert: Callable  # init_params' output -> (params, model_state) as stacked CPU tensors
     codec_path: str
+    norm_path: str = ""
     description: str = ""
 
 
 def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = None,
           codec: str | None = None, gamma: float | None = None,
-          codec_warmup: int | None = None, device=None) -> RunBundle:
+          codec_warmup: int | None = None, norm_impl: str = "flax", device=None) -> RunBundle:
     """The run recipe of config ``name`` at ``scale`` with the reference's
     overrides (``world`` = ``--workers``, ``codec``, ``gamma``,
-    ``codec_warmup`` = ``--codec-warmup``). ``device`` (``None`` = CUDA)
-    resolves the codec path: the CUDA kernels on a CUDA device, their
-    plain versions on the CPU."""
+    ``codec_warmup`` = ``--codec-warmup``; ``norm_impl``, the ResNet's
+    field). ``device`` (``None`` = CUDA; raises without a GPU) resolves the
+    kernel paths: the CUDA kernels on a CUDA device, their plain versions
+    on the CPU."""
+    if name not in CONFIGS:
+        raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
+    if scale not in ("smoke", "full"):
+        raise ValueError(f"unknown scale {scale!r} (smoke|full)")
+    dev = resolve_device(device)
+    if name == "cifar_resnet50":
+        if (codec, gamma, codec_warmup) != (None, None, None):
+            raise NotImplementedError("cifar_resnet50 gossips exactly; its compressed variants are not ported yet")
+        return _cifar_resnet50(scale, world, norm_impl, dev)
+    if norm_impl != "flax":
+        raise NotImplementedError(f"gpt2_topk's norm_impl={norm_impl!r} (the fused LayerNorm) is not ported yet")
+    return _gpt2_topk(scale, world, codec, gamma, codec_warmup, dev)
+
+
+def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
+    from consensusml_tpu_torch.consensus import GossipConfig
+    from consensusml_tpu_torch.data import SyntheticClassification, round_batches
+    from consensusml_tpu_torch.models.convert import resnet_from_flax, resnet_init_params
+    from consensusml_tpu_torch.models.resnet import NORM_IMPLS, resnet_loss_fn
+    from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
+    from consensusml_tpu_torch.train.optim import sgd
+
+    if norm_impl not in NORM_IMPLS:
+        raise ValueError(f"unknown norm_impl {norm_impl!r} (one of {NORM_IMPLS})")
+    full = scale == "full"
+    world = world or 8
+    batch, image = (128, 32) if full else (8, 16)
+    cfg = LocalSGDConfig(
+        gossip=GossipConfig(topology=topology_from_name("ring", world)),
+        optimizer=sgd(0.1 if full else 0.05, momentum=0.9),
+        h=1,
+    )
+    data = SyntheticClassification(n=4096 if full else 512, image_shape=(image, image, 3), noise=0.25)
+    model = resnet_model(scale, norm_impl)
+    if norm_impl == "flax":
+        norm_path = "PyTorch batch norm (norm_impl='flax')"
+    elif norm_impl == "jnp" or dev.type != "cuda":
+        norm_path = f"fused BN, plain PyTorch versions (norm_impl={norm_impl!r}, no kernels)"
+    else:
+        norm_path = f"fused BN, hand-written CUDA kernels (norm_impl={norm_impl!r})"
+    return RunBundle(
+        name="cifar_resnet50",
+        world_size=world,
+        cfg=cfg,
+        model=model,
+        loss_fn=resnet_loss_fn(model),
+        batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
+        init_params=lambda seed: resnet_init_params(model, seed, world),
+        convert=resnet_from_flax,
+        codec_path="none (exact gossip)",
+        norm_path=norm_path,
+        description="ResNet-50 (CIFAR stem), 8-worker ring consensus",
+    )
+
+
+def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | None,
+               codec_warmup: int | None, dev: torch.device) -> RunBundle:
     from consensusml_tpu_torch.compress import PallasInt8Compressor, resolve_codec_impl, topk_int8_compressor
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
     from consensusml_tpu_torch.topology import topology_from_name
     from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
     from consensusml_tpu_torch.train.optim import adam
 
-    if name not in CONFIGS:
-        raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
     codec = codec or "topk_int8"
     if codec not in CODECS:
         raise NotImplementedError(f"codec {codec!r} is not ported yet (one of {CODECS})")
@@ -133,7 +225,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     world = world or (8 if full else 4)
     batch, seq = (8, 1024) if full else (8, 16)
     chunk = 512 if full else 128
-    impl = resolve_codec_impl("auto", resolve_device(device))
+    impl = resolve_codec_impl("auto", dev)
     if codec == "topk_int8":
         # train.py --codec topk_int8 reads the config's chunk and k: the same codec
         comp = (topk_int8_compressor(chunk=512, k=8, impl="auto") if full
@@ -153,7 +245,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     model = GPT2LM(mcfg, device="meta")
     path = "hand-written CUDA kernels" if impl == "cuda" else "plain PyTorch versions (no card)"
     return RunBundle(
-        name=name,
+        name="gpt2_topk",
         world_size=world,
         cfg=cfg,
         model=model,
@@ -162,6 +254,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
             data, world, cfg.h, batch, rounds, seed, start=start
         ),
         init_params=lambda seed: gpt2_init_params(mcfg, seed, world),
+        convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",
         description=f"GPT-2 pretrain with {codec} compressed gossip (CHOCO)",
     )

@@ -21,7 +21,8 @@ the host's round counter here.
 Not ported yet, and refused with ``NotImplementedError`` when set: the
 per-leaf wire (``bucket_bytes=None``, or a codec without a
 ``bucket_alignment``), ``path_filter``, ``compress_filter`` other than
-``"auto"`` (and exact-mixed ``model_state`` leaves under it), faults,
+``"auto"`` (and, under CHOCO, its exact-mixed ``model_state`` leaves;
+exact mixing gossips ``model_state`` like the params), faults,
 push-sum, ``fused_codec``, overlap gossip and its pipelining, stochastic
 codecs, and the collective backend.
 """
@@ -142,8 +143,9 @@ def _check_bucket_state(packed: list, xhat: list) -> None:
 
 
 def _check_no_model_state(tree: Any) -> None:
-    # compress_filter="auto" mixes model_state leaves exactly; that split
-    # (BatchNorm statistics) comes with the ResNet slice
+    # CHOCO only: its compress_filter="auto" mixes model_state leaves
+    # exactly beside the compressed params, a split not ported yet. Exact
+    # mixing takes model_state (BatchNorm statistics) like any leaf.
     for path, _ in T.flatten_with_paths(tree):
         if path and path[0] == "model_state":
             raise NotImplementedError(

@@ -1,11 +1,13 @@
-"""Synthetic LM data (port of ``consensusml_tpu/data/synthetic.py``, the
-language-model part).
+"""Synthetic data (port of ``consensusml_tpu/data/synthetic.py``: the
+classification dataset and the language-model streams).
 
-numpy-seeded exactly as the reference: the Markov chain's successor table
-from ``default_rng(seed)``, each round's per-worker block from
-``default_rng((seed, round, rank))``, so the port yields the identical
-token ids. The BERT-style corruption (``mlm_rate > 0``) and the image
-datasets come with their configs.
+numpy-seeded exactly as the reference, so the port yields the identical
+arrays: the class prototypes, labels and noisy images from
+``default_rng(seed)``, each round's per-worker samples from
+``default_rng((seed, round))``; the Markov chain's successor table from
+``default_rng(seed)``, each round's per-worker token block from
+``default_rng((seed, round, rank))``. The BERT-style corruption
+(``mlm_rate > 0``) comes with its config.
 """
 
 from __future__ import annotations
@@ -16,7 +18,58 @@ from typing import Iterator
 import numpy as np
 import torch
 
-__all__ = ["SyntheticLM", "lm_round_batches"]
+__all__ = ["SyntheticClassification", "round_batches", "SyntheticLM", "lm_round_batches"]
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    """Class-prototype + noise classification: class k's images cluster
+    around a fixed random prototype (the reference's training split)."""
+
+    n: int = 8192
+    image_shape: tuple[int, ...] = (28, 28, 1)
+    classes: int = 10
+    noise: float = 0.35
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.prototypes = rng.normal(size=(self.classes, *self.image_shape)).astype(np.float32)
+        self.labels = rng.integers(0, self.classes, size=self.n).astype(np.int32)
+        self.images = (
+            self.prototypes[self.labels] + self.noise * rng.normal(size=(self.n, *self.image_shape))
+        ).astype(np.float32)
+
+    def worker_shard(self, rank: int, world_size: int) -> tuple[np.ndarray, np.ndarray]:
+        """Disjoint contiguous shard of one worker."""
+        per = self.n // world_size
+        lo = rank * per
+        return self.images[lo: lo + per], self.labels[lo: lo + per]
+
+
+def round_batches(
+    dataset: SyntheticClassification,
+    world_size: int,
+    h: int,
+    batch: int,
+    rounds: int,
+    seed: int = 0,
+    start: int = 0,
+) -> Iterator[dict[str, torch.Tensor]]:
+    """Stacked round batches ``{"image": (W, H, B, *image_shape) f32,
+    "label": (W, H, B) int32}``: each worker samples with replacement from
+    its own shard, keyed by ``(seed, absolute round)`` so ``start=N``
+    continues the exact stream."""
+    shards = [dataset.worker_shard(r, world_size) for r in range(world_size)]
+    for rnd in range(start, start + rounds):
+        rng = np.random.default_rng((seed, rnd))
+        imgs = np.empty((world_size, h, batch, *dataset.image_shape), np.float32)
+        labs = np.empty((world_size, h, batch), np.int32)
+        for r, (x, y) in enumerate(shards):
+            idx = rng.integers(0, len(x), size=(h, batch))
+            imgs[r] = x[idx]
+            labs[r] = y[idx]
+        yield {"image": torch.from_numpy(imgs), "label": torch.from_numpy(labs)}
 
 
 @dataclasses.dataclass

@@ -1,14 +1,16 @@
-"""Parameter conversion between the JAX package's flax trees and the port.
+"""Parameter conversion between the JAX package's flax trees and the port,
+and numpy-seeded initial parameters.
 
-The port's ``GPT2LM`` mirrors the flax tree one for one (module path =
-flax path joined by dots, same shapes, f32), so conversion is a flatten:
-no transposes, no reshapes. The input is the flax ``params`` tree with
-every leaf already a numpy array (``jax.tree.map(np.asarray, params)``),
-so this module needs neither JAX nor flax.
+The port's ``GPT2LM`` and ``ResNet`` mirror the flax trees one for one
+(module path = flax path joined by dots, same shapes and layouts, f32),
+so conversion is a flatten: no transposes, no reshapes. The input is the
+flax tree with every leaf already a numpy array (``jax.tree.map(
+np.asarray, variables)``), so this module needs neither JAX nor flax.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -16,7 +18,7 @@ import torch
 
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["gpt2_from_flax"]
+__all__ = ["gpt2_from_flax", "resnet_from_flax", "resnet_init_params"]
 
 
 def gpt2_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -26,6 +28,63 @@ def gpt2_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     leaf has one, is kept: the result is then the trainer's stacked
     parameter dict."""
     return {".".join(path): _tensor(leaf) for path, leaf in T.flatten_with_paths(params)}
+
+
+def resnet_from_flax(variables: Mapping[str, Any]) -> tuple[dict[str, torch.Tensor], dict]:
+    """flax ResNet ``variables`` (``{"params": ..., "batch_stats": ...}``,
+    numpy leaves, nested or already flat with dotted keys) -> ``(params,
+    model_state)`` for the port: ``params`` keyed by dotted flax path,
+    ``model_state = {"batch_stats": {path: tensor}}``, f32, in the
+    reference's flatten order. A leading worker axis is kept, as
+    :func:`gpt2_from_flax` keeps it."""
+    params = gpt2_from_flax(variables["params"])
+    stats = gpt2_from_flax(variables.get("batch_stats", {}))
+    return params, {"batch_stats": stats}
+
+
+def resnet_init_params(model, seed: int, world_size: int) -> dict[str, dict[str, np.ndarray]]:
+    """Stacked ``(W, ...)`` f32 initial variables of the port's ``ResNet``
+    ``model`` (only its structure is read; ``meta`` is fine), numpy-seeded
+    per worker by ``(seed, rank)`` with flax's schemes: lecun-normal conv
+    and dense kernels (truncated normal on [-2, 2], std ``sqrt(1/fan_in) /
+    0.8796``), zero dense bias, BN scales at their ``scale_init`` (ones,
+    zeros for the last BN of each block), zero BN bias, running mean 0 and
+    var 1. Returns ``{"params": {path: array}, "batch_stats": {path:
+    array}}`` for :func:`resnet_from_flax`."""
+    from consensusml_tpu_torch.models.fused_bn import FusedBatchNorm
+    from consensusml_tpu_torch.models.resnet import BatchNorm, Conv, Dense
+
+    rngs = [np.random.default_rng((seed, r)) for r in range(world_size)]
+    params, stats = {}, {}
+    for prefix, mod in sorted(model.named_modules(), key=lambda kv: tuple(kv[0].split("."))):
+        path = lambda leaf: f"{prefix}.{leaf}" if prefix else leaf  # noqa: E731
+        if isinstance(mod, (Conv, Dense)):
+            shape = tuple(mod.kernel.shape)
+            std = np.float32(np.sqrt(1.0 / math.prod(shape[:-1])) / 0.87962566103423978)
+            arr = np.empty((world_size,) + shape, np.float32)
+            for r, rng in enumerate(rngs):
+                arr[r] = _truncated_normal(rng, shape) * std
+            params[path("kernel")] = arr
+            if isinstance(mod, Dense):
+                params[path("bias")] = np.zeros((world_size,) + tuple(mod.bias.shape), np.float32)
+        elif isinstance(mod, (BatchNorm, FusedBatchNorm)):
+            shape = (world_size,) + tuple(mod.scale.shape)
+            params[path("scale")] = np.full(shape, mod.scale_init, np.float32)
+            params[path("bias")] = np.zeros(shape, np.float32)
+            stats[path("mean")] = np.zeros(shape, np.float32)
+            stats[path("var")] = np.ones(shape, np.float32)
+    order = lambda d: dict(sorted(d.items(), key=lambda kv: tuple(kv[0].split("."))))  # noqa: E731
+    return {"params": order(params), "batch_stats": order(stats)}
+
+
+def _truncated_normal(rng: np.random.Generator, shape: tuple) -> np.ndarray:
+    """Standard normal f32 samples in [-2, 2] (redrawn outside)."""
+    out = rng.standard_normal(shape, dtype=np.float32)
+    bad = np.abs(out) > 2
+    while bad.any():
+        out[bad] = rng.standard_normal(int(bad.sum()), dtype=np.float32)
+        bad = np.abs(out) > 2
+    return out
 
 
 def _tensor(leaf) -> torch.Tensor:

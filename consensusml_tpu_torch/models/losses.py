@@ -1,12 +1,20 @@
-"""Loss functions (port of ``consensusml_tpu/models/losses.py``, the
-masked LM loss), computed in float32 whatever the logits' dtype."""
+"""Loss functions (port of ``consensusml_tpu/models/losses.py``: the
+classification and masked LM losses), computed in float32 whatever the
+logits' dtype."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["masked_lm_loss"]
+__all__ = ["softmax_cross_entropy", "masked_lm_loss"]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over the batch of the cross-entropy of integer class ``labels``
+    (optax's ``softmax_cross_entropy_with_integer_labels``)."""
+    logits = logits.to(torch.float32)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long())
 
 
 def masked_lm_loss(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,15 +1,18 @@
 """``python -m consensusml_tpu_torch.train``: consensus-SGD training of the
-port, mirroring ``train.py``'s flags for the slice that is ported
-(``gpt2_topk`` on the simulated backend, on its own codec or ``--codec
-int8``)::
+port, mirroring ``train.py``'s flags for the slices that are ported, on
+the simulated backend: ``gpt2_topk`` (on its own codec or ``--codec
+int8``) and ``cifar_resnet50`` (exact gossip; ``--norm-impl pallas`` runs
+every BN through the fused-BN CUDA kernels)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec int8
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).
-Prints the resolved codec path, then one line per logged round: loss,
-consensus error and the round's wall time.
+Prints the resolved codec path (and for the ResNet the BN path), then
+one line per logged round: loss, consensus error, the round's wall time
+and, for image batches, images per second.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m consensusml_tpu_torch.train", description=__doc__.split("\n")[0])
-    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk"])
+    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50"])
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
@@ -31,6 +34,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--codec-warmup", type=int, default=None,
                    help="exact warm-up rounds (default: the config's)")
     p.add_argument("--gamma", type=float, default=None, help="CHOCO consensus step (default: the config's)")
+    p.add_argument("--norm-impl", default="flax", choices=["flax", "pallas"],
+                   help="cifar_resnet50's BN: flax = PyTorch's batch norm (the config's default); "
+                        "pallas = the fused-BN CUDA kernels")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -41,32 +47,42 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> int:
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.device import resolve_device
-    from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
 
     args = parse_args(argv)
     dev = resolve_device(args.device)
     bundle = configs.build(
         args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
-        codec_warmup=args.codec_warmup, device=dev,
+        codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
     )
-    fused = bundle.cfg.engine().fused_wire_active
-    wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
-    print(f"codec: {bundle.codec_path}; {wire} "
-          f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
-    params = {n: t.to(dev) for n, t in gpt2_from_flax(bundle.init_params(args.seed)).items()}
-    state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed)
+    engine = bundle.cfg.engine()
+    if engine.compressed:
+        fused = engine.fused_wire_active
+        wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
+        print(f"codec: {bundle.codec_path}; {wire} "
+              f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
+    else:
+        print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
+    if bundle.norm_path:
+        print(f"BN: {bundle.norm_path}", flush=True)
+    params, model_state = bundle.convert(bundle.init_params(args.seed))
+    params = {n: t.to(dev) for n, t in params.items()}
+    model_state = T.tree_map(lambda t: t.to(dev), model_state)
+    state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
+    gossiped = {"params": state.params, "model_state": state.model_state}
     print(f"{args.config}/{args.scale}: {bundle.world_size} workers on {dev}, "
           f"{sum(p[0].numel() for p in params.values())} params per worker, "
-          f"{len(state.gossip.xhat)} buckets", flush=True)
+          f"{engine.bucket_plan(gossiped, stacked=True).num_buckets} buckets", flush=True)
     for r, batch in enumerate(bundle.batches(args.rounds, args.seed)):
         t0 = time.perf_counter()
         state, m = step(state, batch)
         loss, err = float(m["loss"]), float(m["consensus_error"])
         ms = 1e3 * (time.perf_counter() - t0)
         if r % args.log_every == 0 or r == args.rounds - 1:
-            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}", flush=True)
+            imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
+            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}", flush=True)
     return 0
 
 

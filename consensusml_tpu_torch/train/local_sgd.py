@@ -4,20 +4,24 @@ of ``make_simulated_train_step``).
 
 ``loss_fn(params, model_state, batch, generator) -> (scalar loss,
 model_state)`` is user code; ``params`` is a dict of one worker's
-parameter tensors keyed by flax path (``"h_0.qkv.kernel"``), and
+parameter tensors keyed by flax path (``"h_0.qkv.kernel"``),
+``model_state`` that worker's non-trained state (``{}``, or ResNet's
+``{"batch_stats": {path: tensor}}``; the loss returns its new value), and
 ``generator`` is that worker's dropout stream. A round consumes a batch
-of shape ``(W, H, B, ...)``: H local optimizer steps per worker, then one
-gossip round over ``{"params": ..., "model_state": {}}`` (the
-reference's gossiped tree, so the bucket layout is its), then the
-consensus error of the mixed params.
+dict whose every leaf is ``(W, H, B, ...)`` (``input_ids``, or ``image``
+and ``label``): H local optimizer steps per worker, then one gossip
+round over ``{"params": ..., "model_state": ...}`` (the reference's
+gossiped tree, so the bucket layout is its), then the consensus error of
+the mixed params.
 
 Workers are the leading axis of every state tensor, but the inner loop
 runs them ONE AT A TIME over views of the stacked tensors: the
 reference's ``vmap`` over workers would hold every worker's activations
 at once (about 40 GB for four GPT-2-medium workers at batch 8 x 1024),
-where one worker's step needs about 10 GB. Parameters, Adam moments and
-the counters are updated in place; the gossip round returns new
-parameter tensors (views of its bucket buffers).
+where one worker's step needs about 10 GB. Parameters, model state,
+optimizer state and counters are updated in place; the gossip round
+returns new parameter and model-state tensors (views of its bucket
+buffers).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 
 from consensusml_tpu_torch.comm import simulated
 from consensusml_tpu_torch.consensus import ChocoState, ConsensusEngine, GossipConfig
-from consensusml_tpu_torch.train.optim import Adam, AdamState
+from consensusml_tpu_torch.utils import tree as T
 
 __all__ = ["LocalSGDConfig", "TrainState", "init_stacked_state", "make_simulated_train_step"]
 
@@ -41,7 +45,8 @@ LossFn = Callable[[dict, Any, dict, torch.Generator], tuple[torch.Tensor, Any]]
 class TrainState:
     step: int  # outer-round counter (host)
     params: dict[str, torch.Tensor]  # stacked (W, ...) f32, flax paths
-    opt_state: AdamState
+    model_state: dict  # stacked (W, ...) f32 leaves: {} or {"batch_stats": {path: ...}}
+    opt_state: Any  # the optimizer's, stacked (AdamState, SGDState)
     gossip: ChocoState | None
     generators: list[torch.Generator]  # per-worker dropout streams
 
@@ -51,7 +56,7 @@ class LocalSGDConfig:
     """One decentralized round = H local steps + one gossip round."""
 
     gossip: GossipConfig
-    optimizer: Adam
+    optimizer: Any  # init(params, world_size) and update_(params, grads, state, worker)
     h: int = 1
 
     def __post_init__(self):
@@ -62,39 +67,54 @@ class LocalSGDConfig:
         return ConsensusEngine(self.gossip)
 
 
-def _gossiped(params: dict) -> dict:
-    """The tree that rides the gossip round, as in the reference."""
-    return {"params": params, "model_state": {}}
+def _gossiped(params: dict, model_state: dict) -> dict:
+    """The tree that rides the gossip round, as in the reference: weights
+    and BN-style statistics."""
+    return {"params": params, "model_state": model_state}
 
 
 def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], world_size: int,
-                       seed: int = 0) -> TrainState:
-    """State from stacked ``(W, ...)`` initial parameters (each worker its
-    own replica, as decentralized training starts from disagreeing ones).
-    Worker ``r``'s dropout generator is seeded ``seed * 1000003 + r``."""
-    for name, p in params.items():
+                       seed: int = 0, model_state: dict | None = None) -> TrainState:
+    """State from stacked ``(W, ...)`` initial parameters and model state
+    (each worker its own replica, as decentralized training starts from
+    disagreeing ones). Worker ``r``'s dropout generator is seeded ``seed *
+    1000003 + r``."""
+    model_state = {} if model_state is None else model_state
+    for path, p in [((n,), p) for n, p in params.items()] + T.flatten_with_paths(model_state):
         if p.shape[0] != world_size or p.dtype != torch.float32:
-            raise ValueError(f"{name}: expected stacked f32 ({world_size}, ...), got {p.dtype} {tuple(p.shape)}")
+            raise ValueError(
+                f"{'.'.join(map(str, path))}: expected stacked f32 ({world_size}, ...), got {p.dtype} {tuple(p.shape)}"
+            )
     device = next(iter(params.values())).device
     gens = [torch.Generator(device=device).manual_seed(seed * 1000003 + r) for r in range(world_size)]
     return TrainState(
         step=0,
         params=params,
+        model_state=model_state,
         opt_state=cfg.optimizer.init(params, world_size),
-        gossip=cfg.engine().init_state(_gossiped(params), world_size=world_size),
+        gossip=cfg.engine().init_state(_gossiped(params, model_state), world_size=world_size),
         generators=gens,
     )
 
 
 def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
                 batch: dict) -> torch.Tensor:
-    """One local optimizer step of one worker on one microbatch, in place.
-    Returns the loss (a 0-dim tensor on the device)."""
+    """One local optimizer step of one worker on one microbatch, in place:
+    the loss's new model state is written over the worker's, then the
+    optimizer steps. Returns the loss (a 0-dim tensor on the device)."""
     views = {n: p[worker] for n, p in state.params.items()}
     leaves = {n: v.detach().requires_grad_(True) for n, v in views.items()}
-    loss, _ = loss_fn(leaves, {}, batch, state.generators[worker])
+    ms_leaves, ms_spec = T.flatten(state.model_state)
+    model_state = T.unflatten(ms_spec, [x[worker] for x in ms_leaves])
+    loss, new_state = loss_fn(leaves, model_state, batch, state.generators[worker])
     grads = torch.autograd.grad(loss, list(leaves.values()))
     del leaves
+    new_leaves, new_spec = T.flatten(new_state)
+    if new_spec != ms_spec:
+        raise ValueError("loss_fn returned a model_state of another structure than it was given")
+    with torch.no_grad():
+        for dst, src in zip(ms_leaves, new_leaves):
+            dst[worker].copy_(src)
     cfg.optimizer.update_(views, dict(zip(views, grads)), state.opt_state, worker)
     return loss.detach()
 
@@ -104,14 +124,15 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
     device: per worker (one at a time) H local steps, then one gossip round
     through the mixing matrix, then the consensus error. ``metrics``:
     ``loss`` (mean over workers of each worker's mean over its H steps),
-    ``consensus_error``, and the host wall time of the inner loop and of
-    the gossip round in ms (both end in a device synchronisation)."""
+    ``consensus_error``, the host wall time of the inner loop and of the
+    gossip round in ms (both end in a device synchronisation) and, for
+    image batches, ``imgs_per_s`` (W x H x B over the round's wall time)."""
     engine = cfg.engine()
     w_mat = simulated.mixing_matrix(cfg.gossip.topology)
 
     def step(state: TrainState, batch: dict):
-        ids = batch["input_ids"]
-        world, h = ids.shape[0], ids.shape[1]
+        first = next(iter(batch.values()))
+        world, h = first.shape[0], first.shape[1]
         if h != cfg.h:
             raise ValueError(
                 f"batch inner-step axis is {h} but LocalSGDConfig.h={cfg.h}; each round "
@@ -120,28 +141,32 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         device = next(iter(state.params.values())).device
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         t0 = time.perf_counter()
+        batch = {k: v.to(device) for k, v in batch.items()}
         per_worker = []
         for w in range(world):
             losses = [
-                worker_step(cfg, loss_fn, state, w, {"input_ids": ids[w, i].to(device)})
+                worker_step(cfg, loss_fn, state, w, {k: v[w, i] for k, v in batch.items()})
                 for i in range(h)
             ]
             per_worker.append(torch.stack(losses).mean())
         sync()
         t1 = time.perf_counter()
         mixed, state.gossip = engine.round_simulated(
-            _gossiped(state.params), state.gossip, w_mat.to(device), step=state.step
+            _gossiped(state.params, state.model_state), state.gossip, w_mat.to(device), step=state.step
         )
-        state.params = mixed["params"]
+        state.params, state.model_state = mixed["params"], mixed["model_state"]
         err = engine.consensus_error_simulated(state.params)
         sync()
         t2 = time.perf_counter()
         state.step += 1
-        return state, {
+        metrics = {
             "loss": torch.stack(per_worker).mean(),
             "consensus_error": err,
             "inner_ms": 1e3 * (t1 - t0),
             "gossip_ms": 1e3 * (t2 - t1),
         }
+        if "image" in batch:
+            metrics["imgs_per_s"] = world * h * batch["image"].shape[2] / (t2 - t0)
+        return state, metrics
 
     return step

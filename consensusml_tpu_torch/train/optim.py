@@ -1,7 +1,7 @@
-"""Adam with optax's exact update, as plain tensor ops.
+"""Adam and SGD with optax's exact updates, as plain tensor ops.
 
-The reference trains with ``optax.adam`` (a library, so there is no JAX
-module to mirror). ``torch.optim.Adam`` is a different optimiser in the
+The reference trains with ``optax.adam`` and ``optax.sgd`` (a library, so
+there is no JAX module to mirror). ``torch.optim.Adam`` is a different optimiser in the
 last bits: it adds ``eps`` after dividing the square root by the bias
 correction and may run fused multi-tensor paths. This module is optax's
 ``scale_by_adam`` followed by ``scale_by_learning_rate``, op for op:
@@ -13,8 +13,15 @@ correction and may run fused multi-tensor paths. This module is optax's
     p     = p + (-lr) * u
 
 with the bias corrections computed in float32 from the integer count.
-State is stacked over workers (leading axis), and :meth:`Adam.update_`
-updates one worker's views in place.
+:class:`SGD` is ``optax.sgd(lr, momentum)``: ``trace`` then
+``scale_by_learning_rate``, op for op:
+
+    t = g + momentum * t
+    p = p + (-lr) * t
+
+State is stacked over workers (leading axis). Every optimizer has
+``init(params, world_size)`` and ``update_(params, grads, state,
+worker)``, which updates one worker's views in place.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Adam", "AdamState", "adam"]
+__all__ = ["Adam", "AdamState", "adam", "SGD", "SGDState", "sgd"]
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -80,3 +87,34 @@ class Adam:
 def adam(lr: float) -> Adam:
     """``optax.adam(lr)`` with optax's defaults."""
     return Adam(lr=lr)
+
+
+@dataclasses.dataclass
+class SGDState:
+    trace: dict[str, torch.Tensor]  # stacked (W, ...) f32 momentum
+
+
+@dataclasses.dataclass(frozen=True)
+class SGD:
+    lr: float
+    momentum: float
+
+    def init(self, params: dict[str, torch.Tensor], world_size: int) -> SGDState:
+        return SGDState(trace={n: torch.zeros_like(p) for n, p in params.items()})
+
+    @torch.no_grad()
+    def update_(self, params: dict, grads: dict, state: SGDState, worker: int) -> None:
+        """One step of worker ``worker`` on its (views of the stacked)
+        params, in place. Multi-tensor ops, each rounding once as the
+        separate optax ops do: ``t * momentum``, ``+ g``, ``* (-lr)``,
+        ``p +``."""
+        names = list(params)
+        t = [state.trace[n][worker] for n in names]
+        torch._foreach_mul_(t, self.momentum)
+        torch._foreach_add_(t, [grads[n] for n in names])
+        torch._foreach_add_([params[n] for n in names], torch._foreach_mul(t, -self.lr))
+
+
+def sgd(lr: float, momentum: float) -> SGD:
+    """``optax.sgd(lr, momentum)`` (no Nesterov)."""
+    return SGD(lr=lr, momentum=momentum)

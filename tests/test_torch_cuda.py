@@ -14,6 +14,10 @@ probabilities against a running max, so it is allowed two (2**-6). The
 f32 logsumexp differs in summation order only. The codec kernels (the
 CHOCO encode, int8 quantize/dequantize, chunked top-k, chunk scatter)
 are held bit for bit: integer selection and one rounding per operation.
+The fused-BN normalize and dx kernels round every step as their plain
+versions do, so they are held equal; the two BN reductions sum in f32 in
+another order, each per-channel sum held to 2e-6 of the sum of its terms'
+magnitudes (``chip_smoke.py``'s ``BN_SUM_RTOL``).
 """
 
 import pytest
@@ -329,3 +333,126 @@ def test_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tck.chunk_scatter(torch.zeros(4, 8, device=dev), torch.zeros(4, 8, dtype=torch.int64, device=dev), 512)
     with pytest.raises(ValueError):
         tck.dequantize_int8(torch.zeros(4, 512, dtype=torch.int8, device=dev), torch.zeros(4, device=dev).double())
+
+
+BN_SUM_RTOL = 2e-6
+
+
+def _bn_sum_ok(got, want, terms):
+    return bool(((got - want).abs() <= BN_SUM_RTOL * terms + 1e-30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,c", [(8192, 256), (4096, 64), (512, 2048), (1, 8), (1, 3), (777, 13), (300, 24)])
+def test_bn_kernels_match_plain(dev, m, c, dtype):
+    """The four fused-BN kernels against their plain versions, fed the same
+    per-channel vectors, relu off and on; C not a multiple of the vector
+    width (3, 13) and M = 1 included. Each wrapper call counts one launch."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    gen = torch.Generator(device=dev).manual_seed(m + c)
+    x = (2 * torch.randn(m, c, generator=gen, device=dev) + 0.3).to(dtype)
+    dy = torch.randn(m, c, generator=gen, device=dev).to(dtype)
+    gamma = 1 + 0.5 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(c, generator=gen, device=dev)
+    names = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+    before = [getattr(tbn, n).launches for n in names]
+    xf = x.float()
+    s, sq = tbn.bn_stats(x)
+    sp, sqp = tbn.bn_stats_plain(x)
+    torch.cuda.synchronize()
+    assert _bn_sum_ok(s, sp, xf.abs().sum(0)) and _bn_sum_ok(sq, sqp, (xf * xf).sum(0))
+    mean = sp / m
+    var = torch.clamp_min(sqp / m - mean * mean, 0.0)
+    scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
+    xhat = (xf - mean) * rsqrt
+    for relu in (False, True):
+        y = tbn.bn_norm(x, scale, shift, relu)
+        assert y.dtype == dtype and torch.equal(y.float(), tbn.bn_norm_plain(x, scale, shift, relu).float())
+        db, dg = tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, relu)
+        dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, relu)
+        g = dy.float() * ((xf * scale + shift > 0) if relu else 1.0)
+        torch.cuda.synchronize()
+        assert _bn_sum_ok(db, dbp, g.abs().sum(0)) and _bn_sum_ok(dg, dgp, (g * xhat).abs().sum(0))
+        c1, c2 = dbp / m, dgp / m
+        dx = tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
+        want = tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
+        assert dx.dtype == dtype and torch.equal(dx.float(), want.float())
+    assert [getattr(tbn, n).launches - b for n, b in zip(names, before)] == [1, 2, 2, 2]
+
+
+def test_bn_reductions_are_deterministic(dev):
+    """The fixed-order two-pass reductions give the same bits on a rerun."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(131072, 64, generator=gen, device=dev).to(torch.bfloat16)
+    runs = [tbn.bn_stats(x) for _ in range(3)]
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+def test_bn_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    x = torch.randn(64, 32, device=dev)
+    v = torch.ones(32, device=dev)
+    with pytest.raises(ValueError):  # a non-contiguous (M, C) view is refused, never copied
+        tbn.bn_stats(torch.randn(32, 64, device=dev).t())
+    with pytest.raises(ValueError):
+        tbn.bn_norm(x.half(), v, v, False)
+    with pytest.raises(ValueError):
+        tbn.bn_norm(x, v[:16], v, False)
+    with pytest.raises(ValueError):
+        tbn.bn_bwd_reduce(x.to(torch.bfloat16), x, v, v, v, v, True)
+    with pytest.raises(RuntimeError):  # an NCHW-contiguous activation has no (M, C) view
+        tbn.fused_batch_norm(torch.randn(2, 32, 4, 4, device=dev).permute(0, 2, 3, 1), v, v)
+
+
+def test_resnet_worker_step_through_bn_kernels_matches_plain(dev):
+    """One worker step of the smoke ResNet (f32) with ``norm_impl="pallas"``
+    on the card: every BN layer launches each of the four kernels once, and
+    the gradients and new statistics match the same step on the plain
+    versions (``"jnp"``, same parameter names) to f32 summation-order noise."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.resnet import resnet_loss_fn
+
+    bundle = configs.build("cifar_resnet50", "smoke", norm_impl="pallas", device=dev)
+    params, model_state = bundle.convert(bundle.init_params(0))
+    batch = next(iter(bundle.batches(1, 0)))
+    micro = {k: v[0, 0].to(dev) for k, v in batch.items()}
+    stats = {"batch_stats": {n: t[0].to(dev) for n, t in model_state["batch_stats"].items()}}
+    out = {}
+    for impl in ("pallas", "jnp"):
+        leaves = {n: p[0].to(dev).requires_grad_() for n, p in params.items()}
+        kernels.reset_launch_counts()
+        loss, new = resnet_loss_fn(configs.resnet_model("smoke", impl))(leaves, stats, micro, None)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        out[impl] = (loss, grads, new, kernels.launch_counts())
+    bn = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+    n_bn = 9  # the stem, and four in each of the two blocks (with the projection)
+    assert {k: out["pallas"][3][k] for k in bn} == dict.fromkeys(bn, n_bn)
+    assert all(v == 0 for v in out["jnp"][3].values())
+    assert abs(float(out["pallas"][0].detach()) - float(out["jnp"][0].detach())) <= 1e-5
+    for a, b in zip(out["pallas"][1], out["jnp"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-7
+    for n, t in out["pallas"][2]["batch_stats"].items():
+        torch.testing.assert_close(t, out["jnp"][2]["batch_stats"][n], rtol=1e-5, atol=1e-6)
+
+
+def test_flax_path_batchnorm_statistics_on_card(dev):
+    """``norm_impl="flax"``'s BatchNorm on a bf16 channels_last activation:
+    the running statistics it derives from PyTorch's batch norm are flax's
+    (batch mean, biased variance, 0.9 old + 0.1 batch)."""
+    from consensusml_tpu_torch.models.resnet import BatchNorm
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = (3 * torch.randn(128, 64, 8, 8, generator=gen, device=dev) + 1).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    bn = BatchNorm(64, act="relu", device=dev)
+    y = bn(x)
+    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and (y >= 0).all()
+    torch.testing.assert_close(bn.mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(bn.var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)

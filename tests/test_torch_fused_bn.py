@@ -1,0 +1,283 @@
+"""The port's fused BatchNorm(+ReLU) against the JAX package's, on the CPU.
+
+The four kernels' plain versions (which the wrappers run for CPU
+tensors), the autograd ``fused_batch_norm`` and the ``FusedBatchNorm``
+module are held against ``consensusml_tpu/models/fused_bn.py`` in
+``impl="interpret"`` (its Pallas kernels in interpret mode; M = 256 is a
+shape its ``_plan`` takes at C = 8, 64 and 256, so no case falls back to
+its jnp path); the port's ``norm_impl="flax"`` BatchNorm against flax's
+``nn.BatchNorm``. Inputs are made with numpy and handed to both.
+
+Tolerances: both sides compute in f32 from the same inputs, in other
+summation orders. f32 outputs (y, dx) and the statistics agree to ~1e-6
+(read: at most 1.4e-6), hence atol 1e-5; the per-channel sums dgamma and
+dbeta over 256 rows to ~1e-5 (read: at most 1.1e-5), hence atol 1e-4. A
+bf16 output is rounded from f32 values that may differ in the last f32
+bits, so it may land one bf16 ulp away: rtol 2**-7 (read: 4.9e-4 on
+values in [0.0625, 0.125)). A wrong formula (a missing mean term in dx,
+an unbiased variance, a mask not recomputed) moves them by 1e-2 or more.
+"""
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from consensusml_tpu.models import fused_bn as jbn
+from consensusml_tpu_torch.models import fused_bn as tbn
+from consensusml_tpu_torch.models.resnet import BatchNorm
+
+M = 256
+F32_TOL = dict(atol=1e-5, rtol=1e-5)
+SUM_TOL = dict(atol=1e-4, rtol=1e-5)
+BF16_TOL = dict(atol=1e-5, rtol=2.0**-7)
+JAX_DTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _np(t):
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def _case(c, seed, m=M):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(m, c)) * 2 + 0.3).astype(np.float32)
+    gamma = (rng.normal(size=(c,)) * 0.5 + 1.0).astype(np.float32)
+    beta = (rng.normal(size=(c,)) * 0.1).astype(np.float32)
+    dy = rng.normal(size=(m, c)).astype(np.float32)
+    return x, gamma, beta, dy
+
+
+def _out_tol(dtype):
+    return F32_TOL if dtype == torch.float32 else BF16_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("c", [8, 64, 256])
+def test_plain_versions_match_reference_kernels(c, relu, dtype):
+    """Each of the four plain versions (and its wrapper, which runs it for
+    CPU tensors without counting a launch) against the reference's kernel
+    in interpret mode, fed the same per-channel vectors."""
+    x, gamma, beta, dy = _case(c, c + relu)
+    jd = JAX_DTYPE[dtype]
+    jx, jdy = jnp.asarray(x, jd), jnp.asarray(dy, jd)
+    tx, tdy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    launches = [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd_reduce, tbn.bn_bwd_dx)]
+
+    s, sq = jbn._stats(jx, "interpret", True)
+    for fn in (tbn.bn_stats_plain, tbn.bn_stats):
+        ts, tsq = fn(tx)
+        assert ts.dtype == tsq.dtype == torch.float32
+        _close(ts, s, SUM_TOL)
+        _close(tsq, sq, SUM_TOL)
+
+    mean = np.asarray(s) / M
+    var = np.maximum(np.asarray(sq) / M - mean * mean, 0.0)
+    scale, shift, rsqrt = (np.asarray(a) for a in jbn._fold_params(gamma, beta, mean, var, 1e-5))
+    tv = {n: torch.tensor(np.asarray(a, np.float32)) for n, a in
+          (("scale", scale), ("shift", shift), ("mean", mean), ("rsqrt", rsqrt))}
+
+    y = jbn._normalize(jx, scale, shift, relu, jd, "interpret", True)
+    for fn in (tbn.bn_norm_plain, tbn.bn_norm):
+        ty = fn(tx, tv["scale"], tv["shift"], relu)
+        assert ty.dtype == dtype
+        _close(ty, y, _out_tol(dtype))
+
+    db, dg = jbn._bwd_reduce(jdy, jx, scale, shift, mean, rsqrt, relu, "interpret", True)
+    for fn in (tbn.bn_bwd_reduce_plain, tbn.bn_bwd_reduce):
+        tdb, tdg = fn(tdy, tx, tv["scale"], tv["shift"], tv["mean"], tv["rsqrt"], relu)
+        _close(tdb, db, SUM_TOL)
+        _close(tdg, dg, SUM_TOL)
+
+    c1, c2 = np.asarray(db) / M, np.asarray(dg) / M
+    dx = jbn._bwd_dx(jdy, jx, scale, shift, mean, rsqrt, c1, c2, relu, "interpret", True)
+    for fn in (tbn.bn_bwd_dx_plain, tbn.bn_bwd_dx):
+        tdx = fn(tdy, tx, tv["scale"], tv["shift"], tv["mean"], tv["rsqrt"], torch.from_numpy(c1),
+                 torch.from_numpy(c2), relu)
+        assert tdx.dtype == dtype
+        _close(tdx, dx, _out_tol(dtype))
+    assert launches == [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd_reduce, tbn.bn_bwd_dx)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("c", [8, 64, 256])
+def test_fused_batch_norm_matches_reference(c, relu, dtype):
+    """y, mean, var and the gradients dx, dgamma, dbeta of one output
+    cotangent, through the autograd Function, against the reference's
+    custom VJP in interpret mode; ``impl="jnp"`` (the plain versions by
+    name) gives the same bits as ``"auto"`` on the CPU."""
+    x, gamma, beta, dy = _case(c, 100 + c + relu, m=4 * M)
+    x, dy = x.reshape(4, 16, 16, c), dy.reshape(4, 16, 16, c)  # an NHWC activation
+    jd, act = JAX_DTYPE[dtype], "relu" if relu else None
+    args = (jnp.asarray(x, jd), jnp.asarray(gamma), jnp.asarray(beta))
+    (y, mean, var), pull = jax.vjp(lambda *a: jbn.fused_batch_norm(*a, act=act, impl="interpret"), *args)
+    dx, dgamma, dbeta = pull((jnp.asarray(dy, jd), jnp.zeros_like(mean), jnp.zeros_like(var)))
+
+    got = {}
+    for impl in ("auto", "jnp"):
+        tx = torch.from_numpy(x).to(dtype).requires_grad_()
+        tg, tb = (torch.from_numpy(a).requires_grad_() for a in (gamma, beta))
+        ty, tmean, tvar = tbn.fused_batch_norm(tx, tg, tb, act=act, impl=impl)
+        assert ty.shape == tx.shape and ty.dtype == dtype
+        assert not tmean.requires_grad and not tvar.requires_grad
+        ty.backward(torch.from_numpy(dy).to(dtype))
+        got[impl] = (ty, tmean, tvar, tx.grad, tg.grad, tb.grad)
+    for a, b in zip(got["auto"], got["jnp"]):
+        assert torch.equal(a, b)
+    ty, tmean, tvar, tdx, tdg, tdb = got["auto"]
+    _close(ty, y, _out_tol(dtype))
+    _close(tmean, mean, F32_TOL)
+    _close(tvar, var, F32_TOL)
+    _close(tdx, dx, _out_tol(dtype))
+    _close(tdg, dgamma, SUM_TOL)
+    _close(tdb, dbeta, SUM_TOL)
+
+
+def test_fused_module_running_stats_and_eval():
+    """Two training steps of ``FusedBatchNorm`` update the running
+    statistics as the reference module does (0.9 old + 0.1 batch, biased
+    variance), then the eval branch normalises with them."""
+    c = 64
+    rng = np.random.default_rng(7)
+    xs = [(rng.normal(size=(16, 4, 4, c)) * 3 + 1).astype(np.float32) for _ in range(3)]
+    jmod = jbn.FusedBatchNorm(act="relu", impl="interpret")
+    variables = jmod.init(jax.random.key(0), jnp.asarray(xs[0]))
+    tmod = tbn.FusedBatchNorm(c, act="relu", impl="auto")
+    with torch.no_grad():
+        tmod.scale.copy_(torch.linspace(0.5, 1.5, c))
+    variables = {"params": {"scale": jnp.linspace(0.5, 1.5, c), "bias": variables["params"]["bias"]},
+                 "batch_stats": variables["batch_stats"]}
+    for x in xs[:2]:
+        y, upd = jmod.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+        variables = {**variables, **upd}
+        ty = tmod(torch.from_numpy(x))
+        _close(ty, y, F32_TOL)
+        _close(tmod.mean, variables["batch_stats"]["mean"], F32_TOL)
+        _close(tmod.var, variables["batch_stats"]["var"], F32_TOL)
+    y_eval = jbn.FusedBatchNorm(use_running_average=True, act="relu").apply(variables, jnp.asarray(xs[2]))
+    mean0 = tmod.mean.clone()
+    _close(tmod(torch.from_numpy(xs[2]), use_running_average=True), y_eval, F32_TOL)
+    assert torch.equal(tmod.mean, mean0)  # eval leaves the statistics alone
+
+
+def _flax_bn(x, gamma, beta, stats, train, dtype):
+    bn = nn.BatchNorm(use_running_average=not train, momentum=0.9, epsilon=1e-5, dtype=dtype)
+    variables = {"params": {"scale": gamma, "bias": beta}, "batch_stats": stats}
+    if not train:
+        return bn.apply(variables, x), stats
+    y, upd = bn.apply(variables, x, mutable=["batch_stats"])
+    return y, upd["batch_stats"]
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 4, 16), (4, 8, 8, 32)])
+def test_flax_path_batchnorm_matches_nn_batchnorm(shape):
+    """``norm_impl="flax"``'s BatchNorm against flax ``nn.BatchNorm`` (f32):
+    the output, the gradients through the batch statistics, the updated
+    running mean and var, and eval mode. At 8 x 4 x 4 = 128 rows the
+    unbiased variance PyTorch keeps by default is 128/127 = 1.008 times
+    the biased one flax keeps: over 100x the tolerance apart."""
+    c = shape[-1]
+    x, gamma, beta, dy = _case(c, sum(shape), m=int(np.prod(shape[:-1])))
+    x, dy = x.reshape(shape), dy.reshape(shape)
+    stats = {"mean": np.full(c, 0.2, np.float32), "var": np.full(c, 1.5, np.float32)}
+    fn = lambda x, g, b: _flax_bn(x, g, b, stats, True, jnp.float32)  # noqa: E731
+    y, pull, new = jax.vjp(fn, jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), has_aux=True)
+    dx, dgamma, dbeta = pull(jnp.asarray(dy))
+
+    bn = BatchNorm(c)
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(gamma))
+        bn.bias.copy_(torch.from_numpy(beta))
+        bn.mean.copy_(torch.from_numpy(stats["mean"]))
+        bn.var.copy_(torch.from_numpy(stats["var"]))
+    tx = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()  # channels_last NCHW, as in the ResNet
+    ty = bn(tx)
+    ty.backward(torch.from_numpy(dy).permute(0, 3, 1, 2))
+    _close(ty.permute(0, 2, 3, 1), y, F32_TOL)
+    _close(tx.grad.permute(0, 2, 3, 1), dx, F32_TOL)
+    _close(bn.scale.grad, dgamma, SUM_TOL)
+    _close(bn.bias.grad, dbeta, SUM_TOL)
+    _close(bn.mean, new["mean"], F32_TOL)
+    _close(bn.var, new["var"], F32_TOL)
+    n = x.size // c
+    if n == 128:  # PyTorch's default update would be far outside the tolerance
+        unbiased = 0.9 * stats["var"] + 0.1 * x.reshape(-1, c).var(axis=0, ddof=1)
+        assert np.abs(unbiased - np.asarray(new["var"])).max() > 100 * F32_TOL["atol"]
+
+    y_eval, _ = _flax_bn(jnp.asarray(x), gamma, beta, new, False, jnp.float32)
+    with torch.no_grad():
+        _close(bn(torch.from_numpy(x).permute(0, 3, 1, 2), use_running_average=True).permute(0, 2, 3, 1),
+               y_eval, F32_TOL)
+
+
+def test_flax_path_bf16_output_and_relu():
+    """bf16 activations through the flax-path BatchNorm: f32 statistics,
+    the output rounded to bf16, ReLU after the rounding (flax's order)."""
+    c = 32
+    x, gamma, beta, _ = _case(c, 3, m=8 * 8 * 8)
+    x = x.reshape(8, 8, 8, c)
+    stats = {"mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32)}
+    y, new = _flax_bn(jnp.asarray(x, jnp.bfloat16), gamma, beta, stats, True, jnp.bfloat16)
+    y = jax.nn.relu(y)
+    bn = BatchNorm(c, act="relu")
+    with torch.no_grad():
+        bn.scale.copy_(torch.from_numpy(gamma))
+        bn.bias.copy_(torch.from_numpy(beta))
+    ty = bn(torch.from_numpy(x).to(torch.bfloat16).permute(0, 3, 1, 2))
+    assert ty.dtype == torch.bfloat16
+    _close(ty.permute(0, 2, 3, 1), y, BF16_TOL)
+    _close(bn.mean, new["mean"], F32_TOL)
+    _close(bn.var, new["var"], F32_TOL)
+
+
+def test_stripes_fill_the_card_or_walk_enough_rows():
+    """The reductions' stripe plan at the shapes of ResNet-50's BN layers
+    (batch 128 at 32x32) and at odd ones: every stripe has rows, and each
+    grid either reaches ~528 blocks (90% of it, after empty stripes are dropped) or gives every thread >= 32 rows."""
+    for m, c in [(131072, 256), (131072, 64), (2048, 2048), (32768, 512), (1, 1), (7, 3), (1000, 24)]:
+        for vec in (1, 8) if c % 8 == 0 else (1,):
+            cols = -(-c // vec)
+            tx = min(1 << (cols - 1).bit_length(), 32)
+            ty, tiles = 256 // tx, -(-cols // tx)
+            stripes = tbn._stripes(m, c, vec)
+            rows = -(-m // stripes)
+            assert 1 <= stripes <= -(-m // ty) and (stripes - 1) * rows < m
+            assert stripes * tiles >= 0.9 * 528 or rows >= 32 * ty or rows <= ty
+    assert tbn._stripes(131072, 256, 8) == 527
+
+
+def test_fused_batch_norm_refuses_what_it_does_not_take():
+    x = torch.zeros(4, 4, 8)
+    g, b = torch.ones(8), torch.zeros(8)
+    with pytest.raises(ValueError):
+        tbn.fused_batch_norm(x, g, b, act="gelu")
+    with pytest.raises(ValueError):
+        tbn.fused_batch_norm(x, g, b, impl="triton")
+    with pytest.raises(RuntimeError):  # no (M, C) view of a transposed tensor: never a silent copy
+        tbn.fused_batch_norm(x.transpose(0, 2), torch.ones(4), torch.zeros(4))
+
+
+def test_one_row_batch():
+    """M = 1: the fused path gives flax's zero variance (y = beta, dx = 0)
+    as the reference does; the flax path's PyTorch batch norm refuses a
+    training batch of one value per channel (ROADMAP Queue C)."""
+    x, gamma, beta, dy = _case(16, 11, m=1)
+    args = (jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta))
+    (y, mean, var), pull = jax.vjp(lambda *a: jbn.fused_batch_norm(*a, impl="interpret"), *args)
+    dx, dgamma, dbeta = pull((jnp.asarray(dy), jnp.zeros_like(mean), jnp.zeros_like(var)))
+    tx, tg, tb = (torch.from_numpy(a).requires_grad_() for a in (x, gamma, beta))
+    ty, tmean, tvar = tbn.fused_batch_norm(tx, tg, tb)
+    ty.backward(torch.from_numpy(dy))
+    for got, want, tol in ((ty, y, F32_TOL), (tvar, var, F32_TOL), (tx.grad, dx, F32_TOL),
+                           (tg.grad, dgamma, SUM_TOL), (tb.grad, dbeta, SUM_TOL)):
+        _close(got, want, tol)
+    assert float(tvar.abs().max()) == 0.0
+    with pytest.raises(ValueError):
+        BatchNorm(16)(torch.from_numpy(x).view(1, 16, 1, 1))

@@ -44,6 +44,13 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--scale", "smoke", "--rounds", "1"])
     assert configs.build("gpt2_topk", "smoke", codec="int8", device="cpu").cfg.gossip.compressor.impl == "torch"
+    for norm_impl in ("flax", "pallas"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            configs.build("cifar_resnet50", "smoke", norm_impl=norm_impl)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_main(["--config", "cifar_resnet50", "--scale", "smoke", "--rounds", "1", "--norm-impl", norm_impl])
+    bundle = configs.build("cifar_resnet50", "smoke", norm_impl="pallas", device="cpu")
+    assert "plain PyTorch versions" in bundle.norm_path
 
 
 def test_auto_tier_on_cpu_is_the_plain_version():

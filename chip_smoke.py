@@ -14,8 +14,10 @@ Phases, each printed as one JSON line:
    ptxas register/spill lines.
 3. ``check``: each kernel at its main path's shapes against its plain
    PyTorch version on the card (element-wise tolerance, zero for the
-   CHOCO encode), timed with CUDA events beside the plain version and,
-   where one PyTorch call computes the same function, that call: paged
+   CHOCO encode), timed beside the plain version (by CUDA events; the
+   int8, int4, BN and LN kernels, which run faster than the host calls
+   their wrappers, by profiler device time) and, where one PyTorch call
+   computes the same function, that call: paged
    attention and the flash forward at the serving shapes, the flash
    forward and backward (dq and dk/dv) at the training shape B=8, S=1024
    (and 600), H=16, D=64, causal, the fused CHOCO encode on a
@@ -23,7 +25,10 @@ Phases, each printed as one JSON line:
    shapes of ``gpt2_topk``'s bucket plan (chunked top-k and chunk scatter
    on the largest bucket, 4 workers x 100,514 rows of 512, and on the
    median one; int8 quantize/dequantize on the largest bucket's value
-   rows), all four held bit for bit.
+   rows), all four held bit for bit; the int4 quantize/dequantize at the
+   value rows of ``--codec topk_int4``'s largest and median buckets, bit
+   for bit; the fused LayerNorm's forward and backward at GPT-2-medium's
+   (8192, 1024) bf16 view and a (2048, 1024) f32 one.
 4. ``serve``: GPT-2-medium at full width (numpy-seeded parameters through
    ``gpt2_from_flax``) in ``Engine(ServeConfig(num_slots=8, block_size=16,
    attn_impl="auto"))``: one prefill's and one decode step's logits held
@@ -66,6 +71,16 @@ Phases, each printed as one JSON line:
    on the same initial parameters: one warm round, two counted rounds,
    one profiled round with the BN kernels' device time: the yardstick,
    end to end.
+9. ``train_topk_int4_ln``: ``gpt2_topk`` full ``--workers 4 --codec
+   topk_int4 --norm-impl pallas --codec-warmup 1``: the same initial
+   parameters as ``train``; every one of the 49 LayerNorms through the
+   fused-LN kernels, the gossip through chunked top-k (8 of 512) + int4
+   values on the two-step wire (14 buckets, 27,809,088 wire bytes). One
+   worker step's gradients (flash + LN kernels) against the same step on
+   the plain versions (``attn_impl="torch"``, ``norm_impl="jnp"``), then
+   one warm round, three counted rounds (launches gated: 1176 a LN
+   kernel, 42 each codec kernel, 576 each flash kernel) and one profiled
+   round (the LN and codec kernels' device time).
 
 The ``check`` phase also holds the four fused-BN kernels against their
 plain versions at ResNet-50's (131072, 256), (131072, 64) and (2048,
@@ -142,6 +157,18 @@ BN_SUM_RTOL = 2e-6
 # over only 2048 rows of gradients of both signs); a BN backward that
 # dropped the statistics' terms reads ~1.
 RESNET_GRAD_REL_TOL, RESNET_LEAF_REL_TOL = 1e-2, 5e-2
+# fused LayerNorm kernels against their plain versions, fed the same
+# values: each row's mean and variance (and the backward's two row means)
+# are sums in another order than torch.mean, and rsqrtf is within 2 ulp,
+# so y and dx are held to LN_ROW_RTOL of their row's largest element plus,
+# for a bf16 output, one bf16 ulp of the element (a rounding the f32
+# difference flips); dgamma and dbeta, column sums over M rows in another
+# order, to LN_SUM_RTOL of the sum of their terms' magnitudes. Readings at
+# (8192, 1024) bf16: y and dx at 0.97 and 0.99 of their tolerance (one
+# flipped rounding at a power of two reaches 2**-7 of the value exactly;
+# the row term keeps it below 1, and two flips cannot come from an f32
+# difference ~1e-6 of the row), the sums at 1.6e-8; f32: 0.03, 0.02, 5.8e-8.
+LN_ROW_RTOL, LN_SUM_RTOL = 1e-5, 2e-6
 
 
 # each kernel's CUDA symbol in csrc/*.cu, to find its device time in a
@@ -161,8 +188,13 @@ KERNEL_SYMBOLS = {
     "bn_norm": "bn_norm_kernel",
     "bn_bwd_reduce": "bn_bwd_reduce(?:_fold)?_kernel",
     "bn_bwd_dx": "bn_bwd_dx_kernel",
+    "quantize_int4": "quantize_int4_kernel",
+    "dequantize_int4": "dequantize_int4_kernel",
+    "ln_fwd": "ln_fwd_kernel",
+    "ln_bwd": "ln_bwd(?:_fold)?_kernel",
 }
 BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+LN_KERNELS = ("ln_fwd", "ln_bwd")
 # PyTorch's own batch-norm kernels (cuDNN's or its native ones) in a trace
 LIBRARY_BN = re.compile(r"batch_?norm|(?<![A-Za-z0-9_])bn_(?:fw|bw)_", re.IGNORECASE)
 
@@ -420,24 +452,28 @@ def check_encode(torch, tck, dev):
     }
 
 
-def topk_bucket_totals(torch, dev) -> list[int]:
-    """Per-worker lengths of the buckets of ``gpt2_topk`` full on its own
-    codec (the engine's plan over GPT-2-medium's shapes)."""
+def topk_bucket_totals(torch, dev, codec=None) -> list[int]:
+    """Per-worker lengths of the buckets of ``gpt2_topk`` full on ``codec``
+    (None: its own; the engine's plan over GPT-2-medium's shapes)."""
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.models.gpt2 import GPT2LM
 
-    bundle = configs.build("gpt2_topk", "full", world=4, device=dev)
+    bundle = configs.build("gpt2_topk", "full", world=4, codec=codec, device=dev)
     meta = GPT2LM(configs.gpt2_config("full"), device="meta")
     plan = bundle.cfg.engine().bucket_plan({"params": dict(meta.named_parameters()), "model_state": {}})
     return [b.total for b in plan.buckets]
 
 
 def mismatches(torch, got, want) -> int:
-    """Elements whose bits differ (shapes and dtypes must agree)."""
+    """Elements whose bits differ (shapes and dtypes must agree); two NaNs
+    count as equal whatever their payload bits."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     view = torch.int8 if got.element_size() == 1 else torch.int32
-    return int((got.view(view) != want.view(view)).sum())
+    differ = got.view(view) != want.view(view)
+    if got.is_floating_point():
+        differ &= ~(torch.isnan(got) & torch.isnan(want))
+    return int(differ.sum())
 
 
 def max_abs_err(torch, *pairs) -> float:
@@ -472,7 +508,8 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
       one, the scatter fed the top-k's own winners; the acc form (the
       collective receive, weight 1/3) on the largest;
     - int8 quantize and dequantize on the largest bucket's value rows (per
-      worker 100,514 x 8 values, zero-padded to rows of 512).
+      worker 100,514 x 8 values, zero-padded to rows of 512), timed by
+      :func:`small_kernel_times`.
 
     Library yardsticks (timed, never used by the port): ``abs``, then
     ``torch.topk`` then ``gather`` for the selection (three calls);
@@ -552,18 +589,186 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
     db, dby = bound_ms(n + 4 * r + 4 * n, n, F32_FLOPS)
     out["quantize_int8"] = {
         "rows": r, "chunk": chunk, "mismatched": bad_q, "max_abs_err": max_abs_err(torch, (q, qp), (sc, scp)),
-        "ms": cuda_ms(torch, lambda _: tck.quantize_int8(vals), 50),
-        "plain_ms": cuda_ms(torch, lambda _: tck.quantize_int8_plain(vals), 10),
+        **small_kernel_times(torch, lambda _: tck.quantize_int8(vals), lambda _: tck.quantize_int8_plain(vals)),
         "library_ms": None, "library": "none: quantize_per_channel takes the scales as input",
         "bound_ms": qb, "bound_by": qby,
     }
     out["dequantize_int8"] = {
         "rows": r, "chunk": chunk, "mismatched": bad_d, "max_abs_err": max_abs_err(torch, (d, dp)),
-        "ms": cuda_ms(torch, lambda _: tck.dequantize_int8(q, sc), 50),
-        "plain_ms": cuda_ms(torch, lambda _: tck.dequantize_int8_plain(q, sc), 10),
+        **small_kernel_times(torch, lambda _: tck.dequantize_int8(q, sc), lambda _: tck.dequantize_int8_plain(q, sc)),
         "library_ms": None, "library": "none: a cast and a product are two calls",
         "bound_ms": db, "bound_by": dby,
     }
+    return out
+
+
+def small_kernel_times(torch, kern, plain) -> dict:
+    """``ms``/``plain_ms`` by profiler device time (:func:`device_ms`) and
+    ``event_ms``/``plain_event_ms`` by CUDA events: a kernel of a few
+    microseconds runs faster than the host can call its wrapper, so
+    back-to-back events read the host's time per call instead."""
+    return {
+        "ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
+        "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
+    }
+
+
+def check_int4(torch, tck, dev, totals, world=4, chunk=512, k=8):
+    """The int4 quantize and dequantize at ``--codec topk_int4``'s main-path
+    shapes: the value rows of the largest and the median bucket of its
+    14-bucket plan (per worker ``total / 512 * 8`` values, zero-padded to
+    rows of 512, the int4 chunk), held BIT FOR BIT against their plain
+    versions. The first rows carry ``seed_codec_rows``' hazards, then a
+    NaN row, int4's round-half points at scale 1 and an inf row. No
+    library yardstick: ``quantize_per_channel`` takes its scales as
+    input and packs no nibbles, and the unpack is several calls."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for label, total in (("largest", max(totals)), ("median", sorted(totals)[len(totals) // 2])):
+        n = total // chunk * k
+        rows = -(-n // chunk)
+        vals = torch.zeros(world, rows * chunk, device=dev)
+        vals[:, :n] = 3 * torch.randn(world, n, generator=gen, device=dev)
+        vals = vals.reshape(-1, chunk)
+        seed_codec_rows(torch, vals, gen)
+        vals[5, 3] = float("nan")
+        vals[6] = torch.randint(-7, 7, (chunk,), generator=gen, device=dev).float() + 0.5
+        vals[6, :5] = torch.tensor([7.0, 3.5, -3.5, 0.5, 1.5], device=dev)
+        vals[7, 4] = float("inf")
+        p, sc = tck.quantize_int4(vals)
+        pp, scp = tck.quantize_int4_plain(vals)
+        d = tck.dequantize_int4(p, sc)
+        dp = tck.dequantize_int4_plain(p, sc)
+        torch.cuda.synchronize()
+        bad_q = {"packed": mismatches(torch, p, pp), "scales": mismatches(torch, sc, scp)}
+        bad_d = mismatches(torch, d, dp)
+        hazards_ok = (sc[0] == 0 and torch.isnan(sc[5]) and sc[6] == 1.0 and not p[[0, 1, 5, 7]].any()
+                      and d[6, :5].tolist() == [7.0, 4.0, -4.0, 0.0, 2.0])
+        if any(bad_q.values()) or bad_d or not hazards_ok:
+            raise AssertionError(f"int4 kernels ({label}) differ from their plain versions: {bad_q}, "
+                                 f"dequantize {bad_d}, hazard rows ok: {hazards_ok}")
+        r, m = vals.shape[0], vals.numel()
+        qb, qby = bound_ms(4 * m + m // 2 + 4 * r, 3 * m, F32_FLOPS)
+        db, dby = bound_ms(m // 2 + 4 * r + 4 * m, m, F32_FLOPS)
+        fin = torch.isfinite(sc)  # the NaN and inf rows' scales (and decodes) carry no error value
+        out[label] = {
+            "quantize_int4": {
+                "rows": r, "chunk": chunk, "mismatched": bad_q,
+                "max_abs_err": max_abs_err(torch, (p, pp), (sc[fin], scp[fin])),
+                **small_kernel_times(torch, lambda _: tck.quantize_int4(vals), lambda _: tck.quantize_int4_plain(vals)),
+                "library_ms": None, "library": "none: quantize_per_channel takes the scales as input, packs no nibbles",
+                "bound_ms": qb, "bound_by": qby,
+            },
+            "dequantize_int4": {
+                "rows": r, "chunk": chunk, "mismatched": bad_d,
+                "max_abs_err": max_abs_err(torch, (d[fin], dp[fin])),
+                **small_kernel_times(torch, lambda _: tck.dequantize_int4(p, sc),
+                                     lambda _: tck.dequantize_int4_plain(p, sc)),
+                "library_ms": None, "library": "none: unpacking nibbles, a cast and a product are several calls",
+                "bound_ms": db, "bound_by": dby,
+            },
+        }
+        del vals, p, pp, d, dp
+    return out
+
+
+def ln_case(torch, dev, gen, m, h, dtype):
+    """x with the LayerNorm's hazards in its first rows (a constant row: its
+    variance is 0, and 0.375 sums exactly, so both sides see xc = 0; a row
+    of large magnitude; a row at 1e-3 scale, variance near eps), dy, f32
+    gamma and beta."""
+    x = 2 * torch.randn(m, h, generator=gen, device=dev) + 0.5
+    x[0] = 0.375
+    x[1] *= 1e3
+    x[2] *= 1e-3
+    dy = torch.randn(m, h, generator=gen, device=dev)
+    gamma = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(h, generator=gen, device=dev)
+    return x.to(dtype), dy.to(dtype), gamma, beta
+
+
+def ln_row_err(torch, got, want) -> float:
+    """Worst |got - want| over its tolerance: LN_ROW_RTOL of the row's
+    largest |want|, plus one bf16 ulp of the element for a bf16 output."""
+    ulp = 2.0**-7 if got.dtype == torch.bfloat16 else 0.0
+    g, w = got.float(), want.float()
+    tol = LN_ROW_RTOL * w.abs().amax(dim=1, keepdim=True) + ulp * w.abs()
+    return float(((g - w).abs() / tol.clamp_min(1e-30)).max())
+
+
+def check_ln(torch, tln, dev):
+    """The fused LayerNorm's two kernels at GPT-2-medium's LayerNorm view,
+    (8192, 1024) bf16 in and out (batch 8 x seq 1024), and at (2048, 1024)
+    f32, each against its plain version on the same values: y and dx
+    within ``LN_ROW_RTOL`` (+ one bf16 ulp), dgamma and dbeta within
+    ``LN_SUM_RTOL`` of their terms' magnitudes. ``ms`` is device time by
+    the profiler (:func:`device_ms`), ``event_ms`` CUDA events over
+    back-to-back calls; the library yardstick is one ``F.layer_norm``
+    forward and its autograd backward ((forward + backward) - forward) on
+    the same values, its weight and bias cast to x's dtype."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for m, h, dtype in ((8192, 1024, torch.bfloat16), (2048, 1024, torch.float32)):
+        x, dy, gamma, beta = ln_case(torch, dev, gen, m, h, dtype)
+        y, yp = tln.ln_fwd(x, gamma, beta, 1e-6, dtype), tln.ln_fwd_plain(x, gamma, beta, 1e-6, dtype)
+        dx, dg, db = tln.ln_bwd(dy, x, gamma, 1e-6)
+        dxp, dgp, dbp = tln.ln_bwd_plain(dy, x, gamma, 1e-6)
+        torch.cuda.synchronize()
+        xf, dyf = x.float(), dy.float()
+        xc = xf - xf.mean(1, keepdim=True)
+        xhat = xc * torch.rsqrt((xc * xc).mean(1, keepdim=True) + 1e-6)
+        errs = {
+            "y": ln_row_err(torch, y, yp), "dx": ln_row_err(torch, dx, dxp),
+            "dgamma": sum_err(torch, dg, dgp, (dyf * xhat).abs().sum(0)),
+            "dbeta": sum_err(torch, db, dbp, dyf.abs().sum(0)),
+        }
+        abs_errs = {name: max_abs_err(torch, (a, b)) for name, a, b in
+                    (("y", y, yp), ("dx", dx, dxp), ("dgamma", dg, dgp), ("dbeta", db, dbp))}
+        if not (errs["y"] <= 1 and errs["dx"] <= 1 and errs["dgamma"] <= LN_SUM_RTOL and errs["dbeta"] <= LN_SUM_RTOL):
+            raise AssertionError(f"fused LN kernels at ({m}, {h}) {dtype} differ from their plain versions: "
+                                 f"{errs} (y, dx: over their tolerance; sums: rel), {abs_errs} (max abs)")
+        del y, yp, dx, dxp, xf, xc, xhat, dyf
+        w, b = gamma.to(dtype), beta.to(dtype)
+        xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+
+        def lib_fwd_bwd(_):
+            torch.autograd.grad(F.layer_norm(xr, (h,), wr, br, 1e-6), (xr, wr, br), dy)
+
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 50)
+            lib_fwd_ev = cuda_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 50)
+        lib_bwd = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd
+        lib_bwd_ev = cuda_ms(torch, lib_fwd_bwd, 50) - lib_fwd_ev
+        n, eb = m * h, x.element_size()
+        bounds = {  # bytes: (M, H) operands once each; flops at the f32 rate (no tensor cores)
+            "ln_fwd": bound_ms(2 * eb * n + 8 * h, 8 * n, F32_FLOPS),
+            "ln_bwd": bound_ms(3 * eb * n + 12 * h, 16 * n, F32_FLOPS),
+        }
+        times = {
+            "ln_fwd": (lambda _: tln.ln_fwd(x, gamma, beta, 1e-6, dtype),
+                       lambda _: tln.ln_fwd_plain(x, gamma, beta, 1e-6, dtype)),
+            "ln_bwd": (lambda _: tln.ln_bwd(dy, x, gamma, 1e-6), lambda _: tln.ln_bwd_plain(dy, x, gamma, 1e-6)),
+        }
+        out[(m, h, str(dtype).split(".")[-1])] = {
+            name: {
+                "m": m, "h": h, "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": max(abs_errs[k] for k in (("y",) if name == "ln_fwd" else ("dx", "dgamma", "dbeta"))),
+                "errs_over_tol": ({"y": errs["y"]} if name == "ln_fwd" else {"dx": errs["dx"]}),
+                **({} if name == "ln_fwd" else {"sum_rel_err": max(errs["dgamma"], errs["dbeta"])}),
+                "abs_errs": abs_errs,
+                "ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
+                "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
+                "library_ms": lib_fwd if name == "ln_fwd" else lib_bwd,
+                "library_event_ms": lib_fwd_ev if name == "ln_fwd" else lib_bwd_ev,
+                "library": ("F.layer_norm forward" if name == "ln_fwd" else "F.layer_norm autograd backward"),
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            }
+            for name, (kern, plain) in times.items()
+        }
+        del x, dy, xr
+        torch.cuda.empty_cache()
     return out
 
 
@@ -773,6 +978,9 @@ def serve_phase(torch, dev):
             raise AssertionError(f"paged launches {counts['paged_attention']} < 24 x {steps} steps")
         if counts["flash_attention_fwd"] < cfg.layers:
             raise AssertionError(f"flash launches {counts['flash_attention_fwd']} < 24")
+        stray = {n: c for n, c in counts.items() if c and n not in ("paged_attention", "flash_attention_fwd")}
+        if stray:
+            raise AssertionError(f"serving launched kernels off its path: {stray}")
         serve = {
             "phase": "serve", "model": "gpt2_topk full (GPT-2-medium)", "params": n_params,
             "layers": cfg.layers, "model_build_s": build_s, "warmup": warmed, "warmup_s": warmup_s,
@@ -791,16 +999,18 @@ def serve_phase(torch, dev):
     return serve, counts
 
 
-def grad_check(torch, bundle, params0, batch, dev):
-    """One worker step's gradients through the kernels against the same
-    step on the plain versions (same weights, batch and dropout masks)."""
+def grad_check(torch, model, plain_model, params0, batch, dev):
+    """One worker step's gradients through the kernels (``model`` with
+    ``attn_impl="cuda"``) against the same step on the plain versions
+    (``plain_model``, ``attn_impl="torch"``): same weights, batch and
+    dropout masks."""
     from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
 
     grads = {}
-    for impl in ("cuda", "torch"):
+    for impl, m in (("cuda", model), ("torch", plain_model)):
         leaves = {n: p.detach().requires_grad_(True) for n, p in params0.items()}
         gen = torch.Generator(device=dev).manual_seed(11)
-        loss, _ = gpt2_loss_fn(bundle.model, attn_impl=impl)(leaves, {}, batch, gen)
+        loss, _ = gpt2_loss_fn(m, attn_impl=impl)(leaves, {}, batch, gen)
         grads[impl] = (float(loss.detach()), torch.autograd.grad(loss, list(leaves.values())))
         del leaves, loss
     (lk, gk), (lp, gp) = grads["cuda"], grads["torch"]
@@ -892,24 +1102,37 @@ class GcPauses:
                 "gc_full_ms": self.gen2_ms - snap[2]}
 
 
-CODEC_KERNELS = ("chunked_topk", "quantize_int8", "dequantize_int8", "chunk_scatter")
+# the two-step wire's four kernels a bucket an exchange, by codec
+CODEC_KERNELS = {
+    None: ("chunked_topk", "quantize_int8", "dequantize_int8", "chunk_scatter"),
+    "topk_int4": ("chunked_topk", "quantize_int4", "dequantize_int4", "chunk_scatter"),
+}
+# the bucket plans at GPT-2-medium, 4 MiB buckets: (buckets, wire bytes a worker a round)
+TOPK_PLANS = {None: (25, 33_366_424), "topk_int4": (14, 27_809_088)}
+TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_int4_ln"}
 
 
-def train_phase(torch, dev, init, codec):
+def train_phase(torch, dev, init, codec, norm_impl="flax"):
     """gpt2_topk full, --workers 4 --codec-warmup 1, on ``codec``: "int8"
-    (the fused wire; the ``train`` line, with the gradient check) or None
+    (the fused wire; the ``train`` line, with the gradient check), None
     (the config's own top-k + int8 codec on the two-step wire; the
-    ``train_topk`` line). ``init`` is the stacked numpy initial parameters
-    (``bundle.init_params(0)``), drawn once for both."""
+    ``train_topk`` line) or "topk_int4" with ``norm_impl="pallas"`` (top-k
+    + int4 on the two-step wire, every LayerNorm through the fused-LN
+    kernels; the ``train_topk_int4_ln`` line, with the gradient check
+    through the flash and LN kernels). ``init`` is the stacked numpy
+    initial parameters (``bundle.init_params(0)``), drawn once for all."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.models.gpt2 import GPT2LM
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
     world, counted = 4, 3
-    bundle = configs.build("gpt2_topk", "full", world=world, codec=codec, codec_warmup=1, device=dev)
+    bundle = configs.build("gpt2_topk", "full", world=world, codec=codec, codec_warmup=1, norm_impl=norm_impl,
+                           device=dev)
     cfg, mcfg = bundle.cfg, bundle.model.config
     engine = cfg.engine()
     fused = codec == "int8"
+    fused_ln = norm_impl == "pallas"
     if engine.fused_wire_active != fused:
         raise AssertionError(f"codec path is not the expected wire: {bundle.codec_path}")
     marks = [("start", time.perf_counter())]
@@ -917,9 +1140,10 @@ def train_phase(torch, dev, init, codec):
     marks.append(("batches", time.perf_counter()))
     ids = batches[0]["input_ids"]
     grads = None
-    if fused:  # the model-level gradient check runs once, for both phases
+    if fused or fused_ln:  # the model-level gradient check: flash kernels (and the LN ones)
         params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in init.items()}
-        grads = grad_check(torch, bundle, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
+        plain = GPT2LM(configs.gpt2_config("full", norm_impl="jnp"), device="meta") if fused_ln else bundle.model
+        grads = grad_check(torch, bundle.model, plain, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
         del params0
         torch.cuda.empty_cache()
         marks.append(("grad_check", time.perf_counter()))
@@ -934,8 +1158,8 @@ def train_phase(torch, dev, init, codec):
     wire = engine.wire_bytes_per_round({"params": per_worker, "model_state": {}})
     n_params = sum(p.numel() for p in per_worker.values())
     del per_worker
-    if not fused and (n_buckets, wire) != (25, 33_366_424):
-        raise AssertionError(f"top-k plan: {n_buckets} buckets, {wire} wire bytes; expected 25, 33366424")
+    if not fused and (n_buckets, wire) != TOPK_PLANS[codec]:
+        raise AssertionError(f"{codec} plan: {n_buckets} buckets, {wire} wire bytes; expected {TOPK_PLANS[codec]}")
 
     t0 = time.perf_counter()
     state, m = step(state, batches[0])  # round 0: warm (dense mixing), not counted
@@ -978,27 +1202,33 @@ def train_phase(torch, dev, init, codec):
             raise AssertionError(f"round {r['step']}: loss or consensus error not finite and positive: {r}")
     worker_steps = world * cfg.h * counted
     exchanges = counted * cfg.gossip.gossip_steps  # CHOCO rounds: one exchange a gossip step
-    expect = {
-        "flash_attention_fwd": mcfg.layers * worker_steps,
-        "flash_attention_bwd_dq": mcfg.layers * worker_steps,
-        "flash_attention_bwd_dkv": mcfg.layers * worker_steps,
-        "fused_choco_encode": n_buckets * exchanges if fused else 0,
-        "paged_attention": 0,
-        **{name: 0 if fused else n_buckets * exchanges for name in CODEC_KERNELS},
-        **dict.fromkeys(BN_KERNELS, 0),
-    }
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect[name] = mcfg.layers * worker_steps
+    for name in ("fused_choco_encode",) if fused else CODEC_KERNELS[codec]:
+        expect[name] = n_buckets * exchanges
+    if fused_ln:  # ln_1 and ln_2 of every block, and ln_f
+        for name in LN_KERNELS:
+            expect[name] = (2 * mcfg.layers + 1) * worker_steps
     if counts != expect:
         raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
     round_ms_mean = sum(r["round_ms"] for r in rounds) / counted
     if prof["device_kernel_ms"] is not None:
         # the profiler slows the host; against an unprofiled round's wall
         prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
-        if not fused:  # the codec kernels' device time in the round, read from the trace
-            prof["codec_kernels_ms"] = sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in CODEC_KERNELS)
-    flags = "--workers 4 --codec int8 --codec-warmup 1" if fused else "--workers 4 --codec-warmup 1"
+    # the codec and LN kernels' device time in the profiled round, read from the trace
+    kernel_ms = lambda names: sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in names)  # noqa: E731
+    extra = {}
+    if not fused:
+        extra["codec_kernels_ms"] = kernel_ms(CODEC_KERNELS[codec])
+    if fused_ln:
+        extra["ln_kernels_ms"] = kernel_ms(LN_KERNELS)
+    flags = "--workers 4 --codec-warmup 1" + (f" --codec {codec}" if codec else "") + (
+        f" --norm-impl {norm_impl}" if fused_ln else "")
     out = {
-        "phase": "train" if fused else "train_topk", "config": f"gpt2_topk full (GPT-2-medium), {flags}",
-        "codec_path": bundle.codec_path, "wire": "fused one-pass" if fused else "two-step",
+        "phase": TRAIN_PHASES[codec], "config": f"gpt2_topk full (GPT-2-medium), {flags}",
+        "codec_path": bundle.codec_path, "norm_path": bundle.norm_path,
+        "wire": "fused one-pass" if fused else "two-step",
         "workers": world, "h": cfg.h, "batch": ids.shape[2],
         "seq": ids.shape[3], "layers": mcfg.layers, "params_per_worker": n_params,
         "buckets": n_buckets, "wire_bytes_per_round": wire,
@@ -1009,7 +1239,7 @@ def train_phase(torch, dev, init, codec):
         "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
         "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
         "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
-        "profiled_round": prof,
+        **extra, "profiled_round": prof,
     }
     del state
     torch.cuda.empty_cache()
@@ -1306,6 +1536,7 @@ def main() -> int:
     from consensusml_tpu_torch.compress import kernels as tck
     from consensusml_tpu_torch.models import flash_attention as tfa
     from consensusml_tpu_torch.models import fused_bn as tbn
+    from consensusml_tpu_torch.models import fused_ln as tln
     from consensusml_tpu_torch.models import paged_attention as tpa
 
     dev = torch.device("cuda", 0)
@@ -1330,13 +1561,17 @@ def main() -> int:
     bwd, flash_b8 = check_flash_bwd(torch, tfa, dev)
     enc = check_encode(torch, tck, dev)
     codec = check_codec(torch, tck, dev, topk_bucket_totals(torch, dev))
+    int4 = check_int4(torch, tck, dev, topk_bucket_totals(torch, dev, "topk_int4"))
     bn = check_bn(torch, tbn, dev)
+    ln = check_ln(torch, tln, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
-          "fused_choco_encode": enc, "topk_codec": codec,
-          "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL})
+          "fused_choco_encode": enc, "topk_codec": codec, "int4_codec": int4,
+          "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL,
+          "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
+          "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL})
     torch.cuda.empty_cache()
     b = bwd[1024]
     rows = [
@@ -1380,6 +1615,16 @@ def main() -> int:
         worst = max(r[name]["max_abs_err"] for r in bn.values())
         rows.append((name, "consensusml_tpu_torch/csrc/fused_bn.cu", f"consensusml_tpu/models/fused_bn.py:{line}",
                      {**bn[(131072, 256)][name], "max_abs_err": worst, "by_shape": by_shape}))
+    # the int4 pair at the largest bucket's value rows, the median's beside
+    for name, line in (("quantize_int4", 205), ("dequantize_int4", 242)):
+        rows.append((name, "consensusml_tpu_torch/csrc/int4_codec.cu", f"consensusml_tpu/compress/kernels.py:{line}",
+                     {**int4["largest"][name], "by_shape": {k: v[name] for k, v in int4.items()}}))
+    # the LN pair at GPT-2-medium's (8192, 1024) bf16 view, the f32 shape beside
+    for name, line in (("ln_fwd", 150), ("ln_bwd", 181)):
+        by_shape = {f"({m}, {h}) {dt}": r[name] for (m, h, dt), r in ln.items()}
+        rows.append((name, "consensusml_tpu_torch/csrc/fused_ln.cu", f"consensusml_tpu/models/fused_ln.py:{line}",
+                     {**ln[(8192, 1024, "bfloat16")][name], "max_abs_err": max(r[name]["max_abs_err"] for r in ln.values()),
+                      "by_shape": by_shape}))
     if sorted(r[0] for r in rows) != sorted(kernels.KERNELS):
         raise AssertionError(f"the kernels line must list every kernel of {list(kernels.KERNELS)}")
     launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
@@ -1390,12 +1635,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     from consensusml_tpu_torch import configs
 
-    # the stacked numpy initial parameters, drawn once for both train phases
+    # the stacked numpy initial parameters, drawn once for the three GPT-2 train phases
     t0 = time.perf_counter()
     init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
     init_s = time.perf_counter() - t0
-    for path, codec_name in (("train", "int8"), ("train_topk", None)):
-        line, counts = train_phase(torch, dev, init, codec_name)
+    for path, codec_name, norm_impl in (("train", "int8", "flax"), ("train_topk", None, "flax"),
+                                        ("train_topk_int4_ln", "topk_int4", "pallas")):
+        line, counts = train_phase(torch, dev, init, codec_name, norm_impl)
         if path == "train":
             line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
         emit(line)

@@ -3,9 +3,9 @@
 This module carries the API the bucketed CHOCO wires read
 (``bucket_alignment``, ``fused_wire``, ``stochastic``, ``wire_bytes``,
 ``compress_tree``/``decompress_tree``, ``decompress_accumulate``), the
-int8 and top-k payloads, and :class:`ComposedCompressor` (an outer codec
-on a top-k payload's values). The int4 and fp8 payloads, and their
-codecs, are not ported yet.
+int8, int4 and top-k payloads, and :class:`ComposedCompressor` (an outer
+codec on a top-k payload's values). The fp8 payload, and its codec, are
+not ported yet.
 
 Stacked workers: the reference vmaps ``compress``/``decompress`` over the
 worker axis of the simulated backend. Here that axis is written out:
@@ -29,6 +29,7 @@ from consensusml_tpu_torch.utils import tree as T
 __all__ = [
     "Compressor",
     "Int8Payload",
+    "Int4Payload",
     "TopKPayload",
     "LocalTopKPayload",
     "ComposedCompressor",
@@ -61,6 +62,24 @@ class Int8Payload:
     """Per-chunk symmetric int8 quantization: int8 data + f32 chunk scales."""
 
     data: torch.Tensor  # (padded_n,) int8, or (W, padded_n) stacked
+    scales: torch.Tensor  # (num_chunks,) float32, or (W, num_chunks)
+    shape: tuple[int, ...]
+    dtype: Any
+    chunk: int
+
+    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.data, self.scales)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4Payload:
+    """Per-chunk symmetric int4 quantization, two values per byte: within
+    each ``chunk``-wide row, byte ``j`` holds element ``j`` in its low
+    nibble and element ``j + chunk // 2`` in its high nibble (half-split
+    pairing), two's complement in ``[-7, 7]``; one f32 scale a chunk. A
+    chunk costs ``chunk / 2 + 4`` wire bytes."""
+
+    data: torch.Tensor  # (padded_n // 2,) uint8, or (W, padded_n // 2) stacked
     scales: torch.Tensor  # (num_chunks,) float32, or (W, num_chunks)
     shape: tuple[int, ...]
     dtype: Any
@@ -112,8 +131,9 @@ class Compressor(abc.ABC):
         return None
 
     def fused_wire(self) -> str | None:
-        """Wire format tag of the fused one-pass encode (``"int8"``), or
-        ``None`` for codecs that keep the two-step path."""
+        """Wire format tag of the fused one-pass encode (``"int8"``,
+        ``"int4"``), or ``None`` for codecs that keep the two-step path
+        (only the int8 format of the fused encode is ported)."""
         return None
 
     @abc.abstractmethod

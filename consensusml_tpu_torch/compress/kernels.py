@@ -8,15 +8,19 @@ does not take (never falling back). Each launch adds one to the
 wrapper's ``launches``.
 
 - :func:`quantize_int8` / :func:`dequantize_int8`: ``csrc/int8_codec.cu``;
+- :func:`quantize_int4` / :func:`dequantize_int4`: ``csrc/int4_codec.cu``;
 - :func:`chunked_topk`: ``csrc/chunked_topk.cu``;
 - :func:`chunk_scatter`: ``csrc/chunk_scatter.cu``;
 - :func:`fused_pack_quantize` (the fused one-pass CHOCO encode of the
   bucketed wire, int8): ``csrc/fused_choco_encode.cu``.
 
-The codecs: :class:`PallasInt8Compressor` (names kept from the reference
-so a reader finds the counterpart), :class:`ChunkedTopKCompressor`, and
-the fused wire's :class:`FusedBucketCodec`. Still to port (ROADMAP Queue
-B): the int4/fp8 formats and the receive-side
+The codecs: :class:`PallasInt8Compressor` and :class:`PallasInt4Compressor`
+(names kept from the reference so a reader finds the counterpart),
+:class:`ChunkedTopKCompressor`, and the fused wire's
+:class:`FusedBucketCodec`. The reference's ``impl`` field of these codecs
+has no counterpart: every wrapper picks kernel or plain version by the
+tensor's device. Still to port (ROADMAP Queue B): fp8, the int4/fp8
+formats of the fused encode, and the receive-side
 ``fused_dequantize_accumulate`` kernel (:meth:`FusedBucketCodec.
 decode_accumulate` is plain ops here; the simulated backend mixes the
 decoded innovations with the mixing matrix and never calls it).
@@ -34,6 +38,7 @@ import torch
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.compress.base import (
     Compressor,
+    Int4Payload,
     Int8Payload,
     LocalTopKPayload,
     TopKPayload,
@@ -42,23 +47,29 @@ from consensusml_tpu_torch.compress.base import (
 from consensusml_tpu_torch.compress.reference import (
     chunk_rows,
     fma_f32,
-    int8_unchunk,
+    pack_int4,
     quantize_rows,
+    round_clip_int4,
     round_clip_int8,
     topk_by_magnitude,
+    unchunk,
+    unpack_int4,
 )
 
 __all__ = [
-    "CODEC_IMPLS",
     "PallasInt8Compressor",
+    "PallasInt4Compressor",
     "ChunkedTopKCompressor",
     "FusedBucketCodec",
     "fused_bucket_codec",
-    "resolve_codec_impl",
     "quantize_int8",
     "quantize_int8_plain",
     "dequantize_int8",
     "dequantize_int8_plain",
+    "quantize_int4",
+    "quantize_int4_plain",
+    "dequantize_int4",
+    "dequantize_int4_plain",
     "chunked_topk",
     "chunked_topk_plain",
     "chunk_scatter",
@@ -67,7 +78,6 @@ __all__ = [
     "fused_pack_quantize_plain",
 ]
 
-CODEC_IMPLS = ("torch", "cuda")
 _LANE = 128  # the reference's chunk granularity; the CUDA kernels' too (32 lanes x float4)
 _TOPK_MAX_CHUNK = 1024  # the top-k kernel holds a row in registers
 # the top-k kernel keeps at most two winners a lane; equals kMaxK in
@@ -77,17 +87,6 @@ _TOPK_MAX_K = 64
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
-
-
-def resolve_codec_impl(requested: str = "auto", device=None) -> str:
-    """``"auto"`` -> ``"cuda"`` (the kernels) on a CUDA device, ``"torch"``
-    (their plain versions) elsewhere; explicit values pass through."""
-    if requested == "auto":
-        dev = torch.device(device) if device is not None else torch.device("cpu")
-        return "cuda" if dev.type == "cuda" else "torch"
-    if requested not in CODEC_IMPLS:
-        raise ValueError(f"unknown codec impl {requested!r} (auto|{'|'.join(CODEC_IMPLS)})")
-    return requested
 
 
 def _check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device) -> None:
@@ -186,6 +185,74 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 dequantize_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int4 quantize / dequantize: kernels + plain versions
+# ---------------------------------------------------------------------------
+
+
+def quantize_int4_plain(chunks: torch.Tensor):
+    """``(R, C)`` f32 rows, C even -> ``(packed uint8 (R, C / 2), scales
+    (R,))``: ``scale = absmax * f32(1/7)``, codes ``clip(rint(x * inv),
+    ±7)`` (NaN to 0) packed two a byte, the reference's ``_quant4_kernel``
+    as XLA compiles it."""
+    scales, inv = quantize_rows(chunks, levels=7.0)
+    return pack_int4(round_clip_int4(chunks * inv[:, None])), scales
+
+
+def quantize_int4(chunks: torch.Tensor):
+    """Per-row symmetric int4 of ``(R, C)`` f32 rows, two codes a byte
+    (see :func:`quantize_int4_plain`). CPU tensors run the plain version;
+    CUDA tensors launch ``csrc/int4_codec.cu`` (contiguous f32, C a
+    multiple of 128) or raise."""
+    if chunks.dim() != 2 or chunks.shape[1] % 2:
+        raise ValueError(f"chunks must be (R, C) with C even, got {tuple(chunks.shape)}")
+    if not chunks.is_cuda:
+        return quantize_int4_plain(chunks)
+    rows, chunk = chunks.shape
+    _check_chunk("int4 quantize", chunk)
+    _check_operand("chunks", chunks, torch.float32, chunks.device)
+    packed = torch.empty((rows, chunk // 2), dtype=torch.uint8, device=chunks.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=chunks.device)
+    if rows:
+        fn = _bind("int4_codec", "cml_quantize_int4", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(chunks.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows, chunk, _stream(chunks))
+        _launched(quantize_int4, "quantize_int4", rc)
+    return packed, scales
+
+
+quantize_int4.launches = 0
+
+
+def dequantize_int4_plain(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Sign-extended nibbles times their row's scale, one rounding:
+    ``_dequant4_kernel``."""
+    return unpack_int4(packed).to(torch.float32) * scales[:, None]
+
+
+def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_int4`: ``(R, C / 2)`` uint8 and ``(R,)``
+    f32 scales -> ``(R, C)`` f32. CPU tensors run
+    :func:`dequantize_int4_plain`; CUDA tensors launch
+    ``csrc/int4_codec.cu`` or raise."""
+    if packed.dim() != 2 or scales.shape != packed.shape[:1]:
+        raise ValueError(f"packed must be (R, C/2) and scales (R,), got {tuple(packed.shape)} {tuple(scales.shape)}")
+    if not packed.is_cuda:
+        return dequantize_int4_plain(packed, scales)
+    rows, half = packed.shape
+    _check_chunk("int4 dequantize", 2 * half)
+    _check_operand("packed", packed, torch.uint8, packed.device)
+    _check_operand("scales", scales, torch.float32, packed.device)
+    out = torch.empty((rows, 2 * half), dtype=torch.float32, device=packed.device)
+    if rows:
+        fn = _bind("int4_codec", "cml_dequantize_int4", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(packed.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, 2 * half, _stream(packed))
+        _launched(dequantize_int4, "dequantize_int4", rc)
+    return out
+
+
+dequantize_int4.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -342,15 +409,14 @@ class PallasInt8Compressor(Compressor):
     :class:`~.reference.Int8Compressor`'s, except that the chunk is clamped
     to the tensor rounded up to 128, as the reference's kernel path does
     (its off-TPU ``impl="auto"`` takes the jnp path, which clamps to the
-    tensor itself)."""
+    tensor itself). The reference's ``impl`` field has no counterpart:
+    the wrappers pick kernel or plain version by the tensor's device."""
 
     chunk: int = 512
-    impl: str = "auto"
 
     def __post_init__(self):
         if self.chunk % _LANE:
             raise ValueError(f"chunk must be a multiple of {_LANE}, got {self.chunk}")
-        resolve_codec_impl(self.impl)
 
     def bucket_alignment(self) -> int | None:
         return self.chunk
@@ -367,7 +433,41 @@ class PallasInt8Compressor(Compressor):
 
     def decompress(self, payload: Int8Payload) -> torch.Tensor:
         q = payload.data.reshape(-1, payload.chunk)
-        return int8_unchunk(dequantize_int8(q, payload.scales.reshape(-1)), payload)
+        return unchunk(dequantize_int8(q, payload.scales.reshape(-1)), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class PallasInt4Compressor(Compressor):
+    """Per-chunk symmetric int4 codec on :func:`quantize_int4` /
+    :func:`dequantize_int4` (:class:`Int4Payload`). Its payloads equal
+    :class:`~.reference.Int4Compressor`'s, except that the chunk is clamped
+    to the tensor rounded up to 128, as the reference's kernel path does.
+    Its fused-wire tag is ``"int4"``, whose fused encode is not ported, so
+    an engine refuses it bare; inside the top-k codec (which has no fused
+    wire) it rides the two-step wire."""
+
+    chunk: int = 512
+
+    def __post_init__(self):
+        if self.chunk % _LANE:
+            raise ValueError(f"chunk must be a multiple of {_LANE}, got {self.chunk}")
+
+    def bucket_alignment(self) -> int | None:
+        return self.chunk  # a multiple of 128, so always even
+
+    def fused_wire(self) -> str | None:
+        return "int4"
+
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Int4Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, _round_up(flat.shape[1], _LANE))
+        packed, scales = quantize_int4(chunk_rows(flat, chunk).contiguous())
+        return Int4Payload(data=packed.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
+
+    def decompress(self, payload: Int4Payload) -> torch.Tensor:
+        packed = payload.data.reshape(-1, payload.chunk // 2)
+        return unchunk(dequantize_int4(packed, payload.scales.reshape(-1)), payload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -561,19 +661,14 @@ class FusedBucketCodec:
 
 def fused_bucket_codec(comp: Compressor) -> FusedBucketCodec | None:
     """The fused wire for ``comp``, or ``None`` when it cannot ride it (no
-    ``fused_wire()`` tag, a stochastic codec, or a chunk the kernel cannot
-    tile when the codec's impl is ``"cuda"``; ``"auto"`` resolves by
-    ``torch.cuda.is_available()``, and codecs without an impl are
-    ``"torch"``)."""
+    ``fused_wire()`` tag, a stochastic codec, or no chunk alignment).
+    Raises ``NotImplementedError`` for a format whose fused encode is not
+    ported (int4, fp8). On a CUDA tensor the encode's wrapper refuses a
+    chunk that is not a multiple of 128."""
     fmt = comp.fused_wire()
     if fmt is None or comp.stochastic:
         return None
     align = comp.bucket_alignment()
     if align is None or align < 2:
-        return None
-    impl = getattr(comp, "impl", "torch")
-    if impl == "auto":
-        impl = "cuda" if torch.cuda.is_available() else "torch"
-    if impl != "torch" and align % _LANE:
         return None
     return FusedBucketCodec(fmt=fmt, chunk=align)

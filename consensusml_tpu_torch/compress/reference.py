@@ -1,11 +1,14 @@
 """Reference codec semantics in plain PyTorch (port of
-``consensusml_tpu/compress/reference.py``: the int8 and top-k codecs).
+``consensusml_tpu/compress/reference.py``: the int8, int4 and top-k
+codecs).
 
 These define the numbers every kernel must reproduce bit for bit:
-flatten, zero-pad to whole chunks, ``scale = absmax * f32(1/127)`` per
-chunk (see :func:`quantize_rows`),
+flatten, zero-pad to whole chunks, ``scale = absmax * f32(1/levels)`` per
+chunk (levels 127 for int8, 7 for int4; see :func:`quantize_rows`),
 ``inv = 1 / scale`` (0 for a zero chunk), ``q = clip(rint(x * inv),
-±127)`` with round-half-to-even, decode ``q * scale``. Top-k picks the k
+±levels)`` with round-half-to-even and NaN to 0, decode ``q * scale``.
+Int4 packs two codes a byte, element ``j`` of a chunk in the low nibble
+and element ``j + chunk / 2`` in the high one. Top-k picks the k
 largest magnitudes, equal magnitudes going to the lower index (the
 ``jax.lax.top_k`` order; ``torch.topk`` promises no order among ties, so
 selection here is a stable descending sort, :func:`topk_by_magnitude`).
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from consensusml_tpu_torch.compress.base import (
     ComposedCompressor,
     Compressor,
+    Int4Payload,
     Int8Payload,
     TopKPayload,
     static_k,
@@ -31,12 +35,17 @@ from consensusml_tpu_torch.compress.base import (
 
 __all__ = [
     "Int8Compressor",
+    "Int4Compressor",
     "TopKCompressor",
     "topk_int8_compressor",
+    "topk_int4_compressor",
     "quantize_rows",
     "round_clip_int8",
+    "round_clip_int4",
+    "pack_int4",
+    "unpack_int4",
     "chunk_rows",
-    "int8_unchunk",
+    "unchunk",
     "topk_by_magnitude",
     "fma_f32",
 ]
@@ -74,11 +83,37 @@ def quantize_rows(chunks: torch.Tensor, levels: float = 127.0):
     return scales, inv
 
 
+def _round_clip(y: torch.Tensor, levels: float) -> torch.Tensor:
+    # NaN (only from a non-finite input) maps to 0, as XLA converts it,
+    # rather than to an undefined conversion
+    r = torch.clamp(torch.round(y), -levels, levels)
+    return torch.where(torch.isnan(r), torch.zeros_like(r), r)
+
+
 def round_clip_int8(y: torch.Tensor) -> torch.Tensor:
-    """``clip(rint(y), ±127)`` as int8; NaN (only from a non-finite input)
-    maps to 0 rather than to an undefined conversion."""
-    r = torch.clamp(torch.round(y), -127.0, 127.0)
-    return torch.where(torch.isnan(r), torch.zeros_like(r), r).to(torch.int8)
+    """``clip(rint(y), ±127)`` as int8, half to even, NaN to 0."""
+    return _round_clip(y, 127.0).to(torch.int8)
+
+
+def round_clip_int4(y: torch.Tensor) -> torch.Tensor:
+    """``clip(rint(y), ±7)`` as int32 codes, half to even, NaN to 0."""
+    return _round_clip(y, 7.0).to(torch.int32)
+
+
+def pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int32 codes ``(R, C)`` in ``[-7, 7]``, C even -> uint8 ``(R, C / 2)``:
+    byte ``j`` = low nibble of ``q[:, j]`` | high nibble of ``q[:, j + C / 2]``
+    (two's complement, so -7 is nibble 0x9)."""
+    half = q.shape[1] // 2
+    return ((q[:, :half] & 0xF) | ((q[:, half:] & 0xF) << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: uint8 ``(R, H)`` -> int32 codes ``(R,
+    2H)``, each nibble sign-extended (``nib > 7 -> nib - 16``)."""
+    b = packed.to(torch.int32)
+    lo, hi = b & 0xF, b >> 4
+    return torch.cat([torch.where(lo > 7, lo - 16, lo), torch.where(hi > 7, hi - 16, hi)], dim=1)
 
 
 def chunk_rows(flat: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -97,9 +132,9 @@ def topk_by_magnitude(rows: torch.Tensor, k: int) -> torch.Tensor:
     return order[:, :k].to(torch.int32)
 
 
-def int8_unchunk(dense: torch.Tensor, payload) -> torch.Tensor:
-    """Decoded ``(rows, chunk)`` back to the payload's (stacked) shape:
-    per worker, drop the padding."""
+def unchunk(dense: torch.Tensor, payload) -> torch.Tensor:
+    """Decoded ``(rows, chunk)`` of an int8 or int4 payload back to the
+    payload's (stacked) shape: per worker, drop the padding."""
     lead = tuple(payload.data.shape[:-1])
     n = math.prod(payload.shape)
     flat = dense.reshape((lead[0] if lead else 1), -1)[:, :n]
@@ -130,7 +165,37 @@ class Int8Compressor(Compressor):
 
     def decompress(self, payload: Int8Payload) -> torch.Tensor:
         chunks = payload.data.reshape(-1, payload.chunk).to(torch.float32)
-        return int8_unchunk(chunks * payload.scales.reshape(-1, 1), payload)
+        return unchunk(chunks * payload.scales.reshape(-1, 1), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class Int4Compressor(Compressor):
+    """Symmetric per-chunk int4 quantization, two codes a byte
+    (:class:`Int4Payload`; the semantics oracle). The chunk is clamped to
+    the tensor and then made even (one more element of padding for an odd
+    one), so nibbles always pair up."""
+
+    chunk: int = 256
+
+    def bucket_alignment(self) -> int | None:
+        return self.chunk + self.chunk % 2  # the even effective width
+
+    def fused_wire(self) -> str | None:
+        return "int4"
+
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Int4Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, flat.shape[1])
+        chunk += chunk % 2
+        chunks = chunk_rows(flat, chunk)
+        scales, inv = quantize_rows(chunks, levels=7.0)
+        data = pack_int4(round_clip_int4(chunks * inv[:, None]))
+        return Int4Payload(data=data.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
+
+    def decompress(self, payload: Int4Payload) -> torch.Tensor:
+        q = unpack_int4(payload.data.reshape(-1, payload.chunk // 2))
+        return unchunk(q.to(torch.float32) * payload.scales.reshape(-1, 1), payload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,4 +257,26 @@ def topk_int8_compressor(ratio: float = 0.01, chunk: int = 256, k: int | None = 
     return ComposedCompressor(
         inner=ChunkedTopKCompressor(chunk=chunk, k_per_chunk=k_per_chunk),
         outer=PallasInt8Compressor(chunk=max(chunk, 128)),
+    )
+
+
+def topk_int4_compressor(ratio: float = 0.01, chunk: int = 256, k: int | None = None,
+                         impl: str = "reference") -> ComposedCompressor:
+    """Top-k sparsify, then int4-quantize the k values: half the value
+    bytes of :func:`topk_int8_compressor`, for slow links.
+
+    ``impl="reference"``: global top-k + :class:`Int4Compressor`.
+    ``impl="auto"``: per-chunk top-k then :class:`PallasInt4Compressor` at
+    ``max(chunk, 128)``, the reference's kernel path (kernels for CUDA
+    tensors, their plain versions for CPU ones)."""
+    if impl == "reference":
+        return ComposedCompressor(inner=TopKCompressor(ratio=ratio, k=k), outer=Int4Compressor(chunk=chunk))
+    if impl != "auto":
+        raise ValueError(f"unknown topk_int4 impl {impl!r} (reference|auto)")
+    from consensusml_tpu_torch.compress.kernels import ChunkedTopKCompressor, PallasInt4Compressor
+
+    k_per_chunk = k if k is not None else max(1, round(ratio * chunk))
+    return ComposedCompressor(
+        inner=ChunkedTopKCompressor(chunk=chunk, k_per_chunk=k_per_chunk),
+        outer=PallasInt4Compressor(chunk=max(chunk, 128)),
     )

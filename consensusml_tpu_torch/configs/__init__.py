@@ -35,9 +35,18 @@ Codecs (``codec=None`` is the config's own, as ``train.py`` without
   full, ``topk_int8_compressor(ratio=0.1, chunk=128)`` (13 of 128) smoke;
   chunked top-k then int8 on the values, on the two-step bucketed wire
   (four kernels an exchange: top-k, quantize, dequantize, scatter);
+- ``"topk_int4"``, the reference's ``train.py --codec topk_int4``: the
+  same chunk and k with int4 values (``topk_int4_compressor``, the int4
+  stage ``PallasInt4Compressor``), on the two-step wire (top-k, int4
+  quantize, int4 dequantize, scatter);
 - ``"int8"``, the reference's ``train.py --codec int8`` variant:
   ``PallasInt8Compressor`` at the config's chunk, which rides the fused
   one-pass bucketed wire.
+
+``norm_impl`` is GPT-2's own field (``GPT2Config.norm_impl``): ``"flax"``
+(the default) or ``"pallas"``, every LayerNorm through the fused-LN CUDA
+kernels (their plain versions on the CPU); ``"jnp"``, the fused LN's plain
+versions on any device.
 """
 
 from __future__ import annotations
@@ -56,15 +65,15 @@ __all__ = [
 ]
 
 CONFIGS = ("gpt2_topk", "cifar_resnet50")
-CODECS = ("topk_int8", "int8")
+CODECS = ("topk_int8", "topk_int4", "int8")
 
 
-def gpt2_config(scale: str = "smoke", dtype: torch.dtype = torch.bfloat16) -> GPT2Config:
+def gpt2_config(scale: str = "smoke", dtype: torch.dtype = torch.bfloat16, norm_impl: str = "flax") -> GPT2Config:
     if scale == "full":
-        return GPT2Config(dtype=dtype)
+        return GPT2Config(dtype=dtype, norm_impl=norm_impl)
     if scale == "smoke":
         return GPT2Config(vocab_size=64, hidden=32, layers=2, heads=2, max_len=32, dropout=0.0,
-                          dtype=dtype)
+                          dtype=dtype, norm_impl=norm_impl)
     raise ValueError(f"unknown scale {scale!r} (smoke|full)")
 
 
@@ -146,10 +155,10 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
           codec_warmup: int | None = None, norm_impl: str = "flax", device=None) -> RunBundle:
     """The run recipe of config ``name`` at ``scale`` with the reference's
     overrides (``world`` = ``--workers``, ``codec``, ``gamma``,
-    ``codec_warmup`` = ``--codec-warmup``; ``norm_impl``, the ResNet's
-    field). ``device`` (``None`` = CUDA; raises without a GPU) resolves the
-    kernel paths: the CUDA kernels on a CUDA device, their plain versions
-    on the CPU."""
+    ``codec_warmup`` = ``--codec-warmup``; ``norm_impl``, the model's
+    field: BN for the ResNet, LayerNorm for GPT-2). ``device`` (``None`` =
+    CUDA; raises without a GPU) resolves the kernel paths: the CUDA
+    kernels on a CUDA device, their plain versions on the CPU."""
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
     if scale not in ("smoke", "full"):
@@ -159,9 +168,7 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
         if (codec, gamma, codec_warmup) != (None, None, None):
             raise NotImplementedError("cifar_resnet50 gossips exactly; its compressed variants are not ported yet")
         return _cifar_resnet50(scale, world, norm_impl, dev)
-    if norm_impl != "flax":
-        raise NotImplementedError(f"gpt2_topk's norm_impl={norm_impl!r} (the fused LayerNorm) is not ported yet")
-    return _gpt2_topk(scale, world, codec, gamma, codec_warmup, dev)
+    return _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev)
 
 
 def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
@@ -207,8 +214,8 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
 
 
 def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | None,
-               codec_warmup: int | None, dev: torch.device) -> RunBundle:
-    from consensusml_tpu_torch.compress import PallasInt8Compressor, resolve_codec_impl, topk_int8_compressor
+               codec_warmup: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
+    from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int4_compressor, topk_int8_compressor
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
@@ -221,18 +228,18 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
     if codec not in CODECS:
         raise NotImplementedError(f"codec {codec!r} is not ported yet (one of {CODECS})")
     full = scale == "full"
-    mcfg = gpt2_config(scale)
+    mcfg = gpt2_config(scale, norm_impl=norm_impl)  # GPT2Config refuses an unknown norm_impl
     world = world or (8 if full else 4)
     batch, seq = (8, 1024) if full else (8, 16)
     chunk = 512 if full else 128
-    impl = resolve_codec_impl("auto", dev)
-    if codec == "topk_int8":
-        # train.py --codec topk_int8 reads the config's chunk and k: the same codec
-        comp = (topk_int8_compressor(chunk=512, k=8, impl="auto") if full
-                else topk_int8_compressor(ratio=0.1, chunk=128, impl="auto"))
-        codec_name = f"topk_int8/{chunk} k={comp.inner.k_per_chunk}"
+    if codec in ("topk_int8", "topk_int4"):
+        # train.py --codec topk_int8|topk_int4 reads the config's chunk and
+        # k (ratio 0.1 at smoke scale) and changes only the value quantizer
+        make = topk_int8_compressor if codec == "topk_int8" else topk_int4_compressor
+        comp = make(chunk=512, k=8, impl="auto") if full else make(ratio=0.1, chunk=128, impl="auto")
+        codec_name = f"{codec}/{chunk} k={comp.inner.k_per_chunk}"
     else:
-        comp, codec_name = PallasInt8Compressor(chunk=chunk, impl=impl), f"int8/{chunk}"
+        comp, codec_name = PallasInt8Compressor(chunk=chunk), f"int8/{chunk}"
     gossip = GossipConfig(
         topology=topology_from_name("ring", world),
         compressor=comp,
@@ -243,7 +250,14 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
     cfg = LocalSGDConfig(gossip=gossip, optimizer=adam(1e-4 if full else 3e-3), h=2)
     data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
     model = GPT2LM(mcfg, device="meta")
-    path = "hand-written CUDA kernels" if impl == "cuda" else "plain PyTorch versions (no card)"
+    on_card = dev.type == "cuda"
+    path = "hand-written CUDA kernels" if on_card else "plain PyTorch versions (no card)"
+    if norm_impl == "flax":
+        norm_path = "flax LayerNorm"
+    else:
+        kernels_run = on_card and norm_impl == "pallas"
+        norm_path = "fused LN, " + ("hand-written CUDA kernels" if kernels_run else "plain PyTorch versions")
+    norm_path += f" (norm_impl={norm_impl!r})"
     return RunBundle(
         name="gpt2_topk",
         world_size=world,
@@ -256,5 +270,6 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         init_params=lambda seed: gpt2_init_params(mcfg, seed, world),
         convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",
+        norm_path=norm_path,
         description=f"GPT-2 pretrain with {codec} compressed gossip (CHOCO)",
     )

@@ -1,13 +1,15 @@
-// Per-row symmetric int8 quantization math shared by the int8 codec
-// (int8_codec.cu) and the fused CHOCO encode (fused_choco_encode.cu).
+// Per-row symmetric quantization math shared by the int8 codec
+// (int8_codec.cu), the fused CHOCO encode (fused_choco_encode.cu) and the
+// int4 codec (int4_codec.cu).
 //
 // The reference is the program XLA compiles from
-// consensusml_tpu/compress/kernels.py (_quant_kernel, _fused_quant), not
-// the expressions it was written as:
-//   scale = absmax * f32(1/127)   XLA turns absmax / 127.0 into a product
-//                                 with the constant's f32 reciprocal
+// consensusml_tpu/compress/kernels.py (_quant_kernel, _fused_quant,
+// _quant4_kernel), not the expressions it was written as:
+//   scale = absmax * f32(1/L)     L = 127 (int8) or 7 (int4): XLA turns
+//                                 absmax / L into a product with the
+//                                 constant's f32 reciprocal
 //   inv   = scale > 0 ? 1 / scale : 0    a true quotient (__fdiv_rn)
-//   q     = clip(rint(y * inv), -127, 127)   rintf rounds half to even
+//   q     = clip(rint(y * inv), -L, L)   rintf rounds half to even
 // with the row max propagating NaN, as jnp.max does (fmaxf would drop it).
 // Every rounding is spelled out with an _rn intrinsic so nvcc contracts
 // nothing.
@@ -20,6 +22,7 @@ namespace cml {
 
 constexpr int kWarp = 32;
 constexpr int kRecip127Bits = 0x3c010204;  // f32(1/127), the constant XLA multiplies by
+constexpr int kRecip7Bits = 0x3e124925;    // f32(1/7)
 
 __device__ __forceinline__ float max_nan(float m, float a) { return (a > m || a != a) ? a : m; }
 
@@ -33,6 +36,11 @@ __device__ __forceinline__ float int8_scale(float absmax) {
   return __fmul_rn(absmax, __int_as_float(kRecip127Bits));
 }
 
+__device__ __forceinline__ float int4_scale(float absmax) {
+  return __fmul_rn(absmax, __int_as_float(kRecip7Bits));
+}
+
+// 1 / scale, 0 for a zero (or NaN) scale: the inverse of both codecs
 __device__ __forceinline__ float int8_inv(float scale) { return scale > 0.f ? __fdiv_rn(1.f, scale) : 0.f; }
 
 // clip(rint(y), -127, 127) as an int; NaN (only from a non-finite input)
@@ -41,6 +49,12 @@ __device__ __forceinline__ float int8_inv(float scale) { return scale > 0.f ? __
 __device__ __forceinline__ int round_clip_int8(float y) {
   const float r = rintf(y);
   return (r != r) ? 0 : static_cast<int>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// clip(rint(y), -7, 7) as an int, NaN to 0
+__device__ __forceinline__ int round_clip_int4(float y) {
+  const float r = rintf(y);
+  return (r != r) ? 0 : static_cast<int>(fminf(fmaxf(r, -7.f), 7.f));
 }
 
 }  // namespace cml

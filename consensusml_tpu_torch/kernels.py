@@ -48,7 +48,8 @@ NVCC_FLAGS = (
 
 # kernel name -> (module, wrapper attribute, source): the source is
 # csrc/<source>.cu; one source may hold several kernels (the flash
-# backward's dq and dk/dv, the four fused-BN passes)
+# backward's dq and dk/dv, the four fused-BN passes, the int8 and int4
+# codecs' two directions, the LayerNorm's forward and backward)
 KERNELS = {
     "paged_attention": (
         "consensusml_tpu_torch.models.paged_attention", "paged_attention", "paged_attention"
@@ -69,12 +70,16 @@ KERNELS = {
     ),
     "quantize_int8": ("consensusml_tpu_torch.compress.kernels", "quantize_int8", "int8_codec"),
     "dequantize_int8": ("consensusml_tpu_torch.compress.kernels", "dequantize_int8", "int8_codec"),
+    "quantize_int4": ("consensusml_tpu_torch.compress.kernels", "quantize_int4", "int4_codec"),
+    "dequantize_int4": ("consensusml_tpu_torch.compress.kernels", "dequantize_int4", "int4_codec"),
     "chunked_topk": ("consensusml_tpu_torch.compress.kernels", "chunked_topk", "chunked_topk"),
     "chunk_scatter": ("consensusml_tpu_torch.compress.kernels", "chunk_scatter", "chunk_scatter"),
     "bn_stats": ("consensusml_tpu_torch.models.fused_bn", "bn_stats", "fused_bn"),
     "bn_norm": ("consensusml_tpu_torch.models.fused_bn", "bn_norm", "fused_bn"),
     "bn_bwd_reduce": ("consensusml_tpu_torch.models.fused_bn", "bn_bwd_reduce", "fused_bn"),
     "bn_bwd_dx": ("consensusml_tpu_torch.models.fused_bn", "bn_bwd_dx", "fused_bn"),
+    "ln_fwd": ("consensusml_tpu_torch.models.fused_ln", "ln_fwd", "fused_ln"),
+    "ln_bwd": ("consensusml_tpu_torch.models.fused_ln", "ln_bwd", "fused_ln"),
 }
 SOURCES = tuple(dict.fromkeys(src for _m, _a, src in KERNELS.values()))
 

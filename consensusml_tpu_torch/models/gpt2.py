@@ -17,8 +17,14 @@ reference's.
 - Dense kernels are stored ``(in, out)``: ``qkv`` as ``(hidden, heads,
   3 * d_head)`` (each head's q | k | v together), ``out`` as ``(heads,
   d_head, hidden)``; they are applied as reshaped views, no transposes;
-- LayerNorm is flax's: epsilon 1e-6, f32 math on the promoted input,
-  fast variance ``E[x^2] - E[x]^2`` clipped at 0, f32 output;
+- LayerNorm is flax's by default (``norm_impl="flax"``): epsilon 1e-6,
+  f32 math on the promoted input, fast variance ``E[x^2] - E[x]^2``
+  clipped at 0, f32 output; ``norm_impl="pallas"`` swaps every LayerNorm
+  for :class:`.fused_ln.FusedLayerNorm` (two-pass variance from the
+  resident row, output in the compute dtype), the CUDA kernels on the
+  card and their plain versions on the CPU, as the reference's field of
+  that name does (``"jnp"``: the plain versions on any device, the
+  reference's jnp path);
 - Dense layers cast their input to the compute dtype, multiply, then add
   the bias as a separate op (flax's two bf16 roundings);
 - dropout at the reference's three sites (after the embedding sum, after
@@ -49,18 +55,22 @@ from consensusml_tpu_torch.models.attention import (
     dot_product_attention,
     paged_update_kv_cache,
 )
+from consensusml_tpu_torch.models.fused_ln import FusedLayerNorm
 from consensusml_tpu_torch.models.paged_attention import (
     fused_paged_attention,
     resolve_attention_impl,
 )
 
-__all__ = ["GPT2Config", "GPT2LM", "gpt2_loss_fn"]
+__all__ = ["NORM_IMPLS", "GPT2Config", "GPT2LM", "gpt2_loss_fn"]
+
+NORM_IMPLS = ("flax", "pallas", "jnp")
 
 
 @dataclasses.dataclass(frozen=True)
 class GPT2Config:
     """GPT-2-medium by default (24 layers, hidden 1024, 16 heads), dropout
-    0.1 as in the reference."""
+    0.1 as in the reference. ``norm_impl`` (one of :data:`NORM_IMPLS`)
+    picks the LayerNorm: flax's, or the fused kernels."""
 
     vocab_size: int = 50257
     hidden: int = 1024
@@ -69,6 +79,11 @@ class GPT2Config:
     max_len: int = 1024
     dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
+    norm_impl: str = "flax"
+
+    def __post_init__(self):
+        if self.norm_impl not in NORM_IMPLS:
+            raise ValueError(f"unknown norm_impl {self.norm_impl!r} (one of {NORM_IMPLS})")
 
     @property
     def mlp_dim(self) -> int:
@@ -105,6 +120,15 @@ class LayerNorm(nn.Module):
         var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return (x - mean) * mul + self.bias
+
+
+def _layer_norm(config: GPT2Config, device) -> nn.Module:
+    """``ln_1``/``ln_2``/``ln_f``: flax's LayerNorm (f32 out) or the fused
+    one, whose output is the compute dtype (it feeds a matmul in that
+    dtype: the same numbers as f32 out then cast)."""
+    if config.norm_impl == "flax":
+        return LayerNorm(config.hidden, device)
+    return FusedLayerNorm(config.hidden, out_dtype=config.dtype, impl=config.norm_impl, device=device)
 
 
 class Dense(nn.Module):
@@ -149,10 +173,10 @@ class DecoderBlock(nn.Module):
         super().__init__()
         c = self.config = config
         dh = c.head_dim
-        self.ln_1 = LayerNorm(c.hidden, device)
+        self.ln_1 = _layer_norm(c, device)
         self.qkv = Dense((c.hidden,), (c.heads, 3 * dh), c.dtype, device)
         self.out = Dense((c.heads, dh), (c.hidden,), c.dtype, device)
-        self.ln_2 = LayerNorm(c.hidden, device)
+        self.ln_2 = _layer_norm(c, device)
         self.mlp_in = Dense((c.hidden,), (c.mlp_dim,), c.dtype, device)
         self.mlp_out = Dense((c.mlp_dim,), (c.hidden,), c.dtype, device)
 
@@ -201,7 +225,7 @@ class GPT2LM(nn.Module):
         self.wpe = Embed(c.max_len, c.hidden, c.dtype, device)
         for i in range(c.layers):
             self.add_module(f"h_{i}", DecoderBlock(c, device))
-        self.ln_f = LayerNorm(c.hidden, device)
+        self.ln_f = _layer_norm(c, device)
 
     @property
     def blocks(self) -> list[DecoderBlock]:

@@ -1,16 +1,19 @@
 """``python -m consensusml_tpu_torch.train``: consensus-SGD training of the
 port, mirroring ``train.py``'s flags for the slices that are ported, on
-the simulated backend: ``gpt2_topk`` (on its own codec or ``--codec
-int8``) and ``cifar_resnet50`` (exact gossip; ``--norm-impl pallas`` runs
-every BN through the fused-BN CUDA kernels)::
+the simulated backend: ``gpt2_topk`` (on its own codec, ``--codec
+topk_int4`` or ``--codec int8``; ``--norm-impl pallas`` runs every
+LayerNorm through the fused-LN CUDA kernels) and ``cifar_resnet50``
+(exact gossip; ``--norm-impl pallas`` runs every BN through the fused-BN
+CUDA kernels)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec int8
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec topk_int4 --norm-impl pallas
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).
-Prints the resolved codec path (and for the ResNet the BN path), then
+Prints the resolved codec path and the norm path, then
 one line per logged round: loss, consensus error, the round's wall time
 and, for image batches, images per second.
 """
@@ -28,15 +31,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
-    p.add_argument("--codec", default=None, choices=["topk_int8", "int8"],
+    p.add_argument("--codec", default=None, choices=["topk_int8", "topk_int4", "int8"],
                    help="default: the config's own (topk_int8: chunked top-k + int8 on the two-step "
-                        "bucketed wire); int8: PallasInt8Compressor on the fused one-pass wire")
+                        "bucketed wire); topk_int4: the same top-k with int4 values; int8: "
+                        "PallasInt8Compressor on the fused one-pass wire")
     p.add_argument("--codec-warmup", type=int, default=None,
                    help="exact warm-up rounds (default: the config's)")
     p.add_argument("--gamma", type=float, default=None, help="CHOCO consensus step (default: the config's)")
     p.add_argument("--norm-impl", default="flax", choices=["flax", "pallas"],
-                   help="cifar_resnet50's BN: flax = PyTorch's batch norm (the config's default); "
-                        "pallas = the fused-BN CUDA kernels")
+                   help="the model's norm layers: flax = flax's LayerNorm (gpt2_topk) or PyTorch's batch "
+                        "norm (cifar_resnet50), the configs' default; pallas = the fused-LN or fused-BN "
+                        "CUDA kernels")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -65,7 +70,7 @@ def main(argv=None) -> int:
     else:
         print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
     if bundle.norm_path:
-        print(f"BN: {bundle.norm_path}", flush=True)
+        print(f"{'BN' if args.config == 'cifar_resnet50' else 'LN'}: {bundle.norm_path}", flush=True)
     params, model_state = bundle.convert(bundle.init_params(args.seed))
     params = {n: t.to(dev) for n, t in params.items()}
     model_state = T.tree_map(lambda t: t.to(dev), model_state)

@@ -12,9 +12,11 @@ package's.
   in the same order in both, and the port computes the reference's fused
   multiply-adds with one rounding (``compress/reference.py:fma_f32``).
 - The two-step wire: the config's own codec (chunked top-k + int8, JAX
-  ``impl="interpret"``, the TPU kernel path), and the int8 codec with
-  ``fused_wire=False``: the bucket layout (25 buckets at GPT-2-medium)
-  and the same warm and CHOCO rounds, bit for bit.
+  ``impl="interpret"``, the TPU kernel path), the same top-k with int4
+  values (``--codec topk_int4``), and the int8 codec with
+  ``fused_wire=False``: the bucket layout (25 buckets at GPT-2-medium for
+  top-k + int8, 14 for top-k + int4) and the same warm and CHOCO rounds,
+  bit for bit.
 """
 
 import jax
@@ -25,6 +27,7 @@ import torch
 
 from consensusml_tpu.comm import simulated as jsim
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
+from consensusml_tpu.compress.reference import topk_int4_compressor as jax_topk_int4
 from consensusml_tpu.compress.reference import topk_int8_compressor as jax_topk_int8
 from consensusml_tpu.consensus import ConsensusEngine as JaxEngine
 from consensusml_tpu.consensus import GossipConfig as JaxGossip
@@ -32,7 +35,7 @@ from consensusml_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
 from consensusml_tpu.models.gpt2 import GPT2LM as JaxGPT2LM
 from consensusml_tpu.topology import RingTopology as JaxRing
 from consensusml_tpu_torch.comm import simulated
-from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int8_compressor
+from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int4_compressor, topk_int8_compressor
 from consensusml_tpu_torch.configs import gpt2_config
 from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.models.convert import gpt2_from_flax
@@ -49,13 +52,15 @@ def _flax_shapes(geom):
 
 
 def _codecs(codec, chunk):
-    """(JAX codec, port codec): ``"int8"`` or the config's ``"topk_int8"``
-    (k 8 at chunk 512, 13 at 128, as ``gpt2_topk`` full and smoke)."""
+    """(JAX codec, port codec): ``"int8"``, the config's ``"topk_int8"``
+    or ``"topk_int4"`` (k 8 at chunk 512, 13 at 128, as ``gpt2_topk`` full
+    and smoke)."""
     if codec == "int8":
         return JaxInt8(chunk=chunk, impl="interpret"), PallasInt8Compressor(chunk=chunk)
     k = 8 if chunk == 512 else 13
-    return (jax_topk_int8(chunk=chunk, k=k, impl="interpret"),
-            topk_int8_compressor(chunk=chunk, k=k, impl="auto"))
+    jax_make, make = {"topk_int8": (jax_topk_int8, topk_int8_compressor),
+                      "topk_int4": (jax_topk_int4, topk_int4_compressor)}[codec]
+    return jax_make(chunk=chunk, k=k, impl="interpret"), make(chunk=chunk, k=k, impl="auto")
 
 
 def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1, codec="int8", fused_wire="auto"):
@@ -78,7 +83,7 @@ def _layout(plan):
     ]
 
 
-@pytest.mark.parametrize("codec", ["int8", "topk_int8"])
+@pytest.mark.parametrize("codec", ["int8", "topk_int8", "topk_int4"])
 @pytest.mark.parametrize("scale,bucket_bytes", [("smoke", 4 * 2**20), ("smoke", 3000), ("full", 4 * 2**20)])
 def test_bucket_plan_matches_reference(scale, bucket_bytes, codec):
     geom = SMOKE if scale == "smoke" else {}
@@ -99,6 +104,11 @@ def test_bucket_plan_matches_reference(scale, bucket_bytes, codec):
         # the four codec kernels launches once a bucket per exchange
         assert tplan.num_buckets == jplan.num_buckets == 25
         assert teng.wire_bytes_per_round(ttree) == 33_366_424
+    if scale == "full" and codec == "topk_int4":
+        # 84 wire bytes a 512-chunk (64 packed + 4 scale + 16 index bytes):
+        # the kernel path's layout, 14 buckets (its jnp path packs 5)
+        assert tplan.num_buckets == jplan.num_buckets == 14
+        assert teng.wire_bytes_per_round(ttree) == 27_809_088
     if scale == "smoke" and bucket_bytes > 3000:
         assert tplan.num_buckets == 1
 
@@ -116,7 +126,8 @@ def _bits(x):
     return np.asarray(x, np.float32).view(np.uint32)
 
 
-@pytest.mark.parametrize("codec,fused_wire", [("int8", "auto"), ("topk_int8", "auto"), ("int8", False)])
+@pytest.mark.parametrize("codec,fused_wire", [("int8", "auto"), ("topk_int8", "auto"), ("topk_int4", "auto"),
+                                              ("int8", False)])
 @pytest.mark.parametrize("steps", [1, 2])
 def test_warm_then_choco_rounds_bit_equal(steps, codec, fused_wire):
     jeng, teng = _engines(warm=1, bucket_bytes=3000, steps=steps, codec=codec, fused_wire=fused_wire)

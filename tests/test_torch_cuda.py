@@ -17,7 +17,12 @@ are held bit for bit: integer selection and one rounding per operation.
 The fused-BN normalize and dx kernels round every step as their plain
 versions do, so they are held equal; the two BN reductions sum in f32 in
 another order, each per-channel sum held to 2e-6 of the sum of its terms'
-magnitudes (``chip_smoke.py``'s ``BN_SUM_RTOL``).
+magnitudes (``chip_smoke.py``'s ``BN_SUM_RTOL``). The int4 codec kernels
+are held bit for bit. The fused-LN kernels sum each row in another order
+than ``torch.mean`` (and ``rsqrtf`` is within 2 ulp), so y and dx are
+held to 1e-5 of their row's largest element plus, in bf16, one bf16 ulp
+of the element (``chip_smoke.py``'s ``LN_ROW_RTOL``), dgamma and dbeta
+to 2e-6 of the sum of their terms' magnitudes (``LN_SUM_RTOL``).
 """
 
 import pytest
@@ -232,7 +237,8 @@ def _codec_rows(dev, rows, chunk, seed):
 
 
 def _same_bits(a, b):
-    view = {torch.float32: torch.int32, torch.int32: torch.int32, torch.int8: torch.int8}[a.dtype]
+    view = {torch.float32: torch.int32, torch.int32: torch.int32, torch.int8: torch.int8,
+            torch.uint8: torch.uint8, torch.bfloat16: torch.int16}[a.dtype]
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
@@ -456,3 +462,185 @@ def test_flax_path_batchnorm_statistics_on_card(dev):
     assert y.dtype == torch.bfloat16 and (y >= 0).all()
     torch.testing.assert_close(bn.mean, 0.1 * mean, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(bn.var, 0.9 + 0.1 * var, rtol=1e-5, atol=1e-6)
+
+
+def test_int4_kernels_bit_equal_to_plain(dev):
+    """int4 quantize/dequantize against their plain versions, bit for bit,
+    on the codec hazards plus a NaN row, an inf row and int4's round-half
+    points (scale 1)."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    for rows, chunk in ((4 * 1571, 128), (37, 512), (9, 1024)):
+        x = _codec_rows(dev, rows, chunk, rows + 1)
+        x[2] = torch.randint(-7, 7, (chunk,), device=dev).float() + 0.5
+        x[2, :5] = torch.tensor([7.0, 3.5, -3.5, 0.5, 1.5], device=dev)
+        x[5, 3] = float("nan")
+        x[6, 4] = float("inf")
+        before = (tck.quantize_int4.launches, tck.dequantize_int4.launches)
+        p, s = tck.quantize_int4(x)
+        d = tck.dequantize_int4(p, s)
+        torch.cuda.synchronize()
+        assert (tck.quantize_int4.launches, tck.dequantize_int4.launches) == (before[0] + 1, before[1] + 1)
+        pp, sp = tck.quantize_int4_plain(x)
+        dp = tck.dequantize_int4_plain(p, s)
+        assert _same_bits(p, pp) and torch.equal(torch.isnan(s), torch.isnan(sp)) and torch.equal(torch.isnan(d), torch.isnan(dp))
+        # NaN payload bits aside (the NaN row), bit for bit
+        assert _same_bits(torch.nan_to_num(s, nan=-1.0), torch.nan_to_num(sp, nan=-1.0))
+        assert _same_bits(torch.nan_to_num(d, nan=-1.0), torch.nan_to_num(dp, nan=-1.0))
+        assert s[0] == 0 and s[2] == 1.0 and d[2, :5].tolist() == [7.0, 4.0, -4.0, 0.0, 2.0]
+        assert not p[[0, 1, 5, 6]].any()
+    with pytest.raises(ValueError):
+        tck.quantize_int4(torch.zeros(4, 100, device=dev))
+    with pytest.raises(ValueError):
+        tck.dequantize_int4(torch.zeros(4, 64, dtype=torch.int8, device=dev), torch.zeros(4, device=dev))
+
+
+def test_topk_int4_codec_on_card_equals_cpu(dev, monkeypatch):
+    """The slice's codec on a stacked (4, n) CUDA buffer launches each of
+    its four kernels once and never reaches a plain version; payload and
+    decode are bit-equal to the same codec on the CPU."""
+    from consensusml_tpu_torch.compress import kernels as tck
+    from consensusml_tpu_torch.compress import topk_int4_compressor
+
+    x = torch.randn(4, 300 * 512, generator=torch.Generator(device=dev).manual_seed(6), device=dev)
+    comp = topk_int4_compressor(chunk=512, k=8, impl="auto")
+    want = comp.compress(x.cpu(), stacked=True)
+    want_dec = comp.decompress(want)
+    names = ("quantize_int4", "dequantize_int4", "chunked_topk", "chunk_scatter")
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for name in names:
+        monkeypatch.setattr(tck, f"{name}_plain", refuse)
+    before = {n: getattr(tck, n).launches for n in names}
+    p = comp.compress(x, stacked=True)
+    dec = comp.decompress(p)
+    torch.cuda.synchronize()
+    assert {n: getattr(tck, n).launches - before[n] for n in names} == dict.fromkeys(names, 1)
+    assert torch.equal(p.indices.cpu().to(torch.int32), want.indices.to(torch.int32))
+    assert _same_bits(p.values.data.cpu(), want.values.data) and _same_bits(p.values.scales.cpu(), want.values.scales)
+    assert _same_bits(dec.cpu(), want_dec)
+
+
+LN_ROW_RTOL, LN_SUM_RTOL = 1e-5, 2e-6
+
+
+def _ln_case(dev, m, h, dtype, seed):
+    """x with the LayerNorm's hazards in its first rows (a constant row, one
+    of large magnitude, one at 1e-3 scale), dy, f32 gamma and beta."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 2 * torch.randn(m, h, generator=gen, device=dev) + 0.5
+    x[0] = 0.375
+    if m > 2:
+        x[1] *= 1e3
+        x[2] *= 1e-3
+    dy = torch.randn(m, h, generator=gen, device=dev)
+    gamma = 1 + 0.1 * torch.randn(h, generator=gen, device=dev)
+    beta = 0.1 * torch.randn(h, generator=gen, device=dev)
+    return x.to(dtype), dy.to(dtype), gamma, beta
+
+
+def _ln_rows_ok(got, want):
+    ulp = 2.0**-7 if got.dtype == torch.bfloat16 else 0.0
+    g, w = got.float(), want.float()
+    row = w.abs().amax(dim=1, keepdim=True)
+    return bool(((g - w).abs() <= LN_ROW_RTOL * row + ulp * w.abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,h", [(8192, 1024), (1, 1024), (333, 136), (64, 2048), (17, 4096), (5, 8)])
+def test_ln_kernels_match_plain(dev, m, h, dtype):
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    x, dy, gamma, beta = _ln_case(dev, m, h, dtype, m + h)
+    before = (tln.ln_fwd.launches, tln.ln_bwd.launches)
+    y = tln.ln_fwd(x, gamma, beta, 1e-6, dtype)
+    dx, dg, db = tln.ln_bwd(dy, x, gamma, 1e-6)
+    torch.cuda.synchronize()
+    assert (tln.ln_fwd.launches, tln.ln_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dg.dtype == db.dtype == torch.float32
+    assert _ln_rows_ok(y, tln.ln_fwd_plain(x, gamma, beta, 1e-6, dtype))
+    dxp, dgp, dbp = tln.ln_bwd_plain(dy, x, gamma, 1e-6)
+    assert _ln_rows_ok(dx, dxp)
+    xc = x.float() - x.float().mean(1, keepdim=True)
+    xhat = xc * torch.rsqrt((xc * xc).mean(1, keepdim=True) + 1e-6)
+    dyf = dy.float()
+    assert bool(((dg - dgp).abs() <= LN_SUM_RTOL * (dyf * xhat).abs().sum(0) + 1e-30).all())
+    assert bool(((db - dbp).abs() <= LN_SUM_RTOL * dyf.abs().sum(0) + 1e-30).all())
+    # mixed dtypes: f32 in, bf16 out, and a bf16 cotangent for f32 x
+    if dtype == torch.float32:
+        assert _ln_rows_ok(tln.ln_fwd(x, gamma, beta, 1e-6, torch.bfloat16),
+                           tln.ln_fwd_plain(x, gamma, beta, 1e-6, torch.bfloat16))
+        dyb = dy.to(torch.bfloat16)
+        assert _ln_rows_ok(tln.ln_bwd(dyb, x, gamma, 1e-6)[0], tln.ln_bwd_plain(dyb, x, gamma, 1e-6)[0])
+
+
+def test_ln_backward_is_deterministic_and_autograd_keeps_its_graph(dev):
+    """The fixed-order fold gives dgamma and dbeta the same bits on a rerun;
+    ``fused_layer_norm`` on CUDA tensors has a ``grad_fn`` and its
+    gradients come from the kernels."""
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    x, dy, gamma, beta = _ln_case(dev, 8192, 1024, torch.bfloat16, 3)
+    runs = [tln.ln_bwd(dy, x, gamma, 1e-6) for _ in range(3)]
+    assert all(_same_bits(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    leaves = [t.clone().requires_grad_() for t in (x.view(8, 1024, 1024), gamma, beta)]
+    before = (tln.ln_fwd.launches, tln.ln_bwd.launches)
+    y = tln.fused_layer_norm(*leaves, out_dtype=torch.bfloat16)
+    assert y.grad_fn is not None and y.shape == (8, 1024, 1024)
+    grads = torch.autograd.grad(y, leaves, dy.view(8, 1024, 1024))
+    torch.cuda.synchronize()
+    assert (tln.ln_fwd.launches, tln.ln_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(grads[1], runs[0][1]) and torch.equal(grads[2], runs[0][2])
+
+
+def test_ln_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    x = torch.randn(64, 256, device=dev)
+    v = torch.ones(256, device=dev)
+    with pytest.raises(ValueError):  # a non-contiguous (M, H) view is refused, never copied
+        tln.ln_fwd(torch.randn(256, 64, device=dev).t(), v, v)
+    with pytest.raises(ValueError):
+        tln.ln_fwd(torch.randn(64, 100, device=dev), torch.ones(100, device=dev), torch.ones(100, device=dev))
+    with pytest.raises(ValueError):
+        tln.ln_fwd(torch.randn(4, 8192, device=dev), torch.ones(8192, device=dev), torch.ones(8192, device=dev))
+    with pytest.raises(ValueError):
+        tln.ln_fwd(x.half(), v, v)
+    with pytest.raises(ValueError):
+        tln.ln_fwd(x, v[:128], v)
+    with pytest.raises(ValueError):
+        tln.ln_bwd(x[:32], x, v)
+    with pytest.raises(RuntimeError):  # no (M, H) view without a copy
+        tln.fused_layer_norm(torch.randn(4, 256, 8, device=dev).transpose(1, 2), v, v)
+
+
+def test_gpt2_worker_step_through_ln_kernels_matches_plain(dev):
+    """One smoke-config worker step at hidden 128 (f32, dropout on) with
+    ``norm_impl="pallas"`` on the card: every LayerNorm launches each LN
+    kernel once, and the loss and gradients match the same step with
+    ``norm_impl="jnp"`` (the plain versions; attention plain in both) to
+    f32 summation-order noise."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM, gpt2_loss_fn
+
+    geom = dict(vocab_size=64, hidden=128, layers=2, heads=2, max_len=32, dtype=torch.float32)
+    init = GPT2LM(GPT2Config(**geom), device=dev).init_weights(torch.Generator(device=dev).manual_seed(0))
+    ids = torch.randint(0, 64, (8, 16), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    out = {}
+    for impl in ("pallas", "jnp"):
+        model = GPT2LM(GPT2Config(**geom, norm_impl=impl), device="meta")
+        leaves = {n: p.detach().clone().requires_grad_() for n, p in init.named_parameters()}
+        kernels.reset_launch_counts()
+        loss, _ = gpt2_loss_fn(model, attn_impl="torch")(
+            leaves, {}, {"input_ids": ids}, torch.Generator(device=dev).manual_seed(2))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        out[impl] = (float(loss.detach()), grads, kernels.launch_counts())
+    n_ln = 2 * geom["layers"] + 1
+    assert (out["pallas"][2]["ln_fwd"], out["pallas"][2]["ln_bwd"]) == (n_ln, n_ln)
+    assert all(v == 0 for v in out["jnp"][2].values())
+    assert abs(out["pallas"][0] - out["jnp"][0]) <= 1e-5
+    for a, b in zip(out["pallas"][1], out["jnp"][1]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-7

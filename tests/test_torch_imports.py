@@ -43,7 +43,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--scale", "smoke", "--rounds", "1"])
-    assert configs.build("gpt2_topk", "smoke", codec="int8", device="cpu").cfg.gossip.compressor.impl == "torch"
+    assert "plain PyTorch versions" in configs.build("gpt2_topk", "smoke", codec="int8", device="cpu").codec_path
+    # the fifth slice's path: the fused LayerNorm on the top-k + int4 codec
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        configs.build("gpt2_topk", "smoke", codec="topk_int4", norm_impl="pallas")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--scale", "smoke", "--rounds", "1", "--codec", "topk_int4", "--norm-impl", "pallas"])
+    bundle = configs.build("gpt2_topk", "smoke", codec="topk_int4", norm_impl="pallas", device="cpu")
+    assert "plain PyTorch versions" in bundle.codec_path and "plain PyTorch versions" in bundle.norm_path
+    with pytest.raises(ValueError):
+        configs.build("gpt2_topk", "smoke", norm_impl="interpret", device="cpu")
+    with pytest.raises(NotImplementedError):
+        configs.build("gpt2_topk", "smoke", codec="int4", device="cpu")
     for norm_impl in ("flax", "pallas"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             configs.build("cifar_resnet50", "smoke", norm_impl=norm_impl)

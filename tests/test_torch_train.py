@@ -12,6 +12,13 @@ ResNet runs in f32 on both sides: its curves agree to 4.8e-7 (loss) and
 1.2e-7 (relative consensus error) over three rounds (read), held at 1e-5
 and 1e-5.
 
+The fifth slice's path, ``--codec topk_int4 --norm-impl pallas`` (the
+same top-k with int4 values, every LayerNorm the fused one), is held in
+f32 against the reference with ``topk_int4_compressor(impl="interpret")``
+and ``norm_impl="interpret"`` (at the smoke width its LayerNorm takes its
+jnp path, the same math; tests/test_torch_fused_ln.py holds the Pallas
+kernels at hidden 128), at the f32 top-k curves' tolerances.
+
 The top-k curves are held twice. In f32 (the model computed in f32 in
 both frameworks) they agree to ~2e-6 (loss) and ~3e-7 (relative
 consensus error), well inside the tolerances below. In bf16, the
@@ -50,6 +57,7 @@ import torch
 
 from consensusml_tpu import configs as jax_configs
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
+from consensusml_tpu.compress.reference import topk_int4_compressor as jax_topk_int4
 from consensusml_tpu.data.synthetic import SyntheticClassification as JaxSyntheticClassification
 from consensusml_tpu.data.synthetic import SyntheticLM as JaxSyntheticLM
 from consensusml_tpu.data.synthetic import lm_round_batches as jax_lm_round_batches
@@ -124,18 +132,23 @@ def test_resnet_smoke_training_curves_match_reference(norm_impl):
     assert all(torch.isfinite(t).all() for t in stats.values()) and not torch.all(stem_var == 1)
 
 
-def _reference_run(seed, codec="int8", f32=False):
+def _reference_run(seed, codec="int8", f32=False, norm_impl="flax"):
     import dataclasses
 
     bundle = jax_configs.build("gpt2_topk", "smoke")
     cfg = bundle.cfg
     loss_fn = bundle.loss_fn
     if f32:
-        geom = dataclasses.replace(bundle.model.config, dtype=jnp.float32)
+        geom = dataclasses.replace(bundle.model.config, dtype=jnp.float32, norm_impl=norm_impl)
         loss_fn = jax_gpt2_loss_fn(JaxGPT2LM(config=geom))
-    if codec == "int8":
+    comp = {
         # train.py --codec int8 off-TPU: the Pallas int8 codec in interpret mode
-        gossip = dataclasses.replace(bundle.cfg.gossip, compressor=JaxInt8(chunk=128, impl="interpret"))
+        "int8": lambda: JaxInt8(chunk=128, impl="interpret"),
+        # train.py --codec topk_int4 at smoke scale, on the kernel path
+        "topk_int4": lambda: jax_topk_int4(ratio=0.1, chunk=128, impl="interpret"),
+    }.get(codec)
+    if comp is not None:
+        gossip = dataclasses.replace(bundle.cfg.gossip, compressor=comp())
         cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
     state = jax_init_stacked_state(cfg, bundle.init_params, jax.random.key(seed), bundle.world_size)
     init = jax.tree.map(np.asarray, state.params)
@@ -147,11 +160,11 @@ def _reference_run(seed, codec="int8", f32=False):
     return init, curves, cfg.engine().fused_wire_active
 
 
-def _port_run(init, codec, f32=False):
-    bundle = configs.build("gpt2_topk", "smoke", codec=codec, device="cpu")
+def _port_run(init, codec, f32=False, norm_impl="flax"):
+    bundle = configs.build("gpt2_topk", "smoke", codec=codec, norm_impl=norm_impl, device="cpu")
     loss_fn = bundle.loss_fn
     if f32:
-        loss_fn = gpt2_loss_fn(GPT2LM(configs.gpt2_config("smoke", torch.float32), device="meta"))
+        loss_fn = gpt2_loss_fn(GPT2LM(configs.gpt2_config("smoke", torch.float32, norm_impl), device="meta"))
     state = init_stacked_state(bundle.cfg, gpt2_from_flax(init), bundle.world_size)
     step = make_simulated_train_step(bundle.cfg, loss_fn)
     got = []
@@ -202,6 +215,21 @@ def test_smoke_training_curves_default_codec_bf16_match_reference():
     _assert_curves_match(got, want, later=(1e-2, 1e-3))
 
 
+def test_smoke_training_curves_topk_int4_fused_ln_match_reference():
+    """The slice's path (``--codec topk_int4 --norm-impl pallas``) in f32
+    against the reference's kernel path: top-k + int4 on the two-step
+    wire, every LayerNorm the fused one."""
+    init, want, fused = _reference_run(seed=0, codec="topk_int4", f32=True, norm_impl="interpret")
+    assert not fused
+    bundle, state, got = _port_run(init, "topk_int4", f32=True, norm_impl="pallas")
+    comp = bundle.cfg.gossip.compressor
+    assert not bundle.cfg.engine().fused_wire_active and len(state.gossip.xhat) == 1
+    assert (comp.inner.chunk, comp.inner.k_per_chunk, comp.outer.chunk, comp.outer.fused_wire()) == (
+        128, 13, 128, "int4")
+    assert "fused LN" in bundle.norm_path
+    _assert_curves_match(got, want)
+
+
 def test_train_cli_on_cpu(capsys):
     from consensusml_tpu_torch.train.__main__ import main
 
@@ -217,6 +245,16 @@ def test_train_cli_on_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("codec: int8/128 -> plain PyTorch versions") and "active=True" in out[0]
     assert "fused one-pass bucketed wire" in out[0]
+    # the fifth slice's path: top-k + int4 values, the fused LayerNorm
+    argv = ["--device", "cpu", "--scale", "smoke", "--rounds", "2", "--codec", "topk_int4", "--norm-impl", "pallas"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("codec: topk_int4/128 k=13 -> plain PyTorch versions") and "active=False" in out[0]
+    assert out[1] == "LN: fused LN, plain PyTorch versions (norm_impl='pallas')"
+    rounds = [line.split() for line in out if line.startswith("round ")]
+    errs = [float(r[r.index("consensus_error") + 1]) for r in rounds]
+    losses = [float(r[r.index("loss") + 1]) for r in rounds]
+    assert len(rounds) == 2 and all(np.isfinite(losses)) and all(0 < e < float("inf") for e in errs)
 
 
 @pytest.mark.parametrize("norm_impl", ["flax", "pallas"])

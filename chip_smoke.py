@@ -28,7 +28,15 @@ Phases, each printed as one JSON line:
    rows), all four held bit for bit; the int4 quantize/dequantize at the
    value rows of ``--codec topk_int4``'s largest and median buckets, bit
    for bit; the fused LayerNorm's forward and backward at GPT-2-medium's
-   (8192, 1024) bf16 view and a (2048, 1024) f32 one.
+   (8192, 1024) bf16 view and a (2048, 1024) f32 one; the fp8
+   quantize/dequantize at the rows of ``--codec fp8``'s largest and median
+   buckets (4 x 100,514 and 4 x 6,160 rows of 512), the fused encode's
+   int4 and fp8 formats at the largest bucket's rows, and the fused
+   decode (``fused_dequantize_accumulate``, the collective round's receive,
+   which no one-card path runs) in all three formats with the ring's
+   three sources at 1/3, bit for bit. Every codec check appends rows of
+   f32 subnormals (which the kernels flush as the reference's compiled
+   program does), NaN and inf.
 4. ``serve``: GPT-2-medium at full width (numpy-seeded parameters through
    ``gpt2_from_flax``) in ``Engine(ServeConfig(num_slots=8, block_size=16,
    attn_impl="auto"))``: one prefill's and one decode step's logits held
@@ -81,6 +89,21 @@ Phases, each printed as one JSON line:
    one warm round, three counted rounds (launches gated: 1176 a LN
    kernel, 42 each codec kernel, 576 each flash kernel) and one profiled
    round (the LN and codec kernels' device time).
+
+10. ``train_int4`` and ``train_fp8``: ``gpt2_topk`` full ``--workers 4
+    --codec-warmup 1 --codec int4|fp8``: the same initial parameters as
+    ``train``, the fused one-pass wire in its int4 format (50 buckets,
+    360,367,280 wire bytes) or fp8 format (123 buckets, 715,190,448). One
+    warm round, three counted rounds (launches gated: 576 each flash
+    kernel, the fused encode once a bucket a round, nothing else) and one
+    profiled round. No gradient check: the model path is ``train``'s.
+11. ``gossip_fp8_two_step``: from ``train_fp8``'s final state (its
+    optimizer state freed), one compressed CHOCO round on the fp8
+    two-step wire (``fused_wire=False``: ``quantize_fp8`` and
+    ``dequantize_fp8`` once a bucket, launches gated) and the same round
+    on the fused wire; their codes and scales bucket by bucket bit-equal,
+    xhat' within one f32 ulp (the fused encode rounds it once, the
+    two-step wire twice), the parameters finite.
 
 The ``check`` phase also holds the four fused-BN kernels against their
 plain versions at ResNet-50's (131072, 256), (131072, 64) and (2048,
@@ -169,6 +192,12 @@ RESNET_GRAD_REL_TOL, RESNET_LEAF_REL_TOL = 1e-2, 5e-2
 # the row term keeps it below 1, and two flips cannot come from an f32
 # difference ~1e-6 of the row), the sums at 1.6e-8; f32: 0.03, 0.02, 5.8e-8.
 LN_ROW_RTOL, LN_SUM_RTOL = 1e-5, 2e-6
+# the fp8 two-step wire's xhat' (q * scale rounded, then xhat + it rounded)
+# against the fused wire's (one fused multiply-add), in ulps of the larger
+# of |xhat| and |xhat'|: two roundings against one differ by at most 2 of
+# them (gossip_two_step_phase); a code or scale off by one moves xhat' by
+# a whole quantization step, ~2^20 ulps and more
+XHAT_ULPS = 2.0
 
 
 # each kernel's CUDA symbol in csrc/*.cu, to find its device time in a
@@ -178,7 +207,8 @@ KERNEL_SYMBOLS = {
     "flash_attention_fwd": "flash_fwd_kernel",
     "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
     "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
-    "fused_choco_encode": "choco_encode_int8_kernel",
+    "fused_choco_encode": "choco_encode_(?:int8|int4|fp8)_kernel",
+    "fused_dequantize_accumulate": "choco_decode_(?:int8|int4|fp8)_kernel",
     "chunked_topk": "chunked_topk_kernel",
     "quantize_int8": "quantize_int8_kernel",
     "dequantize_int8": "dequantize_int8_kernel",
@@ -188,6 +218,8 @@ KERNEL_SYMBOLS = {
     "bn_norm": "bn_norm_kernel",
     "bn_bwd_reduce": "bn_bwd_reduce(?:_fold)?_kernel",
     "bn_bwd_dx": "bn_bwd_dx_kernel",
+    "quantize_fp8": "quantize_fp8_kernel",
+    "dequantize_fp8": "dequantize_fp8_kernel",
     "quantize_int4": "quantize_int4_kernel",
     "dequantize_int4": "dequantize_int4_kernel",
     "ln_fwd": "ln_fwd_kernel",
@@ -410,14 +442,24 @@ def check_flash_bwd(torch, tfa, dev):
     return out, fwd
 
 
-def check_encode(torch, tck, dev):
-    """The fused CHOCO encode on a (4 * 8192, 512) f32 pair (4 workers'
-    copies of a 4 MiB-wire bucket), held BIT FOR BIT against its plain
-    version: q, scales and xhat'. Row 0 has a zero delta (scale 0), row 1
-    x = 0 over an xhat of mixed +0/-0 (xhat' must be +0), row 2 deltas on
-    the round-half points of the quantizer."""
-    gen = torch.Generator(device=dev).manual_seed(3)
-    rows, chunk = 4 * 8192, 512
+def hazard_rows(torch, dev, chunk):
+    """Rows appended to every codec check: f32 subnormals only (scale 0,
+    codes 0), an absmax whose scale would be subnormal (scale 0),
+    subnormal elements beside a tiny normal absmax (read as zeros), a
+    NaN, a +inf and a -inf element."""
+    tiny = 2.0**-126
+    sign = torch.where(torch.arange(chunk, device=dev) % 2 == 1, 1.0, -1.0)
+    rows = torch.stack([1e-39 * sign, 5e-38 * sign, 0.9 * tiny * sign,
+                        sign, sign, sign])
+    rows[2, 0] = 448 * 1.5 * tiny
+    rows[3, 3], rows[4, 4], rows[5, 5] = float("nan"), float("inf"), float("-inf")
+    return rows
+
+
+def encode_case(torch, dev, gen, rows, chunk):
+    """(x, xhat) for the fused encode: the zero-delta, +0/-0 and
+    round-half rows of the int8 quantizer first, the hazard rows (and
+    a subnormal xhat under a zero x) appended."""
     x = torch.randn(rows, chunk, generator=gen, device=dev)
     xhat = x + 0.1 * torch.randn(rows, chunk, generator=gen, device=dev)
     x[0] = xhat[0]
@@ -426,30 +468,155 @@ def check_encode(torch, tck, dev):
     half = torch.randint(-126, 127, (chunk,), generator=gen, device=dev).float() + 0.5
     x[2] = xhat[2] + half
     x[2, 0] = xhat[2, 0] + 127.0
-    got = tck.fused_pack_quantize(x, xhat)
-    want = tck.fused_pack_quantize_plain(x, xhat)
-    torch.cuda.synchronize()
-    names = ("q", "scales", "xhat")
-    mismatched = {
-        n: int((g.view(torch.int32 if g.dtype == torch.float32 else torch.int8)
-                != w.view(torch.int32 if w.dtype == torch.float32 else torch.int8)).sum())
-        for n, g, w in zip(names, got, want)
-    }
-    if any(mismatched.values()):
-        raise AssertionError(f"fused_choco_encode differs from its plain version: {mismatched}")
-    if not (got[1][0] == 0 and got[1][2] == 1.0 and not torch.signbit(got[2][1]).any()):
-        raise AssertionError("fused_choco_encode: zero row, round-half row or -0 row wrong")
-    err = max_abs_err(torch, *zip(got, want))
-    del got, want
-    sets = [(torch.randn(rows, chunk, generator=gen, device=dev), xhat) for _ in range(3)]
-    kernel_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize(*sets[i % 3]), 50)
-    plain_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize_plain(*sets[i % 3]), 10)
-    n = rows * chunk
-    bms, by = bound_ms(2 * 4 * n + n + 4 * rows + 4 * n, 5 * n)
-    return {
-        "rows": rows, "chunk": chunk, "mismatched": mismatched, "max_abs_err": err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bms, "bound_by": by,
-    }
+    hz = hazard_rows(torch, dev, chunk)
+    x = torch.cat([x, hz, torch.zeros(1, chunk, device=dev)])
+    xhat = torch.cat([xhat, torch.zeros_like(hz), torch.full((1, chunk), -2e-39, device=dev)])
+    return x, xhat
+
+
+def check_encode(torch, tck, dev, largest_rows):
+    """The fused CHOCO encode, held BIT FOR BIT against its plain version
+    (q, scales and xhat'; NaN payload bits aside): int8 on a (4 * 8192,
+    512) f32 pair (4 workers' copies of a 4 MiB-wire bucket), int4 and fp8
+    at ``--codec int4|fp8``'s largest bucket's rows (4 x 100,514 rows of
+    512). Row 0 has a zero delta (scale 0), row 1 x = 0 over an xhat of
+    mixed +0/-0 (xhat' must be +0), row 2 deltas on the round-half points
+    of the int8 quantizer; the hazard rows follow. No library yardstick:
+    no one PyTorch call quantizes and tracks."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for fmt, rows in (("int8", 4 * 8192), ("int4", largest_rows), ("fp8", largest_rows)):
+        chunk = 512
+        x, xhat = encode_case(torch, dev, gen, rows, chunk)
+        got = tck.fused_pack_quantize(x, xhat, fmt=fmt)
+        want = tck.fused_pack_quantize_plain(x, xhat, fmt)
+        torch.cuda.synchronize()
+        mismatched = {n: mismatches(torch, g, w) for n, g, w in zip(("q", "scales", "xhat"), got, want)}
+        if any(mismatched.values()):
+            raise AssertionError(f"fused_choco_encode {fmt} differs from its plain version: {mismatched}")
+        r0 = rows  # the first hazard row
+        if not (got[1][0] == 0 and not torch.signbit(got[2][1]).any() and got[1][r0] == 0 and got[1][r0 + 1] == 0
+                and torch.isnan(got[1][r0 + 3]) and not got[2][-1].any() and (fmt != "int8" or got[1][2] == 1.0)):
+            raise AssertionError(f"fused_choco_encode {fmt}: zero, -0, round-half or hazard rows wrong")
+        fin = torch.isfinite(want[1])
+        err = max_abs_err(torch, (got[0].view(torch.uint8), want[0].view(torch.uint8)), (got[1][fin], want[1][fin]),
+                          (got[2][fin], want[2][fin]))
+        del got, want
+        sets = [(torch.randn(rows, chunk, generator=gen, device=dev), xhat[:rows]) for _ in range(3)]
+        kernel_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize(*sets[i % 3], fmt=fmt), 30)
+        plain_ms = cuda_ms(torch, lambda i: tck.fused_pack_quantize_plain(*sets[i % 3], fmt), 5)
+        n = rows * chunk
+        wire = n // 2 if fmt == "int4" else n
+        bms, by = bound_ms(2 * 4 * n + wire + 4 * rows + 4 * n, 5 * n, F32_FLOPS)
+        out[fmt] = {
+            "rows": rows, "hazard_rows": x.shape[0] - rows, "chunk": chunk, "mismatched": mismatched,
+            "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bms, "bound_by": by,
+        }
+        del x, xhat, sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_fp8(torch, tck, dev, totals, world=4, chunk=512):
+    """The fp8 quantize and dequantize at ``--codec fp8``'s shapes on the
+    two-step wire (``fused_wire=False``): the rows of its largest and
+    median buckets (per worker ``total / 512``, all workers' copies in one
+    launch), the hazard rows appended, held BIT FOR BIT against their
+    plain versions (NaN payload bits aside). ``ms`` is profiler device
+    time. No library yardstick: no PyTorch call computes per-row scales
+    and casts, and the dequantize is a cast and a product."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    out = {}
+    for label, total in (("largest", max(totals)), ("median", sorted(totals)[len(totals) // 2])):
+        rows = world * total // chunk
+        x = 3 * torch.randn(rows, chunk, generator=gen, device=dev)
+        x *= 10.0 ** torch.randint(-30, 30, (rows, 1), generator=gen, device=dev)
+        x = torch.cat([x, hazard_rows(torch, dev, chunk)])
+        q, sc = tck.quantize_fp8(x)
+        qp, scp = tck.quantize_fp8_plain(x)
+        d = tck.dequantize_fp8(q, sc)
+        dp = tck.dequantize_fp8_plain(q, sc)
+        torch.cuda.synchronize()
+        bad_q = {"q": mismatches(torch, q, qp), "scales": mismatches(torch, sc, scp)}
+        bad_d = mismatches(torch, d, dp)
+        codes = q.view(torch.uint8)
+        hazards_ok = (sc[rows] == 0 and sc[rows + 1] == 0 and not (codes[rows:rows + 2] & 0x7F).any()
+                      and torch.isnan(sc[rows + 3]) and codes[rows + 3, 3] == 0x7F and torch.isinf(sc[rows + 4]))
+        if any(bad_q.values()) or bad_d or not hazards_ok:
+            raise AssertionError(f"fp8 kernels ({label}) differ from their plain versions: {bad_q}, "
+                                 f"dequantize {bad_d}, hazard rows ok: {hazards_ok}")
+        r, m = x.shape[0], x.numel()
+        qb, qby = bound_ms(4 * m + m + 4 * r, 3 * m, F32_FLOPS)
+        db, dby = bound_ms(m + 4 * r + 4 * m, m, F32_FLOPS)
+        fin = torch.isfinite(sc)
+        out[label] = {
+            "quantize_fp8": {
+                "rows": r, "chunk": chunk, "mismatched": bad_q,
+                "max_abs_err": max_abs_err(torch, (codes, qp.view(torch.uint8)), (sc[fin], scp[fin])),
+                **small_kernel_times(torch, lambda _: tck.quantize_fp8(x), lambda _: tck.quantize_fp8_plain(x)),
+                "library_ms": None, "library": "none: no PyTorch call computes per-row scales and casts",
+                "bound_ms": qb, "bound_by": qby,
+            },
+            "dequantize_fp8": {
+                "rows": r, "chunk": chunk, "mismatched": bad_d,
+                "max_abs_err": max_abs_err(torch, (d[fin], dp[fin])),
+                **small_kernel_times(torch, lambda _: tck.dequantize_fp8(q, sc),
+                                     lambda _: tck.dequantize_fp8_plain(q, sc)),
+                "library_ms": None, "library": "none: a cast and a product are two calls",
+                "bound_ms": db, "bound_by": dby,
+            },
+        }
+        del x, q, qp, d, dp
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_decode(torch, tck, dev, rows, chunk=512, weights=(1 / 3, 1 / 3, 1 / 3)):
+    """``fused_dequantize_accumulate`` (the fused wire's receive, which
+    only the collective round calls: no one-card path launches it) in all
+    three formats at the largest bucket's rows with the ring's three
+    sources at 1/3, held BIT FOR BIT against its plain version (NaN
+    payload bits aside). The sources are fused encodes of random rows
+    with the hazard rows appended; ``s`` carries a subnormal, a -0, an
+    inf and a NaN. No library yardstick: no one PyTorch call decodes and
+    accumulates."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    out = {}
+    for fmt in ("int8", "int4", "fp8"):
+        hz = hazard_rows(torch, dev, chunk)
+        s = torch.cat([torch.randn(rows, chunk, generator=gen, device=dev), hz])
+        s[0, :4] = torch.tensor([1e-39, -0.0, float("inf"), float("nan")], device=dev)
+        sources = []
+        for j in range(len(weights)):
+            x = torch.cat([torch.randn(rows, chunk, generator=gen, device=dev) * 10.0 ** (-j), hz])
+            data, scales, _ = tck.fused_pack_quantize(x, torch.zeros_like(x), fmt=fmt)
+            sources.append((data, scales))
+            del x
+        got = tck.fused_dequantize_accumulate(s, sources, fmt=fmt, weights=weights)
+        want = tck.fused_dequantize_accumulate_plain(s, sources, fmt=fmt, weights=weights)
+        torch.cuda.synchronize()
+        bad = mismatches(torch, got, want)
+        if bad:
+            raise AssertionError(f"fused_dequantize_accumulate {fmt} differs from its plain version: {bad} elements")
+        fin = torch.isfinite(want)
+        err = max_abs_err(torch, (got[fin], want[fin]))
+        del got, want
+        n, r = s.numel(), s.shape[0]
+        wire = n // 2 if fmt == "int4" else n
+        j = len(weights)
+        bms, by = bound_ms(4 * n + j * (wire + 4 * r) + 4 * n, (3 * j + 1) * n, F32_FLOPS)
+        out[fmt] = {
+            "rows": r, "chunk": chunk, "sources": j, "weights": list(weights), "mismatched": bad,
+            "max_abs_err": err,
+            "ms": cuda_ms(torch, lambda _: tck.fused_dequantize_accumulate(s, sources, fmt=fmt, weights=weights), 30),
+            "plain_ms": cuda_ms(torch, lambda _: tck.fused_dequantize_accumulate_plain(
+                s, sources, fmt=fmt, weights=weights), 5),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+        }
+        del s, sources
+        torch.cuda.empty_cache()
+    return out
 
 
 def topk_bucket_totals(torch, dev, codec=None) -> list[int]:
@@ -471,7 +638,7 @@ def mismatches(torch, got, want) -> int:
         raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} {want.dtype}")
     view = torch.int8 if got.element_size() == 1 else torch.int32
     differ = got.view(view) != want.view(view)
-    if got.is_floating_point():
+    if got.dtype == torch.float32:
         differ &= ~(torch.isnan(got) & torch.isnan(want))
     return int(differ.sum())
 
@@ -508,8 +675,8 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
       one, the scatter fed the top-k's own winners; the acc form (the
       collective receive, weight 1/3) on the largest;
     - int8 quantize and dequantize on the largest bucket's value rows (per
-      worker 100,514 x 8 values, zero-padded to rows of 512), timed by
-      :func:`small_kernel_times`.
+      worker 100,514 x 8 values, zero-padded to rows of 512; the hazard
+      rows appended), timed by :func:`small_kernel_times`.
 
     Library yardsticks (timed, never used by the port): ``abs``, then
     ``torch.topk`` then ``gather`` for the selection (three calls);
@@ -574,6 +741,7 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
             vrows = -(-vals.shape[1] // chunk)
             vals = torch.nn.functional.pad(vals, (0, vrows * chunk - vals.shape[1])).reshape(-1, chunk)
             seed_codec_rows(torch, vals, gen)
+            vals = torch.cat([vals, hazard_rows(torch, dev, chunk)])
         del x, v, i, i64, zeros
     q, sc = tck.quantize_int8(vals)
     qp, scp = tck.quantize_int8_plain(vals)
@@ -582,19 +750,22 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
     torch.cuda.synchronize()
     bad_q = {"q": mismatches(torch, q, qp), "scales": mismatches(torch, sc, scp)}
     bad_d = mismatches(torch, d, dp)
-    if any(bad_q.values()) or bad_d or not (sc[0] == 0 and sc[2] == 1.0):
+    h0 = vals.shape[0] - 6  # the first hazard row
+    if any(bad_q.values()) or bad_d or not (sc[0] == 0 and sc[2] == 1.0 and sc[h0] == 0 and sc[h0 + 1] == 0):
         raise AssertionError(f"int8 kernels differ from their plain versions: {bad_q}, dequantize {bad_d}")
+    fin = torch.isfinite(sc)  # the NaN and inf rows' scales (and decodes) carry no error value
     r, n = vals.shape[0], vals.numel()
     qb, qby = bound_ms(4 * n + n + 4 * r, 3 * n, F32_FLOPS)
     db, dby = bound_ms(n + 4 * r + 4 * n, n, F32_FLOPS)
     out["quantize_int8"] = {
-        "rows": r, "chunk": chunk, "mismatched": bad_q, "max_abs_err": max_abs_err(torch, (q, qp), (sc, scp)),
+        "rows": r, "chunk": chunk, "mismatched": bad_q,
+        "max_abs_err": max_abs_err(torch, (q, qp), (sc[fin], scp[fin])),
         **small_kernel_times(torch, lambda _: tck.quantize_int8(vals), lambda _: tck.quantize_int8_plain(vals)),
         "library_ms": None, "library": "none: quantize_per_channel takes the scales as input",
         "bound_ms": qb, "bound_by": qby,
     }
     out["dequantize_int8"] = {
-        "rows": r, "chunk": chunk, "mismatched": bad_d, "max_abs_err": max_abs_err(torch, (d, dp)),
+        "rows": r, "chunk": chunk, "mismatched": bad_d, "max_abs_err": max_abs_err(torch, (d[fin], dp[fin])),
         **small_kernel_times(torch, lambda _: tck.dequantize_int8(q, sc), lambda _: tck.dequantize_int8_plain(q, sc)),
         "library_ms": None, "library": "none: a cast and a product are two calls",
         "bound_ms": db, "bound_by": dby,
@@ -619,7 +790,8 @@ def check_int4(torch, tck, dev, totals, world=4, chunk=512, k=8):
     14-bucket plan (per worker ``total / 512 * 8`` values, zero-padded to
     rows of 512, the int4 chunk), held BIT FOR BIT against their plain
     versions. The first rows carry ``seed_codec_rows``' hazards, then a
-    NaN row, int4's round-half points at scale 1 and an inf row. No
+    NaN row, int4's round-half points at scale 1 and an inf row; the
+    hazard rows (:func:`hazard_rows`) are appended. No
     library yardstick: ``quantize_per_channel`` takes its scales as
     input and packs no nibbles, and the unpack is several calls."""
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -635,6 +807,7 @@ def check_int4(torch, tck, dev, totals, world=4, chunk=512, k=8):
         vals[6] = torch.randint(-7, 7, (chunk,), generator=gen, device=dev).float() + 0.5
         vals[6, :5] = torch.tensor([7.0, 3.5, -3.5, 0.5, 1.5], device=dev)
         vals[7, 4] = float("inf")
+        vals = torch.cat([vals, hazard_rows(torch, dev, chunk)])
         p, sc = tck.quantize_int4(vals)
         pp, scp = tck.quantize_int4_plain(vals)
         d = tck.dequantize_int4(p, sc)
@@ -642,8 +815,10 @@ def check_int4(torch, tck, dev, totals, world=4, chunk=512, k=8):
         torch.cuda.synchronize()
         bad_q = {"packed": mismatches(torch, p, pp), "scales": mismatches(torch, sc, scp)}
         bad_d = mismatches(torch, d, dp)
+        h0 = vals.shape[0] - 6  # the first hazard row
         hazards_ok = (sc[0] == 0 and torch.isnan(sc[5]) and sc[6] == 1.0 and not p[[0, 1, 5, 7]].any()
-                      and d[6, :5].tolist() == [7.0, 4.0, -4.0, 0.0, 2.0])
+                      and d[6, :5].tolist() == [7.0, 4.0, -4.0, 0.0, 2.0]
+                      and sc[h0] == 0 and sc[h0 + 1] == 0 and not p[[h0, h0 + 1]].any())
         if any(bad_q.values()) or bad_d or not hazards_ok:
             raise AssertionError(f"int4 kernels ({label}) differ from their plain versions: {bad_q}, "
                                  f"dequantize {bad_d}, hazard rows ok: {hazards_ok}")
@@ -1108,19 +1283,27 @@ CODEC_KERNELS = {
     "topk_int4": ("chunked_topk", "quantize_int4", "dequantize_int4", "chunk_scatter"),
 }
 # the bucket plans at GPT-2-medium, 4 MiB buckets: (buckets, wire bytes a worker a round)
-TOPK_PLANS = {None: (25, 33_366_424), "topk_int4": (14, 27_809_088)}
-TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_int4_ln"}
+PLANS = {
+    None: (25, 33_366_424), "topk_int4": (14, 27_809_088),
+    "int8": (123, 715_190_448), "int4": (50, 360_367_280), "fp8": (123, 715_190_448),
+}
+FUSED_CODECS = ("int8", "int4", "fp8")  # the per-chunk quantizers: the fused one-pass wire
+TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_int4_ln",
+                "int4": "train_int4", "fp8": "train_fp8"}
 
 
-def train_phase(torch, dev, init, codec, norm_impl="flax"):
+def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     """gpt2_topk full, --workers 4 --codec-warmup 1, on ``codec``: "int8"
     (the fused wire; the ``train`` line, with the gradient check), None
     (the config's own top-k + int8 codec on the two-step wire; the
-    ``train_topk`` line) or "topk_int4" with ``norm_impl="pallas"`` (top-k
+    ``train_topk`` line), "topk_int4" with ``norm_impl="pallas"`` (top-k
     + int4 on the two-step wire, every LayerNorm through the fused-LN
     kernels; the ``train_topk_int4_ln`` line, with the gradient check
-    through the flash and LN kernels). ``init`` is the stacked numpy
-    initial parameters (``bundle.init_params(0)``), drawn once for all."""
+    through the flash and LN kernels), "int4" or "fp8" (the fused wire's
+    other formats; the ``train_int4`` and ``train_fp8`` lines). ``init``
+    is the stacked numpy initial parameters (``bundle.init_params(0)``),
+    drawn once for all. Returns the line, the launch counts and, with
+    ``keep_state``, the final train state and bundle."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.models.gpt2 import GPT2LM
@@ -1131,7 +1314,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax"):
                            device=dev)
     cfg, mcfg = bundle.cfg, bundle.model.config
     engine = cfg.engine()
-    fused = codec == "int8"
+    fused = codec in FUSED_CODECS
     fused_ln = norm_impl == "pallas"
     if engine.fused_wire_active != fused:
         raise AssertionError(f"codec path is not the expected wire: {bundle.codec_path}")
@@ -1140,7 +1323,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax"):
     marks.append(("batches", time.perf_counter()))
     ids = batches[0]["input_ids"]
     grads = None
-    if fused or fused_ln:  # the model-level gradient check: flash kernels (and the LN ones)
+    if codec == "int8" or fused_ln:  # the model-level gradient check: flash kernels (and the LN ones)
         params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in init.items()}
         plain = GPT2LM(configs.gpt2_config("full", norm_impl="jnp"), device="meta") if fused_ln else bundle.model
         grads = grad_check(torch, bundle.model, plain, params0, {"input_ids": ids[0, 0].to(dev)}, dev)
@@ -1158,8 +1341,8 @@ def train_phase(torch, dev, init, codec, norm_impl="flax"):
     wire = engine.wire_bytes_per_round({"params": per_worker, "model_state": {}})
     n_params = sum(p.numel() for p in per_worker.values())
     del per_worker
-    if not fused and (n_buckets, wire) != TOPK_PLANS[codec]:
-        raise AssertionError(f"{codec} plan: {n_buckets} buckets, {wire} wire bytes; expected {TOPK_PLANS[codec]}")
+    if (n_buckets, wire) != PLANS[codec]:
+        raise AssertionError(f"{codec} plan: {n_buckets} buckets, {wire} wire bytes; expected {PLANS[codec]}")
 
     t0 = time.perf_counter()
     state, m = step(state, batches[0])  # round 0: warm (dense mixing), not counted
@@ -1221,6 +1404,8 @@ def train_phase(torch, dev, init, codec, norm_impl="flax"):
     extra = {}
     if not fused:
         extra["codec_kernels_ms"] = kernel_ms(CODEC_KERNELS[codec])
+    else:
+        extra["encode_kernel_ms"] = kernel_ms(("fused_choco_encode",))
     if fused_ln:
         extra["ln_kernels_ms"] = kernel_ms(LN_KERNELS)
     flags = "--workers 4 --codec-warmup 1" + (f" --codec {codec}" if codec else "") + (
@@ -1241,8 +1426,101 @@ def train_phase(torch, dev, init, codec, norm_impl="flax"):
         "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
         **extra, "profiled_round": prof,
     }
+    if keep_state:
+        return out, counts, state, bundle
     del state
     torch.cuda.empty_cache()
+    return out, counts, None, None
+
+
+def gossip_two_step_phase(torch, dev, state, bundle):
+    """``train_fp8``'s final state, its optimizer state freed: one
+    compressed CHOCO round on the fp8 two-step wire (``fused_wire=False``:
+    per bucket ``quantize_fp8`` then ``dequantize_fp8``, launches gated)
+    and the same round on the fused wire, from the same state. Bucket by
+    bucket, the two wires' codes and scales must be bit-equal and their
+    xhat' within one f32 ulp (the fused encode rounds xhat + q * scale
+    once, the two-step wire twice); both rounds' parameters finite."""
+    import dataclasses
+
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.consensus import ConsensusEngine
+    from consensusml_tpu_torch.consensus.bucketing import build_fused_plan
+    from consensusml_tpu_torch.utils import tree as T
+
+    state.opt_state = None  # Adam's moments: 11 GB the gossip rounds do not read
+    gc.collect()
+    torch.cuda.empty_cache()
+    gossip = bundle.cfg.gossip
+    fused_eng = ConsensusEngine(gossip)
+    two_eng = ConsensusEngine(dataclasses.replace(gossip, fused_wire=False))
+    if not fused_eng.fused_wire_active or two_eng.fused_wire_active:
+        raise AssertionError("the fp8 codec must ride the fused wire, and not with fused_wire=False")
+    w = simulated.mixing_matrix(gossip.topology).to(dev)
+    tree = {"params": state.params, "model_state": {}}
+    step = state.step  # past the warm-up round, not a refresh round
+    refresh = gossip.codec_refresh_every
+    if step < gossip.codec_warmup_rounds or (refresh and step % refresh == 0):
+        raise AssertionError(f"round {step} is not a compressed CHOCO round")
+    n_buckets = len(state.gossip.xhat)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    two_tree, two_state = two_eng.round_simulated(tree, state.gossip, w, step=step)
+    torch.cuda.synchronize()
+    two_ms = 1e3 * (time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    expect = {name: n_buckets if name in ("quantize_fp8", "dequantize_fp8") else 0 for name in kernels.KERNELS}
+    if counts != expect:
+        raise AssertionError(f"two-step launches {counts} differ from the prediction {expect}")
+    two_finite = all(bool(torch.isfinite(p).all()) for p in two_tree["params"].values())
+    two_hat = two_state.xhat
+    del two_tree, two_state
+    t0 = time.perf_counter()
+    fused_tree, fused_state = fused_eng.round_simulated(tree, state.gossip, w, step=step)
+    torch.cuda.synchronize()
+    fused_ms = 1e3 * (time.perf_counter() - t0)
+    fused_finite = all(bool(torch.isfinite(p).all()) for p in fused_tree["params"].values())
+    fused_hat = fused_state.xhat
+    del fused_tree, fused_state
+    # two roundings (q * scale, then the sum) against one: they differ by at
+    # most half an ulp of each rounded value, q * scale being at most twice
+    # the larger of |xhat| and |xhat'| (M), so by at most 2 ulp(M)
+    ulps = 0.0
+    for a, b, h in zip(two_hat, fused_hat, state.gossip.xhat):
+        m = torch.maximum(torch.maximum(a.abs(), b.abs()), h.abs())
+        ulp = torch.nextafter(m, torch.full_like(m, float("inf"))) - m
+        ulps = max(ulps, float(((a - b).abs() / ulp).max()))
+    del two_hat, fused_hat
+
+    # the payloads of the two wires, bucket by bucket (outside the counted round)
+    plan = fused_eng.bucket_plan(tree, stacked=True)
+    fused = build_fused_plan(plan, gossip.compressor)
+    x = plan.pack([p.to(torch.float32) for p in T.leaves(tree)], stacked=True)
+    bad = {"codes": 0, "scales": 0}
+    for xb, hb in zip(x, state.gossip.xhat):
+        p2 = gossip.compressor.compress(xb - hb, stacked=True)
+        pf, _ = fused.codec.encode(xb, hb)
+        bad["codes"] += mismatches(torch, p2.data, pf.data)
+        bad["scales"] += mismatches(torch, p2.scales, pf.scales)
+        del p2, pf
+    del x
+    if any(bad.values()) or not ulps <= XHAT_ULPS or not (two_finite and fused_finite):
+        raise AssertionError(f"fp8 two-step vs fused round: mismatched {bad}, xhat' {ulps} ulps of "
+                             f"max(|xhat|, |xhat'|) apart (bound {XHAT_ULPS}), finite {two_finite} {fused_finite}")
+    out = {
+        "phase": "gossip_fp8_two_step",
+        "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec fp8, one CHOCO round with "
+                  "fused_wire=False and one with the fused wire, from train_fp8's final state",
+        "round": step, "buckets": n_buckets, "wire_bytes_per_round": two_eng.wire_bytes_per_round(
+            {"params": {n: p[0] for n, p in state.params.items()}, "model_state": {}}),
+        "launches": counts, "launches_expected": expect,
+        "two_step_round_ms": two_ms, "fused_round_ms": fused_ms,
+        "payload_mismatches": bad, "xhat_max_ulps_apart": ulps, "xhat_ulps_bound": XHAT_ULPS,
+        "params_finite": {"two_step": two_finite, "fused": fused_finite},
+    }
     return out, counts
 
 
@@ -1559,16 +1837,21 @@ def main() -> int:
     paged = check_paged(torch, tpa, dev)
     flash = check_flash(torch, tfa, dev)
     bwd, flash_b8 = check_flash_bwd(torch, tfa, dev)
-    enc = check_encode(torch, tck, dev)
+    fp8_totals = topk_bucket_totals(torch, dev, "fp8")
+    largest_rows = 4 * max(fp8_totals) // 512
+    enc = check_encode(torch, tck, dev, largest_rows)
     codec = check_codec(torch, tck, dev, topk_bucket_totals(torch, dev))
     int4 = check_int4(torch, tck, dev, topk_bucket_totals(torch, dev, "topk_int4"))
+    fp8 = check_fp8(torch, tck, dev, fp8_totals)
+    dec = check_decode(torch, tck, dev, largest_rows)
     bn = check_bn(torch, tbn, dev)
     ln = check_ln(torch, tln, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
-          "fused_choco_encode": enc, "topk_codec": codec, "int4_codec": int4,
+          "fused_choco_encode": enc, "fused_dequantize_accumulate": dec, "topk_codec": codec,
+          "int4_codec": int4, "fp8_codec": fp8,
           "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL,
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
           "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL})
@@ -1592,8 +1875,14 @@ def main() -> int:
          {"max_abs_err": max(b["dk_max_abs_err"], b["dv_max_abs_err"]), "ms": b["dkv_ms"],
           "plain_ms": b["plain_ms"], "bound_ms": b["dkv_bound_ms"], "bound_by": b["dkv_bound_by"],
           "library_ms": b["library_ms"]}),
+        # int8 at its (4 * 8192, 512) shape carries the readings (the train
+        # line's format); int4 and fp8 at the largest bucket's rows beside
         ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
-         "consensusml_tpu/compress/kernels.py:953", enc),
+         "consensusml_tpu/compress/kernels.py:953", {**enc["int8"], "by_format": enc}),
+        # fp8 carries the readings (its byte bound is the largest); no
+        # one-card path launches it
+        ("fused_dequantize_accumulate", "consensusml_tpu_torch/csrc/fused_choco_decode.cu",
+         "consensusml_tpu/compress/kernels.py:1016", {**dec["fp8"], "by_format": dec}),
         # the largest bucket's shapes carry the top-k phase's time; the
         # median bucket's and the acc form's readings stand beside them
         ("chunked_topk", "consensusml_tpu_torch/csrc/chunked_topk.cu",
@@ -1615,6 +1904,11 @@ def main() -> int:
         worst = max(r[name]["max_abs_err"] for r in bn.values())
         rows.append((name, "consensusml_tpu_torch/csrc/fused_bn.cu", f"consensusml_tpu/models/fused_bn.py:{line}",
                      {**bn[(131072, 256)][name], "max_abs_err": worst, "by_shape": by_shape}))
+    # the fp8 pair at the largest fp8 bucket's rows, the median's beside;
+    # dequantize_fp8 is the int8 dequantize's pallas_call fed e4m3 rows
+    for name, line in (("quantize_fp8", 282), ("dequantize_fp8", 156)):
+        rows.append((name, "consensusml_tpu_torch/csrc/int8_codec.cu", f"consensusml_tpu/compress/kernels.py:{line}",
+                     {**fp8["largest"][name], "by_shape": {k: v[name] for k, v in fp8.items()}}))
     # the int4 pair at the largest bucket's value rows, the median's beside
     for name, line in (("quantize_int4", 205), ("dequantize_int4", 242)):
         rows.append((name, "consensusml_tpu_torch/csrc/int4_codec.cu", f"consensusml_tpu/compress/kernels.py:{line}",
@@ -1635,19 +1929,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     from consensusml_tpu_torch import configs
 
-    # the stacked numpy initial parameters, drawn once for the three GPT-2 train phases
+    # the stacked numpy initial parameters, drawn once for the five GPT-2 train phases
     t0 = time.perf_counter()
     init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
     init_s = time.perf_counter() - t0
     for path, codec_name, norm_impl in (("train", "int8", "flax"), ("train_topk", None, "flax"),
-                                        ("train_topk_int4_ln", "topk_int4", "pallas")):
-        line, counts = train_phase(torch, dev, init, codec_name, norm_impl)
+                                        ("train_topk_int4_ln", "topk_int4", "pallas"),
+                                        ("train_int4", "int4", "flax"), ("train_fp8", "fp8", "flax")):
+        line, counts, state, bundle = train_phase(torch, dev, init, codec_name, norm_impl,
+                                                  keep_state=path == "train_fp8")
         if path == "train":
             line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
         emit(line)
         for name, n in counts.items():
             launches[name][path] = n
     del init
+    line, counts = gossip_two_step_phase(torch, dev, state, bundle)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["gossip_fp8_two_step"] = n
+    del state, bundle
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ResNet-50's stacked initial variables, drawn once for both ResNet phases
@@ -1668,7 +1970,7 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
-         **({"by_shape": r["by_shape"]} if "by_shape" in r else {})}
+         **{k: r[k] for k in ("by_shape", "by_format") if k in r}}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

@@ -30,12 +30,18 @@ __all__ = [
     "Compressor",
     "Int8Payload",
     "Int4Payload",
+    "Fp8Payload",
     "TopKPayload",
     "LocalTopKPayload",
     "ComposedCompressor",
     "static_k",
     "worker_rows",
+    "FP8_E4M3_MAX",
 ]
+
+# float8_e4m3fn's largest finite value: the "levels" of the fp8 codecs, as
+# 127 is int8's and 7 int4's
+FP8_E4M3_MAX = 448.0
 
 
 def static_k(size: int, ratio: float, k: int | None) -> int:
@@ -90,6 +96,23 @@ class Int4Payload:
 
 
 @dataclasses.dataclass(frozen=True)
+class Fp8Payload:
+    """Per-chunk scaled float8 (e4m3fn): ``scale = absmax / 448`` a chunk,
+    so each chunk's largest magnitude lands on the format's largest finite
+    value and the rest keep e4m3's three mantissa bits of relative
+    precision. One byte an element, as int8; a zero chunk gets scale 0."""
+
+    data: torch.Tensor  # (padded_n,) float8_e4m3fn, or (W, padded_n) stacked
+    scales: torch.Tensor  # (num_chunks,) float32, or (W, num_chunks)
+    shape: tuple[int, ...]
+    dtype: Any
+    chunk: int
+
+    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
+        return (self.data, self.scales)
+
+
+@dataclasses.dataclass(frozen=True)
 class TopKPayload:
     """Top-k sparse tensor: k signed values + flat int32 indices."""
 
@@ -132,8 +155,8 @@ class Compressor(abc.ABC):
 
     def fused_wire(self) -> str | None:
         """Wire format tag of the fused one-pass encode (``"int8"``,
-        ``"int4"``), or ``None`` for codecs that keep the two-step path
-        (only the int8 format of the fused encode is ported)."""
+        ``"int4"``, ``"fp8"``), or ``None`` for codecs that keep the
+        two-step path."""
         return None
 
     @abc.abstractmethod

@@ -7,23 +7,24 @@ launches its CUDA kernel for CUDA tensors, raising on what the kernel
 does not take (never falling back). Each launch adds one to the
 wrapper's ``launches``.
 
-- :func:`quantize_int8` / :func:`dequantize_int8`: ``csrc/int8_codec.cu``;
+- :func:`quantize_int8` / :func:`dequantize_int8`, :func:`quantize_fp8` /
+  :func:`dequantize_fp8`: ``csrc/int8_codec.cu``;
 - :func:`quantize_int4` / :func:`dequantize_int4`: ``csrc/int4_codec.cu``;
 - :func:`chunked_topk`: ``csrc/chunked_topk.cu``;
 - :func:`chunk_scatter`: ``csrc/chunk_scatter.cu``;
 - :func:`fused_pack_quantize` (the fused one-pass CHOCO encode of the
-  bucketed wire, int8): ``csrc/fused_choco_encode.cu``.
+  bucketed wire, int8, int4 and fp8): ``csrc/fused_choco_encode.cu``;
+- :func:`fused_dequantize_accumulate` (the fused wire's receive, ``s +
+  sum_j w_j dec(q_j)``): ``csrc/fused_choco_decode.cu``.
 
-The codecs: :class:`PallasInt8Compressor` and :class:`PallasInt4Compressor`
-(names kept from the reference so a reader finds the counterpart),
-:class:`ChunkedTopKCompressor`, and the fused wire's
-:class:`FusedBucketCodec`. The reference's ``impl`` field of these codecs
-has no counterpart: every wrapper picks kernel or plain version by the
-tensor's device. Still to port (ROADMAP Queue B): fp8, the int4/fp8
-formats of the fused encode, and the receive-side
-``fused_dequantize_accumulate`` kernel (:meth:`FusedBucketCodec.
-decode_accumulate` is plain ops here; the simulated backend mixes the
-decoded innovations with the mixing matrix and never calls it).
+The codecs: :class:`PallasInt8Compressor`, :class:`PallasInt4Compressor`
+and :class:`PallasFp8Compressor` (names kept from the reference so a
+reader finds the counterpart), :class:`ChunkedTopKCompressor`, and the
+fused wire's :class:`FusedBucketCodec`. The reference's ``impl`` field of
+these codecs has no counterpart: every wrapper picks kernel or plain
+version by the tensor's device. The simulated backend decodes the fused
+wire with plain ops and mixes through the matrix; only the collective
+round (not ported) calls :meth:`FusedBucketCodec.decode_accumulate`.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ import torch
 
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.compress.base import (
+    FP8_E4M3_MAX,
     Compressor,
+    Fp8Payload,
     Int4Payload,
     Int8Payload,
     LocalTopKPayload,
@@ -46,11 +49,15 @@ from consensusml_tpu_torch.compress.base import (
 )
 from consensusml_tpu_torch.compress.reference import (
     chunk_rows,
+    dequantize_rows,
+    flush_subnormals,
     fma_f32,
+    from_e4m3,
     pack_int4,
     quantize_rows,
     round_clip_int4,
     round_clip_int8,
+    to_e4m3,
     topk_by_magnitude,
     unchunk,
     unpack_int4,
@@ -59,6 +66,7 @@ from consensusml_tpu_torch.compress.reference import (
 __all__ = [
     "PallasInt8Compressor",
     "PallasInt4Compressor",
+    "PallasFp8Compressor",
     "ChunkedTopKCompressor",
     "FusedBucketCodec",
     "fused_bucket_codec",
@@ -70,12 +78,18 @@ __all__ = [
     "quantize_int4_plain",
     "dequantize_int4",
     "dequantize_int4_plain",
+    "quantize_fp8",
+    "quantize_fp8_plain",
+    "dequantize_fp8",
+    "dequantize_fp8_plain",
     "chunked_topk",
     "chunked_topk_plain",
     "chunk_scatter",
     "chunk_scatter_plain",
     "fused_pack_quantize",
     "fused_pack_quantize_plain",
+    "fused_dequantize_accumulate",
+    "fused_dequantize_accumulate_plain",
 ]
 
 _LANE = 128  # the reference's chunk granularity; the CUDA kernels' too (32 lanes x float4)
@@ -123,16 +137,54 @@ def _stream(t: torch.Tensor) -> int:
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+def _launch_quantize(wrapper, source: str, chunks: torch.Tensor, dtype: torch.dtype, width: int):
+    """``wrapper``'s per-row quantize kernel (``cml_<wrapper name>`` in
+    ``csrc/<source>.cu``) on contiguous f32 CUDA rows: ``(codes (R,
+    width) dtype, scales (R,) f32)``."""
+    rows, chunk = chunks.shape
+    _check_chunk(wrapper.__name__, chunk)
+    _check_operand("chunks", chunks, torch.float32, chunks.device)
+    q = torch.empty((rows, width), dtype=dtype, device=chunks.device)
+    scales = torch.empty((rows,), dtype=torch.float32, device=chunks.device)
+    if rows:
+        fn = _bind(source, f"cml_{wrapper.__name__}", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(chunks.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, chunk, _stream(chunks))
+        _launched(wrapper, wrapper.__name__, rc)
+    return q, scales
+
+
+def _launch_dequantize(wrapper, source: str, q: torch.Tensor, scales: torch.Tensor, dtype: torch.dtype,
+                       chunk: int) -> torch.Tensor:
+    """``wrapper``'s per-row dequantize kernel on ``(R, .)`` codes of
+    ``dtype`` and ``(R,)`` f32 scales: ``(R, chunk)`` f32."""
+    rows = q.shape[0]
+    _check_chunk(wrapper.__name__, chunk)
+    _check_operand("q", q, dtype, q.device)
+    _check_operand("scales", scales, torch.float32, q.device)
+    out = torch.empty((rows, chunk), dtype=torch.float32, device=q.device)
+    if rows:
+        fn = _bind(source, f"cml_{wrapper.__name__}", [_P, _P, _P, _LL, _I, _P])
+        rc = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, chunk, _stream(q))
+        _launched(wrapper, wrapper.__name__, rc)
+    return out
+
+
+def _check_codes(q: torch.Tensor, scales: torch.Tensor) -> None:
+    if q.dim() != 2 or scales.shape != q.shape[:1]:
+        raise ValueError(f"codes must be (R, .) and scales (R,), got {tuple(q.shape)} {tuple(scales.shape)}")
+
+
 # ---------------------------------------------------------------------------
-# int8 quantize / dequantize: kernels + plain versions
+# int8, int4 and fp8 (e4m3) quantize / dequantize: kernels + plain versions
 # ---------------------------------------------------------------------------
 
 
 def quantize_int8_plain(chunks: torch.Tensor):
     """``(R, C)`` f32 rows -> ``(q int8 (R, C), scales (R,))``: the
-    reference's ``_quant_kernel`` as XLA compiles it."""
-    scales, inv = quantize_rows(chunks)
-    return round_clip_int8(chunks * inv[:, None]), scales
+    reference's ``_quant_kernel`` as XLA compiles it (subnormals flushed,
+    :func:`~.reference.quantize_rows`)."""
+    y, scales = quantize_rows(chunks)
+    return round_clip_int8(y), scales
 
 
 def quantize_int8(chunks: torch.Tensor):
@@ -144,16 +196,7 @@ def quantize_int8(chunks: torch.Tensor):
         raise ValueError(f"chunks must be (R, C), got {tuple(chunks.shape)}")
     if not chunks.is_cuda:
         return quantize_int8_plain(chunks)
-    rows, chunk = chunks.shape
-    _check_chunk("int8 quantize", chunk)
-    _check_operand("chunks", chunks, torch.float32, chunks.device)
-    q = torch.empty((rows, chunk), dtype=torch.int8, device=chunks.device)
-    scales = torch.empty((rows,), dtype=torch.float32, device=chunks.device)
-    if rows:
-        fn = _bind("int8_codec", "cml_quantize_int8", [_P, _P, _P, _LL, _I, _P])
-        rc = fn(chunks.data_ptr(), q.data_ptr(), scales.data_ptr(), rows, chunk, _stream(chunks))
-        _launched(quantize_int8, "quantize_int8", rc)
-    return q, scales
+    return _launch_quantize(quantize_int8, "int8_codec", chunks, torch.int8, chunks.shape[1])
 
 
 quantize_int8.launches = 0
@@ -161,35 +204,20 @@ quantize_int8.launches = 0
 
 def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``float(q) * scale`` per row, one rounding: ``_dequant_kernel``."""
-    return q.to(torch.float32) * scales[:, None]
+    return dequantize_rows(q.to(torch.float32), scales)
 
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int8`: ``(R, C)`` int8 and ``(R,)`` f32
     scales -> ``(R, C)`` f32. CPU tensors run :func:`dequantize_int8_plain`;
     CUDA tensors launch ``csrc/int8_codec.cu`` or raise."""
-    if q.dim() != 2 or scales.shape != q.shape[:1]:
-        raise ValueError(f"q must be (R, C) and scales (R,), got {tuple(q.shape)} {tuple(scales.shape)}")
+    _check_codes(q, scales)
     if not q.is_cuda:
         return dequantize_int8_plain(q, scales)
-    rows, chunk = q.shape
-    _check_chunk("int8 dequantize", chunk)
-    _check_operand("q", q, torch.int8, q.device)
-    _check_operand("scales", scales, torch.float32, q.device)
-    out = torch.empty((rows, chunk), dtype=torch.float32, device=q.device)
-    if rows:
-        fn = _bind("int8_codec", "cml_dequantize_int8", [_P, _P, _P, _LL, _I, _P])
-        rc = fn(q.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, chunk, _stream(q))
-        _launched(dequantize_int8, "dequantize_int8", rc)
-    return out
+    return _launch_dequantize(dequantize_int8, "int8_codec", q, scales, torch.int8, q.shape[1])
 
 
 dequantize_int8.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# int4 quantize / dequantize: kernels + plain versions
-# ---------------------------------------------------------------------------
 
 
 def quantize_int4_plain(chunks: torch.Tensor):
@@ -197,8 +225,8 @@ def quantize_int4_plain(chunks: torch.Tensor):
     (R,))``: ``scale = absmax * f32(1/7)``, codes ``clip(rint(x * inv),
     ±7)`` (NaN to 0) packed two a byte, the reference's ``_quant4_kernel``
     as XLA compiles it."""
-    scales, inv = quantize_rows(chunks, levels=7.0)
-    return pack_int4(round_clip_int4(chunks * inv[:, None])), scales
+    y, scales = quantize_rows(chunks, levels=7.0)
+    return pack_int4(round_clip_int4(y)), scales
 
 
 def quantize_int4(chunks: torch.Tensor):
@@ -210,16 +238,7 @@ def quantize_int4(chunks: torch.Tensor):
         raise ValueError(f"chunks must be (R, C) with C even, got {tuple(chunks.shape)}")
     if not chunks.is_cuda:
         return quantize_int4_plain(chunks)
-    rows, chunk = chunks.shape
-    _check_chunk("int4 quantize", chunk)
-    _check_operand("chunks", chunks, torch.float32, chunks.device)
-    packed = torch.empty((rows, chunk // 2), dtype=torch.uint8, device=chunks.device)
-    scales = torch.empty((rows,), dtype=torch.float32, device=chunks.device)
-    if rows:
-        fn = _bind("int4_codec", "cml_quantize_int4", [_P, _P, _P, _LL, _I, _P])
-        rc = fn(chunks.data_ptr(), packed.data_ptr(), scales.data_ptr(), rows, chunk, _stream(chunks))
-        _launched(quantize_int4, "quantize_int4", rc)
-    return packed, scales
+    return _launch_quantize(quantize_int4, "int4_codec", chunks, torch.uint8, chunks.shape[1] // 2)
 
 
 quantize_int4.launches = 0
@@ -228,7 +247,7 @@ quantize_int4.launches = 0
 def dequantize_int4_plain(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Sign-extended nibbles times their row's scale, one rounding:
     ``_dequant4_kernel``."""
-    return unpack_int4(packed).to(torch.float32) * scales[:, None]
+    return dequantize_rows(unpack_int4(packed).to(torch.float32), scales)
 
 
 def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
@@ -236,23 +255,57 @@ def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     f32 scales -> ``(R, C)`` f32. CPU tensors run
     :func:`dequantize_int4_plain`; CUDA tensors launch
     ``csrc/int4_codec.cu`` or raise."""
-    if packed.dim() != 2 or scales.shape != packed.shape[:1]:
-        raise ValueError(f"packed must be (R, C/2) and scales (R,), got {tuple(packed.shape)} {tuple(scales.shape)}")
+    _check_codes(packed, scales)
     if not packed.is_cuda:
         return dequantize_int4_plain(packed, scales)
-    rows, half = packed.shape
-    _check_chunk("int4 dequantize", 2 * half)
-    _check_operand("packed", packed, torch.uint8, packed.device)
-    _check_operand("scales", scales, torch.float32, packed.device)
-    out = torch.empty((rows, 2 * half), dtype=torch.float32, device=packed.device)
-    if rows:
-        fn = _bind("int4_codec", "cml_dequantize_int4", [_P, _P, _P, _LL, _I, _P])
-        rc = fn(packed.data_ptr(), scales.data_ptr(), out.data_ptr(), rows, 2 * half, _stream(packed))
-        _launched(dequantize_int4, "dequantize_int4", rc)
-    return out
+    return _launch_dequantize(dequantize_int4, "int4_codec", packed, scales, torch.uint8, 2 * packed.shape[1])
 
 
 dequantize_int4.launches = 0
+
+
+def quantize_fp8_plain(chunks: torch.Tensor):
+    """``(R, C)`` f32 rows -> ``(q float8_e4m3fn (R, C), scales (R,))``:
+    ``scale = absmax * f32(1/448)``, ``q = e4m3(x * inv)`` (round to
+    nearest even; NaN, inf and overflow to NaN), the reference's
+    ``_quant_fp8_kernel`` as XLA compiles it."""
+    y, scales = quantize_rows(chunks, levels=FP8_E4M3_MAX)
+    return to_e4m3(y), scales
+
+
+def quantize_fp8(chunks: torch.Tensor):
+    """Per-row scaled e4m3 of ``(R, C)`` f32 rows (see
+    :func:`quantize_fp8_plain`). CPU tensors run the plain version; CUDA
+    tensors launch ``csrc/int8_codec.cu`` (contiguous f32, C a multiple of
+    128) or raise."""
+    if chunks.dim() != 2:
+        raise ValueError(f"chunks must be (R, C), got {tuple(chunks.shape)}")
+    if not chunks.is_cuda:
+        return quantize_fp8_plain(chunks)
+    return _launch_quantize(quantize_fp8, "int8_codec", chunks, torch.float8_e4m3fn, chunks.shape[1])
+
+
+quantize_fp8.launches = 0
+
+
+def dequantize_fp8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``float(q) * scale`` per row, one rounding, a subnormal product
+    flushed: ``_dequant_kernel`` fed e4m3 rows."""
+    return dequantize_rows(from_e4m3(q), scales)
+
+
+def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_fp8`: ``(R, C)`` e4m3 and ``(R,)`` f32
+    scales -> ``(R, C)`` f32. CPU tensors run :func:`dequantize_fp8_plain`;
+    CUDA tensors launch ``csrc/int8_codec.cu`` (the int8 dequantize's
+    kernel on e4m3 input) or raise."""
+    _check_codes(q, scales)
+    if not q.is_cuda:
+        return dequantize_fp8_plain(q, scales)
+    return _launch_dequantize(dequantize_fp8, "int8_codec", q, scales, torch.float8_e4m3fn, q.shape[1])
+
+
+dequantize_fp8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -352,49 +405,161 @@ chunk_scatter.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# fused CHOCO encode: kernel + plain version
+# the fused wire's formats, encode and decode: kernels + plain versions
 # ---------------------------------------------------------------------------
 
+# format -> (levels, values a wire byte-lane, wire dtype, payload class,
+# the id the CUDA sources take)
+_FUSED_FORMATS = {
+    "int8": (127.0, 1, torch.int8, Int8Payload, 0),
+    "int4": (7.0, 2, torch.uint8, Int4Payload, 1),
+    "fp8": (FP8_E4M3_MAX, 1, torch.float8_e4m3fn, Fp8Payload, 2),
+}
+# the decode kernel takes at most this many sources (self + neighbours)
+_DECODE_MAX_SOURCES = 8
 
-def fused_pack_quantize_plain(x: torch.Tensor, xhat: torch.Tensor):
-    """``(q, scales, xhat')`` with ``xhat' = q * scale + xhat`` rounded
-    once: the reference's ``xhat + dec`` as XLA compiles it (a fused
-    multiply-add; rounding the product first differs in ~8% of elements)."""
-    q, scales = quantize_int8_plain(x - xhat)
-    return q, scales, fma_f32(q, scales[:, None], xhat)
+
+def _fused_format(fmt: str):
+    if fmt not in _FUSED_FORMATS:
+        raise ValueError(f"unknown fused wire format {fmt!r} (one of {list(_FUSED_FORMATS)})")
+    return _FUSED_FORMATS[fmt]
+
+
+def _fused_codes(y: torch.Tensor, fmt: str):
+    """Scaled rows -> ``(wire data, the codes' f32 values)``: the quantize
+    half of the reference's ``_fused_quant``."""
+    if fmt == "int8":
+        q = round_clip_int8(y)
+        return q, q.to(torch.float32)
+    if fmt == "int4":
+        q = round_clip_int4(y)
+        return pack_int4(q), q.to(torch.float32)
+    q = to_e4m3(y)
+    return q, from_e4m3(q)
+
+
+def _code_values(data: torch.Tensor, fmt: str) -> torch.Tensor:
+    """``(R, wire_width)`` wire rows -> ``(R, chunk)`` f32 code values
+    (int4 nibbles sign-extended): the reference's ``_fused_dequant``
+    before its product with the scale."""
+    if fmt == "int4":
+        return unpack_int4(data).to(torch.float32)
+    if fmt == "fp8":
+        return from_e4m3(data)
+    return data.to(torch.float32)
+
+
+def fused_pack_quantize_plain(x: torch.Tensor, xhat: torch.Tensor, fmt: str = "int8"):
+    """``(data, scales, xhat')`` of the fused encode, as XLA compiles the
+    reference's ``_fused_encode_kernel``: ``d = x - xhat``, the codec's
+    payload of ``d`` and ``xhat' = q * scale + xhat`` rounded once (a fused
+    multiply-add; rounding the product first differs in ~3-11% of
+    elements), with subnormal inputs read and results written as zeros."""
+    levels = _fused_format(fmt)[0]
+    h = flush_subnormals(xhat)
+    y, scales = quantize_rows(flush_subnormals(x) - h, levels)
+    data, codes = _fused_codes(y, fmt)
+    return data, scales, flush_subnormals(fma_f32(codes, scales[:, None], h))
 
 
 def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8"):
     """Fused wire ENCODE over ``(R, chunk)`` f32 rows: ``q = Q(x - xhat)``
     with per-row scales, plus the CHOCO tracking update ``xhat' = xhat +
-    q * scale`` (one rounding). Returns ``(q int8 (R, chunk), scales (R,)
-    f32, xhat')``.
+    q * scale`` (one rounding). Returns ``(data, scales (R,) f32, xhat')``,
+    ``data`` int8 ``(R, chunk)``, packed int4 uint8 ``(R, chunk / 2)`` or
+    e4m3 ``(R, chunk)`` by ``fmt``: the bytes the stand-alone codec of the
+    format ships for ``x - xhat``.
 
     CPU tensors run :func:`fused_pack_quantize_plain`; CUDA tensors launch
     ``csrc/fused_choco_encode.cu`` (contiguous f32, chunk a multiple of
     128) or raise."""
-    if fmt != "int8":
-        raise NotImplementedError(f"fused wire format {fmt!r} is not ported yet (int8 only)")
-    if x.shape != xhat.shape or x.dim() != 2:
-        raise ValueError(f"x and xhat must be one (R, chunk) shape, got {tuple(x.shape)} {tuple(xhat.shape)}")
+    _levels, pack, dtype, _cls, fmt_id = _fused_format(fmt)
+    if x.shape != xhat.shape or x.dim() != 2 or x.shape[1] % pack:
+        raise ValueError(f"x and xhat must be one (R, chunk) shape (chunk a multiple of {pack}), "
+                         f"got {tuple(x.shape)} {tuple(xhat.shape)}")
     if not x.is_cuda:
-        return fused_pack_quantize_plain(x, xhat)
+        return fused_pack_quantize_plain(x, xhat, fmt)
     rows, chunk = x.shape
     _check_chunk("encode", chunk)
     for name, t in (("x", x), ("xhat", xhat)):
         _check_operand(name, t, torch.float32, x.device)
-    q = torch.empty((rows, chunk), dtype=torch.int8, device=x.device)
+    data = torch.empty((rows, chunk // pack), dtype=dtype, device=x.device)
     scales = torch.empty((rows,), dtype=torch.float32, device=x.device)
     hat = torch.empty_like(x)
     if rows:
-        fn = _bind("fused_choco_encode", "cml_fused_choco_encode_int8", [_P, _P, _P, _P, _P, _LL, _I, _P])
-        rc = fn(x.data_ptr(), xhat.data_ptr(), q.data_ptr(), scales.data_ptr(), hat.data_ptr(),
-                rows, chunk, _stream(x))
+        fn = _bind("fused_choco_encode", "cml_fused_choco_encode", [_P, _P, _P, _P, _P, _LL, _I, _I, _P])
+        rc = fn(x.data_ptr(), xhat.data_ptr(), data.data_ptr(), scales.data_ptr(), hat.data_ptr(),
+                rows, chunk, fmt_id, _stream(x))
         _launched(fused_pack_quantize, "fused_choco_encode", rc)
-    return q, scales, hat
+    return data, scales, hat
 
 
 fused_pack_quantize.launches = 0
+
+
+def fused_dequantize_accumulate_plain(s: torch.Tensor, sources, *, fmt: str, weights) -> torch.Tensor:
+    """``s + sum_j weights[j] * dec(q_j)`` over ``(R, chunk)`` f32 rows,
+    ``sources`` the ``(data, scales)`` of each payload, self first: the
+    reference's ``_fused_decode_kernel`` as XLA compiles it. Each ``dec =
+    q * scale`` is rounded; the weighted sum fuses its first product
+    (``fma(w0, d0, w1 d1)``) and each later ``+ wj dj`` (``fma(wj, dj,
+    .)``), and ``s`` joins last, on its own rounding; with one source it
+    is ``fma(w0, d0, s)``. Subnormal inputs and results are zeros."""
+    decs = [dequantize_rows(_code_values(data, fmt), scales) for data, scales in sources]
+    w = [torch.tensor(np.float32(wj), device=s.device) for wj in weights]
+    base = flush_subnormals(s)
+    if len(decs) == 1:
+        return flush_subnormals(fma_f32(w[0], decs[0], base))
+    recv = flush_subnormals(fma_f32(w[0], decs[0], flush_subnormals(w[1] * decs[1])))
+    for wj, dj in zip(w[2:], decs[2:]):
+        recv = flush_subnormals(fma_f32(wj, dj, recv))
+    return flush_subnormals(base + recv)
+
+
+def fused_dequantize_accumulate(s: torch.Tensor, sources, *, fmt: str, weights) -> torch.Tensor:
+    """Fused wire DECODE: ``s' = s + sum_j weights[j] * dec(q_j)`` in one
+    pass over ``(R, chunk)`` f32 rows (see
+    :func:`fused_dequantize_accumulate_plain`); ``sources`` holds each
+    payload's ``(data (R, wire_width), scales (R,))``, self first,
+    ``weights`` the mixing weights in the same order.
+
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/fused_choco_decode.cu`` (contiguous operands, chunk a multiple
+    of 128, at most 8 sources) or raise."""
+    _levels, pack, dtype, _cls, fmt_id = _fused_format(fmt)
+    weights = tuple(float(w) for w in weights)
+    sources = list(sources)
+    if s.dim() != 2 or s.shape[1] % pack:
+        raise ValueError(f"s must be (R, chunk) with chunk a multiple of {pack}, got {tuple(s.shape)}")
+    if not sources or len(sources) != len(weights):
+        raise ValueError(f"{len(sources)} sources vs {len(weights)} weights (at least one of each)")
+    rows, chunk = s.shape
+    for data, scales in sources:
+        if tuple(data.shape) != (rows, chunk // pack) or tuple(scales.shape) != (rows,):
+            raise ValueError(f"a source must be ({rows}, {chunk // pack}) data and ({rows},) scales, "
+                             f"got {tuple(data.shape)} {tuple(scales.shape)}")
+    if not s.is_cuda:
+        return fused_dequantize_accumulate_plain(s, sources, fmt=fmt, weights=weights)
+    _check_chunk("decode", chunk)
+    if len(sources) > _DECODE_MAX_SOURCES:
+        raise ValueError(f"the CUDA decode takes at most {_DECODE_MAX_SOURCES} sources, got {len(sources)}")
+    _check_operand("s", s, torch.float32, s.device)
+    for data, scales in sources:
+        _check_operand("data", data, dtype, s.device)
+        _check_operand("scales", scales, torch.float32, s.device)
+    out = torch.empty_like(s)
+    if rows:
+        n = len(sources)
+        data_ptrs = (ctypes.c_void_p * n)(*(d.data_ptr() for d, _ in sources))
+        scale_ptrs = (ctypes.c_void_p * n)(*(sc.data_ptr() for _, sc in sources))
+        wts = (ctypes.c_float * n)(*(float(np.float32(w)) for w in weights))
+        fn = _bind("fused_choco_decode", "cml_fused_choco_decode", [_P, _P, _P, _P, _I, _P, _LL, _I, _I, _P])
+        rc = fn(s.data_ptr(), data_ptrs, scale_ptrs, wts, n, out.data_ptr(), rows, chunk, fmt_id, _stream(s))
+        _launched(fused_dequantize_accumulate, "fused_dequantize_accumulate", rc)
+    return out
+
+
+fused_dequantize_accumulate.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -442,9 +607,9 @@ class PallasInt4Compressor(Compressor):
     :func:`dequantize_int4` (:class:`Int4Payload`). Its payloads equal
     :class:`~.reference.Int4Compressor`'s, except that the chunk is clamped
     to the tensor rounded up to 128, as the reference's kernel path does.
-    Its fused-wire tag is ``"int4"``, whose fused encode is not ported, so
-    an engine refuses it bare; inside the top-k codec (which has no fused
-    wire) it rides the two-step wire."""
+    Bare, it rides the fused wire in its ``"int4"`` format (``--codec
+    int4``); inside the top-k codec (which has no fused wire) it rides the
+    two-step wire."""
 
     chunk: int = 512
 
@@ -468,6 +633,40 @@ class PallasInt4Compressor(Compressor):
     def decompress(self, payload: Int4Payload) -> torch.Tensor:
         packed = payload.data.reshape(-1, payload.chunk // 2)
         return unchunk(dequantize_int4(packed, payload.scales.reshape(-1)), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class PallasFp8Compressor(Compressor):
+    """Per-chunk scaled e4m3 codec on :func:`quantize_fp8` /
+    :func:`dequantize_fp8` (:class:`Fp8Payload`). Its payloads equal
+    :class:`~.reference.Fp8Compressor`'s, except that the chunk is clamped
+    to the tensor rounded up to 128, as the reference's kernel path does.
+    Bare, it rides the fused wire in its ``"fp8"`` format (``--codec
+    fp8``); with ``fused_wire=False`` the two-step wire runs its two
+    kernels."""
+
+    chunk: int = 512
+
+    def __post_init__(self):
+        if self.chunk % _LANE:
+            raise ValueError(f"chunk must be a multiple of {_LANE}, got {self.chunk}")
+
+    def bucket_alignment(self) -> int | None:
+        return self.chunk
+
+    def fused_wire(self) -> str | None:
+        return "fp8"
+
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Fp8Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, _round_up(flat.shape[1], _LANE))
+        q, scales = quantize_fp8(chunk_rows(flat, chunk).contiguous())
+        return Fp8Payload(data=q.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                          shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
+
+    def decompress(self, payload: Fp8Payload) -> torch.Tensor:
+        q = payload.data.reshape(-1, payload.chunk)
+        return unchunk(dequantize_fp8(q, payload.scales.reshape(-1)), payload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -598,77 +797,75 @@ class ChunkedTopKCompressor(Compressor):
 
 @dataclasses.dataclass(frozen=True)
 class FusedBucketCodec:
-    """One-pass pack+quantize wire over flat bucket buffers: ``(total,)``
-    per worker or stacked ``(W, total)`` — reshaped to chunk rows either
-    way, so the worker axis only adds rows and one launch covers every
-    worker's copy of a bucket. The encode is the :func:`fused_pack_quantize`
-    wrapper: the kernel for CUDA tensors, the plain version for CPU ones.
+    """One-pass pack+quantize wire over flat bucket buffers, in one of the
+    formats ``"int8"``, ``"int4"`` or ``"fp8"``: ``(total,)`` per worker or
+    stacked ``(W, total)`` — reshaped to chunk rows either way, so the
+    worker axis only adds rows and one launch covers every worker's copy
+    of a bucket. The encode is the :func:`fused_pack_quantize` wrapper and
+    :meth:`decode_accumulate` the :func:`fused_dequantize_accumulate` one:
+    the kernels for CUDA tensors, the plain versions for CPU ones.
+    :meth:`decode` is plain ops, as the reference leaves it to XLA.
     """
 
     fmt: str
     chunk: int
 
     def __post_init__(self):
-        if self.fmt != "int8":
-            raise NotImplementedError(f"fused wire format {self.fmt!r} is not ported yet (int8 only)")
+        _fused_format(self.fmt)
+        if self.fmt == "int4" and self.chunk % 2:
+            raise ValueError(f"the int4 fused wire needs an even chunk, got {self.chunk}")
 
     @property
     def wire_width(self) -> int:
-        return self.chunk
+        """Wire bytes of one chunk row (int4 packs two values a byte)."""
+        return self.chunk // _fused_format(self.fmt)[1]
 
     def encode(self, x: torch.Tensor, xhat: torch.Tensor):
         """``(payload, new_xhat)`` for one bucket buffer: the codec's exact
         payload of ``x - xhat`` plus ``xhat + dec(payload)``."""
         lead = tuple(x.shape[:-1])
         total = x.shape[-1]
-        x2 = x.reshape(-1, self.chunk)
-        h2 = xhat.reshape(-1, self.chunk)
-        data, scales, hat = fused_pack_quantize(x2, h2, fmt=self.fmt)
-        payload = Int8Payload(
+        data, scales, hat = fused_pack_quantize(x.reshape(-1, self.chunk), xhat.reshape(-1, self.chunk),
+                                                fmt=self.fmt)
+        payload = _fused_format(self.fmt)[3](
             data=data.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
             shape=(total,), dtype=torch.float32, chunk=self.chunk,
         )
         return payload, hat.reshape(x.shape)
 
-    def decode(self, payload: Int8Payload) -> torch.Tensor:
-        """Dense f32 decode, ``q * scale`` (plain elementwise ops, as the
-        reference leaves it to XLA)."""
+    def _rows(self, payload):
+        return payload.data.reshape(-1, self.wire_width), payload.scales.reshape(-1)
+
+    def decode(self, payload) -> torch.Tensor:
+        """Dense f32 decode, ``q * scale`` (int4 nibbles sign-extended)."""
         lead = tuple(payload.data.shape[:-1])
-        dec = payload.data.reshape(-1, self.wire_width).to(torch.float32) * payload.scales.reshape(-1, 1)
-        return dec.reshape(lead + (-1,))
+        data, scales = self._rows(payload)
+        return dequantize_rows(_code_values(data, self.fmt), scales).reshape(lead + (-1,))
 
     def decode_accumulate(self, s: torch.Tensor, payloads, weights) -> torch.Tensor:
-        """``s + sum_j weights[j] * dec(payloads[j])``: weighted payloads
-        summed first (self, then each neighbour), ``s`` added last — the
-        reference's order, with the roundings of the program XLA compiles
-        from it: ``w0 d0 + w1 d1`` fuses the first product
-        (``fma(w0, d0, w1 d1)``), each later ``+ wj dj`` is ``fma(wj, dj,
-        .)``, and ``s +`` rounds on its own (bit-equal for the ring's three
-        sources, tests/test_torch_codec.py). Plain ops: its kernel comes
-        with the collective backend."""
+        """``s + sum_j weights[j] * dec(payloads[j])`` (self first, then
+        each neighbour): the collective round's receive, one
+        :func:`fused_dequantize_accumulate` launch for CUDA tensors."""
         weights = tuple(float(w) for w in weights)
         if len(payloads) != len(weights):
             raise ValueError(f"{len(payloads)} payloads vs {len(weights)} weights")
-        decs = [self.decode(p).reshape(s.shape) for p in payloads]
-        w = [torch.tensor(wj, dtype=torch.float32, device=s.device) for wj in weights]
-        if len(decs) == 1:
-            return s + w[0] * decs[0]
-        recv = fma_f32(w[0], decs[0], w[1] * decs[1])
-        for wj, dj in zip(w[2:], decs[2:]):
-            recv = fma_f32(wj, dj, recv)
-        return s + recv
+        sources = [tuple(t.contiguous() for t in self._rows(p)) for p in payloads]
+        out = fused_dequantize_accumulate(s.reshape(-1, self.chunk).contiguous(), sources, fmt=self.fmt,
+                                          weights=weights)
+        return out.reshape(s.shape)
 
 
 def fused_bucket_codec(comp: Compressor) -> FusedBucketCodec | None:
     """The fused wire for ``comp``, or ``None`` when it cannot ride it (no
-    ``fused_wire()`` tag, a stochastic codec, or no chunk alignment).
-    Raises ``NotImplementedError`` for a format whose fused encode is not
-    ported (int4, fp8). On a CUDA tensor the encode's wrapper refuses a
-    chunk that is not a multiple of 128."""
+    ``fused_wire()`` tag, a stochastic codec, an alignment below 2, or an
+    odd one for int4): the reference's rules. Its third, a kernel-path
+    alignment that is not a multiple of 128, cannot arise here: the
+    kernel-backed codecs refuse such a chunk, and on a CUDA tensor the
+    encode's wrapper refuses one (it never falls back)."""
     fmt = comp.fused_wire()
     if fmt is None or comp.stochastic:
         return None
     align = comp.bucket_alignment()
-    if align is None or align < 2:
+    if align is None or align < 2 or (fmt == "int4" and align % 2):
         return None
     return FusedBucketCodec(fmt=fmt, chunk=align)

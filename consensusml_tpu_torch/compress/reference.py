@@ -1,17 +1,26 @@
 """Reference codec semantics in plain PyTorch (port of
-``consensusml_tpu/compress/reference.py``: the int8, int4 and top-k
+``consensusml_tpu/compress/reference.py``: the int8, int4, fp8 and top-k
 codecs).
 
 These define the numbers every kernel must reproduce bit for bit:
 flatten, zero-pad to whole chunks, ``scale = absmax * f32(1/levels)`` per
-chunk (levels 127 for int8, 7 for int4; see :func:`quantize_rows`),
-``inv = 1 / scale`` (0 for a zero chunk), ``q = clip(rint(x * inv),
-±levels)`` with round-half-to-even and NaN to 0, decode ``q * scale``.
-Int4 packs two codes a byte, element ``j`` of a chunk in the low nibble
-and element ``j + chunk / 2`` in the high one. Top-k picks the k
-largest magnitudes, equal magnitudes going to the lower index (the
+chunk (levels 127 for int8, 7 for int4, 448 for fp8; see
+:func:`quantize_rows`), ``inv = 1 / scale`` (0 for a zero chunk), ``y = x
+* inv``, then ``q = clip(rint(y), ±levels)`` with round-half-to-even and
+NaN to 0 (int8, int4) or ``q = e4m3(y)`` (fp8, :func:`to_e4m3`), decode
+``q * scale``. Int4 packs two codes a byte, element ``j`` of a chunk in
+the low nibble and element ``j + chunk / 2`` in the high one. Top-k picks
+the k largest magnitudes, equal magnitudes going to the lower index (the
 ``jax.lax.top_k`` order; ``torch.topk`` promises no order among ties, so
 selection here is a stable descending sort, :func:`topk_by_magnitude`).
+
+f32 subnormals: the reference's compiled program treats every subnormal
+input of its arithmetic as a signed zero and flushes every subnormal
+result to one (the CPU runs XLA's programs with flush-to-zero and
+denormals-are-zero set; the TPU has no f32 subnormals). PyTorch keeps
+them, so the codecs flush explicitly (:func:`flush_subnormals`) where it
+changes a result: the input rows, the scale, the decoded values and the
+CHOCO tracking update.
 """
 
 from __future__ import annotations
@@ -24,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from consensusml_tpu_torch.compress.base import (
+    FP8_E4M3_MAX,
     ComposedCompressor,
     Compressor,
+    Fp8Payload,
     Int4Payload,
     Int8Payload,
     TopKPayload,
@@ -36,10 +47,15 @@ from consensusml_tpu_torch.compress.base import (
 __all__ = [
     "Int8Compressor",
     "Int4Compressor",
+    "Fp8Compressor",
     "TopKCompressor",
     "topk_int8_compressor",
     "topk_int4_compressor",
+    "flush_subnormals",
     "quantize_rows",
+    "dequantize_rows",
+    "to_e4m3",
+    "from_e4m3",
     "round_clip_int8",
     "round_clip_int4",
     "pack_int4",
@@ -63,24 +79,71 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
 
 
+_F32_MIN_NORMAL = 2.0**-126
+_E4M3_NAN = 0x7F  # e4m3fn's NaN code, with the sign bit clear
+# the f32 e4m3fn's NaN codes decode to, by sign: the reference's bits (PyTorch's
+# own cast gives another NaN payload)
+_F32_QNAN = (0x7FC00000, -0x400000)  # 0x7FC00000 and 0xFFC00000 as int32
+# e4m3fn has no inf: the reference casts |y| > 464 (the midpoint between
+# 448 and the NaN code's 480) to NaN, where PyTorch saturates to 448
+_E4M3_OVERFLOW = 464.0
+
+
+def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every subnormal f32 replaced by a zero of its sign (NaN
+    and the rest unchanged): what the reference's compiled program makes
+    of a subnormal input or result of its arithmetic (module docstring)."""
+    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
+
+
 def quantize_rows(chunks: torch.Tensor, levels: float = 127.0):
-    """Per-row symmetric scales of ``(C, chunk)`` f32 rows: ``(scales (C,),
-    inv (C,))``. ``amax`` propagates NaN, as ``jnp.max`` does.
+    """Per-row symmetric scaling of ``(C, chunk)`` f32 rows: ``(y (C,
+    chunk), scales (C,))`` with ``y = x * inv``, each code's value before
+    rounding. ``amax`` propagates NaN, as ``jnp.max`` does.
 
     ``scale = absmax * f32(1 / levels)``, not ``absmax / levels``: the
     reference writes the division, but XLA compiles a division by a
     constant into a product with the constant's f32 reciprocal, and every
     path that trains (jitted rounds, the Pallas kernels) runs that product
-    — it differs from the quotient in the last bit for ~8% of rows. ``inv =
-    1 / scale`` is a true division, tensor by tensor (PyTorch may turn a
-    division by a Python scalar into a reciprocal product)."""
-    absmax = chunks.abs().amax(dim=1)
+    — it differs from the quotient in the last bit for ~8% of rows (int8),
+    ~60% (fp8). ``inv = 1 / scale`` is a true division, tensor by tensor
+    (PyTorch may turn a division by a Python scalar into a reciprocal
+    product). Subnormal elements count as zeros and a subnormal scale is
+    flushed to 0, as in the reference: a row of 1e-39 gets scale 0 and
+    codes 0, not codes of 127."""
+    x = flush_subnormals(chunks)
+    absmax = x.abs().amax(dim=1)
     recip = np.float32(1.0) / np.float32(levels)
-    scales = absmax * torch.tensor(recip, dtype=torch.float32, device=absmax.device)
+    scales = flush_subnormals(absmax * torch.tensor(recip, dtype=torch.float32, device=absmax.device))
     pos = scales > 0
     one = torch.ones_like(scales)
     inv = torch.where(pos, one / torch.where(pos, scales, one), torch.zeros_like(scales))
-    return scales, inv
+    return x * inv[:, None], scales
+
+
+def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``codes * scale`` per row of ``(R, chunk)`` f32 code values, one
+    rounding, a subnormal scale read and a subnormal product written as
+    zero (a small e4m3 code times a small scale can be subnormal)."""
+    return flush_subnormals(codes * flush_subnormals(scales)[:, None])
+
+
+def to_e4m3(y: torch.Tensor) -> torch.Tensor:
+    """f32 -> ``float8_e4m3fn`` as the reference casts: round to nearest
+    even (subnormal codes too), NaN, inf and ``|y| > 464`` to the NaN
+    code of ``y``'s sign (PyTorch's cast saturates those at ±448)."""
+    q = y.to(torch.float8_e4m3fn).view(torch.uint8)
+    bad = torch.isnan(y) | (y.abs() > _E4M3_OVERFLOW)
+    nan = (torch.signbit(y).to(torch.uint8) << 7) | _E4M3_NAN
+    return torch.where(bad, nan, q).view(torch.float8_e4m3fn)
+
+
+def from_e4m3(q: torch.Tensor) -> torch.Tensor:
+    """``float8_e4m3fn`` -> f32, exact, a NaN code to the reference's f32
+    NaN of its sign."""
+    f = q.to(torch.float32)
+    nan = torch.tensor(_F32_QNAN, dtype=torch.int32, device=q.device).view(torch.float32)
+    return torch.where(torch.isnan(f), torch.where(torch.signbit(f), nan[1], nan[0]), f)
 
 
 def _round_clip(y: torch.Tensor, levels: float) -> torch.Tensor:
@@ -133,7 +196,7 @@ def topk_by_magnitude(rows: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def unchunk(dense: torch.Tensor, payload) -> torch.Tensor:
-    """Decoded ``(rows, chunk)`` of an int8 or int4 payload back to the
+    """Decoded ``(rows, chunk)`` of an int8, int4 or fp8 payload back to the
     payload's (stacked) shape: per worker, drop the padding."""
     lead = tuple(payload.data.shape[:-1])
     n = math.prod(payload.shape)
@@ -157,15 +220,13 @@ class Int8Compressor(Compressor):
     def compress(self, x: torch.Tensor, stacked: bool = False) -> Int8Payload:
         lead, flat = worker_rows(x, stacked)
         chunk = min(self.chunk, flat.shape[1])
-        chunks = chunk_rows(flat, chunk)
-        scales, inv = quantize_rows(chunks)
-        q = round_clip_int8(chunks * inv[:, None])
-        return Int8Payload(data=q.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+        y, scales = quantize_rows(chunk_rows(flat, chunk))
+        return Int8Payload(data=round_clip_int8(y).reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
                            shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
 
     def decompress(self, payload: Int8Payload) -> torch.Tensor:
-        chunks = payload.data.reshape(-1, payload.chunk).to(torch.float32)
-        return unchunk(chunks * payload.scales.reshape(-1, 1), payload)
+        q = payload.data.reshape(-1, payload.chunk).to(torch.float32)
+        return unchunk(dequantize_rows(q, payload.scales.reshape(-1)), payload)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,15 +248,41 @@ class Int4Compressor(Compressor):
         lead, flat = worker_rows(x, stacked)
         chunk = min(self.chunk, flat.shape[1])
         chunk += chunk % 2
-        chunks = chunk_rows(flat, chunk)
-        scales, inv = quantize_rows(chunks, levels=7.0)
-        data = pack_int4(round_clip_int4(chunks * inv[:, None]))
-        return Int4Payload(data=data.reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
-                           shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
+        y, scales = quantize_rows(chunk_rows(flat, chunk), levels=7.0)
+        return Int4Payload(data=pack_int4(round_clip_int4(y)).reshape(lead + (-1,)),
+                           scales=scales.reshape(lead + (-1,)), shape=tuple(x.shape[len(lead):]),
+                           dtype=x.dtype, chunk=chunk)
 
     def decompress(self, payload: Int4Payload) -> torch.Tensor:
-        q = unpack_int4(payload.data.reshape(-1, payload.chunk // 2))
-        return unchunk(q.to(torch.float32) * payload.scales.reshape(-1, 1), payload)
+        q = unpack_int4(payload.data.reshape(-1, payload.chunk // 2)).to(torch.float32)
+        return unchunk(dequantize_rows(q, payload.scales.reshape(-1)), payload)
+
+
+@dataclasses.dataclass(frozen=True)
+class Fp8Compressor(Compressor):
+    """Per-chunk scaled float8 (e4m3fn) quantization (:class:`Fp8Payload`;
+    the semantics oracle): ``scale = absmax * f32(1/448)``, ``q =
+    e4m3(x * inv)`` (:func:`to_e4m3`). The chunk is clamped to the
+    tensor."""
+
+    chunk: int = 256
+
+    def bucket_alignment(self) -> int | None:
+        return self.chunk
+
+    def fused_wire(self) -> str | None:
+        return "fp8"
+
+    def compress(self, x: torch.Tensor, stacked: bool = False) -> Fp8Payload:
+        lead, flat = worker_rows(x, stacked)
+        chunk = min(self.chunk, flat.shape[1])
+        y, scales = quantize_rows(chunk_rows(flat, chunk), levels=FP8_E4M3_MAX)
+        return Fp8Payload(data=to_e4m3(y).reshape(lead + (-1,)), scales=scales.reshape(lead + (-1,)),
+                          shape=tuple(x.shape[len(lead):]), dtype=x.dtype, chunk=chunk)
+
+    def decompress(self, payload: Fp8Payload) -> torch.Tensor:
+        q = from_e4m3(payload.data.reshape(-1, payload.chunk))
+        return unchunk(dequantize_rows(q, payload.scales.reshape(-1)), payload)
 
 
 @dataclasses.dataclass(frozen=True)

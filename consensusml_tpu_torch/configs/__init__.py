@@ -39,9 +39,11 @@ Codecs (``codec=None`` is the config's own, as ``train.py`` without
   same chunk and k with int4 values (``topk_int4_compressor``, the int4
   stage ``PallasInt4Compressor``), on the two-step wire (top-k, int4
   quantize, int4 dequantize, scatter);
-- ``"int8"``, the reference's ``train.py --codec int8`` variant:
-  ``PallasInt8Compressor`` at the config's chunk, which rides the fused
-  one-pass bucketed wire.
+- ``"int8"``, ``"int4"`` and ``"fp8"``, the reference's ``train.py
+  --codec int8|int4|fp8``: ``PallasInt8Compressor``,
+  ``PallasInt4Compressor`` or ``PallasFp8Compressor`` at the config's
+  chunk rounded up to 128, which ride the fused one-pass bucketed wire
+  (one encode launch a bucket an exchange).
 
 ``norm_impl`` is GPT-2's own field (``GPT2Config.norm_impl``): ``"flax"``
 (the default) or ``"pallas"``, every LayerNorm through the fused-LN CUDA
@@ -65,7 +67,7 @@ __all__ = [
 ]
 
 CONFIGS = ("gpt2_topk", "cifar_resnet50")
-CODECS = ("topk_int8", "topk_int4", "int8")
+CODECS = ("topk_int8", "topk_int4", "int8", "int4", "fp8")
 
 
 def gpt2_config(scale: str = "smoke", dtype: torch.dtype = torch.bfloat16, norm_impl: str = "flax") -> GPT2Config:
@@ -215,7 +217,13 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
 
 def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | None,
                codec_warmup: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
-    from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int4_compressor, topk_int8_compressor
+    from consensusml_tpu_torch.compress import (
+        PallasFp8Compressor,
+        PallasInt4Compressor,
+        PallasInt8Compressor,
+        topk_int4_compressor,
+        topk_int8_compressor,
+    )
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
@@ -239,7 +247,10 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         comp = make(chunk=512, k=8, impl="auto") if full else make(ratio=0.1, chunk=128, impl="auto")
         codec_name = f"{codec}/{chunk} k={comp.inner.k_per_chunk}"
     else:
-        comp, codec_name = PallasInt8Compressor(chunk=chunk), f"int8/{chunk}"
+        # train.py --codec int8|int4|fp8: the kernel tiling's lane multiple
+        chunk = -(-chunk // 128) * 128
+        make = {"int8": PallasInt8Compressor, "int4": PallasInt4Compressor, "fp8": PallasFp8Compressor}[codec]
+        comp, codec_name = make(chunk=chunk), f"{codec}/{chunk}"
     gossip = GossipConfig(
         topology=topology_from_name("ring", world),
         compressor=comp,

@@ -10,9 +10,10 @@ CHOCO-SGD update (gamma = consensus step size, Q = compressor):
 
 The bucketed wire of the simulated backend is ported: exact mixing over
 dense buckets, and CHOCO over codec buckets either through the fused
-one-pass encode (int8: one kernel launch per bucket per exchange) or
-through the two-step wire (any other codec with a ``bucket_alignment``,
-or ``fused_wire=False``: per bucket, ``compress`` then ``decompress`` of
+one-pass encode (the int8, int4 and fp8 quantizers: one kernel launch per
+bucket per exchange) or through the two-step wire (any other codec with
+a ``bucket_alignment``, or ``fused_wire=False``: per bucket, ``compress``
+then ``decompress`` of
 the innovation on the stacked buffer, the worker axis written out where
 the reference vmaps). The warm-up and periodic dense-refresh rounds of
 the reference (``lax.cond`` on the round counter) are a Python ``if`` on
@@ -116,8 +117,8 @@ class GossipConfig:
             if self.fused_wire is True and fused_bucket_codec(comp) is None:
                 raise NotImplementedError(
                     f"fused_wire=True but {type(comp).__name__} has no fused one-pass wire "
-                    "(only the per-chunk int8 quantizer fuses); use fused_wire='auto' for the "
-                    "two-step bucketed wire"
+                    "(only the per-chunk int8/int4/fp8 quantizers fuse; composed/sparse codecs "
+                    "keep the two-step bucketed wire, fused_wire='auto')"
                 )
         elif self.fused_wire is True:
             raise NotImplementedError("fused_wire=True without a compressor has nothing to fuse")

@@ -7,11 +7,13 @@
 // multiple of 128; 128 at GPT-2-medium, one worker's value vector
 // zero-padded to whole rows) to (R, C/2) packed bytes plus one f32 scale
 // a row, and back.
-//   quantize:   scale = max|x| * f32(1/7); inv = scale > 0 ? 1/scale : 0;
-//               q = clip(rint(x * inv), -7, 7), NaN to 0 (int8_quant.cuh);
+//   quantize:   scale = flush(max|x'| * f32(1/7)); inv = scale > 0 ? 1/scale : 0;
+//               q = clip(rint(x' * inv), -7, 7), NaN to 0, x' = flush(x)
+//               (int8_quant.cuh: subnormals read as zeros, as the
+//               reference's compiled program reads them);
 //               byte j = (q[j] & 0xF) | (q[j + C/2] & 0xF) << 4
-//   dequantize: nibble sign-extended (n > 7 -> n - 16), out = float(q) *
-//               scale (one rounding, __fmul_rn)
+//   dequantize: nibble sign-extended (n > 7 -> n - 16), out =
+//               flush(float(q) * flush(scale)) (one rounding, __fmul_rn)
 // Bit-equal to the plain versions (compress/kernels.py) and, through
 // them, to the reference as XLA compiles it.
 //
@@ -36,12 +38,12 @@ constexpr int kRowsPerBlock = 8;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t nibble(float y, float inv) {
-  return static_cast<uint32_t>(cml::round_clip_int4(__fmul_rn(y, inv))) & 0xFu;
+  return static_cast<uint32_t>(cml::round_clip_int4(__fmul_rn(cml::flush(y), inv))) & 0xFu;
 }
 
 __device__ __forceinline__ float sext(uint32_t nib, float s) {
   const int q = nib > 7u ? static_cast<int>(nib) - 16 : static_cast<int>(nib);
-  return __fmul_rn(static_cast<float>(q), s);
+  return cml::dequant(static_cast<float>(q), s);
 }
 
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock) quantize_int4_kernel(
@@ -57,10 +59,10 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock) quantize_int4_kernel(
   float m = 0.f;
   for (int i = lane; i < n4; i += kWarp) {
     const float4 a = x4[i];
-    m = cml::max_nan(m, fabsf(a.x));
-    m = cml::max_nan(m, fabsf(a.y));
-    m = cml::max_nan(m, fabsf(a.z));
-    m = cml::max_nan(m, fabsf(a.w));
+    m = cml::max_nan(m, fabsf(cml::flush(a.x)));
+    m = cml::max_nan(m, fabsf(cml::flush(a.y)));
+    m = cml::max_nan(m, fabsf(cml::flush(a.z)));
+    m = cml::max_nan(m, fabsf(cml::flush(a.w)));
   }
   m = cml::warp_max_nan(m);
   const float scale = cml::int4_scale(m);

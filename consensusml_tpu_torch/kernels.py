@@ -48,8 +48,8 @@ NVCC_FLAGS = (
 
 # kernel name -> (module, wrapper attribute, source): the source is
 # csrc/<source>.cu; one source may hold several kernels (the flash
-# backward's dq and dk/dv, the four fused-BN passes, the int8 and int4
-# codecs' two directions, the LayerNorm's forward and backward)
+# backward's dq and dk/dv, the four fused-BN passes, the int8, fp8 and
+# int4 codecs' two directions, the LayerNorm's forward and backward)
 KERNELS = {
     "paged_attention": (
         "consensusml_tpu_torch.models.paged_attention", "paged_attention", "paged_attention"
@@ -68,8 +68,13 @@ KERNELS = {
     "fused_choco_encode": (
         "consensusml_tpu_torch.compress.kernels", "fused_pack_quantize", "fused_choco_encode"
     ),
+    "fused_dequantize_accumulate": (
+        "consensusml_tpu_torch.compress.kernels", "fused_dequantize_accumulate", "fused_choco_decode"
+    ),
     "quantize_int8": ("consensusml_tpu_torch.compress.kernels", "quantize_int8", "int8_codec"),
     "dequantize_int8": ("consensusml_tpu_torch.compress.kernels", "dequantize_int8", "int8_codec"),
+    "quantize_fp8": ("consensusml_tpu_torch.compress.kernels", "quantize_fp8", "int8_codec"),
+    "dequantize_fp8": ("consensusml_tpu_torch.compress.kernels", "dequantize_fp8", "int8_codec"),
     "quantize_int4": ("consensusml_tpu_torch.compress.kernels", "quantize_int4", "int4_codec"),
     "dequantize_int4": ("consensusml_tpu_torch.compress.kernels", "dequantize_int4", "int4_codec"),
     "chunked_topk": ("consensusml_tpu_torch.compress.kernels", "chunked_topk", "chunked_topk"),

@@ -1,14 +1,17 @@
 """``python -m consensusml_tpu_torch.train``: consensus-SGD training of the
 port, mirroring ``train.py``'s flags for the slices that are ported, on
 the simulated backend: ``gpt2_topk`` (on its own codec, ``--codec
-topk_int4`` or ``--codec int8``; ``--norm-impl pallas`` runs every
-LayerNorm through the fused-LN CUDA kernels) and ``cifar_resnet50``
+topk_int4``, or ``--codec int8|int4|fp8`` on the fused wire;
+``--norm-impl pallas`` runs every LayerNorm through the fused-LN CUDA
+kernels) and ``cifar_resnet50``
 (exact gossip; ``--norm-impl pallas`` runs every BN through the fused-BN
 CUDA kernels)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec int8
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec int4
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec fp8
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec topk_int4 --norm-impl pallas
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
 
@@ -31,10 +34,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
-    p.add_argument("--codec", default=None, choices=["topk_int8", "topk_int4", "int8"],
+    p.add_argument("--codec", default=None, choices=["topk_int8", "topk_int4", "int8", "int4", "fp8"],
                    help="default: the config's own (topk_int8: chunked top-k + int8 on the two-step "
-                        "bucketed wire); topk_int4: the same top-k with int4 values; int8: "
-                        "PallasInt8Compressor on the fused one-pass wire")
+                        "bucketed wire); topk_int4: the same top-k with int4 values; int8, int4, fp8: "
+                        "the per-chunk quantizer of that format on the fused one-pass wire")
     p.add_argument("--codec-warmup", type=int, default=None,
                    help="exact warm-up rounds (default: the config's)")
     p.add_argument("--gamma", type=float, default=None, help="CHOCO consensus step (default: the config's)")

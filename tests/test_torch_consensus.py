@@ -13,10 +13,15 @@ package's.
   multiply-adds with one rounding (``compress/reference.py:fma_f32``).
 - The two-step wire: the config's own codec (chunked top-k + int8, JAX
   ``impl="interpret"``, the TPU kernel path), the same top-k with int4
-  values (``--codec topk_int4``), and the int8 codec with
+  values (``--codec topk_int4``), and the int8 and fp8 codecs with
   ``fused_wire=False``: the bucket layout (25 buckets at GPT-2-medium for
   top-k + int8, 14 for top-k + int4) and the same warm and CHOCO rounds,
   bit for bit.
+- The fused wire's other formats (``--codec int4``, ``--codec fp8``): the
+  plans at GPT-2-medium (int4 50 buckets and 360,367,280 wire bytes, fp8
+  123 and 715,190,448) and the same rounds, bit for bit.
+- The periodic dense refresh (``codec_refresh_every``): rounds that cross
+  refresh rounds, on the fused int8 and fp8 wires, bit for bit.
 """
 
 import jax
@@ -26,6 +31,8 @@ import pytest
 import torch
 
 from consensusml_tpu.comm import simulated as jsim
+from consensusml_tpu.compress import PallasFp8Compressor as JaxFp8
+from consensusml_tpu.compress import PallasInt4Compressor as JaxInt4
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
 from consensusml_tpu.compress.reference import topk_int4_compressor as jax_topk_int4
 from consensusml_tpu.compress.reference import topk_int8_compressor as jax_topk_int8
@@ -35,7 +42,13 @@ from consensusml_tpu.models.gpt2 import GPT2Config as JaxGPT2Config
 from consensusml_tpu.models.gpt2 import GPT2LM as JaxGPT2LM
 from consensusml_tpu.topology import RingTopology as JaxRing
 from consensusml_tpu_torch.comm import simulated
-from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int4_compressor, topk_int8_compressor
+from consensusml_tpu_torch.compress import (
+    PallasFp8Compressor,
+    PallasInt4Compressor,
+    PallasInt8Compressor,
+    topk_int4_compressor,
+    topk_int8_compressor,
+)
 from consensusml_tpu_torch.configs import gpt2_config
 from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.models.convert import gpt2_from_flax
@@ -52,26 +65,30 @@ def _flax_shapes(geom):
 
 
 def _codecs(codec, chunk):
-    """(JAX codec, port codec): ``"int8"``, the config's ``"topk_int8"``
-    or ``"topk_int4"`` (k 8 at chunk 512, 13 at 128, as ``gpt2_topk`` full
-    and smoke)."""
-    if codec == "int8":
-        return JaxInt8(chunk=chunk, impl="interpret"), PallasInt8Compressor(chunk=chunk)
+    """(JAX codec, port codec): ``"int8"``, ``"int4"``, ``"fp8"``, the
+    config's ``"topk_int8"`` or ``"topk_int4"`` (k 8 at chunk 512, 13 at
+    128, as ``gpt2_topk`` full and smoke)."""
+    quantizers = {"int8": (JaxInt8, PallasInt8Compressor), "int4": (JaxInt4, PallasInt4Compressor),
+                  "fp8": (JaxFp8, PallasFp8Compressor)}
+    if codec in quantizers:
+        jax_make, make = quantizers[codec]
+        return jax_make(chunk=chunk, impl="interpret"), make(chunk=chunk)
     k = 8 if chunk == 512 else 13
     jax_make, make = {"topk_int8": (jax_topk_int8, topk_int8_compressor),
                       "topk_int4": (jax_topk_int4, topk_int4_compressor)}[codec]
     return jax_make(chunk=chunk, k=k, impl="interpret"), make(chunk=chunk, k=k, impl="auto")
 
 
-def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1, codec="int8", fused_wire="auto"):
+def _engines(chunk=128, bucket_bytes=4 * 2**20, warm=0, gamma=0.5, steps=1, codec="int8", fused_wire="auto",
+             refresh=0):
     jcomp, tcomp = _codecs(codec, chunk)
     jeng = JaxEngine(JaxGossip(
         topology=JaxRing(WORLD), compressor=jcomp, gamma=gamma, codec_warmup_rounds=warm,
-        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire,
+        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire, codec_refresh_every=refresh,
     ))
     teng = ConsensusEngine(GossipConfig(
         topology=RingTopology(WORLD), compressor=tcomp, gamma=gamma, codec_warmup_rounds=warm,
-        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire,
+        bucket_bytes=bucket_bytes, gossip_steps=steps, fused_wire=fused_wire, codec_refresh_every=refresh,
     ))
     return jeng, teng
 
@@ -83,7 +100,7 @@ def _layout(plan):
     ]
 
 
-@pytest.mark.parametrize("codec", ["int8", "topk_int8", "topk_int4"])
+@pytest.mark.parametrize("codec", ["int8", "topk_int8", "topk_int4", "int4", "fp8"])
 @pytest.mark.parametrize("scale,bucket_bytes", [("smoke", 4 * 2**20), ("smoke", 3000), ("full", 4 * 2**20)])
 def test_bucket_plan_matches_reference(scale, bucket_bytes, codec):
     geom = SMOKE if scale == "smoke" else {}
@@ -95,10 +112,16 @@ def test_bucket_plan_matches_reference(scale, bucket_bytes, codec):
     jplan, tplan = jeng.bucket_plan(jtree), teng.bucket_plan(ttree)
     assert _layout(tplan) == _layout(jplan)
     assert teng.wire_bytes_per_round(ttree) == jeng.wire_bytes_per_round(jtree)
-    assert teng.fused_wire_active == jeng.fused_wire_active == (codec == "int8")
-    if scale == "full" and codec == "int8":
-        # the encode launches per round on the card (one per bucket)
+    assert teng.fused_wire_active == jeng.fused_wire_active == (codec in ("int8", "int4", "fp8"))
+    if scale == "full" and codec in ("int8", "fp8"):
+        # the encode launches per round on the card (one per bucket); fp8
+        # ships int8's bytes (a byte an element, one f32 scale a chunk)
         assert tplan.num_buckets == jplan.num_buckets == 123
+        assert teng.wire_bytes_per_round(ttree) == 715_190_448
+    if scale == "full" and codec == "int4":
+        # half the value bytes: 260 wire bytes a 512-chunk, 50 buckets
+        assert tplan.num_buckets == jplan.num_buckets == 50
+        assert teng.wire_bytes_per_round(ttree) == 360_367_280
     if scale == "full" and codec == "topk_int8":
         # 148 wire bytes a 512-chunk (the kernel path's layout): each of
         # the four codec kernels launches once a bucket per exchange
@@ -127,11 +150,31 @@ def _bits(x):
 
 
 @pytest.mark.parametrize("codec,fused_wire", [("int8", "auto"), ("topk_int8", "auto"), ("topk_int4", "auto"),
-                                              ("int8", False)])
+                                              ("int8", False), ("int4", "auto"), ("fp8", "auto"), ("fp8", False)])
 @pytest.mark.parametrize("steps", [1, 2])
 def test_warm_then_choco_rounds_bit_equal(steps, codec, fused_wire):
     jeng, teng = _engines(warm=1, bucket_bytes=3000, steps=steps, codec=codec, fused_wire=fused_wire)
-    assert teng.fused_wire_active == jeng.fused_wire_active == (codec == "int8" and fused_wire == "auto")
+    fuses = codec in ("int8", "int4", "fp8")
+    assert teng.fused_wire_active == jeng.fused_wire_active == (fuses and fused_wire == "auto")
+    _assert_rounds_bit_equal(jeng, teng, range(3))  # 0: warm (dense mixing), then CHOCO
+
+
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_rounds_across_dense_refresh_bit_equal(codec):
+    """``codec_refresh_every=2`` on the fused wire: rounds 0, 2 and 4 mix
+    densely (the innovation exchange keeping xhat/s warm), 1 and 3 run
+    CHOCO; every round bit-equal to the reference's ``lax.cond`` on the
+    round counter. The JAX package's own refresh test holds its refresh
+    rounds to exact mixing at a tolerance; this one pins them bit for bit."""
+    jeng, teng = _engines(bucket_bytes=3000, codec=codec, refresh=2)
+    assert teng.fused_wire_active and jeng.fused_wire_active
+    _assert_rounds_bit_equal(jeng, teng, range(5))
+
+
+def _assert_rounds_bit_equal(jeng, teng, steps):
+    """From the same stacked parameters, run ``steps`` rounds on both
+    engines; after each, the parameters and the per-bucket state must be
+    bit-equal."""
     params = _stacked_params(0)
     jtree = {"params": jax.tree.map(jnp.asarray, params), "model_state": {}}
     ttree = {"params": gpt2_from_flax(params), "model_state": {}}
@@ -142,7 +185,7 @@ def test_warm_then_choco_rounds_bit_equal(steps, codec, fused_wire):
     jw = jsim.mixing_matrix(jeng.topology)
     tw = simulated.mixing_matrix(teng.topology)
     jround = jax.jit(lambda p, s, step: jeng.round_simulated(p, s, jw, step=step))
-    for step in range(3):  # 0: warm (dense mixing), then CHOCO
+    for step in steps:
         jtree, jstate = jround(jtree, jstate, jnp.int32(step))
         ttree, tstate = teng.round_simulated(ttree, tstate, tw, step=step)
         want = gpt2_from_flax(jax.tree.map(np.asarray, jtree["params"]))

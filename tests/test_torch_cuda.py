@@ -12,8 +12,10 @@ orders and round to bf16, so a paged-attention output may land one bf16
 ulp away (rtol 2**-7); the flash kernel also rounds its per-tile
 probabilities against a running max, so it is allowed two (2**-6). The
 f32 logsumexp differs in summation order only. The codec kernels (the
-CHOCO encode, int8 quantize/dequantize, chunked top-k, chunk scatter)
-are held bit for bit: integer selection and one rounding per operation.
+CHOCO encode and decode in the int8, int4 and fp8 formats, int8 and fp8
+quantize/dequantize, chunked top-k, chunk scatter) are held bit for bit:
+integer selection and one rounding per operation, subnormals flushed at
+the same points (a NaN's payload bits aside).
 The fused-BN normalize and dx kernels round every step as their plain
 versions do, so they are held equal; the two BN reductions sum in f32 in
 another order, each per-channel sum held to 2e-6 of the sum of its terms'
@@ -238,7 +240,7 @@ def _codec_rows(dev, rows, chunk, seed):
 
 def _same_bits(a, b):
     view = {torch.float32: torch.int32, torch.int32: torch.int32, torch.int8: torch.int8,
-            torch.uint8: torch.uint8, torch.bfloat16: torch.int16}[a.dtype]
+            torch.uint8: torch.uint8, torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}[a.dtype]
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(view), b.view(view))
 
 
@@ -644,3 +646,161 @@ def test_gpt2_worker_step_through_ln_kernels_matches_plain(dev):
     assert abs(out["pallas"][0] - out["jnp"][0]) <= 1e-5
     for a, b in zip(out["pallas"][1], out["jnp"][1]):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-7
+
+
+def _same_bits_or_nan(a, b):
+    """Bit for bit, two NaNs equal whatever their payloads (the card's
+    arithmetic returns its canonical NaN)."""
+    if a.dtype != torch.float32:
+        return _same_bits(a, b)
+    both = torch.isnan(a) & torch.isnan(b)
+    return _same_bits(torch.where(both, 0.0, a), torch.where(both, 0.0, b))
+
+
+def _subnormal_rows(x):
+    """The subnormal hazards in rows 5-8 of (R, C) f32 rows: all
+    subnormal (scale 0), an absmax whose scale would be subnormal (scale
+    0), subnormal elements beside a tiny normal absmax, and a NaN."""
+    c = x.shape[1]
+    sign = torch.where(torch.arange(c, device=x.device) % 2 == 1, 1.0, -1.0)
+    tiny = 2.0**-126
+    x[5] = 1e-39 * sign
+    x[6] = 5e-38 * sign
+    x[7] = 0.9 * tiny * sign
+    x[7, 0] = 448 * 1.5 * tiny
+    x[8, 3] = float("nan")
+    return x
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
+def test_quantize_kernels_flush_subnormals_as_plain(dev, fmt):
+    """The stand-alone quantize/dequantize kernels of every format on the
+    codec hazards and the subnormal rows, bit for bit against their plain
+    versions (which equal the reference, tests/test_torch_fp8.py)."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    quant, dequant = getattr(tck, f"quantize_{fmt}"), getattr(tck, f"dequantize_{fmt}")
+    for rows, chunk in ((4 * 100_514, 512), (37, 128), (9, 1024)):
+        x = _subnormal_rows(_codec_rows(dev, rows, chunk, rows + 3))
+        x[3] *= 2.0**-120  # tiny normal values: small codes times small scales give subnormal decodes
+        before = (quant.launches, dequant.launches)
+        q, s = quant(x)
+        d = dequant(q, s)
+        torch.cuda.synchronize()
+        assert (quant.launches, dequant.launches) == (before[0] + 1, before[1] + 1)
+        qp, sp = getattr(tck, f"quantize_{fmt}_plain")(x)
+        dp = getattr(tck, f"dequantize_{fmt}_plain")(q, s)
+        assert _same_bits(q, qp) and _same_bits_or_nan(s, sp) and _same_bits_or_nan(d, dp)
+        assert s[5] == 0 and s[6] == 0 and torch.isnan(s[8])
+        codes = q.view(torch.uint8) if fmt == "fp8" else q
+        assert not (codes[5].to(torch.int32) & 0x7F).any()
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
+def test_fused_encode_formats_kernel_bit_equal_to_plain(dev, fmt):
+    """The fused encode in every format at the largest bucket's rows and a
+    small shape, with the codec hazards, the subnormal rows and a
+    subnormal xhat (read as zero)."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    for rows, chunk in ((4 * 100_514, 512), (37, 128)):
+        x = _subnormal_rows(_codec_rows(dev, rows, chunk, rows))
+        xhat = x + 0.1 * torch.randn(rows, chunk, generator=gen, device=dev)
+        xhat[5:9] = 0.0
+        xhat[9] = -2e-39
+        before = tck.fused_pack_quantize.launches
+        got = tck.fused_pack_quantize(x, xhat, fmt=fmt)
+        want = tck.fused_pack_quantize_plain(x, xhat, fmt)
+        torch.cuda.synchronize()
+        assert tck.fused_pack_quantize.launches == before + 1
+        assert all(_same_bits_or_nan(g, w) for g, w in zip(got, want))
+        assert got[1][5] == 0 and torch.isnan(got[1][8])
+        del got, want, x, xhat
+
+
+@pytest.mark.parametrize("weights", [(0.3,), (1 / 3, 0.7), (1 / 3, 1 / 3, 1 / 3)], ids=["1src", "2src", "3src"])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "fp8"])
+def test_fused_decode_kernel_bit_equal_to_plain(dev, fmt, weights):
+    """``fused_dequantize_accumulate`` against its plain version: payloads
+    of the fused encode (hazard rows in them) at 1-3 sources, an ``s``
+    with subnormal, inf and NaN elements."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(len(weights))
+    rows, chunk = 4 * 6160, 512
+    s = torch.randn(rows, chunk, generator=gen, device=dev)
+    s[0, :4] = torch.tensor([1e-39, -0.0, float("inf"), float("nan")], device=dev)
+    sources = []
+    for j in range(len(weights)):
+        x = _subnormal_rows(_codec_rows(dev, rows, chunk, 40 + j)) * 10.0 ** (-j)
+        data, scales, _ = tck.fused_pack_quantize(x, torch.zeros_like(x), fmt=fmt)
+        sources.append((data, scales))
+    before = tck.fused_dequantize_accumulate.launches
+    got = tck.fused_dequantize_accumulate(s, sources, fmt=fmt, weights=weights)
+    torch.cuda.synchronize()
+    assert tck.fused_dequantize_accumulate.launches == before + 1
+    want = tck.fused_dequantize_accumulate_plain(s, sources, fmt=fmt, weights=weights)
+    assert _same_bits_or_nan(got, want)
+
+
+def test_fused_wire_formats_on_card_equal_cpu(dev, monkeypatch):
+    """``FusedBucketCodec`` on a stacked (4, n) CUDA bucket in every format:
+    encode and decode_accumulate each launch their kernel once and never
+    reach a plain version; payload, xhat' and the receive equal the same
+    codec on the CPU. ``PallasFp8Compressor`` on the same buffer (the fp8
+    two-step wire) launches its two kernels and equals the CPU too."""
+    from consensusml_tpu_torch.compress import PallasFp8Compressor
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(4, 300 * 512, generator=gen, device=dev)
+    xhat = 0.5 * x + 0.1 * torch.randn(4, 300 * 512, generator=gen, device=dev)
+    s = torch.randn(4, 300 * 512, generator=gen, device=dev)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for fmt in ("int8", "int4", "fp8"):
+        codec = tck.FusedBucketCodec(fmt=fmt, chunk=512)
+        want_p, want_h = codec.encode(x.cpu(), xhat.cpu())
+        want_r = codec.decode_accumulate(s.cpu(), [want_p] * 3, (1 / 3,) * 3)
+        with monkeypatch.context() as m:
+            m.setattr(tck, "fused_pack_quantize_plain", refuse)
+            m.setattr(tck, "fused_dequantize_accumulate_plain", refuse)
+            before = (tck.fused_pack_quantize.launches, tck.fused_dequantize_accumulate.launches)
+            p, h = codec.encode(x, xhat)
+            recv = codec.decode_accumulate(s, [p] * 3, (1 / 3,) * 3)
+            torch.cuda.synchronize()
+            after = (tck.fused_pack_quantize.launches, tck.fused_dequantize_accumulate.launches)
+        assert after == (before[0] + 1, before[1] + 1)
+        assert _same_bits(p.data.cpu(), want_p.data) and _same_bits(p.scales.cpu(), want_p.scales)
+        assert _same_bits(h.cpu(), want_h) and _same_bits(recv.cpu(), want_r)
+    comp = PallasFp8Compressor(chunk=512)
+    want = comp.compress(x.cpu() - xhat.cpu(), stacked=True)
+    with monkeypatch.context() as m:
+        for name in ("quantize_fp8", "dequantize_fp8"):
+            m.setattr(tck, f"{name}_plain", refuse)
+        before = (tck.quantize_fp8.launches, tck.dequantize_fp8.launches)
+        p = comp.compress(x - xhat, stacked=True)
+        dec = comp.decompress(p)
+        torch.cuda.synchronize()
+        assert (tck.quantize_fp8.launches, tck.dequantize_fp8.launches) == (before[0] + 1, before[1] + 1)
+    assert _same_bits(p.data.cpu(), want.data) and _same_bits(p.scales.cpu(), want.scales)
+    assert _same_bits(dec.cpu(), comp.decompress(want))
+
+
+def test_new_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    with pytest.raises(ValueError):
+        tck.quantize_fp8(torch.zeros(4, 100, device=dev))
+    with pytest.raises(ValueError):
+        tck.dequantize_fp8(torch.zeros(4, 128, dtype=torch.int8, device=dev), torch.zeros(4, device=dev))
+    with pytest.raises(ValueError):
+        tck.fused_pack_quantize(torch.zeros(4, 100, device=dev), torch.zeros(4, 100, device=dev), fmt="fp8")
+    src = (torch.zeros(4, 128, dtype=torch.int8, device=dev), torch.zeros(4, device=dev))
+    with pytest.raises(ValueError):
+        tck.fused_dequantize_accumulate(torch.zeros(4, 128, device=dev), [src] * 9, fmt="int8", weights=(0.1,) * 9)
+    with pytest.raises(ValueError):
+        tck.fused_dequantize_accumulate(torch.zeros(4, 128, device=dev), [src], fmt="fp8", weights=(1.0,))

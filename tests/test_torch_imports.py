@@ -54,7 +54,14 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(ValueError):
         configs.build("gpt2_topk", "smoke", norm_impl="interpret", device="cpu")
     with pytest.raises(NotImplementedError):
-        configs.build("gpt2_topk", "smoke", codec="int4", device="cpu")
+        configs.build("gpt2_topk", "smoke", codec="topk_fp8", device="cpu")
+    # the sixth slice's paths: the fused wire's int4 and fp8 formats
+    for codec in ("int4", "fp8"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            configs.build("gpt2_topk", "smoke", codec=codec)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_main(["--scale", "smoke", "--rounds", "1", "--codec", codec])
+        assert "plain PyTorch versions" in configs.build("gpt2_topk", "smoke", codec=codec, device="cpu").codec_path
     for norm_impl in ("flax", "pallas"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             configs.build("cifar_resnet50", "smoke", norm_impl=norm_impl)

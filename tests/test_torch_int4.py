@@ -14,7 +14,9 @@ hazards of the int4 quantizer:
 - rows at +-absmax (codes 7 and -7, which packs as nibble 0x9);
 - a row holding a NaN (scale NaN, every byte 0: XLA converts NaN to 0)
   and one holding an inf (scale inf, inverse 0, every code 0);
-- tiny normal values (XLA on the CPU flushes subnormals; these are not).
+- tiny normal values; the subnormal rows have a test of their own (the
+  compiled reference flushes f32 subnormals: reads them as zeros and
+  writes zeros for them).
 
 The scale is ``absmax * f32(1/7)``, the product XLA compiles the
 reference's ``absmax / 7`` into: the eager reference divides, and one
@@ -215,16 +217,15 @@ def test_topk_int4_wire_rates_and_stacked_compress():
 
 
 def test_int4_fused_wire_is_refused_and_topk_int4_takes_the_two_step_wire():
-    """``PallasInt4Compressor`` tags the int4 fused wire, whose encode is
-    not ported: an engine refuses it loudly (the reference's bare ``--codec
-    int4``); the top-k codec has no fused wire and runs the two-step one."""
+    """``PallasInt4Compressor`` tags the int4 fused wire, which an engine
+    now takes (the reference's bare ``--codec int4``; its encode was
+    refused until the int4 format was ported); the top-k codec has no fused
+    wire and runs the two-step one."""
     topo = RingTopology(4)
-    with pytest.raises(NotImplementedError):
-        fused_bucket_codec(PallasInt4Compressor(chunk=128))
-    with pytest.raises(NotImplementedError):
-        ConsensusEngine(GossipConfig(topology=topo, compressor=PallasInt4Compressor(chunk=128))).fused_wire_active
-    with pytest.raises(NotImplementedError):
-        GossipConfig(topology=topo, compressor=PallasInt4Compressor(chunk=128), fused_wire=True)
+    codec = fused_bucket_codec(PallasInt4Compressor(chunk=128))
+    assert (codec.fmt, codec.chunk, codec.wire_width) == ("int4", 128, 64)
+    assert ConsensusEngine(GossipConfig(topology=topo, compressor=PallasInt4Compressor(chunk=128))).fused_wire_active
+    GossipConfig(topology=topo, compressor=PallasInt4Compressor(chunk=128), fused_wire=True)
     eng = ConsensusEngine(GossipConfig(topology=topo, compressor=topk_int4_compressor(chunk=128, k=8, impl="auto")))
     assert not eng.fused_wire_active
     with pytest.raises(ValueError):
@@ -233,3 +234,33 @@ def test_int4_fused_wire_is_refused_and_topk_int4_takes_the_two_step_wire():
         quantize_int4(torch.zeros(4, 127))
     with pytest.raises(ValueError):
         topk_int4_compressor(chunk=128, impl="interpret")
+
+
+def test_subnormal_rows_bit_equal_and_the_unflushed_math_is_not():
+    """Rows that meet f32 subnormals: all subnormal (scale 0, codes 0),
+    an absmax whose scale would be subnormal (scale 0), and subnormal
+    elements beside a tiny normal absmax (read as zeros). The port's int4
+    quantizer and codec equal the reference's (its compiled program
+    flushes subnormals); the same math with subnormals kept, PyTorch's
+    default and the port before it flushed, does not."""
+    f32_min = np.float32(2.0**-126)
+    sign = np.where(np.arange(128) % 2, 1, -1).astype(np.float32)
+    x = np.stack([np.float32(1e-39) * sign, np.float32(5e-38) * sign, np.float32(0.9) * f32_min * sign])
+    x[2, 0] = np.float32(7 * 1.5) * f32_min
+    wp, ws = jk.quantize_int4(jnp.asarray(x), interpret=True)
+    p, s = quantize_int4(torch.from_numpy(x))
+    _eq(p, wp, "packed")
+    _eq(s, ws, "scales")
+    assert s[0] == 0 and s[1] == 0 and s[2] > 0 and not p[:2].any()
+    want = jax.jit(JaxInt4(chunk=128).compress)(jnp.asarray(x.reshape(-1)))
+    got = Int4Compressor(chunk=128).compress(torch.from_numpy(x.reshape(-1)))
+    _eq(got.data, want.data, "codec data")
+    _eq(got.scales, want.scales, "codec scales")
+    _eq(Int4Compressor(chunk=128).decompress(got), jax.jit(JaxInt4(chunk=128).decompress)(want), "decode")
+    xt = torch.from_numpy(x)
+    raw = xt.abs().amax(1) * torch.tensor(np.float32(1 / 7))
+    inv = torch.where(raw > 0, 1 / torch.where(raw > 0, raw, 1), 0)
+    r = torch.clamp(torch.round(xt * inv[:, None]), -7, 7)
+    naive = torch.where(torch.isnan(r), 0, r).to(torch.int32)
+    naive = ((naive[:, :64] & 0xF) | ((naive[:, 64:] & 0xF) << 4)).to(torch.uint8)
+    assert (naive.numpy() != np.asarray(wp)).any() and (raw.numpy() != np.asarray(ws)).any()

@@ -19,6 +19,11 @@ and ``norm_impl="interpret"`` (at the smoke width its LayerNorm takes its
 jnp path, the same math; tests/test_torch_fused_ln.py holds the Pallas
 kernels at hidden 128), at the f32 top-k curves' tolerances.
 
+The sixth slice's paths, ``--codec int4`` and ``--codec fp8`` (the fused
+wire's other two formats), are held against the reference's Pallas codecs
+in interpret mode at the config's precision, at the int8 fused wire's
+tolerances.
+
 The top-k curves are held twice. In f32 (the model computed in f32 in
 both frameworks) they agree to ~2e-6 (loss) and ~3e-7 (relative
 consensus error), well inside the tolerances below. In bf16, the
@@ -56,6 +61,8 @@ import pytest
 import torch
 
 from consensusml_tpu import configs as jax_configs
+from consensusml_tpu.compress import PallasFp8Compressor as JaxFp8
+from consensusml_tpu.compress import PallasInt4Compressor as JaxInt4
 from consensusml_tpu.compress import PallasInt8Compressor as JaxInt8
 from consensusml_tpu.compress.reference import topk_int4_compressor as jax_topk_int4
 from consensusml_tpu.data.synthetic import SyntheticClassification as JaxSyntheticClassification
@@ -142,8 +149,10 @@ def _reference_run(seed, codec="int8", f32=False, norm_impl="flax"):
         geom = dataclasses.replace(bundle.model.config, dtype=jnp.float32, norm_impl=norm_impl)
         loss_fn = jax_gpt2_loss_fn(JaxGPT2LM(config=geom))
     comp = {
-        # train.py --codec int8 off-TPU: the Pallas int8 codec in interpret mode
+        # train.py --codec int8|int4|fp8 off-TPU: the Pallas codec in interpret mode
         "int8": lambda: JaxInt8(chunk=128, impl="interpret"),
+        "int4": lambda: JaxInt4(chunk=128, impl="interpret"),
+        "fp8": lambda: JaxFp8(chunk=128, impl="interpret"),
         # train.py --codec topk_int4 at smoke scale, on the kernel path
         "topk_int4": lambda: jax_topk_int4(ratio=0.1, chunk=128, impl="interpret"),
     }.get(codec)
@@ -189,6 +198,19 @@ def test_smoke_training_curves_match_reference():
     assert fused
     bundle, _state, got = _port_run(init, "int8")
     assert bundle.cfg.engine().fused_wire_active
+    _assert_curves_match(got, want)
+
+
+@pytest.mark.parametrize("codec", ["int4", "fp8"])
+def test_smoke_training_curves_fused_formats_match_reference(codec):
+    """``--codec int4`` and ``--codec fp8``: the fused wire in its other
+    two formats, at the int8 fused wire's tolerances."""
+    init, want, fused = _reference_run(seed=0, codec=codec)
+    assert fused
+    bundle, state, got = _port_run(init, codec)
+    comp = bundle.cfg.gossip.compressor
+    assert bundle.cfg.engine().fused_wire_active and comp.fused_wire() == codec and comp.chunk == 128
+    assert bundle.codec_path.startswith(f"{codec}/128 -> plain PyTorch versions")
     _assert_curves_match(got, want)
 
 
@@ -255,6 +277,20 @@ def test_train_cli_on_cpu(capsys):
     errs = [float(r[r.index("consensus_error") + 1]) for r in rounds]
     losses = [float(r[r.index("loss") + 1]) for r in rounds]
     assert len(rounds) == 2 and all(np.isfinite(losses)) and all(0 < e < float("inf") for e in errs)
+
+
+@pytest.mark.parametrize("codec", ["int4", "fp8"])
+def test_train_cli_fused_formats_on_cpu(capsys, codec):
+    from consensusml_tpu_torch.train.__main__ import main
+
+    assert main(["--device", "cpu", "--scale", "smoke", "--rounds", "2", "--codec", codec]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"codec: {codec}/128 -> plain PyTorch versions") and "active=True" in out[0]
+    assert "fused one-pass bucketed wire" in out[0]
+    rounds = [line.split() for line in out if line.startswith("round ")]
+    errs = [float(r[r.index("consensus_error") + 1]) for r in rounds]
+    losses = [float(r[r.index("loss") + 1]) for r in rounds]
+    assert len(rounds) == 2 and all(np.isfinite(losses)) and 0 < errs[1] < errs[0]
 
 
 @pytest.mark.parametrize("norm_impl", ["flax", "pallas"])

@@ -20,7 +20,9 @@ Phases, each printed as one JSON line:
    computes the same function, that call: paged
    attention and the flash forward at the serving shapes, the flash
    forward and backward (dq and dk/dv) at the training shape B=8, S=1024
-   (and 600), H=16, D=64, causal, the fused CHOCO encode on a
+   (and 600), H=16, D=64, causal (the forward and dq also report the
+   function's TFLOP/s and their time over the library call's and over the
+   bound: ``tflops``, ``x_library``, ``x_bound``), the fused CHOCO encode on a
    (4*8192, 512) f32 pair, and the top-k codec's four kernels at the
    shapes of ``gpt2_topk``'s bucket plan (chunked top-k and chunk scatter
    on the largest bucket, 4 workers x 100,514 rows of 512, and on the
@@ -141,8 +143,11 @@ F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (the codec kernels' c
 # (at most 2**-7 of its value) away. A dropped 16-key block on a
 # 1024-key row moves outputs by ~10% of their size.
 PAGED_ATOL, PAGED_RTOL = 1e-5, 2.0**-7
-# the flash kernel also rounds its per-tile probabilities to bf16 against
-# a running max the plain version does not have: two ulps
+# the flash forward sums over key tiles against a running max the plain
+# version does not have, and multiplies P V on the tensor cores with P in
+# two bf16 halves (hi = bf16(p), lo = bf16(p - hi): p to ~2**-16); with
+# both sides' bf16 rounding of the output, two ulps. One bf16 rounding of
+# P would miss this gate by 7-13x (tests/test_torch_flash_attention.py).
 FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0**-6
 LSE_TOL = 1e-5  # f32 logsumexp (~7 in size), different summation order
 LOGITS_REL_TOL = 2.5e-2  # |kernel - plain| / max|plain| after 24 bf16 layers
@@ -293,6 +298,12 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOPS) -> tuple[flo
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def rates(ms: float, flops: float, library_ms: float, bound: float) -> dict:
+    """The function's work over the kernel's time (TFLOP/s), and the time as
+    a multiple of the library call's and of the bound's."""
+    return {"tflops": flops / ms / 1e9, "x_library": ms / library_ms, "x_bound": ms / bound}
+
+
 def check_paged(torch, tpa, dev):
     """Decode-step shapes of the serving path: 8 slots, 16 heads, head dim
     64, 16-token blocks, 64 blocks per slot; W=1 (decode) and W=4."""
@@ -357,10 +368,12 @@ def check_flash(torch, tfa, dev):
         library_ms = cuda_ms(
             torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 50
         )
-        bms, by = bound_ms(4 * q.numel() * 2, 4 * 16 * 64 * s * (s + 1) // 2)
+        flops = 4 * 16 * 64 * s * (s + 1) // 2
+        bms, by = bound_ms(4 * q.numel() * 2, flops)
         out[s] = {
             **errs, "lse_max_abs_err": lse_err, "lse_tol": LSE_TOL, "ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            **rates(kernel_ms, flops, library_ms, bms),
         }
     return out
 
@@ -414,6 +427,7 @@ def check_flash_bwd(torch, tfa, dev):
             "library_ms": cuda_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20),
             "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
         }
+        fwd[s].update(rates(fwd[s]["ms"], 4 * d * pairs, fwd[s]["library_ms"], fwd_bound[0]))
         dq_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True), 20)
         dkv_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True), 20)
         plain_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=True), 5)
@@ -438,6 +452,8 @@ def check_flash_bwd(torch, tfa, dev):
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
             "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
+            # dq against SDPA's whole backward (it has no dq-only call)
+            **{f"dq_{key}": val for key, val in rates(dq_ms, 6 * d * pairs, library_ms, dq_bound[0]).items()},
         }
     return out, fwd
 

@@ -20,19 +20,34 @@
 // (B, H, S) f32.
 //
 // What bounds it on the H100: operations. A causal head at S = 1024,
-// D = 64 does ~4 products of S^2/2 * D (s, dp, and one of dq / dk+dv) per
-// kernel, ~270 MFLOP against ~0.6 MB of operands: far above the ridge for
-// the f32 FMA units this first version uses. Design for that: one block of
-// 256 threads per (64-row tile, batch*head); four threads share a row,
-// each owning 16 of its 64 dims in registers (dims 4t + 16m + e, so the
-// four lanes' float4 reads of a staged row hit distinct banks), so a dot
-// product is 16 FMAs and two shuffles. The other operand's tile is staged
-// once into shared memory as f32 and read back as float4 broadcasts. The
-// dq kernel walks key tiles up to the diagonal with its q and do rows in
-// registers; the dk/dv kernel walks query tiles from the diagonal down
-// with its k and v rows in registers, and reuses each staged q / do
-// segment for both the dot products and the dk / dv accumulation. Not done
-// yet: mma.sync/wgmma tensor-core products and TMA loads.
+// D = 64 does three products of S^2/2 * D multiply-adds (s, dp, and dq or
+// dk + dv) per kernel, ~200-270 MFLOP against ~0.6 MB of operands.
+//
+// dq (flash_bwd_dq_kernel) runs them on the tensor cores, with the
+// forward's skeleton (flash_sm90.cuh): one warpgroup per (64-query tile,
+// batch*head); its Q and dO tiles loaded once by TMA, its rows' lse and
+// delta in registers; K and V tiles of 64 keys streaming through a
+// two-stage ring up to the diagonal. Per tile: S = Q K^T and dP = dO V^T
+// (both operands in shared memory, K-major), p and ds on the accumulator
+// layout in registers (masked only on the diagonal and ragged tail tiles),
+// then dQ += ds K with ds from registers and K with the transpose bit. ds
+// goes in as two bf16 halves, hi = bf16(ds) and lo = bf16(ds - hi): one
+// bf16 rounding of ds reaches up to 1.7x the gate this kernel is held to
+// (atol 3e-3, rtol 2^-6 against the plain f32 version, chip_smoke.py) on
+// sharp rows; the split stays within 0.37 of it in an f32 emulation
+// (tests/test_torch_flash_attention.py), at 4/3 the tensor-core work.
+//
+// dk/dv (flash_bwd_dkv_kernel) is still the first version, scalar f32 on
+// the CUDA cores: one block of 256 threads per (64-row tile,
+// batch*head); four threads share a row, each owning 16 of its 64 dims in
+// registers (dims 4t + 16m + e, so the four lanes' float4 reads of a
+// staged row hit distinct banks), so a dot product is 16 FMAs and two
+// shuffles. It walks query tiles from the diagonal down with its k and v
+// rows in registers, staging each q / do tile once into shared memory as
+// f32 and reusing it for both the dot products and the dk / dv
+// accumulation.
+
+#include "flash_sm90.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,62 +124,137 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+namespace sm90 = cml_sm90;
+
+constexpr int kDqStages = 2;
+constexpr int kDqThreads = 128;
+constexpr int kDqStageBytes = 2 * sm90::kTileBytes;  // K then V
+constexpr int kDqSmemBytes = 1024 + 2 * sm90::kTileBytes + kDqStages * kDqStageBytes;
+
+__global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
     int S, int H, int causal, float scale) {
-  __shared__ __align__(16) float ks[kRows][kD];
-  __shared__ __align__(16) float vs[kRows][kD];
+  using namespace cml_sm90;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kDqStages + 1];  // one per stage, then Q and dO's
 
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sQ_ptr = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sDO = base + kTileBytes;
+  const uint32_t sKV = base + 2 * kTileBytes;
+  const uint32_t bar0 = smem_u32(bars);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nq = (S + kTileRows - 1) / kTileRows;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal rows first
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * kRows;
-  const int r = threadIdx.x / kLanes;
-  const int t = threadIdx.x % kLanes;
-  const int qi = q0 + r;
-  const int qr = min(qi, S - 1);  // padded rows compute on a real row, never written
-  const size_t row_stride = static_cast<size_t>(H) * kD;
-  const size_t head_off = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kD;
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * kTileRows;
+  int n_tiles = nq;
+  if (causal) n_tiles = min(n_tiles, qt + 1);  // skip tiles above the diagonal
 
-  float qf[kSeg], dof[kSeg], acc[kSeg];
-  load_seg(q + head_off + qr * row_stride, t, qf);
-  load_seg(dout + head_off + qr * row_stride, t, dof);
+  auto issue_kv = [&](int tile, int st) {
+    const uint32_t bar = bar0 + 8 * st;
+    const uint32_t dst = sKV + st * kDqStageBytes;
+    mbar_expect_tx(bar, kDqStageBytes);
+    tma_load_rows(dst, &tk, bar, h, tile * kTileRows, b);
+    tma_load_rows(dst + kTileBytes, &tv, bar, h, tile * kTileRows, b);
+  };
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < kSeg; ++i) acc[i] = 0.f;
-  const float lse_r = lse[static_cast<size_t>(bh) * S + qr];
-  const float delta_r = delta[static_cast<size_t>(bh) * S + qr];
-
-  int n_tiles = (S + kRows - 1) / kRows;
-  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1) / kRows + 1);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kRows;
-    stage_tile(k, head_off, row_stride, k0, S, ks);
-    stage_tile(v, head_off, row_stride, k0, S, vs);
-    __syncthreads();
-    for (int j = 0; j < kRows; ++j) {
-      float kf[kSeg], vf[kSeg];
-      read_seg(ks, j, t, kf);
-      read_seg(vs, j, t, vf);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < kSeg; ++i) {
-        s = fmaf(qf[i], kf[i], s);
-        dp = fmaf(dof[i], vf[i], dp);
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int key = k0 + j;
-      const bool valid = key < S && (!causal || key <= qi);
-      const float p = valid ? expf(s * scale - lse_r) : 0.f;
-      const float ds = p * (dp - delta_r);
-#pragma unroll
-      for (int i = 0; i < kSeg; ++i) acc[i] = fmaf(ds, kf[i], acc[i]);
-    }
-    __syncthreads();  // the next tile overwrites ks / vs
+    for (int i = 0; i <= kDqStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_init_fence();
   }
-  if (qi < S) store_seg(dq + head_off + qi * row_stride, t, acc, scale);
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t qbar = bar0 + 8 * kDqStages;
+    mbar_expect_tx(qbar, 2 * kTileBytes);
+    tma_load_rows(sQ, &tq, qbar, h, q0, b);
+    tma_load_rows(sDO, &tdo, qbar, h, q0, b);
+    for (int t = 0; t < min(kDqStages, n_tiles); ++t) issue_kv(t, t);
+  }
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // query row of accumulator half i = 0; +8 for i = 1
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t r = static_cast<size_t>(bh) * S + min(row0 + 8 * i, S - 1);  // padded rows: never written
+    lse2[i] = lse[r] * kLog2e;
+    dl[i] = delta[r];
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  mbar_wait(bar0 + 8 * kDqStages, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kDqStages;
+    const uint32_t sK = sKV + st * kDqStageBytes;
+    const uint32_t sV = sK + kTileBytes;
+    mbar_wait(bar0 + 8 * st, (t / kDqStages) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(dp, kmajor_desc(sDO, k), kmajor_desc(sV, k), k);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    const int k0 = t * kTileRows;
+    const bool edge = k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * i + c;
+          float p = exp2f(s[e] * scale_log2 - lse2[i]);
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            if (key >= S || (causal && key > row0 + 8 * i)) p = 0.f;
+          }
+          s[e] = p * (dp[e] - dl[i]);  // ds
+        }
+      }
+    }
+    uint32_t dsh[4][4], dsl[4][4];
+    split_hi_lo(s, dsh, dsl);
+
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc, dsh[k], mnmajor_desc(sK, k));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc, dsl[k], mnmajor_desc(sK, k));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(acc);
+
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && t + kDqStages < n_tiles) issue_kv(t + kDqStages, st);
+  }
+
+  // the Q tile is no longer read: stage dq there
+  const float mul[2] = {scale, scale};
+  const size_t row_stride = static_cast<size_t>(H) * kD;
+  store_tile_bf16(acc, mul, sQ_ptr,
+                  dq + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD,
+                  row_stride, min(kTileRows, S - q0), 1);
 }
 
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
@@ -238,18 +328,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
 
 }  // namespace
 
-// Both return cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue without launching for an unsupported head dim.
+// Both return 0 once launched, else a CUDA error code: without launching,
+// cudaErrorInvalidValue for an unsupported head dim or (dq) a tensor map
+// the driver refuses (e.g. a base address not 16-byte aligned); after the
+// launch, cudaGetLastError().
 extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                                const void* dout, const void* lse, const void* delta,
                                                void* dq, int B, int S, int H, int D, int causal,
                                                float scale, void* stream) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = sm90::encode_bshd(&tq, q, B, S, H, sm90::kTileRows);
+  if (rc == 0) rc = sm90::encode_bshd(&tk, k, B, S, H, sm90::kTileRows);
+  if (rc == 0) rc = sm90::encode_bshd(&tv, v, B, S, H, sm90::kTileRows);
+  if (rc == 0) rc = sm90::encode_bshd(&tdo, dout, B, S, H, sm90::kTileRows);
+  if (rc != 0) return rc;
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr =
+      cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
+  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }

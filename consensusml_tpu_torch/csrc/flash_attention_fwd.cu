@@ -1,161 +1,224 @@
-// Flash-attention-2 forward, bf16 in / f32 math / bf16 out, head dim 64.
+// Flash-attention forward on Hopper's tensor cores, bf16 in / f32
+// accumulators / bf16 out, head dim 64.
 //
 // Replaces: consensusml_tpu/models/flash_attention.py:_fwd (pallas_call at
 // :193, kernel body _fwd_kernel at :73), reached through flash_attention
-// (:478). Same schedule as the reference: q, k, v promoted to f32, logits
-// scaled by 1/sqrt(D), keys past the real length and (causal) above the
-// diagonal masked out, online softmax with a running row max m and row sum
-// l, probabilities kept in f32 for the PV product, out = acc / max(l,
-// 1e-30), and the per-row logsumexp m + log(l) saved for a backward pass.
-// Tiles wholly above the diagonal are skipped, as the reference's
-// nk_eff does. This slice has no kv_mask and no q/k offsets (the
-// wrapper refuses them).
+// (:478). Same function as the reference: logits q.k scaled by 1/sqrt(D),
+// keys past the real length and (causal) above the diagonal masked out,
+// online softmax with a running row max m and row sum l over key tiles,
+// out = acc / max(l, 1e-30), and the per-row logsumexp m + log(l) saved
+// for the backward. Tiles wholly above the diagonal are skipped, as the
+// reference's nk_eff does. No kv_mask and no q/k offsets (the wrapper
+// refuses them).
 //
-// Layout: q, k, v, out are (B, S, H, D) contiguous, as the public
-// function takes them (no fold/pad copy); lse is (B, H, S).
+// Layout: q, k, v, out are (B, S, H, D) contiguous, as the public function
+// takes them (no fold/pad copy), read through 4-D TMA maps (D, H, S, B);
+// lse is (B, H, S) f32.
 //
-// What bounds it on the H100: operations. At S = 1024, D = 64 a causal
-// head does ~2 * 2 * S^2/2 * D = 134 MFLOP against 0.5 MB of q/k/v/out,
-// ~256 flop/byte, near the ridge for bf16 tensor cores and far above it for
-// the f32 FMA units this first version uses. Design for that: one thread
-// block per (64-query tile, batch*head); K and V tiles of 64 keys are
-// staged once into shared memory (f32, padded rows: no bank conflicts) and
-// reused by all 64 query rows; two threads per query row, each holding the
-// full q row and half the output in registers, so the 64x64 score tile and
-// the PV product never touch device memory. Not done yet: mma.sync/wgmma
-// tensor-core products and TMA loads (a later PR makes it fast).
+// What bounds it on the H100: operations, on the tensor cores. At S =
+// 1024, D = 64 a causal head does 2 * 2 * S^2/2 * D = 134 MFLOP against
+// 0.5 MB of q/k/v/out, ~256 flop/byte, near the bf16 ridge (~295). So both
+// products run as wgmma (flash_sm90.cuh): one block of one warpgroup per
+// (64-query tile, batch*head), its Q tile loaded once by TMA, K and V
+// tiles of 64 keys streaming through a two-stage ring of swizzled shared
+// memory (thread 0 issues each load as soon as its stage is free, so the
+// next tile's copy overlaps this tile's math; several blocks share an SM).
+// S = Q K^T is one m64n64 product over four k16 steps, both operands in
+// shared memory. The online softmax runs in registers on the accumulator
+// layout (quad shuffles for the row max; l is kept per thread and summed
+// once at the end). Masking is per element only on the diagonal tile and
+// the ragged tail tile: masked logits are -inf, so their probabilities are
+// exactly 0. O += P V takes P from registers (the accumulator fragment is
+// the A fragment) and V with the transpose bit.
+//
+// P in two bf16 halves. The tensor cores multiply bf16, and one bf16
+// rounding of P (FA2/FA3's choice) moves outputs by 2.9-15x the gate this
+// kernel is held to (atol 1e-4, rtol 2^-6 against the plain f32 version,
+// chip_smoke.py), worst on short rows with small |o|; TF32 P misses it
+// too. So P = hi + lo with hi = bf16(p), lo = bf16(p - hi), and O += hi V
+// + lo V in one f32 accumulator: within 0.49 of the gate in an f32
+// emulation of this rounding (tests/test_torch_flash_attention.py), at
+// 1.5x the tensor-core work of one bf16 product.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_sm90.cuh"
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kThreads = 2 * kBQ;  // two threads per query row
-constexpr int kHalf = kD / 2;      // output columns / keys per thread
+using namespace cml_sm90;
+
+constexpr int kBQ = kTileRows;  // query rows of a block: one warpgroup
+constexpr int kBK = kTileRows;  // keys of a streamed tile
+constexpr int kStages = 2;
+constexpr int kThreads = 128;
+constexpr int kStageBytes = 2 * kTileBytes;  // K then V
+constexpr int kSmemBytes = 1024 + kTileBytes + kStages * kStageBytes;  // + alignment slack
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int S, int H, int causal, float scale) {
-  // K tile, then (after the scores are taken) the probability tile P
-  __shared__ float kp[kBK][kD + 1];
-  __shared__ float vs[kBK][kD];
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int S, int H, int causal, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages + 1];  // one per stage, then Q's
 
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sQ_ptr = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t sKV = base + kTileBytes;
+  const uint32_t bar0 = smem_u32(bars);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nq = (S + kBQ - 1) / kBQ;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x);  // longest causal rows first
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = blockIdx.x * kBQ;
-  const int r = threadIdx.x >> 1;     // query row in the tile
-  const int half = threadIdx.x & 1;   // keys 2j+half, output cols 2j+half
-  const int qi = q0 + r;              // absolute query row
-  const size_t row_stride = static_cast<size_t>(H) * kD;
-  const size_t head_off = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kD;
-
-  float qf[kD];
-  {
-    const int qr = min(qi, S - 1);  // padded rows compute on a real row, never written
-    const __nv_bfloat162* src =
-        reinterpret_cast<const __nv_bfloat162*>(q + head_off + qr * row_stride);
-#pragma unroll
-    for (int d = 0; d < kD / 2; ++d) {
-      const float2 f = __bfloat1622float2(src[d]);
-      qf[2 * d] = f.x;
-      qf[2 * d + 1] = f.y;
-    }
-  }
-  float acc[kHalf];
-#pragma unroll
-  for (int j = 0; j < kHalf; ++j) acc[j] = 0.f;
-  float m = -1e30f;
-  float l = 0.f;
-
+  const int b = bh / H, h = bh % H;
+  const int q0 = qt * kBQ;
   int n_tiles = (S + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);  // skip tiles above the diagonal
 
+  auto issue_kv = [&](int tile, int st) {
+    const uint32_t bar = bar0 + 8 * st;
+    const uint32_t dst = sKV + st * kStageBytes;
+    mbar_expect_tx(bar, kStageBytes);
+    tma_load_rows(dst, &tk, bar, h, tile * kBK, b);
+    tma_load_rows(dst + kTileBytes, &tv, bar, h, tile * kBK, b);
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t qbar = bar0 + 8 * kStages;
+    mbar_expect_tx(qbar, kTileBytes);
+    tma_load_rows(sQ, &tq, qbar, h, q0, b);
+    for (int t = 0; t < min(kStages, n_tiles); ++t) issue_kv(t, t);
+  }
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // query row of accumulator half i = 0; +8 for i = 1
+  float o[32], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(bar0 + 8 * kStages, 0);
+
   for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages;
+    const uint32_t sK = sKV + st * kStageBytes;
+    const uint32_t sV = sK + kTileBytes;
+    mbar_wait(bar0 + 8 * st, (t / kStages) & 1);
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    pin(s);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+
     const int k0 = t * kBK;
-    // stage K and V: each key row is 32 bf16 pairs, one coalesced 128-byte read
-    for (int idx = threadIdx.x; idx < kBK * (kD / 2); idx += kThreads) {
-      const int j = idx / (kD / 2);
-      const int p = idx % (kD / 2);
-      float2 kf = make_float2(0.f, 0.f), vf = make_float2(0.f, 0.f);
-      if (k0 + j < S) {
-        const size_t off = head_off + (k0 + j) * row_stride + 2 * p;
-        kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(k + off));
-        vf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(v + off));
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = s[4 * j + 2 * i + c] * scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
+            if (key >= S || (causal && key > row0 + 8 * i)) x = neg_inf();
+          }
+          s[4 * j + 2 * i + c] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
       }
-      kp[j][2 * p] = kf.x;
-      kp[j][2 * p + 1] = kf.y;
-      vs[j][2 * p] = vf.x;
-      vs[j][2 * p + 1] = vf.y;
     }
-    __syncthreads();
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2f(s[4 * j + 2 * i + c] - m[i]);  // masked: exp2(-inf) = 0
+          s[4 * j + 2 * i + c] = p;
+          l[i] += p;
+          o[4 * j + 2 * i + c] *= corr[i];
+        }
+      }
+    }
+    uint32_t ph[4][4], pl[4][4];
+    split_hi_lo(s, ph, pl);
 
-    float sc[kHalf];
-    float tile_max = -1e30f;
+    pin(o);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      const int kj = 2 * j + half;
-      const int key = k0 + kj;
-      float dot = 0.f;
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(o, ph[k], mnmajor_desc(sV, k));
 #pragma unroll
-      for (int d = 0; d < kD; ++d) dot = fmaf(qf[d], kp[kj][d], dot);
-      const bool valid = key < S && (!causal || key <= qi);
-      sc[j] = valid ? dot * scale : -1e30f;
-      tile_max = fmaxf(tile_max, sc[j]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      // masked keys contribute exactly zero (the reference's where-mask)
-      sc[j] = sc[j] > -1e30f ? expf(sc[j] - m_new) : 0.f;
-      psum += sc[j];
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * corr + psum;
-    m = m_new;
-    __syncthreads();  // every row has read its K scores: reuse kp as P
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) kp[r][2 * j + half] = sc[j];
-    __syncthreads();
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(o, pl[k], mnmajor_desc(sV, k));
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(o);
 
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) acc[j] *= corr;
-    for (int key = 0; key < kBK; ++key) {
-      const float p = kp[r][key];
-#pragma unroll
-      for (int j = 0; j < kHalf; ++j) acc[j] = fmaf(p, vs[key][2 * j + half], acc[j]);
-    }
-    __syncthreads();  // the next tile overwrites kp / vs
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && t + kStages < n_tiles) issue_kv(t + kStages, st);
   }
 
-  if (qi < S) {
-    const float l_safe = fmaxf(l, 1e-30f);
-    __nv_bfloat16* dst = out + head_off + qi * row_stride;
+  float inv[2];
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) dst[2 * j + half] = __float2bfloat16(acc[j] / l_safe);
-    if (lse != nullptr && half == 0) lse[static_cast<size_t>(bh) * S + qi] = m + logf(l_safe);
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float l_safe = fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l_safe;
+    const int qi = row0 + 8 * i;
+    if (lse != nullptr && lane % 4 == 0 && qi < S)
+      lse[static_cast<size_t>(bh) * S + qi] = (m[i] + log2f(l_safe)) * kLn2;
   }
+  // the Q tile is no longer read: stage the output there
+  const size_t row_stride = static_cast<size_t>(H) * kD;
+  store_tile_bf16(o, inv, sQ_ptr,
+                  out + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD,
+                  row_stride, min(kBQ, S - q0), 1);
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched);
-// cudaErrorInvalidValue without launching for an unsupported head dim.
+// Returns 0 once launched, else a CUDA error code without launching:
+// cudaErrorInvalidValue for an unsupported head dim or a tensor map the
+// driver refuses (e.g. a base address not 16-byte aligned); then
+// cudaGetLastError() after the launch.
 extern "C" int cml_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                             void* out, void* lse, int B, int S, int H,
                                             int D, int causal, float scale, void* stream) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int rc = encode_bshd(&tq, q, B, S, H, kBQ);
+  if (rc == 0) rc = encode_bshd(&tk, k, B, S, H, kTileRows);
+  if (rc == 0) rc = encode_bshd(&tv, v, B, S, H, kTileRows);
+  if (rc != 0) return rc;
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr =
+      cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), S, H, causal, scale);
+  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal,
+      scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

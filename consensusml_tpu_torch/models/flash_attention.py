@@ -2,14 +2,27 @@
 
 Port of ``consensusml_tpu/models/flash_attention.py``. Three kernels:
 
-- ``csrc/flash_attention_fwd.cu`` (wrapper :func:`flash_attention`): the
+- ``csrc/flash_attention_fwd.cu`` (wrapper :func:`flash_attention`),
+  replacing the reference's ``_fwd`` (``pallas_call`` at :193): the
   forward and its per-row logsumexp; plain version
   :func:`flash_attention_plain` (f32 logits, f32 softmax, f32
   probabilities in the PV product, output in ``dtype``);
 - ``csrc/flash_attention_bwd.cu`` (wrappers :func:`flash_attention_bwd_dq`
-  and :func:`flash_attention_bwd_dkv`): the backward from the saved
-  logsumexp; plain version :func:`flash_attention_bwd_plain` (dense
-  recomputation, same f32 math, outputs in the input dtype).
+  and :func:`flash_attention_bwd_dkv`), replacing ``_bwd_dq`` (:362) and
+  ``_bwd_dkv`` (:400): the backward from the saved logsumexp; plain
+  version :func:`flash_attention_bwd_plain` (dense recomputation, same f32
+  math, outputs in the input dtype).
+
+The forward and dq kernels are bound by operations: they run their
+products on Hopper's tensor cores (``wgmma``, operands staged by TMA,
+``csrc/flash_sm90.cuh``), bf16 operands into f32 accumulators. Their
+second product takes an f32 tile (the forward's probabilities, dq's ds)
+as two bf16 halves, ``hi = bf16(x)`` and ``lo = bf16(x - hi)``: one bf16
+rounding of the probabilities would miss the card's gate against the
+plain versions by 2.9-15x (an f32 emulation of both roundings is in
+``tests/test_torch_flash_attention.py``). The dk/dv kernel still runs
+scalar f32 products. TMA reads the operands, so they must be 16-byte
+aligned.
 
 Under autograd :func:`flash_attention` is a ``torch.autograd.Function``
 (the reference's ``custom_vjp``): the forward saves ``q, k, v, o, lse``;
@@ -120,9 +133,10 @@ def _check_kernel_operands(q, tensors, align: int) -> None:
 
 def _forward(q, k, v, causal: bool, return_lse: bool):
     """The forward kernel: ``(out (B, S, H, D) bf16, lse (B, H, S) f32 or
-    None)``. Each launch adds one to ``flash_attention.launches``."""
+    None)`` (operands bf16, contiguous, 16-byte aligned, head dim 64). Each
+    launch adds one to ``flash_attention.launches``."""
     _check_self_attention(q, k, v)
-    _check_kernel_operands(q, (("q", q), ("k", k), ("v", v)), 4)
+    _check_kernel_operands(q, (("q", q), ("k", k), ("v", v)), 16)
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
@@ -267,10 +281,10 @@ def flash_attention(
 
     A CPU tensor runs the plain versions. A CUDA tensor launches
     ``csrc/flash_attention_fwd.cu`` on the current stream (bf16,
-    contiguous, head dim 64) and, when autograd records the call, the
-    backward kernels of ``csrc/flash_attention_bwd.cu``. ``kv_mask`` is
-    not in these kernels yet and raises ``NotImplementedError`` on the
-    card.
+    contiguous, 16-byte aligned, head dim 64) and, when autograd records
+    the call, the backward kernels of ``csrc/flash_attention_bwd.cu``.
+    ``kv_mask`` is not in these kernels yet and raises
+    ``NotImplementedError`` on the card.
     """
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
     if kv_mask is not None and (q.is_cuda or needs_grad):

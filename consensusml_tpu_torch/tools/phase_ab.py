@@ -1,0 +1,74 @@
+"""Run ``chip_smoke.py``'s serve and GPT-2 ``train`` phases for two
+checkouts of this repository, in turns, on one card.
+
+    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR
+
+Each run is a fresh process that imports its checkout's ``chip_smoke.py``
+and so builds and loads that checkout's kernels. The order, parent,
+change, change, parent, spreads drift in the host's speed over both
+checkouts. A run prints one
+JSON line: the serving TTFT and decode rate, the ``train`` line's round
+times (gpt2_topk full, 4 workers, fused int8 wire), its profiled round's
+device time, busy share and each port kernel's device time by CUDA
+symbol. The last line is the JSON list of all runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from consensusml_tpu_torch import configs, kernels
+
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kernels.build()
+serve, _ = cs.serve_phase(torch, dev)
+torch.cuda.empty_cache()
+init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
+line, counts, _, _ = cs.train_phase(torch, dev, init, "int8")
+prof = line["profiled_round"]
+print(json.dumps({
+    "checkout": sys.argv[1],
+    "serve": {k: serve[k] for k in ("ttft_p50_ms", "intertoken_p50_ms", "decode_tokens_per_sec")},
+    "train": {
+        "round_ms": [r["round_ms"] for r in line["rounds"]],
+        "gossip_ms": [r["gossip_ms"] for r in line["rounds"]],
+        "profiled_wall_ms": prof["wall_ms"], "device_kernel_ms": prof["device_kernel_ms"],
+        "device_busy_share_of_unprofiled_round": prof.get("device_busy_share_of_unprofiled_round"),
+        "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
+    },
+}), flush=True)
+"""
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", help="root of the parent checkout")
+    ap.add_argument("change", help="root of the changed checkout")
+    args = ap.parse_args(argv)
+    runs = []
+    for root in (args.parent, args.change, args.change, args.parent):
+        root = os.path.abspath(root)
+        proc = subprocess.run([sys.executable, "-c", CHILD, root], capture_output=True, text=True, cwd=root)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    print(json.dumps(runs))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,9 +9,11 @@ that has only PyTorch::
 Tolerances, element by element ``|kernel - plain| <= atol + rtol*|plain|``,
 the same as ``chip_smoke.py``'s: both sides sum in f32 in different
 orders and round to bf16, so a paged-attention output may land one bf16
-ulp away (rtol 2**-7); the flash kernel also rounds its per-tile
-probabilities against a running max, so it is allowed two (2**-6). The
-f32 logsumexp differs in summation order only. The codec kernels (the
+ulp away (rtol 2**-7); the flash forward also sums over key tiles against
+a running max and multiplies P V on the tensor cores with P in two bf16
+halves, so it is allowed two (2**-6). The f32 logsumexp differs in
+summation order only. The dq kernel (ds in two bf16 halves) is held to
+``chip_smoke.py``'s backward gate, atol 3e-3 and rtol 2**-6. The codec kernels (the
 CHOCO encode and decode in the int8, int4 and fp8 formats, int8 and fp8
 quantize/dequantize, chunked top-k, chunk scatter) are held bit for bit:
 integer selection and one rounding per operation, subnormals flushed at
@@ -79,17 +81,65 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
         tpa.paged_attention(q.transpose(0, 1), k, v, table, pos)
 
 
-@pytest.mark.parametrize("s,causal", [(600, True), (1024, True), (200, False)])
+FLASH_CASES = [(s, causal) for s in (1, 63, 64, 65, 127, 200, 600, 1000, 1024) for causal in (True, False)]
+
+
+def _flash_case(dev, s, q_scale, b=2, h=3):
+    """q, k, v, do of shape (b, s, h, 64) bf16; q times ``q_scale`` (x4
+    sharpens the softmax rows, so the running max moves between key tiles
+    and the rescale is exercised). b > 0 exercises the batch row offsets."""
+    gen = torch.Generator(device=dev).manual_seed(s + int(q_scale))
+    q, k, v, do = (torch.randn(b, s, h, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    return (q.float() * q_scale).to(torch.bfloat16), k, v, do
+
+
+@pytest.mark.parametrize("s,causal", FLASH_CASES)
 def test_flash_kernel_matches_plain(dev, s, causal):
-    gen = torch.Generator(device=dev).manual_seed(s)
-    q, k, v = (torch.randn(1, s, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(3))
-    before = tfa.flash_attention.launches
-    out, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
-    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
-    torch.cuda.synchronize()
-    assert tfa.flash_attention.launches == before + 1
-    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4)
-    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    """The forward kernel against ``flash_attention_plain``: one partial
+    tile (S < 64), tile edges (63, 64, 65, 127), ragged tails and full
+    tiles, causal and not, q x1 and x4, at chip_smoke.py's gates."""
+    for q_scale in (1.0, 4.0):
+        q, k, v, _ = _flash_case(dev, s, q_scale)
+        before = tfa.flash_attention.launches
+        out, lse = tfa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        torch.cuda.synchronize()
+        assert tfa.flash_attention.launches == before + 1
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4, msg=f"q x{q_scale}")
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5, msg=f"q x{q_scale}")
+
+
+@pytest.mark.parametrize("s,causal", FLASH_CASES)
+def test_flash_dq_kernel_matches_plain(dev, s, causal):
+    """The dq kernel alone against ``_bwd_plain_parts(...)[0]``, both fed the
+    plain forward's logsumexp and delta, at chip_smoke.py's backward gate
+    (atol 3e-3, rtol 2**-6)."""
+    for q_scale in (1.0, 4.0):
+        q, k, v, do = _flash_case(dev, s, q_scale)
+        out, lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        delta = tfa._delta(out, do)
+        before = tfa.flash_attention_bwd_dq.launches
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+        ref = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[0]
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_bwd_dq.launches == before + 1
+        torch.testing.assert_close(dq.float(), ref.float(), rtol=2.0**-6, atol=3e-3, msg=f"q x{q_scale}")
+
+
+def test_flash_wrappers_refuse_misaligned_operands(dev):
+    """TMA reads the operands: a view 8 bytes past a 16-byte boundary raises
+    ``ValueError`` in the forward and the dq wrapper, and launches nothing."""
+    n = 64 * 2 * 64
+    flat = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
+    bad = flat[4:4 + n].view(1, 64, 2, 64)  # contiguous, data_ptr % 16 == 8
+    good = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=dev)
+    stats = torch.zeros(1, 2, 64, device=dev)
+    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(good, bad, good)
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dq(good, good, good, bad, stats, stats)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches) == counts
 
 
 def test_flash_refuses_kv_mask_and_other_head_dims(dev):

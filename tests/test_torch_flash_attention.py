@@ -5,6 +5,10 @@ ragged length that leaves a padded tail in the reference's 512 blocks.
 Both compute in f32 throughout (f32 probabilities in the PV product), so
 f32 inputs agree to 2e-5; bf16 inputs differ by at most one bf16 ulp of
 the rounded output (1.6e-2 absolute on outputs of order 1).
+
+The tests at the end hold an f32 emulation of the CUDA forward and dq
+kernels' rounding (tensor-core products, p and ds as two bf16 halves) to
+the card's gates against the plain versions.
 """
 
 import jax
@@ -96,3 +100,118 @@ def test_autograd_backward_is_the_plain_backward_on_cpu():
     for got, w in zip((q.grad, k.grad, v.grad), want):
         torch.testing.assert_close(got, w, rtol=0, atol=0)
     assert (tfa.flash_attention_bwd_dq.launches, tfa.flash_attention_bwd_dkv.launches) == counts
+
+
+# --- the CUDA kernels' rounding, emulated in f32 ----------------------------
+#
+# The forward and dq kernels multiply on the tensor cores, which take bf16
+# operands and sum in f32. q, k, v and do are bf16 already, so the first
+# products (q.k and do.v) are exact up to summation order. The second
+# products take the f32 probabilities p (forward) and ds (dq) as two bf16
+# halves, hi = bf16(x) and lo = bf16(x - hi), into one f32 accumulator.
+# The forward walks 64-key tiles with a running max, as the kernel does.
+# These tests hold that rounding to chip_smoke.py's gates against the plain
+# versions: forward |err| <= 1e-4 + 2**-6 |ref| and lse within 1e-5, dq
+# |err| <= 3e-3 + 2**-6 |ref|. Worst err/tolerance on these inputs: 0.49
+# (forward), 0.37 (dq). One bf16 rounding of p instead misses the forward
+# gate by 2.9-15x here (7-13x at B=1, S=1024, H=4), and one of ds the dq
+# gate by up to 1.7x.
+
+_BK = 64  # keys of a kernel tile
+FWD_GATE, DQ_GATE, LSE_TOL = (1e-4, 2.0**-6), (3e-3, 2.0**-6), 1e-5
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _parts(x, split):
+    hi = _bf16(x)
+    return (hi, _bf16(x - hi)) if split else (hi,)
+
+
+def _emulate_fwd(q, k, v, causal, split=True):
+    """(out bf16, lse) as the forward kernel rounds them."""
+    s = q.shape[1]
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # (B, H, S, D)
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    m = torch.full((*qf.shape[:3], 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    q_pos = torch.arange(s)[:, None]
+    for k0 in range(0, s, _BK):
+        kt, vt = kf[:, :, k0:k0 + _BK], vf[:, :, k0:k0 + _BK]
+        logits = (qf @ kt.transpose(-1, -2)) * scale
+        if causal:
+            logits = logits.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None] > q_pos, -torch.inf)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)  # masked: exactly 0
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr
+        for part in _parts(p, split):
+            acc = acc + part @ vt
+        m = m_new
+    l_safe = l.clamp(min=1e-30)
+    return (acc / l_safe).transpose(1, 2).to(torch.bfloat16), (m + torch.log(l_safe))[..., 0]
+
+
+def _emulate_dq(q, k, v, dout, lse, delta, causal, split=True):
+    """dq (bf16) as the dq kernel rounds it."""
+    s = q.shape[1]
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, dout))
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    acc = torch.zeros_like(qf)
+    q_pos = torch.arange(s)[:, None]
+    for k0 in range(0, s, _BK):
+        kt, vt = kf[:, :, k0:k0 + _BK], vf[:, :, k0:k0 + _BK]
+        p = torch.exp((qf @ kt.transpose(-1, -2)) * scale - lse[..., None])
+        if causal:
+            p = p.masked_fill(torch.arange(k0, k0 + kt.shape[2])[None] > q_pos, 0.0)
+        ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None])
+        for part in _parts(ds, split):
+            acc = acc + part @ kt
+    return (acc * scale).transpose(1, 2).to(torch.bfloat16)
+
+
+def _worst(got, want, gate):
+    atol, rtol = gate
+    return ((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max().item()
+
+
+def _bf16_case(s, causal, q_scale, h=2, d=64):
+    rng = np.random.default_rng(1000 * s + 10 * int(causal) + int(q_scale))
+    q, k, v, do = (
+        torch.from_numpy(rng.normal(size=(1, s, h, d)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    return (q.float() * q_scale).to(torch.bfloat16), k, v, do
+
+
+EMULATED = [(s, c, qs) for s in (200, 600) for c in (True, False) for qs in (1.0, 4.0)]
+
+
+@pytest.mark.parametrize("s,causal,q_scale", EMULATED)
+def test_kernel_rounding_meets_the_forward_gate(s, causal, q_scale):
+    q, k, v, _ = _bf16_case(s, causal, q_scale)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got, lse = _emulate_fwd(q, k, v, causal)
+    assert _worst(got, want, FWD_GATE) <= 1.0
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+
+
+@pytest.mark.parametrize("s,causal,q_scale", EMULATED)
+def test_kernel_rounding_meets_the_dq_gate(s, causal, q_scale):
+    q, k, v, do = _bf16_case(s, causal, q_scale)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    delta = tfa._delta(out, do)
+    want = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[0]
+    assert _worst(_emulate_dq(q, k, v, do, lse, delta, causal), want, DQ_GATE) <= 1.0
+
+
+@pytest.mark.parametrize("s,causal,q_scale", EMULATED)
+def test_one_bf16_rounding_of_p_misses_the_forward_gate(s, causal, q_scale):
+    """Why the kernels split: the same walk with p rounded once to bf16."""
+    q, k, v, _ = _bf16_case(s, causal, q_scale)
+    want = tfa.flash_attention_plain(q, k, v, causal=causal)
+    assert _worst(_emulate_fwd(q, k, v, causal, split=False)[0], want, FWD_GATE) > 1.0

@@ -20,9 +20,10 @@ Phases, each printed as one JSON line:
    computes the same function, that call: paged
    attention and the flash forward at the serving shapes, the flash
    forward and backward (dq and dk/dv) at the training shape B=8, S=1024
-   (and 600), H=16, D=64, causal (the forward and dq also report the
-   function's TFLOP/s and their time over the library call's and over the
-   bound: ``tflops``, ``x_library``, ``x_bound``), the fused CHOCO encode on a
+   (and 600), H=16, D=64, causal (the forward, dq and dk/dv also report
+   the function's TFLOP/s and their time over the library call's and over
+   the bound: ``tflops``, ``x_library``, ``x_bound``; dq + dk/dv against
+   SDPA's whole backward: ``bwd_ms``, ``bwd_x_library``), the fused CHOCO encode on a
    (4*8192, 512) f32 pair, and the top-k codec's four kernels at the
    shapes of ``gpt2_topk``'s bucket plan (chunked top-k and chunk scatter
    on the largest bucket, 4 workers x 100,514 rows of 512, and on the
@@ -152,10 +153,11 @@ FLASH_ATOL, FLASH_RTOL = 1e-4, 2.0**-6
 LSE_TOL = 1e-5  # f32 logsumexp (~7 in size), different summation order
 LOGITS_REL_TOL = 2.5e-2  # |kernel - plain| / max|plain| after 24 bf16 layers
 # flash backward against its plain version, element by element. Both sum
-# in f32 in different orders (the kernel over 4-lane partial dots, the
-# plain version by einsum) and round dq, dk, dv to bf16; dk and dq sum
-# ds terms of both signs over up to 1024 rows, so an element small next
-# to its row's terms carries the absolute error of the large ones.
+# in f32 in different orders (the kernels on the tensor cores, with p and
+# ds as two bf16 halves, the plain version by einsum) and round dq, dk, dv
+# to bf16; dk and dq sum ds terms of both signs over up to 1024 rows, so
+# an element small next to its row's terms carries the absolute error of
+# the large ones.
 # Readings at atol 1e-2: max error 3.9e-3 (one bf16 ulp in [0.5, 1)),
 # worst err/tolerance 0.2, so small elements erred by at most ~2e-3. At
 # atol 3e-3 (S=1024): worst err/tolerance 0.41, against median |dq| 0.050,
@@ -452,8 +454,11 @@ def check_flash_bwd(torch, tfa, dev):
             "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "dq_bound_ms": dq_bound[0], "dq_bound_by": dq_bound[1],
             "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
-            # dq against SDPA's whole backward (it has no dq-only call)
+            # each kernel, and the two together, against SDPA's whole
+            # backward (it has no dq-only or dk/dv-only call)
             **{f"dq_{key}": val for key, val in rates(dq_ms, 6 * d * pairs, library_ms, dq_bound[0]).items()},
+            **{f"dkv_{key}": val for key, val in rates(dkv_ms, 8 * d * pairs, library_ms, dkv_bound[0]).items()},
+            "bwd_ms": dq_ms + dkv_ms, "bwd_x_library": (dq_ms + dkv_ms) / library_ms,
         }
     return out, fwd
 
@@ -1885,12 +1890,14 @@ def main() -> int:
         ("flash_attention_bwd_dq", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
          "consensusml_tpu/models/flash_attention.py:362",
          {"max_abs_err": b["dq_max_abs_err"], "ms": b["dq_ms"], "plain_ms": b["plain_ms"],
-          "bound_ms": b["dq_bound_ms"], "bound_by": b["dq_bound_by"], "library_ms": b["library_ms"]}),
+          "bound_ms": b["dq_bound_ms"], "bound_by": b["dq_bound_by"], "library_ms": b["library_ms"],
+          **{key: b[f"dq_{key}"] for key in ("tflops", "x_library", "x_bound")}}),
         ("flash_attention_bwd_dkv", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
          "consensusml_tpu/models/flash_attention.py:400",
          {"max_abs_err": max(b["dk_max_abs_err"], b["dv_max_abs_err"]), "ms": b["dkv_ms"],
           "plain_ms": b["plain_ms"], "bound_ms": b["dkv_bound_ms"], "bound_by": b["dkv_bound_by"],
-          "library_ms": b["library_ms"]}),
+          "library_ms": b["library_ms"], **{key: b[f"dkv_{key}"] for key in ("tflops", "x_library", "x_bound")},
+          "bwd_ms": b["bwd_ms"], "bwd_x_library": b["bwd_x_library"]}),
         # int8 at its (4 * 8192, 512) shape carries the readings (the train
         # line's format); int4 and fp8 at the largest bucket's rows beside
         ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
@@ -1986,7 +1993,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
-         **{k: r[k] for k in ("by_shape", "by_format") if k in r}}
+         **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format")
+            if k in r}}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

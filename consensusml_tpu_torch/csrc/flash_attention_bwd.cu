@@ -1,8 +1,9 @@
-// Flash-attention backward, bf16 in / f32 math / bf16 out, head dim 64.
+// Flash-attention backward on Hopper's tensor cores, bf16 in / f32
+// accumulators / bf16 out, head dim 64.
 //
 // Replaces: consensusml_tpu/models/flash_attention.py:_bwd_dq (pallas_call
 // at :362, kernel body _bwd_dq_kernel at :223) and :_bwd_dkv (pallas_call
-// at :400, kernel body _bwd_dkv_kernel at :276), the backward of the
+// at :400, kernel body _bwd_dkv_kernel at :277), the backward of the
 // flash_attention custom VJP. Same math as the reference: the forward's
 // per-row logsumexp is saved, so each tile recomputes
 //   s  = (q . k) * scale,   p = exp(s - lse)  (0 where masked)
@@ -10,42 +11,55 @@
 // with delta = sum(do * o) per query row (computed by the caller in plain
 // ops, as the reference does outside its kernels), then
 //   dq = scale * sum_k ds k,   dk = scale * sum_q ds q,   dv = sum_q p do.
-// Keys past the real length and (causal) keys after the query are masked
-// by absolute position, as the reference's k_local < s_real and q_pos >=
-// k_pos masks do; tiles wholly above the diagonal are skipped (the
-// reference's nk_eff for dq and i0 for dk/dv).
+// (Causal) keys after the query are masked by absolute position, as the
+// reference's q_pos >= k_pos mask does, and so are positions past the
+// real length: keys in dq (the reference's k_local < s_real), queries in
+// dk/dv (which writes no row of a key past it). Tiles wholly above the
+// diagonal are skipped (the reference's nk_eff for dq and i0 for dk/dv).
 //
 // Layout: q, k, v, do, dq, dk, dv are (B, S, H, D) contiguous, as the
-// public function takes them (no fold/pad copy); lse and delta are
-// (B, H, S) f32.
+// public function takes them (no fold/pad copy), read through 4-D TMA
+// maps (D, H, S, B); lse and delta are (B, H, S) f32.
 //
 // What bounds it on the H100: operations. A causal head at S = 1024,
-// D = 64 does three products of S^2/2 * D multiply-adds (s, dp, and dq or
-// dk + dv) per kernel, ~200-270 MFLOP against ~0.6 MB of operands.
+// D = 64 does three products of S^2/2 * D multiply-adds (s, dp, and dq) or
+// four (s, dp, dk, dv), ~200-270 MFLOP against ~0.6 MB of operands. Both
+// kernels run every product as wgmma m64n64k16 (bf16 in, f32
+// accumulators) on tiles that TMA stages into 128-byte-swizzled shared
+// memory (flash_sm90.cuh): one warpgroup of 128 threads per (64-row tile,
+// batch*head), its own tiles loaded once, the other side's tiles of 64
+// rows streaming through a two-stage mbarrier ring (thread 0 refills a
+// stage as soon as every warp is done with it, so the next tile's copy
+// overlaps this tile's math; several blocks share an SM). p and ds live
+// on the accumulator layout in registers, masked per element only on the
+// diagonal and ragged tail tiles, and enter the accumulating products as
+// two bf16 halves, hi = bf16(x) and lo = bf16(x - hi). One bf16 rounding
+// instead misses the gate these kernels are held to (atol 3e-3, rtol 2^-6
+// against the plain f32 version, chip_smoke.py) in an f32 emulation of
+// this rounding (tests/test_torch_flash_attention.py): ds by up to 1.7x
+// for dq and 3.5x for dk, p by up to 2.2x for dv; split, the worst is 0.40
+// of the gate.
 //
-// dq (flash_bwd_dq_kernel) runs them on the tensor cores, with the
-// forward's skeleton (flash_sm90.cuh): one warpgroup per (64-query tile,
-// batch*head); its Q and dO tiles loaded once by TMA, its rows' lse and
-// delta in registers; K and V tiles of 64 keys streaming through a
-// two-stage ring up to the diagonal. Per tile: S = Q K^T and dP = dO V^T
-// (both operands in shared memory, K-major), p and ds on the accumulator
-// layout in registers (masked only on the diagonal and ragged tail tiles),
-// then dQ += ds K with ds from registers and K with the transpose bit. ds
-// goes in as two bf16 halves, hi = bf16(ds) and lo = bf16(ds - hi): one
-// bf16 rounding of ds reaches up to 1.7x the gate this kernel is held to
-// (atol 3e-3, rtol 2^-6 against the plain f32 version, chip_smoke.py) on
-// sharp rows; the split stays within 0.37 of it in an f32 emulation
-// (tests/test_torch_flash_attention.py), at 4/3 the tensor-core work.
+// dq (flash_bwd_dq_kernel): the Q and dO tiles resident, K and V tiles
+// streaming up to the diagonal. Per tile S = Q K^T and dP = dO V^T (both
+// operands in shared memory, K-major), then dQ += dS K with dS from
+// registers and K with the transpose bit.
 //
-// dk/dv (flash_bwd_dkv_kernel) is still the first version, scalar f32 on
-// the CUDA cores: one block of 256 threads per (64-row tile,
-// batch*head); four threads share a row, each owning 16 of its 64 dims in
-// registers (dims 4t + 16m + e, so the four lanes' float4 reads of a
-// staged row hit distinct banks), so a dot product is 16 FMAs and two
-// shuffles. It walks query tiles from the diagonal down with its k and v
-// rows in registers, staging each q / do tile once into shared memory as
-// f32 and reusing it for both the dot products and the dk / dv
-// accumulation.
+// dk/dv (flash_bwd_dkv_kernel): the same skeleton turned round. The K and
+// V tiles stay resident, and Q and dO tiles stream past them from the
+// diagonal (causal) or the first tile to the last. The first two products
+// are taken transposed, S^T = K Q^T and dP^T = V dO^T, so the accumulator
+// rows are keys and its columns queries: dV += P^T dO and dK += dS^T Q
+// reduce over the accumulator's columns, which makes P^T and dS^T their
+// register A fragments as they stand (dO and Q enter with the transpose
+// bit), with no transpose and no trip through shared memory. All four
+// (P and dS as hi and lo) go out in one commit group. lse and delta now
+// index columns, 16 of each a thread a tile: the 128 threads stage a
+// tile's 64 + 64 values in shared memory, one plain load each, issued
+// during the previous tile's products (a bulk copy would need S % 4 ==
+// 0). Two live accumulators make it the heaviest kernel in registers: it
+// is held to three blocks an SM (kDkvMinBlocks). No atomics: dq is its
+// own kernel, and the backward is deterministic.
 
 #include "flash_sm90.cuh"
 
@@ -53,76 +67,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kD = 64;
-constexpr int kRows = 64;            // rows of the block's own tile, and of each staged tile
-constexpr int kLanes = 4;            // threads per row
-constexpr int kSeg = kD / kLanes;    // dims per thread
-constexpr int kThreads = kRows * kLanes;
-
-// dim of element e (0..3) of float4 m (0..3) owned by lane t
-__device__ __forceinline__ int dim_of(int t, int m) { return 16 * m + 4 * t; }
-
-__device__ __forceinline__ void load_seg(const __nv_bfloat16* row, int t, float (&out)[kSeg]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(row + dim_of(t, m));
-    const float2 a = __bfloat1622float2(p[0]);
-    const float2 b = __bfloat1622float2(p[1]);
-    out[4 * m] = a.x;
-    out[4 * m + 1] = a.y;
-    out[4 * m + 2] = b.x;
-    out[4 * m + 3] = b.y;
-  }
-}
-
-__device__ __forceinline__ void store_seg(__nv_bfloat16* row, int t, const float (&v)[kSeg], float mul) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(row + dim_of(t, m));
-    p[0] = __floats2bfloat162_rn(v[4 * m] * mul, v[4 * m + 1] * mul);
-    p[1] = __floats2bfloat162_rn(v[4 * m + 2] * mul, v[4 * m + 3] * mul);
-  }
-}
-
-// this lane's 16 dims of staged row j (float4 broadcasts, distinct banks per lane)
-__device__ __forceinline__ void read_seg(float (*tile)[kD], int j, int t, float (&out)[kSeg]) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 f = *reinterpret_cast<float4*>(&tile[j][dim_of(t, m)]);
-    out[4 * m] = f.x;
-    out[4 * m + 1] = f.y;
-    out[4 * m + 2] = f.z;
-    out[4 * m + 3] = f.w;
-  }
-}
-
-// stage rows r0..r0+63 of one head of a (B, S, H, D) bf16 tensor as f32;
-// rows past S are zero
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ src, size_t head_off,
-                                           size_t row_stride, int r0, int S, float (*tile)[kD]) {
-  for (int idx = threadIdx.x; idx < kRows * (kD / 8); idx += kThreads) {
-    const int j = idx / (kD / 8);
-    const int c = 8 * (idx % (kD / 8));
-    float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
-    if (r0 + j < S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + head_off + (r0 + j) * row_stride + c);
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(p[0]), b = __bfloat1622float2(p[1]);
-      const float2 e = __bfloat1622float2(p[2]), f = __bfloat1622float2(p[3]);
-      lo = make_float4(a.x, a.y, b.x, b.y);
-      hi = make_float4(e.x, e.y, f.x, f.y);
-    }
-    *reinterpret_cast<float4*>(&tile[j][c]) = lo;
-    *reinterpret_cast<float4*>(&tile[j][c + 4]) = hi;
-  }
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
 
 namespace sm90 = cml_sm90;
 
@@ -257,91 +201,187 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
                   row_stride, min(kTileRows, S - q0), 1);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+constexpr int kDkvStages = 2;
+constexpr int kDkvThreads = 128;
+constexpr int kDkvStageBytes = 2 * sm90::kTileBytes;  // Q then dO
+constexpr int kDkvSmemBytes = 1024 + 2 * sm90::kTileBytes + kDkvStages * kDkvStageBytes;
+// Three blocks an SM: at most 168 registers a thread (ptxas spills 16
+// bytes); left alone ptxas takes 174, which fits two blocks and runs ~21%
+// longer (PERF.md).
+constexpr int kDkvMinBlocks = 3;
+
+__global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
     __nv_bfloat16* __restrict__ dv, int S, int H, int causal, float scale) {
-  __shared__ __align__(16) float qs[kRows][kD];
-  __shared__ __align__(16) float dos[kRows][kD];
-  __shared__ float lse_s[kRows];
-  __shared__ float delta_s[kRows];
+  using namespace cml_sm90;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kDkvStages + 1];  // one per stage, then K and V's
+  // a query tile's lse * log2(e) (0-63) then delta (64-127), double-buffered
+  __shared__ __align__(16) float stats[2][2 * kTileRows];
 
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const sK_ptr = smem_raw + (base - raw);
+  const uint32_t sK = base;
+  const uint32_t sV = base + kTileBytes;
+  const uint32_t sQDO = base + 2 * kTileBytes;
+  const uint32_t bar0 = smem_u32(bars);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int nq = (S + kTileRows - 1) / kTileRows;
+  const int kt = blockIdx.x;  // causal: block 0 walks the most query tiles, and starts first
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = blockIdx.x * kRows;
-  const int r = threadIdx.x / kLanes;
-  const int t = threadIdx.x % kLanes;
-  const int kj = k0 + r;
-  const int kr = min(kj, S - 1);
+  const int b = bh / H, h = bh % H;
+  const int k0 = kt * kTileRows;
+  const int first = causal ? kt : 0;  // query tiles above the diagonal never see these keys
+  const int n_tiles = nq - first;
+
+  auto issue_qdo = [&](int i, int st) {
+    const uint32_t bar = bar0 + 8 * st;
+    const uint32_t dst = sQDO + st * kDkvStageBytes;
+    mbar_expect_tx(bar, kDkvStageBytes);
+    tma_load_rows(dst, &tq, bar, h, (first + i) * kTileRows, b);
+    tma_load_rows(dst + kTileBytes, &tdo, bar, h, (first + i) * kTileRows, b);
+  };
+  // this thread's entry of query tile i's stats (0 past S)
+  auto load_stat = [&](int i) {
+    const int q = (first + i) * kTileRows + tid % kTileRows;
+    if (q >= S) return 0.f;
+    const size_t r = static_cast<size_t>(bh) * S + q;
+    return tid < kTileRows ? lse[r] * kLog2e : delta[r];
+  };
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i <= kDkvStages; ++i) mbar_init(bar0 + 8 * i, 1);
+    mbar_init_fence();
+  }
+  stats[0][tid] = load_stat(0);
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t kvbar = bar0 + 8 * kDkvStages;
+    mbar_expect_tx(kvbar, 2 * kTileBytes);
+    tma_load_rows(sK, &tk, kvbar, h, k0, b);
+    tma_load_rows(sV, &tv, kvbar, h, k0, b);
+    for (int i = 0; i < min(kDkvStages, n_tiles); ++i) issue_qdo(i, i);
+  }
+
+  const int key0 = k0 + 16 * warp + lane / 4;  // key row of accumulator half r = 0; +8 for r = 1
+  const float scale_log2 = scale * kLog2e;
+  float dka[32], dva[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
+  mbar_wait(bar0 + 8 * kDkvStages, 0);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kDkvStages;
+    const uint32_t sQ = sQDO + st * kDkvStageBytes;
+    const uint32_t sDO = sQ + kTileBytes;
+    const int q0 = (first + i) * kTileRows;
+    mbar_wait(bar0 + 8 * st, (i / kDkvStages) & 1);
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    pin(s);
+    pin(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sK, k), kmajor_desc(sQ, k), k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_ss(dp, kmajor_desc(sV, k), kmajor_desc(sDO, k), k);
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(s);
+    pin(dp);
+
+    // element 4j + 2r + c: key key0 + 8r, query q0 + 8j + 2(lane % 4) + c
+    const bool edge = q0 + kTileRows > S || (causal && q0 < k0 + kTileRows - 1);
+    const float* const lse2 = stats[i & 1];
+    const float* const dl = lse2 + kTileRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + col);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int e = 4 * j + 2 * r + c;
+          float p = exp2f(s[e] * scale_log2 - (c ? l2.y : l2.x));
+          if (edge) {
+            const int query = q0 + col + c;
+            if (query >= S || (causal && query < key0 + 8 * r)) p = 0.f;
+          }
+          s[e] = p;
+          dp[e] = p * (dp[e] - (c ? d2.y : d2.x));  // ds
+        }
+      }
+    }
+    uint32_t ph[4][4], pl[4][4], dsh[4][4], dsl[4][4];
+    split_hi_lo(s, ph, pl);
+    split_hi_lo(dp, dsh, dsl);
+
+    pin(dka);
+    pin(dva);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, ph[k], mnmajor_desc(sDO, k));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, pl[k], mnmajor_desc(sDO, k));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsh[k], mnmajor_desc(sQ, k));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsl[k], mnmajor_desc(sQ, k));
+    wgmma_commit();
+    // the next tile's stats, in flight during these products (s and dp are dead)
+    const float next = i + 1 < n_tiles ? load_stat(i + 1) : 0.f;
+    wgmma_wait_all();
+    pin(dka);
+    pin(dva);
+
+    // nobody reads the other stats buffer until after the barrier below
+    stats[(i + 1) & 1][tid] = next;
+    __syncthreads();  // every warp is done with this stage: refill it
+    if (tid == 0 && i + kDkvStages < n_tiles) issue_qdo(i + kDkvStages, st);
+  }
+
+  // the K and V tiles are no longer read: stage dk and dv there
   const size_t row_stride = static_cast<size_t>(H) * kD;
-  const size_t head_off = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * kD;
+  const size_t off = (static_cast<size_t>(b) * S + k0) * row_stride + static_cast<size_t>(h) * kD;
+  const int n_rows = min(kTileRows, S - k0);
+  const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+  store_tile_bf16(dka, mul_k, sK_ptr, dk + off, row_stride, n_rows, 1);
+  store_tile_bf16(dva, mul_v, sK_ptr + kTileBytes, dv + off, row_stride, n_rows, 1);
+}
 
-  float kf[kSeg], vf[kSeg], dkacc[kSeg], dvacc[kSeg];
-  load_seg(k + head_off + kr * row_stride, t, kf);
-  load_seg(v + head_off + kr * row_stride, t, vf);
-#pragma unroll
-  for (int i = 0; i < kSeg; ++i) dkacc[i] = dvacc[i] = 0.f;
-
-  const int nq = (S + kRows - 1) / kRows;
-  const int first = causal ? k0 / kRows : 0;  // query tiles above the diagonal never see these keys
-  for (int tile = first; tile < nq; ++tile) {
-    const int q0 = tile * kRows;
-    stage_tile(q, head_off, row_stride, q0, S, qs);
-    stage_tile(dout, head_off, row_stride, q0, S, dos);
-    if (threadIdx.x < kRows) {
-      const int qrow = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = qrow < S ? lse[static_cast<size_t>(bh) * S + qrow] : 0.f;
-      delta_s[threadIdx.x] = qrow < S ? delta[static_cast<size_t>(bh) * S + qrow] : 0.f;
-    }
-    __syncthreads();
-    for (int i = 0; i < kRows; ++i) {
-      float qf[kSeg], dof[kSeg];
-      read_seg(qs, i, t, qf);
-      read_seg(dos, i, t, dof);
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int e = 0; e < kSeg; ++e) {
-        s = fmaf(qf[e], kf[e], s);
-        dp = fmaf(dof[e], vf[e], dp);
-      }
-      s = row_sum(s);
-      dp = row_sum(dp);
-      const int qrow = q0 + i;
-      const bool valid = qrow < S && kj < S && (!causal || qrow >= kj);
-      const float p = valid ? expf(s * scale - lse_s[i]) : 0.f;
-      const float ds = p * (dp - delta_s[i]);
-#pragma unroll
-      for (int e = 0; e < kSeg; ++e) {
-        dvacc[e] = fmaf(p, dof[e], dvacc[e]);
-        dkacc[e] = fmaf(ds, qf[e], dkacc[e]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites qs / dos / lse_s / delta_s
+// the four tensor maps of q, k, v, do; 0 or a CUDA error code
+int encode_qkvdo(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
+                 const void* dout, int B, int S, int H) {
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const int rc = sm90::encode_bshd(&m[i], ptrs[i], B, S, H, sm90::kTileRows);
+    if (rc != 0) return rc;
   }
-  if (kj < S) {
-    store_seg(dk + head_off + kj * row_stride, t, dkacc, scale);
-    store_seg(dv + head_off + kj * row_stride, t, dvacc, 1.f);
-  }
+  return 0;
 }
 
 }  // namespace
 
 // Both return 0 once launched, else a CUDA error code: without launching,
-// cudaErrorInvalidValue for an unsupported head dim or (dq) a tensor map
-// the driver refuses (e.g. a base address not 16-byte aligned); after the
+// cudaErrorInvalidValue for an unsupported head dim or a tensor map the
+// driver refuses (e.g. a base address not 16-byte aligned); after the
 // launch, cudaGetLastError().
 extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                                const void* dout, const void* lse, const void* delta,
                                                void* dq, int B, int S, int H, int D, int causal,
                                                float scale, void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tq, tk, tv, tdo;
-  int rc = sm90::encode_bshd(&tq, q, B, S, H, sm90::kTileRows);
-  if (rc == 0) rc = sm90::encode_bshd(&tk, k, B, S, H, sm90::kTileRows);
-  if (rc == 0) rc = sm90::encode_bshd(&tv, v, B, S, H, sm90::kTileRows);
-  if (rc == 0) rc = sm90::encode_bshd(&tdo, dout, B, S, H, sm90::kTileRows);
+  if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
   if (rc != 0) return rc;
   // per launch: the attribute belongs to the current device
   const cudaError_t attr =
@@ -349,7 +389,7 @@ extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, con
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
   flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -359,12 +399,17 @@ extern "C" int cml_flash_attention_bwd_dkv_bf16(const void* q, const void* k, co
                                                 const void* delta, void* dk, void* dv, int B,
                                                 int S, int H, int D, int causal, float scale,
                                                 void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((S + kRows - 1) / kRows, B * H);
-  flash_bwd_dkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
+  if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[4];
+  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
+  if (rc != 0) return rc;
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
+  flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }

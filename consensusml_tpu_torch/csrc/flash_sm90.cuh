@@ -20,10 +20,11 @@
 //
 // A tile as operand. Rows x dims with the dims contiguous is "K-major"
 // when the dims are the reduction (S = Q K^T: Q and K; dP = dO V^T: dO
-// and V): descriptor start + 32 bytes per k16 step, 1024 bytes between
-// groups of 8 rows. The same tile is "MN-major" (transpose bit) when the
-// rows are the reduction (O += P V, dQ += dS K): start + 2048 bytes (16
-// rows) per k16 step, 1024 bytes between groups of 8 reduction rows.
+// and V; dk/dv's S^T = K Q^T and dP^T = V dO^T likewise): descriptor
+// start + 32 bytes per k16 step, 1024 bytes between groups of 8 rows. The
+// same tile is "MN-major" (transpose bit) when the rows are the reduction
+// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q): start + 2048 bytes
+// (16 rows) per k16 step, 1024 bytes between groups of 8 reduction rows.
 
 #pragma once
 

@@ -13,16 +13,16 @@ Port of ``consensusml_tpu/models/flash_attention.py``. Three kernels:
   version :func:`flash_attention_bwd_plain` (dense recomputation, same f32
   math, outputs in the input dtype).
 
-The forward and dq kernels are bound by operations: they run their
-products on Hopper's tensor cores (``wgmma``, operands staged by TMA,
+The three kernels are bound by operations: they run every product on
+Hopper's tensor cores (``wgmma``, operands staged by TMA,
 ``csrc/flash_sm90.cuh``), bf16 operands into f32 accumulators. Their
-second product takes an f32 tile (the forward's probabilities, dq's ds)
-as two bf16 halves, ``hi = bf16(x)`` and ``lo = bf16(x - hi)``: one bf16
-rounding of the probabilities would miss the card's gate against the
-plain versions by 2.9-15x (an f32 emulation of both roundings is in
-``tests/test_torch_flash_attention.py``). The dk/dv kernel still runs
-scalar f32 products. TMA reads the operands, so they must be 16-byte
-aligned.
+accumulating products take an f32 tile (the forward's probabilities,
+dq's ds, dk/dv's transposed probabilities and ds) as two bf16 halves,
+``hi = bf16(x)`` and ``lo = bf16(x - hi)``: one bf16 rounding would miss
+the card's gates against the plain versions, the forward's by 2.9-15x
+(an f32 emulation of both roundings is in
+``tests/test_torch_flash_attention.py``). TMA reads the operands, so
+they must be 16-byte aligned.
 
 Under autograd :func:`flash_attention` is a ``torch.autograd.Function``
 (the reference's ``custom_vjp``): the forward saves ``q, k, v, o, lse``;

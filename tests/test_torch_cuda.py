@@ -12,8 +12,9 @@ orders and round to bf16, so a paged-attention output may land one bf16
 ulp away (rtol 2**-7); the flash forward also sums over key tiles against
 a running max and multiplies P V on the tensor cores with P in two bf16
 halves, so it is allowed two (2**-6). The f32 logsumexp differs in
-summation order only. The dq kernel (ds in two bf16 halves) is held to
-``chip_smoke.py``'s backward gate, atol 3e-3 and rtol 2**-6. The codec kernels (the
+summation order only. The dq and dk/dv kernels (ds, and for dv p, in two
+bf16 halves) are held to ``chip_smoke.py``'s backward gate, atol 3e-3 and
+rtol 2**-6. The codec kernels (the
 CHOCO encode and decode in the int8, int4 and fp8 formats, int8 and fp8
 quantize/dequantize, chunked top-k, chunk scatter) are held bit for bit:
 integer selection and one rounding per operation, subnormals flushed at
@@ -126,20 +127,44 @@ def test_flash_dq_kernel_matches_plain(dev, s, causal):
         torch.testing.assert_close(dq.float(), ref.float(), rtol=2.0**-6, atol=3e-3, msg=f"q x{q_scale}")
 
 
+@pytest.mark.parametrize("s,causal", FLASH_CASES)
+def test_flash_dkv_kernel_matches_plain(dev, s, causal):
+    """The dk/dv kernel alone against ``_bwd_plain_parts(...)[1:]``, both fed
+    the plain forward's logsumexp and delta, at chip_smoke.py's backward
+    gate (atol 3e-3, rtol 2**-6): the transposed products and the causal
+    diagonal (keys as rows, queries as columns) at the tile edges."""
+    for q_scale in (1.0, 4.0):
+        q, k, v, do = _flash_case(dev, s, q_scale)
+        out, lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+        delta = tfa._delta(out, do)
+        before = tfa.flash_attention_bwd_dkv.launches
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal)
+        ref_dk, ref_dv = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[1:]
+        torch.cuda.synchronize()
+        assert tfa.flash_attention_bwd_dkv.launches == before + 1
+        torch.testing.assert_close(dk.float(), ref_dk.float(), rtol=2.0**-6, atol=3e-3, msg=f"dk, q x{q_scale}")
+        torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=2.0**-6, atol=3e-3, msg=f"dv, q x{q_scale}")
+
+
 def test_flash_wrappers_refuse_misaligned_operands(dev):
     """TMA reads the operands: a view 8 bytes past a 16-byte boundary raises
-    ``ValueError`` in the forward and the dq wrapper, and launches nothing."""
+    ``ValueError`` in the forward, dq and dk/dv wrappers, and launches
+    nothing."""
     n = 64 * 2 * 64
     flat = torch.zeros(n + 8, dtype=torch.bfloat16, device=dev)
     bad = flat[4:4 + n].view(1, 64, 2, 64)  # contiguous, data_ptr % 16 == 8
     good = torch.zeros(1, 64, 2, 64, dtype=torch.bfloat16, device=dev)
     stats = torch.zeros(1, 2, 64, device=dev)
-    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches)
+    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
     with pytest.raises(ValueError):
         tfa.flash_attention(good, bad, good)
     with pytest.raises(ValueError):
         tfa.flash_attention_bwd_dq(good, good, good, bad, stats, stats)
-    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches) == counts
+    with pytest.raises(ValueError):
+        tfa.flash_attention_bwd_dkv(good, bad, good, good, stats, stats)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == counts
 
 
 def test_flash_refuses_kv_mask_and_other_head_dims(dev):

@@ -6,8 +6,8 @@ Both compute in f32 throughout (f32 probabilities in the PV product), so
 f32 inputs agree to 2e-5; bf16 inputs differ by at most one bf16 ulp of
 the rounded output (1.6e-2 absolute on outputs of order 1).
 
-The tests at the end hold an f32 emulation of the CUDA forward and dq
-kernels' rounding (tensor-core products, p and ds as two bf16 halves) to
+The tests at the end hold an f32 emulation of the CUDA forward, dq and
+dk/dv kernels' rounding (tensor-core products, p and ds as two bf16 halves) to
 the card's gates against the plain versions.
 """
 
@@ -104,18 +104,21 @@ def test_autograd_backward_is_the_plain_backward_on_cpu():
 
 # --- the CUDA kernels' rounding, emulated in f32 ----------------------------
 #
-# The forward and dq kernels multiply on the tensor cores, which take bf16
-# operands and sum in f32. q, k, v and do are bf16 already, so the first
-# products (q.k and do.v) are exact up to summation order. The second
-# products take the f32 probabilities p (forward) and ds (dq) as two bf16
-# halves, hi = bf16(x) and lo = bf16(x - hi), into one f32 accumulator.
-# The forward walks 64-key tiles with a running max, as the kernel does.
-# These tests hold that rounding to chip_smoke.py's gates against the plain
-# versions: forward |err| <= 1e-4 + 2**-6 |ref| and lse within 1e-5, dq
-# |err| <= 3e-3 + 2**-6 |ref|. Worst err/tolerance on these inputs: 0.49
-# (forward), 0.37 (dq). One bf16 rounding of p instead misses the forward
-# gate by 2.9-15x here (7-13x at B=1, S=1024, H=4), and one of ds the dq
-# gate by up to 1.7x.
+# The flash kernels multiply on the tensor cores, which take bf16 operands
+# and sum in f32. q, k, v and do are bf16 already, so the first products
+# (q.k and do.v, or their transposes in dk/dv) are exact up to summation
+# order. The accumulating products take the f32 probabilities p (forward,
+# dk/dv) and ds (dq, dk/dv) as two bf16 halves, hi = bf16(x) and lo =
+# bf16(x - hi), into one f32 accumulator. The forward walks 64-key tiles
+# with a running max, as the kernel does; dk/dv walks 64-query tiles past
+# its resident keys. These tests hold that rounding to chip_smoke.py's
+# gates against the plain versions: forward |err| <= 1e-4 + 2**-6 |ref|
+# and lse within 1e-5; dq, dk and dv |err| <= 3e-3 + 2**-6 |ref|. Worst
+# err/tolerance on these inputs: 0.49 (forward), 0.37 (dq), 0.40 (dk),
+# 0.39 (dv). One bf16 rounding of p instead misses the forward gate by
+# 2.9-15x here (7-13x at B=1, S=1024, H=4) and the dv gate by up to 2.2x;
+# one of ds misses the dq gate by up to 1.7x and the dk gate by up to
+# 3.5x.
 
 _BK = 64  # keys of a kernel tile
 FWD_GATE, DQ_GATE, LSE_TOL = (1e-4, 2.0**-6), (3e-3, 2.0**-6), 1e-5
@@ -174,6 +177,30 @@ def _emulate_dq(q, k, v, dout, lse, delta, causal, split=True):
     return (acc * scale).transpose(1, 2).to(torch.bfloat16)
 
 
+def _emulate_dkv(q, k, v, dout, lse, delta, causal, split_p=True, split_ds=True):
+    """(dk, dv) (bf16) as the dk/dv kernel rounds them: the keys stay, and
+    64-query tiles stream past; P^T and dS^T (keys x queries) enter
+    dV += P^T dO and dK += dS^T Q as bf16 halves."""
+    s = q.shape[1]
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, dout))
+    scale = 1.0 / float(q.shape[-1]) ** 0.5
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    k_pos = torch.arange(s)[:, None]
+    for q0 in range(0, s, _BK):
+        qt, dot = qf[:, :, q0:q0 + _BK], dof[:, :, q0:q0 + _BK]
+        cols = slice(q0, q0 + qt.shape[2])
+        pt = torch.exp((kf @ qt.transpose(-1, -2)) * scale - lse[:, :, None, cols])
+        if causal:
+            pt = pt.masked_fill(torch.arange(q0, q0 + qt.shape[2])[None] < k_pos, 0.0)
+        dst = pt * (vf @ dot.transpose(-1, -2) - delta[:, :, None, cols])
+        for part in _parts(pt, split_p):
+            dv = dv + part @ dot
+        for part in _parts(dst, split_ds):
+            dk = dk + part @ qt
+    return ((dk * scale).transpose(1, 2).to(torch.bfloat16),
+            dv.transpose(1, 2).to(torch.bfloat16))
+
+
 def _worst(got, want, gate):
     atol, rtol = gate
     return ((got.float() - want.float()).abs() / (atol + rtol * want.float().abs())).max().item()
@@ -215,3 +242,30 @@ def test_one_bf16_rounding_of_p_misses_the_forward_gate(s, causal, q_scale):
     q, k, v, _ = _bf16_case(s, causal, q_scale)
     want = tfa.flash_attention_plain(q, k, v, causal=causal)
     assert _worst(_emulate_fwd(q, k, v, causal, split=False)[0], want, FWD_GATE) > 1.0
+
+
+@pytest.mark.parametrize("s,causal,q_scale", EMULATED)
+def test_kernel_rounding_meets_the_dkv_gate(s, causal, q_scale):
+    q, k, v, do = _bf16_case(s, causal, q_scale)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    delta = tfa._delta(out, do)
+    want = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[1:]
+    got = _emulate_dkv(q, k, v, do, lse, delta, causal)
+    for name, g, w in zip(("dk", "dv"), got, want):
+        assert _worst(g, w, DQ_GATE) <= 1.0, name
+
+
+@pytest.mark.parametrize("unsplit", ["p", "ds"])
+@pytest.mark.parametrize("s,causal,q_scale", [c for c in EMULATED if c[2] == 4.0])
+def test_one_bf16_rounding_of_p_or_ds_misses_the_dkv_gate(s, causal, q_scale, unsplit):
+    """Why the dk/dv kernel splits both: P rounded once to bf16 moves dv
+    past the gate, dS rounded once moves dk past it (on sharp rows, q x4;
+    at q x1 an unsplit dS can stay under)."""
+    q, k, v, do = _bf16_case(s, causal, q_scale)
+    out, lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    delta = tfa._delta(out, do)
+    dk, dv = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[1:]
+    got_dk, got_dv = _emulate_dkv(q, k, v, do, lse, delta, causal,
+                                  split_p=unsplit != "p", split_ds=unsplit != "ds")
+    got, want = (got_dv, dv) if unsplit == "p" else (got_dk, dk)
+    assert _worst(got, want, DQ_GATE) > 1.0

@@ -71,17 +71,20 @@ Phases, each printed as one JSON line:
    width and depth (ResNet-50, CIFAR stem, bf16 compute, 8 workers on a
    ring, exact bucketed gossip of the weights and BN statistics, SGD
    with momentum, batch 128 of 32x32x3) with ``--norm-impl pallas``:
-   every BN through the four fused-BN kernels. One warm round, then one
-   worker step's gradients through the kernels against the same step on
-   their plain versions, three counted rounds (launch counters zeroed
-   just before and gated at 53 BN layers x 8 workers x 3 rounds = 1272 a
-   BN kernel, the other kernels at 0; loss, consensus error, round ms,
-   images/s, peak memory, 23 buckets) and one profiled round (device-busy
-   share, each BN kernel's device time by CUDA symbol).
+   every BN through the three fused-BN kernels (stats, normalize, and the
+   one-launch backward). One warm round, then one worker step's gradients
+   through the kernels against the same step on their plain versions,
+   three counted rounds (launch counters zeroed just before and gated at
+   53 BN layers x 8 workers x 3 rounds = 1272 a BN kernel, the other
+   kernels at 0; loss, consensus error, round ms, images/s, peak memory,
+   23 buckets; the host's wall time of each BN backward call, its median
+   and how many calls had to copy dy) and one profiled round (device-busy
+   share, each BN kernel's device time by CUDA symbol, the BN forward's
+   and backward's apart).
 8. ``train_resnet_flax``: the config's default BN (PyTorch's batch norm)
    on the same initial parameters: one warm round, two counted rounds,
-   one profiled round with the BN kernels' device time: the yardstick,
-   end to end.
+   one profiled round with the BN kernels' device time, the forward's and
+   backward's apart: the yardstick, end to end.
 9. ``train_topk_int4_ln``: ``gpt2_topk`` full ``--workers 4 --codec
    topk_int4 --norm-impl pallas --codec-warmup 1``: the same initial
    parameters as ``train``; every one of the 49 LayerNorms through the
@@ -108,10 +111,12 @@ Phases, each printed as one JSON line:
     xhat' within one f32 ulp (the fused encode rounds it once, the
     two-step wire twice), the parameters finite.
 
-The ``check`` phase also holds the four fused-BN kernels against their
-plain versions at ResNet-50's (131072, 256), (131072, 64) and (2048,
-2048) BN views in bf16, relu on and off, beside one ``F.batch_norm``
-training forward (and its autograd backward) as the library yardstick.
+The ``check`` phase also holds the three fused-BN kernels against their
+plain versions at ResNet-50's (131072, 256), (131072, 64), (2048, 2048),
+(8192, 1024) and (32768, 512) BN views in bf16, relu on and off, beside
+one ``F.batch_norm`` training forward (and its autograd backward) as the
+library yardstick; the backward's ``dx`` must equal its plain version fed
+the kernel's own sums, the sums must rerun to the same bits.
 
 Then the ``kernels`` line (per kernel: route, source, the TPU kernel it
 replaces, launches on its main paths, error, times and bound), the
@@ -171,9 +176,10 @@ FLASH_BWD_ATOL, FLASH_BWD_RTOL = 3e-3, 2.0**-6
 # that dropped attention's gradient reads ~1.
 GRAD_REL_TOL, LEAF_REL_TOL = 3e-2, 4e-2
 # fused BN kernels against their plain versions, fed the same per-channel
-# vectors: the normalize and dx passes round every step as the plain
-# versions do, in the same order, so they must be equal (error 0); the
-# two reductions sum in f32 in another order, so each per-channel sum is
+# vectors: the normalize pass and the backward's dx round every step as
+# the plain versions do, in the same order, so they must be equal (error
+# 0; dx given the kernel's own sums); the statistics and the backward's
+# two sums are taken in f32 in another order, so each per-channel sum is
 # held to BN_SUM_RTOL times the sum of its terms' magnitudes (a dropped
 # row of (131072, C) moves a sum by ~7.6e-6 of it). Readings: at most
 # 3.5e-7, and norm and dx equal.
@@ -220,11 +226,10 @@ KERNEL_SYMBOLS = {
     "quantize_int8": "quantize_int8_kernel",
     "dequantize_int8": "dequantize_int8_kernel",
     "chunk_scatter": "chunk_scatter_kernel",
-    # the reductions' second launch folds the stripes' partials
+    # the statistics' second launch folds the stripes' partials
     "bn_stats": "bn_stats(?:_fold)?_kernel",
     "bn_norm": "bn_norm_kernel",
-    "bn_bwd_reduce": "bn_bwd_reduce(?:_fold)?_kernel",
-    "bn_bwd_dx": "bn_bwd_dx_kernel",
+    "bn_bwd": "bn_bwd_kernel",
     "quantize_fp8": "quantize_fp8_kernel",
     "dequantize_fp8": "dequantize_fp8_kernel",
     "quantize_int4": "quantize_int4_kernel",
@@ -232,10 +237,13 @@ KERNEL_SYMBOLS = {
     "ln_fwd": "ln_fwd_kernel",
     "ln_bwd": "ln_bwd(?:_fold)?_kernel",
 }
-BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd")
+BN_FWD_KERNELS = ("bn_stats", "bn_norm")
 LN_KERNELS = ("ln_fwd", "ln_bwd")
-# PyTorch's own batch-norm kernels (cuDNN's or its native ones) in a trace
+# PyTorch's own batch-norm kernels (cuDNN's or its native ones) in a trace,
+# and those of them that belong to the backward
 LIBRARY_BN = re.compile(r"batch_?norm|(?<![A-Za-z0-9_])bn_(?:fw|bw)_", re.IGNORECASE)
+LIBRARY_BN_BWD = re.compile(r"backward|(?<![A-Za-z0-9_])bn_bw_", re.IGNORECASE)
 
 _T0 = time.perf_counter()
 
@@ -1195,6 +1203,40 @@ def serve_phase(torch, dev):
     return serve, counts
 
 
+class BnBackwardCalls:
+    """Times the host's wall clock around each fused BN backward call
+    (``_FusedBatchNorm.backward``: the wrapper's checks, its one ctypes
+    call and the allocation of dx and the sums; no synchronisation, so no
+    device time) while installed, and counts the calls whose ``dy`` had
+    to be copied (not contiguous, or not in x's dtype) before the kernel."""
+
+    def __init__(self):
+        from consensusml_tpu_torch.models import fused_bn as tbn
+
+        self._cls, self._orig = tbn._FusedBatchNorm, tbn._FusedBatchNorm.backward
+        self.ms: list[float] = []
+        self.dy_copies = 0
+        orig = self._orig
+
+        def timed(ctx, dy, dmean, dvar):
+            x2 = ctx.saved_tensors[0]
+            self.dy_copies += not dy.is_contiguous() or dy.dtype != x2.dtype
+            t0 = time.perf_counter()
+            out = orig(ctx, dy, dmean, dvar)
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        self._cls.backward = staticmethod(timed)
+
+    def close(self) -> None:
+        self._cls.backward = staticmethod(self._orig)
+
+    def summary(self) -> dict:
+        ms = sorted(self.ms)
+        return {"calls": len(ms), "median_ms": ms[len(ms) // 2] if ms else None,
+                "mean_ms": sum(ms) / len(ms) if ms else None, "dy_copies": self.dy_copies}
+
+
 def grad_check(torch, model, plain_model, params0, batch, dev):
     """One worker step's gradients through the kernels (``model`` with
     ``attn_impl="cuda"``) against the same step on the plain versions
@@ -1255,6 +1297,7 @@ def profile_round(torch, step, state, batch):
         if hits:
             port[name] = {"ms": sum(dev_us(e) for e in hits) / 1e3, "calls": sum(e.count for e in hits)}
     library_bn = [e for e in cuda if LIBRARY_BN.search(e.key)]
+    library_bn_bwd = [e for e in library_bn if LIBRARY_BN_BWD.search(e.key)]
     return state, {
         "trace_processing_s": time.perf_counter() - t1,
         "wall_ms": wall_ms, "device_kernel_ms": device_ms if device_ms > 0 else None,
@@ -1266,6 +1309,8 @@ def profile_round(torch, step, state, batch):
         "port_kernels": port,
         "library_bn_kernels": {
             "ms": sum(dev_us(e) for e in library_bn) / 1e3, "calls": sum(e.count for e in library_bn),
+            "bwd_ms": sum(dev_us(e) for e in library_bn_bwd) / 1e3,
+            "bwd_calls": sum(e.count for e in library_bn_bwd),
             "names": sorted({e.key[:80] for e in library_bn}),
         },
     }
@@ -1378,6 +1423,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     torch.cuda.reset_peak_memory_stats(dev)
     gc_pauses = GcPauses()
     gc.callbacks.append(gc_pauses)
+    bwd_calls = BnBackwardCalls() if norm_impl == "pallas" else None
     kernels.reset_launch_counts()
     rounds = []
     try:
@@ -1560,24 +1606,31 @@ def sum_err(torch, got, want, terms) -> float:
     return float(((got - want).abs() / terms.clamp_min(1e-30)).max())
 
 
+BN_CHECK_VIEWS = ((131072, 256), (131072, 64), (2048, 2048), (8192, 1024), (32768, 512))
+
+
 def check_bn(torch, tbn, dev):
-    """The four fused-BN kernels at ResNet-50's (131072, 256), (131072, 64)
-    and (2048, 2048) BN views (batch 128 at 32x32, 32x32 and 4x4), bf16,
-    relu off and on, each against its plain version fed the same
-    per-channel vectors: normalize and dx equal (error 0), the reductions
-    within ``BN_SUM_RTOL`` of their terms' magnitudes. Timed (relu on)
-    beside the plain versions and, as the library yardstick of each pair,
-    one ``F.batch_norm`` training forward (stats + normalize) and its
-    autograd backward ((forward + backward) - forward) on the same values
-    as a channels_last (128, C, H, W) tensor: ``ms`` is device time by the
-    profiler (:func:`device_ms`), ``event_ms`` CUDA events over
-    back-to-back calls, which at the small shapes reads the host's time
-    per wrapper call instead."""
+    """The three fused-BN kernels at five of ResNet-50's BN views (batch 128
+    at 32x32, 32x32, 4x4, 8x8 and 16x16), bf16, relu off and on, each
+    against its plain version fed the same per-channel vectors: normalize
+    equal (error 0); the backward's dx equal to ``bn_bwd_dx_plain`` fed the
+    kernel's own sums times f32(1/M), its sums and the statistics within
+    ``BN_SUM_RTOL`` of their terms' magnitudes, the backward's outputs the
+    same bits over three reruns. Timed (relu on) beside the plain versions
+    and, as the library yardstick, one ``F.batch_norm`` training forward
+    (stats + normalize) and its autograd backward ((forward + backward) -
+    forward) on the same values as a channels_last (128, C, H, W) tensor:
+    ``ms`` is device time by the profiler (:func:`device_ms`),
+    ``event_ms`` CUDA events over back-to-back calls, which at the small
+    shapes reads the host's time per wrapper call instead. The backward's
+    ``bound_ms`` counts dy and x read once and dx written once; its
+    ``x_pass_bound`` holds it to the passes its plan makes (3 on chip, 5
+    where it streams and reads dy and x again)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(6)
     out = {}
-    for m, c in ((131072, 256), (131072, 64), (2048, 2048)):
+    for m, c in BN_CHECK_VIEWS:
         x, dy, gamma, beta = bn_case(torch, dev, gen, m, c)
         xf = x.float()
         s, sq = tbn.bn_stats(x)
@@ -1588,39 +1641,40 @@ def check_bn(torch, tbn, dev):
         mean = sp / m
         var = torch.clamp_min(sqp / m - mean * mean, 0.0)
         scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
+        vecs = (scale, shift, mean, rsqrt)
         xhat = (xf - mean) * rsqrt
+        inv = tbn.inv_rows(m)
+        reruns_equal = True
         for relu in (False, True):
             y, yp = tbn.bn_norm(x, scale, shift, relu), tbn.bn_norm_plain(x, scale, shift, relu)
-            db, dg = tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, relu)
-            dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, relu)
-            c1, c2 = dbp / m, dgp / m
-            dx = tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
-            dxp = tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
+            runs = [tbn.bn_bwd(dy, x, *vecs, relu) for _ in range(3)]
+            dx, db, dg = runs[0]
+            reruns_equal &= all(torch.equal(u, v) for r in runs[1:] for u, v in zip(r, runs[0]))
+            dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, *vecs, relu)
+            dxp = tbn.bn_bwd_dx_plain(dy, x, *vecs, db * inv, dg * inv, relu)
             torch.cuda.synchronize()
             g = dy.float() * ((xf * scale + shift > 0) if relu else 1.0)
             for name, e, a in (
                 ("norm", 0.0, float((y.float() - yp.float()).abs().max())),
-                ("bwd_reduce", max(sum_err(torch, db, dbp, g.abs().sum(0)),
-                                   sum_err(torch, dg, dgp, (g * xhat).abs().sum(0))),
+                ("bwd_sums", max(sum_err(torch, db, dbp, g.abs().sum(0)),
+                                 sum_err(torch, dg, dgp, (g * xhat).abs().sum(0))),
                  max(float((db - dbp).abs().max()), float((dg - dgp).abs().max()))),
                 ("bwd_dx", 0.0, float((dx.float() - dxp.float()).abs().max())),
             ):
                 errs[name] = max(errs.get(name, 0.0), e)
                 abs_errs[name] = max(abs_errs.get(name, 0.0), a)
-            del y, yp, dx, dxp, g
-        if errs["stats"] > BN_SUM_RTOL or errs["bwd_reduce"] > BN_SUM_RTOL or abs_errs["norm"] or abs_errs["bwd_dx"]:
+            del y, yp, dx, dxp, g, runs
+        if (errs["stats"] > BN_SUM_RTOL or errs["bwd_sums"] > BN_SUM_RTOL or abs_errs["norm"]
+                or abs_errs["bwd_dx"] or not reruns_equal):
             raise AssertionError(f"fused BN kernels at ({m}, {c}) differ from their plain versions: "
-                                 f"{errs} (sums, rtol {BN_SUM_RTOL}), {abs_errs} (max abs)")
+                                 f"{errs} (sums, rtol {BN_SUM_RTOL}), {abs_errs} (max abs), "
+                                 f"reruns equal {reruns_equal}")
         del xhat
-        c1, c2 = db / m, dg / m
         times = {
             "bn_stats": (lambda _: tbn.bn_stats(x), lambda _: tbn.bn_stats_plain(x)),
             "bn_norm": (lambda _: tbn.bn_norm(x, scale, shift, True),
                         lambda _: tbn.bn_norm_plain(x, scale, shift, True)),
-            "bn_bwd_reduce": (lambda _: tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, True),
-                              lambda _: tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, True)),
-            "bn_bwd_dx": (lambda _: tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, True),
-                          lambda _: tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, True)),
+            "bn_bwd": (lambda _: tbn.bn_bwd(dy, x, *vecs, True), lambda _: tbn.bn_bwd_plain(dy, x, *vecs, True)),
         }
         hw = m // 128
         side = int(round(hw ** 0.5))
@@ -1639,28 +1693,36 @@ def check_bn(torch, tbn, dev):
         lib_bwd_ev = cuda_ms(torch, lib_fwd_bwd, 50) - lib_fwd_ev
         n = m * c
         vec = 4 * c  # one f32 per-channel vector
+        plan = tbn.bn_bwd_plan(m, c, 2, 8)
+        passes = 3 if plan.onchip else 5
         bounds = {  # bytes: bf16 (M, C) operands once each; flops at the f32 rate (no tensor cores)
             "bn_stats": bound_ms(2 * n + 2 * vec, 3 * n, F32_FLOPS),
             "bn_norm": bound_ms(4 * n + 2 * vec, 3 * n, F32_FLOPS),
-            "bn_bwd_reduce": bound_ms(4 * n + 6 * vec, 9 * n, F32_FLOPS),
-            "bn_bwd_dx": bound_ms(6 * n + 6 * vec, 10 * n, F32_FLOPS),
+            # mask 2, xhat 2, the two sums 3, dx 4 flops an element
+            "bn_bwd": bound_ms(6 * n + 6 * vec, 11 * n, F32_FLOPS),
         }
-        err_of = {"bn_stats": "stats", "bn_norm": "norm", "bn_bwd_reduce": "bwd_reduce", "bn_bwd_dx": "bwd_dx"}
-        out[(m, c)] = {
-            name: {
+        err_of = {"bn_stats": "stats", "bn_norm": "norm", "bn_bwd": "bwd_dx"}
+        view = {}
+        for name, (kern, plain) in times.items():
+            lib, lib_ev = (lib_fwd, lib_fwd_ev) if name != "bn_bwd" else (lib_bwd, lib_bwd_ev)
+            ms = device_ms(torch, kern, 50)
+            view[name] = {
                 "m": m, "c": c, "max_abs_err": abs_errs[err_of[name]],
-                "sum_rel_err": errs[err_of[name]] if name in ("bn_stats", "bn_bwd_reduce") else None,
-                "ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
+                "sum_rel_err": errs["stats"] if name == "bn_stats" else errs["bwd_sums"] if name == "bn_bwd" else None,
+                "ms": ms, "plain_ms": device_ms(torch, plain, 10),
                 "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
-                "library_ms": lib_fwd if name in ("bn_stats", "bn_norm") else lib_bwd,
-                "library_event_ms": lib_fwd_ev if name in ("bn_stats", "bn_norm") else lib_bwd_ev,
+                "library_ms": lib, "library_event_ms": lib_ev,
                 "library": ("F.batch_norm training forward (stats + normalize together)"
-                            if name in ("bn_stats", "bn_norm") else
-                            "F.batch_norm autograd backward (reduce + dx together)"),
+                            if name != "bn_bwd" else "F.batch_norm autograd backward"),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "x_library": ms / lib, "x_bound": ms / bounds[name][0],
             }
-            for name, (kern, plain) in times.items()
-        }
+        view["bn_bwd"].update({
+            "plan": plan._asdict(), "passes": passes, "max_abs_err_sums": abs_errs["bwd_sums"],
+            "x_pass_bound": view["bn_bwd"]["ms"] / bound_ms(passes * 2 * n + 6 * vec, 11 * n, F32_FLOPS)[0],
+            "reruns_equal": reruns_equal,
+        })
+        out[(m, c)] = view
         del x, dy, x4, dy4, xf
         torch.cuda.empty_cache()
     return out
@@ -1754,6 +1816,7 @@ def train_resnet_phase(torch, dev, init, norm_impl, counted):
     torch.cuda.reset_peak_memory_stats(dev)
     gc_pauses = GcPauses()
     gc.callbacks.append(gc_pauses)
+    bwd_calls = BnBackwardCalls() if norm_impl == "pallas" else None
     kernels.reset_launch_counts()
     rounds = []
     try:
@@ -1771,6 +1834,8 @@ def train_resnet_phase(torch, dev, init, norm_impl, counted):
             })
     finally:
         gc.callbacks.remove(gc_pauses)
+        if bwd_calls is not None:
+            bwd_calls.close()
     counts = kernels.launch_counts()
     marks.append(("rounds", time.perf_counter()))
     state, prof = profile_round(torch, step, state, batches[1 + counted])
@@ -1787,8 +1852,12 @@ def train_resnet_phase(torch, dev, init, norm_impl, counted):
     if n_bn != 53 or counts != expect:
         raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect} ({n_bn} BN layers)")
     round_ms_mean = sum(r["round_ms"] for r in rounds) / counted
-    bn_ms = (sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in BN_KERNELS)
-             if norm_impl == "pallas" else prof["library_bn_kernels"]["ms"])
+    if norm_impl == "pallas":
+        bn_ms = sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in BN_KERNELS)
+        bn_fwd_ms = sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in BN_FWD_KERNELS)
+    else:
+        bn_ms = prof["library_bn_kernels"]["ms"]
+        bn_fwd_ms = bn_ms - prof["library_bn_kernels"]["bwd_ms"]
     if prof["device_kernel_ms"] is not None:
         prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
     out = {
@@ -1803,7 +1872,10 @@ def train_resnet_phase(torch, dev, init, norm_impl, counted):
         "imgs_per_s_per_chip_mean": sum(r["imgs_per_s_per_chip"] for r in rounds) / counted,
         "peak_memory_bytes": max(r["peak_memory_bytes"] for r in rounds),
         "launches": counts, "launches_expected": expect,
-        "bn_device_ms_in_profiled_round": bn_ms, "profiled_round": prof,
+        "bn_device_ms_in_profiled_round": bn_ms,
+        "bn_device_ms_in_profiled_round_by_pass": {"forward": bn_fwd_ms, "backward": bn_ms - bn_fwd_ms},
+        **({"bn_backward_host": bwd_calls.summary()} if bwd_calls is not None else {}),
+        "profiled_round": prof,
     }
     del state
     torch.cuda.empty_cache()
@@ -1919,14 +1991,17 @@ def main() -> int:
          "consensusml_tpu/compress/kernels.py:481",
          {**codec["scatter"]["largest no_acc"], "by_shape": codec["scatter"]}),
     ]
-    # the fused-BN kernels: the largest BN view's readings, the other two
-    # shapes beside them. All four reach pl.pallas_call through _grid_call
-    # (fused_bn.py:175); each is named by its kernel body's line
-    for name, line in (("bn_stats", 118), ("bn_norm", 130), ("bn_bwd_reduce", 145), ("bn_bwd_dx", 159)):
+    # the fused-BN kernels: the largest BN view's readings, the other four
+    # shapes beside them. All four TPU kernels reach pl.pallas_call through
+    # _grid_call (fused_bn.py:175); each is named by its kernel body's line,
+    # and bn_bwd replaces two: _bwd_reduce_kernel (:145) and _bwd_dx_kernel
+    # (:159)
+    for name, line in (("bn_stats", 118), ("bn_norm", 130), ("bn_bwd", 145)):
         by_shape = {f"({m}, {c})": r[name] for (m, c), r in bn.items()}
         worst = max(r[name]["max_abs_err"] for r in bn.values())
+        extra = {"also_replaces": "consensusml_tpu/models/fused_bn.py:159"} if name == "bn_bwd" else {}
         rows.append((name, "consensusml_tpu_torch/csrc/fused_bn.cu", f"consensusml_tpu/models/fused_bn.py:{line}",
-                     {**bn[(131072, 256)][name], "max_abs_err": worst, "by_shape": by_shape}))
+                     {**bn[(131072, 256)][name], "max_abs_err": worst, "by_shape": by_shape, **extra}))
     # the fp8 pair at the largest fp8 bucket's rows, the median's beside;
     # dequantize_fp8 is the int8 dequantize's pallas_call fed e4m3 rows
     for name, line in (("quantize_fp8", 282), ("dequantize_fp8", 156)):
@@ -1993,8 +2068,8 @@ def main() -> int:
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
-         **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format")
-            if k in r}}
+         **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format",
+                              "also_replaces") if k in r}}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

@@ -48,7 +48,7 @@ NVCC_FLAGS = (
 
 # kernel name -> (module, wrapper attribute, source): the source is
 # csrc/<source>.cu; one source may hold several kernels (the flash
-# backward's dq and dk/dv, the four fused-BN passes, the int8, fp8 and
+# backward's dq and dk/dv, the three fused-BN kernels, the int8, fp8 and
 # int4 codecs' two directions, the LayerNorm's forward and backward)
 KERNELS = {
     "paged_attention": (
@@ -81,8 +81,7 @@ KERNELS = {
     "chunk_scatter": ("consensusml_tpu_torch.compress.kernels", "chunk_scatter", "chunk_scatter"),
     "bn_stats": ("consensusml_tpu_torch.models.fused_bn", "bn_stats", "fused_bn"),
     "bn_norm": ("consensusml_tpu_torch.models.fused_bn", "bn_norm", "fused_bn"),
-    "bn_bwd_reduce": ("consensusml_tpu_torch.models.fused_bn", "bn_bwd_reduce", "fused_bn"),
-    "bn_bwd_dx": ("consensusml_tpu_torch.models.fused_bn", "bn_bwd_dx", "fused_bn"),
+    "bn_bwd": ("consensusml_tpu_torch.models.fused_bn", "bn_bwd", "fused_bn"),
     "ln_fwd": ("consensusml_tpu_torch.models.fused_ln", "ln_fwd", "fused_ln"),
     "ln_bwd": ("consensusml_tpu_torch.models.fused_ln", "ln_bwd", "fused_ln"),
 }

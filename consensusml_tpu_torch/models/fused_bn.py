@@ -1,31 +1,38 @@
 """Fused BatchNorm(+ReLU) for training: CUDA kernels + plain versions
 (port of ``consensusml_tpu/models/fused_bn.py``).
 
-Four kernels in ``csrc/fused_bn.cu``, each over a contiguous ``(M, C)``
+Three kernels in ``csrc/fused_bn.cu``, each over a contiguous ``(M, C)``
 view (channels last) of f32 or bf16 input, all arithmetic in f32:
 
 - :func:`bn_stats`: per-channel f32 ``sum x`` and ``sum x**2``;
 - :func:`bn_norm`: ``y = x * scale + shift`` (then ``max(y, 0)`` with
   relu), ``y`` in x's dtype;
-- :func:`bn_bwd_reduce`: ``g = dy`` (zeroed where ``x * scale + shift <=
-  0`` with relu); per-channel ``sum g`` and ``sum g * xhat``, ``xhat =
-  (x - mean) * rsqrt``;
-- :func:`bn_bwd_dx`: ``dx = scale * ((g - c1) - xhat * c2)``, in x's dtype.
+- :func:`bn_bwd`: the whole backward in one launch: ``g = dy`` (zeroed
+  where ``x * scale + shift <= 0`` with relu), ``xhat = (x - mean) *
+  rsqrt``, ``db = sum g``, ``dg = sum g * xhat``, ``c1 = db / M``, ``c2 =
+  dg / M`` (products with ``f32(1/M)``, as the compiled reference),
+  ``dx = scale * ((g - c1) - xhat * c2)`` in x's dtype. Its plain
+  version is :func:`bn_bwd_reduce_plain` then :func:`bn_bwd_dx_plain`,
+  the reference's two kernel bodies, with the division between them.
 
 Each wrapper runs its plain version (``*_plain``, beside it) for a CPU
 tensor and launches its kernel for a CUDA tensor, raising on what the
 kernel does not take (a non-contiguous view is refused, not copied); it
 never falls back. Each launch adds one to the wrapper's ``launches``.
 
+The backward (kernel and plain versions) flushes f32 subnormals as the
+reference's compiled program does: a subnormal operand of its arithmetic
+counts as a zero of its sign and a subnormal result is written as one
+(``tests/test_torch_fused_bn.py`` pins it against the jitted reference).
+
 :func:`fused_batch_norm` is the reference's ``custom_vjp`` as a
 ``torch.autograd.Function``: forward = stats, then the "fast variance"
 ``var = max(sq/m - mean**2, 0)`` (not Welford's) and the folded
 ``scale``/``shift`` in f32 plain ops, then the normalize pass; backward =
-the reduce pass, then the dx pass with ``c1 = dbeta/m``, ``c2 =
-dgamma/m``. The statistics' cotangents are dropped, and ``mean``/``var``
-come back detached (the mutable-state convention).
+one :func:`bn_bwd` call. The statistics' cotangents are dropped, and
+``mean``/``var`` come back detached (the mutable-state convention).
 
-``impl``: ``"auto"``, ``"pallas"`` and ``"interpret"`` all run the four
+``impl``: ``"auto"``, ``"pallas"`` and ``"interpret"`` all run the
 wrappers (the kernels on the card, the plain versions on the CPU);
 ``"jnp"`` names the plain versions on any device (the reference's jnp
 path, the parity oracle; ``chip_smoke.py`` runs it on the card beside
@@ -38,6 +45,9 @@ C is not a multiple of the vector width).
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -53,10 +63,13 @@ __all__ = [
     "bn_stats_plain",
     "bn_norm",
     "bn_norm_plain",
-    "bn_bwd_reduce",
+    "bn_bwd",
+    "bn_bwd_plain",
     "bn_bwd_reduce_plain",
-    "bn_bwd_dx",
     "bn_bwd_dx_plain",
+    "inv_rows",
+    "BwdPlan",
+    "bn_bwd_plan",
 ]
 
 IMPLS = ("auto", "pallas", "jnp", "interpret")
@@ -65,6 +78,7 @@ _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
 _THREADS = 256
 _FILL_BLOCKS = 528  # 132 SMs x 4 blocks of 256 threads
 _ROWS_A_THREAD = 32
+_F32_MIN_NORMAL = 2.0**-126
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -88,25 +102,146 @@ def bn_norm_plain(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, re
     return y.to(x2.dtype)
 
 
-def _masked_g(dy2, x2, scale, shift, relu: bool) -> torch.Tensor:
-    g = dy2.float()
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every f32 subnormal replaced by a zero of its sign: what
+    the reference's compiled program (flush-to-zero, denormals-are-zero)
+    makes of a subnormal operand or result of its arithmetic."""
+    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
+
+
+def _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
+    """``(g, xhat, scale)`` of the backward, each operation's operands and
+    result flushed as the reference's compiled program does (the kernel's
+    ``.ftz`` instructions)."""
+    x = _ftz(x2.float())
+    g = _ftz(dy2.float())
+    scale, shift, mean, rsqrt = (_ftz(v) for v in (scale, shift, mean, rsqrt))
     if relu:
-        g = torch.where(x2.float() * scale + shift > 0, g, 0.0)
-    return g
+        g = torch.where(_ftz(_ftz(x * scale) + shift) > 0, g, 0.0)
+    xhat = _ftz(_ftz(x - mean) * rsqrt)
+    return g, xhat, scale
 
 
 def bn_bwd_reduce_plain(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
-    """``(dbeta, dgamma) = (sum g, sum g * xhat)`` per channel, in f32."""
-    g = _masked_g(dy2, x2, scale, shift, relu)
-    xhat = (x2.float() - mean) * rsqrt
-    return g.sum(0), (g * xhat).sum(0)
+    """``(dbeta, dgamma) = (sum g, sum g * xhat)`` per channel, in f32 (the
+    reference's ``_bwd_reduce_kernel``)."""
+    g, xhat, _ = _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu)
+    return _ftz(g.sum(0)), _ftz(_ftz(g * xhat).sum(0))
 
 
 def bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, c1, c2, relu: bool) -> torch.Tensor:
-    """``dx = scale * ((g - c1) - xhat * c2)``, in x's dtype."""
-    g = _masked_g(dy2, x2, scale, shift, relu)
-    xhat = (x2.float() - mean) * rsqrt
-    return (scale * (g - c1 - xhat * c2)).to(x2.dtype)
+    """``dx = scale * ((g - c1) - xhat * c2)``, in x's dtype (the
+    reference's ``_bwd_dx_kernel``)."""
+    g, xhat, scale = _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu)
+    c1, c2 = _ftz(c1), _ftz(c2)
+    return _ftz(scale * _ftz(_ftz(g - c1) - _ftz(xhat * c2))).to(x2.dtype)
+
+
+def inv_rows(m: int) -> float:
+    """``f32(1 / f32(m))``: the reference's ``db / m`` divides by a
+    constant, which XLA compiles into a product with its f32 reciprocal
+    (``db * inv_rows(m)`` in f32 is that product)."""
+    return 1.0 / struct.unpack("f", struct.pack("f", m))[0]
+
+
+def bn_bwd_plain(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
+    """``(dx, dbeta, dgamma)``: the reference's ``_bn_train_bwd`` in plain
+    ops, :func:`bn_bwd_reduce_plain` then :func:`bn_bwd_dx_plain` with
+    ``c1 = dbeta / M`` and ``c2 = dgamma / M`` (products with
+    :func:`inv_rows`, as the compiled reference computes them)."""
+    inv = inv_rows(x2.shape[0])
+    db, dg = bn_bwd_reduce_plain(dy2, x2, scale, shift, mean, rsqrt, relu)
+    dx = bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, _ftz(db * inv), _ftz(dg * inv), relu)
+    return dx, db, dg
+
+
+# ---------------------------------------------------------------------------
+# the backward's launch plan
+# ---------------------------------------------------------------------------
+
+
+class BwdPlan(NamedTuple):
+    """How :func:`bn_bwd` cuts an ``(M, C)`` view (``csrc/fused_bn.cu``'s
+    header): a cluster of ``cluster`` blocks per channel tile of ``tile``
+    channels, ``rows`` rows a block, staged in chunks of ``chunk`` rows
+    through ``nbuf`` buffers of dy and x (``onchip``: the whole stripe
+    stays in shared memory, dy and x are read once; else a ring, and the
+    chunks that left it are read again); ``smem`` bytes of dynamic shared
+    memory a block. ``chunk`` and ``nbuf`` are 0 on the one-element path."""
+
+    cluster: int
+    tile: int
+    rows: int
+    chunk: int
+    nbuf: int
+    onchip: bool
+    smem: int
+
+
+_BWD_CLUSTERS = (8, 16)  # blocks of a cluster (16 is H100's non-portable size)
+_BWD_MIN_ROWS = 128  # rows a block before a cluster takes more blocks
+_BWD_FILL = 64  # blocks a launch should reach
+_BWD_MAX_ROW_BYTES = 128  # a tile's row: 64 bf16 or 32 f32 channels
+_BWD_ONCHIP_BYTES = 200 * 1024  # a block's staged stripe (one block an SM)
+_BWD_STAGE_BYTES = 16 * 1024  # dy (or x) bytes of one chunk
+_BWD_RING_BYTES = 96 * 1024  # a streaming block's ring
+_BWD_MAX_BUFS = 64
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def bn_bwd_plan(m: int, c: int, elem: int, vec: int, *, cluster: int | None = None,
+                tile: int | None = None, onchip: bool | None = None) -> BwdPlan:
+    """The plan of :func:`bn_bwd` for an ``(m, c)`` view of ``elem``-byte
+    elements read ``vec`` to a thread (16 bytes, or 1 element).
+
+    One cluster of 8 or 16 blocks per channel tile (fewer where M gives a
+    block fewer than 128 rows). For each cluster size the tile is the
+    widest power of two of 16-byte vectors, up to a 128-byte row, that
+    still gives the launch >= 64 blocks; the wider of the two wins (8 on a
+    tie: the card holds about 30 clusters of 8 at once, 14 of 16). Narrow
+    tiles lose: at ResNet-50's views a 16-byte row read 2-7x slower than a
+    128-byte one (consensusml_tpu_torch/tools/bn_bwd_sweep.py, PERF.md).
+    The stripe stays in shared memory (the on-chip form: dy and x read
+    once) where it fits in 200 KB, else it streams through a 96 KB ring.
+    ``cluster``, ``tile`` and ``onchip`` pin those choices (the sweep)."""
+    head = lambda tile, nbuf: _align128((2 * _THREADS * vec + 2 * tile) * 4 + 8 * nbuf)  # noqa: E731
+    most = min(max(_BWD_CLUSTERS), max(1, -(-m // _BWD_MIN_ROWS)))
+    sizes = [cluster] if cluster else sorted({min(s, most) for s in _BWD_CLUSTERS})
+
+    def shape(s):  # (blocks of a cluster, rows a block): no block without rows
+        rows = -(-m // s)
+        return -(-m // rows), rows
+
+    if vec == 1:
+        s, rows = shape(sizes[-1])
+        tile = tile or min(32, 1 << (c - 1).bit_length())
+        return BwdPlan(s, tile, rows, 0, 0, False, head(tile, 0))
+    widths = [vec << k for k in range(6) if (vec << k) * elem <= _BWD_MAX_ROW_BYTES and (vec << k) < 2 * c]
+    if tile is None:
+        best = None
+        for s in sizes:
+            fill = [t for t in widths if shape(s)[0] * -(-c // t) >= _BWD_FILL]
+            t = fill[-1] if fill else widths[0]
+            if best is None or t > best[1]:
+                best = (s, t)
+        s, tile = best
+    else:
+        s = sizes[-1]
+    s, rows = shape(s)
+    chunk = max(1, min(256, rows, _BWD_STAGE_BYTES // (tile * elem)))
+    buf = _align128(chunk * tile * elem)
+    n = -(-rows // chunk)
+    fits = n <= _BWD_MAX_BUFS and 2 * n * buf <= _BWD_ONCHIP_BYTES
+    if onchip is None:
+        onchip = fits
+    if onchip and not fits:
+        raise ValueError(f"a ({rows}, {tile}) stripe of dy and x does not fit in {_BWD_ONCHIP_BYTES} bytes")
+    nbuf = n if onchip else max(2, min(_BWD_MAX_BUFS, n, _BWD_RING_BYTES // (2 * buf)))
+    return BwdPlan(s, tile, rows, chunk, nbuf, onchip, head(tile, nbuf) + 2 * nbuf * buf)
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +284,11 @@ def _vec(x2: torch.Tensor, *tensors: torch.Tensor) -> int:
 
 
 def _stripes(m: int, c: int, vec: int) -> int:
-    """Row stripes of the reductions (one block per stripe and channel tile,
-    the same tile geometry as ``csrc/fused_bn.cu:reduce_plan``): enough to
-    fill the card, or each thread walking at least 32 rows, whichever is
-    fewer; never fewer than one row a thread, and no stripe empty."""
+    """Row stripes of the statistics pass (one block per stripe and channel
+    tile, the same tile geometry as ``csrc/fused_bn.cu:reduce_plan``):
+    enough to fill the card, or each thread walking at least 32 rows,
+    whichever is fewer; never fewer than one row a thread, and no stripe
+    empty."""
     cols = -(-c // vec)
     tx = min(1 << (cols - 1).bit_length(), 32)
     ty = _THREADS // tx
@@ -222,58 +358,37 @@ def bn_norm(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bo
     return y
 
 
-def bn_bwd_reduce(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
-    """``(dbeta, dgamma) = (sum g, sum g * xhat)`` per channel, f32:
-    ``csrc/fused_bn.cu`` for CUDA tensors, :func:`bn_bwd_reduce_plain` for
-    CPU ones. ``dy2`` has x's shape and dtype. Each launch adds one to
-    ``bn_bwd_reduce.launches``."""
+def bn_bwd(dy2, x2, scale, shift, mean, rsqrt, relu: bool, *, plan: BwdPlan | None = None):
+    """``(dx, dbeta, dgamma)``: the whole backward in one launch of
+    ``csrc/fused_bn.cu`` for CUDA tensors (``plan``, by default
+    :func:`bn_bwd_plan`'s), :func:`bn_bwd_plain` for CPU ones. ``dy2`` has
+    x's shape and dtype; ``dx`` is in x's dtype, the sums f32. Each launch
+    adds one to ``bn_bwd.launches``."""
     if not x2.is_cuda:
-        return bn_bwd_reduce_plain(dy2, x2, scale, shift, mean, rsqrt, relu)
+        return bn_bwd_plain(dy2, x2, scale, shift, mean, rsqrt, relu)
     _check_view("x", x2)
     _check_view("dy", dy2, like=x2)
-    vecs = {"scale": scale, "shift": shift, "mean": mean, "rsqrt": rsqrt}
-    _check_vectors(x2, **vecs)
-    m, c = x2.shape
-    vec = _vec(x2, dy2, *vecs.values())
-    stripes = _stripes(m, c, vec)
-    partials = torch.empty((stripes, 2, c), dtype=torch.float32, device=x2.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    rc = _bind("cml_bn_bwd_reduce", [_P, _P, _I, _LL, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P])(
-        dy2.data_ptr(), x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, stripes, scale.data_ptr(),
-        shift.data_ptr(), mean.data_ptr(), rsqrt.data_ptr(), int(relu), partials.data_ptr(), out.data_ptr(),
-        _stream(x2),
-    )
-    _launched(bn_bwd_reduce, rc)
-    return out[0], out[1]
-
-
-def bn_bwd_dx(dy2, x2, scale, shift, mean, rsqrt, c1, c2, relu: bool) -> torch.Tensor:
-    """``dx = scale * ((g - c1) - xhat * c2)`` in x's dtype:
-    ``csrc/fused_bn.cu`` for CUDA tensors, :func:`bn_bwd_dx_plain` for CPU
-    ones. Each launch adds one to ``bn_bwd_dx.launches``."""
-    if not x2.is_cuda:
-        return bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, c1, c2, relu)
-    _check_view("x", x2)
-    _check_view("dy", dy2, like=x2)
-    vecs = {"scale": scale, "shift": shift, "mean": mean, "rsqrt": rsqrt, "c1": c1, "c2": c2}
-    _check_vectors(x2, **vecs)
+    _check_vectors(x2, scale=scale, shift=shift, mean=mean, rsqrt=rsqrt)
     m, c = x2.shape
     dx = torch.empty_like(x2)
-    rc = _bind("cml_bn_bwd_dx", [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P])(
-        dy2.data_ptr(), x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, _vec(x2, dy2, dx, *vecs.values()),
-        *(v.data_ptr() for v in vecs.values()), int(relu), dx.data_ptr(), _stream(x2),
+    out = torch.empty((2, c), dtype=torch.float32, device=x2.device)
+    vec = _vec(x2, dy2, dx, scale, shift, mean, rsqrt)
+    p = plan or bn_bwd_plan(m, c, x2.element_size(), vec)
+    rc = _bind("cml_bn_bwd", [_P, _P, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _I, _P, _P, _P])(
+        dy2.data_ptr(), x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, scale.data_ptr(), shift.data_ptr(),
+        mean.data_ptr(), rsqrt.data_ptr(), int(relu), p.cluster, p.tile, p.rows, p.chunk, p.nbuf,
+        dx.data_ptr(), out.data_ptr(), _stream(x2),
     )
-    _launched(bn_bwd_dx, rc)
-    return dx
+    _launched(bn_bwd, rc)
+    return dx, out[0], out[1]
 
 
 bn_stats.launches = 0
 bn_norm.launches = 0
-bn_bwd_reduce.launches = 0
-bn_bwd_dx.launches = 0
+bn_bwd.launches = 0
 
-_KERNEL_OPS = (bn_stats, bn_norm, bn_bwd_reduce, bn_bwd_dx)
-_PLAIN_OPS = (bn_stats_plain, bn_norm_plain, bn_bwd_reduce_plain, bn_bwd_dx_plain)
+_KERNEL_OPS = (bn_stats, bn_norm, bn_bwd)
+_PLAIN_OPS = (bn_stats_plain, bn_norm_plain, bn_bwd_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +408,7 @@ def fold_params(gamma, beta, mean, var, eps: float):
 class _FusedBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps, relu, plain):
-        stats, norm, _r, _d = _PLAIN_OPS if plain else _KERNEL_OPS
+        stats, norm, _bwd = _PLAIN_OPS if plain else _KERNEL_OPS
         m = x2.shape[0]
         s, sq = stats(x2)
         mean = s / m
@@ -308,11 +423,8 @@ class _FusedBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x2, scale, shift, mean, rsqrt = ctx.saved_tensors
-        _s, _n, reduce, dx_pass = _PLAIN_OPS if ctx.plain else _KERNEL_OPS
-        m = x2.shape[0]
-        dy = dy.to(x2.dtype).contiguous()
-        db, dg = reduce(dy, x2, scale, shift, mean, rsqrt, ctx.relu)
-        dx = dx_pass(dy, x2, scale, shift, mean, rsqrt, db / m, dg / m, ctx.relu)
+        _s, _n, bwd = _PLAIN_OPS if ctx.plain else _KERNEL_OPS
+        dx, db, dg = bwd(dy.to(x2.dtype).contiguous(), x2, scale, shift, mean, rsqrt, ctx.relu)
         return dx, dg, db, None, None, None
 
 

@@ -1,16 +1,20 @@
-"""Run ``chip_smoke.py``'s serve and GPT-2 ``train`` phases for two
-checkouts of this repository, in turns, on one card.
+"""Run ``chip_smoke.py``'s serve, GPT-2 ``train`` and ResNet-50 phases for
+two checkouts of this repository, in turns, on one card.
 
-    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR
+    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR [--phases serve,train,resnet]
 
 Each run is a fresh process that imports its checkout's ``chip_smoke.py``
 and so builds and loads that checkout's kernels. The order, parent,
 change, change, parent, spreads drift in the host's speed over both
-checkouts. A run prints one
-JSON line: the serving TTFT and decode rate, the ``train`` line's round
-times (gpt2_topk full, 4 workers, fused int8 wire), its profiled round's
-device time, busy share and each port kernel's device time by CUDA
-symbol. The last line is the JSON list of all runs.
+checkouts. A run prints one JSON line with the phases asked for: the
+serving TTFT and decode rate; the ``train`` line's round times
+(gpt2_topk full, 4 workers, fused int8 wire), its profiled round's device
+time, busy share and each port kernel's device time by CUDA symbol; the
+``train_resnet`` (fused BN) and ``train_resnet_flax`` (PyTorch's batch
+norm) lines' round times, profiled device time and busy share, the BN
+kernels' device time (forward and backward apart where the checkout
+reports them) and the host's time per BN backward call. The last line is
+the JSON list of all runs.
 """
 
 from __future__ import annotations
@@ -28,27 +32,46 @@ import torch
 import chip_smoke as cs
 from consensusml_tpu_torch import configs, kernels
 
+phases = sys.argv[2].split(",")
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.build()
-serve, _ = cs.serve_phase(torch, dev)
-torch.cuda.empty_cache()
-init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
-line, counts, _, _ = cs.train_phase(torch, dev, init, "int8")
-prof = line["profiled_round"]
-print(json.dumps({
-    "checkout": sys.argv[1],
-    "serve": {k: serve[k] for k in ("ttft_p50_ms", "intertoken_p50_ms", "decode_tokens_per_sec")},
-    "train": {
+out = {"checkout": sys.argv[1]}
+if "serve" in phases:
+    serve, _ = cs.serve_phase(torch, dev)
+    out["serve"] = {k: serve[k] for k in ("ttft_p50_ms", "intertoken_p50_ms", "decode_tokens_per_sec")}
+    torch.cuda.empty_cache()
+if "train" in phases:
+    init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
+    line, counts, _, _ = cs.train_phase(torch, dev, init, "int8")
+    prof = line["profiled_round"]
+    out["train"] = {
         "round_ms": [r["round_ms"] for r in line["rounds"]],
         "gossip_ms": [r["gossip_ms"] for r in line["rounds"]],
         "profiled_wall_ms": prof["wall_ms"], "device_kernel_ms": prof["device_kernel_ms"],
         "device_busy_share_of_unprofiled_round": prof.get("device_busy_share_of_unprofiled_round"),
         "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
-    },
-}), flush=True)
+    }
+    del init
+    torch.cuda.empty_cache()
+if "resnet" in phases:
+    init = configs.build("cifar_resnet50", "full", device=dev).init_params(0)
+    for path, norm_impl, counted in (("train_resnet", "pallas", 3), ("train_resnet_flax", "flax", 2)):
+        line, counts = cs.train_resnet_phase(torch, dev, cs.resnet_init_named(init, norm_impl), norm_impl, counted)
+        prof = line["profiled_round"]
+        out[path] = {
+            "round_ms": [r["round_ms"] for r in line["rounds"]],
+            "profiled_wall_ms": prof["wall_ms"], "device_kernel_ms": prof["device_kernel_ms"],
+            "device_busy_share_of_unprofiled_round": prof.get("device_busy_share_of_unprofiled_round"),
+            "kernels_in_profiled_round": prof["kernels"],
+            "bn_device_ms": line["bn_device_ms_in_profiled_round"],
+            "bn_device_ms_by_pass": line.get("bn_device_ms_in_profiled_round_by_pass"),
+            "bn_backward_host": line.get("bn_backward_host"),
+            "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
+        }
+print(json.dumps(out), flush=True)
 """
 
 
@@ -56,11 +79,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", help="root of the parent checkout")
     ap.add_argument("change", help="root of the changed checkout")
+    ap.add_argument("--phases", default="serve,train,resnet",
+                    help="comma-separated phases to run: serve, train, resnet (default: all three)")
     args = ap.parse_args(argv)
+    unknown = set(args.phases.split(",")) - {"serve", "train", "resnet"}
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     runs = []
     for root in (args.parent, args.change, args.change, args.parent):
         root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, "-c", CHILD, root], capture_output=True, text=True, cwd=root)
+        proc = subprocess.run([sys.executable, "-c", CHILD, root, args.phases], capture_output=True, text=True,
+                              cwd=root)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

@@ -19,8 +19,9 @@ CHOCO encode and decode in the int8, int4 and fp8 formats, int8 and fp8
 quantize/dequantize, chunked top-k, chunk scatter) are held bit for bit:
 integer selection and one rounding per operation, subnormals flushed at
 the same points (a NaN's payload bits aside).
-The fused-BN normalize and dx kernels round every step as their plain
-versions do, so they are held equal; the two BN reductions sum in f32 in
+The fused-BN normalize kernel and the backward's dx round every step as
+their plain versions do, so they are held equal (dx given the kernel's
+own sums); the statistics and the backward's two sums are taken in f32 in
 another order, each per-channel sum held to 2e-6 of the sum of its terms'
 magnitudes (``chip_smoke.py``'s ``BN_SUM_RTOL``). The int4 codec kernels
 are held bit for bit. The fused-LN kernels sum each row in another order
@@ -425,52 +426,140 @@ def _bn_sum_ok(got, want, terms):
     return bool(((got - want).abs() <= BN_SUM_RTOL * terms + 1e-30).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("m,c", [(8192, 256), (4096, 64), (512, 2048), (1, 8), (1, 3), (777, 13), (300, 24)])
-def test_bn_kernels_match_plain(dev, m, c, dtype):
-    """The four fused-BN kernels against their plain versions, fed the same
-    per-channel vectors, relu off and on; C not a multiple of the vector
-    width (3, 13) and M = 1 included. Each wrapper call counts one launch."""
-    from consensusml_tpu_torch.models import fused_bn as tbn
-
-    gen = torch.Generator(device=dev).manual_seed(m + c)
+def _bn_case(dev, m, c, dtype, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x = (2 * torch.randn(m, c, generator=gen, device=dev) + 0.3).to(dtype)
     dy = torch.randn(m, c, generator=gen, device=dev).to(dtype)
     gamma = 1 + 0.5 * torch.randn(c, generator=gen, device=dev)
     beta = 0.1 * torch.randn(c, generator=gen, device=dev)
-    names = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+    return x, dy, gamma, beta
+
+
+def _bn_vectors(tbn, x, gamma, beta):
+    m = x.shape[0]
+    sp, sqp = tbn.bn_stats_plain(x)
+    mean = sp / m
+    var = torch.clamp_min(sqp / m - mean * mean, 0.0)
+    scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
+    return scale, shift, mean, rsqrt
+
+
+def _check_bn_bwd(tbn, dy, x, vecs, relu, reruns=1):
+    """bn_bwd against its plain versions: dx equal to ``bn_bwd_dx_plain``
+    fed the kernel's own sums times f32(1/M) (the compiled reference's
+    division), the sums within BN_SUM_RTOL of the plain reduce's, every
+    rerun bit-identical."""
+    inv = tbn.inv_rows(x.shape[0])
+    runs = [tbn.bn_bwd(dy, x, *vecs, relu) for _ in range(reruns)]
+    dx, db, dg = runs[0]
+    dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, *vecs, relu)
+    want = tbn.bn_bwd_dx_plain(dy, x, *vecs, db * inv, dg * inv, relu)
+    scale, shift, mean, rsqrt = vecs
+    g = dy.float() * ((x.float() * scale + shift > 0) if relu else 1.0)
+    xhat = (x.float() - mean) * rsqrt
+    torch.cuda.synchronize()
+    assert dx.dtype == x.dtype and db.dtype == dg.dtype == torch.float32
+    assert torch.equal(dx, want)
+    assert _bn_sum_ok(db, dbp, g.abs().sum(0)) and _bn_sum_ok(dg, dgp, (g * xhat).abs().sum(0))
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,c", [(8192, 256), (4096, 64), (512, 2048), (1, 8), (1, 3), (777, 13), (300, 24)])
+def test_bn_kernels_match_plain(dev, m, c, dtype):
+    """The three fused-BN kernels against their plain versions, fed the
+    same per-channel vectors, relu off and on; C not a multiple of the
+    vector width (3, 13) and M = 1 included. Each wrapper call counts one
+    launch."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    x, dy, gamma, beta = _bn_case(dev, m, c, dtype, m + c)
+    names = ("bn_stats", "bn_norm", "bn_bwd")
     before = [getattr(tbn, n).launches for n in names]
     xf = x.float()
     s, sq = tbn.bn_stats(x)
     sp, sqp = tbn.bn_stats_plain(x)
     torch.cuda.synchronize()
     assert _bn_sum_ok(s, sp, xf.abs().sum(0)) and _bn_sum_ok(sq, sqp, (xf * xf).sum(0))
-    mean = sp / m
-    var = torch.clamp_min(sqp / m - mean * mean, 0.0)
-    scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
-    xhat = (xf - mean) * rsqrt
+    vecs = _bn_vectors(tbn, x, gamma, beta)
     for relu in (False, True):
-        y = tbn.bn_norm(x, scale, shift, relu)
-        assert y.dtype == dtype and torch.equal(y.float(), tbn.bn_norm_plain(x, scale, shift, relu).float())
-        db, dg = tbn.bn_bwd_reduce(dy, x, scale, shift, mean, rsqrt, relu)
-        dbp, dgp = tbn.bn_bwd_reduce_plain(dy, x, scale, shift, mean, rsqrt, relu)
-        g = dy.float() * ((xf * scale + shift > 0) if relu else 1.0)
+        y = tbn.bn_norm(x, vecs[0], vecs[1], relu)
+        assert y.dtype == dtype and torch.equal(y.float(), tbn.bn_norm_plain(x, vecs[0], vecs[1], relu).float())
+        _check_bn_bwd(tbn, dy, x, vecs, relu)
+    assert [getattr(tbn, n).launches - b for n, b in zip(names, before)] == [1, 2, 2]
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("m,c", [(131072, 64), (131072, 128), (131072, 256), (32768, 128), (32768, 256),
+                                 (32768, 512), (8192, 256), (8192, 512), (8192, 1024), (2048, 512), (2048, 2048)])
+def test_bn_bwd_at_resnet50_views(dev, m, c, relu):
+    """bn_bwd at each of ResNet-50's eleven BN views (batch 128 at 32x32,
+    16x16, 8x8 and 4x4), bf16: the plan's on-chip and streaming forms
+    both, three reruns bit-identical, one launch a call."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    x, dy, gamma, beta = _bn_case(dev, m, c, torch.bfloat16, 6)
+    vecs = _bn_vectors(tbn, x, gamma, beta)
+    before = tbn.bn_bwd.launches
+    _check_bn_bwd(tbn, dy, x, vecs, relu, reruns=3)
+    assert tbn.bn_bwd.launches - before == 3
+
+
+def test_bn_bwd_misaligned_pointers_take_the_one_element_path(dev):
+    """Operands that are not 16-byte aligned (a view one element into its
+    storage) go through the one-element path, with the same results."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    m, c = 4096, 64
+    x0, dy0, gamma, beta = _bn_case(dev, m, c, torch.bfloat16, 5)
+    x = torch.empty(m * c + 1, dtype=x0.dtype, device=dev)[1:].view(m, c).copy_(x0)
+    dy = torch.empty(m * c + 1, dtype=dy0.dtype, device=dev)[1:].view(m, c).copy_(dy0)
+    assert x.data_ptr() % 16 and tbn._vec(x, dy) == 1
+    vecs = _bn_vectors(tbn, x, gamma, beta)
+    for relu in (False, True):
+        _check_bn_bwd(tbn, dy, x, vecs, relu, reruns=2)
+
+
+def test_bn_bwd_flushes_subnormals_as_the_plain_version(dev):
+    """f32 rows of subnormals and products that underflow: the kernel's
+    .ftz arithmetic gives the plain version's flushed results (a channel of
+    subnormal dy sums to exactly 0 and its dx column is all zeros), where
+    arithmetic that kept subnormals would sum to a normal number."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    m, c = 256, 8
+    x, dy, gamma, beta = _bn_case(dev, m, c, torch.float32, 3)
+    # channel 0: subnormal dy, so db = dg = 0 and dx = 0 in the reference;
+    # channel 1: a normal dy with the sign of x - mean, so no partial sum
+    # cancels, whose products g * xhat underflow where |xhat| < ~0.78
+    dy[:, 0] = 1e-39 * torch.where(torch.arange(m, device=dev) % 3 == 0, -1.0, 1.0)
+    dy[:, 1] = 1.5e-38 * torch.sign(x[:, 1] - x[:, 1].mean())
+    x[7] = 1e-39
+    vecs = _bn_vectors(tbn, x, gamma, beta)
+    for relu in (False, True):
+        _check_bn_bwd(tbn, dy, x, vecs, relu, reruns=2)
+        dx, db, dg = tbn.bn_bwd(dy, x, *vecs, relu)
+        _, dbp, dgp = tbn.bn_bwd_plain(dy, x, *vecs, relu)
         torch.cuda.synchronize()
-        assert _bn_sum_ok(db, dbp, g.abs().sum(0)) and _bn_sum_ok(dg, dgp, (g * xhat).abs().sum(0))
-        c1, c2 = dbp / m, dgp / m
-        dx = tbn.bn_bwd_dx(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
-        want = tbn.bn_bwd_dx_plain(dy, x, scale, shift, mean, rsqrt, c1, c2, relu)
-        assert dx.dtype == dtype and torch.equal(dx.float(), want.float())
-    assert [getattr(tbn, n).launches - b for n, b in zip(names, before)] == [1, 2, 2, 2]
+        assert float(db[0]) == 0.0 and float(dg[0]) == 0.0 and float(dx[:, 0].abs().max()) == 0.0
+        assert not ((dx != 0) & (dx.abs() < 2.0**-126)).any()
+        terms = (dy[:, 1] * (x[:, 1] - vecs[2][1]) * vecs[3][1]).abs().sum()
+        assert abs(float(dg[1] - dgp[1])) <= 1e-5 * float(terms)
+    assert float(dy[:, 0].sum()) != 0.0  # without the flush channel 0 would not sum to 0
 
 
 def test_bn_reductions_are_deterministic(dev):
-    """The fixed-order two-pass reductions give the same bits on a rerun."""
+    """The fixed-order statistics and backward reductions give the same
+    bits on a rerun."""
     from consensusml_tpu_torch.models import fused_bn as tbn
 
     gen = torch.Generator(device=dev).manual_seed(9)
     x = torch.randn(131072, 64, generator=gen, device=dev).to(torch.bfloat16)
     runs = [tbn.bn_stats(x) for _ in range(3)]
+    assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    dy = torch.randn(131072, 64, generator=gen, device=dev).to(torch.bfloat16)
+    vecs = _bn_vectors(tbn, x, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    runs = [tbn.bn_bwd(dy, x, *vecs, True) for _ in range(3)]
     assert all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
 
 
@@ -486,14 +575,16 @@ def test_bn_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         tbn.bn_norm(x, v[:16], v, False)
     with pytest.raises(ValueError):
-        tbn.bn_bwd_reduce(x.to(torch.bfloat16), x, v, v, v, v, True)
+        tbn.bn_bwd(x.to(torch.bfloat16), x, v, v, v, v, True)
+    with pytest.raises(RuntimeError):  # a plan the kernel does not take
+        tbn.bn_bwd(x, x, v, v, v, v, True, plan=tbn.bn_bwd_plan(64, 32, 4, 4)._replace(cluster=17, rows=4))
     with pytest.raises(RuntimeError):  # an NCHW-contiguous activation has no (M, C) view
         tbn.fused_batch_norm(torch.randn(2, 32, 4, 4, device=dev).permute(0, 2, 3, 1), v, v)
 
 
 def test_resnet_worker_step_through_bn_kernels_matches_plain(dev):
     """One worker step of the smoke ResNet (f32) with ``norm_impl="pallas"``
-    on the card: every BN layer launches each of the four kernels once, and
+    on the card: every BN layer launches each of the three kernels once, and
     the gradients and new statistics match the same step on the plain
     versions (``"jnp"``, same parameter names) to f32 summation-order noise."""
     from consensusml_tpu_torch import configs, kernels
@@ -512,7 +603,7 @@ def test_resnet_worker_step_through_bn_kernels_matches_plain(dev):
         grads = torch.autograd.grad(loss, list(leaves.values()))
         torch.cuda.synchronize()
         out[impl] = (loss, grads, new, kernels.launch_counts())
-    bn = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+    bn = ("bn_stats", "bn_norm", "bn_bwd")
     n_bn = 9  # the stem, and four in each of the two blocks (with the projection)
     assert {k: out["pallas"][3][k] for k in bn} == dict.fromkeys(bn, n_bn)
     assert all(v == 0 for v in out["jnp"][3].values())

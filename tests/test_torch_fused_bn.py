@@ -1,12 +1,13 @@
 """The port's fused BatchNorm(+ReLU) against the JAX package's, on the CPU.
 
-The four kernels' plain versions (which the wrappers run for CPU
-tensors), the autograd ``fused_batch_norm`` and the ``FusedBatchNorm``
-module are held against ``consensusml_tpu/models/fused_bn.py`` in
-``impl="interpret"`` (its Pallas kernels in interpret mode; M = 256 is a
-shape its ``_plan`` takes at C = 8, 64 and 256, so no case falls back to
-its jnp path); the port's ``norm_impl="flax"`` BatchNorm against flax's
-``nn.BatchNorm``. Inputs are made with numpy and handed to both.
+The kernels' plain versions (which the wrappers run for CPU tensors), the
+autograd ``fused_batch_norm`` and the ``FusedBatchNorm`` module are held
+against ``consensusml_tpu/models/fused_bn.py`` in ``impl="interpret"`` (its
+Pallas kernels in interpret mode; M = 256 is a shape its ``_plan`` takes
+at C = 8, 64 and 256, so no case falls back to its jnp path) and, for the
+backward, ``impl="jnp"``; the port's ``norm_impl="flax"`` BatchNorm
+against flax's ``nn.BatchNorm``. Inputs are made with numpy and handed to
+both.
 
 Tolerances: both sides compute in f32 from the same inputs, in other
 summation orders. f32 outputs (y, dx) and the statistics agree to ~1e-6
@@ -16,6 +17,11 @@ bf16 output is rounded from f32 values that may differ in the last f32
 bits, so it may land one bf16 ulp away: rtol 2**-7 (read: 4.9e-4 on
 values in [0.0625, 0.125)). A wrong formula (a missing mean term in dx,
 an unbiased variance, a mask not recomputed) moves them by 1e-2 or more.
+
+Subnormals: the reference's compiled program (jitted on the CPU) reads a
+subnormal operand as zero and flushes a subnormal result; the backward's
+plain version does the same, which a tolerance would hide, so those
+cases are checked value by value.
 """
 
 import flax.linen as nn
@@ -61,14 +67,16 @@ def _out_tol(dtype):
 @pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
 @pytest.mark.parametrize("c", [8, 64, 256])
 def test_plain_versions_match_reference_kernels(c, relu, dtype):
-    """Each of the four plain versions (and its wrapper, which runs it for
-    CPU tensors without counting a launch) against the reference's kernel
-    in interpret mode, fed the same per-channel vectors."""
+    """The plain versions of the statistics, normalize and the backward's two
+    bodies, and the one-launch backward ``bn_bwd_plain`` (and each wrapper,
+    which runs its plain version for CPU tensors without counting a
+    launch), against the reference's kernels in interpret mode, fed the
+    same per-channel vectors."""
     x, gamma, beta, dy = _case(c, c + relu)
     jd = JAX_DTYPE[dtype]
     jx, jdy = jnp.asarray(x, jd), jnp.asarray(dy, jd)
     tx, tdy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
-    launches = [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd_reduce, tbn.bn_bwd_dx)]
+    launches = [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd)]
 
     s, sq = jbn._stats(jx, "interpret", True)
     for fn in (tbn.bn_stats_plain, tbn.bn_stats):
@@ -89,20 +97,26 @@ def test_plain_versions_match_reference_kernels(c, relu, dtype):
         assert ty.dtype == dtype
         _close(ty, y, _out_tol(dtype))
 
+    vecs = (tv["scale"], tv["shift"], tv["mean"], tv["rsqrt"])
     db, dg = jbn._bwd_reduce(jdy, jx, scale, shift, mean, rsqrt, relu, "interpret", True)
-    for fn in (tbn.bn_bwd_reduce_plain, tbn.bn_bwd_reduce):
-        tdb, tdg = fn(tdy, tx, tv["scale"], tv["shift"], tv["mean"], tv["rsqrt"], relu)
-        _close(tdb, db, SUM_TOL)
-        _close(tdg, dg, SUM_TOL)
+    tdb, tdg = tbn.bn_bwd_reduce_plain(tdy, tx, *vecs, relu)
+    _close(tdb, db, SUM_TOL)
+    _close(tdg, dg, SUM_TOL)
 
     c1, c2 = np.asarray(db) / M, np.asarray(dg) / M
     dx = jbn._bwd_dx(jdy, jx, scale, shift, mean, rsqrt, c1, c2, relu, "interpret", True)
-    for fn in (tbn.bn_bwd_dx_plain, tbn.bn_bwd_dx):
-        tdx = fn(tdy, tx, tv["scale"], tv["shift"], tv["mean"], tv["rsqrt"], torch.from_numpy(c1),
-                 torch.from_numpy(c2), relu)
-        assert tdx.dtype == dtype
+    tdx = tbn.bn_bwd_dx_plain(tdy, tx, *vecs, torch.from_numpy(c1), torch.from_numpy(c2), relu)
+    assert tdx.dtype == dtype
+    _close(tdx, dx, _out_tol(dtype))
+    # the one-launch backward (its plain version for CPU tensors), with its
+    # own sums over M between the two bodies
+    for fn in (tbn.bn_bwd_plain, tbn.bn_bwd):
+        tdx, tdb, tdg = fn(tdy, tx, *vecs, relu)
+        assert tdx.dtype == dtype and tdb.dtype == tdg.dtype == torch.float32
+        _close(tdb, db, SUM_TOL)
+        _close(tdg, dg, SUM_TOL)
         _close(tdx, dx, _out_tol(dtype))
-    assert launches == [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd_reduce, tbn.bn_bwd_dx)]
+    assert launches == [f.launches for f in (tbn.bn_stats, tbn.bn_norm, tbn.bn_bwd)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -138,6 +152,104 @@ def test_fused_batch_norm_matches_reference(c, relu, dtype):
     _close(tdx, dx, _out_tol(dtype))
     _close(tdg, dgamma, SUM_TOL)
     _close(tdb, dbeta, SUM_TOL)
+
+
+def _saved(x, gamma, beta, relu):
+    """The port's forward residuals ``(scale, shift, mean, rsqrt)`` of f32
+    ``(M, C)`` ``x``, as ``_FusedBatchNorm.forward`` saves them."""
+    tx = torch.from_numpy(x)
+    s, sq = tbn.bn_stats_plain(tx)
+    m = x.shape[0]
+    mean = s / m
+    var = torch.clamp_min(sq / m - mean * mean, 0.0)
+    scale, shift, rsqrt = tbn.fold_params(torch.from_numpy(gamma), torch.from_numpy(beta), mean, var, 1e-5)
+    return scale, shift, mean, rsqrt
+
+
+@pytest.mark.parametrize("impl", ["interpret", "jnp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+@pytest.mark.parametrize("c", [8, 256, 24])
+def test_bn_bwd_plain_matches_reference_vjp(c, relu, dtype, impl):
+    """``bn_bwd_plain`` (and ``bn_bwd`` on CPU tensors, which takes it and
+    counts no launch) against the reference's VJP: ``jax.vjp`` of
+    ``fused_batch_norm(impl=...)`` pulled back through one output
+    cotangent. M = 256 at C = 8 and 256 is a view the reference's ``_plan``
+    tiles (its Pallas bodies run in interpret mode); C = 24 takes its jnp
+    path."""
+    x, gamma, beta, dy = _case(c, 200 + c + relu)
+    jd, act = JAX_DTYPE[dtype], "relu" if relu else None
+    args = (jnp.asarray(x, jd), jnp.asarray(gamma), jnp.asarray(beta))
+    (y, mean, var), pull = jax.vjp(lambda *a: jbn.fused_batch_norm(*a, act=act, impl=impl), *args)
+    dx, dgamma, dbeta = pull((jnp.asarray(dy, jd), jnp.zeros_like(mean), jnp.zeros_like(var)))
+
+    tx, tdy = torch.from_numpy(x).to(dtype), torch.from_numpy(dy).to(dtype)
+    vecs = _saved(tx.float().numpy(), gamma, beta, relu)
+    before = tbn.bn_bwd.launches
+    got = [fn(tdy, tx, *vecs, relu) for fn in (tbn.bn_bwd_plain, tbn.bn_bwd)]
+    assert tbn.bn_bwd.launches == before
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    tdx, tdb, tdg = got[0]
+    assert tdx.dtype == dtype and tdx.shape == tx.shape
+    _close(tdx, dx, _out_tol(dtype))
+    _close(tdg, dgamma, SUM_TOL)
+    _close(tdb, dbeta, SUM_TOL)
+
+
+def _subnormal_case(m=256, c=8):
+    """f32 rows and columns where the reference's flush decides the result:
+    channel 0's dy all subnormal (the reference sums it to 0, dx 0);
+    channel 1's dy a normal 1.5e-38 with the sign of x - mean, so every
+    product g * xhat is >= 0 (no partial sum cancels into the subnormal
+    range, where the two summation orders would flush differently) and
+    those with |xhat| < ~0.78 underflow; one row of subnormal x."""
+    x, gamma, beta, dy = _case(c, 17, m=m)
+    dy[:, 0] = np.float32(1e-39) * np.where(np.arange(m) % 3 == 0, -1.0, 1.0)
+    dy[:, 1] = np.float32(1.5e-38) * np.sign(x[:, 1] - x[:, 1].mean())
+    x[7] = np.float32(1e-39)
+    return x, gamma, beta, dy
+
+
+@pytest.mark.parametrize("impl", ["interpret", "jnp"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+def test_bn_bwd_flushes_subnormals_as_the_reference(relu, impl):
+    """The reference's compiled backward (``_bn_train_bwd`` jitted on the
+    CPU) flushes f32 subnormals; ``bn_bwd_plain`` does so at the same
+    points. Channel 0 (subnormal dy) sums to exactly 0 with an all-zero dx
+    column, and no output is subnormal. Channel 1's dgamma, on the jnp
+    path, counts only the products that stay normal (to 1e-5 of its terms'
+    magnitudes; keeping the subnormal products moves it by ~25%), as the
+    TPU, which has no f32 subnormals, does. The interpret path's CPU
+    program contracts some of those products into fused multiply-adds with
+    the running sum, so it keeps a share of them: its dgamma is held only
+    to the f32 tolerance there."""
+    x, gamma, beta, dy = _subnormal_case()
+    m = x.shape[0]
+    scale, shift, mean, rsqrt = _saved(x, gamma, beta, relu)
+    res = tuple(jnp.asarray(a.numpy()) for a in (scale, shift, mean, rsqrt))
+    fn = jax.jit(lambda dy2, x2, sc, sh, mu, rs: jbn._bn_train_bwd(
+        1e-5, relu, impl, True, (x2, sc, sh, mu, rs), (dy2, None, None)))
+    dx, dg, db = (np.asarray(a) for a in fn(jnp.asarray(dy), jnp.asarray(x), *res))
+    assert db[0] == 0.0 and dg[0] == 0.0 and not dx[:, 0].any()  # the reference flushes
+
+    tdx, tdb, tdg = tbn.bn_bwd_plain(torch.from_numpy(dy), torch.from_numpy(x), scale, shift, mean, rsqrt, relu)
+    tdx, tdb, tdg = tdx.numpy(), tdb.numpy(), tdg.numpy()
+    assert tdb[0] == 0.0 and tdg[0] == 0.0 and not tdx[:, 0].any()
+    for out in (tdx, tdb, tdg):
+        assert not ((out != 0) & (np.abs(out) < 2.0**-126)).any()
+    # channel 1: dgamma over the normal products only, as the reference
+    xf = torch.from_numpy(x)
+    g = torch.from_numpy(dy)
+    if relu:
+        g = torch.where(xf * scale + shift > 0, g, 0.0)
+    prods = (g * ((xf - mean) * rsqrt))[:, 1].double().numpy()
+    assert (np.abs(prods[prods != 0]) < 2.0**-126).sum() > 10  # the case underflows
+    terms = np.abs(prods).sum()
+    if impl == "jnp":
+        assert abs(tdg[1] - dg[1]) <= 1e-5 * terms and abs(prods.sum() - dg[1]) > 1e-2 * terms
+    _close(tdx, dx, F32_TOL)
+    _close(tdb, db, SUM_TOL)
+    _close(tdg, dg, SUM_TOL)
 
 
 def test_fused_module_running_stats_and_eval():
@@ -238,7 +350,7 @@ def test_flax_path_bf16_output_and_relu():
 
 
 def test_stripes_fill_the_card_or_walk_enough_rows():
-    """The reductions' stripe plan at the shapes of ResNet-50's BN layers
+    """The statistics pass's stripe plan at the shapes of ResNet-50's BN layers
     (batch 128 at 32x32) and at odd ones: every stripe has rows, and each
     grid either reaches ~528 blocks (90% of it, after empty stripes are dropped) or gives every thread >= 32 rows."""
     for m, c in [(131072, 256), (131072, 64), (2048, 2048), (32768, 512), (1, 1), (7, 3), (1000, 24)]:
@@ -251,6 +363,41 @@ def test_stripes_fill_the_card_or_walk_enough_rows():
             assert 1 <= stripes <= -(-m // ty) and (stripes - 1) * rows < m
             assert stripes * tiles >= 0.9 * 528 or rows >= 32 * ty or rows <= ty
     assert tbn._stripes(131072, 256, 8) == 527
+
+
+RESNET50_BN_VIEWS = [(131072, 64), (131072, 128), (131072, 256), (32768, 128), (32768, 256), (32768, 512),
+                     (8192, 256), (8192, 512), (8192, 1024), (2048, 512), (2048, 2048)]
+
+
+@pytest.mark.parametrize("elem,vec", [(2, 8), (4, 4)], ids=["bf16", "f32"])
+def test_bn_bwd_plan_is_one_the_kernel_takes(elem, vec):
+    """The backward's launch plan at ResNet-50's BN views and at odd ones:
+    clusters of at most 16 blocks, no block without rows, a tile that is a
+    power of two of 16-byte vectors up to a 128-byte row, >= 64 blocks
+    where C allows, staged chunks within TMA's 256-row box, shared memory
+    within a block's 227 KB, and the on-chip form only where the whole
+    stripe is staged. At bf16 the stripes of the (2048, C) and (8192, 256)
+    views stay on chip and the others stream."""
+    views = RESNET50_BN_VIEWS + [(1, 8), (300, 24), (4096, 64), (512, 2048), (100, 1024)]
+    for m, c in views:
+        p = tbn.bn_bwd_plan(m, c, elem, vec)
+        blocks = p.cluster * -(-c // p.tile)
+        assert 1 <= p.cluster <= 16 and p.cluster * p.rows >= m and (p.cluster - 1) * p.rows < m
+        assert p.tile % vec == 0 and (p.tile // vec) & (p.tile // vec - 1) == 0 and p.tile * elem <= 128
+        assert blocks >= 64 or p.tile == vec or p.cluster * p.rows < 128 * 16
+        assert 1 <= p.chunk <= 256 and 1 <= p.nbuf <= 64 and p.smem <= 232448
+        if p.onchip:
+            assert p.nbuf * p.chunk >= p.rows
+    if elem == 2:
+        onchip = {v for v in RESNET50_BN_VIEWS if tbn.bn_bwd_plan(*v, 2, 8).onchip}
+        assert onchip == {(2048, 512), (2048, 2048), (8192, 256)}
+        p = tbn.bn_bwd_plan(131072, 256, 2, 8)
+        assert (p.cluster, p.tile, p.rows, p.chunk, p.nbuf) == (16, 64, 8192, 128, 3)
+    for m, c in [(1, 1), (7, 3), (777, 13), (1000, 24)]:  # the one-element path
+        p = tbn.bn_bwd_plan(m, c, elem, 1)
+        assert p.chunk == p.nbuf == 0 and not p.onchip and p.tile <= 32 and p.cluster * p.rows >= m
+    with pytest.raises(ValueError):
+        tbn.bn_bwd_plan(131072, 256, 2, 8, onchip=True)
 
 
 def test_fused_batch_norm_refuses_what_it_does_not_take():

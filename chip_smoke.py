@@ -16,9 +16,11 @@ Phases, each printed as one JSON line:
    PyTorch version on the card (element-wise tolerance, zero for the
    CHOCO encode), timed beside the plain version (by CUDA events; the
    int8, int4, BN and LN kernels, which run faster than the host calls
-   their wrappers, by profiler device time) and, where one PyTorch call
-   computes the same function, that call: paged
-   attention and the flash forward at the serving shapes, the flash
+   their wrappers, by profiler device time, and the paged attention by
+   CUDA events over calls queued behind a sleep kernel) and, where one
+   PyTorch call computes the same function, that call: paged
+   attention (W=1 and W=4, with its launch plan and its time over the
+   byte bound) and the flash forward at the serving shapes, the flash
    forward and backward (dq and dk/dv) at the training shape B=8, S=1024
    (and 600), H=16, D=64, causal (the forward, dq and dk/dv also report
    the function's TFLOP/s and their time over the library call's and over
@@ -291,6 +293,38 @@ def device_ms(torch, fn, iters: int, warm: int = 3) -> float:
     ) / 1e3 / iters
 
 
+def queued_ms(torch, fn, iters: int, warm: int = 3) -> tuple[float, float]:
+    """``(ms, enqueue_ms)``: mean device milliseconds per call of ``fn(i)``
+    by CUDA events, with the calls queued behind a sleep kernel so that the
+    card runs them back to back: the host's time per call, which exceeds a
+    small kernel's, stays out of the reading (unlike :func:`cuda_ms`), and
+    no profiler record is needed (unlike :func:`device_ms`); and the host's
+    milliseconds to enqueue the ``iters`` calls. The sleep starts at ~25
+    ms; if the host took longer than the sleep, the run is made once more
+    behind a sleep sized to twice the host's time, and raises only if that
+    too is overtaken."""
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    cycles = 50_000_000  # ~25 ms at the H100's clocks
+    for _attempt in range(2):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fn(i)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        ev[2].record()
+        ev[2].synchronize()
+        sleep_ms = ev[0].elapsed_time(ev[1])
+        if host_ms < sleep_ms:
+            return ev[1].elapsed_time(ev[2]) / iters, host_ms
+        cycles = int(cycles * 2 * host_ms / sleep_ms) + 1
+    raise AssertionError(f"queued_ms: enqueueing took {host_ms} ms, longer than the {sleep_ms} ms sleep")
+
+
 def tol_check(name, got, want, atol, rtol) -> dict:
     """Hold ``got`` to ``want`` element by element: every
     ``|got - want| <= atol + rtol * |want|``; raises otherwise."""
@@ -316,7 +350,13 @@ def rates(ms: float, flops: float, library_ms: float, bound: float) -> dict:
 
 def check_paged(torch, tpa, dev):
     """Decode-step shapes of the serving path: 8 slots, 16 heads, head dim
-    64, 16-token blocks, 64 blocks per slot; W=1 (decode) and W=4."""
+    64, 16-token blocks, 64 blocks per slot; W=1 (decode) and W=4. ``ms``
+    is CUDA events over 100 calls queued behind a sleep kernel
+    (:func:`queued_ms`: the kernel runs faster than the host calls its
+    wrapper), ``enqueue_ms`` the host's time to enqueue those calls
+    (the sleep's margin), ``profiler_ms`` profiler device time, ``event_ms`` and
+    ``plain_ms`` CUDA events over calls as the host issues them; ``plan``
+    is the launch plan (``paged_plan``)."""
     s, h, d, bs, nb = 8, 16, 64, 16, 64
     n = s * nb + 1
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -340,14 +380,21 @@ def check_paged(torch, tpa, dev):
         want = tpa.paged_attention_plain(q, k, v, table, pos)
         torch.cuda.synchronize()
         errs = tol_check(f"paged_attention W={w}", got, want, PAGED_ATOL, PAGED_RTOL)
-        kernel_ms = cuda_ms(torch, lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos), 100)
-        plain_ms = cuda_ms(torch, lambda i: tpa.paged_attention_plain(q, *sets[i % 4], table, pos), 10)
         keys = int(lengths.sum())  # keys each head must read once (union over W)
         pairs = int((pos.long() + 1).sum())  # (query row, key) pairs computed, per head
         nbytes = 2 * keys * h * d * 2 + 2 * q.numel() * 2 + table.numel() * 4 + pos.numel() * 4
         bms, by = bound_ms(nbytes, 4 * pairs * h * d)
+        plan = tpa.paged_plan(nb, bs, h, d, w, h)
+        ms, enqueue_ms = queued_ms(torch, lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos), 100)
+        times = {
+            "ms": ms,
+            "enqueue_ms": enqueue_ms,
+            "plain_ms": cuda_ms(torch, lambda i: tpa.paged_attention_plain(q, *sets[i % 4], table, pos), 10),
+            "profiler_ms": device_ms(torch, lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos), 100),
+            "event_ms": cuda_ms(torch, lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos), 100),
+        }
         out[w] = {
-            **errs, "ms": kernel_ms, "plain_ms": plain_ms,
+            **errs, **times, "x_bound": times["ms"] / bms, "plan": plan._asdict(),
             "library_ms": None, "bound_ms": bms, "bound_by": by,
         }
     return out
@@ -736,6 +783,7 @@ def check_codec(torch, tck, dev, totals, world=4, chunk=512, k=8):
             "library_ms": cuda_ms(torch, lambda _: torch.gather(x, 1, torch.topk(x.abs(), k, dim=1).indices), 10),
             "library": "abs + torch.topk + gather (three calls)", "bound_ms": bms, "bound_by": by,
         }
+        out["topk"][label]["x_bound"] = out["topk"][label]["ms"] / bms
         zeros = torch.zeros(rows, chunk, device=dev)
         i64 = i.long()
         forms = [("no_acc", None, 1.0)] + ([("acc", x, 1 / 3)] if label == "largest" else [])
@@ -1052,10 +1100,13 @@ def profile_decode(torch, decode, pages, table, tokens, positions, samp, steps=1
 
     device_ms = sum(dev_us(e) for e in cuda) / 1e3 / steps
     top = sorted(cuda, key=dev_us, reverse=True)[:6]
+    paged = [e for e in cuda if re.search(KERNEL_SYMBOLS["paged_attention"], e.key)]
     return {
         "steps": steps, "wall_ms_per_step": wall_ms,
         "device_kernel_ms_per_step": device_ms if device_ms > 0 else None,
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "paged_attention_ms_per_step": sum(dev_us(e) for e in paged) / 1e3 / steps if paged else None,
+        "paged_attention_calls_per_step": sum(e.count for e in paged) / steps,
         "kernels_per_step": sum(e.count for e in cuda) / steps,
         "top_kernels": [
             {"name": e.key[:80], "ms_per_step": dev_us(e) / 1e3 / steps, "calls_per_step": e.count / steps}
@@ -1613,7 +1664,9 @@ def check_bn(torch, tbn, dev):
     """The three fused-BN kernels at five of ResNet-50's BN views (batch 128
     at 32x32, 32x32, 4x4, 8x8 and 16x16), bf16, relu off and on, each
     against its plain version fed the same per-channel vectors: normalize
-    equal (error 0); the backward's dx equal to ``bn_bwd_dx_plain`` fed the
+    equal (error 0); the forward's five per-channel vectors from the
+    statistics' fold equal to ``batch_moments`` and ``fold_params`` fed
+    the kernel's own sums; the backward's dx equal to ``bn_bwd_dx_plain`` fed the
     kernel's own sums times f32(1/M), its sums and the statistics within
     ``BN_SUM_RTOL`` of their terms' magnitudes, the backward's outputs the
     same bits over three reruns. Timed (relu on) beside the plain versions
@@ -1638,10 +1691,14 @@ def check_bn(torch, tbn, dev):
         torch.cuda.synchronize()
         errs = {"stats": max(sum_err(torch, s, sp, xf.abs().sum(0)), sum_err(torch, sq, sqp, (xf * xf).sum(0)))}
         abs_errs = {"stats": max(float((s - sp).abs().max()), float((sq - sqp).abs().max()))}
-        mean = sp / m
-        var = torch.clamp_min(sqp / m - mean * mean, 0.0)
+        mean, var = tbn.batch_moments(sp, sqp, m)
         scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
         vecs = (scale, shift, mean, rsqrt)
+        # the forward's per-channel vectors from the statistics' fold, against
+        # their plain version fed the kernel's own sums (the same fold order)
+        mk, vk = tbn.batch_moments(s, sq, m)
+        fwd_bad = sum(mismatches(torch, u, v) for u, v in zip(
+            tbn.bn_forward_stats(x, gamma, beta, 1e-5), (mk, vk, *tbn.fold_params(gamma, beta, mk, vk, 1e-5))))
         xhat = (xf - mean) * rsqrt
         inv = tbn.inv_rows(m)
         reruns_equal = True
@@ -1665,13 +1722,15 @@ def check_bn(torch, tbn, dev):
                 abs_errs[name] = max(abs_errs.get(name, 0.0), a)
             del y, yp, dx, dxp, g, runs
         if (errs["stats"] > BN_SUM_RTOL or errs["bwd_sums"] > BN_SUM_RTOL or abs_errs["norm"]
-                or abs_errs["bwd_dx"] or not reruns_equal):
+                or abs_errs["bwd_dx"] or not reruns_equal or fwd_bad):
             raise AssertionError(f"fused BN kernels at ({m}, {c}) differ from their plain versions: "
                                  f"{errs} (sums, rtol {BN_SUM_RTOL}), {abs_errs} (max abs), "
-                                 f"reruns equal {reruns_equal}")
+                                 f"reruns equal {reruns_equal}, forward vectors {fwd_bad} elements off")
         del xhat
         times = {
-            "bn_stats": (lambda _: tbn.bn_stats(x), lambda _: tbn.bn_stats_plain(x)),
+            # the forward's call: the statistics with the per-channel vectors
+            "bn_stats": (lambda _: tbn.bn_forward_stats(x, gamma, beta, 1e-5),
+                         lambda _: tbn.bn_forward_stats_plain(x, gamma, beta, 1e-5)),
             "bn_norm": (lambda _: tbn.bn_norm(x, scale, shift, True),
                         lambda _: tbn.bn_norm_plain(x, scale, shift, True)),
             "bn_bwd": (lambda _: tbn.bn_bwd(dy, x, *vecs, True), lambda _: tbn.bn_bwd_plain(dy, x, *vecs, True)),

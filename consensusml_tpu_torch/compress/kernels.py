@@ -318,9 +318,11 @@ def chunked_topk_plain(chunks: torch.Tensor, k: int):
     order, equal magnitudes to the lower index: ``(values f32 (R, k),
     chunk-local indices int32 (R, k))``, the reference's ``_topk_kernel``.
     Its value is a masked row sum, so a ``-0.0`` winner comes out ``+0.0``
-    (``+ 0.0`` does the same here)."""
-    idx = topk_by_magnitude(chunks, k)
-    return torch.gather(chunks, 1, idx.long()) + 0.0, idx
+    (``+ 0.0`` does the same here). Its compiled program reads a subnormal
+    as zero: a subnormal ``|x|`` ties with the zeros (the lower index
+    wins) and a subnormal winner's value is ``+0.0``."""
+    idx = topk_by_magnitude(flush_subnormals(chunks), k)
+    return flush_subnormals(torch.gather(chunks, 1, idx.long())) + 0.0, idx
 
 
 def chunked_topk(chunks: torch.Tensor, k: int):

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash forward and flash dq
-// kernels: TMA tile loads completed on mbarriers, warpgroup matrix
-// multiplies (wgmma) on 128-byte-swizzled shared-memory tiles, and the
-// host-side tensor maps over a (B, S, H, 64) bf16 tensor.
+// Hopper (sm_90a) building blocks shared by the flash, fused-BN and paged
+// attention kernels: TMA tile and bulk loads completed on mbarriers,
+// thread block clusters (barriers, distributed shared memory), warpgroup
+// matrix multiplies (wgmma) on 128-byte-swizzled shared-memory tiles, and
+// the host-side tensor maps over a (B, S, H, 64) bf16 tensor.
 //
 // Tiles. Every tile is 64 rows (query or key positions) of one head's 64
 // dims: 64 rows of 128 bytes, 8 KB, written by TMA with the 128-byte
@@ -77,7 +78,63 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// spin until the barrier's phase with this parity has completed; a phase
+// that never completes (a copy the barrier was not credited for) traps
+// after 2^26 polls instead of hanging the card
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// ---- thread block clusters --------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the same shared-memory word of block `rank` of this cluster
+__device__ __forceinline__ float ld_cluster(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+__device__ __forceinline__ double ld_cluster_f64(uint32_t local, uint32_t rank) {
+  uint32_t remote;
+  double v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+  asm volatile("ld.shared::cluster.f64 %0, [%1];" : "=d"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // ---- TMA ------------------------------------------------------------------
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
+// 16-byte aligned) as one bulk copy; completion (bytes) is reported to `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
 // one box of the 4-D map (D, H, S, B) at (0, h, row, b) into shared memory;
 // completion (bytes) is reported to `bar`

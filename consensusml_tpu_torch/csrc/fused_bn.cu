@@ -6,7 +6,10 @@
 // Replaces the four Pallas kernels of consensusml_tpu/models/fused_bn.py,
 // all launched through _grid_call's pl.pallas_call (fused_bn.py:175):
 //   bn_stats  <- _stats_kernel (:118) via _stats (:196): per-channel f32
-//                sum x and sum x^2
+//                sum x and sum x^2, and from them the forward's
+//                per-channel vectors (mean, var, scale, shift, rsqrt:
+//                the reference's jnp ops of _bn_train_fwd (:270) between
+//                its two kernels) in its second launch
 //   bn_norm   <- _norm_kernel (:130) via _normalize (:212):
 //                y = x * scale + shift (then max(., 0) with relu), y in
 //                x's dtype
@@ -34,8 +37,10 @@
 //   and walks a stripe of rows, folds its rows in a fixed shared-memory
 //   tree and writes one partial a channel for its stripe; a second small
 //   launch folds the stripes' partials in a fixed order too, so a rerun
-//   gives the same bits (no float atomics). Stripes are sized by the
-//   caller (consensusml_tpu_torch/models/fused_bn.py:_stripes).
+//   gives the same bits (no float atomics), and computes the five
+//   per-channel vectors from the sums, so no plain op runs
+//   between the forward's two kernels. Stripes are sized by the caller
+//   (consensusml_tpu_torch/models/fused_bn.py:_stripes).
 // - norm: a grid-stride loop, one vector a thread an iteration.
 //
 // bwd, one launch (the design; the plan's numbers come from
@@ -76,13 +81,14 @@
 // (x * scale + shift > 0) takes the forward's two roundings. Only the
 // reductions' summation order differs from the plain versions.
 //
-// Subnormals (bwd): the reference's compiled program runs with
-// flush-to-zero and denormals-are-zero, so a subnormal dy, x, product or
-// sum counts as a zero of its sign. Every f32 operation of bwd is the PTX
-// instruction's .ftz form (mul/add/sub.rn.ftz.f32), which does exactly
-// that at no cost; the sources build without the -ftz flag, which would
-// change the other kernels too. stats and norm do not flush yet (so at a
-// subnormal x * scale + shift the forward keeps what the mask drops).
+// Subnormals: the reference's compiled program runs with flush-to-zero
+// and denormals-are-zero, so a subnormal x, dy, product or sum counts as
+// a zero of its sign. Every f32 operation of the three kernels (and of
+// the statistics' fold) is the PTX instruction's .ftz form
+// (mul/add/sub.rn.ftz.f32), which does exactly that at no cost; the
+// sources build without the -ftz flag, which would change the other
+// kernels too. The forward's per-channel vectors (the statistics' fold)
+// flush the same way, as their plain version does (models/fused_bn.py).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -160,15 +166,10 @@ __device__ __forceinline__ void load_param(const float* __restrict__ p, int c0, 
   }
 }
 
-// x * scale + shift with two roundings, as the plain version computes it
-__device__ __forceinline__ float affine(float x, float scale, float shift) {
-  return __fadd_rn(__fmul_rn(x, scale), shift);
-}
-
 // relu that keeps a NaN (as torch.relu does)
 __device__ __forceinline__ float relu(float z) { return z < 0.f ? 0.f : z; }
 
-// ---- f32 operations with the reference's flush (bwd) ------------------------
+// ---- f32 operations with the reference's flush -------------------------------
 // a subnormal operand reads as a zero of its sign, a subnormal result is
 // written as one; round to nearest even, as __fmul_rn & co.
 
@@ -190,43 +191,11 @@ __device__ __forceinline__ float sub_ftz(float a, float b) {
 
 // ---- clusters and TMA (bwd) ---------------------------------------------------
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-// the same shared-memory word of block `rank` of this cluster
-__device__ __forceinline__ float ld_cluster(uint32_t local, uint32_t rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
-
-// spin until the barrier's phase with this parity has completed; a phase
-// that never completes (a copy the barrier was not credited for) traps
-// after 2^26 polls instead of hanging the card
-__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
+using cml_sm90::cluster_arrive;
+using cml_sm90::cluster_rank;
+using cml_sm90::cluster_wait;
+using cml_sm90::ld_cluster;
+using cml_sm90::wait_or_trap;
 
 // a (box rows x box cols) tile from (col, row) of a 2-D tensor map; rows
 // and columns past the tensor read as zeros, and the barrier is credited
@@ -264,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) bn_stats_kernel(const T* __restrict_
       load_vec<T, V>(x + r * c + c0, xv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        a[j] += xv[j];
-        b[j] += xv[j] * xv[j];
+        a[j] = add_ftz(a[j], xv[j]);
+        b[j] = add_ftz(b[j], mul_ftz(xv[j], xv[j]));
       }
     }
   }
@@ -282,8 +251,8 @@ __global__ void __launch_bounds__(kThreads) bn_stats_kernel(const T* __restrict_
       const int other = ((ty + s) * blockDim.x + tx) * V;
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        red[0][slot + j] += red[0][other + j];
-        red[1][slot + j] += red[1][other + j];
+        red[0][slot + j] = add_ftz(red[0][slot + j], red[0][other + j]);
+        red[1][slot + j] = add_ftz(red[1][slot + j], red[1][other + j]);
       }
     }
     __syncthreads();
@@ -298,26 +267,62 @@ __global__ void __launch_bounds__(kThreads) bn_stats_kernel(const T* __restrict_
   }
 }
 
-// out[i] = sum over stripes of partials[k][i], i < 2C, in a fixed order:
-// group ty sums stripes ty, ty + 8, ... in turn, then a tree over groups
+// The fold: per channel c, both sums over the stripes' partials, then the
+// forward's per-channel vectors from them (the reference's jnp ops
+// between its two kernels, flushed as its compiled program does): mean =
+// s * f32(1/M), var = max(sq * f32(1/M) - mean^2, 0), rsqrt = rsqrt(var +
+// eps), scale = gamma * rsqrt, shift = beta - mean * scale. Writes out[k *
+// C + c], k = 0..6 in the order (s, sq, mean, var, scale, shift, rsqrt).
+struct FoldParams {
+  const float* gamma;
+  const float* beta;
+  float inv_m;  // f32(1 / f32(M))
+  float eps;
+};
+
+// Column tx owns channel c; each sum is taken in a fixed order: group ty
+// sums stripes ty, ty + 8, ... in turn, then a tree over groups.
 __global__ void __launch_bounds__(kFoldX * kFoldY) bn_stats_fold_kernel(const float* __restrict__ partials,
-                                                                         int stripes, int n,
-                                                                         float* __restrict__ out) {
-  __shared__ float red[kFoldY][kFoldX];
+                                                                         int stripes, int c,
+                                                                         float* __restrict__ out,
+                                                                         const FoldParams fp) {
+  __shared__ float red[2][kFoldY][kFoldX];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i = blockIdx.x * kFoldX + tx;
-  float s = 0.f;
-  if (i < n) {
+  const int n = 2 * c;
+  const int i0 = blockIdx.x * kFoldX + tx;  // the channel
+  const bool valid = i0 < c;
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const int i = i0 + part * c;
+    float s = 0.f;
+    if (valid) {
 #pragma unroll 8
-    for (int k = ty; k < stripes; k += kFoldY) s += partials[static_cast<long long>(k) * n + i];
+      for (int k = ty; k < stripes; k += kFoldY) s = add_ftz(s, partials[static_cast<long long>(k) * n + i]);
+    }
+    red[part][ty][tx] = s;
   }
-  red[ty][tx] = s;
   __syncthreads();
   for (int h = kFoldY / 2; h > 0; h >>= 1) {
-    if (ty < h) red[ty][tx] += red[ty + h][tx];
+    if (ty < h)
+#pragma unroll
+      for (int part = 0; part < 2; ++part) red[part][ty][tx] = add_ftz(red[part][ty][tx], red[part][ty + h][tx]);
     __syncthreads();
   }
-  if (ty == 0 && i < n) out[i] = red[0][tx];
+  if (ty != 0 || !valid) return;
+  const float s = red[0][0][tx], sq = red[1][0][tx];
+  const float mean = mul_ftz(s, fp.inv_m);
+  float var = sub_ftz(mul_ftz(sq, fp.inv_m), mul_ftz(mean, mean));
+  var = var < 0.f ? 0.f : var;  // keeps a NaN, as torch.clamp_min
+  const float rs = rsqrtf(__fadd_rn(var, fp.eps));
+  const float scale = mul_ftz(fp.gamma[i0], rs);
+  const float shift = sub_ftz(fp.beta[i0], mul_ftz(mean, scale));
+  out[i0] = s;
+  out[c + i0] = sq;
+  out[2 * c + i0] = mean;
+  out[3 * c + i0] = var;
+  out[4 * c + i0] = scale;
+  out[5 * c + i0] = shift;
+  out[6 * c + i0] = rs;
 }
 
 // ---- norm -------------------------------------------------------------------
@@ -337,7 +342,7 @@ __global__ void __launch_bounds__(kThreads) bn_norm_kernel(const T* __restrict__
     load_param<V>(shift, c0, sh);
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const float z = affine(xv[j], sc[j], sh[j]);
+      const float z = add_ftz(mul_ftz(xv[j], sc[j]), sh[j]);
       out[j] = RELU ? relu(z) : z;
     }
     store_vec<T, V>(y + i, out);
@@ -706,11 +711,12 @@ int encode_rows(CUtensorMap* map, const void* ptr, int dtype, long long m, int c
 // then C must be a multiple of it and every pointer 16-byte aligned, which
 // the Python wrappers check).
 //
-// cml_bn_stats writes (sum, second sum) into out[0:C] and out[C:2C];
-// partials is (stripes, 2, C) f32 scratch (stripes >= 1).
+// cml_bn_stats writes out ((7, C) f32): the two sums and the forward's
+// five per-channel vectors from gamma and beta ((C,) f32), in the order of
+// FoldParams; partials is (stripes, 2, C) f32 scratch (stripes >= 1).
 
 extern "C" int cml_bn_stats(const void* x, int dtype, long long m, int c, int vec, int stripes, void* partials,
-                            void* out, void* stream) {
+                            const void* gamma, const void* beta, float eps, void* out, void* stream) {
   if (!valid_shape(dtype, m, c, vec) || stripes < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ReducePlan p = reduce_plan(m, c, vec, stripes);
@@ -722,8 +728,11 @@ extern "C" int cml_bn_stats(const void* x, int dtype, long long m, int c, int ve
     if (vec == 1) launch_stats<__nv_bfloat16, 1>(x, m, c, p, part, st);
     else launch_stats<__nv_bfloat16, 8>(x, m, c, p, part, st);
   }
-  bn_stats_fold_kernel<<<fold_grid(2 * c), dim3(kFoldX, kFoldY), 0, st>>>(part, stripes, 2 * c,
-                                                                           static_cast<float*>(out));
+  // the reference's mean = s / M as XLA compiles it: a product with f32(1 / M)
+  const FoldParams fp{static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                      static_cast<float>(1.0 / static_cast<double>(static_cast<float>(m))), eps};
+  bn_stats_fold_kernel<<<fold_grid(c), dim3(kFoldX, kFoldY), 0, st>>>(part, stripes, c, static_cast<float*>(out),
+                                                                      fp);
   return static_cast<int>(cudaGetLastError());
 }
 

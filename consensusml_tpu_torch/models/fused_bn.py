@@ -4,7 +4,10 @@
 Three kernels in ``csrc/fused_bn.cu``, each over a contiguous ``(M, C)``
 view (channels last) of f32 or bf16 input, all arithmetic in f32:
 
-- :func:`bn_stats`: per-channel f32 ``sum x`` and ``sum x**2``;
+- :func:`bn_forward_stats`: per-channel f32 ``sum x`` and ``sum x**2``,
+  folded in the same launch into the forward's per-channel vectors
+  (``mean``, ``var``, ``scale``, ``shift``, ``rsqrt``); :func:`bn_stats`
+  returns that launch's two sums;
 - :func:`bn_norm`: ``y = x * scale + shift`` (then ``max(y, 0)`` with
   relu), ``y`` in x's dtype;
 - :func:`bn_bwd`: the whole backward in one launch: ``g = dy`` (zeroed
@@ -20,15 +23,20 @@ tensor and launches its kernel for a CUDA tensor, raising on what the
 kernel does not take (a non-contiguous view is refused, not copied); it
 never falls back. Each launch adds one to the wrapper's ``launches``.
 
-The backward (kernel and plain versions) flushes f32 subnormals as the
-reference's compiled program does: a subnormal operand of its arithmetic
-counts as a zero of its sign and a subnormal result is written as one
-(``tests/test_torch_fused_bn.py`` pins it against the jitted reference).
+Forward and backward (kernels, plain versions and the plain per-channel
+ops between them) flush f32 subnormals as the reference's compiled
+program does: a subnormal operand of its arithmetic counts as a zero of
+its sign and a subnormal result is written as one
+(``tests/test_torch_fused_bn.py`` pins both against the jitted
+reference).
 
 :func:`fused_batch_norm` is the reference's ``custom_vjp`` as a
 ``torch.autograd.Function``: forward = stats, then the "fast variance"
 ``var = max(sq/m - mean**2, 0)`` (not Welford's) and the folded
-``scale``/``shift`` in f32 plain ops, then the normalize pass; backward =
+``scale``/``shift`` in f32 (:func:`bn_forward_stats`: on the card in the
+statistics' fold, so no plain op runs between the two kernels; its plain
+version is :func:`batch_moments` and :func:`fold_params`), then the
+normalize pass; backward =
 one :func:`bn_bwd` call. The statistics' cotangents are dropped, and
 ``mean``/``var`` come back detached (the mutable-state convention).
 
@@ -61,6 +69,8 @@ __all__ = [
     "fold_params",
     "bn_stats",
     "bn_stats_plain",
+    "bn_forward_stats",
+    "bn_forward_stats_plain",
     "bn_norm",
     "bn_norm_plain",
     "bn_bwd",
@@ -68,6 +78,7 @@ __all__ = [
     "bn_bwd_reduce_plain",
     "bn_bwd_dx_plain",
     "inv_rows",
+    "batch_moments",
     "BwdPlan",
     "bn_bwd_plan",
 ]
@@ -87,26 +98,29 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ---------------------------------------------------------------------------
 
 
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every f32 subnormal replaced by a zero of its sign (a NaN
+    and the rest unchanged): what the reference's compiled program
+    (flush-to-zero, denormals-are-zero) makes of a subnormal operand or
+    result of its arithmetic."""
+    return t * (t.abs() >= _F32_MIN_NORMAL)
+
+
 def bn_stats_plain(x2: torch.Tensor):
-    """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2``, in f32."""
-    xf = x2.float()
-    return xf.sum(0), (xf * xf).sum(0)
+    """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2``, in f32, each
+    operand, product and sum flushed as the reference's compiled program
+    does."""
+    xf = _ftz(x2.float())
+    return _ftz(xf.sum(0)), _ftz(_ftz(xf * xf).sum(0))
 
 
 def bn_norm_plain(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bool) -> torch.Tensor:
-    """``x * scale + shift`` (each product and sum rounded on its own),
-    then relu; in x's dtype."""
-    y = x2.float() * scale + shift
+    """``x * scale + shift`` (each product and sum rounded, and flushed, on
+    its own), then relu; in x's dtype."""
+    y = _ftz(_ftz(_ftz(x2.float()) * _ftz(scale)) + _ftz(shift))
     if relu:
         y = torch.relu(y)
     return y.to(x2.dtype)
-
-
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with every f32 subnormal replaced by a zero of its sign: what
-    the reference's compiled program (flush-to-zero, denormals-are-zero)
-    makes of a subnormal operand or result of its arithmetic."""
-    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
 
 
 def _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
@@ -319,24 +333,57 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def bn_stats(x2: torch.Tensor):
-    """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2`` (f32 or bf16),
-    f32: ``csrc/fused_bn.cu`` for a CUDA tensor, :func:`bn_stats_plain`
-    for a CPU one. Each launch adds one to ``bn_stats.launches``."""
-    if not x2.is_cuda:
-        return bn_stats_plain(x2)
+def _stats_launch(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """The statistics' one launch of ``csrc/fused_bn.cu`` (kernel and
+    fold): a ``(7, C)`` f32 tensor of ``(sum x, sum x**2, mean, var,
+    scale, shift, rsqrt)``. Adds one to ``bn_stats.launches``."""
     _check_view("x", x2)
+    _check_vectors(x2, gamma=gamma, beta=beta)
     m, c = x2.shape
     vec = _vec(x2)
     stripes = _stripes(m, c, vec)
     partials = torch.empty((stripes, 2, c), dtype=torch.float32, device=x2.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x2.device)
-    rc = _bind("cml_bn_stats", [_P, _I, _LL, _I, _I, _I, _P, _P, _P])(
-        x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, stripes, partials.data_ptr(), out.data_ptr(),
-        _stream(x2),
+    out = torch.empty((7, c), dtype=torch.float32, device=x2.device)
+    rc = _bind("cml_bn_stats", [_P, _I, _LL, _I, _I, _I, _P, _P, _P, ctypes.c_float, _P, _P])(
+        x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, stripes, partials.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), float(eps), out.data_ptr(), _stream(x2),
     )
     _launched(bn_stats, rc)
+    return out
+
+
+def bn_stats(x2: torch.Tensor):
+    """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2`` (f32 or bf16),
+    f32: for a CUDA tensor the sums of the forward's statistics launch
+    (:func:`bn_forward_stats`'s, with gamma 1 and beta 0), for a CPU one
+    :func:`bn_stats_plain`. Each launch adds one to ``bn_stats.launches``."""
+    if not x2.is_cuda:
+        return bn_stats_plain(x2)
+    c = x2.shape[1]
+    ones = torch.ones(c, dtype=torch.float32, device=x2.device)
+    out = _stats_launch(x2, ones, torch.zeros_like(ones), 1e-5)
     return out[0], out[1]
+
+
+def bn_forward_stats_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
+    """``(mean, var, scale, shift, rsqrt)`` of the forward: the plain
+    statistics, :func:`batch_moments` and :func:`fold_params`."""
+    mean, var = batch_moments(*bn_stats_plain(x2), x2.shape[0])
+    scale, shift, rsqrt = fold_params(gamma, beta, mean, var, eps)
+    return mean, var, scale, shift, rsqrt
+
+
+def bn_forward_stats(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
+    """``(mean, var, scale, shift, rsqrt)`` of the forward, each ``(C,)``
+    f32: for a CUDA tensor one launch of the statistics kernel whose fold
+    computes them from the sums (flushed as :func:`bn_forward_stats_plain`
+    computes them; ``csrc/fused_bn.cu``: ``FoldParams``), so the forward
+    runs no plain op between its two kernels; for a CPU tensor
+    :func:`bn_forward_stats_plain`. Adds one to ``bn_stats.launches``."""
+    gamma, beta = gamma.float(), beta.float()
+    if not x2.is_cuda:
+        return bn_forward_stats_plain(x2, gamma, beta, eps)
+    return tuple(_stats_launch(x2, gamma, beta, eps)[2:])
 
 
 def bn_norm(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bool) -> torch.Tensor:
@@ -387,8 +434,8 @@ bn_stats.launches = 0
 bn_norm.launches = 0
 bn_bwd.launches = 0
 
-_KERNEL_OPS = (bn_stats, bn_norm, bn_bwd)
-_PLAIN_OPS = (bn_stats_plain, bn_norm_plain, bn_bwd_plain)
+_KERNEL_OPS = (bn_forward_stats, bn_norm, bn_bwd)
+_PLAIN_OPS = (bn_forward_stats_plain, bn_norm_plain, bn_bwd_plain)
 
 
 # ---------------------------------------------------------------------------
@@ -398,22 +445,31 @@ _PLAIN_OPS = (bn_stats_plain, bn_norm_plain, bn_bwd_plain)
 
 def fold_params(gamma, beta, mean, var, eps: float):
     """``(scale, shift, rsqrt)``: ``rsqrt(var + eps)``, ``gamma * rsqrt``,
-    ``beta - mean * scale``, in f32 (the reference's ``_fold_params``)."""
-    rsqrt = torch.rsqrt(var + eps)
-    scale = gamma.float() * rsqrt
-    shift = beta.float() - mean * scale
+    ``beta - mean * scale``, in f32 (the reference's ``_fold_params``),
+    flushed as its compiled program does (``var + eps`` and its rsqrt are
+    normal)."""
+    rsqrt = torch.rsqrt(_ftz(var) + eps)
+    scale = _ftz(_ftz(gamma.float()) * rsqrt)
+    shift = _ftz(_ftz(beta.float()) - _ftz(_ftz(mean) * scale))
     return scale, shift, rsqrt
+
+
+def batch_moments(s: torch.Tensor, sq: torch.Tensor, m: int):
+    """``(mean, var)`` from the statistics' sums: ``s / m`` and the "fast
+    variance" ``max(sq / m - mean**2, 0)``, each division the product with
+    ``f32(1/m)`` into which XLA compiles the reference's division by a
+    constant (``inv_rows``), every result flushed."""
+    inv = inv_rows(m)
+    mean = _ftz(s * inv)
+    var = torch.clamp_min(_ftz(_ftz(sq * inv) - _ftz(mean * mean)), 0.0)
+    return mean, var
 
 
 class _FusedBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, gamma, beta, eps, relu, plain):
         stats, norm, _bwd = _PLAIN_OPS if plain else _KERNEL_OPS
-        m = x2.shape[0]
-        s, sq = stats(x2)
-        mean = s / m
-        var = torch.clamp_min(sq / m - mean * mean, 0.0)
-        scale, shift, rsqrt = fold_params(gamma, beta, mean, var, eps)
+        mean, var, scale, shift, rsqrt = stats(x2, gamma, beta, eps)
         y = norm(x2, scale, shift, relu)
         ctx.save_for_backward(x2, scale, shift, mean, rsqrt)
         ctx.relu, ctx.plain = relu, plain

@@ -22,6 +22,8 @@ CPU.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +33,11 @@ from consensusml_tpu_torch.models.attention import gather_paged_kv
 
 __all__ = [
     "ATTENTION_IMPLS",
+    "PagedPlan",
+    "paged_plan",
+    "paged_block_keys",
+    "paged_max_blocks",
+    "paged_smem",
     "resolve_attention_impl",
     "fused_paged_attention",
     "fused_paged_attention_window",
@@ -40,7 +47,6 @@ __all__ = [
 
 ATTENTION_IMPLS = ("torch", "cuda")
 _NEG_INF = -1e30
-_SMEM_LIMIT = 48 * 1024  # default dynamic shared memory per block
 
 
 def resolve_attention_impl(requested: str = "auto", device=None) -> str:
@@ -74,29 +80,148 @@ def paged_attention_plain(
     """The kernel's function in plain PyTorch, op for op the reference's
     dense recipe: f32 logits scaled by ``1/sqrt(D)``, where-mask
     ``t <= positions[s, w]`` to ``-1e30``, f32 softmax, probabilities
-    cast to ``dtype``, f32-accumulated PV, output in ``dtype``."""
+    cast to ``dtype``, f32-accumulated PV, output in ``dtype``. The dot
+    products and the softmax's sum are taken in f64 and rounded once to
+    f32, as the kernel takes them: the f32 values the reference's
+    summation would round to, without its order."""
     s, w, h, d = q.shape
     rep = h // k_pages.shape[2]
     kg, vg = _expand_heads(*gather_paged_kv(k_pages, v_pages, block_table), rep)
     scale = 1.0 / torch.sqrt(torch.tensor(float(d), dtype=torch.float32))
-    logits = torch.einsum("swhd,sthd->shwt", q.float(), kg.float()) * scale.to(q.device)
+    # the dot products and the softmax's sum in f64, each rounded once to
+    # f32: the same bits in any summation order (the kernel's too), so the
+    # bf16-rounded probabilities do not depend on it
+    logits = torch.einsum("swhd,sthd->shwt", q.double(), kg.double()).float() * scale.to(q.device)
     t = kg.shape[1]
     keep = torch.arange(t, device=q.device)[None, None, :] <= positions[:, :, None]
     logits = torch.where(keep[:, None], logits, _NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e / e.double().sum(-1, keepdim=True).float()
     out = torch.einsum("shwt,sthd->swhd", probs.to(dtype).float(), vg.float())
     return out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch plan (csrc/paged_attention.cu's header)
+# ---------------------------------------------------------------------------
+
+_THREADS = 256
+_MAX_W = 8
+_MAX_SPLITS = 16  # blocks of a cluster (H100's non-portable most)
+_MAX_RING = 8
+_RING = 2  # page buffers a block: two let the card hold 14 clusters of 16, not 7 (paged_sweep.py)
+_SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory
+
+
+class PagedPlan(NamedTuple):
+    """How :func:`paged_attention` cuts a call: one thread block cluster of
+    ``splits`` blocks per slot, block ``r`` owning the slot's pages ``[r *
+    pages, (r + 1) * pages)`` (all heads, every window row), streamed
+    through ``ring`` page buffers (K pages, then V pages); ``smem`` bytes of
+    dynamic shared memory a block."""
+
+    pages: int
+    splits: int
+    ring: int
+    smem: int
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def paged_smem(w: int, h: int, hkv: int, d: int, bs: int, pages: int, ring: int) -> int:
+    """A block's dynamic shared memory: ``csrc/paged_attention.cu:layout``
+    (ring of pages, q as f64, the block's logits, the softmax's per-(row,
+    head) vectors and fold scratch, its table entries, the mbarriers)."""
+    q_row = d + 2 * (4 if d % 32 == 0 else 2 if d % 16 == 0 else 1)  # q as f64, its D in padded parts
+    return (ring * _align128(bs * hkv * d * 2) + _align128(w * h * q_row * 8) + _align128(w * pages * bs * h * 4)
+            + _align128((w * h + _THREADS) * 8 + (2 * w * h + _MAX_W + pages) * 4) + 8 * ring)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(nb: int, bs: int, hkv: int, d: int, w: int, h: int, *, pages: int | None = None,
+               ring: int | None = None) -> PagedPlan:
+    """The plan of :func:`paged_attention` for a ``(S, nb)`` block table of
+    ``bs``-token pages of ``(bs, hkv, d)``, ``w`` window rows and ``h``
+    query heads.
+
+    The fewest pages a block that keep a slot's blocks within one cluster
+    (``pages = ceil(nb / 16)``, ``splits = ceil(nb / pages)``: no block
+    without a page at full length), so a slot's keys spread over up to 16
+    SMs; a ring of 2 page buffers (1 where shared memory runs out): at
+    GPT-2-medium's 32 KB pages a block then takes ~80 KB at W = 1, two fit
+    an SM and the card holds 14 clusters of 16 at once (7 with a ring of
+    4, whose second wave made the serving check 20% slower;
+    ``paged_sweep.py``, PERF.md). ``pages`` and ``ring`` pin those
+    choices (``consensusml_tpu_torch/tools/paged_sweep.py``). Raises for a
+    shape the kernel does not take, and past the longest cache: ``nb <= 16
+    * pages`` with the block's ring, q, logits and scratch in 227 KB of
+    shared memory (:func:`paged_max_blocks`)."""
+    if not (1 <= w <= _MAX_W and h % hkv == 0 and d % 8 == 0 and h * d <= 4 * _THREADS and w * h <= _THREADS):
+        raise ValueError(
+            f"the CUDA paged attention takes 1 <= W <= {_MAX_W}, H a multiple of Hkv, D a multiple of 8, "
+            f"H * D <= {4 * _THREADS} and W * H <= {_THREADS}; got W={w}, H={h}, Hkv={hkv}, D={d}"
+        )
+    p = pages or -(-nb // _MAX_SPLITS)
+    splits = -(-nb // p)
+    if splits > _MAX_SPLITS or (splits - 1) * p >= nb:
+        raise ValueError(f"{nb} pages in blocks of {p} need {splits} blocks a slot (at most {_MAX_SPLITS})")
+    rings = [ring] if ring else range(min(_RING, 2 * p), 0, -1)
+    for r in rings:
+        if not 1 <= r <= _MAX_RING:
+            raise ValueError(f"ring {r} outside 1..{_MAX_RING}")
+        smem = paged_smem(w, h, hkv, d, bs, p, r)
+        if smem <= _SMEM_LIMIT:
+            return PagedPlan(p, splits, r, smem)
+    raise ValueError(
+        f"{nb} x {bs} cache positions (W={w}, H={h}, D={d}): a block's {p} pages of logits and its ring "
+        f"exceed {_SMEM_LIMIT} bytes of shared memory"
+    )
+
+
+def paged_block_keys(plan: PagedPlan, bs: int, nb: int, last: list[int]) -> list[list[tuple[int, int]]]:
+    """The keys ``[k0, k1)`` block ``r`` of a slot's cluster reads for each
+    window row, ``[[(k0, k1) for each row] for r in range(plan.splits)]``,
+    given each row's last attended key (``positions``, clamped to the
+    cache): the kernel's own arithmetic (``csrc/paged_attention.cu``:
+    ``n`` pages from ``r * pages`` up to the last page any row attends,
+    ``nkeys(w)``)."""
+    last = [min(p, nb * bs - 1) for p in last]
+    pages_needed = max(last) // bs + 1
+    out = []
+    for r in range(plan.splits):
+        p0 = r * plan.pages
+        n = max(0, min(p0 + plan.pages, pages_needed) - p0)
+        k0 = p0 * bs
+        out.append([(k0, k0 + max(0, min(lw - k0 + 1, n * bs))) for lw in last])
+    return out
+
+
+def paged_max_blocks(bs: int, hkv: int, d: int, w: int, h: int) -> int:
+    """The most ``nb`` (pages a slot) :func:`paged_plan` takes."""
+    lo, hi = 1, _MAX_SPLITS * (_SMEM_LIMIT // max(1, w * bs * h * 4))
+    while lo < hi:  # the plan fits up to some nb and from then on never again
+        mid = (lo + hi + 1) // 2
+        try:
+            paged_plan(mid, bs, hkv, d, w, h)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
 
 
 def _lib():
     lib = kernels.load("paged_attention")
     fn = lib.cml_paged_attention_bf16
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
-        lib.cml_paged_attention_smem_bytes.argtypes = [i, i, i]
-        lib.cml_paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.cml_paged_attention_smem_bytes.argtypes = [i] * 7
+        lib.cml_paged_attention_smem_bytes.restype = ll
+        lib.cml_paged_attention_max_active_clusters.argtypes = [i, i, ll]
+        lib.cml_paged_attention_max_active_clusters.restype = i
     return lib
 
 
@@ -107,48 +232,44 @@ def paged_attention(
     block_table: torch.Tensor,  # (S, nb) int32
     positions: torch.Tensor,  # (S, W) int32, each >= 0
     dtype: torch.dtype = torch.bfloat16,
+    *,
+    plan: PagedPlan | None = None,
 ) -> torch.Tensor:
     """The kernel wrapper. A CPU tensor runs :func:`paged_attention_plain`;
     a CUDA tensor launches ``csrc/paged_attention.cu`` on the current
-    stream after checking device, dtype, shape and contiguity (it raises
-    on anything the kernel does not take). Each launch adds one to
+    stream (``plan``, by default :func:`paged_plan`'s) after checking
+    device, dtype, shape, contiguity and alignment (it raises on anything
+    the kernel does not take). Each launch adds one to
     ``paged_attention.launches``."""
     if not q.is_cuda:
         return paged_attention_plain(q, k_pages, v_pages, block_table, positions, dtype)
     s, w, h, d = q.shape
     n, bs, hkv, dk = k_pages.shape
+    nb = block_table.shape[-1]
     if tuple(v_pages.shape) != tuple(k_pages.shape) or dk != d:
         raise ValueError(f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
-    if h % hkv:
-        raise ValueError(f"query heads {h} not a multiple of kv heads {hkv}")
-    if block_table.dim() != 2 or block_table.shape[0] != s:
-        raise ValueError(f"block_table must be ({s}, nb), got {tuple(block_table.shape)}")
-    if tuple(positions.shape) != (s, w):
-        raise ValueError(f"positions must be {(s, w)}, got {tuple(positions.shape)}")
-    if d % 2 or d > 128:
-        raise ValueError(f"head dim {d} must be even and <= 128")
-    if dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA paged attention writes bf16, asked for {dtype}")
-    for name, t, want in (
-        ("q", q, torch.bfloat16), ("k_pages", k_pages, torch.bfloat16),
-        ("v_pages", v_pages, torch.bfloat16), ("block_table", block_table, torch.int32),
-        ("positions", positions, torch.int32),
+    if block_table.dim() != 2 or block_table.shape[0] != s or tuple(positions.shape) != (s, w):
+        raise ValueError(f"block_table must be ({s}, nb) and positions {(s, w)}, got "
+                         f"{tuple(block_table.shape)} and {tuple(positions.shape)}")
+    if dtype != torch.bfloat16 or not 1 <= s <= 65535:
+        raise ValueError(f"the CUDA paged attention writes bf16 for 1..65535 slots, asked for {dtype}, {s} slots")
+    # q is read 16 bytes at a time, the pages as bulk copies of whole
+    # pages: 16-byte aligned
+    for name, t, want, align in (
+        ("q", q, torch.bfloat16, 16), ("k_pages", k_pages, torch.bfloat16, 16),
+        ("v_pages", v_pages, torch.bfloat16, 16), ("block_table", block_table, torch.int32, 4),
+        ("positions", positions, torch.int32, 4),
     ):
-        if t.dtype != want or not t.is_contiguous() or t.device != q.device or t.data_ptr() % 4:
+        if t.dtype != want or not t.is_contiguous() or t.device != q.device or t.data_ptr() % align:
             raise ValueError(
-                f"{name} must be a contiguous, 4-byte aligned {want} tensor on {q.device}, "
+                f"{name} must be a contiguous, {align}-byte aligned {want} tensor on {q.device}, "
                 f"got {t.dtype} contiguous={t.is_contiguous()} on {t.device}"
             )
-    if s > 65535:
-        raise ValueError(f"{s} slots exceed the grid's y limit 65535")
-    nb = block_table.shape[1]
-    lib = _lib()
-    if lib.cml_paged_attention_smem_bytes(d, bs, nb) > _SMEM_LIMIT:
-        raise ValueError(f"{nb} x {bs} cache positions exceed the kernel's shared-memory logits")
+    p = plan or paged_plan(nb, bs, hkv, d, w, h)
     out = torch.empty_like(q)
-    rc = lib.cml_paged_attention_bf16(
+    rc = _lib().cml_paged_attention_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), s, w, h, hkv, d, bs, nb,
+        positions.data_ptr(), out.data_ptr(), n, s, w, h, hkv, d, bs, nb, p.pages, p.splits, p.ring,
         float(np.float32(1.0) / np.sqrt(np.float32(d))),  # the plain version's f32 scale
         torch.cuda.current_stream(q.device).cuda_stream,
     )

@@ -1,15 +1,19 @@
-"""Run ``chip_smoke.py``'s serve, GPT-2 ``train`` and ResNet-50 phases for
-two checkouts of this repository, in turns, on one card.
+"""Run ``chip_smoke.py``'s serve, GPT-2 ``train`` and ``train_topk`` and
+ResNet-50 phases for two checkouts of this repository, in turns, on one
+card.
 
-    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR [--phases serve,train,resnet]
+    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR [--phases serve,train,train_topk,resnet]
 
 Each run is a fresh process that imports its checkout's ``chip_smoke.py``
 and so builds and loads that checkout's kernels. The order, parent,
 change, change, parent, spreads drift in the host's speed over both
 checkouts. A run prints one JSON line with the phases asked for: the
-serving TTFT and decode rate; the ``train`` line's round times
-(gpt2_topk full, 4 workers, fused int8 wire), its profiled round's device
-time, busy share and each port kernel's device time by CUDA symbol; the
+serving TTFT and decode rate and the profiled decode step (its wall,
+device time, busy share and top kernels); the ``train`` line's round times
+(gpt2_topk full, 4 workers, fused int8 wire) and the ``train_topk`` line's
+(the config's top-k 8 of 512 + int8 on the two-step wire), each profiled
+round's device time, busy share and each port kernel's device time by
+CUDA symbol; the
 ``train_resnet`` (fused BN) and ``train_resnet_flax`` (PyTorch's batch
 norm) lines' round times, profiled device time and busy share, the BN
 kernels' device time (forward and backward apart where the checkout
@@ -41,19 +45,23 @@ kernels.build()
 out = {"checkout": sys.argv[1]}
 if "serve" in phases:
     serve, _ = cs.serve_phase(torch, dev)
-    out["serve"] = {k: serve[k] for k in ("ttft_p50_ms", "intertoken_p50_ms", "decode_tokens_per_sec")}
+    out["serve"] = {k: serve[k] for k in ("ttft_p50_ms", "intertoken_p50_ms", "decode_tokens_per_sec",
+                                          "decode_step_profile")}
     torch.cuda.empty_cache()
-if "train" in phases:
+gpt2 = [(p, codec) for p, codec in (("train", "int8"), ("train_topk", None)) if p in phases]
+if gpt2:
     init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
-    line, counts, _, _ = cs.train_phase(torch, dev, init, "int8")
-    prof = line["profiled_round"]
-    out["train"] = {
-        "round_ms": [r["round_ms"] for r in line["rounds"]],
-        "gossip_ms": [r["gossip_ms"] for r in line["rounds"]],
-        "profiled_wall_ms": prof["wall_ms"], "device_kernel_ms": prof["device_kernel_ms"],
-        "device_busy_share_of_unprofiled_round": prof.get("device_busy_share_of_unprofiled_round"),
-        "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
-    }
+    for path, codec in gpt2:
+        line, counts, _, _ = cs.train_phase(torch, dev, init, codec)
+        prof = line["profiled_round"]
+        out[path] = {
+            "round_ms": [r["round_ms"] for r in line["rounds"]],
+            "gossip_ms": [r["gossip_ms"] for r in line["rounds"]],
+            "profiled_wall_ms": prof["wall_ms"], "device_kernel_ms": prof["device_kernel_ms"],
+            "device_busy_share_of_unprofiled_round": prof.get("device_busy_share_of_unprofiled_round"),
+            "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
+        }
+        torch.cuda.empty_cache()
     del init
     torch.cuda.empty_cache()
 if "resnet" in phases:
@@ -79,10 +87,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", help="root of the parent checkout")
     ap.add_argument("change", help="root of the changed checkout")
-    ap.add_argument("--phases", default="serve,train,resnet",
-                    help="comma-separated phases to run: serve, train, resnet (default: all three)")
+    ap.add_argument("--phases", default="serve,train,train_topk,resnet",
+                    help="comma-separated phases to run: serve, train, train_topk, resnet (default: all four)")
     args = ap.parse_args(argv)
-    unknown = set(args.phases.split(",")) - {"serve", "train", "resnet"}
+    unknown = set(args.phases.split(",")) - {"serve", "train", "train_topk", "resnet"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     runs = []

@@ -47,30 +47,96 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _paged_case(dev, w, s=8, h=16, hkv=16, d=64, bs=16, nb=64):
+def _paged_case(dev, w, s=8, h=16, hkv=16, d=64, bs=16, nb=64, last=(1023, 16, 0, 1, 511, 700, 63, 0),
+                free=True):
     gen = torch.Generator(device=dev).manual_seed(w)
     n = s * nb + 1
     k, v = (torch.randn(n, bs, hkv, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
     k[0] = float("inf")  # trash junk: only the free lane may see it
     table = (torch.randperm(n - 1, generator=gen, device=dev)[: s * nb] + 1).view(s, nb)
     table = table.to(torch.int32).contiguous()
-    table[-1] = 0  # the last slot is a free lane
-    last = torch.tensor([nb * bs - 1, 16, 0, 1, 511, 700, 63, 0], device=dev)[:s]
+    if free:
+        table[-1] = 0  # the last slot is a free lane
+    last = torch.tensor(last, device=dev)[:s]
     pos = torch.clamp(last[:, None] - (w - 1) + torch.arange(w, device=dev)[None, :], min=0)
     q = torch.randn(s, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
     return q, k, v, table, pos.to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize("w,hkv", [(1, 16), (4, 16), (1, 8), (4, 8)])
-def test_paged_kernel_matches_plain(dev, w, hkv):
-    q, k, v, table, pos = _paged_case(dev, w, hkv=hkv)
+# the serving check's ragged lengths (chip_smoke.py), one slot a length
+CHECK_LAST = (0, 16, 510, 1023, 99, 299, 699, 63)
+
+
+@pytest.mark.parametrize("w,hkv", [(1, 16), (4, 16), (8, 16), (1, 8), (4, 8), (2, 4), (8, 4)])
+@pytest.mark.parametrize("last", [(1023, 16, 0, 1, 511, 700, 63, 0), CHECK_LAST], ids=["free-lane", "check"])
+def test_paged_kernel_matches_plain(dev, w, hkv, last):
+    """W up to 8 window rows, GQA rep 1, 2 and 4 (hkv 16, 8, 4 of 16 query
+    heads), at ragged lengths; the free lane (table all trash, inf keys)
+    is left out of the comparison."""
+    q, k, v, table, pos = _paged_case(dev, w, hkv=hkv, last=last, free=last != CHECK_LAST)
     before = tpa.paged_attention.launches
     out = tpa.paged_attention(q, k, v, table, pos)
     ref = tpa.paged_attention_plain(q, k, v, table, pos)
     torch.cuda.synchronize()
     assert tpa.paged_attention.launches == before + 1
-    assert torch.isfinite(out[:-1]).all()
-    torch.testing.assert_close(out[:-1].float(), ref[:-1].float(), rtol=2.0**-7, atol=1e-5)
+    live = slice(0, 8 if last == CHECK_LAST else 7)
+    assert torch.isfinite(out[live]).all()
+    torch.testing.assert_close(out[live].float(), ref[live].float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(out[live], tpa.paged_attention(q, k, v, table, pos)[live])  # a fixed-order fold
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_paged_kernel_never_reads_past_positions(dev, w):
+    """Every key past its row's position, in the attended pages and in
+    whole pages past the last one, NaN in K and V: the kernel skips them,
+    so its output has the same bits as on the clean pages (the plain
+    version, which multiplies their zero probabilities into V, would not
+    be finite) and the clean output matches the plain version."""
+    q, k, v, table, pos = _paged_case(dev, w, last=CHECK_LAST, free=False)
+    clean = tpa.paged_attention(q, k, v, table, pos)
+    torch.testing.assert_close(clean.float(), tpa.paged_attention_plain(q, k, v, table, pos).float(),
+                               rtol=2.0**-7, atol=1e-5)
+    bs, nb = k.shape[1], table.shape[1]
+    t = torch.arange(nb * bs, device=dev)
+    past = t[None, :] > pos.max(1).values[:, None]  # (S, T): no window row attends these
+    rows = table.long()[:, :, None] * bs + torch.arange(bs, device=dev)[None, None, :]
+    dirty = rows.reshape(len(table), -1)[past]
+    kn, vn = k.clone(), v.clone()
+    kn.view(-1, *k.shape[2:])[dirty] = float("nan")
+    vn.view(-1, *v.shape[2:])[dirty] = float("nan")
+    out = tpa.paged_attention(q, kn, vn, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, clean)
+
+
+@pytest.mark.parametrize("w", [1, 4])
+def test_paged_kernel_at_the_longest_cache(dev, w):
+    """The longest cache the plan takes at GPT-2-medium's heads (nb =
+    paged_max_blocks), two slots of which one attends every key; one
+    block more is refused."""
+    h, d, bs = 16, 64, 16
+    nb = tpa.paged_max_blocks(bs, h, d, w, h)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    k, v = (torch.randn(2 * nb + 1, bs, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    table = torch.arange(1, 2 * nb + 1, dtype=torch.int32, device=dev).view(2, nb)
+    pos = torch.tensor([[nb * bs - 1], [37]], device=dev) - torch.arange(w - 1, -1, -1, device=dev)[None, :]
+    pos = pos.to(torch.int32).contiguous()
+    q = torch.randn(2, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    out = tpa.paged_attention(q, k, v, table, pos)
+    ref = tpa.paged_attention_plain(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    wide = torch.zeros(2, nb + 1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        tpa.paged_attention(q, k, v, wide, pos)
+
+
+def test_paged_plan_shared_memory_is_the_kernels(dev):
+    """The Python plan's shared-memory size is the kernel's own layout."""
+    lib = tpa._lib()
+    for w, hkv, nb in ((1, 16, 64), (4, 8, 64), (8, 4, 200), (1, 2, 2)):
+        p = tpa.paged_plan(nb, 16, hkv, 64, w, 16)
+        assert lib.cml_paged_attention_smem_bytes(w, 16, hkv, 64, 16, p.pages, p.ring) == p.smem
 
 
 def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -81,6 +147,8 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
         tpa.paged_attention(q, k, v, table.long(), pos)
     with pytest.raises(ValueError):
         tpa.paged_attention(q.transpose(0, 1), k, v, table, pos)
+    with pytest.raises(ValueError):  # nine window rows
+        tpa.paged_attention(q.expand(-1, 9, -1, -1).contiguous(), k, v, table, pos.expand(-1, 9).contiguous())
 
 
 FLASH_CASES = [(s, causal) for s in (1, 63, 64, 65, 127, 200, 600, 1000, 1024) for causal in (True, False)]
@@ -352,6 +420,31 @@ def test_chunked_topk_kernel_bit_equal_to_plain(dev, chunk, k):
         assert i[3, :2].tolist() == [5, 9]
 
 
+def test_chunked_topk_kernel_flushes_subnormals_as_plain(dev):
+    """Rows of subnormals beside zeros of both signs and normals, at every
+    C and k the wrapper takes (C = 128 .. 1024 by 128, k = 1 .. 64): the
+    kernel ranks a subnormal |x| as 0 (the lower index wins among the
+    zeros) and writes +0.0 for it, bit-equal to the plain version."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    for chunk in range(128, 1025, 128):
+        gen = torch.Generator(device=dev).manual_seed(chunk)
+        x = torch.zeros(8, chunk, device=dev)
+        x[0, 20] = 1.0
+        x[0, [7, 9, 3]] = torch.tensor([-3e-39, 2e-39, 1e-39], device=dev)
+        x[1, [50, 60]] = torch.tensor([-1e-40, 5e-41], device=dev)
+        x[2, 1::4] = -0.0
+        x[2, [0, 5, 11, 64, 78]] = torch.tensor([-1e-38, 3e-39, -5e-45, 1e-39, 2.0**-126], device=dev)
+        x[3] = 1e-39 * torch.where(torch.arange(chunk, device=dev) % 2 == 1, -1.0, 1.0)
+        x[4:] = torch.randn(4, chunk, generator=gen, device=dev)
+        x[4:, ::3] *= 1e-39  # a third of the random rows subnormal
+        for k in range(1, 65):
+            v, i = tck.chunked_topk(x, k)
+            vp, ip = tck.chunked_topk_plain(x, k)
+            assert _same_bits(i, ip) and _same_bits(v, vp), (chunk, k)
+        assert i[0, :4].tolist() == [20, 0, 1, 2] and i[1, :4].tolist() == [0, 1, 2, 3]
+
+
 @pytest.mark.parametrize("with_acc,weight", [(False, 1.0), (True, 1.0), (True, 0.3)])
 @pytest.mark.parametrize("chunk,k", [(512, 8), (128, 13), (256, 100)])
 def test_chunk_scatter_kernel_bit_equal_to_plain(dev, chunk, k, with_acc, weight):
@@ -438,8 +531,7 @@ def _bn_case(dev, m, c, dtype, seed):
 def _bn_vectors(tbn, x, gamma, beta):
     m = x.shape[0]
     sp, sqp = tbn.bn_stats_plain(x)
-    mean = sp / m
-    var = torch.clamp_min(sqp / m - mean * mean, 0.0)
+    mean, var = tbn.batch_moments(sp, sqp, m)
     scale, shift, rsqrt = tbn.fold_params(gamma, beta, mean, var, 1e-5)
     return scale, shift, mean, rsqrt
 
@@ -546,6 +638,60 @@ def test_bn_bwd_flushes_subnormals_as_the_plain_version(dev):
         terms = (dy[:, 1] * (x[:, 1] - vecs[2][1]) * vecs[3][1]).abs().sum()
         assert abs(float(dg[1] - dgp[1])) <= 1e-5 * float(terms)
     assert float(dy[:, 0].sum()) != 0.0  # without the flush channel 0 would not sum to 0
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_bn_forward_kernels_flush_subnormals_as_plain(dev, relu):
+    """f32 x with a channel of subnormals (and a subnormal in another): the
+    statistics kernel sums them as zeros (channel 0's sums exactly 0), and
+    the normalize kernel, fed the same flushed per-channel vectors, equals
+    its plain version with no subnormal output; through
+    ``fused_batch_norm`` channel 0's mean, var and y are 0."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    m, c = 777, 8
+    x, _dy, gamma, beta = _bn_case(dev, m, c, torch.float32, 4)
+    x[:, 0] = 1e-39 * torch.where(torch.arange(m, device=dev) % 3 == 0, -1.0, 1.0)
+    x[5, 3] = -2e-39
+    beta[0] = 0.0
+    s, sq = tbn.bn_stats(x)
+    sp, sqp = tbn.bn_stats_plain(x)
+    torch.cuda.synchronize()
+    assert float(s[0]) == 0.0 and float(sq[0]) == 0.0 and float(sp[0]) == 0.0
+    assert _bn_sum_ok(s, sp, _ftz_abs(x).sum(0)) and _bn_sum_ok(sq, sqp, (_ftz_abs(x) ** 2).sum(0))
+    mean, var = tbn.batch_moments(sp, sqp, m)
+    scale, shift, _ = tbn.fold_params(gamma, beta, mean, var, 1e-5)
+    y = tbn.bn_norm(x, scale, shift, relu)
+    assert torch.equal(y, tbn.bn_norm_plain(x, scale, shift, relu))
+    assert not ((y != 0) & (y.abs() < 2.0**-126)).any() and not y[:, 0].any()
+    yf, mf, vf = tbn.fused_batch_norm(x, gamma, beta, act="relu" if relu else None)
+    assert float(mf[0]) == 0.0 and float(vf[0]) == 0.0 and not yf[:, 0].any()
+    assert float(x[:, 0].sum()) != 0.0  # unflushed, channel 0 would not sum to 0
+
+
+@pytest.mark.parametrize("m,c", [(8192, 256), (777, 13), (1, 8), (512, 2048)])
+def test_bn_forward_vectors_from_the_fold_equal_plain(dev, m, c):
+    """The statistics' fold computes the forward's five per-channel vectors
+    (mean, var, scale, shift, rsqrt) as ``batch_moments`` and
+    ``fold_params`` compute them from the same sums, to the bit; one
+    launch of bn_stats."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    x, _dy, gamma, beta = _bn_case(dev, m, c, torch.float32, 5)
+    x = x.to(torch.bfloat16)
+    before = tbn.bn_stats.launches
+    got = tbn.bn_forward_stats(x, gamma, beta, 1e-5)
+    assert tbn.bn_stats.launches == before + 1
+    s, sq = tbn.bn_stats(x)
+    mean, var = tbn.batch_moments(s, sq, m)
+    want = (mean, var, *tbn.fold_params(gamma, beta, mean, var, 1e-5))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("mean", "var", "scale", "shift", "rsqrt"), got, want):
+        assert _same_bits(g, w), name
+
+
+def _ftz_abs(x):
+    return torch.where(x.abs() < 2.0**-126, 0.0, x.abs())
 
 
 def test_bn_reductions_are_deterministic(dev):

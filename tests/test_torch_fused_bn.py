@@ -159,9 +159,7 @@ def _saved(x, gamma, beta, relu):
     ``(M, C)`` ``x``, as ``_FusedBatchNorm.forward`` saves them."""
     tx = torch.from_numpy(x)
     s, sq = tbn.bn_stats_plain(tx)
-    m = x.shape[0]
-    mean = s / m
-    var = torch.clamp_min(sq / m - mean * mean, 0.0)
+    mean, var = tbn.batch_moments(s, sq, x.shape[0])
     scale, shift, rsqrt = tbn.fold_params(torch.from_numpy(gamma), torch.from_numpy(beta), mean, var, 1e-5)
     return scale, shift, mean, rsqrt
 
@@ -250,6 +248,41 @@ def test_bn_bwd_flushes_subnormals_as_the_reference(relu, impl):
     _close(tdx, dx, F32_TOL)
     _close(tdb, db, SUM_TOL)
     _close(tdg, dg, SUM_TOL)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "jnp"])
+@pytest.mark.parametrize("relu", [False, True], ids=["plain", "relu"])
+def test_bn_forward_flushes_subnormals_as_the_reference(relu, impl):
+    """The reference's compiled forward (``_bn_train_fwd`` jitted on the
+    CPU) reads a subnormal x as zero: a channel of subnormal x (channel 0,
+    beta 0) has mean 0, var 0 and y 0, where arithmetic that kept the
+    subnormals gives a subnormal mean and a y of ~1e-37. The port's forward
+    (plain kernels and the plain ops between them, through
+    ``fused_batch_norm``) gives the same, and no output is subnormal; the
+    normal channels agree within the f32 tolerance, and the mean is the
+    compiled program's ``s * f32(1/m)``: given the reference's own sums,
+    the reference's mean bit for bit."""
+    x, gamma, beta, _dy = _case(8, 31, m=777)
+    x[:, 0] = np.float32(1e-39) * np.where(np.arange(777) % 3 == 0, -1.0, 1.0)
+    x[5, 3] = np.float32(-2e-39)
+    beta[0] = 0.0
+    fn = jax.jit(lambda x2, g, b: jbn._bn_train_fwd(x2, g, b, 1e-5, relu, impl, True)[0])
+    y, mean, var = (np.asarray(a) for a in fn(jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta)))
+    assert mean[0] == 0.0 and var[0] == 0.0 and not y[:, 0].any()  # the reference flushes
+
+    ty, tmean, tvar = tbn.fused_batch_norm(torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta),
+                                           act="relu" if relu else None, impl="auto")
+    ty, tmean, tvar = ty.numpy(), tmean.numpy(), tvar.numpy()
+    assert tmean[0] == 0.0 and tvar[0] == 0.0 and not ty[:, 0].any()
+    for out in (ty, tmean, tvar):
+        assert not ((out != 0) & (np.abs(out) < 2.0**-126)).any()
+    # given the reference's own sums, batch_moments gives its mean bit for bit
+    sums = (torch.from_numpy(np.array(a)) for a in jax.jit(lambda x2: jbn._stats(x2, impl, True))(jnp.asarray(x)))
+    assert np.array_equal(tbn.batch_moments(*sums, 777)[0].numpy(), mean)
+    _close(ty, y, F32_TOL)
+    _close(tvar, var, F32_TOL)
+    # without the flush, channel 0's mean would be a subnormal
+    assert float(torch.from_numpy(x[:, 0]).sum()) != 0.0
 
 
 def test_fused_module_running_stats_and_eval():

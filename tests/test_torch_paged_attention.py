@@ -8,7 +8,13 @@ so outputs differ by at most about one bf16 ulp: 1.6e-2 absolute on
 outputs of order 1.
 
 The CUDA kernel has no CPU mode: ``tests/test_torch_cuda.py`` holds it
-against the plain version on the card.
+against the plain version on the card. Here its launch plan
+(``paged_plan``) is held to cover every attended key exactly once, and an
+emulation of its split arithmetic (each block's max and sum over its
+pages, the slot's max and sum over the blocks in rank order, bf16
+probabilities from the slot's sum, each block's f32 P V, folded in rank
+order) is held to the JAX kernel in interpret mode, in bf16 at the
+tolerance above.
 """
 
 import jax.numpy as jnp
@@ -84,6 +90,164 @@ def test_plain_matches_jax_interpret_and_gather(name, w, h, hkv):
     for jimpl in ("interpret", "gather"):
         want = _jax(*case, name, impl=jimpl)
         np.testing.assert_allclose(got[live], want[live], **TOL[name])
+
+
+# the serving check's lengths (chip_smoke.py): 8 slots, 64 pages of 16
+CHECK_LENGTHS = (1, 17, 511, 1024, 100, 300, 700, 64)
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("w", [1, 4])
+def test_plain_matches_jax_interpret_at_the_check_shapes(name, w):
+    """``paged_attention_plain`` (f64 dot products and softmax sum, each
+    rounded once to f32: the card's comparison baseline) against the JAX
+    kernel in interpret mode (f32 sums) at the serving check's shapes: 8
+    slots of 64 pages of 16, 16 heads, head dim 64, its ragged lengths.
+    f32 at the file's 1e-5 (the worst error, W = 1 and 4, is 0.03 of it),
+    bf16 at one bf16 ulp."""
+    s, h, d, bs, nb = 8, 16, 64, 16, 64
+    rng = np.random.default_rng(70 + w)
+    n = s * nb + 1
+    k, v = (rng.normal(size=(n, bs, h, d)).astype(np.float32) for _ in range(2))
+    table = (rng.permutation(n - 1)[: s * nb] + 1).reshape(s, nb).astype(np.int32)
+    positions = np.maximum(np.array(CHECK_LENGTHS)[:, None] - w + np.arange(w)[None, :], 0).astype(np.int32)
+    q = rng.normal(size=(s, w, h, d)).astype(np.float32)
+    jdt, tdt = DT[name]
+    want = np.asarray(jpa._fused_call(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                                      jnp.asarray(table), jnp.asarray(positions), jdt, interpret=True), np.float32)
+    got = tpa.paged_attention_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), torch.from_numpy(table),
+                                    torch.from_numpy(positions), dtype=tdt).float().numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL[name])
+
+
+def _covered(plan, bs, nb, last):
+    """Per window row, how many blocks read each key 0 .. nb * bs - 1."""
+    hits = np.zeros((len(last), nb * bs), np.int64)
+    for rows in tpa.paged_block_keys(plan, bs, nb, last):
+        for w, (k0, k1) in enumerate(rows):
+            hits[w, k0:k1] += 1
+    return hits
+
+
+@pytest.mark.parametrize("w", [1, 4, 8])
+def test_plan_covers_every_attended_key_once(w):
+    """At the check's ragged lengths, at length 1 and at the longest cache
+    the kernel takes (GPT-2-medium's heads), every key up to each window
+    row's position is read by exactly one block of its slot, and no key
+    past it by any."""
+    bs, h, d = 16, 16, 64
+    nb_max = tpa.paged_max_blocks(bs, h, d, w, h)
+    assert nb_max >= 64 and tpa.paged_plan(64, bs, h, d, w, h).splits == 16
+    with pytest.raises(ValueError):
+        tpa.paged_plan(nb_max + 1, bs, h, d, w, h)
+    cases = [(64, length) for length in CHECK_LENGTHS] + [(nb_max, 1), (nb_max, nb_max * bs), (nb_max, 4321)]
+    for nb, length in cases:
+        plan = tpa.paged_plan(nb, bs, h, d, w, h)
+        assert plan.splits <= 16 and (plan.splits - 1) * plan.pages < nb <= plan.splits * plan.pages
+        last = [max(0, length - w + i) for i in range(w)]
+        hits = _covered(plan, bs, nb, last)
+        for i, lw in enumerate(last):
+            assert (hits[i, : lw + 1] == 1).all() and not hits[i, lw + 1:].any(), (nb, length, i)
+
+
+def _emulate(q, k, v, table, positions, plan):
+    """The kernel's arithmetic in torch ops, block by block of each slot's
+    cluster: logits (f64 dot products rounded to f32), each block's max,
+    the slot's max, exp and each block's f64 sum, the slot's sum in rank
+    order rounded to f32, bf16 probabilities, each block's f32 P V, the
+    blocks' partials folded in rank order, bf16."""
+    s, w, h, d = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    nb = table.shape[1]
+    rep = h // hkv
+    scale = torch.tensor(1.0, dtype=torch.float32) / torch.sqrt(torch.tensor(float(d)))
+    out = torch.empty(s, w, h, d, dtype=torch.bfloat16)
+    for slot in range(s):
+        rows = (table[slot].long()[:, None] * bs + torch.arange(bs)[None, :]).reshape(-1)
+        ks = k.reshape(-1, hkv, d)[rows].float().repeat_interleave(rep, dim=1)  # (T, H, D)
+        vs = v.reshape(-1, hkv, d)[rows].float().repeat_interleave(rep, dim=1)
+        blocks = tpa.paged_block_keys(plan, bs, nb, positions[slot].tolist())
+        for i in range(w):
+            qi = q[slot, i].float()  # (H, D)
+            spans = [blk[i] for blk in blocks]
+            logits = [torch.einsum("hd,thd->ht", qi.double(), ks[k0:k1].double()).float() * scale
+                      for k0, k1 in spans]
+            bmax = [lg.max(1).values if lg.shape[1] else torch.full((h,), -np.inf) for lg in logits]
+            m = torch.stack(bmax).max(0).values
+            e = [torch.exp(lg - m[:, None]) for lg in logits]
+            total = torch.zeros(h, dtype=torch.float64)
+            for part in e:  # rank order
+                total = total + part.double().sum(1)
+            total = total.float()
+            acc = torch.zeros(h, d)
+            for (k0, k1), part in zip(spans, e):
+                p = (part / total[:, None]).to(torch.bfloat16).float()
+                acc = acc + torch.einsum("ht,thd->hd", p, vs[k0:k1])
+            out[slot, i] = acc.to(torch.bfloat16)
+    return out
+
+
+@pytest.mark.parametrize("pages", [None, 3], ids=["plan", "3-pages"])
+@pytest.mark.parametrize("w,hkv", [(1, 8), (4, 8), (1, 4), (4, 4), (1, 2), (4, 2)],
+                         ids=["w1-rep1", "w4-rep1", "w1-rep2", "w4-rep2", "w1-rep4", "w4-rep4"])
+def test_split_arithmetic_matches_jax_interpret(w, hkv, pages):
+    """The emulation of the kernel's split softmax and fold against the JAX
+    kernel (``_fused_call`` in interpret mode) in bf16, at W 1 and 4 and
+    GQA rep 1, 2 and 4, with the plan's 1 page a block (12 blocks) and
+    with 3 (4 blocks)."""
+    s, h, d, bs, nb = 4, 8, 16, 4, 12
+    rng = np.random.default_rng(100 * w + hkv)
+    n = s * nb + 1
+    k, v = (rng.normal(size=(n, bs, hkv, d)).astype(np.float32) for _ in range(2))
+    table = rng.permutation(np.arange(1, n))[: s * nb].reshape(s, nb).astype(np.int32)
+    last = np.array([nb * bs - 1, 0, 21, 30], np.int32)
+    positions = np.maximum(last[:, None] - (w - 1) + np.arange(w)[None, :], 0).astype(np.int32)
+    q = rng.normal(size=(s, w, h, d)).astype(np.float32)
+    plan = tpa.paged_plan(nb, bs, hkv, d, w, h, pages=pages)
+    assert plan.splits == (12 if pages is None else 4)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = _emulate(tq, tk, tv, torch.from_numpy(table), torch.from_numpy(positions), plan).float().numpy()
+    want = np.asarray(jpa._fused_call(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                                      jnp.asarray(v, jnp.bfloat16), jnp.asarray(table), jnp.asarray(positions),
+                                      jnp.bfloat16, interpret=True), np.float32)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL["bf16"])
+
+
+@pytest.mark.parametrize("seed", [6, 9])
+@pytest.mark.parametrize("w", [1, 4])
+def test_split_arithmetic_is_the_plain_versions_within_one_ulp(w, seed):
+    """At the serving check's shapes (8 slots of 64 pages of 16, 16 heads,
+    head dim 64, its ragged lengths), the emulation of the kernel's split
+    arithmetic against ``paged_attention_plain`` at ``chip_smoke.py``'s
+    gate (atol 1e-5, rtol 2**-7: one bf16 ulp). The logits and the
+    softmax's sum are f64 sums rounded once on both sides, so the bf16
+    probabilities agree and only the P V sums differ in order; with the
+    sum taken in f32 in the blocks' order instead, a probability's bf16
+    rounding flips now and then, and one flip near 1 moves its output by
+    several ulps (it missed the gate on the card; at W = 4 and these two
+    seeds, 1.6 and 1.1 of it)."""
+    s, h, d, bs, nb = 8, 16, 64, 16, 64
+    g = torch.Generator().manual_seed(seed)
+    n = s * nb + 1
+    k, v = (torch.randn(n, bs, h, d, generator=g).to(torch.bfloat16) for _ in range(2))
+    table = (torch.randperm(n - 1, generator=g)[: s * nb] + 1).view(s, nb).to(torch.int32)
+    lengths = torch.tensor(CHECK_LENGTHS)
+    pos = torch.clamp(lengths[:, None] - w + torch.arange(w)[None, :], min=0).to(torch.int32)
+    q = torch.randn(s, w, h, d, generator=g).to(torch.bfloat16)
+    want = tpa.paged_attention_plain(q, k, v, table, pos).float()
+    got = _emulate(q, k, v, table, pos, tpa.paged_plan(nb, bs, h, d, w, h)).float()
+    assert float(((got - want).abs() / (1e-5 + 2.0**-7 * want.abs())).max()) <= 1.0
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    for args in ((64, 16, 16, 64, 9, 16), (64, 16, 16, 60, 1, 16), (64, 16, 6, 64, 1, 16),
+                 (64, 16, 32, 64, 1, 32)):
+        with pytest.raises(ValueError):
+            tpa.paged_plan(*args)
+    with pytest.raises(ValueError):  # 64 pages in blocks of 2: 32 blocks, more than a cluster holds
+        tpa.paged_plan(64, 16, 16, 64, 1, 16, pages=2)
 
 
 def test_resolve_attention_impl():

@@ -11,7 +11,7 @@ launch). Inputs are numpy-seeded and carry the hazards of each kernel:
   points, tiny scales;
 - top-k: equal magnitudes of opposite sign (the lower index wins), rows
   with fewer than k non-zeros, ``-0.0`` entries (the kernel's masked sum
-  gives ``+0.0``);
+  gives ``+0.0``), subnormals (the compiled kernel reads them as zeros);
 - scatter: with and without ``acc``, weight 0.3, ``-0.0`` in ``acc``
   (it comes out ``+0.0``) and as a value.
 """
@@ -25,6 +25,7 @@ import torch
 from consensusml_tpu.compress import ChunkedTopKCompressor as JaxChunkedTopK
 from consensusml_tpu.compress import PallasInt8Compressor as JaxPallasInt8
 from consensusml_tpu.compress import kernels as jk
+from consensusml_tpu.compress.reference import topk_int4_compressor as jax_topk_int4
 from consensusml_tpu.compress.reference import topk_int8_compressor as jax_topk_int8
 from consensusml_tpu_torch.compress import (
     ChunkedTopKCompressor,
@@ -37,8 +38,10 @@ from consensusml_tpu_torch.compress import (
     chunked_topk,
     dequantize_int8,
     quantize_int8,
+    topk_int4_compressor,
     topk_int8_compressor,
 )
+from consensusml_tpu_torch.compress.reference import topk_by_magnitude
 
 
 def _bits(a):
@@ -63,9 +66,27 @@ def _rows(seed, rows, chunk):
     x[3] = 0.0
     x[3, [5, 9, 40]] = [-3.0, 3.0, -0.0]  # a tie of opposite signs, fewer non-zeros than k
     x[4] = np.where(np.arange(chunk) % 3 == 0, 2.0, -2.0)  # every magnitude equal
-    # tiny but normal: XLA on the CPU (and the TPU) flush subnormals to
-    # zero, the port keeps them (ROADMAP Queue C)
+    # tiny but normal: selected by magnitude as any other row (the
+    # subnormal rows, which the reference reads as zeros, have tests of
+    # their own below)
     x[5] *= np.float32(1e-30)
+    return x
+
+
+def _subnormal_rows(chunk):
+    """Rows where the reference's flush decides the result: (0) 1.0 at 20
+    beside subnormals -3e-39, 2e-39, 1e-39 at 7, 9, 3; (1) only -1e-40 at
+    50 and 5e-41 at 60; (2) a normal top beside subnormals and zeros of
+    both signs, so the top-k reaches into them; (3) every element a
+    subnormal of alternating sign."""
+    x = np.zeros((4, chunk), np.float32)
+    x[0, 20] = 1.0
+    x[0, [7, 9, 3]] = [-3e-39, 2e-39, 1e-39]
+    x[1, [50, 60]] = [-1e-40, 5e-41]
+    x[2, [100, 2, 78]] = [-2.5, 0.75, 2.0**-126]  # the smallest normal beats a subnormal
+    x[2, 1::4] = -0.0
+    x[2, [0, 5, 11, 64]] = [-1e-38, 3e-39, -5e-45, 1e-39]
+    x[3] = np.float32(1e-39) * np.where(np.arange(chunk) % 2, -1.0, 1.0)
     return x
 
 
@@ -98,6 +119,50 @@ def test_chunked_topk_bit_equal(k, chunk):
         assert i[3, :2].tolist() == [5, 9] and v[3, :2].tolist() == [-3.0, 3.0]
     if k >= 4:  # the -0.0 at 40 ties the zeros after the two winners: lower index first
         assert i[3, 2:4].tolist() == [0, 1] and not torch.signbit(v[1]).any()
+
+
+@pytest.mark.parametrize("k", [1, 4, 8, 13])
+@pytest.mark.parametrize("chunk", [128, 512])
+def test_chunked_topk_flushes_subnormals_as_the_reference(k, chunk):
+    """The reference's compiled kernel reads a subnormal |x| as zero: it
+    ties with the zeros and the lower index wins, and a subnormal winner's
+    value (a masked row sum) is +0.0. The plain version does the same,
+    bit for bit in indices and values."""
+    x = _subnormal_rows(chunk)
+    wv, wi = jk.chunked_topk(jnp.asarray(x), k, interpret=True)
+    v, i = chunked_topk(torch.from_numpy(x), k)
+    _eq(i, wi, "indices")
+    _eq(v, wv, "values")
+    assert not torch.signbit(v[v == 0]).any() and not ((v != 0) & (v.abs() < 2.0**-126)).any()
+    if k >= 4:  # the two probe rows
+        assert i[0].tolist()[:4] == [20, 0, 1, 2] and v[0].tolist()[:4] == [1.0, 0.0, 0.0, 0.0]
+        assert i[1].tolist()[:4] == [0, 1, 2, 3] and not v[1].any()
+    if k >= 8:
+        assert i[2].tolist()[:4] == [100, 2, 78, 0]
+    # without the flush the subnormals would win over the zeros
+    assert topk_by_magnitude(torch.from_numpy(x[:1]), 2)[0].tolist() == [20, 7]
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("chunk,k", [(128, 8), (512, 8)])
+def test_topk_codecs_flush_subnormals_as_the_reference(codec, chunk, k):
+    """Top-k + int8 and top-k + int4 on tensors of the subnormal rows (the
+    port's kernel path, plain versions on the CPU, against JAX
+    ``impl="interpret"``): values, scales, uint16 indices and both decodes
+    bit-equal."""
+    x = _subnormal_rows(chunk).reshape(-1)
+    acc = np.random.default_rng(chunk).normal(size=x.shape).astype(np.float32)
+    make_t, make_j = {"int8": (topk_int8_compressor, jax_topk_int8),
+                      "int4": (topk_int4_compressor, jax_topk_int4)}[codec]
+    tc, jc = make_t(chunk=chunk, k=k, impl="auto"), make_j(chunk=chunk, k=k, impl="interpret")
+    tp, jp = tc.compress(torch.from_numpy(x)), jc.compress(jnp.asarray(x))
+    _eq(tp.values.data, jp.values.data, "values")
+    _eq(tp.values.scales, jp.values.scales, "scales")
+    _eq(tp.indices.numpy().astype(np.uint16), jp.indices, "uint16 indices")
+    assert tp.indices.numpy().astype(np.int64)[:2, :4].tolist() == [[20, 0, 1, 2], [0, 1, 2, 3]]
+    _eq(tc.decompress(tp), jc.decompress(jp), "decompress")
+    _eq(tc.decompress_accumulate(tp, torch.from_numpy(acc), 1 / 3),
+        jax.jit(lambda p, a: jc.decompress_accumulate(p, a, 1 / 3))(jp, jnp.asarray(acc)), "accumulate")
 
 
 @pytest.mark.parametrize("weight", [1.0, 0.3])

@@ -228,8 +228,7 @@ KERNEL_SYMBOLS = {
     "quantize_int8": "quantize_int8_kernel",
     "dequantize_int8": "dequantize_int8_kernel",
     "chunk_scatter": "chunk_scatter_kernel",
-    # the statistics' second launch folds the stripes' partials
-    "bn_stats": "bn_stats(?:_fold)?_kernel",
+    "bn_stats": "bn_stats_kernel",
     "bn_norm": "bn_norm_kernel",
     "bn_bwd": "bn_bwd_kernel",
     "quantize_fp8": "quantize_fp8_kernel",
@@ -237,7 +236,7 @@ KERNEL_SYMBOLS = {
     "quantize_int4": "quantize_int4_kernel",
     "dequantize_int4": "dequantize_int4_kernel",
     "ln_fwd": "ln_fwd_kernel",
-    "ln_bwd": "ln_bwd(?:_fold)?_kernel",
+    "ln_bwd": "ln_bwd_kernel",
 }
 BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd")
 BN_FWD_KERNELS = ("bn_stats", "bn_norm")
@@ -291,6 +290,25 @@ def device_ms(torch, fn, iters: int, warm: int = 3) -> float:
         getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
         for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
     ) / 1e3 / iters
+
+
+def device_split_ms(torch, fn, iters: int, warm: int = 3) -> dict:
+    """Mean device milliseconds per call of ``fn(i)`` for each CUDA kernel
+    the call launches, by kernel name (as :func:`device_ms`, not summed):
+    which of a wrapper's launches takes the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    return {
+        e.key: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)) / 1e3 / iters
+        for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    }
 
 
 def queued_ms(torch, fn, iters: int, warm: int = 3) -> tuple[float, float]:
@@ -432,6 +450,77 @@ def check_flash(torch, tfa, dev):
             "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
             **rates(kernel_ms, flops, library_ms, bms),
         }
+    return out
+
+
+def check_subnormals(torch, tfa, tpa, tln, dev):
+    """The reference's compiled program flushes f32 subnormals; so must the
+    kernels where they produce a result. Gates: with head 1's V at 1e-39
+    (bf16 subnormals; B=1, S=1024, 2 heads, causal) the flash forward, dq
+    and dk/dv kernels give that head out, dq and dk of 0, as their plain
+    versions do; paged attention with kv head 1's V at 1e-39 (W = 1, 8
+    slots, GQA rep 2) gives its query heads 0; the LN kernels give y = 0
+    for a row of x at 1e-39 (beta 0) and dx = 0 for a row of dy at 1e-39.
+    Also reported, not gated (``operand_probe``): the forward kernel on q
+    at +-1e-39 (bf16 subnormals) and k at +-1e38, whose products are normal
+    (0.1): its error against the plain version, which reads q as 0 (uniform
+    probabilities), and against the same math on unflushed q: which of
+    the two the tensor cores' products follow."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, do = (torch.randn(1, 1024, 2, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    v[:, :, 1] = (v[:, :, 1].float() * 1e-39).to(torch.bfloat16)
+    out, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    want = tfa._bwd_plain_parts(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    flash = {name: float(t[:, :, 1].float().abs().max()) for name, t in (("out", out), ("dq", dq), ("dk", dk))}
+    flash.update({f"plain_{name}": float(t[:, :, 1].float().abs().max()) for name, t in (("dq", want[0]),
+                                                                                         ("dk", want[1]))})
+    flash["dv_err_over_tol"] = tol_check("flash dv, subnormal head", dv, want[2], FLASH_BWD_ATOL,
+                                         FLASH_BWD_RTOL)["worst_err_over_tol"]
+    # operand probe
+    sign = lambda t: torch.where(t >= 0, 1.0, -1.0)  # noqa: E731
+    qp = (sign(torch.randn(1, 128, 1, 64, generator=gen, device=dev)) * 1e-39).to(torch.bfloat16)
+    kp = (sign(torch.randn(1, 128, 1, 64, generator=gen, device=dev)) * 1e38).to(torch.bfloat16)
+    vp = torch.randn(1, 128, 1, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+    got = tfa.flash_attention(qp, kp, vp, causal=True).float()
+    flushed = tfa.flash_attention_plain(qp, kp, vp, causal=True).float()
+    logits = torch.einsum("bshd,bthd->bhst", qp.float(), kp.float()) / 8.0
+    logits = logits.masked_fill(~torch.ones(128, 128, dtype=torch.bool, device=dev).tril(), -torch.inf)
+    kept = torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1), vp.float())
+    probe = {"max_abs_err_vs_flushed_q": float((got - flushed).abs().max()),
+             "max_abs_err_vs_unflushed_q": float((got - kept).abs().max()),
+             "flushed_vs_unflushed": float((flushed - kept).abs().max())}
+    # paged attention, W = 1, kv head 1 of 8 subnormal
+    s_, h, bs, nb = 8, 16, 16, 64
+    n = s_ * nb + 1
+    kk, vv = (torch.randn(n, bs, 8, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    vv[:, :, 1] = (vv[:, :, 1].float() * 1e-39).to(torch.bfloat16)
+    table = (torch.randperm(n - 1, generator=gen, device=dev)[: s_ * nb] + 1).view(s_, nb).to(torch.int32)
+    pos = torch.tensor([[1], [17], [511], [1023], [100], [300], [700], [64]], dtype=torch.int32, device=dev)
+    qq = torch.randn(s_, 1, h, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+    po = tpa.paged_attention(qq, kk, vv, table.contiguous(), pos)
+    pp = tpa.paged_attention_plain(qq, kk, vv, table, pos)
+    # LayerNorm, (64, 1024) f32
+    x = torch.randn(64, 1024, generator=gen, device=dev)
+    dyl = torch.randn(64, 1024, generator=gen, device=dev)
+    x[5] *= 1e-39
+    dyl[9] *= 1e-39
+    gamma, beta = 1 + 0.1 * torch.randn(1024, generator=gen, device=dev), torch.zeros(1024, device=dev)
+    y = tln.ln_fwd(x, gamma, beta, 1e-6)
+    dx = tln.ln_bwd(dyl, x, gamma, 1e-6)[0]
+    torch.cuda.synchronize()
+    out = {
+        "flash_head1_max_abs": flash, "operand_probe": probe,
+        "paged_heads_2_3_max_abs": float(po[:, :, 2:4].float().abs().max()),
+        "paged_plain_heads_2_3_max_abs": float(pp[:, :, 2:4].float().abs().max()),
+        "ln_y_row_max_abs": float(y[5].abs().max()), "ln_dx_row_max_abs": float(dx[9].abs().max()),
+    }
+    if (any(flash[key] for key in ("out", "dq", "dk", "plain_dq", "plain_dk")) or out["paged_heads_2_3_max_abs"]
+            or out["paged_plain_heads_2_3_max_abs"] or out["ln_y_row_max_abs"] or out["ln_dx_row_max_abs"]):
+        raise AssertionError(f"a subnormal head or row was not flushed: {out}")
     return out
 
 
@@ -953,11 +1042,14 @@ def check_ln(torch, tln, dev):
     (8192, 1024) bf16 in and out (batch 8 x seq 1024), and at (2048, 1024)
     f32, each against its plain version on the same values: y and dx
     within ``LN_ROW_RTOL`` (+ one bf16 ulp), dgamma and dbeta within
-    ``LN_SUM_RTOL`` of their terms' magnitudes. ``ms`` is device time by
-    the profiler (:func:`device_ms`), ``event_ms`` CUDA events over
-    back-to-back calls; the library yardstick is one ``F.layer_norm``
-    forward and its autograd backward ((forward + backward) - forward) on
-    the same values, its weight and bias cast to x's dtype."""
+    ``LN_SUM_RTOL`` of their terms' magnitudes, the backward's outputs the
+    same bits over three reruns. ``ms`` is CUDA events over calls queued
+    behind a sleep kernel (:func:`queued_ms`), ``profiler_ms`` device time
+    by the profiler, ``kernel_split_ms`` that time by CUDA kernel (one
+    kernel a call), ``event_ms`` CUDA events over back-to-back calls; the
+    library yardstick is one ``F.layer_norm`` forward and its autograd
+    backward ((forward + backward) - forward) on the same values, its
+    weight and bias cast to x's dtype, timed the same ways."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=dev).manual_seed(8)
@@ -967,6 +1059,8 @@ def check_ln(torch, tln, dev):
         y, yp = tln.ln_fwd(x, gamma, beta, 1e-6, dtype), tln.ln_fwd_plain(x, gamma, beta, 1e-6, dtype)
         dx, dg, db = tln.ln_bwd(dy, x, gamma, 1e-6)
         dxp, dgp, dbp = tln.ln_bwd_plain(dy, x, gamma, 1e-6)
+        reruns_equal = all(torch.equal(u, v) for _ in range(2) for u, v in zip(tln.ln_bwd(dy, x, gamma, 1e-6),
+                                                                                (dx, dg, db)))
         torch.cuda.synchronize()
         xf, dyf = x.float(), dy.float()
         xc = xf - xf.mean(1, keepdim=True)
@@ -978,9 +1072,11 @@ def check_ln(torch, tln, dev):
         }
         abs_errs = {name: max_abs_err(torch, (a, b)) for name, a, b in
                     (("y", y, yp), ("dx", dx, dxp), ("dgamma", dg, dgp), ("dbeta", db, dbp))}
-        if not (errs["y"] <= 1 and errs["dx"] <= 1 and errs["dgamma"] <= LN_SUM_RTOL and errs["dbeta"] <= LN_SUM_RTOL):
+        if not (errs["y"] <= 1 and errs["dx"] <= 1 and errs["dgamma"] <= LN_SUM_RTOL and errs["dbeta"] <= LN_SUM_RTOL
+                and reruns_equal):
             raise AssertionError(f"fused LN kernels at ({m}, {h}) {dtype} differ from their plain versions: "
-                                 f"{errs} (y, dx: over their tolerance; sums: rel), {abs_errs} (max abs)")
+                                 f"{errs} (y, dx: over their tolerance; sums: rel), {abs_errs} (max abs), "
+                                 f"backward reruns equal {reruns_equal}")
         del y, yp, dx, dxp, xf, xc, xhat, dyf
         w, b = gamma.to(dtype), beta.to(dtype)
         xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
@@ -989,9 +1085,11 @@ def check_ln(torch, tln, dev):
             torch.autograd.grad(F.layer_norm(xr, (h,), wr, br, 1e-6), (xr, wr, br), dy)
 
         with torch.no_grad():
-            lib_fwd = device_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 50)
+            lib_fwd = queued_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 100)[0]
+            lib_fwd_prof = device_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 50)
             lib_fwd_ev = cuda_ms(torch, lambda _: F.layer_norm(x, (h,), w, b, 1e-6), 50)
-        lib_bwd = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd
+        lib_bwd = queued_ms(torch, lib_fwd_bwd, 100)[0] - lib_fwd
+        lib_bwd_prof = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd_prof
         lib_bwd_ev = cuda_ms(torch, lib_fwd_bwd, 50) - lib_fwd_ev
         n, eb = m * h, x.element_size()
         bounds = {  # bytes: (M, H) operands once each; flops at the f32 rate (no tensor cores)
@@ -1008,17 +1106,24 @@ def check_ln(torch, tln, dev):
                 "m": m, "h": h, "dtype": str(dtype).split(".")[-1],
                 "max_abs_err": max(abs_errs[k] for k in (("y",) if name == "ln_fwd" else ("dx", "dgamma", "dbeta"))),
                 "errs_over_tol": ({"y": errs["y"]} if name == "ln_fwd" else {"dx": errs["dx"]}),
-                **({} if name == "ln_fwd" else {"sum_rel_err": max(errs["dgamma"], errs["dbeta"])}),
+                **({} if name == "ln_fwd" else {"sum_rel_err": max(errs["dgamma"], errs["dbeta"]),
+                                                 "reruns_equal": reruns_equal,
+                                                 "plan": tln.ln_bwd_plan(m, h, eb, eb, tln._sms(x.device))._asdict()}),
                 "abs_errs": abs_errs,
-                "ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
+                "ms": queued_ms(torch, kern, 100)[0], "profiler_ms": device_ms(torch, kern, 50),
+                "kernel_split_ms": device_split_ms(torch, kern, 50),
+                "plain_ms": device_ms(torch, plain, 10),
                 "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
                 "library_ms": lib_fwd if name == "ln_fwd" else lib_bwd,
+                "library_profiler_ms": lib_fwd_prof if name == "ln_fwd" else lib_bwd_prof,
                 "library_event_ms": lib_fwd_ev if name == "ln_fwd" else lib_bwd_ev,
                 "library": ("F.layer_norm forward" if name == "ln_fwd" else "F.layer_norm autograd backward"),
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
             }
             for name, (kern, plain) in times.items()
         }
+        for r in out[(m, h, str(dtype).split(".")[-1])].values():
+            r.update(x_bound=r["ms"] / r["bound_ms"], x_library=r["ms"] / r["library_ms"])
         del x, dy, xr
         torch.cuda.empty_cache()
     return out
@@ -1669,13 +1774,18 @@ def check_bn(torch, tbn, dev):
     the kernel's own sums; the backward's dx equal to ``bn_bwd_dx_plain`` fed the
     kernel's own sums times f32(1/M), its sums and the statistics within
     ``BN_SUM_RTOL`` of their terms' magnitudes, the backward's outputs the
-    same bits over three reruns. Timed (relu on) beside the plain versions
-    and, as the library yardstick, one ``F.batch_norm`` training forward
-    (stats + normalize) and its autograd backward ((forward + backward) -
-    forward) on the same values as a channels_last (128, C, H, W) tensor:
-    ``ms`` is device time by the profiler (:func:`device_ms`),
-    ``event_ms`` CUDA events over back-to-back calls, which at the small
-    shapes reads the host's time per wrapper call instead. The backward's
+    same bits over three reruns, and the statistics' seven rows too. Timed
+    (relu on) beside the plain versions and, as the library yardsticks,
+    ``torch.var_mean(x, 0, correction=0)`` for the statistics (the same
+    per-channel moments in one call), one ``F.batch_norm`` training forward
+    (stats + normalize) for the normalize pass, and its autograd backward
+    ((forward + backward) - forward) on the same values as a
+    channels_last (128, C, H, W) tensor for the backward: ``ms`` is CUDA
+    events over calls queued behind a sleep kernel (:func:`queued_ms`),
+    ``profiler_ms`` device time by the profiler (the statistics' by CUDA
+    kernel too: ``kernel_split_ms``), ``event_ms`` CUDA events over
+    back-to-back calls, which at the small shapes reads the host's time
+    per wrapper call instead. The backward's
     ``bound_ms`` counts dy and x read once and dx written once; its
     ``x_pass_bound`` holds it to the passes its plan makes (3 on chip, 5
     where it streams and reads dy and x again)."""
@@ -1699,6 +1809,8 @@ def check_bn(torch, tbn, dev):
         mk, vk = tbn.batch_moments(s, sq, m)
         fwd_bad = sum(mismatches(torch, u, v) for u, v in zip(
             tbn.bn_forward_stats(x, gamma, beta, 1e-5), (mk, vk, *tbn.fold_params(gamma, beta, mk, vk, 1e-5))))
+        stats_runs = [tbn._stats_launch(x, gamma, beta, 1e-5) for _ in range(3)]
+        stats_reruns_equal = all(torch.equal(r, stats_runs[0]) for r in stats_runs[1:])
         xhat = (xf - mean) * rsqrt
         inv = tbn.inv_rows(m)
         reruns_equal = True
@@ -1722,10 +1834,11 @@ def check_bn(torch, tbn, dev):
                 abs_errs[name] = max(abs_errs.get(name, 0.0), a)
             del y, yp, dx, dxp, g, runs
         if (errs["stats"] > BN_SUM_RTOL or errs["bwd_sums"] > BN_SUM_RTOL or abs_errs["norm"]
-                or abs_errs["bwd_dx"] or not reruns_equal or fwd_bad):
+                or abs_errs["bwd_dx"] or not reruns_equal or not stats_reruns_equal or fwd_bad):
             raise AssertionError(f"fused BN kernels at ({m}, {c}) differ from their plain versions: "
                                  f"{errs} (sums, rtol {BN_SUM_RTOL}), {abs_errs} (max abs), "
-                                 f"reruns equal {reruns_equal}, forward vectors {fwd_bad} elements off")
+                                 f"reruns equal {reruns_equal} (statistics {stats_reruns_equal}), "
+                                 f"forward vectors {fwd_bad} elements off")
         del xhat
         times = {
             # the forward's call: the statistics with the per-channel vectors
@@ -1746,9 +1859,14 @@ def check_bn(torch, tbn, dev):
             torch.autograd.grad(yl, (x4, g32, b32), dy4)
 
         with torch.no_grad():
-            lib_fwd = device_ms(torch, lambda _: F.batch_norm(x4, None, None, g32, b32, training=True), 50)
-            lib_fwd_ev = cuda_ms(torch, lambda _: F.batch_norm(x4, None, None, g32, b32, training=True), 50)
-        lib_bwd = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd
+            fwd_call = lambda _: F.batch_norm(x4, None, None, g32, b32, training=True)  # noqa: E731
+            moments = lambda _: torch.var_mean(x, 0, correction=0)  # noqa: E731
+            lib_fwd, lib_fwd_prof, lib_fwd_ev = (queued_ms(torch, fwd_call, 100)[0], device_ms(torch, fwd_call, 50),
+                                                 cuda_ms(torch, fwd_call, 50))
+            lib_mom, lib_mom_prof, lib_mom_ev = (queued_ms(torch, moments, 100)[0], device_ms(torch, moments, 50),
+                                                 cuda_ms(torch, moments, 50))
+        lib_bwd = queued_ms(torch, lib_fwd_bwd, 100)[0] - lib_fwd
+        lib_bwd_prof = device_ms(torch, lib_fwd_bwd, 50) - lib_fwd_prof
         lib_bwd_ev = cuda_ms(torch, lib_fwd_bwd, 50) - lib_fwd_ev
         n = m * c
         vec = 4 * c  # one f32 per-channel vector
@@ -1761,21 +1879,29 @@ def check_bn(torch, tbn, dev):
             "bn_bwd": bound_ms(6 * n + 6 * vec, 11 * n, F32_FLOPS),
         }
         err_of = {"bn_stats": "stats", "bn_norm": "norm", "bn_bwd": "bwd_dx"}
+        library = {
+            "bn_stats": (lib_mom, lib_mom_prof, lib_mom_ev, "torch.var_mean(x, 0, correction=0)"),
+            "bn_norm": (lib_fwd, lib_fwd_prof, lib_fwd_ev,
+                        "F.batch_norm training forward (stats + normalize together: not the same function)"),
+            "bn_bwd": (lib_bwd, lib_bwd_prof, lib_bwd_ev, "F.batch_norm autograd backward"),
+        }
         view = {}
         for name, (kern, plain) in times.items():
-            lib, lib_ev = (lib_fwd, lib_fwd_ev) if name != "bn_bwd" else (lib_bwd, lib_bwd_ev)
-            ms = device_ms(torch, kern, 50)
+            lib, lib_prof, lib_ev, lib_name = library[name]
+            ms = queued_ms(torch, kern, 100)[0]
             view[name] = {
                 "m": m, "c": c, "max_abs_err": abs_errs[err_of[name]],
                 "sum_rel_err": errs["stats"] if name == "bn_stats" else errs["bwd_sums"] if name == "bn_bwd" else None,
-                "ms": ms, "plain_ms": device_ms(torch, plain, 10),
+                "ms": ms, "profiler_ms": device_ms(torch, kern, 50), "plain_ms": device_ms(torch, plain, 10),
                 "event_ms": cuda_ms(torch, kern, 50), "plain_event_ms": cuda_ms(torch, plain, 10),
-                "library_ms": lib, "library_event_ms": lib_ev,
-                "library": ("F.batch_norm training forward (stats + normalize together)"
-                            if name != "bn_bwd" else "F.batch_norm autograd backward"),
+                "library_ms": lib, "library_profiler_ms": lib_prof, "library_event_ms": lib_ev, "library": lib_name,
                 "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                 "x_library": ms / lib, "x_bound": ms / bounds[name][0],
             }
+        view["bn_stats"].update({
+            "plan": tbn.bn_stats_plan(m, c, 2, 8)._asdict(), "reruns_equal": stats_reruns_equal,
+            "kernel_split_ms": device_split_ms(torch, times["bn_stats"][0], 50),
+        })
         view["bn_bwd"].update({
             "plan": plan._asdict(), "passes": passes, "max_abs_err_sums": abs_errs["bwd_sums"],
             "x_pass_bound": view["bn_bwd"]["ms"] / bound_ms(passes * 2 * n + 6 * vec, 11 * n, F32_FLOPS)[0],
@@ -1998,6 +2124,7 @@ def main() -> int:
     dec = check_decode(torch, tck, dev, largest_rows)
     bn = check_bn(torch, tbn, dev)
     ln = check_ln(torch, tln, dev)
+    subnormals = check_subnormals(torch, tfa, tpa, tln, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
@@ -2006,7 +2133,7 @@ def main() -> int:
           "int4_codec": int4, "fp8_codec": fp8,
           "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL,
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
-          "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL})
+          "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals})
     torch.cuda.empty_cache()
     b = bwd[1024]
     rows = [

@@ -50,7 +50,6 @@ from consensusml_tpu_torch.compress.base import (
 from consensusml_tpu_torch.compress.reference import (
     chunk_rows,
     dequantize_rows,
-    flush_subnormals,
     fma_f32,
     from_e4m3,
     pack_int4,
@@ -62,6 +61,7 @@ from consensusml_tpu_torch.compress.reference import (
     unchunk,
     unpack_int4,
 )
+from consensusml_tpu_torch.numerics import ftz
 
 __all__ = [
     "PallasInt8Compressor",
@@ -321,8 +321,8 @@ def chunked_topk_plain(chunks: torch.Tensor, k: int):
     (``+ 0.0`` does the same here). Its compiled program reads a subnormal
     as zero: a subnormal ``|x|`` ties with the zeros (the lower index
     wins) and a subnormal winner's value is ``+0.0``."""
-    idx = topk_by_magnitude(flush_subnormals(chunks), k)
-    return flush_subnormals(torch.gather(chunks, 1, idx.long())) + 0.0, idx
+    idx = topk_by_magnitude(ftz(chunks), k)
+    return ftz(torch.gather(chunks, 1, idx.long())) + 0.0, idx
 
 
 def chunked_topk(chunks: torch.Tensor, k: int):
@@ -365,13 +365,16 @@ def chunk_scatter_plain(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
     ``chunk_scatter``. Its roundings: the values are pre-scaled (``v *
     weight``, one rounding) and then added (a second). Its kernel adds a
     masked ``+0.0`` to every element k times, so a ``-0.0`` in ``acc``
-    comes out ``+0.0``, and so does a ``-0.0`` value (``+ 0.0`` here)."""
-    v = vals.to(torch.float32) * torch.tensor(np.float32(weight), device=vals.device) + 0.0
+    comes out ``+0.0``, and so does a ``-0.0`` value (``+ 0.0`` here).
+    Every operand and result is flushed (:func:`~consensusml_tpu_torch.
+    numerics.ftz`): a subnormal value or ``acc`` element comes out
+    ``+0.0``, as from the reference's compiled kernel."""
+    v = ftz(ftz(vals.to(torch.float32)) * torch.tensor(np.float32(weight), device=vals.device)) + 0.0
     base = acc.to(torch.float32) if acc is not None else torch.zeros(
         (vals.shape[0], chunk), dtype=torch.float32, device=vals.device)
-    base = base + 0.0
+    base = ftz(base) + 0.0
     i = idx.long()
-    return base.scatter(1, i, torch.gather(base, 1, i) + v)
+    return base.scatter(1, i, ftz(torch.gather(base, 1, i) + v))
 
 
 def chunk_scatter(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
@@ -458,10 +461,10 @@ def fused_pack_quantize_plain(x: torch.Tensor, xhat: torch.Tensor, fmt: str = "i
     multiply-add; rounding the product first differs in ~3-11% of
     elements), with subnormal inputs read and results written as zeros."""
     levels = _fused_format(fmt)[0]
-    h = flush_subnormals(xhat)
-    y, scales = quantize_rows(flush_subnormals(x) - h, levels)
+    h = ftz(xhat)
+    y, scales = quantize_rows(ftz(x) - h, levels)
     data, codes = _fused_codes(y, fmt)
-    return data, scales, flush_subnormals(fma_f32(codes, scales[:, None], h))
+    return data, scales, ftz(fma_f32(codes, scales[:, None], h))
 
 
 def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8"):
@@ -509,13 +512,13 @@ def fused_dequantize_accumulate_plain(s: torch.Tensor, sources, *, fmt: str, wei
     is ``fma(w0, d0, s)``. Subnormal inputs and results are zeros."""
     decs = [dequantize_rows(_code_values(data, fmt), scales) for data, scales in sources]
     w = [torch.tensor(np.float32(wj), device=s.device) for wj in weights]
-    base = flush_subnormals(s)
+    base = ftz(s)
     if len(decs) == 1:
-        return flush_subnormals(fma_f32(w[0], decs[0], base))
-    recv = flush_subnormals(fma_f32(w[0], decs[0], flush_subnormals(w[1] * decs[1])))
+        return ftz(fma_f32(w[0], decs[0], base))
+    recv = ftz(fma_f32(w[0], decs[0], ftz(w[1] * decs[1])))
     for wj, dj in zip(w[2:], decs[2:]):
-        recv = flush_subnormals(fma_f32(wj, dj, recv))
-    return flush_subnormals(base + recv)
+        recv = ftz(fma_f32(wj, dj, recv))
+    return ftz(base + recv)
 
 
 def fused_dequantize_accumulate(s: torch.Tensor, sources, *, fmt: str, weights) -> torch.Tensor:
@@ -680,11 +683,11 @@ class ChunkedTopKCompressor(Compressor):
     narrow payload and a generic scatter-add for the wide one.
 
     The reference's own crossover is kept: past ``_TOPK_MAX_K = 64``
-    winners its kernel (one sweep per winner) loses to one sort, so for
-    CUDA tensors a larger k selects by a stable sort in plain ops (the
-    reference's ``lax.top_k`` branch, which keeps a ``-0.0`` winner's
-    sign). That is a branch on k, not a fallback: it launches no kernel
-    and counts none. Padded-tail winners (past the tensor's end) carry
+    winners its kernel (one sweep per winner) loses to one sort, so on
+    every device a larger k selects by a stable sort in plain ops (the
+    reference's ``lax.top_k`` branch, which keeps a subnormal magnitude
+    and a ``-0.0`` winner's sign). That is a branch on k, not a fallback:
+    it launches no kernel and counts none. Padded-tail winners (past the tensor's end) carry
     value 0.
     """
 
@@ -715,7 +718,7 @@ class ChunkedTopKCompressor(Compressor):
         k = min(self.k_per_chunk, chunk)
         chunks = chunk_rows(flat, chunk).contiguous()
         rows = chunks.shape[0] // flat.shape[0]
-        if chunks.is_cuda and k > _TOPK_MAX_K:
+        if k > _TOPK_MAX_K:
             lidx = topk_by_magnitude(chunks, k)
             vals = torch.gather(chunks, 1, lidx.long())
         else:
@@ -782,7 +785,7 @@ class ChunkedTopKCompressor(Compressor):
             return self._kernel_scatter(payload, None, 1.0)
         g = self._global_indices(payload)
         out = torch.zeros((g.shape[0], math.prod(payload.shape)), dtype=payload.dtype, device=g.device)
-        out.scatter_add_(1, g, payload.values.reshape(g.shape).to(payload.dtype))
+        out = _scatter_add_ftz(out, g, payload.values.reshape(g.shape).to(payload.dtype))
         return out.reshape(tuple(payload.values.shape[:-1]) + tuple(payload.shape))
 
     def decompress_accumulate(self, payload, acc: torch.Tensor, weight) -> torch.Tensor:
@@ -793,8 +796,17 @@ class ChunkedTopKCompressor(Compressor):
             return self._kernel_scatter(payload, acc, weight)
         g = self._global_indices(payload)
         flat = acc.reshape(g.shape[0], -1)
-        vals = weight * payload.values.reshape(g.shape).to(flat.dtype)
-        return flat.scatter_add(1, g, vals).reshape(acc.shape)
+        vals = ftz(weight * ftz(payload.values.reshape(g.shape).to(flat.dtype)))
+        return _scatter_add_ftz(flat, g, vals).reshape(acc.shape)
+
+
+def _scatter_add_ftz(flat: torch.Tensor, g: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``flat.scatter_add(1, g, vals)`` as the reference's compiled
+    ``.at[g].add(vals)``: each element it adds to is read and written
+    flushed (the others are copied as they are)."""
+    out = flat.scatter(1, g, ftz(flat.gather(1, g)))
+    out = out.scatter_add(1, g, ftz(vals))
+    return out.scatter(1, g, ftz(out.gather(1, g)))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,7 @@ f32 subnormals: the reference's compiled program treats every subnormal
 input of its arithmetic as a signed zero and flushes every subnormal
 result to one (the CPU runs XLA's programs with flush-to-zero and
 denormals-are-zero set; the TPU has no f32 subnormals). PyTorch keeps
-them, so the codecs flush explicitly (:func:`flush_subnormals`) where it
+them, so the codecs flush explicitly (``numerics.ftz``) where it
 changes a result: the input rows, the scale, the decoded values and the
 CHOCO tracking update.
 """
@@ -43,6 +43,7 @@ from consensusml_tpu_torch.compress.base import (
     static_k,
     worker_rows,
 )
+from consensusml_tpu_torch.numerics import ftz
 
 __all__ = [
     "Int8Compressor",
@@ -51,7 +52,6 @@ __all__ = [
     "TopKCompressor",
     "topk_int8_compressor",
     "topk_int4_compressor",
-    "flush_subnormals",
     "quantize_rows",
     "dequantize_rows",
     "to_e4m3",
@@ -79,7 +79,6 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) * b.to(torch.float64) + c.to(torch.float64)).to(torch.float32)
 
 
-_F32_MIN_NORMAL = 2.0**-126
 _E4M3_NAN = 0x7F  # e4m3fn's NaN code, with the sign bit clear
 # the f32 e4m3fn's NaN codes decode to, by sign: the reference's bits (PyTorch's
 # own cast gives another NaN payload)
@@ -87,13 +86,6 @@ _F32_QNAN = (0x7FC00000, -0x400000)  # 0x7FC00000 and 0xFFC00000 as int32
 # e4m3fn has no inf: the reference casts |y| > 464 (the midpoint between
 # 448 and the NaN code's 480) to NaN, where PyTorch saturates to 448
 _E4M3_OVERFLOW = 464.0
-
-
-def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with every subnormal f32 replaced by a zero of its sign (NaN
-    and the rest unchanged): what the reference's compiled program makes
-    of a subnormal input or result of its arithmetic (module docstring)."""
-    return torch.where(t.abs() < _F32_MIN_NORMAL, t * 0.0, t)
 
 
 def quantize_rows(chunks: torch.Tensor, levels: float = 127.0):
@@ -111,10 +103,10 @@ def quantize_rows(chunks: torch.Tensor, levels: float = 127.0):
     product). Subnormal elements count as zeros and a subnormal scale is
     flushed to 0, as in the reference: a row of 1e-39 gets scale 0 and
     codes 0, not codes of 127."""
-    x = flush_subnormals(chunks)
+    x = ftz(chunks)
     absmax = x.abs().amax(dim=1)
     recip = np.float32(1.0) / np.float32(levels)
-    scales = flush_subnormals(absmax * torch.tensor(recip, dtype=torch.float32, device=absmax.device))
+    scales = ftz(absmax * torch.tensor(recip, dtype=torch.float32, device=absmax.device))
     pos = scales > 0
     one = torch.ones_like(scales)
     inv = torch.where(pos, one / torch.where(pos, scales, one), torch.zeros_like(scales))
@@ -125,7 +117,7 @@ def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """``codes * scale`` per row of ``(R, chunk)`` f32 code values, one
     rounding, a subnormal scale read and a subnormal product written as
     zero (a small e4m3 code times a small scale can be subnormal)."""
-    return flush_subnormals(codes * flush_subnormals(scales)[:, None])
+    return ftz(codes * ftz(scales)[:, None])
 
 
 def to_e4m3(y: torch.Tensor) -> torch.Tensor:

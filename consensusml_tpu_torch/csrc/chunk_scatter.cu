@@ -7,9 +7,12 @@
 //   out[r, c]        = acc[r, c] + 0                 where no pair lands
 //   out[r, idx[r,j]] = (acc + 0) + ((w * v[r, j]) + 0)
 // The reference pre-scales the values (v * w, one rounding) and then adds
-// them (a second): __fmul_rn then __fadd_rn, never an FMA. Its kernel adds
+// them (a second): a product, then a sum, never an FMA. Its kernel adds
 // a masked +0.0 to every element k times, so a -0.0 in acc, or a -0.0
-// value, comes out +0.0; the "+ 0" above (__fadd_rn) does the same. The
+// value, comes out +0.0; the "+ 0" above does the same. The reference's
+// compiled program flushes f32 subnormals (a subnormal operand reads as a
+// zero of its sign, a subnormal result is written as one), so every
+// product and sum here is the PTX instruction's .ftz form. The
 // reference's lane compare drops an index outside [0, C); so does this.
 // Bit-equal to chunk_scatter_plain (compress/kernels.py).
 //
@@ -28,7 +31,17 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;
 
-__device__ __forceinline__ float plus_zero(float a) { return __fadd_rn(a, 0.f); }
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float plus_zero(float a) { return add_ftz(a, 0.f); }
 
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock) chunk_scatter_kernel(
     const float* __restrict__ vals, const int* __restrict__ idx, const float* __restrict__ acc,
@@ -54,8 +67,8 @@ __global__ void __launch_bounds__(kWarp * kRowsPerBlock) chunk_scatter_kernel(
   for (int j = lane; j < k; j += kWarp) {
     const int c = idx[pb + j];
     if (static_cast<unsigned>(c) >= static_cast<unsigned>(chunk)) continue;
-    const float v = plus_zero(__fmul_rn(vals[pb + j], w));
-    o[c] = __fadd_rn(a != nullptr ? plus_zero(a[c]) : 0.f, v);
+    const float v = plus_zero(mul_ftz(vals[pb + j], w));
+    o[c] = add_ftz(a != nullptr ? plus_zero(a[c]) : 0.f, v);
   }
 }
 

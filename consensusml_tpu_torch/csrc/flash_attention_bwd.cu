@@ -60,6 +60,15 @@
 // 0). Two live accumulators make it the heaviest kernel in registers: it
 // is held to three blocks an SM (kDkvMinBlocks). No atomics: dq is its
 // own kernel, and the backward is deterministic.
+//
+// Subnormals: the reference's compiled program flushes them (a subnormal
+// operand reads as zero, a subnormal result is written as zero). Both
+// kernels flush what they store, dq = scale * acc, dk = scale * acc and
+// dv = acc, at the f32 -> bf16 step (the .ftz multiply of
+// flash_sm90.cuh:store_tile_bf16), as the plain version flushes its
+// results. The tensor cores take a bf16 subnormal operand as it is: a head
+// whose V is subnormal gives a subnormal dp, ds and dq or dk accumulator,
+// which the store flushes to 0, as the reference's.
 
 #include "flash_sm90.cuh"
 

@@ -39,6 +39,14 @@
 // + lo V in one f32 accumulator: within 0.49 of the gate in an f32
 // emulation of this rounding (tests/test_torch_flash_attention.py), at
 // 1.5x the tensor-core work of one bf16 product.
+//
+// Subnormals: the reference's compiled program flushes them (a subnormal
+// operand reads as zero, a subnormal result is written as zero). The
+// epilogue flushes what this kernel stores (out = acc * (1 / l) and the
+// lse, with the .ftz forms), as the plain version flushes its results.
+// The tensor cores take a bf16 subnormal operand as it is; a head whose V
+// is subnormal then sums to a subnormal acc / l, which the store flushes,
+// so out is 0 as the reference's.
 
 #include "flash_sm90.cuh"
 
@@ -188,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     inv[i] = 1.f / l_safe;
     const int qi = row0 + 8 * i;
     if (lse != nullptr && lane % 4 == 0 && qi < S)
-      lse[static_cast<size_t>(bh) * S + qi] = (m[i] + log2f(l_safe)) * kLn2;
+      lse[static_cast<size_t>(bh) * S + qi] = mul_ftz(add_ftz(m[i], log2f(l_safe)), kLn2);
   }
   // the Q tile is no longer read: stage the output there
   const size_t row_stride = static_cast<size_t>(H) * kD;

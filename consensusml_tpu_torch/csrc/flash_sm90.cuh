@@ -45,6 +45,26 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(static_cast<int>(0xff800000u)); }
 
+// f32 a * b, a + b, a - b rounded to nearest even, a subnormal operand
+// read and a subnormal result written as a zero of its sign (the PTX
+// instructions' .ftz forms): the reference's compiled program runs with
+// flush-to-zero and denormals-are-zero
+__device__ __forceinline__ float mul_ftz(float a, float b) {
+  float r;
+  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float add_ftz(float a, float b) {
+  float r;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float sub_ftz(float a, float b) {
+  float r;
+  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -252,7 +272,7 @@ __device__ __forceinline__ void store_tile_bf16(const float (&d)[32], const floa
       const int r = 16 * warp + lane / 4 + 8 * i;
       const int off = r * 128 + ((j ^ (r & 7)) << 4) + (lane % 4) * 4;
       *reinterpret_cast<__nv_bfloat162*>(stage + off) =
-          __floats2bfloat162_rn(d[4 * j + 2 * i] * mul[i], d[4 * j + 2 * i + 1] * mul[i]);
+          __floats2bfloat162_rn(mul_ftz(d[4 * j + 2 * i], mul[i]), mul_ftz(d[4 * j + 2 * i + 1], mul[i]));
     }
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");

@@ -9,7 +9,7 @@
 //                sum x and sum x^2, and from them the forward's
 //                per-channel vectors (mean, var, scale, shift, rsqrt:
 //                the reference's jnp ops of _bn_train_fwd (:270) between
-//                its two kernels) in its second launch
+//                its two kernels), in one launch
 //   bn_norm   <- _norm_kernel (:130) via _normalize (:212):
 //                y = x * scale + shift (then max(., 0) with relu), y in
 //                x's dtype
@@ -29,19 +29,25 @@
 // floats each. At ResNet-50's largest BN, (131072, 256) bf16, the bounds
 // are 0.020 / 0.040 / 0.060 ms at 3.35 TB/s.
 //
-// stats and norm:
-// - 16-byte vector loads and stores (8 bf16 or 4 f32 channels a thread)
-//   wherever C is a multiple of the vector width and every pointer is
-//   16-byte aligned; one element a thread otherwise (any C >= 1).
-// - stats: a block of 256 threads owns a tile of up to 32 vector columns
-//   and walks a stripe of rows, folds its rows in a fixed shared-memory
-//   tree and writes one partial a channel for its stripe; a second small
-//   launch folds the stripes' partials in a fixed order too, so a rerun
-//   gives the same bits (no float atomics), and computes the five
-//   per-channel vectors from the sums, so no plain op runs
-//   between the forward's two kernels. Stripes are sized by the caller
-//   (consensusml_tpu_torch/models/fused_bn.py:_stripes).
-// - norm: a grid-stride loop, one vector a thread an iteration.
+// stats, one launch (its plan's numbers come from
+// consensusml_tpu_torch/models/fused_bn.py:bn_stats_plan; the sweep is
+// consensusml_tpu_torch/tools/bn_stats_sweep.py): bwd's geometry below,
+// one pass. A thread block cluster of S <= 16 blocks owns a channel tile
+// across all M rows, block r of the cluster rows [r * rows, (r + 1) *
+// rows), staged by TMA through a ring of chunk buffers or read with
+// 16-byte loads from global memory (the plan's choice; one element a
+// thread where C or a pointer does not take 16 bytes). Each thread sums x
+// and x^2 for one vector of channels over its rows in registers, the block
+// folds its threads in a fixed shared-memory tree, and after
+// barrier.cluster block 0 sums the S blocks' partials through distributed
+// shared memory in rank order and computes the five per-channel vectors
+// from the sums, so no plain op runs between the forward's two kernels.
+// No partials in global memory, no second launch, no float atomics: a
+// rerun gives the same bits.
+//
+// norm: a grid-stride loop, 16-byte vector loads and stores (8 bf16 or 4
+// f32 channels a thread) wherever C is a multiple of the vector width and
+// every pointer is 16-byte aligned, one element a thread otherwise.
 //
 // bwd, one launch (the design; the plan's numbers come from
 // consensusml_tpu_torch/models/fused_bn.py:bn_bwd_plan):
@@ -95,14 +101,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 #include "flash_sm90.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxVec = 8;
-constexpr int kFoldX = 32;
-constexpr int kFoldY = 8;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxBoxRows = 256;  // TMA: at most 256 elements a box dimension
 constexpr int kMaxTile = 256;
@@ -169,25 +175,11 @@ __device__ __forceinline__ void load_param(const float* __restrict__ p, int c0, 
 // relu that keeps a NaN (as torch.relu does)
 __device__ __forceinline__ float relu(float z) { return z < 0.f ? 0.f : z; }
 
-// ---- f32 operations with the reference's flush -------------------------------
-// a subnormal operand reads as a zero of its sign, a subnormal result is
-// written as one; round to nearest even, as __fmul_rn & co.
-
-__device__ __forceinline__ float mul_ftz(float a, float b) {
-  float r;
-  asm("mul.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float add_ftz(float a, float b) {
-  float r;
-  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-__device__ __forceinline__ float sub_ftz(float a, float b) {
-  float r;
-  asm("sub.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
+// f32 operations with the reference's flush (a subnormal operand reads as
+// a zero of its sign, a subnormal result is written as one)
+using cml_sm90::add_ftz;
+using cml_sm90::mul_ftz;
+using cml_sm90::sub_ftz;
 
 // ---- clusters and TMA (bwd) ---------------------------------------------------
 
@@ -210,119 +202,217 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
 
 // ---- stats ------------------------------------------------------------------
 
-// One stripe of rows of one channel tile: per channel (sum x, sum x^2).
-// Block (tx, ty): tx walks the tile's vector columns, ty the stripe's
-// rows. Writes the stripe's partials [stripe][0][c] and [stripe][1][c].
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads) bn_stats_kernel(const T* __restrict__ x, long long m, int c,
-                                                            long long rows_per_stripe,
-                                                            float* __restrict__ partials) {
-  __shared__ float red[2][kThreads * kMaxVec];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c0 = (blockIdx.y * blockDim.x + tx) * V;
-  const bool active = c0 < c;  // V > 1 only when V divides C: a vector is all in or all out
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_stripe;
-  const long long r1 = min(m, r0 + rows_per_stripe);
-  float a[V], b[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) a[j] = b[j] = 0.f;
-  if (active) {
-#pragma unroll 4
-    for (long long r = r0 + ty; r < r1; r += blockDim.y) {
-      float xv[V];
-      load_vec<T, V>(x + r * c + c0, xv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        a[j] = add_ftz(a[j], xv[j]);
-        b[j] = add_ftz(b[j], mul_ftz(xv[j], xv[j]));
-      }
-    }
-  }
-  const int slot = (ty * blockDim.x + tx) * V;
-#pragma unroll
-  for (int j = 0; j < V; ++j) {
-    red[0][slot + j] = a[j];
-    red[1][slot + j] = b[j];
-  }
-  __syncthreads();
-  // fixed-order tree over the rows of the block (blockDim.y is a power of two)
-  for (int s = blockDim.y / 2; s > 0; s >>= 1) {
-    if (ty < s) {
-      const int other = ((ty + s) * blockDim.x + tx) * V;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        red[0][slot + j] = add_ftz(red[0][slot + j], red[0][other + j]);
-        red[1][slot + j] = add_ftz(red[1][slot + j], red[1][other + j]);
-      }
-    }
-    __syncthreads();
-  }
-  if (ty == 0 && active) {
-    float* out = partials + static_cast<long long>(blockIdx.x) * 2 * c;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      out[c0 + j] = red[0][slot + j];
-      out[c + c0 + j] = red[1][slot + j];
-    }
-  }
-}
+__host__ __device__ constexpr long long align128(long long b) { return (b + 127) / 128 * 128; }
 
-// The fold: per channel c, both sums over the stripes' partials, then the
-// forward's per-channel vectors from them (the reference's jnp ops
-// between its two kernels, flushed as its compiled program does): mean =
-// s * f32(1/M), var = max(sq * f32(1/M) - mean^2, 0), rsqrt = rsqrt(var +
-// eps), scale = gamma * rsqrt, shift = beta - mean * scale. Writes out[k *
-// C + c], k = 0..6 in the order (s, sq, mean, var, scale, shift, rsqrt).
-struct FoldParams {
+// The statistics and their fold, one launch: per channel c, sum x and
+// sum x^2 over all M rows, then the forward's per-channel vectors from
+// them (the reference's jnp ops between its two kernels, flushed as its
+// compiled program does): mean = s * f32(1/M), var = max(sq * f32(1/M) -
+// mean^2, 0), rsqrt = rsqrt(var + eps), scale = gamma * rsqrt, shift =
+// beta - mean * scale. Writes out[k * C + c], k = 0..6 in the order (s,
+// sq, mean, var, scale, shift, rsqrt).
+struct StatsArgs {
+  const void* x;
   const float* gamma;
   const float* beta;
-  float inv_m;  // f32(1 / f32(M))
+  float* out;      // (7, C)
+  float* partials;        // (splits, 2, C): each cluster's sums, with splits > 1
+  unsigned int* tickets;  // one a channel tile, zero between launches, with splits > 1
+  float inv_m;     // f32(1 / f32(M))
   float eps;
+  long long m;
+  int c;
+  int tile;        // channels a tile: V * (a power of two <= 32), <= 256
+  long long rows;  // rows a block
+  int chunk;       // rows a staged chunk (TMA box rows), vector path only
+  int nbuf;        // chunk buffers of x, vector path only
 };
 
-// Column tx owns channel c; each sum is taken in a fixed order: group ty
-// sums stripes ty, ty + 8, ... in turn, then a tree over groups.
-__global__ void __launch_bounds__(kFoldX * kFoldY) bn_stats_fold_kernel(const float* __restrict__ partials,
-                                                                         int stripes, int c,
-                                                                         float* __restrict__ out,
-                                                                         const FoldParams fp) {
-  __shared__ float red[2][kFoldY][kFoldX];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int n = 2 * c;
-  const int i0 = blockIdx.x * kFoldX + tx;  // the channel
-  const bool valid = i0 < c;
-#pragma unroll
-  for (int part = 0; part < 2; ++part) {
-    const int i = i0 + part * c;
-    float s = 0.f;
-    if (valid) {
-#pragma unroll 8
-      for (int k = ty; k < stripes; k += kFoldY) s = add_ftz(s, partials[static_cast<long long>(k) * n + i]);
+// dynamic shared memory: [red: 2 x kThreads*V f32][bars: nbuf u64], then
+// from a 128-byte boundary nbuf x-chunk buffers, each 128-byte aligned
+__host__ __device__ inline long long stats_head_bytes(int vec, int nbuf) {
+  return align128(2LL * kThreads * vec * 4 + 8LL * nbuf);
+}
+
+__host__ inline long long stats_smem_bytes(int vec, int tile, int chunk, int nbuf, int elem) {
+  const long long head = stats_head_bytes(vec, nbuf);
+  return vec > 1 ? head + nbuf * align128(static_cast<long long>(chunk) * tile * elem) : head;
+}
+
+// A thread block cluster of S blocks owns one channel tile across all M
+// rows (bn_bwd's geometry): block r of the cluster sums rows [r * rows,
+// (r + 1) * rows), staged through a ring of TMA chunk buffers or read
+// from global memory (nbuf = 0, and the one-element path), in per-thread
+// registers; the block folds its threads in a fixed shared-memory tree;
+// barrier.cluster; block 0 sums the S blocks' partials in rank order
+// through distributed shared memory and writes the tile's seven rows. No
+// partials in global memory, no second launch, no float atomics: a rerun
+// gives the same bits.
+template <typename T, int V, bool TMA>
+__global__ void __launch_bounds__(kThreads) bn_stats_kernel(const __grid_constant__ CUtensorMap tx_map,
+                                                            const StatsArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // [2][kThreads * V]
+  const uint32_t bars = cml_sm90::smem_u32(red + 2 * kThreads * V);
+  unsigned char* bufs = smem + stats_head_bytes(V, a.nbuf);
+  const long long buf_bytes = TMA ? align128(static_cast<long long>(a.chunk) * a.tile * sizeof(T)) : 0;
+
+  const int tid = threadIdx.x;
+  const int wv = a.tile / V;  // vector columns of the tile (a power of two <= 32)
+  const int tx = tid % wv, ty = tid / wv, rows_step = kThreads / wv;
+  const int cbase = blockIdx.y * a.tile;
+  const int c0 = cbase + tx * V;
+  const bool active = c0 < a.c;  // V > 1 only when V divides C
+  const long long row0 = (static_cast<long long>(blockIdx.z) * gridDim.x + blockIdx.x) * a.rows;
+  const long long nrows = max(0LL, min(a.m, row0 + a.rows) - row0);
+  const T* x = static_cast<const T*>(a.x);
+
+  const int nchunks = TMA ? static_cast<int>((nrows + a.chunk - 1) / a.chunk) : 0;
+  const int nbuf = a.nbuf;
+  auto x_buf = [&](int b) { return reinterpret_cast<const T*>(bufs + b * buf_bytes); };
+  const CUtensorMap* map_x = &tx_map;
+  auto issue = [&](int k) {  // thread 0: chunk k into buffer k % nbuf
+    const int b = k % nbuf;
+    const uint32_t bar = bars + 8 * b;
+    cml_sm90::mbar_expect_tx(bar, static_cast<uint32_t>(a.chunk * a.tile * sizeof(T)));
+    tma_load_2d(cml_sm90::smem_u32(x_buf(b)), map_x, bar, cbase,
+                static_cast<int>(row0 + static_cast<long long>(k) * a.chunk));
+  };
+  uint64_t parity = 0;  // bit b: the parity of buffer b's next completion
+  if constexpr (TMA) {
+    if (tid == 0) {
+      for (int b = 0; b < nbuf; ++b) cml_sm90::mbar_init(bars + 8 * b, 1);
+      cml_sm90::mbar_init_fence();
     }
-    red[part][ty][tx] = s;
+    __syncthreads();
+    if (tid == 0)
+      for (int k = 0; k < min(nbuf, nchunks); ++k) issue(k);
+  }
+
+  float sa[V], sb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) sa[j] = sb[j] = 0.f;
+  auto accumulate = [&](const T* px) {
+    float xv[V];
+    load_vec<T, V>(px, xv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      sa[j] = add_ftz(sa[j], xv[j]);
+      sb[j] = add_ftz(sb[j], mul_ftz(xv[j], xv[j]));
+    }
+  };
+  if constexpr (TMA) {
+    for (int k = 0; k < nchunks; ++k) {
+      const int b = k % nbuf;
+      wait_or_trap(bars + 8 * b, static_cast<uint32_t>((parity >> b) & 1));
+      parity ^= 1ull << b;
+      const int n = static_cast<int>(min(static_cast<long long>(a.chunk), nrows - static_cast<long long>(k) * a.chunk));
+      if (active) {
+        const T* sx = x_buf(b);
+#pragma unroll 4
+        for (int r = ty; r < n; r += rows_step) accumulate(sx + r * a.tile + tx * V);
+      }
+      if (k + nbuf < nchunks) {  // refill this buffer once every thread is done with it
+        __syncthreads();
+        if (tid == 0) issue(k + nbuf);
+      }
+    }
+  } else if (active) {
+#pragma unroll 8
+    for (long long r = row0 + ty; r < row0 + nrows; r += rows_step) accumulate(x + r * a.c + c0);
+  }
+
+  // ---- the block's sums: a fixed-order tree over its rows ----
+  const int slot = tid * V;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    red[slot + j] = sa[j];
+    red[kThreads * V + slot + j] = sb[j];
   }
   __syncthreads();
-  for (int h = kFoldY / 2; h > 0; h >>= 1) {
-    if (ty < h)
+  for (int s = rows_step / 2; s > 0; s >>= 1) {
+    if (ty < s) {
+      const int other = slot + s * wv * V;
 #pragma unroll
-      for (int part = 0; part < 2; ++part) red[part][ty][tx] = add_ftz(red[part][ty][tx], red[part][ty + h][tx]);
+      for (int j = 0; j < V; ++j) {
+        red[slot + j] = add_ftz(red[slot + j], red[other + j]);
+        red[kThreads * V + slot + j] = add_ftz(red[kThreads * V + slot + j], red[kThreads * V + other + j]);
+      }
+    }
     __syncthreads();
   }
-  if (ty != 0 || !valid) return;
-  const float s = red[0][0][tx], sq = red[1][0][tx];
-  const float mean = mul_ftz(s, fp.inv_m);
-  float var = sub_ftz(mul_ftz(sq, fp.inv_m), mul_ftz(mean, mean));
-  var = var < 0.f ? 0.f : var;  // keeps a NaN, as torch.clamp_min
-  const float rs = rsqrtf(__fadd_rn(var, fp.eps));
-  const float scale = mul_ftz(fp.gamma[i0], rs);
-  const float shift = sub_ftz(fp.beta[i0], mul_ftz(mean, scale));
-  out[i0] = s;
-  out[c + i0] = sq;
-  out[2 * c + i0] = mean;
-  out[3 * c + i0] = var;
-  out[4 * c + i0] = scale;
-  out[5 * c + i0] = shift;
-  out[6 * c + i0] = rs;
+  // red[i] and red[kThreads * V + i], i < tile: the block's sums for channel cbase + i
+
+  // ---- block 0: the cluster's sums in rank order ----
+  cluster_arrive();
+  cluster_wait();
+  const int ch = cbase + tid;
+  const bool mine = tid < a.tile && ch < a.c;
+  float s = 0.f, sq = 0.f;
+  if (cluster_rank() == 0 && mine) {
+    const uint32_t la = cml_sm90::smem_u32(red + tid), lb = cml_sm90::smem_u32(red + kThreads * V + tid);
+    // every block's two partials first, all loads in flight together, then
+    // the sums in rank order
+    float ps[kMaxCluster], pq[kMaxCluster];
+#pragma unroll
+    for (uint32_t q = 0; q < kMaxCluster; ++q) {
+      const bool in = q < gridDim.x;
+      ps[q] = in ? ld_cluster(la, q) : 0.f;
+      pq[q] = in ? ld_cluster(lb, q) : 0.f;
+    }
+#pragma unroll
+    for (uint32_t q = 0; q < kMaxCluster; ++q) {
+      if (q < gridDim.x) {
+        s = add_ftz(s, ps[q]);
+        sq = add_ftz(sq, pq[q]);
+      }
+    }
+  }
+  // ---- several clusters a tile: the last to arrive folds them in order ----
+  bool last = true;
+  if (gridDim.z > 1 && cluster_rank() == 0) {
+    __shared__ unsigned int ticket;
+    float* part = a.partials + static_cast<long long>(blockIdx.z) * 2 * a.c;
+    if (mine) {
+      part[ch] = s;
+      part[a.c + ch] = sq;
+    }
+    __threadfence();  // this cluster's sums are visible before its ticket
+    __syncthreads();
+    if (tid == 0) ticket = atomicAdd(a.tickets + blockIdx.y, 1u);
+    __syncthreads();
+    last = ticket == gridDim.z - 1;
+    if (last) {
+      __threadfence();
+      if (mine) {
+        s = sq = 0.f;
+        for (uint32_t k = 0; k < gridDim.z; ++k) {
+          s = add_ftz(s, __ldcg(a.partials + static_cast<long long>(k) * 2 * a.c + ch));
+          sq = add_ftz(sq, __ldcg(a.partials + static_cast<long long>(k) * 2 * a.c + a.c + ch));
+        }
+      }
+      if (tid == 0) atomicExch(a.tickets + blockIdx.y, 0u);  // zero for the next launch
+    }
+  }
+  // ---- then the forward's per-channel vectors ----
+  if (cluster_rank() == 0 && last && mine) {
+    const float mean = mul_ftz(s, a.inv_m);
+    float var = sub_ftz(mul_ftz(sq, a.inv_m), mul_ftz(mean, mean));
+    var = var < 0.f ? 0.f : var;  // keeps a NaN, as torch.clamp_min
+    const float rs = rsqrtf(__fadd_rn(var, a.eps));
+    const float scale = mul_ftz(a.gamma[ch], rs);
+    const float shift = sub_ftz(a.beta[ch], mul_ftz(mean, scale));
+    float* out = a.out;
+    out[ch] = s;
+    out[a.c + ch] = sq;
+    out[2 * a.c + ch] = mean;
+    out[3 * a.c + ch] = var;
+    out[4 * a.c + ch] = scale;
+    out[5 * a.c + ch] = shift;
+    out[6 * a.c + ch] = rs;
+  }
+  cluster_arrive();  // block 0 is done reading the others' partials
+  cluster_wait();
 }
 
 // ---- norm -------------------------------------------------------------------
@@ -372,7 +462,6 @@ struct BwdArgs {
 // dynamic shared memory: [red: 2 x kThreads*V f32][consts: 2 x tile f32]
 // [bars: nbuf u64], then from a 128-byte boundary nbuf x (dy chunk, x chunk)
 // buffers, each 128-byte aligned
-__host__ __device__ constexpr long long align128(long long b) { return (b + 127) / 128 * 128; }
 
 __host__ __device__ inline long long bwd_buf_bytes(int chunk, int tile, int elem) {
   return align128(static_cast<long long>(chunk) * tile * elem);
@@ -591,36 +680,9 @@ bool valid_shape(int dtype, long long m, int c, int vec) {
   return vec == 1 || (vec == wide && c % vec == 0);
 }
 
-struct ReducePlan {
-  dim3 grid, block;
-  long long rows_per_stripe;
-};
-
-// tx = vector columns of a tile (a power of two <= 32), ty = 256 / tx rows
-ReducePlan reduce_plan(long long m, int c, int vec, int stripes) {
-  const int cols = (c + vec - 1) / vec;
-  int tx = 1;
-  while (tx < cols && tx < 32) tx <<= 1;
-  const int ty = kThreads / tx;
-  const int tiles = (cols + tx - 1) / tx;
-  ReducePlan p;
-  p.grid = dim3(static_cast<unsigned int>(stripes), static_cast<unsigned int>(tiles));
-  p.block = dim3(tx, ty);
-  p.rows_per_stripe = (m + stripes - 1) / stripes;
-  return p;
-}
-
 unsigned int elementwise_grid(long long nvec) {
   const long long blocks = (nvec + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(blocks < 132 * 32 ? blocks : 132 * 32);
-}
-
-unsigned int fold_grid(int n) { return static_cast<unsigned int>((n + kFoldX - 1) / kFoldX); }
-
-template <typename T, int V>
-void launch_stats(const void* x, long long m, int c, const ReducePlan& p, float* partials, cudaStream_t st) {
-  bn_stats_kernel<T, V><<<p.grid, p.block, 0, st>>>(static_cast<const T*>(x), m, c, p.rows_per_stripe,
-                                                     partials);
 }
 
 template <typename T, int V>
@@ -635,36 +697,46 @@ void launch_norm(const void* x, const float* scale, const float* shift, int relu
                                                             static_cast<T*>(y));
 }
 
-// a plan the kernel takes (the Python plan makes only these)
-bool valid_bwd_plan(int vec, long long m, int c, int elem, int cluster, int tile, long long rows, int chunk,
-                    int nbuf) {
-  if (cluster < 1 || cluster > kMaxCluster || rows < 1 || rows * cluster < m || (cluster - 1) * rows >= m)
+// a cluster plan the kernels take (the Python plans make only these):
+// the cluster's blocks cover M with none empty, a tile of a power of two
+// <= 32 of vectors, chunks within TMA's box, `smem` within a block's limit
+bool valid_cluster_plan(int vec, long long m, int c, int cluster, int splits, int tile, long long rows, int chunk,
+                        int nbuf, long long smem, bool staged) {
+  const long long blocks = static_cast<long long>(cluster) * splits;  // along the rows
+  if (cluster < 1 || cluster > kMaxCluster || splits < 1 || splits > 65535 || rows < 1 || rows * blocks < m ||
+      (blocks - 1) * rows >= m)
     return false;
   if (tile < vec || tile % vec || tile > kMaxTile) return false;
   const int wv = tile / vec;
   if (wv > 32 || (wv & (wv - 1))) return false;
   if ((c + tile - 1) / tile > 65535) return false;
-  if (vec > 1 && (chunk < 1 || chunk > kMaxBoxRows || nbuf < 1 || nbuf > kMaxBufs)) return false;
-  return bwd_smem_bytes(vec, tile, chunk, nbuf, elem) <= kSmemLimit;
+  if (staged && (chunk < 1 || chunk > kMaxBoxRows || nbuf < 1 || nbuf > kMaxBufs)) return false;
+  return smem <= kSmemLimit;
 }
 
-template <typename T, int V, bool RELU, bool TMA>
-int launch_bwd_kernel(const CUtensorMap& tdy, const CUtensorMap& tx, const BwdArgs& a, int cluster, int tiles,
-                      long long smem, cudaStream_t st) {
-  auto kernel = bn_bwd_kernel<T, V, RELU, TMA>;
-  // per device, once: the attributes belong to the current device
-  static bool ready[64] = {};
+// `tiles` x `splits` clusters of `cluster` blocks (grid (cluster, tiles,
+// splits)) of `kernel`, its attributes set once per device (they belong to
+// the current device)
+template <typename... Params, typename... Args>
+int launch_clusters(void (*kernel)(Params...), bool (&ready)[64], int cluster, int tiles, int splits,
+                    long long smem, cudaStream_t st, Args&&... args) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev < 0 || dev >= 64 || !ready[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    // the block's limit less the kernel's static shared memory
+    cudaFuncAttributes fa{};
+    e = cudaFuncGetAttributes(&fa, kernel);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemLimit - static_cast<int>(fa.sharedSizeBytes));
     if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev >= 0 && dev < 64) ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(cluster), static_cast<unsigned int>(tiles), 1);
+  cfg.gridDim = dim3(static_cast<unsigned int>(cluster), static_cast<unsigned int>(tiles),
+                     static_cast<unsigned int>(splits));
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = st;
@@ -675,8 +747,15 @@ int launch_bwd_kernel(const CUtensorMap& tdy, const CUtensorMap& tx, const BwdAr
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, tdy, tx, a);
+  e = cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename T, int V, bool RELU, bool TMA>
+int launch_bwd_kernel(const CUtensorMap& tdy, const CUtensorMap& tx, const BwdArgs& a, int cluster, int tiles,
+                      long long smem, cudaStream_t st) {
+  static bool ready[64] = {};
+  return launch_clusters(bn_bwd_kernel<T, V, RELU, TMA>, ready, cluster, tiles, 1, smem, st, tdy, tx, a);
 }
 
 template <typename T, int V, bool TMA>
@@ -684,6 +763,13 @@ int launch_bwd(const CUtensorMap& tdy, const CUtensorMap& tx, const BwdArgs& a, 
                long long smem, cudaStream_t st) {
   return relu ? launch_bwd_kernel<T, V, true, TMA>(tdy, tx, a, cluster, tiles, smem, st)
               : launch_bwd_kernel<T, V, false, TMA>(tdy, tx, a, cluster, tiles, smem, st);
+}
+
+template <typename T, int V, bool TMA>
+int launch_stats(const CUtensorMap& tx, const StatsArgs& a, int cluster, int tiles, int splits, long long smem,
+                 cudaStream_t st) {
+  static bool ready[64] = {};
+  return launch_clusters(bn_stats_kernel<T, V, TMA>, ready, cluster, tiles, splits, smem, st, tx, a);
 }
 
 // a (C, M) tensor map over a contiguous (M, C) view, (tile x chunk) boxes
@@ -713,27 +799,45 @@ int encode_rows(CUtensorMap* map, const void* ptr, int dtype, long long m, int c
 //
 // cml_bn_stats writes out ((7, C) f32): the two sums and the forward's
 // five per-channel vectors from gamma and beta ((C,) f32), in the order of
-// FoldParams; partials is (stripes, 2, C) f32 scratch (stripes >= 1).
+// StatsArgs, in one launch. The plan (cluster, splits, tile, rows, chunk,
+// nbuf) comes from consensusml_tpu_torch/models/fused_bn.py:bn_stats_plan;
+// cudaErrorInvalidValue for a plan the kernel does not take (chunk and
+// nbuf are read only when vec > 1). With splits > 1, partials is (splits,
+// 2, C) f32 scratch and tickets one uint32 a channel tile, zero before the
+// launch and left zero by it (one set per stream: launches on one stream
+// run one at a time).
 
-extern "C" int cml_bn_stats(const void* x, int dtype, long long m, int c, int vec, int stripes, void* partials,
-                            const void* gamma, const void* beta, float eps, void* out, void* stream) {
-  if (!valid_shape(dtype, m, c, vec) || stripes < 1) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int cml_bn_stats(const void* x, int dtype, long long m, int c, int vec, int cluster, int splits, int tile,
+                            long long rows, int chunk, int nbuf, const void* gamma, const void* beta, float eps,
+                            void* partials, void* tickets, void* out, void* stream) {
+  const int elem = dtype == kF32 ? 4 : 2;
+  const bool staged = vec > 1 && nbuf > 0;  // TMA chunks; else 16-byte loads from global memory
+  const long long smem = stats_smem_bytes(vec, tile, staged ? chunk : 0, staged ? nbuf : 0, elem);
+  if (!valid_shape(dtype, m, c, vec) ||
+      !valid_cluster_plan(vec, m, c, cluster, splits, tile, rows, chunk, nbuf, smem, staged) ||
+      (splits > 1 && (partials == nullptr || tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);  // TMA row coordinates are int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ReducePlan p = reduce_plan(m, c, vec, stripes);
-  float* part = static_cast<float*>(partials);
-  if (dtype == kF32) {
-    if (vec == 1) launch_stats<float, 1>(x, m, c, p, part, st);
-    else launch_stats<float, 4>(x, m, c, p, part, st);
-  } else {
-    if (vec == 1) launch_stats<__nv_bfloat16, 1>(x, m, c, p, part, st);
-    else launch_stats<__nv_bfloat16, 8>(x, m, c, p, part, st);
-  }
   // the reference's mean = s / M as XLA compiles it: a product with f32(1 / M)
-  const FoldParams fp{static_cast<const float*>(gamma), static_cast<const float*>(beta),
-                      static_cast<float>(1.0 / static_cast<double>(static_cast<float>(m))), eps};
-  bn_stats_fold_kernel<<<fold_grid(c), dim3(kFoldX, kFoldY), 0, st>>>(part, stripes, c, static_cast<float*>(out),
-                                                                      fp);
-  return static_cast<int>(cudaGetLastError());
+  const StatsArgs a{x, static_cast<const float*>(gamma), static_cast<const float*>(beta), static_cast<float*>(out),
+                    static_cast<float*>(partials), static_cast<unsigned int*>(tickets),
+                    static_cast<float>(1.0 / static_cast<double>(static_cast<float>(m))), eps, m, c, tile, rows,
+                    staged ? chunk : 0, staged ? nbuf : 0};
+  const int tiles = (c + tile - 1) / tile;
+  CUtensorMap tx{};
+  if (staged) {
+    const int rc = encode_rows(&tx, x, dtype, m, c, tile, chunk);
+    if (rc != 0) return rc;
+  }
+  if (dtype == kF32) {
+    if (vec == 1) return launch_stats<float, 1, false>(tx, a, cluster, tiles, splits, smem, st);
+    return staged ? launch_stats<float, 4, true>(tx, a, cluster, tiles, splits, smem, st)
+                  : launch_stats<float, 4, false>(tx, a, cluster, tiles, splits, smem, st);
+  }
+  if (vec == 1) return launch_stats<__nv_bfloat16, 1, false>(tx, a, cluster, tiles, splits, smem, st);
+  return staged ? launch_stats<__nv_bfloat16, 8, true>(tx, a, cluster, tiles, splits, smem, st)
+                : launch_stats<__nv_bfloat16, 8, false>(tx, a, cluster, tiles, splits, smem, st);
 }
 
 extern "C" int cml_bn_norm(const void* x, int dtype, long long m, int c, int vec, const void* scale,
@@ -763,7 +867,9 @@ extern "C" int cml_bn_bwd(const void* dy, const void* x, int dtype, long long m,
                           int cluster, int tile, long long rows, int chunk, int nbuf, void* dx, void* out,
                           void* stream) {
   const int elem = dtype == kF32 ? 4 : 2;
-  if (!valid_shape(dtype, m, c, vec) || !valid_bwd_plan(vec, m, c, elem, cluster, tile, rows, chunk, nbuf))
+  if (!valid_shape(dtype, m, c, vec) ||
+      !valid_cluster_plan(vec, m, c, cluster, 1, tile, rows, chunk, nbuf, bwd_smem_bytes(vec, tile, chunk, nbuf, elem),
+                          vec > 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (m > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);  // TMA row coordinates are int
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -70,6 +70,15 @@
 // The cache-length limit: nb <= 16 * pages, with the ring, q, the
 // block's logits and its partial output in one block's shared memory
 // (paged_plan raises past it).
+//
+// Subnormals: the reference's compiled program flushes f32 subnormals (a
+// subnormal operand reads as zero, a subnormal result is written as
+// zero), and so does this kernel wherever it produces an f32 value: the
+// logit where its f64 dot product is rounded to f32 and scaled, exp, the
+// f64 sum where it is rounded to f32, the probability, every P V
+// multiply-add (a subnormal V reads as zero) and the folded output (the
+// .ftz forms; PTX has none for f64, whose sums are exact here). The
+// plain version flushes at the same places.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +87,21 @@
 #include "flash_sm90.cuh"
 
 namespace {
+
+using cml_sm90::add_ftz;
+using cml_sm90::mul_ftz;
+using cml_sm90::sub_ftz;
+
+__device__ __forceinline__ float div_ftz(float a, float b) {
+  float r;
+  asm("div.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float fma_ftz(float a, float b, float c) {
+  float r;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(r) : "f"(a), "f"(b), "f"(c));
+  return r;
+}
 
 constexpr int kThreads = 256;
 constexpr int kMaxW = 8;
@@ -272,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
           const int tb = i * bs + g * kg + j;  // the key's place in the block
 #pragma unroll
           for (int w = 0; w < W; ++w)
-            if (j < kg && k0 + tb <= lw[w]) lg[(w * kb + tb) * H + h] = __double2float_rn(acc[j][w]) * a.scale;
+            if (j < kg && k0 + tb <= lw[w]) lg[(w * kb + tb) * H + h] = mul_ftz(__double2float_rn(acc[j][w]), a.scale);
         }
       }
     }
@@ -316,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
 #pragma unroll 4
     for (int t = sub; t < pnk; t += tpp) {
       float* p = lg + (pw * kb + t) * H + ph;
-      const float e = expf(*p - mx);
+      const float e = mul_ftz(expf(sub_ftz(*p, mx)), 1.f);  // a subnormal exp is flushed
       *p = e;
       sum += static_cast<double>(e);
     }
@@ -338,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
     sum = v[0];
 #pragma unroll
     for (int r = 1; r < kMaxSplits; ++r) sum += v[r];
-    gstat[tid] = __double2float_rn(sum);  // the slot's sum, rounded once: the same bits in every block
+    gstat[tid] = mul_ftz(__double2float_rn(sum), 1.f);  // the slot's sum, rounded once: the same bits in every block
   }
   __syncthreads();
   if (pnk > 0) {
@@ -346,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
 #pragma unroll 4
     for (int t = sub; t < pnk; t += tpp) {
       float* p = lg + (pw * kb + t) * H + ph;
-      *p = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(*p, total)));
+      *p = __bfloat162float(__float2bfloat16_rn(div_ftz(*p, total)));
     }
   }
   __syncthreads();
@@ -384,10 +408,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
           const float2 vb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw[j].y));
 #pragma unroll
           for (int w = 0; w < W; ++w) {
-            o[w][0] = fmaf(pk[j][w], va.x, o[w][0]);
-            o[w][1] = fmaf(pk[j][w], va.y, o[w][1]);
-            o[w][2] = fmaf(pk[j][w], vb.x, o[w][2]);
-            o[w][3] = fmaf(pk[j][w], vb.y, o[w][3]);
+            o[w][0] = fma_ftz(pk[j][w], va.x, o[w][0]);
+            o[w][1] = fma_ftz(pk[j][w], va.y, o[w][1]);
+            o[w][2] = fma_ftz(pk[j][w], vb.x, o[w][2]);
+            o[w][3] = fma_ftz(pk[j][w], vb.y, o[w][3]);
           }
         }
       }
@@ -416,8 +440,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
     float acc = v[0];
 #pragma unroll
     for (int r = 1; r < kMaxSplits; ++r)
-      if (r < splits) acc += v[r];
-    orow[e] = __float2bfloat16_rn(acc);
+      if (r < splits) acc = add_ftz(acc, v[r]);
+    orow[e] = __float2bfloat16_rn(mul_ftz(acc, 1.f));
   }
   cml_sm90::cluster_arrive();  // this block is done reading the others' partials
   cml_sm90::cluster_wait();    // and the others are done reading its own

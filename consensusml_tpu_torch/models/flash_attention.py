@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from consensusml_tpu_torch import kernels
+from consensusml_tpu_torch.numerics import ftz
 
 __all__ = [
     "flash_attention",
@@ -72,11 +73,13 @@ def flash_attention_plain(
 ):
     """The kernel's function in plain PyTorch. Returns ``out`` (B, S, H, D)
     in ``dtype``, and with ``return_lse`` also the logsumexp (B, H, S) f32
-    (``m + log(max(l, 1e-30))``, as the reference saves it)."""
+    (``m + log(max(l, 1e-30))``, as the reference saves it). The operands
+    and each f32 result are flushed as the reference's compiled program
+    flushes them (:func:`~consensusml_tpu_torch.numerics.ftz`)."""
     _check_self_attention(q, k, v)
     b, s, h, d = q.shape
     scale = 1.0 / float(d) ** 0.5
-    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    logits = ftz(ftz(torch.einsum("bshd,bthd->bhst", ftz(q.float()), ftz(k.float()))) * scale)
     valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
     if causal:
         valid = valid.tril()
@@ -87,12 +90,12 @@ def flash_attention_plain(
         valid = valid & (kv_mask > 0)[:, None, None, :]
     logits = torch.where(valid, logits, _NEG_INF)
     m = logits.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(logits - m), 0.0)
+    p = torch.where(valid, ftz(torch.exp(ftz(logits - m))), 0.0)
     l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bhst,bthd->bshd", p, v.float()) / l_safe.transpose(1, 2)
+    out = ftz(ftz(torch.einsum("bhst,bthd->bshd", p, ftz(v.float()))) / l_safe.transpose(1, 2))
     out = out.to(dtype)
     if return_lse:
-        return out, (m + torch.log(l_safe))[..., 0]
+        return out, ftz(m + torch.log(l_safe))[..., 0]
     return out
 
 
@@ -154,29 +157,33 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
 
 def _bwd_plain_parts(q, k, v, dout, lse, delta, causal: bool):
     """Dense recomputation of the backward from the saved logsumexp, f32
-    math: ``(dq, dk, dv)`` in q's dtype."""
+    math: ``(dq, dk, dv)`` in q's dtype, the operands and each f32 result
+    flushed as :func:`flash_attention_plain` flushes them."""
     _check_self_attention(q, k, v)
     s = q.shape[1]
     scale = 1.0 / float(q.shape[-1]) ** 0.5
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
-    logits = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    qf, kf, vf, dof = (ftz(t.float()) for t in (q, k, v, dout))
+    logits = ftz(ftz(torch.einsum("bshd,bthd->bhst", qf, kf)) * scale)
     valid = torch.ones((s, s), dtype=torch.bool, device=q.device)
     if causal:
         valid = valid.tril()
-    p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
+    p = torch.where(valid, ftz(torch.exp(ftz(logits - lse[..., None]))), 0.0)
     del logits
-    dp = torch.einsum("bshd,bthd->bhst", dof, vf)
-    ds = p * (dp - delta[..., None])
+    dp = ftz(torch.einsum("bshd,bthd->bhst", dof, vf))
+    ds = ftz(p * ftz(dp - delta[..., None]))
     del dp
-    dq = torch.einsum("bhst,bthd->bshd", ds, kf) * scale
-    dk = torch.einsum("bhst,bshd->bthd", ds, qf) * scale
-    dv = torch.einsum("bhst,bshd->bthd", p, dof)
+    dq = ftz(ftz(torch.einsum("bhst,bthd->bshd", ds, kf)) * scale)
+    dk = ftz(ftz(torch.einsum("bhst,bshd->bthd", ds, qf)) * scale)
+    dv = ftz(torch.einsum("bhst,bshd->bthd", p, dof))
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """``sum(do * o)`` per query row in f32, laid out (B, H, S)."""
-    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    """``sum(do * o)`` per query row in f32, laid out (B, H, S), the sum
+    flushed (a subnormal product among normal ones moves it by less than
+    an ulp, so the products are not: these plain ops run on the card's
+    training path too)."""
+    return ftz((dout.float() * out.float()).sum(-1)).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = False):

@@ -54,13 +54,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import struct
 from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from consensusml_tpu_torch import kernels
+from consensusml_tpu_torch.numerics import ftz, inv_rows
 
 __all__ = [
     "IMPLS",
@@ -81,15 +81,14 @@ __all__ = [
     "batch_moments",
     "BwdPlan",
     "bn_bwd_plan",
+    "StatsPlan",
+    "bn_stats_plan",
 ]
 
 IMPLS = ("auto", "pallas", "jnp", "interpret")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in 16 bytes
 _THREADS = 256
-_FILL_BLOCKS = 528  # 132 SMs x 4 blocks of 256 threads
-_ROWS_A_THREAD = 32
-_F32_MIN_NORMAL = 2.0**-126
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -98,26 +97,18 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # ---------------------------------------------------------------------------
 
 
-def _ftz(t: torch.Tensor) -> torch.Tensor:
-    """``t`` with every f32 subnormal replaced by a zero of its sign (a NaN
-    and the rest unchanged): what the reference's compiled program
-    (flush-to-zero, denormals-are-zero) makes of a subnormal operand or
-    result of its arithmetic."""
-    return t * (t.abs() >= _F32_MIN_NORMAL)
-
-
 def bn_stats_plain(x2: torch.Tensor):
     """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2``, in f32, each
     operand, product and sum flushed as the reference's compiled program
     does."""
-    xf = _ftz(x2.float())
-    return _ftz(xf.sum(0)), _ftz(_ftz(xf * xf).sum(0))
+    xf = ftz(x2.float())
+    return ftz(xf.sum(0)), ftz(ftz(xf * xf).sum(0))
 
 
 def bn_norm_plain(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bool) -> torch.Tensor:
     """``x * scale + shift`` (each product and sum rounded, and flushed, on
     its own), then relu; in x's dtype."""
-    y = _ftz(_ftz(_ftz(x2.float()) * _ftz(scale)) + _ftz(shift))
+    y = ftz(ftz(ftz(x2.float()) * ftz(scale)) + ftz(shift))
     if relu:
         y = torch.relu(y)
     return y.to(x2.dtype)
@@ -127,12 +118,12 @@ def _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
     """``(g, xhat, scale)`` of the backward, each operation's operands and
     result flushed as the reference's compiled program does (the kernel's
     ``.ftz`` instructions)."""
-    x = _ftz(x2.float())
-    g = _ftz(dy2.float())
-    scale, shift, mean, rsqrt = (_ftz(v) for v in (scale, shift, mean, rsqrt))
+    x = ftz(x2.float())
+    g = ftz(dy2.float())
+    scale, shift, mean, rsqrt = (ftz(v) for v in (scale, shift, mean, rsqrt))
     if relu:
-        g = torch.where(_ftz(_ftz(x * scale) + shift) > 0, g, 0.0)
-    xhat = _ftz(_ftz(x - mean) * rsqrt)
+        g = torch.where(ftz(ftz(x * scale) + shift) > 0, g, 0.0)
+    xhat = ftz(ftz(x - mean) * rsqrt)
     return g, xhat, scale
 
 
@@ -140,22 +131,15 @@ def bn_bwd_reduce_plain(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
     """``(dbeta, dgamma) = (sum g, sum g * xhat)`` per channel, in f32 (the
     reference's ``_bwd_reduce_kernel``)."""
     g, xhat, _ = _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu)
-    return _ftz(g.sum(0)), _ftz(_ftz(g * xhat).sum(0))
+    return ftz(g.sum(0)), ftz(ftz(g * xhat).sum(0))
 
 
 def bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, c1, c2, relu: bool) -> torch.Tensor:
     """``dx = scale * ((g - c1) - xhat * c2)``, in x's dtype (the
     reference's ``_bwd_dx_kernel``)."""
     g, xhat, scale = _bwd_operands(dy2, x2, scale, shift, mean, rsqrt, relu)
-    c1, c2 = _ftz(c1), _ftz(c2)
-    return _ftz(scale * _ftz(_ftz(g - c1) - _ftz(xhat * c2))).to(x2.dtype)
-
-
-def inv_rows(m: int) -> float:
-    """``f32(1 / f32(m))``: the reference's ``db / m`` divides by a
-    constant, which XLA compiles into a product with its f32 reciprocal
-    (``db * inv_rows(m)`` in f32 is that product)."""
-    return 1.0 / struct.unpack("f", struct.pack("f", m))[0]
+    c1, c2 = ftz(c1), ftz(c2)
+    return ftz(scale * ftz(ftz(g - c1) - ftz(xhat * c2))).to(x2.dtype)
 
 
 def bn_bwd_plain(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
@@ -165,7 +149,7 @@ def bn_bwd_plain(dy2, x2, scale, shift, mean, rsqrt, relu: bool):
     :func:`inv_rows`, as the compiled reference computes them)."""
     inv = inv_rows(x2.shape[0])
     db, dg = bn_bwd_reduce_plain(dy2, x2, scale, shift, mean, rsqrt, relu)
-    dx = bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, _ftz(db * inv), _ftz(dg * inv), relu)
+    dx = bn_bwd_dx_plain(dy2, x2, scale, shift, mean, rsqrt, ftz(db * inv), ftz(dg * inv), relu)
     return dx, db, dg
 
 
@@ -258,6 +242,105 @@ def bn_bwd_plan(m: int, c: int, elem: int, vec: int, *, cluster: int | None = No
     return BwdPlan(s, tile, rows, chunk, nbuf, onchip, head(tile, nbuf) + 2 * nbuf * buf)
 
 
+class StatsPlan(NamedTuple):
+    """How :func:`bn_forward_stats` cuts an ``(M, C)`` view
+    (``csrc/fused_bn.cu``'s header): ``splits`` clusters of ``cluster``
+    blocks per channel tile of ``tile`` channels (with ``splits`` > 1 the
+    last cluster of a tile to finish folds the clusters' sums in order),
+    ``rows`` rows a block, streamed in
+    chunks of ``chunk`` rows through a ring of ``nbuf`` buffers by TMA, or,
+    with ``chunk`` and ``nbuf`` 0, read with 16-byte loads from device
+    memory (and on the one-element path); ``smem`` bytes of dynamic shared
+    memory a block."""
+
+    cluster: int
+    splits: int
+    tile: int
+    rows: int
+    chunk: int
+    nbuf: int
+    smem: int
+
+
+_STATS_STAGE_BYTES = 16 * 1024  # x bytes of one TMA chunk
+_STATS_RING_BYTES = 32 * 1024  # a staging block's ring: two chunks
+_STATS_BIG_CLUSTER_ROWS = 32768  # from this M on, clusters of 16 blocks
+_STATS_SPLIT_ROWS = 4096  # rows a block from which a tile takes several clusters
+_STATS_FILL = 128  # blocks the splits aim for
+_STATS_MAX_SPLITS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def bn_stats_plan(m: int, c: int, elem: int, vec: int, *, cluster: int | None = None, splits: int | None = None,
+                  tile: int | None = None, ring: int | None = None, staged: bool | None = None) -> StatsPlan:
+    """The plan of the statistics' one launch for an ``(m, c)`` view of
+    ``elem``-byte elements read ``vec`` to a thread (16 bytes, or 1
+    element). From the sweep at ResNet-50's eleven BN views on the H100
+    (``tools/norm_sweep.py``, PERF.md), where a plan that fills the card
+    with wide tiles and deep rings did not win:
+
+    - one cluster of 16 blocks per channel tile from M = 32768 on, of 8
+      below (never a block under 128 rows);
+    - M <= 2048 (a block's stripe is one chunk or less): 16-byte loads,
+      128-byte rows;
+    - otherwise TMA chunks of 16 KB of 64-byte rows through a ring of two
+      (32 KB: deeper rings and wider rows read slower), and where a block
+      would still walk 4096 rows or more, up to 4 clusters a tile (the
+      last to finish folds them), toward 128 blocks;
+    - with neither (C <= 64 and M < 65536): 16-byte loads, one vector of
+      channels a tile.
+
+    ``cluster``, ``splits``, ``tile``, ``ring`` and ``staged`` pin those
+    choices (the sweep)."""
+    head = lambda nbuf: _align128(2 * _THREADS * vec * 4 + 8 * nbuf)  # noqa: E731
+    most = min(max(_BWD_CLUSTERS), max(1, -(-m // _BWD_MIN_ROWS)))
+    s = min(cluster or (16 if m >= _STATS_BIG_CLUSTER_ROWS else 8), most)
+    short = m <= 2048
+    if tile is None and vec > 1:
+        rows_bytes = 128 if short else 64
+        widths = [vec << k for k in range(6) if (vec << k) * elem <= rows_bytes and (vec << k) < 2 * c]
+        tile = widths[-1]
+    if splits is None:
+        tiles = -(-c // tile) if vec > 1 else 1
+        splits = 1
+        if vec > 1 and not short and m // s >= _STATS_SPLIT_ROWS:
+            splits = max(1, min(_STATS_MAX_SPLITS, _STATS_FILL // (s * tiles)))
+    k = max(1, min(splits, m // (s * _BWD_MIN_ROWS)))
+    rows = -(-m // (s * k))
+    while -(-m // rows) < s * k:  # no block without rows
+        if k > 1:
+            k -= 1
+        else:
+            s = -(-m // rows)
+        rows = -(-m // (s * k))
+    if vec == 1:
+        return StatsPlan(s, k, tile or min(32, 1 << (c - 1).bit_length()), rows, 0, 0, head(0))
+    narrow = c * elem <= 128 and k == 1
+    if staged is None:
+        staged = not (short or narrow)
+    if narrow and not staged and tile * elem > 16 and cluster is None:
+        tile = vec
+    if not staged:
+        return StatsPlan(s, k, tile, rows, 0, 0, head(0))
+    chunk = max(1, min(256, rows, _STATS_STAGE_BYTES // (tile * elem)))
+    buf = _align128(chunk * tile * elem)
+    nbuf = max(1, min(_BWD_MAX_BUFS, -(-rows // chunk), (ring or _STATS_RING_BYTES) // buf))
+    return StatsPlan(s, k, tile, rows, chunk, nbuf, head(nbuf) + nbuf * buf)
+
+
+_STATS_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _stats_tickets(device: torch.device, tiles: int) -> torch.Tensor:
+    """The statistics' uint32 tickets on ``device``, one a channel tile:
+    zero before a launch, and left zero by it (launches on one stream run
+    one at a time)."""
+    t = _STATS_TICKETS.get(device)
+    if t is None or t.numel() < tiles:
+        t = _STATS_TICKETS[device] = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+    return t
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -297,24 +380,6 @@ def _vec(x2: torch.Tensor, *tensors: torch.Tensor) -> int:
     return width
 
 
-def _stripes(m: int, c: int, vec: int) -> int:
-    """Row stripes of the statistics pass (one block per stripe and channel
-    tile, the same tile geometry as ``csrc/fused_bn.cu:reduce_plan``):
-    enough to fill the card, or each thread walking at least 32 rows,
-    whichever is fewer; never fewer than one row a thread, and no stripe
-    empty."""
-    cols = -(-c // vec)
-    tx = min(1 << (cols - 1).bit_length(), 32)
-    ty = _THREADS // tx
-    tiles = -(-cols // tx)
-    stripes = max(1, min(max(-(-m // (ty * _ROWS_A_THREAD)), -(-_FILL_BLOCKS // tiles)), -(-m // ty)))
-    # the kernel gives each stripe ceil(m / stripes) rows: drop stripes
-    # that would be left without any
-    while (fewer := -(-m // -(-m // stripes))) != stripes:
-        stripes = fewer
-    return stripes
-
-
 def _bind(symbol: str, argtypes: list):
     fn = getattr(kernels.load("fused_bn"), symbol)
     if fn.argtypes is None:
@@ -333,20 +398,27 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _stats_launch(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
-    """The statistics' one launch of ``csrc/fused_bn.cu`` (kernel and
-    fold): a ``(7, C)`` f32 tensor of ``(sum x, sum x**2, mean, var,
-    scale, shift, rsqrt)``. Adds one to ``bn_stats.launches``."""
+def _stats_launch(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
+                  plan: StatsPlan | None = None) -> torch.Tensor:
+    """The statistics' one launch of ``csrc/fused_bn.cu`` (``plan``, by
+    default :func:`bn_stats_plan`'s): a ``(7, C)`` f32 tensor of ``(sum x,
+    sum x**2, mean, var, scale, shift, rsqrt)``. Adds one to
+    ``bn_stats.launches``."""
     _check_view("x", x2)
     _check_vectors(x2, gamma=gamma, beta=beta)
     m, c = x2.shape
     vec = _vec(x2)
-    stripes = _stripes(m, c, vec)
-    partials = torch.empty((stripes, 2, c), dtype=torch.float32, device=x2.device)
+    p = plan or bn_stats_plan(m, c, x2.element_size(), vec)
     out = torch.empty((7, c), dtype=torch.float32, device=x2.device)
-    rc = _bind("cml_bn_stats", [_P, _I, _LL, _I, _I, _I, _P, _P, _P, ctypes.c_float, _P, _P])(
-        x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, stripes, partials.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), float(eps), out.data_ptr(), _stream(x2),
+    partials = tickets = None
+    if p.splits > 1:
+        partials = torch.empty((p.splits, 2, c), dtype=torch.float32, device=x2.device)
+        tickets = _stats_tickets(x2.device, -(-c // p.tile))
+    rc = _bind("cml_bn_stats", [_P, _I, _LL, _I, _I, _I, _I, _I, _LL, _I, _I, _P, _P, ctypes.c_float, _P, _P, _P,
+                                _P])(
+        x2.data_ptr(), _DTYPE_CODE[x2.dtype], m, c, vec, p.cluster, p.splits, p.tile, p.rows, p.chunk, p.nbuf,
+        gamma.data_ptr(), beta.data_ptr(), float(eps), partials.data_ptr() if partials is not None else None,
+        tickets.data_ptr() if tickets is not None else None, out.data_ptr(), _stream(x2),
     )
     _launched(bn_stats, rc)
     return out
@@ -448,9 +520,9 @@ def fold_params(gamma, beta, mean, var, eps: float):
     ``beta - mean * scale``, in f32 (the reference's ``_fold_params``),
     flushed as its compiled program does (``var + eps`` and its rsqrt are
     normal)."""
-    rsqrt = torch.rsqrt(_ftz(var) + eps)
-    scale = _ftz(_ftz(gamma.float()) * rsqrt)
-    shift = _ftz(_ftz(beta.float()) - _ftz(_ftz(mean) * scale))
+    rsqrt = torch.rsqrt(ftz(var) + eps)
+    scale = ftz(ftz(gamma.float()) * rsqrt)
+    shift = ftz(ftz(beta.float()) - ftz(ftz(mean) * scale))
     return scale, shift, rsqrt
 
 
@@ -460,8 +532,8 @@ def batch_moments(s: torch.Tensor, sq: torch.Tensor, m: int):
     ``f32(1/m)`` into which XLA compiles the reference's division by a
     constant (``inv_rows``), every result flushed."""
     inv = inv_rows(m)
-    mean = _ftz(s * inv)
-    var = torch.clamp_min(_ftz(_ftz(sq * inv) - _ftz(mean * mean)), 0.0)
+    mean = ftz(s * inv)
+    var = torch.clamp_min(ftz(ftz(sq * inv) - ftz(mean * mean)), 0.0)
     return mean, var
 
 

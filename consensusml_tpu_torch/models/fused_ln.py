@@ -33,11 +33,14 @@ versions on any device (the reference's jnp path, the parity oracle that
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from consensusml_tpu_torch import kernels
+from consensusml_tpu_torch.numerics import ftz, inv_rows
 
 __all__ = [
     "IMPLS",
@@ -47,13 +50,17 @@ __all__ = [
     "ln_fwd_plain",
     "ln_bwd",
     "ln_bwd_plain",
+    "BwdPlan",
+    "ln_bwd_plan",
 ]
 
 IMPLS = ("auto", "pallas", "jnp")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = 8  # elements a thread loads at once (one 16-byte bf16 or two f32 vectors)
 _MAX_H = 4096  # csrc/fused_ln.cu holds a row in the registers of at most 256 threads
-_TARGET_STRIPES = 1024  # the backward's row stripes: about 8 blocks of 128 threads an SM
+_BWD_WARPS = 8  # warps of a backward block (csrc/fused_ln.cu: kBwdWarps)
+_BWD_SLOTS = 2  # rows of x and dy a row group stages ahead (tools/norm_sweep.py: 2 beat 1, 3 and 4)
+_SMEM_LIMIT = 232448 - 1024  # an H100 block's shared memory, less the kernel's static words
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -62,31 +69,40 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # ---------------------------------------------------------------------------
 
 
-def _row_stats(xf: torch.Tensor, eps: float):
-    mu = xf.mean(1, keepdim=True)
-    xc = xf - mu
-    return xc, torch.rsqrt((xc * xc).mean(1, keepdim=True) + eps)
+def _mean(t: torch.Tensor, inv: float) -> torch.Tensor:
+    # the compiled reference's jnp.mean: the row sum times f32(1/H)
+    return ftz(ftz(t.sum(1, keepdim=True)) * inv)
+
+
+def _row_stats(x2: torch.Tensor, eps: float):
+    """``(xc, rsig)`` of each row, flushed after every operation."""
+    xf = ftz(x2.float())
+    inv = inv_rows(xf.shape[1])
+    xc = ftz(xf - _mean(xf, inv))
+    return xc, torch.rsqrt(_mean(ftz(xc * xc), inv) + eps)
 
 
 def ln_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float,
                  out_dtype: torch.dtype) -> torch.Tensor:
     """``xc * rsig * gamma + beta`` of ``(M, H)`` ``x2`` in f32, then
-    ``out_dtype``: the reference's ``_ln_fwd_kernel``."""
-    xc, rsig = _row_stats(x2.float(), eps)
-    return (xc * rsig * gamma + beta).to(out_dtype)
+    ``out_dtype``: the reference's ``_ln_fwd_kernel``, each operation's
+    operands and result flushed as its compiled program does."""
+    xc, rsig = _row_stats(x2, eps)
+    return ftz(ftz(ftz(xc * rsig) * ftz(gamma)) + ftz(beta)).to(out_dtype)
 
 
 def ln_bwd_plain(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float):
     """``(dx, dgamma, dbeta)``: ``dx`` in x's dtype, the column sums in
-    f32, the reference's ``_ln_bwd_kernel``."""
-    xc, rsig = _row_stats(x2.float(), eps)
-    xhat = xc * rsig
-    dyf = dy2.float()
-    g = dyf * gamma
-    m1 = g.mean(1, keepdim=True)
-    m2 = (g * xhat).mean(1, keepdim=True)
-    dx = (rsig * (g - m1 - xhat * m2)).to(x2.dtype)
-    return dx, (dyf * xhat).sum(0), dyf.sum(0)
+    f32, the reference's ``_ln_bwd_kernel``, flushed as
+    :func:`ln_fwd_plain`."""
+    xc, rsig = _row_stats(x2, eps)
+    inv = inv_rows(x2.shape[1])
+    xhat = ftz(xc * rsig)
+    dyf = ftz(dy2.float())
+    g = ftz(dyf * ftz(gamma))
+    m1, m2 = _mean(g, inv), _mean(ftz(g * xhat), inv)
+    dx = ftz(rsig * ftz(ftz(g - m1) - ftz(xhat * m2))).to(x2.dtype)
+    return dx, ftz(ftz(dyf * xhat).sum(0)), ftz(dyf.sum(0))
 
 
 # ---------------------------------------------------------------------------
@@ -116,12 +132,56 @@ def _check_vectors(x2: torch.Tensor, **vecs: torch.Tensor) -> None:
                              f"got {v.dtype} {tuple(v.shape)} on {v.device}")
 
 
-def _stripes(m: int) -> int:
-    """Row stripes of the backward's column sums: about
-    ``_TARGET_STRIPES``, none empty (each holds ``ceil(m / stripes)``
-    rows but the last)."""
-    rows = -(-m // _TARGET_STRIPES)
-    return -(-m // rows)
+class BwdPlan(NamedTuple):
+    """How :func:`ln_bwd` cuts an ``(M, H)`` view (``csrc/fused_ln.cu``'s
+    header): ``group`` warps a row, ``blocks`` persistent blocks of 8 warps
+    (``8 / group`` row groups each), ``slots`` rows of x and dy staged
+    ahead by each row group, ``smem`` bytes of dynamic shared memory a
+    block."""
+
+    group: int
+    blocks: int
+    slots: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def ln_bwd_plan(m: int, h: int, x_elem: int, dy_elem: int, sms: int, *, slots: int | None = None) -> BwdPlan:
+    """The plan of :func:`ln_bwd` for an ``(m, h)`` view of ``x_elem``-byte
+    x and ``dy_elem``-byte dy on a card of ``sms`` SMs: one warp a row up
+    to H = 1024 (a thread then holds four 8-column vectors), two up to
+    2048, four up to 4096; one block an SM, fewer where the rows leave a
+    row group without rows; a ring of 2 rows a row group (on the H100 at
+    GPT-2-medium's shapes 2 beat 1, 3 and 4 rows: ``tools/norm_sweep.py``,
+    PERF.md). ``slots`` pins the ring's depth."""
+    group = 1 if h <= 1024 else 2 if h <= 2048 else 4
+    groups = _BWD_WARPS // group
+    blocks = max(1, min(sms, -(-m // groups)))
+    per_slot = groups * h * (x_elem + dy_elem)
+    fixed = groups * 4 * group * 4  # the row groups' reduction words
+    slots = slots or min(_BWD_SLOTS, (_SMEM_LIMIT - fixed) // per_slot)
+    smem = max(slots * per_slot, groups * 2 * h * 4, 1024) + fixed
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a ring of {slots} rows of ({h},) x and dy does not fit in {_SMEM_LIMIT} bytes")
+    return BwdPlan(group, blocks, slots, smem)
+
+
+_TICKETS: dict[torch.device, torch.Tensor] = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The backward's two uint32 ticket words on ``device``: zero before a
+    launch, and left zero by it (launches on one stream run one at a
+    time)."""
+    t = _TICKETS.get(device)
+    if t is None:
+        t = _TICKETS[device] = torch.zeros(2, dtype=torch.int32, device=device)
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bind(symbol: str, argtypes: list):
@@ -162,12 +222,14 @@ def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     return y
 
 
-def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6):
+def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
+           plan: BwdPlan | None = None):
     """``(dx, dgamma, dbeta)`` of the row LayerNorm: ``dx`` in x's dtype,
     ``dgamma``/``dbeta`` ``(H,)`` f32 (``dy2`` f32 or bf16, x's shape):
-    ``csrc/fused_ln.cu`` for CUDA tensors (the rows, then a fixed-order
-    fold of the column sums' stripes: no atomics, a rerun gives the same
-    bits), :func:`ln_bwd_plain` for CPU ones. Each call adds one to
+    one launch of ``csrc/fused_ln.cu`` for CUDA tensors (``plan``, by
+    default :func:`ln_bwd_plan`'s; the column sums folded in a fixed block
+    order after an integer ticket: no float atomics, a rerun gives the same
+    bits), :func:`ln_bwd_plain` for CPU ones. Each launch adds one to
     ``ln_bwd.launches``."""
     if not x2.is_cuda:
         return ln_bwd_plain(dy2, x2, gamma, eps)
@@ -178,12 +240,12 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float 
     dx = torch.empty_like(x2)
     out = (torch.empty if m else torch.zeros)((2, h), dtype=torch.float32, device=x2.device)
     if m:
-        stripes = _stripes(m)
-        partials = torch.empty((stripes, 2, h), dtype=torch.float32, device=x2.device)
-        rc = _bind("cml_ln_bwd", [_P, _I, _P, _I, _P, _P, _LL, _I, _F, _I, _P, _P, _P])(
+        p = plan or ln_bwd_plan(m, h, x2.element_size(), dy2.element_size(), _sms(x2.device))
+        partials = torch.empty((p.blocks, 2, h), dtype=torch.float32, device=x2.device)
+        rc = _bind("cml_ln_bwd", [_P, _I, _P, _I, _P, _P, _LL, _I, _F, _I, _I, _I, _P, _P, _P, _P])(
             dy2.data_ptr(), _DTYPE_CODE[dy2.dtype], x2.data_ptr(), _DTYPE_CODE[x2.dtype], gamma.data_ptr(),
-            dx.data_ptr(), m, h, eps, stripes, partials.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(x2.device).cuda_stream,
+            dx.data_ptr(), m, h, eps, p.group, p.blocks, p.slots, partials.data_ptr(),
+            _ticket(x2.device).data_ptr(), out.data_ptr(), torch.cuda.current_stream(x2.device).cuda_stream,
         )
         _launched(ln_bwd, rc)
     return dx, out[0], out[1]

@@ -30,6 +30,7 @@ import torch
 
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.models.attention import gather_paged_kv
+from consensusml_tpu_torch.numerics import ftz
 
 __all__ = [
     "ATTENTION_IMPLS",
@@ -83,7 +84,9 @@ def paged_attention_plain(
     cast to ``dtype``, f32-accumulated PV, output in ``dtype``. The dot
     products and the softmax's sum are taken in f64 and rounded once to
     f32, as the kernel takes them: the f32 values the reference's
-    summation would round to, without its order."""
+    summation would round to, without its order. Each f32 result (and V,
+    an operand of f32 products) is flushed as the reference's compiled
+    program flushes it (:func:`~consensusml_tpu_torch.numerics.ftz`)."""
     s, w, h, d = q.shape
     rep = h // k_pages.shape[2]
     kg, vg = _expand_heads(*gather_paged_kv(k_pages, v_pages, block_table), rep)
@@ -91,14 +94,14 @@ def paged_attention_plain(
     # the dot products and the softmax's sum in f64, each rounded once to
     # f32: the same bits in any summation order (the kernel's too), so the
     # bf16-rounded probabilities do not depend on it
-    logits = torch.einsum("swhd,sthd->shwt", q.double(), kg.double()).float() * scale.to(q.device)
+    logits = ftz(ftz(torch.einsum("swhd,sthd->shwt", q.double(), kg.double()).float()) * scale.to(q.device))
     t = kg.shape[1]
     keep = torch.arange(t, device=q.device)[None, None, :] <= positions[:, :, None]
     logits = torch.where(keep[:, None], logits, _NEG_INF)
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    probs = e / e.double().sum(-1, keepdim=True).float()
-    out = torch.einsum("shwt,sthd->swhd", probs.to(dtype).float(), vg.float())
-    return out.to(dtype)
+    e = ftz(torch.exp(ftz(logits - logits.amax(-1, keepdim=True))))
+    probs = ftz(e / ftz(e.double().sum(-1, keepdim=True).float()))
+    out = torch.einsum("shwt,sthd->swhd", probs.to(dtype).float(), ftz(vg.float()))
+    return ftz(out).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 ResNet-50 phases for two checkouts of this repository, in turns, on one
 card.
 
-    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR [--phases serve,train,train_topk,resnet]
+    python consensusml_tpu_torch/tools/phase_ab.py PARENT_DIR CHANGE_DIR [--phases serve,train,train_topk,resnet,kernels]
 
 Each run is a fresh process that imports its checkout's ``chip_smoke.py``
 and so builds and loads that checkout's kernels. The order, parent,
@@ -17,8 +17,15 @@ CUDA symbol; the
 ``train_resnet`` (fused BN) and ``train_resnet_flax`` (PyTorch's batch
 norm) lines' round times, profiled device time and busy share, the BN
 kernels' device time (forward and backward apart where the checkout
-reports them) and the host's time per BN backward call. The last line is
-the JSON list of all runs.
+reports them) and the host's time per BN backward call. The ``kernels``
+phase times single kernels at ``chip_smoke.py``'s check shapes through
+the wrappers both checkouts have: the LN forward and backward, the BN
+statistics (``bn_forward_stats``) at the five BN check views, the flash
+forward, dq and dk/dv at B=8, S=1024, and paged attention at W=1 and 4;
+each CUDA events over calls queued behind a sleep kernel
+(``queued_ms``) and profiler device time by CUDA kernel name, so a
+wrapper's launches show apart. The last line is the JSON list of all
+runs.
 """
 
 from __future__ import annotations
@@ -79,6 +86,48 @@ if "resnet" in phases:
             "bn_backward_host": line.get("bn_backward_host"),
             "port_kernels": prof["port_kernels"], "launches": {k: v for k, v in counts.items() if v},
         }
+if "kernels" in phases:
+    from torch.profiler import ProfilerActivity, profile
+    from consensusml_tpu_torch.models import flash_attention as tfa
+    from consensusml_tpu_torch.models import fused_bn as tbn
+    from consensusml_tpu_torch.models import fused_ln as tln
+    from consensusml_tpu_torch.models import paged_attention as tpa
+
+    def split_ms(fn, iters=50):
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        return {e.key: (getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0))
+                / 1e3 / iters for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    def timed(fn):
+        return {"queued_ms": cs.queued_ms(torch, fn, 100)[0], "profiler_ms_by_kernel": split_ms(fn)}
+
+    ker = {}
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for m, h, dt in ((8192, 1024, torch.bfloat16), (2048, 1024, torch.float32)):
+        x, dy, gamma, beta = cs.ln_case(torch, dev, gen, m, h, dt)
+        name = f"({m}, {h}) {str(dt).split('.')[-1]}"
+        ker[f"ln_fwd {name}"] = timed(lambda _: tln.ln_fwd(x, gamma, beta, 1e-6, dt))
+        ker[f"ln_bwd {name}"] = timed(lambda _: tln.ln_bwd(dy, x, gamma, 1e-6))
+    for m, c in cs.BN_CHECK_VIEWS:
+        x, dy, gamma, beta = cs.bn_case(torch, dev, gen, m, c)
+        ker[f"bn_stats ({m}, {c})"] = timed(lambda _: tbn.bn_forward_stats(x, gamma, beta, 1e-5))
+    del x, dy
+    q, k, v, do = (torch.randn(8, 1024, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    ker["flash_fwd B=8 S=1024"] = timed(lambda _: tfa.flash_attention(q, k, v, causal=True, return_lse=True))
+    ker["flash_dq B=8 S=1024"] = timed(lambda _: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True))
+    ker["flash_dkv B=8 S=1024"] = timed(lambda _: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+    del q, k, v, do, o
+    torch.cuda.empty_cache()
+    ker["paged_attention"] = {f"W={w}": r["ms"] for w, r in cs.check_paged(torch, tpa, dev).items()}
+    out["kernels"] = ker
 print(json.dumps(out), flush=True)
 """
 
@@ -88,9 +137,10 @@ def main(argv=None) -> int:
     ap.add_argument("parent", help="root of the parent checkout")
     ap.add_argument("change", help="root of the changed checkout")
     ap.add_argument("--phases", default="serve,train,train_topk,resnet",
-                    help="comma-separated phases to run: serve, train, train_topk, resnet (default: all four)")
+                    help="comma-separated phases to run: serve, train, train_topk, resnet, kernels "
+                         "(default: the first four)")
     args = ap.parse_args(argv)
-    unknown = set(args.phases.split(",")) - {"serve", "train", "train_topk", "resnet"}
+    unknown = set(args.phases.split(",")) - {"serve", "train", "train_topk", "resnet", "kernels"}
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     runs = []

@@ -131,6 +131,21 @@ def test_paged_kernel_at_the_longest_cache(dev, w):
         tpa.paged_attention(q, k, v, wide, pos)
 
 
+@pytest.mark.parametrize("w", [1, 4])
+def test_paged_kernel_flushes_a_subnormal_kv_head_as_plain(dev, w):
+    """kv head 1's V at 1e-39 (bf16 subnormals), GQA rep 2: the kernel's
+    .ftz multiply-adds read them as zeros, so the query heads of that kv
+    head come out 0, as from the plain version (and the reference); the
+    others at the paged gate."""
+    q, k, v, table, pos = _paged_case(dev, w, hkv=8, last=CHECK_LAST, free=False)
+    v[:, :, 1] = (v[:, :, 1].float() * 1e-39).to(torch.bfloat16)
+    out = tpa.paged_attention(q, k, v, table, pos)
+    ref = tpa.paged_attention_plain(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert not ref[:, :, 2:4].any() and not out[:, :, 2:4].any()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+
+
 def test_paged_plan_shared_memory_is_the_kernels(dev):
     """The Python plan's shared-memory size is the kernel's own layout."""
     lib = tpa._lib()
@@ -213,6 +228,29 @@ def test_flash_dkv_kernel_matches_plain(dev, s, causal):
         assert tfa.flash_attention_bwd_dkv.launches == before + 1
         torch.testing.assert_close(dk.float(), ref_dk.float(), rtol=2.0**-6, atol=3e-3, msg=f"dk, q x{q_scale}")
         torch.testing.assert_close(dv.float(), ref_dv.float(), rtol=2.0**-6, atol=3e-3, msg=f"dv, q x{q_scale}")
+
+
+@pytest.mark.parametrize("s", [128, 1024])
+def test_flash_kernels_flush_a_subnormal_head_as_plain(dev, s):
+    """Head 1's V at 1e-39 (bf16 subnormals), causal: the forward, dq and
+    dk/dv kernels flush what they store, so that head's out, dq and dk are
+    0 as the plain versions' (and the reference's); dv and head 0 at the
+    kernels' gates."""
+    q, k, v, do = _flash_case(dev, s, 1.0, h=2)
+    v[:, :, 1] = (v[:, :, 1].float() * 1e-39).to(torch.bfloat16)
+    out, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = tfa._delta(ref, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True)
+    want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, True)
+    torch.cuda.synchronize()
+    for name, got, plain in (("out", out, ref), ("dq", dq, want[0]), ("dk", dk, want[1])):
+        assert not plain[:, :, 1].any() and not got[:, :, 1].any(), name
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    for name, got, plain in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=name)
 
 
 def test_flash_wrappers_refuse_misaligned_operands(dev):
@@ -467,6 +505,33 @@ def test_chunk_scatter_kernel_bit_equal_to_plain(dev, chunk, k, with_acc, weight
     assert not torch.signbit(got[got == 0]).any()
 
 
+@pytest.mark.parametrize("with_acc", [False, True])
+def test_chunk_scatter_kernel_flushes_subnormals_as_plain(dev, with_acc):
+    """Subnormal values (a top-k payload past k = 64 keeps them) and
+    subnormal acc elements: the kernel's .ftz products and sums write them
+    as +0.0, bit-equal to the plain version, as the reference's compiled
+    kernel does."""
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    gen = torch.Generator(device=dev).manual_seed(65)
+    rows, chunk, k = 64, 128, 65
+    vals = torch.randn(rows, k, generator=gen, device=dev)
+    vals[::2] *= 1e-39
+    idx = torch.argsort(torch.rand(rows, chunk, generator=gen, device=dev), dim=1)[:, :k].to(torch.int32)
+    acc = torch.randn(rows, chunk, generator=gen, device=dev) if with_acc else None
+    if with_acc:
+        acc[1::2] *= 1e-39
+    got = tck.chunk_scatter(vals, idx, chunk, acc, weight=0.5)
+    torch.cuda.synchronize()
+    assert _same_bits(got, tck.chunk_scatter_plain(vals, idx, chunk, acc, weight=0.5))
+    assert not ((got != 0) & (got.abs() < 2.0**-126)).any() and not torch.signbit(got[got == 0]).any()
+    if with_acc:  # row 0: subnormal values on a normal acc add nothing; row 1: a subnormal acc reads as 0
+        hit = torch.zeros(chunk, dtype=torch.bool, device=dev).scatter_(0, idx[1].long(), True)
+        assert torch.equal(got[0], acc[0]) and not got[1][~hit].any()
+    else:
+        assert not got[0].any()
+
+
 def test_topk_int8_codec_on_card_equals_cpu(dev, monkeypatch):
     """The config's codec on a stacked (4, n) CUDA buffer launches each of
     its four kernels once and never reaches a plain version (patched to
@@ -597,6 +662,57 @@ def test_bn_bwd_at_resnet50_views(dev, m, c, relu):
     assert tbn.bn_bwd.launches - before == 3
 
 
+@pytest.mark.parametrize("m,c", [(131072, 64), (131072, 128), (131072, 256), (32768, 128), (32768, 256),
+                                 (32768, 512), (8192, 256), (8192, 512), (8192, 1024), (2048, 512), (2048, 2048)])
+def test_bn_stats_at_resnet50_views(dev, m, c):
+    """The statistics' one launch at each of ResNet-50's eleven BN views,
+    bf16: the sums within BN_SUM_RTOL of the plain version's, the five
+    per-channel vectors bit-equal to ``batch_moments`` and ``fold_params``
+    fed the kernel's own sums, three reruns bit-identical, one launch a
+    call."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    x, _dy, gamma, beta = _bn_case(dev, m, c, torch.bfloat16, 7)
+    before = tbn.bn_stats.launches
+    runs = [tbn._stats_launch(x, gamma, beta, 1e-5) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tbn.bn_stats.launches == before + 3
+    assert all(_same_bits(r, runs[0]) for r in runs[1:])
+    s, sq = runs[0][0], runs[0][1]
+    sp, sqp = tbn.bn_stats_plain(x)
+    xf = x.float()
+    assert _bn_sum_ok(s, sp, xf.abs().sum(0)) and _bn_sum_ok(sq, sqp, (xf * xf).sum(0))
+    mean, var = tbn.batch_moments(s, sq, m)
+    want = (mean, var, *tbn.fold_params(gamma, beta, mean, var, 1e-5))
+    for name, g, w in zip(("mean", "var", "scale", "shift", "rsqrt"), runs[0][2:], want):
+        assert _same_bits(g, w), name
+    assert not tbn._stats_tickets(x.device, 1).any()  # left zero for the next launch
+
+
+@pytest.mark.parametrize("splits,staged", [(1, True), (2, True), (4, True), (4, False)])
+def test_bn_stats_row_splits_fold_in_order(dev, splits, staged):
+    """1, 2 and 4 clusters a channel tile (the last to finish folds the
+    clusters' sums in order after an integer ticket), TMA-staged or 16-byte
+    loads: the sums within BN_SUM_RTOL, the vectors bit-equal to the fold
+    of the kernel's own sums, reruns bit-identical, the tickets left zero."""
+    from consensusml_tpu_torch.models import fused_bn as tbn
+
+    m, c = 32768, 256
+    x, _dy, gamma, beta = _bn_case(dev, m, c, torch.bfloat16, 8)
+    plan = tbn.bn_stats_plan(m, c, 2, 8, cluster=8, splits=splits, staged=staged)
+    assert plan.splits == splits and (plan.nbuf > 0) == staged
+    runs = [tbn._stats_launch(x, gamma, beta, 1e-5, plan) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(_same_bits(r, runs[0]) for r in runs[1:])
+    sp, sqp = tbn.bn_stats_plain(x)
+    xf = x.float()
+    assert _bn_sum_ok(runs[0][0], sp, xf.abs().sum(0)) and _bn_sum_ok(runs[0][1], sqp, (xf * xf).sum(0))
+    mean, var = tbn.batch_moments(runs[0][0], runs[0][1], m)
+    want = (mean, var, *tbn.fold_params(gamma, beta, mean, var, 1e-5))
+    assert all(_same_bits(g, w) for g, w in zip(runs[0][2:], want))
+    assert not tbn._stats_tickets(x.device, 1).any()
+
+
 def test_bn_bwd_misaligned_pointers_take_the_one_element_path(dev):
     """Operands that are not 16-byte aligned (a view one element into its
     storage) go through the one-element path, with the same results."""
@@ -724,6 +840,8 @@ def test_bn_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tbn.bn_bwd(x.to(torch.bfloat16), x, v, v, v, v, True)
     with pytest.raises(RuntimeError):  # a plan the kernel does not take
         tbn.bn_bwd(x, x, v, v, v, v, True, plan=tbn.bn_bwd_plan(64, 32, 4, 4)._replace(cluster=17, rows=4))
+    with pytest.raises(RuntimeError):
+        tbn._stats_launch(x, v, v, 1e-5, tbn.bn_stats_plan(64, 32, 4, 4)._replace(cluster=17, rows=4))
     with pytest.raises(RuntimeError):  # an NCHW-contiguous activation has no (M, C) view
         tbn.fused_batch_norm(torch.randn(2, 32, 4, 4, device=dev).permute(0, 2, 3, 1), v, v)
 
@@ -888,6 +1006,51 @@ def test_ln_kernels_match_plain(dev, m, h, dtype):
                            tln.ln_fwd_plain(x, gamma, beta, 1e-6, torch.bfloat16))
         dyb = dy.to(torch.bfloat16)
         assert _ln_rows_ok(tln.ln_bwd(dyb, x, gamma, 1e-6)[0], tln.ln_bwd_plain(dyb, x, gamma, 1e-6)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ln_kernels_flush_subnormals_as_plain(dev, dtype):
+    """A row of x at 1e-39 normalises to y = beta (0 here) and a row of dy
+    at 1e-39 gives dx = 0, from the kernels as from the plain versions
+    (and the reference); the rest at the LN gates."""
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    x, dy, gamma, beta = _ln_case(dev, 64, 1024, dtype, 12)
+    beta = torch.zeros_like(beta)
+    x[5] = (x[5].float() * 1e-39).to(dtype)
+    dy[9] = (dy[9].float() * 1e-39).to(dtype)
+    y = tln.ln_fwd(x, gamma, beta, 1e-6, dtype)
+    dx, dg, db = tln.ln_bwd(dy, x, gamma, 1e-6)
+    yp = tln.ln_fwd_plain(x, gamma, beta, 1e-6, dtype)
+    dxp, dgp, dbp = tln.ln_bwd_plain(dy, x, gamma, 1e-6)
+    torch.cuda.synchronize()
+    assert not y[5].any() and not yp[5].any() and not dx[9].any() and not dxp[9].any()
+    assert _ln_rows_ok(y, yp) and _ln_rows_ok(dx, dxp)
+    xc = x.float() - x.float().mean(1, keepdim=True)
+    xhat = xc * torch.rsqrt((xc * xc).mean(1, keepdim=True) + 1e-6)
+    dyf = dy.float()
+    assert bool(((dg - dgp).abs() <= LN_SUM_RTOL * (dyf * xhat).abs().sum(0) + 1e-30).all())
+    assert bool(((db - dbp).abs() <= LN_SUM_RTOL * dyf.abs().sum(0) + 1e-30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("m,h", [(8192, 1024), (2048, 1024), (1, 1024), (333, 136), (64, 2048), (17, 4096), (5, 8)])
+def test_ln_bwd_is_one_launch_and_reruns_bit_identically(dev, m, h, dtype):
+    """The one-launch backward at each LN shape: three reruns give the same
+    bits (the partials folded in block order after the ticket, whatever
+    order the blocks ran in), one launch a call, and the ticket is left
+    zero for the next launch."""
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    x, dy, gamma, _beta = _ln_case(dev, m, h, dtype, 2 * m + h)
+    before = tln.ln_bwd.launches
+    runs = [tln.ln_bwd(dy, x, gamma, 1e-6) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tln.ln_bwd.launches == before + 3
+    assert all(_same_bits(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    assert not tln._ticket(x.device).any()
+    dxp, dgp, dbp = tln.ln_bwd_plain(dy, x, gamma, 1e-6)
+    assert _ln_rows_ok(runs[0][0], dxp)
 
 
 def test_ln_backward_is_deterministic_and_autograd_keeps_its_graph(dev):

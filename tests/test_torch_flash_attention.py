@@ -86,6 +86,39 @@ def test_plain_backward_matches_jax_grad_of_interpret(name):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), **tol)
 
 
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_subnormal_head_flushes_as_the_reference(name):
+    """The reference's compiled program reads a subnormal operand as zero
+    and flushes a subnormal result. With head 1's V at 1e-39 (causal, (1,
+    128, 2, 64)), ``jax.vjp`` of its jitted interpreted kernels gives that
+    head out, dq and dk of 0 (unflushed they are ~2e-39); the port's
+    autograd ``flash_attention`` on CPU tensors gives the same zeros, and
+    dv and head 0 within :func:`test_plain_backward_matches_jax_grad_of_interpret`'s
+    tolerances."""
+    jdt, tdt = DT[name]
+    q, k, v = _qkv(seed=21, s=128, d=64)
+    v[:, :, 1] *= np.float32(1e-39)
+    ct = np.random.default_rng(22).normal(size=q.shape).astype(np.float32)
+
+    @jax.jit
+    def reference(q_, k_, v_, ct_):
+        out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True, dtype=jdt, interpret=True), q_, k_, v_)
+        return (out, *vjp(ct_))
+
+    want = [np.asarray(t, np.float32) for t in reference(*(jnp.asarray(x, jdt) for x in (q, k, v, ct)))]
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True, dtype=tdt)
+    got = [out.detach(), *torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(ct).to(tdt))]
+    got = [t.float().numpy() for t in got]
+    for what, w in zip(("out", "dq", "dk"), want[:3]):
+        assert not w[:, :, 1].any(), what  # what the reference gives
+    tol = TOL["f32"] if name == "f32" else dict(rtol=2.0**-7, atol=2e-3)
+    for what, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+        if what != "dv":
+            assert not g[:, :, 1].any(), what
+        np.testing.assert_allclose(g, w, err_msg=what, **tol)
+
+
 def test_autograd_backward_is_the_plain_backward_on_cpu():
     """The Function's backward on CPU tensors is ``flash_attention_bwd_plain``
     on the saved tensors, bit for bit, and launches nothing."""

@@ -382,22 +382,6 @@ def test_flax_path_bf16_output_and_relu():
     _close(bn.var, new["var"], F32_TOL)
 
 
-def test_stripes_fill_the_card_or_walk_enough_rows():
-    """The statistics pass's stripe plan at the shapes of ResNet-50's BN layers
-    (batch 128 at 32x32) and at odd ones: every stripe has rows, and each
-    grid either reaches ~528 blocks (90% of it, after empty stripes are dropped) or gives every thread >= 32 rows."""
-    for m, c in [(131072, 256), (131072, 64), (2048, 2048), (32768, 512), (1, 1), (7, 3), (1000, 24)]:
-        for vec in (1, 8) if c % 8 == 0 else (1,):
-            cols = -(-c // vec)
-            tx = min(1 << (cols - 1).bit_length(), 32)
-            ty, tiles = 256 // tx, -(-cols // tx)
-            stripes = tbn._stripes(m, c, vec)
-            rows = -(-m // stripes)
-            assert 1 <= stripes <= -(-m // ty) and (stripes - 1) * rows < m
-            assert stripes * tiles >= 0.9 * 528 or rows >= 32 * ty or rows <= ty
-    assert tbn._stripes(131072, 256, 8) == 527
-
-
 RESNET50_BN_VIEWS = [(131072, 64), (131072, 128), (131072, 256), (32768, 128), (32768, 256), (32768, 512),
                      (8192, 256), (8192, 512), (8192, 1024), (2048, 512), (2048, 2048)]
 
@@ -431,6 +415,40 @@ def test_bn_bwd_plan_is_one_the_kernel_takes(elem, vec):
         assert p.chunk == p.nbuf == 0 and not p.onchip and p.tile <= 32 and p.cluster * p.rows >= m
     with pytest.raises(ValueError):
         tbn.bn_bwd_plan(131072, 256, 2, 8, onchip=True)
+
+
+@pytest.mark.parametrize("elem,vec", [(2, 8), (4, 4)], ids=["bf16", "f32"])
+def test_bn_stats_plan_is_one_the_kernel_takes(elem, vec):
+    """The statistics' one-launch plan at ResNet-50's BN views and at odd
+    ones: 1 to 4 clusters of at most 16 blocks per channel tile over all
+    rows (16 blocks from M = 32768 on; more clusters only where a block
+    would walk 4096 rows, and no more than 128 blocks then), no block
+    without rows, a tile that is a power of two of 16-byte vectors up to a
+    128-byte row, TMA chunks within the 256-row box and a ring of two
+    within the block's shared memory where the stripe is long, 16-byte
+    loads (no ring) for M <= 2048 or a narrow C; the one-element path
+    stages nothing."""
+    views = RESNET50_BN_VIEWS + [(1, 8), (300, 24), (4096, 64), (512, 2048), (100, 1024)]
+    for m, c in views:
+        p = tbn.bn_stats_plan(m, c, elem, vec)
+        along = p.cluster * p.splits
+        assert 1 <= p.cluster <= 16 and along * p.rows >= m and (along - 1) * p.rows < m
+        assert p.cluster == min(16 if m >= 32768 else 8, -(-m // 128))
+        assert 1 <= p.splits <= 4 and (p.splits == 1 or (m // p.cluster >= 4096 and along * -(-c // p.tile) <= 128))
+        assert p.tile % vec == 0 and (p.tile // vec) & (p.tile // vec - 1) == 0 and p.tile * elem <= 128
+        assert p.smem <= 232448
+        if p.nbuf:  # staged by TMA
+            assert (c * elem > 128 or p.splits > 1) and m > 2048 and p.tile * elem <= 64
+            assert 1 <= p.chunk <= 256 and p.nbuf <= 2 and (p.nbuf - 1) * p.chunk < p.rows
+        else:
+            assert p.chunk == 0 and (c * elem <= 128 or m <= 2048)
+    if elem == 2:
+        assert tbn.bn_stats_plan(131072, 256, 2, 8) == tbn.StatsPlan(16, 1, 32, 8192, 256, 2, 49280)
+        assert tbn.bn_stats_plan(131072, 64, 2, 8)[:6] == (16, 4, 32, 2048, 256, 2)
+        assert tbn.bn_stats_plan(2048, 2048, 2, 8)[:6] == (8, 1, 64, 256, 0, 0)
+    for m, c in [(1, 1), (7, 3), (777, 13), (1000, 24)]:  # the one-element path
+        p = tbn.bn_stats_plan(m, c, elem, 1)
+        assert p.chunk == p.nbuf == 0 and p.splits == 1 and p.tile <= 32 and p.cluster * p.rows >= m
 
 
 def test_fused_batch_norm_refuses_what_it_does_not_take():

@@ -122,6 +122,78 @@ def test_layer_norm_matches_reference(dtype_name, entry):
     np.testing.assert_array_equal(_np(y)[0], _np(torch.from_numpy(beta).to(tdt)))
 
 
+@pytest.mark.parametrize("impl", ["interpret", "jnp"])
+@pytest.mark.parametrize("dtype_name", ["f32", "bf16"])
+def test_layer_norm_flushes_subnormals_as_the_reference(dtype_name, impl):
+    """The reference's compiled program reads a subnormal operand as zero
+    and flushes a subnormal result. A row of x at 1e-39 normalises to
+    y = beta (0 here; unflushed, its deviations scaled by ``1/sqrt(eps)``
+    come out as normal numbers near 1e-36), and a row of dy at 1e-39 gives
+    dx = 0; the other rows, dgamma and dbeta as the jitted reference's
+    (``impl="interpret"``: its Pallas kernels; ``"jnp"``: its plain path),
+    at :func:`test_layer_norm_matches_reference`'s tolerances."""
+    jdt, tdt = DTYPES[dtype_name]
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(8, 128)).astype(np.float32)
+    x[3] = rng.normal(size=128) * 1e-39
+    dy = rng.normal(size=(8, 128)).astype(np.float32)
+    dy[5] = rng.normal(size=128) * 1e-39
+    gamma = (1 + 0.1 * rng.normal(size=128)).astype(np.float32)
+    beta = np.zeros(128, np.float32)
+
+    @jax.jit
+    def reference(a, g, b, d):
+        f = lambda a, g, b: jax_fused_layer_norm(a, g, b, 1e-6, jdt, impl)  # noqa: E731
+        y, vjp = jax.vjp(f, a, g, b)
+        return (y, *vjp(d))
+
+    want = reference(jnp.asarray(x).astype(jdt), jnp.asarray(gamma), jnp.asarray(beta), jnp.asarray(dy).astype(jdt))
+    tx, tdy = torch.from_numpy(x).to(tdt), torch.from_numpy(dy).to(tdt)
+    y = tln.ln_fwd_plain(tx, torch.from_numpy(gamma), torch.from_numpy(beta), 1e-6, tdt)
+    dx, dg, db = tln.ln_bwd_plain(tdy, tx, torch.from_numpy(gamma), 1e-6)
+    assert not _np(want[0])[3].any() and not _np(want[1])[5].any()  # what the reference gives
+    assert not _np(y)[3].any() and not _np(dx)[5].any()
+    close = (lambda g, w, what: _assert_rows_close(g, w, 1e-6, what)) if dtype_name == "f32" else _assert_ulp_close
+    close(y, want[0], "y")
+    close(dx, want[1], "dx")
+    for name, g, w in (("dgamma", dg, want[2]), ("dbeta", db, want[3])):
+        _assert_rows_close(g, w, 1e-6, name)
+
+
+@pytest.mark.parametrize("xe,de", [(2, 2), (4, 4), (4, 2)], ids=["bf16", "f32", "f32-bf16dy"])
+def test_ln_bwd_plan_is_one_the_kernel_takes(xe, de):
+    """The backward's launch plan on a card of 132 SMs: one warp a row up
+    to H = 1024, two to 2048, four to 4096; one block an SM, none whose row
+    groups all go without rows; a ring of 1 or 2 rows that, with the
+    reduction words, fits a block's shared memory, and the block's column
+    partials fit there too."""
+    for m, h in [(8192, 1024), (2048, 1024), (1, 1024), (333, 136), (64, 2048), (17, 4096), (5, 8), (9, 4096)]:
+        p = tln.ln_bwd_plan(m, h, xe, de, 132)
+        groups = 8 // p.group
+        assert p.group == (1 if h <= 1024 else 2 if h <= 2048 else 4) and h <= 1024 * p.group
+        assert 1 <= p.blocks <= 132 and (p.blocks - 1) * groups < m and (p.blocks == 132 or p.blocks * groups >= m)
+        assert 1 <= p.slots <= 2 and p.smem <= 232448 - 1024
+        assert p.smem >= max(p.slots * groups * h * (xe + de), groups * 2 * h * 4) + groups * 4 * p.group * 4
+    assert tln.ln_bwd_plan(8192, 1024, 2, 2, 132) == tln.BwdPlan(1, 132, 2, 65664)
+    assert tln.ln_bwd_plan(2048, 1024, 4, 4, 132, slots=3).smem == 196736
+    with pytest.raises(ValueError):
+        tln.ln_bwd_plan(17, 4096, 4, 4, 132, slots=4)
+
+
+@pytest.mark.parametrize("h", [96, 777, 1000, 1024])
+def test_compiled_mean_is_the_row_sum_times_its_reciprocal(h):
+    """The reference's ``jnp.mean`` over a row, as XLA compiles it, is the
+    row's sum times f32(1/H) to the bit, not the sum divided by H (which
+    differs in some rows wherever 1/H is inexact): the LN plain versions and
+    kernels take the product."""
+    x = np.random.default_rng(h).normal(size=(4096, h)).astype(np.float32)
+    mean = np.asarray(jax.jit(lambda a: jnp.mean(a, axis=1))(x))
+    total = np.asarray(jax.jit(lambda a: jnp.sum(a, axis=1))(x))
+    inv = np.float32(tln.inv_rows(h))
+    np.testing.assert_array_equal(mean, total * inv)
+    assert h == 1024 or (mean != total / np.float32(h)).any()
+
+
 def test_module_matches_reference_module_and_names_its_parameters_as_flax():
     """``FusedLayerNorm`` (f32 in, bf16 out) against the reference's flax
     module with the same parameters; its parameters are flax's ``scale``

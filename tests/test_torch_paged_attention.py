@@ -17,6 +17,7 @@ order) is held to the JAX kernel in interpret mode, in bf16 at the
 tolerance above.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,6 +119,31 @@ def test_plain_matches_jax_interpret_at_the_check_shapes(name, w):
     got = tpa.paged_attention_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), torch.from_numpy(table),
                                     torch.from_numpy(positions), dtype=tdt).float().numpy()
     assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL[name])
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("w", [1, 4])
+def test_subnormal_kv_head_flushes_as_the_reference(name, w):
+    """The reference's compiled program reads a subnormal operand as zero
+    and flushes a subnormal result: with kv head 1's V at 1e-39, the JAX
+    kernel (``_fused_call`` in interpret mode, jitted) gives 0 for the
+    query heads that read it (unflushed, ~5e-40); the plain version gives
+    the same zeros, and the other heads at the file's tolerances."""
+    s, h, hkv, d, bs, nb = 3, 4, 2, 16, 4, 5
+    q, k, v, table, positions = _case(seed=30 + w, s=s, w=w, h=h, hkv=hkv, d=d, bs=bs, nb=nb)
+    k[0] = 0.0  # no junk: every slot's row is live here
+    table[-1] = table[0]
+    v[:, :, 1] *= np.float32(1e-39)
+    jdt, tdt = DT[name]
+    want = np.asarray(jax.jit(jpa._fused_call, static_argnums=(5,), static_argnames=("interpret",))(
+        jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(table),
+        jnp.asarray(positions), jdt, interpret=True), np.float32)
+    got = tpa.paged_attention_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), torch.from_numpy(table),
+                                    torch.from_numpy(positions), dtype=tdt).float().numpy()
+    flushed = slice(h // hkv, h)  # the query heads of kv head 1
+    assert not want[:, :, flushed].any() and not got[:, :, flushed].any()
+    assert np.abs(got[:, :, : h // hkv]).min() > 0
     np.testing.assert_allclose(got, want, **TOL[name])
 
 

@@ -165,6 +165,32 @@ def test_topk_codecs_flush_subnormals_as_the_reference(codec, chunk, k):
         jax.jit(lambda p, a: jc.decompress_accumulate(p, a, 1 / 3))(jp, jnp.asarray(acc)), "accumulate")
 
 
+@pytest.mark.parametrize("narrow", [True, False])
+def test_chunked_topk_past_64_takes_the_references_sort_branch(narrow):
+    """Past 64 winners the reference's kernel path selects by ``lax.top_k``
+    (its ``impl="jnp"`` branch) on every device, which keeps subnormal
+    magnitudes and a ``-0.0`` winner's sign. The port takes the same branch
+    on the CPU as on the card: payload indices and values bit-equal."""
+    x = _subnormal_rows(128)
+    x[1, 3] = -0.0  # a -0.0 winner among row 1's zeros
+    x = x.reshape(-1)
+    tc = ChunkedTopKCompressor(chunk=128, k_per_chunk=65, narrow_indices=narrow)
+    jc = JaxChunkedTopK(chunk=128, k_per_chunk=65, impl="jnp", narrow_indices=narrow)
+    before = chunked_topk.launches
+    tp, jp = tc.compress(torch.from_numpy(x)), jc.compress(jnp.asarray(x))
+    assert chunked_topk.launches == before
+    _check_topk_payload(tp, jp)
+    idx = tp.indices.numpy().astype(np.int64).reshape(4, 65) % 128
+    assert idx[0, :4].tolist() == [20, 7, 9, 3]  # the subnormals win over the zeros
+    assert idx[1, :3].tolist() == [50, 60, 0]
+    assert torch.signbit(tp.values.reshape(4, 65)[1, 5])  # the -0.0 at 3 is the sixth winner
+    # the decode flushes the subnormal winners, as the compiled reference's
+    acc = np.random.default_rng(65).normal(size=x.shape).astype(np.float32)
+    _eq(tc.decompress(tp), jc.decompress(jp), "decompress")
+    _eq(tc.decompress_accumulate(tp, torch.from_numpy(acc), 1 / 3),
+        jax.jit(lambda p, a: jc.decompress_accumulate(p, a, 1 / 3))(jp, jnp.asarray(acc)), "accumulate")
+
+
 @pytest.mark.parametrize("weight", [1.0, 0.3])
 @pytest.mark.parametrize("with_acc", [False, True])
 @pytest.mark.parametrize("chunk,k", [(128, 13), (512, 8)])

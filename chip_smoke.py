@@ -113,6 +113,33 @@ Phases, each printed as one JSON line:
     xhat' within one f32 ulp (the fused encode rounds it once, the
     two-step wire twice), the parameters finite.
 
+12. ``train_resnet_topologies``: ``cifar_resnet50`` full ``--norm-impl
+    pallas`` (8 workers, the fused-BN kernels) from ``train_resnet``'s
+    initial variables on ``--topology torus:rows=2`` (2x4), ``exp``,
+    ``onepeer-exp`` (period 3) and ``hierarchical:slices=2,outer_every=2``
+    (period 2), one full period plus one round each: every round's gossip
+    held to ``W_{step % period} @ x`` computed apart on the card in f32
+    (``GOSSIP_RTOL``), the BN kernels' launches gated (53 x 8 a round),
+    and, gossip only, onepeer-exp at 8 workers on random stacked
+    parameters reaching 1e-6 of its starting consensus error after one
+    period (the reference's finite-time guarantee).
+13. ``train_mnist``: ``mnist_mlp`` full (MLP hidden 256, f32, 4 workers,
+    dense exact gossip, Adam 1e-3, batch 64) on the card: one warm round,
+    50 counted rounds (round time median and spread, images/s, gossip ms,
+    the consensus error after each round, wire bytes), one profiled round
+    (the device-busy share) and the held-out top-1 of the mean model and
+    of each worker on 8 batches. Gates: finite falling losses, the
+    consensus error after each dense round within ``DENSE_ERR_RTOL`` of
+    the mean parameters' RMS norm, the wire bytes 4 a parameter (one
+    send), no port kernel launched, top-1 above 0.5.
+
+The ``check`` line's ``subnormals.operand_probe`` holds the flash
+forward, dq and dk/dv kernels on bf16 subnormal operands whose products
+are normal (q at 1e-39 against k at 1e38; dO at 1e-38 against V at 2e36)
+to their plain versions, which read the subnormal operand as 0 as the
+reference does, at the flash tolerances: the kernels flush every tile
+they stage.
+
 The ``check`` phase also holds the three fused-BN kernels against their
 plain versions at ResNet-50's (131072, 256), (131072, 64), (2048, 2048),
 (8192, 1024) and (32768, 512) BN views in bf16, relu on and off, beside
@@ -461,11 +488,8 @@ def check_subnormals(torch, tfa, tpa, tln, dev):
     versions do; paged attention with kv head 1's V at 1e-39 (W = 1, 8
     slots, GQA rep 2) gives its query heads 0; the LN kernels give y = 0
     for a row of x at 1e-39 (beta 0) and dx = 0 for a row of dy at 1e-39.
-    Also reported, not gated (``operand_probe``): the forward kernel on q
-    at +-1e-39 (bf16 subnormals) and k at +-1e38, whose products are normal
-    (0.1): its error against the plain version, which reads q as 0 (uniform
-    probabilities), and against the same math on unflushed q: which of
-    the two the tensor cores' products follow."""
+    And ``operand_probe``: subnormal operands whose products are normal,
+    which the reference reads as 0 (:func:`operand_probe`)."""
     gen = torch.Generator(device=dev).manual_seed(11)
     q, k, v, do = (torch.randn(1, 1024, 2, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
     v[:, :, 1] = (v[:, :, 1].float() * 1e-39).to(torch.bfloat16)
@@ -480,19 +504,7 @@ def check_subnormals(torch, tfa, tpa, tln, dev):
                                                                                          ("dk", want[1]))})
     flash["dv_err_over_tol"] = tol_check("flash dv, subnormal head", dv, want[2], FLASH_BWD_ATOL,
                                          FLASH_BWD_RTOL)["worst_err_over_tol"]
-    # operand probe
-    sign = lambda t: torch.where(t >= 0, 1.0, -1.0)  # noqa: E731
-    qp = (sign(torch.randn(1, 128, 1, 64, generator=gen, device=dev)) * 1e-39).to(torch.bfloat16)
-    kp = (sign(torch.randn(1, 128, 1, 64, generator=gen, device=dev)) * 1e38).to(torch.bfloat16)
-    vp = torch.randn(1, 128, 1, 64, generator=gen, device=dev, dtype=torch.bfloat16)
-    got = tfa.flash_attention(qp, kp, vp, causal=True).float()
-    flushed = tfa.flash_attention_plain(qp, kp, vp, causal=True).float()
-    logits = torch.einsum("bshd,bthd->bhst", qp.float(), kp.float()) / 8.0
-    logits = logits.masked_fill(~torch.ones(128, 128, dtype=torch.bool, device=dev).tril(), -torch.inf)
-    kept = torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1), vp.float())
-    probe = {"max_abs_err_vs_flushed_q": float((got - flushed).abs().max()),
-             "max_abs_err_vs_unflushed_q": float((got - kept).abs().max()),
-             "flushed_vs_unflushed": float((flushed - kept).abs().max())}
+    probe = operand_probe(torch, tfa, dev)
     # paged attention, W = 1, kv head 1 of 8 subnormal
     s_, h, bs, nb = 8, 16, 16, 64
     n = s_ * nb + 1
@@ -521,6 +533,55 @@ def check_subnormals(torch, tfa, tpa, tln, dev):
     if (any(flash[key] for key in ("out", "dq", "dk", "plain_dq", "plain_dk")) or out["paged_heads_2_3_max_abs"]
             or out["paged_plain_heads_2_3_max_abs"] or out["ln_y_row_max_abs"] or out["ln_dx_row_max_abs"]):
         raise AssertionError(f"a subnormal head or row was not flushed: {out}")
+    return out
+
+
+def operand_probe(torch, tfa, dev, s=256, h=2):
+    """The flash kernels on bf16 subnormal operands whose products are
+    normal, against their plain versions, which read a subnormal operand as
+    0 as the reference does (B=1, S=256, H=2, causal). Probe ``q``: q at
+    +-1e-39 against k at +-1e38 (logits +-0.1 unflushed; flushed, uniform
+    probabilities): the forward's out and lse, and dk/dv. Probe ``do``: dO
+    at +-1e-38 against V at +-2e36 (dp ~0.16 unflushed; flushed, dq = dk =
+    dv = 0): dq and dk/dv. The backward kernels take the plain forward's
+    lse and delta; dq is not taken in probe ``q``, where dS K overflows.
+    Each is gated at the flash tolerances; ``unflushed_vs_plain`` is the
+    distance of the same math on the unflushed q from the plain forward,
+    for scale."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    sign = lambda: torch.where(torch.randn(1, s, h, 64, generator=gen, device=dev) >= 0, 1.0, -1.0)  # noqa: E731
+    rnd = lambda: torch.randn(1, s, h, 64, generator=gen, device=dev, dtype=torch.bfloat16)  # noqa: E731
+    out = {}
+    for name in ("q", "do"):
+        q, k, v, do = rnd(), rnd(), rnd(), rnd()
+        if name == "q":
+            q, k = (sign() * 1e-39).to(torch.bfloat16), (sign() * 1e38).to(torch.bfloat16)
+        else:
+            do, v = (sign() * 1e-38).to(torch.bfloat16), (sign() * 2e36).to(torch.bfloat16)
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+        delta = tfa._delta(ref, do)
+        want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, True)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True)
+        checks = {"dk": (dk, want[1]), "dv": (dv, want[2])}
+        if name == "q":
+            o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+            torch.cuda.synchronize()
+            row = {"out": tol_check("flash forward, subnormal q", o, ref, FLASH_ATOL, FLASH_RTOL),
+                   "lse_max_abs_err": float((lse - ref_lse).abs().max())}
+            if not row["lse_max_abs_err"] <= LSE_TOL:
+                raise AssertionError(f"flash forward, subnormal q: lse {row}")
+            logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / 8.0
+            logits = logits.masked_fill(~torch.ones(s, s, dtype=torch.bool, device=dev).tril(), -torch.inf)
+            kept = torch.einsum("bhst,bthd->bshd", torch.softmax(logits, -1), v.float())
+            row["unflushed_vs_plain"] = float((kept - ref.float()).abs().max())
+        else:
+            dq = tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=True)
+            checks["dq"] = (dq, want[0])
+            row = {"plain_max_abs": max(float(w.float().abs().max()) for w in want)}
+        torch.cuda.synchronize()
+        for key, (g, w) in checks.items():
+            row[key] = tol_check(f"flash {key}, subnormal {name}", g, w, FLASH_BWD_ATOL, FLASH_BWD_RTOL)
+        out[name] = row
     return out
 
 
@@ -2067,6 +2128,237 @@ def train_resnet_phase(torch, dev, init, norm_impl, counted):
     return out, counts
 
 
+# consensus error after a dense round (W = 11^T/n: every row of W @ x is
+# the same f32 dot product) over the RMS norm of the mean parameters: the
+# rows may differ by a few f32 roundings of that product (a few 2^-24 of
+# it), a missed worker or a wrong weight by ~1/n of the parameters
+DENSE_ERR_RTOL = 1e-6
+# the gossip's output against W_{step % period} @ x computed apart in f32,
+# element by element: |got - want| <= GOSSIP_RTOL * (|W| @ |x|); both sum
+# the same few terms in f32, perhaps in another order (a few 2^-24 of the
+# magnitudes), a wrong phase or a dropped term by a whole term
+GOSSIP_RTOL = 1e-6
+
+
+def train_mnist_phase(torch, dev, counted=50, eval_batches=8):
+    """mnist_mlp full (the reference's ``_mnist_mlp``: MLP hidden 256, f32,
+    4 workers, dense exact gossip, Adam 1e-3, h = 1, batch 64, n = 8192
+    28x28x1) on the card: one warm round, ``counted`` rounds (launch
+    counters zeroed just before, read just after: the path runs cuBLAS and
+    plain ops, none of the port's kernels), then the held-out eval of the
+    mean model and of each worker on ``eval_batches`` batches of 64 (one
+    profiled round before it: the device-busy share). Gates:
+    finite losses, the last below the first; after every (dense) round the
+    consensus error within ``DENSE_ERR_RTOL`` of the mean parameters' RMS
+    norm; ``wire_bytes_per_round`` equal to 4 bytes a parameter times one
+    send (dense: one all-reduce); no port kernel launched; the mean model's
+    top-1 above 0.5 (ten classes)."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    bundle = configs.build("mnist_mlp", "full", device=dev)
+    cfg, world = bundle.cfg, bundle.world_size
+    batches = list(bundle.batches(2 + counted, 0))
+    params, model_state = bundle.convert(bundle.init_params(0))
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in params.items()}, world, seed=0,
+                               model_state=model_state)
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    engine = cfg.engine()
+    n_params = sum(p[0].numel() for p in state.params.values())
+    wire = engine.wire_bytes_per_round({"params": {n: p[0] for n, p in state.params.items()}, "model_state": {}})
+    state, m = step(state, batches[0])
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"])}
+    kernels.reset_launch_counts()
+    rounds = []
+    for batch in batches[1:1 + counted]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, err = float(m["loss"]), float(m["consensus_error"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        rms = float(torch.sqrt(sum((p.mean(dim=0) ** 2).sum() for p in state.params.values())))
+        rounds.append({"loss": loss, "consensus_error": err, "mean_params_rms": rms, "round_ms": ms,
+                       "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"], "imgs_per_s": m["imgs_per_s"]})
+    counts = kernels.launch_counts()
+    state, prof = profile_round(torch, step, state, batches[-1])
+    t0 = time.perf_counter()
+    result = evaluate(bundle.eval_fn, state, bundle.eval_batches(eval_batches, 0))
+    eval_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in rounds]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_mnist: losses not finite and falling: {losses}")
+    worst = max(r["consensus_error"] / r["mean_params_rms"] for r in rounds)
+    if not worst <= DENSE_ERR_RTOL:
+        raise AssertionError(f"train_mnist: consensus error after a dense round {worst} x the RMS norm "
+                             f"> {DENSE_ERR_RTOL}: {[r['consensus_error'] for r in rounds]}")
+    if wire != 4 * n_params or engine._sends_per_round() != 1:
+        raise AssertionError(f"train_mnist: wire bytes {wire} != 4 x {n_params} params x 1 send")
+    if any(counts.values()):
+        raise AssertionError(f"train_mnist: the path launched port kernels: {counts}")
+    top1 = float(result["mean_model"]["top1"])
+    if not top1 > 0.5:
+        raise AssertionError(f"train_mnist: mean-model top-1 {top1} <= 0.5")
+    ms_sorted = sorted(r["round_ms"] for r in rounds)
+    out = {
+        "phase": "train_mnist",
+        "config": "mnist_mlp full (MLP hidden 256, f32), 4 workers, dense exact gossip, Adam 1e-3, h 1, batch 64",
+        "workers": world, "params_per_worker": n_params, "topology": cfg.gossip.topology.name,
+        "counted_rounds": counted, "warmup_round": warm,
+        "round_ms": {"median": float(np.median(ms_sorted)), "min": ms_sorted[0], "max": ms_sorted[-1],
+                     "p10": float(np.percentile(ms_sorted, 10)), "p90": float(np.percentile(ms_sorted, 90))},
+        "imgs_per_s_median": float(np.median([r["imgs_per_s"] for r in rounds])),
+        "gossip_ms_median": float(np.median([r["gossip_ms"] for r in rounds])),
+        "inner_ms_median": float(np.median([r["inner_ms"] for r in rounds])),
+        "loss_first": losses[0], "loss_last": losses[-1],
+        "consensus_error_after_each_round": [r["consensus_error"] for r in rounds],
+        "consensus_error_over_rms_worst": worst, "dense_err_rtol": DENSE_ERR_RTOL,
+        "wire_bytes_per_round": wire, "eval_batches": eval_batches, "eval_s": eval_s,
+        "top1_mean_model": top1, "top1_workers": [float(x) for x in result["per_worker"]["top1"]],
+        "top1_worker_mean": result["worker_mean"]["top1"], "launches": counts,
+        "profiled_round": {k: prof[k] for k in ("wall_ms", "device_kernel_ms", "device_busy_share", "kernels",
+                                                 "top_kernels")},
+    }
+    del state
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+class GossipCheck:
+    """For the rounds it is open, holds every exact gossip round of the
+    simulated engine to ``W_{step % period} @ x``: the matrix the round was
+    given must be the topology's own phase (built here from its numpy
+    matrices), and each output leaf must equal that matrix times the input
+    leaf, computed apart on the card in f32, to ``GOSSIP_RTOL``."""
+
+    def __init__(self, torch, topology, dev):
+        from consensusml_tpu_torch.consensus.engine import ConsensusEngine
+
+        self.torch, self.cls, self.orig = torch, ConsensusEngine, ConsensusEngine.round_simulated
+        mats = topology.phase_matrices() if topology.is_time_varying else topology.mixing_matrix()[None]
+        self.w = torch.as_tensor(np.asarray(mats), dtype=torch.float32, device=dev)
+        self.rounds, self.worst = [], 0.0
+        check = self
+
+        def round_simulated(engine, params, state, w, step=None):
+            out = check.orig(engine, params, state, w, step=step)
+            check.check(params, w, step, out[0])
+            return out
+
+        ConsensusEngine.round_simulated = round_simulated
+
+    def check(self, params, w, step, mixed) -> None:
+        from consensusml_tpu_torch.utils import tree as T
+
+        torch = self.torch
+        want_w = self.w[step % self.w.shape[0]]
+        if not torch.equal(w, want_w):
+            raise AssertionError(f"gossip round {step}: the engine got another matrix than phase {step % self.w.shape[0]}")
+        worst = 0.0
+        for x, got in zip(T.leaves(params), T.leaves(mixed)):
+            flat = x.to(torch.float32).reshape(x.shape[0], -1)
+            want = (want_w @ flat).reshape(x.shape).to(x.dtype)
+            scale = (want_w.abs() @ flat.abs()).reshape(x.shape)
+            ratio = ((got.float() - want.float()).abs() / (GOSSIP_RTOL * scale + 1e-30)).max().item()
+            worst = max(worst, ratio)
+        if not worst <= 1.0:
+            raise AssertionError(f"gossip round {step}: output off W @ x by {worst} x the tolerance")
+        self.rounds.append(step)
+        self.worst = max(self.worst, worst)
+
+    def close(self) -> None:
+        self.cls.round_simulated = self.orig
+
+
+RESNET_TOPOLOGIES = ("torus:rows=2", "exp", "onepeer-exp", "hierarchical:slices=2,outer_every=2")
+
+
+def onepeer_finite_time_check(torch, dev, world=8):
+    """The reference's finite-time guarantee through the port's engine on
+    the card: onepeer-exp at 8 = 2^3 workers, random stacked parameters,
+    one period of exact gossip rounds; the consensus error must fall to
+    1e-6 of its start (one period is exactly 11^T/8; f32 rounding is left)."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.topology import topology_from_name
+
+    topo = topology_from_name("onepeer-exp", world)
+    engine = ConsensusEngine(GossipConfig(topology=topo))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = {"a": torch.randn(world, 1 << 20, generator=gen, device=dev),
+              "b": torch.randn(world, 3, 1000, generator=gen, device=dev)}
+    e0 = float(engine.consensus_error_simulated(params))
+    errs = []
+    for t, w in enumerate(simulated.phase_matrices(topo, device=dev)):
+        params, _ = engine.round_simulated(params, None, w, step=t)
+        errs.append(float(engine.consensus_error_simulated(params)))
+    if not errs[-1] <= 1e-6 * e0:
+        raise AssertionError(f"onepeer-exp, {world} workers: error {errs[-1]} after one period > 1e-6 x {e0}")
+    return {"workers": world, "period": topo.period, "start": e0, "after_each_round": errs,
+            "ratio": errs[-1] / e0}
+
+
+def train_resnet_topologies_phase(torch, dev, init):
+    """cifar_resnet50 full (8 workers, ``--norm-impl pallas``: every BN
+    through the fused-BN kernels) on each of ``RESNET_TOPOLOGIES``, one
+    full period plus one round each, from ``init``. Every round's gossip is
+    held to ``W_{step % period} @ x`` (:class:`GossipCheck`); the BN
+    kernels must launch 53 x 8 a round, nothing else; losses and consensus
+    errors finite. Then :func:`onepeer_finite_time_check`."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    lines, total = {}, {name: 0 for name in kernels.KERNELS}
+    for spec in RESNET_TOPOLOGIES:
+        bundle = configs.build("cifar_resnet50", "full", norm_impl="pallas", topology=spec, device=dev)
+        cfg, world, topo = bundle.cfg, bundle.world_size, bundle.cfg.gossip.topology
+        period = topo.period if topo.is_time_varying else 1
+        n_rounds = period + 1
+        params, model_state = bundle.convert(init)
+        state = init_stacked_state(cfg, {n: t.to(dev) for n, t in params.items()}, world, seed=0,
+                                   model_state=T.tree_map(lambda t: t.to(dev), model_state))
+        del params, model_state
+        step = make_simulated_train_step(cfg, bundle.loss_fn)
+        check = GossipCheck(torch, topo, dev)
+        kernels.reset_launch_counts()
+        rounds = []
+        try:
+            for batch in bundle.batches(n_rounds, 0):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                loss, err = float(m["loss"]), float(m["consensus_error"])
+                rounds.append({"step": state.step - 1, "phase": (state.step - 1) % period, "loss": loss,
+                               "consensus_error": err, "round_ms": 1e3 * (time.perf_counter() - t0),
+                               "gossip_ms": m["gossip_ms"]})
+        finally:
+            check.close()
+        counts = kernels.launch_counts()
+        n_bn = sum(1 for n in state.model_state["batch_stats"] if n.endswith(".mean"))
+        expect = {name: n_bn * world * n_rounds if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+        if counts != expect or check.rounds != list(range(n_rounds)):
+            raise AssertionError(f"{spec}: launches {counts} (expected {expect}), gossip checked at {check.rounds}")
+        if not all(np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) for r in rounds):
+            raise AssertionError(f"{spec}: loss or consensus error not finite: {rounds}")
+        for name, n in counts.items():
+            total[name] += n
+        lines[spec] = {
+            "topology": topo.name, "mesh": list(topo.mesh_shape), "period": period,
+            "sends_per_round": cfg.engine()._sends_per_round(), "spectral_gap": topo.spectral_gap(),
+            "wire_bytes_per_round": cfg.engine().wire_bytes_per_round(
+                {"params": {n: p[0] for n, p in state.params.items()},
+                 "model_state": T.tree_map(lambda t: t[0], state.model_state)}),
+            "rounds": rounds, "gossip_worst_err_over_tol": check.worst, "launches": counts,
+        }
+        del state, step
+        torch.cuda.empty_cache()
+    finite = onepeer_finite_time_check(torch, dev)
+    out = {"phase": "train_resnet_topologies",
+           "config": "cifar_resnet50 full (ResNet-50, CIFAR stem), 8 workers, --norm-impl pallas, --topology ...",
+           "gossip_rtol": GOSSIP_RTOL, "topologies": lines, "onepeer_exp_finite_time": finite, "launches": total}
+    return out, total
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -2246,7 +2538,17 @@ def main() -> int:
         emit(line)
         for name, n in counts.items():
             launches[name][path] = n
+    line, counts = train_resnet_topologies_phase(torch, dev, resnet_init_named(init, "pallas"))
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_resnet_topologies"] = n
     del init
+    gc.collect()
+    torch.cuda.empty_cache()
+    line, counts = train_mnist_phase(torch, dev)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_mnist"] = n
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -49,6 +49,19 @@ Codecs (``codec=None`` is the config's own, as ``train.py`` without
 (the default) or ``"pallas"``, every LayerNorm through the fused-LN CUDA
 kernels (their plain versions on the CPU); ``"jnp"``, the fused LN's plain
 versions on any device.
+
+``mnist_mlp`` is the reference's ``_mnist_mlp``
+(``consensusml_tpu/configs/__init__.py:241-275``): a 2-layer MLP (hidden
+256 full, 64 smoke; f32) on ``SyntheticClassification(n=8192 full, 2048
+smoke, 28x28x1)``, 4 workers, dense exact gossip, ``optax.adam(1e-3)``,
+h = 1, batch 64. Its path launches none of the port's kernels: two dense
+layers (cuBLAS) and a gossip ``W @ x``.
+
+Every config takes ``topology=``, ``train.py``'s ``--topology``:
+``NAME[:k=v,...]`` (:func:`topology_from_spec`), the named family at the
+run's world size in place of the config's own graph. Every bundle carries
+the reference's held-out eval: ``eval_fn`` (top-1 for the classifiers,
+next-token nll for GPT-2) and ``eval_batches(n, seed)``.
 """
 
 from __future__ import annotations
@@ -64,9 +77,10 @@ from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
     "CONFIGS", "RunBundle", "build", "gpt2_config", "build_model", "gpt2_init_params", "resnet_model",
+    "topology_from_spec", "with_topology",
 ]
 
-CONFIGS = ("gpt2_topk", "cifar_resnet50")
+CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp")
 CODECS = ("topk_int8", "topk_int4", "int8", "int4", "fp8")
 
 
@@ -150,35 +164,99 @@ class RunBundle:
     codec_path: str
     norm_path: str = ""
     description: str = ""
+    eval_fn: Callable | None = None  # train.evaluate's metric sums for one model
+    eval_batches: Callable | None = None  # (n_batches, seed) -> iterator of unstacked held-out batches
+
+
+def topology_from_spec(spec: str, world: int):
+    """``train.py``'s ``--topology NAME[:k=v,...]`` (integer values, e.g.
+    ``hierarchical:slices=2,outer_every=2``) as that family at ``world``
+    workers; raises ``ValueError`` (or ``IndexError`` for an argument
+    without ``=``) on a bad spec, with the reference's messages."""
+    from consensusml_tpu_torch.topology import topology_from_name
+
+    name, _, argstr = spec.partition(":")
+    kwargs = dict((kv.split("=")[0].strip(), int(kv.split("=")[1])) for kv in argstr.split(",") if kv)
+    return topology_from_name(name, world, **kwargs)
+
+
+def with_topology(bundle: RunBundle, spec: str) -> RunBundle:
+    """``bundle`` gossiping over the :func:`topology_from_spec` family at its
+    world size in place of its config's own graph (in place; returned)."""
+    gossip = dataclasses.replace(bundle.cfg.gossip, topology=topology_from_spec(spec, bundle.world_size))
+    bundle.cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
+    return bundle
 
 
 def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = None,
           codec: str | None = None, gamma: float | None = None,
-          codec_warmup: int | None = None, norm_impl: str = "flax", device=None) -> RunBundle:
+          codec_warmup: int | None = None, norm_impl: str = "flax", topology: str | None = None,
+          device=None) -> RunBundle:
     """The run recipe of config ``name`` at ``scale`` with the reference's
     overrides (``world`` = ``--workers``, ``codec``, ``gamma``,
     ``codec_warmup`` = ``--codec-warmup``; ``norm_impl``, the model's
-    field: BN for the ResNet, LayerNorm for GPT-2). ``device`` (``None`` =
-    CUDA; raises without a GPU) resolves the kernel paths: the CUDA
+    field: BN for the ResNet, LayerNorm for GPT-2; ``topology`` =
+    ``--topology``, a :func:`topology_from_spec` spec). ``device`` (``None``
+    = CUDA; raises without a GPU) resolves the kernel paths: the CUDA
     kernels on a CUDA device, their plain versions on the CPU."""
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
     if scale not in ("smoke", "full"):
         raise ValueError(f"unknown scale {scale!r} (smoke|full)")
     dev = resolve_device(device)
-    if name == "cifar_resnet50":
+    if name in ("cifar_resnet50", "mnist_mlp"):
         if (codec, gamma, codec_warmup) != (None, None, None):
-            raise NotImplementedError("cifar_resnet50 gossips exactly; its compressed variants are not ported yet")
-        return _cifar_resnet50(scale, world, norm_impl, dev)
-    return _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev)
+            raise NotImplementedError(f"{name} gossips exactly; its compressed variants are not ported yet")
+        if name == "mnist_mlp":
+            if norm_impl != "flax":
+                raise ValueError(f"mnist_mlp has no norm layers (norm_impl must be 'flax', got {norm_impl!r})")
+            bundle = _mnist_mlp(scale, world)
+        else:
+            bundle = _cifar_resnet50(scale, world, norm_impl, dev)
+    else:
+        bundle = _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev)
+    return bundle if topology is None else with_topology(bundle, topology)
+
+
+def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
+    from consensusml_tpu_torch.consensus import GossipConfig
+    from consensusml_tpu_torch.data import SyntheticClassification, cls_eval_batches, round_batches
+    from consensusml_tpu_torch.models.convert import mlp_from_flax, mlp_init_params
+    from consensusml_tpu_torch.models.mlp import MLP, mlp_loss_fn
+    from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.evaluate import classification_eval_fn
+    from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
+    from consensusml_tpu_torch.train.optim import adam
+
+    full = scale == "full"
+    world = world or 4
+    model = MLP(hidden=256 if full else 64, device="meta")
+    cfg = LocalSGDConfig(gossip=GossipConfig(topology=topology_from_name("dense", world)), optimizer=adam(1e-3), h=1)
+    data = SyntheticClassification(n=8192 if full else 2048, image_shape=(28, 28, 1))
+    batch = 64
+    return RunBundle(
+        name="mnist_mlp",
+        world_size=world,
+        cfg=cfg,
+        model=model,
+        loss_fn=mlp_loss_fn(model),
+        batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
+        init_params=lambda seed: mlp_init_params(model, seed, world),
+        convert=mlp_from_flax,
+        codec_path="none (exact gossip)",
+        description="2-layer MLP, 4 workers, dense gossip (CPU reference config)",
+        eval_fn=classification_eval_fn(model),
+        eval_batches=lambda n_batches, seed: cls_eval_batches(data, batch, n_batches, seed),
+    )
 
 
 def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
     from consensusml_tpu_torch.consensus import GossipConfig
-    from consensusml_tpu_torch.data import SyntheticClassification, round_batches
+    from consensusml_tpu_torch.data import SyntheticClassification, cls_eval_batches, round_batches
     from consensusml_tpu_torch.models.convert import resnet_from_flax, resnet_init_params
     from consensusml_tpu_torch.models.resnet import NORM_IMPLS, resnet_loss_fn
     from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.evaluate import classification_eval_fn
     from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
     from consensusml_tpu_torch.train.optim import sgd
 
@@ -212,6 +290,8 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         codec_path="none (exact gossip)",
         norm_path=norm_path,
         description="ResNet-50 (CIFAR stem), 8-worker ring consensus",
+        eval_fn=classification_eval_fn(model, train_kwarg=True),
+        eval_batches=lambda n_batches, seed: cls_eval_batches(data, batch, n_batches, seed),
     )
 
 
@@ -225,10 +305,11 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         topk_int8_compressor,
     )
     from consensusml_tpu_torch.consensus import GossipConfig
-    from consensusml_tpu_torch.data import SyntheticLM, lm_round_batches
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
     from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.evaluate import causal_lm_eval_fn
     from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
     from consensusml_tpu_torch.train.optim import adam
 
@@ -283,4 +364,6 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         codec_path=f"{codec_name} -> {path}",
         norm_path=norm_path,
         description=f"GPT-2 pretrain with {codec} compressed gossip (CHOCO)",
+        eval_fn=causal_lm_eval_fn(model),
+        eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed),
     )

@@ -19,6 +19,9 @@ the reference vmaps). The warm-up and periodic dense-refresh rounds of
 the reference (``lax.cond`` on the round counter) are a Python ``if`` on
 the host's round counter here.
 
+Every topology family runs here; a time-varying one takes its round's
+phase matrix from the caller (``train/local_sgd.py``).
+
 Not ported yet, and refused with ``NotImplementedError`` when set: the
 per-leaf wire (``bucket_bytes=None``, or a codec without a
 ``bucket_alignment``), ``path_filter``, ``compress_filter`` other than
@@ -302,9 +305,10 @@ class ConsensusEngine:
     def wire_bytes_per_round(self, params: Any) -> int:
         """Bytes ONE worker sends per steady-state round (``params`` are
         per-worker leaves; only their shapes are read): the codec payload
-        of every bucket (dense f32 for exact mixing), times the neighbour
-        sends, times ``gossip_steps``. Warm-up and refresh rounds ship the
-        dense params besides and are not folded in, as in the reference."""
+        of every bucket (dense f32 for exact mixing), times the sends of a
+        round (:meth:`_sends_per_round`), times ``gossip_steps``. Warm-up
+        and refresh rounds ship the dense params besides and are not
+        folded in, as in the reference."""
         comp = self.config.compressor
         leaves = T.leaves(params)
         if comp is None:
@@ -312,8 +316,16 @@ class ConsensusEngine:
         else:
             plan = self._codec_plan(leaves)
             payload = sum(comp.wire_bytes((b.total,), torch.float32) for b in plan.buckets)
-        # one payload per neighbour shift (the ring's two)
-        return int(payload * len(self.topology.shifts) * self.config.gossip_steps)
+        return int(payload * self._sends_per_round() * self.config.gossip_steps)
+
+    def _sends_per_round(self) -> float:
+        """Payloads a worker sends per round: one per neighbour shift, one
+        for a dense topology (an all-reduce mean), and for a time-varying
+        topology the average over its period."""
+        topo = self.topology
+        if topo.is_time_varying:
+            return sum((1 if p.uses_psum else len(p.shifts)) for p in topo.phases) / topo.period
+        return 1 if topo.uses_psum else len(topo.shifts)
 
     def consensus_error_simulated(self, params: Any) -> torch.Tensor:
         return simulated.consensus_error_stacked(params, self.topology.world_size)

@@ -62,13 +62,21 @@
 // own kernel, and the backward is deterministic.
 //
 // Subnormals: the reference's compiled program flushes them (a subnormal
-// operand reads as zero, a subnormal result is written as zero). Both
-// kernels flush what they store, dq = scale * acc, dk = scale * acc and
-// dv = acc, at the f32 -> bf16 step (the .ftz multiply of
-// flash_sm90.cuh:store_tile_bf16), as the plain version flushes its
-// results. The tensor cores take a bf16 subnormal operand as it is: a head
-// whose V is subnormal gives a subnormal dp, ds and dq or dk accumulator,
-// which the store flushes to 0, as the reference's.
+// operand reads as zero, a subnormal result is written as zero). The
+// tensor cores take a bf16 subnormal operand as it is, so every staged
+// tile (dq: the resident Q and dO, each stage's K and V; dk/dv: the
+// resident K and V, each stage's Q and dO) is flushed in shared memory
+// once, after its barrier and before its first product
+// (flash_sm90.cuh:flush_staged_subnormals); K, which feeds both S = Q K^T
+// and dQ += dS K, is flushed once a stage. The register operands: the
+// reference multiplies p and ds in f32, its exp and product flushing a
+// subnormal one to 0; so do these kernels (ftz after exp2f, the .ftz
+// forms of ds = p * (dp - delta)), so hi = bf16(x) is never subnormal,
+// while lo = bf16(x - hi) may be where x is normal and is kept, as the
+// reference uses the whole normal x. Both kernels flush what they store,
+// dq = scale * acc, dk = scale * acc and dv = acc, at the f32 -> bf16
+// step (the .ftz multiply of flash_sm90.cuh:store_tile_bf16), as the
+// plain version flushes its results.
 
 #include "flash_sm90.cuh"
 
@@ -145,12 +153,14 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   mbar_wait(bar0 + 8 * kDqStages, 0);
+  flush_staged_subnormals(sQ_ptr, 2);  // Q then dO
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kDqStages;
     const uint32_t sK = sKV + st * kDqStageBytes;
     const uint32_t sV = sK + kTileBytes;
     mbar_wait(bar0 + 8 * st, (t / kDqStages) & 1);
+    flush_staged_subnormals(smem_raw + (sK - raw), 2);  // K then V
 
     float s[32], dp[32];
 #pragma unroll
@@ -181,7 +191,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
             const int key = k0 + 8 * j + 2 * (lane % 4) + c;
             if (key >= S || (causal && key > row0 + 8 * i)) p = 0.f;
           }
-          s[e] = p * (dp[e] - dl[i]);  // ds
+          s[e] = mul_ftz(p, sub_ftz(dp[e], dl[i]));  // ds; reads a subnormal p as 0
         }
       }
     }
@@ -283,6 +293,7 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
 #pragma unroll
   for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
   mbar_wait(bar0 + 8 * kDkvStages, 0);
+  flush_staged_subnormals(sK_ptr, 2);  // K then V
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % kDkvStages;
@@ -290,6 +301,7 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
     const uint32_t sDO = sQ + kTileBytes;
     const int q0 = (first + i) * kTileRows;
     mbar_wait(bar0 + 8 * st, (i / kDkvStages) & 1);
+    flush_staged_subnormals(smem_raw + (sQ - raw), 2);  // Q then dO
 
     float s[32], dp[32];
 #pragma unroll
@@ -320,13 +332,13 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int e = 4 * j + 2 * r + c;
-          float p = exp2f(s[e] * scale_log2 - (c ? l2.y : l2.x));
+          float p = ftz(exp2f(s[e] * scale_log2 - (c ? l2.y : l2.x)));
           if (edge) {
             const int query = q0 + col + c;
             if (query >= S || (causal && query < key0 + 8 * r)) p = 0.f;
           }
           s[e] = p;
-          dp[e] = p * (dp[e] - (c ? d2.y : d2.x));  // ds
+          dp[e] = mul_ftz(p, sub_ftz(dp[e], c ? d2.y : d2.x));  // ds
         }
       }
     }

@@ -42,11 +42,17 @@
 //
 // Subnormals: the reference's compiled program flushes them (a subnormal
 // operand reads as zero, a subnormal result is written as zero). The
+// tensor cores take a bf16 subnormal operand as it is, so the Q tile and
+// each stage's K and V tiles are flushed in shared memory once, after
+// their barrier and before their first product
+// (flash_sm90.cuh:flush_staged_subnormals): q at 1e-39 against k at 1e38,
+// whose products are normal, reads as q = 0, as in the reference. The
+// reference multiplies P in f32, its exp flushing a subnormal p (and the
+// rescale factor) to 0: so does this kernel (ftz after exp2f), and hi =
+// bf16(p) is then never subnormal; lo = bf16(p - hi) may be where p is
+// normal, and is kept, as the reference uses the whole normal p. The
 // epilogue flushes what this kernel stores (out = acc * (1 / l) and the
 // lse, with the .ftz forms), as the plain version flushes its results.
-// The tensor cores take a bf16 subnormal operand as it is; a head whose V
-// is subnormal then sums to a subnormal acc / l, which the store flushes,
-// so out is 0 as the reference's.
 
 #include "flash_sm90.cuh"
 
@@ -110,12 +116,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   mbar_wait(bar0 + 8 * kStages, 0);
+  flush_staged_subnormals(sQ_ptr, 1);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
     const uint32_t sK = sKV + st * kStageBytes;
     const uint32_t sV = sK + kTileBytes;
     mbar_wait(bar0 + 8 * st, (t / kStages) & 1);
+    flush_staged_subnormals(smem_raw + (sK - raw), 2);  // K then V
 
     float s[32];
 #pragma unroll
@@ -153,7 +161,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = exp2f(m[i] - m_new);
+      corr[i] = ftz(exp2f(m[i] - m_new));
       m[i] = m_new;
       l[i] *= corr[i];
     }
@@ -163,7 +171,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float p = exp2f(s[4 * j + 2 * i + c] - m[i]);  // masked: exp2(-inf) = 0
+          const float p = ftz(exp2f(s[4 * j + 2 * i + c] - m[i]));  // masked: exp2(-inf) = 0
           s[4 * j + 2 * i + c] = p;
           l[i] += p;
           o[4 * j + 2 * i + c] *= corr[i];

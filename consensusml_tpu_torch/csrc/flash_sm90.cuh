@@ -65,6 +65,9 @@ __device__ __forceinline__ float sub_ftz(float a, float b) {
   return r;
 }
 
+// x, or a zero of its sign where x is subnormal
+__device__ __forceinline__ float ftz(float x) { return mul_ftz(x, 1.f); }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -114,6 +117,38 @@ __device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (polls == (1u << 26)) __trap();
   }
+}
+
+// ---- subnormal operands ---------------------------------------------------
+
+// two bf16 with every subnormal (exponent field 0) turned into a zero of its sign
+__device__ __forceinline__ uint32_t daz_bf16x2(uint32_t w) {
+  return w & (__vcmpne2(w & 0x7F807F80u, 0u) | 0x80008000u);
+}
+
+// The reference's compiled program reads a subnormal operand as zero; the
+// tensor cores take a bf16 subnormal as it is. So every tile that TMA
+// stages for a product is flushed once, after its barrier and before its
+// first wgmma: `n_tiles` consecutive 8 KB tiles at `tiles`, element-wise
+// over 16-byte chunks (the swizzle only permutes chunks), each of the
+// block's 128 threads taking every 128th chunk and writing back only a
+// chunk that changed. The generic-proxy writes are then fenced for the
+// async proxy (the wgmma that reads the tiles and the TMA load that
+// later refills them) and the block synchronises; every caller runs one
+// warpgroup a block. The pass costs shared-memory bandwidth, which these
+// products are bound by (an m64n64 wgmma with both operands in shared
+// memory reads ~32 KB a tile; the pass reads 16 KB more): overlapping it
+// with the products instead saved nothing (PERF.md).
+__device__ __forceinline__ void flush_staged_subnormals(uint8_t* tiles, int n_tiles) {
+  uint4* const p = reinterpret_cast<uint4*>(tiles);
+  const int n = n_tiles * kTileBytes / 16;
+  for (int c = threadIdx.x; c < n; c += 128) {
+    const uint4 v = p[c];
+    const uint4 f = make_uint4(daz_bf16x2(v.x), daz_bf16x2(v.y), daz_bf16x2(v.z), daz_bf16x2(v.w));
+    if (f.x != v.x || f.y != v.y || f.z != v.z || f.w != v.w) p[c] = f;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
 }
 
 // ---- thread block clusters --------------------------------------------------
@@ -237,7 +272,8 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[
 
 // the 64 x 64 f32 tile x (accumulator layout) as two bf16 A fragments per
 // k16 step, x = hi + lo to ~2^-16: hi = bf16(x), lo = bf16(x - hi) (x - hi
-// is exact in f32)
+// is exact in f32). Where x is normal, hi is normal too (bf16 and f32
+// share their exponent range); lo may be subnormal, and is kept.
 __device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)[4][4],
                                             uint32_t (&lo)[4][4]) {
 #pragma unroll

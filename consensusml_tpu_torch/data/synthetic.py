@@ -8,6 +8,12 @@ arrays: the class prototypes, labels and noisy images from
 ``default_rng(seed)``, each round's per-worker token block from
 ``default_rng((seed, round, rank))``. The BERT-style corruption
 (``mlm_rate > 0``) comes with its config.
+
+Held-out data (the reference's ``_cls_eval_batches`` and
+``_lm_eval_batches``, ``consensusml_tpu/configs/__init__.py``): the
+classification set's :meth:`SyntheticClassification.holdout` split (same
+prototypes, another sample stream) and the LM stream under keys offset by
+:data:`EVAL_SEED_OFFSET`, disjoint from every training round's.
 """
 
 from __future__ import annotations
@@ -18,27 +24,42 @@ from typing import Iterator
 import numpy as np
 import torch
 
-__all__ = ["SyntheticClassification", "round_batches", "SyntheticLM", "lm_round_batches"]
+__all__ = [
+    "SyntheticClassification", "round_batches", "SyntheticLM", "lm_round_batches", "cls_eval_batches",
+    "lm_eval_batches", "EVAL_SEED_OFFSET",
+]
+
+# keeps held-out sample streams disjoint from every training round key
+EVAL_SEED_OFFSET = 999_983
 
 
 @dataclasses.dataclass
 class SyntheticClassification:
     """Class-prototype + noise classification: class k's images cluster
-    around a fixed random prototype (the reference's training split)."""
+    around a fixed random prototype. ``sample_seed=None`` is the training
+    split (samples from the prototypes' stream); an int selects another
+    sample stream over the same prototypes (:meth:`holdout`)."""
 
     n: int = 8192
     image_shape: tuple[int, ...] = (28, 28, 1)
     classes: int = 10
     noise: float = 0.35
     seed: int = 0
+    sample_seed: int | None = None
 
     def __post_init__(self):
         rng = np.random.default_rng(self.seed)
         self.prototypes = rng.normal(size=(self.classes, *self.image_shape)).astype(np.float32)
+        if self.sample_seed is not None:
+            rng = np.random.default_rng((self.seed, self.sample_seed))
         self.labels = rng.integers(0, self.classes, size=self.n).astype(np.int32)
         self.images = (
             self.prototypes[self.labels] + self.noise * rng.normal(size=(self.n, *self.image_shape))
         ).astype(np.float32)
+
+    def holdout(self, n: int | None = None) -> "SyntheticClassification":
+        """Held-out split: the same class prototypes, a disjoint sample stream."""
+        return dataclasses.replace(self, n=n or self.n, sample_seed=(self.sample_seed or 0) + 1)
 
     def worker_shard(self, rank: int, world_size: int) -> tuple[np.ndarray, np.ndarray]:
         """Disjoint contiguous shard of one worker."""
@@ -70,6 +91,20 @@ def round_batches(
             imgs[r] = x[idx]
             labs[r] = y[idx]
         yield {"image": torch.from_numpy(imgs), "label": torch.from_numpy(labs)}
+
+
+def cls_eval_batches(dataset: SyntheticClassification, batch: int, n_batches: int,
+                     seed: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+    """``n_batches`` held-out batches ``{"image": (B, *image_shape) f32,
+    "label": (B,) int32}`` from ``dataset``'s holdout split, batch ``r``
+    drawn with replacement under ``default_rng((seed + EVAL_SEED_OFFSET,
+    r))``, as the reference draws them. Unstacked: every worker and the
+    mean model score the same batch."""
+    held = dataset.holdout()
+    for r in range(n_batches):
+        rng = np.random.default_rng((seed + EVAL_SEED_OFFSET, r))
+        idx = rng.integers(0, held.n, size=batch)
+        yield {"image": torch.from_numpy(held.images[idx]), "label": torch.from_numpy(held.labels[idx])}
 
 
 @dataclasses.dataclass
@@ -116,3 +151,13 @@ def lm_round_batches(
             for rank in range(world_size)
         ]
         yield {"input_ids": torch.from_numpy(np.stack(per_worker))}
+
+
+def lm_eval_batches(dataset: SyntheticLM, batch: int, n_batches: int,
+                    seed: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+    """``n_batches`` held-out ``{"input_ids": (B, S) int32}`` batches: the
+    same Markov chain under keys ``(seed + EVAL_SEED_OFFSET, r)``, which no
+    training round uses."""
+    for r in range(n_batches):
+        rng = np.random.default_rng((seed + EVAL_SEED_OFFSET, r))
+        yield {"input_ids": torch.from_numpy(dataset.sample(rng, (batch,)))}

@@ -1,7 +1,7 @@
 """Parameter conversion between the JAX package's flax trees and the port,
 and numpy-seeded initial parameters.
 
-The port's ``GPT2LM`` and ``ResNet`` mirror the flax trees one for one
+The port's ``GPT2LM``, ``ResNet`` and ``MLP`` mirror the flax trees one for one
 (module path = flax path joined by dots, same shapes and layouts, f32),
 so conversion is a flatten: no transposes, no reshapes. The input is the
 flax tree with every leaf already a numpy array (``jax.tree.map(
@@ -18,7 +18,7 @@ import torch
 
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["gpt2_from_flax", "resnet_from_flax", "resnet_init_params"]
+__all__ = ["gpt2_from_flax", "resnet_from_flax", "resnet_init_params", "mlp_from_flax", "mlp_init_params"]
 
 
 def gpt2_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -40,6 +40,28 @@ def resnet_from_flax(variables: Mapping[str, Any]) -> tuple[dict[str, torch.Tens
     params = gpt2_from_flax(variables["params"])
     stats = gpt2_from_flax(variables.get("batch_stats", {}))
     return params, {"batch_stats": stats}
+
+
+def mlp_from_flax(variables: Mapping[str, Any]) -> tuple[dict[str, torch.Tensor], dict]:
+    """flax ``MLP`` variables (``{"params": {"Dense_0": {"kernel", "bias"},
+    "Dense_1": ...}}``, numpy leaves) -> ``(params, model_state)`` for the
+    port: ``Dense_0.kernel`` (in, hidden), ``Dense_0.bias``,
+    ``Dense_1.kernel`` (hidden, classes), ``Dense_1.bias`` as f32 tensors
+    (a leading worker axis kept), and ``{}`` (no norm state)."""
+    params = gpt2_from_flax(variables["params"])
+    want = {f"Dense_{i}.{leaf}" for i in (0, 1) for leaf in ("kernel", "bias")}
+    if set(params) != want:
+        raise ValueError(f"not a flax MLP tree: {sorted(params)} (expected {sorted(want)})")
+    return params, {}
+
+
+def mlp_init_params(model, seed: int, world_size: int) -> dict[str, dict[str, np.ndarray]]:
+    """Stacked ``(W, ...)`` f32 initial variables of the port's ``MLP``
+    ``model`` in flax layout, numpy-seeded per worker by ``(seed, rank)``
+    with flax's ``nn.Dense`` scheme (lecun-normal kernels, zero biases, as
+    :func:`resnet_init_params` draws a ``Dense``): ``{"params": {path:
+    array}}`` for :func:`mlp_from_flax`."""
+    return {"params": resnet_init_params(model, seed, world_size)["params"]}
 
 
 def resnet_init_params(model, seed: int, world_size: int) -> dict[str, dict[str, np.ndarray]]:

@@ -179,11 +179,12 @@ def _bwd_plain_parts(q, k, v, dout, lse, delta, causal: bool):
 
 
 def _delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """``sum(do * o)`` per query row in f32, laid out (B, H, S), the sum
-    flushed (a subnormal product among normal ones moves it by less than
-    an ulp, so the products are not: these plain ops run on the card's
-    training path too)."""
-    return ftz((dout.float() * out.float()).sum(-1)).transpose(1, 2).contiguous()
+    """``sum(do * o)`` per query row in f32, laid out (B, H, S): a subnormal
+    ``do`` read as 0 (``o`` is never subnormal: both forwards flush it), the
+    sum flushed (a subnormal product among normal ones moves it by less
+    than an ulp, so the products are not: these plain ops run on the
+    card's training path too)."""
+    return ftz((ftz(dout.float()) * out.float()).sum(-1)).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = False):

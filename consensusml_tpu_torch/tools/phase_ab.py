@@ -21,7 +21,7 @@ reports them) and the host's time per BN backward call. The ``kernels``
 phase times single kernels at ``chip_smoke.py``'s check shapes through
 the wrappers both checkouts have: the LN forward and backward, the BN
 statistics (``bn_forward_stats``) at the five BN check views, the flash
-forward, dq and dk/dv at B=8, S=1024, and paged attention at W=1 and 4;
+forward, dq and dk/dv at B=8 and B=1, S=1024, H=16, and paged attention at W=1 and 4;
 each CUDA events over calls queued behind a sleep kernel
 (``queued_ms``) and profiler device time by CUDA kernel name, so a
 wrapper's launches show apart. The last line is the JSON list of all
@@ -118,13 +118,17 @@ if "kernels" in phases:
         x, dy, gamma, beta = cs.bn_case(torch, dev, gen, m, c)
         ker[f"bn_stats ({m}, {c})"] = timed(lambda _: tbn.bn_forward_stats(x, gamma, beta, 1e-5))
     del x, dy
-    q, k, v, do = (torch.randn(8, 1024, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
-    o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    ker["flash_fwd B=8 S=1024"] = timed(lambda _: tfa.flash_attention(q, k, v, causal=True, return_lse=True))
-    ker["flash_dq B=8 S=1024"] = timed(lambda _: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True))
-    ker["flash_dkv B=8 S=1024"] = timed(lambda _: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
-    del q, k, v, do, o
+    for b in (8, 1):
+        q, k, v, do = (torch.randn(b, 1024, 16, 64, generator=gen, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        ker[f"flash_fwd B={b} S=1024"] = timed(lambda _: tfa.flash_attention(q, k, v, causal=True, return_lse=True))
+        ker[f"flash_dq B={b} S=1024"] = timed(
+            lambda _: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True))
+        ker[f"flash_dkv B={b} S=1024"] = timed(
+            lambda _: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True))
+        del q, k, v, do, o
     torch.cuda.empty_cache()
     ker["paged_attention"] = {f"W={w}": r["ms"] for w, r in cs.check_paged(torch, tpa, dev).items()}
     out["kernels"] = ker

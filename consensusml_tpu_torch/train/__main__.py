@@ -3,9 +3,13 @@ port, mirroring ``train.py``'s flags for the slices that are ported, on
 the simulated backend: ``gpt2_topk`` (on its own codec, ``--codec
 topk_int4``, or ``--codec int8|int4|fp8`` on the fused wire;
 ``--norm-impl pallas`` runs every LayerNorm through the fused-LN CUDA
-kernels) and ``cifar_resnet50``
+kernels), ``cifar_resnet50``
 (exact gossip; ``--norm-impl pallas`` runs every BN through the fused-BN
-CUDA kernels)::
+CUDA kernels) and ``mnist_mlp`` (the 2-layer MLP, dense exact gossip).
+``--topology NAME[:k=v,...]`` swaps any config's gossip graph (ring,
+torus, dense, exp, onepeer-exp, hierarchical:slices=S,outer_every=K);
+``--eval-batches N`` scores N held-out batches after the last round, for
+the mean model and the workers (top-1, or the LM's nll and perplexity)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
@@ -14,6 +18,8 @@ CUDA kernels)::
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec fp8
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1 --codec topk_int4 --norm-impl pallas
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
+    python -m consensusml_tpu_torch.train --config mnist_mlp --scale full --rounds 50 --eval-batches 8
+    python -m consensusml_tpu_torch.train --config mnist_mlp --topology onepeer-exp --eval-batches 8
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).
 Prints the resolved codec path and the norm path, then
@@ -30,7 +36,7 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m consensusml_tpu_torch.train", description=__doc__.split("\n")[0])
-    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50"])
+    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp"])
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
@@ -45,6 +51,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="the model's norm layers: flax = flax's LayerNorm (gpt2_topk) or PyTorch's batch "
                         "norm (cifar_resnet50), the configs' default; pallas = the fused-LN or fused-BN "
                         "CUDA kernels")
+    p.add_argument("--topology", default=None,
+                   help='override the config\'s gossip graph: "ring", "torus", "dense", "exp", '
+                        '"onepeer-exp", or with integer args e.g. "torus:rows=2", '
+                        '"hierarchical:slices=2,outer_every=4"')
+    p.add_argument("--eval-batches", type=int, default=0,
+                   help="after training, score this many held-out batches (the mean model's and the "
+                        "workers' top-1, or the LM's nll and perplexity)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -64,6 +77,12 @@ def main(argv=None) -> int:
         args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
         codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
     )
+    if args.topology is not None:
+        try:
+            configs.with_topology(bundle, args.topology)
+        except (IndexError, ValueError) as e:
+            print(f"error: bad --topology {args.topology!r}: {e}", file=sys.stderr)
+            return 2
     engine = bundle.cfg.engine()
     if engine.compressed:
         fused = engine.fused_wire_active
@@ -80,9 +99,12 @@ def main(argv=None) -> int:
     state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
     gossiped = {"params": state.params, "model_state": state.model_state}
+    topo = engine.topology
+    period = f", period {topo.period}" if topo.is_time_varying else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} workers on {dev}, "
           f"{sum(p[0].numel() for p in params.values())} params per worker, "
-          f"{engine.bucket_plan(gossiped, stacked=True).num_buckets} buckets", flush=True)
+          f"{engine.bucket_plan(gossiped, stacked=True).num_buckets} buckets, topology {topo.name}{period}",
+          flush=True)
     for r, batch in enumerate(bundle.batches(args.rounds, args.seed)):
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -91,6 +113,13 @@ def main(argv=None) -> int:
         if r % args.log_every == 0 or r == args.rounds - 1:
             imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
             print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}", flush=True)
+    if args.eval_batches > 0:
+        from consensusml_tpu_torch.train.evaluate import evaluate
+
+        result = evaluate(bundle.eval_fn, state, bundle.eval_batches(args.eval_batches, args.seed))
+        fmt = lambda d: " ".join(f"{k}={float(v):.4f}" for k, v in sorted(d.items()))  # noqa: E731
+        print(f"eval[mean-model]: {fmt(result['mean_model'])}\n"
+              f"eval[worker-avg]: {fmt(result['worker_mean'])}", flush=True)
     return 0
 
 

@@ -1,0 +1,136 @@
+"""Held-out evaluation of stacked workers and of their mean model (port
+of ``consensusml_tpu/train/evaluate.py``).
+
+The reference's parity condition is matching top-1 accuracy, and
+decentralized training has W disagreeing replicas beside the consensus
+model (the worker-mean parameters, what one would deploy), so both are
+scored on the same batches; the gap between them closes as the consensus
+error goes to zero.
+
+Metric functions return SUMS, so results accumulate exactly across
+batches: classification ``{"correct", "count"}``, causal LM ``{"nll",
+"count"}`` (next-token). :func:`evaluate` derives ``top1`` =
+correct / count and ``nll`` = nll / count, ``ppl`` = exp(nll). The masked
+LM's ``mlm_eval_fn`` waits for ``bert_mlm``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from consensusml_tpu_torch.utils.tree import consensus_mean
+
+__all__ = ["classification_eval_fn", "causal_lm_eval_fn", "make_stacked_eval_step", "evaluate"]
+
+EvalFn = Callable[[dict, dict, dict], dict[str, torch.Tensor]]
+
+
+def classification_eval_fn(model, *, train_kwarg: bool = False) -> EvalFn:
+    """Top-1 sums for image classifiers (the MLP, the ResNet): ``model``
+    (structure only) run with one set of ``params`` and ``model_state``'s
+    ``batch_stats``; ``train_kwarg=True`` passes ``train=False`` (a BN
+    model then normalizes with its running statistics)."""
+
+    def eval_fn(params, model_state, batch):
+        tensors = {**params, **model_state.get("batch_stats", {})}
+        kwargs = {"train": False} if train_kwarg else {}
+        logits = functional_call(model, tensors, (batch["image"],), kwargs)
+        pred = torch.argmax(logits.to(torch.float32), dim=-1)
+        return {
+            "correct": (pred == batch["label"]).to(torch.float32).sum(),
+            "count": torch.tensor(float(pred.numel()), device=pred.device),
+        }
+
+    return eval_fn
+
+
+def causal_lm_eval_fn(model) -> EvalFn:
+    """Next-token NLL sums for a causal LM (GPT-2), dropout off."""
+
+    def eval_fn(params, model_state, batch):
+        ids = batch["input_ids"]
+        logits = functional_call(model, params, (ids,), {"deterministic": True})
+        logits = logits[:, :-1].to(torch.float32)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1).long(),
+                              reduction="none")
+        return {"nll": nll.sum(), "count": torch.tensor(float(nll.numel()), device=nll.device)}
+
+    return eval_fn
+
+
+def make_stacked_eval_step(eval_fn: EvalFn):
+    """``step(params, model_state, batch) -> (per_worker, mean_model)``:
+    every replica of the stacked ``params``/``model_state`` (leading worker
+    axis) and the worker-mean model (:func:`..utils.tree.consensus_mean`)
+    score the same unstacked ``batch``; ``per_worker`` leaves carry the
+    ``(W,)`` axis. Workers run one at a time (the reference vmaps)."""
+
+    @torch.no_grad()
+    def step(params, model_state, batch):
+        world = next(iter(params.values())).shape[0]
+        per = [
+            eval_fn({n: p[w] for n, p in params.items()}, _worker(model_state, w), batch)
+            for w in range(world)
+        ]
+        per = {k: torch.stack([p[k] for p in per]) for k in per[0]}
+        mean = eval_fn(consensus_mean(params), consensus_mean(model_state), batch)
+        return per, mean
+
+    return step
+
+
+def _worker(tree: Any, w: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _worker(v, w) for k, v in tree.items()}
+    return tree[w]
+
+
+def _fetch(v: torch.Tensor) -> np.ndarray:
+    return np.asarray(v.detach().to("cpu", torch.float64).numpy())
+
+
+def _derive(sums: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    out = {}
+    count = sums.get("count")
+    if count is None:
+        return dict(sums)
+    if "correct" in sums:
+        out["top1"] = sums["correct"] / np.maximum(count, 1.0)
+    if "nll" in sums:
+        out["nll"] = sums["nll"] / np.maximum(count, 1.0)
+        out["ppl"] = np.exp(out["nll"])
+    return out
+
+
+def evaluate(eval_fn: EvalFn, state, batches: Iterable[dict]) -> dict[str, Any]:
+    """Accumulate eval sums over ``batches`` (moved to the state's device)
+    for the stacked train ``state`` and derive the metrics::
+
+        {"mean_model": {"top1": ..}, "per_worker": {"top1": array (W,)},
+         "worker_mean": {"top1": ..}}   # scalar mean over workers
+    """
+    step = make_stacked_eval_step(eval_fn)
+    device = next(iter(state.params.values())).device
+    tot_per = tot_mean = None
+    for batch in batches:
+        per, mean = step(state.params, state.model_state, {k: v.to(device) for k, v in batch.items()})
+        per = {k: _fetch(v) for k, v in per.items()}
+        mean = {k: _fetch(v) for k, v in mean.items()}
+        if tot_per is None:
+            tot_per, tot_mean = per, mean
+        else:
+            tot_per = {k: tot_per[k] + v for k, v in per.items()}
+            tot_mean = {k: tot_mean[k] + v for k, v in mean.items()}
+    if tot_per is None:
+        raise ValueError("evaluate() got an empty batch iterator")
+    per_metrics = _derive(tot_per)
+    return {
+        "mean_model": _derive(tot_mean),
+        "per_worker": per_metrics,
+        "worker_mean": {k: float(np.mean(v)) for k, v in per_metrics.items()},
+    }

@@ -122,13 +122,16 @@ def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker:
 def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
     """``step(state, batch) -> (state, metrics)`` for stacked workers on one
     device: per worker (one at a time) H local steps, then one gossip round
-    through the mixing matrix, then the consensus error. ``metrics``:
-    ``loss`` (mean over workers of each worker's mean over its H steps),
+    through the mixing matrix (a time-varying topology's phase ``step %
+    period``, for exact mixing and CHOCO alike), then the consensus error.
+    ``metrics``: ``loss`` (mean over workers of each worker's mean over its H steps),
     ``consensus_error``, the host wall time of the inner loop and of the
     gossip round in ms (both end in a device synchronisation) and, for
     image batches, ``imgs_per_s`` (W x H x B over the round's wall time)."""
     engine = cfg.engine()
-    w_mat = simulated.mixing_matrix(cfg.gossip.topology)
+    topo = cfg.gossip.topology
+    # time-varying topologies: stack the phase matrices once, index by round
+    w_all = simulated.phase_matrices(topo) if topo.is_time_varying else simulated.mixing_matrix(topo)
 
     def step(state: TrainState, batch: dict):
         first = next(iter(batch.values()))
@@ -151,8 +154,10 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
             per_worker.append(torch.stack(losses).mean())
         sync()
         t1 = time.perf_counter()
+        w = w_all[state.step % topo.period] if topo.is_time_varying else w_all
+        w = w.to(device)
         mixed, state.gossip = engine.round_simulated(
-            _gossiped(state.params, state.model_state), state.gossip, w_mat.to(device), step=state.step
+            _gossiped(state.params, state.model_state), state.gossip, w, step=state.step
         )
         state.params, state.model_state = mixed["params"], mixed["model_state"]
         err = engine.consensus_error_simulated(state.params)

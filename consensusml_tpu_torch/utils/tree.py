@@ -1,17 +1,29 @@
-"""Nested-container helpers in the reference's flatten order.
+"""Nested-container helpers in the reference's flatten order, and the
+worker means of stacked trees.
 
 The JAX package flattens parameter trees with ``jax.tree.flatten``: dict
 keys sorted at every level, lists and tuples in order, ``None`` holding
 no leaf. Bucket layouts, CHOCO state and payloads depend on that order
 (``h_0, h_1, h_10, ...`` — string order, not numeric), so the port
 flattens the same way here instead of in ``named_parameters()`` order.
+
+:func:`consensus_mean` is the one definition of "the consensus model"
+(the reference's ``consensusml_tpu/utils/tree.py``): the unweighted
+worker mean of a stacked tree, reduced in f32 and cast back leaf by
+leaf; :func:`masked_worker_mean` restricts it to the alive workers, with
+the reference's ``max(sum(alive), 1)`` guard for a round where every
+worker is dead.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["flatten", "flatten_with_paths", "unflatten", "tree_map", "leaves"]
+import torch
+
+__all__ = [
+    "flatten", "flatten_with_paths", "unflatten", "tree_map", "leaves", "consensus_mean", "masked_worker_mean",
+]
 
 
 def flatten_with_paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
@@ -79,3 +91,26 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         if sp != spec:
             raise ValueError("tree_map over trees of different structure")
     return unflatten(spec, [fn(x, *(o[0][i] for o in others)) for i, x in enumerate(flat)])
+
+
+def masked_worker_mean(x: torch.Tensor, alive, n_alive: torch.Tensor | None = None) -> torch.Tensor:
+    """f32 alive-weighted mean of ONE stacked leaf over its leading worker
+    axis. ``alive``: ``(world,)`` of 0/1 floats; rows of weight 0 add
+    nothing; the divisor is ``max(sum(alive), 1)`` (or ``n_alive``), so a
+    round where every worker is dead gives 0, not NaN. Returns f32 at the
+    leaf's trailing shape; callers cast back."""
+    a = torch.as_tensor(alive, dtype=torch.float32, device=x.device)
+    x32 = x.to(torch.float32)
+    w = a.reshape((a.shape[0],) + (1,) * (x32.dim() - 1))
+    n = torch.clamp(a.sum(), min=1.0) if n_alive is None else n_alive
+    return (x32 * w).sum(dim=0) / n
+
+
+def consensus_mean(tree: Any, alive=None) -> Any:
+    """Worker mean over the leading stacked axis of every leaf, in f32 (a
+    bf16 sum would lose the low bits exactly where replicas disagree
+    least), cast back to each leaf's dtype; with ``alive`` over the alive
+    rows only (:func:`masked_worker_mean`)."""
+    if alive is None:
+        return tree_map(lambda x: x.to(torch.float32).mean(dim=0).to(x.dtype), tree)
+    return tree_map(lambda x: masked_worker_mean(x, alive).to(x.dtype), tree)

@@ -253,6 +253,43 @@ def test_flash_kernels_flush_a_subnormal_head_as_plain(dev, s):
         torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=name)
 
 
+@pytest.mark.parametrize("probe", ["q", "do"])
+@pytest.mark.parametrize("s", [128, 1000])
+def test_flash_kernels_read_subnormal_operands_as_zero(dev, probe, s):
+    """bf16 subnormal operands whose products are normal (causal, 2 heads):
+    probe ``q``, q at +-1e-39 against k at +-1e38 (logits +-0.1 where the
+    tensor cores keep q); probe ``do``, dO at +-1e-38 against V at +-2e36
+    (dp ~0.16 where they keep dO). The kernels flush every staged tile, so
+    the forward (probe ``q``), dq (probe ``do``; in probe ``q`` dS K
+    overflows) and dk/dv (both) match their plain versions, which read the
+    subnormal operand as 0 as the reference does, at the kernels' gates.
+    The backward kernels take the plain forward's lse and delta."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    rnd = lambda: torch.randn(1, s, 2, 64, generator=gen, device=dev)  # noqa: E731
+    sign = lambda: torch.where(rnd() >= 0, 1.0, -1.0)  # noqa: E731
+    q, k, v, do = (rnd().to(torch.bfloat16) for _ in range(4))
+    if probe == "q":
+        q, k = (sign() * 1e-39).to(torch.bfloat16), (sign() * 1e38).to(torch.bfloat16)
+    else:
+        do, v = (sign() * 1e-38).to(torch.bfloat16), (sign() * 2e36).to(torch.bfloat16)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = tfa._delta(ref, do)
+    want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True)
+    got = {"dk": (dk, want[1]), "dv": (dv, want[2])}
+    if probe == "q":
+        out, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    else:
+        got["dq"] = (tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=True), want[0])
+        assert not any(w.any() for w in want), "the plain version reads the subnormal dO as 0"
+    torch.cuda.synchronize()
+    for name, (g, w) in got.items():
+        torch.testing.assert_close(g.float(), w.float(), rtol=2.0**-6, atol=3e-3, msg=name)
+
+
 def test_flash_wrappers_refuse_misaligned_operands(dev):
     """TMA reads the operands: a view 8 bytes past a 16-byte boundary raises
     ``ValueError`` in the forward, dq and dk/dv wrappers, and launches

@@ -119,6 +119,53 @@ def test_subnormal_head_flushes_as_the_reference(name):
         np.testing.assert_allclose(g, w, err_msg=what, **tol)
 
 
+def _signs(seed, shape):
+    return np.where(np.random.default_rng(seed).normal(size=shape) >= 0, 1.0, -1.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("probe", ["q_subnormal_k_large", "do_subnormal_v_large"])
+def test_subnormal_operands_read_as_zero_as_the_reference(probe):
+    """Subnormal operands whose products are normal (bf16, causal, (1, 128,
+    1, 64)): q at +-1e-39 against k at +-1e38 (logits +-0.1 unflushed),
+    and dO at +-1e-39 against V at +-1e36 (dp and delta ~1e-3 unflushed;
+    at 1e38 the reference's unnormalised f32 sum of p v overflows).
+    ``jax.vjp`` of the jitted interpreted reference reads the subnormal
+    operand as 0: uniform probabilities in the first probe, dq = dk = dv =
+    0 in the second. The port's autograd ``flash_attention`` on CPU
+    tensors gives the same, ``delta`` included (it reads a subnormal dO as
+    0). The card test ``test_flash_kernels_read_subnormal_operands_as_zero``
+    holds the kernels to these plain versions."""
+    s, shape = 128, (1, 128, 1, 64)
+    rng = np.random.default_rng(31)
+    q, k, v, ct = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
+    if probe == "q_subnormal_k_large":
+        q, k = _signs(32, shape) * np.float32(1e-39), _signs(33, shape) * np.float32(1e38)
+    else:
+        ct, v = _signs(34, shape) * np.float32(1e-39), _signs(35, shape) * np.float32(1e36)
+
+    @jax.jit
+    def reference(q_, k_, v_, ct_):
+        out, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal=True, dtype=jnp.bfloat16, interpret=True),
+                           q_, k_, v_)
+        return (out, *vjp(ct_))
+
+    want = [np.asarray(t, np.float32) for t in reference(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, ct)))]
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True)
+    got = [out.detach(), *torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(ct).to(torch.bfloat16))]
+    got = [t.float().numpy() for t in got]
+    if probe == "q_subnormal_k_large":
+        # q reads as 0: every row's probabilities are uniform over its keys
+        uniform = np.cumsum(v.astype(jnp.bfloat16).astype(np.float32), axis=1) / np.arange(1, s + 1)[None, :, None, None]
+        np.testing.assert_allclose(want[0], uniform, rtol=2.0**-7, atol=1e-6)
+        checked = zip(("out", "dv"), (got[0], got[3]), (want[0], want[3]))
+    else:
+        assert not any(w.any() for w in want[1:]), "the reference reads the subnormal dO as 0"
+        checked = zip(("out", "dq", "dk", "dv"), got, want)
+    for what, g, w in checked:
+        np.testing.assert_allclose(g, w, rtol=2.0**-7, atol=2e-3, err_msg=what)
+
+
 def test_autograd_backward_is_the_plain_backward_on_cpu():
     """The Function's backward on CPU tensors is ``flash_attention_bwd_plain``
     on the saved tensors, bit for bit, and launches nothing."""

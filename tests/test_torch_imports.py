@@ -69,6 +69,16 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
             train_main(["--config", "cifar_resnet50", "--scale", "smoke", "--rounds", "1", "--norm-impl", norm_impl])
     bundle = configs.build("cifar_resnet50", "smoke", norm_impl="pallas", device="cpu")
     assert "plain PyTorch versions" in bundle.norm_path
+    # the twelfth slice's paths: mnist_mlp, and any config on another topology
+    for argv in (["--config", "mnist_mlp"], ["--config", "mnist_mlp", "--topology", "onepeer-exp"],
+                 ["--config", "cifar_resnet50", "--topology", "torus"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_main(argv + ["--rounds", "1", "--eval-batches", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        configs.build("mnist_mlp", "smoke")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        configs.build("mnist_mlp", "full", topology="hierarchical:slices=2,outer_every=2")
+    assert configs.build("mnist_mlp", "full", topology="exp", device="cpu").cfg.gossip.topology.name == "exp"
 
 
 def test_auto_tier_on_cpu_is_the_plain_version():

@@ -38,7 +38,7 @@ Phases, each printed as one JSON line:
    buckets (4 x 100,514 and 4 x 6,160 rows of 512), the fused encode's
    int4 and fp8 formats at the largest bucket's rows, and the fused
    decode (``fused_dequantize_accumulate``, the collective round's receive,
-   which no one-card path runs) in all three formats with the ring's
+   which ``train_collective`` runs) in all three formats with the ring's
    three sources at 1/3, bit for bit. Every codec check appends rows of
    f32 subnormals (which the kernels flush as the reference's compiled
    program does), NaN and inf.
@@ -123,6 +123,37 @@ Phases, each printed as one JSON line:
     and, gossip only, onepeer-exp at 8 workers on random stacked
     parameters reaching 1e-6 of its starting consensus error after one
     period (the reference's finite-time guarantee).
+Before ``serve``, while this process holds the least of the card, the
+collective backend (``--backend collective --dist-backend gloo``): every
+worker a process of its own on the one card, the wire between them staged
+through pinned host memory (so these round times are not a multi-card
+run's: the ranks' kernels are time-sliced on the card and their bytes
+cross host memory). Each phase's ranks train through the train CLI's
+rank function (one warm round, two counted rounds, launch counts zeroed
+before and read after each), then run one gossip round from seeded
+per-worker inputs, which this process holds against the simulated round
+on the same stacked inputs (``COLLECTIVE_RTOL``; ``xhat'`` bit-equal):
+
+- ``train_resnet_collective``: ``cifar_resnet50`` full ``--norm-impl
+  pallas``, 8 ranks on a ring (no cut), exact bucketed gossip of the
+  weights and BN statistics (23 buckets): ``bn_stats``, ``bn_norm``,
+  ``bn_bwd`` 53 times a rank a round;
+- ``train_collective`` and ``train_collective_topk`` (one spawn of 4
+  ranks): ``gpt2_topk`` full ``--workers 4 --codec-warmup 1`` on the
+  fused int8 wire (``--codec int8``: 123 encodes and 123 three-source
+  ``fused_dequantize_accumulate`` launches a rank a round, 715,190,448
+  wire bytes) and on the config's top-k + int8 two-step wire (25 buckets:
+  a top-k, a quantize, three dequantizes and three ``chunk_scatter``
+  launches a bucket, two of them its accumulating form; 33,366,424 wire
+  bytes), the flash forward, dq and dk/dv 48 times a rank a round. Their
+  check round covers the first ``GPT2_CHECK_LEAVES`` leaves.
+
+Gates: every rank exits within the timeout; launches and the transport's
+bytes a rank a counted round as the code and ``wire_bytes_per_round``
+predict; the loss and consensus error all-reduced to one value on every
+rank, finite (and the error non-zero on the compressed wires); the check
+round within tolerance.
+
 13. ``train_mnist``: ``mnist_mlp`` full (MLP hidden 256, f32, 4 workers,
     dense exact gossip, Adam 1e-3, batch 64) on the card: one warm round,
     50 counted rounds (round time median and spread, images/s, gossip ms,
@@ -800,7 +831,7 @@ def check_fp8(torch, tck, dev, totals, world=4, chunk=512):
 
 def check_decode(torch, tck, dev, rows, chunk=512, weights=(1 / 3, 1 / 3, 1 / 3)):
     """``fused_dequantize_accumulate`` (the fused wire's receive, which
-    only the collective round calls: no one-card path launches it) in all
+    only the collective round calls: ``train_collective``) in all
     three formats at the largest bucket's rows with the ring's three
     sources at 1/3, held BIT FOR BIT against its plain version (NaN
     payload bits aside). The sources are fused encodes of random rows
@@ -2359,6 +2390,242 @@ def train_resnet_topologies_phase(torch, dev, init):
     return out, total
 
 
+# ---------------------------------------------------------------------------
+# the collective backend: one process per worker, all on the one card,
+# gloo ranks whose wire is staged through pinned host memory
+# ---------------------------------------------------------------------------
+
+# collective against simulated, one gossip round from the same seeded
+# per-worker inputs: |collective - simulated| <= ATOL + RTOL * |simulated|
+# (the reference's own cross-backend tolerance, tests/test_fused_wire.py),
+# for exact mixing ATOL + RTOL * (|W| @ |x|): the simulated round sums W @ x
+# as a matrix product, the collective one as a chain of multiply-adds
+COLLECTIVE_RTOL, COLLECTIVE_ATOL = 1e-5, 1e-6
+COLLECTIVE_CHECK_SEED = 7
+# GPT-2's check round covers the first 36 leaves of the gossiped tree in
+# flatten order (three transformer blocks): the full tree would send the
+# parent 4.3 GB a rank (parameters, xhat and s as f32) through host memory
+GPT2_CHECK_LEAVES = 36
+COLLECTIVE_TIMEOUT_S = 540.0
+
+
+def collective_spec(config, scale, world, rounds, codec=None, norm_impl="flax", check_leaves=None, device="cuda"):
+    """The train CLI's flags (``--backend collective --dist-backend gloo``)
+    as :func:`consensusml_tpu_torch.train.collective.train_rank` reads
+    them, plus the seeded gossip check after the rounds."""
+    return {"config": config, "scale": scale, "workers": world, "codec": codec, "gamma": None,
+            "codec_warmup": 1 if config == "gpt2_topk" else None, "norm_impl": norm_impl, "topology": None,
+            "seed": 0, "device": device, "dist_backend": "gloo", "rounds": rounds, "log_every": 0,
+            "check": {"seed": COLLECTIVE_CHECK_SEED, "step": 1,
+                      "leaves": check_leaves}}
+
+
+def collective_launches_expected(bundle, buckets):
+    """Each kernel's launches a rank a round, as the code predicts: flash
+    forward, dq and dk/dv once a layer a local step (GPT-2); the three BN
+    kernels once a BN layer a local step (ResNet, fused BN); the fused
+    wire's encode and three-source decode once a bucket; the two-step
+    wire's top-k, quantize, own dequantize and scatter once a bucket, plus
+    a dequantize and an accumulating scatter a bucket a shift."""
+    from consensusml_tpu_torch.models.fused_bn import FusedBatchNorm
+
+    cfg = bundle.cfg
+    engine = cfg.engine()
+    shifts = len(engine.topology.shifts)
+    out, forms = {}, {}
+    if bundle.name == "gpt2_topk":
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            out[name] = bundle.model.config.layers * cfg.h
+    else:
+        n_bn = sum(1 for m in bundle.model.modules() if isinstance(m, FusedBatchNorm))
+        for name in BN_KERNELS:
+            out[name] = n_bn * cfg.h
+    if engine.compressed and engine.fused_wire_active:
+        out["fused_choco_encode"] = out["fused_dequantize_accumulate"] = buckets
+    elif engine.compressed:
+        out["chunked_topk"] = out["quantize_int8"] = buckets
+        out["dequantize_int8"] = out["chunk_scatter"] = buckets * (1 + shifts)
+        forms = {"chunk_scatter": {"acc": buckets * shifts}}
+    return out, forms
+
+
+def collective_check(torch, dev, bundle, results, check_leaves):
+    """Gate 2: the ranks' seeded gossip round against the simulated round
+    on the same stacked inputs, computed here after the ranks exited."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.comm.check import seeded_state, seeded_tree
+    from consensusml_tpu_torch.consensus import ChocoState
+    from consensusml_tpu_torch.utils import tree as T
+
+    engine = bundle.cfg.engine()
+    world = len(results)
+    leaves = [(tuple(p), tuple(sh)) for p, sh in results[0]["check"]["leaves"]]
+    rows, states = [], []
+    for r in range(world):
+        tree, gen = seeded_tree(leaves, COLLECTIVE_CHECK_SEED, r, dev)
+        rows.append(tree)
+        states.append(seeded_state(engine, tree, gen))
+    stacked = T.tree_map(lambda *xs: torch.stack(xs), *rows)
+    state = None if states[0] is None else ChocoState(
+        xhat=[torch.stack(xs) for xs in zip(*[s.xhat for s in states])],
+        s=[torch.stack(xs) for xs in zip(*[s.s for s in states])])
+    x_abs = T.tree_map(torch.abs, stacked)
+    w = simulated.mixing_matrix(engine.topology, device=dev)
+    del rows, states
+    want, want_state = engine.round_simulated(stacked, state, w, step=1)
+    bound = None
+    if not engine.compressed:
+        bound = T.tree_map(lambda a: simulated.mix_stacked(a, torch.abs(w)), x_abs)
+    del stacked, state, x_abs
+    worst, xhat_mismatches = 0.0, 0
+
+    def held(g, wnt, b):
+        nonlocal worst
+        g = g.to(dev)
+        tol = COLLECTIVE_ATOL + COLLECTIVE_RTOL * (b if b is not None else wnt.abs())
+        worst = max(worst, float(((g - wnt).abs() / tol).max()))
+
+    mine = T.tree_map(lambda *xs: torch.stack(xs), *[T.tree_map(torch.from_numpy, r["check"]["tree"])
+                                                      for r in results])
+    for (path, g), (_p, wnt) in zip(T.flatten_with_paths(mine), T.flatten_with_paths(want)):
+        b = None if bound is None else dict(T.flatten_with_paths(bound))[path]
+        held(g, wnt, b)
+    n_buckets = None
+    if want_state is not None:
+        n_buckets = len(want_state.xhat)
+        for b in range(n_buckets):
+            xh = torch.stack([torch.from_numpy(r["check"]["state"]["xhat"][b]) for r in results]).to(dev)
+            xhat_mismatches += int((xh.view(torch.int32) != want_state.xhat[b].view(torch.int32)).sum())
+            held(torch.stack([torch.from_numpy(r["check"]["state"]["s"][b]) for r in results]), want_state.s[b], None)
+    out = {"leaves": len(leaves), "elements_per_worker": sum(int(np.prod(s)) for _p, s in leaves),
+           "buckets": n_buckets, "max_err_over_tolerance": worst, "xhat_bits_differing": xhat_mismatches,
+           "rtol": COLLECTIVE_RTOL, "atol": COLLECTIVE_ATOL,
+           "tolerance_scale": "|W| @ |x|" if bound is not None else "|simulated|",
+           "launches": results[0]["check"]["launches"], "forms": results[0]["check"]["forms"],
+           "bytes_sent_per_rank": [r["check"]["transport"]["bytes_sent"] for r in results],
+           "wire_bytes_per_round": results[0]["check"]["wire_bytes_per_round"]}
+    if worst > 1.0 or xhat_mismatches:
+        raise AssertionError(f"collective round differs from the simulated one: {out}")
+    if any(b != out["wire_bytes_per_round"] for b in out["bytes_sent_per_rank"]):
+        raise AssertionError(f"the check round's transport bytes differ from wire_bytes_per_round: {out}")
+    return out
+
+
+def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
+    """One collective phase's line from its ranks' results, with gates 1-5
+    (every rank returned, which ``launch`` already enforces; the seeded
+    round against the simulated one; launches; transport bytes; sound
+    training values)."""
+    from consensusml_tpu_torch import configs
+
+    bundle = configs.build(spec["config"], spec["scale"], world=spec["workers"], codec=spec["codec"],
+                           codec_warmup=spec["codec_warmup"], norm_impl=spec["norm_impl"], device=dev)
+    engine = bundle.cfg.engine()
+    world = len(results)
+    buckets = results[0]["buckets"]
+    counted = list(range(1, spec["rounds"]))  # round 0 warms (and, for GPT-2, is the codec's warm-up)
+    expect, forms = collective_launches_expected(bundle, buckets)
+    wire = results[0]["wire_bytes_per_round"]
+    problems = []
+    if expect_wire is not None and wire != expect_wire:
+        problems.append(f"wire_bytes_per_round {wire} != {expect_wire}")
+    for r, res in enumerate(results):
+        for i in counted:
+            rd = res["rounds"][i]
+            if rd["launches"] != expect or {k: v for k, v in rd["forms"].items() if any(v.values())} != forms:
+                problems.append(f"rank {r} round {i}: launches {rd['launches']} {rd['forms']} != {expect} {forms}")
+            if rd["wire_bytes"] != wire:
+                problems.append(f"rank {r} round {i}: the transport sent {rd['wire_bytes']} bytes, not {wire}")
+    for i in range(spec["rounds"]):
+        losses = {res["rounds"][i]["loss"] for res in results}
+        errs = {res["rounds"][i]["consensus_error"] for res in results}
+        if len(losses) != 1 or len(errs) != 1:
+            problems.append(f"round {i}: the ranks disagree on the all-reduced loss {losses} or error {errs}")
+        loss, err = losses.pop(), errs.pop()
+        if not (np.isfinite(loss) and np.isfinite(err)) or (engine.compressed and not err > 0):
+            problems.append(f"round {i}: loss {loss} or consensus error {err} not finite (and non-zero)")
+    if problems:
+        raise AssertionError(f"{phase}: " + "; ".join(problems))
+    check = collective_check(torch, dev, bundle, results, spec["check"]["leaves"])
+    keys = ("round_ms", "inner_ms", "gossip_ms", "metrics_ms", "staging_ms", "wire_ms")
+    per_round = {key: [[res["rounds"][i][key] for i in counted] for res in results] for key in keys + ("bytes_staged",)}
+    med = lambda key: float(np.median(per_round[key]))  # noqa: E731
+    # the kernels line's launches: what every rank counted in the counted rounds
+    launches: dict = {}
+    by_form: dict = {}
+    for res in results:
+        for i in counted:
+            rd = res["rounds"][i]
+            for k, v in rd["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, f in rd["forms"].items():
+                for form, n in f.items():
+                    if n:
+                        by_form.setdefault(k, {})
+                        by_form[k][form] = by_form[k].get(form, 0) + n
+    return {
+        "phase": phase, "config": flags, "ranks": world, "transport": "gloo, staged through pinned host memory",
+        "device_of_every_rank": str(dev), "buckets": buckets, "wire_bytes_per_round": wire,
+        "rounds": [{"step": i, "loss": results[0]["rounds"][i]["loss"],
+                    "consensus_error": results[0]["rounds"][i]["consensus_error"],
+                    "wire_bytes_per_rank": [res["rounds"][i]["wire_bytes"] for res in results],
+                    **{key: [res["rounds"][i][key] for res in results] for key in keys + ("bytes_staged",)}}
+                   for i in range(spec["rounds"])],
+        "counted_rounds": counted,
+        # inner: the local steps (the ranks take turns on the card); gossip:
+        # the round (its staging and gloo waits inside it); metrics: the
+        # consensus error's and the loss's all-reduces
+        "median_ms": {key: med(key) for key in keys},
+        "median_bytes_staged": med("bytes_staged"),
+        "launches_per_rank_per_round": expect, "forms_per_rank_per_round": forms,
+        "peak_allocated_bytes_per_rank": [res.get("peak_allocated_bytes") for res in results],
+        "device_used_bytes": max(res.get("device_used_bytes") or 0 for res in results),
+        "collective_vs_simulated": check,
+    }, launches, by_form
+
+
+def collective_phases(torch, dev):
+    """``train_resnet_collective`` (8 ranks) then ``train_collective`` and
+    ``train_collective_topk`` (one spawn of 4 ranks for both): each rank
+    its own process and worker on the one card. Returns the lines and the
+    launches by phase."""
+    from consensusml_tpu_torch.comm.launch import launch
+    from consensusml_tpu_torch.train import collective
+
+    out = []
+    runs = (
+        ("cifar_resnet50", 8, [("train_resnet_collective",
+                                collective_spec("cifar_resnet50", "full", 8, 3, norm_impl="pallas"),
+                                "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo",
+                                None)]),
+        ("gpt2_topk", 4, [
+            ("train_collective", collective_spec("gpt2_topk", "full", 4, 3, codec="int8",
+                                                 check_leaves=GPT2_CHECK_LEAVES),
+             "gpt2_topk full --workers 4 --codec int8 --codec-warmup 1 --backend collective --dist-backend gloo",
+             715_190_448),
+            ("train_collective_topk", collective_spec("gpt2_topk", "full", 4, 3, check_leaves=GPT2_CHECK_LEAVES),
+             "gpt2_topk full --workers 4 --codec-warmup 1 --backend collective --dist-backend gloo",
+             33_366_424),
+        ]),
+    )
+    for _config, world, phases in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        per_rank = launch(collective.train_runs, world, [spec for _n, spec, _f, _w in phases],
+                          dist_backend="gloo", timeout=COLLECTIVE_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        for i, (name, spec, flags, expect_wire) in enumerate(phases):
+            line, launches, forms = collective_line(torch, dev, name, spec, [r[i] for r in per_rank], flags,
+                                                    expect_wire)
+            line["spawn_to_exit_s"] = spawn_s
+            out.append((line, launches, forms))
+        del per_rank
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -2452,8 +2719,8 @@ def main() -> int:
         # line's format); int4 and fp8 at the largest bucket's rows beside
         ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
          "consensusml_tpu/compress/kernels.py:953", {**enc["int8"], "by_format": enc}),
-        # fp8 carries the readings (its byte bound is the largest); no
-        # one-card path launches it
+        # fp8 carries the readings (its byte bound is the largest); the
+        # collective round's receive (train_collective) launches it
         ("fused_dequantize_accumulate", "consensusml_tpu_torch/csrc/fused_choco_decode.cu",
          "consensusml_tpu/compress/kernels.py:1016", {**dec["fp8"], "by_format": dec}),
         # the largest bucket's shapes carry the top-k phase's time; the
@@ -2498,6 +2765,16 @@ def main() -> int:
     if sorted(r[0] for r in rows) != sorted(kernels.KERNELS):
         raise AssertionError(f"the kernels line must list every kernel of {list(kernels.KERNELS)}")
     launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
+    forms: dict[str, dict] = {}
+    # the collective phases first, while this process holds the least of
+    # the card: every rank is a process of its own on it
+    for line, counts, by_form in collective_phases(torch, dev):
+        emit(line)
+        for name, n in counts.items():
+            launches[name][line["phase"]] = n
+        for name, per in by_form.items():
+            for form, n in per.items():
+                forms.setdefault(name, {}).setdefault(form, {})[line["phase"]] = n
     serve, counts = serve_phase(torch, dev)
     emit(serve)
     for name, n in counts.items():
@@ -2553,6 +2830,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
+         **({"launches_by_form": forms[name]} if name in forms else {}),
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),

@@ -1,3 +1,4 @@
-"""Gossip backends (counterpart of ``consensusml_tpu.comm``). This slice
-has the stacked simulated backend; the collective backend over
-``torch.distributed`` waits for a later slice."""
+"""Gossip backends (counterpart of ``consensusml_tpu.comm``): the stacked
+simulated backend (:mod:`.simulated`) and the collective one, one process
+per worker over ``torch.distributed`` (:mod:`.collectives`, :mod:`.mesh`,
+:mod:`.transport`, :mod:`.launch`)."""

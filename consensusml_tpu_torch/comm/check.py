@@ -1,0 +1,177 @@
+"""Rank targets that drive the collective backend on given inputs and
+return what came out, as numpy: the cross-backend checks of the tests
+(``tests/test_torch_collectives.py``, ``tests/test_torch_collective_
+engine.py``) and of ``chip_smoke.py``. Run them through
+:func:`consensusml_tpu_torch.comm.launch.launch`; each builds its rank's
+:class:`~.mesh.WorkerMesh` and takes its row of the stacked inputs, so
+the parent holds the results against the simulated backend (or the JAX
+package) on the same stacked inputs.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from consensusml_tpu_torch import kernels
+from consensusml_tpu_torch.comm import collectives
+from consensusml_tpu_torch.comm.mesh import WorkerMesh
+from consensusml_tpu_torch.train.local_sgd import worker_generator
+from consensusml_tpu_torch.utils import tree as T
+
+__all__ = [
+    "collective_ops", "gossip_cases", "seeded_tree", "seeded_state", "seeded_gossip_round", "stall",
+    "to_numpy",
+]
+
+
+def to_numpy(tree: Any) -> Any:
+    """A tree of tensors as numpy arrays (bf16 as f32, which holds it exactly)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    return T.tree_map(conv, tree)
+
+
+def _row(stacked: np.ndarray, rank: int, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(stacked[rank]))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def collective_ops(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
+    """For each ``(topology, stacked, dtype)`` case (``stacked`` a numpy
+    ``(world, ...)`` array, or a list of them for the bucket form), this
+    rank's :func:`~.collectives.ppermute_shift` along each shift, its
+    :func:`~.collectives.mix` (or :func:`~.collectives.mix_buckets` of the
+    list) and the :func:`~.collectives.consensus_error`, on the rank's
+    card (:func:`~.mesh.rank_device`) unless ``device="cpu"``."""
+    out = []
+    for topology, stacked, dtype in cases:
+        mesh = WorkerMesh.create(topology, dist_backend, device)
+        dtype = getattr(torch, dtype)
+        if isinstance(stacked, list):
+            bufs = [_row(x, rank, mesh.device, dtype) for x in stacked]
+            mixed = collectives.mix_buckets(bufs, topology, mesh)
+            err = collectives.consensus_error(bufs, topology, mesh)
+            out.append({"mix_buckets": to_numpy(mixed), "consensus_error": float(err)})
+            continue
+        x = _row(stacked, rank, mesh.device, dtype)
+        shifted = [] if topology.uses_psum else [
+            collectives.ppermute_shift(x, topology, s, mesh) for s in topology.shifts
+        ]
+        out.append({
+            "shifts": to_numpy(shifted),
+            "mix": to_numpy(collectives.mix(x, topology, mesh)),
+            "consensus_error": float(collectives.consensus_error({"x": x}, topology, mesh)),
+        })
+    return out
+
+
+def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backend: str, device: str | None) -> dict:
+    mesh = WorkerMesh.create(engine.topology, dist_backend, device)
+    x = T.tree_map(lambda a: _row(a, rank, mesh.device), tree)
+    st = engine.init_state(x)
+    if st is not None and state is not None:
+        st = type(st)(xhat=[_row(a, rank, mesh.device) for a in state["xhat"]],
+                      s=[_row(a, rank, mesh.device) for a in state["s"]])
+    kernels.reset_launch_counts()
+    before = mesh.transport.stats.snapshot()
+    bytes_by_round = []
+    for step in steps:
+        b0 = mesh.transport.stats.bytes_sent
+        x, st = engine.round_collective(x, st, mesh, step=step)
+        bytes_by_round.append(mesh.transport.stats.bytes_sent - b0)
+    counts = {"launches": kernels.launch_counts(), "forms": kernels.form_counts()}
+    moved = mesh.transport.stats.since(before)
+    err = float(engine.consensus_error_collective(x, mesh))
+    return {
+        "tree": to_numpy(x),
+        "state": None if st is None else {"xhat": to_numpy(st.xhat), "s": to_numpy(st.s)},
+        "consensus_error": err,
+        "bytes_by_round": bytes_by_round,
+        "transport": moved,
+        **counts,
+    }
+
+
+def gossip_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
+    """For each ``(engine, tree, steps, state)`` case in turn, in one
+    process group: ``engine.round_collective`` on this rank's row of the
+    stacked numpy ``tree`` (a dict of leaves or of sub-dicts, as the
+    gossiped tree), once for each round counter in ``steps``, from the
+    stacked numpy CHOCO ``state`` ``{"xhat": [...], "s": [...]}`` (zeros
+    when ``None``). Returns per case the final tree and state as numpy, the
+    consensus error, the kernel launches of the rounds
+    (``kernels.launch_counts()`` and the forms, zeroed just before), the
+    transport's bytes sent each round and its totals. Runs on the rank's
+    card unless ``device="cpu"``."""
+    return [_gossip_rounds(rank, engine, tree, steps, state, dist_backend, device)
+            for engine, tree, steps, state in cases]
+
+
+def seeded_tree(leaves: list, seed: int, rank: int, device, scale: float = 0.05) -> dict:
+    """Worker ``rank``'s seeded gossiped tree: ``{"params": ...,
+    "model_state": ...}`` with a ``N(0, scale^2)`` f32 leaf at each ``(path,
+    shape)`` of ``leaves`` (paths from ``T.flatten_with_paths`` of the
+    gossiped tree), drawn in that order from a generator on ``device``
+    seeded by ``(seed, rank)``: the same bits in a rank and in a parent
+    that stacks every rank's tree. Returns ``(tree, generator)``."""
+    gen = worker_generator(device, seed, rank)
+    tree: dict = {"params": {}, "model_state": {}}
+    for path, shape in leaves:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.randn(shape, generator=gen, device=device) * scale
+    return tree, gen
+
+
+def seeded_state(engine, tree: dict, gen: torch.Generator, scale: float = 0.05):
+    """A nonzero per-bucket CHOCO state for ``tree`` from ``gen`` (a
+    mid-run state), or ``None`` for exact mixing."""
+    zero = engine.init_state(tree)
+    if zero is None:
+        return None
+    draw = lambda z: torch.randn(z.shape, generator=gen, device=z.device) * scale  # noqa: E731
+    return type(zero)(xhat=[draw(z) for z in zero.xhat], s=[draw(z) for z in zero.s])
+
+
+def seeded_gossip_round(mesh: WorkerMesh, engine, leaves: list, seed: int, step: int) -> dict:
+    """One ``engine.round_collective`` over ``mesh`` from this rank's
+    :func:`seeded_tree` and :func:`seeded_state`. Returns the round's
+    tree and state as numpy, its kernel launches and forms (zeroed just
+    before), and what the transport moved, beside the ``leaves`` and the
+    engine's ``wire_bytes_per_round`` of that tree."""
+    tree, gen = seeded_tree(leaves, seed, mesh.rank, mesh.device)
+    state = seeded_state(engine, tree, gen)
+    wire = engine.wire_bytes_per_round(tree)
+    kernels.reset_launch_counts()
+    before = mesh.transport.stats.snapshot()
+    tree, state = engine.round_collective(tree, state, mesh, step=step)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return {
+        "tree": to_numpy(tree),
+        "state": None if state is None else {"xhat": to_numpy(state.xhat), "s": to_numpy(state.s)},
+        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+        "forms": kernels.form_counts(),
+        "transport": mesh.transport.stats.since(before),
+        "leaves": list(leaves),
+        "wire_bytes_per_round": wire,
+    }
+
+
+def stall(rank: int, world: int, seconds: float) -> None:
+    """Rank 0 sleeps ``seconds`` before the group's barrier and the others
+    wait there: one stalled rank holds every rank (the launcher's timeout
+    is what ends it)."""
+    import time
+
+    import torch.distributed as dist
+
+    if rank == 0:
+        time.sleep(seconds)
+    dist.barrier()

@@ -1,0 +1,140 @@
+"""Gossip collectives of one rank (port of ``consensusml_tpu/comm/collectives.py``).
+
+The reference runs these per worker inside ``shard_map``: a shift is an
+XLA ``ppermute``, a dense topology a ``pmean``. Here each worker is a
+process and every function takes its :class:`~.mesh.WorkerMesh`; a shift
+is a send to the rank ``offset`` ahead on the shift's axis and a receive
+from the rank ``offset`` behind (``topology.shift_src``), and a mean is an
+all-reduce sum divided by the world size, both on the mesh's transport.
+``topology`` may be a phase of the mesh's time-varying topology.
+
+The mixing operator equals ``W @ x`` with the topology's mixing matrix
+(held against :mod:`.simulated` and the reference's ``shard_map``
+collectives by ``tests/test_torch_collectives.py``). Shift mixing
+accumulates in f32 as the reference's compiled program does: XLA
+contracts its ``x * self_weight + w_1 r_1 + ...`` chain into one
+multiply-add of the first two terms (``fma(self_weight, x, w_1 r_1)`` for
+f32 leaves, ``fma(w_1, r_1, self_weight x)`` for bf16 ones), then
+``fma(w_j, r_j, acc)`` for each later shift, in shift order, and so does
+:func:`mix` (bit for bit; that contraction is the CPU compiler's choice,
+and a compiler upgrade could change it).
+
+``mix_masked`` and ``mix_tree_masked`` (fault injection) wait for the
+port of ``consensus/faults.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from consensusml_tpu_torch.comm.mesh import WorkerMesh
+from consensusml_tpu_torch.compress.reference import fma_f32
+from consensusml_tpu_torch.topology import Shift, Topology
+from consensusml_tpu_torch.utils import tree as T
+
+__all__ = [
+    "shift_dst",
+    "ppermute_shifts",
+    "ppermute_shift",
+    "ppermute_shift_tree",
+    "all_reduce_mean",
+    "mix",
+    "mix_tree",
+    "mix_buckets",
+    "consensus_error",
+]
+
+
+def shift_dst(topology: Topology, rank: int, shift: Shift) -> int:
+    """The rank that RECEIVES ``rank``'s value under ``shift`` (the inverse
+    of ``topology.shift_src``)."""
+    coords = list(topology.coords(rank))
+    coords[shift.axis] += shift.offset
+    return topology.rank(coords)
+
+
+def ppermute_shifts(tensors: list[torch.Tensor], topology: Topology, shifts, mesh: WorkerMesh) -> list[list]:
+    """Every tensor along every shift at once: per shift, the list of
+    values this rank receives (from ``topology.shift_src(rank, shift)``).
+    All sends and receives are posted before any is waited on, as the
+    reference issues every bucket's ``ppermute`` before any combine."""
+    routes = [(shift_dst(topology, mesh.rank, s), topology.shift_src(mesh.rank, s)) for s in shifts]
+    return mesh.transport.exchange(list(tensors), routes)
+
+
+def ppermute_shift(x: torch.Tensor, topology: Topology, shift: Shift, mesh: WorkerMesh) -> torch.Tensor:
+    """Receive the value a cyclic ``shift`` away: ``offset=+1`` receives
+    from the left neighbour (rank ``i - 1`` on the shift's axis)."""
+    return ppermute_shifts([x], topology, [shift], mesh)[0][0]
+
+
+def ppermute_shift_tree(tree: Any, topology: Topology, shift: Shift, mesh: WorkerMesh) -> Any:
+    leaves, spec = T.flatten(tree)
+    return T.unflatten(spec, ppermute_shifts(leaves, topology, [shift], mesh)[0])
+
+
+def all_reduce_mean(tensors: list[torch.Tensor], mesh: WorkerMesh) -> list[torch.Tensor]:
+    """``pmean`` of each tensor over the ranks: the all-reduce sum in f32,
+    divided by the world size, cast back."""
+    sums = mesh.transport.all_reduce_sum([t.to(torch.float32) for t in tensors])
+    return [(s / mesh.world_size).to(t.dtype) for s, t in zip(sums, tensors)]
+
+
+def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor]) -> torch.Tensor:
+    # x * self_weight + each shift's w * r in shift order, contracted as
+    # the reference's compiled program does: the first two terms fused into
+    # one multiply-add (fma(self_weight, x, w_1 r_1) for f32 leaves; for
+    # bf16 ones, whose f32 x is a conversion, fma(w_1, r_1, self_weight x)),
+    # then fma(w_j, r_j, acc) for each later shift
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
+    xf = x.to(torch.float32)
+    sw = f32(topology.self_weight)
+    if not recvs:
+        return (xf * sw).to(x.dtype)
+    shifts = topology.shifts
+    w1, r1 = f32(shifts[0].weight), recvs[0].to(torch.float32)
+    acc = fma_f32(sw, xf, w1 * r1) if x.dtype == torch.float32 else fma_f32(w1, r1, xf * sw)
+    for s, r in zip(shifts[1:], recvs[1:]):
+        acc = fma_f32(f32(s.weight), r.to(torch.float32), acc)
+    return acc.to(x.dtype)
+
+
+def mix(x: torch.Tensor, topology: Topology, mesh: WorkerMesh) -> torch.Tensor:
+    """One gossip averaging round, ``x_i <- sum_j W[i, j] x_j``: a mean
+    over every rank for a dense topology (exact consensus in one round),
+    the weighted shifts accumulated in f32 otherwise."""
+    if topology.uses_psum:
+        return all_reduce_mean([x], mesh)[0]
+    recvs = ppermute_shifts([x], topology, topology.shifts, mesh)
+    return _combine(x, topology, [r[0] for r in recvs])
+
+
+def mix_tree(tree: Any, topology: Topology, mesh: WorkerMesh) -> Any:
+    return T.tree_map(lambda x: mix(x, topology, mesh), tree)
+
+
+def mix_buckets(bufs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh) -> list[torch.Tensor]:
+    """One gossip round over flat bucket buffers: per buffer exactly
+    :func:`mix`, with every bucket's sends posted before any bucket's
+    combine (one exchange for all of them)."""
+    if not bufs:
+        return []
+    if topology.uses_psum:
+        return all_reduce_mean(bufs, mesh)
+    inflight = ppermute_shifts(bufs, topology, topology.shifts, mesh)
+    return [_combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
+
+
+def consensus_error(tree: Any, topology: Topology, mesh: WorkerMesh) -> torch.Tensor:
+    """RMS disagreement across workers, ``sqrt(mean_i ||theta_i -
+    theta_bar||^2)``, in f32 by two all-reduce means (the mean of every
+    leaf, then of this rank's squared deviation), with no gather of the
+    parameters. Every rank gets the same value."""
+    leaves = [x.to(torch.float32) for x in T.leaves(tree)]
+    if not leaves:
+        return torch.zeros(())
+    means = all_reduce_mean(leaves, mesh)
+    sq = sum(((x - m) ** 2).sum() for x, m in zip(leaves, means))
+    return torch.sqrt(all_reduce_mean([sq.reshape(1)], mesh)[0][0])

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any
+from typing import Any, ClassVar
 
 import torch
 
@@ -63,8 +63,36 @@ def _wire(t) -> tuple[torch.Tensor, ...]:
     return t.wire_tensors() if hasattr(t, "wire_tensors") else (t,)
 
 
+class _WirePayload:
+    """A payload dataclass whose ``WIRE`` fields, in that order, are what
+    travels: each a tensor or a nested payload. The one statement of the
+    payload's wire format, read both ways."""
+
+    WIRE: ClassVar[tuple[str, ...]]
+
+    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
+        return tuple(t for name in self.WIRE for t in _wire(getattr(self, name)))
+
+    def with_wire(self, tensors):
+        """This payload with its wire tensors replaced, in
+        :meth:`wire_tensors` order, by ``tensors`` (what a neighbour sent:
+        the same shapes and dtypes)."""
+        it = iter(tensors)
+        out = self._take(it)
+        if next(it, None) is not None:
+            raise ValueError("more tensors than the payload has wire tensors")
+        return out
+
+    def _take(self, it):
+        changes = {}
+        for name in self.WIRE:
+            value = getattr(self, name)
+            changes[name] = value._take(it) if isinstance(value, _WirePayload) else next(it)
+        return dataclasses.replace(self, **changes)
+
+
 @dataclasses.dataclass(frozen=True)
-class Int8Payload:
+class Int8Payload(_WirePayload):
     """Per-chunk symmetric int8 quantization: int8 data + f32 chunk scales."""
 
     data: torch.Tensor  # (padded_n,) int8, or (W, padded_n) stacked
@@ -73,12 +101,11 @@ class Int8Payload:
     dtype: Any
     chunk: int
 
-    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.data, self.scales)
+    WIRE: ClassVar[tuple[str, ...]] = ("data", "scales")
 
 
 @dataclasses.dataclass(frozen=True)
-class Int4Payload:
+class Int4Payload(_WirePayload):
     """Per-chunk symmetric int4 quantization, two values per byte: within
     each ``chunk``-wide row, byte ``j`` holds element ``j`` in its low
     nibble and element ``j + chunk // 2`` in its high nibble (half-split
@@ -91,12 +118,11 @@ class Int4Payload:
     dtype: Any
     chunk: int
 
-    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.data, self.scales)
+    WIRE: ClassVar[tuple[str, ...]] = ("data", "scales")
 
 
 @dataclasses.dataclass(frozen=True)
-class Fp8Payload:
+class Fp8Payload(_WirePayload):
     """Per-chunk scaled float8 (e4m3fn): ``scale = absmax / 448`` a chunk,
     so each chunk's largest magnitude lands on the format's largest finite
     value and the rest keep e4m3's three mantissa bits of relative
@@ -108,12 +134,11 @@ class Fp8Payload:
     dtype: Any
     chunk: int
 
-    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
-        return (self.data, self.scales)
+    WIRE: ClassVar[tuple[str, ...]] = ("data", "scales")
 
 
 @dataclasses.dataclass(frozen=True)
-class TopKPayload:
+class TopKPayload(_WirePayload):
     """Top-k sparse tensor: k signed values + flat int32 indices."""
 
     values: Any  # (k,) tensor or a nested payload; (W, k) stacked
@@ -121,12 +146,11 @@ class TopKPayload:
     shape: tuple[int, ...]
     dtype: Any
 
-    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
-        return (*_wire(self.values), self.indices)
+    WIRE: ClassVar[tuple[str, ...]] = ("values", "indices")
 
 
 @dataclasses.dataclass(frozen=True)
-class LocalTopKPayload:
+class LocalTopKPayload(_WirePayload):
     """Chunked top-k with narrow chunk-local indices: ``indices[c, j]`` is
     the position of winner ``j`` inside chunk ``c`` (uint16; chunks are at
     most 65536 wide), made global at decode."""
@@ -137,8 +161,7 @@ class LocalTopKPayload:
     dtype: Any
     chunk: int
 
-    def wire_tensors(self) -> tuple[torch.Tensor, ...]:
-        return (*_wire(self.values), self.indices)
+    WIRE: ClassVar[tuple[str, ...]] = ("values", "indices")
 
 
 class Compressor(abc.ABC):

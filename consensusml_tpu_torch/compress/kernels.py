@@ -24,7 +24,8 @@ fused wire's :class:`FusedBucketCodec`. The reference's ``impl`` field of
 these codecs has no counterpart: every wrapper picks kernel or plain
 version by the tensor's device. The simulated backend decodes the fused
 wire with plain ops and mixes through the matrix; only the collective
-round (not ported) calls :meth:`FusedBucketCodec.decode_accumulate`.
+round calls :meth:`FusedBucketCodec.decode_accumulate`, and only its
+two-step receive launches :func:`chunk_scatter`'s accumulating form.
 """
 
 from __future__ import annotations
@@ -403,10 +404,13 @@ def chunk_scatter(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
         rc = fn(vals.data_ptr(), idx.data_ptr(), acc.data_ptr() if acc is not None else None,
                 out.data_ptr(), rows, k, chunk, float(np.float32(weight)), _stream(vals))
         _launched(chunk_scatter, "chunk_scatter", rc)
+        if acc is not None:
+            chunk_scatter.acc_launches += 1
     return out
 
 
 chunk_scatter.launches = 0
+chunk_scatter.acc_launches = 0  # the accumulating form's share of launches
 
 
 # ---------------------------------------------------------------------------

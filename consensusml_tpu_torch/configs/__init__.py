@@ -111,15 +111,18 @@ def build_model(
     return model.init_weights(gen).eval()
 
 
-def gpt2_init_params(cfg: GPT2Config, seed: int, world_size: int) -> dict[str, np.ndarray]:
+def gpt2_init_params(cfg: GPT2Config, seed: int, world_size: int, ranks=None) -> dict[str, np.ndarray]:
     """Stacked ``(W, ...)`` f32 flax-layout parameters, numpy-seeded per
     worker by ``(seed, rank)``: N(0, 0.02) kernels and embeddings, zero
     biases, unit LayerNorm scales. Keys are flax paths joined by dots, in
     the reference's flatten order (feed :func:`.models.convert.
-    gpt2_from_flax`'s output format)."""
+    gpt2_from_flax`'s output format). ``ranks`` draws only those workers'
+    rows (the same values), stacked in that order: a rank of the
+    collective backend draws its own."""
     meta = GPT2LM(cfg, device="meta")
     shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
-    rngs = [np.random.default_rng((seed, r)) for r in range(world_size)]
+    rngs = [np.random.default_rng((seed, r)) for r in (range(world_size) if ranks is None else ranks)]
+    world_size = len(rngs)
     out = {}
     for name in sorted(shapes, key=lambda n: tuple(n.split("."))):
         shape = (world_size,) + shapes[name]
@@ -159,7 +162,7 @@ class RunBundle:
     model: Any  # structure only (meta device); parameters live in the train state
     loss_fn: Callable
     batches: Callable  # (rounds, seed, start=0) -> iterator of stacked (W, H, B, ...) batches
-    init_params: Callable  # (seed) -> stacked numpy variables in flax layout
+    init_params: Callable  # (seed, ranks=None) -> stacked numpy variables in flax layout (those ranks' rows)
     convert: Callable  # init_params' output -> (params, model_state) as stacked CPU tensors
     codec_path: str
     norm_path: str = ""
@@ -241,7 +244,7 @@ def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
         model=model,
         loss_fn=mlp_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        init_params=lambda seed: mlp_init_params(model, seed, world),
+        init_params=lambda seed, ranks=None: mlp_init_params(model, seed, world, ranks),
         convert=mlp_from_flax,
         codec_path="none (exact gossip)",
         description="2-layer MLP, 4 workers, dense gossip (CPU reference config)",
@@ -285,7 +288,7 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         model=model,
         loss_fn=resnet_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        init_params=lambda seed: resnet_init_params(model, seed, world),
+        init_params=lambda seed, ranks=None: resnet_init_params(model, seed, world, ranks),
         convert=resnet_from_flax,
         codec_path="none (exact gossip)",
         norm_path=norm_path,
@@ -359,7 +362,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         batches=lambda rounds, seed, start=0: lm_round_batches(
             data, world, cfg.h, batch, rounds, seed, start=start
         ),
-        init_params=lambda seed: gpt2_init_params(mcfg, seed, world),
+        init_params=lambda seed, ranks=None: gpt2_init_params(mcfg, seed, world, ranks),
         convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",
         norm_path=norm_path,

@@ -12,8 +12,9 @@ leaf larger than the cap becomes its own bucket.
 :class:`~consensusml_tpu_torch.compress.kernels.FusedBucketCodec`: one
 encode launch per bucket on the send side. The simulated round drives its
 codec bucket by bucket (so one bucket's temporaries are alive at a time);
-:meth:`FusedWirePlan.encode`/:meth:`~FusedWirePlan.decode` are the
-reference's all-buckets form, which the collective backend will use.
+:meth:`FusedWirePlan.encode`, :meth:`~FusedWirePlan.decode` and
+:meth:`~FusedWirePlan.decode_accumulate` are the reference's all-buckets
+form, which the collective round uses.
 """
 
 from __future__ import annotations
@@ -169,6 +170,17 @@ class FusedWirePlan:
     def decode(self, payloads: list) -> list:
         self._check(payloads, "decode")
         return [self.codec.decode(q) for q in payloads]
+
+    def decode_accumulate(self, s_bufs: list, sources: list, weights) -> list:
+        """Per bucket ``s + sum_j weights[j] * dec(sources[b][j])``, one
+        :func:`~consensusml_tpu_torch.compress.kernels.
+        fused_dequantize_accumulate` launch each; ``sources[b]`` lists
+        bucket ``b``'s payloads in weight order (self first, then one per
+        neighbour shift)."""
+        self._check(s_bufs, "decode_accumulate")
+        if len(sources) != len(s_bufs):
+            raise ValueError(f"{len(s_bufs)} buckets but {len(sources)} source lists")
+        return [self.codec.decode_accumulate(s, plist, weights) for s, plist in zip(s_bufs, sources)]
 
 
 def build_fused_plan(plan: BucketPlan, compressor) -> FusedWirePlan | None:

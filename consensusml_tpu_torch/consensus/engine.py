@@ -1,5 +1,6 @@
-"""The gossip round on the simulated backend: exact mixing or CHOCO
-compressed mixing (port of ``consensusml_tpu/consensus/engine.py``).
+"""The gossip round: exact mixing or CHOCO compressed mixing, on the
+simulated backend and the collective one (port of
+``consensusml_tpu/consensus/engine.py``).
 
 CHOCO-SGD update (gamma = consensus step size, Q = compressor):
 
@@ -8,27 +9,35 @@ CHOCO-SGD update (gamma = consensus step size, Q = compressor):
     s_i    <- s_i + sum_j W[i,j] dec(q_j)   # only q travels the wire
     x_i    <- x_i + gamma * (s_i - xhat_i)
 
-The bucketed wire of the simulated backend is ported: exact mixing over
-dense buckets, and CHOCO over codec buckets either through the fused
-one-pass encode (the int8, int4 and fp8 quantizers: one kernel launch per
-bucket per exchange) or through the two-step wire (any other codec with
-a ``bucket_alignment``, or ``fused_wire=False``: per bucket, ``compress``
-then ``decompress`` of
-the innovation on the stacked buffer, the worker axis written out where
-the reference vmaps). The warm-up and periodic dense-refresh rounds of
-the reference (``lax.cond`` on the round counter) are a Python ``if`` on
-the host's round counter here.
+The bucketed wire is ported: exact mixing over dense buckets, and CHOCO
+over codec buckets either through the fused one-pass encode (the int8,
+int4 and fp8 quantizers: one kernel launch per bucket per exchange) or
+through the two-step wire (any other codec with a ``bucket_alignment``,
+or ``fused_wire=False``: per bucket, ``compress`` then ``decompress`` of
+the innovation). The warm-up and periodic dense-refresh rounds of the
+reference (``lax.cond`` on the round counter) are a Python ``if`` on the
+host's round counter here.
 
-Every topology family runs here; a time-varying one takes its round's
-phase matrix from the caller (``train/local_sgd.py``).
+Two backends. :meth:`ConsensusEngine.round_simulated` runs every worker
+stacked on one device (the worker axis written out where the reference
+vmaps) and mixes through the matrix. :meth:`ConsensusEngine.
+round_collective` runs ONE worker per process (its
+:class:`~consensusml_tpu_torch.comm.mesh.WorkerMesh`): its payloads ride
+the mesh's transport to its neighbours, and its receive folds them in,
+self first then each shift in order: the fused wire's one
+``fused_dequantize_accumulate`` launch a bucket, or the two-step wire's
+``decompress_accumulate`` (the chunked top-k's accumulating
+``chunk_scatter``). Every topology family runs on both; a time-varying
+one takes phase ``step % period`` (the simulated caller passes that
+phase's matrix, the collective round picks the phase itself).
 
 Not ported yet, and refused with ``NotImplementedError`` when set: the
 per-leaf wire (``bucket_bytes=None``, or a codec without a
 ``bucket_alignment``), ``path_filter``, ``compress_filter`` other than
 ``"auto"`` (and, under CHOCO, its exact-mixed ``model_state`` leaves;
 exact mixing gossips ``model_state`` like the params), faults,
-push-sum, ``fused_codec``, overlap gossip and its pipelining, stochastic
-codecs, and the collective backend.
+push-sum, ``fused_codec``, overlap gossip and its pipelining, and
+stochastic codecs.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from consensusml_tpu_torch.comm import simulated
+from consensusml_tpu_torch.comm import collectives, simulated
 from consensusml_tpu_torch.compress.base import Compressor
 from consensusml_tpu_torch.consensus.bucketing import (
     BucketPlan,
@@ -232,43 +241,56 @@ class ConsensusEngine:
         """One gossip round on stacked tensors (leading axis = workers).
         ``step`` is the round counter, needed when warm-up or refresh
         rounds are configured. Returns ``(new_params, new_state)``."""
+
+        def mix(bufs):
+            return [simulated.mix_stacked(b, w) for b in bufs]
+
+        def exchange(x, xhat, s, fused):
+            if fused is not None:
+                return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
+            return self._innovation_exchange_simulated(x, xhat, s, w)
+
+        return self._round(params, state, step, mix, exchange, stacked=True)
+
+    def _round(self, params: Any, state: ChocoState | None, step: int | None, mix, exchange, stacked: bool):
+        """The round both backends share: ``mix(bufs)`` mixes a list of
+        bucket buffers exactly once, ``exchange(x, xhat, s, fused)`` is the
+        innovation exchange (``fused`` the :class:`FusedWirePlan`, or
+        ``None`` for the two-step wire) and returns ``(xhat, s)``."""
         cfg = self.config
         if step is None and (cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0):
             raise ValueError("codec_warmup_rounds/codec_refresh_every need the round counter (step=...)")
         n_iter = cfg.gossip_steps
         leaves, spec = T.flatten(params)
         if not self.compressed:
-            plan = self._dense_plan(leaves, stacked=True)
-            bufs = plan.pack(leaves, stacked=True)
+            if not leaves:
+                return params, None
+            plan = self._dense_plan(leaves, stacked=stacked)
+            bufs = plan.pack(leaves, stacked=stacked)
             for _ in range(n_iter):
-                bufs = [simulated.mix_stacked(b, w) for b in bufs]
-            return T.unflatten(spec, plan.unpack(bufs, stacked=True)), None
+                bufs = mix(bufs)
+            return T.unflatten(spec, plan.unpack(bufs, stacked=stacked)), None
 
         _check_no_model_state(params)
         x32 = [x.to(torch.float32) for x in leaves]
-        plan = self._codec_plan(x32, stacked=True)
+        plan = self._codec_plan(x32, stacked=stacked)
         fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
-        x = plan.pack(x32, stacked=True)
+        x = plan.pack(x32, stacked=stacked)
         del x32
         xhat, s = list(state.xhat), list(state.s)
         _check_bucket_state(x, xhat)
 
-        def track(x, xhat, s):
-            if fused is not None:
-                return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
-            return self._innovation_exchange_simulated(x, xhat, s, w)
-
         warm, refresh = cfg.codec_warmup_rounds, cfg.codec_refresh_every
         if (warm > 0 and step < warm) or (refresh > 0 and step % refresh == 0):
             # dense mixing, while the innovation exchange keeps xhat/s warm
-            xhat, s = track(x, xhat, s)
+            xhat, s = exchange(x, xhat, s, fused)
             for _ in range(n_iter):
-                x = [simulated.mix_stacked(b, w) for b in x]
+                x = mix(x)
         else:
             for _ in range(n_iter):
-                xhat, s = track(x, xhat, s)
+                xhat, s = exchange(x, xhat, s, fused)
                 x = [xi + cfg.gamma * (si - hi) for xi, si, hi in zip(x, s, xhat)]
-        new = [piece.to(old.dtype) for piece, old in zip(plan.unpack(x, stacked=True), leaves)]
+        new = [piece.to(old.dtype) for piece, old in zip(plan.unpack(x, stacked=stacked), leaves)]
         return T.unflatten(spec, new), ChocoState(xhat=xhat, s=s)
 
     def _innovation_exchange_fused_simulated(self, x: list, xhat: list, s: list,
@@ -301,6 +323,85 @@ class ConsensusEngine:
             new_s.append(sb + simulated.mix_stacked(dec, w))
         return new_hat, new_s
 
+    # ---- collective round (one worker per process) ----------------------
+    def round_collective(self, params: Any, state: ChocoState | None, mesh, step: int | None = None):
+        """One gossip round of THIS rank's worker (per-worker leaves and
+        per-worker CHOCO state, :meth:`init_state` without ``world_size``)
+        over ``mesh``'s transport. ``step`` is the round counter, needed
+        for a time-varying topology (phase ``step % period``, the same on
+        every rank) and for warm-up or refresh rounds. Returns
+        ``(new_params, new_state)``."""
+        topo = self.topology
+        if mesh.topology != topo:
+            raise ValueError("the mesh is bound to another topology than this engine's")
+        if topo.is_time_varying:
+            if step is None:
+                raise ValueError(f"{type(topo).__name__} is time-varying: round_collective needs step=...")
+            topo = topo.phases[step % topo.period]
+
+        def mix(bufs):
+            # every bucket exact-mixed in one exchange (the BN statistics
+            # ride beside the weights)
+            return collectives.mix_buckets(bufs, topo, mesh)
+
+        def exchange(x, xhat, s, fused):
+            if fused is not None:
+                return self._innovation_exchange_fused_collective(topo, x, xhat, s, fused, mesh)
+            return self._innovation_exchange_collective(topo, x, xhat, s, mesh)
+
+        return self._round(params, state, step, mix, exchange, stacked=False)
+
+    @staticmethod
+    def _ppermute_payloads(payloads: list, topo: Topology, mesh) -> list[list]:
+        """Every bucket's payload along every shift of ``topo`` in one
+        exchange: per shift, the payloads this rank receives."""
+        per = [p.wire_tensors() for p in payloads]
+        flat = [t for ts in per for t in ts]
+        received = collectives.ppermute_shifts(flat, topo, topo.shifts, mesh)
+        out = []
+        for recv in received:
+            it = iter(recv)
+            out.append([p.with_wire([next(it) for _ in ts]) for p, ts in zip(payloads, per)])
+        return out
+
+    def _innovation_exchange_collective(self, topo: Topology, x: list, xhat: list, s: list, mesh):
+        """The two-step wire's exchange (per-worker view): compress the
+        innovation of every bucket, decode it (``xhat += dec``), ship the
+        payloads to every neighbour, and fold ``self_weight * dec`` plus
+        each neighbour's payload into ``s`` through the codec's
+        ``decompress_accumulate`` (the chunked top-k's accumulating
+        ``chunk_scatter``: no dense temporary a neighbour)."""
+        comp = self.config.compressor
+        delta = [xb - hb for xb, hb in zip(x, xhat)]
+        q = [comp.compress(d) for d in delta]
+        dec = [comp.decompress(p) for p in q]
+        xhat = [hb + d for hb, d in zip(xhat, dec)]
+        if topo.uses_psum:
+            recv = collectives.all_reduce_mean(dec, mesh)
+        else:
+            recv = [topo.self_weight * d for d in dec]
+            inflight = self._ppermute_payloads(q, topo, mesh)
+            for shift, q_nbr in zip(topo.shifts, inflight):
+                recv = [comp.decompress_accumulate(p, r, shift.weight) for p, r in zip(q_nbr, recv)]
+        return xhat, [sb + r for sb, r in zip(s, recv)]
+
+    def _innovation_exchange_fused_collective(self, topo: Topology, x: list, xhat: list, s: list,
+                                              fused: FusedWirePlan, mesh):
+        """The fused wire's exchange (per-worker view): one encode launch a
+        bucket gives the payload and ``xhat'``, the payloads ride the
+        transport exactly as the two-step wire's, and one
+        ``fused_dequantize_accumulate`` launch a bucket folds self and
+        every neighbour into ``s`` (sources self first, then each shift
+        in order). A dense topology means the decoded innovations."""
+        q, xhat = fused.encode(x, xhat)
+        if topo.uses_psum:
+            recv = collectives.all_reduce_mean(fused.decode(q), mesh)
+            return xhat, [sb + r for sb, r in zip(s, recv)]
+        inflight = self._ppermute_payloads(q, topo, mesh)
+        weights = (topo.self_weight,) + tuple(sh.weight for sh in topo.shifts)
+        sources = [[qb] + [nbr[i] for nbr in inflight] for i, qb in enumerate(q)]
+        return xhat, fused.decode_accumulate(s, sources, weights)
+
     # ---- accounting -----------------------------------------------------
     def wire_bytes_per_round(self, params: Any) -> int:
         """Bytes ONE worker sends per steady-state round (``params`` are
@@ -326,6 +427,11 @@ class ConsensusEngine:
         if topo.is_time_varying:
             return sum((1 if p.uses_psum else len(p.shifts)) for p in topo.phases) / topo.period
         return 1 if topo.uses_psum else len(topo.shifts)
+
+    def consensus_error_collective(self, params: Any, mesh) -> torch.Tensor:
+        """This rank's view of the consensus error of per-worker ``params``
+        (the same value on every rank)."""
+        return collectives.consensus_error(params, self.topology, mesh)
 
     def consensus_error_simulated(self, params: Any) -> torch.Tensor:
         return simulated.consensus_error_stacked(params, self.topology.world_size)

@@ -13,7 +13,10 @@ package on a machine without ``nvcc``.
 
 Launch counts live on each kernel's wrapper as a plain integer
 (``wrapper.launches``); :func:`launch_counts` reads them all and
-:func:`reset_launch_counts` zeroes them.
+:func:`reset_launch_counts` zeroes them. A wrapper whose kernel has
+forms also counts the launches of each (``wrapper.<form>_launches``:
+``chunk_scatter.acc_launches``, its accumulating form), which
+:func:`form_counts` reads.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ __all__ = [
     "build",
     "load",
     "launch_counts",
+    "form_counts",
     "reset_launch_counts",
 ]
 
@@ -191,6 +195,19 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in _wrappers()}
 
 
+def _forms(fn) -> list[str]:
+    return [a for a in vars(fn) if a.endswith("_launches")]
+
+
+def form_counts() -> dict[str, dict[str, int]]:
+    """Launches since the last reset of each form of a kernel with forms,
+    e.g. ``{"chunk_scatter": {"acc": n}}``."""
+    return {name: {a[: -len("_launches")]: getattr(fn, a) for a in _forms(fn)}
+            for name, fn in _wrappers() if _forms(fn)}
+
+
 def reset_launch_counts() -> None:
     for _name, fn in _wrappers():
         fn.launches = 0
+        for attr in _forms(fn):
+            setattr(fn, attr, 0)

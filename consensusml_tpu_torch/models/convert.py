@@ -55,16 +55,17 @@ def mlp_from_flax(variables: Mapping[str, Any]) -> tuple[dict[str, torch.Tensor]
     return params, {}
 
 
-def mlp_init_params(model, seed: int, world_size: int) -> dict[str, dict[str, np.ndarray]]:
+def mlp_init_params(model, seed: int, world_size: int, ranks=None) -> dict[str, dict[str, np.ndarray]]:
     """Stacked ``(W, ...)`` f32 initial variables of the port's ``MLP``
     ``model`` in flax layout, numpy-seeded per worker by ``(seed, rank)``
     with flax's ``nn.Dense`` scheme (lecun-normal kernels, zero biases, as
     :func:`resnet_init_params` draws a ``Dense``): ``{"params": {path:
-    array}}`` for :func:`mlp_from_flax`."""
-    return {"params": resnet_init_params(model, seed, world_size)["params"]}
+    array}}`` for :func:`mlp_from_flax`. ``ranks`` as
+    :func:`resnet_init_params`'s."""
+    return {"params": resnet_init_params(model, seed, world_size, ranks)["params"]}
 
 
-def resnet_init_params(model, seed: int, world_size: int) -> dict[str, dict[str, np.ndarray]]:
+def resnet_init_params(model, seed: int, world_size: int, ranks=None) -> dict[str, dict[str, np.ndarray]]:
     """Stacked ``(W, ...)`` f32 initial variables of the port's ``ResNet``
     ``model`` (only its structure is read; ``meta`` is fine), numpy-seeded
     per worker by ``(seed, rank)`` with flax's schemes: lecun-normal conv
@@ -72,11 +73,13 @@ def resnet_init_params(model, seed: int, world_size: int) -> dict[str, dict[str,
     0.8796``), zero dense bias, BN scales at their ``scale_init`` (ones,
     zeros for the last BN of each block), zero BN bias, running mean 0 and
     var 1. Returns ``{"params": {path: array}, "batch_stats": {path:
-    array}}`` for :func:`resnet_from_flax`."""
+    array}}`` for :func:`resnet_from_flax`. ``ranks`` draws only those
+    workers' rows (the same values), stacked in that order."""
     from consensusml_tpu_torch.models.fused_bn import FusedBatchNorm
     from consensusml_tpu_torch.models.resnet import BatchNorm, Conv, Dense
 
-    rngs = [np.random.default_rng((seed, r)) for r in range(world_size)]
+    rngs = [np.random.default_rng((seed, r)) for r in (range(world_size) if ranks is None else ranks)]
+    world_size = len(rngs)
     params, stats = {}, {}
     for prefix, mod in sorted(model.named_modules(), key=lambda kv: tuple(kv[0].split("."))):
         path = lambda leaf: f"{prefix}.{leaf}" if prefix else leaf  # noqa: E731

@@ -1,6 +1,11 @@
 """``python -m consensusml_tpu_torch.train``: consensus-SGD training of the
 port, mirroring ``train.py``'s flags for the slices that are ported, on
-the simulated backend: ``gpt2_topk`` (on its own codec, ``--codec
+the simulated backend (every worker stacked on one device) or the
+collective one (``--backend collective``: one process per worker, the
+gossip over ``torch.distributed``; ``--dist-backend gloo`` stages the
+wire through pinned host memory and runs any number of ranks on one
+card or on the CPU, ``--dist-backend nccl`` needs a card per rank):
+``gpt2_topk`` (on its own codec, ``--codec
 topk_int4``, or ``--codec int8|int4|fp8`` on the fused wire;
 ``--norm-impl pallas`` runs every LayerNorm through the fused-LN CUDA
 kernels), ``cifar_resnet50``
@@ -20,11 +25,17 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale full --rounds 50 --eval-batches 8
     python -m consensusml_tpu_torch.train --config mnist_mlp --topology onepeer-exp --eval-batches 8
+    python -m consensusml_tpu_torch.train --config mnist_mlp --scale smoke --device cpu --backend collective \
+        --dist-backend gloo --workers 4 --rounds 2
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
+        --backend collective --dist-backend gloo
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback).
 Prints the resolved codec path and the norm path, then
 one line per logged round: loss, consensus error, the round's wall time
-and, for image batches, images per second.
+and, for image batches, images per second; the collective backend's
+lines come from rank 0 and add the round's wire bytes and every rank's
+round, staging and wire milliseconds. A failing rank fails the run.
 """
 
 from __future__ import annotations
@@ -61,17 +72,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("--backend", default="simulated", choices=["simulated"])
+    p.add_argument("--backend", default="simulated", choices=["simulated", "collective"],
+                   help="simulated: every worker stacked on one device; collective: one process per worker")
+    p.add_argument("--dist-backend", default="gloo", choices=["nccl", "gloo"],
+                   help="the collective backend's transport: gloo stages CUDA tensors through pinned host "
+                        "memory (any number of ranks a card, or the CPU); nccl needs one card per rank")
     return p.parse_args(argv)
 
 
-def main(argv=None) -> int:
+def _describe(bundle, engine, config: str) -> None:
+    if engine.compressed:
+        fused = engine.fused_wire_active
+        wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
+        print(f"codec: {bundle.codec_path}; {wire} "
+              f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
+    else:
+        print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
+    if bundle.norm_path:
+        print(f"{'BN' if config == 'cifar_resnet50' else 'LN'}: {bundle.norm_path}", flush=True)
+
+
+def _main_collective(args) -> int:
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.device import resolve_device
-    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
-    from consensusml_tpu_torch.utils import tree as T
+    from consensusml_tpu_torch.train import collective
 
-    args = parse_args(argv)
+    if args.eval_batches > 0:
+        raise NotImplementedError("--eval-batches is not ported for --backend collective yet")
     dev = resolve_device(args.device)
     bundle = configs.build(
         args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
@@ -84,15 +111,38 @@ def main(argv=None) -> int:
             print(f"error: bad --topology {args.topology!r}: {e}", file=sys.stderr)
             return 2
     engine = bundle.cfg.engine()
-    if engine.compressed:
-        fused = engine.fused_wire_active
-        wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
-        print(f"codec: {bundle.codec_path}; {wire} "
-              f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
-    else:
-        print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
-    if bundle.norm_path:
-        print(f"{'BN' if args.config == 'cifar_resnet50' else 'LN'}: {bundle.norm_path}", flush=True)
+    _describe(bundle, engine, args.config)
+    topo = engine.topology
+    period = f", period {topo.period}" if topo.is_time_varying else ""
+    print(f"{args.config}/{args.scale}: {bundle.world_size} ranks (collective, --dist-backend "
+          f"{args.dist_backend}) on {args.device}, topology {topo.name}{period}", flush=True)
+    spec = {**vars(args), "workers": bundle.world_size}
+    collective.run(spec, bundle.world_size)
+    return 0
+
+
+def main(argv=None) -> int:
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.device import resolve_device
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    args = parse_args(argv)
+    if args.backend == "collective":
+        return _main_collective(args)
+    dev = resolve_device(args.device)
+    bundle = configs.build(
+        args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
+        codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
+    )
+    if args.topology is not None:
+        try:
+            configs.with_topology(bundle, args.topology)
+        except (IndexError, ValueError) as e:
+            print(f"error: bad --topology {args.topology!r}: {e}", file=sys.stderr)
+            return 2
+    engine = bundle.cfg.engine()
+    _describe(bundle, engine, args.config)
     params, model_state = bundle.convert(bundle.init_params(args.seed))
     params = {n: t.to(dev) for n, t in params.items()}
     model_state = T.tree_map(lambda t: t.to(dev), model_state)

@@ -1,6 +1,6 @@
-"""Local-SGD training round on the simulated backend (port of
-``consensusml_tpu/train/local_sgd.py``, the non-fault, non-overlap branch
-of ``make_simulated_train_step``).
+"""Local-SGD training rounds (port of ``consensusml_tpu/train/local_sgd.py``,
+the non-fault, non-overlap branches of ``make_simulated_train_step`` and
+``make_collective_train_step``).
 
 ``loss_fn(params, model_state, batch, generator) -> (scalar loss,
 model_state)`` is user code; ``params`` is a dict of one worker's
@@ -22,6 +22,14 @@ where one worker's step needs about 10 GB. Parameters, model state,
 optimizer state and counters are updated in place; the gossip round
 returns new parameter and model-state tensors (views of its bucket
 buffers).
+
+The collective backend (:func:`make_collective_train_step`) runs ONE
+worker per process: :func:`init_state` holds that worker's tensors as a
+stack of one (so :func:`worker_step` and the optimizers run unchanged),
+its CHOCO state per worker, and its dropout generator, seeded as the
+simulated backend's worker ``rank``. Fed row ``rank`` of the simulated
+backend's stacked batch (:func:`rank_batch`), the two backends start and
+step identically.
 """
 
 from __future__ import annotations
@@ -32,11 +40,14 @@ from typing import Any, Callable
 
 import torch
 
-from consensusml_tpu_torch.comm import simulated
+from consensusml_tpu_torch.comm import collectives, simulated
 from consensusml_tpu_torch.consensus import ChocoState, ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["LocalSGDConfig", "TrainState", "init_stacked_state", "make_simulated_train_step"]
+__all__ = [
+    "LocalSGDConfig", "TrainState", "init_stacked_state", "init_state", "worker_generator", "rank_batch",
+    "make_simulated_train_step", "make_collective_train_step",
+]
 
 LossFn = Callable[[dict, Any, dict, torch.Generator], tuple[torch.Tensor, Any]]
 
@@ -86,7 +97,7 @@ def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], wor
                 f"{'.'.join(map(str, path))}: expected stacked f32 ({world_size}, ...), got {p.dtype} {tuple(p.shape)}"
             )
     device = next(iter(params.values())).device
-    gens = [torch.Generator(device=device).manual_seed(seed * 1000003 + r) for r in range(world_size)]
+    gens = [worker_generator(device, seed, r) for r in range(world_size)]
     return TrainState(
         step=0,
         params=params,
@@ -95,6 +106,48 @@ def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], wor
         gossip=cfg.engine().init_state(_gossiped(params, model_state), world_size=world_size),
         generators=gens,
     )
+
+
+def worker_generator(device, seed: int, rank: int) -> torch.Generator:
+    """Worker ``rank``'s dropout generator on ``device`` for run ``seed``:
+    the same bits on both backends."""
+    return torch.Generator(device=device).manual_seed(seed * 1000003 + rank)
+
+
+def init_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], rank: int, seed: int = 0,
+               model_state: dict | None = None) -> TrainState:
+    """One worker's state for the collective backend, from its own f32
+    ``params`` and ``model_state`` (per-worker shapes, no worker axis):
+    held as a stack of one, with per-worker CHOCO state and the dropout
+    generator of the simulated backend's worker ``rank``."""
+    model_state = {} if model_state is None else model_state
+    one = lambda t: t.unsqueeze(0)  # noqa: E731
+    params = {n: one(p) for n, p in params.items()}
+    model_state = T.tree_map(one, model_state)
+    for path, p in [((n,), p) for n, p in params.items()] + T.flatten_with_paths(model_state):
+        if p.dtype != torch.float32:
+            raise ValueError(f"{'.'.join(map(str, path))}: expected f32, got {p.dtype}")
+    device = next(iter(params.values())).device
+    return TrainState(
+        step=0,
+        params=params,
+        model_state=model_state,
+        opt_state=cfg.optimizer.init(params, 1),
+        gossip=cfg.engine().init_state(_gossiped(*_row(params, model_state))),
+        generators=[worker_generator(device, seed, rank)],
+    )
+
+
+def _row(params: dict, model_state: dict) -> tuple[dict, dict]:
+    """The worker's tensors of a stack of one, as views without the axis."""
+    return {n: p[0] for n, p in params.items()}, T.tree_map(lambda t: t[0], model_state)
+
+
+def rank_batch(batch: dict, rank: int) -> dict:
+    """Rank ``rank``'s share of a stacked ``(W, H, B, ...)`` round batch:
+    row ``rank`` with a worker axis of one, what the collective step
+    takes."""
+    return {k: v[rank: rank + 1] for k, v in batch.items()}
 
 
 def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
@@ -172,6 +225,90 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         }
         if "image" in batch:
             metrics["imgs_per_s"] = world * h * batch["image"].shape[2] / (t2 - t0)
+        return state, metrics
+
+    return step
+
+
+def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
+    """``step(state, batch) -> (state, metrics)`` for THIS rank's worker
+    (:func:`init_state`; ``batch`` leaves ``(1, H, B, ...)``, its row of
+    the stacked batch): H local steps, one :meth:`~consensusml_tpu_torch.
+    consensus.ConsensusEngine.round_collective` over ``mesh`` on the
+    gossiped tree (a time-varying topology's phase ``step % period``),
+    the consensus error, and the loss as an all-reduce mean: every rank
+    gets the same ``loss`` and ``consensus_error``.
+
+    Ranks that share a card (``mesh.shares_device``) take their local
+    steps in rank order, each releasing its cached blocks before the
+    next begins, so one worker's activations are on the card at a time
+    (the card runs one rank's kernels at a time anyway).
+
+    ``metrics`` has the simulated step's keys (``gossip_ms`` is the gossip
+    round alone here) and ``metrics_ms``, the consensus error's and the
+    loss's all-reduces (the error's first one moves the whole parameter
+    tree), ``wire_bytes``, the bytes this rank's transport sent in the
+    gossip round, and that round's ``staging_ms``, ``wire_ms`` and
+    ``bytes_staged``."""
+    engine = cfg.engine()
+    if engine.topology != mesh.topology:
+        raise ValueError("the mesh is bound to another topology than the config's")
+
+    def local_steps(state, batch):
+        return [worker_step(cfg, loss_fn, state, 0, {k: v[0, i] for k, v in batch.items()}) for i in range(cfg.h)]
+
+    def step(state: TrainState, batch: dict):
+        first = next(iter(batch.values()))
+        if first.shape[0] != 1 or first.shape[1] != cfg.h:
+            raise ValueError(
+                f"a rank's batch must be (1, h={cfg.h}, B, ...) (its row of the stacked batch), "
+                f"got leading shape {tuple(first.shape[:2])}"
+            )
+        device = mesh.device
+        sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+        t0 = time.perf_counter()
+        batch = {k: v.to(device) for k, v in batch.items()}
+        if mesh.shares_device:
+            for turn in range(mesh.world_size):
+                if turn == mesh.rank:
+                    losses = local_steps(state, batch)
+                    sync()
+                    torch.cuda.empty_cache()
+                mesh.barrier()
+        else:
+            losses = local_steps(state, batch)
+        loss = torch.stack(losses).mean()
+        sync()
+        t1 = time.perf_counter()
+        before = mesh.transport.stats.snapshot()
+        mixed, state.gossip = engine.round_collective(
+            _gossiped(*_row(state.params, state.model_state)), state.gossip, mesh, step=state.step
+        )
+        wire = mesh.transport.stats.since(before)
+        state.params = {n: t.unsqueeze(0) for n, t in mixed["params"].items()}
+        state.model_state = T.tree_map(lambda t: t.unsqueeze(0), mixed["model_state"])
+        sync()
+        t2 = time.perf_counter()
+        if mesh.shares_device:
+            torch.cuda.empty_cache()  # the round's temporaries, before another rank's turn
+        err = engine.consensus_error_collective(mixed["params"], mesh)
+        mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
+        sync()
+        t3 = time.perf_counter()
+        state.step += 1
+        metrics = {
+            "loss": mean_loss,
+            "consensus_error": err,
+            "inner_ms": 1e3 * (t1 - t0),
+            "gossip_ms": 1e3 * (t2 - t1),
+            "metrics_ms": 1e3 * (t3 - t2),
+            "wire_bytes": wire["bytes_sent"],
+            "bytes_staged": wire["bytes_staged"],
+            "staging_ms": wire["staging_ms"],
+            "wire_ms": wire["wire_ms"],
+        }
+        if "image" in batch:
+            metrics["imgs_per_s"] = cfg.h * batch["image"].shape[2] / (t3 - t0)
         return state, metrics
 
     return step

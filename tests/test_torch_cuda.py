@@ -1316,3 +1316,82 @@ def test_new_codec_wrappers_refuse_what_the_kernels_do_not_take(dev):
         tck.fused_dequantize_accumulate(torch.zeros(4, 128, device=dev), [src] * 9, fmt="int8", weights=(0.1,) * 9)
     with pytest.raises(ValueError):
         tck.fused_dequantize_accumulate(torch.zeros(4, 128, device=dev), [src], fmt="fp8", weights=(1.0,))
+
+
+# ---------------------------------------------------------------------------
+# the collective backend: gloo ranks on the card, the wire staged through
+# pinned host memory
+# ---------------------------------------------------------------------------
+
+
+def _collective_case(wire):
+    """A ring of 2 (both shifts to the one peer) over GPT-2 smoke's
+    parameters in 3000-byte buckets, one CHOCO round from a seeded state."""
+    import numpy as np
+
+    from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int8_compressor
+    from consensusml_tpu_torch.configs import gpt2_config, gpt2_init_params
+    from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.topology import RingTopology
+
+    comp = {"exact": None, "int8": PallasInt8Compressor(chunk=128),
+            "topk_int8": topk_int8_compressor(chunk=128, k=13, impl="auto")}[wire]
+    engine = ConsensusEngine(GossipConfig(topology=RingTopology(2), compressor=comp, gamma=0.5, bucket_bytes=3000))
+    params = {n: a * np.float32(50.0) for n, a in gpt2_init_params(gpt2_config("smoke"), 0, 2).items()}
+    tree = {"params": params, "model_state": {}}
+    state = None
+    if comp is not None:
+        zero = engine.init_state(T_tree(tree), world_size=2)
+        rng = np.random.default_rng(1)
+        state = {"xhat": [rng.normal(size=tuple(b.shape)).astype(np.float32) for b in zero.xhat],
+                 "s": [rng.normal(size=tuple(b.shape)).astype(np.float32) for b in zero.s]}
+    return engine, tree, state
+
+
+def T_tree(tree):
+    from consensusml_tpu_torch.utils import tree as T
+
+    return T.tree_map(torch.from_numpy, tree)
+
+
+@pytest.mark.parametrize("wire", ["exact", "int8", "topk_int8"])
+def test_collective_round_on_card_equals_cpu(dev, wire):
+    """Two ``gloo`` ranks on the card and two on the CPU, one round from the
+    same inputs: bit-equal results (the kernels equal their plain
+    versions, the mixing is the same f64-exact multiply-adds); the kernels
+    launched a bucket a round as the code predicts (fused: one encode and
+    one three-source decode; two-step: one top-k, quantize and own
+    decode, a dequantize and an accumulating scatter a shift); the bytes
+    sent equal ``wire_bytes_per_round``, and the bytes staged are the
+    payload out once and in once a shift."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import check
+    from consensusml_tpu_torch.comm.launch import launch
+    from consensusml_tpu_torch.utils import tree as T
+
+    kernels.build()
+    engine, tree, state = _collective_case(wire)
+    cases = [(engine, tree, [1], state)]
+    card = launch(check.gossip_cases, 2, cases, "gloo", "cuda", timeout=120.0)
+    cpu = launch(check.gossip_cases, 2, cases, "gloo", "cpu", timeout=120.0)
+    for got, want in zip(card, cpu):
+        got, want = got[0], want[0]
+        for (path, g), (_q, w) in zip(T.flatten_with_paths(got["tree"]), T.flatten_with_paths(want["tree"])):
+            assert (g.view("uint32") == w.view("uint32")).all(), path
+        if state is not None:
+            for key in ("xhat", "s"):
+                for g, w in zip(got["state"][key], want["state"][key]):
+                    assert (g.view("uint32") == w.view("uint32")).all(), key
+        per_worker = T.tree_map(lambda a: torch.from_numpy(a[0]), tree)
+        wire_bytes = engine.wire_bytes_per_round(per_worker)
+        assert got["transport"]["bytes_sent"] == wire_bytes
+        assert got["transport"]["bytes_staged"] == wire_bytes // 2 * 3
+        b = engine.bucket_plan(per_worker).num_buckets
+        n = got["launches"]
+        if wire == "int8":
+            assert (n["fused_choco_encode"], n["fused_dequantize_accumulate"]) == (b, b)
+        if wire == "topk_int8":
+            assert (n["chunked_topk"], n["quantize_int8"], n["dequantize_int8"], n["chunk_scatter"]) == (b, b, 3 * b, 3 * b)
+            assert got["forms"]["chunk_scatter"] == {"acc": 2 * b}
+        expected = {"int8": 2, "topk_int8": 4, "exact": 0}[wire]
+        assert sum(1 for v in n.values() if v) == expected

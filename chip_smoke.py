@@ -163,6 +163,30 @@ round within tolerance.
     consensus error after each dense round within ``DENSE_ERR_RTOL`` of
     the mean parameters' RMS norm, the wire bytes 4 a parameter (one
     send), no port kernel launched, top-1 above 0.5.
+14. ``bert_long_padded``: BERT-base at ``max_len`` 1024
+    (``bert_base(max_len=1024)``, random numpy-seeded weights), one
+    ``bert_mlm_loss_fn`` forward and backward on 8 x 1024 corrupted tokens
+    with a ragged attention mask (lengths 1024, 1000, 777, 513, 512, 129,
+    1, 0): every layer's attention through the flash kernels' masked form,
+    held against the same step on their plain versions (same weights,
+    batch and dropout generator) at GPT-2's gradient tolerances. Gates: 12
+    launches of each flash kernel, all masked, nothing else.
+15. ``train_bert``: ``bert_mlm`` full (BERT-base, bf16, 32 workers on a
+    ring, 8 local Adam(1e-4) steps a round, exact bucketed gossip, batch
+    32 x 128), the parameters drawn and uploaded a worker at a time: one
+    warm round, two counted rounds (round ms, tokens/s, loss, consensus
+    error, peak memory), then 8 held-out MLM batches (masked top-1 and
+    nll of the mean model and the workers). Gates: finite losses, finite
+    non-zero consensus errors, 75 buckets and 2 x 4 bytes a parameter on
+    the wire, the first counted round's gossip equal to ``W @ x``, no port
+    kernel launched (seq 128: dense attention, as the reference's).
+
+The ``check`` line's ``flash_kv_mask`` holds the three flash kernels'
+masked form (``kv_mask``) at BERT-base's heads (B=8, S=1024, H=12) with
+the same ragged lengths, and gate only at B=4, S=600 (lengths 600, 513,
+100, 0), non-causal and causal, against their plain versions at the flash tolerances (a row that attends to no key: the
+reference's sum over its visited count, no gradient), timed by
+``queued_ms`` beside SDPA with the mask as a boolean (B, 1, 1, T).
 
 The ``check`` line's ``subnormals.operand_probe`` holds the flash
 forward, dq and dk/dv kernels on bf16 subnormal operands whose products
@@ -179,7 +203,8 @@ library yardstick; the backward's ``dx`` must equal its plain version fed
 the kernel's own sums, the sums must rerun to the same bits.
 
 Then the ``kernels`` line (per kernel: route, source, the TPU kernel it
-replaces, launches on its main paths, error, times and bound), the
+replaces, launches on its main paths, error, times and bound; the flash
+kernels' masked form beside, ``masked_form`` and ``launches_by_form``), the
 card's ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises: the script
 exits non-zero without the last line. Without a CUDA device, or outside
@@ -2262,6 +2287,8 @@ class GossipCheck:
     matrices), and each output leaf must equal that matrix times the input
     leaf, computed apart on the card in f32, to ``GOSSIP_RTOL``."""
 
+    COLUMNS = 1 << 20  # columns of a leaf's (workers, elements) view held at once
+
     def __init__(self, torch, topology, dev):
         from consensusml_tpu_torch.consensus.engine import ConsensusEngine
 
@@ -2287,11 +2314,15 @@ class GossipCheck:
             raise AssertionError(f"gossip round {step}: the engine got another matrix than phase {step % self.w.shape[0]}")
         worst = 0.0
         for x, got in zip(T.leaves(params), T.leaves(mixed)):
-            flat = x.to(torch.float32).reshape(x.shape[0], -1)
-            want = (want_w @ flat).reshape(x.shape).to(x.dtype)
-            scale = (want_w.abs() @ flat.abs()).reshape(x.shape)
-            ratio = ((got.float() - want.float()).abs() / (GOSSIP_RTOL * scale + 1e-30)).max().item()
-            worst = max(worst, ratio)
+            flat, got_flat = x.reshape(x.shape[0], -1), got.reshape(got.shape[0], -1)
+            # a slice of columns at a time: BERT-base's token embedding at 32
+            # workers is 3 GB a copy, several copies on top of the round's own
+            for c0 in range(0, flat.shape[1], self.COLUMNS):
+                cols = flat[:, c0:c0 + self.COLUMNS].to(torch.float32)
+                want = (want_w @ cols).to(x.dtype)
+                scale = want_w.abs() @ cols.abs()
+                err = (got_flat[:, c0:c0 + self.COLUMNS].float() - want.float()).abs()
+                worst = max(worst, (err / (GOSSIP_RTOL * scale + 1e-30)).max().item())
         if not worst <= 1.0:
             raise AssertionError(f"gossip round {step}: output off W @ x by {worst} x the tolerance")
         self.rounds.append(step)
@@ -2626,6 +2657,307 @@ def collective_phases(torch, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# bert_mlm, and the flash kernels' per-key padding mask (kv_mask)
+# ---------------------------------------------------------------------------
+
+# the ragged real lengths of the masked checks and of bert_long_padded: a
+# full row, rows past a 512-key block and inside one, one of a single key
+# and one of none (every row of that example attends to no key)
+KV_MASK_LENGTHS = (1024, 1000, 777, 513, 512, 129, 1, 0)
+# the gate-only masked check at S=600 (not a multiple of 512 or of 64)
+KV_MASK_LENGTHS_600 = (600, 513, 100, 0)
+# bert_mlm full's bucket plan (tests/test_torch_bert.py): BERT-base's
+# 109,514,298 f32 parameters in 4 MiB buckets; a ring sends them twice
+BERT_PARAMS, BERT_BUCKETS = 109_514_298, 75
+
+
+def kv_mask_of(torch, dev, lengths, s):
+    """(len(lengths), s) f32 key mask: 1 for the first ``lengths[b]`` keys."""
+    return (torch.arange(s, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]).float()
+
+
+def attended_pairs(torch, kv_mask, causal: bool) -> int:
+    """(query, key) pairs a head attends to under ``kv_mask`` (and causal):
+    the work this run's masks need (a row that attends to no key needs
+    none but a sum of values, left out)."""
+    m = (kv_mask > 0).to(torch.int64)
+    if causal:
+        return int(torch.cumsum(m, dim=1).sum())
+    return int(m.sum() * kv_mask.shape[1])
+
+
+def masked_gate(torch, tfa, q, k, v, do, kv_mask, causal: bool, name: str):
+    """The three flash kernels' masked form on ``q, k, v, do`` against their
+    plain versions at the flash gates: out and lse against
+    ``flash_attention_plain``, dq, dk, dv (fed the kernel's forward)
+    against ``flash_attention_bwd_plain`` (fed the plain forward); an
+    example whose mask is all 0 must get no dq. Returns ``(fwd_errs,
+    lse_err, bwd_errs, o, lse, delta, dq, dk, dv)``."""
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+    want_o, want_lse = tfa.flash_attention_plain(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+    torch.cuda.synchronize()
+    fwd_errs = tol_check(name, o, want_o, FLASH_ATOL, FLASH_RTOL)
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_TOL or not torch.isfinite(o.float()).all():
+        raise AssertionError(f"{name}: lse err {lse_err} > {LSE_TOL}, or out not finite")
+    delta = tfa._delta(o, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal, kv_mask=kv_mask)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=causal, kv_mask=kv_mask)
+    want = tfa.flash_attention_bwd_plain(q, k, v, want_o, do, want_lse, causal=causal, kv_mask=kv_mask)
+    torch.cuda.synchronize()
+    bwd_errs = {n: tol_check(f"{name} {n}", g, w, FLASH_BWD_ATOL, FLASH_BWD_RTOL)
+                for n, g, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+    empty = ~(kv_mask > 0).any(dim=1)
+    if want[0][empty].any() or dq[empty].any():
+        raise AssertionError(f"{name}: an example that attends to no key got a dq")
+    return fwd_errs, lse_err, bwd_errs, o, lse, delta, dq, dk, dv
+
+
+def check_flash_kv_mask(torch, tfa, dev, b=8, s=1024, h=12, d=64):
+    """The masked form of the three flash kernels at BERT-base's heads (B=8,
+    S=1024, H=12, D=64) with the ragged ``KV_MASK_LENGTHS``, non-causal (the
+    encoder's) and causal, held to their plain versions by
+    :func:`masked_gate`; first, gate only, at S=600 (B=4,
+    ``KV_MASK_LENGTHS_600``), where a row that attends to no key has a
+    visited count that tells the reference's 512-key blocks from the
+    kernels' 64-key tiles. Times by :func:`queued_ms`; the bounds count this run's
+    attended pairs (:func:`attended_pairs`) and bytes (q, k, v, do, the
+    mask and the row statistics read once, the outputs written once); the
+    library yardstick is SDPA with the mask as a (B, 1, 1, T) boolean
+    (causal: combined with the diagonal into (B, 1, S, T)), forward, and
+    forward + backward minus forward, timed and never called by the
+    port."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    out, gate600 = {}, {}
+    # gate only, at S=600: there the reference's visited count for a row
+    # that attends to no key (two 512-key blocks, 1024) differs from the
+    # kernels' own 64-key tiles (640), which S=1024 cannot tell apart
+    short_mask = kv_mask_of(torch, dev, KV_MASK_LENGTHS_600, 600)
+    for causal in (False, True):
+        q, k, v, do = (torch.randn(len(KV_MASK_LENGTHS_600), 600, h, d, generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for _ in range(4))
+        fwd_errs, lse_err, bwd_errs, *_ = masked_gate(torch, tfa, q, k, v, do, short_mask, causal,
+                                                      f"flash kv_mask S=600 causal={causal}")
+        gate600[f"causal={causal}"] = {"lengths": list(KV_MASK_LENGTHS_600), "fwd": fwd_errs,
+                                       "lse_max_abs_err": lse_err, **bwd_errs}
+        del q, k, v, do
+    kv_mask = kv_mask_of(torch, dev, KV_MASK_LENGTHS, s)
+    for causal in (False, True):
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+        fwd_errs, lse_err, bwd_errs, o, lse, delta, dq, dk, dv = masked_gate(
+            torch, tfa, q, k, v, do, kv_mask, causal, f"flash kv_mask causal={causal}")
+        pairs = h * attended_pairs(torch, kv_mask, causal)
+        elems, rows = b * s * h * d, b * h * s
+        mask_bytes = b * s * 4
+        fwd_bound = bound_ms(4 * elems * 2 + rows * 4 + mask_bytes, 4 * d * pairs)
+        dq_bound = bound_ms(5 * elems * 2 + 2 * rows * 4 + mask_bytes, 6 * d * pairs)
+        dkv_bound = bound_ms(6 * elems * 2 + 2 * rows * 4 + mask_bytes, 8 * d * pairs)
+        fwd_ms, fwd_enq = queued_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask,
+                                                                         return_lse=True), 20)
+        dq_ms, dq_enq = queued_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                                                              kv_mask=kv_mask), 20)
+        dkv_ms, dkv_enq = queued_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                                                 causal=causal, kv_mask=kv_mask), 20)
+        plain_fwd_ms = cuda_ms(torch, lambda i: tfa.flash_attention_plain(q, k, v, causal=causal, kv_mask=kv_mask), 5)
+        plain_bwd_ms = cuda_ms(torch, lambda i: tfa.flash_attention_bwd_plain(q, k, v, o, do, lse, causal=causal,
+                                                                              kv_mask=kv_mask), 5)
+        lib_mask = (kv_mask > 0)[:, None, None, :]
+        if causal:
+            lib_mask = lib_mask & torch.ones(s, s, dtype=torch.bool, device=dev).tril()[None, None]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd(i):
+            y = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask)
+            torch.autograd.grad(y, (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            lib_fwd, _ = queued_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=lib_mask), 20)
+        lib_bwd = queued_ms(torch, sdpa_fwd_bwd, 20)[0] - lib_fwd
+        out[f"causal={causal}"] = {
+            "lengths": list(KV_MASK_LENGTHS), "attended_pairs": pairs,
+            "fwd": {**fwd_errs, "lse_max_abs_err": lse_err, "ms": fwd_ms, "enqueue_ms": fwd_enq,
+                    "plain_ms": plain_fwd_ms, "library_ms": lib_fwd, "bound_ms": fwd_bound[0],
+                    "bound_by": fwd_bound[1], **rates(fwd_ms, 4 * d * pairs, lib_fwd, fwd_bound[0])},
+            "dq": {**bwd_errs["dq"], "ms": dq_ms, "enqueue_ms": dq_enq, "plain_ms": plain_bwd_ms,
+                   "library_ms": lib_bwd, "bound_ms": dq_bound[0], "bound_by": dq_bound[1],
+                   **rates(dq_ms, 6 * d * pairs, lib_bwd, dq_bound[0])},
+            "dkv": {**bwd_errs["dk"], "dv_max_abs_err": bwd_errs["dv"]["max_abs_err"],
+                    "max_abs_err": max(bwd_errs["dk"]["max_abs_err"], bwd_errs["dv"]["max_abs_err"]),
+                    "ms": dkv_ms, "enqueue_ms": dkv_enq, "plain_ms": plain_bwd_ms, "library_ms": lib_bwd,
+                    "bound_ms": dkv_bound[0], "bound_by": dkv_bound[1],
+                    **rates(dkv_ms, 8 * d * pairs, lib_bwd, dkv_bound[0]),
+                    "bwd_ms": dq_ms + dkv_ms, "bwd_x_library": (dq_ms + dkv_ms) / lib_bwd},
+        }
+        del q, k, v, do, o, lse, delta, dq, dk, dv, qt, kt, vt
+        torch.cuda.empty_cache()
+    return out, gate600
+
+
+def bert_long_padded_phase(torch, dev):
+    """``bert_base(max_len=1024)`` at full width (BERT-base, random
+    numpy-seeded weights), one ``bert_mlm_loss_fn`` forward and backward on
+    a batch of 8 x 1024 corrupted Markov tokens with the ragged
+    ``KV_MASK_LENGTHS`` attention mask: S*T > 512^2, so every layer's
+    attention takes the flash kernels in their masked form. Held against
+    the same step on their plain versions (``attn_impl="torch"``), same
+    weights, batch and dropout generator, at GPT-2's ``grad_check``
+    tolerances. Gates: 12 launches of each flash kernel, all 12 masked, no
+    other kernel; finite losses. ``step_ms_*``: host wall time of each
+    step (forward and backward, synchronised), after one untimed warm-up
+    step through the kernels."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.data import SyntheticLM, mlm_corrupt
+    from consensusml_tpu_torch.models import flash_attention as tfa
+    from consensusml_tpu_torch.models.bert import bert_base, bert_mlm_loss_fn
+    from consensusml_tpu_torch.models.convert import normal_init_params
+
+    model = bert_base(device="meta", max_len=1024)
+    cfg = model.config
+    params0 = {n: torch.from_numpy(a[0]).to(dev) for n, a in normal_init_params(model, 0, 1).items()}
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=1024)
+    batch = mlm_corrupt(data.sample(np.random.default_rng((0, 14)), (8,)), data, 0, 14, 0.15)
+    batch = {k: t.to(dev) for k, t in batch.items()}
+    batch["attention_mask"] = kv_mask_of(torch, dev, KV_MASK_LENGTHS, 1024).to(torch.int32)
+    runs = {}
+    for impl in ("cuda", "cuda", "torch"):  # the first run warms up (cuBLAS, the allocator), untimed
+        leaves = {n: p.detach().requires_grad_(True) for n, p in params0.items()}
+        gen = torch.Generator(device=dev).manual_seed(11)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = bert_mlm_loss_fn(model, attn_impl=impl)(leaves, {}, batch, gen)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        torch.cuda.synchronize()
+        runs[impl] = {"loss": float(loss.detach()), "grads": grads, "ms": 1e3 * (time.perf_counter() - t0),
+                      "launches": kernels.launch_counts(), "forms": kernels.form_counts()}
+        del leaves, loss
+    gk, gp = runs["cuda"]["grads"], runs["torch"]["grads"]
+    diff2 = sum(float(((a.float() - b.float()) ** 2).sum()) for a, b in zip(gk, gp))
+    ref2 = sum(float((b.float() ** 2).sum()) for b in gp)
+    worst, worst_name = max(
+        (float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)), n)
+        for n, a, b in zip(params0, gk, gp)
+    )
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    counts = runs["cuda"]["launches"]
+    expect = {name: cfg.layers if name in flash else 0 for name in kernels.KERNELS}
+    masked = {name: runs["cuda"]["forms"][name]["masked"] for name in flash}
+    out = {
+        "phase": "bert_long_padded",
+        "config": "bert_base(max_len=1024): BERT-base, 12 layers, hidden 768, 12 heads; batch 8 x 1024, "
+                  "ragged attention_mask, dropout 0.1, flash kernels with kv_mask against their plain versions",
+        "lengths": list(KV_MASK_LENGTHS), "loss_kernels": runs["cuda"]["loss"], "loss_plain": runs["torch"]["loss"],
+        "grad_rel_err": (diff2 / ref2) ** 0.5, "grad_rel_tol": GRAD_REL_TOL, "worst_leaf": worst_name,
+        "worst_leaf_rel_err": worst, "leaf_rel_tol": LEAF_REL_TOL,
+        "step_ms_kernels": runs["cuda"]["ms"], "step_ms_plain": runs["torch"]["ms"],
+        "launches": counts, "masked_launches": masked, "plain_path_launches": runs["torch"]["launches"],
+    }
+    if counts != expect or masked != {name: cfg.layers for name in flash} or any(runs["torch"]["launches"].values()):
+        raise AssertionError(f"bert_long_padded: launches {counts} masked {masked} (expected {expect}, all masked)")
+    if not (np.isfinite(out["loss_kernels"]) and np.isfinite(out["loss_plain"])
+            and out["grad_rel_err"] <= GRAD_REL_TOL and worst <= LEAF_REL_TOL):
+        raise AssertionError(f"bert_long_padded: the kernels' step disagrees with the plain versions': {out}")
+    del runs, gk, gp, params0
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def train_bert_phase(torch, dev, counted=2, eval_batches=8):
+    """bert_mlm full (BERT-base, bf16 compute, 32 workers on a ring, 8 local
+    Adam(1e-4) steps a round, exact bucketed gossip, batch 32 x 128) on
+    the simulated backend: the initial parameters drawn and uploaded a
+    worker at a time (``configs.init_on_device``), one warm round,
+    ``counted`` rounds (launch counters zeroed just before, read just
+    after), then ``eval_batches`` held-out MLM batches for the mean model
+    and every worker. Gates: finite losses, finite non-zero consensus
+    errors, the bucket plan and wire bytes of ``tests/test_torch_bert.py``
+    (75 buckets; 2 sends of 4 bytes a parameter), the first counted
+    round's gossip equal to ``W @ x`` (:class:`GossipCheck`), no port
+    kernel launched (seq 128: dense attention, as the reference's)."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    bundle = configs.build("bert_mlm", "full", device=dev)
+    cfg, world = bundle.cfg, bundle.world_size
+    engine = cfg.engine()
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(1 + counted, 0))
+    marks.append(("batches", time.perf_counter()))
+    params, _ = configs.init_on_device(bundle, 0, dev)
+    marks.append(("init_on_device", time.perf_counter()))
+    state = init_stacked_state(cfg, params, world, seed=0)
+    del params
+    marks.append(("state", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    per_worker = {"params": {n: p[0] for n, p in state.params.items()}, "model_state": {}}
+    n_params = sum(p.numel() for p in per_worker["params"].values())
+    n_buckets = engine.bucket_plan(per_worker).num_buckets
+    wire = engine.wire_bytes_per_round(per_worker)
+    del per_worker
+    if (n_params, n_buckets, wire) != (BERT_PARAMS, BERT_BUCKETS, 2 * 4 * BERT_PARAMS):
+        raise AssertionError(f"bert_mlm plan: {n_params} params, {n_buckets} buckets, {wire} wire bytes")
+    ids = batches[0]["input_ids"]
+    tokens = world * cfg.h * ids.shape[2] * ids.shape[3]
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rounds, check = [], GossipCheck(torch, cfg.gossip.topology, dev)
+    try:
+        for i, batch in enumerate(batches[1:]):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            if i == 0:
+                check.close()  # the first counted round's gossip is held to W @ x
+            rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                           "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                           "tokens_per_s_per_chip": tokens / (ms / 1e3)})
+    finally:
+        check.close()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    marks.append(("rounds", time.perf_counter()))
+    result = evaluate(bundle.eval_fn, state, bundle.eval_batches(eval_batches, 0))
+    marks.append(("eval", time.perf_counter()))
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            raise AssertionError(f"train_bert round {r['step']}: loss or consensus error not finite and positive")
+    if check.rounds != [1] or any(counts.values()):
+        raise AssertionError(f"train_bert: gossip checked at {check.rounds}, launches {counts} (expected none)")
+    mean_model, workers = result["mean_model"], result["worker_mean"]
+    out = {
+        "phase": "train_bert",
+        "config": "bert_mlm full (BERT-base, bf16), 32 workers, ring, exact bucketed gossip, Adam 1e-4, h 8, "
+                  "batch 32 x 128, mlm_rate 0.15",
+        "workers": world, "h": cfg.h, "batch": ids.shape[2], "seq": ids.shape[3], "params_per_worker": n_params,
+        "buckets": n_buckets, "wire_bytes_per_round": wire, "attention": "dense (S*T <= 512^2)",
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds,
+        "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
+        "gossip_rtol": GOSSIP_RTOL, "gossip_worst_err_over_tol": check.worst,
+        "eval_batches": eval_batches,
+        "eval_mean_model": {k: float(v) for k, v in mean_model.items()},
+        "eval_worker_mean": {k: float(v) for k, v in workers.items()},
+        "peak_memory_bytes": peak, "launches": counts,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -2684,6 +3016,7 @@ def main() -> int:
     bn = check_bn(torch, tbn, dev)
     ln = check_ln(torch, tln, dev)
     subnormals = check_subnormals(torch, tfa, tpa, tln, dev)
+    kv_masked, kv_masked_600 = check_flash_kv_mask(torch, tfa, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
@@ -2692,9 +3025,12 @@ def main() -> int:
           "int4_codec": int4, "fp8_codec": fp8,
           "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL,
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
-          "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals})
+          "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals,
+          "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600}})
     torch.cuda.empty_cache()
     b = bwd[1024]
+    # the masked form (BERT's encoder, non-causal) beside each flash kernel's readings
+    masked_form = {key: {f"B=8 S=1024 H=12 {c}": kv_masked[c][key] for c in kv_masked} for key in ("fwd", "dq", "dkv")}
     rows = [
         ("paged_attention", "consensusml_tpu_torch/csrc/paged_attention.cu",
          "consensusml_tpu/models/paged_attention.py:191", paged[1]),
@@ -2703,18 +3039,20 @@ def main() -> int:
         ("flash_attention_fwd", "consensusml_tpu_torch/csrc/flash_attention_fwd.cu",
          "consensusml_tpu/models/flash_attention.py:193",
          {**flash_b8[1024], "by_shape": {"train B=8 S=1024": flash_b8[1024],
-                                         "serve B=1 S=1024": flash[1024]}}),
+                                         "serve B=1 S=1024": flash[1024]},
+          "masked_form": masked_form["fwd"]}),
         ("flash_attention_bwd_dq", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
          "consensusml_tpu/models/flash_attention.py:362",
          {"max_abs_err": b["dq_max_abs_err"], "ms": b["dq_ms"], "plain_ms": b["plain_ms"],
           "bound_ms": b["dq_bound_ms"], "bound_by": b["dq_bound_by"], "library_ms": b["library_ms"],
-          **{key: b[f"dq_{key}"] for key in ("tflops", "x_library", "x_bound")}}),
+          **{key: b[f"dq_{key}"] for key in ("tflops", "x_library", "x_bound")},
+          "masked_form": masked_form["dq"]}),
         ("flash_attention_bwd_dkv", "consensusml_tpu_torch/csrc/flash_attention_bwd.cu",
          "consensusml_tpu/models/flash_attention.py:400",
          {"max_abs_err": max(b["dk_max_abs_err"], b["dv_max_abs_err"]), "ms": b["dkv_ms"],
           "plain_ms": b["plain_ms"], "bound_ms": b["dkv_bound_ms"], "bound_by": b["dkv_bound_by"],
           "library_ms": b["library_ms"], **{key: b[f"dkv_{key}"] for key in ("tflops", "x_library", "x_bound")},
-          "bwd_ms": b["bwd_ms"], "bwd_x_library": b["bwd_x_library"]}),
+          "bwd_ms": b["bwd_ms"], "bwd_x_library": b["bwd_x_library"], "masked_form": masked_form["dkv"]}),
         # int8 at its (4 * 8192, 512) shape carries the readings (the train
         # line's format); int4 and fp8 at the largest bucket's rows beside
         ("fused_choco_encode", "consensusml_tpu_torch/csrc/fused_choco_encode.cu",
@@ -2826,6 +3164,18 @@ def main() -> int:
     emit(line)
     for name, n in counts.items():
         launches[name]["train_mnist"] = n
+    # bert_mlm: the encoder at a long max_len through the masked flash
+    # kernels, then the config itself (dense attention at seq 128)
+    line, counts = bert_long_padded_phase(torch, dev)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["bert_long_padded"] = n
+    for name, n in line["masked_launches"].items():
+        forms.setdefault(name, {}).setdefault("masked", {})["bert_long_padded"] = n
+    line, counts = train_bert_phase(torch, dev)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_bert"] = n
 
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2835,7 +3185,7 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
          **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format",
-                              "also_replaces") if k in r}}
+                              "also_replaces", "masked_form") if k in r}}
         for name, src, rep, r in rows
     ]})
     print(smi, flush=True)

@@ -57,6 +57,22 @@ smoke, 28x28x1)``, 4 workers, dense exact gossip, ``optax.adam(1e-3)``,
 h = 1, batch 64. Its path launches none of the port's kernels: two dense
 layers (cuBLAS) and a gossip ``W @ x``.
 
+``bert_mlm`` is the reference's ``_bert_mlm``
+(``consensusml_tpu/configs/__init__.py:328-366``): BERT masked-LM
+pretraining by local SGD, h = 8 local Adam steps a round, then one round
+of exact (uncompressed) bucketed gossip on a ring, on ``SyntheticLM``
+corrupted at ``mlm_rate`` 0.15 (mask token ``vocab - 1``):
+
+- ``scale="full"``: BERT-base (12 layers, hidden 768, 12 heads, MLP
+  3072, vocab 30522, dropout 0.1, bf16 compute), 32 workers, batch 32 x
+  seq 128, Adam(1e-4);
+- ``scale="smoke"``: vocab 64, hidden 32, 2 layers, 2 heads, MLP 64,
+  max_len 32, dropout 0, 4 workers, batch 8 x seq 16, Adam(1e-2).
+
+At seq 128 its attention is dense (S*T <= 512^2), as the reference's; the
+flash kernels with their per-key mask take the same encoder at a longer
+``max_len`` with an ``attention_mask`` (``models.bert.bert_base``).
+
 Every config takes ``topology=``, ``train.py``'s ``--topology``:
 ``NAME[:k=v,...]`` (:func:`topology_from_spec`), the named family at the
 run's world size in place of the config's own graph. Every bundle carries
@@ -67,6 +83,7 @@ next-token nll for GPT-2) and ``eval_batches(n, seed)``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable
 
 import numpy as np
@@ -76,11 +93,11 @@ from consensusml_tpu_torch.device import resolve_device
 from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
-    "CONFIGS", "RunBundle", "build", "gpt2_config", "build_model", "gpt2_init_params", "resnet_model",
-    "topology_from_spec", "with_topology",
+    "CONFIGS", "RunBundle", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
+    "resnet_model", "topology_from_spec", "with_topology", "worker_inits", "init_on_device",
 ]
 
-CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp")
+CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm")
 CODECS = ("topk_int8", "topk_int4", "int8", "int4", "fp8")
 
 
@@ -112,31 +129,25 @@ def build_model(
 
 
 def gpt2_init_params(cfg: GPT2Config, seed: int, world_size: int, ranks=None) -> dict[str, np.ndarray]:
-    """Stacked ``(W, ...)`` f32 flax-layout parameters, numpy-seeded per
-    worker by ``(seed, rank)``: N(0, 0.02) kernels and embeddings, zero
-    biases, unit LayerNorm scales. Keys are flax paths joined by dots, in
-    the reference's flatten order (feed :func:`.models.convert.
-    gpt2_from_flax`'s output format). ``ranks`` draws only those workers'
-    rows (the same values), stacked in that order: a rank of the
-    collective backend draws its own."""
-    meta = GPT2LM(cfg, device="meta")
-    shapes = {n: tuple(p.shape) for n, p in meta.named_parameters()}
-    rngs = [np.random.default_rng((seed, r)) for r in (range(world_size) if ranks is None else ranks)]
-    world_size = len(rngs)
-    out = {}
-    for name in sorted(shapes, key=lambda n: tuple(n.split("."))):
-        shape = (world_size,) + shapes[name]
-        if name.endswith("bias"):
-            out[name] = np.zeros(shape, np.float32)
-        elif name.endswith("scale"):
-            out[name] = np.ones(shape, np.float32)
-        else:
-            arr = np.empty(shape, np.float32)
-            for r, rng in enumerate(rngs):
-                rng.standard_normal(shapes[name], dtype=np.float32, out=arr[r])
-                arr[r] *= np.float32(0.02)
-            out[name] = arr
-    return out
+    """:func:`.models.convert.normal_init_params` of ``GPT2LM(cfg)``: the
+    stacked ``(W, ...)`` f32 flax-layout parameters, numpy-seeded per
+    worker by ``(seed, rank)``, for :func:`.models.convert.gpt2_from_flax`.
+    ``ranks`` draws only those workers' rows (the same values), stacked in
+    that order: a rank of the collective backend draws its own."""
+    from consensusml_tpu_torch.models.convert import normal_init_params
+
+    return normal_init_params(GPT2LM(cfg, device="meta"), seed, world_size, ranks)
+
+
+def bert_config(scale: str = "smoke"):
+    """``bert_mlm``'s model configuration at ``scale``."""
+    from consensusml_tpu_torch.models.bert import BertConfig
+
+    if scale == "full":
+        return BertConfig()
+    if scale == "smoke":
+        return BertConfig(vocab_size=64, hidden=32, layers=2, heads=2, mlp_dim=64, max_len=32, dropout=0.0)
+    raise ValueError(f"unknown scale {scale!r} (smoke|full)")
 
 
 def resnet_model(scale: str = "smoke", norm_impl: str = "flax"):
@@ -162,13 +173,72 @@ class RunBundle:
     model: Any  # structure only (meta device); parameters live in the train state
     loss_fn: Callable
     batches: Callable  # (rounds, seed, start=0) -> iterator of stacked (W, H, B, ...) batches
-    init_params: Callable  # (seed, ranks=None) -> stacked numpy variables in flax layout (those ranks' rows)
+    draw_init: Callable  # (seed, ranks) -> those ranks' rows of the stacked numpy variables in flax layout
     convert: Callable  # init_params' output -> (params, model_state) as stacked CPU tensors
     codec_path: str
     norm_path: str = ""
     description: str = ""
     eval_fn: Callable | None = None  # train.evaluate's metric sums for one model
     eval_batches: Callable | None = None  # (n_batches, seed) -> iterator of unstacked held-out batches
+
+    def init_params(self, seed: int, ranks=None):
+        """The stacked ``(W, ...)`` numpy initial variables in flax layout,
+        numpy-seeded per worker by ``(seed, rank)``. ``ranks`` draws only
+        those workers' rows (the same values), stacked in that order;
+        ``ranks=None`` draws every worker's through :func:`worker_inits`,
+        a few at once in threads, into one stacked tree."""
+        if ranks is not None:
+            return self.draw_init(seed, ranks)
+        from consensusml_tpu_torch.utils import tree as T
+
+        out = None
+        for r, part in worker_inits(self, seed):
+            if out is None:
+                out = T.tree_map(lambda a: np.empty((self.world_size, *a.shape[1:]), a.dtype), part)
+            for dst, src in zip(T.leaves(out), T.leaves(part)):
+                dst[r] = src[0]
+        return out
+
+
+# workers whose initial parameters are drawn at once (numpy's generators
+# fill their arrays outside the GIL)
+_INIT_THREADS = 8
+
+
+def worker_inits(bundle: RunBundle, seed: int):
+    """``(rank, bundle.init_params(seed, ranks=[rank]))`` for every worker in
+    rank order: each worker's rows of the stacked draw, the same values,
+    up to ``_INIT_THREADS`` drawn at once in threads, so the host holds
+    that many workers' parameters at a time (BERT-base: 438 MB each,
+    where all 32 would be 14 GB)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    world = bundle.world_size
+    threads = min(_INIT_THREADS, os.cpu_count() or 1)
+    with ThreadPoolExecutor(threads) as pool:
+        for lo in range(0, world, threads):
+            ranks = range(lo, min(lo + threads, world))
+            yield from zip(ranks, pool.map(lambda r: bundle.draw_init(seed, [r]), ranks))
+
+
+def init_on_device(bundle: RunBundle, seed: int, device) -> tuple[dict, dict]:
+    """``bundle.convert(bundle.init_params(seed))`` as stacked tensors on
+    ``device``, drawn (:func:`worker_inits`) and uploaded a worker at a
+    time."""
+    from consensusml_tpu_torch.utils import tree as T
+
+    world = bundle.world_size
+    params = model_state = None
+    for r, init in worker_inits(bundle, seed):
+        p, ms = bundle.convert(init)
+        if params is None:
+            params = {n: torch.empty((world, *t.shape[1:]), dtype=t.dtype, device=device) for n, t in p.items()}
+            model_state = T.tree_map(lambda t: torch.empty((world, *t.shape[1:]), dtype=t.dtype, device=device), ms)
+        for n, t in p.items():
+            params[n][r].copy_(t[0])
+        for dst, src in zip(T.leaves(model_state), T.leaves(ms)):
+            dst[r].copy_(src[0])
+    return params, model_state
 
 
 def topology_from_spec(spec: str, world: int):
@@ -207,13 +277,17 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     if scale not in ("smoke", "full"):
         raise ValueError(f"unknown scale {scale!r} (smoke|full)")
     dev = resolve_device(device)
-    if name in ("cifar_resnet50", "mnist_mlp"):
+    if name in ("cifar_resnet50", "mnist_mlp", "bert_mlm"):
         if (codec, gamma, codec_warmup) != (None, None, None):
             raise NotImplementedError(f"{name} gossips exactly; its compressed variants are not ported yet")
         if name == "mnist_mlp":
             if norm_impl != "flax":
                 raise ValueError(f"mnist_mlp has no norm layers (norm_impl must be 'flax', got {norm_impl!r})")
             bundle = _mnist_mlp(scale, world)
+        elif name == "bert_mlm":
+            if norm_impl != "flax":
+                raise ValueError(f"bert_mlm's LayerNorms are flax's (norm_impl must be 'flax', got {norm_impl!r})")
+            bundle = _bert_mlm(scale, world)
         else:
             bundle = _cifar_resnet50(scale, world, norm_impl, dev)
     else:
@@ -244,12 +318,51 @@ def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
         model=model,
         loss_fn=mlp_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        init_params=lambda seed, ranks=None: mlp_init_params(model, seed, world, ranks),
+        draw_init=lambda seed, ranks: mlp_init_params(model, seed, world, ranks),
         convert=mlp_from_flax,
         codec_path="none (exact gossip)",
         description="2-layer MLP, 4 workers, dense gossip (CPU reference config)",
         eval_fn=classification_eval_fn(model),
         eval_batches=lambda n_batches, seed: cls_eval_batches(data, batch, n_batches, seed),
+    )
+
+
+def _bert_mlm(scale: str, world: int | None) -> RunBundle:
+    from consensusml_tpu_torch.consensus import GossipConfig
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
+    from consensusml_tpu_torch.models.bert import BertMLM, bert_mlm_loss_fn
+    from consensusml_tpu_torch.models.convert import bert_from_flax, normal_init_params
+    from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.evaluate import mlm_eval_fn
+    from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
+    from consensusml_tpu_torch.train.optim import adam
+
+    full = scale == "full"
+    mcfg = bert_config(scale)
+    world = world or (32 if full else 4)
+    batch, seq = (32, 128) if full else (8, 16)
+    mlm_rate = 0.15
+    cfg = LocalSGDConfig(
+        gossip=GossipConfig(topology=topology_from_name("ring", world)), optimizer=adam(1e-4 if full else 1e-2), h=8
+    )
+    data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
+    model = BertMLM(mcfg, device="meta")
+    return RunBundle(
+        name="bert_mlm",
+        world_size=world,
+        cfg=cfg,
+        model=model,
+        loss_fn=bert_mlm_loss_fn(model),
+        batches=lambda rounds, seed, start=0: lm_round_batches(
+            data, world, cfg.h, batch, rounds, seed, start=start, mlm_rate=mlm_rate
+        ),
+        draw_init=lambda seed, ranks: normal_init_params(model, seed, world, ranks),
+        convert=lambda init: (bert_from_flax(init), {}),
+        codec_path="none (exact gossip)",
+        norm_path="flax LayerNorm (post-LN, f32)",
+        description=f"BERT MLM, local-SGD H=8 + ring averaging; seq {seq}: dense attention",
+        eval_fn=mlm_eval_fn(model),
+        eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed, mlm_rate=mlm_rate),
     )
 
 
@@ -288,7 +401,7 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         model=model,
         loss_fn=resnet_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        init_params=lambda seed, ranks=None: resnet_init_params(model, seed, world, ranks),
+        draw_init=lambda seed, ranks: resnet_init_params(model, seed, world, ranks),
         convert=resnet_from_flax,
         codec_path="none (exact gossip)",
         norm_path=norm_path,
@@ -362,7 +475,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         batches=lambda rounds, seed, start=0: lm_round_batches(
             data, world, cfg.h, batch, rounds, seed, start=start
         ),
-        init_params=lambda seed, ranks=None: gpt2_init_params(mcfg, seed, world, ranks),
+        draw_init=lambda seed, ranks: gpt2_init_params(mcfg, seed, world, ranks),
         convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",
         norm_path=norm_path,

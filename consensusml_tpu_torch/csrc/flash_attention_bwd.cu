@@ -17,6 +17,18 @@
 // dk/dv (which writes no row of a key past it). Tiles wholly above the
 // diagonal are skipped (the reference's nk_eff for dq and i0 for dk/dv).
 //
+// kv_mask (the per-key padding mask, (B, S) f32, >0 = attend; nullptr for
+// none) selects each kernel's kHasMask instantiation, so the no-mask form
+// GPT-2 runs is the code it was. A masked key gets p = 0 by a select, as
+// in the reference (flash_attention.py:257-260 for dq, :313-316 for
+// dk/dv), never by a -1e30 score: a row that attends to no key has lse =
+// -1e30 (the forward's), where exp2(s - lse) would be inf, and the select
+// gives it no gradient, as the reference does. One mask row of S floats a
+// batch, shared by the heads: dq stages the 64 floats of each key tile in
+// a double-buffered shared array during the previous tile's products, as
+// the forward does; dk/dv's keys are its resident rows, so each thread
+// reads the mask of its two key rows once.
+//
 // Layout: q, k, v, do, dq, dk, dv are (B, S, H, D) contiguous, as the
 // public function takes them (no fold/pad copy), read through 4-D TMA
 // maps (D, H, S, B); lse and delta are (B, H, S) f32.
@@ -92,14 +104,17 @@ constexpr int kDqThreads = 128;
 constexpr int kDqStageBytes = 2 * sm90::kTileBytes;  // K then V
 constexpr int kDqSmemBytes = 1024 + 2 * sm90::kTileBytes + kDqStages * kDqStageBytes;
 
+template <bool kHasMask>
 __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-    int S, int H, int causal, float scale) {
+    const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
+    __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale) {
   using namespace cml_sm90;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kDqStages + 1];  // one per stage, then Q and dO's
+  // kHasMask: the kv_mask of a key tile, double-buffered (tile t in t & 1)
+  __shared__ __align__(16) float smask[kHasMask ? 2 * kTileRows : 1];
 
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -118,6 +133,11 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
   const int q0 = qt * kTileRows;
   int n_tiles = nq;
   if (causal) n_tiles = min(n_tiles, qt + 1);  // skip tiles above the diagonal
+  // kHasMask, thread tid < 64: key tid of tile t's mask (0 past S)
+  auto load_mask = [&](int t) {
+    const int key = t * kTileRows + tid;
+    return key < S ? kv_mask[static_cast<size_t>(b) * S + key] : 0.f;
+  };
 
   auto issue_kv = [&](int tile, int st) {
     const uint32_t bar = bar0 + 8 * st;
@@ -131,6 +151,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     for (int i = 0; i <= kDqStages; ++i) mbar_init(bar0 + 8 * i, 1);
     mbar_init_fence();
   }
+  if (kHasMask && tid < kTileRows) smask[tid] = load_mask(0);
   __syncthreads();
   if (tid == 0) {
     const uint32_t qbar = bar0 + 8 * kDqStages;
@@ -178,7 +199,8 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     pin(dp);
 
     const int k0 = t * kTileRows;
-    const bool edge = k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > q0);
+    const bool edge = kHasMask || k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > q0);
+    const float* const tmask = smask + (kHasMask ? (t & 1) * kTileRows : 0);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -188,8 +210,9 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
           const int e = 4 * j + 2 * i + c;
           float p = exp2f(s[e] * scale_log2 - lse2[i]);
           if (edge) {
-            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
-            if (key >= S || (causal && key > row0 + 8 * i)) p = 0.f;
+            const int col = 8 * j + 2 * (lane % 4) + c;
+            const int key = k0 + col;
+            if (key >= S || (causal && key > row0 + 8 * i) || (kHasMask && !(tmask[col] > 0.f))) p = 0.f;
           }
           s[e] = mul_ftz(p, sub_ftz(dp[e], dl[i]));  // ds; reads a subnormal p as 0
         }
@@ -205,9 +228,13 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
 #pragma unroll
     for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc, dsl[k], mnmajor_desc(sK, k));
     wgmma_commit();
+    // the next tile's mask, in flight during these products
+    const float next_mask = kHasMask && tid < kTileRows && t + 1 < n_tiles ? load_mask(t + 1) : 0.f;
     wgmma_wait_all();
     pin(acc);
 
+    // nobody reads the other mask buffer until after the barrier below
+    if (kHasMask && tid < kTileRows) smask[((t + 1) & 1) * kTileRows + tid] = next_mask;
     __syncthreads();  // every warp is done with this stage: refill it
     if (tid == 0 && t + kDqStages < n_tiles) issue_kv(t + kDqStages, st);
   }
@@ -229,11 +256,13 @@ constexpr int kDkvSmemBytes = 1024 + 2 * sm90::kTileBytes + kDkvStages * kDkvSta
 // longer (PERF.md).
 constexpr int kDkvMinBlocks = 3;
 
+template <bool kHasMask>
 __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int S, int H, int causal, float scale) {
+    const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int causal,
+    float scale) {
   using namespace cml_sm90;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kDkvStages + 1];  // one per stage, then K and V's
@@ -289,6 +318,15 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
 
   const int key0 = k0 + 16 * warp + lane / 4;  // key row of accumulator half r = 0; +8 for r = 1
   const float scale_log2 = scale * kLog2e;
+  // kHasMask: whether this thread's two key rows are attended to (not past S)
+  bool keep[2] = {true, true};
+  if (kHasMask) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      keep[r] = key < S && kv_mask[static_cast<size_t>(b) * S + key] > 0.f;
+    }
+  }
   float dka[32], dva[32];
 #pragma unroll
   for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
@@ -337,6 +375,7 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
             const int query = q0 + col + c;
             if (query >= S || (causal && query < key0 + 8 * r)) p = 0.f;
           }
+          if (kHasMask && !keep[r]) p = 0.f;
           s[e] = p;
           dp[e] = mul_ftz(p, sub_ftz(dp[e], c ? d2.y : d2.x));  // ds
         }
@@ -390,47 +429,64 @@ int encode_qkvdo(CUtensorMap (&m)[4], const void* q, const void* k, const void* 
   return 0;
 }
 
+template <bool kHasMask>
+int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
+              void* dq, int B, int S, int H, int causal, float scale, void* stream) {
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
+  flash_bwd_dq_kernel<kHasMask><<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kHasMask>
+int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
+               void* dk, void* dv, int B, int S, int H, int causal, float scale, void* stream) {
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
+  flash_bwd_dkv_kernel<kHasMask><<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Both return 0 once launched, else a CUDA error code: without launching,
 // cudaErrorInvalidValue for an unsupported head dim or a tensor map the
 // driver refuses (e.g. a base address not 16-byte aligned); after the
-// launch, cudaGetLastError().
+// launch, cudaGetLastError(). kv_mask: nullptr, or (B, S) f32.
 extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                                const void* dout, const void* lse, const void* delta,
-                                               void* dq, int B, int S, int H, int D, int causal,
-                                               float scale, void* stream) {
+                                               const void* kv_mask, void* dq, int B, int S, int H,
+                                               int D, int causal, float scale, void* stream) {
   if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
   const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
   if (rc != 0) return rc;
-  // per launch: the attribute belongs to the current device
-  const cudaError_t attr =
-      cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
-  flash_bwd_dq_kernel<<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  const float* mask = static_cast<const float*>(kv_mask);
+  return mask != nullptr ? launch_dq<true>(m, l, dl, mask, dq, B, S, H, causal, scale, stream)
+                         : launch_dq<false>(m, l, dl, mask, dq, B, S, H, causal, scale, stream);
 }
 
 extern "C" int cml_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                                 const void* dout, const void* lse,
-                                                const void* delta, void* dk, void* dv, int B,
-                                                int S, int H, int D, int causal, float scale,
-                                                void* stream) {
+                                                const void* delta, const void* kv_mask, void* dk,
+                                                void* dv, int B, int S, int H, int D, int causal,
+                                                float scale, void* stream) {
   if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
   const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
   if (rc != 0) return rc;
-  // per launch: the attribute belongs to the current device
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
-  flash_bwd_dkv_kernel<<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], m[3], static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
+  const float* mask = static_cast<const float*>(kv_mask);
+  return mask != nullptr ? launch_dkv<true>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream)
+                         : launch_dkv<false>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream);
 }

@@ -8,8 +8,26 @@
 // online softmax with a running row max m and row sum l over key tiles,
 // out = acc / max(l, 1e-30), and the per-row logsumexp m + log(l) saved
 // for the backward. Tiles wholly above the diagonal are skipped, as the
-// reference's nk_eff does. No kv_mask and no q/k offsets (the wrapper
-// refuses them).
+// reference's nk_eff does. No q/k offsets.
+//
+// kv_mask (the per-key padding mask, (B, S) f32, >0 = attend; nullptr for
+// none) selects the kHasMask instantiation, so the no-mask form GPT-2 runs
+// is the code it was. One row of S floats a batch, shared by the H heads
+// (the reference repeats it per head on the host, :159): thread t < 64
+// loads key t of the next tile's row into a double-buffered shared array
+// while the current tile's P V products run, as the dk/dv kernel stages
+// its lse and delta. In this form every masked key (kv_mask, causal,
+// past S) scores -1e30, the reference's _NEG_INF, not -inf, which is what
+// a row that attends to no key needs: its running max stays at -1e30, so
+// every visited key gets p = exp2(0) = 1 and the accumulator holds the
+// sum of their values, as in the reference. That row's out is then that
+// sum over the reference's count of visited keys (flash_attention.py:
+// 124-134 with its 512-key blocks: ceil(S / 512) * 512, or under causal
+// 512 * (row / 512 + 1), padding included; flash_attention_plain
+// documents it), and its lse is -1e30. Under causal the kernel walks the
+// key tiles up to the end of the row's 512-key block, not only to the
+// diagonal, so that the sum covers the keys the reference visits; the
+// tiles past the diagonal give every other row p = exp2(-1e30 - m) = 0.
 //
 // Layout: q, k, v, out are (B, S, H, D) contiguous, as the public function
 // takes them (no fold/pad copy), read through 4-D TMA maps (D, H, S, B);
@@ -62,17 +80,23 @@ using namespace cml_sm90;
 
 constexpr int kBQ = kTileRows;  // query rows of a block: one warpgroup
 constexpr int kBK = kTileRows;  // keys of a streamed tile
+constexpr int kRefBlock = 512;  // the reference kernel's key block (_BK), which fixes its visited keys
+constexpr float kMaskedScore = -1e30f;  // the reference's _NEG_INF, in log2 units here
 constexpr int kStages = 2;
 constexpr int kThreads = 128;
 constexpr int kStageBytes = 2 * kTileBytes;  // K then V
 constexpr int kSmemBytes = 1024 + kTileBytes + kStages * kStageBytes;  // + alignment slack
 
+template <bool kHasMask>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int S, int H, int causal, float scale_log2) {
+    const __grid_constant__ CUtensorMap tv, const float* __restrict__ kv_mask,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H, int causal,
+    float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kStages + 1];  // one per stage, then Q's
+  // kHasMask: the kv_mask of a key tile, double-buffered (tile t in t & 1)
+  __shared__ __align__(16) float smask[kHasMask ? 2 * kBK : 1];
 
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -89,7 +113,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int b = bh / H, h = bh % H;
   const int q0 = qt * kBQ;
   int n_tiles = (S + kBK - 1) / kBK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);  // skip tiles above the diagonal
+  // skip tiles above the diagonal; with a mask, those past the row's
+  // 512-key block of the reference (see above)
+  if (causal)
+    n_tiles = min(n_tiles, kHasMask ? (q0 / kRefBlock + 1) * (kRefBlock / kBK) : (q0 + kBQ - 1) / kBK + 1);
+  // kHasMask, thread tid < kBK: key tid of tile t's mask (0 past S)
+  auto load_mask = [&](int t) {
+    const int key = t * kBK + tid;
+    return key < S ? kv_mask[static_cast<size_t>(b) * S + key] : 0.f;
+  };
 
   auto issue_kv = [&](int tile, int st) {
     const uint32_t bar = bar0 + 8 * st;
@@ -103,6 +135,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     for (int i = 0; i <= kStages; ++i) mbar_init(bar0 + 8 * i, 1);
     mbar_init_fence();
   }
+  if (kHasMask && tid < kBK) smask[tid] = load_mask(0);
   __syncthreads();
   if (tid == 0) {
     const uint32_t qbar = bar0 + 8 * kStages;
@@ -137,7 +170,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     pin(s);
 
     const int k0 = t * kBK;
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    const bool edge = kHasMask || k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    const float* const tmask = smask + (kHasMask ? (t & 1) * kBK : 0);
     float mx[2] = {-1e30f, -1e30f};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -147,8 +181,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
         for (int c = 0; c < 2; ++c) {
           float x = s[4 * j + 2 * i + c] * scale_log2;
           if (edge) {
-            const int key = k0 + 8 * j + 2 * (lane % 4) + c;
-            if (key >= S || (causal && key > row0 + 8 * i)) x = neg_inf();
+            const int col = 8 * j + 2 * (lane % 4) + c;
+            const int key = k0 + col;
+            if (key >= S || (causal && key > row0 + 8 * i) || (kHasMask && !(tmask[col] > 0.f)))
+              x = kHasMask ? kMaskedScore : neg_inf();
           }
           s[4 * j + 2 * i + c] = x;
           mx[i] = fmaxf(mx[i], x);
@@ -171,7 +207,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const float p = ftz(exp2f(s[4 * j + 2 * i + c] - m[i]));  // masked: exp2(-inf) = 0
+          // masked: exp2(-inf) = 0, or exp2(-1e30 - m) = 0 unless m is -1e30 too
+          const float p = ftz(exp2f(s[4 * j + 2 * i + c] - m[i]));
           s[4 * j + 2 * i + c] = p;
           l[i] += p;
           o[4 * j + 2 * i + c] *= corr[i];
@@ -188,9 +225,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 #pragma unroll
     for (int k = 0; k < 4; ++k) wgmma_rs_mn(o, pl[k], mnmajor_desc(sV, k));
     wgmma_commit();
+    // the next tile's mask, in flight during these products
+    const float next_mask = kHasMask && tid < kBK && t + 1 < n_tiles ? load_mask(t + 1) : 0.f;
     wgmma_wait_all();
     pin(o);
 
+    // nobody reads the other mask buffer until after the barrier below
+    if (kHasMask && tid < kBK) smask[((t + 1) & 1) * kBK + tid] = next_mask;
     __syncthreads();  // every warp is done with this stage: refill it
     if (tid == 0 && t + kStages < n_tiles) issue_kv(t + kStages, st);
   }
@@ -200,11 +241,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / l_safe;
     const int qi = row0 + 8 * i;
+    // a row that attends to no key: the reference's count of visited keys
+    const bool empty = kHasMask && m[i] == kMaskedScore;
+    const int visited = causal ? kRefBlock * (qi / kRefBlock + 1) : kRefBlock * ((S + kRefBlock - 1) / kRefBlock);
+    const float l_safe = empty ? static_cast<float>(visited) : fmaxf(l[i], 1e-30f);
+    inv[i] = 1.f / l_safe;
     if (lse != nullptr && lane % 4 == 0 && qi < S)
-      lse[static_cast<size_t>(bh) * S + qi] = mul_ftz(add_ftz(m[i], log2f(l_safe)), kLn2);
+      lse[static_cast<size_t>(bh) * S + qi] =
+          empty ? kMaskedScore : mul_ftz(add_ftz(m[i], log2f(l_safe)), kLn2);
   }
   // the Q tile is no longer read: stage the output there
   const size_t row_stride = static_cast<size_t>(H) * kD;
@@ -213,28 +258,38 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
                   row_stride, min(kBQ, S - q0), 1);
 }
 
+template <bool kHasMask>
+int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+               const float* kv_mask, void* out, void* lse, int B, int S, int H, int causal,
+               float scale, void* stream) {
+  // per launch: the attribute belongs to the current device
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  flash_fwd_kernel<kHasMask><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, kv_mask, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns 0 once launched, else a CUDA error code without launching:
 // cudaErrorInvalidValue for an unsupported head dim or a tensor map the
 // driver refuses (e.g. a base address not 16-byte aligned); then
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch. kv_mask: nullptr, or (B, S) f32.
 extern "C" int cml_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                            void* out, void* lse, int B, int S, int H,
-                                            int D, int causal, float scale, void* stream) {
+                                            const void* kv_mask, void* out, void* lse, int B,
+                                            int S, int H, int D, int causal, float scale,
+                                            void* stream) {
   if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int rc = encode_bshd(&tq, q, B, S, H, kBQ);
   if (rc == 0) rc = encode_bshd(&tk, k, B, S, H, kTileRows);
   if (rc == 0) rc = encode_bshd(&tv, v, B, S, H, kTileRows);
   if (rc != 0) return rc;
-  // per launch: the attribute belongs to the current device
-  const cudaError_t attr =
-      cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal,
-      scale * kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  const float* mask = static_cast<const float*>(kv_mask);
+  return mask != nullptr ? launch_fwd<true>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
+                         : launch_fwd<false>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
 }

@@ -6,8 +6,9 @@ arrays: the class prototypes, labels and noisy images from
 ``default_rng(seed)``, each round's per-worker samples from
 ``default_rng((seed, round))``; the Markov chain's successor table from
 ``default_rng(seed)``, each round's per-worker token block from
-``default_rng((seed, round, rank))``. The BERT-style corruption
-(``mlm_rate > 0``) comes with its config.
+``default_rng((seed, round, rank))``; the BERT-style corruption
+(:func:`mlm_corrupt`, ``mlm_rate > 0``) from ``default_rng((seed, round,
+10**6))``.
 
 Held-out data (the reference's ``_cls_eval_batches`` and
 ``_lm_eval_batches``, ``consensusml_tpu/configs/__init__.py``): the
@@ -26,7 +27,7 @@ import torch
 
 __all__ = [
     "SyntheticClassification", "round_batches", "SyntheticLM", "lm_round_batches", "cls_eval_batches",
-    "lm_eval_batches", "EVAL_SEED_OFFSET",
+    "lm_eval_batches", "mlm_corrupt", "EVAL_SEED_OFFSET",
 ]
 
 # keeps held-out sample streams disjoint from every training round key
@@ -121,6 +122,11 @@ class SyntheticLM:
         succ = rng.integers(0, self.vocab_size - 1, size=(self.vocab_size, 4))
         self.successors = succ.astype(np.int32)
 
+    @property
+    def mask_token(self) -> int:
+        """The reserved id the chain never emits: BERT's [MASK]."""
+        return self.vocab_size - 1
+
     def sample(self, rng: np.random.Generator, shape: tuple[int, ...]) -> np.ndarray:
         """Token id sequences of shape ``(*shape, seq_len)``, int32."""
         n = int(np.prod(shape))
@@ -133,6 +139,23 @@ class SyntheticLM:
         return out.reshape(*shape, self.seq_len)
 
 
+def mlm_corrupt(ids: np.ndarray, dataset: SyntheticLM, seed: int, r: int,
+                mlm_rate: float) -> dict[str, torch.Tensor]:
+    """BERT-style corruption of a round's token block, keyed ``(seed, r,
+    10**6)`` as the reference's: each position is masked with probability
+    ``mlm_rate`` (replaced by the dataset's reserved ``mask_token``,
+    ``vocab - 1``). Returns ``input_ids`` (corrupted, int32),
+    ``labels`` (the original ids, int32) and ``mlm_mask`` (1.0 where
+    masked, f32)."""
+    rng = np.random.default_rng((seed, r, 10**6))
+    mask = rng.random(ids.shape) < mlm_rate
+    return {
+        "input_ids": torch.from_numpy(np.where(mask, dataset.mask_token, ids).astype(np.int32)),
+        "labels": torch.from_numpy(np.asarray(ids, np.int32)),
+        "mlm_mask": torch.from_numpy(mask.astype(np.float32)),
+    }
+
+
 def lm_round_batches(
     dataset: SyntheticLM,
     world_size: int,
@@ -141,23 +164,34 @@ def lm_round_batches(
     rounds: int,
     seed: int = 0,
     start: int = 0,
+    mlm_rate: float = 0.0,
 ) -> Iterator[dict[str, torch.Tensor]]:
     """Stacked ``(W, H, B, S)`` int32 round batches keyed by ``(seed,
     absolute round, rank)``: ``start=N`` continues the exact stream a fresh
-    run would produce at round N."""
+    run would produce at round N. ``mlm_rate > 0`` yields the
+    :func:`mlm_corrupt` dict of the round's block instead."""
     for r in range(start, start + rounds):
-        per_worker = [
+        ids = np.stack([
             dataset.sample(np.random.default_rng((seed, r, rank)), (h, batch))
             for rank in range(world_size)
-        ]
-        yield {"input_ids": torch.from_numpy(np.stack(per_worker))}
+        ])
+        if mlm_rate > 0:
+            yield mlm_corrupt(ids, dataset, seed, r, mlm_rate)
+        else:
+            yield {"input_ids": torch.from_numpy(ids)}
 
 
 def lm_eval_batches(dataset: SyntheticLM, batch: int, n_batches: int,
-                    seed: int = 0) -> Iterator[dict[str, torch.Tensor]]:
+                    seed: int = 0, mlm_rate: float = 0.0) -> Iterator[dict[str, torch.Tensor]]:
     """``n_batches`` held-out ``{"input_ids": (B, S) int32}`` batches: the
     same Markov chain under keys ``(seed + EVAL_SEED_OFFSET, r)``, which no
-    training round uses."""
+    training round uses; ``mlm_rate > 0`` corrupts each as
+    :func:`mlm_corrupt` under ``(seed + EVAL_SEED_OFFSET, r)``, as the
+    reference's ``_lm_eval_batches``."""
     for r in range(n_batches):
         rng = np.random.default_rng((seed + EVAL_SEED_OFFSET, r))
-        yield {"input_ids": torch.from_numpy(dataset.sample(rng, (batch,)))}
+        ids = dataset.sample(rng, (batch,))
+        if mlm_rate > 0:
+            yield mlm_corrupt(ids, dataset, seed + EVAL_SEED_OFFSET, r, mlm_rate)
+        else:
+            yield {"input_ids": torch.from_numpy(ids)}

@@ -15,7 +15,8 @@ Launch counts live on each kernel's wrapper as a plain integer
 (``wrapper.launches``); :func:`launch_counts` reads them all and
 :func:`reset_launch_counts` zeroes them. A wrapper whose kernel has
 forms also counts the launches of each (``wrapper.<form>_launches``:
-``chunk_scatter.acc_launches``, its accumulating form), which
+``chunk_scatter.acc_launches``, its accumulating form; the flash
+kernels' ``masked_launches``, their ``kv_mask`` form), which
 :func:`form_counts` reads.
 """
 

@@ -58,8 +58,9 @@ def dot_product_attention(
     shapes without a bias on a CUDA tensor, blockwise otherwise — the
     reference's dispatch with the H100 in the TPU's place.
 
-    ``use_kernel=False`` sends "flash" to the kernel's plain PyTorch
-    version instead (the engine's ``attn_impl="torch"`` tier).
+    ``use_kernel=False`` sends "flash" to the kernels' plain PyTorch
+    versions instead (the engine's ``attn_impl="torch"`` tier; under
+    autograd the reference's backward in plain ops, as on the CPU).
 
     ``kv_mask`` ((B, T), nonzero = attend) and ``mask`` ((B, S|1, T)
     bool, True = attend; dense only) are where-masks, as in the reference.
@@ -86,8 +87,7 @@ def dot_product_attention(
             raise ValueError("impl='flash' does not support bias")
         from consensusml_tpu_torch.models import flash_attention as fa
 
-        fn = fa.flash_attention if use_kernel else fa.flash_attention_plain
-        return fn(q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype)
+        return fa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype, use_kernel=use_kernel)
     if kv_mask is not None:
         if impl == "dense":
             mask = (kv_mask > 0)[:, None, :]

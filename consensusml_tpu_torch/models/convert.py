@@ -1,7 +1,7 @@
 """Parameter conversion between the JAX package's flax trees and the port,
 and numpy-seeded initial parameters.
 
-The port's ``GPT2LM``, ``ResNet`` and ``MLP`` mirror the flax trees one for one
+The port's ``GPT2LM``, ``BertMLM``, ``ResNet`` and ``MLP`` mirror the flax trees one for one
 (module path = flax path joined by dots, same shapes and layouts, f32),
 so conversion is a flatten: no transposes, no reshapes. The input is the
 flax tree with every leaf already a numpy array (``jax.tree.map(
@@ -18,7 +18,10 @@ import torch
 
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["gpt2_from_flax", "resnet_from_flax", "resnet_init_params", "mlp_from_flax", "mlp_init_params"]
+__all__ = [
+    "gpt2_from_flax", "bert_from_flax", "normal_init_params", "resnet_from_flax", "resnet_init_params",
+    "mlp_from_flax", "mlp_init_params",
+]
 
 
 def gpt2_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -28,6 +31,38 @@ def gpt2_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     leaf has one, is kept: the result is then the trainer's stacked
     parameter dict."""
     return {".".join(path): _tensor(leaf) for path, leaf in T.flatten_with_paths(params)}
+
+
+# ``BertMLM``'s tree flattens as ``GPT2LM``'s: ``layer_0.qkv.kernel`` (768,
+# 12, 192), ``mlm_bias``, ... in the reference's flatten order
+bert_from_flax = gpt2_from_flax
+
+
+def normal_init_params(model, seed: int, world_size: int, ranks=None) -> dict[str, np.ndarray]:
+    """Stacked ``(W, ...)`` f32 initial parameters of ``model`` (GPT-2's or
+    BERT's; only its structure is read, ``meta`` is fine) in flax layout,
+    numpy-seeded per worker by ``(seed, rank)``: N(0, 0.02) kernels and
+    embeddings, zero biases, unit LayerNorm scales. Keys are flax paths
+    joined by dots, in the reference's flatten order (:func:`gpt2_from_flax`'s
+    input). ``ranks`` draws only those workers' rows (the same values),
+    stacked in that order."""
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    rngs = [np.random.default_rng((seed, r)) for r in (range(world_size) if ranks is None else ranks)]
+    world_size = len(rngs)
+    out = {}
+    for name in sorted(shapes, key=lambda n: tuple(n.split("."))):
+        shape = (world_size,) + shapes[name]
+        if name.endswith("bias"):
+            out[name] = np.zeros(shape, np.float32)
+        elif name.endswith("scale"):
+            out[name] = np.ones(shape, np.float32)
+        else:
+            arr = np.empty(shape, np.float32)
+            for r, rng in enumerate(rngs):
+                rng.standard_normal(shapes[name], dtype=np.float32, out=arr[r])
+                arr[r] *= np.float32(0.02)
+            out[name] = arr
+    return out
 
 
 def resnet_from_flax(variables: Mapping[str, Any]) -> tuple[dict[str, torch.Tensor], dict]:

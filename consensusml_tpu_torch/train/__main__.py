@@ -10,7 +10,9 @@ topk_int4``, or ``--codec int8|int4|fp8`` on the fused wire;
 ``--norm-impl pallas`` runs every LayerNorm through the fused-LN CUDA
 kernels), ``cifar_resnet50``
 (exact gossip; ``--norm-impl pallas`` runs every BN through the fused-BN
-CUDA kernels) and ``mnist_mlp`` (the 2-layer MLP, dense exact gossip).
+CUDA kernels), ``mnist_mlp`` (the 2-layer MLP, dense exact gossip) and
+``bert_mlm`` (BERT masked-LM, 8 local Adam steps a round, exact ring
+gossip; ``--eval-batches`` scores the masked positions' accuracy and nll).
 ``--topology NAME[:k=v,...]`` swaps any config's gossip graph (ring,
 torus, dense, exp, onepeer-exp, hierarchical:slices=S,outer_every=K);
 ``--eval-batches N`` scores N held-out batches after the last round, for
@@ -25,12 +27,16 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full [--norm-impl pallas]
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale full --rounds 50 --eval-batches 8
     python -m consensusml_tpu_torch.train --config mnist_mlp --topology onepeer-exp --eval-batches 8
+    python -m consensusml_tpu_torch.train --config bert_mlm --device cpu --rounds 3 --eval-batches 2
+    python -m consensusml_tpu_torch.train --config bert_mlm --scale full --rounds 3 --eval-batches 8
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale smoke --device cpu --backend collective \
         --dist-backend gloo --workers 4 --rounds 2
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
         --backend collective --dist-backend gloo
 
-Runs on the card unless ``--device cpu`` is given (no CPU fallback).
+Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
+simulated backend draws and uploads the initial parameters a worker at a
+time (``configs.init_on_device``).
 Prints the resolved codec path and the norm path, then
 one line per logged round: loss, consensus error, the round's wall time
 and, for image batches, images per second; the collective backend's
@@ -47,7 +53,7 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m consensusml_tpu_torch.train", description=__doc__.split("\n")[0])
-    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp"])
+    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm"])
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
@@ -125,7 +131,6 @@ def main(argv=None) -> int:
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.device import resolve_device
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
-    from consensusml_tpu_torch.utils import tree as T
 
     args = parse_args(argv)
     if args.backend == "collective":
@@ -143,9 +148,7 @@ def main(argv=None) -> int:
             return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
-    params, model_state = bundle.convert(bundle.init_params(args.seed))
-    params = {n: t.to(dev) for n, t in params.items()}
-    model_state = T.tree_map(lambda t: t.to(dev), model_state)
+    params, model_state = configs.init_on_device(bundle, args.seed, dev)
     state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
     gossiped = {"params": state.params, "model_state": state.model_state}

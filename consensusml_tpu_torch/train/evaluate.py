@@ -9,9 +9,10 @@ error goes to zero.
 
 Metric functions return SUMS, so results accumulate exactly across
 batches: classification ``{"correct", "count"}``, causal LM ``{"nll",
-"count"}`` (next-token). :func:`evaluate` derives ``top1`` =
-correct / count and ``nll`` = nll / count, ``ppl`` = exp(nll). The masked
-LM's ``mlm_eval_fn`` waits for ``bert_mlm``.
+"count"}`` (next-token), masked LM ``{"correct", "count", "nll"}`` over
+the masked positions. :func:`evaluate` derives ``top1`` = correct / count
+(the masked LM's masked-token accuracy) and ``nll`` = nll / count,
+``ppl`` = exp(nll).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from torch.func import functional_call
 
 from consensusml_tpu_torch.utils.tree import consensus_mean
 
-__all__ = ["classification_eval_fn", "causal_lm_eval_fn", "make_stacked_eval_step", "evaluate"]
+__all__ = ["classification_eval_fn", "causal_lm_eval_fn", "mlm_eval_fn", "make_stacked_eval_step", "evaluate"]
 
 EvalFn = Callable[[dict, dict, dict], dict[str, torch.Tensor]]
 
@@ -59,6 +60,30 @@ def causal_lm_eval_fn(model) -> EvalFn:
         nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1).long(),
                               reduction="none")
         return {"nll": nll.sum(), "count": torch.tensor(float(nll.numel()), device=nll.device)}
+
+    return eval_fn
+
+
+def mlm_eval_fn(model) -> EvalFn:
+    """Masked-position accuracy and NLL sums for a BERT-style masked LM,
+    dropout off (the reference's ``mlm_eval_fn``): ``correct`` (argmax =
+    label where ``mlm_mask``), ``count`` (the masked positions) and ``nll``
+    (their cross-entropy), each weighted by ``batch["mlm_mask"]``."""
+
+    def eval_fn(params, model_state, batch):
+        logits = functional_call(model, params, (batch["input_ids"],),
+                                 {"attention_mask": batch.get("attention_mask"), "deterministic": True})
+        logits = logits.to(torch.float32)
+        labels = batch["labels"].long()
+        mask = batch["mlm_mask"].to(torch.float32)
+        pred = torch.argmax(logits, dim=-1)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
+                              reduction="none").reshape(labels.shape)
+        return {
+            "correct": ((pred == labels).to(torch.float32) * mask).sum(),
+            "count": mask.sum(),
+            "nll": (nll * mask).sum(),
+        }
 
     return eval_fn
 

@@ -312,12 +312,90 @@ def test_flash_wrappers_refuse_misaligned_operands(dev):
 
 
 def test_flash_refuses_kv_mask_and_other_head_dims(dev):
+    """A kv_mask of another shape than (batch, seq) raises ``ValueError``
+    (the backward wrappers take it only as a contiguous f32 (B, S) tensor
+    on q's device, which the public function makes of any mask), and a head
+    dim other than 64 ``NotImplementedError``; nothing launches."""
     q = torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16, device=dev)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention(q, q, q, kv_mask=torch.ones(1, 64, device=dev))
+    stats = torch.zeros(1, 1, 64, device=dev)
+    counts = (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError):
+        tfa.flash_attention(q, q, q, kv_mask=torch.ones(1, 63, device=dev))
+    for bad in (torch.ones(1, 64, device=dev, dtype=torch.int32), torch.ones(1, 64), torch.ones(64, 2, device=dev).T):
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd_dq(q, q, q, q, stats, stats, kv_mask=bad)
+        with pytest.raises(ValueError):
+            tfa.flash_attention_bwd_dkv(q, q, q, q, stats, stats, kv_mask=bad)
     q32 = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16, device=dev)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention(q32, q32, q32)
+    assert (tfa.flash_attention.launches, tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == counts
+
+
+MASK_CASES = [(s, causal) for s in (1, 63, 65, 200, 513, 600, 1000, 1024) for causal in (True, False)]
+
+
+def _kv_mask(dev, s, causal):
+    """(4, s) f32 key masks: every key; the keys before 2s/3; none (a row
+    that attends to no key); and a random half of the keys, or, causal, the
+    keys from s/2 on (its queries before s/2 then attend to nothing)."""
+    gen = torch.Generator(device=dev).manual_seed(s)
+    pos = torch.arange(s, device=dev)
+    last = pos >= s // 2 if causal else torch.rand(s, generator=gen, device=dev) < 0.5
+    return torch.stack([pos < s, pos < (2 * s) // 3, pos < 0, last]).float()
+
+
+@pytest.mark.parametrize("s,causal", MASK_CASES)
+def test_flash_kernels_with_kv_mask_match_plain(dev, s, causal):
+    """The masked form of the forward, dq and dk/dv kernels against their
+    plain versions, at the unmasked kernels' gates (forward atol 1e-4, rtol
+    2**-6, lse 1e-5; backward atol 3e-3, rtol 2**-6), the backward fed the
+    plain forward's lse and delta: partial and full tiles, S not a multiple
+    of 64 or 512, causal, a row with every key masked (its out the
+    reference's sum over the visited count, its lse -1e30, no gradient).
+    Each launch counts once in ``launches`` and once in
+    ``masked_launches``."""
+    q, k, v, do = _flash_case(dev, s, 4.0, b=4)
+    kv_mask = _kv_mask(dev, s, causal)
+    before = [(f.launches, f.masked_launches) for f in
+              (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)]
+    out, lse = tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+    delta = tfa._delta(ref, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, kv_mask=kv_mask)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, kv_mask=kv_mask)
+    want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, causal, kv_mask)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.masked_launches) for f in
+             (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)]
+    assert after == [(n + 1, m + 1) for n, m in before]
+    assert torch.isfinite(out.float()).all() and (ref_lse[2] == -1e30).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4)
+    torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    assert not dq[2].any() and not want[0][2].any()
+    for name, got, plain in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_with_kv_mask_matches_plain_backward(dev, causal):
+    """The autograd ``flash_attention`` with ``kv_mask`` on CUDA tensors
+    (the masked forward, dq and dk/dv kernels) against
+    ``flash_attention_bwd_plain`` with that mask on the plain forward, at
+    the backward gate; the mask gets no gradient."""
+    s = 1000
+    q0, k0, v0, do = _flash_case(dev, s, 1.0, b=4, h=12)
+    kv_mask = _kv_mask(dev, s, causal)
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+    out = tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+    out.backward(do)
+    o, lse = tfa.flash_attention_plain(q0, k0, v0, causal=causal, kv_mask=kv_mask, return_lse=True)
+    ref = tfa.flash_attention_bwd_plain(q0, k0, v0, o, do, lse, causal=causal, kv_mask=kv_mask)
+    torch.cuda.synchronize()
+    for name, got, want in zip("qkv", (q.grad, k.grad, v.grad), ref):
+        torch.testing.assert_close(got.float(), want.float(), rtol=2.0**-6, atol=3e-3, msg=f"d{name}")
 
 
 def test_engine_on_card_launches_the_paged_kernel(dev):

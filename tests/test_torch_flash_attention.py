@@ -349,3 +349,140 @@ def test_one_bf16_rounding_of_p_or_ds_misses_the_dkv_gate(s, causal, q_scale, un
                                   split_p=unsplit != "p", split_ds=unsplit != "ds")
     got, want = (got_dv, dv) if unsplit == "p" else (got_dk, dk)
     assert _worst(got, want, DQ_GATE) > 1.0
+
+
+# --- the per-key padding mask (kv_mask), against the reference -------------
+
+
+def _masks(s, causal, b=3):
+    """(b, s) f32 key masks: every key; the keys before ``s // 3``; no key
+    (a row that attends to nothing). Causal, the second row keeps only the
+    keys from ``s // 2`` on, so its queries before ``s // 2`` attend to
+    nothing either."""
+    rows = [np.arange(s) < s, np.arange(s) >= s // 2 if causal else np.arange(s) < s // 3, np.zeros(s, bool)]
+    return np.stack(rows[:b]).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [128, 200, 600])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_kv_mask_matches_jax_interpret(s, causal):
+    """``flash_attention_plain`` with ``kv_mask`` against the reference's
+    ``flash_attention(..., kv_mask=, interpret=True)``, f32, every row: one
+    unmasked, one masked from (or, causal, before) a position, one with
+    every key masked. A row that attends to no key gets the sum of the
+    values it visits over the reference's count of visited keys, padding
+    included (0.25 x the mean of V at S = 128; a parent that gave such a
+    row 0 fails here). f32 at 1e-5 (3.9e-7 read)."""
+    q, k, v = _qkv(seed=40 + s, b=3, s=s)
+    kv_mask = _masks(s, causal)
+    want = jax_flash(*(jnp.asarray(x) for x in (q, k, v)), causal=causal, kv_mask=jnp.asarray(kv_mask),
+                     dtype=jnp.float32, interpret=True)
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+                              kv_mask=torch.from_numpy(kv_mask), dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    assert np.abs(np.asarray(want)[2]).max() > 1e-3  # the empty row is not 0 in the reference
+
+
+def test_plain_kv_mask_empty_row_is_the_visited_mean():
+    """The count of a row that attends to nothing, derived from the
+    reference: ``sum_{t < S} v_t / (ceil(S / 512) * 512)``, and under causal
+    ``sum_{t < min(S, 512 (row // 512 + 1))} v_t / (512 (row // 512 + 1))``;
+    its lse is -1e30."""
+    s = 600
+    q, k, v = (torch.from_numpy(x) for x in _qkv(seed=47, b=1, s=s))
+    none = torch.zeros(1, s)
+    out, lse = tfa.flash_attention_plain(q, k, v, kv_mask=none, dtype=torch.float32, return_lse=True)
+    torch.testing.assert_close(out[0], v[0].sum(0, keepdim=True).expand(s, -1, -1) / 1024, rtol=1e-5, atol=1e-6)
+    assert (lse == -1e30).all()
+    out = tfa.flash_attention_plain(q, k, v, causal=True, kv_mask=none, dtype=torch.float32)
+    torch.testing.assert_close(out[0, :512], v[0, :512].sum(0, keepdim=True).expand(512, -1, -1) / 512,
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out[0, 512:], v[0].sum(0, keepdim=True).expand(s - 512, -1, -1) / 1024,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("s", [128, 200, 600])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_kv_mask_backward_matches_jax_grad_of_interpret(s, causal):
+    """dq, dk, dv of the port's autograd ``flash_attention`` with ``kv_mask``
+    on CPU tensors (its plain forward, then ``flash_attention_bwd_plain``)
+    against ``jax.grad`` through the reference's interpreted kernels
+    (jitted), the
+    masks of :func:`test_plain_kv_mask_matches_jax_interpret`: a row that
+    attends to nothing gets p = 0 at every key, so no gradient, in both.
+    f32 at 2e-5, as the unmasked backward."""
+    q, k, v = _qkv(seed=50 + s, b=3, s=s)
+    kv_mask = _masks(s, causal)
+    ct = np.random.default_rng(51 + s).normal(size=q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, causal=causal, kv_mask=jnp.asarray(kv_mask), dtype=jnp.float32,
+                        interpret=True)
+        return jnp.sum(out * jnp.asarray(ct))
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(*(jnp.asarray(x) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=causal, kv_mask=torch.from_numpy(kv_mask), dtype=torch.float32)
+    (out * torch.from_numpy(ct)).sum().backward()
+    for name, got, w in zip("qkv", (tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), rtol=2e-5, atol=2e-5, err_msg=f"d{name}")
+    assert not tq.grad[2].any()  # the empty batch row: no gradient
+
+
+@pytest.mark.parametrize("causal,s", [(False, 128), (True, 100)])
+def test_flash_kv_mask_matches_dense_bias(causal, s):
+    """The reference's test of that name on the port: the per-key padding
+    mask through ``flash_attention`` (its plain versions on the CPU, with
+    the Function's backward) against the dense path's additive -1e30 bias,
+    forward and gradients (f32 at 2e-5, gradients at 2e-4)."""
+    from consensusml_tpu_torch.models.attention import dot_product_attention
+
+    rng = np.random.default_rng(6)
+    base = [rng.normal(size=(2, s, 2, 64)).astype(np.float32) for _ in range(3)]
+    kv_mask = torch.from_numpy(np.stack([np.arange(s) < s, np.arange(s) < (3 * s // 5)]).astype(np.float32))
+    bias = torch.where(kv_mask[:, None, None, :] > 0, 0.0, -1e30)
+    results = []
+    for fn in (lambda q, k, v: tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, dtype=torch.float32),
+               lambda q, k, v: dot_product_attention(q, k, v, causal=causal, bias=bias, dtype=torch.float32,
+                                                     impl="dense")):
+        q, k, v = (torch.from_numpy(x).requires_grad_() for x in base)
+        o = fn(q, k, v)
+        (o ** 2).sum().backward()
+        results.append((o.detach(), q.grad, k.grad, v.grad))
+    (got, *gf), (want, *gd) = results
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    for name, a, b in zip("qkv", gf, gd):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4, msg=f"d{name}")
+
+
+def test_kv_mask_batch_rows_are_independent():
+    """The reference's test of that name on the port: each batch row of a
+    masked call equals its own single-batch masked call."""
+    rng = np.random.default_rng(7)
+    b, s, h, d = 3, 64, 2, 64
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32)) for _ in range(3))
+    lens = [64, 40, 17]
+    kv_mask = torch.from_numpy(np.stack([np.arange(s) < n for n in lens]).astype(np.float32))
+    got = tfa.flash_attention(q, k, v, kv_mask=kv_mask, dtype=torch.float32)
+    for i, n in enumerate(lens):
+        want = tfa.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], kv_mask=kv_mask[i:i + 1], dtype=torch.float32)
+        torch.testing.assert_close(got[i], want[0], rtol=2e-5, atol=2e-5, msg=f"batch {i} (len {n})")
+
+
+def test_dot_product_attention_kv_mask_across_impls():
+    """The reference's test of that name on the port: ``kv_mask`` through
+    the dense, blockwise and flash paths of ``dot_product_attention`` gives
+    one answer (f32 at 2e-5; no row is empty), and the argument errors."""
+    from consensusml_tpu_torch.models.attention import dot_product_attention
+
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 96, 2, 64)).astype(np.float32)) for _ in range(3))
+    kv_mask = torch.from_numpy(np.stack([np.arange(96) < 70, np.arange(96) < 33]).astype(np.float32))
+    dense = dot_product_attention(q, k, v, kv_mask=kv_mask, dtype=torch.float32, impl="dense")
+    for impl in ("blockwise", "flash"):
+        got = dot_product_attention(q, k, v, kv_mask=kv_mask, dtype=torch.float32, impl=impl)
+        torch.testing.assert_close(got, dense, rtol=2e-5, atol=2e-5, msg=impl)
+    with pytest.raises(ValueError, match="not both"):
+        dot_product_attention(q, k, v, kv_mask=kv_mask, bias=torch.zeros(2, 1, 1, 96))
+    with pytest.raises(ValueError, match="kv_mask must be"):
+        dot_product_attention(q, k, v, kv_mask=kv_mask[:, :10])

@@ -174,12 +174,37 @@ round within tolerance.
 15. ``train_bert``: ``bert_mlm`` full (BERT-base, bf16, 32 workers on a
     ring, 8 local Adam(1e-4) steps a round, exact bucketed gossip, batch
     32 x 128), the parameters drawn and uploaded a worker at a time: one
-    warm round, two counted rounds (round ms, tokens/s, loss, consensus
-    error, peak memory), then 8 held-out MLM batches (masked top-1 and
+    warm round, one counted round (round ms, tokens/s, loss, consensus
+    error, peak memory), then 2 held-out MLM batches (masked top-1 and
     nll of the mean model and the workers). Gates: finite losses, finite
     non-zero consensus errors, 75 buckets and 2 x 4 bytes a parameter on
     the wire, the first counted round's gossip equal to ``W @ x``, no port
     kernel launched (seq 128: dense attention, as the reference's).
+
+16. ``train_llama``: ``llama_lora`` full (Llama-2-7B with rank-16 LoRA
+    adapters on q, k, v and o, bf16, 16 workers on a 4x4 torus, one
+    Adam(1e-3) step on the adapters a round, exact gossip of the adapters
+    only, batch 8 x 2048 in micro-batches of 4), world 16 on the one card
+    without tensor parallelism (the reference's cut-free run is 16 workers
+    x tp 4): the 6.7 B-parameter base drawn and uploaded a leaf at a time
+    and held ONCE in bf16 beside the stacked adapters. One worker step's
+    adapter gradients through the kernels against their plain versions
+    (GPT-2's gates), a warm round, two counted rounds (round ms against
+    the bound of the round's products at the bf16 peak, tokens/s, loss,
+    consensus error, peak memory), one held-out batch (nll of the mean
+    model and the workers). Gates: 6,738,415,616 base and 16,777,216
+    adapter parameters, 16 buckets and 4 shifts x 4 bytes an adapter
+    parameter on the wire (the LoRA filter applied to the whole tree),
+    every counted round's gossip equal to ``W @ x``, finite losses and
+    errors, each flash kernel launched in its head-dim-128 form 32 x 16 x
+    2 times a round (layers, workers, micro-batches) and nothing else
+    launched.
+
+The ``check`` line's ``flash_d128`` holds the three flash kernels'
+head-dim-128 form at ``llama_lora``'s attention shape (B=4, S=2048, H=32,
+causal) to their plain versions at the head-dim-64 gates, timed by
+``queued_ms`` beside SDPA; the ``kernels`` line lists each of those forms
+as an entry of its own (``form_of``), its launches from ``train_llama``.
 
 The ``check`` line's ``flash_kv_mask`` holds the three flash kernels'
 masked form (``kv_mask``) at BERT-base's heads (B=8, S=1024, H=12) with
@@ -2797,6 +2822,84 @@ def check_flash_kv_mask(torch, tfa, dev, b=8, s=1024, h=12, d=64):
     return out, gate600
 
 
+def check_flash_d128(torch, tfa, dev, b=None, s=2048, h=32, d=128):
+    """The three flash kernels' head-dim-128 form at ``llama_lora``'s
+    attention shape (B = its micro-batch, S = 2048, H = 32, D = 128,
+    causal, no mask), held against their plain versions at the head-dim-64
+    gates (forward ``FLASH_ATOL``/``FLASH_RTOL`` and ``LSE_TOL``, backward
+    ``FLASH_BWD_ATOL``/``FLASH_BWD_RTOL``; the backward kernels fed the
+    plain forward's lse and delta), then timed by :func:`queued_ms` beside
+    their plain versions (CUDA events) and SDPA (the library yardstick,
+    never called by the port; its backward as forward + backward minus
+    forward). Bounds by operations: 4 d a (query, key) pair for the
+    forward, 6 d for dq (S, dP, dQ), 8 d for dk/dv (S^T, dP^T, dK, dV)."""
+    import torch.nn.functional as F
+
+    from consensusml_tpu_torch import configs
+
+    b = configs.LLAMA_MICRO_BATCH if b is None else b
+    gen = torch.Generator(device=dev).manual_seed(128)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    before = {f: f.d128_launches for f in (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)}
+    o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    want_o, want_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = tfa._delta(want_o, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal=True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta, causal=True)
+    want = tfa._bwd_plain_parts(q, k, v, do, want_lse, delta, True)
+    torch.cuda.synchronize()
+    if any(f.d128_launches != n + 1 for f, n in before.items()):
+        raise AssertionError("check.flash_d128: a kernel did not launch its head-dim-128 form once")
+    shape = f"B={b} S={s} H={h} D={d}"
+    fwd_err = tol_check(f"flash_attention {shape}", o, want_o, FLASH_ATOL, FLASH_RTOL)
+    lse_err = (lse - want_lse).abs().max().item()
+    if not lse_err <= LSE_TOL:
+        raise AssertionError(f"flash_attention {shape}: lse err {lse_err} > {LSE_TOL}")
+    errs = {name: tol_check(f"flash_attention_bwd {name} {shape}", g, w, FLASH_BWD_ATOL, FLASH_BWD_RTOL)
+            for name, g, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+    del want, want_o, dq, dk, dv
+    pairs = b * h * s * (s + 1) // 2
+    elems, rows = b * s * h * d, b * h * s
+    bounds = {"fwd": bound_ms(4 * elems * 2 + rows * 4, 4 * d * pairs),  # q k v read, out lse written
+              "dq": bound_ms(5 * elems * 2 + 2 * rows * 4, 6 * d * pairs),  # q k v do lse delta, dq
+              "dkv": bound_ms(6 * elems * 2 + 2 * rows * 4, 8 * d * pairs)}  # ..., dk dv
+    flops = {"fwd": 4 * d * pairs, "dq": 6 * d * pairs, "dkv": 8 * d * pairs}
+    ms = {
+        "fwd": queued_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=True, return_lse=True), 20)[0],
+        "dq": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True), 20)[0],
+        "dkv": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True), 20)[0],
+    }
+    plain = {"fwd": cuda_ms(torch, lambda i: tfa.flash_attention_plain(q, k, v, causal=True), 3, warm=1),
+             "bwd": cuda_ms(torch, lambda i: tfa._bwd_plain_parts(q, k, v, do, lse, delta, True), 3, warm=1)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd(i):
+        y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(y, (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        sdpa_fwd = queued_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)[0]
+    sdpa_bwd = queued_ms(torch, sdpa_fwd_bwd, 20)[0] - sdpa_fwd
+    library = {"fwd": sdpa_fwd, "dq": sdpa_bwd, "dkv": sdpa_bwd}
+    out = {}
+    for key in ("fwd", "dq", "dkv"):
+        err = fwd_err if key == "fwd" else (errs["dq"] if key == "dq" else
+                                           max(errs["dk"], errs["dv"], key=lambda e: e["worst_err_over_tol"]))
+        out[key] = {
+            "shape": shape + " causal", **err, "ms": ms[key], "plain_ms": plain["fwd" if key == "fwd" else "bwd"],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": library[key],
+            "library": "SDPA forward" if key == "fwd" else "SDPA backward (forward + backward - forward)",
+            **rates(ms[key], flops[key], library[key], bounds[key][0]),
+        }
+    out["fwd"].update({"lse_max_abs_err": lse_err, "lse_tol": LSE_TOL})
+    out["bwd_ms"] = ms["dq"] + ms["dkv"]
+    out["bwd_x_library"] = out["bwd_ms"] / sdpa_bwd
+    out["dk_worst_err_over_tol"] = errs["dk"]["worst_err_over_tol"]
+    out["dv_worst_err_over_tol"] = errs["dv"]["worst_err_over_tol"]
+    return out
+
+
 def bert_long_padded_phase(torch, dev):
     """``bert_base(max_len=1024)`` at full width (BERT-base, random
     numpy-seeded weights), one ``bert_mlm_loss_fn`` forward and backward on
@@ -2958,6 +3061,167 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
     return out, counts
 
 
+LLAMA_BASE_PARAMS, LLAMA_ADAPTER_PARAMS, LLAMA_BUCKETS = 6_738_415_616, 16_777_216, 16
+
+
+def llama_round_flops(cfg, sequences: int, seq: int) -> float:
+    """The least work of one ``llama_lora`` round: every Dense product of
+    the forward and its input gradient (2 + 2 flops a kernel parameter a
+    token; the embedding is a lookup), and causal attention's two forward
+    and four backward products (4 d + 8 d a (query, key) pair a head a
+    layer). The adapters' own products and the recomputation in the
+    backward kernels are left out."""
+    d = cfg.head_dim
+    dense = cfg.layers * (cfg.hidden * (cfg.heads + 2 * cfg.kv_heads) * d + cfg.heads * d * cfg.hidden
+                          + 3 * cfg.hidden * cfg.mlp_dim) + cfg.hidden * cfg.vocab_size
+    pairs = seq * (seq + 1) // 2
+    return sequences * (4.0 * dense * seq + cfg.layers * cfg.heads * 12.0 * d * pairs)
+
+
+def train_llama_phase(torch, dev, counted=2, eval_batches=1):
+    """llama_lora full (Llama-2-7B with rank-16 adapters on q, k, v and o,
+    bf16 compute, 16 workers on a 4x4 torus, one Adam(1e-3) step on the
+    adapters a round, exact gossip of the adapters only, batch 8 x 2048 in
+    micro-batches of ``configs.LLAMA_MICRO_BATCH``) on the simulated
+    backend, world 16 on one card: the base (6.7 B parameters) drawn and
+    uploaded a leaf at a time and held ONCE in bf16, beside the stacked
+    adapters (drawn a worker at a time). One worker step's adapter
+    gradients through the kernels against the same step on their plain
+    versions (``attn_impl="torch"``); one warm round; ``counted`` rounds
+    (launch counters zeroed just before, read just after); then
+    ``eval_batches`` held-out batches for the mean model and every worker.
+    Gates: the parameter counts, 16 buckets holding the adapters alone
+    and 4 x 4 bytes an adapter parameter on the wire (the plan and the
+    bytes of the whole tree, base included, through the LoRA filter), the
+    gradients at GPT-2's and BERT's tolerances, every counted round's
+    gossip equal to ``W @ x`` on the adapters, finite losses and consensus
+    errors, and each flash kernel launched in its head-dim-128 form
+    exactly 32 layers x 16 workers x 4 micro-batches a round, nothing else."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.llama import llama_loss_fn
+    from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step, worker_grads
+
+    bundle = configs.build("llama_lora", "full", device=dev)
+    cfg, world, mcfg = bundle.cfg, bundle.world_size, bundle.model.config
+    engine = cfg.engine()
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(1 + counted, 0))
+    marks.append(("batches", time.perf_counter()))
+    params, _ = configs.init_on_device(bundle, 0, dev)
+    marks.append(("adapters", time.perf_counter()))
+    frozen = configs.frozen_on_device(bundle, dev)
+    marks.append(("base", time.perf_counter()))
+    state = init_stacked_state(cfg, params, world, seed=0, frozen=frozen)
+    del params
+    base_bytes = sum(t.numel() * t.element_size() for t in frozen.values())
+    # the plan and the wire of the whole per-worker tree: the LoRA filter
+    # selects the adapters
+    whole = {"params": {**frozen, **{n: p[0] for n, p in state.params.items()}}, "model_state": {}}
+    plan = engine.bucket_plan(whole)
+    wire = engine.wire_bytes_per_round(whole)
+    del whole, frozen
+    n_base = sum(t.numel() for t in state.frozen.values())
+    n_adapters = sum(p[0].numel() for p in state.params.values())
+    sends = engine._sends_per_round()
+    if ((n_base, n_adapters, plan.num_buckets, sum(b.total for b in plan.buckets), wire)
+            != (LLAMA_BASE_PARAMS, LLAMA_ADAPTER_PARAMS, LLAMA_BUCKETS, LLAMA_ADAPTER_PARAMS,
+                4 * LLAMA_ADAPTER_PARAMS * sends)):
+        raise AssertionError(f"llama_lora plan: base {n_base}, adapters {n_adapters}, {plan.num_buckets} buckets "
+                             f"of {sum(b.total for b in plan.buckets)}, {wire} wire bytes")
+    marks.append(("state", time.perf_counter()))
+
+    # one worker step's adapter gradients, kernels against plain versions
+    one = {k: v[0, 0].to(dev) for k, v in batches[0].items()}
+    grads = {}
+    for impl in ("cuda", "torch"):
+        loss, g, _ = worker_grads(cfg, llama_loss_fn(bundle.model, attn_impl=impl), state, 0, one)
+        grads[impl] = (float(loss), g)
+        del loss, g
+        torch.cuda.empty_cache()
+    (lk, gk), (lp, gp) = grads["cuda"], grads["torch"]
+    diff2 = sum(float(((gk[n].float() - gp[n].float()) ** 2).sum()) for n in gp)
+    ref2 = sum(float((gp[n].float() ** 2).sum()) for n in gp)
+    worst, worst_name = max((float((gk[n].float() - gp[n].float()).norm() / gp[n].float().norm().clamp_min(1e-30)), n)
+                            for n in gp)
+    grad_check = {"loss_kernels": lk, "loss_plain": lp, "grad_rel_err": (diff2 / ref2) ** 0.5,
+                  "grad_rel_tol": GRAD_REL_TOL, "worst_leaf": worst_name, "worst_leaf_rel_err": worst,
+                  "leaf_rel_tol": LEAF_REL_TOL, "leaves": len(gp)}
+    del grads, gk, gp, one
+    if grad_check["leaves"] != len(state.params) or not (
+            grad_check["grad_rel_err"] <= GRAD_REL_TOL and worst <= LEAF_REL_TOL):
+        raise AssertionError(f"llama_lora: gradients through the kernels disagree with the plain versions: {grad_check}")
+    marks.append(("grad_check", time.perf_counter()))
+
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    ids = batches[0]["input_ids"]
+    tokens = world * cfg.h * ids.shape[2] * ids.shape[3]
+    flops = llama_round_flops(mcfg, world * cfg.h * ids.shape[2], ids.shape[3])
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rounds, check = [], GossipCheck(torch, cfg.gossip.topology, dev)
+    try:
+        for batch in batches[1:]:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                           "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                           "tokens_per_s_per_chip": tokens / (ms / 1e3)})
+    finally:
+        check.close()
+    counts, forms = kernels.launch_counts(), kernels.form_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    marks.append(("rounds", time.perf_counter()))
+    result = evaluate(bundle.eval_fn, state, bundle.eval_batches(eval_batches, 0))
+    marks.append(("eval", time.perf_counter()))
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            raise AssertionError(f"train_llama round {r['step']}: loss or consensus error not finite and positive")
+    per_kernel = mcfg.layers * world * (ids.shape[2] // cfg.micro_batch) * counted
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    want = {name: (per_kernel if name in flash else 0) for name in counts}
+    d128 = {name: forms[name]["d128"] for name in flash}
+    if counts != want or d128 != {name: per_kernel for name in flash} or any(forms[n]["masked"] for n in flash):
+        raise AssertionError(f"train_llama launches {counts}, head-dim-128 {d128}, expected {per_kernel} each flash")
+    if check.rounds != [r["step"] for r in rounds]:
+        raise AssertionError(f"train_llama: gossip checked at {check.rounds}")
+    bound_s = flops / BF16_FLOPS
+    out = {
+        "phase": "train_llama",
+        "config": "llama_lora full (Llama-2-7B: hidden 4096, 32 layers, 32 heads of dim 128, MLP 11008, vocab 32000, "
+                  "bf16; LoRA rank 16 on q, k, v, o), 16 workers, 4x4 torus, exact gossip of the adapters only, "
+                  "Adam 1e-3 on the adapters, h 1, batch 8 x 2048",
+        "cut": "world 16 on one card without tp (the reference: tp 4 a worker, 64 chips); the base held once",
+        "workers": world, "batch": ids.shape[2], "seq": ids.shape[3], "micro_batch": cfg.micro_batch,
+        "base_params": n_base, "base_bytes_held_once": base_bytes, "adapter_params_per_worker": n_adapters,
+        "buckets": plan.num_buckets, "wire_bytes_per_round": wire, "attention": "flash kernels, head dim 128",
+        "grad_check": grad_check,
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds,
+        "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
+        "round_flops": flops, "round_bound_s_at_bf16_peak": bound_s,
+        "x_bound": sum(r["round_ms"] for r in rounds) / counted / 1e3 / bound_s,
+        "gossip_rtol": GOSSIP_RTOL, "gossip_checked_rounds": check.rounds, "gossip_worst_err_over_tol": check.worst,
+        "eval_batches": eval_batches,
+        "eval_mean_model": {k: float(v) for k, v in result["mean_model"].items()},
+        "eval_worker_mean": {k: float(v) for k, v in result["worker_mean"].items()},
+        "peak_memory_bytes": peak, "launches": counts, "d128_launches": d128,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts, d128
+
+
 def socket_request(address, payload) -> dict:
     import socket
 
@@ -3017,6 +3281,7 @@ def main() -> int:
     ln = check_ln(torch, tln, dev)
     subnormals = check_subnormals(torch, tfa, tpa, tln, dev)
     kv_masked, kv_masked_600 = check_flash_kv_mask(torch, tfa, dev)
+    d128 = check_flash_d128(torch, tfa, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
@@ -3026,7 +3291,8 @@ def main() -> int:
           "fused_bn": {f"({m}, {c})": r for (m, c), r in bn.items()}, "bn_sum_rtol": BN_SUM_RTOL,
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
           "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals,
-          "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600}})
+          "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600},
+          "flash_d128": d128})
     torch.cuda.empty_cache()
     b = bwd[1024]
     # the masked form (BERT's encoder, non-causal) beside each flash kernel's readings
@@ -3172,12 +3438,27 @@ def main() -> int:
         launches[name]["bert_long_padded"] = n
     for name, n in line["masked_launches"].items():
         forms.setdefault(name, {}).setdefault("masked", {})["bert_long_padded"] = n
-    line, counts = train_bert_phase(torch, dev)
+    # one counted round and two held-out batches (two and eight until
+    # train_llama joined the script's time)
+    line, counts = train_bert_phase(torch, dev, counted=1, eval_batches=2)
     emit(line)
     for name, n in counts.items():
         launches[name]["train_bert"] = n
+    # llama_lora: Llama-2-7B's adapters on 16 workers, the flash kernels at head dim 128
+    line, counts, d128_counts = train_llama_phase(torch, dev)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_llama"] = n
+    for name, n in d128_counts.items():
+        forms.setdefault(name, {}).setdefault("d128", {})["train_llama"] = n
 
-    emit({"kernels": [
+    # the head-dim-128 forms (llama_lora's) as entries of their own beside
+    # their kernels: readings from check.flash_d128, launches from train_llama
+    # (each kernel's own entry counts every form's launches)
+    d128_rows = [(f"{name} (head dim 128)", src, rep, {**d128[key], "form_of": name,
+                                                       "launches_by_path": forms[name]["d128"]})
+                 for key, (name, src, rep, _r) in zip(("fwd", "dq", "dkv"), rows[1:4])]
+    entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
          **({"launches_by_form": forms[name]} if name in forms else {}),
@@ -3187,7 +3468,15 @@ def main() -> int:
          **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format",
                               "also_replaces", "masked_form") if k in r}}
         for name, src, rep, r in rows
-    ]})
+    ]
+    entries += [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "form_of": r["form_of"],
+         "launches": sum(r["launches_by_path"].values()), "launches_by_path": r["launches_by_path"],
+         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
+                              "tflops", "x_library", "x_bound", "shape")}}
+        for name, src, rep, r in d128_rows
+    ]
+    emit({"kernels": entries})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -73,6 +73,30 @@ At seq 128 its attention is dense (S*T <= 512^2), as the reference's; the
 flash kernels with their per-key mask take the same encoder at a longer
 ``max_len`` with an ``attention_mask`` (``models.bert.bert_base``).
 
+``llama_lora`` is the reference's ``_llama_lora``
+(``consensusml_tpu/configs/__init__.py:369-440``): a LoRA fine-tune of a
+Llama decoder by consensus SGD on a torus, h = 1 local step of
+``lora_optimizer(adam(lr))`` a round, then one round of exact gossip of
+the adapters only (``path_filter=lora_gossip_filter``), on ``SyntheticLM``:
+
+- ``scale="full"``: Llama-2-7B (32 layers, hidden 4096, 32 heads of dim
+  128, MLP 11008, vocab 32000, bf16 compute) with rank-16 adapters on q,
+  k, v and o (alpha 16), 16 workers on a 4x4 torus, batch 8 x seq 2048,
+  Adam(1e-3); attention through the flash kernels at head dim 128;
+- ``scale="smoke"``: ``llama_tiny`` (vocab 256, hidden 64, 2 layers, 4
+  heads and 2 kv heads of dim 16, MLP 128) with rank-4 adapters, 4
+  workers on a 2x2 torus, batch 8 x seq 16, Adam(1e-2).
+
+The base is the same on every worker (the reference draws it once from a
+fixed key and never trains or gossips it), so the port holds it ONCE,
+beside the stacked adapters (``RunBundle.draw_frozen``, uploaded a leaf at
+a time by :func:`frozen_on_device`): its Dense kernels and embedding in
+bf16, as the reference casts them before every product. The reference
+runs each full-scale worker on a tp = 4 submesh (64 chips); the port runs
+all 16 workers on one card without tensor parallelism, and takes each
+worker's batch of 8 in micro-batches of 4 (``LocalSGDConfig.micro_batch``:
+the same gradient of the 8 sequences, summed in another order).
+
 Every config takes ``topology=``, ``train.py``'s ``--topology``:
 ``NAME[:k=v,...]`` (:func:`topology_from_spec`), the named family at the
 run's world size in place of the config's own graph. Every bundle carries
@@ -94,10 +118,16 @@ from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
     "CONFIGS", "RunBundle", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
-    "resnet_model", "topology_from_spec", "with_topology", "worker_inits", "init_on_device",
+    "resnet_model", "topology_from_spec", "with_topology", "worker_inits", "init_on_device", "llama_config",
+    "frozen_on_device", "LLAMA_MICRO_BATCH",
 ]
 
-CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm")
+CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora")
+# the rows of a full-scale llama_lora worker's batch of 8 that one forward
+# and backward take: the largest the card holds (one worker step's peak,
+# base and every worker's adapters and Adam state included: 34.6 GB at 2,
+# 52.4 GB at 4 on an H100; 8 would need ~88 GB; PERF.md §4)
+LLAMA_MICRO_BATCH = 4
 CODECS = ("topk_int8", "topk_int4", "int8", "int4", "fp8")
 
 
@@ -150,6 +180,18 @@ def bert_config(scale: str = "smoke"):
     raise ValueError(f"unknown scale {scale!r} (smoke|full)")
 
 
+def llama_config(scale: str = "smoke"):
+    """``llama_lora``'s model configuration at ``scale``."""
+    from consensusml_tpu_torch.models.llama import LlamaConfig
+
+    if scale == "full":
+        return LlamaConfig(lora_rank=16)
+    if scale == "smoke":
+        return LlamaConfig(vocab_size=256, hidden=64, layers=2, heads=4, kv_heads=2, mlp_dim=128, max_len=128,
+                           lora_rank=4)
+    raise ValueError(f"unknown scale {scale!r} (smoke|full)")
+
+
 def resnet_model(scale: str = "smoke", norm_impl: str = "flax"):
     """``cifar_resnet50``'s model at ``scale``: structure only (``meta``),
     the parameters live in the train state."""
@@ -180,6 +222,10 @@ class RunBundle:
     description: str = ""
     eval_fn: Callable | None = None  # train.evaluate's metric sums for one model
     eval_batches: Callable | None = None  # (n_batches, seed) -> iterator of unstacked held-out batches
+    # (device) -> (name, tensor) of each leaf every worker shares, never
+    # trained or gossiped (a LoRA run's base), drawn and uploaded one at a
+    # time; None: no such leaves
+    draw_frozen: Callable | None = None
 
     def init_params(self, seed: int, ranks=None):
         """The stacked ``(W, ...)`` numpy initial variables in flax layout,
@@ -241,6 +287,14 @@ def init_on_device(bundle: RunBundle, seed: int, device) -> tuple[dict, dict]:
     return params, model_state
 
 
+def frozen_on_device(bundle: RunBundle, device) -> dict[str, torch.Tensor]:
+    """The bundle's frozen leaves on ``device``, held once (``{}`` for a
+    config without them), drawn and uploaded a leaf at a time."""
+    if bundle.draw_frozen is None:
+        return {}
+    return dict(bundle.draw_frozen(device))
+
+
 def topology_from_spec(spec: str, world: int):
     """``train.py``'s ``--topology NAME[:k=v,...]`` (integer values, e.g.
     ``hierarchical:slices=2,outer_every=2``) as that family at ``world``
@@ -277,10 +331,14 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
     if scale not in ("smoke", "full"):
         raise ValueError(f"unknown scale {scale!r} (smoke|full)")
     dev = resolve_device(device)
-    if name in ("cifar_resnet50", "mnist_mlp", "bert_mlm"):
+    if name in ("cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora"):
         if (codec, gamma, codec_warmup) != (None, None, None):
             raise NotImplementedError(f"{name} gossips exactly; its compressed variants are not ported yet")
-        if name == "mnist_mlp":
+        if name == "llama_lora":
+            if norm_impl != "flax":
+                raise ValueError(f"llama_lora's norms are RMSNorms (norm_impl must be 'flax', got {norm_impl!r})")
+            bundle = _llama_lora(scale, world)
+        elif name == "mnist_mlp":
             if norm_impl != "flax":
                 raise ValueError(f"mnist_mlp has no norm layers (norm_impl must be 'flax', got {norm_impl!r})")
             bundle = _mnist_mlp(scale, world)
@@ -363,6 +421,52 @@ def _bert_mlm(scale: str, world: int | None) -> RunBundle:
         description=f"BERT MLM, local-SGD H=8 + ring averaging; seq {seq}: dense attention",
         eval_fn=mlm_eval_fn(model),
         eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed, mlm_rate=mlm_rate),
+    )
+
+
+def _llama_lora(scale: str, world: int | None) -> RunBundle:
+    from consensusml_tpu_torch.consensus import GossipConfig
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
+    from consensusml_tpu_torch.models.convert import llama_adapter_params, llama_base_leaves, llama_from_flax
+    from consensusml_tpu_torch.models.llama import LlamaLM, llama_loss_fn
+    from consensusml_tpu_torch.models.lora import lora_gossip_filter
+    from consensusml_tpu_torch.topology import topology_from_name
+    from consensusml_tpu_torch.train.evaluate import causal_lm_eval_fn
+    from consensusml_tpu_torch.train.local_sgd import LocalSGDConfig
+    from consensusml_tpu_torch.train.optim import adam, lora_optimizer
+
+    full = scale == "full"
+    mcfg = llama_config(scale)
+    world = world or (16 if full else 4)
+    batch, seq = (8, 2048) if full else (8, 16)
+    topo = topology_from_name("torus", world)
+    rows, cols = topo.mesh_shape
+    cfg = LocalSGDConfig(
+        gossip=GossipConfig(topology=topo, path_filter=lora_gossip_filter),
+        optimizer=lora_optimizer(adam(1e-3 if full else 1e-2)),
+        h=1,
+        micro_batch=LLAMA_MICRO_BATCH if full else 0,
+    )
+    data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
+    model = LlamaLM(mcfg, device="meta")
+    threads = min(_INIT_THREADS, os.cpu_count() or 1)
+    return RunBundle(
+        name="llama_lora",
+        world_size=world,
+        cfg=cfg,
+        model=model,
+        loss_fn=llama_loss_fn(model),
+        batches=lambda rounds, seed, start=0: lm_round_batches(
+            data, world, cfg.h, batch, rounds, seed, start=start
+        ),
+        draw_init=lambda seed, ranks: llama_adapter_params(model, seed, world, ranks),
+        convert=lambda init: (llama_from_flax(init), {}),
+        codec_path="none (exact gossip of the LoRA adapters only)",
+        norm_path="RMSNorm (f32)",
+        description=f"Llama LoRA fine-tune, {rows}x{cols} torus gossip (adapters-only wire)",
+        eval_fn=causal_lm_eval_fn(model, deterministic_kwarg=False),
+        eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed),
+        draw_frozen=lambda device: llama_base_leaves(model, device, mcfg.dtype, threads),
     )
 
 

@@ -31,9 +31,17 @@ self first then each shift in order: the fused wire's one
 one takes phase ``step % period`` (the simulated caller passes that
 phase's matrix, the collective round picks the phase itself).
 
+``path_filter(path) -> bool`` (any callable on a leaf's key path in the
+port's trees, e.g. ``("params", "layer_0.q_proj.lora_a")``) restricts the
+round to the selected leaves, as the reference's ``_select``: the bucket
+plan, the mixing or CHOCO state, the payloads and the wire bytes cover
+those leaves only, in flatten order, and every other leaf passes through
+untouched (the same tensor). LoRA's ``lora_gossip_filter`` is one such
+filter.
+
 Not ported yet, and refused with ``NotImplementedError`` when set: the
 per-leaf wire (``bucket_bytes=None``, or a codec without a
-``bucket_alignment``), ``path_filter``, ``compress_filter`` other than
+``bucket_alignment``), ``compress_filter`` other than
 ``"auto"`` (and, under CHOCO, its exact-mixed ``model_state`` leaves;
 exact mixing gossips ``model_state`` like the params), faults,
 push-sum, ``fused_codec``, overlap gossip and its pipelining, and
@@ -71,7 +79,6 @@ class ChocoState(NamedTuple):
 
 # field -> its default; any other value is a path this slice does not port
 _NOT_PORTED = {
-    "path_filter": None,
     "compress_filter": "auto",
     "faults": None,
     "push_sum": False,
@@ -109,6 +116,8 @@ class GossipConfig:
                     f"GossipConfig.{name}={getattr(self, name)!r} is not ported yet "
                     f"(only the default {default!r})"
                 )
+        if self.path_filter is not None and not callable(self.path_filter):
+            raise ValueError(f"path_filter must be a callable on a key path, got {self.path_filter!r}")
         if self.bucket_bytes is None:
             raise NotImplementedError("the per-leaf wire (bucket_bytes=None) is not ported yet")
         if self.bucket_bytes <= 0:
@@ -155,11 +164,11 @@ def _check_bucket_state(packed: list, xhat: list) -> None:
         )
 
 
-def _check_no_model_state(tree: Any) -> None:
+def _check_no_model_state(paths: list) -> None:
     # CHOCO only: its compress_filter="auto" mixes model_state leaves
     # exactly beside the compressed params, a split not ported yet. Exact
     # mixing takes model_state (BatchNorm statistics) like any leaf.
-    for path, _ in T.flatten_with_paths(tree):
+    for path in paths:
         if path and path[0] == "model_state":
             raise NotImplementedError(
                 "exact-mixed model_state leaves (compress_filter='auto') are not ported yet"
@@ -214,8 +223,27 @@ class ConsensusEngine:
             wire_bytes=lambda n, dtype: (n // align) * rate,
         )
 
+    def _select(self, tree: Any):
+        """``(paths, leaves, rebuild)`` of the leaves that gossip: with a
+        ``path_filter`` those it selects, in flatten order, and
+        ``rebuild(new_leaves)`` the tree with them replaced and every other
+        leaf as it was; without one, every leaf."""
+        flat = T.flatten_with_paths(tree)
+        spec = T.flatten(tree)[1]
+        flt = self.config.path_filter
+        keep = [True if flt is None else bool(flt(path)) for path, _ in flat]
+
+        def rebuild(new: list) -> Any:
+            it = iter(new)
+            return T.unflatten(spec, [next(it) if k else x for k, (_, x) in zip(keep, flat)])
+
+        chosen = [(path, x) for k, (path, x) in zip(keep, flat) if k]
+        return [p for p, _ in chosen], [x for _, x in chosen], rebuild
+
     def bucket_plan(self, params: Any, stacked: bool = False) -> BucketPlan:
-        leaves = T.leaves(params)
+        """The bucket layout one gossip round of ``params`` uses (the
+        selected leaves only); only shapes are read."""
+        _, leaves, _ = self._select(params)
         if self.compressed:
             return self._codec_plan(leaves, stacked=stacked)
         return self._dense_plan(leaves, stacked=stacked)
@@ -227,8 +255,8 @@ class ConsensusEngine:
         mixing."""
         if not self.compressed:
             return None
-        _check_no_model_state(params)
-        leaves = T.leaves(params)
+        paths, leaves, _ = self._select(params)
+        _check_no_model_state(paths)
         plan = self._codec_plan(leaves, stacked=world_size is not None)
         device = leaves[0].device if leaves else None
         lead = () if world_size is None else (world_size,)
@@ -272,7 +300,7 @@ class ConsensusEngine:
         if step is None and (cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0):
             raise ValueError("codec_warmup_rounds/codec_refresh_every need the round counter (step=...)")
         n_iter = cfg.gossip_steps
-        leaves, spec = T.flatten(params)
+        paths, leaves, rebuild = self._select(params)
         if not self.compressed:
             if not leaves:
                 return params, None
@@ -280,9 +308,9 @@ class ConsensusEngine:
             bufs = plan.pack(leaves, stacked=stacked)
             for _ in range(n_iter):
                 bufs = mix(bufs)
-            return T.unflatten(spec, plan.unpack(bufs, stacked=stacked)), None
+            return rebuild(plan.unpack(bufs, stacked=stacked)), None
 
-        _check_no_model_state(params)
+        _check_no_model_state(paths)
         x32 = [x.to(torch.float32) for x in leaves]
         plan = self._codec_plan(x32, stacked=stacked)
         fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
@@ -302,7 +330,7 @@ class ConsensusEngine:
                 xhat, s = exchange(x, xhat, s, fused)
                 x = [xi + cfg.gamma * (si - hi) for xi, si, hi in zip(x, s, xhat)]
         new = [piece.to(old.dtype) for piece, old in zip(plan.unpack(x, stacked=stacked), leaves)]
-        return T.unflatten(spec, new), ChocoState(xhat=xhat, s=s)
+        return rebuild(new), ChocoState(xhat=xhat, s=s)
 
     def _innovation_exchange_fused_simulated(self, x: list, xhat: list, s: list,
                                              w: torch.Tensor, fused: FusedWirePlan):
@@ -417,12 +445,13 @@ class ConsensusEngine:
     def wire_bytes_per_round(self, params: Any) -> int:
         """Bytes ONE worker sends per steady-state round (``params`` are
         per-worker leaves; only their shapes are read): the codec payload
-        of every bucket (dense f32 for exact mixing), times the sends of a
-        round (:meth:`_sends_per_round`), times ``gossip_steps``. Warm-up
-        and refresh rounds ship the dense params besides and are not
-        folded in, as in the reference."""
+        of every bucket (dense f32 for exact mixing) of the selected
+        leaves (a leaf the ``path_filter`` leaves out ships nothing), times
+        the sends of a round (:meth:`_sends_per_round`), times
+        ``gossip_steps``. Warm-up and refresh rounds ship the dense params
+        besides and are not folded in, as in the reference."""
         comp = self.config.compressor
-        leaves = T.leaves(params)
+        _, leaves, _ = self._select(params)
         if comp is None:
             payload = sum(4 * int(torch.Size(x.shape).numel()) for x in leaves)
         else:

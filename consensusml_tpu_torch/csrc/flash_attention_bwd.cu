@@ -1,5 +1,5 @@
 // Flash-attention backward on Hopper's tensor cores, bf16 in / f32
-// accumulators / bf16 out, head dim 64.
+// accumulators / bf16 out, head dim 64 or 128 (a template form each).
 //
 // Replaces: consensusml_tpu/models/flash_attention.py:_bwd_dq (pallas_call
 // at :362, kernel body _bwd_dq_kernel at :223) and :_bwd_dkv (pallas_call
@@ -89,6 +89,20 @@
 // dq = scale * acc, dk = scale * acc and dv = acc, at the f32 -> bf16
 // step (the .ftz multiply of flash_sm90.cuh:store_tile_bf16), as the
 // plain version flushes its results.
+//
+// Head dim 128 (kD, Llama-2-7B's): each tile is two 64-dim atoms
+// (flash_sm90.cuh), and S, dP (or S^T, dP^T) take eight k16 steps
+// across both. dq keeps both halves of dQ in one block: two m64n64
+// products a step, one an atom of K, into two 32-register accumulators
+// that share dS's fragments (64 registers a thread). dk/dv cannot: dK and
+// dV whole are 128 registers beside S^T, dP^T and their four bf16
+// fragment sets, past the 255 a thread may hold. So each dk/dv block
+// computes one 64-dim half of dK and dV (grid z = D / 64): it recomputes
+// S^T and dP^T over all 128 dims, then takes its atom of Q and dO in the
+// accumulating products. Its registers are the D = 64 form's; S^T and
+// dP^T are done twice, 1.5x the form's tensor-core work, which a later
+// design that shares them between two warpgroups would save. Shared
+// memory: dq and dk/dv 32 KB resident + two 32 KB stages.
 
 #include "flash_sm90.cuh"
 
@@ -101,16 +115,25 @@ namespace sm90 = cml_sm90;
 
 constexpr int kDqStages = 2;
 constexpr int kDqThreads = 128;
-constexpr int kDqStageBytes = 2 * sm90::kTileBytes;  // K then V
-constexpr int kDqSmemBytes = 1024 + 2 * sm90::kTileBytes + kDqStages * kDqStageBytes;
+constexpr int kDkvStages = 2;
 
-template <bool kHasMask>
+// one tile of the head-dim-kD form: 64 rows of kD dims
+__host__ __device__ constexpr int tile_bytes(int kD) { return (kD / sm90::kAtomCols) * sm90::kTileBytes; }
+// dq: Q and dO resident, kDqStages stages of K then V; + alignment slack
+__host__ __device__ constexpr int dq_smem_bytes(int kD) { return 1024 + 2 * tile_bytes(kD) + kDqStages * 2 * tile_bytes(kD); }
+// dk/dv: K and V resident, kDkvStages stages of Q then dO; + alignment slack
+__host__ __device__ constexpr int dkv_smem_bytes(int kD) { return 1024 + 2 * tile_bytes(kD) + kDkvStages * 2 * tile_bytes(kD); }
+
+template <int kD, bool kHasMask>
 __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
     __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale) {
   using namespace cml_sm90;
+  constexpr int kAtoms = kD / kAtomCols;
+  constexpr int kTile = tile_bytes(kD);
+  constexpr int kDqStageBytes = 2 * kTile;  // K then V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kDqStages + 1];  // one per stage, then Q and dO's
   // kHasMask: the kv_mask of a key tile, double-buffered (tile t in t & 1)
@@ -120,8 +143,8 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const sQ_ptr = smem_raw + (base - raw);
   const uint32_t sQ = base;
-  const uint32_t sDO = base + kTileBytes;
-  const uint32_t sKV = base + 2 * kTileBytes;
+  const uint32_t sDO = base + kTile;
+  const uint32_t sKV = base + 2 * kTile;
   const uint32_t bar0 = smem_u32(bars);
 
   const int tid = threadIdx.x;
@@ -143,8 +166,8 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     const uint32_t bar = bar0 + 8 * st;
     const uint32_t dst = sKV + st * kDqStageBytes;
     mbar_expect_tx(bar, kDqStageBytes);
-    tma_load_rows(dst, &tk, bar, h, tile * kTileRows, b);
-    tma_load_rows(dst + kTileBytes, &tv, bar, h, tile * kTileRows, b);
+    tma_load_tile(dst, &tk, bar, h, tile * kTileRows, b, kAtoms);
+    tma_load_tile(dst + kTile, &tv, bar, h, tile * kTileRows, b, kAtoms);
   };
   if (tid == 0) {
 #pragma unroll
@@ -155,9 +178,9 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
   __syncthreads();
   if (tid == 0) {
     const uint32_t qbar = bar0 + 8 * kDqStages;
-    mbar_expect_tx(qbar, 2 * kTileBytes);
-    tma_load_rows(sQ, &tq, qbar, h, q0, b);
-    tma_load_rows(sDO, &tdo, qbar, h, q0, b);
+    mbar_expect_tx(qbar, 2 * kTile);
+    tma_load_tile(sQ, &tq, qbar, h, q0, b, kAtoms);
+    tma_load_tile(sDO, &tdo, qbar, h, q0, b, kAtoms);
     for (int t = 0; t < min(kDqStages, n_tiles); ++t) issue_kv(t, t);
   }
 
@@ -170,18 +193,21 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     lse2[i] = lse[r] * kLog2e;
     dl[i] = delta[r];
   }
-  float acc[32];
+  // acc[a]: dQ's dims [64a, 64a + 64)
+  float acc[kAtoms][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int a = 0; a < kAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
   mbar_wait(bar0 + 8 * kDqStages, 0);
-  flush_staged_subnormals(sQ_ptr, 2);  // Q then dO
+  flush_staged_subnormals(sQ_ptr, 2 * kAtoms);  // Q then dO
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kDqStages;
     const uint32_t sK = sKV + st * kDqStageBytes;
-    const uint32_t sV = sK + kTileBytes;
+    const uint32_t sV = sK + kTile;
     mbar_wait(bar0 + 8 * st, (t / kDqStages) & 1);
-    flush_staged_subnormals(smem_raw + (sK - raw), 2);  // K then V
+    flush_staged_subnormals(smem_raw + (sK - raw), 2 * kAtoms);  // K then V
 
     float s[32], dp[32];
 #pragma unroll
@@ -190,9 +216,9 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     pin(dp);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
+    for (int k = 0; k < 4 * kAtoms; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_ss(dp, kmajor_desc(sDO, k), kmajor_desc(sV, k), k);
+    for (int k = 0; k < 4 * kAtoms; ++k) wgmma_ss(dp, kmajor_desc(sDO, k), kmajor_desc(sV, k), k);
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -221,17 +247,22 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     uint32_t dsh[4][4], dsl[4][4];
     split_hi_lo(s, dsh, dsl);
 
-    pin(acc);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) pin(acc[a]);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc, dsh[k], mnmajor_desc(sK, k));
+    for (int a = 0; a < kAtoms; ++a) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc, dsl[k], mnmajor_desc(sK, k));
+      for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc[a], dsh[k], mnmajor_desc(sK + a * kTileBytes, k));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs_mn(acc[a], dsl[k], mnmajor_desc(sK + a * kTileBytes, k));
+    }
     wgmma_commit();
     // the next tile's mask, in flight during these products
     const float next_mask = kHasMask && tid < kTileRows && t + 1 < n_tiles ? load_mask(t + 1) : 0.f;
     wgmma_wait_all();
-    pin(acc);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) pin(acc[a]);
 
     // nobody reads the other mask buffer until after the barrier below
     if (kHasMask && tid < kTileRows) smask[((t + 1) & 1) * kTileRows + tid] = next_mask;
@@ -239,31 +270,34 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     if (tid == 0 && t + kDqStages < n_tiles) issue_kv(t + kDqStages, st);
   }
 
-  // the Q tile is no longer read: stage dq there
+  // the Q tile is no longer read: stage dq there, an atom at a time
   const float mul[2] = {scale, scale};
   const size_t row_stride = static_cast<size_t>(H) * kD;
-  store_tile_bf16(acc, mul, sQ_ptr,
-                  dq + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD,
-                  row_stride, min(kTileRows, S - q0), 1);
+  __nv_bfloat16* const dst = dq + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD;
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a)
+    store_tile_bf16(acc[a], mul, sQ_ptr + a * kTileBytes, dst + a * kAtomCols, row_stride,
+                    min(kTileRows, S - q0), 1);
 }
 
-constexpr int kDkvStages = 2;
 constexpr int kDkvThreads = 128;
-constexpr int kDkvStageBytes = 2 * sm90::kTileBytes;  // Q then dO
-constexpr int kDkvSmemBytes = 1024 + 2 * sm90::kTileBytes + kDkvStages * kDkvStageBytes;
-// Three blocks an SM: at most 168 registers a thread (ptxas spills 16
-// bytes); left alone ptxas takes 174, which fits two blocks and runs ~21%
-// longer (PERF.md).
-constexpr int kDkvMinBlocks = 3;
+// D = 64: three blocks an SM, at most 168 registers a thread (ptxas spills
+// 16 bytes); left alone ptxas takes 174, which fits two blocks and runs
+// ~21% longer (PERF.md). D = 128: its shared memory fits two blocks an SM,
+// which leaves the registers free.
+__host__ __device__ constexpr int dkv_min_blocks(int kD) { return kD == 64 ? 3 : 2; }
 
-template <bool kHasMask>
-__global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kernel(
+template <int kD, bool kHasMask>
+__global__ void __launch_bounds__(kDkvThreads, dkv_min_blocks(kD)) flash_bwd_dkv_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int causal,
     float scale) {
   using namespace cml_sm90;
+  constexpr int kAtoms = kD / kAtomCols;
+  constexpr int kTile = tile_bytes(kD);
+  constexpr int kDkvStageBytes = 2 * kTile;  // Q then dO
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kDkvStages + 1];  // one per stage, then K and V's
   // a query tile's lse * log2(e) (0-63) then delta (64-127), double-buffered
@@ -273,8 +307,8 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const sK_ptr = smem_raw + (base - raw);
   const uint32_t sK = base;
-  const uint32_t sV = base + kTileBytes;
-  const uint32_t sQDO = base + 2 * kTileBytes;
+  const uint32_t sV = base + kTile;
+  const uint32_t sQDO = base + 2 * kTile;
   const uint32_t bar0 = smem_u32(bars);
 
   const int tid = threadIdx.x;
@@ -283,6 +317,8 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
   const int kt = blockIdx.x;  // causal: block 0 walks the most query tiles, and starts first
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
+  // the dims [64 half, 64 half + 64) of dK and dV this block writes (D = 64: 0, a constant)
+  const int half = kAtoms > 1 ? static_cast<int>(blockIdx.z) : 0;
   const int k0 = kt * kTileRows;
   const int first = causal ? kt : 0;  // query tiles above the diagonal never see these keys
   const int n_tiles = nq - first;
@@ -291,8 +327,8 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
     const uint32_t bar = bar0 + 8 * st;
     const uint32_t dst = sQDO + st * kDkvStageBytes;
     mbar_expect_tx(bar, kDkvStageBytes);
-    tma_load_rows(dst, &tq, bar, h, (first + i) * kTileRows, b);
-    tma_load_rows(dst + kTileBytes, &tdo, bar, h, (first + i) * kTileRows, b);
+    tma_load_tile(dst, &tq, bar, h, (first + i) * kTileRows, b, kAtoms);
+    tma_load_tile(dst + kTile, &tdo, bar, h, (first + i) * kTileRows, b, kAtoms);
   };
   // this thread's entry of query tile i's stats (0 past S)
   auto load_stat = [&](int i) {
@@ -310,9 +346,9 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
   __syncthreads();
   if (tid == 0) {
     const uint32_t kvbar = bar0 + 8 * kDkvStages;
-    mbar_expect_tx(kvbar, 2 * kTileBytes);
-    tma_load_rows(sK, &tk, kvbar, h, k0, b);
-    tma_load_rows(sV, &tv, kvbar, h, k0, b);
+    mbar_expect_tx(kvbar, 2 * kTile);
+    tma_load_tile(sK, &tk, kvbar, h, k0, b, kAtoms);
+    tma_load_tile(sV, &tv, kvbar, h, k0, b, kAtoms);
     for (int i = 0; i < min(kDkvStages, n_tiles); ++i) issue_qdo(i, i);
   }
 
@@ -331,15 +367,15 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
 #pragma unroll
   for (int e = 0; e < 32; ++e) dka[e] = dva[e] = 0.f;
   mbar_wait(bar0 + 8 * kDkvStages, 0);
-  flush_staged_subnormals(sK_ptr, 2);  // K then V
+  flush_staged_subnormals(sK_ptr, 2 * kAtoms);  // K then V
 
   for (int i = 0; i < n_tiles; ++i) {
     const int st = i % kDkvStages;
     const uint32_t sQ = sQDO + st * kDkvStageBytes;
-    const uint32_t sDO = sQ + kTileBytes;
+    const uint32_t sDO = sQ + kTile;
     const int q0 = (first + i) * kTileRows;
     mbar_wait(bar0 + 8 * st, (i / kDkvStages) & 1);
-    flush_staged_subnormals(smem_raw + (sQ - raw), 2);  // Q then dO
+    flush_staged_subnormals(smem_raw + (sQ - raw), 2 * kAtoms);  // Q then dO
 
     float s[32], dp[32];
 #pragma unroll
@@ -348,9 +384,9 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
     pin(dp);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sK, k), kmajor_desc(sQ, k), k);
+    for (int k = 0; k < 4 * kAtoms; ++k) wgmma_ss(s, kmajor_desc(sK, k), kmajor_desc(sQ, k), k);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_ss(dp, kmajor_desc(sV, k), kmajor_desc(sDO, k), k);
+    for (int k = 0; k < 4 * kAtoms; ++k) wgmma_ss(dp, kmajor_desc(sV, k), kmajor_desc(sDO, k), k);
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -385,17 +421,19 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
     split_hi_lo(s, ph, pl);
     split_hi_lo(dp, dsh, dsl);
 
+    // this block's atom of dO and of Q
+    const uint32_t sDOh = sDO + half * kTileBytes, sQh = sQ + half * kTileBytes;
     pin(dka);
     pin(dva);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, ph[k], mnmajor_desc(sDO, k));
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, ph[k], mnmajor_desc(sDOh, k));
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, pl[k], mnmajor_desc(sDO, k));
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dva, pl[k], mnmajor_desc(sDOh, k));
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsh[k], mnmajor_desc(sQ, k));
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsh[k], mnmajor_desc(sQh, k));
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsl[k], mnmajor_desc(sQ, k));
+    for (int k = 0; k < 4; ++k) wgmma_rs_mn(dka, dsl[k], mnmajor_desc(sQh, k));
     wgmma_commit();
     // the next tile's stats, in flight during these products (s and dp are dead)
     const float next = i + 1 < n_tiles ? load_stat(i + 1) : 0.f;
@@ -409,9 +447,11 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
     if (tid == 0 && i + kDkvStages < n_tiles) issue_qdo(i + kDkvStages, st);
   }
 
-  // the K and V tiles are no longer read: stage dk and dv there
+  // the K and V tiles are no longer read: stage dk and dv in their first
+  // two atoms
   const size_t row_stride = static_cast<size_t>(H) * kD;
-  const size_t off = (static_cast<size_t>(b) * S + k0) * row_stride + static_cast<size_t>(h) * kD;
+  const size_t off = (static_cast<size_t>(b) * S + k0) * row_stride + static_cast<size_t>(h) * kD +
+                     static_cast<size_t>(half) * kAtomCols;
   const int n_rows = min(kTileRows, S - k0);
   const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
   store_tile_bf16(dka, mul_k, sK_ptr, dk + off, row_stride, n_rows, 1);
@@ -420,37 +460,40 @@ __global__ void __launch_bounds__(kDkvThreads, kDkvMinBlocks) flash_bwd_dkv_kern
 
 // the four tensor maps of q, k, v, do; 0 or a CUDA error code
 int encode_qkvdo(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
-                 const void* dout, int B, int S, int H) {
+                 const void* dout, int B, int S, int H, int D) {
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) {
-    const int rc = sm90::encode_bshd(&m[i], ptrs[i], B, S, H, sm90::kTileRows);
+    const int rc = sm90::encode_bshd(&m[i], ptrs[i], B, S, H, D, sm90::kTileRows);
     if (rc != 0) return rc;
   }
   return 0;
 }
 
-template <bool kHasMask>
+template <int kD, bool kHasMask>
 int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
               void* dq, int B, int S, int H, int causal, float scale, void* stream) {
   // per launch: the attribute belongs to the current device
+  constexpr int kDqSmemBytes = dq_smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
+      flash_bwd_dq_kernel<kD, kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
-  flash_bwd_dq_kernel<kHasMask><<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_kernel<kD, kHasMask><<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kHasMask>
+template <int kD, bool kHasMask>
 int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
                void* dk, void* dv, int B, int S, int H, int causal, float scale, void* stream) {
   // per launch: the attribute belongs to the current device
+  constexpr int kDkvSmemBytes = dkv_smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+      flash_bwd_dkv_kernel<kD, kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
-  flash_bwd_dkv_kernel<kHasMask><<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  // z: the 64-dim halves of dK and dV (one at D = 64)
+  dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H, kD / sm90::kAtomCols);
+  flash_bwd_dkv_kernel<kD, kHasMask><<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -458,22 +501,38 @@ int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, 
 
 }  // namespace
 
+template <int kD>
+int launch_dq_masked_or_not(const CUtensorMap (&m)[4], const float* lse, const float* delta,
+                            const float* mask, void* dq, int B, int S, int H, int causal, float scale,
+                            void* stream) {
+  return mask != nullptr ? launch_dq<kD, true>(m, lse, delta, mask, dq, B, S, H, causal, scale, stream)
+                         : launch_dq<kD, false>(m, lse, delta, mask, dq, B, S, H, causal, scale, stream);
+}
+
+template <int kD>
+int launch_dkv_masked_or_not(const CUtensorMap (&m)[4], const float* lse, const float* delta,
+                             const float* mask, void* dk, void* dv, int B, int S, int H, int causal,
+                             float scale, void* stream) {
+  return mask != nullptr ? launch_dkv<kD, true>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, stream)
+                         : launch_dkv<kD, false>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, stream);
+}
+
 // Both return 0 once launched, else a CUDA error code: without launching,
-// cudaErrorInvalidValue for an unsupported head dim or a tensor map the
-// driver refuses (e.g. a base address not 16-byte aligned); after the
-// launch, cudaGetLastError(). kv_mask: nullptr, or (B, S) f32.
+// cudaErrorInvalidValue for a head dim other than 64 and 128 or a tensor
+// map the driver refuses (e.g. a base address not 16-byte aligned); after
+// the launch, cudaGetLastError(). kv_mask: nullptr, or (B, S) f32.
 extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                                const void* dout, const void* lse, const void* delta,
                                                const void* kv_mask, void* dq, int B, int S, int H,
                                                int D, int causal, float scale, void* stream) {
-  if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
+  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H, D);
   if (rc != 0) return rc;
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
   const float* mask = static_cast<const float*>(kv_mask);
-  return mask != nullptr ? launch_dq<true>(m, l, dl, mask, dq, B, S, H, causal, scale, stream)
-                         : launch_dq<false>(m, l, dl, mask, dq, B, S, H, causal, scale, stream);
+  return D == 64 ? launch_dq_masked_or_not<64>(m, l, dl, mask, dq, B, S, H, causal, scale, stream)
+                 : launch_dq_masked_or_not<128>(m, l, dl, mask, dq, B, S, H, causal, scale, stream);
 }
 
 extern "C" int cml_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
@@ -481,12 +540,12 @@ extern "C" int cml_flash_attention_bwd_dkv_bf16(const void* q, const void* k, co
                                                 const void* delta, const void* kv_mask, void* dk,
                                                 void* dv, int B, int S, int H, int D, int causal,
                                                 float scale, void* stream) {
-  if (D != sm90::kD) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
-  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H);
+  const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H, D);
   if (rc != 0) return rc;
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
   const float* mask = static_cast<const float*>(kv_mask);
-  return mask != nullptr ? launch_dkv<true>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream)
-                         : launch_dkv<false>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream);
+  return D == 64 ? launch_dkv_masked_or_not<64>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream)
+                 : launch_dkv_masked_or_not<128>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream);
 }

@@ -1,5 +1,5 @@
 // Flash-attention forward on Hopper's tensor cores, bf16 in / f32
-// accumulators / bf16 out, head dim 64.
+// accumulators / bf16 out, head dim 64 or 128 (a template form each).
 //
 // Replaces: consensusml_tpu/models/flash_attention.py:_fwd (pallas_call at
 // :193, kernel body _fwd_kernel at :73), reached through flash_attention
@@ -28,6 +28,12 @@
 // key tiles up to the end of the row's 512-key block, not only to the
 // diagonal, so that the sum covers the keys the reference visits; the
 // tiles past the diagonal give every other row p = exp2(-1e30 - m) = 0.
+//
+// Head dim 128 (kD, Llama-2-7B's) is the same kernel with each tile two
+// 64-dim atoms (flash_sm90.cuh): S = Q K^T takes eight k16 steps across
+// both atoms, and O = P V is two m64n64 products, one an atom of V, into
+// two 32-register accumulators (64 a thread), which share P's fragments.
+// Shared memory grows to Q 16 KB + two stages of K and V at 32 KB.
 //
 // Layout: q, k, v, out are (B, S, H, D) contiguous, as the public function
 // takes them (no fold/pad copy), read through 4-D TMA maps (D, H, S, B);
@@ -84,15 +90,20 @@ constexpr int kRefBlock = 512;  // the reference kernel's key block (_BK), which
 constexpr float kMaskedScore = -1e30f;  // the reference's _NEG_INF, in log2 units here
 constexpr int kStages = 2;
 constexpr int kThreads = 128;
-constexpr int kStageBytes = 2 * kTileBytes;  // K then V
-constexpr int kSmemBytes = 1024 + kTileBytes + kStages * kStageBytes;  // + alignment slack
 
-template <bool kHasMask>
+// the shared memory of the head-dim-kD form: the Q tile, then kStages
+// stages of a K and a V tile (each tile kD / 64 atoms), + alignment slack
+__host__ __device__ constexpr int smem_bytes(int kD) { return 1024 + (kD / kAtomCols) * kTileBytes * (1 + 2 * kStages); }
+
+template <int kD, bool kHasMask>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ kv_mask,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H, int causal,
     float scale_log2) {
+  constexpr int kAtoms = kD / kAtomCols;
+  constexpr int kTile = kAtoms * kTileBytes;  // one tile: 64 rows of kD dims
+  constexpr int kStageBytes = 2 * kTile;      // K then V
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[kStages + 1];  // one per stage, then Q's
   // kHasMask: the kv_mask of a key tile, double-buffered (tile t in t & 1)
@@ -102,7 +113,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const sQ_ptr = smem_raw + (base - raw);
   const uint32_t sQ = base;
-  const uint32_t sKV = base + kTileBytes;
+  const uint32_t sKV = base + kTile;
   const uint32_t bar0 = smem_u32(bars);
 
   const int tid = threadIdx.x;
@@ -127,8 +138,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const uint32_t bar = bar0 + 8 * st;
     const uint32_t dst = sKV + st * kStageBytes;
     mbar_expect_tx(bar, kStageBytes);
-    tma_load_rows(dst, &tk, bar, h, tile * kBK, b);
-    tma_load_rows(dst + kTileBytes, &tv, bar, h, tile * kBK, b);
+    tma_load_tile(dst, &tk, bar, h, tile * kBK, b, kAtoms);
+    tma_load_tile(dst + kTile, &tv, bar, h, tile * kBK, b, kAtoms);
   };
   if (tid == 0) {
 #pragma unroll
@@ -139,24 +150,27 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   __syncthreads();
   if (tid == 0) {
     const uint32_t qbar = bar0 + 8 * kStages;
-    mbar_expect_tx(qbar, kTileBytes);
-    tma_load_rows(sQ, &tq, qbar, h, q0, b);
+    mbar_expect_tx(qbar, kTile);
+    tma_load_tile(sQ, &tq, qbar, h, q0, b, kAtoms);
     for (int t = 0; t < min(kStages, n_tiles); ++t) issue_kv(t, t);
   }
 
   const int row0 = q0 + 16 * warp + lane / 4;  // query row of accumulator half i = 0; +8 for i = 1
-  float o[32], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+  // o[a]: the output's dims [64a, 64a + 64)
+  float o[kAtoms][32], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int a = 0; a < kAtoms; ++a)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
   mbar_wait(bar0 + 8 * kStages, 0);
-  flush_staged_subnormals(sQ_ptr, 1);
+  flush_staged_subnormals(sQ_ptr, kAtoms);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % kStages;
     const uint32_t sK = sKV + st * kStageBytes;
-    const uint32_t sV = sK + kTileBytes;
+    const uint32_t sV = sK + kTile;
     mbar_wait(bar0 + 8 * st, (t / kStages) & 1);
-    flush_staged_subnormals(smem_raw + (sK - raw), 2);  // K then V
+    flush_staged_subnormals(smem_raw + (sK - raw), 2 * kAtoms);  // K then V
 
     float s[32];
 #pragma unroll
@@ -164,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
+    for (int k = 0; k < 4 * kAtoms; ++k) wgmma_ss(s, kmajor_desc(sQ, k), kmajor_desc(sK, k), k);
     wgmma_commit();
     wgmma_wait_all();
     pin(s);
@@ -211,24 +225,30 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
           const float p = ftz(exp2f(s[4 * j + 2 * i + c] - m[i]));
           s[4 * j + 2 * i + c] = p;
           l[i] += p;
-          o[4 * j + 2 * i + c] *= corr[i];
+#pragma unroll
+          for (int a = 0; a < kAtoms; ++a) o[a][4 * j + 2 * i + c] *= corr[i];
         }
       }
     }
     uint32_t ph[4][4], pl[4][4];
     split_hi_lo(s, ph, pl);
 
-    pin(o);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) pin(o[a]);
     wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(o, ph[k], mnmajor_desc(sV, k));
+    for (int a = 0; a < kAtoms; ++a) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wgmma_rs_mn(o, pl[k], mnmajor_desc(sV, k));
+      for (int k = 0; k < 4; ++k) wgmma_rs_mn(o[a], ph[k], mnmajor_desc(sV + a * kTileBytes, k));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wgmma_rs_mn(o[a], pl[k], mnmajor_desc(sV + a * kTileBytes, k));
+    }
     wgmma_commit();
     // the next tile's mask, in flight during these products
     const float next_mask = kHasMask && tid < kBK && t + 1 < n_tiles ? load_mask(t + 1) : 0.f;
     wgmma_wait_all();
-    pin(o);
+#pragma unroll
+    for (int a = 0; a < kAtoms; ++a) pin(o[a]);
 
     // nobody reads the other mask buffer until after the barrier below
     if (kHasMask && tid < kBK) smask[((t + 1) & 1) * kBK + tid] = next_mask;
@@ -251,23 +271,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
       lse[static_cast<size_t>(bh) * S + qi] =
           empty ? kMaskedScore : mul_ftz(add_ftz(m[i], log2f(l_safe)), kLn2);
   }
-  // the Q tile is no longer read: stage the output there
+  // the Q tile is no longer read: stage the output there, an atom at a time
   const size_t row_stride = static_cast<size_t>(H) * kD;
-  store_tile_bf16(o, inv, sQ_ptr,
-                  out + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD,
-                  row_stride, min(kBQ, S - q0), 1);
+  __nv_bfloat16* const dst = out + (static_cast<size_t>(b) * S + q0) * row_stride + static_cast<size_t>(h) * kD;
+#pragma unroll
+  for (int a = 0; a < kAtoms; ++a)
+    store_tile_bf16(o[a], inv, sQ_ptr + a * kTileBytes, dst + a * kAtomCols, row_stride, min(kBQ, S - q0), 1);
 }
 
-template <bool kHasMask>
+template <int kD, bool kHasMask>
 int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                const float* kv_mask, void* out, void* lse, int B, int S, int H, int causal,
                float scale, void* stream) {
   // per launch: the attribute belongs to the current device
+  constexpr int kSmemBytes = smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      flash_fwd_kernel<kD, kHasMask>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<kHasMask><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<kD, kHasMask><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, kv_mask, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal,
       scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
@@ -275,21 +297,29 @@ int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
 
 }  // namespace
 
+template <int kD>
+int launch_fwd_masked_or_not(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                             const float* mask, void* out, void* lse, int B, int S, int H, int causal,
+                             float scale, void* stream) {
+  return mask != nullptr ? launch_fwd<kD, true>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
+                         : launch_fwd<kD, false>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
+}
+
 // Returns 0 once launched, else a CUDA error code without launching:
-// cudaErrorInvalidValue for an unsupported head dim or a tensor map the
-// driver refuses (e.g. a base address not 16-byte aligned); then
+// cudaErrorInvalidValue for a head dim other than 64 and 128 or a tensor
+// map the driver refuses (e.g. a base address not 16-byte aligned); then
 // cudaGetLastError() after the launch. kv_mask: nullptr, or (B, S) f32.
 extern "C" int cml_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                             const void* kv_mask, void* out, void* lse, int B,
                                             int S, int H, int D, int causal, float scale,
                                             void* stream) {
-  if (D != kD) return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int rc = encode_bshd(&tq, q, B, S, H, kBQ);
-  if (rc == 0) rc = encode_bshd(&tk, k, B, S, H, kTileRows);
-  if (rc == 0) rc = encode_bshd(&tv, v, B, S, H, kTileRows);
+  int rc = encode_bshd(&tq, q, B, S, H, D, kBQ);
+  if (rc == 0) rc = encode_bshd(&tk, k, B, S, H, D, kTileRows);
+  if (rc == 0) rc = encode_bshd(&tv, v, B, S, H, D, kTileRows);
   if (rc != 0) return rc;
   const float* mask = static_cast<const float*>(kv_mask);
-  return mask != nullptr ? launch_fwd<true>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
-                         : launch_fwd<false>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
+  return D == 64 ? launch_fwd_masked_or_not<64>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
+                 : launch_fwd_masked_or_not<128>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
 }

@@ -2,13 +2,15 @@
 // attention kernels: TMA tile and bulk loads completed on mbarriers,
 // thread block clusters (barriers, distributed shared memory), warpgroup
 // matrix multiplies (wgmma) on 128-byte-swizzled shared-memory tiles, and
-// the host-side tensor maps over a (B, S, H, 64) bf16 tensor.
+// the host-side tensor maps over a (B, S, H, D) bf16 tensor, D = 64 or 128.
 //
-// Tiles. Every tile is 64 rows (query or key positions) of one head's 64
-// dims: 64 rows of 128 bytes, 8 KB, written by TMA with the 128-byte
-// swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)), at a
-// 1024-byte-aligned address. Rows past S read as zeros (TMA's
-// out-of-bounds fill), which covers the ragged tail.
+// Tiles. Every tile is 64 rows (query or key positions) of one head's D
+// dims, held as D / 64 atoms of 64 dims: an atom is 64 rows of 128
+// bytes, 8 KB, written by TMA with the 128-byte swizzle (16-byte chunk c
+// of row r lands at chunk c ^ (r % 8)), at a 1024-byte-aligned address;
+// the swizzle spans one 128-byte row, so a 128-wide row is two atoms,
+// dims [64a, 64a + 64) in atom a, the atoms back to back. Rows past S
+// read as zeros (TMA's out-of-bounds fill), which covers the ragged tail.
 //
 // Products (m64n64k16, bf16 in, f32 accumulators). Each warpgroup of 128
 // threads owns 64 rows. Thread t of the warpgroup (warp w = t / 32, lane
@@ -22,10 +24,13 @@
 // A tile as operand. Rows x dims with the dims contiguous is "K-major"
 // when the dims are the reduction (S = Q K^T: Q and K; dP = dO V^T: dO
 // and V; dk/dv's S^T = K Q^T and dP^T = V dO^T likewise): descriptor
-// start + 32 bytes per k16 step, 1024 bytes between groups of 8 rows. The
+// start + 32 bytes per k16 step within an atom, the next atom after four
+// steps (D / 16 steps in all), 1024 bytes between groups of 8 rows. The
 // same tile is "MN-major" (transpose bit) when the rows are the reduction
-// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q): start + 2048 bytes
-// (16 rows) per k16 step, 1024 bytes between groups of 8 reduction rows.
+// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q): each atom is the B
+// operand of its own m64n64 product, its 64 dims the N columns of one
+// accumulator: start + 2048 bytes (16 rows) per k16 step, 1024 bytes
+// between groups of 8 reduction rows.
 
 #pragma once
 
@@ -37,9 +42,9 @@
 
 namespace cml_sm90 {
 
-constexpr int kD = 64;              // head dim: one 128-byte row
+constexpr int kAtomCols = 64;       // dims of one swizzle atom: one 128-byte bf16 row
 constexpr int kTileRows = 64;       // rows of a staged tile and of a warpgroup's block
-constexpr int kTileBytes = kTileRows * kD * 2;
+constexpr int kTileBytes = kTileRows * kAtomCols * 2;  // one atom of a tile, 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -129,7 +134,7 @@ __device__ __forceinline__ uint32_t daz_bf16x2(uint32_t w) {
 // The reference's compiled program reads a subnormal operand as zero; the
 // tensor cores take a bf16 subnormal as it is. So every tile that TMA
 // stages for a product is flushed once, after its barrier and before its
-// first wgmma: `n_tiles` consecutive 8 KB tiles at `tiles`, element-wise
+// first wgmma: `n_tiles` consecutive 8 KB atoms at `tiles`, element-wise
 // over 16-byte chunks (the swizzle only permutes chunks), each of the
 // block's 128 threads taking every 128th chunk and writing back only a
 // chunk that changed. The generic-proxy writes are then fenced for the
@@ -191,15 +196,22 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       : "memory");
 }
 
-// one box of the 4-D map (D, H, S, B) at (0, h, row, b) into shared memory;
-// completion (bytes) is reported to `bar`
+// one box of the 4-D map (D, H, S, B) at (col, h, row, b) into shared
+// memory: one atom; completion (bytes) is reported to `bar`
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int h, int row, int b) {
+                                              int h, int row, int b, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(h), "r"(row), "r"(b), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(h), "r"(row), "r"(b), "r"(bar)
       : "memory");
+}
+
+// the whole tile of rows [row, row + 64) of head h, batch b: its `atoms`
+// atoms, one box each, back to back from `dst` (atoms * kTileBytes bytes)
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int h, int row, int b, int atoms) {
+  for (int a = 0; a < atoms; ++a) tma_load_rows(dst + a * kTileBytes, map, bar, h, row, b, a * kAtomCols);
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -226,11 +238,12 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
-// k16 step `k` of a tile whose dims are the reduction
+// k16 step `k` of a tile whose dims are the reduction: dims [16k, 16k + 16),
+// in atom k / 4
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int k) {
-  return smem_desc(tile + 32 * k, 16, 1024);
+  return smem_desc(tile + (k / 4) * kTileBytes + 32 * (k % 4), 16, 1024);
 }
-// k16 step `k` of a tile whose rows are the reduction
+// k16 step `k` of an atom whose rows are the reduction
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int k) {
   return smem_desc(tile + 2048 * k, kTileBytes, 1024);
 }
@@ -291,9 +304,9 @@ __device__ __forceinline__ void split_hi_lo(const float (&x)[32], uint32_t (&hi)
 }
 
 // Write a warpgroup's 64 x 64 f32 accumulator tile, times mul[i] for its
-// row half i, as bf16 rows [0, n_rows) of one head of a (B, S, H, 64)
-// tensor starting at `dst` (row stride `row_stride` elements), staging it
-// in the 8 KB shared tile `stage` (swizzled: conflict-free writes) so
+// row half i, as bf16 rows [0, n_rows) of 64 dims of one head of a (B, S,
+// H, D) tensor starting at `dst` (row stride `row_stride` elements),
+// staging it in the 8 KB shared atom `stage` (swizzled: conflict-free writes) so
 // that each thread stores whole 16-byte chunks. The caller's barrier
 // `bar_id` syncs the warpgroup's 128 threads.
 __device__ __forceinline__ void store_tile_bf16(const float (&d)[32], const float (&mul)[2],
@@ -342,18 +355,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map over a contiguous (B, S, H, 64) bf16 tensor as the 4-D box grid
-// (D, H, S, B), box (64, 1, box_rows, 1), 128-byte swizzle, zero fill
-// past the edges. Returns 0, or a CUDA runtime error code.
-inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int box_rows) {
+// A map over a contiguous (B, S, H, D) bf16 tensor as the 4-D box grid
+// (D, H, S, B), box (64, 1, box_rows, 1): one atom, 128-byte swizzle,
+// zero fill past the edges. Returns 0, or a CUDA runtime error code.
+inline int encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int D, int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(H),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kD) * 2,
-                                 static_cast<cuuint64_t>(H) * kD * 2,
-                                 static_cast<cuuint64_t>(S) * H * kD * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(S) * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kAtomCols), 1, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                          strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,

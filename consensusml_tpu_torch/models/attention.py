@@ -21,6 +21,8 @@ __all__ = [
     "cached_attention",
     "paged_update_kv_cache",
     "gather_paged_kv",
+    "rope_frequencies",
+    "apply_rope",
 ]
 
 _NEG_INF = -1e30
@@ -216,3 +218,36 @@ def cached_attention(
     kv_mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
     return dot_product_attention(q, k_cache, v_cache, kv_mask=kv_mask, dtype=dtype, impl="dense")
 
+
+
+def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    """The RoPE cos/sin table ``(max_len, head_dim // 2, 2)`` in f32, as the
+    reference computes it: ``inv = 1 / theta ** (arange(0, D, 2) / D)``,
+    angles ``t * inv``, then ``[cos, sin]`` on the last axis."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    freqs = torch.outer(torch.arange(max_len, dtype=torch.float32, device=device), inv)
+    return torch.stack([torch.cos(freqs), torch.sin(freqs)], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, table: torch.Tensor, positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotary position embedding of ``x`` ``(B, S, H, D)`` (the reference's
+    ``apply_rope``): each pair ``(x[2i], x[2i+1])`` rotated by row ``s`` of
+    ``table`` (:func:`rope_frequencies`), or, with ``positions`` ``(S,)`` or
+    ``(B, S)``, by row ``min(position, max_len - 1)`` (the reference clamps
+    the lookup: a position past the table reads its last row, not junk),
+    in f32, cast back to ``x``'s dtype."""
+    b, s, h, d = x.shape
+    if positions is None:
+        cs = table[:s]  # (S, D/2, 2)
+    else:
+        cs = table[torch.clamp(positions, max=table.shape[0] - 1)]  # (S|B, S, D/2, 2)
+    cos, sin = cs[..., 0], cs[..., 1]
+    if cos.dim() == 2:  # (S, D/2): broadcast over batch and heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:  # (B, S, D/2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    xf = x.float().reshape(b, s, h, d // 2, 2)
+    x1, x2 = xf[..., 0], xf[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).reshape(b, s, h, d)
+    return out.to(x.dtype)

@@ -17,7 +17,9 @@ Each kernel has a no-mask form and a ``kv_mask`` form (the per-key
 padding mask, BERT's ``attention_mask``: one f32 row a batch, shared by
 the heads), chosen by whether the caller passes a mask; a row that
 attends to no key gets what the reference's kernel gives it
-(:func:`flash_attention_plain`).
+(:func:`flash_attention_plain`). Each form takes head dim 64 (GPT-2's,
+BERT's) or 128 (Llama-2-7B's); the reference takes any, and the
+wrappers refuse any other (``NotImplementedError``).
 
 The three kernels are bound by operations: they run every product on
 Hopper's tensor cores (``wgmma``, operands staged by TMA,
@@ -56,7 +58,7 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-_KERNEL_HEAD_DIM = 64
+_KERNEL_HEAD_DIMS = (64, 128)
 # the reference kernel's key and query block (_BK = _BQ = 512): the keys a
 # row visits, and so what a row that attends to nothing gets, depend on it
 _REF_BLOCK = 512
@@ -163,8 +165,8 @@ def _bwd_lib(name: str, n_out: int):
 
 def _check_kernel_operands(q, tensors, align: int) -> None:
     b, s, h, d = q.shape
-    if d != _KERNEL_HEAD_DIM:
-        raise NotImplementedError(f"the CUDA flash kernels take head dim 64, got {d}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise NotImplementedError(f"the CUDA flash kernels take head dim 64 or 128, got {d}")
     if b * h > 65535:
         raise ValueError(f"batch * heads = {b * h} exceeds the grid's y limit 65535")
     for name, t in tensors:
@@ -197,10 +199,11 @@ def _mask_ptr(kv_mask):
 
 def _forward(q, k, v, causal: bool, return_lse: bool, kv_mask=None):
     """The forward kernel: ``(out (B, S, H, D) bf16, lse (B, H, S) f32 or
-    None)`` (operands bf16, contiguous, 16-byte aligned, head dim 64;
-    ``kv_mask`` None or (B, S) f32, >0 = attend). Each launch adds one to
-    ``flash_attention.launches``, and a masked one also to
-    ``flash_attention.masked_launches``."""
+    None)`` (operands bf16, contiguous, 16-byte aligned, head dim 64 or
+    128; ``kv_mask`` None or (B, S) f32, >0 = attend). Each launch adds one
+    to ``flash_attention.launches``, a masked one also to
+    ``flash_attention.masked_launches`` and one at head dim 128 to
+    ``flash_attention.d128_launches``."""
     _check_self_attention(q, k, v)
     _check_kernel_operands(q, (("q", q), ("k", k), ("v", v)), 16)
     _check_kv_mask(q, kv_mask)
@@ -217,6 +220,7 @@ def _forward(q, k, v, causal: bool, return_lse: bool, kv_mask=None):
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.masked_launches += kv_mask is not None
+    flash_attention.d128_launches += d == 128
     return out, lse
 
 
@@ -271,10 +275,12 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = False, 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False, kv_mask=None):
     """dq through ``csrc/flash_attention_bwd.cu`` for CUDA tensors (bf16,
-    contiguous, 16-byte aligned, head dim 64; ``lse``/``delta`` (B, H, S)
-    f32; ``kv_mask`` None or (B, S) f32), the plain version for CPU
-    tensors. Each launch adds one to ``flash_attention_bwd_dq.launches``,
-    a masked one also to ``flash_attention_bwd_dq.masked_launches``."""
+    contiguous, 16-byte aligned, head dim 64 or 128; ``lse``/``delta``
+    (B, H, S) f32; ``kv_mask`` None or (B, S) f32), the plain version for
+    CPU tensors. Each launch adds one to
+    ``flash_attention_bwd_dq.launches``, a masked one also to
+    ``flash_attention_bwd_dq.masked_launches``, one at head dim 128 to
+    ``flash_attention_bwd_dq.d128_launches``."""
     if not q.is_cuda:
         return _bwd_plain_parts(q, k, v, dout, lse, delta, causal, kv_mask)[0]
     ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
@@ -292,6 +298,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False, k
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA error {rc}")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.masked_launches += kv_mask is not None
+    flash_attention_bwd_dq.d128_launches += d == 128
     return dq
 
 
@@ -300,7 +307,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False, 
     tensors, the plain version for CPU tensors (same operand rules as
     :func:`flash_attention_bwd_dq`). Each launch adds one to
     ``flash_attention_bwd_dkv.launches``, a masked one also to
-    ``flash_attention_bwd_dkv.masked_launches``."""
+    ``flash_attention_bwd_dkv.masked_launches``, one at head dim 128 to
+    ``flash_attention_bwd_dkv.d128_launches``."""
     if not q.is_cuda:
         return _bwd_plain_parts(q, k, v, dout, lse, delta, causal, kv_mask)[1:]
     ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
@@ -318,6 +326,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False, 
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA error {rc}")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.masked_launches += kv_mask is not None
+    flash_attention_bwd_dkv.d128_launches += d == 128
     return dk, dv
 
 
@@ -378,7 +387,7 @@ def flash_attention(
     ``use_kernel=False`` (the plain tier: the forward and, under autograd,
     the reference's backward in plain ops). A CUDA tensor launches
     ``csrc/flash_attention_fwd.cu`` on the current stream (bf16,
-    contiguous, 16-byte aligned, head dim 64) and, when autograd records
+    contiguous, 16-byte aligned, head dim 64 or 128) and, when autograd records
     the call, the backward kernels of ``csrc/flash_attention_bwd.cu``.
     ``kv_mask`` (the per-key padding mask, BERT's ``attention_mask``) goes
     to every kernel as one f32 row a batch, shared by the heads; a row
@@ -406,7 +415,11 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
-# the masked form's launches (kv_mask given), counted besides
+# the masked form's launches (kv_mask given) and the head-dim-128 form's,
+# counted besides
 flash_attention.masked_launches = 0
 flash_attention_bwd_dq.masked_launches = 0
 flash_attention_bwd_dkv.masked_launches = 0
+flash_attention.d128_launches = 0
+flash_attention_bwd_dq.d128_launches = 0
+flash_attention_bwd_dkv.d128_launches = 0

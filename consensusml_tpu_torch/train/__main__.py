@@ -12,7 +12,10 @@ kernels), ``cifar_resnet50``
 (exact gossip; ``--norm-impl pallas`` runs every BN through the fused-BN
 CUDA kernels), ``mnist_mlp`` (the 2-layer MLP, dense exact gossip) and
 ``bert_mlm`` (BERT masked-LM, 8 local Adam steps a round, exact ring
-gossip; ``--eval-batches`` scores the masked positions' accuracy and nll).
+gossip; ``--eval-batches`` scores the masked positions' accuracy and nll)
+and ``llama_lora`` (a LoRA fine-tune of Llama, Llama-2-7B at full scale:
+the base held once and frozen, the adapters trained by Adam and gossiped
+exactly on a torus, alone on the wire).
 ``--topology NAME[:k=v,...]`` swaps any config's gossip graph (ring,
 torus, dense, exp, onepeer-exp, hierarchical:slices=S,outer_every=K);
 ``--eval-batches N`` scores N held-out batches after the last round, for
@@ -29,6 +32,8 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
     python -m consensusml_tpu_torch.train --config mnist_mlp --topology onepeer-exp --eval-batches 8
     python -m consensusml_tpu_torch.train --config bert_mlm --device cpu --rounds 3 --eval-batches 2
     python -m consensusml_tpu_torch.train --config bert_mlm --scale full --rounds 3 --eval-batches 8
+    python -m consensusml_tpu_torch.train --config llama_lora --device cpu --rounds 3 --eval-batches 2
+    python -m consensusml_tpu_torch.train --config llama_lora --scale full --rounds 3 --eval-batches 1
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale smoke --device cpu --backend collective \
         --dist-backend gloo --workers 4 --rounds 2
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
@@ -53,7 +58,8 @@ import time
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m consensusml_tpu_torch.train", description=__doc__.split("\n")[0])
-    p.add_argument("--config", default="gpt2_topk", choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm"])
+    p.add_argument("--config", default="gpt2_topk",
+                   choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora"])
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
     p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
     p.add_argument("--rounds", type=int, default=3)
@@ -95,7 +101,8 @@ def _describe(bundle, engine, config: str) -> None:
     else:
         print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
     if bundle.norm_path:
-        print(f"{'BN' if config == 'cifar_resnet50' else 'LN'}: {bundle.norm_path}", flush=True)
+        label = {"cifar_resnet50": "BN", "llama_lora": "norm"}.get(config, "LN")
+        print(f"{label}: {bundle.norm_path}", flush=True)
 
 
 def _main_collective(args) -> int:
@@ -149,13 +156,16 @@ def main(argv=None) -> int:
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     params, model_state = configs.init_on_device(bundle, args.seed, dev)
-    state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state)
+    frozen = configs.frozen_on_device(bundle, dev)
+    state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state,
+                               frozen=frozen)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
     gossiped = {"params": state.params, "model_state": state.model_state}
     topo = engine.topology
     period = f", period {topo.period}" if topo.is_time_varying else ""
+    shared = f" + {sum(t.numel() for t in frozen.values())} frozen, held once" if frozen else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} workers on {dev}, "
-          f"{sum(p[0].numel() for p in params.values())} params per worker, "
+          f"{sum(p[0].numel() for p in params.values())} params per worker{shared}, "
           f"{engine.bucket_plan(gossiped, stacked=True).num_buckets} buckets, topology {topo.name}{period}",
           flush=True)
     for r, batch in enumerate(bundle.batches(args.rounds, args.seed)):

@@ -76,7 +76,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     parameters as numpy; ``spec["check"]`` (``{"seed", "step", "leaves"}``)
     adds one gossip round on seeded inputs after training
     (:func:`~consensusml_tpu_torch.comm.check.seeded_gossip_round`)."""
-    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.comm.mesh import WorkerMesh, rank_device
     from consensusml_tpu_torch.train.local_sgd import init_state, make_collective_train_step, rank_batch
     from consensusml_tpu_torch.utils import tree as T
@@ -94,7 +94,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     params, model_state = bundle.convert(init)
     params = {n: t[0].to(device) for n, t in params.items()}
     model_state = T.tree_map(lambda t: t[0].to(device), model_state)
-    state = init_state(bundle.cfg, params, rank, seed=spec["seed"], model_state=model_state)
+    frozen = configs.frozen_on_device(bundle, device)
+    state = init_state(bundle.cfg, params, rank, seed=spec["seed"], model_state=model_state, frozen=frozen)
     step = make_collective_train_step(bundle.cfg, bundle.loss_fn, mesh)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)

@@ -50,12 +50,14 @@ def classification_eval_fn(model, *, train_kwarg: bool = False) -> EvalFn:
     return eval_fn
 
 
-def causal_lm_eval_fn(model) -> EvalFn:
-    """Next-token NLL sums for a causal LM (GPT-2), dropout off."""
+def causal_lm_eval_fn(model, *, deterministic_kwarg: bool = True) -> EvalFn:
+    """Next-token NLL sums for a causal LM, dropout off: GPT-2 takes
+    ``deterministic=True``; ``deterministic_kwarg=False`` passes nothing,
+    for a model without dropout (Llama), as the reference's flag does."""
 
     def eval_fn(params, model_state, batch):
         ids = batch["input_ids"]
-        logits = functional_call(model, params, (ids,), {"deterministic": True})
+        logits = functional_call(model, params, (ids,), {"deterministic": True} if deterministic_kwarg else {})
         logits = logits[:, :-1].to(torch.float32)
         nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), ids[:, 1:].reshape(-1).long(),
                               reduction="none")
@@ -88,22 +90,25 @@ def mlm_eval_fn(model) -> EvalFn:
     return eval_fn
 
 
-def make_stacked_eval_step(eval_fn: EvalFn):
+def make_stacked_eval_step(eval_fn: EvalFn, frozen: dict | None = None):
     """``step(params, model_state, batch) -> (per_worker, mean_model)``:
     every replica of the stacked ``params``/``model_state`` (leading worker
     axis) and the worker-mean model (:func:`..utils.tree.consensus_mean`)
     score the same unstacked ``batch``; ``per_worker`` leaves carry the
-    ``(W,)`` axis. Workers run one at a time (the reference vmaps)."""
+    ``(W,)`` axis. Workers run one at a time (the reference vmaps). The
+    ``frozen`` leaves (a LoRA run's shared base, held once) join every
+    model's parameters as they are: the mean of W identical rows."""
+    frozen = {} if frozen is None else frozen
 
     @torch.no_grad()
     def step(params, model_state, batch):
         world = next(iter(params.values())).shape[0]
         per = [
-            eval_fn({n: p[w] for n, p in params.items()}, _worker(model_state, w), batch)
+            eval_fn({**frozen, **{n: p[w] for n, p in params.items()}}, _worker(model_state, w), batch)
             for w in range(world)
         ]
         per = {k: torch.stack([p[k] for p in per]) for k in per[0]}
-        mean = eval_fn(consensus_mean(params), consensus_mean(model_state), batch)
+        mean = eval_fn({**frozen, **consensus_mean(params)}, consensus_mean(model_state), batch)
         return per, mean
 
     return step
@@ -134,12 +139,13 @@ def _derive(sums: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def evaluate(eval_fn: EvalFn, state, batches: Iterable[dict]) -> dict[str, Any]:
     """Accumulate eval sums over ``batches`` (moved to the state's device)
-    for the stacked train ``state`` and derive the metrics::
+    for the stacked train ``state`` (its frozen base, if any, read once)
+    and derive the metrics::
 
         {"mean_model": {"top1": ..}, "per_worker": {"top1": array (W,)},
          "worker_mean": {"top1": ..}}   # scalar mean over workers
     """
-    step = make_stacked_eval_step(eval_fn)
+    step = make_stacked_eval_step(eval_fn, getattr(state, "frozen", None))
     device = next(iter(state.params.values())).device
     tot_per = tot_mean = None
     for batch in batches:

@@ -23,6 +23,20 @@ optimizer state and counters are updated in place; the gossip round
 returns new parameter and model-state tensors (views of its bucket
 buffers).
 
+A frozen base (a LoRA run's: ``llama_lora``) is held ONCE, unstacked,
+in ``TrainState.frozen``: leaves that are not trained, not gossiped and
+the same on every worker. Every worker's loss reads them beside its own
+stacked leaves (``{**frozen, **worker_params}``), no gradient is taken
+of them, and nothing stacks them: the gossip round and the consensus
+error see the stacked tree only (a frozen leaf's term in the reference's
+consensus error is W identical rows, zero up to the rounding of their
+mean). A worker step takes gradients only of the leaves its optimizer
+trains (``optimizer.trains(name)``), and with ``LocalSGDConfig.micro_batch``
+splits its batch into micro-batches: the step's gradient is the sum of
+theirs, each weighted by its share of the loss's divisor
+(``loss_fn.count``), then one optimizer step, the reference's one-batch
+gradient in another rounding order.
+
 The collective backend (:func:`make_collective_train_step`) runs ONE
 worker per process: :func:`init_state` holds that worker's tensors as a
 stack of one (so :func:`worker_step` and the optimizers run unchanged),
@@ -46,7 +60,7 @@ from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
     "LocalSGDConfig", "TrainState", "init_stacked_state", "init_state", "worker_generator", "rank_batch",
-    "make_simulated_train_step", "make_collective_train_step",
+    "worker_grads", "make_simulated_train_step", "make_collective_train_step",
 ]
 
 LossFn = Callable[[dict, Any, dict, torch.Generator], tuple[torch.Tensor, Any]]
@@ -60,6 +74,7 @@ class TrainState:
     opt_state: Any  # the optimizer's, stacked (AdamState, SGDState)
     gossip: ChocoState | None
     generators: list[torch.Generator]  # per-worker dropout streams
+    frozen: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # shared, unstacked, never trained
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,12 +82,17 @@ class LocalSGDConfig:
     """One decentralized round = H local steps + one gossip round."""
 
     gossip: GossipConfig
-    optimizer: Any  # init(params, world_size) and update_(params, grads, state, worker)
+    optimizer: Any  # init(params, world_size), update_(params, grads, state, worker), trains(name)
     h: int = 1
+    # rows of a worker's batch that one forward and backward take at once
+    # (0: the whole batch); the step's gradient is still the whole batch's
+    micro_batch: int = 0
 
     def __post_init__(self):
         if self.h < 1:
             raise ValueError(f"h must be >= 1, got {self.h}")
+        if self.micro_batch < 0:
+            raise ValueError(f"micro_batch must be >= 0, got {self.micro_batch}")
 
     def engine(self) -> ConsensusEngine:
         return ConsensusEngine(self.gossip)
@@ -84,13 +104,24 @@ def _gossiped(params: dict, model_state: dict) -> dict:
     return {"params": params, "model_state": model_state}
 
 
+def _check_frozen(params: dict, frozen: dict | None) -> dict:
+    frozen = {} if frozen is None else frozen
+    both = sorted(set(params) & set(frozen))
+    if both:
+        raise ValueError(f"leaves both stacked and frozen: {both[:4]}")
+    return frozen
+
+
 def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], world_size: int,
-                       seed: int = 0, model_state: dict | None = None) -> TrainState:
+                       seed: int = 0, model_state: dict | None = None,
+                       frozen: dict[str, torch.Tensor] | None = None) -> TrainState:
     """State from stacked ``(W, ...)`` initial parameters and model state
     (each worker its own replica, as decentralized training starts from
-    disagreeing ones). Worker ``r``'s dropout generator is seeded ``seed *
-    1000003 + r``."""
+    disagreeing ones) and, with ``frozen``, the shared base every worker's
+    loss reads, held once as given (any dtype, no worker axis). Worker
+    ``r``'s dropout generator is seeded ``seed * 1000003 + r``."""
     model_state = {} if model_state is None else model_state
+    frozen = _check_frozen(params, frozen)
     for path, p in [((n,), p) for n, p in params.items()] + T.flatten_with_paths(model_state):
         if p.shape[0] != world_size or p.dtype != torch.float32:
             raise ValueError(
@@ -105,6 +136,7 @@ def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], wor
         opt_state=cfg.optimizer.init(params, world_size),
         gossip=cfg.engine().init_state(_gossiped(params, model_state), world_size=world_size),
         generators=gens,
+        frozen=frozen,
     )
 
 
@@ -115,12 +147,14 @@ def worker_generator(device, seed: int, rank: int) -> torch.Generator:
 
 
 def init_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], rank: int, seed: int = 0,
-               model_state: dict | None = None) -> TrainState:
+               model_state: dict | None = None, frozen: dict[str, torch.Tensor] | None = None) -> TrainState:
     """One worker's state for the collective backend, from its own f32
     ``params`` and ``model_state`` (per-worker shapes, no worker axis):
     held as a stack of one, with per-worker CHOCO state and the dropout
-    generator of the simulated backend's worker ``rank``."""
+    generator of the simulated backend's worker ``rank``; ``frozen`` as
+    :func:`init_stacked_state`'s."""
     model_state = {} if model_state is None else model_state
+    frozen = _check_frozen(params, frozen)
     one = lambda t: t.unsqueeze(0)  # noqa: E731
     params = {n: one(p) for n, p in params.items()}
     model_state = T.tree_map(one, model_state)
@@ -135,6 +169,7 @@ def init_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], rank: int, 
         opt_state=cfg.optimizer.init(params, 1),
         gossip=cfg.engine().init_state(_gossiped(*_row(params, model_state))),
         generators=[worker_generator(device, seed, rank)],
+        frozen=frozen,
     )
 
 
@@ -150,26 +185,59 @@ def rank_batch(batch: dict, rank: int) -> dict:
     return {k: v[rank: rank + 1] for k, v in batch.items()}
 
 
-def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
-                batch: dict) -> torch.Tensor:
-    """One local optimizer step of one worker on one microbatch, in place:
-    the loss's new model state is written over the worker's, then the
-    optimizer steps. Returns the loss (a 0-dim tensor on the device)."""
+def worker_grads(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int, batch: dict):
+    """One worker's loss and gradients on one batch, nothing updated:
+    ``(loss, {name: grad}, new_model_state)`` with a gradient for each
+    leaf the optimizer trains (the others, and the frozen base, get none).
+    With ``cfg.micro_batch`` smaller than the batch, the gradient is summed
+    over micro-batches of that many rows, each weighted by
+    ``loss_fn.count(micro) / max(loss_fn.count(batch), 1)``, and so is the
+    loss: the whole batch's, in another rounding order."""
     views = {n: p[worker] for n, p in state.params.items()}
-    leaves = {n: v.detach().requires_grad_(True) for n, v in views.items()}
+    trained = [n for n in views if cfg.optimizer.trains(n)]
+    leaves = {n: v.detach().requires_grad_(n in trained) for n, v in views.items()}
     ms_leaves, ms_spec = T.flatten(state.model_state)
     model_state = T.unflatten(ms_spec, [x[worker] for x in ms_leaves])
-    loss, new_state = loss_fn(leaves, model_state, batch, state.generators[worker])
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    del leaves
+    tensors = {**state.frozen, **leaves}
+    wrt = [leaves[n] for n in trained]
+    gen = state.generators[worker]
+    rows = next(iter(batch.values())).shape[0]
+    if not 0 < cfg.micro_batch < rows:
+        loss, new_state = loss_fn(tensors, model_state, batch, gen)
+        return loss.detach(), dict(zip(trained, torch.autograd.grad(loss, wrt))), new_state
+    count = getattr(loss_fn, "count", None)
+    if count is None or ms_leaves:
+        raise ValueError("micro-batches need a loss with a count (its divisor) and no model state")
+    total = torch.clamp(count(batch), min=1.0)
+    grads = loss = None
+    for lo in range(0, rows, cfg.micro_batch):
+        part = {k: v[lo: lo + cfg.micro_batch] for k, v in batch.items()}
+        part_loss, new_state = loss_fn(tensors, model_state, part, gen)
+        weighted = part_loss * (count(part) / total)
+        part_grads = torch.autograd.grad(weighted, wrt)
+        grads = list(part_grads) if grads is None else [g + q for g, q in zip(grads, part_grads)]
+        loss = weighted.detach() if loss is None else loss + weighted.detach()
+        del part_loss, weighted, part_grads
+    return loss, dict(zip(trained, grads)), new_state
+
+
+def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
+                batch: dict) -> torch.Tensor:
+    """One local optimizer step of one worker on one batch, in place
+    (:func:`worker_grads`): the loss's new model state is written over the
+    worker's, then the optimizer steps. Returns the loss (a 0-dim tensor
+    on the device)."""
+    loss, grads, new_state = worker_grads(cfg, loss_fn, state, worker, batch)
+    ms_leaves, ms_spec = T.flatten(state.model_state)
     new_leaves, new_spec = T.flatten(new_state)
     if new_spec != ms_spec:
         raise ValueError("loss_fn returned a model_state of another structure than it was given")
     with torch.no_grad():
         for dst, src in zip(ms_leaves, new_leaves):
             dst[worker].copy_(src)
-    cfg.optimizer.update_(views, dict(zip(views, grads)), state.opt_state, worker)
-    return loss.detach()
+    views = {n: p[worker] for n, p in state.params.items()}
+    cfg.optimizer.update_(views, grads, state.opt_state, worker)
+    return loss
 
 
 def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):

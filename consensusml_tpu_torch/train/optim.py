@@ -20,18 +20,24 @@ with the bias corrections computed in float32 from the integer count.
     p = p + (-lr) * t
 
 State is stacked over workers (leading axis). Every optimizer has
-``init(params, world_size)`` and ``update_(params, grads, state,
-worker)``, which updates one worker's views in place.
+``init(params, world_size)``, ``update_(params, grads, state, worker)``,
+which updates one worker's views in place, and ``trains(name)``, whether
+it updates the leaf ``name`` at all (a trainer takes gradients only of
+those). :func:`lora_optimizer` is the reference's ``lora_optimizer``
+(``optax.multi_transform`` of an inner optimizer on the adapters and
+``set_to_zero`` on the rest): the inner optimizer's state and updates
+cover the adapter leaves only, and a frozen leaf is never written.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 
-__all__ = ["Adam", "AdamState", "adam", "SGD", "SGDState", "sgd"]
+__all__ = ["Adam", "AdamState", "adam", "SGD", "SGDState", "sgd", "LoRAOptimizer", "lora_optimizer"]
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -56,6 +62,9 @@ class Adam:
             mu={n: torch.zeros_like(p) for n, p in params.items()},
             nu={n: torch.zeros_like(p) for n, p in params.items()},
         )
+
+    def trains(self, name: str) -> bool:
+        return True
 
     def _correction(self, decay: float, count: int, device) -> torch.Tensor:
         # optax: 1 - decay**count in float32, divided by as a tensor (a
@@ -102,6 +111,9 @@ class SGD:
     def init(self, params: dict[str, torch.Tensor], world_size: int) -> SGDState:
         return SGDState(trace={n: torch.zeros_like(p) for n, p in params.items()})
 
+    def trains(self, name: str) -> bool:
+        return True
+
     @torch.no_grad()
     def update_(self, params: dict, grads: dict, state: SGDState, worker: int) -> None:
         """One step of worker ``worker`` on its (views of the stacked)
@@ -118,3 +130,37 @@ class SGD:
 def sgd(lr: float, momentum: float) -> SGD:
     """``optax.sgd(lr, momentum)`` (no Nesterov)."""
     return SGD(lr=lr, momentum=momentum)
+
+
+@dataclasses.dataclass(frozen=True)
+class LoRAOptimizer:
+    """``inner`` on the LoRA adapter leaves, nothing on the rest (the
+    reference's ``multi_transform({"lora": inner, "frozen":
+    set_to_zero()})``: a zero update leaves a frozen leaf's value as it
+    is, so here it is not written at all). ``init`` and ``update_`` take
+    the whole parameter dict, frozen leaves included or not; ``grads``
+    need hold only the adapters."""
+
+    inner: Any
+
+    @property
+    def lr(self) -> float:
+        return self.inner.lr
+
+    def trains(self, name: str) -> bool:
+        from consensusml_tpu_torch.models.lora import is_lora_path
+
+        return is_lora_path((name,))
+
+    def init(self, params: dict[str, torch.Tensor], world_size: int):
+        return self.inner.init({n: p for n, p in params.items() if self.trains(n)}, world_size)
+
+    def update_(self, params: dict, grads: dict, state, worker: int) -> None:
+        names = [n for n in params if self.trains(n)]
+        self.inner.update_({n: params[n] for n in names}, {n: grads[n] for n in names}, state, worker)
+
+
+def lora_optimizer(inner) -> LoRAOptimizer:
+    """The reference's ``lora_optimizer(inner)``: ``inner`` updates only the
+    adapter leaves; the base stays frozen."""
+    return LoRAOptimizer(inner)

@@ -237,10 +237,12 @@ def test_exact_mixing_round_bit_equal():
 
 def test_unported_options_refuse():
     topo = RingTopology(WORLD)
-    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True},
-                   {"bucket_bytes": None}, {"path_filter": lambda p: True}):
+    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"bucket_bytes": None}):
         with pytest.raises(NotImplementedError):
             GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), **kwargs)
+    # path_filter is ported, with CHOCO on the selected leaves as the
+    # reference's (tests/test_torch_llama.py holds its rounds)
+    GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), path_filter=lambda p: True)
     # the two-step wire is ported; the fused one needs a codec that fuses,
     # and global top-k needs the per-leaf wire
     assert not ConsensusEngine(GossipConfig(

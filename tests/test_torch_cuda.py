@@ -169,12 +169,12 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
 FLASH_CASES = [(s, causal) for s in (1, 63, 64, 65, 127, 200, 600, 1000, 1024) for causal in (True, False)]
 
 
-def _flash_case(dev, s, q_scale, b=2, h=3):
-    """q, k, v, do of shape (b, s, h, 64) bf16; q times ``q_scale`` (x4
+def _flash_case(dev, s, q_scale, b=2, h=3, d=64):
+    """q, k, v, do of shape (b, s, h, d) bf16; q times ``q_scale`` (x4
     sharpens the softmax rows, so the running max moves between key tiles
     and the rescale is exercised). b > 0 exercises the batch row offsets."""
     gen = torch.Generator(device=dev).manual_seed(s + int(q_scale))
-    q, k, v, do = (torch.randn(b, s, h, 64, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
     return (q.float() * q_scale).to(torch.bfloat16), k, v, do
 
 
@@ -377,6 +377,71 @@ def test_flash_kernels_with_kv_mask_match_plain(dev, s, causal):
     assert not dq[2].any() and not want[0][2].any()
     for name, got, plain in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
         torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=name)
+
+
+D128_CASES = [(s, causal, masked) for s in (1, 63, 65, 200, 600, 1024) for causal in (True, False)
+              for masked in (False, True)]
+
+
+@pytest.mark.parametrize("s,causal,masked", D128_CASES)
+def test_flash_kernels_head_dim_128_match_plain(dev, s, causal, masked):
+    """The head-dim-128 form of the forward, dq and dk/dv kernels (two 64-dim
+    atoms a tile; dk/dv one block a half) against their plain versions at
+    the head-dim-64 gates (forward atol 1e-4, rtol 2**-6, lse 1e-5;
+    backward atol 3e-3, rtol 2**-6), the backward fed the plain forward's
+    lse and delta: partial and full tiles, ragged S, causal, without and
+    with a ``kv_mask`` (a row with every key masked among them), q x1 and
+    x4. Each launch counts once in ``launches`` and once in
+    ``d128_launches``."""
+    for q_scale in (1.0, 4.0):
+        q, k, v, do = _flash_case(dev, s, q_scale, b=4, d=128)
+        kv_mask = _kv_mask(dev, s, causal) if masked else None
+        fns = (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)
+        before = [(f.launches, f.d128_launches) for f in fns]
+        out, lse = tfa.flash_attention(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=causal, kv_mask=kv_mask, return_lse=True)
+        delta = tfa._delta(ref, do)
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, kv_mask=kv_mask)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, kv_mask=kv_mask)
+        want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, causal, kv_mask)
+        torch.cuda.synchronize()
+        assert [(f.launches, f.d128_launches) for f in fns] == [(n + 1, m + 1) for n, m in before]
+        msg = f"q x{q_scale}"
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4, msg=msg)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5, msg=msg)
+        for name, got, plain in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+            torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=f"{name}, {msg}")
+
+
+@pytest.mark.parametrize("probe", ["q", "do"])
+def test_flash_kernels_head_dim_128_read_subnormal_operands_as_zero(dev, probe):
+    """The subnormal-operand probe of the head-dim-64 test at head dim 128
+    (both atoms of every staged tile flushed), causal, S = 600."""
+    s = 600
+    gen = torch.Generator(device=dev).manual_seed(s)
+    rnd = lambda: torch.randn(1, s, 2, 128, generator=gen, device=dev)  # noqa: E731
+    sign = lambda: torch.where(rnd() >= 0, 1.0, -1.0)  # noqa: E731
+    q, k, v, do = (rnd().to(torch.bfloat16) for _ in range(4))
+    if probe == "q":
+        q, k = (sign() * 1e-39).to(torch.bfloat16), (sign() * 1e38).to(torch.bfloat16)
+    else:
+        do, v = (sign() * 1e-38).to(torch.bfloat16), (sign() * 2e36).to(torch.bfloat16)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    delta = tfa._delta(ref, do)
+    want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True)
+    got = {"dk": (dk, want[1]), "dv": (dv, want[2])}
+    if probe == "q":
+        out, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5)
+    else:
+        got["dq"] = (tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=True), want[0])
+        assert not any(w.any() for w in want), "the plain version reads the subnormal dO as 0"
+    torch.cuda.synchronize()
+    for name, (g, w) in got.items():
+        torch.testing.assert_close(g.float(), w.float(), rtol=2.0**-6, atol=3e-3, msg=name)
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -43,6 +43,21 @@ def test_plain_matches_jax_interpret(name, causal):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[name])
 
 
+@pytest.mark.parametrize("name,causal,s", [("f32", True, 600), ("bf16", True, 600), ("f32", False, 256)])
+def test_plain_matches_jax_interpret_at_head_dim_128(name, causal, s):
+    """``test_plain_matches_jax_interpret`` at head dim 128 (Llama-2-7B's,
+    the kernels' second form): the reference takes any head dim, and the
+    plain version, which the card holds the D=128 kernels to, computes
+    the same function at the same tolerances, S ragged (600) and whole
+    (256)."""
+    jdt, tdt = DT[name]
+    q, k, v = _qkv(seed=1, s=s, d=128)
+    want = jax_flash(*(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal, dtype=jdt, interpret=True)
+    got = tfa.flash_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), causal=causal, dtype=tdt)
+    assert got.shape == (1, s, 2, 128) and got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[name])
+
+
 def test_logsumexp_is_the_softmax_normalizer():
     q, k, v = (torch.from_numpy(x) for x in _qkv(seed=2, s=40))
     before = tfa.flash_attention.launches
@@ -83,6 +98,26 @@ def test_plain_backward_matches_jax_grad_of_interpret(name):
     tol = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2.0**-7, atol=2e-3)}[name]
     for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), **tol)
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+def test_plain_backward_matches_jax_grad_of_interpret_at_head_dim_128(name):
+    """``test_plain_backward_matches_jax_grad_of_interpret`` at head dim 128,
+    causal, S = 256, at its tolerances."""
+    jdt, tdt = DT[name]
+    q, k, v = _qkv(seed=4, s=256, d=128)
+    ct = np.random.default_rng(5).normal(size=q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, causal=True, dtype=jdt, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(ct))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
+    (tfa.flash_attention(tq, tk, tv, causal=True, dtype=tdt).float() * torch.from_numpy(ct)).sum().backward()
+    tol = {"f32": dict(rtol=2e-5, atol=2e-5), "bf16": dict(rtol=2.0**-7, atol=2e-3)}[name]
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(w, np.float32), **tol)
 
 
@@ -332,6 +367,24 @@ def test_kernel_rounding_meets_the_dkv_gate(s, causal, q_scale):
     want = tfa._bwd_plain_parts(q, k, v, do, lse, delta, causal)[1:]
     got = _emulate_dkv(q, k, v, do, lse, delta, causal)
     for name, g, w in zip(("dk", "dv"), got, want):
+        assert _worst(g, w, DQ_GATE) <= 1.0, name
+
+
+@pytest.mark.parametrize("s,causal", [(600, True), (256, False)])
+def test_kernel_rounding_meets_the_gates_at_head_dim_128(s, causal):
+    """The head-dim-128 forms round as the head-dim-64 ones (the same
+    walk; the reductions over D are twice as long, each product exact in
+    f32): the emulated forward, dq and dk/dv meet the card's gates
+    against the plain versions, q x4."""
+    q, k, v, do = _bf16_case(s, causal, 4.0, d=128)
+    want, want_lse = tfa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    got, lse = _emulate_fwd(q, k, v, causal)
+    assert _worst(got, want, FWD_GATE) <= 1.0
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL
+    delta = tfa._delta(want, do)
+    plain = tfa._bwd_plain_parts(q, k, v, do, want_lse, delta, causal)
+    assert _worst(_emulate_dq(q, k, v, do, want_lse, delta, causal), plain[0], DQ_GATE) <= 1.0
+    for name, g, w in zip(("dk", "dv"), _emulate_dkv(q, k, v, do, want_lse, delta, causal), plain[1:]):
         assert _worst(g, w, DQ_GATE) <= 1.0, name
 
 

@@ -526,6 +526,67 @@ def check_paged(torch, tpa, dev):
     return out
 
 
+# Llama-2-7B's decode shapes (llama_lora full, max_len 4096): 8 slots of
+# 256 16-token pages, one slot a length from 1 to all 4096 (so one slot's
+# cluster reads from all 16 blocks), W 1, 4 and 8, and a GQA case
+PAGED_LLAMA_LENGTHS = (4096, 1, 17, 2048, 3000, 100, 1234, 4000)
+PAGED_LLAMA_CASES = (("W=1", 1, 32), ("W=4", 4, 32), ("W=8", 8, 32), ("W=1 Hkv=8", 1, 8))
+
+
+def check_paged_llama(torch, tpa, dev):
+    """The paged kernel at Llama-2-7B's heads (32 query heads of dim 128:
+    H * D 4096, so a cluster a head group of 8) on 32 kv heads at W 1, 4
+    and 8, and on 8 (GQA rep 4, 2 kv heads a block) at W 1: 8 slots of
+    256 pages of 16 (4096 tokens), ``PAGED_LLAMA_LENGTHS``. Each case held
+    to ``paged_attention_plain`` at the paged gate, and timed as
+    :func:`check_paged` times GPT-2's, over four page sets (2.1 GB at 32
+    kv heads, above the 50 MB L2) so timed launches read K/V from device
+    memory; ``plan`` is the launch plan."""
+    s, h, d, bs, nb = 8, 32, 128, 16, 256
+    n = s * nb + 1
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lengths = torch.tensor(PAGED_LLAMA_LENGTHS, dtype=torch.int32, device=dev)
+    table = (torch.randperm(n - 1, generator=gen, device=dev)[: s * nb] + 1).view(s, nb).to(torch.int32).contiguous()
+    out = {}
+    for hkv in (32, 8):
+        sets = [tuple(torch.randn(n, bs, hkv, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+                for _ in range(4)]
+        for name, w, case_hkv in PAGED_LLAMA_CASES:
+            if case_hkv != hkv:
+                continue
+            pos = torch.clamp(lengths[:, None] - w + torch.arange(w, device=dev)[None, :], min=0)
+            pos = pos.to(torch.int32).contiguous()
+            q = torch.randn(s, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+            k, v = sets[0]
+            grouped = tpa.paged_attention.grouped_launches
+            got = tpa.paged_attention(q, k, v, table, pos)
+            want = tpa.paged_attention_plain(q, k, v, table, pos)
+            torch.cuda.synchronize()
+            if tpa.paged_attention.grouped_launches != grouped + 1:
+                raise AssertionError(f"paged_attention {name} at Llama's heads did not take head groups")
+            errs = tol_check(f"paged_attention Llama {name}", got, want, PAGED_ATOL, PAGED_RTOL)
+            keys = int(lengths.sum())  # keys each kv head must read once (union over W)
+            pairs = int((pos.long() + 1).sum())
+            nbytes = 2 * keys * hkv * d * 2 + 2 * q.numel() * 2 + table.numel() * 4 + pos.numel() * 4
+            bms, by = bound_ms(nbytes, 4 * pairs * h * d)
+            plan = tpa.paged_plan(nb, bs, hkv, d, w, h)
+            call = lambda i: tpa.paged_attention(q, *sets[i % 4], table, pos)  # noqa: E731
+            ms, enqueue_ms = queued_ms(torch, call, 100)
+            times = {
+                "ms": ms, "enqueue_ms": enqueue_ms,
+                "plain_ms": cuda_ms(torch, lambda i: tpa.paged_attention_plain(q, *sets[i % 4], table, pos), 10),
+                "profiler_ms": device_ms(torch, call, 100), "event_ms": cuda_ms(torch, call, 100),
+            }
+            out[name] = {
+                **errs, **times, "x_bound": ms / bms, "plan": plan._asdict(), "library_ms": None,
+                "bound_ms": bms, "bound_by": by, "shape": f"S={s} W={w} H={h} Hkv={hkv} D={d} bs={bs} nb={nb}",
+                "kv_bytes": 2 * keys * hkv * d * 2,
+            }
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_flash(torch, tfa, dev):
     """Prefill shapes: batch 1, 16 heads, head dim 64, causal; S = 600
     (a ragged real length) and 1024 (the bucket the engine pads to)."""
@@ -1299,26 +1360,27 @@ def gpt2_medium_flax_tree(cfg, seed: int) -> dict:
     return tree
 
 
-def stage_logits(torch, P, dm, impl, prompt, bs):
-    """One prefill of ``prompt`` (bucket 1024) through the ``impl`` tier's
-    stages on private pages (slot 0 owns blocks 1..nb). Returns the last
-    real token's logits, the pages, the block table and the tier's decode
-    stage, for one decode step on top."""
+def stage_logits(torch, P, dm, impl, prompt, bs, bucket=1024):
+    """One prefill of ``prompt`` (padded to ``bucket``) through the ``impl``
+    tier's stages on private pages (slot 0 owns blocks 1..nb). Returns the
+    last real token's logits, the pages, the block table and the tier's
+    decode stage, for one decode step on top."""
     dev = dm.device
     nb = dm.max_len // bs
     pages = P.init_pages(dm, nb + 1, bs)
     table = torch.zeros((8, nb), dtype=torch.int32, device=dev)
     table[0] = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
-    ids = torch.zeros((1, 1024), dtype=torch.int64, device=dev)
+    ids = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
     ids[0, : len(prompt)] = torch.tensor(prompt, device=dev)
     prefill = P.make_paged_prefill_fn(dm, attn_impl=impl)
     decode = P.make_paged_decode_fn(dm, attn_impl=impl)
-    _tok, last = prefill(pages, ids, len(prompt), table[0].long(), 0.0, 1.0, 0)
+    _tok, last = prefill(pages, ids, len(prompt), table[0, : bucket // bs].long(), 0.0, 1.0, 0)
     return last, pages, table, decode
 
 
 def profile_decode(torch, decode, pages, table, tokens, positions, samp, steps=10):
-    """Where one decode step's time goes (8 lanes, slot 0 at ~700 tokens):
+    """Where one decode step's time goes (8 lanes, slot 0 at its prompt's
+    length and one token more each step, ``3 * steps`` in all):
     host wall per step without the profiler, then the device time of the
     kernels a step launches under ``torch.profiler`` (CUPTI). ``None``
     where the profiler recorded no device time."""
@@ -1362,6 +1424,83 @@ def profile_decode(torch, decode, pages, table, tokens, positions, samp, steps=1
     }
 
 
+def tier_logits(torch, P, eng, prompt, bs, gate_argmax: bool):
+    """One prefill of ``prompt`` (its bucket) and one decode step on it
+    through the kernel tier's stages and the plain tier's, same weights,
+    private pages. Gates both logits finite, of the vocabulary's shape and
+    within ``LOGITS_REL_TOL`` of max|logit|, and, if ``gate_argmax``,
+    their argmax equal. Returns the checks and the kernel tier's pages,
+    table, decode stage and step inputs (for :func:`profile_decode`)."""
+    dm, dev = eng._dm, eng.device
+    bucket = eng._bucket(len(prompt))
+    with torch.inference_mode():
+        got_last, gpages, table, gdecode = stage_logits(torch, P, dm, "cuda", prompt, bs, bucket)
+        want_last, wpages, _, wdecode = stage_logits(torch, P, dm, "torch", prompt, bs, bucket)
+        tokens = torch.zeros(8, dtype=torch.int32, device=dev)
+        tokens[0] = int(want_last.argmax())
+        positions = torch.zeros(8, dtype=torch.int32, device=dev)
+        positions[0] = len(prompt)
+        samp = (torch.zeros(8, device=dev), torch.ones(8, device=dev), torch.zeros(8, dtype=torch.int64, device=dev))
+        _, got_dec = gdecode(gpages, table, tokens, positions, *samp)
+        _, want_dec = wdecode(wpages, table, tokens, positions, *samp)
+    torch.cuda.synchronize()
+    vocab = dm.vocab_size
+    checks = {}
+    for name, g, wnt in (("prefill", got_last, want_last), ("decode", got_dec[0], want_dec[0])):
+        if not (torch.isfinite(g).all() and g.shape == (vocab,)):
+            raise AssertionError(f"{name} logits not finite of shape ({vocab},)")
+        rel = ((g - wnt).abs().max() / wnt.abs().max()).item()
+        top2 = wnt.topk(2).values
+        checks[name] = {"max_rel_err": rel, "tol": LOGITS_REL_TOL, "argmax_equal": int(g.argmax()) == int(wnt.argmax()),
+                        "plain_top2_gap_rel": ((top2[0] - top2[1]) / wnt.abs().max()).item()}
+        if not rel <= LOGITS_REL_TOL:
+            raise AssertionError(f"{name} logits: rel err {rel} > {LOGITS_REL_TOL}")
+        if gate_argmax and not checks[name]["argmax_equal"]:
+            raise AssertionError(f"{name} logits: the kernels' argmax differs from the plain tier's")
+    return checks, (gpages, table, gdecode, tokens, positions, samp)
+
+
+def serve_traffic(eng, server, reqs, max_new=32) -> tuple[list, float]:
+    """Serve ``reqs`` (``(route, ids, sampling)``; route ``"direct"`` through
+    ``eng.submit``, ``"socket"`` through ``server``'s line-JSON socket,
+    from threads), all submitted before any is awaited. Gates every stream
+    finished with ``max_new`` tokens in the vocabulary. Returns a record a
+    request and the seconds from the first submit to the last answer."""
+    t0 = time.perf_counter()
+    results = [None] * len(reqs)
+
+    def via_socket(i, ids, extra):
+        results[i] = socket_request(server.address, {"ids": ids, "max_new_tokens": max_new, **extra})
+
+    threads = []
+    for i, (route, ids, extra) in enumerate(reqs):
+        if route == "socket":
+            t = threading.Thread(target=via_socket, args=(i, ids, extra))
+            t.start()
+            threads.append(t)
+        else:
+            results[i] = eng.submit(ids, max_new, **extra)
+    out = []
+    for i, (route, ids, extra) in enumerate(reqs):
+        if route == "direct":
+            r = results[i].result(timeout=600)
+            rec = {"tokens": r.tokens, "finish_reason": r.finish_reason,
+                   "ttft_ms": 1e3 * r.ttft_s, "latency_ms": 1e3 * r.latency_s}
+        else:
+            threads.pop(0).join(timeout=600)
+            rec = results[i]
+            if rec is None:
+                raise AssertionError(f"socket request {i} got no answer")
+        toks = rec["tokens"]
+        if rec["finish_reason"] != "max_tokens" or len(toks) != max_new:
+            raise AssertionError(f"request {i} ended {rec['finish_reason']} with {len(toks)} tokens")
+        if not all(0 <= t < eng._dm.vocab_size for t in toks):
+            raise AssertionError(f"request {i} produced a token outside the vocabulary")
+        out.append({"route": route, "prompt_len": len(ids), "bucket": eng._bucket(len(ids)),
+                    "sampled": "temperature" in extra, "ttft_ms": rec["ttft_ms"], "latency_ms": rec["latency_ms"]})
+    return out, time.perf_counter() - t0
+
+
 def serve_phase(torch, dev):
     from consensusml_tpu_torch import kernels
     from consensusml_tpu_torch.configs import gpt2_config
@@ -1392,34 +1531,8 @@ def serve_phase(torch, dev):
         # logits of the kernel tier against the plain tier, same weights
         rng = np.random.default_rng(7)
         prompt = rng.integers(0, cfg.vocab_size, size=700).tolist()
-        dm = eng._dm
-        with torch.inference_mode():
-            got_last, gpages, table, gdecode = stage_logits(torch, P, dm, "cuda", prompt, bs)
-            want_last, wpages, _, wdecode = stage_logits(torch, P, dm, "torch", prompt, bs)
-            nxt = int(want_last.argmax())
-            tokens = torch.zeros(8, dtype=torch.int32, device=dev)
-            tokens[0] = nxt
-            positions = torch.zeros(8, dtype=torch.int32, device=dev)
-            positions[0] = len(prompt)
-            samp = (torch.zeros(8, device=dev), torch.ones(8, device=dev),
-                    torch.zeros(8, dtype=torch.int64, device=dev))
-            _, got_dec = gdecode(gpages, table, tokens, positions, *samp)
-            _, want_dec = wdecode(wpages, table, tokens, positions, *samp)
-        torch.cuda.synchronize()
-        logit_checks = {}
-        for name, g, wnt in (("prefill", got_last, want_last), ("decode", got_dec[0], want_dec[0])):
-            if not (torch.isfinite(g).all() and g.shape == (cfg.vocab_size,)):
-                raise AssertionError(f"{name} logits not finite of shape ({cfg.vocab_size},)")
-            rel = ((g - wnt).abs().max() / wnt.abs().max()).item()
-            logit_checks[name] = {
-                "max_rel_err": rel, "tol": LOGITS_REL_TOL,
-                "argmax_equal": int(g.argmax()) == int(wnt.argmax()),
-            }
-            if not rel <= LOGITS_REL_TOL:
-                raise AssertionError(f"{name} logits: rel err {rel} > {LOGITS_REL_TOL}")
-            if not logit_checks[name]["argmax_equal"]:
-                raise AssertionError(f"{name} logits: the kernels' argmax differs from the plain tier's")
-        del wpages
+        logit_checks, (gpages, table, gdecode, tokens, positions, samp) = tier_logits(
+            torch, P, eng, prompt, bs, gate_argmax=True)
         step_profile = profile_decode(torch, gdecode, gpages, table, tokens, positions, samp)
         del gpages
 
@@ -1429,7 +1542,6 @@ def serve_phase(torch, dev):
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
         steps0 = eng.stats()["decode_steps"]
-        t0 = time.perf_counter()
         reqs = [
             ("direct", prompt, {}),
             ("direct", rng.integers(0, cfg.vocab_size, size=5).tolist(), {}),
@@ -1439,38 +1551,7 @@ def serve_phase(torch, dev):
             ("socket", rng.integers(0, cfg.vocab_size, size=5).tolist(), {}),
             ("socket", rng.integers(0, cfg.vocab_size, size=37).tolist(), {"seed": 9}),
         ]
-        results = [None] * len(reqs)
-
-        def via_socket(i, ids, extra):
-            results[i] = socket_request(server.address, {"ids": ids, "max_new_tokens": 32, **extra})
-
-        threads = []
-        for i, (route, ids, extra) in enumerate(reqs):
-            if route == "socket":
-                t = threading.Thread(target=via_socket, args=(i, ids, extra))
-                t.start()
-                threads.append(t)
-            else:
-                results[i] = eng.submit(ids, 32, **extra)
-        out = []
-        for i, (route, ids, extra) in enumerate(reqs):
-            if route == "direct":
-                r = results[i].result(timeout=600)
-                rec = {"tokens": r.tokens, "finish_reason": r.finish_reason,
-                       "ttft_ms": 1e3 * r.ttft_s, "latency_ms": 1e3 * r.latency_s}
-            else:
-                threads.pop(0).join(timeout=600)
-                rec = results[i]
-                if rec is None:
-                    raise AssertionError(f"socket request {i} got no answer")
-            toks = rec["tokens"]
-            if rec["finish_reason"] != "max_tokens" or len(toks) != 32:
-                raise AssertionError(f"request {i} ended {rec['finish_reason']} with {len(toks)} tokens")
-            if not all(0 <= t < cfg.vocab_size for t in toks):
-                raise AssertionError(f"request {i} produced a token outside the vocabulary")
-            out.append({"route": route, "prompt_len": len(ids), "sampled": "temperature" in extra,
-                        "ttft_ms": rec["ttft_ms"], "latency_ms": rec["latency_ms"]})
-        wall_s = time.perf_counter() - t0
+        out, wall_s = serve_traffic(eng, server, reqs)
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
@@ -1483,12 +1564,16 @@ def serve_phase(torch, dev):
         stray = {n: c for n, c in counts.items() if c and n not in ("paged_attention", "flash_attention_fwd")}
         if stray:
             raise AssertionError(f"serving launched kernels off its path: {stray}")
+        grouped = kernels.form_counts()["paged_attention"]["grouped"]
+        if grouped:  # GPT-2-medium's 16 heads of 64: a block holds whole pages
+            raise AssertionError(f"GPT-2 serving launched the paged kernel with head groups {grouped} times")
         serve = {
             "phase": "serve", "model": "gpt2_topk full (GPT-2-medium)", "params": n_params,
             "layers": cfg.layers, "model_build_s": build_s, "warmup": warmed, "warmup_s": warmup_s,
             "attn_impl": stats["attn_impl"], "logits_vs_plain": logit_checks,
             "decode_step_profile": step_profile,
             "requests": out, "wall_s": wall_s, "decode_steps": steps, "launches": counts,
+            "paged_grouped_launches": grouped,
             "ttft_p50_ms": stats["ttft_p50_ms"], "intertoken_p50_ms": stats["intertoken_p50_ms"],
             "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
             "peak_memory_bytes": peak, "evictions": stats["evictions"],
@@ -1499,6 +1584,125 @@ def serve_phase(torch, dev):
         else:
             eng.shutdown()
     return serve, counts
+
+
+# the served Llama traffic: (route, prompt length, sampling); the 4000-token
+# prompt pads to the 4096 bucket, so its slot's cache spans all 16 blocks of
+# its clusters, and three prompts take buckets of 1024 and more (flash)
+SERVE_LLAMA_REQUESTS = (("direct", 4000, {}), ("direct", 5, {}),
+                        ("direct", 37, {"temperature": 0.8, "top_p": 0.9, "seed": 1234}),
+                        ("direct", 1500, {}), ("socket", 5, {}), ("socket", 700, {"seed": 9}))
+
+
+def serve_llama_phase(torch, dev, weights):
+    """``llama_lora`` full served: Llama-2-7B (hidden 4096, 32 layers, 32
+    heads of dim 128, vocab 32000, bf16) with the rank-16 adapters, from
+    ``weights`` (train_llama's frozen base and the mean of its workers'
+    final adapters, the consensus model), through ``Engine(model,
+    ServeConfig(num_slots=8, block_size=16, max_new_tokens=32))`` and
+    ``ServeServer``: paged KV at the reference's max_len 4096 (8 slots x
+    256 pages of 16 a layer). Kernel-tier logits against the plain tier's
+    from the same weights (a 4000-token prefill, bucket 4096, and one
+    decode step on it); one profiled decode step at that slot; then
+    ``SERVE_LLAMA_REQUESTS`` (launch counters zeroed just before, read
+    just after). Gates: the kernel tier resolved, the logits within
+    ``LOGITS_REL_TOL`` of max|logit|, every stream finished with 32 tokens
+    in the vocabulary, no eviction, the pool free at the end, the paged
+    kernel launched 32 times a decode step (every launch with head
+    groups), the flash forward 32 times a prompt of a bucket of 1024 and
+    more, and nothing else."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.llama import LlamaLM
+    from consensusml_tpu_torch.models.paged_attention import paged_plan
+    from consensusml_tpu_torch.serve import Engine, ServeConfig, ServeServer
+    from consensusml_tpu_torch.serve import pool as P
+
+    t0 = time.perf_counter()
+    cfg = configs.llama_config("full")
+    model = LlamaLM(cfg, device="meta")
+    model.load_state_dict(weights, strict=True, assign=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    build_s = time.perf_counter() - t0
+    bs = 16
+    eng = Engine(model, ServeConfig(num_slots=8, block_size=bs, max_new_tokens=32), device=dev)
+    server = None
+    try:
+        if eng.stats()["attn_impl"] != "cuda":
+            raise AssertionError(f"attn_impl resolved to {eng.stats()['attn_impl']!r}, not cuda")
+        weight_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                           if n != "tok_emb.embedding")  # the embedding is a lookup of 8 rows
+        kv_token_bytes = cfg.layers * 2 * cfg.kv_heads * cfg.head_dim * 2  # K and V, bf16: 512 KB at 7B
+        t0 = time.perf_counter()
+        warmed = eng.warmup()
+        warmup_s = time.perf_counter() - t0
+
+        rng = np.random.default_rng(11)
+        reqs = [(route, rng.integers(0, cfg.vocab_size, size=n).tolist(), extra)
+                for route, n, extra in SERVE_LLAMA_REQUESTS]
+        prompt = reqs[0][1]
+        t0 = time.perf_counter()
+        # the argmax is reported, not gated: a random base's top two logits
+        # may lie closer than the tolerance, or tie
+        logit_checks, (gpages, table, gdecode, tokens, positions, samp) = tier_logits(
+            torch, P, eng, prompt, bs, gate_argmax=False)
+        logit_check_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        step_profile = profile_decode(torch, gdecode, gpages, table, tokens, positions, samp)
+        # a step of the profile: every weight read once, the live slot's
+        # K/V (its prompt and ~15 of the profile's tokens, on average)
+        step_bytes = weight_bytes + (len(prompt) + 16) * kv_token_bytes
+        step_bound_ms, _ = bound_ms(step_bytes, 0.0)
+        paged_bound_ms, _ = bound_ms((len(prompt) + 16) * kv_token_bytes, 0.0)
+        del gpages
+        torch.cuda.empty_cache()
+
+        server = ServeServer(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        steps0 = eng.stats()["decode_steps"]
+        out, wall_s = serve_traffic(eng, server, reqs)
+        torch.cuda.synchronize()
+        counts, forms = kernels.launch_counts(), kernels.form_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        stats = eng.stats()
+        steps = stats["decode_steps"] - steps0
+        long_prompts = sum(eng._bucket(n) ** 2 > 512 ** 2 for _r, n, _x in SERVE_LLAMA_REQUESTS)
+        want = {name: 0 for name in counts}
+        want.update(paged_attention=cfg.layers * steps, flash_attention_fwd=cfg.layers * long_prompts)
+        grouped = forms["paged_attention"]["grouped"]
+        flash_forms = forms["flash_attention_fwd"]
+        if (steps < 1 or counts != want or grouped != counts["paged_attention"]
+                or flash_forms["d128"] != counts["flash_attention_fwd"] or flash_forms["masked"]):
+            raise AssertionError(f"serve_llama launches {counts} (forms {forms}) over {steps} decode steps, "
+                                 f"expected {want}, every paged launch grouped, every flash one head dim 128")
+        if stats["evictions"] or stats["pool"]["free_blocks"] != stats["pool"]["usable_blocks"]:
+            raise AssertionError(f"serve_llama: {stats['evictions']} evictions, pool {stats['pool']}")
+        line = {
+            "phase": "serve_llama",
+            "model": "llama_lora full (Llama-2-7B: hidden 4096, 32 layers, 32 heads of dim 128, MLP 11008, vocab "
+                     "32000, bf16; rank-16 adapters on q, k, v, o, the mean of train_llama's 16 workers)",
+            "params": n_params, "weight_bytes": weight_bytes, "layers": cfg.layers, "max_len": eng.max_len,
+            "pool": stats["pool"], "model_build_s": build_s, "warmup": warmed, "warmup_s": warmup_s,
+            "attn_impl": stats["attn_impl"], "logits_vs_plain": logit_checks, "logit_check_s": logit_check_s,
+            "paged_plan_decode": paged_plan(eng.max_len // bs, bs, cfg.kv_heads, cfg.head_dim, 1, cfg.heads)._asdict(),
+            "decode_step_profile": step_profile, "decode_step_bytes": step_bytes,
+            "decode_step_bound_ms": step_bound_ms, "paged_bound_ms_per_step": paged_bound_ms,
+            "requests": out, "wall_s": wall_s, "decode_steps": steps, "launches": counts,
+            "paged_grouped_launches": grouped,
+            "ttft_p50_ms": stats["ttft_p50_ms"], "intertoken_p50_ms": stats["intertoken_p50_ms"],
+            "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
+            "peak_memory_bytes": peak, "evictions": stats["evictions"],
+        }
+    finally:
+        if server is not None:
+            server.shutdown()
+        else:
+            eng.shutdown()
+    del eng, model, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, counts, grouped
 
 
 class BnBackwardCalls:
@@ -3216,10 +3420,12 @@ def train_llama_phase(torch, dev, counted=2, eval_batches=1):
         "eval_worker_mean": {k: float(v) for k, v in result["worker_mean"].items()},
         "peak_memory_bytes": peak, "launches": counts, "d128_launches": d128,
     }
+    # what serve_llama serves: the frozen base and the workers' mean adapters
+    weights = {**state.frozen, **{n: p.mean(0) for n, p in state.params.items()}}
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return out, counts, d128
+    return out, counts, d128, weights
 
 
 def socket_request(address, payload) -> dict:
@@ -3282,7 +3488,9 @@ def main() -> int:
     subnormals = check_subnormals(torch, tfa, tpa, tln, dev)
     kv_masked, kv_masked_600 = check_flash_kv_mask(torch, tfa, dev)
     d128 = check_flash_d128(torch, tfa, dev)
+    paged_llama = check_paged_llama(torch, tpa, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
+          "paged_attention_llama": paged_llama,
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
@@ -3383,6 +3591,7 @@ def main() -> int:
     emit(serve)
     for name, n in counts.items():
         launches[name]["serve"] = n
+    forms.setdefault("paged_attention", {}).setdefault("grouped", {})["serve"] = serve["paged_grouped_launches"]
     torch.cuda.empty_cache()
     from consensusml_tpu_torch import configs
 
@@ -3445,12 +3654,23 @@ def main() -> int:
     for name, n in counts.items():
         launches[name]["train_bert"] = n
     # llama_lora: Llama-2-7B's adapters on 16 workers, the flash kernels at head dim 128
-    line, counts, d128_counts = train_llama_phase(torch, dev)
+    line, counts, d128_counts, weights = train_llama_phase(torch, dev)
     emit(line)
     for name, n in counts.items():
         launches[name]["train_llama"] = n
     for name, n in d128_counts.items():
         forms.setdefault(name, {}).setdefault("d128", {})["train_llama"] = n
+    # and served: train_llama's base and consensus adapters, paged decode at
+    # max_len 4096 through the paged kernel's head groups
+    line, counts, grouped = serve_llama_phase(torch, dev, weights)
+    del weights
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["serve_llama"] = n
+    forms["paged_attention"]["grouped"]["serve_llama"] = grouped
+    for name, n in line["launches"].items():
+        if name == "flash_attention_fwd":
+            forms[name]["d128"]["serve_llama"] = n
 
     # the head-dim-128 forms (llama_lora's) as entries of their own beside
     # their kernels: readings from check.flash_d128, launches from train_llama
@@ -3458,6 +3678,11 @@ def main() -> int:
     d128_rows = [(f"{name} (head dim 128)", src, rep, {**d128[key], "form_of": name,
                                                        "launches_by_path": forms[name]["d128"]})
                  for key, (name, src, rep, _r) in zip(("fwd", "dq", "dkv"), rows[1:4])]
+    # the paged kernel's head-group form (Llama-2-7B's heads): readings from
+    # check.paged_attention_llama (W=1, 32 kv heads), launches from serve_llama
+    name, src, rep, _r = rows[0]
+    d128_rows.append((f"{name} (head groups)", src, rep,
+                      {**paged_llama["W=1"], "form_of": name, "launches_by_path": forms[name]["grouped"]}))
     entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
@@ -3472,8 +3697,8 @@ def main() -> int:
     entries += [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "form_of": r["form_of"],
          "launches": sum(r["launches_by_path"].values()), "launches_by_path": r["launches_by_path"],
-         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library",
-                              "tflops", "x_library", "x_bound", "shape")}}
+         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         **{k: r[k] for k in ("library", "tflops", "x_library", "x_bound", "shape", "plan") if k in r}}
         for name, src, rep, r in d128_rows
     ]
     emit({"kernels": entries})

@@ -29,14 +29,25 @@
 //
 // The design (the plan's numbers come from
 // consensusml_tpu_torch/models/paged_attention.py:paged_plan):
-// - Grid (splits, S); a thread block cluster of `splits` blocks (<= 16)
-//   owns one slot. Block r owns the slot's pages [r * pages, (r + 1) *
-//   pages) up to the last page any of its window rows attends, with ALL
-//   heads: a page of one layer, (bs, Hkv, D), is contiguous, so each is
-//   one bulk copy (cp.async.bulk, completion on an mbarrier) into a ring
-//   of `ring` page buffers, K pages first, then V pages, refilled as
-//   pages are consumed. Every query head of a kv head's group and every
-//   window row read that one copy. Blocks past the slot's last page load
+// - Grid (splits, S, Hkv / G); a thread block cluster of `splits` blocks
+//   (<= 16) owns one (slot, head group): G kv heads and their G * rep
+//   query heads, G the most kv heads whose query heads fit the block's
+//   threads (G * rep * D <= 1024 and W * G * rep <= 256; all heads at
+//   GPT-2-medium's 16 x 64, 8 of Llama-2-7B's 32 x 128). G = Hkv is the
+//   kernel's kGroups = false form: whole pages, its head offsets constant
+//   zero, the kernel as it was before head groups; G < Hkv is its kGroups
+//   form, which places the group's heads in q, the pages and the output.
+//   Block r owns the slot's pages [r * pages, (r + 1) * pages) up to the
+//   last page any of its window rows attends, for its group's heads. A
+//   page of one layer, (bs, Hkv, D), is contiguous: where G = Hkv each
+//   page is one bulk copy (cp.async.bulk, completion on an mbarrier),
+//   else its bs
+//   rows of the group's G * D contiguous values are one bulk copy each,
+//   all completing on the same mbarrier, into a ring of `ring` page
+//   buffers of (bs, G, D), K pages first, then V pages, refilled as pages
+//   are consumed. Every query head of a kv head's group and every window
+//   row read that one copy; each K and V row of the cache is read once,
+//   by one head group's cluster. Blocks past the slot's last page load
 //   nothing; the keys of the call are spread over the card by pages.
 // - Per K page, thread (head, group of 4 keys, quarter of D) takes the
 //   dot products of its 4 key rows with the head's W query rows over its
@@ -68,8 +79,10 @@
 //   order and writes it as bf16. A last barrier.cluster keeps each
 //   block's shared memory alive until the cluster has read it.
 // The cache-length limit: nb <= 16 * pages, with the ring, q, the
-// block's logits and its partial output in one block's shared memory
-// (paged_plan raises past it).
+// block's logits and its partial output in one block's shared memory;
+// a plan with fewer kv heads a block holds fewer logits a key, so takes
+// a longer cache (paged_plan falls back to one where the most heads do
+// not fit, and raises past G = 1).
 //
 // Subnormals: the reference's compiled program flushes f32 subnormals (a
 // subnormal operand reads as zero, a subnormal result is written as
@@ -120,6 +133,7 @@ struct PagedArgs {
   int H, Hkv, D, bs, nb;
   int pages;  // pages a block
   int ring;   // page buffers a block
+  int G;      // kv heads a block (a divisor of Hkv)
   float scale;
 };
 
@@ -131,12 +145,14 @@ __host__ __device__ constexpr long long align128(long long b) { return (b + 127)
 __host__ __device__ inline int q_parts(int d) { return d % 32 == 0 ? 4 : d % 16 == 0 ? 2 : 1; }
 __host__ __device__ inline int q_row(int d) { return d + 2 * q_parts(d); }
 
-// dynamic shared memory, each part 128-byte aligned: ring page buffers;
-// q as f64 (W, H, q_row(D)), later the block's partial output (W, H, D) f32;
-// the block's logits (W, pages * bs, H) f32; the block's sums (W * H f64),
-// a fold scratch (one f64 a thread), the block's maxima and the slot's
-// max or sum (W * H f32 each), the W rows' last keys and the block's
-// block-table entries; one mbarrier a ring buffer
+// dynamic shared memory of a block of h query heads and hkv kv heads
+// (its group's: G * rep and G), each part 128-byte aligned: ring page
+// buffers (bs, hkv, D); q as f64 (W, h, q_row(D)), later the block's
+// partial output (W, h, D) f32; the block's logits (W, pages * bs, h) f32;
+// the block's sums (W * h f64), a fold scratch (one f64 a thread), the
+// block's maxima and the slot's max or sum (W * h f32 each), the W rows'
+// last keys and the block's block-table entries; one mbarrier a ring
+// buffer
 struct Layout {
   long long page, qs, logits, stats, bars, total;
 };
@@ -162,12 +178,15 @@ __device__ __forceinline__ void unpack8(const uint4 raw, float (&f)[8]) {
   }
 }
 
-template <int W>
+template <int W, bool kGroups>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout(W, a.H, a.Hkv, a.D, a.bs, a.pages, a.ring);
+  const int rep = a.H / a.Hkv;
+  const int G = kGroups ? a.G : a.Hkv;
+  const int H = kGroups ? G * rep : a.H;  // the block's query heads, [h0, h0 + H) of a.H
+  const Layout lay = layout(W, H, G, a.D, a.bs, a.pages, a.ring);
   const int tid = threadIdx.x;
-  const int H = a.H, D = a.D, bs = a.bs;
+  const int D = a.D, bs = a.bs;
   const int wh = W * H;
   const int nq = q_parts(D), dpart = D / nq, qpart = dpart + 2, qrow = q_row(D);
   double* qs = reinterpret_cast<double*>(smem + lay.qs);
@@ -184,9 +203,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   const uint32_t rank = blockIdx.x;  // the cluster spans the grid's x extent
   const int splits = static_cast<int>(gridDim.x);
   const int s = blockIdx.y;
-  const int rep = H / a.Hkv;
+  const int g0 = kGroups ? static_cast<int>(blockIdx.z) * G : 0;  // the group's first kv head
+  const int h0 = g0 * rep;                                         // and first query head
   const int kb = a.pages * bs;  // keys a block holds
   const long long page_elems = static_cast<long long>(bs) * a.Hkv * D;
+  // a key's G * D values of the group's kv heads: contiguous in a page,
+  // and a key's stride in a ring buffer of (bs, G, D)
+  const int stride = G * D;
 
   // the positions, the block's table entries and q, all loads in flight at once
   const int p0 = static_cast<int>(rank) * a.pages;
@@ -197,11 +220,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
     for (int b = 0; b < a.ring; ++b) cml_sm90::mbar_init(bars + 8 * b, 1);
     cml_sm90::mbar_init_fence();
   }
-  const __nv_bfloat16* qsrc = a.q + static_cast<long long>(s) * wh * D;
+  const __nv_bfloat16* qsrc = a.q + (static_cast<long long>(s) * W * a.H + h0) * D;
   for (int ci = tid; ci < wh * D / 8; ci += kThreads) {  // q as f64, 16 bytes a thread at a time
-    const int r = ci / (D / 8), d = 8 * (ci % (D / 8));
+    const int r = ci / (D / 8), d = 8 * (ci % (D / 8));  // r = (w, head of the block)
+    const int rq = kGroups ? r / H * a.H + r % H : r;      // its row of the slot's (W, a.H)
     float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(qsrc + static_cast<long long>(r) * D + d), f);
+    unpack8(*reinterpret_cast<const uint4*>(qsrc + static_cast<long long>(rq) * D + d), f);
     double2* dst = reinterpret_cast<double2*>(qs + r * qrow + d / dpart * qpart + d % dpart);
 #pragma unroll
     for (int j = 0; j < 4; ++j) dst[j] = make_double2(f[2 * j], f[2 * j + 1]);
@@ -220,11 +244,17 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   auto issue = [&](int li) {  // thread 0: load li into ring buffer li % ring
     const int block = phys[li < n ? li : li - n];
     if (block < 0 || block >= a.n_pages) __trap();  // a block-table entry outside the pool
-    const __nv_bfloat16* src = (li < n ? a.k : a.v) + static_cast<long long>(block) * page_elems;
+    const __nv_bfloat16* src = (li < n ? a.k : a.v) + static_cast<long long>(block) * page_elems + g0 * D;
     const uint32_t bar = bars + 8 * (li % a.ring);
-    cml_sm90::mbar_expect_tx(bar, static_cast<uint32_t>(page_elems * 2));
-    cml_sm90::bulk_load(cml_sm90::smem_u32(smem + (li % a.ring) * lay.page), src,
-                        static_cast<uint32_t>(page_elems * 2), bar);
+    const uint32_t dst = cml_sm90::smem_u32(smem + (li % a.ring) * lay.page);
+    cml_sm90::mbar_expect_tx(bar, static_cast<uint32_t>(bs * stride * 2));
+    if (!kGroups) {  // the whole page: one copy
+      cml_sm90::bulk_load(dst, src, static_cast<uint32_t>(page_elems * 2), bar);
+    } else {  // the group's G * D values of each of the page's bs keys: one copy a key
+      for (int t = 0; t < bs; ++t)
+        cml_sm90::bulk_load(dst + t * stride * 2, src + static_cast<long long>(t) * a.Hkv * D,
+                            static_cast<uint32_t>(stride * 2), bar);
+    }
   };
   auto wait = [&](int li) { cml_sm90::wait_or_trap(bars + 8 * (li % a.ring), (li / a.ring) & 1); };
   auto buffer = [&](int li) { return reinterpret_cast<const __nv_bfloat16*>(smem + (li % a.ring) * lay.page); };
@@ -253,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int w = 0; w < W; ++w) acc[j][w] = 0.0;
-      const __nv_bfloat16* krow = kp + (static_cast<long long>(g * kg) * a.Hkv + h / rep) * D + dq * dpart;
+      const __nv_bfloat16* krow = kp + static_cast<long long>(g * kg) * stride + (h / rep) * D + dq * dpart;
       const double* qrow_h = qs + h * qrow + dq * qpart;
       for (int c0 = 0; c0 < nchq; ++c0) {
         int c = c0 + (g & 1);  // neighbouring key groups read other chunks: other banks
@@ -263,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
         for (int j = 0; j < 4; ++j) {
           if (j < kg) {
             float f[8];
-            unpack8(*reinterpret_cast<const uint4*>(krow + static_cast<long long>(j) * a.Hkv * D + 8 * c), f);
+            unpack8(*reinterpret_cast<const uint4*>(krow + static_cast<long long>(j) * stride + 8 * c), f);
 #pragma unroll
             for (int e = 0; e < 8; ++e) kd[j][e] = f[e];
           }
@@ -396,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int tl = tl0 + j;
-          raw[j] = tl < nk ? *reinterpret_cast<const uint2*>(vp + static_cast<long long>(tl) * a.Hkv * D)
+          raw[j] = tl < nk ? *reinterpret_cast<const uint2*>(vp + static_cast<long long>(tl) * stride)
                            : make_uint2(0u, 0u);
 #pragma unroll
           for (int w = 0; w < W; ++w)  // a row that does not attend the key takes p = 0: o is unchanged
@@ -428,10 +458,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   // ---- fold the cluster's partial outputs, block r the r-th slice ----
   cml_sm90::cluster_arrive();
   cml_sm90::cluster_wait();
-  const int total = wh * D;
+  const int total = wh * D;  // the block's (W, H, D) of the slot's (W, a.H, D)
   const int per = (total + splits - 1) / splits;
   const int e1 = min(total, (static_cast<int>(rank) + 1) * per);
-  __nv_bfloat16* orow = a.out + static_cast<long long>(s) * total;
+  __nv_bfloat16* orow = a.out + (static_cast<long long>(s) * W * a.H + h0) * D;
   for (int e = static_cast<int>(rank) * per + tid; e < e1; e += kThreads) {
     const uint32_t la = cml_sm90::smem_u32(part + e);
     float v[kMaxSplits];
@@ -441,15 +471,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
 #pragma unroll
     for (int r = 1; r < kMaxSplits; ++r)
       if (r < splits) acc = add_ftz(acc, v[r]);
-    orow[e] = __float2bfloat16_rn(mul_ftz(acc, 1.f));
+    orow[kGroups ? e / (H * D) * a.H * D + e % (H * D) : e] = __float2bfloat16_rn(mul_ftz(acc, 1.f));
   }
   cml_sm90::cluster_arrive();  // this block is done reading the others' partials
   cml_sm90::cluster_wait();    // and the others are done reading its own
 }
 
-template <int W>
+template <int W, bool kGroups>
 int launch_w(const PagedArgs& a, int s, int splits, long long smem, cudaStream_t st) {
-  auto kernel = paged_attention_kernel<W>;
+  auto kernel = paged_attention_kernel<W, kGroups>;
   // per device, once: the attributes belong to the current device
   static bool ready[64] = {};
   int dev = 0;
@@ -462,7 +492,8 @@ int launch_w(const PagedArgs& a, int s, int splits, long long smem, cudaStream_t
     if (dev >= 0 && dev < 64) ready[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(splits), static_cast<unsigned int>(s), 1);
+  cfg.gridDim = dim3(static_cast<unsigned int>(splits), static_cast<unsigned int>(s),
+                     static_cast<unsigned int>(a.Hkv / a.G));
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = st;
@@ -477,57 +508,69 @@ int launch_w(const PagedArgs& a, int s, int splits, long long smem, cudaStream_t
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-int launch(const PagedArgs& a, int s, int w, int splits, long long smem, cudaStream_t st) {
+template <bool kGroups>
+int launch_g(const PagedArgs& a, int s, int w, int splits, long long smem, cudaStream_t st) {
   switch (w) {
-    case 1: return launch_w<1>(a, s, splits, smem, st);
-    case 2: return launch_w<2>(a, s, splits, smem, st);
-    case 3: return launch_w<3>(a, s, splits, smem, st);
-    case 4: return launch_w<4>(a, s, splits, smem, st);
-    case 5: return launch_w<5>(a, s, splits, smem, st);
-    case 6: return launch_w<6>(a, s, splits, smem, st);
-    case 7: return launch_w<7>(a, s, splits, smem, st);
-    case 8: return launch_w<8>(a, s, splits, smem, st);
+    case 1: return launch_w<1, kGroups>(a, s, splits, smem, st);
+    case 2: return launch_w<2, kGroups>(a, s, splits, smem, st);
+    case 3: return launch_w<3, kGroups>(a, s, splits, smem, st);
+    case 4: return launch_w<4, kGroups>(a, s, splits, smem, st);
+    case 5: return launch_w<5, kGroups>(a, s, splits, smem, st);
+    case 6: return launch_w<6, kGroups>(a, s, splits, smem, st);
+    case 7: return launch_w<7, kGroups>(a, s, splits, smem, st);
+    case 8: return launch_w<8, kGroups>(a, s, splits, smem, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+int launch(const PagedArgs& a, int s, int w, int splits, long long smem, cudaStream_t st) {
+  return a.G < a.Hkv ? launch_g<true>(a, s, w, splits, smem, st) : launch_g<false>(a, s, w, splits, smem, st);
+}
+
 }  // namespace
 
-// Dynamic shared memory of a block of the plan (bytes).
-extern "C" long long cml_paged_attention_smem_bytes(int w, int h, int hkv, int d, int bs, int pages, int ring) {
-  return layout(w, h, hkv, d, bs, pages, ring).total;
+// Dynamic shared memory of a block of the plan (bytes): g kv heads of
+// hkv a block, and their g * h / hkv query heads.
+extern "C" long long cml_paged_attention_smem_bytes(int w, int h, int hkv, int d, int bs, int pages, int ring,
+                                                    int g) {
+  if (hkv < 1 || g < 1 || h % hkv) return -1;
+  return layout(w, g * (h / hkv), g, d, bs, pages, ring).total;
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue without launching for a shape or plan the kernel
 // does not take: W outside 1..8, H not a multiple of Hkv, D not a
-// multiple of 8, H * D > 4 * 256, W * H > 256, a plan whose splits (<= 16) x pages do
-// not cover the nb pages exactly (no block without a page at full
+// multiple of 8, a head group of g kv heads that does not divide Hkv or
+// whose query heads exceed the block's threads (g * rep * D > 4 * 256 or
+// W * g * rep > 256, rep = H / Hkv), a plan whose splits (<= 16) x pages
+// do not cover the nb pages exactly (no block without a page at full
 // length), a ring outside 1..8, or more shared memory than a block has.
 // The pools' pointers must be 16-byte aligned (the wrapper checks).
 extern "C" int cml_paged_attention_bf16(const void* q, const void* k_pages, const void* v_pages, const void* table,
                                         const void* positions, void* out, long long n_pages, int s, int w, int h,
-                                        int hkv, int d, int bs, int nb, int pages, int splits, int ring, float scale,
-                                        void* stream) {
-  if (w < 1 || w > kMaxW || s < 1 || s > 65535 || h < 1 || hkv < 1 || h % hkv || d < 8 || d % 8 ||
-      h * d > 4 * kThreads || w * h > kThreads || bs < 1 || nb < 1 || n_pages < 1 || pages < 1 || splits < 1 ||
-      splits > kMaxSplits || static_cast<long long>(splits) * pages < nb || (splits - 1) * pages >= nb ||
-      ring < 1 || ring > kMaxRing)
+                                        int hkv, int d, int bs, int nb, int pages, int splits, int ring, int g,
+                                        float scale, void* stream) {
+  if (w < 1 || w > kMaxW || s < 1 || s > 65535 || h < 1 || hkv < 1 || h % hkv || d < 8 || d % 8 || g < 1 ||
+      hkv % g || g * (h / hkv) * d > 4 * kThreads || w * g * (h / hkv) > kThreads || bs < 1 || nb < 1 ||
+      n_pages < 1 || pages < 1 || splits < 1 || splits > kMaxSplits || static_cast<long long>(splits) * pages < nb ||
+      (splits - 1) * pages >= nb || ring < 1 || ring > kMaxRing)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = layout(w, h, hkv, d, bs, pages, ring).total;
+  const long long smem = layout(w, g * (h / hkv), g, d, bs, pages, ring).total;
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
                     static_cast<const __nv_bfloat16*>(v_pages), static_cast<const int*>(table),
                     static_cast<const int*>(positions), static_cast<__nv_bfloat16*>(out), n_pages, h, hkv, d, bs, nb,
-                    pages, ring, scale};
+                    pages, ring, g, scale};
   return launch(a, s, w, splits, smem, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the plan the card holds at once
 // (cudaOccupancyMaxActiveClusters; 0 = the launch would fail), or a
-// negative CUDA error code.
-extern "C" int cml_paged_attention_max_active_clusters(int w, int splits, long long smem) {
-  if (w != 1 && w != 4) return -static_cast<int>(cudaErrorInvalidValue);
+// negative CUDA error code: the whole-page form (grouped = 0) or the
+// head-group form (grouped = 1) at W = 1 or 4, with the plan's shared
+// memory (cml_paged_attention_smem_bytes, which takes its G).
+extern "C" int cml_paged_attention_max_active_clusters(int w, int splits, long long smem, int grouped) {
+  if ((w != 1 && w != 4) || (grouped != 0 && grouped != 1)) return -static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(splits), 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -539,7 +582,8 @@ extern "C" int cml_paged_attention_max_active_clusters(int w, int splits, long l
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  auto kernel = w == 1 ? paged_attention_kernel<1> : paged_attention_kernel<4>;
+  auto kernel = grouped ? (w == 1 ? paged_attention_kernel<1, true> : paged_attention_kernel<4, true>)
+                        : (w == 1 ? paged_attention_kernel<1, false> : paged_attention_kernel<4, false>);
   int n = 0;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (e == cudaSuccess) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);

@@ -32,10 +32,20 @@ reference's.
   128 at 7B);
 - logits are the compute-dtype head product cast to f32.
 
-The training forward is ported. The serving hooks (``kv_cache``,
-``block_table``, ``return_kv``, ``positions``) and the chunked-vocab
-loss (``loss_vocab_chunk > 0``) are not yet, and raise
-``NotImplementedError``.
+Serving (the reference's paged hooks, as :class:`.gpt2.GPT2LM` takes
+them): ``return_kv=True`` is the prefill, returning each layer's
+pre-repeat ``(k, v)`` ``(B, S, Hkv, D)``; ``kv_cache`` (per-layer
+``{"k", "v"}`` pools of pre-repeat ``(N, bs, Hkv, D)`` pages) with
+``block_table`` and ``positions`` ``(B,)`` is one single-token decode
+step: RoPE at each slot's position, this token's K/V written into the
+pages in place (:func:`.attention.paged_update_kv_cache`), then
+:func:`.paged_attention.fused_paged_attention`, which expands GQA inside
+the kernel (no repeat of the pages).
+
+Not ported, raising ``NotImplementedError``: the reference's 2-D
+``positions`` verify window (speculative decode's), its per-slot cache
+(``kv_cache`` without ``block_table``), and the chunked-vocab loss
+(``loss_vocab_chunk > 0``, ``return_hidden``).
 """
 
 from __future__ import annotations
@@ -47,9 +57,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from consensusml_tpu_torch.device import resolve_device
-from consensusml_tpu_torch.models.attention import apply_rope, dot_product_attention, rope_frequencies
+from consensusml_tpu_torch.models.attention import (
+    apply_rope,
+    dot_product_attention,
+    paged_update_kv_cache,
+    rope_frequencies,
+)
 from consensusml_tpu_torch.models.gpt2 import Embed
-from consensusml_tpu_torch.models.paged_attention import resolve_attention_impl
+from consensusml_tpu_torch.models.paged_attention import fused_paged_attention, resolve_attention_impl
 from consensusml_tpu_torch.numerics import ftz, inv_rows
 
 __all__ = ["LlamaConfig", "LlamaLM", "LoRADense", "RMSNorm", "llama2_7b", "llama_tiny", "llama_loss_fn"]
@@ -180,21 +195,37 @@ class LlamaBlock(nn.Module):
         self.up_proj = Dense(c.hidden, c.mlp_dim, c.dtype, device)
         self.down_proj = Dense(c.mlp_dim, c.hidden, c.dtype, device)
 
-    def forward(self, x: torch.Tensor, rope_table: torch.Tensor, *, attn_impl: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rope_table: torch.Tensor, *, cache=None, positions=None, block_table=None,
+                return_kv: bool = False, attn_impl: str):
+        """``(x, kv)``: ``kv`` is this layer's pre-repeat ``(k, v)`` with
+        ``return_kv`` (the prefill), else ``None``; on the paged decode
+        path (``cache``, ``block_table`` and ``positions`` ``(B,)``) this
+        token's K/V go into the pages in place."""
         c = self.config
         d = c.head_dim
         y = self.attn_norm(x)
         b, s, _ = y.shape
-        q = apply_rope(self.q_proj(y).view(b, s, c.heads, d), rope_table)
-        k = apply_rope(self.k_proj(y).view(b, s, c.kv_heads, d), rope_table)
+        pos = None if positions is None else positions[:, None]  # (B, 1): each slot's own position
+        q = apply_rope(self.q_proj(y).view(b, s, c.heads, d), rope_table, pos)
+        k = apply_rope(self.k_proj(y).view(b, s, c.kv_heads, d), rope_table, pos)
         v = self.v_proj(y).view(b, s, c.kv_heads, d)
-        rep = c.heads // c.kv_heads
-        if rep != 1:  # grouped-query attention
-            k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
-        attn = dot_product_attention(q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl == "cuda")
+        kv = None
+        if cache is not None:
+            # the pages hold pre-repeat (kv_heads) rows; the kernel repeats
+            # them onto the query heads as it reads them
+            lengths = paged_update_kv_cache(cache, k, v, block_table, positions)
+            attn = fused_paged_attention(q, cache["k"], cache["v"], block_table, lengths=lengths, dtype=c.dtype,
+                                         impl=attn_impl)
+        else:
+            if return_kv:
+                kv = (k, v)  # pre-repeat, for the prefill's page insertion
+            rep = c.heads // c.kv_heads
+            if rep != 1:  # grouped-query attention
+                k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+            attn = dot_product_attention(q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl == "cuda")
         x = x + self.o_proj(attn.reshape(b, s, c.heads * d))
         y = self.mlp_norm(x)
-        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y)), kv
 
 
 class LlamaLM(nn.Module):
@@ -220,31 +251,72 @@ class LlamaLM(nn.Module):
     def layers(self) -> list[LlamaBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.layers)]
 
+    @torch.no_grad()
+    def to_compute_dtype(self) -> "LlamaLM":
+        """Cast the Dense, LoRA adapter and embedding parameters to the
+        compute dtype once (RMSNorm scales stay f32): the same values the
+        per-op casts give, for inference without a cast per call (the
+        serving engine's contract). Training keeps f32 masters."""
+        for mod in self.modules():
+            if isinstance(mod, (Dense, LoRADense, Embed)):
+                for p in mod.parameters(recurse=False):
+                    p.data = p.data.to(mod.dtype)
+        return self
+
     def forward(
         self,
         input_ids: torch.Tensor,  # (B, S) int
         *,
         attn_impl: str = "auto",
-        positions: torch.Tensor | None = None,
+        positions: torch.Tensor | None = None,  # (B,) decode positions
         kv_cache: list | None = None,
         block_table: torch.Tensor | None = None,
         return_kv: bool = False,
         return_hidden: bool = False,
-    ) -> torch.Tensor:
-        """f32 logits. ``attn_impl`` (:func:`.paged_attention.
-        resolve_attention_impl`): ``"auto"`` is the flash kernels for
-        flash-sized CUDA inputs, ``"torch"`` their plain versions."""
-        if kv_cache is not None or block_table is not None or return_kv or positions is not None:
-            raise NotImplementedError("Llama serving (kv_cache, block_table, return_kv, positions) is not ported yet")
+    ):
+        """f32 logits ``(B, S, V)``. ``attn_impl`` (:func:`.paged_attention.
+        resolve_attention_impl`): ``"auto"`` is the CUDA kernels for CUDA
+        tensors (flash for flash-sized prefills, paged attention on the
+        decode step) and their plain versions on the CPU; ``"torch"`` asks
+        for the plain versions by name.
+
+        ``return_kv=True`` (prefill) also returns each layer's pre-repeat
+        ``(k, v)``. ``kv_cache`` (per-layer ``{"k", "v"}`` page pools) with
+        ``block_table`` and ``positions`` runs one single-token decode
+        step, writing this token's K/V into the pages in place. Raises as
+        the reference does on a decode step that also asks for the
+        prefill's K/V, a ``block_table`` without ``kv_cache`` and a decode
+        step of more than one token."""
+        c = self.config
+        if kv_cache is not None and return_kv:
+            raise ValueError("kv_cache (decode) and return_kv (prefill) are exclusive")
+        if block_table is not None and kv_cache is None:
+            raise ValueError("block_table requires kv_cache (paged decode)")
+        if positions is not None and positions.dim() == 2:
+            raise NotImplementedError(
+                "2-D positions (the verify window of speculative decode) are not ported yet"
+            )
+        if kv_cache is not None and block_table is None:
+            raise NotImplementedError("the per-slot cache (kv_cache without block_table) is not ported yet")
+        if kv_cache is not None and (input_ids.shape[1] != 1 or positions is None):
+            raise ValueError(
+                f"decode steps are single-token with positions, got seq len {input_ids.shape[1]}"
+                + ("" if positions is not None else " and no positions")
+            )
         if return_hidden:
             raise NotImplementedError("the chunked-vocab loss path (return_hidden) is not ported yet")
-        c = self.config
         attn_impl = resolve_attention_impl(attn_impl, input_ids.device)
         x = self.tok_emb(input_ids)
         table = rope_frequencies(c.head_dim, c.max_len, c.rope_theta, device=input_ids.device)
-        for layer in self.layers:
-            x = layer(x, table, attn_impl=attn_impl)
-        return self.lm_head(self.final_norm(x)).float()
+        kvs = []
+        for i, layer in enumerate(self.layers):
+            x, kv = layer(x, table, cache=None if kv_cache is None else kv_cache[i], positions=positions,
+                          block_table=block_table, return_kv=return_kv, attn_impl=attn_impl)
+            kvs.append(kv)
+        logits = self.lm_head(self.final_norm(x)).float()
+        if return_kv:
+            return logits, kvs
+        return logits
 
 
 def llama_loss_fn(model: LlamaLM, attn_impl: str = "auto"):

@@ -3,8 +3,8 @@
 The reference compiles one prefill program per power-of-two prompt bucket
 so that serving never recompiles; PyTorch runs eagerly, but the buckets
 stay: they fix the prefill shapes, the prefill budget's unit, and which
-prompts cross the flash-attention threshold (the 1024 bucket at
-GPT-2-medium's max_len).
+prompts cross the flash-attention threshold (the buckets from 1024 up:
+GPT-2-medium's max_len, and 1024 to 4096 at Llama-2-7B's).
 """
 
 from __future__ import annotations
@@ -32,23 +32,27 @@ class DecodeModel:
 
     @classmethod
     def wrap(cls, model: Any) -> "DecodeModel":
+        """The geometry of a ``GPT2LM`` or ``LlamaLM`` (the reference's
+        ``supports_decode``): Llama's pages hold its pre-repeat kv heads."""
         from consensusml_tpu_torch.models.gpt2 import GPT2LM
+        from consensusml_tpu_torch.models.llama import LlamaLM
 
-        if not isinstance(model, GPT2LM):
+        if not isinstance(model, (GPT2LM, LlamaLM)):
             raise ValueError(
                 f"{type(model).__name__} has no paged decode path; serving "
-                "needs a causal LM (GPT2LM)"
+                "needs a causal LM (GPT2LM / LlamaLM)"
             )
         c = model.config
+        emb = model.wte if isinstance(model, GPT2LM) else model.tok_emb
         return cls(
             model=model,
             layers=c.layers,
-            kv_heads=c.heads,
+            kv_heads=getattr(c, "kv_heads", c.heads),
             head_dim=c.head_dim,
             max_len=c.max_len,
             vocab_size=c.vocab_size,
             cache_dtype=c.dtype,
-            device=model.wte.embedding.device,
+            device=emb.embedding.device,
         )
 
 

@@ -72,10 +72,11 @@ class ServeConfig:
 
 class Engine:
     """In-process serving engine. ``Engine(model, config, device=...)``
-    moves ``model`` to ``device`` (``None`` = CUDA; raises without a GPU)
-    and casts its Dense and embedding parameters to the compute dtype in
-    place (:meth:`GPT2LM.to_compute_dtype`), then :meth:`submit` from any
-    thread. Use as a context manager or call
+    takes a ``GPT2LM`` or a ``LlamaLM``, moves it to ``device`` (``None``
+    = CUDA; raises without a GPU) and casts its Dense, adapter and
+    embedding parameters to the compute dtype in place
+    (:meth:`GPT2LM.to_compute_dtype`, :meth:`LlamaLM.to_compute_dtype`),
+    then :meth:`submit` from any thread. Use as a context manager or call
     :meth:`shutdown`, which drains in-flight work by default."""
 
     def __init__(self, model: Any, config: ServeConfig | None = None, *, device=None):

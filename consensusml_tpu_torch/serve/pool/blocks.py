@@ -43,8 +43,9 @@ def blocks_for_tokens(tokens: int, block_size: int) -> int:
 
 def init_pages(dm: Any, num_blocks: int, block_size: int) -> list[dict]:
     """Per-layer ``{"k", "v"}`` zero pools on the model's device, in its
-    compute dtype: ``2 * layers * num_blocks * block_size * kv_heads *
-    head_dim * itemsize`` bytes in all."""
+    compute dtype (Llama-GQA pages hold the pre-repeat kv heads):
+    ``2 * layers * num_blocks * block_size * kv_heads * head_dim *
+    itemsize`` bytes in all."""
     shape = (num_blocks, block_size, dm.kv_heads, dm.head_dim)
     return [
         {

@@ -28,7 +28,9 @@ def make_paged_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
     The full causal forward over the padded bucket ``L`` (the flash
     kernel runs here once ``L * L > 512**2``), then each ``block_size``
     chunk of every layer's K/V goes to the physical block ``block_row``
-    names. Entries past the slot's owned blocks are the trash block, so
+    names: GPT-2's heads, Llama's pre-repeat kv heads (GQA's query heads
+    read them through the paged-attention kernel). Entries past the
+    slot's owned blocks are the trash block, so
     pad chunks may write block 0 several times in one index-put: with
     duplicate indices the winning write is unspecified on CUDA, which is
     harmless only because trash holds garbage that every reader masks.

@@ -145,7 +145,7 @@ def main(argv=None) -> int:
                              "x_bound": ms / bound,
                              "worst_err_over_tol": ratio,
                              "max_active_clusters": lib.cml_paged_attention_max_active_clusters(
-                                 1 if w == 1 else 4, p.splits, p.smem)})
+                                 1 if w == 1 else 4, p.splits, p.smem, int(p.kv_heads < H))})
             print(json.dumps({"case": name, "lengths": lengths, "w": w, "bound_ms": bound, "plans": rows}),
                   flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

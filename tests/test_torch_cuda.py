@@ -109,26 +109,37 @@ def test_paged_kernel_never_reads_past_positions(dev, w):
     assert torch.isfinite(out).all() and torch.equal(out, clean)
 
 
-@pytest.mark.parametrize("w", [1, 4])
-def test_paged_kernel_at_the_longest_cache(dev, w):
+@pytest.mark.parametrize("w,kv_heads", [(1, 16), (4, 16), (4, None), (8, None)],
+                         ids=["w1-whole-pages", "w4-whole-pages", "w4", "w8"])
+def test_paged_kernel_at_the_longest_cache(dev, w, kv_heads):
     """The longest cache the plan takes at GPT-2-medium's heads (nb =
     paged_max_blocks), two slots of which one attends every key; one
-    block more is refused."""
+    block more is refused. With whole pages a block (all 16 kv heads, the
+    plan's choice up to that cache), and with the plan free to give a
+    block fewer kv heads (it does past it): at W = 4 and 8, where that
+    cache is 222,208 and 110,848 tokens (W = 1's, 856,576 tokens, would
+    take the plain version ~50 GB)."""
     h, d, bs = 16, 64, 16
-    nb = tpa.paged_max_blocks(bs, h, d, w, h)
+    nb = tpa.paged_max_blocks(bs, h, d, w, h, kv_heads=kv_heads)
     gen = torch.Generator(device=dev).manual_seed(5)
     k, v = (torch.randn(2 * nb + 1, bs, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
     table = torch.arange(1, 2 * nb + 1, dtype=torch.int32, device=dev).view(2, nb)
     pos = torch.tensor([[nb * bs - 1], [37]], device=dev) - torch.arange(w - 1, -1, -1, device=dev)[None, :]
     pos = pos.to(torch.int32).contiguous()
     q = torch.randn(2, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
-    out = tpa.paged_attention(q, k, v, table, pos)
+    plan = tpa.paged_plan(nb, bs, h, d, w, h, kv_heads=kv_heads)
+    assert (plan.kv_heads == h) == (kv_heads == h)
+    out = tpa.paged_attention(q, k, v, table, pos, plan=plan)
     ref = tpa.paged_attention_plain(q, k, v, table, pos)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    del k, v, ref
     wide = torch.zeros(2, nb + 1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        tpa.paged_attention(q, k, v, wide, pos)
+        tpa.paged_plan(nb + 1, bs, h, d, w, h, kv_heads=kv_heads)
+    if kv_heads is None:
+        with pytest.raises(ValueError):
+            tpa.paged_attention(q, *(torch.zeros(1, bs, h, d, device=dev, dtype=torch.bfloat16),) * 2, wide, pos)
 
 
 @pytest.mark.parametrize("w", [1, 4])
@@ -146,12 +157,130 @@ def test_paged_kernel_flushes_a_subnormal_kv_head_as_plain(dev, w):
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
 
 
+# Llama-2-7B's cache at 4096 tokens, one slot a length: the longest
+# attends every key of its 4096, one a whole number of pages, one a key
+LLAMA_LAST = (4095, 0, 1, 2047, 3000, 16, 1234, 4000)
+
+
+def _llama_case(dev, w, hkv, bs):
+    """8 slots of 4096 tokens of Llama-2-7B's heads (32 query heads of dim
+    128 on ``hkv`` kv heads) in ``bs``-token pages."""
+    return _paged_case(dev, w, s=8, h=32, hkv=hkv, d=128, bs=bs, nb=4096 // bs, last=LLAMA_LAST, free=False)
+
+
+@pytest.mark.parametrize("w,hkv,bs", [(1, 32, 16), (4, 32, 16), (8, 32, 16), (1, 32, 8), (4, 32, 8), (8, 32, 8),
+                                      (1, 8, 16), (4, 8, 8), (8, 8, 16)])
+def test_paged_kernel_at_llama_heads(dev, w, hkv, bs):
+    """Llama-2-7B's heads (H 32, D 128: H * D 4096, so a cluster a head
+    group of 8 query heads) and GQA (8 kv heads: 2 a block), W 1, 4 and
+    8, 8- and 16-token pages, 4096 tokens a slot (one slot attends every
+    one), at the paged gate; a launch counts as grouped, and the fold
+    order is fixed."""
+    q, k, v, table, pos = _llama_case(dev, w, hkv, bs)
+    before, grouped = tpa.paged_attention.launches, tpa.paged_attention.grouped_launches
+    out = tpa.paged_attention(q, k, v, table, pos)
+    ref = tpa.paged_attention_plain(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert tpa.paged_plan(4096 // bs, bs, hkv, 128, w, 32).kv_heads < hkv
+    assert tpa.paged_attention.launches == before + 1 and tpa.paged_attention.grouped_launches == grouped + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(out, tpa.paged_attention(q, k, v, table, pos))
+
+
+@pytest.mark.parametrize("w,hkv", [(1, 32), (4, 8)])
+def test_paged_kernel_at_llama_heads_never_reads_past_positions(dev, w, hkv):
+    """At Llama's heads, every key past its row's position NaN in K and V
+    (in the attended pages and in whole pages past them), and a free lane
+    of inf keys: the head groups' row copies read none of them, so the
+    live slots' outputs keep their bits."""
+    q, k, v, table, pos = _llama_case(dev, w, hkv, 16)
+    clean = tpa.paged_attention(q, k, v, table, pos)
+    bs, nb = k.shape[1], table.shape[1]
+    t = torch.arange(nb * bs, device=dev)
+    past = t[None, :] > pos.max(1).values[:, None]
+    rows = table.long()[:, :, None] * bs + torch.arange(bs, device=dev)[None, None, :]
+    dirty = rows.reshape(len(table), -1)[past]
+    kn, vn = k.clone(), v.clone()
+    kn.view(-1, *k.shape[2:])[dirty] = float("nan")
+    vn.view(-1, *v.shape[2:])[dirty] = float("nan")
+    out = tpa.paged_attention(q, kn, vn, table, pos)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.equal(out, clean)
+
+
+def _random_llama(dev, cfg, seed):
+    """A port ``LlamaLM`` on the card with random weights: N(0, 1/fan_in)
+    kernels and adapters, N(0, 1/hidden) embedding, unit norm scales."""
+    from consensusml_tpu_torch.models.llama import LlamaLM
+
+    model = LlamaLM(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 1.0 / p.shape[-1 if name.endswith(".embedding") else 0] ** 0.5, generator=gen)
+    return model.eval().to_compute_dtype()
+
+
+@pytest.mark.parametrize("scale", ["tiny", "two-layer-7b"])
+def test_llama_decode_step_through_the_kernel_matches_plain(dev, scale):
+    """One Llama prefill and decode step through the serving stages on the
+    kernel tier against the plain tier, same weights and prompt:
+    ``llama_tiny`` (GQA rep 2, head dim 16) with adapters, and Llama-2-7B's
+    widths cut to 2 layers (32 heads of 128) with a 1000-token prompt, so
+    the prefill runs the head-dim-128 flash forward and the step the
+    grouped paged kernel. Logits within ``chip_smoke.py``'s serve gate
+    (2.5e-2 of max|logit|); the paged kernel launched once a layer."""
+    from consensusml_tpu_torch.models.flash_attention import flash_attention
+    from consensusml_tpu_torch.models.llama import LlamaConfig
+    from consensusml_tpu_torch.serve import pool as P
+    from consensusml_tpu_torch.serve.decode import DecodeModel
+
+    if scale == "tiny":
+        cfg = LlamaConfig(vocab_size=256, hidden=64, layers=2, heads=4, kv_heads=2, mlp_dim=128, max_len=128,
+                          lora_rank=4)
+        n, bucket = 37, 64
+    else:
+        cfg = LlamaConfig(layers=2, lora_rank=16)
+        n, bucket = 1000, 1024
+    dm = DecodeModel.wrap(_random_llama(dev, cfg, seed=1))
+    bs = 16
+    nb = cfg.max_len // bs
+    prompt = torch.randint(0, cfg.vocab_size, (1, bucket), generator=torch.Generator().manual_seed(2)).to(dev)
+    table = torch.zeros((2, nb), dtype=torch.int32, device=dev)
+    table[0] = torch.arange(1, nb + 1, dtype=torch.int32, device=dev)
+    tokens = torch.tensor([7, 0], dtype=torch.int32, device=dev)
+    positions = torch.tensor([n, 0], dtype=torch.int32, device=dev)
+    samp = (torch.zeros(2, device=dev), torch.ones(2, device=dev), torch.zeros(2, dtype=torch.int64, device=dev))
+    out = {}
+    for impl in ("cuda", "torch"):
+        pages = P.init_pages(dm, nb + 1, bs)
+        flash0, paged0 = flash_attention.launches, tpa.paged_attention.launches
+        row = table[0, : bucket // bs].long()
+        _tok, last = P.make_paged_prefill_fn(dm, attn_impl=impl)(pages, prompt, n, row, 0.0, 1.0, 0)
+        _next, logits = P.make_paged_decode_fn(dm, attn_impl=impl)(pages, table, tokens, positions, *samp)
+        torch.cuda.synchronize()
+        out[impl] = (last, logits[0], flash_attention.launches - flash0, tpa.paged_attention.launches - paged0)
+    (gl, gd, gflash, gpaged), (wl, wd, wflash, wpaged) = out["cuda"], out["torch"]
+    assert (gpaged, wpaged, wflash) == (cfg.layers, 0, 0)
+    assert gflash == (cfg.layers if bucket * bucket > 512 * 512 else 0)
+    for got, want in ((gl, wl), (gd, wd)):
+        assert torch.isfinite(got).all() and got.shape == (cfg.vocab_size,)
+        assert float((got - want).abs().max() / want.abs().max()) <= 2.5e-2
+
+
 def test_paged_plan_shared_memory_is_the_kernels(dev):
-    """The Python plan's shared-memory size is the kernel's own layout."""
+    """The Python plan's shared-memory size is the kernel's own layout,
+    whole pages a block (GPT-2-medium's heads) and head groups (Llama's)."""
     lib = tpa._lib()
-    for w, hkv, nb in ((1, 16, 64), (4, 8, 64), (8, 4, 200), (1, 2, 2)):
-        p = tpa.paged_plan(nb, 16, hkv, 64, w, 16)
-        assert lib.cml_paged_attention_smem_bytes(w, 16, hkv, 64, 16, p.pages, p.ring) == p.smem
+    for w, h, hkv, d, bs, nb in ((1, 16, 16, 64, 16, 64), (4, 16, 8, 64, 16, 64), (8, 16, 4, 64, 16, 200),
+                                 (1, 16, 2, 64, 16, 2), (1, 32, 32, 128, 16, 256), (8, 32, 32, 128, 8, 512),
+                                 (4, 32, 8, 128, 16, 256), (4, 16, 16, 64, 16, 5000)):
+        p = tpa.paged_plan(nb, bs, hkv, d, w, h)
+        assert lib.cml_paged_attention_smem_bytes(w, h, hkv, d, bs, p.pages, p.ring, p.kv_heads) == p.smem
 
 
 def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):

@@ -9,12 +9,16 @@ outputs of order 1.
 
 The CUDA kernel has no CPU mode: ``tests/test_torch_cuda.py`` holds it
 against the plain version on the card. Here its launch plan
-(``paged_plan``) is held to cover every attended key exactly once, and an
-emulation of its split arithmetic (each block's max and sum over its
-pages, the slot's max and sum over the blocks in rank order, bf16
-probabilities from the slot's sum, each block's f32 P V, folded in rank
-order) is held to the JAX kernel in interpret mode, in bf16 at the
-tolerance above.
+(``paged_plan``) is held to cover every attended key exactly once for
+every kv head (a cluster a slot and head group), to be the plan it was
+at GPT-2-medium's heads, and to take Llama-2-7B's (H 32, D 128) at 4096
+tokens; and an emulation of its split arithmetic (each block's max and
+sum over its pages, the slot's max and sum over the blocks in rank
+order, bf16 probabilities from the slot's sum, each block's f32 P V,
+folded in rank order) is held to the JAX kernel in interpret mode, in
+bf16 at the tolerance above. The head groups do not enter the emulation:
+every value the kernel computes belongs to one (row, head) or one output
+element, whichever block of its cluster holds the head.
 """
 
 import jax
@@ -147,34 +151,110 @@ def test_subnormal_kv_head_flushes_as_the_reference(name, w):
     np.testing.assert_allclose(got, want, **TOL[name])
 
 
-def _covered(plan, bs, nb, last):
-    """Per window row, how many blocks read each key 0 .. nb * bs - 1."""
-    hits = np.zeros((len(last), nb * bs), np.int64)
-    for rows in tpa.paged_block_keys(plan, bs, nb, last):
+def _covered(plan, bs, nb, last, hkv):
+    """Per kv head and window row, how many blocks read each key 0 .. nb *
+    bs - 1."""
+    hits = np.zeros((hkv, len(last), nb * bs), np.int32)
+    for kv0, kv1, rows in tpa.paged_block_keys(plan, bs, nb, last, hkv):
+        assert kv1 - kv0 == plan.kv_heads
         for w, (k0, k1) in enumerate(rows):
-            hits[w, k0:k1] += 1
+            hits[kv0:kv1, w, k0:k1] += 1
     return hits
+
+
+def _assert_covered_once(plan, bs, nb, last, hkv):
+    hits = _covered(plan, bs, nb, last, hkv)
+    for i, lw in enumerate(last):
+        assert (hits[:, i, : lw + 1] == 1).all() and not hits[:, i, lw + 1:].any(), (nb, last, i)
 
 
 @pytest.mark.parametrize("w", [1, 4, 8])
 def test_plan_covers_every_attended_key_once(w):
     """At the check's ragged lengths, at length 1 and at the longest cache
-    the kernel takes (GPT-2-medium's heads), every key up to each window
-    row's position is read by exactly one block of its slot, and no key
-    past it by any."""
+    the kernel takes (GPT-2-medium's heads: whole pages a block, and past
+    that cache's end, fewer kv heads a block), every key up to each window
+    row's position is read for every kv head by exactly one block of its
+    slot, and no key past it by any."""
     bs, h, d = 16, 16, 64
     nb_max = tpa.paged_max_blocks(bs, h, d, w, h)
-    assert nb_max >= 64 and tpa.paged_plan(64, bs, h, d, w, h).splits == 16
+    nb_whole = tpa.paged_max_blocks(bs, h, d, w, h, kv_heads=h)
+    assert nb_max >= nb_whole >= 64 and tpa.paged_plan(64, bs, h, d, w, h).splits == 16
+    assert tpa.paged_plan(nb_whole, bs, h, d, w, h).kv_heads == h
+    assert tpa.paged_plan(nb_whole + 1, bs, h, d, w, h).kv_heads < h
     with pytest.raises(ValueError):
         tpa.paged_plan(nb_max + 1, bs, h, d, w, h)
-    cases = [(64, length) for length in CHECK_LENGTHS] + [(nb_max, 1), (nb_max, nb_max * bs), (nb_max, 4321)]
+    cases = [(64, length) for length in CHECK_LENGTHS] + [
+        (nb, length) for nb in (nb_whole, nb_max) for length in (1, nb * bs, 4321)]
     for nb, length in cases:
         plan = tpa.paged_plan(nb, bs, h, d, w, h)
         assert plan.splits <= 16 and (plan.splits - 1) * plan.pages < nb <= plan.splits * plan.pages
-        last = [max(0, length - w + i) for i in range(w)]
-        hits = _covered(plan, bs, nb, last)
-        for i, lw in enumerate(last):
-            assert (hits[i, : lw + 1] == 1).all() and not hits[i, lw + 1:].any(), (nb, length, i)
+        _assert_covered_once(plan, bs, nb, [max(0, length - w + i) for i in range(w)], h)
+
+
+# the serving check's plans at GPT-2-medium's heads (16 of 64, 16-token
+# pages, 64 a slot), as they were before head groups: (pages, splits,
+# ring, smem) at W = 1 .. 8
+GPT2_PLANS = {1: (4, 16, 2, 81296), 2: (4, 16, 2, 94864), 3: (4, 16, 2, 108432), 4: (4, 16, 2, 122000),
+              5: (4, 16, 2, 135568), 6: (4, 16, 2, 149136), 7: (4, 16, 2, 162704), 8: (4, 16, 2, 176272)}
+# the longest caches before head groups (tokens: paged_max_blocks x 16)
+GPT2_LONGEST = {1: 46592, 4: 9728, 8: 3584}
+
+
+@pytest.mark.parametrize("w", sorted(GPT2_PLANS))
+def test_gpt2_medium_plan_is_unchanged(w):
+    """At GPT-2-medium's heads a block holds all 16 (whole pages, one copy
+    each), and the plan is the one before head groups: the same pages,
+    splits, ring and shared memory, the same as the kernel's layout of
+    the whole-page block."""
+    plan = tpa.paged_plan(64, 16, 16, 64, w, 16)
+    assert plan.kv_heads == 16 and plan[:4] == GPT2_PLANS[w]
+    assert plan.smem == tpa.paged_smem(w, 16, 16, 64, 16, plan.pages, plan.ring)
+
+
+@pytest.mark.parametrize("w", sorted(GPT2_LONGEST))
+def test_longest_cache_is_no_shorter(w):
+    """GPT-2-medium's longest cache: with whole pages a block exactly
+    what it was, and with the plan free to give a block fewer kv heads
+    longer (the cache past W > 1 that the cluster design had lost)."""
+    whole = tpa.paged_max_blocks(16, 16, 64, w, 16, kv_heads=16) * 16
+    assert whole == GPT2_LONGEST[w]
+    assert tpa.paged_max_blocks(16, 16, 64, w, 16) * 16 >= 4 * whole
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("hkv,g", [(32, 8), (8, 2)], ids=["llama2-7b", "gqa-rep4"])
+def test_plan_takes_llama_heads_at_4096_tokens(hkv, g, bs):
+    """Llama-2-7B's heads (32 of dim 128; H * D = 4096) and a GQA case (32
+    query heads on 8 kv heads) at every W in 1..8: a cache of 4096 tokens
+    (512 pages of 8, 256 of 16) in 16 blocks a cluster, each block 8
+    query heads (1024 dims: the P V stage's thread a (head, 4 dims)), and
+    every attended key read once for every kv head."""
+    h, d, nb = 32, 128, 4096 // bs
+    for w in range(1, 9):
+        plan = tpa.paged_plan(nb, bs, hkv, d, w, h)
+        assert (plan.splits, plan.kv_heads, plan.pages) == (16, g, nb // 16)
+        assert plan.kv_heads * (h // hkv) * d == 1024 and plan.smem <= 232448
+        assert tpa.paged_max_blocks(bs, hkv, d, w, h) * bs >= 4096
+        for length in (1, 777, 4096):
+            _assert_covered_once(plan, bs, nb, [max(0, length - w + i) for i in range(w)], hkv)
+
+
+@pytest.mark.parametrize("hkv", [32, 8])
+def test_plain_matches_jax_interpret_at_llama_heads(hkv):
+    """``paged_attention_plain`` against the JAX kernel (``_fused_call``
+    in interpret mode) at Llama's head geometry: 32 query heads of dim
+    128 on 32 or 8 kv heads, bf16, a slot at its last key, a short one and
+    a free lane; at one bf16 ulp (the file's bf16 tolerance)."""
+    s, w, h, d, bs, nb = 3, 1, 32, 128, 8, 3
+    q, k, v, table, positions = _case(seed=90 + hkv, s=s, w=w, h=h, hkv=hkv, d=d, bs=bs, nb=nb)
+    jdt, tdt = DT["bf16"]
+    want = np.asarray(jpa._fused_call(jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                                      jnp.asarray(table), jnp.asarray(positions), jdt, interpret=True), np.float32)
+    got = tpa.paged_attention_plain(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)), torch.from_numpy(table),
+                                    torch.from_numpy(positions), dtype=tdt).float().numpy()
+    live = slice(0, 2)
+    assert np.isfinite(got[live]).all()
+    np.testing.assert_allclose(got[live], want[live], **TOL["bf16"])
 
 
 def _emulate(q, k, v, table, positions, plan):
@@ -193,7 +273,8 @@ def _emulate(q, k, v, table, positions, plan):
         rows = (table[slot].long()[:, None] * bs + torch.arange(bs)[None, :]).reshape(-1)
         ks = k.reshape(-1, hkv, d)[rows].float().repeat_interleave(rep, dim=1)  # (T, H, D)
         vs = v.reshape(-1, hkv, d)[rows].float().repeat_interleave(rep, dim=1)
-        blocks = tpa.paged_block_keys(plan, bs, nb, positions[slot].tolist())
+        blocks = [rows for kv0, _kv1, rows in tpa.paged_block_keys(plan, bs, nb, positions[slot].tolist(), hkv)
+                  if kv0 == 0]  # every head group's cluster reads these keys for its own heads
         for i in range(w):
             qi = q[slot, i].float()  # (H, D)
             spans = [blk[i] for blk in blocks]
@@ -268,10 +349,14 @@ def test_split_arithmetic_is_the_plain_versions_within_one_ulp(w, seed):
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
+    # nine window rows; D not a multiple of 8; H not a multiple of Hkv; a
+    # kv head whose 16 query heads of 128 dims exceed a block's 1024
     for args in ((64, 16, 16, 64, 9, 16), (64, 16, 16, 60, 1, 16), (64, 16, 6, 64, 1, 16),
-                 (64, 16, 32, 64, 1, 32)):
+                 (64, 16, 2, 128, 1, 32)):
         with pytest.raises(ValueError):
             tpa.paged_plan(*args)
+    with pytest.raises(ValueError):  # 3 kv heads a block do not divide 32
+        tpa.paged_plan(256, 16, 32, 128, 1, 32, kv_heads=3)
     with pytest.raises(ValueError):  # 64 pages in blocks of 2: 32 blocks, more than a cluster holds
         tpa.paged_plan(64, 16, 16, 64, 1, 16, pages=2)
 

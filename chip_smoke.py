@@ -2527,7 +2527,9 @@ class GossipCheck:
         self.rounds, self.worst = [], 0.0
         check = self
 
-        def round_simulated(engine, params, state, w, step=None):
+        def round_simulated(engine, params, state, w, step=None, alive=None):
+            if alive is not None:
+                raise AssertionError("GossipCheck holds unmasked rounds to W @ x; this round was masked")
             out = check.orig(engine, params, state, w, step=step)
             check.check(params, w, step, out[0])
             return out
@@ -2651,6 +2653,379 @@ def train_resnet_topologies_phase(torch, dev, init):
 
 
 # ---------------------------------------------------------------------------
+# fault-tolerant and directed gossip (worker drop-outs, non-finite
+# rollback, push-sum) and the per-leaf wire
+# ---------------------------------------------------------------------------
+
+# what a masked or push-sum round must keep, element by element of every
+# gossiped leaf: the workers' mean (masked mixing on a symmetric graph is
+# doubly stochastic), or sum_i w_i z_i and sum_i w_i (push-sum's operator
+# is column-stochastic): |after - before| <= FAULT_RTOL * (sum_i |terms|),
+# f32 sums of a few terms in another order being a few 2^-24 of them, a
+# lost or doubled worker a whole term
+FAULT_RTOL = 1e-5
+FAULT_DROP_PROB = 0.1
+FAULT_DEAD = (2, 5)  # the alive= round's masked workers
+FAULT_NAN_WORKER = 3  # and the worker whose batch is NaN in that round
+
+
+class FaultRoundCheck:
+    """While open, holds every simulated gossip round to what it must
+    keep (``FAULT_RTOL``): nothing non-finite comes out; an exact masked
+    round gives a worker the mask kills its input rows back bit for bit
+    and keeps the workers' mean of every leaf; a push-sum round keeps
+    ``sum_i w_i`` (= the world size) and ``sum_i w_i z_i`` of every leaf.
+    The sums are taken in f64 on the card, a leaf at a time."""
+
+    def __init__(self, torch):
+        from consensusml_tpu_torch.consensus.engine import ConsensusEngine
+
+        self.torch, self.cls, self.orig = torch, ConsensusEngine, ConsensusEngine.round_simulated
+        self.rounds = []
+        check = self
+
+        def round_simulated(engine, params, state, w, step=None, alive=None):
+            before = check.before(engine, params, state, alive)
+            out = check.orig(engine, params, state, w, step=step, alive=alive)
+            check.check(engine, state, alive, out, before, step)
+            return out
+
+        ConsensusEngine.round_simulated = round_simulated
+
+    def _sums(self, leaves, w):
+        torch = self.torch
+        out = []
+        for x in leaves:
+            x64 = x.to(torch.float64).reshape(x.shape[0], -1)
+            if w is not None:
+                x64 = x64 * w.to(torch.float64)[:, None]
+            out.append((x64.sum(0), x64.abs().sum(0)))
+        return out
+
+    def before(self, engine, params, state, alive):
+        from consensusml_tpu_torch.utils import tree as T
+
+        leaves = T.leaves(params)
+        dead = [] if alive is None else [i for i, a in enumerate(alive.tolist()) if a == 0]
+        push = engine.config.push_sum_enabled
+        return {"sums": self._sums(leaves, state.w if push else None), "dead": dead,
+                "dead_rows": [x[dead].clone() for x in leaves] if dead and not push else []}
+
+    def check(self, engine, state, alive, out, before, step) -> None:
+        from consensusml_tpu_torch.utils import tree as T
+
+        torch = self.torch
+        mixed, new_state = out
+        leaves = T.leaves(mixed)
+        push = engine.config.push_sum_enabled
+        sums = self._sums(leaves, new_state.w if push else None)
+        worst = 0.0
+        for (b, scale), (a, _s) in zip(before["sums"], sums):
+            worst = max(worst, float(((a - b).abs() / (FAULT_RTOL * scale + 1e-30)).max()))
+        finite = all(bool(torch.isfinite(x).all()) for x in leaves)
+        # masked mixing gives a dead row back as it came; push-sum gives its
+        # mass back and (z w) / w, within a rounding of z
+        dead_kept = push or all(torch.equal(x[before["dead"]], rows) for x, rows in zip(leaves, before["dead_rows"]))
+        rec = {"step": step, "alive": None if alive is None else alive.tolist(), "dead": before["dead"],
+               "kept_sums_worst_over_tol": worst, "finite": finite, "dead_rows_kept_bitwise": dead_kept}
+        if push:
+            w_sum = float(new_state.w.to(torch.float64).sum())
+            rec["mass"] = new_state.w.tolist()
+            rec["mass_sum"] = w_sum
+            if abs(w_sum - len(rec["mass"])) > FAULT_RTOL * len(rec["mass"]):
+                raise AssertionError(f"push-sum round {step}: the masses sum to {w_sum}: {rec}")
+        if not (worst <= 1.0 and finite and dead_kept):
+            raise AssertionError(f"gossip round {step} did not keep what it must: {rec}")
+        self.rounds.append(rec)
+
+    def close(self) -> None:
+        self.cls.round_simulated = self.orig
+
+
+def train_resnet_faults_phase(torch, dev, init, push_sum: bool, counted=3):
+    """``train_resnet_faults`` (``push_sum`` False: the ring, masked
+    mixing) or ``train_resnet_pushsum`` (True: onepeer-exp, push-sum): a
+    warm round, then ``counted`` rounds with every worker's drawn flags,
+    each gossip round held by :class:`FaultRoundCheck`, 53 x 8 launches a
+    round of each BN kernel. The faults phase then runs one round with
+    ``alive=`` masking workers 2 and 5 and a NaN batch for worker 3:
+    worker 3 must roll back (its parameters and statistics as before the
+    round, bit for bit) and be dead, workers 2, 3 and 5 must leave the
+    gossip with their pre-gossip rows, and no NaN may reach any worker."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    bundle = configs.build("cifar_resnet50", "full", norm_impl="pallas",
+                           topology="onepeer-exp" if push_sum else None, device=dev)
+    configs.with_gossip_flags(bundle, drop_prob=FAULT_DROP_PROB, push_sum=push_sum)
+    cfg, world = bundle.cfg, bundle.world_size
+    engine = cfg.engine()
+    if engine.config.push_sum_enabled != push_sum or engine.config.faults is None:
+        raise AssertionError(f"fault config not as asked: {engine.config}")
+    marks = [("start", time.perf_counter())]
+    extra = 0 if push_sum else 1
+    batches = list(bundle.batches(1 + counted + extra, 0))
+    params, model_state = bundle.convert(init)
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in params.items()}, world, seed=0,
+                               model_state=T.tree_map(lambda t: t.to(dev), model_state))
+    del params, model_state
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    check = FaultRoundCheck(torch)
+    rounds = []
+    try:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[0])
+        warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+                "alive_mask": m["alive_mask"].tolist(), "round_ms": 1e3 * (time.perf_counter() - t0)}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        for batch in batches[1:1 + counted]:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err,
+                           "round_ms": 1e3 * (time.perf_counter() - t0), "inner_ms": m["inner_ms"],
+                           "gossip_ms": m["gossip_ms"], "imgs_per_s_per_chip": m["imgs_per_s"],
+                           "alive_frac": float(m["alive_frac"]), "alive_mask": m["alive_mask"].tolist(),
+                           **({"mass": state.gossip.w.tolist()} if push_sum else {})})
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        marks.append(("rounds", time.perf_counter()))
+        masked = None
+        if not push_sum:
+            masked, masked_counts = masked_nan_round(torch, step, state, batches[1 + counted], world)
+            state = masked.pop("state")
+            marks.append(("masked_round", time.perf_counter()))
+    finally:
+        check.close()
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"])):
+            raise AssertionError(f"round {r['step']}: loss or consensus error not finite: {r}")
+    n_bn = sum(1 for n in state.model_state["batch_stats"] if n.endswith(".mean"))
+    expect = {name: n_bn * world * cfg.h * counted if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+    if n_bn != 53 or counts != expect:
+        raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
+    if len(check.rounds) != 1 + counted + extra:
+        raise AssertionError(f"{len(check.rounds)} gossip rounds were checked, not {1 + counted + extra}")
+    total = dict(counts)
+    if masked is not None:
+        m_expect = {name: n_bn * world * cfg.h if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+        if masked_counts != m_expect:
+            raise AssertionError(f"the masked round's launches {masked_counts} differ from {m_expect}")
+        total = {k: v + masked_counts[k] for k, v in counts.items()}
+    counted_ms = [r["round_ms"] for r in rounds]
+    flags = "--norm-impl pallas --drop-prob 0.1" + (" --topology onepeer-exp --push-sum" if push_sum else "")
+    out = {
+        "phase": "train_resnet_pushsum" if push_sum else "train_resnet_faults",
+        "config": f"cifar_resnet50 full (ResNet-50, CIFAR stem), 8 workers, {flags}",
+        "topology": engine.topology.name, "push_sum": push_sum, "drop_prob": FAULT_DROP_PROB,
+        "wire": "per-leaf (push-sum)" if push_sum else "dense bucketed",
+        "wire_bytes_per_round": engine.wire_bytes_per_round(
+            {"params": {n: p[0] for n, p in state.params.items()},
+             "model_state": T.tree_map(lambda t: t[0], state.model_state)}),
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(counted_ms) / counted,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": total, "launches_expected_counted": expect,
+        "gossip_checks": check.rounds, "kept_sums_rtol": FAULT_RTOL,
+        **({"masked_nan_round": masked} if masked is not None else {}),
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, total
+
+
+def masked_nan_round(torch, step, state, batch, world):
+    """The faults phase's last round: ``alive=`` with workers 2 and 5
+    masked, and worker 3's batch NaN (module constants). Returns the gated
+    record (with the new ``state``) and the round's launches."""
+    from consensusml_tpu_torch import kernels
+
+    batch = dict(batch)
+    batch["image"] = batch["image"].clone()
+    batch["image"][FAULT_NAN_WORKER] = float("nan")
+    w = FAULT_NAN_WORKER
+    rows = {n: p[w].clone() for n, p in state.params.items()}
+    stats = {n: t[w].clone() for n, t in state.model_state["batch_stats"].items()}
+    mask = torch.ones(world, dtype=torch.float32)
+    mask[list(FAULT_DEAD)] = 0.0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, alive=mask)
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = kernels.launch_counts()
+    alive = m["alive_mask"].tolist()
+    rolled_back = (all(torch.equal(state.params[n][w], r) for n, r in rows.items())
+                   and all(torch.equal(state.model_state["batch_stats"][n][w], t) for n, t in stats.items()))
+    finite = (all(bool(torch.isfinite(p).all()) for p in state.params.values())
+              and all(bool(torch.isfinite(t).all()) for t in state.model_state["batch_stats"].values()))
+    want_alive = [0.0 if i in FAULT_DEAD or i == w else 1.0 for i in range(world)]
+    rec = {"alive_given": mask.tolist(), "nan_worker": w, "alive_mask": alive, "alive_mask_expected": want_alive,
+           "loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]), "round_ms": ms,
+           "nan_worker_rolled_back_bitwise": rolled_back, "every_worker_finite": finite, "launches": counts}
+    if alive != want_alive or not rolled_back or not finite:
+        raise AssertionError(f"the masked NaN round: {rec}")
+    rec["state"] = state
+    return rec, counts
+
+
+class PayloadBytes:
+    """While open, adds up the wire bytes of every payload a codec's
+    ``compress`` returns (stacked payloads counted a worker's share)."""
+
+    def __init__(self, cls, world):
+        self.cls, self.orig, self.bytes, self.calls = cls, cls.compress, 0, 0
+        counter = self
+
+        def compress(codec, x, stacked=False):
+            p = counter.orig(codec, x, stacked=stacked)
+            n = sum(t.numel() * t.element_size() for t in p.wire_tensors())
+            counter.bytes += n // world if stacked else n
+            counter.calls += 1
+            return p
+
+        cls.compress = compress
+
+    def close(self):
+        self.cls.compress = self.orig
+
+
+def train_perleaf_phase(torch, tck, dev, init, counted=2):
+    """``train_perleaf_topk``: gpt2_topk full, --workers 4 --codec-warmup 1
+    --bucket-bytes 0 (the config's top-k + int8 codec on the per-leaf
+    wire: every leaf compressed, decoded and mixed on its own). Gates: the
+    four codec kernels launch once a leaf an exchange; the payload bytes a
+    worker's exchange produces, times the ring's two sends, equal
+    ``wire_bytes_per_round`` (printed beside the bucketed wire's); one
+    round of the first ``GPT2_CHECK_LEAVES`` leaves through the kernels
+    equals the same round through their plain versions bit for bit
+    (parameters, xhat and s)."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.compress.base import ComposedCompressor
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    world = 4
+    bundle = configs.build("gpt2_topk", "full", world=world, codec_warmup=1, device=dev)
+    configs.with_gossip_flags(bundle, bucket_bytes=0)
+    cfg, mcfg = bundle.cfg, bundle.model.config
+    engine = cfg.engine()
+    if engine.bucketed or engine.fused_wire_active:
+        raise AssertionError("--bucket-bytes 0 must take the per-leaf wire")
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(1 + counted, 0))
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}, world, seed=0)
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    n_leaves = len(state.params)
+    per_worker = {"params": {n: p[0] for n, p in state.params.items()}, "model_state": {}}
+    wire = engine.wire_bytes_per_round(per_worker)
+    del per_worker
+    ids = batches[0]["input_ids"]
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])  # round 0: warm (dense mixing), not counted
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    payload = PayloadBytes(ComposedCompressor, world)
+    rounds = []
+    try:
+        for batch in batches[1:]:
+            b0 = payload.bytes
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            sends = engine._sends_per_round()
+            rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                           "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                           "tokens_per_s_per_chip": world * cfg.h * ids.shape[2] * ids.shape[3] / (ms / 1e3),
+                           "wire_bytes": int((payload.bytes - b0) * sends)})
+    finally:
+        payload.close()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    marks.append(("rounds", time.perf_counter()))
+    exchanges = counted * cfg.gossip.gossip_steps
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect[name] = mcfg.layers * world * cfg.h * counted
+    for name in CODEC_KERNELS[None]:
+        expect[name] = n_leaves * exchanges
+    problems = []
+    if counts != expect:
+        problems.append(f"launches {counts} differ from the per-leaf plan's {expect}")
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            problems.append(f"round {r['step']}: loss or consensus error not finite and positive")
+        if r["wire_bytes"] != wire:
+            problems.append(f"round {r['step']}: {r['wire_bytes']} payload bytes, wire_bytes_per_round {wire}")
+    if problems:
+        raise AssertionError("train_perleaf_topk: " + "; ".join(problems))
+    state.opt_state = None  # Adam's moments: the check round does not read them
+    gc.collect()
+    torch.cuda.empty_cache()
+    check = perleaf_plain_check(torch, tck, dev, engine, state)
+    out = {
+        "phase": "train_perleaf_topk",
+        "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec-warmup 1 --bucket-bytes 0",
+        "codec_path": bundle.codec_path, "wire": "per-leaf", "workers": world, "h": cfg.h,
+        "leaves": n_leaves, "wire_bytes_per_round": wire,
+        "bucketed_wire_bytes_per_round": PLANS[None][1], "bucketed_buckets": PLANS[None][0],
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "kernels_vs_plain_round": check,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def perleaf_plain_check(torch, tck, dev, engine, state):
+    """One per-leaf CHOCO round of the first ``GPT2_CHECK_LEAVES`` leaves
+    (their CHOCO state with them) through the codec kernels, then through
+    their plain versions (the wrappers swapped for them for that round, so
+    nothing counts): parameters, xhat and s bit-equal."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.consensus import ChocoState
+
+    names = sorted(state.params)[:GPT2_CHECK_LEAVES]
+    tree = {"params": {n: state.params[n] for n in names}, "model_state": {}}
+    sub = ChocoState(xhat=list(state.gossip.xhat[:len(names)]), s=list(state.gossip.s[:len(names)]))
+    w = simulated.mixing_matrix(engine.topology, device=dev)
+    step = state.step
+    got_tree, got_state = engine.round_simulated(tree, sub, w, step=step)
+    swapped = {name: getattr(tck, name) for name in CODEC_KERNELS[None]}
+    try:
+        for name in swapped:
+            setattr(tck, name, getattr(tck, f"{name}_plain"))
+        want_tree, want_state = engine.round_simulated(tree, sub, w, step=step)
+    finally:
+        for name, fn in swapped.items():
+            setattr(tck, name, fn)
+    torch.cuda.synchronize()
+    bad = {"params": sum(mismatches(torch, got_tree["params"][n], want_tree["params"][n]) for n in names),
+           "xhat": sum(mismatches(torch, a, b) for a, b in zip(got_state.xhat, want_state.xhat)),
+           "s": sum(mismatches(torch, a, b) for a, b in zip(got_state.s, want_state.s))}
+    out = {"leaves": len(names), "elements_per_worker": sum(state.params[n][0].numel() for n in names),
+           "round": step, "bits_differing": bad}
+    if any(bad.values()):
+        raise AssertionError(f"the per-leaf round through the kernels differs from the plain versions': {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the collective backend: one process per worker, all on the one card,
 # gloo ranks whose wire is staged through pinned host memory
 # ---------------------------------------------------------------------------
@@ -2669,15 +3044,32 @@ GPT2_CHECK_LEAVES = 36
 COLLECTIVE_TIMEOUT_S = 540.0
 
 
-def collective_spec(config, scale, world, rounds, codec=None, norm_impl="flax", check_leaves=None, device="cuda"):
+def collective_spec(config, scale, world, rounds, codec=None, norm_impl="flax", check_leaves=None, device="cuda",
+                    topology=None, push_sum=False, drop_prob=0.0, check_alive=None):
     """The train CLI's flags (``--backend collective --dist-backend gloo``)
     as :func:`consensusml_tpu_torch.train.collective.train_rank` reads
-    them, plus the seeded gossip check after the rounds."""
+    them, plus the seeded gossip check after the rounds (under the mask
+    ``check_alive`` when given)."""
     return {"config": config, "scale": scale, "workers": world, "codec": codec, "gamma": None,
-            "codec_warmup": 1 if config == "gpt2_topk" else None, "norm_impl": norm_impl, "topology": None,
+            "codec_warmup": 1 if config == "gpt2_topk" else None, "norm_impl": norm_impl, "topology": topology,
+            "push_sum": push_sum, "drop_prob": drop_prob,
             "seed": 0, "device": device, "dist_backend": "gloo", "rounds": rounds, "log_every": 0,
             "check": {"seed": COLLECTIVE_CHECK_SEED, "step": 1,
-                      "leaves": check_leaves}}
+                      "leaves": check_leaves, "alive": check_alive}}
+
+
+def flag_bytes(engine, step: int) -> int:
+    """The fault flags a rank sends in a round beside the payload (none
+    without faults): 4 bytes a shift of the round's phase, twice for
+    push-sum (its in- and out-neighbours'), or the alive count beside a
+    dense graph's all-reduce."""
+    if engine.config.faults is None:
+        return 0
+    topo = engine.topology
+    phase = topo.phases[step % topo.period] if topo.is_time_varying else topo
+    if phase.uses_psum:
+        return 4
+    return 4 * len(phase.shifts) * (2 if engine.config.push_sum_enabled else 1)
 
 
 def collective_launches_expected(bundle, buckets):
@@ -2709,33 +3101,56 @@ def collective_launches_expected(bundle, buckets):
     return out, forms
 
 
-def collective_check(torch, dev, bundle, results, check_leaves):
+def collective_check(torch, dev, bundle, results, spec_check):
     """Gate 2: the ranks' seeded gossip round against the simulated round
-    on the same stacked inputs, computed here after the ranks exited."""
+    on the same stacked inputs (and mask), computed here after the ranks
+    exited."""
     from consensusml_tpu_torch.comm import simulated
     from consensusml_tpu_torch.comm.check import seeded_state, seeded_tree
-    from consensusml_tpu_torch.consensus import ChocoState
+    from consensusml_tpu_torch.consensus import ChocoState, PushSumState
     from consensusml_tpu_torch.utils import tree as T
 
     engine = bundle.cfg.engine()
     world = len(results)
     leaves = [(tuple(p), tuple(sh)) for p, sh in results[0]["check"]["leaves"]]
+    alive = spec_check.get("alive")
     rows, states = [], []
     for r in range(world):
         tree, gen = seeded_tree(leaves, COLLECTIVE_CHECK_SEED, r, dev)
         rows.append(tree)
         states.append(seeded_state(engine, tree, gen))
     stacked = T.tree_map(lambda *xs: torch.stack(xs), *rows)
-    state = None if states[0] is None else ChocoState(
-        xhat=[torch.stack(xs) for xs in zip(*[s.xhat for s in states])],
-        s=[torch.stack(xs) for xs in zip(*[s.s for s in states])])
+    if states[0] is None:
+        state = None
+    elif isinstance(states[0], PushSumState):
+        state = PushSumState(w=torch.stack([st.w for st in states]))
+    else:
+        state = ChocoState(xhat=[torch.stack(xs) for xs in zip(*[st.xhat for st in states])],
+                           s=[torch.stack(xs) for xs in zip(*[st.s for st in states])])
     x_abs = T.tree_map(torch.abs, stacked)
-    w = simulated.mixing_matrix(engine.topology, device=dev)
+    topo = engine.topology
+    step = spec_check["step"]
+    w = (simulated.phase_matrices(topo, device=dev)[step % topo.period] if topo.is_time_varying
+         else simulated.mixing_matrix(topo, device=dev))
     del rows, states
-    want, want_state = engine.round_simulated(stacked, state, w, step=1)
+    mask = None if alive is None else torch.tensor(alive, dtype=torch.float32, device=dev)
+    want, want_state = engine.round_simulated(stacked, state, w, step=step, alive=mask)
     bound = None
     if not engine.compressed:
-        bound = T.tree_map(lambda a: simulated.mix_stacked(a, torch.abs(w)), x_abs)
+        # the scale of what a row sums: |W'| @ |x| with the round's own
+        # operator (masked, or push-sum's on x w, de-biased)
+        if engine.config.push_sum_enabled:
+            from consensusml_tpu_torch.consensus import pushsum_matrix
+
+            c = pushsum_matrix(w, mask).abs()
+            wi = state.w.reshape(-1)
+            bound = T.tree_map(lambda a: simulated.mix_stacked(a * wi.reshape((-1,) + (1,) * (a.dim() - 1)), c)
+                               / want_state.w.reshape((-1,) + (1,) * (a.dim() - 1)), x_abs)
+        else:
+            from consensusml_tpu_torch.consensus import masked_mixing_matrix
+
+            wm = w if mask is None else masked_mixing_matrix(w, mask)
+            bound = T.tree_map(lambda a: simulated.mix_stacked(a, wm.abs()), x_abs)
     del stacked, state, x_abs
     worst, xhat_mismatches = 0.0, 0
 
@@ -2751,7 +3166,10 @@ def collective_check(torch, dev, bundle, results, check_leaves):
         b = None if bound is None else dict(T.flatten_with_paths(bound))[path]
         held(g, wnt, b)
     n_buckets = None
-    if want_state is not None:
+    if isinstance(want_state, PushSumState):
+        g = torch.stack([torch.as_tensor(r["check"]["state"]["w"]) for r in results]).reshape(-1)
+        held(g, want_state.w, None)
+    elif want_state is not None:
         n_buckets = len(want_state.xhat)
         for b in range(n_buckets):
             xh = torch.stack([torch.from_numpy(r["check"]["state"]["xhat"][b]) for r in results]).to(dev)
@@ -2763,10 +3181,11 @@ def collective_check(torch, dev, bundle, results, check_leaves):
            "tolerance_scale": "|W| @ |x|" if bound is not None else "|simulated|",
            "launches": results[0]["check"]["launches"], "forms": results[0]["check"]["forms"],
            "bytes_sent_per_rank": [r["check"]["transport"]["bytes_sent"] for r in results],
-           "wire_bytes_per_round": results[0]["check"]["wire_bytes_per_round"]}
+           "wire_bytes_per_round": results[0]["check"]["wire_bytes_per_round"],
+           "alive": alive, "flag_bytes": flag_bytes(engine, step) if alive is not None else 0}
     if worst > 1.0 or xhat_mismatches:
         raise AssertionError(f"collective round differs from the simulated one: {out}")
-    if any(b != out["wire_bytes_per_round"] for b in out["bytes_sent_per_rank"]):
+    if any(b != out["wire_bytes_per_round"] + out["flag_bytes"] for b in out["bytes_sent_per_rank"]):
         raise AssertionError(f"the check round's transport bytes differ from wire_bytes_per_round: {out}")
     return out
 
@@ -2776,10 +3195,9 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     (every rank returned, which ``launch`` already enforces; the seeded
     round against the simulated one; launches; transport bytes; sound
     training values)."""
-    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.train.collective import spec_bundle
 
-    bundle = configs.build(spec["config"], spec["scale"], world=spec["workers"], codec=spec["codec"],
-                           codec_warmup=spec["codec_warmup"], norm_impl=spec["norm_impl"], device=dev)
+    bundle = spec_bundle(spec, dev)
     engine = bundle.cfg.engine()
     world = len(results)
     buckets = results[0]["buckets"]
@@ -2794,8 +3212,9 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
             rd = res["rounds"][i]
             if rd["launches"] != expect or {k: v for k, v in rd["forms"].items() if any(v.values())} != forms:
                 problems.append(f"rank {r} round {i}: launches {rd['launches']} {rd['forms']} != {expect} {forms}")
-            if rd["wire_bytes"] != wire:
-                problems.append(f"rank {r} round {i}: the transport sent {rd['wire_bytes']} bytes, not {wire}")
+            if rd["wire_bytes"] != wire + flag_bytes(engine, i):
+                problems.append(f"rank {r} round {i}: the transport sent {rd['wire_bytes']} bytes, not {wire} "
+                                f"and {flag_bytes(engine, i)} of flags")
     for i in range(spec["rounds"]):
         losses = {res["rounds"][i]["loss"] for res in results}
         errs = {res["rounds"][i]["consensus_error"] for res in results}
@@ -2806,7 +3225,7 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
             problems.append(f"round {i}: loss {loss} or consensus error {err} not finite (and non-zero)")
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
-    check = collective_check(torch, dev, bundle, results, spec["check"]["leaves"])
+    check = collective_check(torch, dev, bundle, results, spec["check"])
     keys = ("round_ms", "inner_ms", "gossip_ms", "metrics_ms", "staging_ms", "wire_ms")
     per_round = {key: [[res["rounds"][i][key] for i in counted] for res in results] for key in keys + ("bytes_staged",)}
     med = lambda key: float(np.median(per_round[key]))  # noqa: E731
@@ -2828,6 +3247,8 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
         "device_of_every_rank": str(dev), "buckets": buckets, "wire_bytes_per_round": wire,
         "rounds": [{"step": i, "loss": results[0]["rounds"][i]["loss"],
                     "consensus_error": results[0]["rounds"][i]["consensus_error"],
+                    **{k: results[0]["rounds"][i][k] for k in ("alive_frac", "alive_mask")
+                       if k in results[0]["rounds"][i]},
                     "wire_bytes_per_rank": [res["rounds"][i]["wire_bytes"] for res in results],
                     **{key: [res["rounds"][i][key] for res in results] for key in keys + ("bytes_staged",)}}
                    for i in range(spec["rounds"])],
@@ -2845,7 +3266,8 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
 
 
 def collective_phases(torch, dev):
-    """``train_resnet_collective`` (8 ranks) then ``train_collective`` and
+    """``train_resnet_collective`` and ``train_resnet_collective_pushsum``
+    (one spawn of 8 ranks for both) then ``train_collective`` and
     ``train_collective_topk`` (one spawn of 4 ranks for both): each rank
     its own process and worker on the one card. Returns the lines and the
     launches by phase."""
@@ -2857,6 +3279,15 @@ def collective_phases(torch, dev):
         ("cifar_resnet50", 8, [("train_resnet_collective",
                                 collective_spec("cifar_resnet50", "full", 8, 3, norm_impl="pallas"),
                                 "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo",
+                                None),
+                               # push-sum under drawn faults on the directed one-peer graph;
+                               # its check round masks workers 2 and 5 (step 1: phase 1)
+                               ("train_resnet_collective_pushsum",
+                                collective_spec("cifar_resnet50", "full", 8, 2, norm_impl="pallas",
+                                                topology="onepeer-exp", push_sum=True, drop_prob=FAULT_DROP_PROB,
+                                                check_alive=[0.0 if i in FAULT_DEAD else 1.0 for i in range(8)]),
+                                "cifar_resnet50 full --norm-impl pallas --topology onepeer-exp --push-sum "
+                                "--drop-prob 0.1 --backend collective --dist-backend gloo",
                                 None)]),
         ("gpt2_topk", 4, [
             ("train_collective", collective_spec("gpt2_topk", "full", 4, 3, codec="int8",
@@ -3609,6 +4040,12 @@ def main() -> int:
         emit(line)
         for name, n in counts.items():
             launches[name][path] = n
+        if path == "train_topk":
+            # the same codec on the per-leaf wire (--bucket-bytes 0)
+            line, counts = train_perleaf_phase(torch, tck, dev, init)
+            emit(line)
+            for name, n in counts.items():
+                launches[name]["train_perleaf_topk"] = n
     del init
     line, counts = gossip_two_step_phase(torch, dev, state, bundle)
     emit(line)
@@ -3632,6 +4069,13 @@ def main() -> int:
     emit(line)
     for name, n in counts.items():
         launches[name]["train_resnet_topologies"] = n
+    # worker drop-outs with rollback on the ring, then push-sum on the directed one-peer graph
+    for push_sum in (False, True):
+        line, counts = train_resnet_faults_phase(torch, dev, resnet_init_named(init, "pallas"), push_sum)
+        line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
+        emit(line)
+        for name, n in counts.items():
+            launches[name][line["phase"]] = n
     del init
     gc.collect()
     torch.cuda.empty_cache()

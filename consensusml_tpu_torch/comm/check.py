@@ -18,11 +18,12 @@ import torch
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.comm import collectives
 from consensusml_tpu_torch.comm.mesh import WorkerMesh
+from consensusml_tpu_torch.consensus.pushsum import PushSumState
 from consensusml_tpu_torch.train.local_sgd import worker_generator
 from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
-    "collective_ops", "gossip_cases", "seeded_tree", "seeded_state", "seeded_gossip_round", "stall",
+    "collective_ops", "masked_ops", "gossip_cases", "seeded_tree", "seeded_state", "seeded_gossip_round", "stall",
     "to_numpy",
 ]
 
@@ -70,26 +71,64 @@ def collective_ops(rank: int, world: int, cases: list, dist_backend: str = "gloo
     return out
 
 
-def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backend: str, device: str | None) -> dict:
+def masked_ops(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
+    """For each ``(topology, stacked, dtype, alive)`` case (``alive`` a
+    ``(world,)`` 0/1 mask; ``stacked`` a numpy ``(world, ...)`` array, or a
+    list of them for the bucket form), this rank's
+    :func:`~.collectives.mix_masked` (or :func:`~.collectives.mix_buckets`
+    of the list with the flag), on the rank's card unless
+    ``device="cpu"``."""
+    out = []
+    for topology, stacked, dtype, alive in cases:
+        mesh = WorkerMesh.create(topology, dist_backend, device)
+        dtype = getattr(torch, dtype)
+        flag = float(alive[rank])
+        if isinstance(stacked, list):
+            bufs = [_row(x, rank, mesh.device, dtype) for x in stacked]
+            out.append({"mix_buckets": to_numpy(collectives.mix_buckets(bufs, topology, mesh, flag))})
+            continue
+        x = _row(stacked, rank, mesh.device, dtype)
+        out.append({"mix_masked": to_numpy(collectives.mix_masked(x, topology, mesh, flag))})
+    return out
+
+
+def _state_row(engine, x, state, rank: int, device):
+    """The engine's zero state for this rank's tree, or its row of the
+    stacked numpy ``state`` (``{"xhat": [...], "s": [...]}`` or ``{"w": ...}``)."""
+    st = engine.init_state(x)
+    if st is None or state is None:
+        return st
+    if "w" in state:
+        return type(st)(w=_row(state["w"], rank, device))
+    return type(st)(xhat=[_row(a, rank, device) for a in state["xhat"]],
+                    s=[_row(a, rank, device) for a in state["s"]])
+
+
+def _state_numpy(st):
+    if st is None:
+        return None
+    return {name: to_numpy(value) for name, value in st._asdict().items()}
+
+
+def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backend: str, device: str | None,
+                   alive=None) -> dict:
     mesh = WorkerMesh.create(engine.topology, dist_backend, device)
     x = T.tree_map(lambda a: _row(a, rank, mesh.device), tree)
-    st = engine.init_state(x)
-    if st is not None and state is not None:
-        st = type(st)(xhat=[_row(a, rank, mesh.device) for a in state["xhat"]],
-                      s=[_row(a, rank, mesh.device) for a in state["s"]])
+    st = _state_row(engine, x, state, rank, mesh.device)
     kernels.reset_launch_counts()
     before = mesh.transport.stats.snapshot()
     bytes_by_round = []
-    for step in steps:
+    for i, step in enumerate(steps):
         b0 = mesh.transport.stats.bytes_sent
-        x, st = engine.round_collective(x, st, mesh, step=step)
+        flag = None if alive is None else float(alive[i][rank])
+        x, st = engine.round_collective(x, st, mesh, step=step, alive=flag)
         bytes_by_round.append(mesh.transport.stats.bytes_sent - b0)
     counts = {"launches": kernels.launch_counts(), "forms": kernels.form_counts()}
     moved = mesh.transport.stats.since(before)
     err = float(engine.consensus_error_collective(x, mesh))
     return {
         "tree": to_numpy(x),
-        "state": None if st is None else {"xhat": to_numpy(st.xhat), "s": to_numpy(st.s)},
+        "state": _state_numpy(st),
         "consensus_error": err,
         "bytes_by_round": bytes_by_round,
         "transport": moved,
@@ -98,18 +137,20 @@ def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backe
 
 
 def gossip_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
-    """For each ``(engine, tree, steps, state)`` case in turn, in one
-    process group: ``engine.round_collective`` on this rank's row of the
-    stacked numpy ``tree`` (a dict of leaves or of sub-dicts, as the
+    """For each ``(engine, tree, steps, state[, alive])`` case in turn, in
+    one process group: ``engine.round_collective`` on this rank's row of
+    the stacked numpy ``tree`` (a dict of leaves or of sub-dicts, as the
     gossiped tree), once for each round counter in ``steps``, from the
-    stacked numpy CHOCO ``state`` ``{"xhat": [...], "s": [...]}`` (zeros
-    when ``None``). Returns per case the final tree and state as numpy, the
-    consensus error, the kernel launches of the rounds
+    stacked numpy ``state`` (CHOCO's ``{"xhat": [...], "s": [...]}`` or
+    push-sum's ``{"w": ...}``; the engine's initial state when ``None``),
+    with this rank's flag of ``alive[i]`` (a ``(world,)`` 0/1 mask a
+    round) in round ``i`` when given. Returns per case the final tree and
+    state as numpy, the consensus error, the kernel launches of the rounds
     (``kernels.launch_counts()`` and the forms, zeroed just before), the
     transport's bytes sent each round and its totals. Runs on the rank's
     card unless ``device="cpu"``."""
-    return [_gossip_rounds(rank, engine, tree, steps, state, dist_backend, device)
-            for engine, tree, steps, state in cases]
+    return [_gossip_rounds(rank, engine, tree, steps, state, dist_backend, device, *rest)
+            for engine, tree, steps, state, *rest in cases]
 
 
 def seeded_tree(leaves: list, seed: int, rank: int, device, scale: float = 0.05) -> dict:
@@ -130,32 +171,36 @@ def seeded_tree(leaves: list, seed: int, rank: int, device, scale: float = 0.05)
 
 
 def seeded_state(engine, tree: dict, gen: torch.Generator, scale: float = 0.05):
-    """A nonzero per-bucket CHOCO state for ``tree`` from ``gen`` (a
-    mid-run state), or ``None`` for exact mixing."""
+    """A mid-run gossip state for ``tree`` from ``gen``: nonzero CHOCO
+    buffers, or a push-sum mass in [0.5, 1.5); ``None`` for exact mixing."""
     zero = engine.init_state(tree)
     if zero is None:
         return None
+    if isinstance(zero, PushSumState):
+        return PushSumState(w=0.5 + torch.rand(zero.w.shape, generator=gen, device=zero.w.device))
     draw = lambda z: torch.randn(z.shape, generator=gen, device=z.device) * scale  # noqa: E731
     return type(zero)(xhat=[draw(z) for z in zero.xhat], s=[draw(z) for z in zero.s])
 
 
-def seeded_gossip_round(mesh: WorkerMesh, engine, leaves: list, seed: int, step: int) -> dict:
+def seeded_gossip_round(mesh: WorkerMesh, engine, leaves: list, seed: int, step: int, alive=None) -> dict:
     """One ``engine.round_collective`` over ``mesh`` from this rank's
-    :func:`seeded_tree` and :func:`seeded_state`. Returns the round's
-    tree and state as numpy, its kernel launches and forms (zeroed just
+    :func:`seeded_tree` and :func:`seeded_state`, with this rank's flag of
+    the ``(world,)`` mask ``alive`` when given. Returns the round's tree
+    and state as numpy, its kernel launches and forms (zeroed just
     before), and what the transport moved, beside the ``leaves`` and the
     engine's ``wire_bytes_per_round`` of that tree."""
     tree, gen = seeded_tree(leaves, seed, mesh.rank, mesh.device)
     state = seeded_state(engine, tree, gen)
     wire = engine.wire_bytes_per_round(tree)
+    flag = None if alive is None else float(alive[mesh.rank])
     kernels.reset_launch_counts()
     before = mesh.transport.stats.snapshot()
-    tree, state = engine.round_collective(tree, state, mesh, step=step)
+    tree, state = engine.round_collective(tree, state, mesh, step=step, alive=flag)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     return {
         "tree": to_numpy(tree),
-        "state": None if state is None else {"xhat": to_numpy(state.xhat), "s": to_numpy(state.s)},
+        "state": _state_numpy(state),
         "launches": {k: v for k, v in kernels.launch_counts().items() if v},
         "forms": kernels.form_counts(),
         "transport": mesh.transport.stats.since(before),

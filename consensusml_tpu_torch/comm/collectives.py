@@ -19,8 +19,16 @@ f32 leaves, ``fma(w_1, r_1, self_weight x)`` for bf16 ones), then
 :func:`mix` (bit for bit; that contraction is the CPU compiler's choice,
 and a compiler upgrade could change it).
 
-``mix_masked`` and ``mix_tree_masked`` (fault injection) wait for the
-port of ``consensus/faults.py``.
+:func:`mix_masked`, :func:`mix_tree_masked` and :func:`mix_buckets` with
+an ``alive`` flag are the fault-masked round (``consensus/faults.py``): a
+dead neighbour's term becomes this worker's own value, a dead worker
+keeps its value. The reference's terms in its order: ``acc = x *
+self_weight``, then ``acc + w_s * (a_s x_s + (1 - a_s) x)`` a shift; with
+0/1 flags the bracket is exactly ``x_s`` or ``x``, so the chain is
+:func:`mix`'s, contracted as it is. A dense topology takes ``S / n + x (n
+- A) / n`` with ``S = sum_j a_j x_j`` and ``A = sum_j a_j`` (both one
+all-reduce). The neighbours' flags cross the transport once a round
+(:func:`neighbour_flags`), not once a leaf or bucket.
 """
 
 from __future__ import annotations
@@ -43,6 +51,9 @@ __all__ = [
     "mix",
     "mix_tree",
     "mix_buckets",
+    "mix_masked",
+    "mix_tree_masked",
+    "neighbour_flags",
     "consensus_error",
 ]
 
@@ -82,12 +93,14 @@ def all_reduce_mean(tensors: list[torch.Tensor], mesh: WorkerMesh) -> list[torch
     return [(s / mesh.world_size).to(t.dtype) for s, t in zip(sums, tensors)]
 
 
-def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor]) -> torch.Tensor:
+def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor], f32_terms: bool = False) -> torch.Tensor:
     # x * self_weight + each shift's w * r in shift order, contracted as
     # the reference's compiled program does: the first two terms fused into
     # one multiply-add (fma(self_weight, x, w_1 r_1) for f32 leaves; for
     # bf16 ones, whose f32 x is a conversion, fma(w_1, r_1, self_weight x)),
-    # then fma(w_j, r_j, acc) for each later shift
+    # then fma(w_j, r_j, acc) for each later shift. ``f32_terms``: the
+    # terms are f32 values computed from x (the masked round's), which
+    # the compiled program contracts as an f32 leaf's whatever x's dtype
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
     xf = x.to(torch.float32)
     sw = f32(topology.self_weight)
@@ -95,7 +108,10 @@ def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor]) -> 
         return (xf * sw).to(x.dtype)
     shifts = topology.shifts
     w1, r1 = f32(shifts[0].weight), recvs[0].to(torch.float32)
-    acc = fma_f32(sw, xf, w1 * r1) if x.dtype == torch.float32 else fma_f32(w1, r1, xf * sw)
+    if x.dtype == torch.float32 or f32_terms:
+        acc = fma_f32(sw, xf, w1 * r1)
+    else:
+        acc = fma_f32(w1, r1, xf * sw)
     for s, r in zip(shifts[1:], recvs[1:]):
         acc = fma_f32(f32(s.weight), r.to(torch.float32), acc)
     return acc.to(x.dtype)
@@ -115,16 +131,68 @@ def mix_tree(tree: Any, topology: Topology, mesh: WorkerMesh) -> Any:
     return T.tree_map(lambda x: mix(x, topology, mesh), tree)
 
 
-def mix_buckets(bufs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh) -> list[torch.Tensor]:
-    """One gossip round over flat bucket buffers: per buffer exactly
-    :func:`mix`, with every bucket's sends posted before any bucket's
-    combine (one exchange for all of them)."""
+def mix_buckets(bufs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh, alive=None,
+                alive_nbrs: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
+    """One gossip round over flat bucket buffers (or any tensors): per
+    buffer exactly :func:`mix`, or :func:`mix_masked` given this worker's
+    ``alive`` flag, with every buffer's sends posted before any buffer's
+    combine (one exchange for all of them). ``alive_nbrs``: the flags of
+    :func:`neighbour_flags`, exchanged here when not given."""
     if not bufs:
         return []
+    if alive is not None:
+        return _mix_masked_all(bufs, topology, mesh, alive, alive_nbrs)
     if topology.uses_psum:
         return all_reduce_mean(bufs, mesh)
     inflight = ppermute_shifts(bufs, topology, topology.shifts, mesh)
     return [_combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
+
+
+def _flag(alive, device) -> torch.Tensor:
+    return torch.as_tensor(alive, dtype=torch.float32).to(device).reshape(())
+
+
+def neighbour_flags(alive, topology: Topology, mesh: WorkerMesh) -> list[torch.Tensor]:
+    """This worker's in-neighbours' flags, one a shift (a 4-byte message
+    a shift): exchange them once a round and pass them to every masked
+    mix of that round."""
+    return [r[0] for r in ppermute_shifts([_flag(alive, mesh.device)], topology, topology.shifts, mesh)]
+
+
+def _mix_masked_all(xs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh, alive,
+                    alive_nbrs: list[torch.Tensor] | None) -> list[torch.Tensor]:
+    a = _flag(alive, xs[0].device)
+    if topology.uses_psum:
+        n = float(topology.world_size)
+        xf = [x.to(torch.float32) for x in xs]
+        sums = mesh.transport.all_reduce_sum([a * x for x in xf] + [a.reshape(1)])
+        count = sums.pop()[0]
+        return [torch.where(a > 0, s / n + x * (n - count) / n, x).to(orig.dtype)
+                for s, x, orig in zip(sums, xf, xs)]
+    if alive_nbrs is None:
+        alive_nbrs = neighbour_flags(a, topology, mesh)
+    inflight = ppermute_shifts(xs, topology, topology.shifts, mesh)
+    out = []
+    for i, x in enumerate(xs):
+        xf = x.to(torch.float32)
+        # a_s x_s + (1 - a_s) x: exactly x_s or x for a 0/1 flag
+        terms = [a_n * r[i].to(torch.float32) + (1.0 - a_n) * xf for a_n, r in zip(alive_nbrs, inflight)]
+        out.append(torch.where(a > 0, _combine(x, topology, terms, f32_terms=True), xf).to(x.dtype))
+    return out
+
+
+def mix_masked(x: torch.Tensor, topology: Topology, mesh: WorkerMesh, alive,
+               alive_nbrs: list[torch.Tensor] | None = None) -> torch.Tensor:
+    """One fault-masked gossip round of ``x`` (module docstring):
+    ``alive`` is this worker's 0/1 flag, ``alive_nbrs`` its neighbours'
+    (:func:`neighbour_flags`; exchanged here when not given)."""
+    return _mix_masked_all([x], topology, mesh, alive, alive_nbrs)[0]
+
+
+def mix_tree_masked(tree: Any, topology: Topology, mesh: WorkerMesh, alive) -> Any:
+    """:func:`mix_masked` of every leaf, the flags exchanged once."""
+    leaves, spec = T.flatten(tree)
+    return T.unflatten(spec, mix_buckets(leaves, topology, mesh, alive))
 
 
 def consensus_error(tree: Any, topology: Topology, mesh: WorkerMesh) -> torch.Tensor:

@@ -118,8 +118,8 @@ from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
     "CONFIGS", "RunBundle", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
-    "resnet_model", "topology_from_spec", "with_topology", "worker_inits", "init_on_device", "llama_config",
-    "frozen_on_device", "LLAMA_MICRO_BATCH",
+    "resnet_model", "topology_from_spec", "with_topology", "with_gossip_flags", "FlagError", "worker_inits",
+    "init_on_device", "llama_config", "frozen_on_device", "LLAMA_MICRO_BATCH",
 ]
 
 CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora")
@@ -312,6 +312,53 @@ def with_topology(bundle: RunBundle, spec: str) -> RunBundle:
     world size in place of its config's own graph (in place; returned)."""
     gossip = dataclasses.replace(bundle.cfg.gossip, topology=topology_from_spec(spec, bundle.world_size))
     bundle.cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
+    return bundle
+
+
+class FlagError(ValueError):
+    """A flag combination the train CLI refuses with exit code 2 (the
+    reference's ``error: ...`` lines)."""
+
+
+def with_gossip_flags(bundle: RunBundle, *, drop_prob: float = 0.0, push_sum: bool = False,
+                      gossip_steps: int | None = None, codec_refresh: int | None = None,
+                      bucket_bytes: int | None = None) -> RunBundle:
+    """``train.py``'s ``--drop-prob``, ``--push-sum``, ``--gossip-steps``,
+    ``--codec-refresh`` and ``--bucket-bytes`` on ``bundle`` (in place;
+    returned), in the reference's order and with its refusals: push-sum
+    first (it is what makes faults legal on a directed graph), then the
+    fault model (``FaultConfig(drop_prob)``, non-finite detection on; a
+    compressed config or a directed graph without push-sum raises
+    ``NotImplementedError``, as the reference's does), then the consensus
+    iterations and refresh, then the bucket cap on the ``LocalSGDConfig``
+    (0: the per-leaf wire). :class:`FlagError` for what the reference
+    refuses with exit code 2: ``--push-sum`` on a compressed config, and
+    a ``--gossip-steps``/``--codec-refresh`` or ``--bucket-bytes`` the
+    config takes not."""
+    from consensusml_tpu_torch.consensus import FaultConfig
+
+    gossip = bundle.cfg.gossip
+    if push_sum and gossip.compressor is not None:
+        raise FlagError("--push-sum is incompatible with a compressed-gossip config "
+                        "(CHOCO tracking assumes row-stochastic mixing)")
+    if push_sum:
+        gossip = dataclasses.replace(gossip, push_sum=True)
+    if drop_prob > 0:
+        gossip = dataclasses.replace(gossip, faults=FaultConfig(drop_prob=drop_prob))
+    overrides = {k: v for k, v in (("gossip_steps", gossip_steps), ("codec_refresh_every", codec_refresh))
+                 if v is not None}
+    if overrides:
+        try:
+            gossip = dataclasses.replace(gossip, **overrides)
+        except (NotImplementedError, ValueError) as e:
+            raise FlagError(f"--gossip-steps/--codec-refresh: {e}") from e
+    cfg = dataclasses.replace(bundle.cfg, gossip=gossip)
+    if bucket_bytes is not None:
+        try:
+            cfg = dataclasses.replace(cfg, bucket_bytes=bucket_bytes)
+        except (NotImplementedError, ValueError) as e:
+            raise FlagError(f"--bucket-bytes: {e}") from e
+    bundle.cfg = cfg
     return bundle
 
 

@@ -1,5 +1,28 @@
-"""Consensus engine (counterpart of ``consensusml_tpu.consensus``)."""
+"""Consensus engine (counterpart of ``consensusml_tpu.consensus``): exact
+and compressed gossip, fault injection and push-sum."""
 
+from consensusml_tpu_torch.consensus.bucketing import Bucket, BucketPlan, build_plan
 from consensusml_tpu_torch.consensus.engine import ChocoState, ConsensusEngine, GossipConfig
+from consensusml_tpu_torch.consensus.faults import (
+    FaultConfig,
+    draw_alive,
+    fault_generator,
+    masked_mixing_matrix,
+    tree_all_finite,
+)
+from consensusml_tpu_torch.consensus.pushsum import (
+    MASS_FLOOR,
+    PushSumState,
+    pushsum_init,
+    pushsum_matrix,
+    pushsum_round_collective,
+    pushsum_round_simulated,
+)
 
-__all__ = ["ChocoState", "ConsensusEngine", "GossipConfig"]
+__all__ = [
+    "Bucket", "BucketPlan", "build_plan",
+    "ChocoState", "ConsensusEngine", "GossipConfig",
+    "FaultConfig", "draw_alive", "fault_generator", "masked_mixing_matrix", "tree_all_finite",
+    "MASS_FLOOR", "PushSumState", "pushsum_init", "pushsum_matrix", "pushsum_round_collective",
+    "pushsum_round_simulated",
+]

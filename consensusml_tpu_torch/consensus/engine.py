@@ -1,6 +1,6 @@
-"""The gossip round: exact mixing or CHOCO compressed mixing, on the
-simulated backend and the collective one (port of
-``consensusml_tpu/consensus/engine.py``).
+"""The gossip round: exact mixing, CHOCO compressed mixing or push-sum,
+with or without faults, on the simulated backend and the collective one
+(port of ``consensusml_tpu/consensus/engine.py``).
 
 CHOCO-SGD update (gamma = consensus step size, Q = compressor):
 
@@ -9,14 +9,36 @@ CHOCO-SGD update (gamma = consensus step size, Q = compressor):
     s_i    <- s_i + sum_j W[i,j] dec(q_j)   # only q travels the wire
     x_i    <- x_i + gamma * (s_i - xhat_i)
 
-The bucketed wire is ported: exact mixing over dense buckets, and CHOCO
-over codec buckets either through the fused one-pass encode (the int8,
-int4 and fp8 quantizers: one kernel launch per bucket per exchange) or
-through the two-step wire (any other codec with a ``bucket_alignment``,
-or ``fused_wire=False``: per bucket, ``compress`` then ``decompress`` of
-the innovation). The warm-up and periodic dense-refresh rounds of the
-reference (``lax.cond`` on the round counter) are a Python ``if`` on the
-host's round counter here.
+Two wires. The bucketed one (``bucket_bytes`` set): exact mixing over
+dense buckets, CHOCO over codec buckets either through the fused
+one-pass encode (the int8, int4 and fp8 quantizers: one kernel launch
+per bucket per exchange) or through the two-step wire (any other codec
+with a ``bucket_alignment``, or ``fused_wire=False``: per bucket,
+``compress`` then ``decompress`` of the innovation). The per-leaf one
+(``bucket_bytes=None``, a codec without a ``bucket_alignment`` such as
+the global top-k, and every push-sum round): each leaf mixed, or
+compressed, shipped and decoded, on its own, the chunked codecs'
+chunk clamped to the leaf's size as the reference's (a bucket would pad
+the leaf to the codec's chunk instead). CHOCO state lives per bucket on
+the bucketed wire and per compressed leaf on the per-leaf one. The
+warm-up and periodic dense-refresh rounds of the reference (``lax.cond``
+on the round counter) are a Python ``if`` on the host's round counter.
+
+``compress_filter`` picks the gossiped leaves that ride CHOCO; the rest
+mix exactly every round, in step with the compressed ones. ``"auto"``
+(the default) mixes the ``model_state`` subtree (BatchNorm statistics)
+exactly; ``None`` compresses every leaf; a callable on a key path
+decides per leaf.
+
+Faults (``faults=FaultConfig(...)``, :mod:`.faults`) take a 0/1 alive
+mask a round: the simulated round mixes through
+``masked_mixing_matrix``, the collective one through
+``collectives.mix_buckets`` with this worker's flag, the neighbours'
+flags exchanged once a round. Push-sum (``push_sum``, :mod:`.pushsum`)
+carries a mass beside the parameters; ``init_state`` returns its
+:class:`~.pushsum.PushSumState`. The reference's legality rules hold:
+no faults or push-sum with a compressor, no faults on a directed graph
+without push-sum, one consensus iteration a push-sum round.
 
 Two backends. :meth:`ConsensusEngine.round_simulated` runs every worker
 stacked on one device (the worker axis written out where the reference
@@ -25,11 +47,12 @@ round_collective` runs ONE worker per process (its
 :class:`~consensusml_tpu_torch.comm.mesh.WorkerMesh`): its payloads ride
 the mesh's transport to its neighbours, and its receive folds them in,
 self first then each shift in order: the fused wire's one
-``fused_dequantize_accumulate`` launch a bucket, or the two-step wire's
-``decompress_accumulate`` (the chunked top-k's accumulating
-``chunk_scatter``). Every topology family runs on both; a time-varying
-one takes phase ``step % period`` (the simulated caller passes that
-phase's matrix, the collective round picks the phase itself).
+``fused_dequantize_accumulate`` launch a bucket, or the two-step and
+per-leaf wires' ``decompress_accumulate`` (the chunked top-k's
+accumulating ``chunk_scatter``). Every topology family runs on both; a
+time-varying one takes phase ``step % period`` (the simulated caller
+passes that phase's matrix, the collective round picks the phase
+itself).
 
 ``path_filter(path) -> bool`` (any callable on a leaf's key path in the
 port's trees, e.g. ``("params", "layer_0.q_proj.lora_a")``) restricts the
@@ -39,13 +62,9 @@ those leaves only, in flatten order, and every other leaf passes through
 untouched (the same tensor). LoRA's ``lora_gossip_filter`` is one such
 filter.
 
-Not ported yet, and refused with ``NotImplementedError`` when set: the
-per-leaf wire (``bucket_bytes=None``, or a codec without a
-``bucket_alignment``), ``compress_filter`` other than
-``"auto"`` (and, under CHOCO, its exact-mixed ``model_state`` leaves;
-exact mixing gossips ``model_state`` like the params), faults,
-push-sum, ``fused_codec``, overlap gossip and its pipelining, and
-stochastic codecs.
+Not ported yet, and refused with ``NotImplementedError`` when set (after
+the reference's own refusals): ``fused_codec``, overlap gossip and its
+``pipeline_depth``, and stochastic codecs.
 """
 
 from __future__ import annotations
@@ -57,11 +76,19 @@ import torch
 
 from consensusml_tpu_torch.comm import collectives, simulated
 from consensusml_tpu_torch.compress.base import Compressor
+from consensusml_tpu_torch.compress.reference import fma_f32
 from consensusml_tpu_torch.consensus.bucketing import (
     BucketPlan,
     FusedWirePlan,
     build_fused_plan,
     build_plan,
+)
+from consensusml_tpu_torch.consensus.faults import FaultConfig, masked_mixing_matrix
+from consensusml_tpu_torch.consensus.pushsum import (
+    PushSumState,
+    pushsum_init,
+    pushsum_round_collective,
+    pushsum_round_simulated,
 )
 from consensusml_tpu_torch.topology import Topology
 from consensusml_tpu_torch.utils import tree as T
@@ -70,8 +97,9 @@ __all__ = ["GossipConfig", "ChocoState", "ConsensusEngine"]
 
 
 class ChocoState(NamedTuple):
-    """Compressed-gossip state: per-bucket f32 buffers, ``(W, total)``
-    stacked (or ``(total,)`` per worker)."""
+    """Compressed-gossip state, f32: per bucket on the bucketed wire
+    (``(W, total)`` stacked, ``(total,)`` per worker), per compressed leaf
+    on the per-leaf wire (the leaf's shape, stacked or not)."""
 
     xhat: list
     s: list
@@ -79,9 +107,6 @@ class ChocoState(NamedTuple):
 
 # field -> its default; any other value is a path this slice does not port
 _NOT_PORTED = {
-    "compress_filter": "auto",
-    "faults": None,
-    "push_sum": False,
     "fused_codec": False,
     "overlap": False,
     "pipeline_depth": 1,
@@ -90,59 +115,62 @@ _NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class GossipConfig:
-    """How one consensus round is performed (the reference's fields; those
-    this slice reads are documented there)."""
+    """How one consensus round is performed (the reference's fields and
+    their meaning; :mod:`.engine`'s docstring says what each wire does)."""
 
     topology: Topology
     compressor: Compressor | None = None  # None => exact mixing
     gamma: float = 1.0
     path_filter: Any = None
-    compress_filter: Any = "auto"
-    faults: Any = None
-    push_sum: bool | str = False
+    compress_filter: Any = "auto"  # "auto", None or a callable on a key path
+    faults: FaultConfig | None = None
+    push_sum: bool | str = False  # False, True or "auto"
     fused_codec: bool = False
     overlap: bool = False
     gossip_steps: int = 1
     codec_warmup_rounds: int = 0
     codec_refresh_every: int = 0
-    bucket_bytes: int | None = 4 * 2**20
+    bucket_bytes: int | None = 4 * 2**20  # None => the per-leaf wire
     fused_wire: bool | str = "auto"
     pipeline_depth: int = 1
 
+    @property
+    def push_sum_enabled(self) -> bool:
+        """The resolved switch: ``"auto"`` engages push-sum exactly when
+        faults are configured on a directed topology."""
+        if self.push_sum == "auto":
+            return self.faults is not None and not self.topology.symmetric
+        return bool(self.push_sum)
+
     def __post_init__(self):
-        for name, default in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"GossipConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only the default {default!r})"
-                )
-        if self.path_filter is not None and not callable(self.path_filter):
-            raise ValueError(f"path_filter must be a callable on a key path, got {self.path_filter!r}")
-        if self.bucket_bytes is None:
-            raise NotImplementedError("the per-leaf wire (bucket_bytes=None) is not ported yet")
-        if self.bucket_bytes <= 0:
-            raise ValueError(f"bucket_bytes must be positive, got {self.bucket_bytes}")
+        # the reference's checks, in its order and with its exception types
+        if self.push_sum not in (True, False, "auto"):
+            raise ValueError(f"push_sum must be True, False or 'auto', got {self.push_sum!r}")
         if self.fused_wire not in (True, False, "auto"):
             raise ValueError(f"fused_wire must be True, False or 'auto', got {self.fused_wire!r}")
+        if self.pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {self.pipeline_depth}")
+        if self.pipeline_depth > 1 and not self.overlap:
+            raise NotImplementedError("pipeline_depth > 1 is overlap-mode pipelining; it needs overlap=True")
         comp = self.compressor
-        if comp is not None:
+        if self.fused_wire is True:
             from consensusml_tpu_torch.compress.kernels import fused_bucket_codec
 
-            if comp.stochastic:
-                raise NotImplementedError("stochastic codecs are not ported yet")
-            if comp.bucket_alignment() is None:
+            if comp is None:
+                raise NotImplementedError("fused_wire=True without a compressor has nothing to fuse")
+            if self.bucket_bytes is None or self.fused_codec or self.push_sum_enabled:
                 raise NotImplementedError(
-                    f"{type(comp).__name__} does not decompose per chunk (bucket_alignment() is "
-                    "None), so it needs the per-leaf wire, which is not ported yet"
+                    "fused_wire=True requires the bucketed transport (bucket_bytes set, no fused_codec, "
+                    "no push_sum): the fused kernels are per bucket"
                 )
-            if self.fused_wire is True and fused_bucket_codec(comp) is None:
+            if fused_bucket_codec(comp) is None:
                 raise NotImplementedError(
                     f"fused_wire=True but {type(comp).__name__} has no fused one-pass wire "
                     "(only the per-chunk int8/int4/fp8 quantizers fuse; composed/sparse codecs "
                     "keep the two-step bucketed wire, fused_wire='auto')"
                 )
-        elif self.fused_wire is True:
-            raise NotImplementedError("fused_wire=True without a compressor has nothing to fuse")
+        if self.bucket_bytes is not None and self.bucket_bytes <= 0:
+            raise ValueError(f"bucket_bytes must be positive (or None for the per-leaf wire), got {self.bucket_bytes}")
         if self.gossip_steps < 1:
             raise ValueError(f"gossip_steps must be >= 1, got {self.gossip_steps}")
         for name in ("codec_warmup_rounds", "codec_refresh_every"):
@@ -151,28 +179,68 @@ class GossipConfig:
                 raise ValueError(f"{name} must be >= 0, got {value}")
             if value > 0 and comp is None:
                 raise NotImplementedError(f"{name} without a compressor is meaningless")
+        if self.gossip_steps > 1 and self.push_sum_enabled:
+            raise NotImplementedError(
+                "gossip_steps > 1 with push-sum is not supported: the mass ratio's bias correction is "
+                "defined per round"
+            )
+        if self.gossip_steps > 1 and self.overlap:
+            raise NotImplementedError("gossip_steps > 1 with overlap gossip is not supported")
+        if self.fused_codec and comp is None:
+            raise NotImplementedError("fused_codec without a compressor has nothing to fuse")
+        if self.overlap and comp is not None:
+            if self.bucket_bytes is None or self.fused_codec or comp.bucket_alignment() is None:
+                raise NotImplementedError("overlap + compression is only supported on the bucketed gossip path")
+            if comp.stochastic:
+                raise NotImplementedError("overlap + a stochastic compressor is not supported")
+            if self.path_filter is not None:
+                raise NotImplementedError("overlap + compression + path_filter is not supported")
+            if self.codec_warmup_rounds > 0 or self.codec_refresh_every > 0:
+                raise NotImplementedError(
+                    "overlap + compression does not compose with codec_warmup_rounds/codec_refresh_every"
+                )
+        if self.overlap and self.push_sum_enabled:
+            raise NotImplementedError("overlap + push-sum is not supported")
+        if self.overlap and self.faults is not None:
+            raise NotImplementedError("overlap + fault injection is not supported")
+        if comp is not None and self.faults is not None:
+            raise NotImplementedError(
+                "fault-tolerant COMPRESSED gossip is not supported: CHOCO's xhat tracking assumes every "
+                "peer applies every innovation, which a dropped round violates"
+            )
+        if comp is not None and self.push_sum_enabled:
+            raise NotImplementedError(
+                "compressed push-sum is not supported: CHOCO's innovation tracking assumes the "
+                "row-stochastic mixing update"
+            )
+        if self.faults is not None and not self.topology.symmetric and not self.push_sum_enabled:
+            raise NotImplementedError(
+                "fault masking requires a SYMMETRIC topology: folding a dead peer's weight onto self "
+                f"keeps W doubly stochastic only when W = W^T; a directed graph ({self.topology.name}) "
+                "would bias the network mean each faulty round. Use push_sum=True on it"
+            )
+        # the port's own: what it does not run yet
+        if self.path_filter is not None and not callable(self.path_filter):
+            raise ValueError(f"path_filter must be a callable on a key path, got {self.path_filter!r}")
+        if comp is not None and comp.stochastic:
+            raise NotImplementedError("stochastic codecs are not ported yet")
+        for name, default in _NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"GossipConfig.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(only the default {default!r})"
+                )
 
 
-def _check_bucket_state(packed: list, xhat: list) -> None:
+def _check_state(packed: list, xhat: list, bucketed: bool) -> None:
     shapes = lambda xs: [tuple(b.shape) for b in xs]
     if len(xhat) != len(packed) or shapes(xhat) != shapes(packed):
+        what = "bucket layout" if bucketed else "compressed leaves"
         raise ValueError(
-            "bucketed CHOCO state does not match this round's bucket layout: params pack "
-            f"to {shapes(packed)} but the state holds {shapes(xhat)}. For stacked params, "
-            "init_state needs world_size=...; rebuild state after changing bucket_bytes, "
-            "the codec, or the tree."
+            f"CHOCO state does not match this round's {what}: the params give {shapes(packed)} but the "
+            f"state holds {shapes(xhat)}. For stacked params, init_state needs world_size=...; rebuild "
+            "state after changing bucket_bytes, the codec, the filters or the tree."
         )
-
-
-def _check_no_model_state(paths: list) -> None:
-    # CHOCO only: its compress_filter="auto" mixes model_state leaves
-    # exactly beside the compressed params, a split not ported yet. Exact
-    # mixing takes model_state (BatchNorm statistics) like any leaf.
-    for path in paths:
-        if path and path[0] == "model_state":
-            raise NotImplementedError(
-                "exact-mixed model_state leaves (compress_filter='auto') are not ported yet"
-            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,16 +257,23 @@ class ConsensusEngine:
 
     @property
     def bucketed(self) -> bool:
-        """Always true here (the config refuses the per-leaf wire)."""
-        return True
+        """Whether rounds ride the bucketed wire: ``bucket_bytes`` set, no
+        push-sum, and exact mixing or a codec with a ``bucket_alignment``
+        (else the per-leaf wire)."""
+        cfg = self.config
+        if cfg.bucket_bytes is None or cfg.fused_codec or cfg.push_sum_enabled:
+            return False
+        comp = cfg.compressor
+        return comp is None or comp.bucket_alignment() is not None
 
     @property
     def fused_wire_active(self) -> bool:
-        """Whether compressed rounds run the fused one-pass wire: a codec
-        with a fused wire and the config not opting out (the reference's
-        rule); otherwise CHOCO runs the two-step bucketed wire."""
+        """Whether compressed rounds run the fused one-pass wire: the
+        bucketed wire, a codec with a fused wire and the config not opting
+        out (the reference's rule); otherwise CHOCO runs the two-step
+        bucketed wire or the per-leaf one."""
         cfg = self.config
-        if cfg.compressor is None or cfg.fused_wire is False:
+        if cfg.compressor is None or cfg.fused_wire is False or not self.bucketed:
             return False
         from consensusml_tpu_torch.compress.kernels import fused_bucket_codec
 
@@ -224,7 +299,7 @@ class ConsensusEngine:
         )
 
     def _select(self, tree: Any):
-        """``(paths, leaves, rebuild)`` of the leaves that gossip: with a
+        """``(leaves, rebuild)`` of the leaves that gossip: with a
         ``path_filter`` those it selects, in flatten order, and
         ``rebuild(new_leaves)`` the tree with them replaced and every other
         leaf as it was; without one, every leaf."""
@@ -237,44 +312,85 @@ class ConsensusEngine:
             it = iter(new)
             return T.unflatten(spec, [next(it) if k else x for k, (_, x) in zip(keep, flat)])
 
-        chosen = [(path, x) for k, (path, x) in zip(keep, flat) if k]
-        return [p for p, _ in chosen], [x for _, x in chosen], rebuild
+        return [x for k, (_, x) in zip(keep, flat) if k], rebuild
 
-    def bucket_plan(self, params: Any, stacked: bool = False) -> BucketPlan:
+    def _compress_filter(self):
+        cf = self.config.compress_filter
+        if cf == "auto":
+            return lambda path: not (path and path[0] == "model_state")
+        return cf
+
+    def _partition(self, tree: Any):
+        """One flatten, both filters on the tree's own paths:
+        ``(compressed, exact, rebuild)``: the gossiped leaves that ride
+        CHOCO and those mixed exactly (``compress_filter``), in flatten
+        order, and ``rebuild(compressed_new, exact_new)`` the tree with
+        every leaf the ``path_filter`` leaves out as it was."""
+        flat = T.flatten_with_paths(tree)
+        spec = T.flatten(tree)[1]
+        pf, cf = self.config.path_filter, self._compress_filter()
+        tags = ["r" if pf is not None and not pf(p) else "e" if cf is not None and not cf(p) else "c"
+                for p, _ in flat]
+
+        def rebuild(c_new: list, e_new: list) -> Any:
+            its = {"c": iter(c_new), "e": iter(e_new)}
+            return T.unflatten(spec, [x if t == "r" else next(its[t]) for t, (_, x) in zip(tags, flat)])
+
+        by = lambda tag: [x for t, (_, x) in zip(tags, flat) if t == tag]  # noqa: E731
+        return by("c"), by("e"), rebuild
+
+    def bucket_plan(self, params: Any, stacked: bool = False) -> BucketPlan | None:
         """The bucket layout one gossip round of ``params`` uses (the
-        selected leaves only); only shapes are read."""
-        _, leaves, _ = self._select(params)
+        gossiped leaves; under CHOCO the compressed ones), or ``None`` on
+        the per-leaf wire; only shapes are read."""
+        if not self.bucketed:
+            return None
         if self.compressed:
-            return self._codec_plan(leaves, stacked=stacked)
-        return self._dense_plan(leaves, stacked=stacked)
+            return self._codec_plan(self._partition(params)[0], stacked=stacked)
+        return self._dense_plan(self._select(params)[0], stacked=stacked)
 
     # ---- state ----------------------------------------------------------
-    def init_state(self, params: Any, world_size: int | None = None) -> ChocoState | None:
-        """Zero per-bucket CHOCO state for ``params`` (stacked leaves with
-        ``world_size``, per-worker leaves without), or ``None`` for exact
-        mixing."""
+    def init_state(self, params: Any, world_size: int | None = None) -> ChocoState | PushSumState | None:
+        """Gossip state for ``params`` (stacked leaves with ``world_size``,
+        per-worker leaves without): unit push-sum mass, zero CHOCO state
+        (per bucket, or per compressed leaf on the per-leaf wire), or
+        ``None`` for exact mixing."""
+        leaves = T.leaves(params)
+        device = leaves[0].device if leaves else None
+        if self.config.push_sum_enabled:
+            return pushsum_init(world_size, device=device)
         if not self.compressed:
             return None
-        paths, leaves, _ = self._select(params)
-        _check_no_model_state(paths)
-        plan = self._codec_plan(leaves, stacked=world_size is not None)
-        device = leaves[0].device if leaves else None
-        lead = () if world_size is None else (world_size,)
-        xhat = [torch.zeros(lead + (b.total,), dtype=torch.float32, device=device) for b in plan.buckets]
+        compressed, _, _ = self._partition(params)
+        if self.bucketed:
+            plan = self._codec_plan(compressed, stacked=world_size is not None)
+            lead = () if world_size is None else (world_size,)
+            xhat = [torch.zeros(lead + (b.total,), dtype=torch.float32, device=device) for b in plan.buckets]
+        else:
+            xhat = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in compressed]
         return ChocoState(xhat=xhat, s=[torch.zeros_like(z) for z in xhat])
 
     # ---- simulated round ------------------------------------------------
-    def round_simulated(self, params: Any, state: ChocoState | None, w: torch.Tensor,
-                        step: int | None = None):
+    def round_simulated(self, params: Any, state, w: torch.Tensor, step: int | None = None,
+                        alive: torch.Tensor | None = None):
         """One gossip round on stacked tensors (leading axis = workers).
         ``step`` is the round counter, needed when warm-up or refresh
-        rounds are configured. Returns ``(new_params, new_state)``."""
+        rounds are configured. ``alive`` (``(world,)`` of 0/1 floats, with
+        ``config.faults``): the round's participation mask, mixed through
+        the masked matrix (or push-sum's send-side one). Returns
+        ``(new_params, new_state)``."""
+        if self.config.push_sum_enabled:
+            leaves, rebuild = self._select(params)
+            mixed, state = pushsum_round_simulated(leaves, state, w, alive)
+            return rebuild(mixed), state
+        if alive is not None and not self.compressed:
+            w = masked_mixing_matrix(w.to(torch.float32), alive)
 
         def mix(bufs):
-            # bucket by bucket, each input buffer released once mixed (the
-            # list is consumed, as ``_round`` allows): the round holds one
-            # extra copy of the stacked tree, not two (BERT-base at 32
-            # workers: 14 GB)
+            # buffer by buffer, each input released once mixed (the list
+            # is consumed, as ``_round`` allows): the round holds one extra
+            # copy of the stacked tree, not two (BERT-base at 32 workers:
+            # 14 GB)
             out = []
             for i in range(len(bufs)):
                 out.append(simulated.mix_stacked(bufs[i], w))
@@ -288,36 +404,55 @@ class ConsensusEngine:
 
         return self._round(params, state, step, mix, exchange, stacked=True)
 
+    def _mix_exact(self, leaves: list, mix, n_iter: int, stacked: bool) -> list:
+        """``n_iter`` exact mixes of a leaf list: over dense buckets on the
+        bucketed wire, leaf by leaf on the per-leaf one (the same numbers:
+        the mixing is elementwise)."""
+        if not leaves:
+            return []
+        if not self.bucketed:
+            out = list(leaves)
+            for _ in range(n_iter):
+                out = mix(out)
+            return out
+        plan = self._dense_plan(leaves, stacked=stacked)
+        bufs = plan.pack(leaves, stacked=stacked)
+        for _ in range(n_iter):
+            bufs = mix(bufs)
+        return plan.unpack(bufs, stacked=stacked)
+
     def _round(self, params: Any, state: ChocoState | None, step: int | None, mix, exchange, stacked: bool):
         """The round both backends share: ``mix(bufs)`` mixes a list of
-        bucket buffers exactly once and consumes the list (it may set its
-        entries to ``None`` as it goes, as the simulated backend does to
-        free each bucket once mixed), so nothing here reads a list after
-        passing it to ``mix``; ``exchange(x, xhat, s, fused)`` is the
-        innovation exchange (``fused`` the :class:`FusedWirePlan`, or
-        ``None`` for the two-step wire) and returns ``(xhat, s)``."""
+        buffers (buckets, or leaves on the per-leaf wire) exactly once and
+        consumes the list (it may set its entries to ``None`` as it goes,
+        as the simulated backend does to free each one once mixed), so
+        nothing here reads a list after passing it to ``mix``;
+        ``exchange(x, xhat, s, fused)`` is the innovation exchange over
+        buckets or leaves (``fused`` the :class:`FusedWirePlan`, or
+        ``None`` for the two-step and per-leaf wires) and returns ``(xhat,
+        s)``."""
         cfg = self.config
         if step is None and (cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0):
             raise ValueError("codec_warmup_rounds/codec_refresh_every need the round counter (step=...)")
         n_iter = cfg.gossip_steps
-        paths, leaves, rebuild = self._select(params)
         if not self.compressed:
+            leaves, rebuild = self._select(params)
             if not leaves:
                 return params, None
-            plan = self._dense_plan(leaves, stacked=stacked)
-            bufs = plan.pack(leaves, stacked=stacked)
-            for _ in range(n_iter):
-                bufs = mix(bufs)
-            return rebuild(plan.unpack(bufs, stacked=stacked)), None
+            return rebuild(self._mix_exact(leaves, mix, n_iter, stacked)), None
 
-        _check_no_model_state(paths)
-        x32 = [x.to(torch.float32) for x in leaves]
-        plan = self._codec_plan(x32, stacked=stacked)
-        fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
-        x = plan.pack(x32, stacked=stacked)
-        del x32
+        compressed, exact, rebuild = self._partition(params)
+        # the exact-mixed leaves (BatchNorm statistics under "auto") stay
+        # in step with the compressed ones
+        mixed_exact = self._mix_exact(exact, mix, n_iter, stacked)
+        x = [t.to(torch.float32) for t in compressed]
+        plan = fused = None
+        if self.bucketed:
+            plan = self._codec_plan(x, stacked=stacked)
+            fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
+            x = plan.pack(x, stacked=stacked)
         xhat, s = list(state.xhat), list(state.s)
-        _check_bucket_state(x, xhat)
+        _check_state(x, xhat, self.bucketed)
 
         warm, refresh = cfg.codec_warmup_rounds, cfg.codec_refresh_every
         if (warm > 0 and step < warm) or (refresh > 0 and step % refresh == 0):
@@ -326,11 +461,16 @@ class ConsensusEngine:
             for _ in range(n_iter):
                 x = mix(x)
         else:
+            gamma = torch.tensor(cfg.gamma, dtype=torch.float32)
             for _ in range(n_iter):
                 xhat, s = exchange(x, xhat, s, fused)
-                x = [xi + cfg.gamma * (si - hi) for xi, si, hi in zip(x, s, xhat)]
-        new = [piece.to(old.dtype) for piece, old in zip(plan.unpack(x, stacked=stacked), leaves)]
-        return rebuild(new), ChocoState(xhat=xhat, s=s)
+                # x + gamma * (s - xhat) with one rounding, as the
+                # reference's compiled program contracts it
+                x = [fma_f32(gamma.to(xi.device), si - hi, xi) for xi, si, hi in zip(x, s, xhat)]
+        if plan is not None:
+            x = plan.unpack(x, stacked=stacked)
+        new = [piece.to(old.dtype) for piece, old in zip(x, compressed)]
+        return rebuild(new, mixed_exact), ChocoState(xhat=xhat, s=s)
 
     def _innovation_exchange_fused_simulated(self, x: list, xhat: list, s: list,
                                              w: torch.Tensor, fused: FusedWirePlan):
@@ -363,13 +503,15 @@ class ConsensusEngine:
         return new_hat, new_s
 
     # ---- collective round (one worker per process) ----------------------
-    def round_collective(self, params: Any, state: ChocoState | None, mesh, step: int | None = None):
+    def round_collective(self, params: Any, state, mesh, step: int | None = None, alive=None):
         """One gossip round of THIS rank's worker (per-worker leaves and
-        per-worker CHOCO state, :meth:`init_state` without ``world_size``)
-        over ``mesh``'s transport. ``step`` is the round counter, needed
-        for a time-varying topology (phase ``step % period``, the same on
-        every rank) and for warm-up or refresh rounds. Returns
-        ``(new_params, new_state)``."""
+        per-worker state, :meth:`init_state` without ``world_size``) over
+        ``mesh``'s transport. ``step`` is the round counter, needed for a
+        time-varying topology (phase ``step % period``, the same on every
+        rank) and for warm-up or refresh rounds. ``alive`` (this worker's
+        0/1 flag, with ``config.faults``): the masked round, the
+        neighbours' flags exchanged once. Returns ``(new_params,
+        new_state)``."""
         topo = self.topology
         if mesh.topology != topo:
             raise ValueError("the mesh is bound to another topology than this engine's")
@@ -377,11 +519,20 @@ class ConsensusEngine:
             if step is None:
                 raise ValueError(f"{type(topo).__name__} is time-varying: round_collective needs step=...")
             topo = topo.phases[step % topo.period]
+        if self.config.push_sum_enabled:
+            leaves, rebuild = self._select(params)
+            mixed, state = pushsum_round_collective(leaves, state, topo, mesh, alive)
+            return rebuild(mixed), state
+        if self.compressed:
+            alive = None  # the config refuses faults with a compressor
+        nbrs = None
+        if alive is not None and not topo.uses_psum:
+            nbrs = collectives.neighbour_flags(alive, topo, mesh)
 
         def mix(bufs):
-            # every bucket exact-mixed in one exchange (the BN statistics
-            # ride beside the weights)
-            return collectives.mix_buckets(bufs, topo, mesh)
+            # every buffer mixed in one exchange (the BN statistics ride
+            # beside the weights)
+            return collectives.mix_buckets(bufs, topo, mesh, alive, nbrs)
 
         def exchange(x, xhat, s, fused):
             if fused is not None:
@@ -444,20 +595,29 @@ class ConsensusEngine:
     # ---- accounting -----------------------------------------------------
     def wire_bytes_per_round(self, params: Any) -> int:
         """Bytes ONE worker sends per steady-state round (``params`` are
-        per-worker leaves; only their shapes are read): the codec payload
-        of every bucket (dense f32 for exact mixing) of the selected
-        leaves (a leaf the ``path_filter`` leaves out ships nothing), times
-        the sends of a round (:meth:`_sends_per_round`), times
-        ``gossip_steps``. Warm-up and refresh rounds ship the dense params
+        per-worker leaves; only their shapes are read), the reference's
+        sum: the codec payload of every bucket, or of every compressed
+        leaf on the per-leaf wire, plus 4 bytes an element of the
+        exact-mixed leaves (all of them for exact mixing), times the sends
+        of a round (:meth:`_sends_per_round`) and ``gossip_steps``; push-sum
+        adds its f32 mass a send. A leaf the ``path_filter`` leaves out
+        ships nothing. Warm-up and refresh rounds ship the dense params
         besides and are not folded in, as in the reference."""
         comp = self.config.compressor
-        _, leaves, _ = self._select(params)
+        dense = lambda x: 4 * int(torch.Size(x.shape).numel())  # noqa: E731
         if comp is None:
-            payload = sum(4 * int(torch.Size(x.shape).numel()) for x in leaves)
+            payload = sum(dense(x) for x in self._select(params)[0])
         else:
-            plan = self._codec_plan(leaves)
-            payload = sum(comp.wire_bytes((b.total,), torch.float32) for b in plan.buckets)
-        return int(payload * self._sends_per_round() * self.config.gossip_steps)
+            compressed, exact, _ = self._partition(params)
+            if self.bucketed:
+                plan = self._codec_plan(compressed)
+                payload = sum(comp.wire_bytes((b.total,), torch.float32) for b in plan.buckets)
+            else:
+                payload = sum(comp.wire_bytes(tuple(x.shape), torch.float32) for x in compressed)
+            payload += sum(dense(x) for x in exact)
+        sends = self._sends_per_round()
+        mass = 4 * sends if self.config.push_sum_enabled else 0
+        return int(payload * sends * self.config.gossip_steps + mass)
 
     def _sends_per_round(self) -> float:
         """Payloads a worker sends per round: one per neighbour shift, one

@@ -18,6 +18,13 @@ the base held once and frozen, the adapters trained by Adam and gossiped
 exactly on a torus, alone on the wire).
 ``--topology NAME[:k=v,...]`` swaps any config's gossip graph (ring,
 torus, dense, exp, onepeer-exp, hierarchical:slices=S,outer_every=K);
+``--drop-prob P`` injects worker drop-outs (each worker misses a round
+with probability P, and a worker whose local steps go non-finite is
+rolled back and dead for the round), ``--push-sum`` gossips by ratio
+consensus (exact on directed graphs and under faults; exact configs
+only), ``--bucket-bytes N`` caps the wire's buckets (0: the per-leaf
+wire), ``--gossip-steps T`` runs T consensus iterations a round and
+``--codec-refresh K`` a dense round every K on a compressed config;
 ``--eval-batches N`` scores N held-out batches after the last round, for
 the mean model and the workers (top-1, or the LM's nll and perplexity)::
 
@@ -34,6 +41,10 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
     python -m consensusml_tpu_torch.train --config bert_mlm --scale full --rounds 3 --eval-batches 8
     python -m consensusml_tpu_torch.train --config llama_lora --device cpu --rounds 3 --eval-batches 2
     python -m consensusml_tpu_torch.train --config llama_lora --scale full --rounds 3 --eval-batches 1
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas --drop-prob 0.1
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --topology onepeer-exp --push-sum \
+        --drop-prob 0.1
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --bucket-bytes 0
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale smoke --device cpu --backend collective \
         --dist-backend gloo --workers 4 --rounds 2
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
@@ -42,9 +53,10 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a
 time (``configs.init_on_device``).
-Prints the resolved codec path and the norm path, then
-one line per logged round: loss, consensus error, the round's wall time
-and, for image batches, images per second; the collective backend's
+Prints the resolved codec path and wire and the norm path, then
+one line per logged round: loss, consensus error, the round's wall time,
+for image batches images per second and, with faults, the share of
+workers alive in the round; the collective backend's
 lines come from rank 0 and add the round's wire bytes and every rank's
 round, staging and wire milliseconds. A failing rank fails the run.
 """
@@ -81,6 +93,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-batches", type=int, default=0,
                    help="after training, score this many held-out batches (the mean model's and the "
                         "workers' top-1, or the LM's nll and perplexity)")
+    p.add_argument("--drop-prob", type=float, default=0.0,
+                   help="per-round worker drop-out probability (fault injection; non-finite failure "
+                        "detection and rollback are enabled alongside it)")
+    p.add_argument("--push-sum", action="store_true",
+                   help="ratio-consensus averaging (exact mean on directed topologies and under faults; "
+                        "exact-gossip configs only)")
+    p.add_argument("--bucket-bytes", type=int, default=None,
+                   help="gossip wire bucket cap in bytes (default 4 MiB); 0 = the per-leaf wire")
+    p.add_argument("--gossip-steps", type=int, default=None,
+                   help="consensus iterations per round (wire x N)")
+    p.add_argument("--codec-refresh", type=int, default=None,
+                   help="dense refresh round every K rounds on a compressed config")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -93,26 +117,27 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _describe(bundle, engine, config: str) -> None:
+    wire = "bucketed wire" if engine.bucketed else "per-leaf wire"
+    cfg = bundle.cfg.gossip
+    extra = "".join([", push-sum" if cfg.push_sum_enabled else "",
+                     f", faults drop_prob={cfg.faults.drop_prob}" if cfg.faults is not None else ""])
     if engine.compressed:
         fused = engine.fused_wire_active
-        wire = "fused one-pass bucketed wire" if fused else "two-step bucketed wire"
+        wire = "fused one-pass bucketed wire" if fused else ("two-step " + wire if engine.bucketed else wire)
         print(f"codec: {bundle.codec_path}; {wire} "
-              f"(fused_wire={bundle.cfg.gossip.fused_wire}, active={fused})", flush=True)
+              f"(fused_wire={cfg.fused_wire}, active={fused}){extra}", flush=True)
     else:
-        print(f"codec: {bundle.codec_path}; dense bucketed wire", flush=True)
+        print(f"codec: {bundle.codec_path}; dense {wire}{extra}", flush=True)
     if bundle.norm_path:
         label = {"cifar_resnet50": "BN", "llama_lora": "norm"}.get(config, "LN")
         print(f"{label}: {bundle.norm_path}", flush=True)
 
 
-def _main_collective(args) -> int:
+def _bundle(args, dev):
+    """The run's bundle with every flag applied, or an ``error: ...`` line
+    for what the CLI refuses with exit code 2."""
     from consensusml_tpu_torch import configs
-    from consensusml_tpu_torch.device import resolve_device
-    from consensusml_tpu_torch.train import collective
 
-    if args.eval_batches > 0:
-        raise NotImplementedError("--eval-batches is not ported for --backend collective yet")
-    dev = resolve_device(args.device)
     bundle = configs.build(
         args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
         codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
@@ -121,8 +146,32 @@ def _main_collective(args) -> int:
         try:
             configs.with_topology(bundle, args.topology)
         except (IndexError, ValueError) as e:
-            print(f"error: bad --topology {args.topology!r}: {e}", file=sys.stderr)
-            return 2
+            return None, f"error: bad --topology {args.topology!r}: {e}"
+    try:
+        configs.with_gossip_flags(bundle, drop_prob=args.drop_prob, push_sum=args.push_sum,
+                                  gossip_steps=args.gossip_steps, codec_refresh=args.codec_refresh,
+                                  bucket_bytes=args.bucket_bytes)
+    except configs.FlagError as e:
+        return None, f"error: {e}"
+    return bundle, None
+
+
+def _layout(engine, gossiped, stacked: bool) -> str:
+    plan = engine.bucket_plan(gossiped, stacked=stacked)
+    return "per-leaf wire" if plan is None else f"{plan.num_buckets} buckets"
+
+
+def _main_collective(args) -> int:
+    from consensusml_tpu_torch.device import resolve_device
+    from consensusml_tpu_torch.train import collective
+
+    if args.eval_batches > 0:
+        raise NotImplementedError("--eval-batches is not ported for --backend collective yet")
+    dev = resolve_device(args.device)
+    bundle, error = _bundle(args, dev)
+    if error is not None:
+        print(error, file=sys.stderr)
+        return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     topo = engine.topology
@@ -143,16 +192,10 @@ def main(argv=None) -> int:
     if args.backend == "collective":
         return _main_collective(args)
     dev = resolve_device(args.device)
-    bundle = configs.build(
-        args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
-        codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
-    )
-    if args.topology is not None:
-        try:
-            configs.with_topology(bundle, args.topology)
-        except (IndexError, ValueError) as e:
-            print(f"error: bad --topology {args.topology!r}: {e}", file=sys.stderr)
-            return 2
+    bundle, error = _bundle(args, dev)
+    if error is not None:
+        print(error, file=sys.stderr)
+        return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     params, model_state = configs.init_on_device(bundle, args.seed, dev)
@@ -166,7 +209,7 @@ def main(argv=None) -> int:
     shared = f" + {sum(t.numel() for t in frozen.values())} frozen, held once" if frozen else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} workers on {dev}, "
           f"{sum(p[0].numel() for p in params.values())} params per worker{shared}, "
-          f"{engine.bucket_plan(gossiped, stacked=True).num_buckets} buckets, topology {topo.name}{period}",
+          f"{_layout(engine, gossiped, True)}, topology {topo.name}{period}",
           flush=True)
     for r, batch in enumerate(bundle.batches(args.rounds, args.seed)):
         t0 = time.perf_counter()
@@ -175,7 +218,9 @@ def main(argv=None) -> int:
         ms = 1e3 * (time.perf_counter() - t0)
         if r % args.log_every == 0 or r == args.rounds - 1:
             imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
-            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}", flush=True)
+            alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
+            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive}",
+                  flush=True)
     if args.eval_batches > 0:
         from consensusml_tpu_torch.train.evaluate import evaluate
 

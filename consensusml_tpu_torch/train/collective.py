@@ -19,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["check_flags", "run", "train_rank", "train_runs"]
+__all__ = ["check_flags", "run", "spec_bundle", "train_rank", "train_runs"]
 
 
 def check_flags(device: str, dist_backend: str, world: int, device_count: int) -> None:
@@ -54,7 +54,9 @@ def run(spec: dict, world: int) -> list[dict]:
     return launch(train_rank, world, spec, dist_backend=spec["dist_backend"])
 
 
-def _bundle(spec: dict, device):
+def spec_bundle(spec: dict, device):
+    """The run bundle of ``spec`` (the parsed flags as a dict) on
+    ``device``, every gossip flag applied as the CLI applies it."""
     from consensusml_tpu_torch import configs
 
     bundle = configs.build(
@@ -63,7 +65,11 @@ def _bundle(spec: dict, device):
     )
     if spec["topology"] is not None:
         configs.with_topology(bundle, spec["topology"])
-    return bundle
+    return configs.with_gossip_flags(
+        bundle, drop_prob=spec.get("drop_prob", 0.0), push_sum=spec.get("push_sum", False),
+        gossip_steps=spec.get("gossip_steps"), codec_refresh=spec.get("codec_refresh"),
+        bucket_bytes=spec.get("bucket_bytes"),
+    )
 
 
 def train_rank(rank: int, world: int, spec: dict) -> dict:
@@ -73,8 +79,9 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     memory. ``spec["init"]``, when given, holds stacked numpy initial
     variables in flax layout (the config's ``init_params`` output; this
     rank takes its row); ``spec["return_params"]`` adds the final
-    parameters as numpy; ``spec["check"]`` (``{"seed", "step", "leaves"}``)
-    adds one gossip round on seeded inputs after training
+    parameters as numpy; ``spec["check"]`` (``{"seed", "step", "leaves"}``,
+    and ``"alive"``, a ``(world,)`` mask for that round) adds one gossip
+    round on seeded inputs after training
     (:func:`~consensusml_tpu_torch.comm.check.seeded_gossip_round`)."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.comm.mesh import WorkerMesh, rank_device
@@ -84,7 +91,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     device = rank_device(rank, spec["device"])
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    bundle = _bundle(spec, device)
+    bundle = spec_bundle(spec, device)
     mesh = WorkerMesh.create(bundle.cfg.gossip.topology, spec["dist_backend"], device)
     init = spec.get("init")
     if init is None:
@@ -115,18 +122,22 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                        "bytes_staged": m["bytes_staged"],
                        "staging_ms": m["staging_ms"], "wire_ms": m["wire_ms"],
                        "launches": {k: v for k, v in kernels.launch_counts().items() if v},
-                       "forms": kernels.form_counts()})
+                       "forms": kernels.form_counts(),
+                       **({"alive_frac": float(m["alive_frac"]), "alive_mask": m["alive_mask"].tolist()}
+                          if "alive_frac" in m else {})})
         log_every = spec["log_every"]
         if rank == 0 and log_every and (r % log_every == 0 or r == spec["rounds"] - 1):
             imgs = f" imgs/s {float(table[:, 3].sum()):.1f}" if "imgs_per_s" in m else ""
+            alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
             fmt = lambda col: "[" + ", ".join(f"{v:.1f}" for v in table[:, col].tolist()) + "]"  # noqa: E731
-            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs} "
+            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive} "
                   f"wire_bytes {m['wire_bytes']} ranks_round_ms {fmt(0)} staging_ms {fmt(1)} wire_ms {fmt(2)}",
                   flush=True)
     engine = bundle.cfg.engine()
     gossiped = {"params": {n: p[0] for n, p in state.params.items()},
                 "model_state": T.tree_map(lambda t: t[0], state.model_state)}
-    out = {"rank": rank, "rounds": rounds, "buckets": engine.bucket_plan(gossiped).num_buckets,
+    plan = engine.bucket_plan(gossiped)
+    out = {"rank": rank, "rounds": rounds, "buckets": None if plan is None else plan.num_buckets,
            "wire_bytes_per_round": engine.wire_bytes_per_round(gossiped)}
     del gossiped
     if device.type == "cuda":
@@ -146,7 +157,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
             torch.cuda.empty_cache()
         c = spec["check"]
         leaves = shapes if c.get("leaves") is None else shapes[: c["leaves"]]
-        out["check"] = seeded_gossip_round(mesh, engine, leaves, c["seed"], c["step"])
+        out["check"] = seeded_gossip_round(mesh, engine, leaves, c["seed"], c["step"], c.get("alive"))
     return out
 
 

@@ -1,6 +1,6 @@
 """Local-SGD training rounds (port of ``consensusml_tpu/train/local_sgd.py``,
-the non-fault, non-overlap branches of ``make_simulated_train_step`` and
-``make_collective_train_step``).
+the non-overlap branches of ``make_simulated_train_step`` and
+``make_collective_train_step``, faults included).
 
 ``loss_fn(params, model_state, batch, generator) -> (scalar loss,
 model_state)`` is user code; ``params`` is a dict of one worker's
@@ -37,6 +37,17 @@ theirs, each weighted by its share of the loss's divisor
 (``loss_fn.count``), then one optimizer step, the reference's one-batch
 gradient in another rounding order.
 
+Faults (``cfg.gossip.faults``, ``consensus/faults.py``): after a
+worker's H local steps its loss, parameters and model state are checked
+for finiteness on the device (one read a worker); a worker that failed
+is rolled back to the rows it held before its steps (parameters, model
+state and optimizer state, snapshotted just before them) and is dead for
+the round. Its injected flag is the next draw of its fault generator
+(``TrainState.fault_generators``), or row ``i`` of the simulated step's
+``alive=`` mask (the reference's ``external_alive`` path), and the
+round's mask is ``inject * ok``. The loss is averaged over the workers
+kept; the metrics add ``alive_frac`` and ``alive_mask``.
+
 The collective backend (:func:`make_collective_train_step`) runs ONE
 worker per process: :func:`init_state` holds that worker's tensors as a
 stack of one (so :func:`worker_step` and the optimizers run unchanged),
@@ -55,12 +66,13 @@ from typing import Any, Callable
 import torch
 
 from consensusml_tpu_torch.comm import collectives, simulated
-from consensusml_tpu_torch.consensus import ChocoState, ConsensusEngine, GossipConfig
+from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+from consensusml_tpu_torch.consensus.faults import draw_alive, fault_generator, tree_all_finite
 from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
     "LocalSGDConfig", "TrainState", "init_stacked_state", "init_state", "worker_generator", "rank_batch",
-    "worker_grads", "make_simulated_train_step", "make_collective_train_step",
+    "worker_grads", "local_steps", "make_simulated_train_step", "make_collective_train_step",
 ]
 
 LossFn = Callable[[dict, Any, dict, torch.Generator], tuple[torch.Tensor, Any]]
@@ -72,9 +84,11 @@ class TrainState:
     params: dict[str, torch.Tensor]  # stacked (W, ...) f32, flax paths
     model_state: dict  # stacked (W, ...) f32 leaves: {} or {"batch_stats": {path: ...}}
     opt_state: Any  # the optimizer's, stacked (AdamState, SGDState)
-    gossip: ChocoState | None
+    gossip: Any  # the engine's: ChocoState, PushSumState or None
     generators: list[torch.Generator]  # per-worker dropout streams
     frozen: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # shared, unstacked, never trained
+    # per-worker host streams of injected faults (with cfg.gossip.faults)
+    fault_generators: list[torch.Generator] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +101,13 @@ class LocalSGDConfig:
     # rows of a worker's batch that one forward and backward take at once
     # (0: the whole batch); the step's gradient is still the whole batch's
     micro_batch: int = 0
+    # the gossip wire's bucket cap, overriding gossip.bucket_bytes unless
+    # "inherit" (0 or None: the per-leaf wire)
+    bucket_bytes: int | None | str = "inherit"
 
     def __post_init__(self):
+        if self.bucket_bytes != "inherit":
+            object.__setattr__(self, "gossip", dataclasses.replace(self.gossip, bucket_bytes=self.bucket_bytes or None))
         if self.h < 1:
             raise ValueError(f"h must be >= 1, got {self.h}")
         if self.micro_batch < 0:
@@ -137,6 +156,8 @@ def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], wor
         gossip=cfg.engine().init_state(_gossiped(params, model_state), world_size=world_size),
         generators=gens,
         frozen=frozen,
+        fault_generators=([fault_generator(seed, r) for r in range(world_size)]
+                          if cfg.gossip.faults is not None else []),
     )
 
 
@@ -170,6 +191,7 @@ def init_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], rank: int, 
         gossip=cfg.engine().init_state(_gossiped(*_row(params, model_state))),
         generators=[worker_generator(device, seed, rank)],
         frozen=frozen,
+        fault_generators=[fault_generator(seed, rank)] if cfg.gossip.faults is not None else [],
     )
 
 
@@ -240,21 +262,61 @@ def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker:
     return loss
 
 
+def _worker_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every stacked tensor a worker's local steps write: parameters,
+    model state and the optimizer state's fields (``AdamState.count``
+    included)."""
+    opt = [t for f in dataclasses.fields(state.opt_state)
+           for t in T.leaves(getattr(state.opt_state, f.name)) if isinstance(t, torch.Tensor)]
+    return list(state.params.values()) + T.leaves(state.model_state) + opt
+
+
+def local_steps(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
+                batches: list[dict]) -> tuple[torch.Tensor, float]:
+    """Worker ``worker``'s local steps, one a batch, in place: ``(mean
+    loss, ok)``. With ``cfg.gossip.faults`` detecting non-finite values,
+    ``ok`` is whether the loss, the parameters and the model state came
+    out finite (reduced on the device, read once), and a worker that
+    failed is restored to the rows it held before the steps; otherwise
+    ``ok`` is 1."""
+    faults = cfg.gossip.faults
+    check = faults is not None and faults.detect_nonfinite
+    snapshot = [t[worker].clone() for t in _worker_tensors(state)] if check else None
+    loss = torch.stack([worker_step(cfg, loss_fn, state, worker, b) for b in batches]).mean()
+    if not check:
+        return loss, 1.0
+    rows = ([p[worker] for p in state.params.values()], [x[worker] for x in T.leaves(state.model_state)])
+    ok = float(tree_all_finite(loss, rows))
+    if not ok:
+        with torch.no_grad():
+            for t, saved in zip(_worker_tensors(state), snapshot):
+                t[worker].copy_(saved)
+    return loss, ok
+
+
 def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
-    """``step(state, batch) -> (state, metrics)`` for stacked workers on one
-    device: per worker (one at a time) H local steps, then one gossip round
-    through the mixing matrix (a time-varying topology's phase ``step %
-    period``, for exact mixing and CHOCO alike), then the consensus error.
-    ``metrics``: ``loss`` (mean over workers of each worker's mean over its H steps),
-    ``consensus_error``, the host wall time of the inner loop and of the
-    gossip round in ms (both end in a device synchronisation) and, for
-    image batches, ``imgs_per_s`` (W x H x B over the round's wall time)."""
+    """``step(state, batch, alive=None) -> (state, metrics)`` for stacked
+    workers on one device: per worker (one at a time) H local steps
+    (:func:`local_steps`), then one gossip round through the mixing
+    matrix (a time-varying topology's phase ``step % period``, for exact
+    mixing and CHOCO alike), then the consensus error. With
+    ``cfg.gossip.faults``, ``alive`` (``(world,)`` 0/1) replaces the
+    round's injected draws, the finite check still applied; without
+    faults it is refused. ``metrics``: ``loss`` (mean over the kept
+    workers of each worker's mean over its H steps), ``consensus_error``,
+    the host wall time of the inner loop and of the gossip round in ms
+    (both end in a device synchronisation), for image batches
+    ``imgs_per_s`` (W x H x B over the round's wall time), and with faults
+    ``alive_frac`` and ``alive_mask``."""
     engine = cfg.engine()
     topo = cfg.gossip.topology
+    faults = cfg.gossip.faults
     # time-varying topologies: stack the phase matrices once, index by round
     w_all = simulated.phase_matrices(topo) if topo.is_time_varying else simulated.mixing_matrix(topo)
 
-    def step(state: TrainState, batch: dict):
+    def step(state: TrainState, batch: dict, alive=None):
+        if alive is not None and faults is None:
+            raise ValueError("an alive mask needs cfg.gossip.faults (FaultConfig(drop_prob=0.0) for given masks only)")
         first = next(iter(batch.values()))
         world, h = first.shape[0], first.shape[1]
         if h != cfg.h:
@@ -266,19 +328,24 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
-        per_worker = []
+        per_worker, oks = [], []
         for w in range(world):
-            losses = [
-                worker_step(cfg, loss_fn, state, w, {k: v[w, i] for k, v in batch.items()})
-                for i in range(h)
-            ]
-            per_worker.append(torch.stack(losses).mean())
+            loss, ok = local_steps(cfg, loss_fn, state, w, [{k: v[w, i] for k, v in batch.items()} for i in range(h)])
+            per_worker.append(loss)
+            oks.append(ok)
+        losses = torch.stack(per_worker)
+        mask = None
+        if faults is not None:
+            keep = torch.tensor(oks, dtype=torch.float32, device=device)
+            if alive is None:
+                alive = [draw_alive(g, faults.drop_prob) for g in state.fault_generators]
+            mask = torch.as_tensor(alive, dtype=torch.float32).to(device) * keep
         sync()
         t1 = time.perf_counter()
         w = w_all[state.step % topo.period] if topo.is_time_varying else w_all
         w = w.to(device)
         mixed, state.gossip = engine.round_simulated(
-            _gossiped(state.params, state.model_state), state.gossip, w, step=state.step
+            _gossiped(state.params, state.model_state), state.gossip, w, step=state.step, alive=mask
         )
         state.params, state.model_state = mixed["params"], mixed["model_state"]
         err = engine.consensus_error_simulated(state.params)
@@ -286,11 +353,16 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         t2 = time.perf_counter()
         state.step += 1
         metrics = {
-            "loss": torch.stack(per_worker).mean(),
+            # the reference's mean over the kept workers, sum(keep * losses) /
+            # max(sum(keep), 1): a rolled-back worker's NaN loss times 0 is NaN
+            "loss": losses.mean() if mask is None else (keep * losses).sum() / torch.clamp(keep.sum(), min=1.0),
             "consensus_error": err,
             "inner_ms": 1e3 * (t1 - t0),
             "gossip_ms": 1e3 * (t2 - t1),
         }
+        if mask is not None:
+            metrics["alive_frac"] = mask.mean()
+            metrics["alive_mask"] = mask
         if "image" in batch:
             metrics["imgs_per_s"] = world * h * batch["image"].shape[2] / (t2 - t0)
         return state, metrics
@@ -301,11 +373,13 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
 def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
     """``step(state, batch) -> (state, metrics)`` for THIS rank's worker
     (:func:`init_state`; ``batch`` leaves ``(1, H, B, ...)``, its row of
-    the stacked batch): H local steps, one :meth:`~consensusml_tpu_torch.
-    consensus.ConsensusEngine.round_collective` over ``mesh`` on the
-    gossiped tree (a time-varying topology's phase ``step % period``),
-    the consensus error, and the loss as an all-reduce mean: every rank
-    gets the same ``loss`` and ``consensus_error``.
+    the stacked batch): H local steps (:func:`local_steps`), one
+    :meth:`~consensusml_tpu_torch.consensus.ConsensusEngine.round_collective`
+    over ``mesh`` on the gossiped tree (a time-varying topology's phase
+    ``step % period``; with faults, this rank's flag ``inject * ok``, its
+    draw from its own fault generator), the consensus error, and the loss
+    as an all-reduce mean over the kept workers: every rank gets the same
+    ``loss`` and ``consensus_error``.
 
     Ranks that share a card (``mesh.shares_device``) take their local
     steps in rank order, each releasing its cached blocks before the
@@ -316,14 +390,16 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
     round alone here) and ``metrics_ms``, the consensus error's and the
     loss's all-reduces (the error's first one moves the whole parameter
     tree), ``wire_bytes``, the bytes this rank's transport sent in the
-    gossip round, and that round's ``staging_ms``, ``wire_ms`` and
-    ``bytes_staged``."""
+    gossip round (the flags' 4 bytes a shift included), and that round's
+    ``staging_ms``, ``wire_ms`` and ``bytes_staged``; with faults
+    ``alive_frac`` and ``alive_mask`` (every rank's flag, in rank order)."""
     engine = cfg.engine()
+    faults = cfg.gossip.faults
     if engine.topology != mesh.topology:
         raise ValueError("the mesh is bound to another topology than the config's")
 
-    def local_steps(state, batch):
-        return [worker_step(cfg, loss_fn, state, 0, {k: v[0, i] for k, v in batch.items()}) for i in range(cfg.h)]
+    def own_steps(state, batch):
+        return local_steps(cfg, loss_fn, state, 0, [{k: v[0, i] for k, v in batch.items()} for i in range(cfg.h)])
 
     def step(state: TrainState, batch: dict):
         first = next(iter(batch.values()))
@@ -339,18 +415,18 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         if mesh.shares_device:
             for turn in range(mesh.world_size):
                 if turn == mesh.rank:
-                    losses = local_steps(state, batch)
+                    loss, ok = own_steps(state, batch)
                     sync()
                     torch.cuda.empty_cache()
                 mesh.barrier()
         else:
-            losses = local_steps(state, batch)
-        loss = torch.stack(losses).mean()
+            loss, ok = own_steps(state, batch)
+        alive = None if faults is None else draw_alive(state.fault_generators[0], faults.drop_prob) * ok
         sync()
         t1 = time.perf_counter()
         before = mesh.transport.stats.snapshot()
         mixed, state.gossip = engine.round_collective(
-            _gossiped(*_row(state.params, state.model_state)), state.gossip, mesh, step=state.step
+            _gossiped(*_row(state.params, state.model_state)), state.gossip, mesh, step=state.step, alive=alive
         )
         wire = mesh.transport.stats.since(before)
         state.params = {n: t.unsqueeze(0) for n, t in mixed["params"].items()}
@@ -360,7 +436,15 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         if mesh.shares_device:
             torch.cuda.empty_cache()  # the round's temporaries, before another rank's turn
         err = engine.consensus_error_collective(mixed["params"], mesh)
-        mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
+        if faults is None:
+            mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
+        else:
+            # one sum: ok * loss, ok, and every rank's flag in its own slot
+            row = torch.zeros(2 + mesh.world_size, dtype=torch.float32, device=device)
+            row[0], row[1], row[2 + mesh.rank] = ok * loss, ok, alive
+            total = mesh.transport.all_reduce_sum([row])[0]
+            mean_loss = total[0] / torch.clamp(total[1], min=1.0)
+            mask = total[2:]
         sync()
         t3 = time.perf_counter()
         state.step += 1
@@ -375,6 +459,9 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
             "staging_ms": wire["staging_ms"],
             "wire_ms": wire["wire_ms"],
         }
+        if faults is not None:
+            metrics["alive_frac"] = mask.mean()
+            metrics["alive_mask"] = mask
         if "image" in batch:
             metrics["imgs_per_s"] = cfg.h * batch["image"].shape[2] / (t3 - t0)
         return state, metrics

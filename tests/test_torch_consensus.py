@@ -236,24 +236,57 @@ def test_exact_mixing_round_bit_equal():
 
 
 def test_unported_options_refuse():
+    """What stays refused: overlap gossip and its pipelining, ``fused_codec``,
+    faults or push-sum with a compressor (the reference's own refusals),
+    faults on a directed graph without push-sum, and the fused wire off
+    the bucketed transport. The per-leaf wire, the global top-k, push-sum,
+    faults on exact gossip and CHOCO beside exact-mixed ``model_state`` are
+    ported: ``tests/test_torch_perleaf.py``, ``tests/test_torch_faults.py``
+    and ``tests/test_torch_pushsum.py`` hold them to the reference."""
+    from consensusml_tpu_torch.consensus import FaultConfig
+    from consensusml_tpu_torch.topology import OnePeerExponentialTopology
+
     topo = RingTopology(WORLD)
-    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"bucket_bytes": None}):
+    comp = PallasInt8Compressor(chunk=128)
+    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"faults": FaultConfig(0.1)},
+                   {"push_sum": "auto", "faults": FaultConfig(0.1)}):
         with pytest.raises(NotImplementedError):
-            GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), **kwargs)
+            GossipConfig(topology=topo, compressor=comp, **kwargs)
+    for kwargs in ({"overlap": True}, {"overlap": True, "pipeline_depth": 2}, {"pipeline_depth": 2}):
+        with pytest.raises(NotImplementedError):
+            GossipConfig(topology=topo, **kwargs)
+    with pytest.raises(NotImplementedError):
+        GossipConfig(topology=OnePeerExponentialTopology(WORLD), faults=FaultConfig(0.1))
+    with pytest.raises(NotImplementedError):
+        GossipConfig(topology=topo, compressor=comp, fused_wire=True, bucket_bytes=None)
     # path_filter is ported, with CHOCO on the selected leaves as the
     # reference's (tests/test_torch_llama.py holds its rounds)
-    GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128), path_filter=lambda p: True)
-    # the two-step wire is ported; the fused one needs a codec that fuses,
-    # and global top-k needs the per-leaf wire
-    assert not ConsensusEngine(GossipConfig(
-        topology=topo, compressor=PallasInt8Compressor(chunk=128), fused_wire=False)).fused_wire_active
+    GossipConfig(topology=topo, compressor=comp, path_filter=lambda p: True)
+    # the two-step wire is ported; the fused one needs a codec that fuses
+    assert not ConsensusEngine(GossipConfig(topology=topo, compressor=comp, fused_wire=False)).fused_wire_active
     with pytest.raises(NotImplementedError):
         GossipConfig(topology=topo, compressor=topk_int8_compressor(chunk=128, k=8, impl="auto"), fused_wire=True)
     with pytest.raises(NotImplementedError):
-        GossipConfig(topology=topo, compressor=topk_int8_compressor(chunk=128, k=8, impl="reference"))
-    with pytest.raises(NotImplementedError):
         GossipConfig(topology=topo, codec_warmup_rounds=1)
-    eng = ConsensusEngine(GossipConfig(topology=topo, compressor=PallasInt8Compressor(chunk=128)))
-    with pytest.raises(NotImplementedError):
-        eng.init_state({"params": {"w": torch.zeros(4, 3)}, "model_state": {"bn": torch.zeros(4, 2)}},
-                       world_size=WORLD)
+    # lifted: the global top-k and the per-leaf wire, push-sum and faults
+    # on exact gossip, CHOCO state beside model_state
+    assert not ConsensusEngine(GossipConfig(
+        topology=topo, compressor=topk_int8_compressor(chunk=128, k=8, impl="reference"))).bucketed
+    assert not ConsensusEngine(GossipConfig(topology=topo, compressor=comp, bucket_bytes=None)).bucketed
+    assert GossipConfig(topology=OnePeerExponentialTopology(WORLD), faults=FaultConfig(0.1),
+                        push_sum="auto").push_sum_enabled
+    eng = ConsensusEngine(GossipConfig(topology=topo, compressor=comp))
+    state = eng.init_state({"params": {"w": torch.zeros(4, 3)}, "model_state": {"bn": torch.zeros(4, 2)}},
+                           world_size=WORLD)
+    assert [tuple(x.shape) for x in state.xhat] == [(WORLD, 128)]
+
+
+@pytest.mark.parametrize("codec", ["int8", "topk_int8"])
+def test_choco_update_is_one_multiply_add(codec):
+    """``x + gamma * (s - xhat)`` at a gamma whose product rounds (0.3, and
+    the full config's 0.1): the reference's compiled program computes it
+    as one multiply-add, and so does the port, bit for bit (a product
+    rounded apart from the sum differs in the last bit)."""
+    for gamma in (0.3, 0.1):
+        jeng, teng = _engines(bucket_bytes=3000, codec=codec, gamma=gamma)
+        _assert_rounds_bit_equal(jeng, teng, range(2))

@@ -1607,8 +1607,12 @@ def _collective_case(wire):
     from consensusml_tpu_torch.topology import RingTopology
 
     comp = {"exact": None, "int8": PallasInt8Compressor(chunk=128),
-            "topk_int8": topk_int8_compressor(chunk=128, k=13, impl="auto")}[wire]
-    engine = ConsensusEngine(GossipConfig(topology=RingTopology(2), compressor=comp, gamma=0.5, bucket_bytes=3000))
+            "topk_int8": topk_int8_compressor(chunk=128, k=13, impl="auto"),
+            "topk_int8_per_leaf": topk_int8_compressor(chunk=128, k=13, impl="auto"),
+            "global_topk": topk_int8_compressor(ratio=0.1, chunk=128, impl="reference")}[wire]
+    bucket_bytes = None if wire == "topk_int8_per_leaf" else 3000
+    engine = ConsensusEngine(GossipConfig(topology=RingTopology(2), compressor=comp, gamma=0.3,
+                                          bucket_bytes=bucket_bytes))
     params = {n: a * np.float32(50.0) for n, a in gpt2_init_params(gpt2_config("smoke"), 0, 2).items()}
     tree = {"params": params, "model_state": {}}
     state = None
@@ -1626,16 +1630,18 @@ def T_tree(tree):
     return T.tree_map(torch.from_numpy, tree)
 
 
-@pytest.mark.parametrize("wire", ["exact", "int8", "topk_int8"])
+@pytest.mark.parametrize("wire", ["exact", "int8", "topk_int8", "topk_int8_per_leaf", "global_topk"])
 def test_collective_round_on_card_equals_cpu(dev, wire):
     """Two ``gloo`` ranks on the card and two on the CPU, one round from the
     same inputs: bit-equal results (the kernels equal their plain
-    versions, the mixing is the same f64-exact multiply-adds); the kernels
-    launched a bucket a round as the code predicts (fused: one encode and
-    one three-source decode; two-step: one top-k, quantize and own
-    decode, a dequantize and an accumulating scatter a shift); the bytes
-    sent equal ``wire_bytes_per_round``, and the bytes staged are the
-    payload out once and in once a shift."""
+    versions, the mixing and the CHOCO update are the same f64-exact
+    multiply-adds); the kernels launched a bucket a round as the code
+    predicts (fused: one encode and one three-source decode; two-step:
+    one top-k, quantize and own decode, a dequantize and an accumulating
+    scatter a shift), on the per-leaf wire the same a leaf (GPT-2 smoke's
+    32-element LayerNorm leaves each one 128-chunk, padded), the global
+    top-k none; the bytes sent equal ``wire_bytes_per_round``, and the
+    bytes staged are the payload out once and in once a shift."""
     from consensusml_tpu_torch import kernels
     from consensusml_tpu_torch.comm import check
     from consensusml_tpu_torch.comm.launch import launch
@@ -1658,12 +1664,164 @@ def test_collective_round_on_card_equals_cpu(dev, wire):
         wire_bytes = engine.wire_bytes_per_round(per_worker)
         assert got["transport"]["bytes_sent"] == wire_bytes
         assert got["transport"]["bytes_staged"] == wire_bytes // 2 * 3
-        b = engine.bucket_plan(per_worker).num_buckets
+        plan = engine.bucket_plan(per_worker)
+        b = plan.num_buckets if plan is not None else len(T.leaves(per_worker))
         n = got["launches"]
         if wire == "int8":
             assert (n["fused_choco_encode"], n["fused_dequantize_accumulate"]) == (b, b)
-        if wire == "topk_int8":
+        if wire in ("topk_int8", "topk_int8_per_leaf"):
             assert (n["chunked_topk"], n["quantize_int8"], n["dequantize_int8"], n["chunk_scatter"]) == (b, b, 3 * b, 3 * b)
             assert got["forms"]["chunk_scatter"] == {"acc": 2 * b}
-        expected = {"int8": 2, "topk_int8": 4, "exact": 0}[wire]
+        expected = {"int8": 2, "topk_int8": 4, "topk_int8_per_leaf": 4, "exact": 0, "global_topk": 0}[wire]
         assert sum(1 for v in n.values() if v) == expected
+
+
+# ---------------------------------------------------------------------------
+# the per-leaf wire's codec kernels, and the fault-masked and push-sum rounds
+# ---------------------------------------------------------------------------
+
+# GPT-2 smoke's per-worker leaf sizes and a few others: leaves shorter than
+# a chunk (24, 32), one chunk plus a tail (200), odd sizes past several
+PER_LEAF_SHAPES = [(24,), (32,), (200,), (32, 96), (3, 300), (64, 32), (1000,), (2050,)]
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4", "fp8", "topk_int8", "topk_int4"])
+def test_per_leaf_codec_kernels_bit_equal_to_plain(dev, codec, monkeypatch):
+    """The codecs leaf by leaf, at the per-leaf wire's shapes (the chunk
+    clamped to a short leaf rounded up to 128), four workers stacked: the
+    payload, the decode and the accumulating receive on the card
+    bit-equal to the CPU's, each kernel launched once a leaf a call and no
+    plain version reached by a CUDA tensor."""
+    from consensusml_tpu_torch.compress import (
+        PallasFp8Compressor,
+        PallasInt4Compressor,
+        PallasInt8Compressor,
+        topk_int4_compressor,
+        topk_int8_compressor,
+    )
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    comp = {"int8": PallasInt8Compressor(chunk=512), "int4": PallasInt4Compressor(chunk=512),
+            "fp8": PallasFp8Compressor(chunk=512), "topk_int8": topk_int8_compressor(chunk=512, k=8, impl="auto"),
+            "topk_int4": topk_int4_compressor(chunk=512, k=8, impl="auto")}[codec]
+    names = [n for n in ("quantize_int8", "dequantize_int8", "quantize_int4", "dequantize_int4", "quantize_fp8",
+                         "dequantize_fp8", "chunked_topk", "chunk_scatter")]
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for shape in PER_LEAF_SHAPES:
+        x = torch.randn((4,) + shape, generator=gen, device=dev)
+        acc = torch.randn((4,) + shape, generator=gen, device=dev)
+        want = comp.compress(x.cpu(), stacked=True)
+        want_dec = comp.decompress(want)
+        want_acc = comp.decompress_accumulate(want, acc.cpu(), 0.3)
+        with monkeypatch.context() as m:
+            for name in names:
+                m.setattr(tck, f"{name}_plain", refuse)
+            before = {n: getattr(tck, n).launches for n in names}
+            p = comp.compress(x, stacked=True)
+            dec = comp.decompress(p)
+            got_acc = comp.decompress_accumulate(p, acc, 0.3)
+            torch.cuda.synchronize()
+            launched = {n: getattr(tck, n).launches - before[n] for n in names if getattr(tck, n).launches > before[n]}
+        for g, w in zip(p.wire_tensors(), want.wire_tensors()):
+            assert g.dtype == w.dtype and g.shape == w.shape, shape
+            assert torch.equal(g.cpu().view(torch.uint8), w.view(torch.uint8)), shape
+        assert _same_bits(dec.cpu(), want_dec) and _same_bits(got_acc.cpu(), want_acc), shape
+        if codec.startswith("topk"):
+            quant = "int4" if codec == "topk_int4" else "int8"
+            # compress: top-k and the values' quantize; decompress: dequantize
+            # and scatter; the receive: dequantize and the accumulating scatter
+            assert launched == {"chunked_topk": 1, f"quantize_{quant}": 1, f"dequantize_{quant}": 2,
+                                "chunk_scatter": 2}, (shape, launched)
+        else:
+            assert launched == {f"quantize_{codec}": 1, f"dequantize_{codec}": 2}, (shape, launched)
+
+
+def _fault_cases():
+    """Four ranks: exact gossip with faults on the ring (bucketed and per
+    leaf), push-sum on the one-peer graph (masked and not) and on the dense
+    graph (masked), two rounds each under given masks."""
+    import numpy as np
+
+    from consensusml_tpu_torch.consensus import ConsensusEngine, FaultConfig, GossipConfig
+    from consensusml_tpu_torch.topology import topology_from_name
+
+    rng = np.random.default_rng(3)
+    tree = {"params": {"a": rng.normal(size=(4, 40, 37)).astype(np.float32),
+                       "b": rng.normal(size=(4, 24)).astype(np.float32)},
+            "model_state": {"batch_stats": {"m": rng.normal(size=(4, 48)).astype(np.float32)}}}
+    masks = [np.array([1, 0, 1, 1], np.float32), np.array([0, 1, 1, 0], np.float32)]
+    eng = lambda topo, **kw: ConsensusEngine(GossipConfig(topology=topology_from_name(topo, 4), **kw))  # noqa: E731
+    return [
+        (eng("ring", faults=FaultConfig(0.1), bucket_bytes=3000), tree, [0, 1], None, masks),
+        (eng("ring", faults=FaultConfig(0.1), bucket_bytes=None), tree, [0, 1], None, masks),
+        (eng("onepeer-exp", push_sum=True), tree, [0, 1], {"w": np.array([0.7, 1.2, 1.0, 1.1], np.float32)}, None),
+        (eng("onepeer-exp", push_sum=True, faults=FaultConfig(0.1)), tree, [0, 1], None, masks),
+        (eng("dense", push_sum=True, faults=FaultConfig(0.1)), tree, [0, 1], None, masks),
+    ]
+
+
+def test_fault_and_pushsum_rounds_on_card_equal_cpu(dev):
+    """Four ``gloo`` ranks on the card and four on the CPU, the same masked
+    and push-sum rounds from the same inputs: bit-equal trees and masses
+    (``collectives.mix_masked``'s chain and push-sum's are f64-exact
+    multiply-adds and IEEE products and quotients on both), the same bytes
+    sent, no kernel launched."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import check
+    from consensusml_tpu_torch.comm.launch import launch
+    from consensusml_tpu_torch.utils import tree as T
+
+    kernels.build()
+    cases = _fault_cases()
+    card = launch(check.gossip_cases, 4, cases, "gloo", "cuda", timeout=180.0)
+    cpu = launch(check.gossip_cases, 4, cases, "gloo", "cpu", timeout=180.0)
+    for rank, (got_r, want_r) in enumerate(zip(card, cpu)):
+        for i, (got, want) in enumerate(zip(got_r, want_r)):
+            for (path, g), (_q, w) in zip(T.flatten_with_paths(got["tree"]), T.flatten_with_paths(want["tree"])):
+                assert (g.view("uint32") == w.view("uint32")).all(), (rank, i, path)
+            if want["state"] is not None:
+                assert (got["state"]["w"].view("uint32") == want["state"]["w"].view("uint32")).all(), (rank, i)
+            assert got["bytes_by_round"] == want["bytes_by_round"], (rank, i)
+            assert not any(got["launches"].values()), (rank, i)
+
+
+def test_masked_and_pushsum_simulated_rounds_on_card_match_cpu(dev):
+    """The simulated backend's masked and push-sum rounds on the card: the
+    mixing is a matrix product (f32, no TF32), which the card's library
+    sums in its own order, so the trees are held within 1e-6 of the CPU's
+    relative to ``|W'| @ |x|``; masked rows and the masses to the same;
+    dead workers' rows bit-equal to their input."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.utils import tree as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for engine, tree, steps, state, masks in _fault_cases():
+        t_cpu = T_tree(tree)
+        t_dev = T.tree_map(lambda v: v.to(dev), t_cpu)
+        s_cpu = engine.init_state(t_cpu, world_size=4)
+        if state is not None:
+            s_cpu = type(s_cpu)(w=torch.from_numpy(state["w"]))
+        s_dev = None if s_cpu is None else type(s_cpu)(w=s_cpu.w.to(dev))
+        topo = engine.topology
+        for i, step in enumerate(steps):
+            w = simulated.phase_matrices(topo)[step % topo.period] if topo.is_time_varying else \
+                simulated.mixing_matrix(topo)
+            alive = None if masks is None else torch.from_numpy(masks[i])
+            before = t_dev
+            t_cpu, s_cpu = engine.round_simulated(t_cpu, s_cpu, w, step=step, alive=alive)
+            t_dev, s_dev = engine.round_simulated(t_dev, s_dev, w.to(dev), step=step,
+                                                  alive=None if alive is None else alive.to(dev))
+            for (path, g), (_p, c), (_q, b) in zip(T.flatten_with_paths(t_dev), T.flatten_with_paths(t_cpu),
+                                                   T.flatten_with_paths(before)):
+                scale = simulated.mix_stacked(b.abs().cpu(), w.abs())
+                assert bool(((g.cpu() - c).abs() <= 1e-6 * scale + 1e-30).all()), (path, i)
+                if masks is not None and not engine.config.push_sum_enabled:
+                    dead = torch.from_numpy(masks[i] == 0)
+                    assert torch.equal(g.cpu()[dead], b.cpu()[dead]), (path, i)
+            if s_dev is not None:
+                assert bool(((s_dev.w.cpu() - s_cpu.w).abs() <= 1e-6).all())
+                assert abs(float(s_dev.w.double().sum()) - 4.0) <= 1e-5 * 4

@@ -146,7 +146,16 @@ on the same stacked inputs (``COLLECTIVE_RTOL``; ``xhat'`` bit-equal):
   a top-k, a quantize, three dequantizes and three ``chunk_scatter``
   launches a bucket, two of them its accumulating form; 33,366,424 wire
   bytes), the flash forward, dq and dk/dv 48 times a rank a round. Their
-  check round covers the first ``GPT2_CHECK_LEAVES`` leaves.
+  check round covers the first ``GPT2_CHECK_LEAVES`` leaves;
+- ``train_collective_overlap`` (the same spawn): ``gpt2_topk`` full
+  ``--workers 4 --codec int8 --codec-warmup 0 --codec-refresh 0
+  --overlap-gossip``: each round's correction (one CHOCO exchange on the
+  fused int8 wire from the params before the local steps) posted before
+  the local steps and finished after them, on a process group of its own;
+  its line splits ``gossip_ms`` into ``gossip_issue_ms`` and the exposed
+  ``gossip_wait_ms``, with ``train_collective``'s ``gossip_ms`` beside;
+  its check round is the seeded correction applied and the next one
+  computed, against ``apply_correction`` and ``correction_simulated``.
 
 Gates: every rank exits within the timeout; launches and the transport's
 bytes a rank a counted round as the code and ``wire_bytes_per_round``
@@ -199,6 +208,33 @@ round within tolerance.
     errors, each flash kernel launched in its head-dim-128 form 32 x 16 x
     2 times a round (layers, workers, micro-batches) and nothing else
     launched.
+
+17. ``train_topk_overlap`` (after ``gossip_fp8_two_step``, from the same
+    initial parameters as ``train``): ``gpt2_topk`` full ``--workers 4
+    --codec-warmup 0 --codec-refresh 0 --overlap-gossip --gossip-pipeline
+    2``: a warm round and two counted rounds, each correction one CHOCO
+    exchange on the config's top-k + int8 two-step wire (launches gated:
+    25 of each codec kernel a round, the flash kernels 192 a round), every
+    correction's queue summing to zero over the workers
+    (``CORRECTION_SUM_RTOL``), then two corrections of the first
+    ``GPT2_CHECK_LEAVES`` leaves through the kernels and through their
+    plain versions, bit for bit.
+18. ``train_fused_codec``: ``gpt2_topk`` full ``--workers 4 --codec-warmup
+    1`` with ``GossipConfig.fused_codec=True``: the codec once over each
+    worker's whole tree (354,823,168 f32 elements laid end to end; one
+    call of each codec kernel a round over the four workers' rows), a warm
+    round and two counted rounds, the peak memory, then one whole-tree
+    round through the kernels (its outputs copied to host memory) and
+    through their plain versions, bit for bit.
+19. ``train_resnet_overlap`` (after ``train_resnet_pushsum``):
+    ``cifar_resnet50`` full ``--norm-impl pallas --overlap-gossip
+    --gossip-pipeline 2``: a warm round, three counted rounds (53 x 8
+    launches of each BN kernel a round), every correction's queue summing
+    to zero, and one round from a copy of the state through the BN kernels
+    and through their plain versions: the correction queue and ``z``'s
+    consensus error bit-equal (no kernel computes them), the round's
+    update within ``RESNET_GRAD_REL_TOL`` (the statistics sum in another
+    order).
 
 The ``check`` line's ``flash_d128`` holds the three flash kernels'
 head-dim-128 form at ``llama_lora``'s attention shape (B=4, S=2048, H=32,
@@ -3026,6 +3062,472 @@ def perleaf_plain_check(torch, tck, dev, engine, state):
 
 
 # ---------------------------------------------------------------------------
+# overlap gossip (combine-then-adapt, pipelined to depth D) and the fused codec
+# ---------------------------------------------------------------------------
+
+OVERLAP_DEPTH = 2  # --gossip-pipeline of the simulated overlap phases
+RESNET50_BN_LAYERS = 53
+# every queued correction sums to zero over the workers (doubly stochastic
+# W; CHOCO's sum_i s_i = sum_i xhat_i), element by element of every leaf:
+# |sum_i c_i| <= CORRECTION_SUM_RTOL * sum_i (|c_i| + |z_i|), the sums in
+# f64 on the card: each c_i is an f32 difference of values of z's size, so
+# its rounding is a few 2^-24 of |z|; a lost or doubled worker's term is a
+# whole |c_i|
+CORRECTION_SUM_RTOL = 1e-5
+
+
+def clone_train_state(torch, state):
+    """A deep copy of a simulated ``TrainState`` (tensors, the overlap
+    queue and CHOCO state, the dropout generators' states)."""
+    import dataclasses as dc
+
+    from consensusml_tpu_torch.consensus import ChocoState, OverlapState
+    from consensusml_tpu_torch.utils import tree as T
+
+    clone = lambda t: T.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)  # noqa: E731
+    opt = state.opt_state
+    opt = dc.replace(opt, **{f.name: clone(getattr(opt, f.name)) for f in dc.fields(opt)})
+    g = state.gossip
+    choco = None if g.choco is None else ChocoState(xhat=clone(g.choco.xhat), s=clone(g.choco.s))
+    gossip = OverlapState(correction=clone(g.correction), choco=choco, pending=tuple(clone(p) for p in g.pending))
+    gens = []
+    for gen in state.generators:
+        copy = torch.Generator(device=gen.device)
+        copy.set_state(gen.get_state())
+        gens.append(copy)
+    return dc.replace(state, params=clone(state.params), model_state=clone(state.model_state), opt_state=opt,
+                      gossip=gossip, generators=gens)
+
+
+class CorrectionSums:
+    """While open, holds every simulated overlap correction's queue to
+    ``CORRECTION_SUM_RTOL`` (its sums over the workers in f64 on the card,
+    a leaf at a time) and records the worst reading."""
+
+    def __init__(self, torch):
+        from consensusml_tpu_torch.consensus.engine import ConsensusEngine
+
+        self.torch, self.cls, self.orig = torch, ConsensusEngine, ConsensusEngine.correction_simulated
+        self.rounds: list = []
+        check = self
+
+        def correction_simulated(engine, tree, w, state=None):
+            out = check.orig(engine, tree, w, state)
+            check.check(tree, out)
+            return out
+
+        ConsensusEngine.correction_simulated = correction_simulated
+
+    def check(self, tree, out) -> None:
+        from consensusml_tpu_torch.utils import tree as T
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = T.leaves(tree)
+        worst, finite = 0.0, True
+        for corr in (out.correction,) + tuple(out.pending):
+            for c, x in zip(T.leaves(corr), z):
+                c64 = c.to(torch.float64).reshape(c.shape[0], -1)
+                scale = c64.abs().sum(0) + x.to(torch.float64).reshape(x.shape[0], -1).abs().sum(0)
+                worst = max(worst, float((c64.sum(0).abs() / (CORRECTION_SUM_RTOL * scale + 1e-30)).max()))
+                finite = finite and bool(torch.isfinite(c).all())
+        torch.cuda.synchronize()
+        # the check's own time, inside the round's gossip_ms
+        rec = {"queued": 1 + len(out.pending), "sum_worst_over_tol": worst, "finite": finite,
+               "check_ms": 1e3 * (time.perf_counter() - t0)}
+        if not (worst <= 1.0 and finite):
+            raise AssertionError(f"the queued corrections do not sum to zero over the workers: {rec}")
+        self.rounds.append(rec)
+
+    def close(self) -> None:
+        self.cls.correction_simulated = self.orig
+
+
+def counted_rounds(torch, dev, step, state, batches, tokens_or_images):
+    """A warm round, then the counted ones (launch counters zeroed just
+    before; each round's loss, consensus error, round, gossip and inner ms
+    and its rate). Returns ``(state, warm, rounds, counts, peak)``."""
+    from consensusml_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
+            "round_ms": 1e3 * (time.perf_counter() - t0)}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rounds = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss, err = float(m["loss"]), float(m["consensus_error"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                       "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"],
+                       "per_s_per_chip": tokens_or_images / (ms / 1e3)})
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for r in rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
+            raise AssertionError(f"round {r['step']}: loss or consensus error not finite and positive: {r}")
+    return state, warm, rounds, counts, peak
+
+
+def resnet_overlap_plain_check(torch, dev, cfg, state, batch):
+    """One overlap round of ResNet-50 from a copy of ``state`` through the
+    fused-BN kernels and through their plain versions (``norm_impl="jnp"``,
+    the same leaves): the round's gossip, computed from ``z`` before the
+    local steps, runs no kernel and must be bit-equal (``z``'s consensus
+    error, the correction queue); the local steps' BN statistics sum in
+    another order on the two sides, so their update to the parameters and
+    statistics is held to the ResNet gradient check's tolerance,
+    ``||u_k - u_p|| / ||u_p||`` with ``u`` the round's change."""
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.train.local_sgd import make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    before = {n: p.clone() for n, p in state.params.items()}
+    out = {}
+    for impl in ("pallas", "jnp"):
+        loss_fn = configs.build("cifar_resnet50", "full", norm_impl=impl, device=dev).loss_fn
+        st, m = make_simulated_train_step(cfg, loss_fn)(clone_train_state(torch, state), batch)
+        out[impl] = (st, float(m["consensus_error"]), float(m["loss"]))
+        del st
+    (sk, ek, lk), (sp, ep, lp) = out["pallas"], out["jnp"]
+    queue = [(a, b) for ca, cb in [(sk.gossip.correction, sp.gossip.correction)] + list(
+        zip(sk.gossip.pending, sp.gossip.pending)) for a, b in zip(T.leaves(ca), T.leaves(cb))]
+    bits = sum(mismatches(torch, a, b) for a, b in queue)
+    diff2 = sum(float(((sk.params[n] - sp.params[n]).double() ** 2).sum()) for n in before)
+    upd2 = sum(float(((sp.params[n] - before[n]).double() ** 2).sum()) for n in before)
+    stats_err = max(float((a - b).abs().max()) for a, b in zip(T.leaves(sk.model_state), T.leaves(sp.model_state)))
+    rec = {"correction_bits_differing": bits, "consensus_error_kernels": ek, "consensus_error_plain": ep,
+           "loss_kernels": lk, "loss_plain": lp, "update_rel_err": (diff2 / max(upd2, 1e-300)) ** 0.5,
+           "update_rel_tol": RESNET_GRAD_REL_TOL, "batch_stats_max_abs_err": stats_err}
+    if bits or ek != ep or not rec["update_rel_err"] <= RESNET_GRAD_REL_TOL:
+        raise AssertionError(f"the overlap round through the BN kernels differs from the plain versions': {rec}")
+    return rec
+
+
+def train_resnet_overlap_phase(torch, dev, init, counted=3):
+    """``train_resnet_overlap``: ``cifar_resnet50`` full (8 workers, ring)
+    ``--norm-impl pallas --overlap-gossip --gossip-pipeline 2``: a warm
+    round and ``counted`` rounds, every correction's queue summing to zero
+    over the workers (:class:`CorrectionSums`), 53 x 8 launches of each BN
+    kernel a round, and one round through the kernels against their plain
+    versions (:func:`resnet_overlap_plain_check`)."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    bundle = configs.build("cifar_resnet50", "full", norm_impl="pallas", device=dev)
+    configs.with_gossip_flags(bundle, overlap=True, pipeline=OVERLAP_DEPTH)
+    cfg, world = bundle.cfg, bundle.world_size
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(2 + counted, 0))
+    params, model_state = bundle.convert(init)
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in params.items()}, world, seed=0,
+                               model_state=T.tree_map(lambda t: t.to(dev), model_state))
+    del params, model_state
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    images = world * cfg.h * batches[0]["image"].shape[2]
+    sums = CorrectionSums(torch)
+    try:
+        state, warm, rounds, counts, peak = counted_rounds(torch, dev, step, state, batches[:1 + counted], images)
+    finally:
+        sums.close()
+    marks.append(("rounds", time.perf_counter()))
+    n_bn = sum(1 for n in state.model_state["batch_stats"] if n.endswith(".mean"))
+    expect = {name: n_bn * world * cfg.h * counted if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+    if n_bn != RESNET50_BN_LAYERS or counts != expect:
+        raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
+    if len(sums.rounds) != 1 + counted or len(state.gossip.pending) != OVERLAP_DEPTH - 1:
+        raise AssertionError(f"{len(sums.rounds)} corrections checked; queue {len(state.gossip.pending)}")
+    plain = resnet_overlap_plain_check(torch, dev, cfg, state, batches[1 + counted])
+    marks.append(("plain_check", time.perf_counter()))
+    out = {
+        "phase": "train_resnet_overlap",
+        "config": "cifar_resnet50 full (ResNet-50, CIFAR stem), 8 workers, --norm-impl pallas --overlap-gossip "
+                  f"--gossip-pipeline {OVERLAP_DEPTH}",
+        "topology": bundle.cfg.gossip.topology.name, "pipeline_depth": OVERLAP_DEPTH,
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "imgs_per_s_per_chip_mean": sum(r["per_s_per_chip"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "gossip_ms_mean_without_sum_check": sum(r["gossip_ms"] for r in rounds) / counted - sum(
+            c["check_ms"] for c in sums.rounds[1:]) / counted,
+        "correction_sums": sums.rounds, "correction_sum_rtol": CORRECTION_SUM_RTOL,
+        "kernels_vs_plain_round": plain,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def topk_overlap_plain_check(torch, tck, dev, engine, state):
+    """Two compressed overlap corrections of the first
+    ``GPT2_CHECK_LEAVES`` leaves (from a zero queue and CHOCO state of
+    their own, the second from the first's) through the codec kernels,
+    then through their plain versions (the wrappers swapped for them, so
+    nothing counts): the queue, ``xhat`` and ``s`` bit-equal."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.utils import tree as T
+
+    names = sorted(state.params)[:GPT2_CHECK_LEAVES]
+    tree = {"params": {n: state.params[n] for n in names}, "model_state": {}}
+    w = simulated.mixing_matrix(engine.topology, device=dev)
+    world = w.shape[0]
+
+    def two(tree):
+        st = engine.init_state(tree, world_size=world)
+        for _ in range(2):
+            z = engine.apply_correction(tree, st)
+            st = engine.correction_simulated(z, w, st)
+        return st
+
+    got = two(tree)
+    swapped = {name: getattr(tck, name) for name in CODEC_KERNELS[None]}
+    try:
+        for name in swapped:
+            setattr(tck, name, getattr(tck, f"{name}_plain"))
+        want = two(tree)
+    finally:
+        for name, fn in swapped.items():
+            setattr(tck, name, fn)
+    torch.cuda.synchronize()
+
+    def pairs(st):
+        return T.leaves(st.correction) + T.leaves(list(st.pending)) + st.choco.xhat + st.choco.s
+
+    bad = sum(mismatches(torch, a, b) for a, b in zip(pairs(got), pairs(want)))
+    out = {"leaves": len(names), "elements_per_worker": sum(state.params[n][0].numel() for n in names),
+           "corrections": 2, "buckets": len(got.choco.xhat), "bits_differing": bad}
+    if bad:
+        raise AssertionError(f"the overlap correction through the kernels differs from the plain versions': {out}")
+    return out
+
+
+def train_topk_overlap_phase(torch, tck, dev, init, counted=2):
+    """``train_topk_overlap``: ``gpt2_topk`` full ``--workers 4
+    --codec-warmup 0 --codec-refresh 0 --overlap-gossip --gossip-pipeline
+    2`` (the config's top-k + int8 on the two-step wire, each correction
+    one CHOCO exchange): a warm round and ``counted`` rounds, every
+    correction's queue summing to zero (:class:`CorrectionSums`), the four
+    codec kernels once a bucket a round and the flash kernels once a
+    layer a worker step; then :func:`topk_overlap_plain_check`."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    world = 4
+    bundle = configs.build("gpt2_topk", "full", world=world, codec_warmup=0, device=dev)
+    configs.with_gossip_flags(bundle, codec_refresh=0, overlap=True, pipeline=OVERLAP_DEPTH)
+    cfg, mcfg = bundle.cfg, bundle.model.config
+    engine = cfg.engine()
+    if engine.fused_wire_active or not engine.bucketed:
+        raise AssertionError("the config's codec must take the two-step bucketed wire")
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(1 + counted, 0))
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}, world, seed=0)
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    n_buckets = len(state.gossip.choco.xhat)
+    ids = batches[0]["input_ids"]
+    sums = CorrectionSums(torch)
+    try:
+        state, warm, rounds, counts, peak = counted_rounds(torch, dev, step, state, batches,
+                                                           world * cfg.h * ids.shape[2] * ids.shape[3])
+    finally:
+        sums.close()
+    marks.append(("rounds", time.perf_counter()))
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect[name] = mcfg.layers * world * cfg.h * counted
+    for name in CODEC_KERNELS[None]:
+        expect[name] = n_buckets * counted
+    if counts != expect or n_buckets != PLANS[None][0]:
+        raise AssertionError(f"launches {counts} ({n_buckets} buckets) differ from the code's prediction {expect}")
+    state.opt_state = None  # Adam's moments: the check does not read them
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = topk_overlap_plain_check(torch, tck, dev, engine, state)
+    out = {
+        "phase": "train_topk_overlap",
+        "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec-warmup 0 --codec-refresh 0 --overlap-gossip "
+                  f"--gossip-pipeline {OVERLAP_DEPTH}",
+        "codec_path": bundle.codec_path, "wire": "two-step", "workers": world, "h": cfg.h,
+        "buckets": n_buckets, "pipeline_depth": OVERLAP_DEPTH,
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "tokens_per_s_per_chip_mean": sum(r["per_s_per_chip"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "gossip_ms_mean_without_sum_check": sum(r["gossip_ms"] for r in rounds) / counted - sum(
+            c["check_ms"] for c in sums.rounds[1:]) / counted,
+        "correction_sums": sums.rounds, "correction_sum_rtol": CORRECTION_SUM_RTOL,
+        "kernels_vs_plain_corrections": plain,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# host bytes a slice of the fused codec's bit comparison moves back to the card
+FUSED_CHECK_SLICE = 1 << 26
+
+
+def fused_codec_plain_check(torch, tck, dev, engine, state, w):
+    """One fused-codec CHOCO round of the whole tree (every worker's one
+    vector) through the codec kernels, its parameters, ``xhat`` and ``s``
+    copied to host memory, then the same round through the kernels' plain
+    versions (the wrappers swapped for them, so nothing counts), held to
+    the host copy bit for bit in slices on the card: both rounds' outputs
+    would not fit the card beside the state at once."""
+    from consensusml_tpu_torch.utils import tree as T
+
+    tree = {"params": state.params, "model_state": {}}
+
+    def round_outputs():
+        new, st = engine.round_simulated(tree, state.gossip, w, step=state.step)
+        return T.leaves(new) + st.xhat + st.s
+
+    host = [t.to("cpu") for t in round_outputs()]
+    gc.collect()
+    torch.cuda.empty_cache()
+    swapped = {name: getattr(tck, name) for name in CODEC_KERNELS[None]}
+    try:
+        for name in swapped:
+            setattr(tck, name, getattr(tck, f"{name}_plain"))
+        want = round_outputs()
+    finally:
+        for name, fn in swapped.items():
+            setattr(tck, name, fn)
+    bad = 0
+    for h, t in zip(host, want):
+        hf, tf = h.reshape(-1), t.reshape(-1)
+        for lo in range(0, tf.numel(), FUSED_CHECK_SLICE):
+            bad += mismatches(torch, hf[lo: lo + FUSED_CHECK_SLICE].to(dev), tf[lo: lo + FUSED_CHECK_SLICE])
+    out = {"round": state.step, "elements_per_worker": int(state.gossip.xhat[0].shape[1]), "bits_differing": bad,
+           "tensors": len(want)}
+    del want, host
+    if bad:
+        raise AssertionError(f"the fused-codec round through the kernels differs from the plain versions': {out}")
+    return out
+
+
+def fused_codec_kernel_times(torch, tck, vec, k: int, chunk: int) -> dict:
+    """The top-k codec's four kernels at the fused codec's shapes (every
+    worker's whole vector in one call; ``vec`` is ``(W, n)``), timed by
+    CUDA events, with the bounds of :func:`check_codec`; their plain
+    versions are held to them at the bucket plan's shapes there."""
+    world = vec.shape[0]
+    rows = vec.numel() // chunk
+    x = vec.reshape(rows, chunk)
+    v, i = tck.chunked_topk(x, k)
+    vals = v.reshape(world, -1)
+    vrows = -(-vals.shape[1] // chunk)
+    vals = torch.nn.functional.pad(vals, (0, vrows * chunk - vals.shape[1])).reshape(-1, chunk)
+    q, sc = tck.quantize_int8(vals)
+    r, n = vals.shape[0], vals.numel()
+    cases = {
+        "chunked_topk": (lambda _: tck.chunked_topk(x, k), rows * chunk * 4 + rows * k * 8, k * rows * chunk, rows),
+        "chunk_scatter": (lambda _: tck.chunk_scatter(v, i, chunk), rows * chunk * 4 + rows * k * 8, 2 * rows * k,
+                          rows),
+        "quantize_int8": (lambda _: tck.quantize_int8(vals), 4 * n + n + 4 * r, 3 * n, r),
+        "dequantize_int8": (lambda _: tck.dequantize_int8(q, sc), n + 4 * r + 4 * n, n, r),
+    }
+    out = {}
+    for name, (fn, nbytes, flops, nrows) in cases.items():
+        bms, by = bound_ms(nbytes, flops, F32_FLOPS)
+        ms = cuda_ms(torch, fn, 5)
+        out[name] = {"rows": nrows, "chunk": chunk, "k": k, "ms": ms, "bound_ms": bms, "bound_by": by,
+                     "x_bound": ms / bms}
+    return out
+
+
+def train_fused_codec_phase(torch, tck, dev, init, counted=2):
+    """``train_fused_codec``: ``gpt2_topk`` full ``--workers 4
+    --codec-warmup 1`` on the config's top-k + int8 with ``fused_codec=True``
+    (``dataclasses.replace`` on the bundle's ``GossipConfig``: the codec
+    runs once over each worker's whole tree laid end to end, ~355 M f32
+    elements): a warm (dense) round and ``counted`` CHOCO rounds, each
+    launching the four codec kernels once (one call over the stacked
+    vectors) and the flash kernels once a layer a worker step; the peak
+    memory; then :func:`fused_codec_plain_check`."""
+    import dataclasses as dc
+
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    world = 4
+    bundle = configs.build("gpt2_topk", "full", world=world, codec_warmup=1, device=dev)
+    bundle.cfg = dc.replace(bundle.cfg, gossip=dc.replace(bundle.cfg.gossip, fused_codec=True))
+    cfg, mcfg = bundle.cfg, bundle.model.config
+    engine = cfg.engine()
+    if engine.bucketed or engine.fused_wire_active:
+        raise AssertionError("fused_codec must take neither the bucketed nor the fused wire")
+    marks = [("start", time.perf_counter())]
+    batches = list(bundle.batches(1 + counted, 0))
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}, world, seed=0)
+    marks.append(("state_on_device", time.perf_counter()))
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    n = sum(p[0].numel() for p in state.params.values())
+    per_worker = {"params": {k: p[0] for k, p in state.params.items()}, "model_state": {}}
+    wire = engine.wire_bytes_per_round(per_worker)
+    del per_worker
+    if tuple(state.gossip.xhat[0].shape) != (world, n) or len(state.gossip.xhat) != 1:
+        raise AssertionError(f"fused-codec state {tuple(state.gossip.xhat[0].shape)}, expected ({world}, {n})")
+    ids = batches[0]["input_ids"]
+    state, warm, rounds, counts, peak = counted_rounds(torch, dev, step, state, batches,
+                                                       world * cfg.h * ids.shape[2] * ids.shape[3])
+    marks.append(("rounds", time.perf_counter()))
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect[name] = mcfg.layers * world * cfg.h * counted
+    for name in CODEC_KERNELS[None]:
+        expect[name] = counted  # one call over the stacked vectors a round
+    if counts != expect:
+        raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
+    state.opt_state = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    inner = cfg.gossip.compressor.inner
+    times = fused_codec_kernel_times(torch, tck, state.gossip.xhat[0], inner.k_per_chunk, inner.chunk)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    plain = fused_codec_plain_check(torch, tck, dev, engine, state, simulated.mixing_matrix(engine.topology,
+                                                                                           device=dev))
+    plain["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    marks.append(("plain_check", time.perf_counter()))
+    out = {
+        "phase": "train_fused_codec",
+        "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec-warmup 1, GossipConfig.fused_codec=True",
+        "codec_path": bundle.codec_path, "wire": "fused codec (one payload a worker over the whole tree)",
+        "workers": world, "h": cfg.h, "elements_per_worker": n,
+        "codec_rows_per_call": world * -(-n // inner.chunk),
+        "wire_bytes_per_round": wire, "bucketed_wire_bytes_per_round": PLANS[None][1],
+        "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "gossip_ms_mean": sum(r["gossip_ms"] for r in rounds) / counted,
+        "tokens_per_s_per_chip_mean": sum(r["per_s_per_chip"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "kernel_times": times, "kernels_vs_plain_round": plain,
+    }
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+# ---------------------------------------------------------------------------
 # the collective backend: one process per worker, all on the one card,
 # gloo ranks whose wire is staged through pinned host memory
 # ---------------------------------------------------------------------------
@@ -3045,14 +3547,18 @@ COLLECTIVE_TIMEOUT_S = 540.0
 
 
 def collective_spec(config, scale, world, rounds, codec=None, norm_impl="flax", check_leaves=None, device="cuda",
-                    topology=None, push_sum=False, drop_prob=0.0, check_alive=None):
+                    topology=None, push_sum=False, drop_prob=0.0, check_alive=None, overlap=False):
     """The train CLI's flags (``--backend collective --dist-backend gloo``)
     as :func:`consensusml_tpu_torch.train.collective.train_rank` reads
     them, plus the seeded gossip check after the rounds (under the mask
-    ``check_alive`` when given)."""
+    ``check_alive`` when given). ``overlap``: ``--overlap-gossip`` with
+    ``--codec-warmup 0 --codec-refresh 0`` (what compressed overlap
+    needs)."""
+    warm = (0 if overlap else 1) if config == "gpt2_topk" else None
     return {"config": config, "scale": scale, "workers": world, "codec": codec, "gamma": None,
-            "codec_warmup": 1 if config == "gpt2_topk" else None, "norm_impl": norm_impl, "topology": topology,
-            "push_sum": push_sum, "drop_prob": drop_prob,
+            "codec_warmup": warm, "norm_impl": norm_impl, "topology": topology,
+            "push_sum": push_sum, "drop_prob": drop_prob, "overlap_gossip": overlap,
+            "codec_refresh": 0 if overlap and config == "gpt2_topk" else None,
             "seed": 0, "device": device, "dist_backend": "gloo", "rounds": rounds, "log_every": 0,
             "check": {"seed": COLLECTIVE_CHECK_SEED, "step": 1,
                       "leaves": check_leaves, "alive": check_alive}}
@@ -3120,6 +3626,8 @@ def collective_check(torch, dev, bundle, results, spec_check):
         rows.append(tree)
         states.append(seeded_state(engine, tree, gen))
     stacked = T.tree_map(lambda *xs: torch.stack(xs), *rows)
+    if engine.config.overlap:
+        return overlap_collective_check(torch, dev, engine, results, spec_check, leaves, stacked, states)
     if states[0] is None:
         state = None
     elif isinstance(states[0], PushSumState):
@@ -3190,6 +3698,64 @@ def collective_check(torch, dev, bundle, results, spec_check):
     return out
 
 
+def overlap_collective_check(torch, dev, engine, results, spec_check, leaves, stacked, states):
+    """:func:`collective_check` for overlap gossip: the ranks' seeded round
+    (the seeded correction applied, the next one computed through the
+    in-flight exchange) against ``apply_correction`` and
+    ``correction_simulated`` on the same stacked inputs: ``z`` and the
+    queue within ``COLLECTIVE_RTOL``, ``xhat`` bit-equal, ``s`` within
+    ``COLLECTIVE_RTOL``; the transport's bytes ``wire_bytes_per_round``."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.consensus import ChocoState, OverlapState
+    from consensusml_tpu_torch.utils import tree as T
+
+    stack = lambda *xs: torch.stack(xs)  # noqa: E731
+    choco = None
+    if states[0].choco is not None:
+        choco = ChocoState(xhat=[stack(*xs) for xs in zip(*[st.choco.xhat for st in states])],
+                           s=[stack(*xs) for xs in zip(*[st.choco.s for st in states])])
+    state = OverlapState(correction=T.tree_map(stack, *[st.correction for st in states]), choco=choco,
+                         pending=tuple(T.tree_map(stack, *ps) for ps in zip(*[st.pending for st in states])))
+    del states
+    topo = engine.topology
+    step = spec_check["step"]
+    w = (simulated.phase_matrices(topo, device=dev)[step % topo.period] if topo.is_time_varying
+         else simulated.mixing_matrix(topo, device=dev))
+    z = engine.apply_correction(stacked, state)
+    want = engine.correction_simulated(z, w, state)
+    worst, xhat_bits = 0.0, 0
+
+    def held(g, wnt):
+        nonlocal worst
+        g = torch.as_tensor(g).to(dev)
+        worst = max(worst, float(((g - wnt).abs() / (COLLECTIVE_ATOL + COLLECTIVE_RTOL * wnt.abs())).max()))
+
+    mine = lambda get: T.tree_map(lambda *xs: np.stack(xs), *[get(r["check"]) for r in results])  # noqa: E731
+    for g, wnt in zip(T.leaves(mine(lambda c: c["tree"])), T.leaves(z)):
+        held(g, wnt)
+    got_state = mine(lambda c: c["state"])
+    for g, wnt in zip(T.leaves(got_state["correction"]) + T.leaves(list(got_state["pending"])),
+                      T.leaves(want.correction) + T.leaves(list(want.pending))):
+        held(g, wnt)
+    if want.choco is not None:
+        for g, wnt in zip(got_state["choco"]["xhat"], want.choco.xhat):
+            xhat_bits += mismatches(torch, torch.from_numpy(g).to(dev), wnt)
+        for g, wnt in zip(got_state["choco"]["s"], want.choco.s):
+            held(g, wnt)
+    out = {"leaves": len(leaves), "elements_per_worker": sum(int(np.prod(s)) for _p, s in leaves),
+           "buckets": None if want.choco is None else len(want.choco.xhat), "max_err_over_tolerance": worst,
+           "xhat_bits_differing": xhat_bits, "rtol": COLLECTIVE_RTOL, "atol": COLLECTIVE_ATOL,
+           "tolerance_scale": "|simulated|", "compared": "z, the correction queue, xhat and s",
+           "launches": results[0]["check"]["launches"], "forms": results[0]["check"]["forms"],
+           "bytes_sent_per_rank": [r["check"]["transport"]["bytes_sent"] for r in results],
+           "wire_bytes_per_round": results[0]["check"]["wire_bytes_per_round"]}
+    if worst > 1.0 or xhat_bits:
+        raise AssertionError(f"collective overlap round differs from the simulated one: {out}")
+    if any(b != out["wire_bytes_per_round"] for b in out["bytes_sent_per_rank"]):
+        raise AssertionError(f"the check round's transport bytes differ from wire_bytes_per_round: {out}")
+    return out
+
+
 def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     """One collective phase's line from its ranks' results, with gates 1-5
     (every rank returned, which ``launch`` already enforces; the seeded
@@ -3227,6 +3793,9 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
         raise AssertionError(f"{phase}: " + "; ".join(problems))
     check = collective_check(torch, dev, bundle, results, spec["check"])
     keys = ("round_ms", "inner_ms", "gossip_ms", "metrics_ms", "staging_ms", "wire_ms")
+    if engine.config.overlap:
+        # the correction's issue before the local steps and the wait left after them
+        keys += ("gossip_issue_ms", "gossip_wait_ms")
     per_round = {key: [[res["rounds"][i][key] for i in counted] for res in results] for key in keys + ("bytes_staged",)}
     med = lambda key: float(np.median(per_round[key]))  # noqa: E731
     # the kernels line's launches: what every rank counted in the counted rounds
@@ -3297,6 +3866,12 @@ def collective_phases(torch, dev):
             ("train_collective_topk", collective_spec("gpt2_topk", "full", 4, 3, check_leaves=GPT2_CHECK_LEAVES),
              "gpt2_topk full --workers 4 --codec-warmup 1 --backend collective --dist-backend gloo",
              33_366_424),
+            # the fused int8 wire's correction in flight under the local steps
+            ("train_collective_overlap", collective_spec("gpt2_topk", "full", 4, 3, codec="int8",
+                                                         check_leaves=GPT2_CHECK_LEAVES, overlap=True),
+             "gpt2_topk full --workers 4 --codec int8 --codec-warmup 0 --codec-refresh 0 --overlap-gossip "
+             "--backend collective --dist-backend gloo",
+             715_190_448),
         ]),
     )
     for _config, world, phases in runs:
@@ -3306,11 +3881,17 @@ def collective_phases(torch, dev):
         per_rank = launch(collective.train_runs, world, [spec for _n, spec, _f, _w in phases],
                           dist_backend="gloo", timeout=COLLECTIVE_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
+        lines = {}
         for i, (name, spec, flags, expect_wire) in enumerate(phases):
             line, launches, forms = collective_line(torch, dev, name, spec, [r[i] for r in per_rank], flags,
                                                     expect_wire)
             line["spawn_to_exit_s"] = spawn_s
+            lines[name] = line
             out.append((line, launches, forms))
+        if "train_collective_overlap" in lines:
+            # the exposed wait beside the same wire's whole gossip round, same spawn
+            lines["train_collective_overlap"]["train_collective_median_gossip_ms"] = (
+                lines["train_collective"]["median_ms"]["gossip_ms"])
         del per_rank
         gc.collect()
         torch.cuda.empty_cache()
@@ -4046,12 +4627,22 @@ def main() -> int:
             emit(line)
             for name, n in counts.items():
                 launches[name]["train_perleaf_topk"] = n
-    del init
     line, counts = gossip_two_step_phase(torch, dev, state, bundle)
     emit(line)
     for name, n in counts.items():
         launches[name]["gossip_fp8_two_step"] = n
     del state, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    # overlap gossip on the config's own codec, then the fused codec (one payload over the whole tree)
+    for path, phase in (("train_topk_overlap", train_topk_overlap_phase),
+                        ("train_fused_codec", train_fused_codec_phase)):
+        line, counts = phase(torch, tck, dev, init)
+        emit(line)
+        for name, n in counts.items():
+            launches[name][path] = n
+    fused_codec_times = line["kernel_times"]  # the four codec kernels at the whole-tree shape
+    del init
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4076,6 +4667,11 @@ def main() -> int:
         emit(line)
         for name, n in counts.items():
             launches[name][line["phase"]] = n
+    line, counts = train_resnet_overlap_phase(torch, dev, resnet_init_named(init, "pallas"))
+    line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_resnet_overlap"] = n
     del init
     gc.collect()
     torch.cuda.empty_cache()
@@ -4135,7 +4731,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"], **({"library": r["library"]} if "library" in r else {}),
          **{k: r[k] for k in ("tflops", "x_library", "x_bound", "bwd_ms", "bwd_x_library", "by_shape", "by_format",
-                              "also_replaces", "masked_form") if k in r}}
+                              "also_replaces", "masked_form") if k in r},
+         **({"at_fused_codec_shape": fused_codec_times[name]} if name in fused_codec_times else {})}
         for name, src, rep, r in rows
     ]
     entries += [

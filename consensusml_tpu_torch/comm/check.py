@@ -23,8 +23,8 @@ from consensusml_tpu_torch.train.local_sgd import worker_generator
 from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
-    "collective_ops", "masked_ops", "gossip_cases", "seeded_tree", "seeded_state", "seeded_gossip_round", "stall",
-    "to_numpy",
+    "collective_ops", "masked_ops", "gossip_cases", "overlap_cases", "inflight_across_barriers", "in_turn",
+    "seeded_tree", "seeded_state", "seeded_gossip_round", "stall", "to_numpy",
 ]
 
 
@@ -107,7 +107,8 @@ def _state_row(engine, x, state, rank: int, device):
 def _state_numpy(st):
     if st is None:
         return None
-    return {name: to_numpy(value) for name, value in st._asdict().items()}
+    return {name: None if value is None else (_state_numpy(value) if hasattr(value, "_asdict") else to_numpy(value))
+            for name, value in st._asdict().items()}
 
 
 def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backend: str, device: str | None,
@@ -153,6 +154,73 @@ def gossip_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo",
             for engine, tree, steps, state, *rest in cases]
 
 
+def _overlap_rounds(rank: int, engine, tree: dict, steps: list, dist_backend: str, device: str | None) -> dict:
+    mesh = WorkerMesh.create(engine.topology, dist_backend, device)
+    x = T.tree_map(lambda a: _row(a, rank, mesh.device), tree)
+    st = engine.init_state(x)
+    kernels.reset_launch_counts()
+    zs, states, bytes_by_round = [], [], []
+    for step in steps:
+        b0 = mesh.transport.stats.bytes_sent
+        z = engine.apply_correction(x, st)
+        zs.append(T.tree_map(np.copy, to_numpy(z)))
+        inflight = engine.correction_collective_start(z, st, mesh, step=step)
+        with torch.no_grad():  # what local steps would write, in place, while the exchange is in flight
+            for leaf in T.leaves(z):
+                leaf.mul_(0.99).add_(0.01)
+        st = inflight.wait()
+        x = z
+        bytes_by_round.append(mesh.transport.stats.bytes_sent - b0)
+        states.append(T.tree_map(np.copy, _state_numpy(st)))
+    return {"tree": to_numpy(x), "state": _state_numpy(st), "z": zs, "states": states,
+            "bytes_by_round": bytes_by_round,
+            "launches": kernels.launch_counts(), "forms": kernels.form_counts()}
+
+
+def overlap_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
+    """For each ``(engine, tree, steps)`` case (an overlap engine) in turn,
+    in one process group, from this rank's row of the stacked numpy
+    ``tree`` and the engine's zero :class:`~consensusml_tpu_torch.
+    consensus.OverlapState`, one round per round counter in ``steps``:
+    the queued correction applied (``z``), the next one started on ``z``
+    (:meth:`~consensusml_tpu_torch.consensus.ConsensusEngine.
+    correction_collective_start`), every leaf of ``z`` moved in place to
+    ``0.99 z + 0.01`` while its exchange is in flight (what the local
+    steps do to the parameters), then finished. Returns per case the
+    final tree and state, every round's ``z`` and state as numpy, the
+    transport's bytes each round and the kernel launches. Runs on the
+    rank's card unless ``device="cpu"``."""
+    return [_overlap_rounds(rank, engine, tree, steps, dist_backend, device) for engine, tree, steps in cases]
+
+
+def inflight_across_barriers(rank: int, world: int, turns: int = 3, dist_backend: str = "gloo",
+                             device: str | None = None) -> dict:
+    """An exchange left in flight on the mesh's in-flight transport while
+    the ranks take turns through ``turns`` barriers of the mesh's own
+    group and an all-reduce on it (as the collective train step's turn
+    taking and metrics do), then finished: what each rank received (its
+    left and right neighbours' ranks on a ring) and the all-reduce."""
+    from consensusml_tpu_torch.topology import topology_from_name
+
+    topo = topology_from_name("ring", world)
+    mesh = WorkerMesh.create(topo, dist_backend, device)
+    mine = torch.full((1000,), float(rank), device=mesh.device)
+    posted = collectives.ppermute_shifts_start([mine], topo, topo.shifts, mesh)
+    mine.fill_(-1.0)  # overwritten while in flight: what was sent is what the start staged
+    for _ in range(turns):
+        mesh.barrier()
+    total = collectives.all_reduce_mean([torch.ones(3, device=mesh.device) * rank], mesh)[0]
+    got = posted.wait()
+    return {"received": [float(r[0][0]) for r in got], "uniform": all(bool((r[0] == r[0][0]).all()) for r in got),
+            "mean": total.tolist()}
+
+
+def in_turn(rank: int, world: int, calls: list) -> list:
+    """``[target(rank, world, *args) for target, args in calls]``: several
+    rank targets in one spawn and process group, in order."""
+    return [target(rank, world, *args) for target, args in calls]
+
+
 def seeded_tree(leaves: list, seed: int, rank: int, device, scale: float = 0.05) -> dict:
     """Worker ``rank``'s seeded gossiped tree: ``{"params": ...,
     "model_state": ...}`` with a ``N(0, scale^2)`` f32 leaf at each ``(path,
@@ -172,21 +240,33 @@ def seeded_tree(leaves: list, seed: int, rank: int, device, scale: float = 0.05)
 
 def seeded_state(engine, tree: dict, gen: torch.Generator, scale: float = 0.05):
     """A mid-run gossip state for ``tree`` from ``gen``: nonzero CHOCO
-    buffers, or a push-sum mass in [0.5, 1.5); ``None`` for exact mixing."""
+    buffers, a push-sum mass in [0.5, 1.5), or for overlap gossip nonzero
+    queued corrections (and CHOCO buffers when compressed); ``None`` for
+    exact mixing."""
+    from consensusml_tpu_torch.consensus import ChocoState, OverlapState
+
     zero = engine.init_state(tree)
     if zero is None:
         return None
     if isinstance(zero, PushSumState):
         return PushSumState(w=0.5 + torch.rand(zero.w.shape, generator=gen, device=zero.w.device))
-    draw = lambda z: torch.randn(z.shape, generator=gen, device=z.device) * scale  # noqa: E731
+    draw = lambda z: torch.randn(z.shape, generator=gen, device=z.device, dtype=z.dtype) * scale  # noqa: E731
+    if isinstance(zero, OverlapState):
+        choco = None if zero.choco is None else ChocoState(xhat=[draw(z) for z in zero.choco.xhat],
+                                                           s=[draw(z) for z in zero.choco.s])
+        return OverlapState(correction=T.tree_map(draw, zero.correction), choco=choco,
+                            pending=tuple(T.tree_map(draw, p) for p in zero.pending))
     return type(zero)(xhat=[draw(z) for z in zero.xhat], s=[draw(z) for z in zero.s])
 
 
 def seeded_gossip_round(mesh: WorkerMesh, engine, leaves: list, seed: int, step: int, alive=None) -> dict:
     """One ``engine.round_collective`` over ``mesh`` from this rank's
     :func:`seeded_tree` and :func:`seeded_state`, with this rank's flag of
-    the ``(world,)`` mask ``alive`` when given. Returns the round's tree
-    and state as numpy, its kernel launches and forms (zeroed just
+    the ``(world,)`` mask ``alive`` when given; for overlap gossip the
+    round's gossip instead: the seeded correction applied (``tree`` is
+    then ``z``) and the next one computed from ``z``
+    (``correction_collective_start``, then ``wait()``). Returns the round's
+    tree and state as numpy, its kernel launches and forms (zeroed just
     before), and what the transport moved, beside the ``leaves`` and the
     engine's ``wire_bytes_per_round`` of that tree."""
     tree, gen = seeded_tree(leaves, seed, mesh.rank, mesh.device)
@@ -195,7 +275,11 @@ def seeded_gossip_round(mesh: WorkerMesh, engine, leaves: list, seed: int, step:
     flag = None if alive is None else float(alive[mesh.rank])
     kernels.reset_launch_counts()
     before = mesh.transport.stats.snapshot()
-    tree, state = engine.round_collective(tree, state, mesh, step=step, alive=flag)
+    if engine.config.overlap:
+        tree = engine.apply_correction(tree, state)
+        state = engine.correction_collective_start(tree, state, mesh, step=step).wait()
+    else:
+        tree, state = engine.round_collective(tree, state, mesh, step=step, alive=flag)
     if mesh.device.type == "cuda":
         torch.cuda.synchronize(mesh.device)
     return {

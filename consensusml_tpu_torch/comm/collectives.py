@@ -10,7 +10,10 @@ all-reduce sum divided by the world size, both on the mesh's transport.
 
 The mixing operator equals ``W @ x`` with the topology's mixing matrix
 (held against :mod:`.simulated` and the reference's ``shard_map``
-collectives by ``tests/test_torch_collectives.py``). Shift mixing
+collectives by ``tests/test_torch_collectives.py``). :func:`combine` is
+that sum for values already received, so a caller that left the exchange
+in flight (:func:`ppermute_shifts_start`, :func:`all_reduce_mean_start`)
+mixes what comes back as :func:`mix` would. Shift mixing
 accumulates in f32 as the reference's compiled program does: XLA
 contracts its ``x * self_weight + w_1 r_1 + ...`` chain into one
 multiply-add of the first two terms (``fma(self_weight, x, w_1 r_1)`` for
@@ -38,6 +41,7 @@ from typing import Any
 import torch
 
 from consensusml_tpu_torch.comm.mesh import WorkerMesh
+from consensusml_tpu_torch.comm.transport import InFlight
 from consensusml_tpu_torch.compress.reference import fma_f32
 from consensusml_tpu_torch.topology import Shift, Topology
 from consensusml_tpu_torch.utils import tree as T
@@ -45,6 +49,9 @@ from consensusml_tpu_torch.utils import tree as T
 __all__ = [
     "shift_dst",
     "ppermute_shifts",
+    "ppermute_shifts_start",
+    "all_reduce_mean_start",
+    "combine",
     "ppermute_shift",
     "ppermute_shift_tree",
     "all_reduce_mean",
@@ -71,8 +78,17 @@ def ppermute_shifts(tensors: list[torch.Tensor], topology: Topology, shifts, mes
     values this rank receives (from ``topology.shift_src(rank, shift)``).
     All sends and receives are posted before any is waited on, as the
     reference issues every bucket's ``ppermute`` before any combine."""
+    return ppermute_shifts_start(tensors, topology, shifts, mesh, mesh.transport).wait()
+
+
+def ppermute_shifts_start(tensors: list[torch.Tensor], topology: Topology, shifts, mesh: WorkerMesh,
+                          transport=None) -> InFlight:
+    """:func:`ppermute_shifts` posted on ``transport`` (default: the mesh's
+    in-flight one, :meth:`~.mesh.WorkerMesh.inflight_transport`), nothing
+    waited on: ``wait()`` gives the per-shift lists."""
     routes = [(shift_dst(topology, mesh.rank, s), topology.shift_src(mesh.rank, s)) for s in shifts]
-    return mesh.transport.exchange(list(tensors), routes)
+    transport = mesh.inflight_transport() if transport is None else transport
+    return transport.exchange_start(list(tensors), routes)
 
 
 def ppermute_shift(x: torch.Tensor, topology: Topology, shift: Shift, mesh: WorkerMesh) -> torch.Tensor:
@@ -89,11 +105,24 @@ def ppermute_shift_tree(tree: Any, topology: Topology, shift: Shift, mesh: Worke
 def all_reduce_mean(tensors: list[torch.Tensor], mesh: WorkerMesh) -> list[torch.Tensor]:
     """``pmean`` of each tensor over the ranks: the all-reduce sum in f32,
     divided by the world size, cast back."""
-    sums = mesh.transport.all_reduce_sum([t.to(torch.float32) for t in tensors])
-    return [(s / mesh.world_size).to(t.dtype) for s, t in zip(sums, tensors)]
+    return all_reduce_mean_start(tensors, mesh, mesh.transport).wait()
 
 
-def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor], f32_terms: bool = False) -> torch.Tensor:
+def all_reduce_mean_start(tensors: list[torch.Tensor], mesh: WorkerMesh, transport=None) -> InFlight:
+    """:func:`all_reduce_mean` posted on ``transport`` (default: the mesh's
+    in-flight one): ``wait()`` gives the means."""
+    transport = mesh.inflight_transport() if transport is None else transport
+    dtypes = [t.dtype for t in tensors]
+    posted = transport.all_reduce_sum_start([t.to(torch.float32) for t in tensors])
+    return InFlight(lambda: [(s / mesh.world_size).to(d) for s, d in zip(posted.wait(), dtypes)])
+
+
+def combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor], f32_terms: bool = False,
+            computed: bool = False) -> torch.Tensor:
+    """``x``'s mix with the values ``recvs`` it received, one a shift in
+    shift order (:func:`mix` once the exchange is done). ``computed``: x
+    is computed in the same compiled program in the reference (overlap
+    gossip's ``z + pending``), which contracts it as a bf16 leaf's."""
     # x * self_weight + each shift's w * r in shift order, contracted as
     # the reference's compiled program does: the first two terms fused into
     # one multiply-add (fma(self_weight, x, w_1 r_1) for f32 leaves; for
@@ -108,7 +137,7 @@ def _combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor], f32
         return (xf * sw).to(x.dtype)
     shifts = topology.shifts
     w1, r1 = f32(shifts[0].weight), recvs[0].to(torch.float32)
-    if x.dtype == torch.float32 or f32_terms:
+    if (x.dtype == torch.float32 and not computed) or f32_terms:
         acc = fma_f32(sw, xf, w1 * r1)
     else:
         acc = fma_f32(w1, r1, xf * sw)
@@ -124,7 +153,7 @@ def mix(x: torch.Tensor, topology: Topology, mesh: WorkerMesh) -> torch.Tensor:
     if topology.uses_psum:
         return all_reduce_mean([x], mesh)[0]
     recvs = ppermute_shifts([x], topology, topology.shifts, mesh)
-    return _combine(x, topology, [r[0] for r in recvs])
+    return combine(x, topology, [r[0] for r in recvs])
 
 
 def mix_tree(tree: Any, topology: Topology, mesh: WorkerMesh) -> Any:
@@ -145,7 +174,7 @@ def mix_buckets(bufs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh, 
     if topology.uses_psum:
         return all_reduce_mean(bufs, mesh)
     inflight = ppermute_shifts(bufs, topology, topology.shifts, mesh)
-    return [_combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
+    return [combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
 
 
 def _flag(alive, device) -> torch.Tensor:
@@ -177,7 +206,7 @@ def _mix_masked_all(xs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh
         xf = x.to(torch.float32)
         # a_s x_s + (1 - a_s) x: exactly x_s or x for a 0/1 flag
         terms = [a_n * r[i].to(torch.float32) + (1.0 - a_n) * xf for a_n, r in zip(alive_nbrs, inflight)]
-        out.append(torch.where(a > 0, _combine(x, topology, terms, f32_terms=True), xf).to(x.dtype))
+        out.append(torch.where(a > 0, combine(x, topology, terms, f32_terms=True), xf).to(x.dtype))
     return out
 
 

@@ -8,6 +8,13 @@ in the ``torch.distributed`` process group, its device, and the
 transport the gossip bytes ride (:mod:`.transport`). The process group
 is made by the caller (:func:`consensusml_tpu_torch.comm.launch.launch`
 does it for every rank it spawns).
+
+Exchanges that stay in flight while the rank does other work (overlap
+gossip's correction, under the local steps) ride a second transport,
+:meth:`WorkerMesh.inflight_transport`, over a process group of their own
+on the same ranks: the turn-taking barrier and the metrics' all-reduces
+on the mesh's group then neither wait for those requests nor order
+against them. It counts into the mesh transport's statistics.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ class WorkerMesh:
     group: Any  # the torch.distributed process group (None: the default group)
     device: torch.device
     transport: Transport
+    dist_backend: str = "gloo"
+    _inflight: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
     def create(cls, topology: Topology, dist_backend: str = "gloo", device: str | torch.device | None = None,
@@ -64,7 +73,20 @@ class WorkerMesh:
                 raise ValueError("--dist-backend nccl runs on CUDA devices only; use --dist-backend gloo on the CPU")
             check_nccl_world(world, torch.cuda.device_count())
         return cls(topology=topology, rank=rank, world_size=world, group=group, device=dev,
-                   transport=make_transport(dist_backend, group, rank, dev))
+                   transport=make_transport(dist_backend, group, rank, dev), dist_backend=dist_backend)
+
+    def inflight_transport(self) -> Transport:
+        """The transport of exchanges left in flight (module docstring),
+        its process group made at the first call: every rank must make
+        that call at the same point of its program, as it makes every
+        collective call."""
+        if "transport" not in self._inflight:
+            ranks = None if self.group is None else dist.get_process_group_ranks(self.group)
+            group = dist.new_group(ranks=ranks, backend=self.dist_backend)
+            side = make_transport(self.dist_backend, group, self.rank, self.device)
+            side.stats = self.transport.stats
+            self._inflight["transport"] = side
+        return self._inflight["transport"]
 
     @property
     def shares_device(self) -> bool:

@@ -322,19 +322,22 @@ class FlagError(ValueError):
 
 def with_gossip_flags(bundle: RunBundle, *, drop_prob: float = 0.0, push_sum: bool = False,
                       gossip_steps: int | None = None, codec_refresh: int | None = None,
-                      bucket_bytes: int | None = None) -> RunBundle:
+                      bucket_bytes: int | None = None, overlap: bool = False,
+                      pipeline: int | None = None) -> RunBundle:
     """``train.py``'s ``--drop-prob``, ``--push-sum``, ``--gossip-steps``,
-    ``--codec-refresh`` and ``--bucket-bytes`` on ``bundle`` (in place;
-    returned), in the reference's order and with its refusals: push-sum
-    first (it is what makes faults legal on a directed graph), then the
-    fault model (``FaultConfig(drop_prob)``, non-finite detection on; a
-    compressed config or a directed graph without push-sum raises
+    ``--codec-refresh``, ``--bucket-bytes``, ``--overlap-gossip`` and
+    ``--gossip-pipeline`` on ``bundle`` (in place; returned), in the
+    reference's order and with its refusals: push-sum first (it is what
+    makes faults legal on a directed graph), then the fault model
+    (``FaultConfig(drop_prob)``, non-finite detection on; a compressed
+    config or a directed graph without push-sum raises
     ``NotImplementedError``, as the reference's does), then the consensus
     iterations and refresh, then the bucket cap on the ``LocalSGDConfig``
-    (0: the per-leaf wire). :class:`FlagError` for what the reference
-    refuses with exit code 2: ``--push-sum`` on a compressed config, and
-    a ``--gossip-steps``/``--codec-refresh`` or ``--bucket-bytes`` the
-    config takes not."""
+    (0: the per-leaf wire), then overlap gossip and its pipeline depth.
+    :class:`FlagError` for what the reference refuses with exit code 2:
+    ``--push-sum`` on a compressed config, and a
+    ``--gossip-steps``/``--codec-refresh``, ``--bucket-bytes``,
+    ``--overlap-gossip`` or ``--gossip-pipeline`` the config takes not."""
     from consensusml_tpu_torch.consensus import FaultConfig
 
     gossip = bundle.cfg.gossip
@@ -358,6 +361,16 @@ def with_gossip_flags(bundle: RunBundle, *, drop_prob: float = 0.0, push_sum: bo
             cfg = dataclasses.replace(cfg, bucket_bytes=bucket_bytes)
         except (NotImplementedError, ValueError) as e:
             raise FlagError(f"--bucket-bytes: {e}") from e
+    if overlap:
+        try:
+            cfg = dataclasses.replace(cfg, gossip=dataclasses.replace(cfg.gossip, overlap=True))
+        except NotImplementedError as e:
+            raise FlagError(f"--overlap-gossip: {e}") from e
+    if pipeline is not None:
+        try:
+            cfg = dataclasses.replace(cfg, gossip=dataclasses.replace(cfg.gossip, pipeline_depth=pipeline))
+        except (NotImplementedError, ValueError) as e:
+            raise FlagError(f"--gossip-pipeline: {e}") from e
     bundle.cfg = cfg
     return bundle
 

@@ -62,9 +62,26 @@ those leaves only, in flatten order, and every other leaf passes through
 untouched (the same tensor). LoRA's ``lora_gossip_filter`` is one such
 filter.
 
+``fused_codec`` runs the codec once over the whole compressed tree laid
+end to end (one f32 vector a worker, ``(W, n)`` stacked): its chunks
+span leaf boundaries, so it is a codec-semantics switch, and the CHOCO
+state is that one vector. It rides the per-leaf exchange as a tree of one
+leaf; ``fused_wire`` stays off on it.
+
+Overlap gossip (``overlap``, combine-then-adapt): the round becomes ``z
+<- z + u + (W - I) z``, the mixing correction computed from the params
+before the local steps and applied at the next round's start, so its
+exchange can run under the local steps (:meth:`ConsensusEngine.
+correction_collective_start` posts it, the returned
+its ``wait()`` finishes it). Compressed overlap (the
+bucketed wire only) computes ``gamma (s - xhat)`` from one CHOCO
+innovation exchange instead, BN statistics getting the plain ``(W - I)
+z``. ``pipeline_depth`` D keeps D corrections in flight, each computed
+from the params plus the corrections still queued
+(:class:`OverlapState`).
+
 Not ported yet, and refused with ``NotImplementedError`` when set (after
-the reference's own refusals): ``fused_codec``, overlap gossip and its
-``pipeline_depth``, and stochastic codecs.
+the reference's own refusals): stochastic codecs.
 """
 
 from __future__ import annotations
@@ -75,6 +92,7 @@ from typing import Any, NamedTuple
 import torch
 
 from consensusml_tpu_torch.comm import collectives, simulated
+from consensusml_tpu_torch.comm.transport import InFlight
 from consensusml_tpu_torch.compress.base import Compressor
 from consensusml_tpu_torch.compress.reference import fma_f32
 from consensusml_tpu_torch.consensus.bucketing import (
@@ -93,7 +111,7 @@ from consensusml_tpu_torch.consensus.pushsum import (
 from consensusml_tpu_torch.topology import Topology
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["GossipConfig", "ChocoState", "ConsensusEngine"]
+__all__ = ["GossipConfig", "ChocoState", "OverlapState", "ConsensusEngine"]
 
 
 class ChocoState(NamedTuple):
@@ -105,12 +123,68 @@ class ChocoState(NamedTuple):
     s: list
 
 
-# field -> its default; any other value is a path this slice does not port
-_NOT_PORTED = {
-    "fused_codec": False,
-    "overlap": False,
-    "pipeline_depth": 1,
-}
+class OverlapState(NamedTuple):
+    """Overlap gossip's carry: ``correction``, computed last round from
+    that round's params before its local steps and applied at this
+    round's start (the gossiped tree's structure; with a ``path_filter``
+    the list of the selected leaves); ``choco``, CHOCO's per-bucket state
+    when the correction is compressed; ``pending``, the ``pipeline_depth
+    - 1`` corrections computed but not applied yet, oldest first, so the
+    correction computed at round r lands at round r + D. Depth 1 keeps
+    ``pending = ()``."""
+
+    correction: Any
+    choco: ChocoState | None = None
+    pending: tuple = ()
+
+
+# elements an f64 pass of the CHOCO update takes at once: the fused
+# codec's one vector a worker is a whole model (GPT-2-medium: 1.4e9
+# elements stacked), whose f64 temporaries would not fit at once
+_UPDATE_SLICE = 1 << 26
+
+
+def _choco_update(gamma: torch.Tensor, x: torch.Tensor, s: torch.Tensor, xhat: torch.Tensor) -> torch.Tensor:
+    """``x + gamma * (s - xhat)`` with one rounding (:func:`fma_f32`), as
+    the reference's compiled program contracts it, in slices of
+    ``_UPDATE_SLICE`` elements."""
+    if x.numel() <= _UPDATE_SLICE:
+        return fma_f32(gamma, s - xhat, x)
+    out = torch.empty_like(x)
+    flat, xf, sf, hf = out.view(-1), x.reshape(-1), s.reshape(-1), xhat.reshape(-1)
+    for lo in range(0, flat.numel(), _UPDATE_SLICE):
+        hi = lo + _UPDATE_SLICE
+        flat[lo:hi] = fma_f32(gamma, sf[lo:hi] - hf[lo:hi], xf[lo:hi])
+    return out
+
+
+def _ravel(leaves: list, stacked: bool):
+    """``fused_codec``'s boundary: ``(vec, unravel)``, the leaves laid end
+    to end in flatten order, ``(n,)`` or, stacked, ``(W, n)`` (each
+    worker's row its own leaves), and ``unravel(vec)`` the leaves back as
+    views of ``vec``."""
+    shapes = [tuple(x.shape) for x in leaves]
+    if stacked:
+        lead = shapes[0][0]
+        sizes = [x.numel() // lead for x in leaves]
+        vec = torch.cat([x.reshape(lead, -1) for x in leaves], dim=1)
+    else:
+        sizes = [x.numel() for x in leaves]
+        vec = torch.cat([x.reshape(-1) for x in leaves])
+
+    def unravel(v: torch.Tensor) -> list:
+        parts = torch.split(v, sizes, dim=1 if stacked else 0)
+        return [p.reshape(shape) for p, shape in zip(parts, shapes)]
+
+    return vec, unravel
+
+
+def _owned(bufs: list, leaves: list) -> list:
+    """``bufs`` with every buffer that shares memory with one of ``leaves``
+    copied: what an in-flight correction keeps must survive the local
+    steps writing the parameters in place."""
+    theirs = {x.untyped_storage().data_ptr() for x in leaves}
+    return [b.clone() if b.untyped_storage().data_ptr() in theirs else b for b in bufs]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,12 +298,6 @@ class GossipConfig:
             raise ValueError(f"path_filter must be a callable on a key path, got {self.path_filter!r}")
         if comp is not None and comp.stochastic:
             raise NotImplementedError("stochastic codecs are not ported yet")
-        for name, default in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"GossipConfig.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only the default {default!r})"
-                )
 
 
 def _check_state(packed: list, xhat: list, bucketed: bool) -> None:
@@ -350,25 +418,50 @@ class ConsensusEngine:
         return self._dense_plan(self._select(params)[0], stacked=stacked)
 
     # ---- state ----------------------------------------------------------
-    def init_state(self, params: Any, world_size: int | None = None) -> ChocoState | PushSumState | None:
+    def init_state(self, params: Any, world_size: int | None = None
+                   ) -> ChocoState | PushSumState | OverlapState | None:
         """Gossip state for ``params`` (stacked leaves with ``world_size``,
-        per-worker leaves without): unit push-sum mass, zero CHOCO state
-        (per bucket, or per compressed leaf on the per-leaf wire), or
+        per-worker leaves without): unit push-sum mass; with ``overlap``,
+        zero corrections (``pipeline_depth - 1`` of them queued) and, when
+        compressed, zero per-bucket CHOCO state over the compressed
+        leaves; zero CHOCO state (one flat vector with ``fused_codec``,
+        per bucket, or per compressed leaf on the per-leaf wire); or
         ``None`` for exact mixing."""
         leaves = T.leaves(params)
         device = leaves[0].device if leaves else None
-        if self.config.push_sum_enabled:
+        cfg = self.config
+        if cfg.push_sum_enabled:
             return pushsum_init(world_size, device=device)
+        if cfg.overlap:
+            sel = self._gossiped_sel(params)[0]
+            zeros = lambda: T.tree_map(torch.zeros_like, sel)  # noqa: E731
+            # pipeline_depth - 1 more in flight: the first rounds apply nothing while the queue fills
+            pending = tuple(zeros() for _ in range(cfg.pipeline_depth - 1))
+            choco = None
+            if self.compressed:
+                hat = self._bucket_zeros(self._partition(params)[0], world_size, device)
+                choco = ChocoState(xhat=hat, s=[torch.zeros_like(z) for z in hat])
+            return OverlapState(correction=zeros(), choco=choco, pending=pending)
         if not self.compressed:
             return None
         compressed, _, _ = self._partition(params)
-        if self.bucketed:
-            plan = self._codec_plan(compressed, stacked=world_size is not None)
-            lead = () if world_size is None else (world_size,)
-            xhat = [torch.zeros(lead + (b.total,), dtype=torch.float32, device=device) for b in plan.buckets]
+        if cfg.fused_codec:
+            # one flat vector a worker, the fused round's compress domain
+            n = sum(x.numel() for x in compressed)
+            shape = (n,) if world_size is None else (world_size, n // world_size)
+            xhat = [torch.zeros(shape, dtype=torch.float32, device=device)]
+        elif self.bucketed:
+            xhat = self._bucket_zeros(compressed, world_size, device)
         else:
             xhat = [torch.zeros(x.shape, dtype=torch.float32, device=x.device) for x in compressed]
         return ChocoState(xhat=xhat, s=[torch.zeros_like(z) for z in xhat])
+
+    def _bucket_zeros(self, compressed: list, world_size: int | None, device) -> list:
+        """Zero f32 buffers of the compressed leaves' codec buckets, ``(W,
+        total)`` with ``world_size``."""
+        plan = self._codec_plan(compressed, stacked=world_size is not None)
+        lead = () if world_size is None else (world_size,)
+        return [torch.zeros(lead + (b.total,), dtype=torch.float32, device=device) for b in plan.buckets]
 
     # ---- simulated round ------------------------------------------------
     def round_simulated(self, params: Any, state, w: torch.Tensor, step: int | None = None,
@@ -446,8 +539,13 @@ class ConsensusEngine:
         # in step with the compressed ones
         mixed_exact = self._mix_exact(exact, mix, n_iter, stacked)
         x = [t.to(torch.float32) for t in compressed]
-        plan = fused = None
-        if self.bucketed:
+        plan = fused = unravel = None
+        if cfg.fused_codec:
+            # one codec call over the whole tree (a per-leaf exchange of one leaf)
+            vec, unravel = _ravel(x, stacked)
+            x = [vec]
+            del vec
+        elif self.bucketed:
             plan = self._codec_plan(x, stacked=stacked)
             fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
             x = plan.pack(x, stacked=stacked)
@@ -466,9 +564,11 @@ class ConsensusEngine:
                 xhat, s = exchange(x, xhat, s, fused)
                 # x + gamma * (s - xhat) with one rounding, as the
                 # reference's compiled program contracts it
-                x = [fma_f32(gamma.to(xi.device), si - hi, xi) for xi, si, hi in zip(x, s, xhat)]
+                x = [_choco_update(gamma.to(xi.device), xi, si, hi) for xi, si, hi in zip(x, s, xhat)]
         if plan is not None:
             x = plan.unpack(x, stacked=stacked)
+        elif unravel is not None:
+            x = unravel(x[0])
         new = [piece.to(old.dtype) for piece, old in zip(x, compressed)]
         return rebuild(new, mixed_exact), ChocoState(xhat=xhat, s=s)
 
@@ -480,13 +580,8 @@ class ConsensusEngine:
         only one bucket's temporaries are alive at a time; the buckets are
         independent, so this is the reference's all-buckets-at-once math."""
         fused._check(x, "encode")
-        new_hat, new_s = [], []
-        for xb, hb, sb in zip(x, xhat, s):
-            q, hat = fused.codec.encode(xb, hb)
-            recv = simulated.mix_stacked(fused.codec.decode(q), w)
-            new_hat.append(hat)
-            new_s.append(sb + recv)
-        return new_hat, new_s
+        pairs = [self._exchange_bucket_simulated(xb, hb, sb, w, fused) for xb, hb, sb in zip(x, xhat, s)]
+        return [h for h, _ in pairs], [sb for _, sb in pairs]
 
     def _innovation_exchange_simulated(self, x: list, xhat: list, s: list, w: torch.Tensor):
         """The two-step wire's exchange on stacked ``(W, total)`` buffers:
@@ -494,13 +589,18 @@ class ConsensusEngine:
         compressed on its own (the reference's vmap; one launch of each
         codec kernel covers all workers), ``xhat += dec``, ``s += W @
         dec``. Bucket by bucket, as the fused exchange."""
+        pairs = [self._exchange_bucket_simulated(xb, hb, sb, w, None) for xb, hb, sb in zip(x, xhat, s)]
+        return [h for h, _ in pairs], [sb for _, sb in pairs]
+
+    def _exchange_bucket_simulated(self, xb: torch.Tensor, hb: torch.Tensor, sb: torch.Tensor, w: torch.Tensor,
+                                   fused: FusedWirePlan | None):
+        """One stacked buffer's innovation exchange: ``(xhat', s')``."""
+        if fused is not None:
+            q, hat = fused.codec.encode(xb, hb)
+            return hat, sb + simulated.mix_stacked(fused.codec.decode(q), w)
         comp = self.config.compressor
-        new_hat, new_s = [], []
-        for xb, hb, sb in zip(x, xhat, s):
-            dec = comp.decompress(comp.compress(xb - hb, stacked=True))
-            new_hat.append(hb + dec)
-            new_s.append(sb + simulated.mix_stacked(dec, w))
-        return new_hat, new_s
+        dec = comp.decompress(comp.compress(xb - hb, stacked=True))
+        return hb + dec, sb + simulated.mix_stacked(dec, w)
 
     # ---- collective round (one worker per process) ----------------------
     def round_collective(self, params: Any, state, mesh, step: int | None = None, alive=None):
@@ -541,19 +641,6 @@ class ConsensusEngine:
 
         return self._round(params, state, step, mix, exchange, stacked=False)
 
-    @staticmethod
-    def _ppermute_payloads(payloads: list, topo: Topology, mesh) -> list[list]:
-        """Every bucket's payload along every shift of ``topo`` in one
-        exchange: per shift, the payloads this rank receives."""
-        per = [p.wire_tensors() for p in payloads]
-        flat = [t for ts in per for t in ts]
-        received = collectives.ppermute_shifts(flat, topo, topo.shifts, mesh)
-        out = []
-        for recv in received:
-            it = iter(recv)
-            out.append([p.with_wire([next(it) for _ in ts]) for p, ts in zip(payloads, per)])
-        return out
-
     def _innovation_exchange_collective(self, topo: Topology, x: list, xhat: list, s: list, mesh):
         """The two-step wire's exchange (per-worker view): compress the
         innovation of every bucket, decode it (``xhat += dec``), ship the
@@ -561,19 +648,8 @@ class ConsensusEngine:
         each neighbour's payload into ``s`` through the codec's
         ``decompress_accumulate`` (the chunked top-k's accumulating
         ``chunk_scatter``: no dense temporary a neighbour)."""
-        comp = self.config.compressor
-        delta = [xb - hb for xb, hb in zip(x, xhat)]
-        q = [comp.compress(d) for d in delta]
-        dec = [comp.decompress(p) for p in q]
-        xhat = [hb + d for hb, d in zip(xhat, dec)]
-        if topo.uses_psum:
-            recv = collectives.all_reduce_mean(dec, mesh)
-        else:
-            recv = [topo.self_weight * d for d in dec]
-            inflight = self._ppermute_payloads(q, topo, mesh)
-            for shift, q_nbr in zip(topo.shifts, inflight):
-                recv = [comp.decompress_accumulate(p, r, shift.weight) for p, r in zip(q_nbr, recv)]
-        return xhat, [sb + r for sb, r in zip(s, recv)]
+        xhat, finish = self._exchange_start(topo, x, xhat, None, mesh, [], transport=mesh.transport)
+        return xhat, finish(s)[0]
 
     def _innovation_exchange_fused_collective(self, topo: Topology, x: list, xhat: list, s: list,
                                               fused: FusedWirePlan, mesh):
@@ -583,14 +659,222 @@ class ConsensusEngine:
         ``fused_dequantize_accumulate`` launch a bucket folds self and
         every neighbour into ``s`` (sources self first, then each shift
         in order). A dense topology means the decoded innovations."""
-        q, xhat = fused.encode(x, xhat)
+        xhat, finish = self._exchange_start(topo, x, xhat, fused, mesh, [], transport=mesh.transport)
+        return xhat, finish(s)[0]
+
+    def _exchange_start(self, topo: Topology, x: list, xhat: list, fused: FusedWirePlan | None, mesh,
+                        exact: list, computed: list | None = None, transport=None):
+        """Both wires' innovation exchange (per-worker view), posted: the
+        encode (``xhat'`` and the payloads; the two-step wire's own decode
+        too), then one exchange of the payloads with the buffers ``exact``
+        beside them (mixed exactly), on ``transport`` (default: the mesh's
+        in-flight one). Returns ``(xhat', finish)``; ``finish(s)`` waits
+        and gives ``(s', exact_mixed)``: the receive folded into ``s`` (the
+        fused wire's one ``fused_dequantize_accumulate`` a bucket, self
+        first then each shift; the two-step wire's ``self_weight * dec``
+        then each neighbour's ``decompress_accumulate``), and ``exact``
+        mixed (``computed[i]``: :meth:`_exact_bufs`'s flag for buffer
+        ``i``)."""
+        comp = self.config.compressor
+        if fused is not None:
+            q, xhat = fused.encode(x, xhat)
+            dec = fused.decode(q) if topo.uses_psum else None
+        else:
+            q = [comp.compress(xb - hb) for xb, hb in zip(x, xhat)]
+            dec = [comp.decompress(p) for p in q]
+            xhat = [hb + d for hb, d in zip(xhat, dec)]
+        nb = len(q)
         if topo.uses_psum:
-            recv = collectives.all_reduce_mean(fused.decode(q), mesh)
-            return xhat, [sb + r for sb, r in zip(s, recv)]
-        inflight = self._ppermute_payloads(q, topo, mesh)
-        weights = (topo.self_weight,) + tuple(sh.weight for sh in topo.shifts)
-        sources = [[qb] + [nbr[i] for nbr in inflight] for i, qb in enumerate(q)]
-        return xhat, fused.decode_accumulate(s, sources, weights)
+            posted = collectives.all_reduce_mean_start(dec + list(exact), mesh, transport)
+
+            def finish(s):
+                means = posted.wait()
+                return [sb + r for sb, r in zip(s, means[:nb])], means[nb:]
+
+            return xhat, finish
+        per = [p.wire_tensors() for p in q]
+        flat = [t for ts in per for t in ts]
+        posted = collectives.ppermute_shifts_start(flat + list(exact), topo, topo.shifts, mesh, transport)
+        self_dec = None if fused is not None else dec
+        del dec
+
+        def finish(s):
+            received = posted.wait()
+            inflight = []
+            for recv in received:
+                it = iter(recv[: len(flat)])
+                inflight.append([p.with_wire([next(it) for _ in ts]) for p, ts in zip(q, per)])
+            mixed = [collectives.combine(e, topo, [recv[len(flat) + i] for recv in received],
+                                         computed=computed[i]) for i, e in enumerate(exact)]
+            if fused is not None:
+                weights = (topo.self_weight,) + tuple(sh.weight for sh in topo.shifts)
+                sources = [[qb] + [nbr[i] for nbr in inflight] for i, qb in enumerate(q)]
+                return fused.decode_accumulate(s, sources, weights), mixed
+            recv = [topo.self_weight * d for d in self_dec]
+            for shift, q_nbr in zip(topo.shifts, inflight):
+                recv = [comp.decompress_accumulate(p, r, shift.weight) for p, r in zip(q_nbr, recv)]
+            return [sb + r for sb, r in zip(s, recv)], mixed
+
+        return xhat, finish
+
+    # ---- overlap gossip (combine-then-adapt) ----------------------------
+    def _gossiped_sel(self, tree: Any):
+        """``(selected, rebuild)``: the tree itself without a
+        ``path_filter``, else the list of the leaves it selects (what an
+        :class:`OverlapState`'s corrections are shaped as)."""
+        if self.config.path_filter is None:
+            return tree, lambda t: t
+        return self._select(tree)
+
+    def apply_correction(self, tree: Any, state: OverlapState) -> Any:
+        """The round's combine: ``state.correction`` added to the gossiped
+        leaves (the others pass through as they are). New tensors."""
+        sel, rebuild = self._gossiped_sel(tree)
+        return rebuild(T.tree_map(torch.add, sel, state.correction))
+
+    def _anticipated(self, tree: Any, pending: tuple) -> Any:
+        """The gossiped leaves plus every correction still queued: the
+        params as they will stand when this round's correction lands
+        (what keeps depth >= 2 on the plain gossip recurrence)."""
+        sel = self._gossiped_sel(tree)[0]
+        for p in pending:
+            sel = T.tree_map(torch.add, sel, p)
+        return sel
+
+    def _exact_bufs(self, leaves: list, stacked: bool):
+        """``(bufs, unpack, computed)``: the exact mix's buffers (dense
+        buckets on the bucketed wire, else the leaves), the map back to
+        leaves, and per buffer whether the reference's program mixes the
+        value it computed (``z + pending``: a leaf alone) or a
+        concatenation of such values (a bucket of several leaves), which
+        it contracts as a loaded f32 value (:func:`~consensusml_tpu_torch.
+        comm.collectives.combine`)."""
+        if not self.bucketed or not leaves:
+            return list(leaves), list, [True] * len(leaves)
+        plan = self._dense_plan(leaves, stacked=stacked)
+        return (plan.pack(leaves, stacked=stacked), lambda bufs: plan.unpack(bufs, stacked=stacked),
+                [len(b.leaves) == 1 for b in plan.buckets])
+
+    def _push_correction(self, state: OverlapState | None, corr: Any, choco) -> OverlapState:
+        """The queue's rotation: the head (applied this round) drops,
+        ``corr`` joins at the back."""
+        queue = (() if state is None else tuple(state.pending)) + (corr,)
+        return OverlapState(correction=queue[0], choco=choco, pending=queue[1:])
+
+    def _check_overlap(self, state: OverlapState | None, where: str) -> tuple:
+        if not self.config.overlap:
+            raise ValueError(f"{where} is overlap gossip's; the config has overlap=False")
+        if self.compressed and (state is None or state.choco is None):
+            raise ValueError("compressed overlap needs the OverlapState carrying CHOCO tracking (from init_state)")
+        if state is None and self.config.pipeline_depth > 1:
+            raise ValueError(f"pipeline_depth > 1 needs the current OverlapState (the queue) passed to {where}")
+        return () if state is None else tuple(state.pending)
+
+    def correction_simulated(self, tree: Any, w: torch.Tensor, state: OverlapState | None = None) -> OverlapState:
+        """The next correction from this round's pre-inner stacked params
+        through ``w`` (the caller picks a time-varying topology's phase):
+        ``(W - I) z_hat``, or compressed ``gamma (s - xhat)`` from one
+        CHOCO exchange over the bucket buffers (BN statistics ``(W - I)
+        z_hat``). Bucket by bucket, each input released once used.
+        Returns the rotated :class:`OverlapState`."""
+        pending = self._check_overlap(state, "correction_simulated")
+        sel = self._anticipated(tree, pending)
+        if not self.compressed:
+            leaves, spec = T.flatten(sel)
+            del sel
+            bufs, unpack, _ = self._exact_bufs(leaves, stacked=True)
+            del leaves
+            corr = []
+            for i in range(len(bufs)):
+                corr.append(simulated.mix_stacked(bufs[i], w) - bufs[i])
+                bufs[i] = None
+            return self._push_correction(state, T.unflatten(spec, unpack(corr)), None)
+        compressed, exact, rebuild = self._partition(sel)
+        del sel
+        dtypes = [t.dtype for t in compressed]
+        plan = self._codec_plan(compressed, stacked=True)
+        fused = build_fused_plan(plan, self.config.compressor) if self.fused_wire_active else None
+        x = plan.pack([t.to(torch.float32) for t in compressed], stacked=True)
+        del compressed
+        _check_state(x, state.choco.xhat, True)
+        gamma = torch.tensor(self.config.gamma, dtype=torch.float32, device=w.device)
+        xhat, s, corr = [], [], []
+        for i, (hb, sb) in enumerate(zip(state.choco.xhat, state.choco.s)):
+            h, sn = self._exchange_bucket_simulated(x[i], hb, sb, w, fused)
+            x[i] = None
+            xhat.append(h)
+            s.append(sn)
+            corr.append(gamma * (sn - h))
+        corr_c = [c.to(d) for c, d in zip(plan.unpack(corr, stacked=True), dtypes)]
+        e_bufs, e_unpack, _ = self._exact_bufs(exact, stacked=True)
+        corr_e = e_unpack([simulated.mix_stacked(b, w) - b for b in e_bufs])
+        return self._push_correction(state, rebuild(corr_c, corr_e), ChocoState(xhat=xhat, s=s))
+
+    def correction_collective(self, tree: Any, state: OverlapState | None, mesh, step: int | None = None
+                              ) -> OverlapState:
+        """:meth:`correction_collective_start` finished at once."""
+        return self.correction_collective_start(tree, state, mesh, step).wait()
+
+    def correction_collective_start(self, tree: Any, state: OverlapState | None, mesh, step: int | None = None
+                                    ) -> InFlight:
+        """THIS rank's next correction from its pre-inner params (per
+        worker), its exchange posted on the mesh's in-flight transport
+        and left there: the encode, the staging and the requests happen
+        here; the returned :class:`~consensusml_tpu_torch.comm.transport.
+        InFlight`'s ``wait()`` waits, folds the receive in and returns the
+        rotated :class:`OverlapState`. What the correction
+        needs at the finish is held apart from ``tree``, so the local
+        steps may write the parameters in place in between. ``step``: a
+        time-varying topology's phase ``step % period``."""
+        pending = self._check_overlap(state, "correction_collective")
+        topo = self.topology
+        if mesh.topology != topo:
+            raise ValueError("the mesh is bound to another topology than this engine's")
+        if topo.is_time_varying:
+            if step is None:
+                raise ValueError(f"{type(topo).__name__} is time-varying: correction_collective needs step=...")
+            topo = topo.phases[step % topo.period]
+        theirs = T.leaves(tree)  # what the local steps will write in place
+        sel = self._anticipated(tree, pending)
+        if not self.compressed:
+            leaves, spec = T.flatten(sel)
+            bufs, unpack, computed = self._exact_bufs(leaves, stacked=False)
+            bufs = _owned(bufs, theirs)
+            del leaves, sel, theirs
+            if topo.uses_psum:
+                posted = collectives.all_reduce_mean_start(bufs, mesh)
+                mixed = posted.wait
+            else:
+                posted = collectives.ppermute_shifts_start(bufs, topo, topo.shifts, mesh)
+                mixed = lambda: [collectives.combine(b, topo, [r[i] for r in posted.wait()],  # noqa: E731
+                                                     computed=computed[i]) for i, b in enumerate(bufs)]
+
+            def finish() -> OverlapState:
+                corr = [m - b for m, b in zip(mixed(), bufs)]
+                return self._push_correction(state, T.unflatten(spec, unpack(corr)), None)
+
+            return InFlight(finish)
+        compressed, exact, rebuild = self._partition(sel)
+        del sel
+        dtypes = [t.dtype for t in compressed]
+        plan = self._codec_plan(compressed)
+        fused = build_fused_plan(plan, self.config.compressor) if self.fused_wire_active else None
+        x = plan.pack([t.to(torch.float32) for t in compressed])
+        _check_state(x, state.choco.xhat, True)
+        e_bufs, e_unpack, e_computed = self._exact_bufs(exact, stacked=False)
+        e_bufs = _owned(e_bufs, theirs)
+        del compressed, exact, theirs
+        xhat, fold = self._exchange_start(topo, x, list(state.choco.xhat), fused, mesh, e_bufs, e_computed)
+        del x
+        gamma = torch.tensor(self.config.gamma, dtype=torch.float32, device=mesh.device)
+
+        def finish() -> OverlapState:
+            s, e_mixed = fold(list(state.choco.s))
+            corr_c = [c.to(d) for c, d in zip(plan.unpack([gamma * (sb - h) for sb, h in zip(s, xhat)]), dtypes)]
+            corr_e = e_unpack([m - e for m, e in zip(e_mixed, e_bufs)])
+            return self._push_correction(state, rebuild(corr_c, corr_e), ChocoState(xhat=xhat, s=s))
+
+        return InFlight(finish)
 
     # ---- accounting -----------------------------------------------------
     def wire_bytes_per_round(self, params: Any) -> int:
@@ -609,7 +893,10 @@ class ConsensusEngine:
             payload = sum(dense(x) for x in self._select(params)[0])
         else:
             compressed, exact, _ = self._partition(params)
-            if self.bucketed:
+            if self.config.fused_codec:
+                # one payload over the tree laid end to end
+                payload = comp.wire_bytes((sum(int(x.numel()) for x in compressed),), torch.float32)
+            elif self.bucketed:
                 plan = self._codec_plan(compressed)
                 payload = sum(comp.wire_bytes((b.total,), torch.float32) for b in plan.buckets)
             else:

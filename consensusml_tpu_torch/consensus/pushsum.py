@@ -131,7 +131,7 @@ def _mix_plain(z: torch.Tensor, w: torch.Tensor | None, topology: Topology, recv
         for r in recvs[1:]:
             acc = acc + r
         return acc * sw
-    return collectives._combine(z if w is None else z * w, topology, recvs)
+    return collectives.combine(z if w is None else z * w, topology, recvs)
 
 
 def pushsum_round_collective(tree: Any, state: PushSumState, topology: Topology, mesh,

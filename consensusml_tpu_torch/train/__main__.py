@@ -25,6 +25,10 @@ consensus (exact on directed graphs and under faults; exact configs
 only), ``--bucket-bytes N`` caps the wire's buckets (0: the per-leaf
 wire), ``--gossip-steps T`` runs T consensus iterations a round and
 ``--codec-refresh K`` a dense round every K on a compressed config;
+``--overlap-gossip`` computes each round's mixing correction from the
+params before the local steps and applies it a round later (on the
+collective backend its exchange runs under the local steps), and
+``--gossip-pipeline D`` keeps D corrections in flight;
 ``--eval-batches N`` scores N held-out batches after the last round, for
 the mean model and the workers (top-1, or the LM's nll and perplexity)::
 
@@ -45,6 +49,9 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --topology onepeer-exp --push-sum \
         --drop-prob 0.1
     python -m consensusml_tpu_torch.train --scale full --workers 4 --bucket-bytes 0
+    python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --overlap-gossip --gossip-pipeline 2
+    python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 0 --codec-refresh 0 \
+        --overlap-gossip --gossip-pipeline 2
     python -m consensusml_tpu_torch.train --config mnist_mlp --scale smoke --device cpu --backend collective \
         --dist-backend gloo --workers 4 --rounds 2
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
@@ -105,6 +112,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="consensus iterations per round (wire x N)")
     p.add_argument("--codec-refresh", type=int, default=None,
                    help="dense refresh round every K rounds on a compressed config")
+    p.add_argument("--overlap-gossip", action="store_true",
+                   help="combine-then-adapt gossip: the mixing correction is computed from the params before "
+                        "the local steps and applied next round (on the collective backend its exchange runs "
+                        "under the local steps); exact gossip, or compressed gossip on the bucketed wire")
+    p.add_argument("--gossip-pipeline", type=int, default=None, metavar="D",
+                   help="pipelined overlap gossip: D mixing corrections in flight (needs --overlap-gossip); "
+                        "D=1 is --overlap-gossip alone")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -120,7 +134,8 @@ def _describe(bundle, engine, config: str) -> None:
     wire = "bucketed wire" if engine.bucketed else "per-leaf wire"
     cfg = bundle.cfg.gossip
     extra = "".join([", push-sum" if cfg.push_sum_enabled else "",
-                     f", faults drop_prob={cfg.faults.drop_prob}" if cfg.faults is not None else ""])
+                     f", faults drop_prob={cfg.faults.drop_prob}" if cfg.faults is not None else "",
+                     f", overlap gossip (pipeline depth {cfg.pipeline_depth})" if cfg.overlap else ""])
     if engine.compressed:
         fused = engine.fused_wire_active
         wire = "fused one-pass bucketed wire" if fused else ("two-step " + wire if engine.bucketed else wire)
@@ -150,7 +165,8 @@ def _bundle(args, dev):
     try:
         configs.with_gossip_flags(bundle, drop_prob=args.drop_prob, push_sum=args.push_sum,
                                   gossip_steps=args.gossip_steps, codec_refresh=args.codec_refresh,
-                                  bucket_bytes=args.bucket_bytes)
+                                  bucket_bytes=args.bucket_bytes, overlap=args.overlap_gossip,
+                                  pipeline=args.gossip_pipeline)
     except configs.FlagError as e:
         return None, f"error: {e}"
     return bundle, None

@@ -68,7 +68,8 @@ def spec_bundle(spec: dict, device):
     return configs.with_gossip_flags(
         bundle, drop_prob=spec.get("drop_prob", 0.0), push_sum=spec.get("push_sum", False),
         gossip_steps=spec.get("gossip_steps"), codec_refresh=spec.get("codec_refresh"),
-        bucket_bytes=spec.get("bucket_bytes"),
+        bucket_bytes=spec.get("bucket_bytes"), overlap=spec.get("overlap_gossip", False),
+        pipeline=spec.get("gossip_pipeline"),
     )
 
 
@@ -119,6 +120,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         table = mesh.transport.all_reduce_sum([row])[0].cpu()
         rounds.append({"loss": loss, "consensus_error": err, "round_ms": ms, "inner_ms": m["inner_ms"],
                        "gossip_ms": m["gossip_ms"], "metrics_ms": m["metrics_ms"], "wire_bytes": m["wire_bytes"],
+                       **{k: m[k] for k in ("gossip_issue_ms", "gossip_wait_ms") if k in m},
                        "bytes_staged": m["bytes_staged"],
                        "staging_ms": m["staging_ms"], "wire_ms": m["wire_ms"],
                        "launches": {k: v for k, v in kernels.launch_counts().items() if v},

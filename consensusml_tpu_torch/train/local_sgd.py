@@ -1,6 +1,6 @@
-"""Local-SGD training rounds (port of ``consensusml_tpu/train/local_sgd.py``,
-the non-overlap branches of ``make_simulated_train_step`` and
-``make_collective_train_step``, faults included).
+"""Local-SGD training rounds (port of ``consensusml_tpu/train/local_sgd.py``:
+``make_simulated_train_step`` and ``make_collective_train_step``, faults
+and overlap gossip included).
 
 ``loss_fn(params, model_state, batch, generator) -> (scalar loss,
 model_state)`` is user code; ``params`` is a dict of one worker's
@@ -36,6 +36,15 @@ splits its batch into micro-batches: the step's gradient is the sum of
 theirs, each weighted by its share of the loss's divisor
 (``loss_fn.count``), then one optimizer step, the reference's one-batch
 gradient in another rounding order.
+
+Overlap gossip (``cfg.gossip.overlap``, combine-then-adapt): a round
+adds the queued correction to the params (``z``), computes the next one
+from ``z``, measures the consensus error on ``z``, then runs the local
+steps on ``z``. On the collective backend the correction's exchange is
+posted before the local steps and finished after them
+(:meth:`~consensusml_tpu_torch.consensus.ConsensusEngine.
+correction_collective_start`), so its bytes move while the rank (or, on
+a shared card, every rank in turn) computes.
 
 Faults (``cfg.gossip.faults``, ``consensus/faults.py``): after a
 worker's H local steps its loss, parameters and model state are checked
@@ -84,7 +93,7 @@ class TrainState:
     params: dict[str, torch.Tensor]  # stacked (W, ...) f32, flax paths
     model_state: dict  # stacked (W, ...) f32 leaves: {} or {"batch_stats": {path: ...}}
     opt_state: Any  # the optimizer's, stacked (AdamState, SGDState)
-    gossip: Any  # the engine's: ChocoState, PushSumState or None
+    gossip: Any  # the engine's: ChocoState, PushSumState, OverlapState or None
     generators: list[torch.Generator]  # per-worker dropout streams
     frozen: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # shared, unstacked, never trained
     # per-worker host streams of injected faults (with cfg.gossip.faults)
@@ -307,12 +316,39 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
     the host wall time of the inner loop and of the gossip round in ms
     (both end in a device synchronisation), for image batches
     ``imgs_per_s`` (W x H x B over the round's wall time), and with faults
-    ``alive_frac`` and ``alive_mask``."""
+    ``alive_frac`` and ``alive_mask``. With ``cfg.gossip.overlap`` the
+    round is overlap gossip's (module docstring): ``gossip_ms`` is then
+    the correction's apply and computation, before the local steps."""
     engine = cfg.engine()
     topo = cfg.gossip.topology
     faults = cfg.gossip.faults
     # time-varying topologies: stack the phase matrices once, index by round
     w_all = simulated.phase_matrices(topo) if topo.is_time_varying else simulated.mixing_matrix(topo)
+
+    def overlap_round(state: TrainState, batch: dict, world: int, h: int, device, sync):
+        t0 = time.perf_counter()
+        w = (w_all[state.step % topo.period] if topo.is_time_varying else w_all).to(device)
+        z = engine.apply_correction(_gossiped(state.params, state.model_state), state.gossip)
+        # the applied correction and the old params released before the next correction's peak
+        state.params, state.model_state = z["params"], z["model_state"]
+        state.gossip = state.gossip._replace(correction=None)
+        state.gossip = engine.correction_simulated(z, w, state.gossip)
+        del z
+        err = engine.consensus_error_simulated(state.params)
+        sync()
+        t1 = time.perf_counter()
+        losses = torch.stack([
+            local_steps(cfg, loss_fn, state, i, [{k: v[i, j] for k, v in batch.items()} for j in range(h)])[0]
+            for i in range(world)
+        ])
+        sync()
+        t2 = time.perf_counter()
+        state.step += 1
+        metrics = {"loss": losses.mean(), "consensus_error": err, "inner_ms": 1e3 * (t2 - t1),
+                   "gossip_ms": 1e3 * (t1 - t0)}
+        if "image" in batch:
+            metrics["imgs_per_s"] = world * h * batch["image"].shape[2] / (t2 - t0)
+        return state, metrics
 
     def step(state: TrainState, batch: dict, alive=None):
         if alive is not None and faults is None:
@@ -326,6 +362,8 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
             )
         device = next(iter(state.params.values())).device
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        if cfg.gossip.overlap:
+            return overlap_round(state, {k: v.to(device) for k, v in batch.items()}, world, h, device, sync)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
         per_worker, oks = [], []
@@ -392,7 +430,16 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
     tree), ``wire_bytes``, the bytes this rank's transport sent in the
     gossip round (the flags' 4 bytes a shift included), and that round's
     ``staging_ms``, ``wire_ms`` and ``bytes_staged``; with faults
-    ``alive_frac`` and ``alive_mask`` (every rank's flag, in rank order)."""
+    ``alive_frac`` and ``alive_mask`` (every rank's flag, in rank order).
+
+    With ``cfg.gossip.overlap`` the round is overlap gossip's (module
+    docstring): the correction's exchange is posted before the local
+    steps and finished after them; ``gossip_ms`` is then
+    ``gossip_issue_ms`` (the apply, the correction's encode, staging and
+    requests) plus ``gossip_wait_ms`` (the wait left after the local
+    steps, the copy back and the receive's fold), and ``metrics_ms`` the
+    consensus error's (on ``z``, before the local steps) and the loss's
+    all-reduces; the transport figures are the correction's."""
     engine = cfg.engine()
     faults = cfg.gossip.faults
     if engine.topology != mesh.topology:
@@ -400,6 +447,60 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
 
     def own_steps(state, batch):
         return local_steps(cfg, loss_fn, state, 0, [{k: v[0, i] for k, v in batch.items()} for i in range(cfg.h)])
+
+    def all_steps(state, batch, sync):
+        """This rank's local steps; on a shared card in rank order."""
+        if not mesh.shares_device:
+            return own_steps(state, batch)
+        for turn in range(mesh.world_size):
+            if turn == mesh.rank:
+                loss, ok = own_steps(state, batch)
+                sync()
+                torch.cuda.empty_cache()
+            mesh.barrier()
+        return loss, ok
+
+    def overlap_round(state: TrainState, batch: dict, sync):
+        stats = mesh.transport.stats
+        t0 = time.perf_counter()
+        before = stats.snapshot()
+        z = engine.apply_correction(_gossiped(*_row(state.params, state.model_state)), state.gossip)
+        state.params = {n: t.unsqueeze(0) for n, t in z["params"].items()}
+        state.model_state = T.tree_map(lambda t: t.unsqueeze(0), z["model_state"])
+        state.gossip = state.gossip._replace(correction=None)
+        inflight = engine.correction_collective_start(z, state.gossip, mesh, step=state.step)
+        sync()
+        issued = stats.since(before)
+        t1 = time.perf_counter()
+        err = engine.consensus_error_collective(z["params"], mesh)
+        del z
+        sync()
+        t2 = time.perf_counter()
+        loss, _ok = all_steps(state, batch, sync)
+        sync()
+        t3 = time.perf_counter()
+        before = stats.snapshot()
+        state.gossip = inflight.wait()
+        sync()
+        waited = stats.since(before)
+        t4 = time.perf_counter()
+        if mesh.shares_device:
+            torch.cuda.empty_cache()
+        mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
+        sync()
+        t5 = time.perf_counter()
+        state.step += 1
+        wire = {k: issued[k] + waited[k] for k in issued}
+        metrics = {
+            "loss": mean_loss, "consensus_error": err, "inner_ms": 1e3 * (t3 - t2),
+            "gossip_ms": 1e3 * ((t1 - t0) + (t4 - t3)), "gossip_issue_ms": 1e3 * (t1 - t0),
+            "gossip_wait_ms": 1e3 * (t4 - t3), "metrics_ms": 1e3 * ((t2 - t1) + (t5 - t4)),
+            "wire_bytes": wire["bytes_sent"], "bytes_staged": wire["bytes_staged"],
+            "staging_ms": wire["staging_ms"], "wire_ms": wire["wire_ms"],
+        }
+        if "image" in batch:
+            metrics["imgs_per_s"] = cfg.h * batch["image"].shape[2] / (t5 - t0)
+        return state, metrics
 
     def step(state: TrainState, batch: dict):
         first = next(iter(batch.values()))
@@ -410,17 +511,11 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
             )
         device = mesh.device
         sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+        if cfg.gossip.overlap:
+            return overlap_round(state, {k: v.to(device) for k, v in batch.items()}, sync)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
-        if mesh.shares_device:
-            for turn in range(mesh.world_size):
-                if turn == mesh.rank:
-                    loss, ok = own_steps(state, batch)
-                    sync()
-                    torch.cuda.empty_cache()
-                mesh.barrier()
-        else:
-            loss, ok = own_steps(state, batch)
+        loss, ok = all_steps(state, batch, sync)
         alive = None if faults is None else draw_alive(state.fault_generators[0], faults.drop_prob) * ok
         sync()
         t1 = time.perf_counter()

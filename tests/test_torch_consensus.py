@@ -236,25 +236,33 @@ def test_exact_mixing_round_bit_equal():
 
 
 def test_unported_options_refuse():
-    """What stays refused: overlap gossip and its pipelining, ``fused_codec``,
-    faults or push-sum with a compressor (the reference's own refusals),
-    faults on a directed graph without push-sum, and the fused wire off
-    the bucketed transport. The per-leaf wire, the global top-k, push-sum,
-    faults on exact gossip and CHOCO beside exact-mixed ``model_state`` are
-    ported: ``tests/test_torch_perleaf.py``, ``tests/test_torch_faults.py``
-    and ``tests/test_torch_pushsum.py`` hold them to the reference."""
+    """What stays refused (the reference's own refusals): faults or
+    push-sum with a compressor, overlap gossip off the bucketed wire or
+    with the fused codec, pipelining without overlap, faults on a directed
+    graph without push-sum, and the fused wire off the bucketed transport.
+    The per-leaf wire, the global top-k, push-sum, faults on exact gossip,
+    CHOCO beside exact-mixed ``model_state``, overlap gossip and its
+    pipelining, and ``fused_codec`` are ported: ``tests/test_torch_perleaf.py``,
+    ``tests/test_torch_faults.py``, ``tests/test_torch_pushsum.py``,
+    ``tests/test_torch_overlap.py`` and ``tests/test_torch_fused_codec.py``
+    hold them to the reference."""
     from consensusml_tpu_torch.consensus import FaultConfig
     from consensusml_tpu_torch.topology import OnePeerExponentialTopology
 
     topo = RingTopology(WORLD)
     comp = PallasInt8Compressor(chunk=128)
-    for kwargs in ({"overlap": True}, {"push_sum": True}, {"fused_codec": True}, {"faults": FaultConfig(0.1)},
+    for kwargs in ({"overlap": True, "bucket_bytes": None}, {"overlap": True, "fused_codec": True},
+                   {"push_sum": True}, {"faults": FaultConfig(0.1)},
                    {"push_sum": "auto", "faults": FaultConfig(0.1)}):
         with pytest.raises(NotImplementedError):
             GossipConfig(topology=topo, compressor=comp, **kwargs)
-    for kwargs in ({"overlap": True}, {"overlap": True, "pipeline_depth": 2}, {"pipeline_depth": 2}):
+    for kwargs in ({"overlap": True, "gossip_steps": 2}, {"pipeline_depth": 2}):
         with pytest.raises(NotImplementedError):
             GossipConfig(topology=topo, **kwargs)
+    for kwargs in ({"overlap": True}, {"overlap": True, "pipeline_depth": 2}):
+        assert GossipConfig(topology=topo, **kwargs).overlap
+        assert GossipConfig(topology=topo, compressor=comp, **kwargs).overlap
+    assert GossipConfig(topology=topo, compressor=comp, fused_codec=True).fused_codec
     with pytest.raises(NotImplementedError):
         GossipConfig(topology=OnePeerExponentialTopology(WORLD), faults=FaultConfig(0.1))
     with pytest.raises(NotImplementedError):

@@ -1825,3 +1825,159 @@ def test_masked_and_pushsum_simulated_rounds_on_card_match_cpu(dev):
             if s_dev is not None:
                 assert bool(((s_dev.w.cpu() - s_cpu.w).abs() <= 1e-6).all())
                 assert abs(float(s_dev.w.double().sum()) - 4.0) <= 1e-5 * 4
+
+
+# ---------------------------------------------------------------------------
+# overlap gossip (the correction's exchange in flight) and the fused codec
+# ---------------------------------------------------------------------------
+
+def _overlap_cases():
+    """Four ranks on a ring: overlap gossip exact (depth 2), on the fused
+    int8 wire (depth 1) and on top-k + int8 (depth 2), GPT-2 smoke's
+    parameters and a BN-style statistic in 3000-byte buckets, three
+    rounds each."""
+    import numpy as np
+
+    from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int8_compressor
+    from consensusml_tpu_torch.configs import gpt2_config, gpt2_init_params
+    from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.topology import RingTopology
+
+    rng = np.random.default_rng(5)
+    tree = {"params": gpt2_init_params(gpt2_config("smoke"), 0, 4),
+            "model_state": {"batch_stats": {"bn.mean": rng.normal(size=(4, 48)).astype(np.float32)}}}
+    eng = lambda depth, comp=None: ConsensusEngine(GossipConfig(  # noqa: E731
+        topology=RingTopology(4), compressor=comp, gamma=0.3, bucket_bytes=3000, overlap=True, pipeline_depth=depth))
+    return [(eng(2), tree, [0, 1, 2]), (eng(1, PallasInt8Compressor(chunk=128)), tree, [0, 1, 2]),
+            (eng(2, topk_int8_compressor(chunk=128, k=13, impl="auto")), tree, [0, 1, 2])]
+
+
+def test_overlap_collective_rounds_on_card_equal_cpu(dev):
+    """Four ``gloo`` ranks on the card and four on the CPU, three overlap
+    rounds each (the correction posted, the parameters overwritten in
+    place while it is in flight, then finished): every round's ``z`` and
+    the final queue and CHOCO state bit-equal; the same bytes sent each
+    round; on the card the fused wire's encode and three-source decode
+    once a bucket a round, the two-step wire's four kernels as in a
+    round."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import check
+    from consensusml_tpu_torch.comm.launch import launch
+    from consensusml_tpu_torch.utils import tree as T
+
+    kernels.build()
+    cases = _overlap_cases()
+    card = launch(check.overlap_cases, 4, cases, "gloo", "cuda", timeout=180.0)
+    cpu = launch(check.overlap_cases, 4, cases, "gloo", "cpu", timeout=180.0)
+    for rank, (got_r, want_r) in enumerate(zip(card, cpu)):
+        for i, (got, want) in enumerate(zip(got_r, want_r)):
+            for g, w in zip(T.leaves([got["z"], got["state"]]), T.leaves([want["z"], want["state"]])):
+                assert (g.view("uint32") == w.view("uint32")).all(), (rank, i)
+            assert got["bytes_by_round"] == want["bytes_by_round"], (rank, i)
+            engine = cases[i][0]
+            per_worker = T.tree_map(lambda a: torch.from_numpy(a[0]), cases[i][1])
+            b = engine.bucket_plan(per_worker).num_buckets
+            n = {k: v for k, v in got["launches"].items() if v}
+            expect = [{}, {"fused_choco_encode": 3 * b, "fused_dequantize_accumulate": 3 * b},
+                      {"chunked_topk": 3 * b, "quantize_int8": 3 * b, "dequantize_int8": 9 * b,
+                       "chunk_scatter": 9 * b}][i]
+            assert n == expect, (rank, i, n)
+
+
+def test_inflight_exchange_on_card_crosses_barriers(dev):
+    """Four ranks sharing the card: an exchange staged on the side stream
+    and posted, its send buffer overwritten on the card, three barriers and
+    an all-reduce on the mesh's group, then finished: each rank holds its
+    neighbours' values as they were staged."""
+    from consensusml_tpu_torch.comm import check
+    from consensusml_tpu_torch.comm.launch import launch
+
+    for rank, res in enumerate(launch(check.inflight_across_barriers, 4, 3, "gloo", "cuda", timeout=120.0)):
+        assert res["received"] == [float((rank - 1) % 4), float((rank + 1) % 4)]
+        assert res["uniform"] and res["mean"] == [1.5] * 3
+
+
+def _swap_plain(monkeypatch, names):
+    from consensusml_tpu_torch.compress import kernels as tck
+
+    for name in names:
+        monkeypatch.setattr(tck, name, getattr(tck, f"{name}_plain"))
+
+
+@pytest.mark.parametrize("codec", ["int8", "topk_int8"])
+def test_overlap_simulated_correction_kernels_equal_plain(dev, codec, monkeypatch):
+    """The simulated compressed correction on the card (four stacked
+    workers, depth 2, three rounds) through the codec kernels, then
+    through their plain versions on the same device: the queue and the
+    CHOCO state bit for bit."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.compress import PallasInt8Compressor, topk_int8_compressor
+    from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.topology import RingTopology
+    from consensusml_tpu_torch.utils import tree as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    comp = PallasInt8Compressor(chunk=128) if codec == "int8" else topk_int8_compressor(chunk=128, k=13, impl="auto")
+    engine = ConsensusEngine(GossipConfig(topology=RingTopology(4), compressor=comp, gamma=0.3, bucket_bytes=3000,
+                                          overlap=True, pipeline_depth=2))
+    tree = T.tree_map(lambda a: torch.from_numpy(a).to(dev), _overlap_cases()[0][1])
+    w = simulated.mixing_matrix(engine.topology, device=dev)
+
+    def rounds():
+        st = engine.init_state(tree, world_size=4)
+        x = tree
+        for _ in range(3):
+            z = engine.apply_correction(x, st)
+            st = engine.correction_simulated(z, w, st)
+            x = T.tree_map(lambda v: v * 0.99 + 0.01, z)
+        torch.cuda.synchronize()
+        return T.leaves([st.correction, list(st.pending), st.choco.xhat, st.choco.s])
+
+    got = rounds()
+    with monkeypatch.context() as m:
+        names = ["fused_pack_quantize"] if codec == "int8" else ["chunked_topk", "quantize_int8", "dequantize_int8",
+                                                                  "chunk_scatter"]
+        _swap_plain(m, names)
+        want = rounds()
+    for g, w_ in zip(got, want):
+        assert _same_bits(g, w_)
+
+
+def test_fused_codec_round_kernels_equal_plain(dev, monkeypatch):
+    """A fused-codec round on the card (top-k + int8 over each worker's
+    whole tree, four stacked workers) through the codec kernels, each
+    launched once, then through their plain versions: parameters,
+    ``xhat`` and ``s`` bit for bit."""
+    import numpy as np
+
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.compress import topk_int8_compressor
+    from consensusml_tpu_torch.compress import kernels as tck
+    from consensusml_tpu_torch.consensus import ChocoState, ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.topology import RingTopology
+    from consensusml_tpu_torch.utils import tree as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build()
+    engine = ConsensusEngine(GossipConfig(topology=RingTopology(4), compressor=topk_int8_compressor(
+        chunk=512, k=8, impl="auto"), gamma=0.3, fused_codec=True))
+    tree = T.tree_map(lambda a: torch.from_numpy(a).to(dev), _overlap_cases()[0][1])
+    zero = engine.init_state(tree, world_size=4)
+    rng = np.random.default_rng(2)
+    state = ChocoState(xhat=[torch.from_numpy(rng.normal(size=tuple(zero.xhat[0].shape)).astype(np.float32)).to(dev)],
+                       s=[torch.from_numpy(rng.normal(size=tuple(zero.s[0].shape)).astype(np.float32)).to(dev)])
+    w = simulated.mixing_matrix(engine.topology, device=dev)
+    names = ["chunked_topk", "quantize_int8", "dequantize_int8", "chunk_scatter"]
+    before = {n: getattr(tck, n).launches for n in names}
+    new, st = engine.round_simulated(tree, state, w, step=1)
+    torch.cuda.synchronize()
+    assert {n: getattr(tck, n).launches - before[n] for n in names} == {
+        "chunked_topk": 1, "quantize_int8": 1, "dequantize_int8": 1, "chunk_scatter": 1}
+    with monkeypatch.context() as m:
+        _swap_plain(m, names)
+        want, wst = engine.round_simulated(tree, state, w, step=1)
+    for g, w_ in zip(T.leaves([new, st.xhat, st.s]), T.leaves([want, wst.xhat, wst.s])):
+        assert _same_bits(g, w_)

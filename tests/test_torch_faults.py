@@ -276,10 +276,6 @@ def test_refusals_match_reference(case):
             outcome[pkg] = ("ok", cfg.push_sum_enabled)
         except (ValueError, NotImplementedError) as e:
             outcome[pkg] = (type(e).__name__, None)
-    if kw.get("overlap"):
-        # overlap is not ported: the port refuses what the reference takes too
-        assert outcome["port"][0] == "NotImplementedError"
-        return
     assert outcome["port"] == outcome["jax"], (kw, outcome)
 
 

@@ -52,6 +52,15 @@ which are bit-exact) to 1e-4 relative (1.2e-5 read). A wrong round — a
 lost gossip step, a wrong bucket layout, a missing Adam bias correction
 — moves them by far more (the consensus error drops by a third a round,
 the loss by 0.2).
+
+The tests are spread over four files so that the suite's workers
+(``--dist loadfile``) can run them side by side: this one (the data, the
+fused-BN ResNet curves, the GPT-2 CLI, and the helpers the others
+import), ``tests/test_torch_train_resnet.py`` (the ResNet curves with
+PyTorch's batch norm), ``tests/test_torch_train_fused.py`` (the fused
+wire's three formats), ``tests/test_torch_train_topk.py`` (the config's
+own codec and top-k + int4 with the fused LayerNorm) and
+``tests/test_torch_train_cli.py`` (the ResNet CLI).
 """
 
 import jax
@@ -107,8 +116,17 @@ def test_classification_round_batches_identical(n, image, start):
         np.testing.assert_array_equal(g["label"].numpy(), np.asarray(w["label"]))
 
 
-@pytest.mark.parametrize("norm_impl", ["flax", "pallas"])
+@pytest.mark.parametrize("norm_impl", ["pallas"])
 def test_resnet_smoke_training_curves_match_reference(norm_impl):
+    """The fused-BN path; the ``"flax"`` case is in
+    ``tests/test_torch_train_resnet.py`` (the same body, split so that the
+    suite's workers can take the two apart)."""
+    resnet_curves(norm_impl)
+
+
+def resnet_curves(norm_impl):
+    """The ResNet smoke curves against the reference's under ``norm_impl``
+    (module docstring)."""
     bundle = jax_configs.build("cifar_resnet50", "smoke")
     model = bundle.model.clone(norm_impl="interpret" if norm_impl == "pallas" else "flax")
     init_fn = jax.jit(jax_resnet_init(model, (1, 16, 16, 3)))
@@ -193,65 +211,6 @@ def _assert_curves_match(got, want, later=(2e-3, 1e-4)):
     assert got[-1][1] < got[0][1]  # gossip contracts the disagreement
 
 
-def test_smoke_training_curves_match_reference():
-    init, want, fused = _reference_run(seed=0)
-    assert fused
-    bundle, _state, got = _port_run(init, "int8")
-    assert bundle.cfg.engine().fused_wire_active
-    _assert_curves_match(got, want)
-
-
-@pytest.mark.parametrize("codec", ["int4", "fp8"])
-def test_smoke_training_curves_fused_formats_match_reference(codec):
-    """``--codec int4`` and ``--codec fp8``: the fused wire in its other
-    two formats, at the int8 fused wire's tolerances."""
-    init, want, fused = _reference_run(seed=0, codec=codec)
-    assert fused
-    bundle, state, got = _port_run(init, codec)
-    comp = bundle.cfg.gossip.compressor
-    assert bundle.cfg.engine().fused_wire_active and comp.fused_wire() == codec and comp.chunk == 128
-    assert bundle.codec_path.startswith(f"{codec}/128 -> plain PyTorch versions")
-    _assert_curves_match(got, want)
-
-
-def test_smoke_training_curves_default_codec_match_reference():
-    """``configs.build`` with no codec is the config's own, as the
-    reference's ``train.py`` without ``--codec`` (model in f32, see the
-    module docstring)."""
-    init, want, fused = _reference_run(seed=0, codec=None, f32=True)
-    assert not fused
-    bundle, state, got = _port_run(init, None, f32=True)
-    comp = bundle.cfg.gossip.compressor
-    assert not bundle.cfg.engine().fused_wire_active and len(state.gossip.xhat) == 1
-    assert (comp.inner.chunk, comp.inner.k_per_chunk, comp.outer.chunk) == (128, 13, 128)
-    _assert_curves_match(got, want)
-
-
-def test_smoke_training_curves_default_codec_bf16_match_reference():
-    """The config's own codec at the config's precision (bf16 compute):
-    round 0 at the tolerances of the other curves, later rounds at the
-    limits set from the readings in the module docstring."""
-    init, want, fused = _reference_run(seed=0, codec=None)
-    assert not fused
-    _bundle, _state, got = _port_run(init, None)
-    _assert_curves_match(got, want, later=(1e-2, 1e-3))
-
-
-def test_smoke_training_curves_topk_int4_fused_ln_match_reference():
-    """The slice's path (``--codec topk_int4 --norm-impl pallas``) in f32
-    against the reference's kernel path: top-k + int4 on the two-step
-    wire, every LayerNorm the fused one."""
-    init, want, fused = _reference_run(seed=0, codec="topk_int4", f32=True, norm_impl="interpret")
-    assert not fused
-    bundle, state, got = _port_run(init, "topk_int4", f32=True, norm_impl="pallas")
-    comp = bundle.cfg.gossip.compressor
-    assert not bundle.cfg.engine().fused_wire_active and len(state.gossip.xhat) == 1
-    assert (comp.inner.chunk, comp.inner.k_per_chunk, comp.outer.chunk, comp.outer.fused_wire()) == (
-        128, 13, 128, "int4")
-    assert "fused LN" in bundle.norm_path
-    _assert_curves_match(got, want)
-
-
 def test_train_cli_on_cpu(capsys):
     from consensusml_tpu_torch.train.__main__ import main
 
@@ -291,20 +250,3 @@ def test_train_cli_fused_formats_on_cpu(capsys, codec):
     errs = [float(r[r.index("consensus_error") + 1]) for r in rounds]
     losses = [float(r[r.index("loss") + 1]) for r in rounds]
     assert len(rounds) == 2 and all(np.isfinite(losses)) and 0 < errs[1] < errs[0]
-
-
-@pytest.mark.parametrize("norm_impl", ["flax", "pallas"])
-def test_train_cli_resnet_on_cpu(capsys, norm_impl):
-    from consensusml_tpu_torch.train.__main__ import main
-
-    argv = ["--device", "cpu", "--config", "cifar_resnet50", "--scale", "smoke", "--rounds", "3",
-            "--norm-impl", norm_impl]
-    assert main(argv) == 0
-    out = capsys.readouterr().out.splitlines()
-    assert out[0] == "codec: none (exact gossip); dense bucketed wire"
-    assert out[1].startswith("BN: ") and (("PyTorch batch norm" in out[1]) == (norm_impl == "flax"))
-    assert "8 workers on cpu, 8402 params per worker, 1 buckets" in out[2]
-    rounds = [line.split() for line in out if line.startswith("round ")]
-    assert len(rounds) == 3 and all(r[-2] == "imgs/s" and float(r[-1]) > 0 for r in rounds)
-    errs = [float(r[r.index("consensus_error") + 1]) for r in rounds]
-    assert errs[-1] < errs[0]

@@ -55,7 +55,7 @@ Phases, each printed as one JSON line:
    1``: four workers stacked on the card, ring gossip, CHOCO through the
    fused int8 wire. First one worker step's gradients through the kernels
    against the same step on the plain versions (``attn_impl="torch"``);
-   then one warm-up round, three counted rounds (launch counters zeroed
+   then one warm-up round, two counted rounds (launch counters zeroed
    just before, read just after; loss, consensus error, round ms with the
    host's garbage-collection pauses in each, tokens/s, wire bytes, peak
    memory) and one more round under ``torch.profiler`` for the
@@ -65,7 +65,7 @@ Phases, each printed as one JSON line:
    of 512) + int8 values on the two-step bucketed wire, 25 buckets, each
    exchange launching the top-k, quantize, dequantize and scatter kernels
    once a bucket. The same initial parameters as ``train`` (drawn once),
-   one warm-up round, three counted rounds (launch counts gated against
+   one warm-up round, two counted rounds (launch counts gated against
    the code's prediction, buckets and wire bytes against the plan's) and
    one profiled round, which reads each of the port's kernels' device
    time by its CUDA symbol.
@@ -94,15 +94,15 @@ Phases, each printed as one JSON line:
    values on the two-step wire (14 buckets, 27,809,088 wire bytes). One
    worker step's gradients (flash + LN kernels) against the same step on
    the plain versions (``attn_impl="torch"``, ``norm_impl="jnp"``), then
-   one warm round, three counted rounds (launches gated: 1176 a LN
-   kernel, 42 each codec kernel, 576 each flash kernel) and one profiled
+   one warm round, two counted rounds (launches gated: 784 a LN
+   kernel, 28 each codec kernel, 384 each flash kernel) and one profiled
    round (the LN and codec kernels' device time).
 
 10. ``train_int4`` and ``train_fp8``: ``gpt2_topk`` full ``--workers 4
     --codec-warmup 1 --codec int4|fp8``: the same initial parameters as
     ``train``, the fused one-pass wire in its int4 format (50 buckets,
     360,367,280 wire bytes) or fp8 format (123 buckets, 715,190,448). One
-    warm round, three counted rounds (launches gated: 576 each flash
+    warm round, two counted rounds (launches gated: 384 each flash
     kernel, the fused encode once a bucket a round, nothing else) and one
     profiled round. No gradient check: the model path is ``train``'s.
 11. ``gossip_fp8_two_step``: from ``train_fp8``'s final state (its
@@ -129,7 +129,8 @@ worker a process of its own on the one card, the wire between them staged
 through pinned host memory (so these round times are not a multi-card
 run's: the ranks' kernels are time-sliced on the card and their bytes
 cross host memory). Each phase's ranks train through the train CLI's
-rank function (one warm round, two counted rounds, launch counts zeroed
+rank function (one warm round, then one counted round for GPT-2 and two for
+ResNet-50 (one for its resumed run), launch counts zeroed
 before and read after each), then run one gossip round from seeded
 per-worker inputs, which this process holds against the simulated round
 on the same stacked inputs (``COLLECTIVE_RTOL``; ``xhat'`` bit-equal):
@@ -138,6 +139,11 @@ on the same stacked inputs (``COLLECTIVE_RTOL``; ``xhat'`` bit-equal):
   pallas``, 8 ranks on a ring (no cut), exact bucketed gossip of the
   weights and BN statistics (23 buckets): ``bn_stats``, ``bn_norm``,
   ``bn_bwd`` 53 times a rank a round;
+- ``train_resnet_collective_resume`` (the same spawn): ``train_resnet_resume``'s
+  round-2 checkpoint resumed on this backend for its last two rounds
+  (each rank reads its own worker's file), the update those rounds make
+  held against the simulated continuation's within ``COLLECTIVE_RTOL``,
+  for the parameters and for the BN statistics apart;
 - ``train_collective`` and ``train_collective_topk`` (one spawn of 4
   ranks): ``gpt2_topk`` full ``--workers 4 --codec-warmup 1`` on the
   fused int8 wire (``--codec int8``: 123 encodes and 123 three-source
@@ -183,7 +189,7 @@ round within tolerance.
 15. ``train_bert``: ``bert_mlm`` full (BERT-base, bf16, 32 workers on a
     ring, 8 local Adam(1e-4) steps a round, exact bucketed gossip, batch
     32 x 128), the parameters drawn and uploaded a worker at a time: one
-    warm round, one counted round (round ms, tokens/s, loss, consensus
+    counted round and no warm one (round ms, tokens/s, loss, consensus
     error, peak memory), then 2 held-out MLM batches (masked top-1 and
     nll of the mean model and the workers). Gates: finite losses, finite
     non-zero consensus errors, 75 buckets and 2 x 4 bytes a parameter on
@@ -198,7 +204,7 @@ round within tolerance.
     x tp 4): the 6.7 B-parameter base drawn and uploaded a leaf at a time
     and held ONCE in bf16 beside the stacked adapters. One worker step's
     adapter gradients through the kernels against their plain versions
-    (GPT-2's gates), a warm round, two counted rounds (round ms against
+    (GPT-2's gates), one counted round and no warm one (round ms against
     the bound of the round's products at the bf16 peak, tokens/s, loss,
     consensus error, peak memory), one held-out batch (nll of the mean
     model and the workers). Gates: 6,738,415,616 base and 16,777,216
@@ -235,6 +241,29 @@ round within tolerance.
     consensus error bit-equal (no kernel computes them), the round's
     update within ``RESNET_GRAD_REL_TOL`` (the statistics sum in another
     order).
+
+20. ``train_resnet_resume`` (before the collective spawn, which resumes
+    its checkpoint): ``cifar_resnet50`` full ``--norm-impl pallas
+    --lr-schedule cosine --warmup-rounds 1 --grad-clip 1.0 --slowmo-beta
+    0.2 --eval-batches 2 --eval-every 2``: four rounds straight, then from
+    the same start two rounds, a save through ``AsyncSaver``, a restore into
+    a freshly built state and two more (cuDNN held to its deterministic
+    algorithms for the phase). Each round's learning rate, largest
+    pre-clip norm and clip factor, the checkpoint's bytes and its save and
+    restore ms, the peak memory; one clipped round through the BN kernels
+    against their plain versions. Gates: the two final states equal to the
+    bit (every tensor, the generators, the round), the rounds and evals
+    equal, the clip fired, 53 x 8 launches of each BN kernel a round.
+21. ``train_topk_sched`` (after ``train_perleaf_topk``, from ``train``'s
+    initial parameters): ``gpt2_topk`` full ``--workers 4 --codec-warmup
+    1 --lr-schedule linear --warmup-rounds 1 --grad-clip 1.0``: a warm
+    round and two counted ones with their learning rates, pre-clip norms
+    and clip factors (launches gated: the flash kernels 192 a round, each
+    codec kernel 25), then one clipped Adam update of worker 0 through the
+    flash kernels against their plain versions, with the run's clip and
+    with one at half the norm (both sides clip), each within
+    ``GRAD_REL_TOL``. No GPT-2 checkpoint is written (its state is about
+    28.5 GB); GPT-2's resume is held on the CPU.
 
 The ``check`` line's ``flash_d128`` holds the three flash kernels'
 head-dim-128 form at ``llama_lora``'s attention shape (B=4, S=2048, H=32,
@@ -278,6 +307,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -1913,7 +1943,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     from consensusml_tpu_torch.models.gpt2 import GPT2LM
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
-    world, counted = 4, 3
+    world, counted = 4, 2
     bundle = configs.build("gpt2_topk", "full", world=world, codec=codec, codec_warmup=1, norm_impl=norm_impl,
                            device=dev)
     cfg, mcfg = bundle.cfg, bundle.model.config
@@ -3076,29 +3106,6 @@ RESNET50_BN_LAYERS = 53
 CORRECTION_SUM_RTOL = 1e-5
 
 
-def clone_train_state(torch, state):
-    """A deep copy of a simulated ``TrainState`` (tensors, the overlap
-    queue and CHOCO state, the dropout generators' states)."""
-    import dataclasses as dc
-
-    from consensusml_tpu_torch.consensus import ChocoState, OverlapState
-    from consensusml_tpu_torch.utils import tree as T
-
-    clone = lambda t: T.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)  # noqa: E731
-    opt = state.opt_state
-    opt = dc.replace(opt, **{f.name: clone(getattr(opt, f.name)) for f in dc.fields(opt)})
-    g = state.gossip
-    choco = None if g.choco is None else ChocoState(xhat=clone(g.choco.xhat), s=clone(g.choco.s))
-    gossip = OverlapState(correction=clone(g.correction), choco=choco, pending=tuple(clone(p) for p in g.pending))
-    gens = []
-    for gen in state.generators:
-        copy = torch.Generator(device=gen.device)
-        copy.set_state(gen.get_state())
-        gens.append(copy)
-    return dc.replace(state, params=clone(state.params), model_state=clone(state.model_state), opt_state=opt,
-                      gossip=gossip, generators=gens)
-
-
 class CorrectionSums:
     """While open, holds every simulated overlap correction's queue to
     ``CORRECTION_SUM_RTOL`` (its sums over the workers in f64 on the card,
@@ -3192,7 +3199,7 @@ def resnet_overlap_plain_check(torch, dev, cfg, state, batch):
     out = {}
     for impl in ("pallas", "jnp"):
         loss_fn = configs.build("cifar_resnet50", "full", norm_impl=impl, device=dev).loss_fn
-        st, m = make_simulated_train_step(cfg, loss_fn)(clone_train_state(torch, state), batch)
+        st, m = make_simulated_train_step(cfg, loss_fn)(copy_tree(torch, state), batch)
         out[impl] = (st, float(m["consensus_error"]), float(m["loss"]))
         del st
     (sk, ek, lk), (sp, ep, lp) = out["pallas"], out["jnp"]
@@ -3528,6 +3535,441 @@ def train_fused_codec_phase(torch, tck, dev, init, counted=2):
 
 
 # ---------------------------------------------------------------------------
+# runs that last: LR schedules and clipping, SlowMo, checkpoint and resume
+# ---------------------------------------------------------------------------
+
+# train_resnet_resume's flags: --lr-schedule cosine --warmup-rounds 1
+# --grad-clip 1.0 --slowmo-beta 0.2, over RESUME_ROUNDS rounds; the resumed
+# leg saves after RESUME_SAVE_AT of them
+RESUME_FLAGS = {"lr_schedule": "cosine", "warmup_rounds": 1, "grad_clip": 1.0, "slowmo_beta": 0.2}
+RESUME_ROUNDS, RESUME_SAVE_AT = 4, 2
+RESUME_EVAL_BATCHES, RESUME_EVAL_EVERY = 2, 2
+# train_topk_sched's: --lr-schedule linear --warmup-rounds 1 --grad-clip 1.0
+TOPK_SCHED_FLAGS = {"lr_schedule": "linear", "warmup_rounds": 1, "grad_clip": 1.0}
+
+
+def copy_tree(torch, obj):
+    """A deep copy of a train state or any part of it: tensors cloned,
+    generators' states copied, dataclasses, NamedTuples, dicts and
+    sequences rebuilt."""
+    import dataclasses as dc
+
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, torch.Generator):
+        gen = torch.Generator(device=obj.device)
+        gen.set_state(obj.get_state())
+        return gen
+    if dc.is_dataclass(obj) and not isinstance(obj, type):
+        return dc.replace(obj, **{f.name: copy_tree(torch, getattr(obj, f.name)) for f in dc.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[copy_tree(torch, x) for x in obj])
+    if isinstance(obj, dict):
+        return {k: copy_tree(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(copy_tree(torch, x) for x in obj)
+    return obj
+
+
+def worker_slice(torch, obj, w: int):
+    """A one-worker copy of a stacked optimizer state: every tensor's row
+    ``w`` as a stack of one."""
+    import dataclasses as dc
+
+    if isinstance(obj, torch.Tensor):
+        return obj[w: w + 1].clone()
+    if dc.is_dataclass(obj) and not isinstance(obj, type):
+        return dc.replace(obj, **{f.name: worker_slice(torch, getattr(obj, f.name), w) for f in dc.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: worker_slice(torch, v, w) for k, v in obj.items()}
+    return obj
+
+
+def states_differ(torch, a, b) -> dict:
+    """Every tensor of two train states compared bit for bit (the frozen
+    base aside: it is none here), with their rounds and the dropout
+    generators' states."""
+    from consensusml_tpu_torch.utils import tree as T
+
+    ta, tb = T.named_tensors(a), T.named_tensors(b)
+    if [p for p, _ in ta] != [p for p, _ in tb]:
+        raise AssertionError("the two states have different structures")
+    bits = {p: mismatches(torch, x, y) for (p, x), (_, y) in zip(ta, tb)}
+    gens = sum(not torch.equal(x.get_state(), y.get_state()) for x, y in zip(a.generators, b.generators))
+    return {"tensors": len(ta), "elements": sum(int(x.numel()) for _, x in ta),
+            "elements_differing": sum(bits.values()), "tensors_differing": sorted(p for p, n in bits.items() if n),
+            "generators_differing": gens, "rounds": [a.step, b.step]}
+
+
+def sched_round(torch, step, state, batch, spec, optimizer):
+    """One round and its record: loss, consensus error, times, the
+    learning rate of its last step, the largest pre-clip norm over the
+    workers, how many workers' last step the clip scaled, and the smallest
+    clip factor ``min(1, clip / norm)``."""
+    from consensusml_tpu_torch.train.run import train_extras
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss, err = float(m["loss"]), float(m["consensus_error"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    ex = train_extras(spec, optimizer, state.opt_state)
+    return state, {"step": state.step - 1, "loss": loss, "consensus_error": err, "round_ms": ms,
+                   "inner_ms": m["inner_ms"], "gossip_ms": m["gossip_ms"], "lr": ex["lr"],
+                   "grad_norm_max": ex["grad_norm"], "workers_clipped": ex["clipped"],
+                   "clip_factor_min": min(1.0, spec["grad_clip"] / ex["grad_norm"])}
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + counts.get(k, 0) for k in set(total) | set(counts)}
+
+
+def resnet_clipped_plain_check(torch, dev, cfg, state, batch):
+    """One round of the clipped, scheduled SGD with SlowMo from a copy of
+    ``state`` through the fused-BN kernels and through their plain versions
+    (``norm_impl="jnp"``, the same leaves): the round's update to the
+    parameters within ``RESNET_GRAD_REL_TOL`` (``||u_k - u_p|| /
+    ||u_p||``, as ``train_resnet_overlap``'s check), each side's pre-clip
+    norms and which workers the clip scaled."""
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.train.local_sgd import make_simulated_train_step
+    from consensusml_tpu_torch.train.optim import clip_norms
+
+    clip = RESUME_FLAGS["grad_clip"]
+    out = {}
+    for impl in ("pallas", "jnp"):
+        loss_fn = configs.build("cifar_resnet50", "full", norm_impl=impl, device=dev).loss_fn
+        st, m = make_simulated_train_step(cfg, loss_fn)(copy_tree(torch, state), batch)
+        norms = clip_norms(cfg.optimizer, st.opt_state).cpu().numpy()
+        out[impl] = (st, float(m["loss"]), norms)
+        del st
+    (sk, lk, nk), (sp, lp, np_) = out["pallas"], out["jnp"]
+    diff2 = sum(float(((sk.params[n] - sp.params[n]).double() ** 2).sum()) for n in state.params)
+    upd2 = sum(float(((sp.params[n] - state.params[n]).double() ** 2).sum()) for n in state.params)
+    rec = {"loss_kernels": lk, "loss_plain": lp, "grad_norms_kernels": nk.tolist(), "grad_norms_plain": np_.tolist(),
+           "grad_norm_rel_err": float(np.max(np.abs(nk - np_) / np_)),
+           "workers_clipped_kernels": int((nk >= clip).sum()), "workers_clipped_plain": int((np_ >= clip).sum()),
+           "update_rel_err": (diff2 / max(upd2, 1e-300)) ** 0.5, "update_rel_tol": RESNET_GRAD_REL_TOL}
+    if not rec["update_rel_err"] <= RESNET_GRAD_REL_TOL or not rec["workers_clipped_plain"]:
+        raise AssertionError(f"the clipped round through the BN kernels differs from the plain versions' "
+                             f"(or clipped nothing): {rec}")
+    return rec
+
+
+def train_resnet_resume_phase(torch, dev, init):
+    """``train_resnet_resume``: ``cifar_resnet50`` full (8 workers, ring,
+    the fused-BN kernels) ``--lr-schedule cosine --warmup-rounds 1
+    --grad-clip 1.0 --slowmo-beta 0.2 --eval-batches 2 --eval-every 2``:
+    four rounds straight, then from the same start two rounds, a save
+    through ``AsyncSaver``, a restore into a freshly built state and two
+    more. Gates: the two final states equal to the bit (every tensor, the
+    generators, the round), the rounds' losses, errors, learning rates and
+    norms and the evals equal, the clip fired, 53 x 8 launches of each BN
+    kernel a round, and one clipped round through the kernels against their
+    plain versions. cuDNN is held to its deterministic algorithms for the
+    phase (the comparison is of two runs' bits). Returns the line, the
+    launches, the checkpoint's directory (removed by the caller) and the
+    straight run's final parameters and statistics as numpy."""
+    import tempfile
+
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.comm.check import to_numpy
+    from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.train.run import due
+    from consensusml_tpu_torch.utils import tree as T
+    from consensusml_tpu_torch.utils.checkpoint import AsyncSaver, restore_state
+
+    bundle = configs.build("cifar_resnet50", "full", norm_impl="pallas", device=dev)
+    configs.with_train_flags(bundle, **RESUME_FLAGS, rounds=RESUME_ROUNDS)
+    cfg, world = bundle.cfg, bundle.world_size
+    batches = list(bundle.batches(RESUME_ROUNDS, 0))
+
+    def fresh():
+        params, model_state = bundle.convert(init)  # may share init's memory: copied
+        return init_stacked_state(cfg, {n: t.to(dev, copy=True) for n, t in params.items()}, world, seed=0,
+                                  model_state=T.tree_map(lambda t: t.to(dev, copy=True), model_state))
+
+    def run_eval(state):
+        got = evaluate(bundle.eval_fn, state, bundle.eval_batches(RESUME_EVAL_BATCHES, 0))
+        return {"mean_model": {k: float(v) for k, v in got["mean_model"].items()},
+                "worker_mean": got["worker_mean"]}
+
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    counts: dict = {}
+
+    def counted(state, batch):
+        kernels.reset_launch_counts()
+        state, rec = sched_round(torch, step, state, batch, RESUME_FLAGS, cfg.optimizer)
+        nonlocal counts
+        counts = add_counts(counts, kernels.launch_counts())
+        return state, rec
+
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="cml-resume-")
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        a, straight, evals_a = fresh(), [], {}
+        for r in range(RESUME_ROUNDS):
+            a, rec = counted(a, batches[r])
+            straight.append(rec)
+            if due(RESUME_EVAL_EVERY, r) and r + 1 != RESUME_ROUNDS:
+                evals_a[r] = run_eval(a)
+        evals_a[None] = run_eval(a)
+        straight_s = time.perf_counter() - t0
+        b, resumed, evals_b = fresh(), [], {}
+        for r in range(RESUME_SAVE_AT):
+            b, rec = counted(b, batches[r])
+            resumed.append(rec)
+            if due(RESUME_EVAL_EVERY, r):
+                evals_b[r] = run_eval(b)
+        plain = resnet_clipped_plain_check(torch, dev, cfg, b, batches[RESUME_SAVE_AT])
+        saver = AsyncSaver()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.submit(tmp, b, step=RESUME_SAVE_AT)
+        t1 = time.perf_counter()
+        saver.wait()  # raises if the write failed
+        t2 = time.perf_counter()
+        ckpt = saver.last_path
+        del b
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = fresh()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        c = restore_state(ckpt, c)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for r in range(RESUME_SAVE_AT, RESUME_ROUNDS):
+            c, rec = counted(c, batches[r])
+            resumed.append(rec)
+        evals_b[None] = run_eval(c)
+        peak = torch.cuda.max_memory_allocated(dev)
+        diff = states_differ(torch, a, c)
+        final = {"params": to_numpy(a.params), "model_state": to_numpy(a.model_state)}
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    keys = ("loss", "consensus_error", "lr", "grad_norm_max", "workers_clipped")
+    rounds_differ = [r for r, (x, y) in enumerate(zip(straight, resumed)) if any(x[k] != y[k] for k in keys)]
+    evals_differ = sorted(str(k) for k in evals_a if evals_a[k] != evals_b.get(k))
+    n_bn = sum(1 for n in a.model_state["batch_stats"] if n.endswith(".mean"))
+    legs = 2 * RESUME_ROUNDS
+    expect = {name: n_bn * world * cfg.h * legs if name in BN_KERNELS else 0 for name in kernels.KERNELS}
+    counts = {name: counts.get(name, 0) for name in kernels.KERNELS}
+    del a, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {
+        "phase": "train_resnet_resume",
+        "config": "cifar_resnet50 full (ResNet-50, CIFAR stem), 8 workers, --norm-impl pallas --lr-schedule cosine "
+                  "--warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --eval-batches 2 --eval-every 2",
+        "norm_path": bundle.norm_path, "cudnn_deterministic": True, "workers": world, "h": cfg.h,
+        "rounds_straight": straight, "rounds_resumed": resumed, "straight_leg_s": straight_s,
+        "evals_straight": {str(k): v for k, v in evals_a.items()}, "evals_resumed": {str(k): v for k, v in evals_b.items()},
+        "checkpoint": {"round": RESUME_SAVE_AT, "files": len(os.listdir(ckpt)),
+                       "bytes": sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt)),
+                       "submit_ms": 1e3 * (t1 - t0), "write_wait_ms": 1e3 * (t2 - t1), "save_ms": 1e3 * (t2 - t0),
+                       "restore_ms": 1e3 * (t4 - t3)},
+        "final_states": diff, "rounds_differing": rounds_differ, "evals_differing": evals_differ,
+        "clip_fired_rounds": [r["step"] for r in straight if r["workers_clipped"]],
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "kernels_vs_plain_clipped_round": plain,
+    }
+    problems = []
+    if diff["elements_differing"] or diff["generators_differing"] or diff["rounds"] != [RESUME_ROUNDS] * 2:
+        problems.append(f"the resumed state differs from the straight one: {diff}")
+    if rounds_differ or evals_differ:
+        problems.append(f"rounds {rounds_differ} or evals {evals_differ} differ between the legs")
+    if not out["clip_fired_rounds"]:
+        problems.append("the clip fired in no round")
+    if n_bn != RESNET50_BN_LAYERS or counts != expect:
+        problems.append(f"launches {counts} differ from the counts the code predicts {expect}")
+    for r in straight + resumed:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"])):
+            problems.append(f"round {r['step']}: loss or consensus error not finite: {r}")
+    if problems:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError("train_resnet_resume: " + "; ".join(problems))
+    return out, counts, tmp, ckpt, final
+
+
+def collective_resume_spec(ckpt: str) -> dict:
+    """``train_resnet_collective_resume``'s flags: ``train_resnet_resume``'s
+    on the collective backend, resuming its round-2 checkpoint for the
+    remaining rounds, the final parameters returned."""
+    spec = collective_spec("cifar_resnet50", "full", 8, RESUME_ROUNDS - RESUME_SAVE_AT, norm_impl="pallas")
+    # no seeded check round: train_resnet_collective's, in the same spawn, holds that round
+    return {**spec, **RESUME_FLAGS, "resume": ckpt, "sched_start": RESUME_SAVE_AT, "return_params": True,
+            "check": None}
+
+
+def collective_resume_compare(torch, results, final, ckpt: str) -> dict:
+    """The ranks' final parameters and statistics against the simulated
+    continuation's (``train_resnet_resume``'s straight run), each rank its
+    row. Gate: for the parameters and for the statistics apart, the two
+    resumed rounds' update from the checkpoint, ``u = final - saved``,
+    within ``COLLECTIVE_RTOL`` (``||u_c - u_s|| / ||u_s||`` over the part),
+    so that a wrong worker's statistics cannot hide under the parameters'
+    larger update. The element-wise reading against ``COLLECTIVE_ATOL +
+    COLLECTIVE_RTOL * |simulated|`` is reported by part: the BN running
+    means, which sit near 0, drift past an element's ``COLLECTIVE_ATOL``.
+    The ranks' bits are the same with cuDNN held to its deterministic
+    algorithms, so that drift is not cuDNN's (PERF.md, PR 19)."""
+    from consensusml_tpu_torch.utils import tree as T
+
+    n, diff2, upd2, worst, leaf_worst = {}, {}, {}, {}, {}
+    for rank, res in enumerate(results):
+        saved = torch.load(os.path.join(ckpt, f"worker_{rank:05d}.pt"), map_location="cpu", weights_only=True)
+        saved = dict(zip(saved["paths"], saved["tensors"]))
+        for part in ("params", "model_state"):
+            for (path, g), (_, w) in zip(T.flatten_with_paths(res[part]), T.flatten_with_paths(final[part])):
+                name = part + "." + ".".join(map(str, path))
+                w = w[rank]
+                over = float((np.abs(g - w) / (COLLECTIVE_ATOL + COLLECTIVE_RTOL * np.abs(w))).max())
+                worst[part] = max(worst.get(part, 0.0), over)
+                leaf_worst[name] = max(leaf_worst.get(name, 0.0), over)
+                diff2[part] = diff2.get(part, 0.0) + float(((g.astype(np.float64) - w) ** 2).sum())
+                upd2[part] = upd2.get(part, 0.0) + float(((w.astype(np.float64) - saved[name].numpy()) ** 2).sum())
+                n[part] = n.get(part, 0) + g.size
+    rel = {part: (diff2[part] / max(upd2[part], 1e-300)) ** 0.5 for part in diff2}
+    rec = {"elements_by_part": n, "update_rel_err_by_part": rel, "update_rel_tol": COLLECTIVE_RTOL,
+           "elementwise_worst_over_tol_by_part": worst,
+           "elementwise_worst_leaves": sorted(leaf_worst.items(), key=lambda kv: -kv[1])[:3],
+           "elementwise_rtol": COLLECTIVE_RTOL, "elementwise_atol": COLLECTIVE_ATOL}
+    if sorted(rel) != ["model_state", "params"] or not all(r <= COLLECTIVE_RTOL for r in rel.values()):
+        raise AssertionError(f"the collective continuation differs from the simulated one: {rec}")
+    return rec
+
+
+def clipped_adam_check(torch, dev, bundle, state, batch):
+    """One clipped Adam update of worker 0 (its parameters, moments and
+    step count, its first micro-batch, dropout from a generator seeded 11)
+    through the flash kernels (``attn_impl="cuda"``) and through their
+    plain versions (``"torch"``), the update within ``GRAD_REL_TOL`` of the
+    plain one (``||u_k - u_p|| / ||u_p||``): with the run's clip
+    (``--grad-clip 1.0``; whether it fires is reported), and with a clip at
+    half the plain side's norm, where both sides take the clipped branch.
+    The schedule's count is set back to the warmup's end, where the rate
+    is the peak: at the run's end the linear schedule is 0 and every
+    update would be 0."""
+    import dataclasses as dc
+
+    from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
+    from consensusml_tpu_torch.train.optim import clip_norms
+
+    row = {k: v[0, 0].to(dev) for k, v in batch.items()}
+    grads, losses = {}, {}
+    for impl in ("cuda", "torch"):
+        leaves = {n: p[0].detach().requires_grad_(True) for n, p in state.params.items()}
+        gen = torch.Generator(device=dev).manual_seed(11)
+        loss, _ = gpt2_loss_fn(bundle.model, attn_impl=impl)(leaves, {}, row, gen)
+        grads[impl] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        losses[impl] = float(loss.detach())
+        del leaves, loss
+
+    peak_count = TOPK_SCHED_FLAGS["warmup_rounds"] * bundle.cfg.h
+
+    def update(opt, impl):
+        params = {n: p[0:1].clone() for n, p in state.params.items()}
+        st = worker_slice(torch, state.opt_state, 0)
+        st.inner.sched_count.fill_(peak_count)  # ClipState(inner=AdamState)
+        opt.update_({n: p[0] for n, p in params.items()}, grads[impl], st, 0)
+        return float(clip_norms(opt, st)[0]), {n: params[n][0] - state.params[n][0] for n in params}
+
+    opt = bundle.cfg.optimizer
+    out = {"loss_kernels": losses["cuda"], "loss_plain": losses["torch"], "lr": opt.lr(peak_count)}
+    for label in ("run_clip", "half_norm_clip"):
+        nk, uk = update(opt, "cuda")
+        np_, up = update(opt, "torch")
+        diff2 = sum(float(((uk[n] - up[n]).double() ** 2).sum()) for n in up)
+        ref2 = sum(float((up[n].double() ** 2).sum()) for n in up)
+        del uk, up
+        out[label] = {"max_norm": opt.max_norm, "grad_norm_kernels": nk, "grad_norm_plain": np_,
+                      "clip_factor_kernels": min(1.0, opt.max_norm / nk),
+                      "clip_factor_plain": min(1.0, opt.max_norm / np_),
+                      "update_rel_err": (diff2 / max(ref2, 1e-300)) ** 0.5, "update_rel_tol": GRAD_REL_TOL}
+        if not out[label]["update_rel_err"] <= GRAD_REL_TOL:
+            raise AssertionError(f"the clipped Adam update through the kernels differs from the plain versions': {out}")
+        opt = dc.replace(opt, max_norm=0.5 * np_)
+    if not max(out["half_norm_clip"]["clip_factor_kernels"], out["half_norm_clip"]["clip_factor_plain"]) < 1.0:
+        raise AssertionError(f"the half-norm clip did not fire: {out}")
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_topk_sched_phase(torch, dev, init, counted=2):
+    """``train_topk_sched``: ``gpt2_topk`` full ``--workers 4 --codec-warmup
+    1 --lr-schedule linear --warmup-rounds 1 --grad-clip 1.0`` on the
+    config's top-k + int8 two-step wire: a warm round (the warmup's steps,
+    dense gossip), ``counted`` rounds with their learning rates, pre-clip
+    norms and clip factors (launches gated: the flash kernels once a layer
+    a worker step, each codec kernel as ``train_topk``), then one clipped
+    Adam update through the kernels against their plain versions
+    (:func:`clipped_adam_check`). No checkpoint is written: the state is
+    about 28.5 GB."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.convert import gpt2_from_flax
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    world = 4
+    bundle = configs.build("gpt2_topk", "full", world=world, codec_warmup=1, device=dev)
+    configs.with_train_flags(bundle, **TOPK_SCHED_FLAGS, rounds=1 + counted)
+    cfg, mcfg = bundle.cfg, bundle.model.config
+    batches = list(bundle.batches(1 + counted, 0))
+    state = init_stacked_state(cfg, {n: t.to(dev) for n, t in gpt2_from_flax(init).items()}, world, seed=0)
+    step = make_simulated_train_step(cfg, bundle.loss_fn)
+    n_buckets = len(state.gossip.xhat)
+    state, warm = sched_round(torch, step, state, batches[0], TOPK_SCHED_FLAGS, cfg.optimizer)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    rounds = []
+    for batch in batches[1:]:
+        state, rec = sched_round(torch, step, state, batch, TOPK_SCHED_FLAGS, cfg.optimizer)
+        rec["tokens_per_s_per_chip"] = world * cfg.h * batch["input_ids"].shape[2] * batch["input_ids"].shape[3] / (
+            rec["round_ms"] / 1e3)
+        rounds.append(rec)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    expect = dict.fromkeys(kernels.KERNELS, 0)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        expect[name] = mcfg.layers * world * cfg.h * counted
+    for name in CODEC_KERNELS[None]:
+        expect[name] = n_buckets * counted
+    check = clipped_adam_check(torch, dev, bundle, state, batches[-1])
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems = []
+    if counts != expect or n_buckets != PLANS[None][0]:
+        problems.append(f"launches {counts} ({n_buckets} buckets) differ from the counts the code predicts {expect}")
+    for r in [warm] + rounds:
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and np.isfinite(r["grad_norm_max"])):
+            problems.append(f"round {r['step']}: not finite: {r}")
+    if problems:
+        raise AssertionError("train_topk_sched: " + "; ".join(problems))
+    return {
+        "phase": "train_topk_sched",
+        "config": "gpt2_topk full (GPT-2-medium), --workers 4 --codec-warmup 1 --lr-schedule linear "
+                  "--warmup-rounds 1 --grad-clip 1.0",
+        "codec_path": bundle.codec_path, "workers": world, "h": cfg.h, "buckets": n_buckets,
+        "schedule": {"total_steps": (1 + counted) * cfg.h, "warmup_steps": cfg.h},
+        "warmup_round": warm, "rounds": rounds, "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
+        "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
+        "kernels_vs_plain_clipped_update": check,
+    }, counts
+
+
+# ---------------------------------------------------------------------------
 # the collective backend: one process per worker, all on the one card,
 # gloo ranks whose wire is staged through pinned host memory
 # ---------------------------------------------------------------------------
@@ -3791,7 +4233,7 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
             problems.append(f"round {i}: loss {loss} or consensus error {err} not finite (and non-zero)")
     if problems:
         raise AssertionError(f"{phase}: " + "; ".join(problems))
-    check = collective_check(torch, dev, bundle, results, spec["check"])
+    check = collective_check(torch, dev, bundle, results, spec["check"]) if spec["check"] else None
     keys = ("round_ms", "inner_ms", "gossip_ms", "metrics_ms", "staging_ms", "wire_ms")
     if engine.config.overlap:
         # the correction's issue before the local steps and the wait left after them
@@ -3822,6 +4264,10 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
                     **{key: [res["rounds"][i][key] for res in results] for key in keys + ("bytes_staged",)}}
                    for i in range(spec["rounds"])],
         "counted_rounds": counted,
+        # a rank's seconds from its spec's start: the state built (and restored), and
+        # the rounds done (before the check round)
+        "rank_setup_s_max": max(res["setup_s"] for res in results),
+        "rank_seconds_max": max(res["seconds"] for res in results),
         # inner: the local steps (the ranks take turns on the card); gossip:
         # the round (its staging and gloo waits inside it); metrics: the
         # consensus error's and the loss's all-reduces
@@ -3834,12 +4280,14 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     }, launches, by_form
 
 
-def collective_phases(torch, dev):
-    """``train_resnet_collective`` and ``train_resnet_collective_pushsum``
-    (one spawn of 8 ranks for both) then ``train_collective`` and
-    ``train_collective_topk`` (one spawn of 4 ranks for both): each rank
-    its own process and worker on the one card. Returns the lines and the
-    launches by phase."""
+def collective_phases(torch, dev, resume):
+    """``train_resnet_collective``, ``train_resnet_collective_pushsum`` and
+    ``train_resnet_collective_resume`` (one spawn of 8 ranks for the three;
+    ``resume`` is ``train_resnet_resume``'s round-2 checkpoint and its
+    straight run's final parameters and statistics) then
+    ``train_collective`` and ``train_collective_topk`` (one spawn of 4
+    ranks for both): each rank its own process and worker on the one card.
+    Returns the lines and the launches by phase."""
     from consensusml_tpu_torch.comm.launch import launch
     from consensusml_tpu_torch.train import collective
 
@@ -3857,17 +4305,23 @@ def collective_phases(torch, dev):
                                                 check_alive=[0.0 if i in FAULT_DEAD else 1.0 for i in range(8)]),
                                 "cifar_resnet50 full --norm-impl pallas --topology onepeer-exp --push-sum "
                                 "--drop-prob 0.1 --backend collective --dist-backend gloo",
+                                None),
+                               # train_resnet_resume's round-2 checkpoint, its last two rounds on this backend
+                               ("train_resnet_collective_resume", collective_resume_spec(resume[0]),
+                                "cifar_resnet50 full --norm-impl pallas --lr-schedule cosine --warmup-rounds 1 "
+                                "--grad-clip 1.0 --slowmo-beta 0.2 --resume step_2 --rounds 2 --backend collective "
+                                "--dist-backend gloo",
                                 None)]),
         ("gpt2_topk", 4, [
-            ("train_collective", collective_spec("gpt2_topk", "full", 4, 3, codec="int8",
+            ("train_collective", collective_spec("gpt2_topk", "full", 4, 2, codec="int8",
                                                  check_leaves=GPT2_CHECK_LEAVES),
              "gpt2_topk full --workers 4 --codec int8 --codec-warmup 1 --backend collective --dist-backend gloo",
              715_190_448),
-            ("train_collective_topk", collective_spec("gpt2_topk", "full", 4, 3, check_leaves=GPT2_CHECK_LEAVES),
+            ("train_collective_topk", collective_spec("gpt2_topk", "full", 4, 2, check_leaves=GPT2_CHECK_LEAVES),
              "gpt2_topk full --workers 4 --codec-warmup 1 --backend collective --dist-backend gloo",
              33_366_424),
             # the fused int8 wire's correction in flight under the local steps
-            ("train_collective_overlap", collective_spec("gpt2_topk", "full", 4, 3, codec="int8",
+            ("train_collective_overlap", collective_spec("gpt2_topk", "full", 4, 2, codec="int8",
                                                          check_leaves=GPT2_CHECK_LEAVES, overlap=True),
              "gpt2_topk full --workers 4 --codec int8 --codec-warmup 0 --codec-refresh 0 --overlap-gossip "
              "--backend collective --dist-backend gloo",
@@ -3886,6 +4340,14 @@ def collective_phases(torch, dev):
             line, launches, forms = collective_line(torch, dev, name, spec, [r[i] for r in per_rank], flags,
                                                     expect_wire)
             line["spawn_to_exit_s"] = spawn_s
+            if name == "train_resnet_collective_resume":
+                results = [r[i] for r in per_rank]
+                line["lr"] = [rd["lr"] for rd in results[0]["rounds"]]
+                line["grad_norm_per_rank"] = [[res["rounds"][j]["grad_norm"] for res in results]
+                                              for j in range(spec["rounds"])]
+                line["vs_simulated_continuation"] = collective_resume_compare(torch, results, resume[1], resume[0])
+                for res in results:
+                    res.pop("params"), res.pop("model_state")
             lines[name] = line
             out.append((line, launches, forms))
         if "train_collective_overlap" in lines:
@@ -4189,7 +4651,8 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
     """bert_mlm full (BERT-base, bf16 compute, 32 workers on a ring, 8 local
     Adam(1e-4) steps a round, exact bucketed gossip, batch 32 x 128) on
     the simulated backend: the initial parameters drawn and uploaded a
-    worker at a time (``configs.init_on_device``), one warm round,
+    worker at a time (``configs.init_on_device``), no warm round (a round
+    reads the same without one, 28.8 s against 28.4 on an H100 at 700 W),
     ``counted`` rounds (launch counters zeroed just before, read just
     after), then ``eval_batches`` held-out MLM batches for the mean model
     and every worker. Gates: finite losses, finite non-zero consensus
@@ -4205,7 +4668,7 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
     cfg, world = bundle.cfg, bundle.world_size
     engine = cfg.engine()
     marks = [("start", time.perf_counter())]
-    batches = list(bundle.batches(1 + counted, 0))
+    batches = list(bundle.batches(counted, 0))
     marks.append(("batches", time.perf_counter()))
     params, _ = configs.init_on_device(bundle, 0, dev)
     marks.append(("init_on_device", time.perf_counter()))
@@ -4222,17 +4685,13 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
         raise AssertionError(f"bert_mlm plan: {n_params} params, {n_buckets} buckets, {wire} wire bytes")
     ids = batches[0]["input_ids"]
     tokens = world * cfg.h * ids.shape[2] * ids.shape[3]
-    t0 = time.perf_counter()
-    state, m = step(state, batches[0])
-    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
-            "round_ms": 1e3 * (time.perf_counter() - t0)}
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     rounds, check = [], GossipCheck(torch, cfg.gossip.topology, dev)
     try:
-        for i, batch in enumerate(batches[1:]):
+        for i, batch in enumerate(batches):
             t0 = time.perf_counter()
             state, m = step(state, batch)
             loss, err = float(m["loss"]), float(m["consensus_error"])
@@ -4252,7 +4711,7 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
     for r in rounds:
         if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
             raise AssertionError(f"train_bert round {r['step']}: loss or consensus error not finite and positive")
-    if check.rounds != [1] or any(counts.values()):
+    if check.rounds != [rounds[0]["step"]] or any(counts.values()):
         raise AssertionError(f"train_bert: gossip checked at {check.rounds}, launches {counts} (expected none)")
     mean_model, workers = result["mean_model"], result["worker_mean"]
     out = {
@@ -4262,7 +4721,7 @@ def train_bert_phase(torch, dev, counted=2, eval_batches=8):
         "workers": world, "h": cfg.h, "batch": ids.shape[2], "seq": ids.shape[3], "params_per_worker": n_params,
         "buckets": n_buckets, "wire_bytes_per_round": wire, "attention": "dense (S*T <= 512^2)",
         "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
-        "warmup_round": warm, "rounds": rounds,
+        "rounds": rounds,
         "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
         "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
         "gossip_rtol": GOSSIP_RTOL, "gossip_worst_err_over_tol": check.worst,
@@ -4303,8 +4762,10 @@ def train_llama_phase(torch, dev, counted=2, eval_batches=1):
     uploaded a leaf at a time and held ONCE in bf16, beside the stacked
     adapters (drawn a worker at a time). One worker step's adapter
     gradients through the kernels against the same step on their plain
-    versions (``attn_impl="torch"``); one warm round; ``counted`` rounds
-    (launch counters zeroed just before, read just after); then
+    versions (``attn_impl="torch"``); no warm round (the gradient check
+    has already run every kernel, and a warm round read as the counted
+    ones, 28.2 s against 28.3-28.5 on an H100 at 700 W); ``counted`` rounds (launch counters zeroed just before, read just
+    after); then
     ``eval_batches`` held-out batches for the mean model and every worker.
     Gates: the parameter counts, 16 buckets holding the adapters alone
     and 4 x 4 bytes an adapter parameter on the wire (the plan and the
@@ -4322,7 +4783,7 @@ def train_llama_phase(torch, dev, counted=2, eval_batches=1):
     cfg, world, mcfg = bundle.cfg, bundle.world_size, bundle.model.config
     engine = cfg.engine()
     marks = [("start", time.perf_counter())]
-    batches = list(bundle.batches(1 + counted, 0))
+    batches = list(bundle.batches(counted, 0))
     marks.append(("batches", time.perf_counter()))
     params, _ = configs.init_on_device(bundle, 0, dev)
     marks.append(("adapters", time.perf_counter()))
@@ -4373,17 +4834,13 @@ def train_llama_phase(torch, dev, counted=2, eval_batches=1):
     ids = batches[0]["input_ids"]
     tokens = world * cfg.h * ids.shape[2] * ids.shape[3]
     flops = llama_round_flops(mcfg, world * cfg.h * ids.shape[2], ids.shape[3])
-    t0 = time.perf_counter()
-    state, m = step(state, batches[0])
-    warm = {"loss": float(m["loss"]), "consensus_error": float(m["consensus_error"]),
-            "round_ms": 1e3 * (time.perf_counter() - t0)}
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     rounds, check = [], GossipCheck(torch, cfg.gossip.topology, dev)
     try:
-        for batch in batches[1:]:
+        for batch in batches:
             t0 = time.perf_counter()
             state, m = step(state, batch)
             loss, err = float(m["loss"]), float(m["consensus_error"])
@@ -4421,7 +4878,7 @@ def train_llama_phase(torch, dev, counted=2, eval_batches=1):
         "buckets": plan.num_buckets, "wire_bytes_per_round": wire, "attention": "flash kernels, head dim 128",
         "grad_check": grad_check,
         "setup_s": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
-        "warmup_round": warm, "rounds": rounds,
+        "rounds": rounds,
         "round_ms_mean": sum(r["round_ms"] for r in rounds) / counted,
         "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
         "round_flops": flops, "round_bound_s_at_bf16_peak": bound_s,
@@ -4590,9 +5047,27 @@ def main() -> int:
         raise AssertionError(f"the kernels line must list every kernel of {list(kernels.KERNELS)}")
     launches: dict[str, dict] = {name: {} for name in kernels.KERNELS}
     forms: dict[str, dict] = {}
-    # the collective phases first, while this process holds the least of
+    from consensusml_tpu_torch import configs
+
+    # ResNet-50's stacked initial variables, drawn once for every ResNet phase
+    t0 = time.perf_counter()
+    resnet_init = configs.build("cifar_resnet50", "full", device=dev).init_params(0)
+    resnet_init_s = time.perf_counter() - t0
+    # checkpoint and resume first: the collective spawn below resumes its checkpoint
+    line, counts, ckpt_tmp, ckpt, final = train_resnet_resume_phase(torch, dev, resnet_init_named(resnet_init, "pallas"))
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_resnet_resume"] = n
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the collective phases next, while this process holds the least of
     # the card: every rank is a process of its own on it
-    for line, counts, by_form in collective_phases(torch, dev):
+    try:
+        collective = collective_phases(torch, dev, (ckpt, final))
+    finally:
+        shutil.rmtree(ckpt_tmp, ignore_errors=True)
+    del final
+    for line, counts, by_form in collective:
         emit(line)
         for name, n in counts.items():
             launches[name][line["phase"]] = n
@@ -4605,8 +5080,6 @@ def main() -> int:
         launches[name]["serve"] = n
     forms.setdefault("paged_attention", {}).setdefault("grouped", {})["serve"] = serve["paged_grouped_launches"]
     torch.cuda.empty_cache()
-    from consensusml_tpu_torch import configs
-
     # the stacked numpy initial parameters, drawn once for the five GPT-2 train phases
     t0 = time.perf_counter()
     init = configs.build("gpt2_topk", "full", world=4, device=dev).init_params(0)
@@ -4622,11 +5095,16 @@ def main() -> int:
         for name, n in counts.items():
             launches[name][path] = n
         if path == "train_topk":
-            # the same codec on the per-leaf wire (--bucket-bytes 0)
+            # the same codec on the per-leaf wire (--bucket-bytes 0), then
+            # with a linear LR schedule and gradient clipping
             line, counts = train_perleaf_phase(torch, tck, dev, init)
             emit(line)
             for name, n in counts.items():
                 launches[name]["train_perleaf_topk"] = n
+            line, counts = train_topk_sched_phase(torch, dev, init)
+            emit(line)
+            for name, n in counts.items():
+                launches[name]["train_topk_sched"] = n
     line, counts = gossip_two_step_phase(torch, dev, state, bundle)
     emit(line)
     for name, n in counts.items():
@@ -4646,10 +5124,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ResNet-50's stacked initial variables, drawn once for both ResNet phases
-    t0 = time.perf_counter()
-    init = configs.build("cifar_resnet50", "full", device=dev).init_params(0)
-    init_s = time.perf_counter() - t0
+    init, init_s = resnet_init, resnet_init_s
+    del resnet_init
     for path, norm_impl, counted in (("train_resnet", "pallas", 3), ("train_resnet_flax", "flax", 2)):
         line, counts = train_resnet_phase(torch, dev, resnet_init_named(init, norm_impl), norm_impl, counted)
         line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
@@ -4687,14 +5163,15 @@ def main() -> int:
         launches[name]["bert_long_padded"] = n
     for name, n in line["masked_launches"].items():
         forms.setdefault(name, {}).setdefault("masked", {})["bert_long_padded"] = n
-    # one counted round and two held-out batches (two and eight until
-    # train_llama joined the script's time)
+    # one counted round, no warm one, and two held-out batches (two counted
+    # rounds and eight batches until train_llama joined the script's time,
+    # a warm round until train_resnet_resume and train_topk_sched did)
     line, counts = train_bert_phase(torch, dev, counted=1, eval_batches=2)
     emit(line)
     for name, n in counts.items():
         launches[name]["train_bert"] = n
     # llama_lora: Llama-2-7B's adapters on 16 workers, the flash kernels at head dim 128
-    line, counts, d128_counts, weights = train_llama_phase(torch, dev)
+    line, counts, d128_counts, weights = train_llama_phase(torch, dev, counted=1)
     emit(line)
     for name, n in counts.items():
         launches[name]["train_llama"] = n

@@ -10,8 +10,9 @@ failure:
   every rank and raises :class:`RankFailed` with that rank's traceback
   (when several fail, the one that failed first: a rank that dies breaks
   its peers' connections, and their errors come after its own);
-- a rank that dies without a result (a signal, ``os._exit``) fails the
-  run the same way, with its exit code;
+- a rank that dies without a result (a signal, ``os._exit``: its
+  watchdog's code 3, say) fails the run the same way, with its exit code
+  (``RankFailed.exit_codes`` holds every such rank's);
 - given a ``timeout``, past it the parent kills every rank and raises
   ``TimeoutError`` (a stalled peer is otherwise ended by the process
   group's own timeout, which fails its rank).
@@ -43,11 +44,13 @@ _GRACE_S = 2.0
 
 class RankFailed(RuntimeError):
     """A rank of a :func:`launch` raised or died; the message carries its
-    traceback (or exit code)."""
+    traceback (or exit code), ``exit_codes`` the exit code of every rank
+    that died without a result, by rank."""
 
-    def __init__(self, rank: int, detail: str):
+    def __init__(self, rank: int, detail: str, exit_codes: dict[int, int] | None = None):
         super().__init__(f"rank {rank} failed:\n{detail}")
         self.rank = rank
+        self.exit_codes = exit_codes or {}
 
 
 def _rank_main(target: Callable, rank: int, world: int, init_method: str, dist_backend: str, threads: int,
@@ -107,6 +110,7 @@ def launch(target: Callable, world: int, *args: Any, dist_backend: str = "gloo",
     ]
     out: dict[int, Any] = {}
     errors: dict[int, tuple[float, str]] = {}
+    codes: dict[int, int] = {}  # exit codes of ranks that died without a result
     try:
         for p in procs:
             p.start()
@@ -130,6 +134,7 @@ def launch(target: Callable, world: int, *args: Any, dist_backend: str = "gloo",
                         except queue.Empty:
                             rank, status = r, "error"
                             payload, failed_at = f"died with exit code {p.exitcode} and no result", time.time()
+                            codes[r] = p.exitcode
                         break
                 else:
                     continue
@@ -143,7 +148,7 @@ def launch(target: Callable, world: int, *args: Any, dist_backend: str = "gloo",
             first = min(errors, key=lambda r: errors[r][0])
             others = sorted(set(errors) - {first})
             note = f"\n(ranks {others} failed after it)" if others else ""
-            raise RankFailed(first, errors[first][1] + note)
+            raise RankFailed(first, errors[first][1] + note, codes)
     finally:
         for p in procs:
             if p.is_alive():

@@ -97,6 +97,16 @@ all 16 workers on one card without tensor parallelism, and takes each
 worker's batch of 8 in micro-batches of 4 (``LocalSGDConfig.micro_batch``:
 the same gradient of the 8 sequences, summed in another order).
 
+Every bundle carries the reference's optimizer rebuild hook for the LR
+flags (``--lr``, ``--lr-schedule``, ``--warmup-rounds``, ``--grad-clip``):
+``optimizer_factory(lr_or_schedule)`` rebuilds exactly the config's
+optimizer (``llama_lora``'s also takes ``grad_clip``, clipping inside the
+LoRA mask) and ``base_lr`` is the rate the config bakes in. ``data_dir=``
+(``--data-dir``) trains on files (:mod:`consensusml_tpu_torch.data.files`:
+MNIST idx for ``mnist_mlp``, CIFAR-10 binaries for ``cifar_resnet50``, a
+token file for the LMs, whose ids must stay below ``vocab - 1``), falling
+back to the procedural data where the directory holds none.
+
 Every config takes ``topology=``, ``train.py``'s ``--topology``:
 ``NAME[:k=v,...]`` (:func:`topology_from_spec`), the named family at the
 run's world size in place of the config's own graph. Every bundle carries
@@ -118,8 +128,8 @@ from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
     "CONFIGS", "RunBundle", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
-    "resnet_model", "topology_from_spec", "with_topology", "with_gossip_flags", "FlagError", "worker_inits",
-    "init_on_device", "llama_config", "frozen_on_device", "LLAMA_MICRO_BATCH",
+    "resnet_model", "topology_from_spec", "with_topology", "with_gossip_flags", "with_train_flags", "FlagError",
+    "worker_inits", "init_on_device", "llama_config", "frozen_on_device", "LLAMA_MICRO_BATCH",
 ]
 
 CONFIGS = ("gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora")
@@ -226,6 +236,11 @@ class RunBundle:
     # trained or gossiped (a LoRA run's base), drawn and uploaded one at a
     # time; None: no such leaves
     draw_frozen: Callable | None = None
+    # the LR flags' rebuild hook: factory(lr_or_schedule) rebuilds exactly
+    # cfg.optimizer; base_lr is the rate the config bakes in
+    optimizer_factory: Callable | None = None
+    base_lr: float | None = None
+    data_source: str = "synthetic"  # the data's origin: "synthetic" or a file reader's source
 
     def init_params(self, seed: int, ranks=None):
         """The stacked ``(W, ...)`` numpy initial variables in flax layout,
@@ -375,17 +390,56 @@ def with_gossip_flags(bundle: RunBundle, *, drop_prob: float = 0.0, push_sum: bo
     return bundle
 
 
+def with_train_flags(bundle: RunBundle, *, lr: float | None = None, lr_schedule: str | None = None,
+                     warmup_rounds: int = 0, grad_clip: float = 0.0, slowmo_beta: float | None = None,
+                     rounds: int = 0, sched_start: int = 0) -> RunBundle:
+    """``train.py``'s ``--lr``, ``--lr-schedule``, ``--warmup-rounds``,
+    ``--grad-clip`` and ``--slowmo-beta`` on ``bundle`` (in place;
+    returned). Any LR flag rebuilds the optimizer through
+    ``bundle.optimizer_factory``
+    (:func:`~consensusml_tpu_torch.train.schedules.build_optimizer`), the
+    schedule sized over ``(sched_start + rounds) * h`` steps (a resumed
+    run's ``sched_start`` is its checkpoint's round, so the schedule
+    continues where it stopped) with ``warmup_rounds * h`` of warmup. Then
+    SlowMo at ``slowmo_beta``. :class:`FlagError` for what the reference
+    refuses with exit code 2: a bad horizon or warmup, and SlowMo with
+    overlap gossip."""
+    import dataclasses as dc
+
+    from consensusml_tpu_torch.train.outer import SlowMoConfig
+    from consensusml_tpu_torch.train.schedules import build_optimizer
+
+    if lr is not None or lr_schedule is not None or warmup_rounds > 0 or grad_clip > 0:
+        if bundle.optimizer_factory is None:
+            raise FlagError(f"config {bundle.name} has no optimizer factory; LR/clip flags are unavailable")
+        h = bundle.cfg.h
+        try:
+            tx = build_optimizer(bundle.optimizer_factory, peak_lr=bundle.base_lr if lr is None else lr,
+                                 kind=lr_schedule or "constant", total_steps=(sched_start + rounds) * h,
+                                 warmup_steps=warmup_rounds * h, grad_clip=grad_clip)
+        except ValueError as e:  # e.g. --warmup-rounds >= --rounds
+            raise FlagError(str(e)) from e
+        bundle.cfg = dc.replace(bundle.cfg, optimizer=tx)
+    if slowmo_beta is not None:
+        try:
+            bundle.cfg = dc.replace(bundle.cfg, outer=SlowMoConfig(beta=slowmo_beta))
+        except NotImplementedError as e:
+            raise FlagError(f"--slowmo-beta: {e}") from e
+    return bundle
+
+
 def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = None,
           codec: str | None = None, gamma: float | None = None,
           codec_warmup: int | None = None, norm_impl: str = "flax", topology: str | None = None,
-          device=None) -> RunBundle:
+          device=None, data_dir: str | None = None) -> RunBundle:
     """The run recipe of config ``name`` at ``scale`` with the reference's
     overrides (``world`` = ``--workers``, ``codec``, ``gamma``,
     ``codec_warmup`` = ``--codec-warmup``; ``norm_impl``, the model's
     field: BN for the ResNet, LayerNorm for GPT-2; ``topology`` =
-    ``--topology``, a :func:`topology_from_spec` spec). ``device`` (``None``
-    = CUDA; raises without a GPU) resolves the kernel paths: the CUDA
-    kernels on a CUDA device, their plain versions on the CPU."""
+    ``--topology``, a :func:`topology_from_spec` spec; ``data_dir`` =
+    ``--data-dir``). ``device`` (``None`` = CUDA; raises without a GPU)
+    resolves the kernel paths: the CUDA kernels on a CUDA device, their
+    plain versions on the CPU."""
     if name not in CONFIGS:
         raise ValueError(f"unknown config {name!r} (one of {CONFIGS})")
     if scale not in ("smoke", "full"):
@@ -397,23 +451,57 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
         if name == "llama_lora":
             if norm_impl != "flax":
                 raise ValueError(f"llama_lora's norms are RMSNorms (norm_impl must be 'flax', got {norm_impl!r})")
-            bundle = _llama_lora(scale, world)
+            bundle = _llama_lora(scale, world, data_dir)
         elif name == "mnist_mlp":
             if norm_impl != "flax":
                 raise ValueError(f"mnist_mlp has no norm layers (norm_impl must be 'flax', got {norm_impl!r})")
-            bundle = _mnist_mlp(scale, world)
+            bundle = _mnist_mlp(scale, world, data_dir)
         elif name == "bert_mlm":
             if norm_impl != "flax":
                 raise ValueError(f"bert_mlm's LayerNorms are flax's (norm_impl must be 'flax', got {norm_impl!r})")
-            bundle = _bert_mlm(scale, world)
+            bundle = _bert_mlm(scale, world, data_dir)
         else:
-            bundle = _cifar_resnet50(scale, world, norm_impl, dev)
+            bundle = _cifar_resnet50(scale, world, norm_impl, dev, data_dir)
     else:
-        bundle = _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev)
+        bundle = _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev, data_dir)
     return bundle if topology is None else with_topology(bundle, topology)
 
 
-def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
+def _file_tokens(data_dir: str | None, seq: int, vocab: int):
+    """A token file's dataset from ``data_dir``, or None. Its ids are
+    checked, on at most the first million, to fit the vocabulary with the
+    last id kept for [MASK]."""
+    if data_dir is None:
+        return None
+    from consensusml_tpu_torch.data.files import load_tokens
+
+    data = load_tokens(data_dir, seq_len=seq, vocab_size=vocab)
+    if data is None:
+        return None
+    probe = np.asarray(data.tokens[:1_000_000])
+    if probe.size and int(probe.max()) >= vocab - 1:
+        raise ValueError(
+            f"{data.source}: token id {int(probe.max())} >= vocab-1={vocab - 1} (the last vocab slot is "
+            "reserved as [MASK]); retokenize or pick a config with a larger vocab"
+        )
+    return data
+
+
+def _lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0):
+    """The round-batch closure of either LM source: the procedural stream
+    or a token file's windows."""
+    from consensusml_tpu_torch.data import lm_round_batches
+    from consensusml_tpu_torch.data.files import TokenFileDataset, token_round_batches
+
+    fn = token_round_batches if isinstance(data, TokenFileDataset) else lm_round_batches
+    return lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, start=start, mlm_rate=mlm_rate)
+
+
+def _source(data) -> str:
+    return getattr(data, "source", "synthetic")
+
+
+def _mnist_mlp(scale: str, world: int | None, data_dir: str | None = None) -> RunBundle:
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticClassification, cls_eval_batches, round_batches
     from consensusml_tpu_torch.models.convert import mlp_from_flax, mlp_init_params
@@ -426,8 +514,14 @@ def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
     full = scale == "full"
     world = world or 4
     model = MLP(hidden=256 if full else 64, device="meta")
-    cfg = LocalSGDConfig(gossip=GossipConfig(topology=topology_from_name("dense", world)), optimizer=adam(1e-3), h=1)
-    data = SyntheticClassification(n=8192 if full else 2048, image_shape=(28, 28, 1))
+    opt, base_lr = adam, 1e-3
+    cfg = LocalSGDConfig(gossip=GossipConfig(topology=topology_from_name("dense", world)), optimizer=opt(base_lr), h=1)
+    data = None
+    if data_dir is not None:
+        from consensusml_tpu_torch.data.files import load_mnist
+
+        data = load_mnist(data_dir)
+    data = data or SyntheticClassification(n=8192 if full else 2048, image_shape=(28, 28, 1))
     batch = 64
     return RunBundle(
         name="mnist_mlp",
@@ -442,12 +536,15 @@ def _mnist_mlp(scale: str, world: int | None) -> RunBundle:
         description="2-layer MLP, 4 workers, dense gossip (CPU reference config)",
         eval_fn=classification_eval_fn(model),
         eval_batches=lambda n_batches, seed: cls_eval_batches(data, batch, n_batches, seed),
+        optimizer_factory=opt,
+        base_lr=base_lr,
+        data_source=_source(data),
     )
 
 
-def _bert_mlm(scale: str, world: int | None) -> RunBundle:
+def _bert_mlm(scale: str, world: int | None, data_dir: str | None = None) -> RunBundle:
     from consensusml_tpu_torch.consensus import GossipConfig
-    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches
     from consensusml_tpu_torch.models.bert import BertMLM, bert_mlm_loss_fn
     from consensusml_tpu_torch.models.convert import bert_from_flax, normal_init_params
     from consensusml_tpu_torch.topology import topology_from_name
@@ -460,10 +557,9 @@ def _bert_mlm(scale: str, world: int | None) -> RunBundle:
     world = world or (32 if full else 4)
     batch, seq = (32, 128) if full else (8, 16)
     mlm_rate = 0.15
-    cfg = LocalSGDConfig(
-        gossip=GossipConfig(topology=topology_from_name("ring", world)), optimizer=adam(1e-4 if full else 1e-2), h=8
-    )
-    data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
+    opt, base_lr = adam, 1e-4 if full else 1e-2
+    cfg = LocalSGDConfig(gossip=GossipConfig(topology=topology_from_name("ring", world)), optimizer=opt(base_lr), h=8)
+    data = _file_tokens(data_dir, seq, mcfg.vocab_size) or SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
     model = BertMLM(mcfg, device="meta")
     return RunBundle(
         name="bert_mlm",
@@ -471,9 +567,7 @@ def _bert_mlm(scale: str, world: int | None) -> RunBundle:
         cfg=cfg,
         model=model,
         loss_fn=bert_mlm_loss_fn(model),
-        batches=lambda rounds, seed, start=0: lm_round_batches(
-            data, world, cfg.h, batch, rounds, seed, start=start, mlm_rate=mlm_rate
-        ),
+        batches=_lm_batches(data, world, cfg.h, batch, mlm_rate=mlm_rate),
         draw_init=lambda seed, ranks: normal_init_params(model, seed, world, ranks),
         convert=lambda init: (bert_from_flax(init), {}),
         codec_path="none (exact gossip)",
@@ -481,12 +575,15 @@ def _bert_mlm(scale: str, world: int | None) -> RunBundle:
         description=f"BERT MLM, local-SGD H=8 + ring averaging; seq {seq}: dense attention",
         eval_fn=mlm_eval_fn(model),
         eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed, mlm_rate=mlm_rate),
+        optimizer_factory=opt,
+        base_lr=base_lr,
+        data_source=_source(data),
     )
 
 
-def _llama_lora(scale: str, world: int | None) -> RunBundle:
+def _llama_lora(scale: str, world: int | None, data_dir: str | None = None) -> RunBundle:
     from consensusml_tpu_torch.consensus import GossipConfig
-    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches
     from consensusml_tpu_torch.models.convert import llama_adapter_params, llama_base_leaves, llama_from_flax
     from consensusml_tpu_torch.models.llama import LlamaLM, llama_loss_fn
     from consensusml_tpu_torch.models.lora import lora_gossip_filter
@@ -501,13 +598,20 @@ def _llama_lora(scale: str, world: int | None) -> RunBundle:
     batch, seq = (8, 2048) if full else (8, 16)
     topo = topology_from_name("torus", world)
     rows, cols = topo.mesh_shape
+
+    def opt(lr, grad_clip: float = 0.0):
+        # the clip inside the LoRA mask: the norm covers the trained
+        # adapters, not the frozen base
+        return lora_optimizer(adam(lr), grad_clip=grad_clip)
+
+    base_lr = 1e-3 if full else 1e-2
     cfg = LocalSGDConfig(
         gossip=GossipConfig(topology=topo, path_filter=lora_gossip_filter),
-        optimizer=lora_optimizer(adam(1e-3 if full else 1e-2)),
+        optimizer=opt(base_lr),
         h=1,
         micro_batch=LLAMA_MICRO_BATCH if full else 0,
     )
-    data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
+    data = _file_tokens(data_dir, seq, mcfg.vocab_size) or SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
     model = LlamaLM(mcfg, device="meta")
     threads = min(_INIT_THREADS, os.cpu_count() or 1)
     return RunBundle(
@@ -516,9 +620,7 @@ def _llama_lora(scale: str, world: int | None) -> RunBundle:
         cfg=cfg,
         model=model,
         loss_fn=llama_loss_fn(model),
-        batches=lambda rounds, seed, start=0: lm_round_batches(
-            data, world, cfg.h, batch, rounds, seed, start=start
-        ),
+        batches=_lm_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: llama_adapter_params(model, seed, world, ranks),
         convert=lambda init: (llama_from_flax(init), {}),
         codec_path="none (exact gossip of the LoRA adapters only)",
@@ -527,10 +629,14 @@ def _llama_lora(scale: str, world: int | None) -> RunBundle:
         eval_fn=causal_lm_eval_fn(model, deterministic_kwarg=False),
         eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed),
         draw_frozen=lambda device: llama_base_leaves(model, device, mcfg.dtype, threads),
+        optimizer_factory=opt,
+        base_lr=base_lr,
+        data_source=_source(data),
     )
 
 
-def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
+def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.device,
+                    data_dir: str | None = None) -> RunBundle:
     from consensusml_tpu_torch.consensus import GossipConfig
     from consensusml_tpu_torch.data import SyntheticClassification, cls_eval_batches, round_batches
     from consensusml_tpu_torch.models.convert import resnet_from_flax, resnet_init_params
@@ -545,12 +651,18 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
     full = scale == "full"
     world = world or 8
     batch, image = (128, 32) if full else (8, 16)
-    cfg = LocalSGDConfig(
-        gossip=GossipConfig(topology=topology_from_name("ring", world)),
-        optimizer=sgd(0.1 if full else 0.05, momentum=0.9),
-        h=1,
-    )
-    data = SyntheticClassification(n=4096 if full else 512, image_shape=(image, image, 3), noise=0.25)
+
+    def opt(lr):
+        return sgd(lr, momentum=0.9)
+
+    base_lr = 0.1 if full else 0.05
+    cfg = LocalSGDConfig(gossip=GossipConfig(topology=topology_from_name("ring", world)), optimizer=opt(base_lr), h=1)
+    data = None
+    if data_dir is not None:
+        from consensusml_tpu_torch.data.files import load_cifar10
+
+        data = load_cifar10(data_dir)  # real CIFAR-10 is 32 px at either scale
+    data = data or SyntheticClassification(n=4096 if full else 512, image_shape=(image, image, 3), noise=0.25)
     model = resnet_model(scale, norm_impl)
     if norm_impl == "flax":
         norm_path = "PyTorch batch norm (norm_impl='flax')"
@@ -572,11 +684,14 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         description="ResNet-50 (CIFAR stem), 8-worker ring consensus",
         eval_fn=classification_eval_fn(model, train_kwarg=True),
         eval_batches=lambda n_batches, seed: cls_eval_batches(data, batch, n_batches, seed),
+        optimizer_factory=opt,
+        base_lr=base_lr,
+        data_source=_source(data),
     )
 
 
 def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | None,
-               codec_warmup: int | None, norm_impl: str, dev: torch.device) -> RunBundle:
+               codec_warmup: int | None, norm_impl: str, dev: torch.device, data_dir: str | None = None) -> RunBundle:
     from consensusml_tpu_torch.compress import (
         PallasFp8Compressor,
         PallasInt4Compressor,
@@ -585,7 +700,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         topk_int8_compressor,
     )
     from consensusml_tpu_torch.consensus import GossipConfig
-    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches, lm_round_batches
+    from consensusml_tpu_torch.data import SyntheticLM, lm_eval_batches
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.models.gpt2 import gpt2_loss_fn
     from consensusml_tpu_torch.topology import topology_from_name
@@ -619,8 +734,9 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         codec_warmup_rounds=(50 if full else 0) if codec_warmup is None else codec_warmup,
         codec_refresh_every=50 if full else 0,
     )
-    cfg = LocalSGDConfig(gossip=gossip, optimizer=adam(1e-4 if full else 3e-3), h=2)
-    data = SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
+    opt, base_lr = adam, 1e-4 if full else 3e-3
+    cfg = LocalSGDConfig(gossip=gossip, optimizer=opt(base_lr), h=2)
+    data = _file_tokens(data_dir, seq, mcfg.vocab_size) or SyntheticLM(vocab_size=mcfg.vocab_size, seq_len=seq)
     model = GPT2LM(mcfg, device="meta")
     on_card = dev.type == "cuda"
     path = "hand-written CUDA kernels" if on_card else "plain PyTorch versions (no card)"
@@ -636,9 +752,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         cfg=cfg,
         model=model,
         loss_fn=gpt2_loss_fn(model),
-        batches=lambda rounds, seed, start=0: lm_round_batches(
-            data, world, cfg.h, batch, rounds, seed, start=start
-        ),
+        batches=_lm_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: gpt2_init_params(mcfg, seed, world, ranks),
         convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",
@@ -646,4 +760,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         description=f"GPT-2 pretrain with {codec} compressed gossip (CHOCO)",
         eval_fn=causal_lm_eval_fn(model),
         eval_batches=lambda n_batches, seed: lm_eval_batches(data, batch, n_batches, seed),
+        optimizer_factory=opt,
+        base_lr=base_lr,
+        data_source=_source(data),
     )

@@ -187,11 +187,14 @@ def lm_eval_batches(dataset: SyntheticLM, batch: int, n_batches: int,
     same Markov chain under keys ``(seed + EVAL_SEED_OFFSET, r)``, which no
     training round uses; ``mlm_rate > 0`` corrupts each as
     :func:`mlm_corrupt` under ``(seed + EVAL_SEED_OFFSET, r)``, as the
-    reference's ``_lm_eval_batches``."""
+    reference's ``_lm_eval_batches``. A dataset with a held-out split (a
+    token file's, :class:`~consensusml_tpu_torch.data.files.TokenFileDataset`)
+    is sampled there."""
+    held = dataset.holdout() if hasattr(dataset, "holdout") else dataset
     for r in range(n_batches):
         rng = np.random.default_rng((seed + EVAL_SEED_OFFSET, r))
-        ids = dataset.sample(rng, (batch,))
+        ids = held.sample(rng, (batch,))
         if mlm_rate > 0:
-            yield mlm_corrupt(ids, dataset, seed + EVAL_SEED_OFFSET, r, mlm_rate)
+            yield mlm_corrupt(ids, held, seed + EVAL_SEED_OFFSET, r, mlm_rate)
         else:
             yield {"input_ids": torch.from_numpy(ids)}

@@ -30,7 +30,25 @@ params before the local steps and applies it a round later (on the
 collective backend its exchange runs under the local steps), and
 ``--gossip-pipeline D`` keeps D corrections in flight;
 ``--eval-batches N`` scores N held-out batches after the last round, for
-the mean model and the workers (top-1, or the LM's nll and perplexity)::
+the mean model and the workers (top-1, or the LM's nll and perplexity),
+and ``--eval-every K`` every K rounds as well, on both backends.
+
+Runs that last (the reference's ``train.py`` flags, with its meanings,
+defaults and exit code 2 on a bad combination): ``--lr`` overrides the
+config's peak rate, ``--lr-schedule {constant,cosine,linear}`` with
+``--warmup-rounds`` schedules it over the optimizer steps of the
+checkpoint's round plus ``--rounds`` (``train/schedules.py``),
+``--grad-clip`` clips each worker's gradients by their global norm,
+``--slowmo-beta`` adds the SlowMo outer step (``train/outer.py``; a
+warning from 0.4 up), ``--checkpoint-dir`` with ``--checkpoint-every``
+saves the whole state every K rounds and at the end (``utils/checkpoint.py``;
+``--resume DIR/step_N`` continues from one, bit for bit, on either
+backend; its world size must be the run's: elastic resize is not ported),
+``--round-timeout S`` hard-exits with code 3 when a round makes no
+progress for S seconds (``utils/watchdog.py``; armed after the first
+round, paused during an eval), ``--data-dir`` trains on MNIST, CIFAR-10 or
+token files (``data/files.py``) and ``--metrics-out PATH`` appends one JSON
+record a logged round (``utils/logging.py``)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
@@ -56,6 +74,11 @@ the mean model and the workers (top-1, or the LM's nll and perplexity)::
         --dist-backend gloo --workers 4 --rounds 2
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
         --backend collective --dist-backend gloo
+    python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 4 --lr-schedule cosine \
+        --warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --checkpoint-dir D --checkpoint-every 2 \
+        --eval-batches 2 --eval-every 2
+    python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 2 --lr-schedule cosine \
+        --warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --resume D/step_2 --eval-batches 2
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a
@@ -63,10 +86,13 @@ time (``configs.init_on_device``).
 Prints the resolved codec path and wire and the norm path, then
 one line per logged round: loss, consensus error, the round's wall time,
 for image batches images per second and, with faults, the share of
-workers alive in the round; the collective backend's
-lines come from rank 0 and add the round's wire bytes and every rank's
-round, staging and wire milliseconds. A failing rank fails the run.
+workers alive in the round, with an LR flag the step's learning rate and
+with clipping the largest pre-clip gradient norm over the workers; the
+collective backend's lines come from rank 0 and add the round's wire
+bytes and every rank's round, staging and wire milliseconds. A failing
+rank fails the run (exit code 3 when a rank's watchdog fired).
 """
+
 
 from __future__ import annotations
 
@@ -80,7 +106,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--config", default="gpt2_topk",
                    choices=["gpt2_topk", "cifar_resnet50", "mnist_mlp", "bert_mlm", "llama_lora"])
     p.add_argument("--scale", default="smoke", choices=["smoke", "full"])
-    p.add_argument("--workers", type=int, default=None, help="world size (default: the config's)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="world size (default: the config's, or the --resume checkpoint's)")
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--codec", default=None, choices=["topk_int8", "topk_int4", "int8", "int4", "fp8"],
                    help="default: the config's own (topk_int8: chunked top-k + int8 on the two-step "
@@ -100,6 +127,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-batches", type=int, default=0,
                    help="after training, score this many held-out batches (the mean model's and the "
                         "workers' top-1, or the LM's nll and perplexity)")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="also run the held-out eval every K rounds during training (requires --eval-batches)")
     p.add_argument("--drop-prob", type=float, default=0.0,
                    help="per-round worker drop-out probability (fault injection; non-finite failure "
                         "detection and rollback are enabled alongside it)")
@@ -119,6 +148,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gossip-pipeline", type=int, default=None, metavar="D",
                    help="pipelined overlap gossip: D mixing corrections in flight (needs --overlap-gossip); "
                         "D=1 is --overlap-gossip alone")
+    p.add_argument("--slowmo-beta", type=float, default=None,
+                   help="enable the SlowMo outer optimizer with this slow-momentum decay (e.g. 0.8); default off")
+    p.add_argument("--data-dir", default=None,
+                   help="train on real files from this directory (MNIST idx / CIFAR-10 binaries / tokens.bin); "
+                        "falls back to procedural data when absent")
+    p.add_argument("--lr", type=float, default=None, help="override the config's peak learning rate")
+    p.add_argument("--lr-schedule", default=None, choices=["constant", "cosine", "linear"],
+                   help="LR schedule over --rounds (steps = rounds x h)")
+    p.add_argument("--warmup-rounds", type=int, default=0, help="linear LR warmup, in gossip rounds")
+    p.add_argument("--grad-clip", type=float, default=0.0, help="global-norm gradient clipping (0 = off)")
+    p.add_argument("--round-timeout", type=float, default=0.0,
+                   help="seconds without round progress before the process hard-exits (code 3) with a "
+                        "diagnostic (a dead peer wedges survivors inside a collective otherwise); arms after "
+                        "the first completed round; 0 = disabled")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0, help="rounds; 0 = end only")
+    p.add_argument("--resume", default=None, help="checkpoint path to resume from (DIR/step_N)")
+    p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -148,15 +195,55 @@ def _describe(bundle, engine, config: str) -> None:
         print(f"{label}: {bundle.norm_path}", flush=True)
 
 
-def _bundle(args, dev):
+def _describe_training(args, bundle) -> None:
+    """One line for the long-run flags, when any is given."""
+    from consensusml_tpu_torch.train.run import lr_flags_set
+
+    parts = []
+    if args.data_dir is not None:
+        parts.append(f"data {bundle.data_source}")
+    if lr_flags_set(vars(args)):
+        lr = bundle.base_lr if args.lr is None else args.lr
+        parts.append(f"lr {args.lr_schedule or 'constant'} peak {lr:g}, warmup {args.warmup_rounds} rounds, "
+                     f"h {bundle.cfg.h}")
+    if args.grad_clip > 0:
+        parts.append(f"grad clip {args.grad_clip:g}")
+    if bundle.cfg.outer is not None:
+        parts.append(f"SlowMo beta {bundle.cfg.outer.beta:g} alpha {bundle.cfg.outer.alpha:g}")
+    if args.checkpoint_dir is not None:
+        parts.append(f"checkpoints {args.checkpoint_dir} every {args.checkpoint_every or 'end'}")
+    if parts:
+        print("training: " + "; ".join(parts), flush=True)
+
+
+def _resume_plan(args) -> tuple[int | None, int, str | None]:
+    """``(world, schedule start round, error)`` for ``--resume``: the
+    checkpoint's world size (which ``--workers`` must equal) and round."""
+    from consensusml_tpu_torch.utils.checkpoint import checkpoint_round, checkpoint_world_size
+
+    if args.resume is None:
+        return args.workers, 0, None
+    world = checkpoint_world_size(args.resume)
+    if world is None:
+        return None, 0, f"error: cannot restore {args.resume}: no cml_meta.json (not a checkpoint of this trainer)"
+    if args.workers is not None and args.workers != world:
+        return None, 0, (f"error: --resume {args.resume} holds {world} workers but --workers is {args.workers}: "
+                         "resuming at another world size (elastic resize) is not ported yet")
+    return world, checkpoint_round(args.resume) or 0, None
+
+
+def _bundle(args, dev, world, sched_start):
     """The run's bundle with every flag applied, or an ``error: ...`` line
     for what the CLI refuses with exit code 2."""
     from consensusml_tpu_torch import configs
 
-    bundle = configs.build(
-        args.config, args.scale, world=args.workers, codec=args.codec, gamma=args.gamma,
-        codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev,
-    )
+    try:
+        bundle = configs.build(
+            args.config, args.scale, world=world, codec=args.codec, gamma=args.gamma,
+            codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev, data_dir=args.data_dir,
+        )
+    except ValueError as e:  # e.g. a token file whose ids do not fit the vocabulary
+        return None, f"error: {e}"
     if args.topology is not None:
         try:
             configs.with_topology(bundle, args.topology)
@@ -167,9 +254,23 @@ def _bundle(args, dev):
                                   gossip_steps=args.gossip_steps, codec_refresh=args.codec_refresh,
                                   bucket_bytes=args.bucket_bytes, overlap=args.overlap_gossip,
                                   pipeline=args.gossip_pipeline)
+        configs.with_train_flags(bundle, lr=args.lr, lr_schedule=args.lr_schedule,
+                                 warmup_rounds=args.warmup_rounds, grad_clip=args.grad_clip,
+                                 slowmo_beta=args.slowmo_beta, rounds=args.rounds, sched_start=sched_start)
     except configs.FlagError as e:
         return None, f"error: {e}"
     return bundle, None
+
+
+def _check_flags(args) -> str | None:
+    if args.eval_every > 0 and args.eval_batches <= 0:
+        return "error: --eval-every requires --eval-batches"
+    if args.slowmo_beta is not None and args.slowmo_beta >= 0.4:
+        # a measured hazard of the reference's convergence study, not style
+        print(f"warning: --slowmo-beta {args.slowmo_beta}: the reference's convergence study destabilized at "
+              "beta 0.5 on a momentum-SGD workload (top-1 0.796 -> 0.121); start at 0.2 and raise only while "
+              "held-out accuracy holds", file=sys.stderr)
+    return None
 
 
 def _layout(engine, gossiped, stacked: bool) -> str:
@@ -177,43 +278,61 @@ def _layout(engine, gossiped, stacked: bool) -> str:
     return "per-leaf wire" if plan is None else f"{plan.num_buckets} buckets"
 
 
-def _main_collective(args) -> int:
+def _main_collective(args, world, sched_start) -> int:
+    from consensusml_tpu_torch.comm.launch import RankFailed
     from consensusml_tpu_torch.device import resolve_device
     from consensusml_tpu_torch.train import collective
 
-    if args.eval_batches > 0:
-        raise NotImplementedError("--eval-batches is not ported for --backend collective yet")
     dev = resolve_device(args.device)
-    bundle, error = _bundle(args, dev)
+    bundle, error = _bundle(args, dev, world, sched_start)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
+    _describe_training(args, bundle)
     topo = engine.topology
     period = f", period {topo.period}" if topo.is_time_varying else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} ranks (collective, --dist-backend "
           f"{args.dist_backend}) on {args.device}, topology {topo.name}{period}", flush=True)
-    spec = {**vars(args), "workers": bundle.world_size}
-    collective.run(spec, bundle.world_size)
+    spec = {**vars(args), "workers": bundle.world_size, "sched_start": sched_start}
+    try:
+        collective.run(spec, bundle.world_size)
+    except RankFailed as e:
+        if 3 in e.exit_codes.values():  # a rank's watchdog fired
+            print(f"error: {e}", file=sys.stderr)
+            return 3
+        raise
     return 0
 
 
 def main(argv=None) -> int:
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.device import resolve_device
+    from consensusml_tpu_torch.train.evaluate import evaluate
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
+    from consensusml_tpu_torch.utils.checkpoint import AsyncSaver, restore_state
+    from consensusml_tpu_torch.utils.logging import MetricsLogger
 
     args = parse_args(argv)
+    if args.backend == "simulated":
+        dev = resolve_device(args.device)
+    error = _check_flags(args)
+    world, sched_start, resume_error = _resume_plan(args)
+    error = error or resume_error
+    if error is not None:
+        print(error, file=sys.stderr)
+        return 2
     if args.backend == "collective":
-        return _main_collective(args)
-    dev = resolve_device(args.device)
-    bundle, error = _bundle(args, dev)
+        return _main_collective(args, world, sched_start)
+    bundle, error = _bundle(args, dev, world, sched_start)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
+    _describe_training(args, bundle)
     params, model_state = configs.init_on_device(bundle, args.seed, dev)
     frozen = configs.frozen_on_device(bundle, dev)
     state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state,
@@ -227,23 +346,58 @@ def main(argv=None) -> int:
           f"{sum(p[0].numel() for p in params.values())} params per worker{shared}, "
           f"{_layout(engine, gossiped, True)}, topology {topo.name}{period}",
           flush=True)
-    for r, batch in enumerate(bundle.batches(args.rounds, args.seed)):
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        loss, err = float(m["loss"]), float(m["consensus_error"])
-        ms = 1e3 * (time.perf_counter() - t0)
-        if r % args.log_every == 0 or r == args.rounds - 1:
-            imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
-            alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
-            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive}",
-                  flush=True)
-    if args.eval_batches > 0:
-        from consensusml_tpu_torch.train.evaluate import evaluate
+    del gossiped, params, model_state
+    if args.resume is not None:
+        try:
+            state = restore_state(args.resume, state)
+        except (OSError, ValueError, RuntimeError) as e:
+            print(f"error: cannot restore {args.resume}: {type(e).__name__}: {str(e)[:400]}", file=sys.stderr)
+            return 2
+        print(f"resumed from {args.resume} at round {state.step}", flush=True)
+    start, end = state.step, state.step + args.rounds
+    spec = vars(args)
 
+    def run_eval(rnd):
         result = evaluate(bundle.eval_fn, state, bundle.eval_batches(args.eval_batches, args.seed))
-        fmt = lambda d: " ".join(f"{k}={float(v):.4f}" for k, v in sorted(d.items()))  # noqa: E731
-        print(f"eval[mean-model]: {fmt(result['mean_model'])}\n"
-              f"eval[worker-avg]: {fmt(result['worker_mean'])}", flush=True)
+        print(eval_text(result, rnd), flush=True)
+
+    watchdog = start_watchdog(args.round_timeout)
+    saver, last_saved = AsyncSaver(), None
+    with MetricsLogger(args.metrics_out) as logger:
+        for i, batch in enumerate(bundle.batches(args.rounds, args.seed, start=start)):
+            rnd = start + i
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss, err = float(m["loss"]), float(m["consensus_error"])
+            ms = 1e3 * (time.perf_counter() - t0)
+            if rnd % args.log_every == 0 or rnd == end - 1:
+                extras = train_extras(spec, bundle.cfg.optimizer, state.opt_state)
+                imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
+                alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
+                print(f"round {rnd}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive}"
+                      f"{extras_text(extras)}", flush=True)
+                logger.log(rnd, {"loss": loss, "consensus_error": err, "round_ms": ms, **extras,
+                                 **{k: m[k] for k in ("alive_frac", "imgs_per_s") if k in m}})
+            if watchdog is not None:
+                watchdog.beat(f"round {rnd}")
+            if due(args.eval_every, rnd) and rnd + 1 != end:
+                if watchdog is not None:
+                    watchdog.pause()  # an eval has no per-round budget
+                run_eval(rnd)
+                if watchdog is not None:
+                    watchdog.beat(f"eval done @ round {rnd}")
+            if args.checkpoint_dir and due(args.checkpoint_every, rnd):
+                saver.submit(args.checkpoint_dir, state, step=rnd + 1)
+                last_saved = rnd + 1
+    if args.checkpoint_dir and last_saved != end:
+        saver.submit(args.checkpoint_dir, state, step=end)
+    if watchdog is not None:
+        watchdog.stop()
+    if args.checkpoint_dir:
+        saver.wait()
+        print(f"checkpoint: {saver.last_path}", flush=True)
+    if args.eval_batches > 0:
+        run_eval(None)
     return 0
 
 

@@ -13,6 +13,10 @@ batches: classification ``{"correct", "count"}``, causal LM ``{"nll",
 the masked positions. :func:`evaluate` derives ``top1`` = correct / count
 (the masked LM's masked-token accuracy) and ``nll`` = nll / count,
 ``ppl`` = exp(nll).
+
+:func:`evaluate_collective` is the collective backend's: each rank holds
+one worker, the mean model is the ranks' all-reduce mean, and every rank
+gets the stacked :func:`evaluate`'s result.
 """
 
 from __future__ import annotations
@@ -26,7 +30,10 @@ from torch.func import functional_call
 
 from consensusml_tpu_torch.utils.tree import consensus_mean
 
-__all__ = ["classification_eval_fn", "causal_lm_eval_fn", "mlm_eval_fn", "make_stacked_eval_step", "evaluate"]
+__all__ = [
+    "classification_eval_fn", "causal_lm_eval_fn", "mlm_eval_fn", "make_stacked_eval_step", "evaluate",
+    "evaluate_collective",
+]
 
 EvalFn = Callable[[dict, dict, dict], dict[str, torch.Tensor]]
 
@@ -162,6 +169,51 @@ def evaluate(eval_fn: EvalFn, state, batches: Iterable[dict]) -> dict[str, Any]:
     per_metrics = _derive(tot_per)
     return {
         "mean_model": _derive(tot_mean),
+        "per_worker": per_metrics,
+        "worker_mean": {k: float(np.mean(v)) for k, v in per_metrics.items()},
+    }
+
+
+def evaluate_collective(eval_fn: EvalFn, state, batches: Iterable[dict], mesh) -> dict[str, Any]:
+    """:func:`evaluate` on the collective backend, called by every rank with
+    its own state (a stack of one worker) and the same ``batches``. The
+    mean model is the all-reduce mean of the ranks' parameters and model
+    state (f32 sums over the ranks, divided by the world size); rank 0
+    scores it, each rank scores its own worker, and one all-reduce of a
+    ``(world + 1, keys)`` table of f64 sums gives every rank the whole
+    result, in :func:`evaluate`'s form."""
+    from consensusml_tpu_torch.comm import collectives
+    from consensusml_tpu_torch.utils import tree as T
+
+    frozen = getattr(state, "frozen", None) or {}
+    params = {n: p[0] for n, p in state.params.items()}
+    ms_leaves, ms_spec = T.flatten(T.tree_map(lambda t: t[0], state.model_state))
+    names = list(params)
+    means = collectives.all_reduce_mean(list(params.values()) + ms_leaves, mesh)
+    mean_params = dict(zip(names, means[: len(names)]))
+    mean_state = T.unflatten(ms_spec, means[len(names):])
+    own_state = T.unflatten(ms_spec, ms_leaves)
+    device = mesh.device
+    own = mean = None
+    with torch.no_grad():
+        for batch in batches:
+            batch = {k: v.to(device) for k, v in batch.items()}
+            got = {k: _fetch(v) for k, v in eval_fn({**frozen, **params}, own_state, batch).items()}
+            own = got if own is None else {k: own[k] + v for k, v in got.items()}
+            if mesh.rank == 0:
+                got = {k: _fetch(v) for k, v in eval_fn({**frozen, **mean_params}, mean_state, batch).items()}
+                mean = got if mean is None else {k: mean[k] + v for k, v in got.items()}
+    if own is None:
+        raise ValueError("evaluate_collective() got an empty batch iterator")
+    keys = sorted(own)
+    table = torch.zeros((mesh.world_size + 1, len(keys)), dtype=torch.float64, device=device)
+    table[mesh.rank] = torch.tensor([float(own[k]) for k in keys], dtype=torch.float64)
+    if mesh.rank == 0:
+        table[-1] = torch.tensor([float(mean[k]) for k in keys], dtype=torch.float64)
+    table = mesh.transport.all_reduce_sum([table])[0].cpu().numpy()
+    per_metrics = _derive({k: table[:-1, i] for i, k in enumerate(keys)})
+    return {
+        "mean_model": _derive({k: table[-1, i] for i, k in enumerate(keys)}),
         "per_worker": per_metrics,
         "worker_mean": {k: float(np.mean(v)) for k, v in per_metrics.items()},
     }

@@ -1,6 +1,6 @@
 """Local-SGD training rounds (port of ``consensusml_tpu/train/local_sgd.py``:
-``make_simulated_train_step`` and ``make_collective_train_step``, faults
-and overlap gossip included).
+``make_simulated_train_step`` and ``make_collective_train_step``, faults,
+overlap gossip and the SlowMo outer step included).
 
 ``loss_fn(params, model_state, batch, generator) -> (scalar loss,
 model_state)`` is user code; ``params`` is a dict of one worker's
@@ -46,6 +46,13 @@ posted before the local steps and finished after them
 correction_collective_start`), so its bytes move while the rank (or, on
 a shared card, every rank in turn) computes.
 
+SlowMo (``cfg.outer``, ``train/outer.py``): after the gossip round, and
+before the consensus error is measured, every worker's mixed parameters
+take one slow-momentum step from its outer point
+(``TrainState.outer``), on both backends, after a fault rollback too.
+Overlap gossip with SlowMo is refused, as in the reference: SlowMo steps
+on the round's mixed parameters, which overlap gossip never forms.
+
 Faults (``cfg.gossip.faults``, ``consensus/faults.py``): after a
 worker's H local steps its loss, parameters and model state are checked
 for finiteness on the device (one read a worker); a worker that failed
@@ -77,6 +84,7 @@ import torch
 from consensusml_tpu_torch.comm import collectives, simulated
 from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.consensus.faults import draw_alive, fault_generator, tree_all_finite
+from consensusml_tpu_torch.train.outer import SlowMoConfig, slowmo_init, slowmo_update_
 from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
@@ -98,15 +106,18 @@ class TrainState:
     frozen: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)  # shared, unstacked, never trained
     # per-worker host streams of injected faults (with cfg.gossip.faults)
     fault_generators: list[torch.Generator] = dataclasses.field(default_factory=list)
+    outer: Any = None  # SlowMo's {"x", "u"} (stacked f32, like params) with cfg.outer
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalSGDConfig:
-    """One decentralized round = H local steps + one gossip round."""
+    """One decentralized round = H local steps + one gossip round (+ an
+    optional SlowMo slow-momentum step on the mixed params)."""
 
     gossip: GossipConfig
     optimizer: Any  # init(params, world_size), update_(params, grads, state, worker), trains(name)
     h: int = 1
+    outer: SlowMoConfig | None = None  # None: the mixed params are used as they are
     # rows of a worker's batch that one forward and backward take at once
     # (0: the whole batch); the step's gradient is still the whole batch's
     micro_batch: int = 0
@@ -121,6 +132,11 @@ class LocalSGDConfig:
             raise ValueError(f"h must be >= 1, got {self.h}")
         if self.micro_batch < 0:
             raise ValueError(f"micro_batch must be >= 0, got {self.micro_batch}")
+        if self.gossip.overlap and self.outer is not None:
+            raise NotImplementedError(
+                "overlap gossip + SlowMo is not supported: SlowMo's slow momentum steps on the same-round "
+                "mixed params, which overlap mode never materializes"
+            )
 
     def engine(self) -> ConsensusEngine:
         return ConsensusEngine(self.gossip)
@@ -167,6 +183,7 @@ def init_stacked_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], wor
         frozen=frozen,
         fault_generators=([fault_generator(seed, r) for r in range(world_size)]
                           if cfg.gossip.faults is not None else []),
+        outer=slowmo_init(params) if cfg.outer is not None else None,
     )
 
 
@@ -201,6 +218,7 @@ def init_state(cfg: LocalSGDConfig, params: dict[str, torch.Tensor], rank: int, 
         generators=[worker_generator(device, seed, rank)],
         frozen=frozen,
         fault_generators=[fault_generator(seed, rank)] if cfg.gossip.faults is not None else [],
+        outer=slowmo_init(params) if cfg.outer is not None else None,
     )
 
 
@@ -273,11 +291,9 @@ def worker_step(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker:
 
 def _worker_tensors(state: TrainState) -> list[torch.Tensor]:
     """Every stacked tensor a worker's local steps write: parameters,
-    model state and the optimizer state's fields (``AdamState.count``
-    included)."""
-    opt = [t for f in dataclasses.fields(state.opt_state)
-           for t in T.leaves(getattr(state.opt_state, f.name)) if isinstance(t, torch.Tensor)]
-    return list(state.params.values()) + T.leaves(state.model_state) + opt
+    model state and the optimizer state's (``AdamState.count``, a
+    schedule's count and the clip's norm included)."""
+    return list(state.params.values()) + T.leaves(state.model_state) + [t for _, t in T.named_tensors(state.opt_state)]
 
 
 def local_steps(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
@@ -386,6 +402,8 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
             _gossiped(state.params, state.model_state), state.gossip, w, step=state.step, alive=mask
         )
         state.params, state.model_state = mixed["params"], mixed["model_state"]
+        if cfg.outer is not None:
+            slowmo_update_(cfg.outer, state.params, state.outer)
         err = engine.consensus_error_simulated(state.params)
         sync()
         t2 = time.perf_counter()
@@ -526,6 +544,8 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         wire = mesh.transport.stats.since(before)
         state.params = {n: t.unsqueeze(0) for n, t in mixed["params"].items()}
         state.model_state = T.tree_map(lambda t: t.unsqueeze(0), mixed["model_state"])
+        if cfg.outer is not None:
+            slowmo_update_(cfg.outer, state.params, state.outer)
         sync()
         t2 = time.perf_counter()
         if mesh.shares_device:

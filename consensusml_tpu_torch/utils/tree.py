@@ -22,7 +22,8 @@ from typing import Any, Callable
 import torch
 
 __all__ = [
-    "flatten", "flatten_with_paths", "unflatten", "tree_map", "leaves", "consensus_mean", "masked_worker_mean",
+    "flatten", "flatten_with_paths", "unflatten", "tree_map", "leaves", "named_tensors", "consensus_mean",
+    "masked_worker_mean",
 ]
 
 
@@ -91,6 +92,28 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         if sp != spec:
             raise ValueError("tree_map over trees of different structure")
     return unflatten(spec, [fn(x, *(o[0][i] for o in others)) for i, x in enumerate(flat)])
+
+
+def named_tensors(obj: Any, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` for every tensor of a train state or any part of
+    it: dataclass and NamedTuple fields in declaration order, mappings by
+    sorted key, sequences in order, joined by dots (the order of the
+    reference's flatten for its NamedTuples and dicts); other values hold
+    none."""
+    import dataclasses
+    from collections.abc import Mapping
+
+    if isinstance(obj, torch.Tensor):
+        return [(prefix, obj)]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [x for f in dataclasses.fields(obj) for x in named_tensors(getattr(obj, f.name), f"{prefix}.{f.name}")]
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return [x for f in obj._fields for x in named_tensors(getattr(obj, f), f"{prefix}.{f}")]
+    if isinstance(obj, Mapping):
+        return [x for k in sorted(obj) for x in named_tensors(obj[k], f"{prefix}.{k}")]
+    if isinstance(obj, (list, tuple)):
+        return [x for i, v in enumerate(obj) for x in named_tensors(v, f"{prefix}.{i}")]
+    return []
 
 
 def masked_worker_mean(x: torch.Tensor, alive, n_alive: torch.Tensor | None = None) -> torch.Tensor:

@@ -1981,3 +1981,125 @@ def test_fused_codec_round_kernels_equal_plain(dev, monkeypatch):
         want, wst = engine.round_simulated(tree, state, w, step=1)
     for g, w_ in zip(T.leaves([new, st.xhat, st.s]), T.leaves([want, wst.xhat, wst.s])):
         assert _same_bits(g, w_)
+
+
+def _state_on(dev, config, flags, world=2, **build):
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state
+
+    bundle = configs.build(config, "smoke", world=world, device=dev, **build)
+    configs.with_train_flags(bundle, rounds=4, **flags)
+    params, model_state = configs.init_on_device(bundle, 0, dev)
+    return bundle, init_stacked_state(bundle.cfg, params, world, seed=0, model_state=model_state)
+
+
+def test_checkpoint_round_trip_keeps_a_card_state(dev, tmp_path):
+    """A stacked state on the card (the narrow ResNet through the BN
+    kernels, SGD with a cosine schedule, clipping and SlowMo, two rounds)
+    saved through ``AsyncSaver`` and restored into a fresh state on the
+    card: every tensor comes back on the card, bit for bit, with the
+    dropout generators' states and the round; one more round from each is
+    bit-equal too."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.train.local_sgd import make_simulated_train_step
+    from consensusml_tpu_torch.utils.checkpoint import AsyncSaver, restore_state
+    from consensusml_tpu_torch.utils.tree import named_tensors
+
+    kernels.build()
+    flags = dict(lr_schedule="cosine", warmup_rounds=1, grad_clip=0.5, slowmo_beta=0.2)
+    bundle, state = _state_on(dev, "cifar_resnet50", flags, norm_impl="pallas")
+    step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
+    batches = list(bundle.batches(3, 0))
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    saver = AsyncSaver()
+    saver.submit(str(tmp_path), state, step=2)
+    saver.wait()
+    _, fresh = _state_on(dev, "cifar_resnet50", flags, norm_impl="pallas")
+    back = restore_state(saver.last_path, fresh)
+    assert back.step == 2
+    for (p, a), (q, b) in zip(named_tensors(state), named_tensors(back)):
+        assert p == q and a.device == b.device and _same_bits(a, b), p
+    assert all(torch.equal(x.get_state(), y.get_state()) for x, y in zip(state.generators, back.generators))
+    torch.backends.cudnn.deterministic = True
+    try:
+        one, _ = step(state, batches[2])
+        two, _ = step(back, batches[2])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert all(_same_bits(a, b) for (_, a), (_, b) in zip(named_tensors(one), named_tensors(two)))
+
+
+def test_resnet_clipped_step_through_bn_kernels_matches_plain(dev):
+    """One clipped SGD step (clip 0.1, below the norm) of the narrow ResNet
+    (f32) with ``norm_impl="pallas"`` on the card, against the same step
+    with ``"jnp"`` (the plain versions): each BN kernel launched once a BN
+    layer, the same pre-clip norm to 1e-5 relative and the update to 1e-4
+    of its norm (f32 summation orders in the statistics)."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.train.local_sgd import worker_step
+
+    kernels.build()
+    out = {}
+    for impl in ("pallas", "jnp"):
+        bundle, state = _state_on(dev, "cifar_resnet50", dict(grad_clip=0.1), norm_impl=impl)
+        batch = {k: v[0, 0].to(dev) for k, v in next(iter(bundle.batches(1, 0))).items()}
+        before = {n: p.clone() for n, p in state.params.items()}
+        kernels.reset_launch_counts()
+        worker_step(bundle.cfg, bundle.loss_fn, state, 0, batch)
+        torch.cuda.synchronize()
+        out[impl] = ({n: state.params[n] - before[n] for n in before}, float(state.opt_state.norm[0]),
+                     kernels.launch_counts())
+    n_bn = sum(1 for n in state.model_state["batch_stats"] if n.endswith(".mean"))
+    assert all(out["pallas"][2][k] == n_bn for k in ("bn_stats", "bn_norm", "bn_bwd"))
+    assert abs(out["pallas"][1] - out["jnp"][1]) <= 1e-5 * out["jnp"][1] and out["jnp"][1] > 0.1
+    diff = sum(float(((out["pallas"][0][n] - u) ** 2).sum()) for n, u in out["jnp"][0].items()) ** 0.5
+    assert diff <= 1e-4 * sum(float((u ** 2).sum()) for u in out["jnp"][0].values()) ** 0.5
+
+
+def test_gpt2_clipped_adam_step_through_flash_kernels_matches_plain(dev):
+    """One clipped Adam step (clip 0.05, below the norm) of a 2-layer
+    GPT-2 at hidden 128 (two heads of 64, bf16) on 1024 tokens, whose
+    attention takes the flash kernels (``attn_impl="cuda"``), against the
+    same step on their plain versions (``"torch"``), from an Adam state
+    that has taken one step on another batch (a first Adam step is about
+    the gradients' signs, which noise flips where they are small): each
+    flash kernel launched once a layer, the pre-clip norms within 2e-2
+    relative and the update within ``chip_smoke.py``'s GPT-2 gradient gate
+    (3e-2 of its norm)."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM, gpt2_loss_fn
+    from consensusml_tpu_torch.train.optim import adam, clip_by_global_norm
+
+    kernels.build()
+    cfg = GPT2Config(vocab_size=64, hidden=128, layers=2, heads=2, max_len=1024, dropout=0.0)
+    init = GPT2LM(cfg, device=dev).init_weights(torch.Generator(device=dev).manual_seed(0))
+    params0 = {n: p.detach().float().clone() for n, p in init.named_parameters()}
+    ids = [torch.randint(0, 63, (1, 1024), generator=torch.Generator(device=dev).manual_seed(s), device=dev)
+           for s in (1, 2)]
+    opt = clip_by_global_norm(0.05, adam(1e-3))
+
+    def grads(impl, batch):
+        leaves = {n: p.clone().requires_grad_() for n, p in params0.items()}
+        loss, _ = gpt2_loss_fn(GPT2LM(cfg, device="meta"), attn_impl=impl)(leaves, {}, {"input_ids": batch}, None)
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+    history = grads("torch", ids[1])
+    out = {}
+    for impl in ("cuda", "torch"):
+        stacked = {n: p.unsqueeze(0).clone() for n, p in params0.items()}
+        st = opt.init(stacked, 1)
+        opt.update_({n: p[0] for n, p in stacked.items()}, history, st, 0)
+        before = {n: p[0].clone() for n, p in stacked.items()}
+        kernels.reset_launch_counts()
+        g = grads(impl, ids[0])
+        launched = kernels.launch_counts()
+        opt.update_({n: p[0] for n, p in stacked.items()}, g, st, 0)
+        torch.cuda.synchronize()
+        out[impl] = ({n: stacked[n][0] - before[n] for n in params0}, float(st.norm[0]), launched)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert out["cuda"][2][name] == cfg.layers and out["torch"][2][name] == 0
+    nk, np_ = out["cuda"][1], out["torch"][1]
+    assert abs(nk - np_) <= 2e-2 * np_ and min(nk, np_) > 0.05
+    diff = sum(float(((out["cuda"][0][n] - u) ** 2).sum()) for n, u in out["torch"][0].items()) ** 0.5
+    assert diff <= 3e-2 * sum(float((u ** 2).sum()) for u in out["torch"][0].values()) ** 0.5

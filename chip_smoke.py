@@ -264,6 +264,38 @@ round within tolerance.
     with one at half the norm (both sides clip), each within
     ``GRAD_REL_TOL``. No GPT-2 checkpoint is written (its state is about
     28.5 GB); GPT-2's resume is held on the CPU.
+22. ``serve_handoff`` (right after ``train_topk``, from its final state):
+    the train-to-serve handoff at GPT-2-medium's full width. The state's
+    consensus mean exported with ``export_serving`` (generation 1, a 1.42
+    GB f32 artifact) and a draft of its embeddings, first 6 blocks and
+    ``ln_f`` with ``export_draft``; one more round trained, its mean kept
+    for generation 2. Three engines from ``load_engine``: A with
+    ``ServeConfig(num_slots=8, block_size=16, max_new_tokens=32,
+    prefix_cache=True)`` and ``spec_k=4`` (verify at W = 5), B plain, C with
+    ``spec_k=7`` (W = 8), all watching the artifact. A's ``score`` held to
+    generation 1's mean model within ``LOGITS_REL_TOL``; then A's traffic
+    (launch counters zeroed just before): a 552-token miss that prefills a
+    512-token prefix, five prompts sharing it (one matched whole: a
+    copy-on-write hit; one sharing 256 tokens), through the paged kernel's
+    window form at W = the suffix bucket (16 to 512), greedy and sampled,
+    two short ones over ``ServeServer``'s socket; generation 2 exported
+    with ``export_mean`` during the traffic and more streams kept in
+    flight until A flips between two steps. Every stream finishes whole;
+    A's ``score`` is then held to generation 2's mean; greedy prompts on A
+    (after the flip), B and C, each speculative stream equal to B's except
+    where B's top-2 logit gap is under ``LOGITS_REL_TOL`` (each such
+    position reported); launches read after C's traffic, the window form's
+    exactly (24 + 6) a prefix hit. Reports TTFT for hits and misses apart,
+    decode tokens/s, acceptance rates and tokens a round, prefix hits and
+    the bytes they saved, the generations served and the staging times.
+
+The ``check`` line's ``paged_attention_window`` holds the paged kernel's
+window form (W > 8, tiles of 8 rows on a further grid axis, one launch a
+call) to its plain version at GPT-2-medium's heads (1 slot, a 1024-token
+cache, W 16, 64 and 1024) and Llama-2-7B's (head groups, a 4096-token
+cache, W 16 and 256), with its time, byte bound and a probe that it reads
+no key past its tile's positions; the ``kernels`` line lists the form as
+an entry of its own, its launches from ``serve_handoff``.
 
 The ``check`` line's ``flash_d128`` holds the three flash kernels'
 head-dim-128 form at ``llama_lora``'s attention shape (B=4, S=2048, H=32,
@@ -310,6 +342,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -649,6 +682,85 @@ def check_paged_llama(torch, tpa, dev):
                 "kv_bytes": 2 * keys * hkv * d * 2,
             }
         del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+# the paged kernel's window form (W > 8: tiles of 8 rows on the grid's
+# third axis), as a prefix hit's suffix prefill runs it: one slot, the
+# window's rows at positions start .. start + W - 1. GPT-2-medium's heads
+# (16 of 64, whole pages) over a 1024-token cache of 16-token pages at the
+# suffix buckets 16, 64 and 1024; Llama-2-7B's (32 of 128, head groups)
+# over a 4096-token cache at 16 and 256
+PAGED_WINDOW_CASES = (("GPT-2 W=16", 16, 16, 16, 64, 64, 1008), ("GPT-2 W=64", 64, 16, 16, 64, 64, 960),
+                      ("GPT-2 W=1024", 1024, 16, 16, 64, 64, 0), ("Llama W=16", 16, 32, 32, 128, 256, 4080),
+                      ("Llama W=256", 256, 32, 32, 128, 256, 3840))
+
+
+def check_paged_window(torch, tpa, dev):
+    """The window form of the paged kernel at ``PAGED_WINDOW_CASES``, each
+    held to ``paged_attention_plain`` at the paged gate and timed as
+    :func:`check_paged` times the decode shapes, over page sets of more than
+    50 MB in all (the L2's size) so timed launches read K/V from device
+    memory. Each call is one launch counted as a window launch. The probe:
+    every key past the largest position of the window's first tile NaN in K
+    and V leaves the first tile's rows with their bits, and every key past
+    the window's last position leaves the whole window with its bits (the
+    kernel reads no key past its tile's positions). ``bound_ms``: each
+    attended K/V row read once, q read and the output written once; the
+    operations those (row, key) pairs take (the tiles' re-reads of the
+    pages are the kernel's, not the work's)."""
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for name, w, h, hkv, d, nb, start in PAGED_WINDOW_CASES:
+        bs = 16
+        n = nb + 1
+        n_sets = max(1, -(-60_000_000 // (2 * n * bs * hkv * d * 2)))
+        sets = [tuple(torch.randn(n, bs, hkv, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+                for _ in range(n_sets)]
+        table = (torch.randperm(nb, generator=gen, device=dev) + 1).view(1, nb).to(torch.int32).contiguous()
+        pos = (start + torch.arange(w, device=dev, dtype=torch.int32))[None, :].contiguous()
+        q = torch.randn(1, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = sets[0]
+        before = tpa.paged_attention.launches, tpa.paged_attention.window_launches
+        got = tpa.paged_attention(q, k, v, table, pos)
+        torch.cuda.synchronize()
+        if (tpa.paged_attention.launches, tpa.paged_attention.window_launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"paged_attention {name}: not one window launch")
+        want = tpa.paged_attention_plain(q, k, v, table, pos)
+        errs = tol_check(f"paged_attention window {name}", got, want, PAGED_ATOL, PAGED_RTOL)
+        plan = tpa.paged_plan(nb, bs, hkv, d, w, h)
+        # the probe
+        blocks = table.long()[0][:, None] * bs + torch.arange(bs, device=dev)[None, :]
+        probe = {}
+        for what, lim, keep in (("first_tile", int(pos[0, : plan.rows].max()), plan.rows), ("window", start + w - 1, w)):
+            dirty = blocks.reshape(-1)[lim + 1:]
+            kn, vn = k.clone(), v.clone()
+            kn.view(-1, hkv, d)[dirty] = float("nan")
+            vn.view(-1, hkv, d)[dirty] = float("nan")
+            o = tpa.paged_attention(q, kn, vn, table, pos)
+            torch.cuda.synchronize()
+            same = bool(torch.isfinite(o[:, :keep]).all()) and torch.equal(o[:, :keep], got[:, :keep])
+            if not same:
+                raise AssertionError(f"paged_attention window {name}: a {what} block read a key past its positions")
+            probe[what] = {"nan_keys_from": lim + 1, "rows_kept_bits": keep}
+            del kn, vn
+        keys = start + w  # every key up to the last row's position, read once
+        pairs = int((pos.long() + 1).sum())
+        nbytes = 2 * keys * hkv * d * 2 + 2 * q.numel() * 2 + table.numel() * 4 + pos.numel() * 4
+        bms, by = bound_ms(nbytes, 4 * pairs * h * d)
+        call = lambda i: tpa.paged_attention(q, *sets[i % n_sets], table, pos)  # noqa: E731
+        iters = 20 if w >= 256 else 100
+        ms, enqueue_ms = queued_ms(torch, call, iters)
+        out[name] = {
+            **errs, "ms": ms, "enqueue_ms": enqueue_ms,
+            "plain_ms": cuda_ms(torch, lambda i: tpa.paged_attention_plain(q, *sets[i % n_sets], table, pos), 3),
+            "event_ms": cuda_ms(torch, call, iters), "x_bound": ms / bms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "plan": plan._asdict(), "tiles": w // plan.rows, "probe": probe,
+            "page_sets_bytes": n_sets * 2 * n * bs * hkv * d * 2,
+            "shape": f"S=1 W={w} H={h} Hkv={hkv} D={d} bs={bs} nb={nb} start={start}",
+        }
+        del sets, q, got, want
         torch.cuda.empty_cache()
     return out
 
@@ -1650,6 +1762,232 @@ def serve_phase(torch, dev):
         else:
             eng.shutdown()
     return serve, counts
+
+
+def handoff_prepare(torch, state, bundle, art):
+    """``train_topk``'s final state (GPT-2-medium, 4 workers) handed to
+    serving: generation 1 exported with ``export_serving``, a draft of the
+    mean's embeddings, first 6 blocks and ``ln_f`` with ``export_draft``,
+    then one more round trained. Returns the two generations' means (on
+    the host), the second's round and the seconds each part took."""
+    from consensusml_tpu_torch.serve.export import export_draft, export_serving
+    from consensusml_tpu_torch.train.local_sgd import make_simulated_train_step
+    from consensusml_tpu_torch.utils.tree import consensus_mean
+
+    marks = [("start", time.perf_counter())]
+    export_serving(art, state, config_name="gpt2_topk", scale="full")
+    marks.append(("export_generation_1", time.perf_counter()))
+    mean1 = {n: t.cpu() for n, t in consensus_mean(state.params).items()}
+    draft = {n: t for n, t in mean1.items() if n.split(".")[0] in {"wte", "wpe", "ln_f", *HANDOFF_DRAFT_BLOCKS}}
+    export_draft(art, draft, config_name="gpt2_topk", scale="full", layers=len(HANDOFF_DRAFT_BLOCKS))
+    marks.append(("export_draft", time.perf_counter()))
+    step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
+    state, m = step(state, next(iter(bundle.batches(1, 0, start=state.step))))
+    if not np.isfinite(float(m["loss"])):
+        raise AssertionError("the round after train_topk's is not finite")
+    mean2 = {n: t.cpu() for n, t in consensus_mean(state.params).items()}
+    marks.append(("round_for_generation_2", time.perf_counter()))
+    return mean1, mean2, state.step, {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+
+
+HANDOFF_DRAFT_BLOCKS = tuple(f"h_{i}" for i in range(6))
+
+
+def mean_model_logits(torch, dev, meta, mean, ids):
+    """The consensus-mean model of ``mean`` on the card, cast as serving
+    casts it, on the plain attention tier: f32 logits of ``ids``."""
+    from consensusml_tpu_torch.serve.export import build_serving_model
+
+    model = build_serving_model(meta, mean, dev).to_compute_dtype()
+    with torch.inference_mode():
+        out = model(torch.as_tensor(ids, device=dev), attn_impl="torch")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def logits_gate(torch, name, got, want) -> dict:
+    if not (torch.isfinite(got).all() and got.shape == want.shape):
+        raise AssertionError(f"{name}: scores not finite of shape {tuple(want.shape)}")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= LOGITS_REL_TOL:
+        raise AssertionError(f"{name}: rel err {rel} > {LOGITS_REL_TOL}")
+    return {"max_rel_err": rel, "tol": LOGITS_REL_TOL}
+
+
+def greedy_divergences(torch, plain_engine, prompts, got, want) -> list:
+    """Where a speculative engine's greedy stream leaves the plain engine's:
+    the position, and the plain model's top-2 logit gap there (its score of
+    the prompt and the common tokens, over max|logit|). The stream may
+    leave it only where that gap is under the serving tolerance, where the
+    verify window's products (M = S (k + 1) rows, not S) may round the
+    other way; raises otherwise."""
+    out = []
+    for prompt, g, w in zip(prompts, got, want):
+        j = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if j is None:
+            continue
+        last = plain_engine.score([list(prompt) + list(w[:j])])[0, -1]
+        top2 = last.topk(2).values
+        gap = ((top2[0] - top2[1]) / last.abs().max()).item()
+        out.append({"prompt_len": len(prompt), "position": j, "plain_top2_gap_rel": gap})
+        if not gap < LOGITS_REL_TOL:
+            raise AssertionError(f"speculative greedy stream left the plain one at {j} where the gap is {gap}")
+    return out
+
+
+def serve_handoff_phase(torch, dev, art, mean1, mean2, round2, world, prep_s):
+    """GPT-2-medium served from what ``train_topk`` exported (module
+    docstring, ``serve_handoff``): engine A (``load_engine(art,
+    ServeConfig(num_slots=8, block_size=16, max_new_tokens=32,
+    prefix_cache=True), spec_k=4)``), B (plain decode) and C (``spec_k=7``),
+    all watching ``art``; A's scores held to generation 1's mean model;
+    traffic on A (a 512-token prefix shared by five requests, one matched
+    whole, through the window kernel at W = the suffix bucket; greedy and
+    sampled; two over ``ServeServer``'s socket) while generation 2 is
+    exported, more until A flips; A's scores then held to generation 2's
+    mean; greedy prompts on A (after its flip), B and C, the speculative
+    streams held to B's. Counts zeroed just before A's traffic, read after
+    C's."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.models import paged_attention as tpa
+    from consensusml_tpu_torch.serve import ServeConfig, ServeServer, load_engine
+    from consensusml_tpu_torch.serve.export import export_mean, serving_meta
+
+    marks = [("start", time.perf_counter())]
+    rng = np.random.default_rng(11)
+    cfg = dict(num_slots=8, block_size=16, max_new_tokens=32)
+    a = load_engine(art, ServeConfig(**cfg, prefix_cache=True), spec_k=4, device=dev)
+    b = load_engine(art, ServeConfig(**cfg), device=dev)
+    c = load_engine(art, ServeConfig(**cfg), spec_k=7, device=dev)
+    engines = {"A": a, "B": b, "C": c}
+    vocab, layers = a._dm.vocab_size, a._dm.layers
+    server = None
+    try:
+        marks.append(("load_engines", time.perf_counter()))
+        warmed = {name: e.warmup() for name, e in engines.items()}
+        marks.append(("warmup", time.perf_counter()))
+        meta1 = serving_meta(art)
+        ids = rng.integers(0, vocab, size=(2, 640))  # 640**2 > 512**2 logits: the engine's forward runs flash
+        score1 = logits_gate(torch, "score (generation 1)", a.score(ids), mean_model_logits(torch, dev, meta1, mean1, ids))
+        marks.append(("score_generation_1", time.perf_counter()))
+        for e in engines.values():
+            e.watch(art, poll_s=0.1)
+        server = ServeServer(a)
+        prefix = rng.integers(0, vocab, size=512).tolist()
+        tail = lambda n: rng.integers(0, vocab, size=n).tolist()  # noqa: E731
+        greedy_after = [prefix[:200] + tail(7), tail(40), tail(300)]
+        greedy_c = [tail(20), tail(90), tail(600)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launch_counts()
+        t_traffic = time.perf_counter()
+        # a miss prefills the prefix (bucket 1024: flash), indexed at its first token
+        first = a.submit(prefix + tail(40))
+        next(first.tokens(timeout=600))
+        reqs = [("direct", prefix + tail(5), {}), ("direct", prefix + tail(100), {"temperature": 0.8, "seed": 3}),
+                ("direct", prefix, {}), ("direct", prefix + tail(300), {"temperature": 0.7, "top_p": 0.9, "seed": 4}),
+                ("direct", prefix[:256] + tail(20), {}), ("socket", tail(5), {"temperature": 0.9, "seed": 5}),
+                ("socket", tail(37), {})]
+        wave = {}
+        threads = []
+        for i, (route, p, extra) in enumerate(reqs):
+            if route == "direct":
+                wave[i] = a.submit(p, **extra)
+            else:
+                t = threading.Thread(target=lambda i=i, p=p, extra=extra: wave.__setitem__(
+                    i, socket_request(server.address, {"ids": p, "max_new_tokens": 32, **extra})))
+                t.start()
+                threads.append(t)
+        t0 = time.perf_counter()
+        export_mean(art, mean2, config_name="gpt2_topk", scale="full", round=round2, world_size=world)
+        export_s = time.perf_counter() - t0
+        # streams in flight until A flips: the flip lands between steps of live ones
+        keep = []
+        while a.generation < 2:
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("engine A did not flip to generation 2 within 300 s")
+            if sum(not h.done for h in keep) < 2:
+                keep.append(a.submit(tail(64), temperature=1.0, seed=len(keep)))
+            time.sleep(0.02)
+        after = [a.submit(p) for p in greedy_after]
+        for t in threads:
+            t.join(timeout=600)
+        results = [first.result(timeout=600)] + [wave[i] if isinstance(wave[i], dict) else wave[i].result(timeout=600)
+                                                 for i in range(len(reqs))]
+        results += [h.result(timeout=600) for h in keep + after]
+        for r in results:
+            reason, toks = (r["finish_reason"], r["tokens"]) if isinstance(r, dict) else (r.finish_reason, r.tokens)
+            if reason != "max_tokens" or len(toks) != 32 or not all(0 <= t < vocab for t in toks):
+                raise AssertionError(f"a stream ended {reason} with {len(toks)} tokens")
+        traffic_a_s = time.perf_counter() - t_traffic
+        stats_a = a.stats()
+        marks.append(("traffic_a", time.perf_counter()))
+        for name in ("B", "C"):
+            while engines[name].generation < 2:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"engine {name} did not flip to generation 2 within 300 s")
+                time.sleep(0.05)
+        plain_after = [h.result(timeout=600).tokens for h in [b.submit(p) for p in greedy_after]]
+        plain_c = [h.result(timeout=600).tokens for h in [b.submit(p) for p in greedy_c]]
+        got_c = [h.result(timeout=600).tokens for h in [c.submit(p) for p in greedy_c]]
+        sampled_c = c.submit(tail(50), temperature=0.8, seed=6).result(timeout=600)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        forms = kernels.form_counts()["paged_attention"]
+        peak = torch.cuda.max_memory_allocated(dev)
+        marks.append(("traffic_b_c", time.perf_counter()))
+        if sampled_c.finish_reason != "max_tokens" or len(sampled_c.tokens) != 32:
+            raise AssertionError("engine C's sampled stream did not finish whole")
+        diverged = {"A k=4 (after the flip) vs B": greedy_divergences(
+                        torch, b, greedy_after, [r.tokens for r in results[-len(after):]], plain_after),
+                    "C k=7 vs B": greedy_divergences(torch, b, greedy_c, got_c, plain_c)}
+        score2 = logits_gate(torch, "score (generation 2)", a.score(ids),
+                             mean_model_logits(torch, dev, serving_meta(art), mean2, ids))
+        marks.append(("score_generation_2", time.perf_counter()))
+        stats_b, stats_c = b.stats(), c.stats()
+        hits = stats_a["prefix_cache"]["hits"]
+        draft_layers = len(HANDOFF_DRAFT_BLOCKS)
+        if hits < 5 or stats_a["prefix_cache"]["cow_copies"] < 1:
+            raise AssertionError(f"prefix traffic: {stats_a['prefix_cache']}")
+        if forms["window"] != (layers + draft_layers) * hits:
+            raise AssertionError(f"window launches {forms['window']} != ({layers} + {draft_layers}) x {hits} hits")
+        if counts["flash_attention_fwd"] < layers or counts["paged_attention"] < 1:
+            raise AssertionError(f"serving launches {counts}")
+        stray = {n: k for n, k in counts.items() if k and n not in ("paged_attention", "flash_attention_fwd")}
+        if stray:
+            raise AssertionError(f"serving launched kernels off its path: {stray}")
+        if stats_a["swaps"] != 1 or not stats_a["hotswap"]["streams_at_flip"][0] >= 1:
+            raise AssertionError(f"engine A's swap: {stats_a['hotswap']}, swaps {stats_a['swaps']}")
+        if not stats_c["spec"]["rounds"] or not stats_a["spec"]["rounds"]:
+            raise AssertionError("a speculative engine ran no round")
+        keys = ("ttft_p50_ms", "ttft_p99_ms", "intertoken_p50_ms", "decode_tokens_per_sec", "decode_steps",
+                "tokens_out", "generation", "swaps", "evictions", "prefill_tokens_computed")
+        line = {
+            "phase": "serve_handoff", "model": "gpt2_topk full (GPT-2-medium), exported from train_topk",
+            "artifact": {"generation_1": meta1, "generation_2": serving_meta(art)},
+            "draft": f"GPT-2-medium's embeddings, blocks {HANDOFF_DRAFT_BLOCKS[0]}..{HANDOFF_DRAFT_BLOCKS[-1]} and ln_f",
+            "config": {**cfg, "prefix_cache": "A", "spec_k": {"A": 4, "B": 0, "C": 7}},
+            "setup_s": {**prep_s, **{name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}},
+            "export_generation_2_s": export_s, "warmup": warmed,
+            "score_vs_mean_model": {"generation_1": score1, "generation_2": score2},
+            "requests": len(results) + len(plain_after) + len(plain_c) + len(got_c) + 1,
+            "traffic_a_s": traffic_a_s,
+            "engine_a": {**{k: stats_a[k] for k in keys}, "prefix_cache": stats_a["prefix_cache"],
+                         "spec": stats_a["spec"], "hotswap": stats_a["hotswap"]},
+            "engine_b": {**{k: stats_b[k] for k in keys}, "hotswap": stats_b["hotswap"]},
+            "engine_c": {**{k: stats_c[k] for k in keys}, "spec": stats_c["spec"], "hotswap": stats_c["hotswap"]},
+            "generations_served": sorted({1, stats_a["generation"]}),
+            "greedy_divergences": diverged, "launches": counts, "paged_forms": forms,
+            "peak_memory_bytes": peak,
+        }
+    finally:
+        if server is not None:
+            server.shutdown()
+        for e in engines.values():
+            e.shutdown()
+    torch.cuda.empty_cache()
+    return line, counts, forms
 
 
 # the served Llama traffic: (route, prompt length, sampling); the 4000-token
@@ -4958,8 +5296,9 @@ def main() -> int:
     kv_masked, kv_masked_600 = check_flash_kv_mask(torch, tfa, dev)
     d128 = check_flash_d128(torch, tfa, dev)
     paged_llama = check_paged_llama(torch, tpa, dev)
+    paged_window = check_paged_window(torch, tpa, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
-          "paged_attention_llama": paged_llama,
+          "paged_attention_llama": paged_llama, "paged_attention_window": paged_window,
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
                                   **{f"B=8 S={s}": r for s, r in flash_b8.items()}},
           "flash_attention_bwd": {f"B=8 S={s}": r for s, r in bwd.items()},
@@ -5088,13 +5427,30 @@ def main() -> int:
                                         ("train_topk_int4_ln", "topk_int4", "pallas"),
                                         ("train_int4", "int4", "flax"), ("train_fp8", "fp8", "flax")):
         line, counts, state, bundle = train_phase(torch, dev, init, codec_name, norm_impl,
-                                                  keep_state=path == "train_fp8")
+                                                  keep_state=path in ("train_topk", "train_fp8"))
         if path == "train":
             line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
         emit(line)
         for name, n in counts.items():
             launches[name][path] = n
         if path == "train_topk":
+            # its state handed to serving: exported, served, swapped mid-traffic
+            art = tempfile.mkdtemp(prefix="cml-handoff-")
+            try:
+                mean1, mean2, round2, prep_s = handoff_prepare(torch, state, bundle, art)
+                world = len(state.generators)
+                del state, bundle
+                gc.collect()
+                torch.cuda.empty_cache()
+                line, counts, hforms = serve_handoff_phase(torch, dev, art, mean1, mean2, round2, world, prep_s)
+            finally:
+                shutil.rmtree(art, ignore_errors=True)
+            del mean1, mean2
+            emit(line)
+            for name, n in counts.items():
+                launches[name]["serve_handoff"] = n
+            for form, n in hforms.items():
+                forms.setdefault("paged_attention", {}).setdefault(form, {})["serve_handoff"] = n
             # the same codec on the per-leaf wire (--bucket-bytes 0), then
             # with a linear LR schedule and gradient clipping
             line, counts = train_perleaf_phase(torch, tck, dev, init)
@@ -5200,6 +5556,12 @@ def main() -> int:
     name, src, rep, _r = rows[0]
     d128_rows.append((f"{name} (head groups)", src, rep,
                       {**paged_llama["W=1"], "form_of": name, "launches_by_path": forms[name]["grouped"]}))
+    # its window form (W > 8 rows in tiles of 8, a prefix hit's suffix):
+    # readings from check.paged_attention_window (GPT-2-medium's heads at
+    # the full 1024-row bucket, every shape beside), launches from serve_handoff
+    d128_rows.append((f"{name} (window past 8 rows)", src, rep,
+                      {**paged_window["GPT-2 W=1024"], "form_of": name, "by_shape": paged_window,
+                       "launches_by_path": forms[name]["window"]}))
     entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],
@@ -5216,7 +5578,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, "form_of": r["form_of"],
          "launches": sum(r["launches_by_path"].values()), "launches_by_path": r["launches_by_path"],
          **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-         **{k: r[k] for k in ("library", "tflops", "x_library", "x_bound", "shape", "plan") if k in r}}
+         **{k: r[k] for k in ("library", "tflops", "x_library", "x_bound", "shape", "plan", "by_shape")
+            if k in r}}
         for name, src, rep, r in d128_rows
     ]
     emit({"kernels": entries})

@@ -1,9 +1,11 @@
 // Fused paged attention for the serving decode step (and its W-token
-// window), bf16 in / f32 math / bf16 out.
+// window: the speculative verify, the prefix cache's suffix prefill),
+// bf16 in / f32 math / bf16 out.
 //
 // Replaces: consensusml_tpu/models/paged_attention.py:_fused_call
 // (pallas_call at :191, kernel body _make_kernel at :90), reached through
-// fused_paged_attention (W = 1) and fused_paged_attention_window (W = k+1).
+// fused_paged_attention (W = 1) and fused_paged_attention_window (W = k+1
+// for the verify, W = the suffix bucket, 16 to 4096, for a prefix hit).
 //
 // Computes, for every slot s, window row w and query head h:
 //   keys t = 0 .. positions[s, w]   (t < nb * bs), read through the block
@@ -78,6 +80,15 @@
 //   slice of the (W, H, D) outputs over the cluster's partials in rank
 //   order and writes it as bf16. A last barrier.cluster keeps each
 //   block's shared memory alive until the cluster has read it.
+// - Windows past 8 rows: the call's W rows are cut into tiles of Wt rows
+//   (Wt a divisor of W, at most 8: the template's rows, kMaxW), one more
+//   grid axis: grid z = (Hkv / G) * (W / Wt), z = tile * (Hkv / G) +
+//   group. A tile's blocks are the kernel above for its Wt rows: they read
+//   q, the positions and the output at the tile's rows of the slot's W,
+//   and load the pages up to the largest position of the tile's rows, no
+//   further. Tiles of one slot re-read its pages (each tile once); it is
+//   still one launch a call. W <= 8 is one tile (Wt = W), the kernel as it
+//   was.
 // The cache-length limit: nb <= 16 * pages, with the ring, q, the
 // block's logits and its partial output in one block's shared memory;
 // a plan with fewer kv heads a block holds fewer logits a key, so takes
@@ -123,13 +134,14 @@ constexpr int kMaxRing = 8;
 constexpr int kSmemLimit = 232448;  // an H100 block's dynamic shared memory
 
 struct PagedArgs {
-  const __nv_bfloat16* q;  // (S, W, H, D)
+  const __nv_bfloat16* q;  // (S, Wc, H, D)
   const __nv_bfloat16* k;  // (N, bs, Hkv, D)
   const __nv_bfloat16* v;  // (N, bs, Hkv, D)
   const int* table;        // (S, nb)
-  const int* pos;          // (S, W)
-  __nv_bfloat16* out;      // (S, W, H, D)
+  const int* pos;          // (S, Wc)
+  __nv_bfloat16* out;      // (S, Wc, H, D)
   long long n_pages;       // N
+  int Wc;                  // the call's window rows; the kernel's W rows are one tile of them
   int H, Hkv, D, bs, nb;
   int pages;  // pages a block
   int ring;   // page buffers a block
@@ -203,8 +215,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   const uint32_t rank = blockIdx.x;  // the cluster spans the grid's x extent
   const int splits = static_cast<int>(gridDim.x);
   const int s = blockIdx.y;
-  const int g0 = kGroups ? static_cast<int>(blockIdx.z) * G : 0;  // the group's first kv head
-  const int h0 = g0 * rep;                                         // and first query head
+  const int n_groups = a.Hkv / G;
+  const int g0 = kGroups ? static_cast<int>(blockIdx.z) % n_groups * G : 0;  // the group's first kv head
+  const int h0 = g0 * rep;                                                    // and first query head
+  const int w0 = static_cast<int>(blockIdx.z) / n_groups * W;                 // the tile's first window row
   const int kb = a.pages * bs;  // keys a block holds
   const long long page_elems = static_cast<long long>(bs) * a.Hkv * D;
   // a key's G * D values of the group's kv heads: contiguous in a page,
@@ -213,17 +227,17 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
 
   // the positions, the block's table entries and q, all loads in flight at once
   const int p0 = static_cast<int>(rank) * a.pages;
-  if (tid < W) lastw[tid] = min(a.pos[s * W + tid], a.nb * bs - 1);
+  if (tid < W) lastw[tid] = min(a.pos[static_cast<long long>(s) * a.Wc + w0 + tid], a.nb * bs - 1);
   for (int j = (tid + kThreads - 32) % kThreads; j < a.pages; j += kThreads)  // warp 0 reads the positions
     phys[j] = p0 + j < a.nb ? a.table[static_cast<long long>(s) * a.nb + p0 + j] : -1;
   if (tid == 0) {
     for (int b = 0; b < a.ring; ++b) cml_sm90::mbar_init(bars + 8 * b, 1);
     cml_sm90::mbar_init_fence();
   }
-  const __nv_bfloat16* qsrc = a.q + (static_cast<long long>(s) * W * a.H + h0) * D;
+  const __nv_bfloat16* qsrc = a.q + ((static_cast<long long>(s) * a.Wc + w0) * a.H + h0) * D;
   for (int ci = tid; ci < wh * D / 8; ci += kThreads) {  // q as f64, 16 bytes a thread at a time
     const int r = ci / (D / 8), d = 8 * (ci % (D / 8));  // r = (w, head of the block)
-    const int rq = kGroups ? r / H * a.H + r % H : r;      // its row of the slot's (W, a.H)
+    const int rq = kGroups ? r / H * a.H + r % H : r;      // its row of the tile's (W, a.H)
     float f[8];
     unpack8(*reinterpret_cast<const uint4*>(qsrc + static_cast<long long>(rq) * D + d), f);
     double2* dst = reinterpret_cast<double2*>(qs + r * qrow + d / dpart * qpart + d % dpart);
@@ -461,7 +475,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(const PagedAr
   const int total = wh * D;  // the block's (W, H, D) of the slot's (W, a.H, D)
   const int per = (total + splits - 1) / splits;
   const int e1 = min(total, (static_cast<int>(rank) + 1) * per);
-  __nv_bfloat16* orow = a.out + (static_cast<long long>(s) * W * a.H + h0) * D;
+  __nv_bfloat16* orow = a.out + ((static_cast<long long>(s) * a.Wc + w0) * a.H + h0) * D;
   for (int e = static_cast<int>(rank) * per + tid; e < e1; e += kThreads) {
     const uint32_t la = cml_sm90::smem_u32(part + e);
     float v[kMaxSplits];
@@ -493,7 +507,7 @@ int launch_w(const PagedArgs& a, int s, int splits, long long smem, cudaStream_t
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned int>(splits), static_cast<unsigned int>(s),
-                     static_cast<unsigned int>(a.Hkv / a.G));
+                     static_cast<unsigned int>(a.Hkv / a.G * (a.Wc / W)));
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = st;
@@ -539,29 +553,33 @@ extern "C" long long cml_paged_attention_smem_bytes(int w, int h, int hkv, int d
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue without launching for a shape or plan the kernel
-// does not take: W outside 1..8, H not a multiple of Hkv, D not a
+// does not take: tiles of wt rows (wt in 1..8) that do not cut the w
+// window rows exactly, more than 65535 (head group, tile) pairs a slot,
+// H not a multiple of Hkv, D not a
 // multiple of 8, a head group of g kv heads that does not divide Hkv or
 // whose query heads exceed the block's threads (g * rep * D > 4 * 256 or
 // W * g * rep > 256, rep = H / Hkv), a plan whose splits (<= 16) x pages
 // do not cover the nb pages exactly (no block without a page at full
-// length), a ring outside 1..8, or more shared memory than a block has.
+// length), a ring outside 1..8, or more shared memory than a block of wt
+// rows has.
 // The pools' pointers must be 16-byte aligned (the wrapper checks).
 extern "C" int cml_paged_attention_bf16(const void* q, const void* k_pages, const void* v_pages, const void* table,
                                         const void* positions, void* out, long long n_pages, int s, int w, int h,
                                         int hkv, int d, int bs, int nb, int pages, int splits, int ring, int g,
-                                        float scale, void* stream) {
-  if (w < 1 || w > kMaxW || s < 1 || s > 65535 || h < 1 || hkv < 1 || h % hkv || d < 8 || d % 8 || g < 1 ||
-      hkv % g || g * (h / hkv) * d > 4 * kThreads || w * g * (h / hkv) > kThreads || bs < 1 || nb < 1 ||
+                                        int wt, float scale, void* stream) {
+  if (wt < 1 || wt > kMaxW || w < wt || w % wt || s < 1 || s > 65535 || h < 1 || hkv < 1 || h % hkv || d < 8 ||
+      d % 8 || g < 1 || hkv % g || static_cast<long long>(hkv / g) * (w / wt) > 65535 ||
+      g * (h / hkv) * d > 4 * kThreads || wt * g * (h / hkv) > kThreads || bs < 1 || nb < 1 ||
       n_pages < 1 || pages < 1 || splits < 1 || splits > kMaxSplits || static_cast<long long>(splits) * pages < nb ||
       (splits - 1) * pages >= nb || ring < 1 || ring > kMaxRing)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = layout(w, g * (h / hkv), g, d, bs, pages, ring).total;
+  const long long smem = layout(wt, g * (h / hkv), g, d, bs, pages, ring).total;
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   const PagedArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
                     static_cast<const __nv_bfloat16*>(v_pages), static_cast<const int*>(table),
-                    static_cast<const int*>(positions), static_cast<__nv_bfloat16*>(out), n_pages, h, hkv, d, bs, nb,
-                    pages, ring, g, scale};
-  return launch(a, s, w, splits, smem, static_cast<cudaStream_t>(stream));
+                    static_cast<const int*>(positions), static_cast<__nv_bfloat16*>(out), n_pages, w, h, hkv, d, bs,
+                    nb, pages, ring, g, scale};
+  return launch(a, s, wt, splits, smem, static_cast<cudaStream_t>(stream));
 }
 
 // How many clusters of the plan the card holds at once

@@ -20,7 +20,10 @@ __all__ = [
     "blockwise_attention",
     "cached_attention",
     "paged_update_kv_cache",
+    "paged_update_kv_cache_window",
+    "paged_cow_copy",
     "gather_paged_kv",
+    "cached_attention_window",
     "rope_frequencies",
     "apply_rope",
 ]
@@ -191,6 +194,41 @@ def paged_update_kv_cache(
     return positions + 1
 
 
+def paged_update_kv_cache_window(
+    cache: dict[str, torch.Tensor],
+    k: torch.Tensor,  # (S, W, H, D) — a W-token window a slot
+    v: torch.Tensor,  # (S, W, H, D)
+    block_table: torch.Tensor,  # (S, cols) physical block ids (trash-padded)
+    positions: torch.Tensor,  # (S, W) each window token's position
+) -> None:
+    """Write a ``W``-token window of K/V into the paged pool IN PLACE: the
+    speculative verify's (``W = k + 1``) and the prefix cache's suffix
+    prefill's widening of :func:`paged_update_kv_cache`. Window column
+    ``w`` of slot ``s`` writes block ``block_table[s, p // bs]``, row ``p %
+    bs``, ``p = positions[s, w]``. Positions past a slot's real row index
+    the trash-padded columns the engine appends, so those writes land in
+    the trash block (several may write one row there: which lands is
+    unspecified on CUDA, harmless as every reader masks trash). Rejected
+    draft rows are not rolled back: they sit past the committed length,
+    masked, and the next window overwrites them."""
+    bs = cache["k"].shape[1]
+    phys = torch.gather(block_table.long(), 1, positions.long() // bs)
+    off = positions.long() % bs
+    cache["k"][phys, off] = k.to(cache["k"].dtype)
+    cache["v"][phys, off] = v.to(cache["v"].dtype)
+
+
+def paged_cow_copy(cache: dict[str, torch.Tensor], src: int, dst: int) -> None:
+    """Copy physical block ``src``'s K/V rows to block ``dst`` IN PLACE: the
+    prefix cache's copy-on-write, run before a window's scatter so the
+    diverging slot's fresh block holds the shared rows plus its own writes
+    while every other holder keeps reading the untouched source. ``src ==
+    dst`` (the trash pair, 0 and 0) copies nothing."""
+    if src != dst:
+        cache["k"][dst] = cache["k"][src]
+        cache["v"][dst] = cache["v"][src]
+
+
 def gather_paged_kv(
     k_pages: torch.Tensor,  # (N, bs, H, D)
     v_pages: torch.Tensor,
@@ -218,6 +256,25 @@ def cached_attention(
     kv_mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
     return dot_product_attention(q, k_cache, v_cache, kv_mask=kv_mask, dtype=dtype, impl="dense")
 
+
+
+def cached_attention_window(
+    q: torch.Tensor,  # (B, W, H, D) — W query tokens a slot
+    k_cache: torch.Tensor,  # (B, T, H, D)
+    v_cache: torch.Tensor,
+    *,
+    positions: torch.Tensor,  # (B, W) each query token's position
+    dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """:func:`cached_attention` widened to a ``W``-token window: query
+    ``w`` of slot ``b`` attends cache rows ``<= positions[b, w]``, which is
+    both the causality inside the window (its rows are written before the
+    read) and the exclusion of stale rows past each slot's length. A
+    where-mask, as the reference's, so junk in excluded trash rows cannot
+    reach the logits."""
+    t = k_cache.shape[1]
+    mask = torch.arange(t, device=q.device)[None, None, :] <= positions[:, :, None]
+    return dot_product_attention(q, k_cache, v_cache, mask=mask, dtype=dtype, impl="dense")
 
 
 def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0, device=None) -> torch.Tensor:

@@ -35,10 +35,11 @@ reference's.
   compute-dtype product with the tied embedding, cast to f32.
 
 Paths: the full forward (training, with autograd through the flash
-kernels), the prefill ``return_kv`` forward, and the paged single-token
-decode step (``kv_cache`` + ``block_table``), which updates the pages in
-place. The reference's slot-cache and verify-window paths wait for later
-slices.
+kernels), the prefill ``return_kv`` forward, the paged single-token
+decode step (``kv_cache`` + ``block_table``, ``positions`` ``(B,)``) and
+the paged window (``positions`` ``(B, W)``: speculative decode's verify,
+the prefix cache's suffix prefill), both of which update the pages in
+place. The reference's per-slot cache path is not ported.
 """
 
 from __future__ import annotations
@@ -54,10 +55,12 @@ from consensusml_tpu_torch.device import resolve_device
 from consensusml_tpu_torch.models.attention import (
     dot_product_attention,
     paged_update_kv_cache,
+    paged_update_kv_cache_window,
 )
 from consensusml_tpu_torch.models.fused_ln import FusedLayerNorm
 from consensusml_tpu_torch.models.paged_attention import (
     fused_paged_attention,
+    fused_paged_attention_window,
     resolve_attention_impl,
 )
 
@@ -183,8 +186,9 @@ class DecoderBlock(nn.Module):
     def forward(self, x, *, cache=None, positions=None, block_table=None, attn_impl="auto",
                 deterministic=True, generator=None):
         """``(x, kv)``: ``kv`` is this layer's ``(k, v)`` (B, S, H, D) on
-        the full/prefill path, ``None`` on the paged decode path (whose
-        K/V go into ``cache`` in place)."""
+        the full/prefill path, ``None`` on the paged paths (whose K/V go
+        into ``cache`` in place: one token a slot at ``positions`` (B,),
+        or a window at ``positions`` (B, S))."""
         c = self.config
         attn_impl = resolve_attention_impl(attn_impl, x.device)
         b, s, _ = x.shape
@@ -192,7 +196,13 @@ class DecoderBlock(nn.Module):
         qkv = self.qkv(self.ln_1(x)).view(b, s, c.heads, 3 * dh)
         q, k, v = (t.contiguous() for t in qkv.split(dh, dim=-1))
         kv = None
-        if cache is not None:
+        if cache is not None and positions.dim() == 2:
+            paged_update_kv_cache_window(cache, k, v, block_table, positions)
+            attn = fused_paged_attention_window(
+                q, cache["k"], cache["v"], block_table,
+                positions=positions, dtype=c.dtype, impl=attn_impl,
+            )
+        elif cache is not None:
             lengths = paged_update_kv_cache(cache, k, v, block_table, positions)
             attn = fused_paged_attention(
                 q, cache["k"], cache["v"], block_table,
@@ -259,7 +269,7 @@ class GPT2LM(nn.Module):
         self,
         input_ids: torch.Tensor,  # (B, S) int
         *,
-        positions: torch.Tensor | None = None,  # (B,) decode positions
+        positions: torch.Tensor | None = None,  # (B,) decode or (B, S) window positions
         kv_cache: list | None = None,
         block_table: torch.Tensor | None = None,
         return_kv: bool = False,
@@ -275,7 +285,13 @@ class GPT2LM(nn.Module):
         ``return_kv=True`` (prefill) also returns each layer's ``(k, v)``.
         ``kv_cache`` (per-layer ``{"k", "v"}`` page pools) with
         ``block_table`` and ``positions`` runs one single-token decode
-        step, writing this token's K/V into the pages in place.
+        step, writing this token's K/V into the pages in place; with 2-D
+        ``positions`` ``(B, S)`` it runs an S-token window a slot (the
+        verify of speculative decode, a prefix hit's suffix), each token at
+        its own position: its K/V written first, then each query attends
+        the cache up to its position. Positions past ``max_len`` (window
+        rows near the cache's end) read the last position embedding and
+        write through the caller's trash-padded table columns.
         ``attn_impl`` goes through
         :func:`.paged_attention.resolve_attention_impl`: ``"auto"`` is
         the CUDA kernels for CUDA tensors and their plain versions on the
@@ -290,13 +306,18 @@ class GPT2LM(nn.Module):
             raise ValueError("the paged decode step needs both kv_cache and block_table")
         b, s = input_ids.shape
         attn_impl = resolve_attention_impl(attn_impl, input_ids.device)
-        if kv_cache is not None and (s != 1 or positions is None):
-            raise ValueError(f"decode steps are single-token with positions, got seq len {s}")
-        pos = (
-            torch.arange(s, device=input_ids.device)[None, :]
-            if positions is None
-            else positions[:, None]
-        )
+        multi = positions is not None and positions.dim() == 2
+        if multi and kv_cache is None:
+            raise ValueError("2-D positions (a window) need kv_cache and block_table")
+        if kv_cache is not None and (positions is None or (s != 1 and not multi)):
+            raise ValueError(
+                f"decode steps are single-token with positions, got seq len {s} "
+                "(a window needs 2-D positions)"
+            )
+        if positions is None:
+            pos = torch.arange(s, device=input_ids.device)[None, :]
+        else:
+            pos = positions if multi else positions[:, None]
         # clamp the table lookup only (raw positions drive scatter and
         # masks): PyTorch raises / device-asserts where JAX would clamp
         x = self.wte(input_ids) + self.wpe(torch.clamp(pos, max=c.max_len - 1))

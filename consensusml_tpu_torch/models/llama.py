@@ -40,11 +40,14 @@ pre-repeat ``(k, v)`` ``(B, S, Hkv, D)``; ``kv_cache`` (per-layer
 step: RoPE at each slot's position, this token's K/V written into the
 pages in place (:func:`.attention.paged_update_kv_cache`), then
 :func:`.paged_attention.fused_paged_attention`, which expands GQA inside
-the kernel (no repeat of the pages).
+the kernel (no repeat of the pages). 2-D ``positions`` ``(B, S)`` run an
+S-token window a slot the same way (speculative decode's verify, a prefix
+hit's suffix: :func:`.attention.paged_update_kv_cache_window`, then
+:func:`.paged_attention.fused_paged_attention_window`), each token
+rotated at its own position.
 
-Not ported, raising ``NotImplementedError``: the reference's 2-D
-``positions`` verify window (speculative decode's), its per-slot cache
-(``kv_cache`` without ``block_table``), and the chunked-vocab loss
+Not ported, raising ``NotImplementedError``: the reference's per-slot
+cache (``kv_cache`` without ``block_table``) and the chunked-vocab loss
 (``loss_vocab_chunk > 0``, ``return_hidden``).
 """
 
@@ -61,10 +64,15 @@ from consensusml_tpu_torch.models.attention import (
     apply_rope,
     dot_product_attention,
     paged_update_kv_cache,
+    paged_update_kv_cache_window,
     rope_frequencies,
 )
 from consensusml_tpu_torch.models.gpt2 import Embed
-from consensusml_tpu_torch.models.paged_attention import fused_paged_attention, resolve_attention_impl
+from consensusml_tpu_torch.models.paged_attention import (
+    fused_paged_attention,
+    fused_paged_attention_window,
+    resolve_attention_impl,
+)
 from consensusml_tpu_torch.numerics import ftz, inv_rows
 
 __all__ = ["LlamaConfig", "LlamaLM", "LoRADense", "RMSNorm", "llama2_7b", "llama_tiny", "llama_loss_fn"]
@@ -200,17 +208,24 @@ class LlamaBlock(nn.Module):
         """``(x, kv)``: ``kv`` is this layer's pre-repeat ``(k, v)`` with
         ``return_kv`` (the prefill), else ``None``; on the paged decode
         path (``cache``, ``block_table`` and ``positions`` ``(B,)``) this
-        token's K/V go into the pages in place."""
+        token's K/V go into the pages in place, on the window path
+        (``positions`` ``(B, S)``) the window's."""
         c = self.config
         d = c.head_dim
         y = self.attn_norm(x)
         b, s, _ = y.shape
-        pos = None if positions is None else positions[:, None]  # (B, 1): each slot's own position
+        multi = positions is not None and positions.dim() == 2
+        # (B, 1): each slot's own position; (B, S): each window token's
+        pos = None if positions is None else positions if multi else positions[:, None]
         q = apply_rope(self.q_proj(y).view(b, s, c.heads, d), rope_table, pos)
         k = apply_rope(self.k_proj(y).view(b, s, c.kv_heads, d), rope_table, pos)
         v = self.v_proj(y).view(b, s, c.kv_heads, d)
         kv = None
-        if cache is not None:
+        if cache is not None and multi:
+            paged_update_kv_cache_window(cache, k, v, block_table, positions)
+            attn = fused_paged_attention_window(q, cache["k"], cache["v"], block_table, positions=positions,
+                                                dtype=c.dtype, impl=attn_impl)
+        elif cache is not None:
             # the pages hold pre-repeat (kv_heads) rows; the kernel repeats
             # them onto the query heads as it reads them
             lengths = paged_update_kv_cache(cache, k, v, block_table, positions)
@@ -268,7 +283,7 @@ class LlamaLM(nn.Module):
         input_ids: torch.Tensor,  # (B, S) int
         *,
         attn_impl: str = "auto",
-        positions: torch.Tensor | None = None,  # (B,) decode positions
+        positions: torch.Tensor | None = None,  # (B,) decode or (B, S) window positions
         kv_cache: list | None = None,
         block_table: torch.Tensor | None = None,
         return_kv: bool = False,
@@ -283,25 +298,26 @@ class LlamaLM(nn.Module):
         ``return_kv=True`` (prefill) also returns each layer's pre-repeat
         ``(k, v)``. ``kv_cache`` (per-layer ``{"k", "v"}`` page pools) with
         ``block_table`` and ``positions`` runs one single-token decode
-        step, writing this token's K/V into the pages in place. Raises as
-        the reference does on a decode step that also asks for the
-        prefill's K/V, a ``block_table`` without ``kv_cache`` and a decode
-        step of more than one token."""
+        step, writing this token's K/V into the pages in place; 2-D
+        ``positions`` ``(B, S)`` run an S-token window a slot (the verify,
+        a prefix hit's suffix). Raises as the reference does on a decode
+        step that also asks for the prefill's K/V, a ``block_table``
+        without ``kv_cache``, a decode step of more than one token with 1-D
+        positions and 2-D positions without the pages."""
         c = self.config
         if kv_cache is not None and return_kv:
             raise ValueError("kv_cache (decode) and return_kv (prefill) are exclusive")
         if block_table is not None and kv_cache is None:
             raise ValueError("block_table requires kv_cache (paged decode)")
-        if positions is not None and positions.dim() == 2:
-            raise NotImplementedError(
-                "2-D positions (the verify window of speculative decode) are not ported yet"
-            )
+        multi = positions is not None and positions.dim() == 2
         if kv_cache is not None and block_table is None:
             raise NotImplementedError("the per-slot cache (kv_cache without block_table) is not ported yet")
-        if kv_cache is not None and (input_ids.shape[1] != 1 or positions is None):
+        if multi and kv_cache is None:
+            raise ValueError("2-D positions (a window) need kv_cache and block_table")
+        if kv_cache is not None and (positions is None or (input_ids.shape[1] != 1 and not multi)):
             raise ValueError(
                 f"decode steps are single-token with positions, got seq len {input_ids.shape[1]}"
-                + ("" if positions is not None else " and no positions")
+                + ("" if positions is not None else " and no positions") + " (a window needs 2-D positions)"
             )
         if return_hidden:
             raise NotImplementedError("the chunked-vocab loss path (return_hidden) is not ported yet")

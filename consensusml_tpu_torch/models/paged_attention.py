@@ -4,8 +4,11 @@ Port of ``consensusml_tpu/models/paged_attention.py``. One kernel
 (``csrc/paged_attention.cu``) does block-table lookup, paged KV read and
 position-masked attention for a ``(S, W)`` grid of query rows — ``W = 1``
 is the decode step (:func:`fused_paged_attention`), ``W = k + 1`` the
-speculative verify window (:func:`fused_paged_attention_window`), exactly
-as the reference's ``_fused_call`` serves both. Query row ``w`` of slot
+speculative verify window and ``W`` = the suffix bucket the prefix
+cache's suffix prefill (:func:`fused_paged_attention_window`), as the
+reference's ``_fused_call`` serves all three. Past 8 rows the kernel cuts
+the window into tiles of at most 8 rows on a further grid axis, still one
+launch a call (:func:`paged_plan`). Query row ``w`` of slot
 ``s`` attends cache positions ``<= positions[s, w]``; heads repeat onto
 ``H // Hkv`` query heads on the read (GQA).
 
@@ -109,7 +112,8 @@ def paged_attention_plain(
 # ---------------------------------------------------------------------------
 
 _THREADS = 256
-_MAX_W = 8
+_MAX_W = 8  # window rows a tile (the kernel's template rows, kMaxW)
+_MAX_GRID_Z = 65535  # (head group, tile) pairs a slot: the grid's z extent
 _MAX_SPLITS = 16  # blocks of a cluster (H100's non-portable most)
 _MAX_RING = 8
 _RING = 2  # page buffers a block: two let the card hold 14 clusters of 16, not 7 (paged_sweep.py)
@@ -118,18 +122,21 @@ _SMEM_LIMIT = 232448  # an H100 block's dynamic shared memory
 
 class PagedPlan(NamedTuple):
     """How :func:`paged_attention` cuts a call: one thread block cluster of
-    ``splits`` blocks per (slot, head group), block ``r`` owning the slot's
-    pages ``[r * pages, (r + 1) * pages)`` for the ``kv_heads`` kv heads of
-    its group (and their query heads, every window row), streamed through
-    ``ring`` page buffers (K pages, then V pages); ``smem`` bytes of
-    dynamic shared memory a block. A slot has ``Hkv // kv_heads`` head
-    groups; at ``kv_heads == Hkv`` a block holds whole pages."""
+    ``splits`` blocks per (slot, head group, tile of window rows), block
+    ``r`` owning the slot's pages ``[r * pages, (r + 1) * pages)`` for the
+    ``kv_heads`` kv heads of its group (and their query heads, the tile's
+    ``rows`` window rows), streamed through ``ring`` page buffers (K pages,
+    then V pages); ``smem`` bytes of dynamic shared memory a block. A slot
+    has ``Hkv // kv_heads`` head groups and ``W // rows`` tiles; at
+    ``kv_heads == Hkv`` a block holds whole pages, at ``rows == W`` (every
+    ``W <= 8``) one tile holds the window."""
 
     pages: int
     splits: int
     ring: int
     smem: int
     kv_heads: int
+    rows: int
 
 
 def _align128(n: int) -> int:
@@ -137,7 +144,8 @@ def _align128(n: int) -> int:
 
 
 def paged_smem(w: int, h: int, hkv: int, d: int, bs: int, pages: int, ring: int, kv_heads: int | None = None) -> int:
-    """A block's dynamic shared memory: ``csrc/paged_attention.cu:layout``
+    """A block's dynamic shared memory at ``w`` window rows (a tile's):
+    ``csrc/paged_attention.cu:layout``
     (ring of page slices of ``kv_heads`` kv heads, all of them by default;
     q of the group's query heads as f64, the block's logits, the softmax's
     per-(row, head) vectors and fold scratch, its table entries, the
@@ -147,6 +155,15 @@ def paged_smem(w: int, h: int, hkv: int, d: int, bs: int, pages: int, ring: int,
     q_row = d + 2 * (4 if d % 32 == 0 else 2 if d % 16 == 0 else 1)  # q as f64, its D in padded parts
     return (ring * _align128(bs * g * d * 2) + _align128(w * hb * q_row * 8) + _align128(w * pages * bs * hb * 4)
             + _align128((w * hb + _THREADS) * 8 + (2 * w * hb + _MAX_W + pages) * 4) + 8 * ring)
+
+
+def _window_tiles(w: int) -> list[int]:
+    """The rows a tile may hold, most first: ``W`` itself up to 8, past
+    8 the divisors of ``W`` that are at most 8 (8 for every suffix bucket,
+    a power of two)."""
+    if w < 1:
+        return []
+    return [w] if w <= _MAX_W else [t for t in range(_MAX_W, 0, -1) if w % t == 0]
 
 
 def _kv_head_groups(w: int, h: int, hkv: int, d: int) -> list[int]:
@@ -166,6 +183,13 @@ def paged_plan(nb: int, bs: int, hkv: int, d: int, w: int, h: int, *, pages: int
     ``bs``-token pages of ``(bs, hkv, d)``, ``w`` window rows and ``h``
     query heads.
 
+    Up to 8 rows the window is one tile; past 8 it is cut into tiles of
+    the most rows that divide ``w`` and fit (:func:`_window_tiles`), each
+    tile a cluster of its own on the grid's third axis beside the head
+    groups (at most 65535 of them a slot), so a call is one launch
+    whatever its ``w`` (the prefix cache's suffix buckets: 16 to 1024 at
+    GPT-2-medium, up to 4096 at Llama-2-7B's heads).
+
     The fewest pages a block that keep a slot's blocks within one cluster
     (``pages = ceil(nb / 16)``, ``splits = ceil(nb / pages)``: no block
     without a page at full length), so a slot's keys spread over up to 16
@@ -182,28 +206,28 @@ def paged_plan(nb: int, bs: int, hkv: int, d: int, w: int, h: int, *, pages: int
     the kernel does not take, and past the longest cache: ``nb <= 16 *
     pages`` with the block's ring, q, logits and scratch in 227 KB of
     shared memory (:func:`paged_max_blocks`)."""
-    groups = _kv_head_groups(w, h, hkv, d) if 1 <= w <= _MAX_W and h % hkv == 0 and d % 8 == 0 else []
-    if kv_heads is not None:
-        groups = [g for g in groups if g == kv_heads]
-    if not groups:
+    shape_ok = h % hkv == 0 and d % 8 == 0
+    forms = [(t, g) for t in (_window_tiles(w) if shape_ok else []) for g in _kv_head_groups(t, h, hkv, d)
+             if (kv_heads is None or g == kv_heads) and (hkv // g) * (w // t) <= _MAX_GRID_Z]
+    if not forms:
         raise ValueError(
-            f"the CUDA paged attention takes 1 <= W <= {_MAX_W}, H a multiple of Hkv, D a multiple of 8, and a "
-            f"block of G kv heads (G dividing Hkv) with G * (H / Hkv) * D <= {4 * _THREADS} and "
-            f"W * G * (H / Hkv) <= {_THREADS}; got W={w}, H={h}, Hkv={hkv}, D={d}"
-            + ("" if kv_heads is None else f", G={kv_heads}")
+            f"the CUDA paged attention takes W >= 1 (cut into tiles of T <= {_MAX_W} rows, T dividing W), H a "
+            f"multiple of Hkv, D a multiple of 8, and a block of G kv heads (G dividing Hkv) with G * (H / Hkv) * "
+            f"D <= {4 * _THREADS}, T * G * (H / Hkv) <= {_THREADS} and (Hkv / G) * (W / T) <= {_MAX_GRID_Z}; got "
+            f"W={w}, H={h}, Hkv={hkv}, D={d}" + ("" if kv_heads is None else f", G={kv_heads}")
         )
     p = pages or -(-nb // _MAX_SPLITS)
     splits = -(-nb // p)
     if splits > _MAX_SPLITS or (splits - 1) * p >= nb:
         raise ValueError(f"{nb} pages in blocks of {p} need {splits} blocks a slot (at most {_MAX_SPLITS})")
     rings = [ring] if ring else range(min(_RING, 2 * p), 0, -1)
-    for g in groups:
+    for t, g in forms:
         for r in rings:
             if not 1 <= r <= _MAX_RING:
                 raise ValueError(f"ring {r} outside 1..{_MAX_RING}")
-            smem = paged_smem(w, h, hkv, d, bs, p, r, g)
+            smem = paged_smem(t, h, hkv, d, bs, p, r, g)
             if smem <= _SMEM_LIMIT:
-                return PagedPlan(p, splits, r, smem, g)
+                return PagedPlan(p, splits, r, smem, g, t)
     raise ValueError(
         f"{nb} x {bs} cache positions (W={w}, H={h}, Hkv={hkv}, D={d}): a block's {p} pages of logits and its ring "
         f"exceed {_SMEM_LIMIT} bytes of shared memory at every head group"
@@ -214,29 +238,37 @@ def paged_block_keys(plan: PagedPlan, bs: int, nb: int, last: list[int],
                      hkv: int) -> list[tuple[int, int, list[tuple[int, int]]]]:
     """What each block of a slot's grid reads, given each window row's last
     attended key (``positions``, clamped to the cache): ``(kv0, kv1,
-    [(k0, k1) for each row])`` for the block of head group ``kv0 //
-    plan.kv_heads`` (kv heads ``[kv0, kv1)``) and cluster rank ``r``, in
-    the order (group, rank). The kernel's own arithmetic
-    (``csrc/paged_attention.cu``: ``n`` pages from ``r * pages`` up to the
-    last page any row attends, ``nkeys(w)``); every group's blocks read the
-    same keys for their own heads."""
+    [(k0, k1) for each row])`` for the block of window tile ``w0 //
+    plan.rows``, head group ``kv0 // plan.kv_heads`` (kv heads ``[kv0,
+    kv1)``) and cluster rank ``r``, in the order (tile, group, rank); rows
+    outside the block's tile read nothing, ``(k0, k0)``. The kernel's own
+    arithmetic (``csrc/paged_attention.cu``: ``n`` pages from ``r * pages``
+    up to the last page any row of the tile attends, ``nkeys(w)``); every
+    group's blocks read the same keys for their own heads."""
     last = [min(p, nb * bs - 1) for p in last]
-    pages_needed = max(last) // bs + 1
-    ranks = []
-    for r in range(plan.splits):
-        p0 = r * plan.pages
-        n = max(0, min(p0 + plan.pages, pages_needed) - p0)
-        k0 = p0 * bs
-        ranks.append([(k0, k0 + max(0, min(lw - k0 + 1, n * bs))) for lw in last])
-    g = plan.kv_heads
-    return [(kv0, kv0 + g, rows) for kv0 in range(0, hkv, g) for rows in ranks]
+    out = []
+    for w0 in range(0, len(last), plan.rows):
+        tile = last[w0: w0 + plan.rows]
+        pages_needed = max(tile) // bs + 1
+        ranks = []
+        for r in range(plan.splits):
+            p0 = r * plan.pages
+            n = max(0, min(p0 + plan.pages, pages_needed) - p0)
+            k0 = p0 * bs
+            rows = [(k0, k0)] * len(last)
+            rows[w0: w0 + len(tile)] = [(k0, k0 + max(0, min(lw - k0 + 1, n * bs))) for lw in tile]
+            ranks.append(rows)
+        g = plan.kv_heads
+        out += [(kv0, kv0 + g, rows) for kv0 in range(0, hkv, g) for rows in ranks]
+    return out
 
 
 def paged_max_blocks(bs: int, hkv: int, d: int, w: int, h: int, *, kv_heads: int | None = None) -> int:
     """The most ``nb`` (pages a slot) :func:`paged_plan` takes (with
     ``kv_heads`` kv heads a block, if given)."""
     least = (kv_heads or 1) * (h // hkv)  # the fewest query heads a block may hold
-    lo, hi = 1, _MAX_SPLITS * (_SMEM_LIMIT // max(1, w * bs * least * 4))
+    # a tile holds at least one row: the logits of one row bound nb from above
+    lo, hi = 1, _MAX_SPLITS * (_SMEM_LIMIT // max(1, bs * least * 4))
     while lo < hi:  # the plan fits up to some nb and from then on never again
         mid = (lo + hi + 1) // 2
         try:
@@ -252,7 +284,7 @@ def _lib():
     fn = lib.cml_paged_attention_bf16
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, i, ctypes.c_float, p]
         fn.restype = i
         lib.cml_paged_attention_smem_bytes.argtypes = [i] * 8
         lib.cml_paged_attention_smem_bytes.restype = ll
@@ -276,9 +308,11 @@ def paged_attention(
     stream (``plan``, by default :func:`paged_plan`'s) after checking
     device, dtype, shape, contiguity and alignment (it raises on anything
     the kernel does not take). Each launch adds one to
-    ``paged_attention.launches``, and one to
+    ``paged_attention.launches``, one to
     ``paged_attention.grouped_launches`` where the plan splits the kv heads
-    over more than one cluster a slot (``plan.kv_heads < Hkv``)."""
+    over more than one cluster a slot (``plan.kv_heads < Hkv``), and one to
+    ``paged_attention.window_launches`` where the window has more than 8
+    rows (the tiled form)."""
     if not q.is_cuda:
         return paged_attention_plain(q, k_pages, v_pages, block_table, positions, dtype)
     s, w, h, d = q.shape
@@ -308,18 +342,20 @@ def paged_attention(
     rc = _lib().cml_paged_attention_bf16(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_table.data_ptr(),
         positions.data_ptr(), out.data_ptr(), n, s, w, h, hkv, d, bs, nb, p.pages, p.splits, p.ring, p.kv_heads,
-        float(np.float32(1.0) / np.sqrt(np.float32(d))),  # the plain version's f32 scale
+        p.rows, float(np.float32(1.0) / np.sqrt(np.float32(d))),  # the plain version's f32 scale
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention launch failed: CUDA error {rc}")
     paged_attention.launches += 1
     paged_attention.grouped_launches += p.kv_heads < hkv
+    paged_attention.window_launches += w > _MAX_W
     return out
 
 
 paged_attention.launches = 0
 paged_attention.grouped_launches = 0
+paged_attention.window_launches = 0
 
 
 def _fused(q, k_pages, v_pages, block_table, positions, dtype, impl):
@@ -357,5 +393,6 @@ def fused_paged_attention_window(
     impl: str = "auto",
 ) -> torch.Tensor:
     """W-token window paged attention: row ``w`` attends cache rows
-    ``<= positions[s, w]``."""
+    ``<= positions[s, w]`` (any ``W``: past 8 rows the kernel's tiled
+    form)."""
     return _fused(q, k_pages, v_pages, block_table, positions, dtype, impl)

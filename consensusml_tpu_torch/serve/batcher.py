@@ -88,6 +88,7 @@ class Request:
     top_p: float = 1.0
     seed: int = 0
     eos_id: int | None = None  # None = stop on the token cap only
+    tenant: str = "default"  # the prefix cache's namespace: tenants never share cached blocks
 
 
 @dataclasses.dataclass

@@ -14,9 +14,18 @@ resolves to the hand-written CUDA kernels on the card and to their plain
 PyTorch versions on the CPU; :meth:`stats` reports the resolved tier and
 the kernels' launch counts.
 
-Deferred to later slices: speculative decode, hot swap, the prefix
-cache, the observability registry and wide events, and the reference's
-per-slot (``kv_impl="slot"``) path.
+The train-to-serve handoff: :func:`load_engine` builds an engine from a
+serving artifact (:mod:`.export`), :meth:`Engine.score` is the prefill-
+only scoring path held to the consensus-mean model, and
+:meth:`Engine.watch` flips to each new generation of the artifact
+between steps (:mod:`.pool.hotswap`). ``spec_decode=SpecConfig(draft,
+k)`` replaces the one-token decode step by a speculative round
+(:mod:`.pool.spec`), and ``ServeConfig(prefix_cache=True)`` prefills only
+the unshared suffix of a prompt whose block-aligned prefix is cached
+(:mod:`.pool.prefix`).
+
+Deferred to later slices: the observability registry and wide events,
+and the reference's per-slot (``kv_impl="slot"``) path.
 """
 
 from __future__ import annotations
@@ -46,8 +55,9 @@ from consensusml_tpu_torch.serve.batcher import (
     SlotTable,
 )
 from consensusml_tpu_torch.serve.decode import DecodeModel, prefill_buckets
+from consensusml_tpu_torch.serve.pool.hotswap import tree_spec
 
-__all__ = ["ServeConfig", "Engine"]
+__all__ = ["ServeConfig", "Engine", "load_engine"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +75,9 @@ class ServeConfig:
     block_size: int = 8  # tokens per physical KV block (must divide max_len)
     num_blocks: int = 0  # pool size; 0 = num_slots * max_len / block_size + 1
     prefill_budget: int = 0  # prefill tokens per tick; 0 = one max_len bucket
+    # refcounted prefix sharing (pool/prefix.py): a matched block-aligned
+    # prompt prefix maps into the slot's table and only the suffix prefills
+    prefix_cache: bool = False
     # paged-attention tier: "auto" = the CUDA kernel on the card, its
     # plain version on the CPU; "torch" / "cuda" by name
     attn_impl: str = "auto"
@@ -76,12 +89,17 @@ class Engine:
     = CUDA; raises without a GPU) and casts its Dense, adapter and
     embedding parameters to the compute dtype in place
     (:meth:`GPT2LM.to_compute_dtype`, :meth:`LlamaLM.to_compute_dtype`),
-    then :meth:`submit` from any thread. Use as a context manager or call
+    then :meth:`submit` from any thread. ``spec_decode`` (a
+    :class:`~.pool.spec.SpecConfig`) serves speculatively with its draft,
+    cast and moved the same way. Use as a context manager or call
     :meth:`shutdown`, which drains in-flight work by default."""
 
-    def __init__(self, model: Any, config: ServeConfig | None = None, *, device=None):
+    def __init__(self, model: Any, config: ServeConfig | None = None, *, device=None, spec_decode: Any = None):
         self.config = cfg = config or ServeConfig()
         self.device = resolve_device(device)
+        # the live parameters' names, shapes and dtypes before the cast (what
+        # an artifact holds): a hot swap must match them leaf for leaf
+        self._artifact_spec = tree_spec(dict(model.named_parameters()))
         # the compute-dtype cast happens once here (the model's f32 masters
         # are a training concern): per-op casts then do nothing
         model = model.to(self.device).eval().to_compute_dtype()
@@ -105,6 +123,48 @@ class Engine:
         self._prefill_fn = P.make_paged_prefill_fn(dm, attn_impl=self.attn_impl)
         self._decode_fn = P.make_paged_decode_fn(dm, attn_impl=self.attn_impl)
         self._sched = P.AdmissionScheduler(cfg.prefill_budget or self.max_len)
+        # content-addressed prefix sharing: the index forgets a block the
+        # moment a fresh pop recycles it, and freed blocks it still names
+        # park at the bottom of the free stack
+        self._prefix = None
+        if cfg.prefix_cache:
+            self._prefix = P.PrefixIndex(cfg.block_size)
+            self._pool.reuse_hook = self._prefix.invalidate_block
+            self._pool.cached_hook = self._prefix.cached
+            self._prefix_prefill_fn = P.make_prefix_prefill_fn(dm, attn_impl=self.attn_impl)
+        # speculative decode: the draft's own (smaller) pages over the pool's
+        # block table, one k+1 verify on the target a round
+        self.spec = spec_decode
+        if spec_decode is not None:
+            self._draft_artifact_spec = tree_spec(dict(spec_decode.model.named_parameters()))
+            draft = spec_decode.model.to(self.device).eval().to_compute_dtype()
+            self._draft_dm = sd = DecodeModel.wrap(draft)
+            if sd.vocab_size != dm.vocab_size:
+                raise ValueError(
+                    f"draft vocab {sd.vocab_size} != target vocab {dm.vocab_size}; speculative "
+                    "acceptance compares distributions over one shared vocabulary"
+                )
+            if sd.max_len < self.max_len:
+                raise ValueError(
+                    f"draft max_len {sd.max_len} < engine max_len {self.max_len}; the draft must "
+                    "reach every position the target serves"
+                )
+            self._draft_pages = P.init_pages(sd, self._pool.num_blocks, cfg.block_size)
+            self._draft_prefill_fn = P.make_paged_prefill_fn(sd, attn_impl=self.attn_impl)
+            self._propose_fn = P.make_draft_propose_fn(sd, spec_decode.k, attn_impl=self.attn_impl)
+            self._verify_fn = P.make_verify_fn(dm, spec_decode.k, attn_impl=self.attn_impl)
+            self._spec_extra_cols = (
+                P.spec_table_cols(self._pool.blocks_per_slot, cfg.block_size, spec_decode.k)
+                - self._pool.blocks_per_slot
+            )
+            if self._prefix is not None:
+                # the draft's pages share the block geometry: a hit skips its prefill too
+                self._draft_prefix_prefill_fn = P.make_prefix_prefill_fn(sd, attn_impl=self.attn_impl)
+        self._generation = 0  # artifact generation (load_engine seeds it)
+        self._watcher = None
+        # a score() holds this across its forward and a flip across its
+        # pointer moves: a score never sees half of one generation
+        self._params_lock = threading.Lock()
 
         self._queue: "queue.Queue[Request]" = queue.Queue(cfg.queue_depth)
         # evicted continuations and deferred admissions, ahead of arrivals
@@ -128,6 +188,20 @@ class Engine:
         self._decode_time_s = 0.0
         self._evictions = 0
         self._prefill_tokens_computed = 0
+        self._swaps = 0
+        self._swap_rejected = 0
+        self._streams_at_flip: list[int] = []  # streams in flight at each flip
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefix_hit_blocks = 0
+        self._prefix_cow_copies = 0
+        self._prefix_bytes_saved = 0
+        self._ttfts_hit: "collections.deque[float]" = collections.deque(maxlen=4096)
+        self._ttfts_miss: "collections.deque[float]" = collections.deque(maxlen=4096)
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_tokens = 0
 
         self._thread = threading.Thread(target=self._loop, name="serve-engine", daemon=True)
         self._thread.start()
@@ -146,6 +220,7 @@ class Engine:
         seed: int | None = None,
         eos_id: int | None = None,
         request_id: str | None = None,
+        tenant: str | None = None,
     ) -> RequestHandle:
         """Enqueue one request; returns its :class:`RequestHandle`.
 
@@ -155,7 +230,8 @@ class Engine:
         ``queue.Full`` when the bounded queue is full, ``RuntimeError``
         once the engine is draining, ``ValueError`` on a bad request
         (token ids must lie in ``[0, vocab_size)``: PyTorch raises or
-        device-asserts on an out-of-range lookup).
+        device-asserts on an out-of-range lookup). ``tenant`` namespaces
+        the prefix cache (``None``: ``"default"``).
         """
         cfg = self.config
         max_new = cfg.max_new_tokens if max_new_tokens is None else int(max_new_tokens)
@@ -191,7 +267,7 @@ class Engine:
         req = Request(
             ids, max_new, handle,
             request_id=request_id or f"srv-{next(self._ids)}",
-            temperature=temp, top_p=tp, seed=seed, eos_id=eos,
+            temperature=temp, top_p=tp, seed=seed, eos_id=eos, tenant=tenant or "default",
         )
         self._queue.put(req, block=block, timeout=timeout)
         if self._drained.is_set():
@@ -201,33 +277,119 @@ class Engine:
         return handle
 
     def warmup(self) -> dict[str, int]:
-        """Build the CUDA kernels (on the card) and run one prefill per
-        prompt bucket and one decode step, on the caller's thread against
-        a throwaway one-block pool (all-zero block rows route every write
-        to its block 0), so first-request latency pays no kernel build
-        and no library initialisation. Returns the counts of warmed
-        stages."""
+        """Build the CUDA kernels (on the card) and run every stage once at
+        every shape it serves: a prefill per prompt bucket and a decode
+        step; with the prefix cache a suffix prefill per bucket; with a
+        draft its prefill per bucket, a propose and a verify (and its
+        suffix prefills). On the caller's thread against throwaway
+        one-block pools (all-zero block rows route every write to their
+        block 0), so first-request latency pays no kernel build and no
+        library initialisation. Returns the counts of warmed stages."""
         dm, s, bs = self._dm, self.config.num_slots, self.config.block_size
-        bks = self.buckets
+        bks, bps = self.buckets, self._pool.blocks_per_slot
         if self.attn_impl == "cuda":
             kernels.build()
         dev = self.device
+        counts = {"prefill": len(bks), "decode": 1}
+        models = [(dm, self._prefill_fn, getattr(self, "_prefix_prefill_fn", None))]
+        if self.spec is not None:
+            models.append((self._draft_dm, self._draft_prefill_fn, getattr(self, "_draft_prefix_prefill_fn", None)))
         with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
-            pages = P.init_pages(dm, 1, bs)
-            for b in bks:
-                ids = torch.zeros((1, b), dtype=torch.int64, device=dev)
-                row = torch.zeros((b // bs,), dtype=torch.int64, device=dev)
-                self._prefill_fn(pages, ids, 1, row, 0.0, 1.0, 0)
             zeros = torch.zeros((s,), dtype=torch.int32, device=dev)
-            self._decode_fn(
-                pages,
-                torch.zeros((s, self._pool.blocks_per_slot), dtype=torch.int32, device=dev),
-                zeros, zeros, zeros.float(), torch.ones((s,), device=dev), zeros.long(),
-            )
+            samp = (zeros.float(), torch.ones((s,), device=dev), zeros.long())
+            for m, prefill, prefix_prefill in models:
+                pages = P.init_pages(m, 1, bs)
+                for b in bks:
+                    ids = torch.zeros((1, b), dtype=torch.int64, device=dev)
+                    prefill(pages, ids, 1, torch.zeros((b // bs,), dtype=torch.int64, device=dev), 0.0, 1.0, 0)
+                    if prefix_prefill is not None:
+                        row = torch.zeros((bps + b // bs,), dtype=torch.int32, device=dev)
+                        prefix_prefill(pages, ids, 1, 0, row, P.TRASH_BLOCK, P.TRASH_BLOCK, 0.0, 1.0, 0)
+                if m is dm:
+                    self._decode_fn(pages, torch.zeros((s, bps), dtype=torch.int32, device=dev), zeros, zeros, *samp)
+            if self.spec is not None:
+                table = torch.zeros((s, bps + self._spec_extra_cols), dtype=torch.int32, device=dev)
+                dpages, tpages = P.init_pages(self._draft_dm, 1, bs), P.init_pages(dm, 1, bs)
+                props, q_sel, q_probs = self._propose_fn(dpages, table, zeros, zeros, *samp)
+                self._verify_fn(tpages, table, zeros, props, q_sel, q_probs, zeros, *samp)
+                counts.update(draft_prefill=len(bks), propose=1, verify=1)
+            if self._prefix is not None:
+                counts["prefix_prefill"] = len(bks) * len(models)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
         self._warmed.set()
-        return {"prefill": len(bks), "decode": 1}
+        return counts
+
+    def score(self, ids) -> torch.Tensor:
+        """Prefill-only scoring: f32 logits ``(B, S, V)`` of a token batch
+        (``(B, S)`` ints) under the generation now serving, the forward the
+        consensus-mean model runs (the check that an export matches its
+        source). On the caller's thread; a hot swap waits for it."""
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.int64).to(self.device)
+        with self._params_lock, torch.inference_mode():
+            return self._dm.model(ids, attn_impl=self.attn_impl)
+
+    def watch(self, path: str, poll_s: float = 0.25):
+        """Arm the drain-free hot swap: poll ``path`` for a newer artifact
+        generation, stage it off the engine thread, flip between steps
+        (:mod:`.pool.hotswap`). A speculative engine stages the draft
+        riding in ``path/draft/`` with it, so target and draft flip
+        together. Returns the watcher."""
+        if self._watcher is not None:
+            raise RuntimeError("engine is already watching an artifact dir")
+        like = {n: p.dtype for n, p in self._dm.model.named_parameters()}
+        draft_like = None
+        if self.spec is not None:
+            draft_like = {n: p.dtype for n, p in self._draft_dm.model.named_parameters()}
+        self._watcher = P.GenerationWatcher(
+            path, device=self.device, like=like, draft_like=draft_like,
+            current_generation=self._generation, poll_s=poll_s,
+        )
+        return self._watcher
+
+    @property
+    def generation(self) -> int:
+        """The artifact generation now serving (0: a model given directly)."""
+        return self._generation
+
+    def _maybe_swap(self) -> None:
+        """Flip to a staged generation (engine thread, between steps). The
+        staged tree must match the live one leaf for leaf (names, shapes,
+        the artifact's dtypes), and the draft's too where one was staged:
+        target and draft flip together or not at all. A mismatch is
+        rejected and counted, and the current generation keeps serving."""
+        if self._watcher is None:
+            return
+        sw = self._watcher.take()
+        if sw is None:
+            return
+        ok = sw.spec == self._artifact_spec
+        if self.spec is not None and sw.draft_params is not None:
+            ok = ok and sw.draft_spec == self._draft_artifact_spec
+        if not ok:
+            self._watcher.reject(sw)
+            self._swap_rejected += 1
+            return
+        flips = [(self._dm.model, sw.params)]
+        if self.spec is not None and sw.draft_params is not None:
+            flips.append((self._draft_dm.model, sw.draft_params))
+        if sw.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(sw.event)  # ordered after the staging copies; no host wait
+        with self._params_lock:
+            for model, staged in flips:
+                for name, p in model.named_parameters():
+                    t = staged[name]
+                    if sw.event is not None:
+                        t.record_stream(stream)  # allocated on the watcher's stream, now used on this one
+                    p.data = t
+        self._generation = sw.generation
+        self._streams_at_flip.append(self._table.num_active)
+        self._swaps += 1
+        if self._prefix is not None:
+            # stale entries are unreachable already (lookups key on the
+            # generation); this reclaims them and their cached blocks
+            self._prefix.drop_stale(sw.generation)
 
     @property
     def warmed(self) -> bool:
@@ -253,13 +415,16 @@ class Engine:
 
     def stats(self) -> dict[str, Any]:
         """Host-side SLO summary; percentiles over the last 4096 samples,
-        totals lifetime."""
+        totals lifetime. With the prefix cache, TTFT apart for hits and
+        misses and the index's counts; with a draft, the acceptance rate
+        and the tokens a round; with a watcher, the generations staged and
+        the staging times."""
 
         def pct(xs, q):
             return float(np.percentile(list(xs), q)) if xs else float("nan")
 
         steps = self._decode_steps
-        return {
+        out = {
             "device": str(self.device),
             "attn_impl": self.attn_impl,
             "kernel_launches": kernels.launch_counts(),
@@ -274,6 +439,9 @@ class Engine:
             "decode_tokens_per_sec": (
                 self._tokens_out / self._decode_time_s if self._decode_time_s > 0 else 0.0
             ),
+            "generation": self._generation,
+            "swaps": self._swaps,
+            "swap_rejected": self._swap_rejected,
             "warmed": self.warmed,
             "evictions": self._evictions,
             "prefill_tokens_computed": self._prefill_tokens_computed,
@@ -287,6 +455,37 @@ class Engine:
                 ),
             },
         }
+        if self._prefix is not None:
+            lookups = self._prefix_hits + self._prefix_misses
+            out["prefix_cache"] = {
+                "hits": self._prefix_hits,
+                "misses": self._prefix_misses,
+                "hit_rate": self._prefix_hits / lookups if lookups else 0.0,
+                "hit_blocks": self._prefix_hit_blocks,
+                "cow_copies": self._prefix_cow_copies,
+                "bytes_saved": self._prefix_bytes_saved,
+                "entries": len(self._prefix),
+                "indexed_blocks": self._prefix.indexed_blocks,
+                "shared_blocks": self._pool.shared_blocks,
+                "invalidations": self._prefix.invalidations,
+                "ttft_hit_p50_ms": 1e3 * pct(self._ttfts_hit, 50),
+                "ttft_miss_p50_ms": 1e3 * pct(self._ttfts_miss, 50),
+            }
+        if self.spec is not None:
+            out["spec"] = {
+                "k": self.spec.k,
+                "rounds": self._spec_rounds,
+                "proposed": self._spec_proposed,
+                "accepted": self._spec_accepted,
+                "acceptance_rate": self._spec_accepted / self._spec_proposed if self._spec_proposed else 0.0,
+                # tokens the rounds emitted (prefill firsts excluded) a round
+                "tokens_per_round": self._spec_tokens / self._spec_rounds if self._spec_rounds else 0.0,
+            }
+        if self._watcher is not None:
+            out["hotswap"] = {"staged": self._watcher.staged, "rejected": self._watcher.rejected,
+                              "stage_seconds": list(self._watcher.stage_seconds),
+                              "streams_at_flip": list(self._streams_at_flip)}
+        return out
 
     # -- engine thread ------------------------------------------------------
 
@@ -296,10 +495,14 @@ class Engine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             while not self._stop.is_set():
+                self._maybe_swap()  # flip a staged generation between steps
                 self._sched.start_tick()
                 self._admit_waiting()
                 if self._table.num_active:
-                    self._decode_step()
+                    if self.spec is not None:
+                        self._spec_step()
+                    else:
+                        self._decode_step()
                     continue
                 if self._draining.is_set() and q.empty() and not self._requeue:
                     break
@@ -320,6 +523,8 @@ class Engine:
         finally:
             self._stop.set()
             self._draining.set()
+            if self._watcher is not None:
+                self._watcher.stop()
             for i, slot in self._table.active:
                 self._table.release(i)
                 self._finish_handle(slot.request, "cancelled")
@@ -351,15 +556,21 @@ class Engine:
                 req = self._pop_waiting()
             except queue.Empty:
                 return
-            bucket = self._bucket(len(req.ids))
-            need = P.blocks_for_tokens(len(req.ids) + 1, self.config.block_size)
+            # the plan is made again at every attempt: a deferred tick may
+            # find matched blocks recycled or new ones indexed
+            plan = self._prefix_plan(req)
+            if plan is None:
+                bucket = self._bucket(len(req.ids))
+                need = P.blocks_for_tokens(len(req.ids) + 1, self.config.block_size)
+            else:  # only what the hit consumes: fresh pops, revived blocks, the suffix bucket
+                bucket, need = plan["bucket"], plan["free_needed"]
             # defer (don't drop) when the pool can't hold the prompt yet or
             # this tick's prefill budget is spent; the request keeps its
             # place at the head of the line
             if not self._pool.can_admit(need) or not self._sched.try_admit(bucket):
                 self._requeue.appendleft(req)
                 return
-            self._admit(req)
+            self._admit(req, plan)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -367,43 +578,87 @@ class Engine:
                 return b
         raise ValueError(f"prompt length {n} exceeds max bucket {self.buckets[-1]}")
 
-    def _admit(self, req: Request) -> None:
+    def _prefix_plan(self, req: Request) -> dict | None:
+        """``req``'s admission against the prefix index: None = the full
+        prefill (no index, or no match); else the blocks to adopt, the
+        copy-on-write source (a FULL match recomputes its last token inside
+        its last block, which others share: the slot takes a fresh block,
+        copied from the shared one before the write), the suffix's start
+        and length, and the free blocks it costs (fresh pops and revivals
+        of matched blocks parked on the free list)."""
+        if self._prefix is None:
+            return None
+        n = len(req.ids)
+        match = self._prefix.lookup(req.tenant, self._generation, req.ids)
+        if not match:
+            return None
+        bs = self.config.block_size
+        if len(match) * bs == n:
+            adopted, cow_src, start = match[:-1], match[-1], n - 1
+        else:
+            adopted, cow_src, start = match, None, len(match) * bs
+        fresh = P.blocks_for_tokens(n + 1, bs) - len(adopted)
+        revive = sum(1 for b in adopted if self._pool.refcount(b) == 0)
+        if cow_src is not None and self._pool.refcount(cow_src) == 0:
+            revive += 1
+        return {"match": match, "adopted": adopted, "cow_src": cow_src, "start": start,
+                "suffix_len": n - start, "bucket": self._bucket(n - start), "fresh": fresh,
+                "free_needed": fresh + revive}
+
+    def _admit(self, req: Request, plan: dict | None = None) -> None:
         """Prefill ``req`` into a free slot. A raise mid-admission cancels
         this request's handle before propagating (it is out of the queue
         but not yet in the slot table, so no exit sweep would reach it)."""
         try:
-            self._admit_inner(req)
+            self._admit_inner(req, plan)
         except BaseException:
             self._finish_handle(req, "cancelled")
             raise
 
-    def _admit_inner(self, req: Request) -> None:
+    def _admit_inner(self, req: Request, plan: dict | None) -> None:
         idx = self._table.free_slot()
         n = len(req.ids)
-        bucket = self._bucket(n)
+        bucket = self._bucket(n) if plan is None else plan["bucket"]
         bs = self.config.block_size
         # an evicted continuation re-prefills prompt + generated-so-far;
         # its TTFT already happened and its token count keeps running
         already = len(req.handle._all)
         ids = np.zeros((1, bucket), np.int64)
-        ids[0, :n] = req.ids
-        # cover the prompt AND the first decode write (position n)
-        self._pool.alloc(idx, P.blocks_for_tokens(n + 1, bs))
-        try:
-            row = torch.from_numpy(self._pool.block_row(idx, bucket // bs))
-            tok_dev, _logits = self._prefill_fn(
-                self._pages, torch.from_numpy(ids).to(self.device), n,
-                row.to(self.device), req.temperature, req.top_p, req.seed,
-            )
-            tok = int(tok_dev)  # device fence: the first token is real now
-        except BaseException:
-            self._pool.release(idx)  # no leaked blocks on a raise
-            raise
+        if plan is None:
+            ids[0, :n] = req.ids
+        else:
+            ids[0, : plan["suffix_len"]] = req.ids[plan["start"]:]
+        ids = torch.from_numpy(ids).to(self.device)
+        samp = (req.temperature, req.top_p, req.seed)
+        if plan is not None:
+            tok = int(self._prefix_admit(idx, plan, bucket, ids, samp))  # device fence
+        else:
+            if self._prefix is not None:
+                self._prefix_misses += 1
+            # cover the prompt AND the first decode write (position n)
+            self._pool.alloc(idx, P.blocks_for_tokens(n + 1, bs))
+            try:
+                row = torch.from_numpy(self._pool.block_row(idx, bucket // bs)).to(self.device)
+                tok_dev, _logits = self._prefill_fn(self._pages, ids, n, row, *samp)
+                if self.spec is not None:
+                    # the draft's pages need the prompt too (its token is not used)
+                    self._draft_prefill_fn(self._draft_pages, ids, n, row, *samp)
+                tok = int(tok_dev)  # device fence: the first token is real now
+            except BaseException:
+                self._pool.release(idx)  # no leaked blocks on a raise
+                raise
         self._prefill_tokens_computed += bucket
+        if self._prefix is not None:
+            # index the PROMPT's full chunks only (positions a prefill wrote;
+            # a continuation's decoded tokens stay out); first writer wins
+            self._prefix.insert(req.tenant, self._generation, req.ids[: req.handle.prompt_len],
+                                self._pool.owned(idx))
         now = time.perf_counter()
         if already == 0:
             ttft = now - req.arrival_t
             self._ttfts.append(ttft)
+            if self._prefix is not None:
+                (self._ttfts_miss if plan is None else self._ttfts_hit).append(ttft)
             req.handle._ttft_s = ttft
             self._tokens_in += n
         else:
@@ -417,6 +672,48 @@ class Engine:
         self._table.occupy(
             idx, Slot(request=req, next_pos=n, pending=tok, generated=already + 1, ttft_s=ttft)
         )
+
+    def _prefix_admit(self, idx: int, plan: dict, bucket: int, ids: torch.Tensor, samp: tuple) -> torch.Tensor:
+        """A prefix hit's device work: adopt the matched blocks, pop fresh
+        ones for the suffix, run the suffix prefill (and the draft's on a
+        speculative engine: its pages share the block geometry). Returns
+        the first token on the device; on a raise every reference the slot
+        took is let go."""
+        pool, bs = self._pool, self.config.block_size
+        pool.begin(idx)  # outside the unwind: a double-alloc raise here must not release the owner's blocks
+        cow = plan["cow_src"]
+        pinned = False
+        try:
+            pool.adopt(idx, plan["adopted"])
+            if cow is not None:
+                # hold the source across the prefill: the extend below must
+                # not pop it off the free list as this slot's "fresh" block
+                pool.pin(cow)
+                pinned = True
+            fresh = pool.extend(idx, plan["fresh"])
+            src, dst = (cow, fresh[0]) if cow is not None else (P.TRASH_BLOCK, P.TRASH_BLOCK)
+            row = torch.from_numpy(pool.block_row(idx, pool.blocks_per_slot + bucket // bs)).to(self.device)
+            args = (ids, plan["suffix_len"], plan["start"], row, src, dst, *samp)
+            tok_dev, _logits = self._prefix_prefill_fn(self._pages, *args)
+            if self.spec is not None:
+                self._draft_prefix_prefill_fn(self._draft_pages, *args)
+        except BaseException:
+            if pinned:
+                pool.unpin(cow)
+            pool.release(idx)
+            raise
+        if pinned:
+            # the copy is queued on the stream ahead of any later write to the source
+            pool.unpin(cow)
+        hit_blocks = len(plan["match"])
+        self._prefix_hits += 1
+        self._prefix_hit_blocks += hit_blocks
+        self._prefix_cow_copies += cow is not None
+        block_bytes = sum(t[0].numel() * t.element_size() for pg in self._pages for t in pg.values())
+        if self.spec is not None:
+            block_bytes += sum(t[0].numel() * t.element_size() for pg in self._draft_pages for t in pg.values())
+        self._prefix_bytes_saved += hit_blocks * block_bytes
+        return tok_dev
 
     def _youngest_active(self) -> int:
         """Eviction victim: the most recently arrived stream."""
@@ -432,17 +729,20 @@ class Engine:
         self._requeue.appendleft(req)
         self._evictions += 1
 
-    def _grow_blocks(self) -> None:
-        """Before a decode step: give every lane the block its next write
-        needs, evicting youngest-first when the pool is exhausted (the
-        lane may itself be the youngest and preempt itself)."""
+    def _grow_blocks(self, extra_tokens: int = 0) -> None:
+        """Before a step: give every lane the blocks its writes need, the
+        next position plus ``extra_tokens`` more for a verify window,
+        evicting youngest-first when the pool is exhausted (the lane may
+        itself be the youngest and preempt itself). Window positions past
+        the slot's row are not allocated: they go to the trash columns."""
         bs = self.config.block_size
+        bps = self._pool.blocks_per_slot
         for i, _slot in self._table.active:
             while True:
                 slot = self._table.slots[i]
                 if slot is None:
                     break  # evicted while resolving an earlier lane
-                if len(self._pool.owned(i)) >= slot.next_pos // bs + 1:
+                if len(self._pool.owned(i)) >= min(bps, (slot.next_pos + extra_tokens) // bs + 1):
                     break
                 try:
                     self._pool.extend(i, 1)
@@ -452,62 +752,103 @@ class Engine:
                     if victim == i:
                         break
 
-    def _decode_step(self) -> None:
-        self._grow_blocks()
-        active = self._table.active
-        if not active:  # everything preempted
-            return
+    def _slot_arrays(self, active) -> list[torch.Tensor]:
+        """The step's per-lane inputs on the device: pending tokens, write
+        positions, temperatures, top-p, seeds (free lanes stay zero:
+        greedy garbage into the trash block)."""
         s = self.config.num_slots
         tokens = np.zeros((s,), np.int32)
         positions = np.zeros((s,), np.int32)
         temps = np.zeros((s,), np.float32)
         tops = np.ones((s,), np.float32)
         seeds = np.zeros((s,), np.int64)
-        for i, slot in active:  # free lanes stay zero: greedy garbage into trash
+        for i, slot in active:
             tokens[i] = slot.pending
             positions[i] = slot.next_pos
             temps[i] = slot.request.temperature
             tops[i] = slot.request.top_p
             seeds[i] = slot.request.seed
-        dev = self.device
-        t0 = time.perf_counter()
-        next_dev, _logits = self._decode_fn(
-            self._pages,
-            self._pool.device_table(dev),
-            torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(positions).to(dev),
-            torch.from_numpy(temps).to(dev),
-            torch.from_numpy(tops).to(dev),
-            torch.from_numpy(seeds).to(dev),
-        )
-        next_toks = next_dev.cpu().numpy()  # the per-step device fence
-        dt = time.perf_counter() - t0
+        return [torch.from_numpy(a).to(self.device) for a in (tokens, positions, temps, tops, seeds)]
+
+    def _record_step(self, dt: float, active) -> None:
         self._step_times.append(dt)
         self._decode_time_s += dt
         self._decode_steps += 1
-        self._occupancy_sum += len(active) / s
+        self._occupancy_sum += len(active) / self.config.num_slots
         self._block_occupancy_sum += self._pool.used_blocks / self._pool.usable_blocks
-        for i, slot in active:
-            self._emit_and_advance(i, slot, int(next_toks[i]))
 
-    def _emit_and_advance(self, i: int, slot: Slot, tok: int) -> None:
+    def _decode_step(self) -> None:
+        self._grow_blocks()
+        active = self._table.active
+        if not active:  # everything preempted
+            return
+        t0 = time.perf_counter()
+        next_dev, _logits = self._decode_fn(self._pages, self._pool.device_table(self.device),
+                                            *self._slot_arrays(active))
+        next_toks = next_dev.cpu().numpy()  # the per-step device fence
+        self._record_step(time.perf_counter() - t0, active)
+        for i, slot in active:
+            self._emit_and_advance(i, slot, [int(next_toks[i])])
+
+    def _spec_step(self) -> None:
+        """One speculative round: the draft proposes ``k`` tokens a lane,
+        the target verifies every lane's window in ONE forward, and each
+        lane commits its accepted prefix and the replacement or bonus
+        token, 1 to ``k + 1`` tokens; one host fence."""
+        k = self.spec.k
+        self._grow_blocks(extra_tokens=k)
+        active = self._table.active
+        if not active:  # everything preempted
+            return
+        tokens, positions, temps, tops, seeds = self._slot_arrays(active)
+        table = self._pool.device_table(self.device, self._spec_extra_cols)
+        t0 = time.perf_counter()
+        props, q_sel, q_probs = self._propose_fn(self._draft_pages, table, tokens, positions, temps, tops, seeds)
+        n_acc, finals, _logits = self._verify_fn(self._pages, table, tokens, props, q_sel, q_probs, positions,
+                                                 temps, tops, seeds)
+        props, n_acc, finals = (t.cpu().numpy() for t in (props, n_acc, finals))  # the round's fence
+        self._record_step(time.perf_counter() - t0, active)
+        emitted = accepted = 0
+        for i, slot in active:
+            n = int(n_acc[i])
+            accepted += n
+            emitted += self._emit_and_advance(i, slot, [int(t) for t in props[i, :n]] + [int(finals[i])])
+        if self._pool.free_blocks == 0:
+            # the rejected window tails' blocks go back only under pool
+            # pressure: otherwise the next round would extend the same lanes
+            bs = self.config.block_size
+            for i, slot in self._table.active:
+                self._pool.shrink(i, slot.next_pos // bs + 1)
+        self._spec_rounds += 1
+        self._spec_proposed += k * len(active)
+        self._spec_accepted += accepted
+        self._spec_tokens += emitted
+
+    def _emit_and_advance(self, i: int, slot: Slot, toks: list[int]) -> int:
+        """Emit ``toks`` (a decode token, or a round's accepted prefix and
+        final token) on lane ``i`` one at a time, so an eos, token-cap or
+        length stop lands at the right token and the rest are dropped.
+        Returns the tokens emitted."""
         req = slot.request
-        req.handle._emit(tok)
-        self._tokens_out += 1
-        slot.generated += 1
-        slot.next_pos += 1
-        slot.pending = tok
-        reason = None
-        if tok == req.eos_id:
-            reason = "eos"
-        elif slot.generated >= req.max_new_tokens:
-            reason = "max_tokens"
-        elif slot.next_pos >= self.max_len:
-            reason = "length"  # safety net; submit() validation bounds it
-        if reason is not None:
-            self._table.release(i)
-            self._pool.release(i)
-            self._finish_handle(req, reason, ttft=slot.ttft_s)
+        for emitted, tok in enumerate(toks, start=1):
+            req.handle._emit(tok)
+            self._tokens_out += 1
+            slot.generated += 1
+            slot.next_pos += 1
+            slot.pending = tok
+            reason = None
+            if tok == req.eos_id:
+                reason = "eos"
+            elif slot.generated >= req.max_new_tokens:
+                reason = "max_tokens"
+            elif slot.next_pos >= self.max_len:
+                reason = "length"  # safety net; submit() validation bounds it
+            if reason is not None:
+                self._table.release(i)
+                self._pool.release(i)
+                self._finish_handle(req, reason, ttft=slot.ttft_s)
+                return emitted
+        return len(toks)
 
     def _finish_handle(self, req: Request, reason: str, ttft: float = 0.0) -> None:
         req.handle._finish(
@@ -523,3 +864,29 @@ class Engine:
                 seed=req.seed,
             )
         )
+
+
+def load_engine(path: str, config: ServeConfig | None = None, *, spec_k: int = 0, device=None) -> Engine:
+    """An :class:`Engine` over a serving artifact (:mod:`.export`): the
+    meta's config rebuilds the architecture, the consensus mean loads in,
+    and the engine's ``generation`` starts at the artifact's (a watcher
+    then takes only newer ones). ``spec_k > 0`` also loads the draft in
+    ``path/draft/`` and serves speculatively with ``k = spec_k`` (raises
+    where there is none). ``device``: ``None`` = CUDA (raises without a
+    GPU); the CPU only when asked."""
+    from consensusml_tpu_torch.serve.export import DRAFT_SUBDIR, build_serving_model, load_serving
+
+    meta, params, _model_state = load_serving(path)
+    model = build_serving_model(meta, params, device)
+    spec, draft_params = None, None
+    if spec_k:
+        dmeta, draft_params, _dms = load_serving(os.path.join(path, DRAFT_SUBDIR))  # raises with context
+        spec = P.SpecConfig(model=build_serving_model(dmeta, draft_params, device), k=spec_k)
+    engine = Engine(model, config, device=device, spec_decode=spec)
+    # what a swap must match: the artifact's own leaves (a LoRA base is
+    # stored in the compute dtype)
+    engine._artifact_spec = tree_spec(params)
+    if draft_params is not None:
+        engine._draft_artifact_spec = tree_spec(draft_params)
+    engine._generation = int(meta.get("generation", 0))
+    return engine

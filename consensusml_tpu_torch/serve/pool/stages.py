@@ -5,6 +5,8 @@ stage and donates the pages; here each stage is a plain function under
 ``torch.inference_mode`` that updates the pages IN PLACE and returns the
 sampled tokens (still on the device — the engine's host copy is the
 per-step fence) with the logits they were drawn from.
+:func:`make_prefix_prefill_fn` is the prefix cache's admission stage: the
+unshared suffix only, as a window over the adopted blocks.
 
 :class:`AdmissionScheduler` is the host-side prefill budget per engine
 tick, unchanged from the reference.
@@ -16,9 +18,10 @@ from typing import Any, Callable
 
 import torch
 
+from consensusml_tpu_torch.models.attention import paged_cow_copy
 from consensusml_tpu_torch.serve.sampling import sample_token
 
-__all__ = ["make_paged_prefill_fn", "make_paged_decode_fn", "AdmissionScheduler"]
+__all__ = ["make_paged_prefill_fn", "make_paged_decode_fn", "make_prefix_prefill_fn", "AdmissionScheduler"]
 
 
 def make_paged_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
@@ -58,6 +61,50 @@ def make_paged_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
         return tok, last
 
     return prefill
+
+
+def make_prefix_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
+    """``prefix_prefill(pages, ids (1, B), suffix_len, start_pos, block_row
+    (cols,), cow_src, cow_dst, temperature, top_p, seed)`` ->
+    ``(first_token (), last_logits (V,))``.
+
+    The matched prefix already sits in the slot's blocks (adopted from the
+    index), so only the suffix, ``ids[0, :suffix_len]`` at positions
+    ``start_pos + i`` padded to bucket ``B``, runs: a window of ``B`` rows
+    (2-D ``positions``), each row's K/V written to ``block_row[pos // bs]``
+    and attending the cache up to its position through the paged-attention
+    kernel at ``W = B``, which reads the adopted prefix as the full
+    prefill would have recomputed it. ``block_row`` carries ``B // bs``
+    trash columns past the slot's row, where pad rows past the cache's end
+    land.
+
+    A full-match hit recomputes only the last prompt token, whose write
+    lands inside a block other streams share: ``cow_src`` / ``cow_dst``
+    (host ints) copy the shared block to the slot's fresh one first, and
+    ``block_row`` names the fresh one (:func:`paged_cow_copy`; ``0, 0``, the
+    trash pair, copies nothing). The first token samples at position
+    ``start_pos + suffix_len - 1``, the full prefill's key.
+    """
+    model = dm.model
+
+    @torch.inference_mode()
+    def prefix_prefill(pages, ids, suffix_len, start_pos, block_row, cow_src, cow_dst, temperature, top_p, seed):
+        for pg in pages:
+            paged_cow_copy(pg, cow_src, cow_dst)
+        pos = start_pos + torch.arange(ids.shape[1], device=ids.device)[None, :]
+        logits = model(ids, positions=pos, kv_cache=pages, block_table=block_row[None, :], attn_impl=attn_impl)
+        last = logits[0, suffix_len - 1]  # the last real suffix token's logits
+        dev = last.device
+        tok = sample_token(
+            last[None],
+            torch.tensor([temperature], dtype=torch.float32, device=dev),
+            torch.tensor([top_p], dtype=torch.float32, device=dev),
+            torch.tensor([seed], dtype=torch.int64, device=dev),
+            torch.tensor([start_pos + suffix_len - 1], dtype=torch.int64, device=dev),
+        )[0]
+        return tok, last
+
+    return prefix_prefill
 
 
 def make_paged_decode_fn(dm: Any, attn_impl: str = "auto") -> Callable:

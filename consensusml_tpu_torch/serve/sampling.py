@@ -10,7 +10,10 @@ token.
 ``fold_in(fold_in(PRNGKey(seed), position), tag)``. Here each draw is a
 counter-based hash of ``(seed, position, tag, token index)`` computed
 with int64 tensor ops (32-bit lanes, multiplications split so no
-intermediate overflows), turned into a uniform in (0, 1) and a Gumbel
+intermediate overflows), the tag the reference's: ``SAMPLE_TAG`` for an
+ordinary next-token draw, ``ACCEPT_TAG`` for speculative decode's
+acceptance uniforms, ``RESIDUAL_TAG`` for its residual re-draw
+(:mod:`.pool.spec`); each turned into a uniform in (0, 1) and a Gumbel
 race over the log-probabilities. The same ``(seed, position)`` gives the
 same token on the CPU and on the card, whatever else shares the batch, so
 a stream replays from its seed. It does not give JAX's bits: equality
@@ -23,13 +26,17 @@ import torch
 
 __all__ = [
     "SAMPLE_TAG",
+    "ACCEPT_TAG",
+    "RESIDUAL_TAG",
     "sampling_uniforms",
     "adjusted_probs",
     "categorical_from_probs",
     "sample_token",
 ]
 
-SAMPLE_TAG = 0  # the reference's tag for ordinary next-token draws
+SAMPLE_TAG = 0  # the reference's tags: ordinary next-token draws,
+ACCEPT_TAG = 1  # speculative acceptance uniforms,
+RESIDUAL_TAG = 2  # and the residual re-draw after a rejection
 
 _PROB_FLOOR = 1e-38
 _M32 = 0xFFFFFFFF

@@ -47,8 +47,11 @@ backend; its world size must be the run's: elastic resize is not ported),
 ``--round-timeout S`` hard-exits with code 3 when a round makes no
 progress for S seconds (``utils/watchdog.py``; armed after the first
 round, paused during an eval), ``--data-dir`` trains on MNIST, CIFAR-10 or
-token files (``data/files.py``) and ``--metrics-out PATH`` appends one JSON
-record a logged round (``utils/logging.py``)::
+token files (``data/files.py``), ``--metrics-out PATH`` appends one JSON
+record a logged round (``utils/logging.py``) and ``--export-serving DIR``
+writes the consensus mean as a serving artifact at the end and at every
+``--checkpoint-every`` boundary (``serve/export.py``; each export bumps its
+generation, which an engine watching ``DIR`` flips to)::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
@@ -79,6 +82,7 @@ record a logged round (``utils/logging.py``)::
         --eval-batches 2 --eval-every 2
     python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 2 --lr-schedule cosine \
         --warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --resume D/step_2 --eval-batches 2
+    python -m consensusml_tpu_torch.train --config gpt2_topk --device cpu --rounds 2 --export-serving ART
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a
@@ -165,6 +169,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0, help="rounds; 0 = end only")
     p.add_argument("--resume", default=None, help="checkpoint path to resume from (DIR/step_N)")
+    p.add_argument("--export-serving", default=None, metavar="DIR",
+                   help="write the consensus-mean serving artifact here at the end of the run (and at every "
+                        "--checkpoint-every boundary); each export bumps its generation, so an engine watching "
+                        "DIR (Engine.watch) flips to every new mean mid-traffic")
     p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
@@ -309,6 +317,7 @@ def _main_collective(args, world, sched_start) -> int:
 def main(argv=None) -> int:
     from consensusml_tpu_torch import configs
     from consensusml_tpu_torch.device import resolve_device
+    from consensusml_tpu_torch.serve.export import export_serving, serving_meta
     from consensusml_tpu_torch.train.evaluate import evaluate
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
     from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
@@ -363,6 +372,15 @@ def main(argv=None) -> int:
 
     watchdog = start_watchdog(args.round_timeout)
     saver, last_saved = AsyncSaver(), None
+    last_exported = None
+
+    def export_art(rnd):
+        # synchronous: the handoff is complete when its line prints
+        nonlocal last_exported
+        path = export_serving(args.export_serving, state, config_name=bundle.name, scale=args.scale, round=rnd)
+        last_exported = rnd
+        print(f"serving artifact: {path} (round {rnd}, generation {serving_meta(path)['generation']})", flush=True)
+
     with MetricsLogger(args.metrics_out) as logger:
         for i, batch in enumerate(bundle.batches(args.rounds, args.seed, start=start)):
             rnd = start + i
@@ -389,6 +407,8 @@ def main(argv=None) -> int:
             if args.checkpoint_dir and due(args.checkpoint_every, rnd):
                 saver.submit(args.checkpoint_dir, state, step=rnd + 1)
                 last_saved = rnd + 1
+            if args.export_serving and due(args.checkpoint_every, rnd):
+                export_art(rnd + 1)  # the serving handoff rides the checkpoint cadence
     if args.checkpoint_dir and last_saved != end:
         saver.submit(args.checkpoint_dir, state, step=end)
     if watchdog is not None:
@@ -396,6 +416,8 @@ def main(argv=None) -> int:
     if args.checkpoint_dir:
         saver.wait()
         print(f"checkpoint: {saver.last_path}", flush=True)
+    if args.export_serving and last_exported != end:
+        export_art(end)
     if args.eval_batches > 0:
         run_eval(None)
     return 0

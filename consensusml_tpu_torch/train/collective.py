@@ -104,6 +104,33 @@ def save_collective(path: str, state, mesh, step: int) -> str:
     return dest
 
 
+def export_collective(path: str, state, mesh, *, config_name: str, scale: str, round_: int) -> int | None:
+    """The serving artifact of a collective run (``--export-serving``): the
+    ranks' all-reduce mean of their parameters and model state (f32 sums
+    over the ranks over the world size, :func:`evaluate_collective`'s mean
+    model), written by rank 0 with the LoRA base beside it
+    (:func:`~consensusml_tpu_torch.serve.export.export_mean`); every rank
+    waits for the write. Returns the artifact's generation on rank 0,
+    ``None`` elsewhere."""
+    from consensusml_tpu_torch.comm import collectives
+    from consensusml_tpu_torch.serve.export import export_mean, serving_meta
+    from consensusml_tpu_torch.utils import tree as T
+
+    params = {n: p[0] for n, p in state.params.items()}
+    ms_leaves, ms_spec = T.flatten(T.tree_map(lambda t: t[0], state.model_state))
+    means = collectives.all_reduce_mean(list(params.values()) + ms_leaves, mesh)
+    gen = None
+    if mesh.rank == 0:
+        mean = {n: m.to(p.dtype) for (n, p), m in zip(params.items(), means)}
+        model_state = T.unflatten(ms_spec, [m.to(t.dtype) for t, m in zip(ms_leaves, means[len(params):])])
+        dest = export_mean(path, {**mean, **state.frozen}, config_name=config_name, scale=scale, round=round_,
+                           world_size=mesh.world_size, model_state=model_state)
+        gen = serving_meta(dest)["generation"]
+        print(f"serving artifact: {dest} (round {round_}, generation {gen})", flush=True)
+    mesh.barrier()
+    return gen
+
+
 def train_rank(rank: int, world: int, spec: dict) -> dict:
     """One rank of a CLI run: its worker's rounds. Returns per round the
     loss, consensus error, wire bytes, times and the kernel launches of
@@ -168,6 +195,13 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     watchdog = start_watchdog(spec.get("round_timeout", 0.0))
     logger = MetricsLogger(spec.get("metrics_out") if rank == 0 else None)
     ckpt_dir, last_saved, ckpt_path = spec.get("checkpoint_dir"), None, None
+    export_dir, last_exported = spec.get("export_serving"), None
+
+    def export(r):
+        nonlocal last_exported
+        export_collective(export_dir, state, mesh, config_name=bundle.name, scale=spec["scale"], round_=r)
+        last_exported = r
+
     rounds = []
     for i, batch in enumerate(bundle.batches(spec["rounds"], spec["seed"], start=start)):
         r = start + i
@@ -216,9 +250,13 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                 watchdog.beat(f"eval done @ round {r}")
         if ckpt_dir and due(spec.get("checkpoint_every") or 0, r):
             ckpt_path, last_saved = save_collective(ckpt_dir, state, mesh, r + 1), r + 1
+        if export_dir and due(spec.get("checkpoint_every") or 0, r):
+            export(r + 1)  # the serving handoff rides the checkpoint cadence
     logger.close()
     if ckpt_dir and last_saved != end:
         ckpt_path = save_collective(ckpt_dir, state, mesh, end)
+    if export_dir and last_exported != end:
+        export(end)
     if watchdog is not None:
         watchdog.stop()
     if ckpt_dir and rank == 0:

@@ -16,6 +16,11 @@ The narrow ResNet (``cifar_resnet50`` smoke, the fused BN's plain
 versions, 2 ranks) resumes bit for bit on the collective backend too; the
 library's simulated resume is in ``tests/test_torch_checkpoint.py``.
 
+The straight collective run also exports its consensus mean for serving
+(``--export-serving``) at each checkpoint: rank 0 writes the ranks'
+all-reduce mean, generations 1 and 2, equal to the mean of the last
+checkpoint's workers.
+
 The collective runs of each case share one spawn of ranks
 (``collective.train_runs`` over the CLI's parsed flags, as
 ``_main_collective`` builds them): a run reads the checkpoint the one
@@ -28,6 +33,7 @@ import pytest
 import torch
 
 from consensusml_tpu_torch.comm.launch import launch
+from consensusml_tpu_torch.serve.export import load_serving
 from consensusml_tpu_torch.train import collective
 from consensusml_tpu_torch.train.__main__ import main, parse_args
 from consensusml_tpu_torch.utils.checkpoint import checkpoint_round
@@ -97,8 +103,9 @@ def test_cli_resume_on_both_backends_and_across(tmp_path, capfd):
     resume = lambda d: ["--rounds", "2", "--resume", str(tmp_path / d / "step_2")]  # noqa: E731
     assert main(base + ["--rounds", "4", *ckpt("sim"), "--checkpoint-every", "2"]) == 0
     sim = _rounds(capfd.readouterr().out)
+    art = str(tmp_path / "coll_art")
     coll, coll_to_coll, sim_to_coll = _collective(
-        [base + ["--rounds", "4", *ckpt("coll"), "--checkpoint-every", "2"],
+        [base + ["--rounds", "4", *ckpt("coll"), "--checkpoint-every", "2", "--export-serving", art],
          base + resume("coll") + ckpt("coll_to_coll"), base + resume("sim") + ckpt("sim_to_coll")], [0, 2, 2], capfd)
     assert main(base + resume("coll") + ckpt("coll_to_sim")) == 0
     out = capfd.readouterr().out
@@ -110,6 +117,12 @@ def test_cli_resume_on_both_backends_and_across(tmp_path, capfd):
     assert_checkpoints_equal(str(tmp_path / "coll" / "step_4"), str(tmp_path / "coll_to_coll" / "step_4"))
     assert_checkpoints_equal(str(tmp_path / "coll" / "step_4"), str(tmp_path / "sim_to_coll" / "step_4"), CROSS_RTOL)
     assert_checkpoints_equal(str(tmp_path / "sim" / "step_4"), str(tmp_path / "coll_to_sim" / "step_4"), CROSS_RTOL)
+    meta, params, _ = load_serving(art)
+    assert (meta["config_name"], meta["round"], meta["world_size"], meta["generation"]) == ("mnist_mlp", 4, 2, 2)
+    workers = _load(str(tmp_path / "coll" / "step_4"))
+    rows = [dict(zip(w["paths"], w["tensors"])) for w in workers]
+    for name, got in params.items():
+        assert torch.equal(got, (rows[0]["params." + name] + rows[1]["params." + name]) / 2), name
 
 
 def test_cli_resnet_resumes_bit_for_bit_on_the_collective_backend(tmp_path, capfd):

@@ -209,6 +209,100 @@ def test_paged_kernel_at_llama_heads_never_reads_past_positions(dev, w, hkv):
     assert torch.isfinite(out).all() and torch.equal(out, clean)
 
 
+def _window_case(dev, w, hkv, h, d, nb, starts, bs=16, seed=0):
+    """One suffix window a slot, as a prefix hit runs it: slot ``i``'s
+    ``w`` rows at positions ``starts[i] .. starts[i] + w - 1`` of an
+    ``nb``-page cache (rows past the cache read its last key), K/V of
+    ``hkv`` heads, q of ``h``; the trash block holds inf."""
+    s = len(starts)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = s * nb + 1
+    k, v = (torch.randn(n, bs, hkv, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    k[0] = float("inf")
+    table = (torch.randperm(n - 1, generator=gen, device=dev)[: s * nb] + 1).view(s, nb).to(torch.int32).contiguous()
+    pos = torch.tensor(starts, device=dev)[:, None] + torch.arange(w, device=dev)[None, :]
+    q = torch.randn(s, w, h, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    return q, k, v, table, pos.to(torch.int32).contiguous()
+
+
+# the window form's cases: (W, H, Hkv, D, pages a slot, the slots' window starts)
+WINDOW_CASES = {
+    "gpt2-w16": (16, 16, 16, 64, 64, (0, 512, 1000, 37)),
+    "gpt2-w64": (64, 16, 16, 64, 64, (0, 512, 960, 100)),
+    "gpt2-w1024": (1024, 16, 16, 64, 64, (0,)),
+    "gpt2-w24": (24, 16, 16, 64, 64, (3, 1000)),
+    "gqa-w128": (128, 16, 4, 64, 64, (0, 700)),
+    "llama-w16": (16, 32, 32, 128, 256, (0, 4080, 2047)),
+    "llama-w256": (256, 32, 32, 128, 256, (0, 3840, 1000)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_paged_kernel_window_past_8_rows_matches_plain(dev, case):
+    """The tiled form (W > 8: tiles of at most 8 rows on the grid's third
+    axis) against the plain version at the paged gate, one launch a call
+    counted as a window launch: GPT-2-medium's heads (whole pages) at the
+    suffix buckets 16, 64 and 1024 of a 1024-token cache, a window that is
+    not a power of two (tiles of 8), GQA, and Llama-2-7B's heads (head
+    groups) at 16 and 256 rows of a 4096-token cache; slots whose windows
+    run past the cache's end read its last key there. A fixed-order fold:
+    a second call gives the same bits."""
+    w, h, hkv, d, nb, starts = WINDOW_CASES[case]
+    q, k, v, table, pos = _window_case(dev, w, hkv, h, d, nb, starts)
+    plan = tpa.paged_plan(nb, 16, hkv, d, w, h)
+    assert plan.rows <= 8 and w % plan.rows == 0 and (plan.kv_heads < hkv) == case.startswith("llama")
+    before = dict(tpa.paged_attention.__dict__)
+    out = tpa.paged_attention(q, k, v, table, pos)
+    ref = tpa.paged_attention_plain(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert tpa.paged_attention.launches == before["launches"] + 1
+    assert tpa.paged_attention.window_launches == before["window_launches"] + 1
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    assert torch.equal(out, tpa.paged_attention(q, k, v, table, pos))
+
+
+@pytest.mark.parametrize("case", ["gpt2-w64", "llama-w16"])
+def test_paged_kernel_window_at_the_longest_cache(dev, case):
+    """The tiled form at the longest cache its plan takes (nb =
+    paged_max_blocks at the window's W), one slot attending every key in
+    its last tile; one page more is refused."""
+    w, h, hkv, d, _nb, _starts = WINDOW_CASES[case]
+    bs = 16
+    nb = tpa.paged_max_blocks(bs, hkv, d, w, h)
+    q, k, v, table, pos = _window_case(dev, w, hkv, h, d, nb, (nb * bs - w,), seed=3)
+    out = tpa.paged_attention(q, k, v, table, pos)
+    ref = tpa.paged_attention_plain(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-7, atol=1e-5)
+    with pytest.raises(ValueError):
+        tpa.paged_plan(nb + 1, bs, hkv, d, w, h)
+
+
+@pytest.mark.parametrize("case", ["gpt2-w64", "llama-w16"])
+def test_paged_kernel_window_never_reads_past_a_tiles_positions(dev, case):
+    """Every key past the largest position of the window's FIRST tile NaN
+    in K and V: the first tile's blocks read none of them, so its rows
+    keep their bits (the later tiles, which attend those keys, are not
+    compared); and every key past the slot's last position NaN: the whole
+    window keeps its bits."""
+    w, h, hkv, d, nb, starts = WINDOW_CASES[case]
+    q, k, v, table, pos = _window_case(dev, w, hkv, h, d, nb, starts[:2], seed=4)
+    clean = tpa.paged_attention(q, k, v, table, pos)
+    rows_a_tile = tpa.paged_plan(nb, 16, hkv, d, w, h).rows
+    bs = k.shape[1]
+    t = torch.arange(nb * bs, device=dev)
+    blocks = table.long()[:, :, None] * bs + torch.arange(bs, device=dev)[None, None, :]
+    for lim, keep in ((pos[:, :rows_a_tile].max(1).values, slice(0, rows_a_tile)), (pos.max(1).values, slice(None))):
+        dirty = blocks.reshape(len(table), -1)[t[None, :] > lim[:, None]]
+        kn, vn = k.clone(), v.clone()
+        kn.view(-1, *k.shape[2:])[dirty] = float("nan")
+        vn.view(-1, *v.shape[2:])[dirty] = float("nan")
+        out = tpa.paged_attention(q, kn, vn, table, pos)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out[:, keep]).all() and torch.equal(out[:, keep], clean[:, keep])
+
+
 def _random_llama(dev, cfg, seed):
     """A port ``LlamaLM`` on the card with random weights: N(0, 1/fan_in)
     kernels and adapters, N(0, 1/hidden) embedding, unit norm scales."""
@@ -278,9 +372,10 @@ def test_paged_plan_shared_memory_is_the_kernels(dev):
     lib = tpa._lib()
     for w, h, hkv, d, bs, nb in ((1, 16, 16, 64, 16, 64), (4, 16, 8, 64, 16, 64), (8, 16, 4, 64, 16, 200),
                                  (1, 16, 2, 64, 16, 2), (1, 32, 32, 128, 16, 256), (8, 32, 32, 128, 8, 512),
-                                 (4, 32, 8, 128, 16, 256), (4, 16, 16, 64, 16, 5000)):
+                                 (4, 32, 8, 128, 16, 256), (4, 16, 16, 64, 16, 5000), (1024, 16, 16, 64, 16, 64),
+                                 (256, 32, 32, 128, 16, 256), (24, 16, 4, 64, 16, 64)):
         p = tpa.paged_plan(nb, bs, hkv, d, w, h)
-        assert lib.cml_paged_attention_smem_bytes(w, h, hkv, d, bs, p.pages, p.ring, p.kv_heads) == p.smem
+        assert lib.cml_paged_attention_smem_bytes(p.rows, h, hkv, d, bs, p.pages, p.ring, p.kv_heads) == p.smem
 
 
 def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -291,8 +386,15 @@ def test_paged_wrapper_refuses_what_the_kernel_does_not_take(dev):
         tpa.paged_attention(q, k, v, table.long(), pos)
     with pytest.raises(ValueError):
         tpa.paged_attention(q.transpose(0, 1), k, v, table, pos)
-    with pytest.raises(ValueError):  # nine window rows
-        tpa.paged_attention(q.expand(-1, 9, -1, -1).contiguous(), k, v, table, pos.expand(-1, 9).contiguous())
+    with pytest.raises(ValueError):  # no window rows
+        tpa.paged_attention(q[:, :0].contiguous(), k, v, table, pos[:, :0].contiguous())
+    with pytest.raises(ValueError):  # positions of another window than q's
+        tpa.paged_attention(q.expand(-1, 16, -1, -1).contiguous(), k, v, table, pos.expand(-1, 9).contiguous())
+    lib = tpa._lib()  # the kernel's own refusals, nothing launched: tiles that do not cut W, a tile past 8 rows
+    for w, wt in ((16, 3), (16, 16)):
+        assert lib.cml_paged_attention_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+                                            pos.data_ptr(), q.data_ptr(), k.shape[0], 8, w, 16, 16, 64, 16, 64, 4,
+                                            16, 2, 16, wt, 0.125, None) != 0
 
 
 FLASH_CASES = [(s, causal) for s in (1, 63, 64, 65, 127, 200, 600, 1000, 1024) for causal in (True, False)]
@@ -605,6 +707,95 @@ def test_engine_on_card_launches_the_paged_kernel(dev):
         stats = eng.stats()
     assert stats["attn_impl"] == "cuda" and len(r.tokens) == 6
     assert stats["kernel_launches"]["paged_attention"] == 2 * stats["decode_steps"] > 0
+
+
+def _stage_pair(dev, seed=0):
+    """GPT-2-medium's widths cut to 2 layers on the card (random weights,
+    the compute-dtype cast), a 1024-token block table of 16-token pages a
+    slot and pages holding a random history."""
+    from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
+    from consensusml_tpu_torch.serve import pool as P
+    from consensusml_tpu_torch.serve.decode import DecodeModel
+
+    model = GPT2LM(GPT2Config(layers=2, dropout=0.0), device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    dm = DecodeModel.wrap(model.eval().to_compute_dtype())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    pages = P.init_pages(dm, 4 * 64 + 1, 16)
+    for pg in pages:
+        for t in pg.values():
+            t.normal_(generator=gen)
+    return P, dm, pages
+
+
+@pytest.mark.parametrize("k", [4, 7])
+def test_verify_through_the_kernel_matches_plain(dev, k):
+    """``make_verify_fn`` at W = k + 1 on the kernel tier against the plain
+    tier (same weights, pages and greedy inputs): the window's logits
+    within the serve gate (2.5e-2 of max|logit|) and the paged kernel
+    launched once a layer; the decisions equal wherever the plain
+    logits' top-2 gap is over the gate."""
+    P, dm, pages = _stage_pair(dev)
+    s = 4
+    table = torch.arange(1, s * 64 + 1, dtype=torch.int32, device=dev).view(s, 64)
+    table = torch.cat([table, torch.zeros(s, P.spec_table_cols(64, 16, k) - 64, dtype=torch.int32, device=dev)], 1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, 50257, (s,), generator=gen, device=dev, dtype=torch.int32)
+    positions = torch.tensor([5, 500, 1023 - k, 1023], dtype=torch.int32, device=dev)
+    props = torch.randint(0, 50257, (s, k), generator=gen, device=dev, dtype=torch.int32)
+    q_probs = torch.nn.functional.one_hot(props.long(), 50257).float()
+    samp = (torch.zeros(s, device=dev), torch.ones(s, device=dev), torch.zeros(s, dtype=torch.int64, device=dev))
+    out = {}
+    for impl in ("cuda", "torch"):
+        copy = [{kk: t.clone() for kk, t in pg.items()} for pg in pages]
+        before = tpa.paged_attention.launches
+        out[impl] = P.make_verify_fn(dm, k, attn_impl=impl)(copy, table, tokens, props, torch.ones(s, k, device=dev),
+                                                            q_probs, positions, *samp)
+        torch.cuda.synchronize()
+        out[impl] += (tpa.paged_attention.launches - before,)
+    (gn, gf, gl, glaunch), (wn, wf, wl, wlaunch) = out["cuda"], out["torch"]
+    assert (glaunch, wlaunch) == (2, 0)
+    assert torch.isfinite(gl).all() and float((gl - wl).abs().max() / wl.abs().max()) <= 2.5e-2
+    top2 = wl.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) / wl.abs().amax(dim=(1, 2))[:, None] > 2.5e-2).all(1)
+    assert torch.equal(gn[clear], wn[clear]) and torch.equal(gf[clear], wf[clear])
+
+
+@pytest.mark.parametrize("n,start,cow", [(700, 512, False), (512, 511, True), (1000, 0, False)],
+                         ids=["suffix-188", "cow", "whole-1000"])
+def test_prefix_prefill_through_the_kernel_matches_plain(dev, n, start, cow):
+    """``make_prefix_prefill_fn`` on the kernel tier (the window form at W =
+    the suffix bucket: 256, 16 and 1024 rows) against the plain tier, from
+    the same pages: the last logits and the pages it writes within the
+    serve gate of their scale (the second layer's K/V carry the first
+    layer's attention), the copy-on-write source untouched, and one
+    window launch a layer."""
+    P, dm, pages = _stage_pair(dev, seed=4)
+    bucket = next(b for b in (16, 32, 64, 128, 256, 512, 1024) if b >= n - start)
+    row = torch.zeros(64 + bucket // 16, dtype=torch.int32, device=dev)
+    row[:64] = torch.arange(1, 65, dtype=torch.int32, device=dev)
+    src, dst = (32, 100) if cow else (0, 0)
+    if cow:
+        row[31] = dst  # the slot's last prompt block is a fresh copy of the shared block 32
+    ids = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+    ids[0, : n - start] = torch.randint(0, 50257, (n - start,), generator=torch.Generator(device=dev).manual_seed(5),
+                                        device=dev)
+    out = {}
+    for impl in ("cuda", "torch"):
+        copy = [{kk: t.clone() for kk, t in pg.items()} for pg in pages]
+        before = tpa.paged_attention.window_launches
+        tok, last = P.make_prefix_prefill_fn(dm, attn_impl=impl)(copy, ids, n - start, start, row, src, dst,
+                                                                 0.0, 1.0, 0)
+        torch.cuda.synchronize()
+        out[impl] = (last, copy, tpa.paged_attention.window_launches - before)
+    (gl, gp, gw), (wl, wp, ww) = out["cuda"], out["torch"]
+    assert (gw, ww) == (2, 0)
+    assert torch.isfinite(gl).all() and float((gl - wl).abs().max() / wl.abs().max()) <= 2.5e-2
+    for g, w, orig in zip(gp, wp, pages):
+        for kk in ("k", "v"):
+            assert float((g[kk] - w[kk]).abs().max()) <= 2.5e-2 * float(w[kk].abs().max())
+            if cow:
+                assert torch.equal(g[kk][src], orig[kk][src])
 
 
 def test_gpt2_on_card_defaults_to_the_kernels(dev):

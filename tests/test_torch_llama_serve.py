@@ -236,7 +236,7 @@ def _refusal_cases():
         ("two_token_decode", np.array([[3, 4]], np.int32), dict(kv_cache=pages, block_table=table,
                                                                 positions=np.array([2])), ValueError, ValueError),
         ("verify_window", np.array([[3, 4]], np.int32), dict(kv_cache=pages, block_table=table,
-                                                             positions=np.array([[2, 3]])), None, NotImplementedError),
+                                                             positions=np.array([[2, 3]])), None, None),
         ("slot_cache", one, dict(kv_cache=pages, positions=np.array([2])), None, NotImplementedError),
     ]
 
@@ -245,9 +245,10 @@ def _refusal_cases():
 def test_serving_hooks_refuse_as_the_reference(case):
     """The hooks' refusals (the reference's ``LlamaLM.__call__``): decode
     and prefill are exclusive, ``block_table`` needs ``kv_cache``, decode
-    steps take a single token (ValueError on both sides); the 2-D verify
-    window and the per-slot cache, which the reference serves, are not
-    ported and raise ``NotImplementedError``."""
+    steps take a single token (ValueError on both sides); the per-slot
+    cache, which the reference serves, is not ported and raises
+    ``NotImplementedError``; the 2-D verify window is served on both sides,
+    to the same logits."""
     _what, ids, kwargs, jexc, texc = case
     jmodel, params, tmodel = _models("f32")
     jkw = {k: (v if isinstance(v, (bool, np.ndarray)) else [{kk: jnp.asarray(a) for kk, a in pg.items()} for pg in v])
@@ -259,5 +260,10 @@ def test_serving_hooks_refuse_as_the_reference(case):
     tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else
                v if isinstance(v, bool) else [{kk: torch.from_numpy(a) for kk, a in pg.items()} for pg in v])
            for k, v in kwargs.items()}
+    if texc is None:  # served: the same logits as the reference's
+        want, _pages = jmodel.apply({"params": params}, jnp.asarray(ids), **jkw)
+        with torch.inference_mode():
+            _close(tmodel(torch.from_numpy(ids).long(), **tkw), want, "f32", _what)
+        return
     with pytest.raises(texc):
         tmodel(torch.from_numpy(ids).long(), **tkw)

@@ -191,6 +191,28 @@ def test_plan_covers_every_attended_key_once(w):
         _assert_covered_once(plan, bs, nb, [max(0, length - w + i) for i in range(w)], h)
 
 
+@pytest.mark.parametrize("w", [9, 16, 24, 64, 1024])
+def test_window_tiles_cover_every_attended_key_once(w):
+    """Past 8 rows the plan cuts the window into tiles of the most rows
+    (at most 8) that divide it: every key up to each row's position is
+    read for every kv head by exactly one block of the row's tile, no key
+    past it by any, and no block of a tile reads a key past the largest
+    position of its tile's rows (GPT-2-medium's heads, a 1024-token cache,
+    a window starting at 0 and one reaching past the cache's end)."""
+    bs, h, d, nb = 16, 16, 64, 64
+    plan = tpa.paged_plan(nb, bs, h, d, w, h)
+    assert plan.rows == max(t for t in range(1, 9) if w % t == 0) and plan.kv_heads == h
+    for start in (0, 500, nb * bs - 3):
+        last = [start + i for i in range(w)]
+        _assert_covered_once(plan, bs, nb, [min(p, nb * bs - 1) for p in last], h)
+        for kv0, _kv1, rows in tpa.paged_block_keys(plan, bs, nb, last, h):
+            tiles = {i // plan.rows for i, (k0, k1) in enumerate(rows) if k1 > k0}
+            assert len(tiles) <= 1
+            for t in tiles:
+                top = min(max(last[t * plan.rows: (t + 1) * plan.rows]), nb * bs - 1)
+                assert all(k1 <= top + 1 for k0, k1 in rows)
+
+
 # the serving check's plans at GPT-2-medium's heads (16 of 64, 16-token
 # pages, 64 a slot), as they were before head groups: (pages, splits,
 # ring, smem) at W = 1 .. 8
@@ -296,13 +318,15 @@ def _emulate(q, k, v, table, positions, plan):
 
 
 @pytest.mark.parametrize("pages", [None, 3], ids=["plan", "3-pages"])
-@pytest.mark.parametrize("w,hkv", [(1, 8), (4, 8), (1, 4), (4, 4), (1, 2), (4, 2)],
-                         ids=["w1-rep1", "w4-rep1", "w1-rep2", "w4-rep2", "w1-rep4", "w4-rep4"])
+@pytest.mark.parametrize("w,hkv", [(1, 8), (4, 8), (1, 4), (4, 4), (1, 2), (4, 2), (16, 8), (12, 2)],
+                         ids=["w1-rep1", "w4-rep1", "w1-rep2", "w4-rep2", "w1-rep4", "w4-rep4", "w16-rep1",
+                              "w12-rep4"])
 def test_split_arithmetic_matches_jax_interpret(w, hkv, pages):
     """The emulation of the kernel's split softmax and fold against the JAX
     kernel (``_fused_call`` in interpret mode) in bf16, at W 1 and 4 and
     GQA rep 1, 2 and 4, with the plan's 1 page a block (12 blocks) and
-    with 3 (4 blocks)."""
+    with 3 (4 blocks); and past 8 rows, where the window is cut into
+    tiles (16 rows in tiles of 8, 12 in tiles of 6)."""
     s, h, d, bs, nb = 4, 8, 16, 4, 12
     rng = np.random.default_rng(100 * w + hkv)
     n = s * nb + 1
@@ -312,7 +336,7 @@ def test_split_arithmetic_matches_jax_interpret(w, hkv, pages):
     positions = np.maximum(last[:, None] - (w - 1) + np.arange(w)[None, :], 0).astype(np.int32)
     q = rng.normal(size=(s, w, h, d)).astype(np.float32)
     plan = tpa.paged_plan(nb, bs, hkv, d, w, h, pages=pages)
-    assert plan.splits == (12 if pages is None else 4)
+    assert plan.splits == (12 if pages is None else 4) and plan.rows == (w if w <= 8 else 8 if w % 8 == 0 else 6)
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     got = _emulate(tq, tk, tv, torch.from_numpy(table), torch.from_numpy(positions), plan).float().numpy()
     want = np.asarray(jpa._fused_call(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
@@ -349,10 +373,11 @@ def test_split_arithmetic_is_the_plain_versions_within_one_ulp(w, seed):
 
 
 def test_plan_refuses_what_the_kernel_does_not_take():
-    # nine window rows; D not a multiple of 8; H not a multiple of Hkv; a
-    # kv head whose 16 query heads of 128 dims exceed a block's 1024
-    for args in ((64, 16, 16, 64, 9, 16), (64, 16, 16, 60, 1, 16), (64, 16, 6, 64, 1, 16),
-                 (64, 16, 2, 128, 1, 32)):
+    # no window rows; D not a multiple of 8; H not a multiple of Hkv; a
+    # kv head whose 16 query heads of 128 dims exceed a block's 1024; a
+    # window of 8 * 65536 rows (more tiles than the grid's third axis)
+    for args in ((64, 16, 16, 64, 0, 16), (64, 16, 16, 60, 1, 16), (64, 16, 6, 64, 1, 16),
+                 (64, 16, 2, 128, 1, 32), (64, 16, 16, 64, 8 * 65536, 16)):
         with pytest.raises(ValueError):
             tpa.paged_plan(*args)
     with pytest.raises(ValueError):  # 3 kv heads a block do not divide 32

@@ -288,6 +288,34 @@ round within tolerance.
     exactly (24 + 6) a prefix hit. Reports TTFT for hits and misses apart,
     decode tokens/s, acceptance rates and tokens a round, prefix hits and
     the bytes they saved, the generations served and the staging times.
+23. ``serve_loadgen`` (right after ``serve_handoff``, its engines shut
+    down, on its artifact): the port's load generator
+    (``consensusml_tpu_torch.tools.loadgen``, its ``main`` as the CLI runs
+    it). Socket mode against ``load_engine(art, ServeConfig(num_slots=8,
+    block_size=16, prefix_cache=True))`` (8 slots x 1024 tokens) behind
+    ``ServeServer(metrics_port=0, obs_tick_s=0.5)``: 48 requests,
+    open-loop Poisson at 4 req/s, ``--len-dist zipf --prompt-len 16:512
+    --shared-prefix 512:0.5 --tenants a=3,b=1 --max-new 32 --seed 0``. Then
+    artifact mode, 32 requests with ``--spec-k 4 --swap-every 16`` (the
+    draft ``serve_handoff`` installed). Gates: no errors; the completed
+    requests agree across the ``LOADGEN`` report, the scraped
+    ``consensusml_serve_completed_total``, the wide events emitted, the
+    ``/requests`` endpoint and the tenants' rollups; ``/healthz`` 503
+    before the warmup and 200 after; the artifact's generation rises under
+    load. Reports TTFT and end-to-end p50 and p99, goodput and the launches
+    of the flash forward and the paged kernel (whole pages and windows),
+    counted from the socket traffic to the end of the artifact run.
+24. The trainer's sinks (``train/telemetry.py``, as the train CLI arms
+    them with ``--trace-events``, ``--metrics-prom``, ``--metrics-port 0``
+    and ``--flight-recorder``): ``train_resnet_faults``' counted rounds
+    (on, off, on) and four more ``train_topk`` rounds after its profiled
+    one (off, on, off, on). Gates: the Chrome trace parses, round 0's spans
+    nested as the reference nests them (``ROUND0_SPANS``); the Prometheus
+    file's fault counters equal the alive masks the phase reads; the
+    flight recorder's dump holds the span ring; ``/metrics`` answers
+    during the run. Each line's ``telemetry`` block reports the round ms
+    with telemetry on and off, the spans a round and the rounds the span
+    ring holds.
 
 The ``check`` line's ``paged_attention_window`` holds the paged kernel's
 window form (W > 8, tiles of 8 rows on a further grid axis, one launch a
@@ -295,7 +323,8 @@ call) to its plain version at GPT-2-medium's heads (1 slot, a 1024-token
 cache, W 16, 64 and 1024) and Llama-2-7B's (head groups, a 4096-token
 cache, W 16 and 256), with its time, byte bound and a probe that it reads
 no key past its tile's positions; the ``kernels`` line lists the form as
-an entry of its own, its launches from ``serve_handoff``.
+an entry of its own, its launches from ``serve_handoff`` and
+``serve_loadgen``.
 
 The ``check`` line's ``flash_d128`` holds the three flash kernels'
 head-dim-128 form at ``llama_lora``'s attention shape (B=4, S=2048, H=32,
@@ -345,6 +374,8 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
@@ -1990,6 +2021,139 @@ def serve_handoff_phase(torch, dev, art, mean1, mean2, round2, world, prep_s):
     return line, counts, forms
 
 
+# serve_loadgen: the port's loadgen on serve_handoff's artifact; socket
+# mode at two thirds of the rate plain decode sustains (32.2 ms a step over
+# 8 slots: 32 tokens ~1 s + ~0.3 s TTFT, ~6 req/s), then artifact mode with
+# the draft and a generation bump under load
+LOADGEN_TRAFFIC = ("--len-dist", "zipf", "--prompt-len", "16:512", "--shared-prefix", "512:0.5",
+                   "--tenants", "a=3,b=1", "--max-new", "32", "--seed", "0", "--rate", "4")
+LOADGEN_SOCKET_REQUESTS = 48
+LOADGEN_ARTIFACT_REQUESTS = 32
+
+
+def run_loadgen_cli(argv: list) -> dict:
+    """``python -m consensusml_tpu_torch.tools.loadgen ARGV`` in this
+    process (its exit code gated 0): the ``LOADGEN`` report."""
+    import contextlib
+    import io
+
+    from consensusml_tpu_torch.tools import loadgen
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = loadgen.main(argv)
+    lines = [x for x in out.getvalue().splitlines() if x.startswith("LOADGEN ")]
+    if rc != 0 or not lines:
+        raise AssertionError(f"loadgen {' '.join(argv)} exited {rc}: {out.getvalue()[-2000:]}")
+    return json.loads(lines[-1][len("LOADGEN "):])
+
+
+def http_get(address, path: str) -> tuple[int, str]:
+    try:
+        with urllib.request.urlopen(f"http://{address[0]}:{address[1]}{path}", timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serve_loadgen_phase(torch, dev, art):
+    """``serve_loadgen`` (module docstring): socket mode against
+    ``load_engine(art, ServeConfig(num_slots=8, block_size=16,
+    prefix_cache=True))`` behind ``ServeServer(metrics_port=0,
+    obs_tick_s=0.5)``, then artifact mode with the draft (``--spec-k 4
+    --swap-every 16``). Launch counters zeroed just before the socket
+    traffic, read after the artifact run."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.obs import get_registry, get_request_registry
+    from consensusml_tpu_torch.serve import ServeConfig, ServeServer, load_engine
+    from consensusml_tpu_torch.serve.export import serving_meta
+
+    marks = [("start", time.perf_counter())]
+    gen0 = serving_meta(art)["generation"]
+    eng = load_engine(art, ServeConfig(num_slots=8, block_size=16, prefix_cache=True), device=dev)
+    server = ServeServer(eng, metrics_port=0, obs_tick_s=0.5)
+    try:
+        cold = http_get(server.metrics_address, "/healthz")[0]
+        eng.warmup()
+        marks.append(("load_and_warmup", time.perf_counter()))
+        healthz, body = http_get(server.metrics_address, "/healthz")
+        if cold != 503 or healthz != 200 or not json.loads(body)["ready"]:
+            raise AssertionError(f"/healthz answered {cold} before the warmup and {healthz} after: {body}")
+        completed = get_registry().counter("consensusml_serve_completed_total")
+        completed0, emitted0 = completed.value, eng._events.emitted_total
+        tenants0 = json.loads(http_get(server.metrics_address, "/tenants")[1])["tenants"]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        host, port = server.address
+        sock = run_loadgen_cli(["--connect", f"{host}:{port}", "--requests", str(LOADGEN_SOCKET_REQUESTS),
+                                *LOADGEN_TRAFFIC])
+        marks.append(("socket_traffic", time.perf_counter()))
+        text = http_get(server.metrics_address, "/metrics")[1]
+        scraped = float(next(x.split()[-1] for x in text.splitlines()
+                             if x.startswith("consensusml_serve_completed_total ")))
+        done = json.loads(http_get(server.metrics_address, "/requests")[1])["completed"]
+        listed = sum(1 for r in done if r["trace_id"].startswith("lg0-") and r["finish_reason"] != "rejected")
+        rollup = json.loads(http_get(server.metrics_address, "/tenants")[1])["tenants"]
+        by_tenant = {t: rollup.get(t, {}).get("requests", 0) - tenants0.get(t, {}).get("requests", 0)
+                     for t in ("a", "b")}
+        agree = {"loadgen": sock["completed"], "scraped_completed_total": scraped - completed0,
+                 "registry_completed_total": completed.value - completed0,
+                 "wide_events": eng._events.emitted_total - emitted0, "requests_endpoint": listed,
+                 "tenants_rollup": sum(by_tenant.values()),
+                 "loadgen_tenants": sum(t["completed"] for t in sock["tenants"].values())}
+        if sock["errors"] or set(agree.values()) != {LOADGEN_SOCKET_REQUESTS}:
+            raise AssertionError(f"socket mode: errors {sock['errors']} {sock['error_sample']}, completed {agree}")
+        stats_socket = eng.stats()
+    finally:
+        server.shutdown()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks.append(("shutdown", time.perf_counter()))
+    spec = run_loadgen_cli(["--artifact", art, "--device", "cuda", "--requests", str(LOADGEN_ARTIFACT_REQUESTS),
+                            "--spec-k", "4", "--swap-every", "16", *LOADGEN_TRAFFIC])
+    marks.append(("artifact_traffic", time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    forms = kernels.form_counts()["paged_attention"]
+    engine_a = spec["engine"]
+    if spec["errors"] or spec["completed"] != LOADGEN_ARTIFACT_REQUESTS:
+        raise AssertionError(f"artifact mode: errors {spec['errors']} {spec['error_sample']}")
+    if spec["swaps_triggered"] < 1 or engine_a["generation"] <= gen0 or engine_a["swaps"] < 1:
+        raise AssertionError(f"artifact mode's generation did not rise from {gen0}: {engine_a['generation']}, "
+                             f"swaps {engine_a['swaps']}, bumps {spec['swaps_triggered']}")
+    if not engine_a["spec"]["rounds"]:
+        raise AssertionError("artifact mode ran no speculative round")
+    if counts["flash_attention_fwd"] < 1 or counts["paged_attention"] < 1 or forms["window"] < 1:
+        raise AssertionError(f"serve_loadgen launches {counts}, paged forms {forms}")
+    stray = {n: k for n, k in counts.items() if k and n not in ("paged_attention", "flash_attention_fwd")}
+    if stray:
+        raise AssertionError(f"serving launched kernels off its path: {stray}")
+    keys = ("ttft_p50_ms", "ttft_p99_ms", "latency_p50_ms", "latency_p99_ms", "tokens_per_sec", "achieved_rps",
+            "offered_rate_rps", "completed", "errors", "tokens_out", "wall_s", "tenants", "shared_prefix")
+    line = {
+        "phase": "serve_loadgen", "model": "gpt2_topk full (GPT-2-medium), serve_handoff's artifact",
+        "traffic": " ".join(LOADGEN_TRAFFIC),
+        "socket": {"config": "load_engine(ServeConfig(num_slots=8, block_size=16, prefix_cache=True)), "
+                             "ServeServer(metrics_port=0, obs_tick_s=0.5)",
+                   "requests": LOADGEN_SOCKET_REQUESTS, **{k: sock[k] for k in keys},
+                   "completed_agree": agree, "healthz": {"before_warmup": cold, "after_warmup": healthz},
+                   "engine": {k: stats_socket[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "intertoken_p50_ms",
+                                                           "decode_tokens_per_sec", "decode_steps",
+                                                           "prefix_cache")}},
+        "artifact": {"flags": "--spec-k 4 --swap-every 16", "requests": LOADGEN_ARTIFACT_REQUESTS,
+                     **{k: spec[k] for k in keys}, "swaps_triggered": spec["swaps_triggered"],
+                     "spec_proposed": spec["spec_proposed"], "spec_accepted": spec["spec_accepted"],
+                     "engine": {k: engine_a[k] for k in ("generation", "swaps", "attn_impl", "decode_steps",
+                                                         "spec", "prefix_cache")}},
+        "generations": [gen0, engine_a["generation"]],
+        "launches": counts, "paged_forms": forms,
+        "request_traces_retained": len(get_request_registry().completed()),
+        "seconds": {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])},
+    }
+    return line, counts, forms
+
+
 # the served Llama traffic: (route, prompt length, sampling); the 4000-token
 # prompt pads to the 4096 bucket, so its slot's cache spans all 16 blocks of
 # its clusters, and three prompts take buckets of 1024 and more (flash)
@@ -2260,6 +2424,7 @@ PLANS = {
     "int8": (123, 715_190_448), "int4": (50, 360_367_280), "fp8": (123, 715_190_448),
 }
 FUSED_CODECS = ("int8", "int4", "fp8")  # the per-chunk quantizers: the fused one-pass wire
+TELEMETRY_AB_ROUNDS = 4  # train_topk's rounds after its profiled one: telemetry off, on, off, on
 TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_int4_ln",
                 "int4": "train_int4", "fp8": "train_fp8"}
 
@@ -2282,6 +2447,9 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
     world, counted = 4, 2
+    # train_topk, the most host-bound GPT-2 line, ends with the trainer's
+    # sinks: rounds with telemetry off and on, in turns
+    sink_rounds = TELEMETRY_AB_ROUNDS if codec is None else 0
     bundle = configs.build("gpt2_topk", "full", world=world, codec=codec, codec_warmup=1, norm_impl=norm_impl,
                            device=dev)
     cfg, mcfg = bundle.cfg, bundle.model.config
@@ -2291,7 +2459,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     if engine.fused_wire_active != fused:
         raise AssertionError(f"codec path is not the expected wire: {bundle.codec_path}")
     marks = [("start", time.perf_counter())]
-    batches = list(bundle.batches(2 + counted, 0))
+    batches = list(bundle.batches(2 + counted + sink_rounds, 0))
     marks.append(("batches", time.perf_counter()))
     ids = batches[0]["input_ids"]
     grads = None
@@ -2352,6 +2520,13 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     marks.append(("rounds", time.perf_counter()))
     state, prof = profile_round(torch, step, state, batches[1 + counted])
     marks.append(("profiled_round", time.perf_counter()))
+    telemetry = None
+    if sink_rounds:
+        sinks = TrainerSinks(torch, engine, state, cfg.h, "two_step")
+        for i, batch in enumerate(batches[2 + counted:]):
+            state = sinks.round(step, state, batch, on=i % 2 == 1)[0]
+        telemetry = sinks.close(state)
+        marks.append(("telemetry_rounds", time.perf_counter()))
 
     for r in rounds:
         if not (np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) and r["consensus_error"] > 0):
@@ -2398,6 +2573,7 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
         "tokens_per_s_per_chip_mean": sum(r["tokens_per_s_per_chip"] for r in rounds) / counted,
         "peak_memory_bytes": peak, "launches": counts, "launches_expected": expect,
         **extra, "profiled_round": prof,
+        **({"telemetry": telemetry} if telemetry is not None else {}),
     }
     if keep_state:
         return out, counts, state, bundle
@@ -3146,6 +3322,144 @@ class FaultRoundCheck:
         self.cls.round_simulated = self.orig
 
 
+# the trainer's sinks (train/telemetry.py, as the train CLI arms them):
+# round 0's spans under a telemetry-on run, named and nested as the
+# reference's trace-time spans of that wire (tests/test_torch_obs_train.py
+# holds the reference's nesting to these on the CPU)
+ROUND0_SPANS = {
+    "exact": (("train.inner_loop", 1), ("bucket.pack", 2), ("bucket.mix", 2), ("bucket.unpack", 2),
+              ("gossip.round", 1), ("train.consensus_error", 1), ("train.round", 0), ("round.feed", 0),
+              ("round.fence", 0)),
+    "two_step": (("train.inner_loop", 1), ("bucket.pack", 2), ("bucket.unpack", 2), ("gossip.round", 1),
+                 ("train.consensus_error", 1), ("train.round", 0), ("round.feed", 0), ("round.fence", 0)),
+}
+
+
+class TrainerSinks:
+    """The train CLI's telemetry (``Telemetry`` with ``--trace-events``,
+    ``--metrics-prom``, ``--metrics-port 0`` and ``--flight-recorder``,
+    the default ``--telemetry-every``) around a phase's rounds, switched on
+    and off round by round: an off round records no span, as a run with no
+    sink does; both feed the registry as the CLI always does. ``close()``
+    gates the sinks and returns the phase line's ``telemetry`` block."""
+
+    def __init__(self, torch, engine, state, h: int, wire: str):
+        from consensusml_tpu_torch.obs import get_tracer
+        from consensusml_tpu_torch.train.telemetry import Telemetry
+        from consensusml_tpu_torch.utils import tree as T
+
+        self.wire = wire
+        self.tmp = tempfile.mkdtemp(prefix="cml-telemetry-")
+        self.spec = {"trace_events": os.path.join(self.tmp, "trace.json"),
+                     "metrics_prom": os.path.join(self.tmp, "metrics.prom"), "metrics_port": 0,
+                     "flight_recorder": os.path.join(self.tmp, "flight"), "telemetry_every": 10}
+        shapes = T.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
+                            {"params": state.params, "model_state": state.model_state})
+        self.tracer = get_tracer()
+        self.tracer.clear()
+        self.tel = Telemetry(self.spec, engine, shapes, h, verbose=False)
+        self.ms = {"on": [], "off": []}
+        self.masks = []
+        self.scraped = None
+        self.i = 0
+
+    def round(self, step, state, batch, on: bool):
+        """One round through ``step``, timed as the CLI's loop times it;
+        returns ``(state, m, loss, err, alive_frac, mask, ms)``."""
+        tel = self.tel
+        tel.tracer.enabled = on
+        t0 = time.perf_counter()
+        with tel.round(self.i, state.step):
+            state, m = step(state, batch)
+            loss, err, frac, mask = tel.fetch(lambda: (
+                float(m["loss"]), float(m["consensus_error"]),
+                float(m["alive_frac"]) if "alive_frac" in m else None,
+                m["alive_mask"].tolist() if "alive_mask" in m else None))
+        tel.after_round(state.step - 1, err, frac, mask, state)
+        ms = 1e3 * (time.perf_counter() - t0)
+        self.ms["on" if on else "off"].append(ms)
+        if mask is not None:
+            self.masks.append(mask)
+        if self.scraped is None and on:
+            with urllib.request.urlopen(tel.http.url("/metrics"), timeout=30) as r:
+                self.scraped = (r.status, "consensusml_rounds_total" in r.read().decode())
+        self.i += 1
+        return state, m, loss, err, frac, mask, ms
+
+    def close(self, state) -> dict:
+        tel = self.tel
+        try:
+            tel.tracer.enabled = True
+            spans = self.tracer.events()
+            rounds = sum(1 for e in spans if e["name"] == "train.round")
+            dump = tel.recorder.dump("chip-smoke")
+            tel.finish(state.step, state)
+            tel.close()
+            with open(self.spec["trace_events"]) as f:
+                trace = json.load(f)["traceEvents"]
+            with open(self.spec["metrics_prom"]) as f:
+                prom = f.read()
+            with open(dump) as f:
+                flight = json.load(f)
+        finally:
+            shutil.rmtree(self.tmp, ignore_errors=True)
+        round0 = []
+        for e in spans:
+            round0.append((e["name"], e["depth"]))
+            if e["name"] == "round.fence":
+                break
+        if tuple(round0) != ROUND0_SPANS[self.wire]:
+            raise AssertionError(f"round 0's spans {round0} are not the reference's {ROUND0_SPANS[self.wire]}")
+        names = {e.get("name") for e in trace}
+        if not {"train.round", "gossip.round", "round.fence"} <= names:
+            raise AssertionError(f"the Chrome trace lacks the round's spans: {sorted(n for n in names if n)}")
+        if self.scraped != (200, True):
+            raise AssertionError(f"/metrics did not answer during the run: {self.scraped}")
+        if not any(s["name"] == "train.round" for s in flight["spans"]):
+            raise AssertionError("the flight recorder's dump holds no train.round span")
+        values = {}
+        for line in prom.splitlines():
+            if line and not line.startswith("#"):
+                key, val = line.rsplit(" ", 1)
+                values[key] = float(val)
+        faults = None
+        if self.masks:
+            want = fault_counters(self.masks)
+            faults = {k: values.get(k, 0.0) for k in want}
+            if faults != want:
+                raise AssertionError(f"the Prometheus fault counters {faults} are not the alive masks' {want}")
+        per_round = len(spans) / rounds
+        on, off = self.ms["on"], self.ms["off"]
+        return {"round_ms_telemetry_on": on, "round_ms_telemetry_off": off,
+                "round_ms_on_mean": sum(on) / len(on), "round_ms_off_mean": sum(off) / len(off),
+                "spans_per_round": per_round, "ring_capacity": self.tracer._events.maxlen,
+                "rounds_the_ring_holds": int(self.tracer._events.maxlen // per_round),
+                "round0_spans": round0, "prometheus_families": sum(1 for x in prom.splitlines()
+                                                                    if x.startswith("# TYPE")),
+                "fault_counters": faults, "flight_recorder_spans": len(flight["spans"]),
+                "metrics_scrape": self.scraped[0]}
+
+
+def fault_counters(masks: list) -> dict:
+    """The fault families ``record_fault_metrics`` counts over these masks."""
+    out = {"consensusml_fault_rounds_total": 0.0, "consensusml_worker_drops_total": 0.0}
+    prev = None
+    for mask in masks:
+        frac = sum(mask) / len(mask)
+        if frac < 1.0:
+            out["consensusml_fault_rounds_total"] += 1.0
+            out["consensusml_worker_drops_total"] += 1.0 - frac
+        for i, a in enumerate(mask):
+            if a <= 0.0:
+                key = f'consensusml_worker_drop_rounds_total{{worker="{i}"}}'
+                out[key] = out.get(key, 0.0) + 1.0
+            elif prev is not None and prev[i] <= 0.0:
+                key = f'consensusml_worker_recoveries_total{{worker="{i}"}}'
+                out[key] = out.get(key, 0.0) + 1.0
+        prev = mask
+    return out
+
+
 def train_resnet_faults_phase(torch, dev, init, push_sum: bool, counted=3):
     """``train_resnet_faults`` (``push_sum`` False: the ring, masked
     mixing) or ``train_resnet_pushsum`` (True: onepeer-exp, push-sum): a
@@ -3187,16 +3501,23 @@ def train_resnet_faults_phase(torch, dev, init, push_sum: bool, counted=3):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launch_counts()
-        for batch in batches[1:1 + counted]:
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            loss, err = float(m["loss"]), float(m["consensus_error"])
+        # the faults line's rounds through the trainer's sinks, on, off, on
+        sinks = None if push_sum else TrainerSinks(torch, engine, state, cfg.h, "exact")
+        for i, batch in enumerate(batches[1:1 + counted]):
+            if sinks is not None:
+                state, m, loss, err, frac, mask, ms = sinks.round(step, state, batch, on=i % 2 == 0)
+            else:
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                loss, err = float(m["loss"]), float(m["consensus_error"])
+                frac, mask, ms = float(m["alive_frac"]), m["alive_mask"].tolist(), 1e3 * (time.perf_counter() - t0)
             rounds.append({"step": state.step - 1, "loss": loss, "consensus_error": err,
-                           "round_ms": 1e3 * (time.perf_counter() - t0), "inner_ms": m["inner_ms"],
+                           "round_ms": ms, "inner_ms": m["inner_ms"],
                            "gossip_ms": m["gossip_ms"], "imgs_per_s_per_chip": m["imgs_per_s"],
-                           "alive_frac": float(m["alive_frac"]), "alive_mask": m["alive_mask"].tolist(),
+                           "alive_frac": frac, "alive_mask": mask,
                            **({"mass": state.gossip.w.tolist()} if push_sum else {})})
         counts = kernels.launch_counts()
+        telemetry = None if sinks is None else sinks.close(state)
         peak = torch.cuda.max_memory_allocated(dev)
         marks.append(("rounds", time.perf_counter()))
         masked = None
@@ -3237,6 +3558,7 @@ def train_resnet_faults_phase(torch, dev, init, push_sum: bool, counted=3):
         "peak_memory_bytes": peak, "launches": total, "launches_expected_counted": expect,
         "gossip_checks": check.rounds, "kept_sums_rtol": FAULT_RTOL,
         **({"masked_nan_round": masked} if masked is not None else {}),
+        **({"telemetry": telemetry} if telemetry is not None else {}),
     }
     del state, step
     gc.collect()
@@ -5443,14 +5765,23 @@ def main() -> int:
                 gc.collect()
                 torch.cuda.empty_cache()
                 line, counts, hforms = serve_handoff_phase(torch, dev, art, mean1, mean2, round2, world, prep_s)
+                del mean1, mean2
+                emit(line)
+                for name, n in counts.items():
+                    launches[name]["serve_handoff"] = n
+                for form, n in hforms.items():
+                    forms.setdefault("paged_attention", {}).setdefault(form, {})["serve_handoff"] = n
+                # its engines shut down: the port's loadgen on the same artifact
+                gc.collect()
+                torch.cuda.empty_cache()
+                line, counts, lforms = serve_loadgen_phase(torch, dev, art)
+                emit(line)
+                for name, n in counts.items():
+                    launches[name]["serve_loadgen"] = n
+                for form, n in lforms.items():
+                    forms.setdefault("paged_attention", {}).setdefault(form, {})["serve_loadgen"] = n
             finally:
                 shutil.rmtree(art, ignore_errors=True)
-            del mean1, mean2
-            emit(line)
-            for name, n in counts.items():
-                launches[name]["serve_handoff"] = n
-            for form, n in hforms.items():
-                forms.setdefault("paged_attention", {}).setdefault(form, {})["serve_handoff"] = n
             # the same codec on the per-leaf wire (--bucket-bytes 0), then
             # with a linear LR schedule and gradient clipping
             line, counts = train_perleaf_phase(torch, tck, dev, init)

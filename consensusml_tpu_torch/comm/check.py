@@ -117,6 +117,7 @@ def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backe
     x = T.tree_map(lambda a: _row(a, rank, mesh.device), tree)
     st = _state_row(engine, x, state, rank, mesh.device)
     kernels.reset_launch_counts()
+    traced0 = _traced()
     before = mesh.transport.stats.snapshot()
     bytes_by_round = []
     for i, step in enumerate(steps):
@@ -125,6 +126,7 @@ def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backe
         x, st = engine.round_collective(x, st, mesh, step=step, alive=flag)
         bytes_by_round.append(mesh.transport.stats.bytes_sent - b0)
     counts = {"launches": kernels.launch_counts(), "forms": kernels.form_counts()}
+    traced = {k: v - traced0.get(k, 0.0) for k, v in _traced().items() if v != traced0.get(k, 0.0)}
     moved = mesh.transport.stats.since(before)
     err = float(engine.consensus_error_collective(x, mesh))
     return {
@@ -133,8 +135,17 @@ def _gossip_rounds(rank: int, engine, tree: dict, steps: list, state, dist_backe
         "consensus_error": err,
         "bytes_by_round": bytes_by_round,
         "transport": moved,
+        "traced": traced,
         **counts,
     }
+
+
+def _traced() -> dict:
+    """This process's trace-time counters (``*_traced_total`` and the
+    per-edge wire bytes), by metric key."""
+    from consensusml_tpu_torch.obs import get_registry
+
+    return {m.key: m.value for m in get_registry().metrics() if m.name.endswith("_traced_total")}
 
 
 def gossip_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo", device: str | None = None) -> list:
@@ -148,8 +159,9 @@ def gossip_cases(rank: int, world: int, cases: list, dist_backend: str = "gloo",
     round) in round ``i`` when given. Returns per case the final tree and
     state as numpy, the consensus error, the kernel launches of the rounds
     (``kernels.launch_counts()`` and the forms, zeroed just before), the
-    transport's bytes sent each round and its totals. Runs on the rank's
-    card unless ``device="cpu"``."""
+    transport's bytes sent each round and its totals, and what the rounds
+    added to the trace-time counters (``traced``, by metric key). Runs on
+    the rank's card unless ``device="cpu"``."""
     return [_gossip_rounds(rank, engine, tree, steps, state, dist_backend, device, *rest)
             for engine, tree, steps, state, *rest in cases]
 

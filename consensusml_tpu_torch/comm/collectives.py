@@ -32,10 +32,21 @@ self_weight``, then ``acc + w_s * (a_s x_s + (1 - a_s) x)`` a shift; with
 - A) / n`` with ``S = sum_j a_j x_j`` and ``A = sum_j a_j`` (both one
 all-reduce). The neighbours' flags cross the transport once a round
 (:func:`neighbour_flags`), not once a leaf or bucket.
+
+Telemetry, the reference's names: ``consensusml_ppermutes_traced_total``
+counts a shift's send of one tensor and
+``consensusml_link_wire_bytes_traced_total{src,dst}`` its bytes on every
+directed edge (worlds past 256 count
+``consensusml_link_unaccounted_ppermutes_total`` instead), in the first
+run of each gossip program only (:func:`~consensusml_tpu_torch.obs.tracer.
+trace_program`), as the reference counts them once a compile; the
+``comm.bucket_sends`` and ``comm.bucket_combine`` spans time
+:func:`mix_buckets`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
@@ -43,6 +54,9 @@ import torch
 from consensusml_tpu_torch.comm.mesh import WorkerMesh
 from consensusml_tpu_torch.comm.transport import InFlight
 from consensusml_tpu_torch.compress.reference import fma_f32
+from consensusml_tpu_torch.obs import get_registry
+from consensusml_tpu_torch.obs import span as _span
+from consensusml_tpu_torch.obs.tracer import tracing_program
 from consensusml_tpu_torch.topology import Shift, Topology
 from consensusml_tpu_torch.utils import tree as T
 
@@ -63,6 +77,40 @@ __all__ = [
     "neighbour_flags",
     "consensus_error",
 ]
+
+
+_TRACED_PPERMUTES = get_registry().counter(
+    "consensusml_ppermutes_traced_total",
+    "ppermute collectives traced into gossip programs (per XLA compile)",
+)
+
+# worlds past this cap skip the per-edge expansion (label cardinality)
+_EDGE_ACCOUNT_MAX_WORLD = 256
+
+
+def _account_sends(tensors: list[torch.Tensor], topology: Topology, shifts) -> None:
+    """The trace-time counters of one exchange: a ppermute a tensor a
+    shift, its bytes on every directed edge (shapes only, no sync)."""
+    reg = get_registry()
+    for shift in shifts:
+        for x in tensors:
+            _TRACED_PPERMUTES.inc()
+            if topology.world_size > _EDGE_ACCOUNT_MAX_WORLD:
+                reg.counter(
+                    "consensusml_link_unaccounted_ppermutes_total",
+                    "traced ppermutes skipped by per-edge wire accounting "
+                    f"(world_size > {_EDGE_ACCOUNT_MAX_WORLD})",
+                ).inc()
+                continue
+            nbytes = x.numel() * x.element_size()
+            for dst in range(topology.world_size):
+                reg.counter(
+                    "consensusml_link_wire_bytes_traced_total",
+                    "bytes traced onto each directed gossip edge (per XLA "
+                    "compile; programs replay, so also the per-round wire "
+                    "per edge)",
+                    labels={"src": topology.shift_src(dst, shift), "dst": dst},
+                ).inc(nbytes)
 
 
 def shift_dst(topology: Topology, rank: int, shift: Shift) -> int:
@@ -87,6 +135,8 @@ def ppermute_shifts_start(tensors: list[torch.Tensor], topology: Topology, shift
     in-flight one, :meth:`~.mesh.WorkerMesh.inflight_transport`), nothing
     waited on: ``wait()`` gives the per-shift lists."""
     routes = [(shift_dst(topology, mesh.rank, s), topology.shift_src(mesh.rank, s)) for s in shifts]
+    if tracing_program():
+        _account_sends(tensors, topology, shifts)
     transport = mesh.inflight_transport() if transport is None else transport
     return transport.exchange_start(list(tensors), routes)
 
@@ -161,20 +211,25 @@ def mix_tree(tree: Any, topology: Topology, mesh: WorkerMesh) -> Any:
 
 
 def mix_buckets(bufs: list[torch.Tensor], topology: Topology, mesh: WorkerMesh, alive=None,
-                alive_nbrs: list[torch.Tensor] | None = None) -> list[torch.Tensor]:
+                alive_nbrs: list[torch.Tensor] | None = None, spans: bool = True) -> list[torch.Tensor]:
     """One gossip round over flat bucket buffers (or any tensors): per
     buffer exactly :func:`mix`, or :func:`mix_masked` given this worker's
     ``alive`` flag, with every buffer's sends posted before any buffer's
     combine (one exchange for all of them). ``alive_nbrs``: the flags of
-    :func:`neighbour_flags`, exchanged here when not given."""
+    :func:`neighbour_flags`, exchanged here when not given. ``spans``:
+    record the ``comm.bucket_*`` spans (the reference's per-leaf wire mixes
+    without them)."""
     if not bufs:
         return []
     if alive is not None:
         return _mix_masked_all(bufs, topology, mesh, alive, alive_nbrs)
     if topology.uses_psum:
         return all_reduce_mean(bufs, mesh)
-    inflight = ppermute_shifts(bufs, topology, topology.shifts, mesh)
-    return [combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
+    scope = _span if spans else lambda name, **attrs: contextlib.nullcontext()
+    with scope("comm.bucket_sends", buckets=len(bufs)):
+        inflight = ppermute_shifts(bufs, topology, topology.shifts, mesh)
+    with scope("comm.bucket_combine"):
+        return [combine(b, topology, [recv[i] for recv in inflight]) for i, b in enumerate(bufs)]
 
 
 def _flag(alive, device) -> torch.Tensor:

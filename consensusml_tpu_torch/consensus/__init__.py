@@ -13,6 +13,7 @@ from consensusml_tpu_torch.consensus.faults import (
     draw_alive,
     fault_generator,
     masked_mixing_matrix,
+    record_fault_metrics,
     tree_all_finite,
 )
 from consensusml_tpu_torch.consensus.pushsum import (
@@ -27,7 +28,8 @@ from consensusml_tpu_torch.consensus.pushsum import (
 __all__ = [
     "Bucket", "BucketPlan", "build_plan",
     "ChocoState", "ConsensusEngine", "GossipConfig", "OverlapState",
-    "FaultConfig", "draw_alive", "fault_generator", "masked_mixing_matrix", "tree_all_finite",
+    "FaultConfig", "draw_alive", "fault_generator", "masked_mixing_matrix", "record_fault_metrics",
+    "tree_all_finite",
     "MASS_FLOOR", "PushSumState", "pushsum_init", "pushsum_matrix", "pushsum_round_collective",
     "pushsum_round_simulated",
 ]

@@ -15,6 +15,12 @@ codec bucket by bucket (so one bucket's temporaries are alive at a time);
 :meth:`FusedWirePlan.encode`, :meth:`~FusedWirePlan.decode` and
 :meth:`~FusedWirePlan.decode_accumulate` are the reference's all-buckets
 form, which the collective round uses.
+
+Telemetry, the reference's names: the ``wire.fused_encode`` and
+``wire.fused_decode`` spans, and ``consensusml_wire_fused_encodes_traced_total``
+and ``..._decodes_traced_total``, one a bucket an exchange, counted in the
+first run of each gossip program (the reference counts them once a
+compile; :func:`~consensusml_tpu_torch.obs.tracer.trace_program`).
 """
 
 from __future__ import annotations
@@ -25,7 +31,28 @@ from typing import Any, Callable
 import torch
 import torch.nn.functional as F
 
+from consensusml_tpu_torch.obs import get_registry
+from consensusml_tpu_torch.obs import span as _span
+from consensusml_tpu_torch.obs.tracer import tracing_program
+
 __all__ = ["BucketLeaf", "Bucket", "BucketPlan", "FusedWirePlan", "build_plan", "build_fused_plan"]
+
+TRACED_FUSED_ENCODES = get_registry().counter(
+    "consensusml_wire_fused_encodes_traced_total",
+    "fused pack+quantize kernels traced into gossip programs "
+    "(one per bucket per innovation exchange, per XLA compile)",
+)
+TRACED_FUSED_DECODES = get_registry().counter(
+    "consensusml_wire_fused_decodes_traced_total",
+    "fused dequantize+accumulate kernels traced into gossip programs "
+    "(one per bucket per innovation exchange, per XLA compile)",
+)
+
+
+def count_traced(counter, n: int) -> None:
+    """``n`` more on a trace-time counter, in a program's first run only."""
+    if n and tracing_program():
+        counter.inc(n)
 
 
 def _round_up(n: int, align: int) -> int:
@@ -164,7 +191,9 @@ class FusedWirePlan:
         """Per bucket ``(payload, xhat')``, one encode each. Returns
         ``(payloads, new_xhat_bufs)``."""
         self._check(bufs, "encode")
-        pairs = [self.codec.encode(b, h) for b, h in zip(bufs, xhat_bufs)]
+        with _span("wire.fused_encode", buckets=len(bufs)):
+            count_traced(TRACED_FUSED_ENCODES, len(bufs))
+            pairs = [self.codec.encode(b, h) for b, h in zip(bufs, xhat_bufs)]
         return [p for p, _ in pairs], [h for _, h in pairs]
 
     def decode(self, payloads: list) -> list:
@@ -180,7 +209,9 @@ class FusedWirePlan:
         self._check(s_bufs, "decode_accumulate")
         if len(sources) != len(s_bufs):
             raise ValueError(f"{len(s_bufs)} buckets but {len(sources)} source lists")
-        return [self.codec.decode_accumulate(s, plist, weights) for s, plist in zip(s_bufs, sources)]
+        with _span("wire.fused_decode", buckets=len(s_bufs)):
+            count_traced(TRACED_FUSED_DECODES, len(s_bufs))
+            return [self.codec.decode_accumulate(s, plist, weights) for s, plist in zip(s_bufs, sources)]
 
 
 def build_fused_plan(plan: BucketPlan, compressor) -> FusedWirePlan | None:

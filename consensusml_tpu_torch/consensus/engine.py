@@ -80,6 +80,15 @@ z``. ``pipeline_depth`` D keeps D corrections in flight, each computed
 from the params plus the corrections still queued
 (:class:`OverlapState`).
 
+Telemetry, the reference's span names: ``gossip.round`` (with its
+``backend``), ``bucket.pack``, ``bucket.mix`` and ``bucket.unpack``,
+``choco.innovation``, ``choco.compress`` and ``choco.exchange``, nested as
+the reference's round-0 trace nests them, on every round. The
+``*_traced_total`` counters of the wire count in the first run of each
+distinct program: backend, topology phase and dense-or-CHOCO branch (the
+reference counts them once a compile). :meth:`ConsensusEngine.telemetry`
+gives the static wire facts the train CLI gauges.
+
 Not ported yet, and refused with ``NotImplementedError`` when set (after
 the reference's own refusals): stochastic codecs.
 """
@@ -102,12 +111,15 @@ from consensusml_tpu_torch.consensus.bucketing import (
     build_plan,
 )
 from consensusml_tpu_torch.consensus.faults import FaultConfig, masked_mixing_matrix
+from consensusml_tpu_torch.consensus.bucketing import TRACED_FUSED_ENCODES, count_traced
 from consensusml_tpu_torch.consensus.pushsum import (
     PushSumState,
     pushsum_init,
     pushsum_round_collective,
     pushsum_round_simulated,
 )
+from consensusml_tpu_torch.obs import span as _span
+from consensusml_tpu_torch.obs.tracer import as_program, trace_program, tracing_program
 from consensusml_tpu_torch.topology import Topology
 from consensusml_tpu_torch.utils import tree as T
 
@@ -347,6 +359,10 @@ class ConsensusEngine:
 
         return fused_bucket_codec(cfg.compressor) is not None
 
+    def _programs(self) -> set:
+        """The programs this engine has run once (:func:`trace_program`)."""
+        return self.__dict__.setdefault("_traced_programs", set())
+
     def _dense_plan(self, leaves: list, stacked: bool = False) -> BucketPlan:
         return build_plan(
             [(tuple(x.shape[1:] if stacked else x.shape), x.dtype) for x in leaves],
@@ -472,6 +488,10 @@ class ConsensusEngine:
         ``config.faults``): the round's participation mask, mixed through
         the masked matrix (or push-sum's send-side one). Returns
         ``(new_params, new_state)``."""
+        with _span("gossip.round", backend="simulated"), trace_program(self._programs(), ("simulated",)):
+            return self._round_simulated(params, state, w, step, alive)
+
+    def _round_simulated(self, params: Any, state, w: torch.Tensor, step: int | None, alive):
         if self.config.push_sum_enabled:
             leaves, rebuild = self._select(params)
             mixed, state = pushsum_round_simulated(leaves, state, w, alive)
@@ -479,7 +499,7 @@ class ConsensusEngine:
         if alive is not None and not self.compressed:
             w = masked_mixing_matrix(w.to(torch.float32), alive)
 
-        def mix(bufs):
+        def mix(bufs, spans=True):
             # buffer by buffer, each input released once mixed (the list
             # is consumed, as ``_round`` allows): the round holds one extra
             # copy of the stacked tree, not two (BERT-base at 32 workers:
@@ -495,7 +515,7 @@ class ConsensusEngine:
                 return self._innovation_exchange_fused_simulated(x, xhat, s, w, fused)
             return self._innovation_exchange_simulated(x, xhat, s, w)
 
-        return self._round(params, state, step, mix, exchange, stacked=True)
+        return self._round(params, state, step, mix, exchange, stacked=True, program=("simulated",))
 
     def _mix_exact(self, leaves: list, mix, n_iter: int, stacked: bool) -> list:
         """``n_iter`` exact mixes of a leaf list: over dense buckets on the
@@ -506,15 +526,19 @@ class ConsensusEngine:
         if not self.bucketed:
             out = list(leaves)
             for _ in range(n_iter):
-                out = mix(out)
+                out = mix(out, spans=False)
             return out
         plan = self._dense_plan(leaves, stacked=stacked)
-        bufs = plan.pack(leaves, stacked=stacked)
-        for _ in range(n_iter):
-            bufs = mix(bufs)
-        return plan.unpack(bufs, stacked=stacked)
+        with _span("bucket.pack", buckets=plan.num_buckets):
+            bufs = plan.pack(leaves, stacked=stacked)
+        with _span("bucket.mix", iters=n_iter):
+            for _ in range(n_iter):
+                bufs = mix(bufs)
+        with _span("bucket.unpack"):
+            return plan.unpack(bufs, stacked=stacked)
 
-    def _round(self, params: Any, state: ChocoState | None, step: int | None, mix, exchange, stacked: bool):
+    def _round(self, params: Any, state: ChocoState | None, step: int | None, mix, exchange, stacked: bool,
+               program: tuple):
         """The round both backends share: ``mix(bufs)`` mixes a list of
         buffers (buckets, or leaves on the per-leaf wire) exactly once and
         consumes the list (it may set its entries to ``None`` as it goes,
@@ -523,7 +547,8 @@ class ConsensusEngine:
         ``exchange(x, xhat, s, fused)`` is the innovation exchange over
         buckets or leaves (``fused`` the :class:`FusedWirePlan`, or
         ``None`` for the two-step and per-leaf wires) and returns ``(xhat,
-        s)``."""
+        s)``. ``program``: the round's program key; each branch is a program
+        of its own (the reference's ``lax.cond`` compiles both at once)."""
         cfg = self.config
         if step is None and (cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0):
             raise ValueError("codec_warmup_rounds/codec_refresh_every need the round counter (step=...)")
@@ -548,25 +573,29 @@ class ConsensusEngine:
         elif self.bucketed:
             plan = self._codec_plan(x, stacked=stacked)
             fused = build_fused_plan(plan, cfg.compressor) if self.fused_wire_active else None
-            x = plan.pack(x, stacked=stacked)
+            with _span("bucket.pack", buckets=plan.num_buckets):
+                x = plan.pack(x, stacked=stacked)
         xhat, s = list(state.xhat), list(state.s)
         _check_state(x, xhat, self.bucketed)
 
         warm, refresh = cfg.codec_warmup_rounds, cfg.codec_refresh_every
         if (warm > 0 and step < warm) or (refresh > 0 and step % refresh == 0):
             # dense mixing, while the innovation exchange keeps xhat/s warm
-            xhat, s = exchange(x, xhat, s, fused)
-            for _ in range(n_iter):
-                x = mix(x)
+            with trace_program(self._programs(), program + ("dense",)):
+                xhat, s = exchange(x, xhat, s, fused)
+                for _ in range(n_iter):
+                    x = mix(x, spans=False)
         else:
             gamma = torch.tensor(cfg.gamma, dtype=torch.float32)
-            for _ in range(n_iter):
-                xhat, s = exchange(x, xhat, s, fused)
-                # x + gamma * (s - xhat) with one rounding, as the
-                # reference's compiled program contracts it
-                x = [_choco_update(gamma.to(xi.device), xi, si, hi) for xi, si, hi in zip(x, s, xhat)]
+            with trace_program(self._programs(), program + ("choco",)):
+                for _ in range(n_iter):
+                    xhat, s = exchange(x, xhat, s, fused)
+                    # x + gamma * (s - xhat) with one rounding, as the
+                    # reference's compiled program contracts it
+                    x = [_choco_update(gamma.to(xi.device), xi, si, hi) for xi, si, hi in zip(x, s, xhat)]
         if plan is not None:
-            x = plan.unpack(x, stacked=stacked)
+            with _span("bucket.unpack"):
+                x = plan.unpack(x, stacked=stacked)
         elif unravel is not None:
             x = unravel(x[0])
         new = [piece.to(old.dtype) for piece, old in zip(x, compressed)]
@@ -580,7 +609,9 @@ class ConsensusEngine:
         only one bucket's temporaries are alive at a time; the buckets are
         independent, so this is the reference's all-buckets-at-once math."""
         fused._check(x, "encode")
-        pairs = [self._exchange_bucket_simulated(xb, hb, sb, w, fused) for xb, hb, sb in zip(x, xhat, s)]
+        with _span("wire.fused_encode", buckets=len(x)):
+            count_traced(TRACED_FUSED_ENCODES, len(x))
+            pairs = [self._exchange_bucket_simulated(xb, hb, sb, w, fused) for xb, hb, sb in zip(x, xhat, s)]
         return [h for h, _ in pairs], [sb for _, sb in pairs]
 
     def _innovation_exchange_simulated(self, x: list, xhat: list, s: list, w: torch.Tensor):
@@ -615,10 +646,18 @@ class ConsensusEngine:
         topo = self.topology
         if mesh.topology != topo:
             raise ValueError("the mesh is bound to another topology than this engine's")
+        attrs, phase = {}, 0
         if topo.is_time_varying:
             if step is None:
                 raise ValueError(f"{type(topo).__name__} is time-varying: round_collective needs step=...")
-            topo = topo.phases[step % topo.period]
+            attrs, phase = {"phases": topo.period}, step % topo.period
+            topo = topo.phases[phase]
+        program = ("collective", phase)
+        with _span("gossip.round", backend="collective", **attrs), trace_program(self._programs(), program):
+            return self._round_collective(params, state, mesh, step, alive, topo, program)
+
+    def _round_collective(self, params: Any, state, mesh, step: int | None, alive, topo: Topology,
+                          program: tuple):
         if self.config.push_sum_enabled:
             leaves, rebuild = self._select(params)
             mixed, state = pushsum_round_collective(leaves, state, topo, mesh, alive)
@@ -629,17 +668,18 @@ class ConsensusEngine:
         if alive is not None and not topo.uses_psum:
             nbrs = collectives.neighbour_flags(alive, topo, mesh)
 
-        def mix(bufs):
+        def mix(bufs, spans=True):
             # every buffer mixed in one exchange (the BN statistics ride
-            # beside the weights)
-            return collectives.mix_buckets(bufs, topo, mesh, alive, nbrs)
+            # beside the weights); the per-leaf wire mixes leaf by leaf in
+            # the reference, without the bucket spans
+            return collectives.mix_buckets(bufs, topo, mesh, alive, nbrs, spans=spans)
 
         def exchange(x, xhat, s, fused):
             if fused is not None:
                 return self._innovation_exchange_fused_collective(topo, x, xhat, s, fused, mesh)
             return self._innovation_exchange_collective(topo, x, xhat, s, mesh)
 
-        return self._round(params, state, step, mix, exchange, stacked=False)
+        return self._round(params, state, step, mix, exchange, stacked=False, program=program)
 
     def _innovation_exchange_collective(self, topo: Topology, x: list, xhat: list, s: list, mesh):
         """The two-step wire's exchange (per-worker view): compress the
@@ -648,8 +688,9 @@ class ConsensusEngine:
         each neighbour's payload into ``s`` through the codec's
         ``decompress_accumulate`` (the chunked top-k's accumulating
         ``chunk_scatter``: no dense temporary a neighbour)."""
-        xhat, finish = self._exchange_start(topo, x, xhat, None, mesh, [], transport=mesh.transport)
-        return xhat, finish(s)[0]
+        with _span("choco.innovation"):
+            xhat, finish = self._exchange_start(topo, x, xhat, None, mesh, [], transport=mesh.transport)
+            return xhat, finish(s)[0]
 
     def _innovation_exchange_fused_collective(self, topo: Topology, x: list, xhat: list, s: list,
                                               fused: FusedWirePlan, mesh):
@@ -659,8 +700,9 @@ class ConsensusEngine:
         ``fused_dequantize_accumulate`` launch a bucket folds self and
         every neighbour into ``s`` (sources self first, then each shift
         in order). A dense topology means the decoded innovations."""
-        xhat, finish = self._exchange_start(topo, x, xhat, fused, mesh, [], transport=mesh.transport)
-        return xhat, finish(s)[0]
+        with _span("choco.innovation", fused=True):
+            xhat, finish = self._exchange_start(topo, x, xhat, fused, mesh, [], transport=mesh.transport)
+            return xhat, finish(s)[0]
 
     def _exchange_start(self, topo: Topology, x: list, xhat: list, fused: FusedWirePlan | None, mesh,
                         exact: list, computed: list | None = None, transport=None):
@@ -676,12 +718,14 @@ class ConsensusEngine:
         mixed (``computed[i]``: :meth:`_exact_bufs`'s flag for buffer
         ``i``)."""
         comp = self.config.compressor
+        first = tracing_program()  # the finish may run outside this call's program
         if fused is not None:
             q, xhat = fused.encode(x, xhat)
             dec = fused.decode(q) if topo.uses_psum else None
         else:
-            q = [comp.compress(xb - hb) for xb, hb in zip(x, xhat)]
-            dec = [comp.decompress(p) for p in q]
+            with _span("choco.compress"):
+                q = [comp.compress(xb - hb) for xb, hb in zip(x, xhat)]
+                dec = [comp.decompress(p) for p in q]
             xhat = [hb + d for hb, d in zip(xhat, dec)]
         nb = len(q)
         if topo.uses_psum:
@@ -694,7 +738,8 @@ class ConsensusEngine:
             return xhat, finish
         per = [p.wire_tensors() for p in q]
         flat = [t for ts in per for t in ts]
-        posted = collectives.ppermute_shifts_start(flat + list(exact), topo, topo.shifts, mesh, transport)
+        with _span("choco.exchange", shifts=len(topo.shifts)):
+            posted = collectives.ppermute_shifts_start(flat + list(exact), topo, topo.shifts, mesh, transport)
         self_dec = None if fused is not None else dec
         del dec
 
@@ -709,7 +754,8 @@ class ConsensusEngine:
             if fused is not None:
                 weights = (topo.self_weight,) + tuple(sh.weight for sh in topo.shifts)
                 sources = [[qb] + [nbr[i] for nbr in inflight] for i, qb in enumerate(q)]
-                return fused.decode_accumulate(s, sources, weights), mixed
+                with as_program(first):
+                    return fused.decode_accumulate(s, sources, weights), mixed
             recv = [topo.self_weight * d for d in self_dec]
             for shift, q_nbr in zip(topo.shifts, inflight):
                 recv = [comp.decompress_accumulate(p, r, shift.weight) for p, r in zip(q_nbr, recv)]
@@ -914,6 +960,45 @@ class ConsensusEngine:
         if topo.is_time_varying:
             return sum((1 if p.uses_psum else len(p.shifts)) for p in topo.phases) / topo.period
         return 1 if topo.uses_psum else len(topo.shifts)
+
+    def telemetry(self, params: Any) -> dict[str, float]:
+        """Static per-round wire facts for the metrics registry, the
+        reference's keys: bytes one worker sends a round and a neighbour
+        send, the bucket count, the dense-to-wire compression ratio, the
+        sends a round, the fused wire's buckets and kernel calls a round,
+        and the overlap pipeline's depth. ``params`` are per-worker leaves
+        (shapes only: meta tensors do)."""
+        wire = self.wire_bytes_per_round(params)
+        sends = max(self._sends_per_round(), 1e-9)
+        dense = sum(int(x.numel()) * 4 for x in self._select(params)[0])
+        plan = self.bucket_plan(params)
+        # one send's payload: gossip_steps multiplies the round, not a send
+        per_send = wire / sends / max(self.config.gossip_steps, 1)
+        fused_buckets = plan.num_buckets if plan is not None and self.fused_wire_active else 0
+        # an encode and a decode a bucket an exchange (a dense topology
+        # decodes through its mean: the encode alone)
+        stages = 1 if self.topology.uses_psum else 2
+        return {
+            "wire_bytes_per_round": float(wire),
+            "wire_bytes_per_neighbor": float(per_send),
+            "gossip_buckets": float(plan.num_buckets) if plan else 0.0,
+            "compression_ratio": float(dense / per_send) if wire else 0.0,
+            "neighbor_sends_per_round": float(sends),
+            "wire_fused_buckets": float(fused_buckets),
+            "wire_fused_kernel_calls_per_round": float(stages * fused_buckets * self.config.gossip_steps),
+            "gossip_pipeline_depth": float(self.config.pipeline_depth),
+        }
+
+    def choco_residual(self, state: Any) -> float | None:
+        """The CHOCO tracking residual ``||s - xhat||`` of a gossip state
+        (a :class:`ChocoState`, or an :class:`OverlapState` carrying one),
+        summed in f64 on the state's device and fetched once; ``None`` for
+        exact mixing. The telemetry tick samples it, as the reference's."""
+        choco = getattr(state, "choco", state)
+        if not isinstance(choco, ChocoState):
+            return None
+        sq = sum(((si.double() - hi.double()) ** 2).sum() for si, hi in zip(choco.s, choco.xhat))
+        return float(sq) ** 0.5
 
     def consensus_error_collective(self, params: Any, mesh) -> torch.Tensor:
         """This rank's view of the consensus error of per-worker ``params``

@@ -29,8 +29,8 @@ ok``:
   parameter or model-state value is dead for the round, and its local
   update is rolled back, so the NaN never reaches a neighbour.
 
-``record_fault_metrics`` (the reference's telemetry counters) waits for
-the port of the ``obs`` registry.
+:func:`record_fault_metrics` feeds a round's alive fraction and mask into
+the telemetry registry, as the reference's does.
 """
 
 from __future__ import annotations
@@ -42,7 +42,44 @@ import torch
 
 from consensusml_tpu_torch.utils import tree as T
 
-__all__ = ["FaultConfig", "fault_generator", "draw_alive", "tree_all_finite", "masked_mixing_matrix"]
+__all__ = ["FaultConfig", "fault_generator", "draw_alive", "tree_all_finite", "masked_mixing_matrix",
+           "record_fault_metrics"]
+
+
+def record_fault_metrics(alive_frac: float, alive=None, prev_alive=None) -> None:
+    """Feed one round's alive fraction into the telemetry registry (host
+    side: the caller passes values it already fetched).
+
+    Counts ``consensusml_fault_rounds_total`` (rounds where any worker
+    missed the gossip) and ``consensusml_worker_drops_total`` (fractional
+    worker-rounds lost), and gauges the latest alive fraction. ``alive``
+    (optional): this round's per-rank 0/1 vector (any sequence); with it
+    ``consensusml_worker_drop_rounds_total{worker="i"}`` counts each
+    rank's missed rounds and, with ``prev_alive`` (the previous round's
+    vector), ``consensusml_worker_recoveries_total{worker="i"}`` its 0 to 1
+    transitions."""
+    from consensusml_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    af = float(alive_frac)
+    reg.gauge("consensusml_alive_frac", "fraction of workers that participated in the last gossip round").set(af)
+    if af < 1.0:
+        reg.counter("consensusml_fault_rounds_total", "gossip rounds in which at least one worker dropped").inc()
+        reg.counter("consensusml_worker_drops_total",
+                    "cumulative fraction of worker-rounds lost to faults").inc(1.0 - af)
+    if alive is None:
+        return
+    cur = [float(a) for a in alive]
+    prev = None if prev_alive is None else [float(a) for a in prev_alive]
+    for i, a in enumerate(cur):
+        if a <= 0.0:
+            reg.counter("consensusml_worker_drop_rounds_total",
+                        "gossip rounds this rank missed (dropped or straggling)",
+                        labels={"worker": str(i)}).inc()
+        elif prev is not None and i < len(prev) and prev[i] <= 0.0:
+            reg.counter("consensusml_worker_recoveries_total",
+                        "this rank's dead→alive transitions (rejoins/recoveries)",
+                        labels={"worker": str(i)}).inc()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,7 @@
 """Slot-based continuous batching: requests, handles, slot table.
 
-Port of ``consensusml_tpu/serve/batcher.py`` (host-side bookkeeping; the
-tracing, tenant and speculative fields of the reference wait for the
-slices that bring those features).
+Port of ``consensusml_tpu/serve/batcher.py`` (host-side bookkeeping, with
+the reference's tracing, tenant, speculative and accounting fields).
 """
 
 from __future__ import annotations
@@ -27,11 +26,23 @@ class GenResult:
     ttft_s: float  # arrival -> first token
     latency_s: float  # arrival -> completion
     prompt_len: int
+    generation: int = 0  # artifact generation that finished the stream
+    # request-scoped tracing identity (obs/requests.py): clients join
+    # their own observations to the server's trace on these
+    trace_id: str = ""
     request_id: str = ""
     # resolved sampling parameters, echoed for deterministic replay
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
+    # speculative-decode accounting of this stream (0/0 without a draft)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    tenant: str = "default"  # the workload label (obs/events.py)
+    # pool block-seconds held exclusively, and prefix-shared (charged apart)
+    block_seconds: float = 0.0
+    shared_block_seconds: float = 0.0
+    prefix_hit_blocks: int = 0  # blocks mapped in from the prefix index
 
 
 class RequestHandle:
@@ -81,14 +92,30 @@ class Request:
     max_new_tokens: int
     handle: RequestHandle
     arrival_t: float = dataclasses.field(default_factory=time.perf_counter)
-    request_id: str = ""
+    # obs.TraceContext: trace_id / request_id carried end to end
+    ctx: Any = None
     # per-request sampling: temperature 0 = greedy; the seed keys the
     # (seed, position) draws, so the same seed replays the same stream
     temperature: float = 0.0
     top_p: float = 1.0
     seed: int = 0
     eos_id: int | None = None  # None = stop on the token cap only
-    tenant: str = "default"  # the prefix cache's namespace: tenants never share cached blocks
+    tenant: str = "default"  # the prefix cache's namespace and the wide event's label
+    # speculative accounting (per stream, across preemptions)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    # the wide event's cost join: resident ticks, block-seconds held, the
+    # prefill bucket (and kind, "full" or "prefix") of every admission
+    decode_ticks: int = 0
+    block_seconds: float = 0.0
+    prefill_buckets: list[int] = dataclasses.field(default_factory=list)
+    prefix_hit_blocks: int = 0
+    shared_block_seconds: float = 0.0
+    prefill_kinds: list[str] = dataclasses.field(default_factory=list)
+
+    @property
+    def request_id(self) -> str:
+        return getattr(self.ctx, "request_id", "") or ""
 
 
 @dataclasses.dataclass
@@ -102,6 +129,8 @@ class Slot:
     pending: int
     generated: int = 1  # prefill produced token #1
     ttft_s: float = 0.0
+    last_token_t: float = 0.0
+    generation: int = 0  # the artifact generation the stream runs under
 
 
 class SlotTable:

@@ -24,8 +24,21 @@ k)`` replaces the one-token decode step by a speculative round
 the unshared suffix of a prompt whose block-aligned prefix is cached
 (:mod:`.pool.prefix`).
 
-Deferred to later slices: the observability registry and wide events,
-and the reference's per-slot (``kv_impl="slot"``) path.
+Telemetry, the reference's (:mod:`consensusml_tpu_torch.obs`): the
+``serve.prefill``, ``serve.decode_step`` and ``serve.spec_step`` spans;
+a request trace a request (``submit(trace=)`` takes the client's
+:class:`~consensusml_tpu_torch.obs.TraceContext`, else one is minted),
+with its admission, defer, prefill, decode, preempt and hot-swap events;
+every ``consensusml_serve_*``, ``consensusml_pool_*``,
+``consensusml_prefix_*`` and ``consensusml_spec_*`` family, the SLO
+histograms carrying request ids as exemplars; the per-tenant
+``consensusml_tenant_*`` children; and one wide event a terminal request
+(:mod:`~consensusml_tpu_torch.obs.events`). The port has no cost ledger
+yet, so a wide event's cost is zeros with ``cost_joined: False``, as the
+reference's without one. None of it reads a device value.
+
+Deferred to later slices: the cost ledger (``register_costs``) and the
+reference's per-slot (``kv_impl="slot"``) path.
 """
 
 from __future__ import annotations
@@ -33,7 +46,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
-import itertools
 import os
 import queue
 import threading
@@ -46,6 +58,9 @@ import torch
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.device import resolve_device
 from consensusml_tpu_torch.models.paged_attention import resolve_attention_impl
+from consensusml_tpu_torch.obs import TraceContext, get_registry, get_request_registry, get_tracer
+from consensusml_tpu_torch.obs.events import get_wide_event_log, sanitize_tenant
+from consensusml_tpu_torch.obs.metrics import DEFAULT_SLO_BUCKETS
 from consensusml_tpu_torch.serve import pool as P
 from consensusml_tpu_torch.serve.batcher import (
     GenResult,
@@ -170,7 +185,6 @@ class Engine:
         # evicted continuations and deferred admissions, ahead of arrivals
         self._requeue: "collections.deque[Request]" = collections.deque()
         self._table = SlotTable(cfg.num_slots)
-        self._ids = itertools.count()
         self._stop = threading.Event()
         self._draining = threading.Event()
         self._drained = threading.Event()
@@ -202,9 +216,100 @@ class Engine:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._spec_tokens = 0
+        self._init_telemetry()
 
         self._thread = threading.Thread(target=self._loop, name="serve-engine", daemon=True)
         self._thread.start()
+
+    def _init_telemetry(self) -> None:
+        """The reference's families, spans and request planes (engine
+        construction; the registry dedupes by name, so engines share
+        them)."""
+        self._tracer = get_tracer()
+        self._rt = get_request_registry()
+        # the engine is a producer: it arms the global wide-event log
+        self._events = get_wide_event_log()
+        self._registry = reg = get_registry()
+        self._tenant_children: dict[str, dict[str, Any]] = {}
+        self._m_requests = reg.counter("consensusml_serve_requests_total", "requests accepted by submit()")
+        self._m_rejected = reg.counter("consensusml_serve_rejected_total",
+                                       "requests rejected (bounded queue full or engine draining)")
+        self._m_completed = reg.counter("consensusml_serve_completed_total", "requests served to completion")
+        self._m_tokens = reg.counter("consensusml_serve_tokens_total", "tokens generated (prefill + decode)")
+        self._m_ttft = reg.histogram("consensusml_serve_ttft_seconds",
+                                     "time to first token: arrival -> first generated token",
+                                     buckets=DEFAULT_SLO_BUCKETS)
+        self._m_intertoken = reg.histogram("consensusml_serve_intertoken_seconds",
+                                           "per-decode-step latency (== inter-token gap for resident slots)",
+                                           buckets=DEFAULT_SLO_BUCKETS)
+        self._m_prefill = reg.histogram("consensusml_serve_prefill_seconds", "prefill forward wall time",
+                                        buckets=DEFAULT_SLO_BUCKETS)
+        self._m_queue = reg.gauge("consensusml_serve_queue_depth", "requests waiting for a slot")
+        self._m_occupancy = reg.gauge("consensusml_serve_batch_occupancy",
+                                      "active decode slots / num_slots (sampled per step)")
+        self._m_tps = reg.gauge("consensusml_serve_tokens_per_sec",
+                                "decode throughput: active slots / step wall time (sampled)")
+        self._m_generation = reg.gauge("consensusml_serve_generation", "artifact generation currently serving")
+        self._m_swaps = reg.counter("consensusml_serve_swaps_total",
+                                    "drain-free hot swaps applied (params flipped between steps)")
+        self._m_evictions = reg.counter("consensusml_pool_evictions_total",
+                                        "streams preempted by recompute on block-pool exhaustion")
+        self._m_loop_heartbeat = reg.gauge(
+            "consensusml_serve_loop_heartbeat_seconds",
+            "unix time of the engine loop's latest iteration (liveness; staleness means the serving thread is "
+            "wedged or dead)")
+        self._m_loop_heartbeat.set(time.time())
+        if self.spec is not None:
+            self._m_spec_rounds = reg.counter("consensusml_spec_rounds_total",
+                                              "speculative rounds (one draft scan + one fused verify)")
+            self._m_spec_proposed = reg.counter("consensusml_spec_proposed_total",
+                                                "draft tokens proposed across all live lanes")
+            self._m_spec_accepted = reg.counter("consensusml_spec_accepted_total",
+                                                "draft tokens accepted by the target's rejection sampler")
+            self._m_spec_rate = reg.gauge(
+                "consensusml_spec_acceptance_rate",
+                "accepted / proposed over the engine lifetime (sampled per verify round) — the k-tuning signal")
+        self._params_nbytes = _nbytes(self._dm.model.parameters())
+        self._m_params_bytes = reg.gauge("consensusml_serve_params_bytes",
+                                         "device bytes of the serving params tree (current generation)")
+        self._m_params_bytes.set(self._params_nbytes)
+        self._m_blocks_free = reg.gauge("consensusml_pool_blocks_free", "free physical KV blocks (trash block excluded)")
+        self._m_block_occ = reg.gauge("consensusml_pool_block_occupancy",
+                                      "allocated blocks / usable blocks (sampled per step)")
+        self._m_blocks_free.set(self._pool.free_blocks)
+        self._m_block_occ.set(0.0)
+        pool_bytes = _nbytes(t for pg in self._pages for t in pg.values())
+        self._block_nbytes = pool_bytes // max(self._pool.num_blocks, 1)
+        if self.spec is not None:
+            self._draft_block_nbytes = _nbytes(t for pg in self._draft_pages for t in pg.values()) // max(
+                self._pool.num_blocks, 1)
+        self._m_pool_hbm = reg.gauge("consensusml_pool_hbm_bytes",
+                                     "device bytes held by the paged KV block pool (all layers)")
+        self._m_pool_hbm.set(pool_bytes)
+        self._m_pool_hbm_free = reg.gauge(
+            "consensusml_pool_hbm_free_bytes",
+            "KV bytes still allocatable (free blocks x per-block bytes) — the per-engine serving HBM headroom signal")
+        self._m_pool_hbm_free.set(self._pool.free_blocks * self._block_nbytes)
+        if self._prefix is not None:
+            self._m_prefix_hits = reg.counter("consensusml_prefix_hits_total",
+                                              "admissions that adopted at least one indexed prefix block")
+            self._m_prefix_misses = reg.counter("consensusml_prefix_misses_total",
+                                                "admissions that prefilled from scratch (no indexed prefix)")
+            self._m_prefix_hit_blocks = reg.counter(
+                "consensusml_prefix_hit_blocks_total",
+                "KV blocks mapped in from the prefix index instead of prefilled")
+            self._m_prefix_cow_copies = reg.counter(
+                "consensusml_prefix_cow_copies_total",
+                "copy-on-write block copies (full-match divergence: the last shared block copied to a fresh page "
+                "in-jit)")
+            self._m_prefix_bytes_saved = reg.counter(
+                "consensusml_prefix_bytes_saved_total",
+                "KV bytes NOT materialized thanks to prefix sharing (adopted blocks x per-block bytes, draft pages "
+                "included)")
+            self._m_prefix_entries = reg.gauge("consensusml_prefix_entries",
+                                               "live prefix-index entries (current generation)")
+            self._m_prefix_shared_blocks = reg.gauge("consensusml_prefix_shared_blocks",
+                                                     "physical blocks currently held by more than one stream")
 
     # -- client API ---------------------------------------------------------
 
@@ -219,7 +324,7 @@ class Engine:
         top_p: float | None = None,
         seed: int | None = None,
         eos_id: int | None = None,
-        request_id: str | None = None,
+        trace: TraceContext | None = None,
         tenant: str | None = None,
     ) -> RequestHandle:
         """Enqueue one request; returns its :class:`RequestHandle`.
@@ -230,8 +335,10 @@ class Engine:
         ``queue.Full`` when the bounded queue is full, ``RuntimeError``
         once the engine is draining, ``ValueError`` on a bad request
         (token ids must lie in ``[0, vocab_size)``: PyTorch raises or
-        device-asserts on an out-of-range lookup). ``tenant`` namespaces
-        the prefix cache (``None``: ``"default"``).
+        device-asserts on an out-of-range lookup). ``trace`` is the
+        request's :class:`~consensusml_tpu_torch.obs.TraceContext` (minted
+        when ``None``); ``tenant`` labels the request for attribution and
+        namespaces the prefix cache (sanitized; ``None``: ``"default"``).
         """
         cfg = self.config
         max_new = cfg.max_new_tokens if max_new_tokens is None else int(max_new_tokens)
@@ -246,6 +353,7 @@ class Engine:
         seed = int(seed) & 0xFFFFFFFF
         eos = cfg.eos_id if eos_id is None else int(eos_id)
         if self._draining.is_set() or self._stop.is_set():
+            self._m_rejected.inc()
             if self._error is not None:
                 raise RuntimeError(
                     f"engine died on {type(self._error).__name__}: {self._error}"
@@ -263,17 +371,25 @@ class Engine:
                 f"prompt ({len(ids)}) + max_new_tokens ({max_new}) exceeds the "
                 f"cache length {self.max_len}"
             )
+        tenant_s = sanitize_tenant(tenant)
+        ctx = trace if trace is not None else TraceContext.mint("srv")
         handle = RequestHandle(len(ids))
-        req = Request(
-            ids, max_new, handle,
-            request_id=request_id or f"srv-{next(self._ids)}",
-            temperature=temp, top_p=tp, seed=seed, eos_id=eos, tenant=tenant or "default",
-        )
-        self._queue.put(req, block=block, timeout=timeout)
+        req = Request(ids, max_new, handle, ctx=ctx, temperature=temp, top_p=tp, seed=seed, eos_id=eos,
+                      tenant=tenant_s)
+        self._rt.start(ctx, len(ids), max_new_tokens=max_new, generation=self._generation, tenant=tenant_s)
+        try:
+            self._queue.put(req, block=block, timeout=timeout)
+        except queue.Full:
+            self._m_rejected.inc()
+            self._rt.finish(ctx.request_id, "rejected", detail="queue_full")
+            raise
         if self._drained.is_set():
             # lost the race against loop exit: nothing will service it
             self._cancel_queued()
+            self._m_rejected.inc()
             raise RuntimeError("engine is draining/closed; not accepting requests")
+        self._m_requests.inc()
+        self._m_queue.set(self._queue.qsize())
         return handle
 
     def warmup(self) -> dict[str, int]:
@@ -384,12 +500,21 @@ class Engine:
                         t.record_stream(stream)  # allocated on the watcher's stream, now used on this one
                     p.data = t
         self._generation = sw.generation
+        self._params_nbytes = _nbytes(self._dm.model.parameters())
+        self._m_params_bytes.set(self._params_nbytes)
+        for _i, slot in self._table.active:
+            slot.generation = sw.generation
+            # a mid-stream flip is part of the request's story
+            self._rt.event(slot.request.request_id, "hotswap", generation=sw.generation)
         self._streams_at_flip.append(self._table.num_active)
         self._swaps += 1
+        self._m_swaps.inc()
+        self._m_generation.set(sw.generation)
         if self._prefix is not None:
             # stale entries are unreachable already (lookups key on the
             # generation); this reclaims them and their cached blocks
             self._prefix.drop_stale(sw.generation)
+            self._m_prefix_entries.set(len(self._prefix))
 
     @property
     def warmed(self) -> bool:
@@ -495,6 +620,7 @@ class Engine:
             if self.device.type == "cuda":
                 torch.cuda.set_device(self.device)
             while not self._stop.is_set():
+                self._m_loop_heartbeat.set(time.time())
                 self._maybe_swap()  # flip a staged generation between steps
                 self._sched.start_tick()
                 self._admit_waiting()
@@ -512,6 +638,7 @@ class Engine:
                     req = q.get(timeout=self.config.idle_wait_s)
                 except queue.Empty:
                     continue
+                self._m_queue.set(q.qsize())
                 # through _admit_waiting's capacity/budget gate next tick
                 self._requeue.append(req)
         except BaseException as e:
@@ -527,6 +654,9 @@ class Engine:
                 self._watcher.stop()
             for i, slot in self._table.active:
                 self._table.release(i)
+                # settle block-seconds for the wide event (the pool is not
+                # released: nothing re-admits)
+                self._settle_block_seconds(slot.request, i)
                 self._finish_handle(slot.request, "cancelled")
             self._cancel_queued()
             self._drained.set()
@@ -548,7 +678,9 @@ class Engine:
     def _pop_waiting(self) -> Request:
         if self._requeue:
             return self._requeue.popleft()
-        return self._queue.get_nowait()
+        req = self._queue.get_nowait()
+        self._m_queue.set(self._queue.qsize())
+        return req
 
     def _admit_waiting(self) -> None:
         while self._table.free_slot() is not None:
@@ -566,8 +698,13 @@ class Engine:
                 bucket, need = plan["bucket"], plan["free_needed"]
             # defer (don't drop) when the pool can't hold the prompt yet or
             # this tick's prefill budget is spent; the request keeps its
-            # place at the head of the line
-            if not self._pool.can_admit(need) or not self._sched.try_admit(bucket):
+            # place at the head of the line, each deferred tick on its trace
+            if not self._pool.can_admit(need):
+                self._rt.event(req.request_id, "admission.defer", reason="blocks")
+                self._requeue.appendleft(req)
+                return
+            if not self._sched.try_admit(bucket):
+                self._rt.event(req.request_id, "admission.defer", reason="budget")
                 self._requeue.appendleft(req)
                 return
             self._admit(req, plan)
@@ -623,6 +760,13 @@ class Engine:
         # an evicted continuation re-prefills prompt + generated-so-far;
         # its TTFT already happened and its token count keeps running
         already = len(req.handle._all)
+        # every admission's bucket feeds the wide event (each is paid for)
+        req.prefill_buckets.append(bucket)
+        req.prefill_kinds.append("prefix" if plan is not None else "full")
+        rid = req.request_id
+        self._rt.event(rid, "admission", slot=idx, bucket=bucket, continuation=bool(already),
+                       prefix_blocks=len(plan["match"]) if plan is not None else 0)
+        t0 = time.perf_counter()
         ids = np.zeros((1, bucket), np.int64)
         if plan is None:
             ids[0, :n] = req.ids
@@ -630,50 +774,70 @@ class Engine:
             ids[0, : plan["suffix_len"]] = req.ids[plan["start"]:]
         ids = torch.from_numpy(ids).to(self.device)
         samp = (req.temperature, req.top_p, req.seed)
-        if plan is not None:
-            tok = int(self._prefix_admit(idx, plan, bucket, ids, samp))  # device fence
-        else:
-            if self._prefix is not None:
-                self._prefix_misses += 1
-            # cover the prompt AND the first decode write (position n)
-            self._pool.alloc(idx, P.blocks_for_tokens(n + 1, bs))
-            try:
-                row = torch.from_numpy(self._pool.block_row(idx, bucket // bs)).to(self.device)
-                tok_dev, _logits = self._prefill_fn(self._pages, ids, n, row, *samp)
-                if self.spec is not None:
-                    # the draft's pages need the prompt too (its token is not used)
-                    self._draft_prefill_fn(self._draft_pages, ids, n, row, *samp)
-                tok = int(tok_dev)  # device fence: the first token is real now
-            except BaseException:
-                self._pool.release(idx)  # no leaked blocks on a raise
-                raise
+        with self._tracer.span("serve.prefill", bucket=bucket, slot=idx):
+            if plan is not None:
+                tok = int(self._prefix_admit(idx, req, plan, bucket, ids, samp))  # device fence
+            else:
+                if self._prefix is not None:
+                    self._prefix_misses += 1
+                    self._m_prefix_misses.inc()
+                # cover the prompt AND the first decode write (position n)
+                self._pool.alloc(idx, P.blocks_for_tokens(n + 1, bs))
+                try:
+                    row = torch.from_numpy(self._pool.block_row(idx, bucket // bs)).to(self.device)
+                    tok_dev, _logits = self._prefill_fn(self._pages, ids, n, row, *samp)
+                    if self.spec is not None:
+                        # the draft's pages need the prompt too (its token is not used)
+                        self._draft_prefill_fn(self._draft_pages, ids, n, row, *samp)
+                    tok = int(tok_dev)  # device fence: the first token is real now
+                except BaseException:
+                    self._pool.release(idx)  # no leaked blocks on a raise
+                    raise
         self._prefill_tokens_computed += bucket
         if self._prefix is not None:
             # index the PROMPT's full chunks only (positions a prefill wrote;
             # a continuation's decoded tokens stay out); first writer wins
             self._prefix.insert(req.tenant, self._generation, req.ids[: req.handle.prompt_len],
                                 self._pool.owned(idx))
+            self._m_prefix_entries.set(len(self._prefix))
+            self._m_prefix_shared_blocks.set(self._pool.shared_blocks)
         now = time.perf_counter()
+        self._m_prefill.observe(now - t0, exemplar=rid)
+        self._rt.event(rid, "prefill", bucket=bucket, seconds=round(now - t0, 6))
         if already == 0:
             ttft = now - req.arrival_t
+            self._m_ttft.observe(ttft, exemplar=rid)
             self._ttfts.append(ttft)
             if self._prefix is not None:
                 (self._ttfts_miss if plan is None else self._ttfts_hit).append(ttft)
             req.handle._ttft_s = ttft
             self._tokens_in += n
+            self._tenant_metrics(req.tenant)["ttft"].observe(ttft, exemplar=rid)
         else:
             ttft = req.handle._ttft_s
         req.handle._emit(tok)
+        self._m_tokens.inc()
         self._tokens_out += 1
         if already + 1 >= req.max_new_tokens or tok == req.eos_id:
+            self._settle_block_seconds(req, idx)
             self._pool.release(idx)
             self._finish_handle(req, "eos" if tok == req.eos_id else "max_tokens", ttft=ttft)
             return
         self._table.occupy(
-            idx, Slot(request=req, next_pos=n, pending=tok, generated=already + 1, ttft_s=ttft)
+            idx, Slot(request=req, next_pos=n, pending=tok, generated=already + 1, ttft_s=ttft, last_token_t=now,
+                      generation=self._generation)
         )
 
-    def _prefix_admit(self, idx: int, plan: dict, bucket: int, ids: torch.Tensor, samp: tuple) -> torch.Tensor:
+    def _settle_block_seconds(self, req: Request, idx: int) -> None:
+        """Fold slot ``idx``'s hold-time integral onto ``req`` before its
+        blocks go back: the unshared part charged (the wide event's
+        ``block_seconds``), the prefix-shared part apart."""
+        unshared, shared = self._pool.block_seconds_split(idx)
+        req.block_seconds += unshared
+        req.shared_block_seconds += shared
+
+    def _prefix_admit(self, idx: int, req: Request, plan: dict, bucket: int, ids: torch.Tensor,
+                      samp: tuple) -> torch.Tensor:
         """A prefix hit's device work: adopt the matched blocks, pop fresh
         ones for the suffix, run the suffix prefill (and the draft's on a
         speculative engine: its pages share the block geometry). Returns
@@ -706,13 +870,19 @@ class Engine:
             # the copy is queued on the stream ahead of any later write to the source
             pool.unpin(cow)
         hit_blocks = len(plan["match"])
+        req.prefix_hit_blocks += hit_blocks
         self._prefix_hits += 1
+        self._m_prefix_hits.inc()
         self._prefix_hit_blocks += hit_blocks
-        self._prefix_cow_copies += cow is not None
-        block_bytes = sum(t[0].numel() * t.element_size() for pg in self._pages for t in pg.values())
+        self._m_prefix_hit_blocks.inc(hit_blocks)
+        if cow is not None:
+            self._prefix_cow_copies += 1
+            self._m_prefix_cow_copies.inc()
+        saved = hit_blocks * self._block_nbytes
         if self.spec is not None:
-            block_bytes += sum(t[0].numel() * t.element_size() for pg in self._draft_pages for t in pg.values())
-        self._prefix_bytes_saved += hit_blocks * block_bytes
+            saved += hit_blocks * self._draft_block_nbytes
+        self._prefix_bytes_saved += saved
+        self._m_prefix_bytes_saved.inc(saved)
         return tok_dev
 
     def _youngest_active(self) -> int:
@@ -724,10 +894,14 @@ class Engine:
         stream (prompt + everything generated) at the head of the line —
         tokens already streamed stand, none drop."""
         req = self._table.release(idx).request
+        # settle the hold-time integral before the blocks go back
+        self._settle_block_seconds(req, idx)
         self._pool.release(idx)
         req.ids = list(req.ids[: req.handle.prompt_len]) + list(req.handle._all)
+        self._rt.event(req.request_id, "preempt", reason="blocks_exhausted", generated=len(req.handle._all))
         self._requeue.appendleft(req)
         self._evictions += 1
+        self._m_evictions.inc()
 
     def _grow_blocks(self, extra_tokens: int = 0) -> None:
         """Before a step: give every lane the blocks its writes need, the
@@ -771,11 +945,27 @@ class Engine:
         return [torch.from_numpy(a).to(self.device) for a in (tokens, positions, temps, tops, seeds)]
 
     def _record_step(self, dt: float, active) -> None:
+        """A step's host statistics, gauges and resident ticks, before its
+        tokens are emitted (a stream the step finishes carries the tick).
+        The exemplar is the oldest resident stream, the one that has paid
+        this step time the longest."""
+        self._m_intertoken.observe(
+            dt, exemplar=min(active, key=lambda t: t[1].request.arrival_t)[1].request.request_id)
         self._step_times.append(dt)
         self._decode_time_s += dt
         self._decode_steps += 1
-        self._occupancy_sum += len(active) / self.config.num_slots
-        self._block_occupancy_sum += self._pool.used_blocks / self._pool.usable_blocks
+        occ = len(active) / self.config.num_slots
+        self._occupancy_sum += occ
+        self._m_occupancy.set(occ)
+        block_occ = self._pool.used_blocks / self._pool.usable_blocks
+        self._block_occupancy_sum += block_occ
+        self._m_block_occ.set(block_occ)
+        self._m_blocks_free.set(self._pool.free_blocks)
+        self._m_pool_hbm_free.set(self._pool.free_blocks * self._block_nbytes)
+        # one lock round-trip covers every resident slot's tick
+        self._rt.decode_ticks([slot.request.request_id for _i, slot in active])
+        for _i, slot in active:
+            slot.request.decode_ticks += 1  # the wide event's resident ticks
 
     def _decode_step(self) -> None:
         self._grow_blocks()
@@ -783,12 +973,16 @@ class Engine:
         if not active:  # everything preempted
             return
         t0 = time.perf_counter()
-        next_dev, _logits = self._decode_fn(self._pages, self._pool.device_table(self.device),
-                                            *self._slot_arrays(active))
-        next_toks = next_dev.cpu().numpy()  # the per-step device fence
-        self._record_step(time.perf_counter() - t0, active)
+        with self._tracer.span("serve.decode_step", active=len(active)):
+            next_dev, _logits = self._decode_fn(self._pages, self._pool.device_table(self.device),
+                                                *self._slot_arrays(active))
+            next_toks = next_dev.cpu().numpy()  # the per-step device fence
+        now = time.perf_counter()
+        self._record_step(now - t0, active)
+        if now > t0:
+            self._m_tps.set(len(active) / (now - t0))
         for i, slot in active:
-            self._emit_and_advance(i, slot, [int(next_toks[i])])
+            self._emit_and_advance(i, slot, [int(next_toks[i])], now)
 
     def _spec_step(self) -> None:
         """One speculative round: the draft proposes ``k`` tokens a lane,
@@ -803,16 +997,31 @@ class Engine:
         tokens, positions, temps, tops, seeds = self._slot_arrays(active)
         table = self._pool.device_table(self.device, self._spec_extra_cols)
         t0 = time.perf_counter()
-        props, q_sel, q_probs = self._propose_fn(self._draft_pages, table, tokens, positions, temps, tops, seeds)
-        n_acc, finals, _logits = self._verify_fn(self._pages, table, tokens, props, q_sel, q_probs, positions,
-                                                 temps, tops, seeds)
-        props, n_acc, finals = (t.cpu().numpy() for t in (props, n_acc, finals))  # the round's fence
-        self._record_step(time.perf_counter() - t0, active)
-        emitted = accepted = 0
+        with self._tracer.span("serve.spec_step", active=len(active), k=k):
+            props, q_sel, q_probs = self._propose_fn(self._draft_pages, table, tokens, positions, temps, tops,
+                                                     seeds)
+            n_acc, finals, _logits = self._verify_fn(self._pages, table, tokens, props, q_sel, q_probs, positions,
+                                                     temps, tops, seeds)
+            props, n_acc, finals = (t.cpu().numpy() for t in (props, n_acc, finals))  # the round's fence
+        now = time.perf_counter()
+        dt = now - t0
+        self._record_step(dt, active)
+        # per-stream accounting before emission: a stream this round
+        # finishes carries its final round on its trace too
+        rows, accepted = [], 0
         for i, slot in active:
             n = int(n_acc[i])
+            slot.request.spec_proposed += k
+            slot.request.spec_accepted += n
             accepted += n
-            emitted += self._emit_and_advance(i, slot, [int(t) for t in props[i, :n]] + [int(finals[i])])
+            rows.append((slot.request.request_id, k, n))
+        self._rt.spec_ticks(rows)
+        emitted = 0
+        for i, slot in active:
+            n = int(n_acc[i])
+            emitted += self._emit_and_advance(i, slot, [int(t) for t in props[i, :n]] + [int(finals[i])], now)
+        if dt > 0:
+            self._m_tps.set(emitted / dt)
         if self._pool.free_blocks == 0:
             # the rejected window tails' blocks go back only under pool
             # pressure: otherwise the next round would extend the same lanes
@@ -823,8 +1032,12 @@ class Engine:
         self._spec_proposed += k * len(active)
         self._spec_accepted += accepted
         self._spec_tokens += emitted
+        self._m_spec_rounds.inc()
+        self._m_spec_proposed.inc(k * len(active))
+        self._m_spec_accepted.inc(accepted)
+        self._m_spec_rate.set(self._spec_accepted / self._spec_proposed if self._spec_proposed else 0.0)
 
-    def _emit_and_advance(self, i: int, slot: Slot, toks: list[int]) -> int:
+    def _emit_and_advance(self, i: int, slot: Slot, toks: list[int], now: float) -> int:
         """Emit ``toks`` (a decode token, or a round's accepted prefix and
         final token) on lane ``i`` one at a time, so an eos, token-cap or
         length stop lands at the right token and the rest are dropped.
@@ -832,10 +1045,12 @@ class Engine:
         req = slot.request
         for emitted, tok in enumerate(toks, start=1):
             req.handle._emit(tok)
+            self._m_tokens.inc()
             self._tokens_out += 1
             slot.generated += 1
             slot.next_pos += 1
             slot.pending = tok
+            slot.last_token_t = now
             reason = None
             if tok == req.eos_id:
                 reason = "eos"
@@ -845,25 +1060,127 @@ class Engine:
                 reason = "length"  # safety net; submit() validation bounds it
             if reason is not None:
                 self._table.release(i)
+                self._settle_block_seconds(req, i)
                 self._pool.release(i)
-                self._finish_handle(req, reason, ttft=slot.ttft_s)
+                self._finish_handle(req, reason, ttft=slot.ttft_s, generation=slot.generation)
                 return emitted
         return len(toks)
 
-    def _finish_handle(self, req: Request, reason: str, ttft: float = 0.0) -> None:
+    def _tenant_metrics(self, tenant: str) -> dict[str, Any]:
+        """The ``consensusml_tenant_*`` labeled children of one tenant,
+        made on first touch and cached."""
+        m = self._tenant_children.get(tenant)
+        if m is not None:
+            return m
+        reg, labels = self._registry, {"tenant": tenant}
+        m = self._tenant_children[tenant] = {
+            "requests": reg.counter("consensusml_tenant_requests_total",
+                                    "terminal requests per tenant (any finish reason)", labels=labels),
+            "tokens": reg.counter("consensusml_tenant_tokens_total", "generated tokens per tenant", labels=labels),
+            "tflops": reg.counter("consensusml_tenant_tflops_total", "ledger-joined TFLOPs consumed per tenant",
+                                  labels=labels),
+            "block_seconds": reg.counter("consensusml_tenant_block_seconds_total",
+                                         "KV block-seconds held per tenant (pool hold-time integral)",
+                                         labels=labels),
+            "ttft": reg.histogram("consensusml_tenant_ttft_seconds",
+                                  "time to first token per tenant (the per-tenant SLO series)",
+                                  buckets=DEFAULT_SLO_BUCKETS, labels=labels),
+        }
+        return m
+
+    # the wide event's cost join: the port has no cost ledger yet, so zeros
+    # and cost_joined False, as the reference's engine without one
+    _NO_COST = {"flops": 0.0, "hbm_bytes": 0.0, "tflops": 0.0, "cost_joined": False}
+
+    _STAGES = ("submit", "admission", "prefill", "decode", "complete")
+
+    def _emit_wide_event(self, req: Request, tokens: list, reason: str, ttft: float, latency: float,
+                         generation: int) -> None:
+        """The terminal wide event, the reference's keys: one record
+        joining the request's trace timings, token counts, block-seconds
+        and attention tier; then its tenant's children."""
+        rid = req.request_id
+        tr = self._rt.get(rid) if rid else None
+        stages_us: dict[str, float] = {}
+        defer_ticks = preemptions = 0
+        if tr is not None:
+            for ev in tr.events:
+                name = ev.get("name")
+                if name in self._STAGES and name not in stages_us:
+                    stages_us[name] = round(ev["ts_us"] - tr.t_start_us, 3)
+            defer_ticks = tr.defer_ticks
+            preemptions = tr.preemptions
+        ev = {
+            "trace_id": getattr(req.ctx, "trace_id", ""),
+            "request_id": rid,
+            "tenant": req.tenant,
+            "finish_reason": reason,
+            "prompt_len": req.handle.prompt_len,
+            "tokens_out": len(tokens),
+            "ttft_s": round(ttft, 6) if tokens else None,
+            "latency_s": round(latency, 6),
+            "decode_ticks": req.decode_ticks,
+            "defer_ticks": defer_ticks,
+            "preemptions": preemptions,
+            "generation": generation,
+            "spec_proposed": req.spec_proposed,
+            "spec_accepted": req.spec_accepted,
+            "block_seconds": round(req.block_seconds, 6),
+            "shared_block_seconds": round(req.shared_block_seconds, 6),
+            "prefix_hit_blocks": req.prefix_hit_blocks,
+            "attn_impl": self.attn_impl,
+            "kv_impl": "paged",
+            "prefill_buckets": list(req.prefill_buckets),
+            "stages_us": stages_us,
+        }
+        ev.update(self._NO_COST)
+        self._events.emit(ev)
+        tm = self._tenant_metrics(req.tenant)
+        tm["requests"].inc()
+        if tokens:
+            tm["tokens"].inc(len(tokens))
+        if ev["tflops"] > 0:
+            tm["tflops"].inc(ev["tflops"])
+        if req.block_seconds > 0:
+            tm["block_seconds"].inc(req.block_seconds)
+
+    def _finish_handle(self, req: Request, reason: str, ttft: float = 0.0, generation: int | None = None) -> None:
+        now = time.perf_counter()
+        latency = now - req.arrival_t
+        tokens = list(req.handle._all)
+        gen = self._generation if generation is None else generation
         req.handle._finish(
             GenResult(
-                tokens=list(req.handle._all),
+                tokens=tokens,
                 finish_reason=reason,
                 ttft_s=ttft,
-                latency_s=time.perf_counter() - req.arrival_t,
+                latency_s=latency,
                 prompt_len=req.handle.prompt_len,
+                generation=gen,
+                trace_id=getattr(req.ctx, "trace_id", ""),
                 request_id=req.request_id,
                 temperature=req.temperature,
                 top_p=req.top_p,
                 seed=req.seed,
+                spec_proposed=req.spec_proposed,
+                spec_accepted=req.spec_accepted,
+                tenant=req.tenant,
+                block_seconds=req.block_seconds,
+                shared_block_seconds=req.shared_block_seconds,
+                prefix_hit_blocks=req.prefix_hit_blocks,
             )
         )
+        self._rt.finish(req.request_id, reason, tokens=len(tokens), ttft_s=round(ttft, 6),
+                        latency_s=round(latency, 6))
+        # the wide event reads the completed trace, so it goes after
+        self._emit_wide_event(req, tokens, reason, ttft, latency, gen)
+        if reason != "cancelled":
+            self._m_completed.inc()
+
+
+def _nbytes(tensors) -> int:
+    """Bytes of some tensors (shapes only, no device read)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def load_engine(path: str, config: ServeConfig | None = None, *, spec_k: int = 0, device=None) -> Engine:
@@ -889,4 +1206,5 @@ def load_engine(path: str, config: ServeConfig | None = None, *, spec_k: int = 0
     if draft_params is not None:
         engine._draft_artifact_spec = tree_spec(draft_params)
     engine._generation = int(meta.get("generation", 0))
+    engine._m_generation.set(engine._generation)
     return engine

@@ -16,12 +16,13 @@ several slots' owned lists, and returns to the free list only when its
 last holder lets go. A block whose bytes the prefix index still names
 parks at the BOTTOM of the LIFO free stack (``cached_hook``), so cached
 prefixes are recycled last; a fresh pop tells the index first
-(``reuse_hook``). The reference's block-second accounting (its
-observability registry's) is not ported.
+(``reuse_hook``). Each slot's block-seconds are integrated over its hold
+time, the wide event's accounting (:meth:`BlockPool.block_seconds_split`).
 """
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Any, Callable, Iterable
 
@@ -76,9 +77,15 @@ class BlockPool:
     block (the prefix index forgets it); ``cached_hook(block) -> bool`` is
     asked when a block's refcount reaches zero (True: park it at the bottom
     of the free stack).
+
+    Block-seconds (the wide event's accounting, as the reference's): each
+    slot's holding integrated over ``clock`` (``time.monotonic`` unless
+    injected), the blocks it adopted from the prefix index apart
+    (:meth:`block_seconds_split`).
     """
 
-    def __init__(self, num_slots: int, max_len: int, block_size: int, num_blocks: int = 0):
+    def __init__(self, num_slots: int, max_len: int, block_size: int, num_blocks: int = 0,
+                 clock: Callable[[], float] | None = None):
         if block_size < 1:
             raise ValueError(f"block_size must be positive, got {block_size}")
         if max_len % block_size:
@@ -104,6 +111,41 @@ class BlockPool:
         self._dev_tables: dict[tuple, torch.Tensor] = {}  # (device, extra_cols) -> table; cleared on mutation
         self.reuse_hook: Callable[[int], Any] | None = None
         self.cached_hook: Callable[[int], bool] | None = None
+        self._clock = clock if clock is not None else time.monotonic
+        self._bs_acc: dict[int, float] = {}
+        self._bs_sh_acc: dict[int, float] = {}
+        self._bs_t: dict[int, float] = {}
+
+    def _integrate(self, slot: int) -> None:
+        """Advance ``slot``'s block-second integrals to now at its current
+        holding (before any change to the holding)."""
+        t = self._bs_t.get(slot)
+        if t is None:
+            return
+        now = self._clock()
+        dt = now - t
+        self._bs_acc[slot] += len(self._owned.get(slot, ())) * dt
+        self._bs_sh_acc[slot] += len(self._adopted.get(slot, ())) * dt
+        self._bs_t[slot] = now
+
+    def block_seconds(self, slot: int) -> float:
+        """``slot``'s total block-seconds so far (0.0 when it holds
+        nothing)."""
+        if slot not in self._owned:
+            return 0.0
+        self._integrate(slot)
+        return self._bs_acc.get(slot, 0.0)
+
+    def block_seconds_split(self, slot: int) -> tuple[float, float]:
+        """``(unshared, shared)`` block-seconds of ``slot``: ``shared``
+        integrates the blocks it adopted from the prefix index, ``unshared``
+        the rest (a request is charged the unshared part)."""
+        if slot not in self._owned:
+            return 0.0, 0.0
+        self._integrate(slot)
+        total = self._bs_acc.get(slot, 0.0)
+        shared = self._bs_sh_acc.get(slot, 0.0)
+        return total - shared, shared
 
     @property
     def usable_blocks(self) -> int:
@@ -139,6 +181,9 @@ class BlockPool:
             raise RuntimeError(f"slot {slot} already owns blocks (double-alloc)")
         self._owned[slot] = []
         self._adopted[slot] = set()
+        self._bs_acc[slot] = 0.0
+        self._bs_sh_acc[slot] = 0.0
+        self._bs_t[slot] = self._clock()
 
     def alloc(self, slot: int, n_blocks: int) -> list[int]:
         """Give ``slot`` its first ``n_blocks`` blocks (admission)."""
@@ -190,6 +235,7 @@ class BlockPool:
             raise ValueError(
                 f"slot {slot} would exceed blocks_per_slot ({len(owned)} + {len(blocks)} > {self.blocks_per_slot})"
             )
+        self._integrate(slot)
         adopted = self._adopted.setdefault(slot, set())
         for b in blocks:
             if not 0 < b < self.num_blocks:
@@ -235,6 +281,7 @@ class BlockPool:
             )
         if len(self._free) < n_blocks:
             raise NoFreeBlocks(f"need {n_blocks} blocks, {len(self._free)} free")
+        self._integrate(slot)
         got = []
         for _ in range(n_blocks):
             b = self._free.pop()
@@ -257,6 +304,7 @@ class BlockPool:
             raise RuntimeError(f"slot {slot} owns nothing; alloc first")
         if keep_blocks < 1:
             raise ValueError(f"keep_blocks must be >= 1, got {keep_blocks} (release() frees a slot outright)")
+        self._integrate(slot)
         adopted = self._adopted.get(slot)
         dropped = []
         while len(owned) > keep_blocks:
@@ -277,6 +325,9 @@ class BlockPool:
         if owned is None:
             raise RuntimeError(f"slot {slot} owns nothing (double-free)")
         self._adopted.pop(slot, None)
+        self._bs_acc.pop(slot, None)
+        self._bs_sh_acc.pop(slot, None)
+        self._bs_t.pop(slot, None)
         for b in owned:
             self._release_ref(b)
         self._table[slot, :] = TRASH_BLOCK

@@ -19,7 +19,9 @@ half written, a transient error) is retried at the next poll. A staged
 tree that does not match the live one leaf for leaf is rejected by the
 engine, which calls :meth:`GenerationWatcher.reject`: the watcher then
 skips that exact artifact (generation and meta mtime) until it is
-rewritten.
+rewritten. The reference's families count it:
+``consensusml_serve_swap_staged_total``, ``..._swap_rejected_total`` and
+the ``consensusml_serve_swap_stage_seconds`` histogram.
 """
 
 from __future__ import annotations
@@ -95,6 +97,16 @@ class GenerationWatcher:
         self.staged = 0  # generations staged
         self.rejected = 0  # metas rejected: regressions, and trees the engine refused
         self.stage_seconds: list[float] = []  # read + copies of each staged generation
+        from consensusml_tpu_torch.obs import get_registry
+
+        reg = get_registry()
+        self._m_staged = reg.counter("consensusml_serve_swap_staged_total",
+                                     "new artifact generations loaded and staged by the watcher")
+        self._m_rejected = reg.counter(
+            "consensusml_serve_swap_rejected_total",
+            "artifact metas rejected (generation not strictly increasing, or params tree mismatch at flip time)")
+        self._m_load = reg.histogram("consensusml_serve_swap_stage_seconds",
+                                     "artifact restore + device staging wall time (watcher thread)")
         self._thread = threading.Thread(target=self._run, name="serve-hotswap", daemon=True)
         self._thread.start()
 
@@ -140,6 +152,8 @@ class GenerationWatcher:
                 self._rejected_gen = gen
                 self.rejected += 1
         if behind:
+            if regressed:
+                self._m_rejected.inc()
             return False
         try:
             mtime = os.path.getmtime(os.path.join(self.path, META_NAME))
@@ -163,6 +177,7 @@ class GenerationWatcher:
             event.record(self._stream)
             event.synchronize()  # this thread waits for the copies; the engine thread never does
         stage_s = time.perf_counter() - t0
+        self._m_load.observe(stage_s)
         with self._lock:
             # the engine may have refused this (generation, mtime) meanwhile
             if self._flip_rejected == (gen, mtime):
@@ -171,6 +186,7 @@ class GenerationWatcher:
             self._generation = gen
             self.staged += 1
             self.stage_seconds.append(stage_s)
+        self._m_staged.inc()
         return True
 
     def take(self) -> StagedSwap | None:
@@ -183,6 +199,7 @@ class GenerationWatcher:
         the accepted generation back, so a corrected artifact rewritten at
         the same generation stages on a later poll, and skip this exact one
         (its generation and meta mtime) until then."""
+        self._m_rejected.inc()
         with self._lock:
             self.rejected += 1
             self._flip_rejected = (staged.generation, staged.meta_mtime)

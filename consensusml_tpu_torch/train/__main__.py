@@ -51,7 +51,17 @@ token files (``data/files.py``), ``--metrics-out PATH`` appends one JSON
 record a logged round (``utils/logging.py``) and ``--export-serving DIR``
 writes the consensus mean as a serving artifact at the end and at every
 ``--checkpoint-every`` boundary (``serve/export.py``; each export bumps its
-generation, which an engine watching ``DIR`` flips to)::
+generation, which an engine watching ``DIR`` flips to).
+
+Telemetry (the reference's flags and families, ``train/telemetry.py``):
+``--trace-events PATH`` writes the span ring as Chrome trace-event JSON at
+exit, ``--metrics-prom PATH`` the registry as a Prometheus textfile every
+``--telemetry-every`` rounds and at exit, ``--metrics-port PORT`` serves
+``/metrics``, ``/traces``, ``/requests``, ``/alerts``, ``/query`` and
+``/healthz`` live (0: a free port, printed), ``--flight-recorder DIR``
+dumps the last rounds' spans and metric snapshots on a watchdog timeout,
+an unhandled exception or SIGTERM, and ``--profile-dir DIR`` writes a
+``torch.profiler`` trace of rounds 2-3::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
@@ -83,6 +93,8 @@ generation, which an engine watching ``DIR`` flips to)::
     python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 2 --lr-schedule cosine \
         --warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --resume D/step_2 --eval-batches 2
     python -m consensusml_tpu_torch.train --config gpt2_topk --device cpu --rounds 2 --export-serving ART
+    python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 3 --telemetry-every 2 \
+        --trace-events T.json --metrics-prom M.prom --metrics-port 0 --flight-recorder FR
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a
@@ -103,6 +115,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import torch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -174,6 +188,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--checkpoint-every boundary); each export bumps its generation, so an engine watching "
                         "DIR (Engine.watch) flips to every new mean mid-traffic")
     p.add_argument("--metrics-out", default=None, help="JSONL metrics path")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (CPU and CUDA activities) of rounds 2-3 to this directory")
+    p.add_argument("--trace-events", default=None, metavar="PATH",
+                   help="write the host span ring as Chrome trace-event JSON here at exit (Perfetto / "
+                        "chrome://tracing loadable; spans are also torch.profiler ranges)")
+    p.add_argument("--metrics-prom", default=None, metavar="PATH",
+                   help="write the telemetry registry as a Prometheus textfile here (atomically, every "
+                        "--telemetry-every rounds and at exit)")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve the live observability endpoints over HTTP on this port (0 = pick a free one): "
+                        "/metrics (Prometheus text), /traces (merged Chrome trace), /requests, /alerts, /query, "
+                        "/healthz")
+    p.add_argument("--telemetry-every", type=int, default=10, metavar="N",
+                   help="cadence (rounds) for the heavier telemetry: metric snapshots, Prometheus rewrite, the "
+                        "history-ring sample + SLO/alert rule evaluation, and the CHOCO ||s - xhat|| residual "
+                        "fetch (default 10)")
+    p.add_argument("--flight-recorder", default=None, metavar="DIR",
+                   help="enable the crash flight recorder: on watchdog timeout, unhandled exception, or SIGTERM, "
+                        "dump the last rounds' spans + metric snapshots to a timestamped JSON file in DIR")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -321,6 +354,8 @@ def main(argv=None) -> int:
     from consensusml_tpu_torch.train.evaluate import evaluate
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
     from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
+    from consensusml_tpu_torch.train.telemetry import Telemetry
+    from consensusml_tpu_torch.utils import tree as T
     from consensusml_tpu_torch.utils.checkpoint import AsyncSaver, restore_state
     from consensusml_tpu_torch.utils.logging import MetricsLogger
 
@@ -370,7 +405,10 @@ def main(argv=None) -> int:
         result = evaluate(bundle.eval_fn, state, bundle.eval_batches(args.eval_batches, args.seed))
         print(eval_text(result, rnd), flush=True)
 
-    watchdog = start_watchdog(args.round_timeout)
+    per_worker = T.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
+                            {"params": state.params, "model_state": state.model_state})
+    tel = Telemetry(spec, engine, per_worker, bundle.cfg.h)
+    watchdog = start_watchdog(args.round_timeout, tel.on_timeout if tel.recorder is not None else None)
     saver, last_saved = AsyncSaver(), None
     last_exported = None
 
@@ -381,21 +419,28 @@ def main(argv=None) -> int:
         last_exported = rnd
         print(f"serving artifact: {path} (round {rnd}, generation {serving_meta(path)['generation']})", flush=True)
 
-    with MetricsLogger(args.metrics_out) as logger:
+    with tel, MetricsLogger(args.metrics_out) as logger:
         for i, batch in enumerate(bundle.batches(args.rounds, args.seed, start=start)):
             rnd = start + i
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            loss, err = float(m["loss"]), float(m["consensus_error"])
+            with tel.round(i, rnd):
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                # the round's fetch, its fence (the fault mask only on fault runs)
+                loss, err, alive_frac, mask = tel.fetch(lambda: (
+                    float(m["loss"]), float(m["consensus_error"]),
+                    float(m["alive_frac"]) if "alive_frac" in m else None,
+                    m["alive_mask"].tolist() if "alive_mask" in m else None))
             ms = 1e3 * (time.perf_counter() - t0)
             if rnd % args.log_every == 0 or rnd == end - 1:
                 extras = train_extras(spec, bundle.cfg.optimizer, state.opt_state)
                 imgs = f" imgs/s {m['imgs_per_s']:.1f}" if "imgs_per_s" in m else ""
-                alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
+                alive = f" alive_frac {alive_frac:.4g}" if alive_frac is not None else ""
                 print(f"round {rnd}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive}"
                       f"{extras_text(extras)}", flush=True)
                 logger.log(rnd, {"loss": loss, "consensus_error": err, "round_ms": ms, **extras,
-                                 **{k: m[k] for k in ("alive_frac", "imgs_per_s") if k in m}})
+                                 **({"alive_frac": alive_frac} if alive_frac is not None else {}),
+                                 **({"imgs_per_s": m["imgs_per_s"]} if "imgs_per_s" in m else {})})
+            tel.after_round(rnd, err, alive_frac, mask, state)
             if watchdog is not None:
                 watchdog.beat(f"round {rnd}")
             if due(args.eval_every, rnd) and rnd + 1 != end:
@@ -409,6 +454,7 @@ def main(argv=None) -> int:
                 last_saved = rnd + 1
             if args.export_serving and due(args.checkpoint_every, rnd):
                 export_art(rnd + 1)  # the serving handoff rides the checkpoint cadence
+        tel.finish(end, state)
     if args.checkpoint_dir and last_saved != end:
         saver.submit(args.checkpoint_dir, state, step=end)
     if watchdog is not None:

@@ -19,7 +19,8 @@ read), ``--resume`` (each rank reads its own worker's file), checkpoints
 meta: the simulated backend's layout), the periodic and final held-out
 eval (:func:`~consensusml_tpu_torch.train.evaluate.evaluate_collective`,
 printed by rank 0), the watchdog (one a rank) and ``--metrics-out``
-(rank 0's records).
+(rank 0's records). The telemetry flags act on every rank, each with its
+own registry and sinks (:mod:`~consensusml_tpu_torch.train.telemetry`).
 """
 
 from __future__ import annotations
@@ -152,6 +153,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     from consensusml_tpu_torch.train.evaluate import evaluate_collective
     from consensusml_tpu_torch.train.local_sgd import init_state, make_collective_train_step, rank_batch
     from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
+    from consensusml_tpu_torch.train.telemetry import Telemetry
     from consensusml_tpu_torch.utils import tree as T
     from consensusml_tpu_torch.utils.checkpoint import restore_state
     from consensusml_tpu_torch.utils.logging import MetricsLogger
@@ -192,7 +194,10 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         if rank == 0:
             print(eval_text(result, rnd), flush=True)
 
-    watchdog = start_watchdog(spec.get("round_timeout", 0.0))
+    shapes = T.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
+                        {"params": state.params, "model_state": state.model_state})
+    tel = Telemetry(spec, bundle.cfg.engine(), shapes, bundle.cfg.h, rank=rank, verbose=rank == 0)
+    watchdog = start_watchdog(spec.get("round_timeout", 0.0), tel.on_timeout if tel.recorder is not None else None)
     logger = MetricsLogger(spec.get("metrics_out") if rank == 0 else None)
     ckpt_dir, last_saved, ckpt_path = spec.get("checkpoint_dir"), None, None
     export_dir, last_exported = spec.get("export_serving"), None
@@ -203,55 +208,62 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         last_exported = r
 
     rounds = []
-    for i, batch in enumerate(bundle.batches(spec["rounds"], spec["seed"], start=start)):
-        r = start + i
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, m = step(state, rank_batch(batch, rank))
-        loss, err = float(m["loss"]), float(m["consensus_error"])
-        ms = 1e3 * (time.perf_counter() - t0)
-        extras = train_extras(spec, bundle.cfg.optimizer, state.opt_state)
-        # every rank's times and pre-clip norm, in one row each of a (world, 5) sum
-        row = torch.zeros((world, 5), dtype=torch.float32, device=device)
-        row[rank] = torch.tensor([ms, m["staging_ms"], m["wire_ms"], m.get("imgs_per_s", 0.0),
-                                  extras.get("grad_norm", 0.0)])
-        table = mesh.transport.all_reduce_sum([row])[0].cpu()
-        # the line's norm as the simulated backend's: the largest over the workers
-        line_extras = dict(extras)
-        if "grad_norm" in extras:
-            norms = table[:, 4].numpy()
-            line_extras.update(grad_norm=float(norms.max()), clipped=int((norms >= spec["grad_clip"]).sum()))
-        rounds.append({"loss": loss, "consensus_error": err, "round_ms": ms, "inner_ms": m["inner_ms"],
-                       "gossip_ms": m["gossip_ms"], "metrics_ms": m["metrics_ms"], "wire_bytes": m["wire_bytes"],
-                       **{k: m[k] for k in ("gossip_issue_ms", "gossip_wait_ms") if k in m},
-                       "bytes_staged": m["bytes_staged"],
-                       "staging_ms": m["staging_ms"], "wire_ms": m["wire_ms"],
-                       "launches": {k: v for k, v in kernels.launch_counts().items() if v},
-                       "forms": kernels.form_counts(),
-                       **({"alive_frac": float(m["alive_frac"]), "alive_mask": m["alive_mask"].tolist()}
-                          if "alive_frac" in m else {}), **extras})
-        log_every = spec["log_every"]
-        if rank == 0 and log_every and (r % log_every == 0 or r == end - 1):
-            imgs = f" imgs/s {float(table[:, 3].sum()):.1f}" if "imgs_per_s" in m else ""
-            alive = f" alive_frac {float(m['alive_frac']):.4g}" if "alive_frac" in m else ""
-            fmt = lambda col: "[" + ", ".join(f"{v:.1f}" for v in table[:, col].tolist()) + "]"  # noqa: E731
-            print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive} "
-                  f"wire_bytes {m['wire_bytes']} ranks_round_ms {fmt(0)} staging_ms {fmt(1)} wire_ms {fmt(2)}"
-                  f"{extras_text(line_extras)}", flush=True)
-            logger.log(r, {"loss": loss, "consensus_error": err, "round_ms": ms, "wire_bytes": m["wire_bytes"],
-                           **line_extras, **({"alive_frac": float(m["alive_frac"])} if "alive_frac" in m else {})})
-        if watchdog is not None:
-            watchdog.beat(f"round {r}")
-        if due(spec.get("eval_every", 0), r) and r + 1 != end:
+    with tel:  # the sinks are written on an exception too
+        for i, batch in enumerate(bundle.batches(spec["rounds"], spec["seed"], start=start)):
+            r = start + i
+            kernels.reset_launch_counts()
+            with tel.round(i, r):
+                t0 = time.perf_counter()
+                state, m = step(state, rank_batch(batch, rank))
+                loss, err, alive_frac, mask = tel.fetch(lambda: (
+                    float(m["loss"]), float(m["consensus_error"]),
+                    float(m["alive_frac"]) if "alive_frac" in m else None,
+                    m["alive_mask"].tolist() if "alive_mask" in m else None))
+            ms = 1e3 * (time.perf_counter() - t0)
+            extras = train_extras(spec, bundle.cfg.optimizer, state.opt_state)
+            # every rank's times and pre-clip norm, in one row each of a (world, 5) sum
+            row = torch.zeros((world, 5), dtype=torch.float32, device=device)
+            row[rank] = torch.tensor([ms, m["staging_ms"], m["wire_ms"], m.get("imgs_per_s", 0.0),
+                                      extras.get("grad_norm", 0.0)])
+            table = mesh.transport.all_reduce_sum([row])[0].cpu()
+            # the line's norm as the simulated backend's: the largest over the workers
+            line_extras = dict(extras)
+            if "grad_norm" in extras:
+                norms = table[:, 4].numpy()
+                line_extras.update(grad_norm=float(norms.max()), clipped=int((norms >= spec["grad_clip"]).sum()))
+            rounds.append({"loss": loss, "consensus_error": err, "round_ms": ms, "inner_ms": m["inner_ms"],
+                           "gossip_ms": m["gossip_ms"], "metrics_ms": m["metrics_ms"], "wire_bytes": m["wire_bytes"],
+                           **{k: m[k] for k in ("gossip_issue_ms", "gossip_wait_ms") if k in m},
+                           "bytes_staged": m["bytes_staged"],
+                           "staging_ms": m["staging_ms"], "wire_ms": m["wire_ms"],
+                           "launches": {k: v for k, v in kernels.launch_counts().items() if v},
+                           "forms": kernels.form_counts(),
+                           **({"alive_frac": alive_frac, "alive_mask": mask} if alive_frac is not None else {}),
+                           **extras})
+            log_every = spec["log_every"]
+            if rank == 0 and log_every and (r % log_every == 0 or r == end - 1):
+                imgs = f" imgs/s {float(table[:, 3].sum()):.1f}" if "imgs_per_s" in m else ""
+                alive = f" alive_frac {alive_frac:.4g}" if alive_frac is not None else ""
+                fmt = lambda col: "[" + ", ".join(f"{v:.1f}" for v in table[:, col].tolist()) + "]"  # noqa: E731
+                print(f"round {r}: loss {loss:.4f} consensus_error {err:.6g} round_ms {ms:.1f}{imgs}{alive} "
+                      f"wire_bytes {m['wire_bytes']} ranks_round_ms {fmt(0)} staging_ms {fmt(1)} wire_ms {fmt(2)}"
+                      f"{extras_text(line_extras)}", flush=True)
+                logger.log(r, {"loss": loss, "consensus_error": err, "round_ms": ms, "wire_bytes": m["wire_bytes"],
+                               **line_extras, **({"alive_frac": alive_frac} if alive_frac is not None else {})})
+            tel.after_round(r, err, alive_frac, mask, state)
             if watchdog is not None:
-                watchdog.pause()  # an eval has no per-round budget
-            run_eval(r)
-            if watchdog is not None:
-                watchdog.beat(f"eval done @ round {r}")
-        if ckpt_dir and due(spec.get("checkpoint_every") or 0, r):
-            ckpt_path, last_saved = save_collective(ckpt_dir, state, mesh, r + 1), r + 1
-        if export_dir and due(spec.get("checkpoint_every") or 0, r):
-            export(r + 1)  # the serving handoff rides the checkpoint cadence
+                watchdog.beat(f"round {r}")
+            if due(spec.get("eval_every", 0), r) and r + 1 != end:
+                if watchdog is not None:
+                    watchdog.pause()  # an eval has no per-round budget
+                run_eval(r)
+                if watchdog is not None:
+                    watchdog.beat(f"eval done @ round {r}")
+            if ckpt_dir and due(spec.get("checkpoint_every") or 0, r):
+                ckpt_path, last_saved = save_collective(ckpt_dir, state, mesh, r + 1), r + 1
+            if export_dir and due(spec.get("checkpoint_every") or 0, r):
+                export(r + 1)  # the serving handoff rides the checkpoint cadence
+        tel.finish(end, state)
     logger.close()
     if ckpt_dir and last_saved != end:
         ckpt_path = save_collective(ckpt_dir, state, mesh, end)

@@ -84,6 +84,7 @@ import torch
 from consensusml_tpu_torch.comm import collectives, simulated
 from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
 from consensusml_tpu_torch.consensus.faults import draw_alive, fault_generator, tree_all_finite
+from consensusml_tpu_torch.obs import span as _span
 from consensusml_tpu_torch.train.outer import SlowMoConfig, slowmo_init, slowmo_update_
 from consensusml_tpu_torch.utils import tree as T
 
@@ -350,13 +351,15 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         state.gossip = state.gossip._replace(correction=None)
         state.gossip = engine.correction_simulated(z, w, state.gossip)
         del z
-        err = engine.consensus_error_simulated(state.params)
+        with _span("train.consensus_error"):
+            err = engine.consensus_error_simulated(state.params)
         sync()
         t1 = time.perf_counter()
-        losses = torch.stack([
-            local_steps(cfg, loss_fn, state, i, [{k: v[i, j] for k, v in batch.items()} for j in range(h)])[0]
-            for i in range(world)
-        ])
+        with _span("train.inner_loop", h=cfg.h):
+            losses = torch.stack([
+                local_steps(cfg, loss_fn, state, i, [{k: v[i, j] for k, v in batch.items()} for j in range(h)])[0]
+                for i in range(world)
+            ])
         sync()
         t2 = time.perf_counter()
         state.step += 1
@@ -383,10 +386,12 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
         per_worker, oks = [], []
-        for w in range(world):
-            loss, ok = local_steps(cfg, loss_fn, state, w, [{k: v[w, i] for k, v in batch.items()} for i in range(h)])
-            per_worker.append(loss)
-            oks.append(ok)
+        with _span("train.inner_loop", h=cfg.h):
+            for w in range(world):
+                loss, ok = local_steps(cfg, loss_fn, state, w,
+                                       [{k: v[w, i] for k, v in batch.items()} for i in range(h)])
+                per_worker.append(loss)
+                oks.append(ok)
         losses = torch.stack(per_worker)
         mask = None
         if faults is not None:
@@ -404,7 +409,8 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         state.params, state.model_state = mixed["params"], mixed["model_state"]
         if cfg.outer is not None:
             slowmo_update_(cfg.outer, state.params, state.outer)
-        err = engine.consensus_error_simulated(state.params)
+        with _span("train.consensus_error"):
+            err = engine.consensus_error_simulated(state.params)
         sync()
         t2 = time.perf_counter()
         state.step += 1
@@ -490,11 +496,13 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         sync()
         issued = stats.since(before)
         t1 = time.perf_counter()
-        err = engine.consensus_error_collective(z["params"], mesh)
+        with _span("train.consensus_error"):
+            err = engine.consensus_error_collective(z["params"], mesh)
         del z
         sync()
         t2 = time.perf_counter()
-        loss, _ok = all_steps(state, batch, sync)
+        with _span("train.inner_loop", h=cfg.h):
+            loss, _ok = all_steps(state, batch, sync)
         sync()
         t3 = time.perf_counter()
         before = stats.snapshot()
@@ -533,7 +541,8 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
             return overlap_round(state, {k: v.to(device) for k, v in batch.items()}, sync)
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
-        loss, ok = all_steps(state, batch, sync)
+        with _span("train.inner_loop", h=cfg.h):
+            loss, ok = all_steps(state, batch, sync)
         alive = None if faults is None else draw_alive(state.fault_generators[0], faults.drop_prob) * ok
         sync()
         t1 = time.perf_counter()
@@ -550,7 +559,8 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         t2 = time.perf_counter()
         if mesh.shares_device:
             torch.cuda.empty_cache()  # the round's temporaries, before another rank's turn
-        err = engine.consensus_error_collective(mixed["params"], mesh)
+        with _span("train.consensus_error"):
+            err = engine.consensus_error_collective(mixed["params"], mesh)
         if faults is None:
             mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
         else:

@@ -52,11 +52,12 @@ def eval_text(result: dict, rnd: int | None) -> str:
     return f"{tag}eval[mean-model]: {fmt(result['mean_model'])}\n{tag}eval[worker-avg]: {fmt(result['worker_mean'])}"
 
 
-def start_watchdog(timeout: float):
+def start_watchdog(timeout: float, on_timeout=None):
     """A started :class:`~consensusml_tpu_torch.utils.watchdog.ProgressWatchdog`
-    of ``timeout`` seconds, or None for 0."""
+    of ``timeout`` seconds, or None for 0; ``on_timeout(reason)`` runs
+    before its exit (the flight recorder's dump)."""
     if not timeout or timeout <= 0:
         return None
     from consensusml_tpu_torch.utils.watchdog import ProgressWatchdog
 
-    return ProgressWatchdog(timeout, label="train round").start()
+    return ProgressWatchdog(timeout, label="train round", on_timeout=on_timeout).start()

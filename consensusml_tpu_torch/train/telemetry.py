@@ -1,0 +1,218 @@
+"""The train CLI's telemetry, shared by both backends (the reference's
+``train.py`` wiring, ``:783-830``, ``:1220-1270``, ``:1341-1370`` and
+``:1495-1565``).
+
+:class:`Telemetry` arms the sinks the flags ask for (``--trace-events``,
+``--metrics-prom``, ``--metrics-port``, ``--flight-recorder``; any of them
+turns the span tracer and the history and alert plane on), gauges the
+engine's static wire facts, and around each round records the
+``train.round`` span, :class:`~consensusml_tpu_torch.utils.profiling.
+RoundTimer`'s lap, the loop's counters, gauges and latency histogram,
+``round.feed`` and ``round.fence`` as completed spans, the fault counters
+(:func:`~consensusml_tpu_torch.consensus.faults.record_fault_metrics`) and,
+every ``--telemetry-every`` rounds, :meth:`Telemetry.tick`: the CHOCO
+residual, a registry snapshot, the history sample and alert evaluation,
+and the Prometheus file. ``--profile-dir`` traces rounds 2-3 with
+``torch.profiler``. Nothing here reads a device value the loop does not
+already fetch, but the tick's CHOCO residual, as the reference's.
+
+On the collective backend each rank keeps its own registry and sinks, as
+each reference process does: rank 0 writes the paths as given, rank ``r``
+writes them with ``.rank<r>`` appended (the flight recorder's directory
+too), and ``--metrics-port N`` binds ``N + r`` on rank ``r`` (``0``: a
+free port a rank).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any
+
+from consensusml_tpu_torch.obs import get_registry, get_tracer
+from consensusml_tpu_torch.utils.profiling import RoundTimer
+from consensusml_tpu_torch.utils.profiling import trace as profile_trace
+
+__all__ = ["Telemetry", "rank_path"]
+
+
+def rank_path(path: str | None, rank: int) -> str | None:
+    """A sink path of rank ``rank``: as given on rank 0."""
+    if path is None or rank == 0:
+        return path
+    return f"{path}.rank{rank}"
+
+
+class Telemetry:
+    """One run's telemetry. ``spec``: the parsed flags as a dict;
+    ``engine`` and ``shapes`` (one worker's gossiped tree, meta tensors
+    do) give the wire facts; ``h`` the local steps a round; ``verbose``
+    prints the sinks' lines (the endpoint, the armed recorder, the trace,
+    the timing), as the CLI does on rank 0. Use as a
+    context manager: the exit writes the Chrome trace and the Prometheus
+    file and closes the HTTP plane, on an exception too."""
+
+    def __init__(self, spec: dict, engine, shapes: Any, h: int, rank: int = 0, verbose: bool = True):
+        self.spec = spec
+        self.h = h
+        self.tracer = tracer = get_tracer()
+        self.registry = registry = get_registry()
+        self.trace_events = rank_path(spec.get("trace_events"), rank)
+        self.metrics_prom = rank_path(spec.get("metrics_prom"), rank)
+        self.every = max(1, int(spec.get("telemetry_every") or 10))
+        port = spec.get("metrics_port")
+        self.on = bool(self.trace_events or self.metrics_prom or spec.get("flight_recorder") or port is not None)
+        self._was_enabled = tracer.enabled
+        if self.on:
+            # host span recording on; without a sink spans are bare ranges
+            tracer.enabled = True
+        self.wire = engine.wire_bytes_per_round(shapes)
+        self._engine = engine
+        self.history = self.alerts = None
+        self.http = None
+        if self.on:
+            from consensusml_tpu_torch.obs import get_alert_engine, get_history
+
+            self.history, self.alerts = get_history(), get_alert_engine()
+        if port is not None:
+            from consensusml_tpu_torch.obs import MetricsServer
+
+            # the loop drives record()/evaluate() from its tick: no ticker
+            self.http = MetricsServer(port=port + rank if port else 0, history=self.history, alerts=self.alerts)
+            if verbose:
+                print(f"metrics endpoint: {self.http.url()} (/metrics /traces /requests /alerts /query /healthz)",
+                      flush=True)
+        for k, v in engine.telemetry(shapes).items():
+            registry.gauge(f"consensusml_{k}").set(v)
+        self.recorder = None
+        if spec.get("flight_recorder"):
+            from consensusml_tpu_torch.obs import FlightRecorder
+
+            out = rank_path(spec["flight_recorder"], rank)
+            self.recorder = FlightRecorder(out).install()
+            if verbose:
+                print(f"flight recorder armed: {out}", flush=True)
+        self.timer = RoundTimer(warmup=1)  # round 0 builds kernels
+        self.fence_s = 0.0
+        self.prev_alive = None
+        self._profiling = None
+        self._verbose = verbose
+        self.m_rounds = registry.counter("consensusml_rounds_total", "completed training rounds")
+        self.m_wire_total = registry.counter("consensusml_wire_bytes_total",
+                                             "bytes one worker has put on the gossip wire")
+        self.m_latency = registry.histogram("consensusml_round_latency_seconds",
+                                            "wall time of one full training round (inner loop + gossip)")
+        self.m_heartbeat = registry.gauge(
+            "consensusml_heartbeat_time_seconds",
+            "unix time of this rank's latest completed round (cluster-view liveness; staleness flags a straggler)")
+        self.m_progress = registry.gauge("consensusml_round_progress",
+                                         "this rank's latest completed round index (cluster-view skew)")
+
+    # -- the round ---------------------------------------------------------
+    @contextlib.contextmanager
+    def round(self, i: int, rnd: int):
+        """Round ``rnd`` (the ``i``-th of this run): the profiler window
+        (rounds 2-3 of the run), the ``train.round`` span and the lap."""
+        pdir = self.spec.get("profile_dir")
+        if pdir and i == 2:
+            self._profiling = profile_trace(pdir)
+            self._profiling.__enter__()
+        with self.tracer.span("train.round", round=rnd), self.timer.lap():
+            yield
+        if pdir and i == 4:
+            self._end_profile()
+
+    def fetch(self, fn):
+        """``fn()``, the loop's own fetch of the round's values (its device
+        fence), timed as the round's fence wait."""
+        t = time.time()
+        out = fn()
+        self.fence_s = time.time() - t
+        return out
+
+    def after_round(self, rnd: int, consensus_error: float | None = None, alive_frac: float | None = None,
+                    alive_mask=None, state=None) -> None:
+        """The per-round feed, the reference's order; ``alive_mask``: the
+        round's participation vector on the host (fault runs only)."""
+        reg, timer = self.registry, self.timer
+        self.m_rounds.inc()
+        self.m_wire_total.inc(self.wire)
+        self.m_latency.observe(timer.last_lap_s)
+        self.m_heartbeat.set(time.time())
+        self.m_progress.set(rnd)
+        if self.tracer.enabled:
+            # no prefetcher: the feed stall is 0, as the reference's without one
+            self.tracer.complete("round.feed", 0.0, round=rnd)
+            self.tracer.complete("round.fence", self.fence_s, round=rnd)
+        if consensus_error is not None:
+            reg.gauge("consensusml_consensus_distance",
+                      "post-gossip consensus distance sqrt(mean_i ||x_i - xbar||^2)").set(consensus_error)
+        reg.gauge("consensusml_round_stall_seconds",
+                  "host wait at the round's execution fence (overlap headroom)").set(self.fence_s)
+        if timer.last_lap_s > 0:
+            reg.gauge("consensusml_inner_steps_per_sec",
+                      "local optimizer steps per second per worker").set(self.h / timer.last_lap_s)
+        if alive_frac is not None:
+            from consensusml_tpu_torch.consensus.faults import record_fault_metrics
+
+            record_fault_metrics(alive_frac, alive=alive_mask, prev_alive=self.prev_alive)
+            self.prev_alive = alive_mask
+        if self.on and (rnd + 1) % self.every == 0 and state is not None:
+            self.tick(rnd, state)
+
+    def tick(self, rnd: int, state) -> None:
+        """The heavier sampled telemetry: the CHOCO residual (one fetch),
+        a registry snapshot, the history sample and the alert rules, the
+        Prometheus file."""
+        resid = self._engine.choco_residual(state.gossip)
+        if resid is not None:
+            self.registry.gauge("consensusml_choco_residual", "CHOCO tracking residual ||s - xhat|| (sampled)"
+                                ).set(resid)
+        self.registry.snapshot({"round": rnd})
+        if self.history is not None:
+            self.history.record()
+            self.alerts.evaluate()
+        if self.metrics_prom:
+            self.registry.write_prometheus(self.metrics_prom)
+
+    def finish(self, end: int, state) -> None:
+        """End of the loop: close a profiler window the run cut short, and
+        a final tick unless the cadence just ticked."""
+        if self._profiling is not None:
+            self._end_profile()
+        if self.on and self.timer.last_lap_s and end % self.every != 0:
+            self.tick(end - 1, state)
+        if self._verbose and self.timer.last_lap_s:
+            print(f"timing: {self.timer.stats().format()}", flush=True)
+
+    def _end_profile(self) -> None:
+        self._profiling.__exit__(None, None, None)
+        self._profiling = None
+        if self._verbose:
+            print(f"profile trace: {self.spec['profile_dir']}", flush=True)
+
+    def on_timeout(self, reason: str) -> None:
+        """The watchdog's hook with a flight recorder: count, snapshot,
+        dump (before the watchdog's exit)."""
+        self.registry.counter("consensusml_watchdog_timeouts_total", "watchdog round-progress timeouts").inc()
+        self.registry.snapshot({"watchdog_timeout": True})
+        self.recorder.dump(reason)
+
+    # -- exit --------------------------------------------------------------
+    def close(self) -> None:
+        if self.trace_events:
+            path = self.tracer.write_chrome_trace(self.trace_events)
+            if self._verbose:
+                print(f"trace events: {path}", flush=True)
+        if self.metrics_prom:
+            self.registry.write_prometheus(self.metrics_prom)
+        if self.http is not None:
+            self.http.close()
+        self.tracer.enabled = self._was_enabled
+
+    def __enter__(self) -> "Telemetry":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+

@@ -13,7 +13,10 @@ tells apart from a bad configuration's 2.
 The train CLI's ``--round-timeout SECONDS`` turns it on; it arms after the
 first completed round (``arm_on_first_beat``), so the first round's
 kernel builds and warm-up never count, and :meth:`ProgressWatchdog.pause`
-suspends it while a periodic eval runs.
+suspends it while a periodic eval runs. Each beat also counts
+``consensusml_watchdog_beats_total`` in the telemetry registry, as the
+reference's does; the train CLI's ``on_timeout`` counts the timeout and
+dumps the flight recorder (``--flight-recorder``) before the exit.
 """
 
 from __future__ import annotations
@@ -65,6 +68,11 @@ class ProgressWatchdog:
             self._last = time.monotonic()
             self._tag = tag
             self._armed = True
+        from consensusml_tpu_torch.obs import get_registry
+
+        get_registry().counter(
+            "consensusml_watchdog_beats_total", "watchdog progress beats (one per completed unit of work)"
+        ).inc()
 
     def pause(self) -> None:
         """Suspend the deadline until the next :meth:`beat`, for a phase

@@ -54,6 +54,17 @@ from consensusml_tpu_torch.train import collective
 from consensusml_tpu_torch.train.evaluate import mlm_eval_fn
 from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 GEOM = dict(vocab_size=64, hidden=32, layers=2, heads=2, mlp_dim=64, max_len=32)
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 LOGITS_F32_TOL, LOGITS_BF16_REL_TOL = 2e-5, 2.5e-2

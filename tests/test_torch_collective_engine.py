@@ -79,6 +79,17 @@ from consensusml_tpu_torch.train import collective
 from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 from consensusml_tpu_torch.utils import tree as T
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WORLD = 4
 SMOKE = dict(vocab_size=64, hidden=32, layers=2, heads=2, max_len=32, dropout=0.0)
 RTOL, ATOL = 1e-5, 1e-6

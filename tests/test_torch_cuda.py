@@ -2294,3 +2294,108 @@ def test_gpt2_clipped_adam_step_through_flash_kernels_matches_plain(dev):
     assert abs(nk - np_) <= 2e-2 * np_ and min(nk, np_) > 0.05
     diff = sum(float(((out["cuda"][0][n] - u) ** 2).sum()) for n, u in out["torch"][0].items()) ** 0.5
     assert diff <= 3e-2 * sum(float((u ** 2).sum()) for u in out["torch"][0].values()) ** 0.5
+
+
+def _sync_warnings(fn) -> int:
+    """How many device synchronizations ``fn()`` makes (PyTorch's sync
+    debug mode warns once a synchronizing call)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def test_telemetry_on_gossip_round_adds_no_synchronization(dev):
+    """A telemetry-on gossip round (spans recorded, the program's first run
+    so the trace-time counters count) under sync debug mode "error": the
+    exact bucketed ring round has no synchronization at all; the fused
+    int8 round makes as many with telemetry on as with it off."""
+    from consensusml_tpu_torch.comm import simulated
+    from consensusml_tpu_torch.compress import PallasInt8Compressor
+    from consensusml_tpu_torch.consensus import ConsensusEngine, GossipConfig
+    from consensusml_tpu_torch.obs import get_tracer
+    from consensusml_tpu_torch.topology import RingTopology
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"params": {"a": torch.randn(4, 3000, generator=gen, device=dev),
+                       "b": torch.randn(4, 40, 7, generator=gen, device=dev)},
+            "model_state": {"bn.mean": torch.randn(4, 24, generator=gen, device=dev)}}
+    w = simulated.mixing_matrix(RingTopology(4)).to(dev)
+    tracer = get_tracer()
+    was = tracer.enabled
+
+    def engine(comp=None):
+        return ConsensusEngine(GossipConfig(topology=RingTopology(4), compressor=comp, gamma=0.3, bucket_bytes=3000))
+
+    engine().round_simulated(tree, None, w)  # kernels and allocator warm
+    try:
+        tracer.enabled = True
+        tracer.clear()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, _ = engine().round_simulated(tree, None, w)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert [e["name"] for e in tracer.events()] == ["bucket.pack", "bucket.mix", "bucket.unpack", "gossip.round"]
+        counts = {}
+        for on in (False, True):
+            tracer.enabled = on
+            eng = engine(PallasInt8Compressor(chunk=128))
+            st = eng.init_state(tree, world_size=4)
+            eng.round_simulated(tree, st, w)  # warm
+            eng = engine(PallasInt8Compressor(chunk=128))  # a first run again: its counters count
+            counts[on] = _sync_warnings(lambda: eng.round_simulated(tree, st, w))
+        assert counts[True] == counts[False]
+    finally:
+        tracer.enabled = was
+    assert torch.isfinite(out["params"]["a"]).all()
+
+
+def test_engine_decode_step_with_telemetry_adds_no_synchronization(dev):
+    """One engine decode step, its inputs uploaded and its token fetch
+    replaced beforehand, under sync debug mode "error": the span, the
+    request trace's tick, the SLO histograms and gauges read nothing from
+    the card."""
+    from consensusml_tpu_torch.configs import build_model
+    from consensusml_tpu_torch.obs import TraceContext, get_tracer
+    from consensusml_tpu_torch.serve import Engine, ServeConfig
+    from consensusml_tpu_torch.serve.batcher import Request, RequestHandle
+
+    model = build_model("gpt2_topk", "smoke", device=dev)
+    eng = Engine(model, ServeConfig(num_slots=2, block_size=16, max_new_tokens=8), device=dev)
+    eng.warmup()
+    eng.shutdown()  # the loop thread gone: the test thread drives the step
+    ids = [1, 2, 3, 4, 5]
+    ctx = TraceContext("sync-debug")
+    eng._rt.start(ctx, len(ids), tenant="default")
+    eng._admit(Request(ids, 8, RequestHandle(len(ids)), ctx=ctx))
+    active = eng._table.active
+    arrays = eng._slot_arrays(active)
+    eng._pool.device_table(dev)  # cached: the step makes no block change
+    real = eng._decode_fn
+    host_tokens = torch.zeros(2, dtype=torch.int64)
+    eng._slot_arrays = lambda active: arrays
+    eng._decode_fn = lambda *a: (host_tokens, real(*a)[1])
+    tracer = get_tracer()
+    was = tracer.enabled
+    tracer.enabled = True
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng._decode_step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        tracer.enabled = was
+    torch.cuda.synchronize()
+    assert eng._rt.get(ctx.request_id).decode_ticks == 1
+    assert eng._m_intertoken.count >= 1

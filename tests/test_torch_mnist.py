@@ -46,6 +46,17 @@ from consensusml_tpu_torch.models.convert import gpt2_from_flax, mlp_from_flax, 
 from consensusml_tpu_torch.models.mlp import MLP, mlp_loss_fn
 from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 LOSS_ATOL, ERR_RTOL = 1e-6, 1e-4
 
 

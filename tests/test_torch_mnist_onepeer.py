@@ -6,8 +6,19 @@ suite's workers can run it beside the ring's.
 """
 
 import pytest
+import torch
 
 from test_torch_mnist import assert_curves
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("spec,rounds", [("onepeer-exp", 120)])

@@ -30,6 +30,17 @@ import torch
 from consensusml_tpu.models import paged_attention as jpa
 from consensusml_tpu_torch.models import paged_attention as tpa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"f32": dict(rtol=1e-5, atol=1e-5), "bf16": dict(rtol=0.0, atol=1.6e-2)}
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 

@@ -90,6 +90,17 @@ from consensusml_tpu_torch.models.convert import gpt2_from_flax, resnet_from_fla
 from consensusml_tpu_torch.models.gpt2 import GPT2LM, gpt2_loss_fn
 from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROUNDS = 3
 
 

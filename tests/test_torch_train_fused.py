@@ -6,8 +6,19 @@ module docstring, whose helpers these tests use.
 """
 
 import pytest
+import torch
 
 from test_torch_train import _assert_curves_match, _port_run, _reference_run
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite runs beside five other workers on
+    eight cores, where more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_smoke_training_curves_match_reference():

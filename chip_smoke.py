@@ -103,8 +103,10 @@ Phases, each printed as one JSON line:
     ``train``, the fused one-pass wire in its int4 format (50 buckets,
     360,367,280 wire bytes) or fp8 format (123 buckets, 715,190,448). One
     warm round, two counted rounds (launches gated: 384 each flash
-    kernel, the fused encode once a bucket a round, nothing else) and one
-    profiled round. No gradient check: the model path is ``train``'s.
+    kernel, the fused encode once a bucket a round, nothing else); no
+    profiled round (cut to fit the script's time: the fused encode's
+    device time is ``check``'s and ``train``'s). No gradient check: the
+    model path is ``train``'s.
 11. ``gossip_fp8_two_step``: from ``train_fp8``'s final state (its
     optimizer state freed), one compressed CHOCO round on the fp8
     two-step wire (``fused_wire=False``: ``quantize_fp8`` and
@@ -316,6 +318,47 @@ round within tolerance.
     during the run. Each line's ``telemetry`` block reports the round ms
     with telemetry on and off, the spans a round and the rounds the span
     ring holds.
+
+25. ``train_resnet_elastic`` (right after ``train_resnet_resume``, on its
+    round-2 checkpoint of 8 workers): the train CLI (its ``main``) resumes
+    it at ``--workers 12`` (a grow onto ``ring(12)``, with ``--link-probes
+    --obs-cluster-dir D --telemetry-every 1``) and at ``--workers 4`` (a
+    shrink), two rounds each with the resume phase's flags. Gates: the
+    survivors' rows bit-equal to the checkpoint's; each joiner's row
+    bit-equal to ``consensus_mean`` of the 8 restored rows, that mean within
+    1e-6 of a float64 numpy mean; the joiners' optimizer rows zero, SlowMo's
+    ``u`` zero and ``x`` the parameters, the gossip state fresh; one worker
+    step's gradients through the BN kernels against their plain versions
+    (``RESNET_GRAD_REL_TOL``, ``RESNET_LEAF_REL_TOL``); 53 x world x 2
+    launches of each BN kernel; the elastic counters (a resize each run, 4
+    joined, world 12 then 4); the prober on the 24 directed edges of
+    ``ring(12)``, each probed each round; finite losses and errors. Reports
+    the peak memory of each run.
+26. ``train_resnet_collective_elastic`` (in the 4-rank spawn of
+    ``train_collective``): the same checkpoint resumed at 4 ranks, each
+    rank restoring its own worker's file; the update of its two rounds
+    held against the simulated shrink's (``COLLECTIVE_RTOL``, parameters
+    and BN statistics apart). A collective grow would need a spawn of 12
+    ranks; it is held on the CPU (``tests/test_torch_elastic.py``).
+    ``train_resnet_collective`` writes the cluster view: ``--link-probes
+    --obs-cluster-dir D --telemetry-every 1`` on its 8 ranks, gated on 8
+    snapshots at the last round, a health section, and every edge counted
+    remote (one worker a process: the reference's multi-controller rule).
+27. ``cluster_view`` (after ``serve_loadgen``, whose socket run adds
+    ``--obs-snapshot D``): ``aggregate`` and ``obs_report`` of the
+    directory, the 8 ranks' rows and the load generator's client SLOs in
+    one report.
+28. ``train_resnet_churn`` (after ``train_resnet_overlap``): the train
+    CLI's live-membership loop, ``cifar_resnet50`` full ``--norm-impl
+    pallas --push-sum --rounds 6 --churn-schedule
+    "join@1:2;drop@2:3;straggle@3:5x2;rejoin@4:3" --obs-cluster-dir D
+    --telemetry-every 1`` (8 workers, capacity 10). Gates: the join's
+    gossip bootstrap within its epsilon, no ``torch.load`` during the run,
+    the survivors bit-untouched by the bootstrap, worker 3 bit-frozen from
+    its drop to its rejoin, the push-sum masses summing to the alive count
+    (and the world) within 1e-5 every round, finite losses and alive
+    consensus errors, 53 x world launches of each BN kernel a round, the
+    membership timeline's four events in ``obs_report D``.
 
 The ``check`` line's ``paged_attention_window`` holds the paged kernel's
 window form (W > 8, tiles of 8 rows on a further grid axis, one launch a
@@ -2056,13 +2099,14 @@ def http_get(address, path: str) -> tuple[int, str]:
         return e.code, e.read().decode()
 
 
-def serve_loadgen_phase(torch, dev, art):
+def serve_loadgen_phase(torch, dev, art, obs_dir=None):
     """``serve_loadgen`` (module docstring): socket mode against
     ``load_engine(art, ServeConfig(num_slots=8, block_size=16,
     prefix_cache=True))`` behind ``ServeServer(metrics_port=0,
     obs_tick_s=0.5)``, then artifact mode with the draft (``--spec-k 4
     --swap-every 16``). Launch counters zeroed just before the socket
-    traffic, read after the artifact run."""
+    traffic, read after the artifact run. With ``obs_dir`` the socket run
+    also writes its client snapshot there (``--obs-snapshot``)."""
     from consensusml_tpu_torch import kernels
     from consensusml_tpu_torch.obs import get_registry, get_request_registry
     from consensusml_tpu_torch.serve import ServeConfig, ServeServer, load_engine
@@ -2086,7 +2130,7 @@ def serve_loadgen_phase(torch, dev, art):
         kernels.reset_launch_counts()
         host, port = server.address
         sock = run_loadgen_cli(["--connect", f"{host}:{port}", "--requests", str(LOADGEN_SOCKET_REQUESTS),
-                                *LOADGEN_TRAFFIC])
+                                *LOADGEN_TRAFFIC, *(["--obs-snapshot", obs_dir] if obs_dir else [])])
         marks.append(("socket_traffic", time.perf_counter()))
         text = http_get(server.metrics_address, "/metrics")[1]
         scraped = float(next(x.split()[-1] for x in text.splitlines()
@@ -2429,7 +2473,7 @@ TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_in
                 "int4": "train_int4", "fp8": "train_fp8"}
 
 
-def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
+def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False, profiled=True):
     """gpt2_topk full, --workers 4 --codec-warmup 1, on ``codec``: "int8"
     (the fused wire; the ``train`` line, with the gradient check), None
     (the config's own top-k + int8 codec on the two-step wire; the
@@ -2439,8 +2483,10 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     through the flash and LN kernels), "int4" or "fp8" (the fused wire's
     other formats; the ``train_int4`` and ``train_fp8`` lines). ``init``
     is the stacked numpy initial parameters (``bundle.init_params(0)``),
-    drawn once for all. Returns the line, the launch counts and, with
-    ``keep_state``, the final train state and bundle."""
+    drawn once for all. ``profiled=False`` leaves out the profiled round
+    (and the codec kernels' device time it reads). Returns the line, the
+    launch counts and, with ``keep_state``, the final train state and
+    bundle."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.models.convert import gpt2_from_flax
     from consensusml_tpu_torch.models.gpt2 import GPT2LM
@@ -2518,8 +2564,10 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     marks.append(("rounds", time.perf_counter()))
-    state, prof = profile_round(torch, step, state, batches[1 + counted])
-    marks.append(("profiled_round", time.perf_counter()))
+    prof = None
+    if profiled:
+        state, prof = profile_round(torch, step, state, batches[1 + counted])
+        marks.append(("profiled_round", time.perf_counter()))
     telemetry = None
     if sink_rounds:
         sinks = TrainerSinks(torch, engine, state, cfg.h, "two_step")
@@ -2544,18 +2592,19 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False):
     if counts != expect:
         raise AssertionError(f"launches {counts} differ from the counts the code predicts {expect}")
     round_ms_mean = sum(r["round_ms"] for r in rounds) / counted
-    if prof["device_kernel_ms"] is not None:
-        # the profiler slows the host; against an unprofiled round's wall
-        prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
-    # the codec and LN kernels' device time in the profiled round, read from the trace
-    kernel_ms = lambda names: sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in names)  # noqa: E731
     extra = {}
-    if not fused:
-        extra["codec_kernels_ms"] = kernel_ms(CODEC_KERNELS[codec])
-    else:
-        extra["encode_kernel_ms"] = kernel_ms(("fused_choco_encode",))
-    if fused_ln:
-        extra["ln_kernels_ms"] = kernel_ms(LN_KERNELS)
+    if prof is not None:
+        if prof["device_kernel_ms"] is not None:
+            # the profiler slows the host; against an unprofiled round's wall
+            prof["device_busy_share_of_unprofiled_round"] = prof["device_kernel_ms"] / round_ms_mean
+        # the codec and LN kernels' device time in the profiled round, read from the trace
+        kernel_ms = lambda names: sum(prof["port_kernels"].get(n, {}).get("ms", 0.0) for n in names)  # noqa: E731
+        if not fused:
+            extra["codec_kernels_ms"] = kernel_ms(CODEC_KERNELS[codec])
+        else:
+            extra["encode_kernel_ms"] = kernel_ms(("fused_choco_encode",))
+        if fused_ln:
+            extra["ln_kernels_ms"] = kernel_ms(LN_KERNELS)
     flags = "--workers 4 --codec-warmup 1" + (f" --codec {codec}" if codec else "") + (
         f" --norm-impl {norm_impl}" if fused_ln else "")
     out = {
@@ -4508,6 +4557,397 @@ def collective_resume_compare(torch, results, final, ckpt: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# membership: elastic resume, live churn and the cluster view
+# ---------------------------------------------------------------------------
+
+ELASTIC_WORLDS = (12, 4)  # train_resnet_elastic: a grow onto ring(12), then a shrink
+ELASTIC_MEAN_RTOL = 1e-6  # the joiners' f32 consensus mean against a float64 numpy mean
+RESNET_FLAGS_ARGV = ("--config", "cifar_resnet50", "--scale", "full", "--norm-impl", "pallas")
+RESUME_FLAGS_ARGV = ("--lr-schedule", "cosine", "--warmup-rounds", "1", "--grad-clip", "1.0", "--slowmo-beta", "0.2")
+CHURN_SPEC = "join@1:2;drop@2:3;straggle@3:5x2;rejoin@4:3"
+CHURN_ROUNDS, CHURN_INITIAL, CHURN_CAPACITY = 6, 8, 10
+CHURN_DROPPED = 3  # the schedule's dropped worker: frozen in rounds 2 and 3, back in round 4
+CHURN_TIMELINE = ("1 : + join     w8,w9", "2 : x drop     w3", "3 : ~ straggle w5  [2 rounds]", "4 : ^ rejoin   w3")
+MASS_ATOL = 1e-5
+
+
+def run_train_cli(argv: list) -> str:
+    """``python -m consensusml_tpu_torch.train ARGV`` in this process (its
+    exit code gated 0): what it printed."""
+    import contextlib
+    import io
+
+    from consensusml_tpu_torch.train.__main__ import main as train_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_main(argv)
+    if rc != 0:
+        raise AssertionError(f"train {' '.join(argv)} exited {rc}: {out.getvalue()[-2000:]}")
+    return out.getvalue()
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_obs_report(obs_dir: str) -> str:
+    """``python -m consensusml_tpu_torch.tools.obs_report DIR``'s text (exit
+    code gated 0)."""
+    import contextlib
+    import io
+
+    from consensusml_tpu_torch.tools import obs_report
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obs_report.main([obs_dir])
+    if rc != 0:
+        raise AssertionError(f"obs_report {obs_dir} exited {rc}")
+    return out.getvalue()
+
+
+def elastic_counters() -> dict:
+    from consensusml_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    return {"resizes": reg.counter("consensusml_elastic_resizes_total").value,
+            "joined": reg.counter("consensusml_elastic_joined_workers_total").value,
+            "world": reg.gauge("consensusml_elastic_world_size").value}
+
+
+def elastic_resize_gates(torch, before, after, ckpt) -> dict:
+    """An elastic resize's gates, ``before`` the restored checkpoint and
+    ``after`` the resized state: the survivors' rows bit-equal to the
+    restored ones and to the checkpoint's files (the first and the last
+    survivor's); each joiner's row bit-equal to ``consensus_mean`` of the
+    restored rows, that mean within ``ELASTIC_MEAN_RTOL`` of a float64
+    numpy mean (over the parameters and statistics); every optimizer
+    tensor's joiner rows zero (momentum, schedule counts, clip norms);
+    SlowMo's ``u`` zero and ``x`` equal to the parameters; the gossip state
+    fresh (exact ring gossip: none)."""
+    from consensusml_tpu_torch.utils import tree as T
+    from consensusml_tpu_torch.utils.checkpoint import worker_rows
+
+    old, new = len(before.generators), len(after.generators)
+    keep = min(old, new)
+    parts = lambda s: T.named_tensors(s.params, "params") + T.named_tensors(s.model_state, "model_state")  # noqa: E731
+    survivors = [n for (n, a), (_, b) in zip(parts(after), parts(before)) if not torch.equal(a[:keep], b[:keep])]
+    files = [f"{w}:{n}" for w in (0, keep - 1) for rows in [worker_rows(ckpt, w)[1]]
+             for n, a in parts(after) if not torch.equal(a[w].cpu(), rows[n])]
+    joiners, err2, ref2 = [], 0.0, 0.0
+    for (n, a), (_, b) in zip(parts(after), parts(before)):
+        if new <= old:
+            break
+        mean = T.consensus_mean(b)
+        if not all(torch.equal(a[j], mean) for j in range(old, new)):
+            joiners.append(n)
+        ref = b.cpu().numpy().astype(np.float64).mean(axis=0)
+        err2 += float(((mean.cpu().numpy().astype(np.float64) - ref) ** 2).sum())
+        ref2 += float((ref ** 2).sum())
+    opt_rows = [p for p, t in T.named_tensors(after.opt_state, "opt_state") if new > old and bool(t[old:].any())]
+    u_nonzero = [n for n, u in after.outer["u"].items() if bool(u.any())]
+    x_off = [n for n, x in after.outer["x"].items() if not torch.equal(x, after.params[n])]
+    rec = {"from": old, "to": new, "survivor_leaves_differing": survivors, "file_rows_differing": files,
+           "joiner_leaves_differing": joiners, "joiner_mean_rel_err_vs_float64": (err2 / max(ref2, 1e-300)) ** 0.5,
+           "joiner_mean_rtol": ELASTIC_MEAN_RTOL, "joiner_optimizer_rows_nonzero": opt_rows,
+           "slowmo_u_nonzero": u_nonzero, "slowmo_x_not_params": x_off, "gossip_state": repr(after.gossip)}
+    if survivors or files or joiners or opt_rows or u_nonzero or x_off or after.gossip is not None or not (
+            rec["joiner_mean_rel_err_vs_float64"] <= ELASTIC_MEAN_RTOL):
+        raise AssertionError(f"train_resnet_elastic: the resize {old} -> {new} fails its gates: {rec}")
+    return rec
+
+
+def train_resnet_elastic_phase(torch, dev, ckpt: str, tmp: str):
+    """``train_resnet_elastic``: ``train_resnet_resume``'s round-2 checkpoint
+    of 8 workers resumed by the train CLI (``main`` as ``python -m
+    consensusml_tpu_torch.train`` runs it) at ``--workers 12`` (a grow onto
+    ``ring(12)``, with ``--link-probes --obs-cluster-dir D --telemetry-every
+    1``) and at ``--workers 4`` (a shrink, ``--checkpoint-dir``), two rounds
+    each with ``RESUME_FLAGS``. The CLI's ``resize_state`` is wrapped to hold
+    its result to :func:`elastic_resize_gates` and to take one worker
+    step's gradients through the BN kernels against their plain versions;
+    the launch counters are zeroed after that, before the rounds. Gates:
+    the resize's, 53 x world x 2 launches of each BN kernel and none of
+    another, finite losses and consensus errors, the elastic counters (one
+    resize each run, 4 joined, world 12 then 4), the prober on the 24
+    directed edges of ``ring(12)``, each probed each round. Returns the
+    line, the launches and the shrink's final parameters and statistics
+    (numpy, stacked) for the collective shrink's comparison."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.obs import aggregate, read_snapshots
+    from consensusml_tpu_torch.utils import elastic
+    from consensusml_tpu_torch.utils.checkpoint import worker_rows
+
+    real = elastic.resize_state
+    gates: dict = {}
+
+    def checked_resize(cfg, state, new_world, **kw):
+        out = real(cfg, state, new_world, **kw)
+        rec = elastic_resize_gates(torch, state, out, ckpt)
+        batch = next(iter(configs.build("cifar_resnet50", "full", world=new_world, norm_impl="pallas",
+                                        device=dev).batches(1, 0, start=RESUME_SAVE_AT)))
+        rec["kernels_vs_plain"] = resnet_grad_check(torch, out, batch, dev)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()  # the comparison's launches are not the path's
+        gates[new_world] = rec
+        return out
+
+    runs, launches, final = [], {}, None
+    obs_dir = os.path.join(tmp, "obs-elastic")
+    elastic.resize_state = checked_resize
+    try:
+        for world in ELASTIC_WORLDS:
+            metrics = os.path.join(tmp, f"elastic-{world}.jsonl")
+            argv = [*RESNET_FLAGS_ARGV, *RESUME_FLAGS_ARGV, "--resume", ckpt, "--workers", str(world), "--rounds", "2",
+                    "--metrics-out", metrics]
+            if world > 8:
+                argv += ["--link-probes", "--obs-cluster-dir", obs_dir, "--telemetry-every", "1"]
+            else:
+                argv += ["--checkpoint-dir", os.path.join(tmp, "elastic-final")]
+            before = elastic_counters()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run_train_cli(argv)
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {n: k for n, k in kernels.launch_counts().items()}
+            after = elastic_counters()
+            rounds = read_jsonl(metrics)
+            expect = {n: RESNET50_BN_LAYERS * world * 2 if n in BN_KERNELS else 0 for n in kernels.KERNELS}
+            run = {"flags": " ".join(argv[argv.index("--resume"):]).replace(ckpt, "step_2").replace(tmp + "/", ""),
+                   "resize": gates[world],
+                   "rounds": [{k: r[k] for k in ("round", "loss", "consensus_error", "round_ms", "imgs_per_s", "lr",
+                                                 "grad_norm", "clipped") if k in r} for r in rounds],
+                   "launches": counts, "launches_expected": expect, "seconds": seconds,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "elastic_counters": {"before": before, "after": after},
+                   "printed": [x for x in out.splitlines() if x.startswith(("elastic resume", "resumed from",
+                                                                            "link probes", "cluster snapshots"))]}
+            problems = []
+            if counts != expect:
+                problems.append(f"launches {counts} differ from the counts the code predicts {expect}")
+            if len(rounds) != 2 or not all(np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) for r in rounds):
+                problems.append(f"rounds not two or not finite: {rounds}")
+            if (after["resizes"] - before["resizes"], after["joined"] - before["joined"], after["world"]) != (
+                    1, max(world - 8, 0), world):
+                problems.append(f"elastic counters {before} -> {after}")
+            if not any(x.startswith(f"elastic resume: 8 -> {world} workers") for x in run["printed"]):
+                problems.append(f"no elastic resume line: {run['printed']}")
+            if world > 8:
+                (snap,) = read_snapshots(obs_dir)
+                doc = aggregate(obs_dir, top_links=0)
+                probed = [(x["src"], x["dst"], x["probes"]) for x in doc["links"] if x["probes"]]
+                run["link_probes"] = {"edges": snap["metrics"]["consensusml_link_edges"],
+                                      "edges_remote": snap["metrics"]["consensusml_link_edges_remote"],
+                                      "edges_probed": len(probed), "probes_per_edge": sorted({p for *_, p in probed}),
+                                      "slowest": doc["links"][:3], "health": doc["health"],
+                                      "churn": doc["churn"]}
+                if (snap["metrics"]["consensusml_link_edges"], len(probed), run["link_probes"]["probes_per_edge"]) != (
+                        24, 24, [2]):
+                    problems.append(f"link probes: {run['link_probes']}")
+            if problems:
+                raise AssertionError("train_resnet_elastic: " + "; ".join(problems))
+            runs.append(run)
+            launches = add_counts(launches, counts)
+        path = os.path.join(tmp, "elastic-final", f"step_{RESUME_SAVE_AT + 2}")
+        rows = [worker_rows(path, w)[1] for w in range(ELASTIC_WORLDS[-1])]
+        stack = lambda prefix: {n[len(prefix):]: np.stack([r[n].numpy() for r in rows])  # noqa: E731
+                                for n in rows[0] if n.startswith(prefix)}
+        final = {"params": stack("params."), "model_state": {"batch_stats": stack("model_state.batch_stats.")}}
+    finally:
+        elastic.resize_state = real
+        shutil.rmtree(os.path.join(tmp, "elastic-final"), ignore_errors=True)
+    line = {"phase": "train_resnet_elastic",
+            "config": "cifar_resnet50 full (ResNet-50, CIFAR stem) --norm-impl pallas --lr-schedule cosine "
+                      "--warmup-rounds 1 --grad-clip 1.0 --slowmo-beta 0.2 --resume step_2 (8 workers) --rounds 2",
+            "runs": runs}
+    return line, launches, final
+
+
+def collective_elastic_spec(ckpt: str) -> dict:
+    """``train_resnet_collective_elastic``'s flags: ``train_resnet_resume``'s
+    round-2 checkpoint of 8 workers resumed at 4 ranks (a shrink), two
+    rounds, the final parameters returned."""
+    spec = collective_spec("cifar_resnet50", "full", 4, 2, norm_impl="pallas")
+    return {**spec, **RESUME_FLAGS, "resume": ckpt, "sched_start": RESUME_SAVE_AT, "elastic_from": 8,
+            "return_params": True, "check": None}
+
+
+def cluster_view_gates(obs_dir: str, ranks: int, rounds: int, edges: int) -> dict:
+    """The cluster view of a collective run's ``--obs-cluster-dir``: one
+    snapshot a rank, each at the run's last round, a health section, and
+    the multi-controller rule (every edge has an endpoint in another
+    process: none probed, all counted remote)."""
+    from consensusml_tpu_torch.obs import aggregate, read_snapshots
+
+    doc = aggregate(obs_dir)
+    snaps = [s for s in read_snapshots(obs_dir) if s.get("role") == "rank"]
+    rec = {"ranks": [r["rank"] for r in doc["ranks"]], "rounds": [r["round"] for r in doc["ranks"]],
+           "skew": doc["skew"], "health": doc["health"],
+           "link_edges": [s["metrics"]["consensusml_link_edges"] for s in snaps],
+           "link_edges_remote": [s["metrics"]["consensusml_link_edges_remote"] for s in snaps],
+           "links_with_wire_bytes": sum(1 for x in doc["links"] if x["wire_bytes_per_round"])}
+    if (rec["ranks"] != list(range(ranks)) or set(rec["rounds"]) != {rounds - 1}
+            or rec["health"]["decay_bound"] is None or set(rec["link_edges"]) != {0}
+            or set(rec["link_edges_remote"]) != {edges}):
+        raise AssertionError(f"the cluster view across ranks fails its gates: {rec}")
+    return rec
+
+
+def cluster_view_phase(obs_dir: str, ranks: int, requests: int) -> dict:
+    """``cluster_view``: the directory ``train_resnet_collective``'s ranks
+    and ``serve_loadgen``'s socket run (``--obs-snapshot``) wrote, merged by
+    ``aggregate`` and rendered by ``obs_report``. Gates: the ranks' rows
+    and the loadgen client's SLOs (its TTFT histogram counting the socket
+    run's requests) side by side in one report."""
+    from consensusml_tpu_torch.obs import aggregate
+
+    doc = aggregate(obs_dir)
+    text = run_obs_report(obs_dir)
+    clients = [c for c in doc["clients"] if c["role"] == "loadgen"]
+    ttft = clients[0]["metrics"].get("consensusml_loadgen_ttft_seconds") if clients else None
+    rank_rows = [x for x in text.splitlines() if re.match(r"^\s+\d+\s+\d+\s", x)]
+    rec = {"phase": "cluster_view", "dir": "train_resnet_collective's --obs-cluster-dir + serve_loadgen's "
+                                            "--obs-snapshot",
+           "ranks": [r["rank"] for r in doc["ranks"]], "clients": [f"{c['role']}-{c['rank']}" for c in doc["clients"]],
+           "client_ttft": ttft,
+           "client_latency": clients[0]["metrics"].get("consensusml_loadgen_latency_seconds") if clients else None,
+           "report_rank_rows": rank_rows, "report_lines": len(text.splitlines()),
+           "report_head": text.splitlines()[:4]}
+    if (rec["ranks"] != list(range(ranks)) or len(rank_rows) != ranks or not ttft or ttft["count"] < requests
+            or "client [loadgen-0]:" not in text):
+        raise AssertionError(f"cluster_view: {rec}")
+    return rec
+
+
+def train_resnet_churn_phase(torch, dev, tmp: str):
+    """``train_resnet_churn``: the train CLI's live-membership loop on
+    ``cifar_resnet50`` full ``--norm-impl pallas --push-sum --rounds 6
+    --churn-schedule CHURN_SPEC --obs-cluster-dir D --telemetry-every 1``
+    (8 workers on a ring, capacity 10). The harness's bootstrap and each
+    world's step are wrapped to read the state: the survivors before and
+    after the joiners' gossip bootstrap, worker 3's replica after each
+    round, the push-sum masses, and each round's launches. Gates: every
+    join within its epsilon, no ``torch.load`` (no checkpoint read) during
+    the run, the survivors bit-untouched by the bootstrap, worker 3 bit-
+    frozen from its drop (round 2) to its rejoin (round 4), the masses
+    summing to the alive count and to the world within ``MASS_ATOL`` every
+    round, finite losses and alive consensus errors, 53 x world launches of
+    each BN kernel a round, and ``obs_report D`` rendering the membership
+    timeline's four events."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.swarm import harness
+    from consensusml_tpu_torch.train import local_sgd
+    from consensusml_tpu_torch.utils import tree as T
+
+    real_boot, real_step, real_load = harness.bootstrap_joiners, local_sgd.make_simulated_train_step, torch.load
+    boots, per_round, frozen_rows, loads = [], [], {}, []
+
+    def checked_boot(cfg, state, n_new, topology, **kw):
+        rows = [t.clone() for _, t in T.named_tensors({"p": state.params, "m": state.model_state})]
+        new, info = real_boot(cfg, state, n_new, topology, **kw)
+        old = len(rows[0])
+        after = [t for _, t in T.named_tensors({"p": new.params, "m": new.model_state})]
+        inputs = [t for _, t in T.named_tensors({"p": state.params, "m": state.model_state})]
+        boots.append({**{k: info[k] for k in ("rounds", "tol", "eps_measured", "converged", "world")},
+                      "survivors_untouched": all(torch.equal(a[:old], r) for a, r in zip(after, rows)),
+                      "inputs_untouched": all(torch.equal(a, r) for a, r in zip(inputs, rows))})
+        return new, info
+
+    def wrapped_step(cfg, loss_fn):
+        step = real_step(cfg, loss_fn)
+
+        def counted(state, batch, alive=None, frozen=None):
+            kernels.reset_launch_counts()
+            state, m = step(state, batch, alive, frozen)
+            torch.cuda.synchronize()
+            mask = m["alive_mask"].tolist()
+            w = state.gossip.w.double().cpu() if state.gossip is not None else None
+            rnd = len(per_round)
+            per_round.append({"round": rnd, "world": len(mask), "alive": mask, "frozen": list(frozen or []),
+                              "launches": kernels.launch_counts(),
+                              "mass_total": None if w is None else float(w.sum()),
+                              "mass_alive": None if w is None else float((w * torch.tensor(mask).double()).sum())})
+            frozen_rows[rnd] = [p[CHURN_DROPPED].clone() for p in state.params.values()] + [
+                x[CHURN_DROPPED].clone() for x in T.leaves(state.model_state)]
+            return state, m
+
+        return counted
+
+    def counting_load(*a, **kw):
+        loads.append(str(a[0]) if a else "")
+        return real_load(*a, **kw)
+
+    obs_dir = os.path.join(tmp, "obs-churn")
+    metrics = os.path.join(tmp, "churn.jsonl")
+    argv = [*RESNET_FLAGS_ARGV, "--push-sum", "--rounds", str(CHURN_ROUNDS), "--churn-schedule", CHURN_SPEC,
+            "--obs-cluster-dir", obs_dir, "--telemetry-every", "1", "--metrics-out", metrics]
+    harness.bootstrap_joiners, local_sgd.make_simulated_train_step, torch.load = checked_boot, wrapped_step, counting_load
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        out = run_train_cli(argv)
+    finally:
+        harness.bootstrap_joiners, local_sgd.make_simulated_train_step, torch.load = real_boot, real_step, real_load
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    rounds = read_jsonl(metrics)
+    report = run_obs_report(obs_dir)
+    launches: dict = {}
+    for r in per_round:
+        launches = add_counts(launches, r["launches"])
+    expect = {n: RESNET50_BN_LAYERS * sum(r["world"] for r in per_round) if n in BN_KERNELS else 0
+              for n in kernels.KERNELS}
+    launches = {n: launches.get(n, 0) for n in kernels.KERNELS}
+    frozen_ok = [all(torch.equal(a, b) for a, b in zip(frozen_rows[1], frozen_rows[r])) for r in (2, 3)]
+    moved_back = not all(torch.equal(a, b) for a, b in zip(frozen_rows[3], frozen_rows[4]))
+    timeline = [x for x in report.splitlines() if any(x.strip().startswith(t) for t in CHURN_TIMELINE)]
+    line = {"phase": "train_resnet_churn",
+            "config": f"cifar_resnet50 full (ResNet-50, CIFAR stem), 8 workers on a ring, --norm-impl pallas --push-sum "
+                      f"--rounds {CHURN_ROUNDS} --churn-schedule \"{CHURN_SPEC}\" --obs-cluster-dir D "
+                      "--telemetry-every 1",
+            "capacity": CHURN_CAPACITY, "bootstraps": boots, "checkpoint_reads": loads,
+            "rounds": [{**{k: r[k] for k in ("round", "loss", "consensus_error", "alive_frac", "epoch", "world",
+                                             "active") if k in r}, **{k: p[k] for k in ("alive", "frozen",
+                                                                                         "mass_total", "mass_alive")}}
+                       for r, p in zip(rounds, per_round)],
+            "worker_3_frozen_rounds_2_3": frozen_ok, "worker_3_moves_after_rejoin": moved_back,
+            "launches": launches, "launches_expected": expect, "seconds": seconds, "peak_memory_bytes": peak,
+            "printed": [x for x in out.splitlines() if "membership" in x or x.startswith(("swarm", "churn"))],
+            "obs_report_timeline": timeline}
+    problems = []
+    if len(boots) != 1 or not all(b["eps_measured"] <= b["tol"] and b["survivors_untouched"] and b["inputs_untouched"]
+                                  for b in boots):
+        problems.append(f"bootstraps {boots}")
+    if loads:
+        problems.append(f"the churn run read checkpoints: {loads}")
+    if frozen_ok != [True, True] or not moved_back:
+        problems.append(f"worker {CHURN_DROPPED} frozen {frozen_ok}, moved after its rejoin {moved_back}")
+    for p in per_round:
+        if p["mass_total"] is None or abs(p["mass_total"] - p["world"]) > MASS_ATOL or abs(
+                p["mass_alive"] - sum(p["alive"])) > MASS_ATOL:
+            problems.append(f"round {p['round']}: masses {p['mass_total']}, {p['mass_alive']} against {p['world']} "
+                            f"slots, {sum(p['alive'])} alive")
+    if len(rounds) != CHURN_ROUNDS or not all(np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"])
+                                              for r in rounds):
+        problems.append(f"rounds not {CHURN_ROUNDS} or not finite: {rounds}")
+    if launches != expect:
+        problems.append(f"launches {launches} differ from the counts the code predicts {expect}")
+    if len(timeline) != len(CHURN_TIMELINE):
+        problems.append(f"obs_report's membership timeline: {timeline}")
+    if problems:
+        raise AssertionError("train_resnet_churn: " + "; ".join(problems))
+    return line, launches
+
+
 def clipped_adam_check(torch, dev, bundle, state, batch):
     """One clipped Adam update of worker 0 (its parameters, moments and
     step count, its first micro-batch, dropout from a generator seeded 11)
@@ -4940,22 +5380,28 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     }, launches, by_form
 
 
-def collective_phases(torch, dev, resume):
+def collective_phases(torch, dev, resume, elastic_final, obs_dir):
     """``train_resnet_collective``, ``train_resnet_collective_pushsum`` and
     ``train_resnet_collective_resume`` (one spawn of 8 ranks for the three;
     ``resume`` is ``train_resnet_resume``'s round-2 checkpoint and its
     straight run's final parameters and statistics) then
     ``train_collective`` and ``train_collective_topk`` (one spawn of 4
     ranks for both): each rank its own process and worker on the one card.
-    Returns the lines and the launches by phase."""
+    ``train_resnet_collective`` writes the cluster view into ``obs_dir``
+    (``--obs-cluster-dir``, ``--link-probes``, ``--telemetry-every 1``);
+    ``train_resnet_collective_elastic`` (the 4-rank spawn) resumes the
+    checkpoint at 4 ranks, held against ``elastic_final``, the simulated
+    shrink's. Returns the lines and the launches by phase."""
     from consensusml_tpu_torch.comm.launch import launch
     from consensusml_tpu_torch.train import collective
 
     out = []
     runs = (
         ("cifar_resnet50", 8, [("train_resnet_collective",
-                                collective_spec("cifar_resnet50", "full", 8, 3, norm_impl="pallas"),
-                                "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo",
+                                {**collective_spec("cifar_resnet50", "full", 8, 3, norm_impl="pallas"),
+                                 "obs_cluster_dir": obs_dir, "link_probes": True, "telemetry_every": 1},
+                                "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo "
+                                "--link-probes --obs-cluster-dir D --telemetry-every 1",
                                 None),
                                # push-sum under drawn faults on the directed one-peer graph;
                                # its check round masks workers 2 and 5 (step 1: phase 1)
@@ -4986,6 +5432,12 @@ def collective_phases(torch, dev, resume):
              "gpt2_topk full --workers 4 --codec int8 --codec-warmup 0 --codec-refresh 0 --overlap-gossip "
              "--backend collective --dist-backend gloo",
              715_190_448),
+            # train_resnet_resume's 8-worker checkpoint resumed at 4 ranks (an elastic shrink)
+            ("train_resnet_collective_elastic", collective_elastic_spec(resume[0]),
+             "cifar_resnet50 full --norm-impl pallas --lr-schedule cosine --warmup-rounds 1 --grad-clip 1.0 "
+             "--slowmo-beta 0.2 --resume step_2 (8 workers) --workers 4 --rounds 2 --backend collective "
+             "--dist-backend gloo",
+             None),
         ]),
     )
     for _config, world, phases in runs:
@@ -5000,6 +5452,13 @@ def collective_phases(torch, dev, resume):
             line, launches, forms = collective_line(torch, dev, name, spec, [r[i] for r in per_rank], flags,
                                                     expect_wire)
             line["spawn_to_exit_s"] = spawn_s
+            if name == "train_resnet_collective":
+                line["cluster_view"] = cluster_view_gates(obs_dir, 8, spec["rounds"], 16)
+            if name == "train_resnet_collective_elastic":
+                results = [r[i] for r in per_rank]
+                line["vs_simulated_shrink"] = collective_resume_compare(torch, results, elastic_final, resume[0])
+                for res in results:
+                    res.pop("params"), res.pop("model_state")
             if name == "train_resnet_collective_resume":
                 results = [r[i] for r in per_rank]
                 line["lr"] = [rd["lr"] for rd in results[0]["rounds"]]
@@ -5714,20 +6173,32 @@ def main() -> int:
     t0 = time.perf_counter()
     resnet_init = configs.build("cifar_resnet50", "full", device=dev).init_params(0)
     resnet_init_s = time.perf_counter() - t0
-    # checkpoint and resume first: the collective spawn below resumes its checkpoint
+    # checkpoint and resume first: the elastic resumes and the collective spawn below resume its checkpoint
     line, counts, ckpt_tmp, ckpt, final = train_resnet_resume_phase(torch, dev, resnet_init_named(resnet_init, "pallas"))
     emit(line)
     for name, n in counts.items():
         launches[name]["train_resnet_resume"] = n
     gc.collect()
     torch.cuda.empty_cache()
-    # the collective phases next, while this process holds the least of
-    # the card: every rank is a process of its own on it
+    # membership: the cluster view's directory lives until serve_loadgen's client joins it
+    member_tmp = tempfile.mkdtemp(prefix="cml-membership-")
+    obs_dir = os.path.join(member_tmp, "obs-cluster")
     try:
-        collective = collective_phases(torch, dev, (ckpt, final))
+        line, counts, elastic_final = train_resnet_elastic_phase(torch, dev, ckpt, member_tmp)
+        emit(line)
+        for name, n in counts.items():
+            launches[name]["train_resnet_elastic"] = n
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the collective phases next, while this process holds the least of
+        # the card: every rank is a process of its own on it
+        collective = collective_phases(torch, dev, (ckpt, final), elastic_final, obs_dir)
+    except BaseException:
+        shutil.rmtree(member_tmp, ignore_errors=True)
+        raise
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
-    del final
+    del final, elastic_final
     for line, counts, by_form in collective:
         emit(line)
         for name, n in counts.items():
@@ -5748,8 +6219,12 @@ def main() -> int:
     for path, codec_name, norm_impl in (("train", "int8", "flax"), ("train_topk", None, "flax"),
                                         ("train_topk_int4_ln", "topk_int4", "pallas"),
                                         ("train_int4", "int4", "flax"), ("train_fp8", "fp8", "flax")):
+        # train_int4 and train_fp8 without their profiled rounds: each took
+        # ~17 s, trace processing included, of the script's 1200 s; their
+        # kernels' device time is check's
         line, counts, state, bundle = train_phase(torch, dev, init, codec_name, norm_impl,
-                                                  keep_state=path in ("train_topk", "train_fp8"))
+                                                  keep_state=path in ("train_topk", "train_fp8"),
+                                                  profiled=path not in ("train_int4", "train_fp8"))
         if path == "train":
             line["setup_s"] = {"init_params": init_s, **line["setup_s"]}
         emit(line)
@@ -5774,12 +6249,14 @@ def main() -> int:
                 # its engines shut down: the port's loadgen on the same artifact
                 gc.collect()
                 torch.cuda.empty_cache()
-                line, counts, lforms = serve_loadgen_phase(torch, dev, art)
+                line, counts, lforms = serve_loadgen_phase(torch, dev, art, obs_dir)
                 emit(line)
                 for name, n in counts.items():
                     launches[name]["serve_loadgen"] = n
                 for form, n in lforms.items():
                     forms.setdefault("paged_attention", {}).setdefault(form, {})["serve_loadgen"] = n
+                # the ranks' snapshots and the load generator's side by side
+                emit(cluster_view_phase(obs_dir, 8, LOADGEN_SOCKET_REQUESTS))
             finally:
                 shutil.rmtree(art, ignore_errors=True)
             # the same codec on the per-leaf wire (--bucket-bytes 0), then
@@ -5835,6 +6312,14 @@ def main() -> int:
     emit(line)
     for name, n in counts.items():
         launches[name]["train_resnet_overlap"] = n
+    # live membership: joins, a drop, a straggler and a rejoin through the train CLI
+    try:
+        line, counts = train_resnet_churn_phase(torch, dev, member_tmp)
+    finally:
+        shutil.rmtree(member_tmp, ignore_errors=True)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_resnet_churn"] = n
     del init
     gc.collect()
     torch.cuda.empty_cache()

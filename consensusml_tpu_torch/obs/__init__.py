@@ -20,6 +20,11 @@ against the reference reads the port unchanged).
 - :mod:`.httpd`: ``/metrics``, ``/traces``, ``/requests``, ``/events``,
   ``/tenants``, ``/alerts``, ``/query``, ``/healthz``; ``/profile``
   answers 501.
+- the cluster plane: :mod:`.links` (per-edge probes, ``--link-probes``),
+  :mod:`.health` (measured consensus decay against the spectral bound,
+  always on in the round loop) and :mod:`.cluster` (per-rank snapshots,
+  ``--obs-cluster-dir``, and the cross-rank aggregate that
+  ``consensusml_tpu_torch.tools.obs_report`` renders).
 
 Hot paths feed the process-wide singletons (``get_tracer()``,
 ``get_registry()``); the train CLI surfaces the sinks through
@@ -29,10 +34,14 @@ Hot paths feed the process-wide singletons (``get_tracer()``,
 no sink configured the tracer stays disabled and metric updates are
 dict-cheap, so the instrumentation stays on everywhere.
 
-Not ported yet: the cluster plane (``cluster.py``, ``links.py``,
-``health.py``) and the cost plane (``costs.py``, ``memviz.py``).
+Not ported yet: the cost plane (``costs.py``, ``memviz.py``).
 """
 
+from consensusml_tpu_torch.obs.cluster import (  # noqa: F401
+    ClusterWriter,
+    aggregate,
+    read_snapshots,
+)
 from consensusml_tpu_torch.obs.alerts import (  # noqa: F401
     Alert,
     AlertEngine,
@@ -55,6 +64,14 @@ from consensusml_tpu_torch.obs.history import (  # noqa: F401
     peek_history,
 )
 from consensusml_tpu_torch.obs.httpd import MetricsServer  # noqa: F401
+from consensusml_tpu_torch.obs.health import (  # noqa: F401
+    ConsensusHealthMonitor,
+    decay_bound,
+)
+from consensusml_tpu_torch.obs.links import (  # noqa: F401
+    LinkProber,
+    link_wire_bytes,
+)
 from consensusml_tpu_torch.obs.metrics import (  # noqa: F401
     Counter,
     DEFAULT_LATENCY_BUCKETS,

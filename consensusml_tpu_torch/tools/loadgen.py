@@ -19,8 +19,13 @@ engine's own SLO stats, as one ``LOADGEN`` JSON line.
 
 The same ``--seed`` gives the reference's arrival times, prompt lengths,
 token ids, tenants, trace ids and sampling seeds bit for bit.
-``--obs-snapshot DIR`` (the client's metrics snapshot in the cluster
-plane's format) waits for the port of the cluster plane: it exits 2.
+``--obs-snapshot DIR`` additionally writes the client-observed SLOs as
+``obs-loadgen-<seed>.json`` in the cluster plane's snapshot format
+(:class:`~consensusml_tpu_torch.obs.cluster.ClusterWriter`, role
+``loadgen``), the client's history rings sampled during the run with it:
+point it at the serving or training side's ``--obs-cluster-dir`` and
+``python -m consensusml_tpu_torch.tools.obs_report`` shows the client
+SLOs beside the ranks.
 
     # in-process: load the artifact and serve it right here
     python -m consensusml_tpu_torch.tools.loadgen --artifact /tmp/art --rate 50 --requests 200
@@ -606,13 +611,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="artifact mode: the engine's device (the card unless --device cpu; no CPU fallback)")
     p.add_argument("--obs-snapshot", default=None, metavar="DIR",
-                   help="write the consensusml_loadgen_* metrics snapshot to DIR in the cluster plane's format; "
-                        "the cluster plane is not ported yet, so this exits 2")
+                   help="write the consensusml_loadgen_* metrics snapshot "
+                        "to DIR (obs-loadgen-<seed>.json, cluster snapshot "
+                        "format), including the client-side history rings "
+                        "sampled during the run — point it at the serving "
+                        "side's --obs-cluster-dir and obs_report "
+                        "shows client + server SLOs (and joined TTFT "
+                        "sparklines) in one report")
     args = p.parse_args(argv)
-    if args.obs_snapshot:
-        print("error: --obs-snapshot writes the cluster plane's snapshot (ClusterWriter), which is not ported yet",
-              file=sys.stderr)
-        return 2
 
     lo, hi = (int(x) for x in args.prompt_len.split(":"))
     shared_prefix = None
@@ -676,6 +682,15 @@ def main(argv=None) -> int:
             host, _, port = args.connect.partition(":")
             submit = _socket_submit(host, int(port))
 
+    history = None
+    if args.obs_snapshot:
+        # client-side history rings: the sampler thread records the
+        # loadgen families at cadence DURING the run, so the snapshot's
+        # digest carries the client TTFT trend on the same wall-clock
+        # windows as the server's
+        from consensusml_tpu_torch.obs import get_history
+
+        history = get_history()
     report = run_loadgen(
         submit,
         n_requests=args.requests,
@@ -691,10 +706,21 @@ def main(argv=None) -> int:
         top_p=args.top_p,
         tenants=parse_tenant_weights(args.tenants),
         shared_prefix=shared_prefix,
+        history=history,
     )
     if engine is not None:
         report["engine"] = engine.stats()
         engine.shutdown()
+    if args.obs_snapshot:
+        from consensusml_tpu_torch.obs import ClusterWriter, get_request_registry
+
+        # in-process mode the engine fed this process's request-trace
+        # registry, so the snapshot carries the server-side traces the
+        # exemplar request_ids resolve against; socket mode leaves it to
+        # the server's own snapshot
+        path = ClusterWriter(args.obs_snapshot, rank=args.seed, role="loadgen", history=history).write(
+            extra={"report": report, "request_traces": get_request_registry().snapshot()})
+        print(f"obs snapshot: {path}", flush=True)
     print("LOADGEN " + json.dumps(report), flush=True)
     return 0 if report["errors"] == 0 else 1
 

@@ -43,7 +43,9 @@ checkpoint's round plus ``--rounds`` (``train/schedules.py``),
 warning from 0.4 up), ``--checkpoint-dir`` with ``--checkpoint-every``
 saves the whole state every K rounds and at the end (``utils/checkpoint.py``;
 ``--resume DIR/step_N`` continues from one, bit for bit, on either
-backend; its world size must be the run's: elastic resize is not ported),
+backend; with ``--workers W'`` at another world size it resizes the
+state, ``utils/elastic.py``: survivors keep their rows, joiners start from
+the consensus mean, the gossip state and SlowMo restart),
 ``--round-timeout S`` hard-exits with code 3 when a round makes no
 progress for S seconds (``utils/watchdog.py``; armed after the first
 round, paused during an eval), ``--data-dir`` trains on MNIST, CIFAR-10 or
@@ -61,7 +63,19 @@ exit, ``--metrics-prom PATH`` the registry as a Prometheus textfile every
 ``/healthz`` live (0: a free port, printed), ``--flight-recorder DIR``
 dumps the last rounds' spans and metric snapshots on a watchdog timeout,
 an unhandled exception or SIGTERM, and ``--profile-dir DIR`` writes a
-``torch.profiler`` trace of rounds 2-3::
+``torch.profiler`` trace of rounds 2-3. The cluster plane: the
+consensus-health monitor is always on, ``--link-probes`` times a small
+transfer across every directed gossip edge at telemetry cadence, and
+``--obs-cluster-dir DIR`` rewrites this rank's snapshot there (render the
+directory with ``python -m consensusml_tpu_torch.tools.obs_report DIR``).
+
+Live membership (``swarm/``, the simulated backend only): ``--churn-schedule
+SPEC`` replays joins, drops, rejoins and stragglers
+(``"join@1:2;drop@2:3;straggle@3:5x2;rejoin@4:3"``, or the generator form
+``"seed=S,rounds=R,joins=J,drops=D,stragglers=K"``) while training: joiners
+gossip-bootstrap from their neighbours (no checkpoint read), a dropped
+worker's replica is frozen until it rejoins, and push-sum takes over
+whenever the membership is asymmetric::
 
     python -m consensusml_tpu_torch.train --scale smoke --device cpu --rounds 3
     python -m consensusml_tpu_torch.train --scale full --workers 4 --codec-warmup 1
@@ -95,6 +109,11 @@ an unhandled exception or SIGTERM, and ``--profile-dir DIR`` writes a
     python -m consensusml_tpu_torch.train --config gpt2_topk --device cpu --rounds 2 --export-serving ART
     python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 3 --telemetry-every 2 \
         --trace-events T.json --metrics-prom M.prom --metrics-port 0 --flight-recorder FR
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas \
+        --resume D/step_2 --workers 12 --link-probes --obs-cluster-dir OBS --telemetry-every 1
+    python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 6 \
+        --churn-schedule "join@1:2;drop@2:3;straggle@3:5x2;rejoin@4:3" --obs-cluster-dir OBS
+    python -m consensusml_tpu_torch.tools.obs_report OBS
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a
@@ -207,6 +226,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--flight-recorder", default=None, metavar="DIR",
                    help="enable the crash flight recorder: on watchdog timeout, unhandled exception, or SIGTERM, "
                         "dump the last rounds' spans + metric snapshots to a timestamped JSON file in DIR")
+    p.add_argument("--obs-cluster-dir", default=None, metavar="DIR",
+                   help="cluster observability sideband: atomically rewrite this rank's obs-rank-N.json snapshot "
+                        "(registry values, round progress, heartbeat) in DIR at --telemetry-every cadence; point "
+                        "every rank of a swarm at one shared DIR and render the merged view with "
+                        "python -m consensusml_tpu_torch.tools.obs_report")
+    p.add_argument("--link-probes", action="store_true",
+                   help="probe per-link latency/bandwidth: at --telemetry-every cadence, time one small transfer "
+                        "across every directed gossip edge and export the consensusml_link_* families per "
+                        "(src, dst) — the slowest-link ranking the cluster report consumes (host-side sideband, "
+                        "never inside the round)")
+    p.add_argument("--churn-schedule", default=None, metavar="SPEC",
+                   help='live membership churn on the simulated backend: "join@R[:N];drop@R:U[,U..];'
+                        'rejoin@R:U;straggle@R:UxD" or "seed=S,rounds=R,joins=J,drops=D,stragglers=K"; joiners '
+                        "gossip-bootstrap from neighbors (no checkpoint read), dropped members freeze until rejoin")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -257,20 +290,22 @@ def _describe_training(args, bundle) -> None:
         print("training: " + "; ".join(parts), flush=True)
 
 
-def _resume_plan(args) -> tuple[int | None, int, str | None]:
-    """``(world, schedule start round, error)`` for ``--resume``: the
-    checkpoint's world size (which ``--workers`` must equal) and round."""
+def _resume_plan(args) -> tuple[int | None, int, int | None, str | None]:
+    """``(world, schedule start round, elastic_from, error)`` for
+    ``--resume``: the run's world size (``--workers``, else the
+    checkpoint's), the checkpoint's round, and the checkpoint's world size
+    when an explicit ``--workers`` differs from it (an elastic resume),
+    else None."""
     from consensusml_tpu_torch.utils.checkpoint import checkpoint_round, checkpoint_world_size
 
     if args.resume is None:
-        return args.workers, 0, None
+        return args.workers, 0, None, None
     world = checkpoint_world_size(args.resume)
     if world is None:
-        return None, 0, f"error: cannot restore {args.resume}: no cml_meta.json (not a checkpoint of this trainer)"
-    if args.workers is not None and args.workers != world:
-        return None, 0, (f"error: --resume {args.resume} holds {world} workers but --workers is {args.workers}: "
-                         "resuming at another world size (elastic resize) is not ported yet")
-    return world, checkpoint_round(args.resume) or 0, None
+        return None, 0, None, (f"error: cannot restore {args.resume}: no cml_meta.json "
+                               "(not a checkpoint of this trainer)")
+    elastic_from = world if args.workers is not None and args.workers != world else None
+    return args.workers or world, checkpoint_round(args.resume) or 0, elastic_from, None
 
 
 def _bundle(args, dev, world, sched_start):
@@ -319,7 +354,7 @@ def _layout(engine, gossiped, stacked: bool) -> str:
     return "per-leaf wire" if plan is None else f"{plan.num_buckets} buckets"
 
 
-def _main_collective(args, world, sched_start) -> int:
+def _main_collective(args, world, sched_start, elastic_from) -> int:
     from consensusml_tpu_torch.comm.launch import RankFailed
     from consensusml_tpu_torch.device import resolve_device
     from consensusml_tpu_torch.train import collective
@@ -336,7 +371,7 @@ def _main_collective(args, world, sched_start) -> int:
     period = f", period {topo.period}" if topo.is_time_varying else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} ranks (collective, --dist-backend "
           f"{args.dist_backend}) on {args.device}, topology {topo.name}{period}", flush=True)
-    spec = {**vars(args), "workers": bundle.world_size, "sched_start": sched_start}
+    spec = {**vars(args), "workers": bundle.world_size, "sched_start": sched_start, "elastic_from": elastic_from}
     try:
         collective.run(spec, bundle.world_size)
     except RankFailed as e:
@@ -344,6 +379,146 @@ def _main_collective(args, world, sched_start) -> int:
             print(f"error: {e}", file=sys.stderr)
             return 3
         raise
+    return 0
+
+
+_CHURN_REFUSED = (
+    ("--backend collective", lambda a: a.backend == "collective"),
+    ("--resume", lambda a: a.resume is not None),
+    ("--drop-prob", lambda a: a.drop_prob > 0),
+    ("--overlap-gossip", lambda a: a.overlap_gossip),
+    ("--checkpoint-every", lambda a: a.checkpoint_every > 0),
+    ("--eval-every", lambda a: a.eval_every > 0),
+    ("--profile-dir", lambda a: a.profile_dir is not None),
+    ("--link-probes", lambda a: a.link_probes),
+    ("--flight-recorder", lambda a: a.flight_recorder is not None),
+    ("--round-timeout", lambda a: a.round_timeout > 0),
+)
+
+
+def _churn_refusal(args) -> str | None:
+    """The reference's refusal of what ``--churn-schedule`` does not
+    compose with (exit code 2)."""
+    bad = [flag for flag, on in _CHURN_REFUSED if on(args)]
+    if not bad:
+        return None
+    return (f"error: --churn-schedule runs the simulated swarm loop and does not compose with {', '.join(bad)} "
+            "(scheduled churn IS the fault model; end-of-run --checkpoint-dir / --eval-batches still work)")
+
+
+def _churn_loop(args, bundle, dev) -> int:
+    """The ``--churn-schedule`` path (the reference's ``_churn_loop``): live
+    membership churn on the simulated backend (``swarm/``). Joiners
+    gossip-bootstrap from neighbours — no checkpoint read — drops freeze
+    the member's replica until rejoin, and training never stops."""
+    import contextlib
+    import os
+
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.obs import ClusterWriter, get_registry, get_tracer
+    from consensusml_tpu_torch.swarm import ChurnSchedule, alive_consensus_state, churn_config, run_churn
+    from consensusml_tpu_torch.swarm import validate_schedule
+    from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.run import eval_text
+    from consensusml_tpu_torch.utils.checkpoint import save_state
+    from consensusml_tpu_torch.utils.logging import MetricsLogger
+
+    registry = get_registry()
+    initial = bundle.world_size
+    try:
+        schedule = ChurnSchedule.parse(args.churn_schedule, initial_world=initial)
+        cfg = churn_config(bundle.cfg)
+        # dry-replay the whole schedule up front: a semantically invalid
+        # sequence must be a clean exit 2 here, not a traceback mid-run
+        validate_schedule(schedule, cfg.gossip.topology, args.rounds)
+    except (ValueError, NotImplementedError) as e:
+        print(f"error: --churn-schedule: {e}", file=sys.stderr)
+        return 2
+    capacity = initial + schedule.total_joins
+    counts = schedule.counts()
+    print(f"churn schedule: {schedule.spec()}", flush=True)
+    print(f"swarm: initial={initial} capacity={capacity} joins={counts['join']} drops={counts['drop']} "
+          f"rejoins={counts['rejoin']} stragglers={counts['straggle']} push_sum={cfg.gossip.push_sum!r}", flush=True)
+    # batches come stacked at CAPACITY; the harness slices to the live
+    # world each round, so slot i's stream is churn-independent
+    cap_bundle = bundle if capacity == initial else configs.build(
+        args.config, args.scale, world=capacity, codec=args.codec, gamma=args.gamma,
+        codec_warmup=args.codec_warmup, norm_impl=args.norm_impl, device=dev, data_dir=args.data_dir)
+    tracer = get_tracer()
+    was_enabled = tracer.enabled
+    if args.trace_events or args.metrics_prom or args.obs_cluster_dir:
+        tracer.enabled = True
+    history = alerts = None
+    if args.trace_events or args.metrics_prom or args.obs_cluster_dir or args.metrics_port is not None:
+        from consensusml_tpu_torch.obs import get_alert_engine, get_history
+
+        history, alerts = get_history(), get_alert_engine()
+    cluster = None
+    if args.obs_cluster_dir:
+        cluster = ClusterWriter(args.obs_cluster_dir, rank=0, registry=registry, world_size=capacity,
+                                history=history, alerts=alerts)
+        print(f"cluster snapshots: {cluster.path}", flush=True)
+    init = configs.init_on_device(bundle, args.seed, dev)
+    every = max(1, args.telemetry_every)
+
+    with contextlib.ExitStack() as stack:
+        logger = stack.enter_context(MetricsLogger(args.metrics_out))
+        stack.callback(setattr, tracer, "enabled", was_enabled)
+
+        def on_round(rnd, row):
+            if rnd % max(1, args.log_every) == 0:
+                logger.log(rnd, row)
+            registry.counter("consensusml_rounds_total", "completed training rounds").inc()
+            registry.gauge("consensusml_round_progress").set(rnd)
+            registry.gauge("consensusml_heartbeat_time_seconds").set(time.time())
+            if rnd % max(1, args.log_every) == 0:
+                print(f"[round {rnd}] loss={row['loss']:.4f} consensus_error={row['consensus_error']:.4f} "
+                      f"epoch={row['epoch']} active={row['active']}/{row['world']}", flush=True)
+            if (rnd + 1) % every == 0:
+                registry.snapshot({"round": rnd})
+                if history is not None:
+                    history.record()
+                    alerts.evaluate()
+                if args.metrics_prom:
+                    registry.write_prometheus(args.metrics_prom)
+                if cluster is not None:
+                    cluster.write(round=rnd)
+
+        def on_event(row):
+            workers = ",".join(str(u) for u in row["workers"])
+            detail = row.get("detail") or {}
+            extra = (f" (bootstrap {detail['bootstrap_rounds']} rounds, eps {detail['eps_measured']:.2e})"
+                     if "bootstrap_rounds" in detail
+                     else (f" ({detail['duration']} rounds)" if "duration" in detail else ""))
+            print(f"[round {row['round']}] membership {row['kind']}: w{workers}{extra}", flush=True)
+            if cluster is not None:
+                cluster.record_event(row)
+
+        report = run_churn(cfg, bundle.loss_fn, init, schedule, rounds=args.rounds,
+                           batches=lambda rounds, seed: cap_bundle.batches(rounds, seed), seed=args.seed,
+                           registry=registry, on_round=on_round, on_event=on_event)
+        del init
+        if args.metrics_prom:
+            registry.write_prometheus(args.metrics_prom)
+        if cluster is not None:
+            cluster.write(round=args.rounds - 1)
+        if args.trace_events:
+            print(f"trace events: {tracer.write_chrome_trace(args.trace_events)}", flush=True)
+
+    view = report.final_view
+    print(f"swarm final: epoch={view.epoch} members={view.n_active} active / {view.world_size} slots, "
+          f"{len(report.bootstraps)} gossip bootstraps (no checkpoint reads), {report.recompiles} step rebuilds",
+          flush=True)
+    print(f"final: loss={report.losses[-1]:.4f} consensus_error={report.consensus_errors[-1]:.4f}", flush=True)
+    if args.checkpoint_dir:
+        path = save_state(os.path.join(args.checkpoint_dir, f"step_{args.rounds}"), report.final_state)
+        print(f"checkpoint: {path}", flush=True)
+    if args.eval_batches > 0:
+        # members still DOWN at the end hold frozen stale replicas; the
+        # mean model aggregates the LIVE swarm only
+        result = evaluate(cap_bundle.eval_fn, alive_consensus_state(report.final_state, view),
+                          cap_bundle.eval_batches(args.eval_batches, args.seed))
+        print(eval_text(result, None), flush=True)
     return 0
 
 
@@ -363,24 +538,34 @@ def main(argv=None) -> int:
     if args.backend == "simulated":
         dev = resolve_device(args.device)
     error = _check_flags(args)
-    world, sched_start, resume_error = _resume_plan(args)
+    world, sched_start, elastic_from, resume_error = _resume_plan(args)
     error = error or resume_error
+    if args.churn_schedule is not None:
+        error = error or _churn_refusal(args)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
     if args.backend == "collective":
-        return _main_collective(args, world, sched_start)
+        return _main_collective(args, world, sched_start, elastic_from)
     bundle, error = _bundle(args, dev, world, sched_start)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
+    if args.churn_schedule is not None:
+        return _churn_loop(args, bundle, dev)
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     _describe_training(args, bundle)
     params, model_state = configs.init_on_device(bundle, args.seed, dev)
     frozen = configs.frozen_on_device(bundle, dev)
-    state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state,
-                               frozen=frozen)
+    if elastic_from is None:
+        state = init_stacked_state(bundle.cfg, params, bundle.world_size, seed=args.seed, model_state=model_state,
+                                   frozen=frozen)
+    else:
+        # the checkpoint's world as the template (its values are overwritten by the restore)
+        rows = lambda t: torch.empty((elastic_from, *t.shape[1:]), dtype=t.dtype, device=t.device)  # noqa: E731
+        state = init_stacked_state(bundle.cfg, {n: rows(p) for n, p in params.items()}, elastic_from,
+                                   seed=args.seed, model_state=T.tree_map(rows, model_state), frozen=frozen)
     step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
     gossiped = {"params": state.params, "model_state": state.model_state}
     topo = engine.topology
@@ -397,6 +582,12 @@ def main(argv=None) -> int:
         except (OSError, ValueError, RuntimeError) as e:
             print(f"error: cannot restore {args.resume}: {type(e).__name__}: {str(e)[:400]}", file=sys.stderr)
             return 2
+        if elastic_from is not None:
+            from consensusml_tpu_torch.utils.elastic import resize_state
+
+            state = resize_state(bundle.cfg, state, bundle.world_size, seed=args.seed)
+            print(f"elastic resume: {elastic_from} -> {bundle.world_size} workers "
+                  "(joiners from consensus mean; gossip state reset)", flush=True)
         print(f"resumed from {args.resume} at round {state.step}", flush=True)
     start, end = state.step, state.step + args.rounds
     spec = vars(args)
@@ -407,7 +598,7 @@ def main(argv=None) -> int:
 
     per_worker = T.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
                             {"params": state.params, "model_state": state.model_state})
-    tel = Telemetry(spec, engine, per_worker, bundle.cfg.h)
+    tel = Telemetry(spec, engine, per_worker, bundle.cfg.h, device=dev, world_size=bundle.world_size)
     watchdog = start_watchdog(args.round_timeout, tel.on_timeout if tel.recorder is not None else None)
     saver, last_saved = AsyncSaver(), None
     last_exported = None

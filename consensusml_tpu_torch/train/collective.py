@@ -14,7 +14,8 @@ consensus error, then every rank's round, staging and wire milliseconds
 The long-run flags act on every rank: the rebuilt optimizer and SlowMo
 (:func:`~consensusml_tpu_torch.configs.with_train_flags`, the schedule
 sized from ``spec["sched_start"]``, the checkpoint's round the parent
-read), ``--resume`` (each rank reads its own worker's file), checkpoints
+read), ``--resume`` (each rank reads its own worker's file; at another
+world size :func:`elastic_restore`), checkpoints
 (each rank writes its own worker's file, then after a barrier rank 0 the
 meta: the simulated backend's layout), the periodic and final held-out
 eval (:func:`~consensusml_tpu_torch.train.evaluate.evaluate_collective`,
@@ -30,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["check_flags", "run", "spec_bundle", "train_rank", "train_runs"]
+__all__ = ["check_flags", "elastic_restore", "run", "spec_bundle", "train_rank", "train_runs"]
 
 
 def check_flags(device: str, dist_backend: str, world: int, device_count: int) -> None:
@@ -132,6 +133,49 @@ def export_collective(path: str, state, mesh, *, config_name: str, scale: str, r
     return gen
 
 
+def elastic_restore(path: str, state, cfg, rank: int, old_world: int, world: int, seed: int):
+    """This rank's state of an elastic resume (``--resume`` of a checkpoint
+    of ``old_world`` workers at ``world``), the simulated backend's
+    :func:`~consensusml_tpu_torch.utils.elastic.resize_state` row for row:
+    a survivor (``rank < old_world``) restores its own worker's file; a
+    joiner reads every old worker's parameters and model state and takes
+    their :func:`~consensusml_tpu_torch.utils.tree.consensus_mean` (the
+    rows stacked in worker order on this rank's device, so its row equals
+    the simulated grow's bit for bit), keeps its fresh optimizer state and
+    takes the joiners' generators and the checkpoint's round. Everyone's
+    gossip state is reset and SlowMo restarts; the ``consensusml_elastic_*``
+    families are fed on every rank."""
+    from consensusml_tpu_torch.train.local_sgd import _gossiped, _row
+    from consensusml_tpu_torch.train.outer import slowmo_init
+    from consensusml_tpu_torch.utils import tree as T
+    from consensusml_tpu_torch.utils.checkpoint import restore_state, worker_rows
+    from consensusml_tpu_torch.utils.elastic import joiner_generators, record_resize
+
+    if rank < old_world:
+        state = restore_state(path, state, rank=rank)
+    else:
+        device = next(iter(state.params.values())).device
+        rows = [worker_rows(path, w) for w in range(old_world)]
+        rounds = {r for r, _ in rows}
+        if len(rounds) != 1:
+            raise ValueError(f"{path}: workers saved at different rounds {sorted(rounds)}")
+        with torch.no_grad():
+            for name, dst in T.named_tensors(state.params, "params") + T.named_tensors(state.model_state,
+                                                                                         "model_state"):
+                stacked = torch.stack([r[name].to(device) for _, r in rows])
+                dst[0].copy_(T.consensus_mean(stacked))
+                del stacked
+        gens, fgens = joiner_generators(device, seed, [rank], cfg.gossip.faults is not None)
+        state.generators = gens
+        if state.fault_generators:
+            state.fault_generators = fgens
+        state.step = rounds.pop()
+    record_resize(old_world, world)
+    state.gossip = cfg.engine().init_state(_gossiped(*_row(state.params, state.model_state)))
+    state.outer = slowmo_init(state.params) if cfg.outer is not None else None
+    return state
+
+
 def train_rank(rank: int, world: int, spec: dict) -> dict:
     """One rank of a CLI run: its worker's rounds. Returns per round the
     loss, consensus error, wire bytes, times and the kernel launches of
@@ -176,7 +220,14 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     state = init_state(bundle.cfg, params, rank, seed=spec["seed"], model_state=model_state, frozen=frozen)
     del params, model_state
     if spec.get("resume"):
-        state = restore_state(spec["resume"], state, rank=rank)
+        elastic_from = spec.get("elastic_from")
+        if elastic_from is not None and elastic_from != world:
+            state = elastic_restore(spec["resume"], state, bundle.cfg, rank, elastic_from, world, spec["seed"])
+            if rank == 0:
+                print(f"elastic resume: {elastic_from} -> {world} workers "
+                      "(joiners from consensus mean; gossip state reset)", flush=True)
+        else:
+            state = restore_state(spec["resume"], state, rank=rank)
         if rank == 0:
             print(f"resumed from {spec['resume']} at round {state.step}", flush=True)
     start = state.step
@@ -196,7 +247,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
 
     shapes = T.tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"),
                         {"params": state.params, "model_state": state.model_state})
-    tel = Telemetry(spec, bundle.cfg.engine(), shapes, bundle.cfg.h, rank=rank, verbose=rank == 0)
+    tel = Telemetry(spec, bundle.cfg.engine(), shapes, bundle.cfg.h, rank=rank, verbose=rank == 0,
+                    device=device, local_ranks=[rank], world_size=world)
     watchdog = start_watchdog(spec.get("round_timeout", 0.0), tel.on_timeout if tel.recorder is not None else None)
     logger = MetricsLogger(spec.get("metrics_out") if rank == 0 else None)
     ckpt_dir, last_saved, ckpt_path = spec.get("checkpoint_dir"), None, None

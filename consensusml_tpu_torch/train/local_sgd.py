@@ -298,22 +298,25 @@ def _worker_tensors(state: TrainState) -> list[torch.Tensor]:
 
 
 def local_steps(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker: int,
-                batches: list[dict]) -> tuple[torch.Tensor, float]:
+                batches: list[dict], frozen: bool = False) -> tuple[torch.Tensor, float]:
     """Worker ``worker``'s local steps, one a batch, in place: ``(mean
     loss, ok)``. With ``cfg.gossip.faults`` detecting non-finite values,
     ``ok`` is whether the loss, the parameters and the model state came
     out finite (reduced on the device, read once), and a worker that
     failed is restored to the rows it held before the steps; otherwise
-    ``ok`` is 1."""
+    ``ok`` is 1. ``frozen`` (a preempted swarm member) restores the rows
+    whatever ``ok`` is: the steps ran, as the reference's program runs
+    them, and never happened."""
     faults = cfg.gossip.faults
     check = faults is not None and faults.detect_nonfinite
-    snapshot = [t[worker].clone() for t in _worker_tensors(state)] if check else None
+    snapshot = [t[worker].clone() for t in _worker_tensors(state)] if check or frozen else None
     loss = torch.stack([worker_step(cfg, loss_fn, state, worker, b) for b in batches]).mean()
     if not check:
-        return loss, 1.0
-    rows = ([p[worker] for p in state.params.values()], [x[worker] for x in T.leaves(state.model_state)])
-    ok = float(tree_all_finite(loss, rows))
-    if not ok:
+        ok = 1.0
+    else:
+        rows = ([p[worker] for p in state.params.values()], [x[worker] for x in T.leaves(state.model_state)])
+        ok = float(tree_all_finite(loss, rows))
+    if not ok or frozen:
         with torch.no_grad():
             for t, saved in zip(_worker_tensors(state), snapshot):
                 t[worker].copy_(saved)
@@ -321,14 +324,17 @@ def local_steps(cfg: LocalSGDConfig, loss_fn: LossFn, state: TrainState, worker:
 
 
 def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
-    """``step(state, batch, alive=None) -> (state, metrics)`` for stacked
-    workers on one device: per worker (one at a time) H local steps
-    (:func:`local_steps`), then one gossip round through the mixing
+    """``step(state, batch, alive=None, frozen=None) -> (state, metrics)``
+    for stacked workers on one device: per worker (one at a time) H local
+    steps (:func:`local_steps`), then one gossip round through the mixing
     matrix (a time-varying topology's phase ``step % period``, for exact
     mixing and CHOCO alike), then the consensus error. With
     ``cfg.gossip.faults``, ``alive`` (``(world,)`` 0/1) replaces the
-    round's injected draws, the finite check still applied; without
-    faults it is refused. ``metrics``: ``loss`` (mean over the kept
+    round's injected draws, the finite check still applied, and
+    ``frozen`` (``(world,)`` 0/1, the swarm's preempted members) rolls a
+    worker's local steps back and keeps it out of the round (the
+    reference's ``external_alive`` step); without faults both are
+    refused. ``metrics``: ``loss`` (mean over the kept
     workers of each worker's mean over its H steps), ``consensus_error``,
     the host wall time of the inner loop and of the gossip round in ms
     (both end in a device synchronisation), for image batches
@@ -369,8 +375,8 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
             metrics["imgs_per_s"] = world * h * batch["image"].shape[2] / (t2 - t0)
         return state, metrics
 
-    def step(state: TrainState, batch: dict, alive=None):
-        if alive is not None and faults is None:
+    def step(state: TrainState, batch: dict, alive=None, frozen=None):
+        if (alive is not None or frozen is not None) and faults is None:
             raise ValueError("an alive mask needs cfg.gossip.faults (FaultConfig(drop_prob=0.0) for given masks only)")
         first = next(iter(batch.values()))
         world, h = first.shape[0], first.shape[1]
@@ -386,12 +392,15 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         t0 = time.perf_counter()
         batch = {k: v.to(device) for k, v in batch.items()}
         per_worker, oks = [], []
+        gone = [0.0] * world if frozen is None else [float(f) for f in torch.as_tensor(frozen).tolist()]
         with _span("train.inner_loop", h=cfg.h):
             for w in range(world):
                 loss, ok = local_steps(cfg, loss_fn, state, w,
-                                       [{k: v[w, i] for k, v in batch.items()} for i in range(h)])
+                                       [{k: v[w, i] for k, v in batch.items()} for i in range(h)],
+                                       frozen=gone[w] > 0)
                 per_worker.append(loss)
-                oks.append(ok)
+                # rows to keep out of the round: non-finite ones; frozen ones too
+                oks.append(ok * (1.0 - gone[w]))
         losses = torch.stack(per_worker)
         mask = None
         if faults is not None:

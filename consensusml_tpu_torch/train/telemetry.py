@@ -14,7 +14,18 @@ every ``--telemetry-every`` rounds, :meth:`Telemetry.tick`: the CHOCO
 residual, a registry snapshot, the history sample and alert evaluation,
 and the Prometheus file. ``--profile-dir`` traces rounds 2-3 with
 ``torch.profiler``. Nothing here reads a device value the loop does not
-already fetch, but the tick's CHOCO residual, as the reference's.
+already fetch, but the tick's CHOCO residual and link probes, as the
+reference's.
+
+The cluster plane (the reference's ``train.py:1260-1303``): the
+consensus-health monitor (:class:`~consensusml_tpu_torch.obs.health.
+ConsensusHealthMonitor`) is always on, fed each round's consensus error
+(its episodes routed through the alert engine when telemetry is on);
+``--link-probes`` arms a :class:`~consensusml_tpu_torch.obs.links.
+LinkProber` (the per-edge wire gauges once, a probe sweep each tick) and
+``--obs-cluster-dir DIR`` a :class:`~consensusml_tpu_torch.obs.cluster.
+ClusterWriter` that rewrites this rank's ``obs-rank-<rank>.json`` each
+tick and at the end of the run.
 
 On the collective backend each rank keeps its own registry and sinks, as
 each reference process does: rank 0 writes the paths as given, rank ``r``
@@ -48,11 +59,14 @@ class Telemetry:
     ``engine`` and ``shapes`` (one worker's gossiped tree, meta tensors
     do) give the wire facts; ``h`` the local steps a round; ``verbose``
     prints the sinks' lines (the endpoint, the armed recorder, the trace,
-    the timing), as the CLI does on rank 0. Use as a
+    the timing), as the CLI does on rank 0. ``device`` is where the link
+    probes' payloads live, ``local_ranks`` the workers this process runs
+    (None: all, the simulated backend), ``world_size`` the run's. Use as a
     context manager: the exit writes the Chrome trace and the Prometheus
     file and closes the HTTP plane, on an exception too."""
 
-    def __init__(self, spec: dict, engine, shapes: Any, h: int, rank: int = 0, verbose: bool = True):
+    def __init__(self, spec: dict, engine, shapes: Any, h: int, rank: int = 0, verbose: bool = True,
+                 device=None, local_ranks=None, world_size: int | None = None):
         self.spec = spec
         self.h = h
         self.tracer = tracer = get_tracer()
@@ -61,7 +75,8 @@ class Telemetry:
         self.metrics_prom = rank_path(spec.get("metrics_prom"), rank)
         self.every = max(1, int(spec.get("telemetry_every") or 10))
         port = spec.get("metrics_port")
-        self.on = bool(self.trace_events or self.metrics_prom or spec.get("flight_recorder") or port is not None)
+        self.on = bool(self.trace_events or self.metrics_prom or spec.get("flight_recorder") or port is not None
+                       or spec.get("obs_cluster_dir") or spec.get("link_probes"))
         self._was_enabled = tracer.enabled
         if self.on:
             # host span recording on; without a sink spans are bare ranges
@@ -92,6 +107,24 @@ class Telemetry:
             self.recorder = FlightRecorder(out).install()
             if verbose:
                 print(f"flight recorder armed: {out}", flush=True)
+        from consensusml_tpu_torch.obs import ClusterWriter, ConsensusHealthMonitor, LinkProber
+
+        # always on: a few float stores a round; with the alert plane armed
+        # its episodes route through the alert engine
+        self.health = ConsensusHealthMonitor(engine.topology, registry=registry, alerts=self.alerts)
+        self.prober = None
+        if spec.get("link_probes"):
+            self.prober = LinkProber(engine.topology, registry=registry, device=device, local_ranks=local_ranks)
+            self.prober.record_wire_rates(engine, shapes)
+            if verbose:
+                print(f"link probes armed: {len(self.prober.edges)} edges ({self.prober.payload_bytes} B payload)",
+                      flush=True)
+        self.cluster = None
+        if spec.get("obs_cluster_dir"):
+            self.cluster = ClusterWriter(spec["obs_cluster_dir"], rank=rank, registry=registry,
+                                         world_size=world_size, history=self.history, alerts=self.alerts)
+            if verbose:
+                print(f"cluster snapshots: {self.cluster.path}", flush=True)
         self.timer = RoundTimer(warmup=1)  # round 0 builds kernels
         self.fence_s = 0.0
         self.prev_alive = None
@@ -147,6 +180,8 @@ class Telemetry:
         if consensus_error is not None:
             reg.gauge("consensusml_consensus_distance",
                       "post-gossip consensus distance sqrt(mean_i ||x_i - xbar||^2)").set(consensus_error)
+            # measured decay against the spectral bound; loud on sustained divergence
+            self.health.observe(rnd, consensus_error)
         reg.gauge("consensusml_round_stall_seconds",
                   "host wait at the round's execution fence (overlap headroom)").set(self.fence_s)
         if timer.last_lap_s > 0:
@@ -161,9 +196,11 @@ class Telemetry:
             self.tick(rnd, state)
 
     def tick(self, rnd: int, state) -> None:
-        """The heavier sampled telemetry: the CHOCO residual (one fetch),
-        a registry snapshot, the history sample and the alert rules, the
-        Prometheus file."""
+        """The heavier sampled telemetry: the link probes, the CHOCO
+        residual (one fetch), a registry snapshot, the history sample and
+        the alert rules, the Prometheus file, the cluster snapshot."""
+        if self.prober is not None:
+            self.prober.probe_round()
         resid = self._engine.choco_residual(state.gossip)
         if resid is not None:
             self.registry.gauge("consensusml_choco_residual", "CHOCO tracking residual ||s - xhat|| (sampled)"
@@ -174,14 +211,19 @@ class Telemetry:
             self.alerts.evaluate()
         if self.metrics_prom:
             self.registry.write_prometheus(self.metrics_prom)
+        if self.cluster is not None:
+            self.cluster.write(round=rnd)
 
     def finish(self, end: int, state) -> None:
         """End of the loop: close a profiler window the run cut short, and
-        a final tick unless the cadence just ticked."""
+        a final tick unless the cadence just ticked (then the cluster
+        snapshot's heartbeat alone is refreshed, a clean exit)."""
         if self._profiling is not None:
             self._end_profile()
         if self.on and self.timer.last_lap_s and end % self.every != 0:
             self.tick(end - 1, state)
+        elif self.cluster is not None:
+            self.cluster.write(round=end - 1)
         if self._verbose and self.timer.last_lap_s:
             print(f"timing: {self.timer.stats().format()}", flush=True)
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import warnings
 from collections.abc import Mapping
 from typing import Any
 
@@ -43,7 +44,7 @@ from consensusml_tpu_torch.utils import tree as T
 
 __all__ = [
     "save_state", "restore_state", "write_meta", "checkpoint_world_size", "checkpoint_round", "AsyncSaver",
-    "state_from_reference",
+    "state_from_reference", "worker_rows",
 ]
 
 META = "cml_meta.json"
@@ -158,20 +159,33 @@ def checkpoint_round(path: str) -> int | None:
     return _meta_int(path, "round")
 
 
-def _load_into(path: str, like, worker: int, collective: bool) -> int:
+def _is_gossip(path: str) -> bool:
+    return path == "gossip" or path.startswith("gossip.")
+
+
+def _load_into(path: str, like, worker: int, collective: bool, gossip_reset: list) -> int:
     rec = torch.load(_worker_path(path, worker), map_location="cpu", weights_only=True)
     rows = _rows(like, worker, collective)
     paths = [p for p, _ in rows]
+    pairs = list(zip(rows, rec["tensors"]))
     if rec["paths"] != paths:
-        extra = sorted(set(rec["paths"]) - set(paths))[:3]
-        missing = sorted(set(paths) - set(rec["paths"]))[:3]
-        raise ValueError(
-            f"{_worker_path(path, worker)}: the checkpoint's state has another structure than this run's "
-            f"(only in the checkpoint: {extra}; only in this run: {missing}); an LR schedule, "
-            "--grad-clip, --slowmo-beta or the gossip flags change it: resume with the flags it was trained with"
-        )
+        # the gossip state's layout alone may drift (a codec or filter
+        # change): everything else restores and the gossip state keeps the
+        # template's fresh values, as the reference's restore heals it
+        kept = [p for p in paths if not _is_gossip(p)]
+        if [p for p in rec["paths"] if not _is_gossip(p)] != kept:
+            extra = sorted(set(rec["paths"]) - set(paths))[:3]
+            missing = sorted(set(paths) - set(rec["paths"]))[:3]
+            raise ValueError(
+                f"{_worker_path(path, worker)}: the checkpoint's state has another structure than this run's "
+                f"(only in the checkpoint: {extra}; only in this run: {missing}); an LR schedule, "
+                "--grad-clip, --slowmo-beta or the gossip flags change it: resume with the flags it was trained with"
+            )
+        saved = dict(zip(rec["paths"], rec["tensors"]))
+        pairs = [((p, dst), saved[p]) for p, dst in rows if not _is_gossip(p)]
+        gossip_reset.append(worker)
     with torch.no_grad():
-        for (p, dst), src in zip(rows, rec["tensors"]):
+        for (p, dst), src in pairs:
             if tuple(dst.shape) != tuple(src.shape) or dst.dtype != src.dtype:
                 raise ValueError(f"{p}: checkpoint has {src.dtype} {tuple(src.shape)}, "
                                  f"this run {dst.dtype} {tuple(dst.shape)}")
@@ -187,6 +201,14 @@ def _load_into(path: str, like, worker: int, collective: bool) -> int:
     return rec["round"]
 
 
+def worker_rows(path: str, worker: int) -> tuple[int, dict[str, torch.Tensor]]:
+    """``(round, {path: row})`` of worker ``worker``'s file: its rows on the
+    host by their paths (``params.<leaf>``, ``model_state.batch_stats.<leaf>``,
+    ...), what an elastic joiner rank averages."""
+    rec = torch.load(_worker_path(os.path.abspath(path), worker), map_location="cpu", weights_only=True)
+    return rec["round"], dict(zip(rec["paths"], rec["tensors"]))
+
+
 def restore_state(path: str, like, *, rank: int | None = None):
     """Read the checkpoint at ``path`` into ``like`` (a freshly built state
     of the same run: its tensors are overwritten in place, on their own
@@ -200,14 +222,22 @@ def restore_state(path: str, like, *, rank: int | None = None):
     want = _world(like) if rank is None else None
     if want is not None and world != want:
         raise ValueError(f"{path}: checkpoint of {world} workers, this run has {want}")
+    reset: list = []
     if rank is not None:
         if not 0 <= rank < world:
             raise ValueError(f"{path}: checkpoint of {world} workers has no rank {rank}")
-        rounds = {_load_into(path, like, rank, True)}
+        rounds = {_load_into(path, like, rank, True, reset)}
     else:
-        rounds = {_load_into(path, like, w, False) for w in range(world)}
+        rounds = {_load_into(path, like, w, False, reset) for w in range(world)}
     if len(rounds) != 1:
         raise ValueError(f"{path}: workers saved at different rounds {sorted(rounds)}")
+    if reset:
+        warnings.warn(
+            "checkpoint gossip state has an old layout (it predates a compress_filter/codec change); gossip "
+            "tracking state was RESET — compressed gossip re-warms its error feedback over the next few rounds, "
+            "everything else restored exactly",
+            stacklevel=2,
+        )
     like.step = rounds.pop()
     return like
 

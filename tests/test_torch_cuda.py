@@ -2399,3 +2399,64 @@ def test_engine_decode_step_with_telemetry_adds_no_synchronization(dev):
     torch.cuda.synchronize()
     assert eng._rt.get(ctx.request_id).decode_ticks == 1
     assert eng._m_intertoken.count >= 1
+
+
+def test_elastic_joiner_rows_are_the_consensus_mean_on_the_card(dev):
+    """An elastic grow of a stacked state on the card (the narrow ResNet,
+    SGD with momentum, a cosine schedule, clipping and SlowMo, one round
+    through the BN kernels, 2 -> 5 workers): the survivors' rows are the
+    input's bit for bit, every joiner's row is ``consensus_mean`` of the
+    input's rows on the card bit for bit (and within 1e-6 relative of a
+    float64 mean on the host), the joiners' momentum and schedule counts
+    are zero, SlowMo restarts at ``x = params``, ``u = 0``."""
+    from consensusml_tpu_torch import kernels
+    from consensusml_tpu_torch.train.local_sgd import make_simulated_train_step
+    from consensusml_tpu_torch.utils.elastic import resize_state
+    from consensusml_tpu_torch.utils.tree import consensus_mean
+
+    kernels.build()
+    flags = dict(lr_schedule="cosine", warmup_rounds=1, grad_clip=0.5, slowmo_beta=0.2)
+    bundle, state = _state_on(dev, "cifar_resnet50", flags, norm_impl="pallas")
+    step = make_simulated_train_step(bundle.cfg, bundle.loss_fn)
+    state, _ = step(state, next(iter(bundle.batches(1, 0))))
+    big, _ = _state_on(dev, "cifar_resnet50", flags, world=5, norm_impl="pallas")
+    grown = resize_state(big.cfg, state, 5, seed=0)
+    for part in ("params", "model_state"):
+        old, new = getattr(state, part), getattr(grown, part)
+        if part == "model_state":
+            old, new = old["batch_stats"], new["batch_stats"]
+        mean = consensus_mean(old)
+        for n, t in new.items():
+            assert t.device == dev and _same_bits(t[:2], old[n]), n
+            for j in range(2, 5):
+                assert _same_bits(t[j], mean[n]), (n, j)
+            ref = old[n].double().mean(0).cpu()
+            err = float((mean[n].double().cpu() - ref).norm() / max(float(ref.norm()), 1e-30))
+            assert err <= 1e-6, (n, err)
+    inner = grown.opt_state.inner
+    assert all(float(t[2:].abs().max()) == 0.0 for t in inner.trace.values())
+    assert inner.sched_count[2:].tolist() == [0, 0, 0]
+    for n, p in grown.params.items():
+        assert _same_bits(grown.outer["x"][n], p) and float(grown.outer["u"][n].abs().max()) == 0.0, n
+
+
+def test_link_probe_default_transfer_times_a_fenced_copy_on_the_card(dev):
+    """The link prober's default transfer on the card (the simulated
+    backend: every rank on one card): each edge a timed copy of its
+    payload fenced by ``torch.cuda.synchronize``; no copy is left in flight
+    when a sweep returns, and an edge's time with a 256 MiB payload (a copy
+    of ~0.16 ms at the card's 3.35 TB/s) is more than twice its time with a
+    4 KiB one (launch and fence alone, ~0.03 ms): the fence waits for the
+    copy."""
+    from consensusml_tpu_torch.obs import LinkProber, MetricsRegistry
+    from consensusml_tpu_torch.topology import RingTopology
+
+    small = LinkProber(RingTopology(4), registry=MetricsRegistry(), device=dev, payload_bytes=1 << 12)
+    big = LinkProber(RingTopology(4), registry=MetricsRegistry(), device=dev, payload_bytes=1 << 28)
+    lat_small = small.probe_round()
+    lat_big = big.probe_round()
+    assert set(lat_small) == set(small.edges) and len(lat_small) == 8
+    assert all(v > 0 for v in lat_small.values())
+    assert torch.cuda.current_stream(dev).query()
+    assert sorted(lat_big.values())[4] > 2 * sorted(lat_small.values())[4]
+    assert all(b.device == dev for b in big._bufs.values())

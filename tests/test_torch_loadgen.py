@@ -12,8 +12,9 @@ against the reference's ``tools/loadgen.py``.
   across the ``LOADGEN`` report, the scraped
   ``consensusml_serve_completed_total``, the wide events and
   ``/requests``; the tenants' rollups sum to the total.
-- The refusals: ``--obs-snapshot`` (the cluster plane is not ported) and
-  ``--swap-every`` without an artifact exit 2.
+- The refusals: ``--targets`` naming no target and ``--swap-every``
+  without an artifact exit 2 (``--obs-snapshot`` writes the cluster
+  snapshot: ``tests/test_torch_cluster_obs.py``).
 """
 
 import importlib.util
@@ -147,7 +148,7 @@ def test_cli_against_a_cpu_server(capsys):
         server.shutdown()
 
 
-@pytest.mark.parametrize("argv", [["--connect", "127.0.0.1:1", "--obs-snapshot", "/tmp/x"],
+@pytest.mark.parametrize("argv", [["--targets", ","],
                                   ["--connect", "127.0.0.1:1", "--swap-every", "4"]])
 def test_refusals_exit_2(argv, capsys):
     assert Q.main(argv) == 2

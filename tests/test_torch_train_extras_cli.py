@@ -40,11 +40,15 @@ def test_refusals_exit_2(capsys, argv, message, backend):
 
 
 def test_resume_at_another_world_size_is_refused(tmp_path, capsys):
+    """A resume at another world size was refused until the elastic resize
+    was ported; it now resizes (``tests/test_torch_elastic.py`` holds the
+    resized state to the reference's)."""
     assert main(BASE + ["--rounds", "1", "--checkpoint-dir", str(tmp_path)]) == 0
     capsys.readouterr()
-    assert main(BASE[:-1] + ["3", "--resume", str(tmp_path / "step_1")]) == 2
-    assert "holds 2 workers but --workers is 3: resuming at another world size (elastic resize) is not ported" in (
-        capsys.readouterr().err)
+    assert main(BASE[:-1] + ["3", "--resume", str(tmp_path / "step_1")]) == 0
+    out = capsys.readouterr().out
+    assert "elastic resume: 2 -> 3 workers (joiners from consensus mean; gossip state reset)" in out
+    assert "mnist_mlp/smoke: 3 workers on cpu" in out
     # without --workers the run takes the checkpoint's world size
     assert main(BASE[:-2] + ["--rounds", "1", "--resume", str(tmp_path / "step_1")]) == 0
     assert "mnist_mlp/smoke: 2 workers on cpu" in capsys.readouterr().out

@@ -20,6 +20,8 @@
 import functools
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -94,8 +96,9 @@ def _round0(events):
     raise AssertionError("no round 0 in the ring")
 
 
-@functools.lru_cache(maxsize=None)
-def _cli_runs(tmp):
+def _cli_child(tmp):
+    """Both CLI runs in this (fresh) interpreter; their metric values
+    before and after and their spans go to ``tmp/runs.json``."""
     import train as ref_train
 
     runs = {}
@@ -104,7 +107,26 @@ def _cli_runs(tmp):
         argv = CLI + extra + ["--trace-events", os.path.join(tmp, f"{name}.json"),
                               "--metrics-prom", os.path.join(tmp, f"{name}.prom")]
         runs[name] = _run(main, obs, argv)
-    return runs
+    with open(os.path.join(tmp, "runs.json"), "w") as f:
+        json.dump(runs, f, default=str)
+
+
+@functools.lru_cache(maxsize=None)
+def _cli_runs(tmp):
+    """The two CLI runs in a fresh interpreter: a cold jit cache (the
+    reference records its round-0 spans when jit traces), registries no
+    earlier test has fed, and streams no earlier test has captured."""
+    code = ("import sys; sys.path[:0] = [sys.argv[1], sys.argv[2]]; import jax; "
+            "jax.config.update('jax_platforms', 'cpu'); import test_torch_obs_train as t; t._cli_child(sys.argv[3])")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    if "xla_force_host_platform_device_count" not in env.get("XLA_FLAGS", ""):
+        env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
+    proc = subprocess.run([sys.executable, "-c", code, root, os.path.join(root, "tests"), tmp], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    with open(os.path.join(tmp, "runs.json")) as f:
+        return {name: tuple(run) for name, run in json.load(f).items()}
 
 
 @pytest.fixture(scope="module")

@@ -241,6 +241,12 @@ class RunBundle:
     optimizer_factory: Callable | None = None
     base_lr: float | None = None
     data_source: str = "synthetic"  # the data's origin: "synthetic" or a file reader's source
+    # the native ring's source (--native-loader): the same (rounds, seed,
+    # start=0) contract, batches made by the C++ prefetch ring. An image
+    # source also takes wire= ("f32"/"u8"), views= and prefetch= and
+    # carries supports_wire, supports_views, qscale and qoff, set only by
+    # _native_cls_batches
+    native_batches: Callable | None = None
 
     def init_params(self, seed: int, ranks=None):
         """The stacked ``(W, ...)`` numpy initial variables in flax layout,
@@ -497,6 +503,49 @@ def _lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0):
     return lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, start=start, mlm_rate=mlm_rate)
 
 
+def _native_cls_batches(data, world: int, h: int, batch: int):
+    """The native ring's closure for classification data, either source
+    (the reference's ``_native_cls_batches``). File images are stored as
+    raw / 255, so their u8 wire (qscale 255, qoff 0) re-ships the file's
+    own bytes; the procedural set uses its (32, 4) affine. ``views=True``
+    yields the zero-copy FeedItems the device prefetcher consumes; the
+    ring's depth and threads come from :func:`~consensusml_tpu_torch.data.
+    native_pipeline.plan_ring` for the round's shape and ``prefetch``."""
+    from consensusml_tpu_torch.data import SyntheticClassification
+    from consensusml_tpu_torch.data.files import FileClassification
+    from consensusml_tpu_torch.data.native_pipeline import (
+        native_file_round_batches,
+        native_round_batches,
+        plan_ring,
+    )
+
+    if isinstance(data, FileClassification):
+        fn, qp = native_file_round_batches, (255.0, 0.0)
+    else:
+        fn, qp = native_round_batches, (SyntheticClassification.U8_QSCALE, SyntheticClassification.U8_QOFF)
+    sample_floats = int(np.prod(data.image_shape))
+
+    def make(rounds, seed, start=0, wire="f32", views=False, prefetch=2):
+        # every staged batch pins a slot: the ring is deeper than the window
+        depth, nthreads = plan_ring(world * h * batch, sample_floats * (1 if wire == "u8" else 4), max(prefetch, 1))
+        return fn(data, world, h, batch, rounds, seed, start=start, depth=depth, nthreads=nthreads, wire=wire,
+                  qscale=qp[0], qoff=qp[1], views=views)
+
+    make.supports_wire = True  # --native-wire gates on this
+    make.supports_views = True  # the overlapped feed's zero-copy path gates on this
+    make.qscale, make.qoff = qp
+    return make
+
+
+def _native_lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0):
+    """The native ring's closure for LM data, either source."""
+    from consensusml_tpu_torch.data.files import TokenFileDataset
+    from consensusml_tpu_torch.data.native_pipeline import native_file_token_batches, native_lm_round_batches
+
+    fn = native_file_token_batches if isinstance(data, TokenFileDataset) else native_lm_round_batches
+    return lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, mlm_rate=mlm_rate, start=start)
+
+
 def _source(data) -> str:
     return getattr(data, "source", "synthetic")
 
@@ -530,6 +579,7 @@ def _mnist_mlp(scale: str, world: int | None, data_dir: str | None = None) -> Ru
         model=model,
         loss_fn=mlp_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
+        native_batches=_native_cls_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: mlp_init_params(model, seed, world, ranks),
         convert=mlp_from_flax,
         codec_path="none (exact gossip)",
@@ -568,6 +618,7 @@ def _bert_mlm(scale: str, world: int | None, data_dir: str | None = None) -> Run
         model=model,
         loss_fn=bert_mlm_loss_fn(model),
         batches=_lm_batches(data, world, cfg.h, batch, mlm_rate=mlm_rate),
+        native_batches=_native_lm_batches(data, world, cfg.h, batch, mlm_rate=mlm_rate),
         draw_init=lambda seed, ranks: normal_init_params(model, seed, world, ranks),
         convert=lambda init: (bert_from_flax(init), {}),
         codec_path="none (exact gossip)",
@@ -621,6 +672,7 @@ def _llama_lora(scale: str, world: int | None, data_dir: str | None = None) -> R
         model=model,
         loss_fn=llama_loss_fn(model),
         batches=_lm_batches(data, world, cfg.h, batch),
+        native_batches=_native_lm_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: llama_adapter_params(model, seed, world, ranks),
         convert=lambda init: (llama_from_flax(init), {}),
         codec_path="none (exact gossip of the LoRA adapters only)",
@@ -677,6 +729,7 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         model=model,
         loss_fn=resnet_loss_fn(model),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
+        native_batches=_native_cls_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: resnet_init_params(model, seed, world, ranks),
         convert=resnet_from_flax,
         codec_path="none (exact gossip)",
@@ -753,6 +806,7 @@ def _gpt2_topk(scale: str, world: int | None, codec: str | None, gamma: float | 
         model=model,
         loss_fn=gpt2_loss_fn(model),
         batches=_lm_batches(data, world, cfg.h, batch),
+        native_batches=_native_lm_batches(data, world, cfg.h, batch),
         draw_init=lambda seed, ranks: gpt2_init_params(mcfg, seed, world, ranks),
         convert=lambda init: (gpt2_from_flax(init), {}),
         codec_path=f"{codec_name} -> {path}",

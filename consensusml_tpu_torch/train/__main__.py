@@ -132,6 +132,7 @@ rank fails the run (exit code 3 when a rank's watchdog fired).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -187,6 +188,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "D=1 is --overlap-gossip alone")
     p.add_argument("--slowmo-beta", type=float, default=None,
                    help="enable the SlowMo outer optimizer with this slow-momentum decay (e.g. 0.8); default off")
+    p.add_argument("--native-loader", action="store_true",
+                   help="assemble round batches with the C++ prefetch ring (producer threads run ahead of the "
+                        "device; see data/native_pipeline.py). Sample draws differ from the Python loaders' "
+                        "numpy streams by design")
+    p.add_argument("--native-wire", choices=("f32", "u8"), default=None,
+                   help="host->device wire format for --native-loader image batches: u8 ships quantized bytes "
+                        "(1/4 the transfer; file images re-ship their original bytes) and the step dequants on "
+                        "the device. Default: u8 for image/classification configs, f32 otherwise (pass "
+                        "--native-wire f32 to force the float wire)")
+    p.add_argument("--prefetch-depth", type=int, default=2, metavar="N",
+                   help="overlapped host->device feed: stage up to N round batches on the device ahead of the "
+                        "consumer (DevicePrefetcher; 2 = double buffering, the copy for round r+1 overlaps round "
+                        "r's compute). 0 disables the overlap (batches copy synchronously at dispatch); the "
+                        "feed-stall time lands on the consensusml_feed_stall_seconds gauge whenever the "
+                        "prefetcher runs")
     p.add_argument("--data-dir", default=None,
                    help="train on real files from this directory (MNIST idx / CIFAR-10 binaries / tokens.bin); "
                         "falls back to procedural data when absent")
@@ -349,6 +365,16 @@ def _check_flags(args) -> str | None:
     return None
 
 
+def _describe_feed(args, bundle) -> None:
+    """The reference's ``native wire:`` line (with ``--native-loader``);
+    binds the resolved wire to the bundle."""
+    from consensusml_tpu_torch.train import feed
+
+    wire, why = feed.apply_native_wire(bundle, args.native_loader, args.native_wire)
+    if args.native_loader:
+        print(f"native wire: {wire} ({why})", flush=True)
+
+
 def _layout(engine, gossiped, stacked: bool) -> str:
     plan = engine.bucket_plan(gossiped, stacked=stacked)
     return "per-leaf wire" if plan is None else f"{plan.num_buckets} buckets"
@@ -357,16 +383,21 @@ def _layout(engine, gossiped, stacked: bool) -> str:
 def _main_collective(args, world, sched_start, elastic_from) -> int:
     from consensusml_tpu_torch.comm.launch import RankFailed
     from consensusml_tpu_torch.device import resolve_device
-    from consensusml_tpu_torch.train import collective
+    from consensusml_tpu_torch.train import collective, feed
 
     dev = resolve_device(args.device)
     bundle, error = _bundle(args, dev, world, sched_start)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
+    error = feed.feed_error(bundle, args.native_loader, args.native_wire)
+    if error is not None:
+        print(error, file=sys.stderr)
+        return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     _describe_training(args, bundle)
+    _describe_feed(args, bundle)
     topo = engine.topology
     period = f", period {topo.period}" if topo.is_time_varying else ""
     print(f"{args.config}/{args.scale}: {bundle.world_size} ranks (collective, --dist-backend "
@@ -384,6 +415,7 @@ def _main_collective(args, world, sched_start, elastic_from) -> int:
 
 _CHURN_REFUSED = (
     ("--backend collective", lambda a: a.backend == "collective"),
+    ("--native-loader", lambda a: a.native_loader),
     ("--resume", lambda a: a.resume is not None),
     ("--drop-prob", lambda a: a.drop_prob > 0),
     ("--overlap-gossip", lambda a: a.overlap_gossip),
@@ -411,7 +443,6 @@ def _churn_loop(args, bundle, dev) -> int:
     membership churn on the simulated backend (``swarm/``). Joiners
     gossip-bootstrap from neighbours — no checkpoint read — drops freeze
     the member's replica until rejoin, and training never stops."""
-    import contextlib
     import os
 
     from consensusml_tpu_torch import configs
@@ -527,6 +558,7 @@ def main(argv=None) -> int:
     from consensusml_tpu_torch.device import resolve_device
     from consensusml_tpu_torch.serve.export import export_serving, serving_meta
     from consensusml_tpu_torch.train.evaluate import evaluate
+    from consensusml_tpu_torch.train.feed import feed_error, feed_text, round_feed
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
     from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
     from consensusml_tpu_torch.train.telemetry import Telemetry
@@ -553,9 +585,14 @@ def main(argv=None) -> int:
         return 2
     if args.churn_schedule is not None:
         return _churn_loop(args, bundle, dev)
+    error = feed_error(bundle, args.native_loader, args.native_wire)
+    if error is not None:
+        print(error, file=sys.stderr)
+        return 2
     engine = bundle.cfg.engine()
     _describe(bundle, engine, args.config)
     _describe_training(args, bundle)
+    _describe_feed(args, bundle)
     params, model_state = configs.init_on_device(bundle, args.seed, dev)
     frozen = configs.frozen_on_device(bundle, dev)
     if elastic_from is None:
@@ -610,8 +647,9 @@ def main(argv=None) -> int:
         last_exported = rnd
         print(f"serving artifact: {path} (round {rnd}, generation {serving_meta(path)['generation']})", flush=True)
 
-    with tel, MetricsLogger(args.metrics_out) as logger:
-        for i, batch in enumerate(bundle.batches(args.rounds, args.seed, start=start)):
+    feed = round_feed(bundle, spec, args.rounds, start, dev)
+    with tel, MetricsLogger(args.metrics_out) as logger, contextlib.closing(feed):
+        for i, batch in enumerate(feed):
             rnd = start + i
             with tel.round(i, rnd):
                 t0 = time.perf_counter()
@@ -631,7 +669,7 @@ def main(argv=None) -> int:
                 logger.log(rnd, {"loss": loss, "consensus_error": err, "round_ms": ms, **extras,
                                  **({"alive_frac": alive_frac} if alive_frac is not None else {}),
                                  **({"imgs_per_s": m["imgs_per_s"]} if "imgs_per_s" in m else {})})
-            tel.after_round(rnd, err, alive_frac, mask, state)
+            tel.after_round(rnd, err, alive_frac, mask, state, feed_s=getattr(feed, "last_stall_s", 0.0))
             if watchdog is not None:
                 watchdog.beat(f"round {rnd}")
             if due(args.eval_every, rnd) and rnd + 1 != end:
@@ -646,6 +684,9 @@ def main(argv=None) -> int:
             if args.export_serving and due(args.checkpoint_every, rnd):
                 export_art(rnd + 1)  # the serving handoff rides the checkpoint cadence
         tel.finish(end, state)
+    line = feed_text(feed)
+    if line is not None:
+        print(line, flush=True)
     if args.checkpoint_dir and last_saved != end:
         saver.submit(args.checkpoint_dir, state, step=end)
     if watchdog is not None:

@@ -26,6 +26,7 @@ own registry and sinks (:mod:`~consensusml_tpu_torch.train.telemetry`).
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -71,6 +72,7 @@ def spec_bundle(spec: dict, device):
     ``device``, every gossip and training flag applied as the CLI applies
     them."""
     from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.train.feed import apply_native_wire
 
     bundle = configs.build(
         spec["config"], spec["scale"], world=spec["workers"], codec=spec["codec"], gamma=spec["gamma"],
@@ -85,11 +87,13 @@ def spec_bundle(spec: dict, device):
         bucket_bytes=spec.get("bucket_bytes"), overlap=spec.get("overlap_gossip", False),
         pipeline=spec.get("gossip_pipeline"),
     )
-    return configs.with_train_flags(
+    configs.with_train_flags(
         bundle, lr=spec.get("lr"), lr_schedule=spec.get("lr_schedule"), warmup_rounds=spec.get("warmup_rounds", 0),
         grad_clip=spec.get("grad_clip", 0.0), slowmo_beta=spec.get("slowmo_beta"), rounds=spec["rounds"],
         sched_start=spec.get("sched_start", 0),
     )
+    apply_native_wire(bundle, spec.get("native_loader", False), spec.get("native_wire"))
+    return bundle
 
 
 def save_collective(path: str, state, mesh, step: int) -> str:
@@ -195,7 +199,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.comm.mesh import WorkerMesh, rank_device
     from consensusml_tpu_torch.train.evaluate import evaluate_collective
-    from consensusml_tpu_torch.train.local_sgd import init_state, make_collective_train_step, rank_batch
+    from consensusml_tpu_torch.train.feed import feed_text, round_feed
+    from consensusml_tpu_torch.train.local_sgd import init_state, make_collective_train_step
     from consensusml_tpu_torch.train.run import due, eval_text, extras_text, start_watchdog, train_extras
     from consensusml_tpu_torch.train.telemetry import Telemetry
     from consensusml_tpu_torch.utils import tree as T
@@ -260,13 +265,15 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         last_exported = r
 
     rounds = []
-    with tel:  # the sinks are written on an exception too
-        for i, batch in enumerate(bundle.batches(spec["rounds"], spec["seed"], start=start)):
+    # this rank's rows of each round batch, staged on its own card
+    feed = round_feed(bundle, spec, spec["rounds"], start, device, rank=rank)
+    with tel, contextlib.closing(feed):  # the sinks are written on an exception too
+        for i, batch in enumerate(feed):
             r = start + i
             kernels.reset_launch_counts()
             with tel.round(i, r):
                 t0 = time.perf_counter()
-                state, m = step(state, rank_batch(batch, rank))
+                state, m = step(state, batch)
                 loss, err, alive_frac, mask = tel.fetch(lambda: (
                     float(m["loss"]), float(m["consensus_error"]),
                     float(m["alive_frac"]) if "alive_frac" in m else None,
@@ -302,7 +309,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                       f"{extras_text(line_extras)}", flush=True)
                 logger.log(r, {"loss": loss, "consensus_error": err, "round_ms": ms, "wire_bytes": m["wire_bytes"],
                                **line_extras, **({"alive_frac": alive_frac} if alive_frac is not None else {})})
-            tel.after_round(r, err, alive_frac, mask, state)
+            tel.after_round(r, err, alive_frac, mask, state, feed_s=getattr(feed, "last_stall_s", 0.0))
             if watchdog is not None:
                 watchdog.beat(f"round {r}")
             if due(spec.get("eval_every", 0), r) and r + 1 != end:
@@ -317,6 +324,9 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                 export(r + 1)  # the serving handoff rides the checkpoint cadence
         tel.finish(end, state)
     logger.close()
+    line = feed_text(feed)
+    if rank == 0 and line is not None:
+        print(line, flush=True)
     if ckpt_dir and last_saved != end:
         ckpt_path = save_collective(ckpt_dir, state, mesh, end)
     if export_dir and last_exported != end:

@@ -228,6 +228,13 @@ def _row(params: dict, model_state: dict) -> tuple[dict, dict]:
     return {n: p[0] for n, p in params.items()}, T.tree_map(lambda t: t[0], model_state)
 
 
+def on_device(batch: dict, device: torch.device) -> dict:
+    """``batch`` on ``device``: a leaf already there (the device feed's)
+    is taken as it is, with no copy; a host leaf is copied (a library
+    caller's batch, or ``--prefetch-depth 0``)."""
+    return {k: v if v.device == device else v.to(device) for k, v in batch.items()}
+
+
 def rank_batch(batch: dict, rank: int) -> dict:
     """Rank ``rank``'s share of a stacked ``(W, H, B, ...)`` round batch:
     row ``rank`` with a worker axis of one, what the collective step
@@ -388,9 +395,9 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
         device = next(iter(state.params.values())).device
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         if cfg.gossip.overlap:
-            return overlap_round(state, {k: v.to(device) for k, v in batch.items()}, world, h, device, sync)
+            return overlap_round(state, on_device(batch, device), world, h, device, sync)
         t0 = time.perf_counter()
-        batch = {k: v.to(device) for k, v in batch.items()}
+        batch = on_device(batch, device)
         per_worker, oks = [], []
         gone = [0.0] * world if frozen is None else [float(f) for f in torch.as_tensor(frozen).tolist()]
         with _span("train.inner_loop", h=cfg.h):
@@ -547,9 +554,9 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         device = mesh.device
         sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
         if cfg.gossip.overlap:
-            return overlap_round(state, {k: v.to(device) for k, v in batch.items()}, sync)
+            return overlap_round(state, on_device(batch, device), sync)
         t0 = time.perf_counter()
-        batch = {k: v.to(device) for k, v in batch.items()}
+        batch = on_device(batch, device)
         with _span("train.inner_loop", h=cfg.h):
             loss, ok = all_steps(state, batch, sync)
         alive = None if faults is None else draw_alive(state.fault_generators[0], faults.drop_prob) * ok

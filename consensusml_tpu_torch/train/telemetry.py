@@ -8,11 +8,15 @@ turns the span tracer and the history and alert plane on), gauges the
 engine's static wire facts, and around each round records the
 ``train.round`` span, :class:`~consensusml_tpu_torch.utils.profiling.
 RoundTimer`'s lap, the loop's counters, gauges and latency histogram,
-``round.feed`` and ``round.fence`` as completed spans, the fault counters
+``round.feed`` (the round's wait at the prefetcher) and ``round.fence``
+as completed spans, the fault counters
 (:func:`~consensusml_tpu_torch.consensus.faults.record_fault_metrics`) and,
 every ``--telemetry-every`` rounds, :meth:`Telemetry.tick`: the CHOCO
 residual, a registry snapshot, the history sample and alert evaluation,
-and the Prometheus file. ``--profile-dir`` traces rounds 2-3 with
+and the Prometheus file, which holds every registered family: the
+feed's ``consensusml_feed_*`` (``data/prefetch.py``) and, with
+``--native-loader``, the ring's ``consensusml_native_*``
+(``native/__init__.py``). ``--profile-dir`` traces rounds 2-3 with
 ``torch.profiler``. Nothing here reads a device value the loop does not
 already fetch, but the tick's CHOCO residual and link probes, as the
 reference's.
@@ -164,9 +168,11 @@ class Telemetry:
         return out
 
     def after_round(self, rnd: int, consensus_error: float | None = None, alive_frac: float | None = None,
-                    alive_mask=None, state=None) -> None:
+                    alive_mask=None, state=None, feed_s: float = 0.0) -> None:
         """The per-round feed, the reference's order; ``alive_mask``: the
-        round's participation vector on the host (fault runs only)."""
+        round's participation vector on the host (fault runs only);
+        ``feed_s``: the round's wait for its batch at the prefetcher (0
+        without one)."""
         reg, timer = self.registry, self.timer
         self.m_rounds.inc()
         self.m_wire_total.inc(self.wire)
@@ -174,8 +180,7 @@ class Telemetry:
         self.m_heartbeat.set(time.time())
         self.m_progress.set(rnd)
         if self.tracer.enabled:
-            # no prefetcher: the feed stall is 0, as the reference's without one
-            self.tracer.complete("round.feed", 0.0, round=rnd)
+            self.tracer.complete("round.feed", feed_s, round=rnd)
             self.tracer.complete("round.fence", self.fence_s, round=rnd)
         if consensus_error is not None:
             reg.gauge("consensusml_consensus_distance",

@@ -2460,3 +2460,54 @@ def test_link_probe_default_transfer_times_a_fenced_copy_on_the_card(dev):
     assert torch.cuda.current_stream(dev).query()
     assert sorted(lat_big.values())[4] > 2 * sorted(lat_small.values())[4]
     assert all(b.device == dev for b in big._bufs.values())
+
+
+# ---------------------------------------------------------------------------
+# the device feed (data/prefetch.py) and the native ring on the card
+# ---------------------------------------------------------------------------
+
+
+def test_feed_side_stream_copy_and_event(dev):
+    """Host batches staged through pinned memory on the side stream arrive
+    equal, the consumer's stream waits on their event (no host sync in
+    ``__next__``), and the copied bytes are counted."""
+    import numpy as np
+
+    from consensusml_tpu_torch.data.prefetch import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [{"image": rng.integers(0, 255, (8, 1, 64, 32, 32, 3), dtype=np.uint8),
+             "label": rng.integers(0, 10, (8, 1, 64), dtype=np.int32)} for _ in range(6)]
+    feed = DevicePrefetcher(iter(host), 2, device=dev)
+    got = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for batch in feed:
+            assert all(t.device == dev for t in batch.values())
+            got.append({k: (v.float() * 2).sum() for k, v in batch.items()})  # consumed on the default stream
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, h in zip(got, host):
+        for k in h:
+            assert float(g[k]) == float((h[k].astype(np.float64) * 2).sum())
+    assert feed.batches_out == 6 and feed.h2d_bytes_total == sum(v.nbytes for h in host for v in h.values())
+
+
+def test_feed_ring_slots_byte_equal_after_release_and_refill(dev):
+    """The ring's zero-copy slots through the feed onto the card, over more
+    rounds than slots (every slot released and refilled while later
+    batches are in flight), byte-equal to a second loader's copies."""
+    import time
+
+    from consensusml_tpu_torch.data import SyntheticClassification, native_cls_feed, native_round_batches
+
+    ds = SyntheticClassification(n=256, image_shape=(32, 32, 3), noise=0.25)
+    want = list(native_round_batches(ds, 8, 1, 128, 10, seed=4, wire="u8"))
+    feed = native_cls_feed(ds, 8, 1, 128, 10, seed=4, wire="u8", prefetch=2, depth=3, device=dev)
+    for w in want:
+        batch = next(feed)
+        time.sleep(0.01)  # let the producers refill the released slots
+        for k in w:
+            assert torch.equal(batch[k].cpu(), w[k]), k
+    assert feed.last_h2d_bytes == 8 * 128 * (32 * 32 * 3 + 4)
+    feed.close()

@@ -84,3 +84,20 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
 def test_auto_tier_on_cpu_is_the_plain_version():
     assert resolve_attention_impl("auto", "cpu") == "torch"
     assert resolve_attention_impl("auto", torch.device("cpu")) == "torch"
+
+
+def test_feed_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """The device feed and the ring's feed stage on the card unless given
+    ``device="cpu"``; without one they raise, as the trainer does."""
+    from consensusml_tpu_torch.data import DevicePrefetcher, SyntheticClassification, native_cls_feed
+    from consensusml_tpu_torch.train.__main__ import main as train_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePrefetcher(iter([]), 2)
+    ds = SyntheticClassification(n=16, image_shape=(2, 2, 1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        native_cls_feed(ds, 2, 1, 2, 1)
+    DevicePrefetcher(iter([]), 2, place=False).close()  # nothing placed: no device
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--config", "cifar_resnet50", "--rounds", "1", "--native-loader"])

@@ -168,12 +168,11 @@ def test_cli_sinks_parse(cli):
                    "consensusml_consensus_distance gauge", "consensusml_rounds_total counter"):
         assert f"# TYPE {family}" in text
     # every family the reference's run registered, the port's run exports,
-    # but the planes the port has not taken yet (consensus health) and the
-    # reference's prefetcher (the port has none)
+    # but the planes the port has not taken yet (consensus health)
     rb, ra, _ = runs["ref"]
     added = {Q.parse_metric_key(k)[0] for k in ra if k not in rb}
     exported = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE")}
-    assert added and not {f for f in added - exported if "health" not in f and "feed" not in f}
+    assert added and not {f for f in added - exported if "health" not in f}
 
 
 # ---------------------------------------------------------------------------

@@ -310,8 +310,8 @@ round within tolerance.
 24. The trainer's sinks (``train/telemetry.py``, as the train CLI arms
     them with ``--trace-events``, ``--metrics-prom``, ``--metrics-port 0``
     and ``--flight-recorder``): ``train_resnet_faults``' counted rounds
-    (on, off, on) and four more ``train_topk`` rounds after its profiled
-    one (off, on, off, on). Gates: the Chrome trace parses, round 0's spans
+    (on, off, on) and two more ``train_topk`` rounds after its profiled
+    one (off, on). Gates: the Chrome trace parses, round 0's spans
     nested as the reference nests them (``ROUND0_SPANS``); the Prometheus
     file's fault counters equal the alive masks the phase reads; the
     flight recorder's dump holds the span ring; ``/metrics`` answers
@@ -359,6 +359,24 @@ round within tolerance.
     (and the world) within 1e-5 every round, finite losses and alive
     consensus errors, 53 x world launches of each BN kernel a round, the
     membership timeline's four events in ``obs_report D``.
+29. ``train_resnet_feed`` (after ``train_resnet_churn``): the input
+    pipeline. The ring's u8 slots of ``cifar_resnet50`` full through the
+    device prefetcher onto the card for 3 rounds, each ``__next__`` under
+    ``torch.cuda.set_sync_debug_mode("error")``, held byte for byte to a
+    second loader's ``next()`` copies, the H2D bytes a round against the
+    f32 wire's (the images a quarter). Then the train CLI, ``cifar_resnet50
+    full --norm-impl pallas --native-loader --rounds 3`` at
+    ``--prefetch-depth 2`` and 0, cuDNN deterministic. Gates: the two runs'
+    losses and consensus errors bit-equal and finite, 53 x 8 x 3 launches
+    of each BN kernel a run and none of another,
+    ``consensusml_feed_batches_total`` moved by 3 at depth 2 and by 0 at 0.
+    Reports each round's feed stall (its ``round.feed`` span) and round ms
+    at both depths.
+
+The ``check`` line's ``feed_lm`` stages ``gpt2_topk`` full's round
+batches (4 workers x h 2 x 8 x 1024 tokens) from the native LM ring
+through the prefetcher, 3 rounds, with ``train_resnet_feed``'s byte,
+sync and H2D gates; it trains nothing.
 
 The ``check`` line's ``paged_attention_window`` holds the paged kernel's
 window form (W > 8, tiles of 8 rows on a further grid axis, one launch a
@@ -2468,7 +2486,9 @@ PLANS = {
     "int8": (123, 715_190_448), "int4": (50, 360_367_280), "fp8": (123, 715_190_448),
 }
 FUSED_CODECS = ("int8", "int4", "fp8")  # the per-chunk quantizers: the fused one-pass wire
-TELEMETRY_AB_ROUNDS = 4  # train_topk's rounds after its profiled one: telemetry off, on, off, on
+# train_topk's rounds after its profiled one: telemetry off, on (4 until
+# train_resnet_feed joined the script's time)
+TELEMETRY_AB_ROUNDS = 2
 TRAIN_PHASES = {"int8": "train", None: "train_topk", "topk_int4": "train_topk_int4_ln",
                 "int4": "train_int4", "fp8": "train_fp8"}
 
@@ -4948,6 +4968,165 @@ def train_resnet_churn_phase(torch, dev, tmp: str):
     return line, launches
 
 
+FEED_ROUNDS = 3
+FEED_DEPTHS = (2, 0)  # train_resnet_feed's --prefetch-depth runs: the default, then none
+FEED_SEED = 0
+
+
+def feed_ring_check(torch, dev, feed, want: list, f32_feed=None) -> dict:
+    """A feed's batches on the card held to a second loader's ``next()``
+    copies of the same stream (``want``, host tensors), byte for byte.
+    Each ``__next__`` runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (a host sync there raises), the comparisons outside it. With
+    ``f32_feed`` (the same stream on the f32 wire) its first batch's copied
+    bytes stand beside the u8 wire's: the images a quarter."""
+    torch.cuda.synchronize()
+    mismatched, next_ms, h2d = [], [], []
+    for r, w in enumerate(want):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            batch = next(feed)
+            next_ms.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        h2d.append(feed.last_h2d_bytes)
+        for k, v in w.items():
+            got = batch[k]
+            if got.device != dev or not torch.equal(got.cpu(), v):
+                mismatched.append((r, k))
+    feed.close()
+    out = {"rounds": len(want), "mismatched": mismatched, "next_ms": next_ms, "h2d_bytes_per_round": h2d,
+           "host_syncs_in_next": 0, "stall_s": feed.stall_seconds_total}
+    problems = [f"batches differ from the second loader's copies at {mismatched}"] if mismatched else []
+    wire_bytes = {k: int(v.numel() * v.element_size()) for k, v in want[0].items()}
+    if h2d != [sum(wire_bytes.values())] * len(want):
+        problems.append(f"H2D bytes {h2d} are not the batches' {wire_bytes}")
+    if f32_feed is not None:
+        next(f32_feed)
+        f32_bytes = f32_feed.last_h2d_bytes
+        f32_feed.close()
+        other = sum(n for k, n in wire_bytes.items() if k != "image")
+        out.update(f32_h2d_bytes_per_round=f32_bytes, image_bytes_u8=wire_bytes["image"],
+                   image_bytes_f32=f32_bytes - other, u8_over_f32=h2d[0] / f32_bytes)
+        if 4 * wire_bytes["image"] != f32_bytes - other:
+            problems.append(f"u8 image bytes {wire_bytes['image']} are not a quarter of f32's {f32_bytes - other}")
+    out["problems"] = problems
+    return out
+
+
+def check_feed_lm(torch, dev) -> dict:
+    """``check.feed_lm``: ``gpt2_topk`` full's round batches (4 workers x h
+    2 x 8 x 1024 tokens) from the native LM ring through the device
+    prefetcher at depth 2, held to a second loader's copies with
+    :func:`feed_ring_check`. Trains nothing."""
+    from consensusml_tpu_torch import configs
+    from consensusml_tpu_torch.data import DevicePrefetcher
+
+    bundle = configs.build("gpt2_topk", "full", world=4, device=dev)
+    want = list(bundle.native_batches(FEED_ROUNDS, FEED_SEED, 0))
+    t0 = time.perf_counter()
+    feed = DevicePrefetcher(bundle.native_batches(FEED_ROUNDS, FEED_SEED, 0), 2, device=dev)
+    out = feed_ring_check(torch, dev, feed, want)
+    out.update(seconds=time.perf_counter() - t0, shape=list(want[0]["input_ids"].shape), depth=2)
+    if out["problems"]:
+        raise AssertionError("check.feed_lm: " + "; ".join(out["problems"]))
+    return out
+
+
+def feed_stalls(trace: str) -> list:
+    """Each round's wait for its batch: the ``round.feed`` spans' seconds."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["args"]["round"], e["dur"] / 1e6) for e in events if e.get("name") == "round.feed")
+    return [s for _r, s in spans]
+
+
+def train_resnet_feed_phase(torch, dev, tmp: str, scale: str = "full"):
+    """``train_resnet_feed``: ``cifar_resnet50`` full (ResNet-50, 8 workers)
+    through the train CLI (``main`` as ``python -m consensusml_tpu_torch.train``
+    runs it) with ``--native-loader`` (the u8 wire, the config's default),
+    ``--norm-impl pallas``, 3 rounds, at ``--prefetch-depth 2`` and 0, cuDNN
+    held to its deterministic algorithms. First the ring's u8 slots through
+    the prefetcher onto the card, 3 rounds, held by :func:`feed_ring_check`
+    to a second loader's copies (and the f32 wire's bytes beside). Gates:
+    the two runs' losses and consensus errors bit-equal, finite; 53 x 8 x 3
+    launches of each BN kernel a run and none of another;
+    ``consensusml_feed_batches_total`` moved by the rounds at depth 2 and
+    not at 0. Reports each round's feed stall (the ``round.feed`` spans)
+    and round ms at both depths."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.data import DevicePrefetcher
+    from consensusml_tpu_torch.obs import get_registry, get_tracer
+    from consensusml_tpu_torch.train.feed import apply_native_wire
+
+    bundle = configs.build("cifar_resnet50", scale, norm_impl="pallas", device=dev)
+    apply_native_wire(bundle, True, None)  # the CLI's default on an image config: u8
+    src = bundle.native_batches
+    want = list(src(FEED_ROUNDS, FEED_SEED, 0))
+    raw = configs.build("cifar_resnet50", scale, norm_impl="pallas", device=dev).native_batches
+    ring = feed_ring_check(
+        torch, dev, DevicePrefetcher(src(FEED_ROUNDS, FEED_SEED, 0, views=True, prefetch=2), 2, device=dev), want,
+        f32_feed=DevicePrefetcher(raw(1, FEED_SEED, 0, wire="f32", views=True, prefetch=2), 2, device=dev))
+    del want
+    registry, tracer = get_registry(), get_tracer()
+    counter = registry.counter("consensusml_feed_batches_total", "round batches delivered by the device prefetcher")
+    runs, launches = {}, {}
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for depth in FEED_DEPTHS:
+            metrics, trace = os.path.join(tmp, f"feed-{depth}.jsonl"), os.path.join(tmp, f"feed-{depth}.json")
+            argv = ["--config", "cifar_resnet50", "--scale", scale, "--norm-impl", "pallas", "--device", dev.type,
+                    "--native-loader", "--rounds", str(FEED_ROUNDS), "--seed", str(FEED_SEED),
+                    "--prefetch-depth", str(depth), "--metrics-out", metrics, "--trace-events", trace]
+            gc.collect()
+            torch.cuda.empty_cache()
+            tracer.clear()
+            before = counter.value
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = run_train_cli(argv)
+            seconds = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = dict(kernels.launch_counts())
+            rows = read_jsonl(metrics)
+            runs[depth] = {
+                "seconds": seconds, "launches": counts,
+                "rounds": [{k: r[k] for k in ("round", "loss", "consensus_error", "round_ms", "imgs_per_s")}
+                           for r in rows],
+                "feed_stall_s": feed_stalls(trace), "feed_batches": counter.value - before,
+                "printed": [x for x in out.splitlines() if x.startswith(("native wire", "feed:", "BN:"))]}
+            launches = add_counts(launches, counts)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+    problems = list(ring["problems"])
+    expect = {n: RESNET50_BN_LAYERS * 8 * FEED_ROUNDS if n in BN_KERNELS else 0 for n in kernels.KERNELS}
+    for depth, run in runs.items():
+        if run["launches"] != expect:
+            problems.append(f"depth {depth}: launches {run['launches']} differ from {expect}")
+        if len(run["rounds"]) != FEED_ROUNDS or not all(
+                np.isfinite(r["loss"]) and np.isfinite(r["consensus_error"]) for r in run["rounds"]):
+            problems.append(f"depth {depth}: rounds {run['rounds']}")
+        if run["feed_batches"] != (FEED_ROUNDS if depth > 0 else 0):
+            problems.append(f"depth {depth}: consensusml_feed_batches_total moved by {run['feed_batches']}")
+        if not any(x.startswith("native wire: u8") for x in run["printed"]):
+            problems.append(f"depth {depth}: no u8 wire line in {run['printed']}")
+    curve = {d: [(r["loss"], r["consensus_error"]) for r in run["rounds"]] for d, run in runs.items()}
+    if curve[FEED_DEPTHS[0]] != curve[FEED_DEPTHS[1]]:
+        problems.append(f"the depths' rounds differ: {curve}")
+    if problems:
+        raise AssertionError("train_resnet_feed: " + "; ".join(problems))
+    line = {"phase": "train_resnet_feed",
+            "config": f"cifar_resnet50 full (ResNet-50, CIFAR stem) --norm-impl pallas --native-loader (u8 wire) "
+                      f"--rounds {FEED_ROUNDS}, --prefetch-depth {FEED_DEPTHS[0]} then {FEED_DEPTHS[1]}",
+            "ring_check": ring, "cudnn_deterministic": True,
+            "runs": {f"prefetch_depth_{d}": run for d, run in runs.items()},
+            "round_ms": {f"prefetch_depth_{d}": [r["round_ms"] for r in run["rounds"]] for d, run in runs.items()},
+            "bit_equal_rounds": True}
+    return line, launches
+
+
 def clipped_adam_check(torch, dev, bundle, state, batch):
     """One clipped Adam update of worker 0 (its parameters, moments and
     step count, its first micro-batch, dropout from a generator seeded 11)
@@ -5398,7 +5577,8 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
     out = []
     runs = (
         ("cifar_resnet50", 8, [("train_resnet_collective",
-                                {**collective_spec("cifar_resnet50", "full", 8, 3, norm_impl="pallas"),
+                                # 2 rounds (3 until train_resnet_feed joined the script's time)
+                                {**collective_spec("cifar_resnet50", "full", 8, 2, norm_impl="pallas"),
                                  "obs_cluster_dir": obs_dir, "link_probes": True, "telemetry_every": 1},
                                 "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo "
                                 "--link-probes --obs-cluster-dir D --telemetry-every 1",
@@ -6078,6 +6258,7 @@ def main() -> int:
     d128 = check_flash_d128(torch, tfa, dev)
     paged_llama = check_paged_llama(torch, tpa, dev)
     paged_window = check_paged_window(torch, tpa, dev)
+    feed_lm = check_feed_lm(torch, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "paged_attention_llama": paged_llama, "paged_attention_window": paged_window,
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
@@ -6089,7 +6270,7 @@ def main() -> int:
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
           "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals,
           "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600},
-          "flash_d128": d128})
+          "flash_d128": d128, "feed_lm": feed_lm})
     torch.cuda.empty_cache()
     b = bwd[1024]
     # the masked form (BERT's encoder, non-causal) beside each flash kernel's readings
@@ -6320,6 +6501,15 @@ def main() -> int:
     emit(line)
     for name, n in counts.items():
         launches[name]["train_resnet_churn"] = n
+    # the input pipeline: the native ring's u8 slots through the device feed, at depth 2 and 0
+    feed_tmp = tempfile.mkdtemp(prefix="cml-feed-")
+    try:
+        line, counts = train_resnet_feed_phase(torch, dev, feed_tmp)
+    finally:
+        shutil.rmtree(feed_tmp, ignore_errors=True)
+    emit(line)
+    for name, n in counts.items():
+        launches[name]["train_resnet_feed"] = n
     del init
     gc.collect()
     torch.cuda.empty_cache()
@@ -6335,10 +6525,11 @@ def main() -> int:
         launches[name]["bert_long_padded"] = n
     for name, n in line["masked_launches"].items():
         forms.setdefault(name, {}).setdefault("masked", {})["bert_long_padded"] = n
-    # one counted round, no warm one, and two held-out batches (two counted
+    # one counted round, no warm one, and one held-out batch (two counted
     # rounds and eight batches until train_llama joined the script's time,
-    # a warm round until train_resnet_resume and train_topk_sched did)
-    line, counts = train_bert_phase(torch, dev, counted=1, eval_batches=2)
+    # a warm round until train_resnet_resume and train_topk_sched did, two
+    # batches until train_resnet_feed did)
+    line, counts = train_bert_phase(torch, dev, counted=1, eval_batches=1)
     emit(line)
     for name, n in counts.items():
         launches[name]["train_bert"] = n

@@ -264,7 +264,6 @@ class NativeLoader:
         self._lib = lib
         self._wire = wire
         self.qscale, self.qoff = float(qscale), float(qoff)
-        self.depth = depth
         self._shape_f = (samples_per_slot, sample_floats)
         self._shape_i = (samples_per_slot, sample_ints)
         fb = 1 if wire == "u8" else 4
@@ -327,10 +326,6 @@ class NativeLoader:
         if got != fb:
             raise RuntimeError(f"native loader wire mismatch: library reports float_bytes={got}, wrapper "
                                f"expected {fb} — rebuild {BUILD_DIR}")
-
-    @property
-    def wire(self) -> str:
-        return self._wire
 
     def _handle(self):
         with self._lock:

@@ -55,6 +55,14 @@ writes the consensus mean as a serving artifact at the end and at every
 ``--checkpoint-every`` boundary (``serve/export.py``; each export bumps its
 generation, which an engine watching ``DIR`` flips to).
 
+The input pipeline (``train/feed.py``): every round's batch goes through
+the overlapped device feed (``data/prefetch.py``; ``--prefetch-depth N``
+batches staged ahead, 2 by default, 0 for none; the run ends with a
+``feed:`` line); ``--native-loader`` makes the batches with the C++ ring
+(``native/``, ``data/native_pipeline.py``), on the u8 wire for the image
+configs unless ``--native-wire f32`` is given (the step dequants on the
+device).
+
 Telemetry (the reference's flags and families, ``train/telemetry.py``):
 ``--trace-events PATH`` writes the span ring as Chrome trace-event JSON at
 exit, ``--metrics-prom PATH`` the registry as a Prometheus textfile every
@@ -114,6 +122,8 @@ whenever the membership is asymmetric::
     python -m consensusml_tpu_torch.train --config mnist_mlp --device cpu --rounds 6 \
         --churn-schedule "join@1:2;drop@2:3;straggle@3:5x2;rejoin@4:3" --obs-cluster-dir OBS
     python -m consensusml_tpu_torch.tools.obs_report OBS
+    python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas --native-loader \
+        [--prefetch-depth 0] [--native-wire f32]
 
 Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
 simulated backend draws and uploads the initial parameters a worker at a

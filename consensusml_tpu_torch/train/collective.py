@@ -5,7 +5,10 @@ the ranks only load them), spawns the ranks through
 :func:`consensusml_tpu_torch.comm.launch.launch` and returns their
 summaries. Each rank (:func:`train_rank`) draws its own worker's initial
 parameters (the simulated backend's row ``rank``), takes its row of each
-stacked round batch, and steps with
+stacked round batch through its own device feed onto its card
+(:func:`~consensusml_tpu_torch.train.feed.round_feed`: the counterpart of
+the reference's per-process host batches, ``place=False``, which its
+global arrays then shard), and steps with
 :func:`~consensusml_tpu_torch.train.local_sgd.make_collective_train_step`.
 Rank 0 prints one line a logged round: the all-reduced loss and
 consensus error, then every rank's round, staging and wire milliseconds

@@ -131,14 +131,14 @@ worker a process of its own on the one card, the wire between them staged
 through pinned host memory (so these round times are not a multi-card
 run's: the ranks' kernels are time-sliced on the card and their bytes
 cross host memory). Each phase's ranks train through the train CLI's
-rank function (one warm round, then one counted round for GPT-2 and two for
-ResNet-50 (one for its resumed run), launch counts zeroed
-before and read after each), then run one gossip round from seeded
+rank function (one warm round, then one counted round, launch counts
+zeroed before and read after each), then run one gossip round from seeded
 per-worker inputs, which this process holds against the simulated round
 on the same stacked inputs (``COLLECTIVE_RTOL``; ``xhat'`` bit-equal):
 
 - ``train_resnet_collective``: ``cifar_resnet50`` full ``--norm-impl
-  pallas``, 8 ranks on a ring (no cut), exact bucketed gossip of the
+  pallas``, 8 ranks on a ring, 2 rounds (cut from 3 to pay for
+  ``train_resnet_feed``), exact bucketed gossip of the
   weights and BN statistics (23 buckets): ``bn_stats``, ``bn_norm``,
   ``bn_bwd`` 53 times a rank a round;
 - ``train_resnet_collective_resume`` (the same spawn): ``train_resnet_resume``'s

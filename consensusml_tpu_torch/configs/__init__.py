@@ -117,6 +117,7 @@ next-token nll for GPT-2) and ``eval_batches(n, seed)``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Any, Callable
 
@@ -127,7 +128,7 @@ from consensusml_tpu_torch.device import resolve_device
 from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
 
 __all__ = [
-    "CONFIGS", "RunBundle", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
+    "CONFIGS", "RunBundle", "NativeSource", "build", "gpt2_config", "bert_config", "build_model", "gpt2_init_params",
     "resnet_model", "topology_from_spec", "with_topology", "with_gossip_flags", "with_train_flags", "FlagError",
     "worker_inits", "init_on_device", "llama_config", "frozen_on_device", "LLAMA_MICRO_BATCH",
 ]
@@ -241,12 +242,8 @@ class RunBundle:
     optimizer_factory: Callable | None = None
     base_lr: float | None = None
     data_source: str = "synthetic"  # the data's origin: "synthetic" or a file reader's source
-    # the native ring's source (--native-loader): the same (rounds, seed,
-    # start=0) contract, batches made by the C++ prefetch ring. An image
-    # source also takes wire= ("f32"/"u8"), views= and prefetch= and
-    # carries supports_wire, supports_views, qscale and qoff, set only by
-    # _native_cls_batches
-    native_batches: Callable | None = None
+    # the native ring's source (--native-loader), a NativeSource
+    native_batches: NativeSource | None = None
 
     def init_params(self, seed: int, ranks=None):
         """The stacked ``(W, ...)`` numpy initial variables in flax layout,
@@ -503,8 +500,51 @@ def _lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0):
     return lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, start=start, mlm_rate=mlm_rate)
 
 
-def _native_cls_batches(data, world: int, h: int, batch: int):
-    """The native ring's closure for classification data, either source
+@dataclasses.dataclass(frozen=True)
+class NativeSource:
+    """A config's native ring (``--native-loader``), called as the bundle's
+    ``batches`` are: ``(rounds, seed, start=0)``. An image source carries
+    its u8 wire's affine (``qscale``, ``qoff``), ships ``wire`` ("f32", or
+    "u8": ``clip((x + qoff) * qscale)`` bytes, which the config's loss
+    dequants on the device, :func:`_dequanting`) and also takes ``wire=``,
+    ``views=`` (the zero-copy slot views the device prefetcher consumes)
+    and ``prefetch=``; an LM source has no affine and takes none of them."""
+
+    make: Callable
+    qscale: float | None = None
+    qoff: float | None = None
+    wire: str = "f32"
+
+    @property
+    def supports_wire(self) -> bool:
+        return self.qscale is not None
+
+    supports_views = supports_wire  # the slot views: image sources
+
+    def __call__(self, rounds: int, seed: int, start: int = 0, **kw):
+        if self.supports_wire:
+            kw.setdefault("wire", self.wire)
+        return self.make(rounds, seed, start, **kw)
+
+
+def _dequanting(loss_fn: Callable, source: NativeSource) -> Callable:
+    """``loss_fn`` for an image config: a u8 ``image`` (the ring's u8 wire)
+    is dequanted on its device first, inside the step, as the reference's
+    step does; an f32 one passes through."""
+    from consensusml_tpu_torch.data.native_pipeline import dequant_u8
+
+    @functools.wraps(loss_fn)
+    def loss(params, model_state, batch, generator):
+        img = batch.get("image")
+        if img is not None and img.dtype == torch.uint8:
+            batch = dict(batch, image=dequant_u8(img, source.qscale, source.qoff))
+        return loss_fn(params, model_state, batch, generator)
+
+    return loss
+
+
+def _native_cls_batches(data, world: int, h: int, batch: int) -> NativeSource:
+    """The native ring's source for classification data, either source
     (the reference's ``_native_cls_batches``). File images are stored as
     raw / 255, so their u8 wire (qscale 255, qoff 0) re-ships the file's
     own bytes; the procedural set uses its (32, 4) affine. ``views=True``
@@ -531,19 +571,17 @@ def _native_cls_batches(data, world: int, h: int, batch: int):
         return fn(data, world, h, batch, rounds, seed, start=start, depth=depth, nthreads=nthreads, wire=wire,
                   qscale=qp[0], qoff=qp[1], views=views)
 
-    make.supports_wire = True  # --native-wire gates on this
-    make.supports_views = True  # the overlapped feed's zero-copy path gates on this
-    make.qscale, make.qoff = qp
-    return make
+    return NativeSource(make, *qp)
 
 
-def _native_lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0):
-    """The native ring's closure for LM data, either source."""
+def _native_lm_batches(data, world: int, h: int, batch: int, mlm_rate: float = 0.0) -> NativeSource:
+    """The native ring's source for LM data, either source."""
     from consensusml_tpu_torch.data.files import TokenFileDataset
     from consensusml_tpu_torch.data.native_pipeline import native_file_token_batches, native_lm_round_batches
 
     fn = native_file_token_batches if isinstance(data, TokenFileDataset) else native_lm_round_batches
-    return lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, mlm_rate=mlm_rate, start=start)
+    return NativeSource(
+        lambda rounds, seed, start=0: fn(data, world, h, batch, rounds, seed, mlm_rate=mlm_rate, start=start))
 
 
 def _source(data) -> str:
@@ -572,14 +610,15 @@ def _mnist_mlp(scale: str, world: int | None, data_dir: str | None = None) -> Ru
         data = load_mnist(data_dir)
     data = data or SyntheticClassification(n=8192 if full else 2048, image_shape=(28, 28, 1))
     batch = 64
+    native = _native_cls_batches(data, world, cfg.h, batch)
     return RunBundle(
         name="mnist_mlp",
         world_size=world,
         cfg=cfg,
         model=model,
-        loss_fn=mlp_loss_fn(model),
+        loss_fn=_dequanting(mlp_loss_fn(model), native),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        native_batches=_native_cls_batches(data, world, cfg.h, batch),
+        native_batches=native,
         draw_init=lambda seed, ranks: mlp_init_params(model, seed, world, ranks),
         convert=mlp_from_flax,
         codec_path="none (exact gossip)",
@@ -722,14 +761,15 @@ def _cifar_resnet50(scale: str, world: int | None, norm_impl: str, dev: torch.de
         norm_path = f"fused BN, plain PyTorch versions (norm_impl={norm_impl!r}, no kernels)"
     else:
         norm_path = f"fused BN, hand-written CUDA kernels (norm_impl={norm_impl!r})"
+    native = _native_cls_batches(data, world, cfg.h, batch)
     return RunBundle(
         name="cifar_resnet50",
         world_size=world,
         cfg=cfg,
         model=model,
-        loss_fn=resnet_loss_fn(model),
+        loss_fn=_dequanting(resnet_loss_fn(model), native),
         batches=lambda rounds, seed, start=0: round_batches(data, world, cfg.h, batch, rounds, seed, start=start),
-        native_batches=_native_cls_batches(data, world, cfg.h, batch),
+        native_batches=native,
         draw_init=lambda seed, ranks: resnet_init_params(model, seed, world, ranks),
         convert=resnet_from_flax,
         codec_path="none (exact gossip)",

@@ -34,6 +34,7 @@ import torch
 from consensusml_tpu_torch.data.synthetic import SyntheticClassification, SyntheticLM, mlm_corrupt
 
 __all__ = [
+    "dequant_u8",
     "native_round_batches",
     "native_lm_round_batches",
     "native_file_round_batches",
@@ -41,6 +42,16 @@ __all__ = [
     "native_cls_feed",
     "plan_ring",
 ]
+
+
+def dequant_u8(img: torch.Tensor, qscale: float, qoff: float) -> torch.Tensor:
+    """The u8 wire's bytes back to f32, ``u8 / qscale - qoff``, on
+    ``img``'s device, as the reference's compiled step computes it: XLA
+    turns the division by a constant into a product by its f32 reciprocal,
+    so this multiplies by ``f32(1) / f32(qscale)`` (for qscale 255 a plain
+    division differs in the last bit on some codes)."""
+    recip = float(np.float32(1.0) / np.float32(qscale))
+    return img.to(torch.float32) * recip - qoff
 
 
 def plan_ring(samples_per_slot: int, sample_wire_bytes: int, prefetch: int = 2,
@@ -109,7 +120,7 @@ def native_round_batches(dataset: SyntheticClassification, world_size: int, h: i
     yield from _cls_stream(loader, rounds, world_size, h, batch, dataset.image_shape, depth, views)
 
 
-def _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate, mask_token):
+def _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate):
     with loader:
         for r in range(start, start + rounds):
             _, ints = loader.next()
@@ -117,11 +128,11 @@ def _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_r
             if mlm_rate <= 0:
                 yield {"input_ids": torch.from_numpy(ids)}
             else:
-                yield mlm_corrupt(ids, dataset, seed, r, mlm_rate, mask_token)
+                yield mlm_corrupt(ids, dataset, seed, r, mlm_rate)
 
 
 def native_lm_round_batches(dataset: SyntheticLM, world_size: int, h: int, batch: int, rounds: int, seed: int = 0,
-                            mlm_rate: float = 0.0, mask_token: int | None = None, depth: int = 4,
+                            mlm_rate: float = 0.0, depth: int = 4,
                             nthreads: int = 2, start: int = 0):
     """Stacked ``{"input_ids": (W, H, B, S)}`` Markov-chain batches from the
     ring; ``mlm_rate > 0`` yields :func:`~consensusml_tpu_torch.data.
@@ -133,7 +144,7 @@ def native_lm_round_batches(dataset: SyntheticLM, world_size: int, h: int, batch
         nclasses_or_vocab=dataset.vocab_size, successors=dataset.successors, depth=depth, nthreads=nthreads,
         seed=seed, start_seq=start,
     )
-    yield from _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate, mask_token)
+    yield from _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate)
 
 
 def native_file_round_batches(dataset, world_size: int, h: int, batch: int, rounds: int, seed: int = 0,
@@ -156,7 +167,7 @@ def native_file_round_batches(dataset, world_size: int, h: int, batch: int, roun
 
 def native_cls_feed(dataset, world_size: int, h: int, batch: int, rounds: int, *, seed: int = 0, start: int = 0,
                     wire: str = "u8", qscale: float = 32.0, qoff: float = 4.0, prefetch: int = 2,
-                    depth: int | None = None, nthreads: int | None = None, device=None, place: bool = True):
+                    depth: int | None = None, nthreads: int | None = None, device=None):
     """The overlapped classification feed end to end: slot views through a
     :class:`~consensusml_tpu_torch.data.prefetch.DevicePrefetcher` onto
     ``device`` (None: the card). ``depth``/``nthreads`` default to
@@ -173,11 +184,11 @@ def native_cls_feed(dataset, world_size: int, h: int, batch: int, rounds: int, *
     fn = native_file_round_batches if isinstance(dataset, FileClassification) else native_round_batches
     source = fn(dataset, world_size, h, batch, rounds, seed=seed, depth=depth, nthreads=nthreads, start=start,
                 wire=wire, qscale=qscale, qoff=qoff, views=prefetch > 0)
-    return prefetch_to_device(source, prefetch, device=device, place=place)
+    return prefetch_to_device(source, prefetch, device=device)
 
 
 def native_file_token_batches(dataset, world_size: int, h: int, batch: int, rounds: int, seed: int = 0,
-                              mlm_rate: float = 0.0, mask_token: int | None = None, depth: int = 4,
+                              mlm_rate: float = 0.0, depth: int = 4,
                               nthreads: int = 2, start: int = 0):
     """A token file's windows (``data.files.TokenFileDataset``) from the
     ring: each worker's windows start in its contiguous region; uint16
@@ -188,4 +199,4 @@ def native_file_token_batches(dataset, world_size: int, h: int, batch: int, roun
         kind="file_lm", samples_per_slot=world_size * h * batch, sample_floats=0, sample_ints=dataset.seq_len,
         world=world_size, tokens=dataset.tokens, depth=depth, nthreads=nthreads, seed=seed, start_seq=start,
     )
-    yield from _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate, mask_token)
+    yield from _lm_stream(loader, dataset, world_size, h, batch, rounds, seed, start, mlm_rate)

@@ -6,18 +6,23 @@ on a background thread and stages each on the device while the current
 round runs, so the consumer's ``__next__`` is a queue pop: no host work,
 no copy and no host sync between rounds.
 
-On a CUDA device each host leaf is copied into pinned host memory (the
-ring's slots and numpy's arrays are pageable), then to the card with a
-``non_blocking`` copy on a side stream, and an event is recorded after
-the batch's copies. The consumer's stream waits on that event in
-``__next__`` (no host wait) and every staged tensor is recorded on the
-consumer's stream, so the caching allocator never hands its memory out
-early. A :class:`FeedItem`'s ``on_done`` (the native ring's slot
-release) fires on the background thread once that event has completed:
-only then may the host bytes behind the batch be rewritten. The window of
-copies in flight is bounded (``max_inflight``, clamped to ``pool - 1`` for
-a source that rotates ``pool`` buffers), and the background thread waits
-on the oldest copy's event before it takes another item.
+On a CUDA device each host leaf goes to the card with a ``non_blocking``
+copy on a side stream, and an event is recorded after the batch's copies.
+A leaf of a :class:`FeedItem` with an ``on_done`` (a source's own buffer,
+untouched until ``on_done``) that lies in page-locked memory (the native
+ring's slots, which its loader registers with ``cudaHostRegister``) is
+copied in place; any other host leaf (numpy's arrays, the Python loaders'
+tensors) is first copied into a pinned buffer, since a copy from pageable
+memory would not overlap. The
+consumer's stream waits on the event in ``__next__`` (no host wait) and
+every staged tensor is recorded on the consumer's stream, so the caching
+allocator never hands its memory out early. A :class:`FeedItem`'s
+``on_done`` (the native ring's slot release) fires on the background
+thread once that event has completed: the copy reads the slot itself, so
+only then may the producers rewrite it. The window of copies in flight is
+``depth``, clamped to ``pool - 1`` for a source that rotates ``pool``
+buffers, and the background thread waits on the oldest copy's event
+before it takes another item.
 
 On the CPU numpy leaves are copied (a tensor made from an array aliases
 its memory, so a rotating buffer would rewrite a batch the consumer still
@@ -36,6 +41,7 @@ batches ready at the pop) and ``consensusml_feed_staged_bytes``.
 
 from __future__ import annotations
 
+import ctypes
 import queue
 import threading
 import time
@@ -93,25 +99,30 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
+def _host_tensor(x: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over ``x``'s own bytes, for a copy to the card. A
+    read-only view (a ring slot's) is aliased through its address, as
+    ``torch.from_numpy`` would warn on it; its owner keeps it alive until
+    the copy has completed."""
+    if x.flags.writeable or not x.flags.c_contiguous or x.nbytes == 0:
+        return torch.from_numpy(np.ascontiguousarray(x))
+    buf = (ctypes.c_char * x.nbytes).from_address(x.ctypes.data)
+    return torch.frombuffer(buf, dtype=torch.uint8).view(_torch_dtype(x.dtype)).view(x.shape)
+
+
 class DevicePrefetcher:
     """Stage the next round batches on ``device`` while the current round
     runs (``depth`` of them ready ahead of the consumer; 2 = double
-    buffering). ``device=None`` is the card; ``place=False`` stages
-    nothing and only overlaps the source's host work. Iterate it; it
-    closes itself at the end of the source, and ``close()`` is idempotent
-    for early exits."""
+    buffering). ``device=None`` is the card. Iterate it; it closes itself
+    at the end of the source, and ``close()`` is idempotent for early
+    exits."""
 
-    def __init__(self, source: Iterable[Any], depth: int = 2, *, device=None, place: bool = True,
-                 max_inflight: int | None = None):
+    def __init__(self, source: Iterable[Any], depth: int = 2, *, device=None):
         from consensusml_tpu_torch.device import resolve_device
 
         self.depth = max(1, int(depth))
-        # copies in flight before the producer waits on the oldest (and
-        # fires its on_done); a FeedItem's pool clamps it further
-        self.max_inflight = self.depth if max_inflight is None else max(0, int(max_inflight))
-        self._place = place
-        self.device = resolve_device(device) if place else None
-        self._cuda = self.device is not None and self.device.type == "cuda"
+        self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(device=self.device) if self._cuda else None
         self._source = iter(source)
         self._queue: queue.Queue = queue.Queue(maxsize=self.depth)
@@ -132,30 +143,30 @@ class DevicePrefetcher:
 
     # -- producer side (background thread) --------------------------------
 
-    def _put_leaf(self, x: Any):
-        """``(staged leaf, host bytes copied to the card)``."""
+    def _put_leaf(self, x: Any, in_place: bool):
+        """``(staged leaf, host bytes copied to the card)``; ``in_place``: a
+        pooled source's buffer, copied from where it lies when that is
+        page-locked."""
         if isinstance(x, torch.Tensor) and x.device == self.device:
             return x, 0  # already placed: never a second copy
         if not self._cuda:
             if isinstance(x, np.ndarray):
                 return torch.from_numpy(x.copy()), 0
             return torch.as_tensor(x).to(self.device), 0
-        if isinstance(x, np.ndarray):
-            pinned = torch.empty(x.shape, dtype=_torch_dtype(x.dtype), pin_memory=True)
-            np.copyto(pinned.numpy(), x)
-        else:
-            x = torch.as_tensor(x)
-            pinned = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            pinned.copy_(x)
+        host = _host_tensor(x) if isinstance(x, np.ndarray) else torch.as_tensor(x)
+        # is_pinned() reads only the first byte's page: a source's own buffers
+        # lie whole inside one registration, arbitrary arrays may not
+        if not (in_place and host.is_pinned()):
+            pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            pinned.copy_(host)
+            host = pinned
         with torch.cuda.stream(self._stream):
-            return pinned.to(self.device, non_blocking=True), pinned.nbytes
+            return host.to(self.device, non_blocking=True), host.nbytes
 
-    def _stage(self, batch: Any):
+    def _stage(self, batch: Any, in_place: bool):
         """``(staged batch, its copies' event or None, host bytes copied)``."""
-        if not self._place:
-            return batch, None, 0
         leaves, spec = T.flatten(batch)
-        staged = [self._put_leaf(x) for x in leaves]
+        staged = [self._put_leaf(x, in_place) for x in leaves]
         event = None
         if self._cuda:
             event = torch.cuda.Event()
@@ -184,7 +195,7 @@ class DevicePrefetcher:
 
     def _run(self) -> None:
         pending: list = []  # (event, on_done), oldest first
-        window = self.max_inflight
+        window = self.depth  # copies in flight before the oldest is waited on and released
         try:
             for item in self._source:
                 if self._stop.is_set():
@@ -193,12 +204,10 @@ class DevicePrefetcher:
                     break
                 if not isinstance(item, FeedItem):
                     item = FeedItem(item)
-                if item.on_done is not None and not self._place:
-                    raise RuntimeError("FeedItem sources (zero-copy views) require device placement (place=True)")
                 if item.pool is not None:
                     # leave at least one buffer of the source's pool to its producers
                     window = min(window, max(0, item.pool - 1))
-                staged, event, nbytes = self._stage(item.batch)
+                staged, event, nbytes = self._stage(item.batch, item.on_done is not None)
                 pending.append((event, item.on_done))
                 while len(pending) > window:
                     self._drain_one(pending)
@@ -307,9 +316,9 @@ class DevicePrefetcher:
             pass
 
 
-def prefetch_to_device(source: Iterable[Any], depth: int = 2, *, device=None, place: bool = True) -> Iterable[Any]:
+def prefetch_to_device(source: Iterable[Any], depth: int = 2, *, device=None) -> Iterable[Any]:
     """``source`` wrapped in a :class:`DevicePrefetcher`; ``depth <= 0``
     returns it unchanged (no overlap: ``--prefetch-depth 0``)."""
     if depth <= 0:
         return source
-    return DevicePrefetcher(source, depth, device=device, place=place)
+    return DevicePrefetcher(source, depth, device=device)

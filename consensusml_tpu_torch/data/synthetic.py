@@ -144,18 +144,17 @@ class SyntheticLM:
 
 
 def mlm_corrupt(ids: np.ndarray, dataset: SyntheticLM, seed: int, r: int,
-                mlm_rate: float, mask_token: int | None = None) -> dict[str, torch.Tensor]:
+                mlm_rate: float) -> dict[str, torch.Tensor]:
     """BERT-style corruption of a round's token block, keyed ``(seed, r,
     10**6)`` as the reference's: each position is masked with probability
     ``mlm_rate`` (replaced by the dataset's reserved ``mask_token``,
-    ``vocab - 1``, unless ``mask_token`` is given). Returns ``input_ids`` (corrupted, int32),
+    ``vocab - 1``). Returns ``input_ids`` (corrupted, int32),
     ``labels`` (the original ids, int32) and ``mlm_mask`` (1.0 where
     masked, f32)."""
     rng = np.random.default_rng((seed, r, 10**6))
     mask = rng.random(ids.shape) < mlm_rate
     return {
-        "input_ids": torch.from_numpy(np.where(mask, dataset.mask_token if mask_token is None else mask_token,
-                                               ids).astype(np.int32)),
+        "input_ids": torch.from_numpy(np.where(mask, dataset.mask_token, ids).astype(np.int32)),
         "labels": torch.from_numpy(np.asarray(ids, np.int32)),
         "mlm_mask": torch.from_numpy(mask.astype(np.float32)),
     }

@@ -18,8 +18,12 @@ output; nothing falls back to Python.
 slot sequence number)`` whatever the thread count, depth or timing.
 :meth:`NativeLoader.next` copies a slot out; :meth:`NativeLoader.
 acquire_view` / :meth:`NativeLoader.release_slot` hand out the slot's own
-memory, which the device prefetcher (``data/prefetch.py``) stages and
-releases once its copy to the card has completed.
+memory, which the device prefetcher (``data/prefetch.py``) copies to the
+card in place and releases once that copy has completed. The slots are
+pageable memory allocated by the C++ ring: in a process that holds a CUDA
+context, the first ``acquire_view`` page-locks every slot at once
+(``cudaHostRegister``), so a copy is a DMA from the slot itself, and
+``close()`` unlocks them before the ring frees them.
 
 Telemetry, the reference's families: ``consensusml_native_batches_total``,
 ``consensusml_native_reuse_hits_total``, ``consensusml_native_queue_depth``.
@@ -27,9 +31,11 @@ Telemetry, the reference's families: ``consensusml_native_batches_total``,
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
+import mmap
 import os
 import subprocess
 import threading
@@ -74,6 +80,8 @@ CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-pthread", "-sha
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _load_failed: str | None = None
+
+_CUDA_HOST_REGISTER_PORTABLE = 1
 
 _f32p = ctypes.POINTER(ctypes.c_float)
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -232,6 +240,19 @@ def topk_chunks(chunks, k: int) -> tuple[np.ndarray, np.ndarray]:
 _KINDS = {"classification": 0, "lm": 1, "file_classification": 2, "file_lm": 3}
 
 
+def page_runs(spans, page: int) -> list[tuple[int, int]]:
+    """The pages under byte ``spans`` (``(address, nbytes)``, nbytes > 0)
+    as sorted, disjoint ``(first, last)`` page runs: spans that share a
+    page fall in one run, so every span lies inside a single run."""
+    runs: list[list[int]] = []
+    for first, last in sorted((a // page, (a + n - 1) // page) for a, n in spans):
+        if runs and first <= runs[-1][1]:
+            runs[-1][1] = max(runs[-1][1], last)
+        else:
+            runs.append([first, last])
+    return [(lo, hi) for lo, hi in runs]
+
+
 class NativeLoader:
     """The threaded prefetch ring (the reference's ``NativeLoader``, its
     arguments, errors and slot layout).
@@ -258,6 +279,9 @@ class NativeLoader:
         # first: __del__ -> close() must find the lock even when __init__ raises
         self._lock = threading.Lock()
         self._consumed = 0
+        self._depth = depth
+        self._held: collections.deque = collections.deque()  # slots acquired to lock, not yet handed out
+        self._locked_runs: list[int] | None = None  # cudaHostRegister'd addresses once decided, unlocked by close()
         lib = _lib_or_raise()
         if wire not in ("f32", "u8"):
             raise ValueError(f"unknown wire {wire!r}")
@@ -401,6 +425,21 @@ class NativeLoader:
         views of the slot's own memory, valid until :meth:`release_slot`
         of that index. Every acquired slot must be released, or the ring
         stalls once all ``depth`` slots are held."""
+        if self._locked_runs is None:
+            import torch
+
+            self._locked_runs = []
+            if torch.cuda.is_initialized():
+                # every slot, once: the ring hands each out in turn, and they go out in that order
+                self._held.extend(self._view_slot() for _ in range(self._depth))
+                self._page_lock([v for _idx, data, ints in self._held for v in (data, ints)])
+        idx, data, ints = self._held.popleft() if self._held else self._view_slot()
+        consumed = self._count_consumed()
+        _BATCHES.inc()
+        _QUEUE_DEPTH.set(max(0, self.produced() - consumed))
+        return idx, data, ints
+
+    def _view_slot(self) -> tuple[int, np.ndarray, np.ndarray]:
         _h, idx, data_p, iptr = self._acquire()
 
         def _view(ptr, shape, dt):
@@ -410,12 +449,25 @@ class NativeLoader:
             arr.flags.writeable = False
             return arr
 
-        data = _view(data_p, self._shape_f, self._wire_dtype())
-        ints = _view(iptr, self._shape_i, np.int32)
-        consumed = self._count_consumed()
-        _BATCHES.inc()
-        _QUEUE_DEPTH.set(max(0, self.produced() - consumed))
-        return idx, data, ints
+        return idx, _view(data_p, self._shape_f, self._wire_dtype()), _view(iptr, self._shape_i, np.int32)
+
+    def _page_lock(self, views: list) -> None:
+        """Page-lock the pages under ``views`` (every slot's buffers). A copy
+        from registered memory must lie inside one registration, and two
+        buffers may share a page, so overlapping page spans are merged and
+        each merged run is registered once."""
+        import torch
+
+        cudart = torch.cuda.cudart()
+        page = mmap.PAGESIZE
+        with self._lock:
+            if not self._h:
+                return  # closed: the ring's memory is gone
+            for lo, hi in page_runs([(v.ctypes.data, v.nbytes) for v in views if v.nbytes], page):
+                code = int(cudart.cudaHostRegister(lo * page, (hi - lo + 1) * page, _CUDA_HOST_REGISTER_PORTABLE))
+                if code != 0:
+                    raise torch.cuda.CudaError(code)
+                self._locked_runs.append(lo * page)
 
     def release_slot(self, idx: int) -> None:
         """Hand slot ``idx`` back to the producers; a no-op after
@@ -434,9 +486,20 @@ class NativeLoader:
         with self._lock:
             h = getattr(self, "_h", None)
             self._h = None
-        if h:
-            # outside the lock: destroy joins the producers and wakes consumers
-            self._lib.cml_loader_destroy(h)
+            runs, self._locked_runs = getattr(self, "_locked_runs", None) or [], []
+        try:
+            if runs:
+                import torch
+
+                # no copy reads a slot now: the prefetcher has released them all
+                for addr in runs:
+                    code = int(torch.cuda.cudart().cudaHostUnregister(addr))
+                    if code != 0:
+                        raise torch.cuda.CudaError(code)
+        finally:
+            if h:
+                # outside the lock: destroy joins the producers and wakes consumers
+                self._lib.cml_loader_destroy(h)
 
     def __enter__(self):
         return self

@@ -6,9 +6,9 @@
   without the ring, a config without a native path, a config without a
   u8 path, and a native library that cannot be built or loaded.
 - :func:`apply_native_wire`: resolves ``--native-wire`` (unset: u8 for an
-  image config with the ring, else f32). On u8 the bundle's loss dequants
-  ``image`` on the device, ``u8 / qscale - qoff`` as the reference's
-  jitted step computes it (:func:`dequant_u8`), and the ring ships u8.
+  image config with the ring, else f32) and sets the ring's wire. An image
+  config's loss dequants a u8 ``image`` on the device, inside the step
+  (``configs._dequanting``).
 - :func:`round_feed`: the round loop's batches: the ring's or the Python
   loader's, each rank's rows on the collective backend (``rank=``),
   through a :class:`~consensusml_tpu_torch.data.prefetch.DevicePrefetcher`
@@ -21,23 +21,19 @@
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
-import torch
+import dataclasses
 
 __all__ = ["feed_error", "apply_native_wire", "round_feed", "feed_text"]
 
 
 def feed_error(bundle, native_loader: bool, native_wire: str | None) -> str | None:
     """The reference's refusal of the feed flags, or None."""
-    wire_supported = bundle.native_batches is not None and getattr(bundle.native_batches, "supports_wire", False)
     if native_wire == "u8":
         if not native_loader:
             return "error: --native-wire u8 requires --native-loader"
         if bundle.native_batches is None:
             return f"error: config {bundle.name} has no native loader path"
-        if not wire_supported:
+        if not bundle.native_batches.supports_wire:
             return f"error: config {bundle.name} has no u8-wire native path (image workloads only)"
     if native_loader:
         from consensusml_tpu_torch import native
@@ -50,41 +46,17 @@ def feed_error(bundle, native_loader: bool, native_wire: str | None) -> str | No
     return None
 
 
-def dequant_u8(img: torch.Tensor, qscale: float, qoff: float) -> torch.Tensor:
-    """``u8 / qscale - qoff`` in f32, on ``img``'s device, as the
-    reference's compiled step computes it: XLA turns the division by a
-    constant into a product by its f32 reciprocal, so this multiplies by
-    ``f32(1) / f32(qscale)`` (for qscale 255 a plain division differs in
-    the last bit on some codes)."""
-    recip = float(np.float32(1.0) / np.float32(qscale))
-    return img.to(torch.float32) * recip - qoff
-
-
 def apply_native_wire(bundle, native_loader: bool, native_wire: str | None) -> tuple[str, str]:
-    """Resolve the wire and, on u8, bind it: the loss dequants on the
-    device and the ring ships u8. Returns ``(wire, why)``, the reference's
-    ``native wire:`` line's parts. Call after :func:`feed_error`."""
-    wire_supported = bundle.native_batches is not None and getattr(bundle.native_batches, "supports_wire", False)
+    """Resolve the wire and set it on the bundle's ring. Returns ``(wire,
+    why)``, the reference's ``native wire:`` line's parts. Call after
+    :func:`feed_error`."""
+    source = bundle.native_batches
+    wire_supported = source is not None and source.supports_wire
     wire = native_wire or ("u8" if native_loader and wire_supported else "f32")
     why = "explicit" if native_wire else (
         "auto: image config, --native-wire f32 overrides" if wire == "u8" else "auto: config has no u8 path")
-    if wire == "u8" and native_loader and wire_supported:
-        source = bundle.native_batches
-        qscale, qoff, base_loss = source.qscale, source.qoff, bundle.loss_fn
-
-        @functools.wraps(base_loss)
-        def loss_fn(params, model_state, batch, generator):
-            img = batch.get("image")
-            if img is not None and img.dtype == torch.uint8:
-                batch = dict(batch, image=dequant_u8(img, qscale, qoff))
-            return base_loss(params, model_state, batch, generator)
-
-        def u8_batches(rounds, seed, start=0, **kw):
-            return source(rounds, seed, start, wire="u8", **kw)
-
-        for attr in ("supports_wire", "supports_views", "qscale", "qoff"):
-            setattr(u8_batches, attr, getattr(source, attr))
-        bundle.loss_fn, bundle.native_batches = loss_fn, u8_batches
+    if native_loader and wire_supported:
+        bundle.native_batches = dataclasses.replace(source, wire=wire)
     return wire, why
 
 
@@ -95,8 +67,9 @@ def round_feed(bundle, spec: dict, rounds: int, start: int, device, rank: int | 
     from consensusml_tpu_torch.train.local_sgd import rank_batch
 
     depth = int(spec.get("prefetch_depth", 2))
-    batch_source = bundle.native_batches if spec.get("native_loader") else bundle.batches
-    if depth > 0 and rank is None and getattr(batch_source, "supports_views", False):
+    native = spec.get("native_loader")
+    batch_source = bundle.native_batches if native else bundle.batches
+    if depth > 0 and rank is None and native and batch_source.supports_views:
         # the prefetch window sizes the ring too: each copy in flight pins a slot
         source = batch_source(rounds, spec["seed"], start, views=True, prefetch=depth)
     else:

@@ -2511,3 +2511,37 @@ def test_feed_ring_slots_byte_equal_after_release_and_refill(dev):
             assert torch.equal(batch[k].cpu(), w[k]), k
     assert feed.last_h2d_bytes == 8 * 128 * (32 * 32 * 3 + 4)
     feed.close()
+
+
+def test_feed_ring_slots_are_page_locked_in_place(dev):
+    """In a process with a CUDA context, the first zero-copy hand-out
+    page-locks every slot (``cudaHostRegister``, overlapping page spans
+    merged), so a ``non_blocking`` copy from each slot view, the
+    prefetcher's, lands byte-equal; ``close()`` unlocks what it locked."""
+    import numpy as np
+
+    from consensusml_tpu_torch.data.prefetch import _host_tensor
+    from consensusml_tpu_torch.native import NativeLoader
+
+    torch.zeros(1, device=dev)  # the context
+    protos = np.random.default_rng(0).normal(size=(10, 3072)).astype(np.float32)
+    kw = dict(kind="classification", samples_per_slot=256, sample_floats=3072, sample_ints=1, nclasses_or_vocab=10,
+              noise=0.25, prototypes=protos, depth=3, wire="u8", seed=2)
+    want = NativeLoader(**kw)
+    loader = NativeLoader(**kw)
+    stream = torch.cuda.Stream(device=dev)
+    for _ in range(5):  # every slot, and two handed out again after a refill
+        data_w, ints_w = want.next()
+        idx, data, ints = loader.acquire_view()
+        for view, w in ((data, data_w), (ints, ints_w)):
+            host = _host_tensor(view)
+            assert host.is_pinned() and host.data_ptr() == view.ctypes.data
+            with torch.cuda.stream(stream):
+                got = host.to(dev, non_blocking=True)
+            stream.synchronize()
+            assert torch.equal(got.cpu(), torch.from_numpy(w))
+        loader.release_slot(idx)
+    assert loader._locked_runs
+    loader.close()
+    want.close()
+    assert not loader._locked_runs

@@ -32,7 +32,7 @@ from consensusml_tpu.train import init_stacked_state as jax_init_stacked_state
 from consensusml_tpu.train import make_simulated_train_step as jax_train_step
 from consensusml_tpu_torch import configs
 from consensusml_tpu_torch.train.__main__ import main
-from consensusml_tpu_torch.train.feed import dequant_u8
+from consensusml_tpu_torch.data.native_pipeline import dequant_u8
 
 TOL = {"mnist_mlp": (1e-6, 1e-4), "cifar_resnet50": (1e-5, 1e-5)}  # loss atol, consensus-error rtol
 ROUNDS = 2
@@ -170,18 +170,24 @@ def test_u8_dequant_is_the_references_bits(qscale, qoff):
 
 
 def test_bundle_sources_keep_the_contract():
-    """``apply_native_wire`` rebinds a u8 source that keeps the
-    capability attributes, and the dequanting loss passes f32 batches
-    through unchanged."""
+    """``apply_native_wire`` sets the u8 wire on the image config's source,
+    which keeps its affine; the config's loss dequants a u8 image as
+    :func:`dequant_u8` does and passes an f32 one through unchanged."""
     from consensusml_tpu_torch.train.feed import apply_native_wire
 
     bundle = configs.build("mnist_mlp", "smoke", device="cpu")
-    base = bundle.loss_fn
+    base_loss, base_source = bundle.loss_fn, bundle.native_batches
     assert apply_native_wire(bundle, True, None) == ("u8", "auto: image config, --native-wire f32 overrides")
-    assert bundle.loss_fn is not base and bundle.native_batches.supports_views
+    assert bundle.loss_fn is base_loss and bundle.native_batches.supports_views
     assert (bundle.native_batches.qscale, bundle.native_batches.qoff) == (32.0, 4.0)
+    assert (bundle.native_batches.wire, base_source.wire) == ("u8", "f32")
     batch = next(iter(bundle.native_batches(1, 0)))
     assert batch["image"].dtype == torch.uint8
+    assert bundle.loss_fn.__wrapped__ is not None  # the config's loss, behind its dequant
+    seen = configs._dequanting(lambda p, m, b, g: b["image"], bundle.native_batches)
+    assert torch.equal(seen(None, None, batch, None), dequant_u8(batch["image"], 32.0, 4.0))
+    f32 = dequant_u8(batch["image"], 32.0, 4.0)
+    assert seen(None, None, dict(batch, image=f32), None) is f32
     plain = configs.build("gpt2_topk", "smoke", device="cpu")
     assert apply_native_wire(plain, True, None) == ("f32", "auto: config has no u8 path")
     assert dataclasses.replace(plain).native_batches is plain.native_batches

@@ -98,6 +98,6 @@ def test_feed_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     ds = SyntheticClassification(n=16, image_shape=(2, 2, 1))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         native_cls_feed(ds, 2, 1, 2, 1)
-    DevicePrefetcher(iter([]), 2, place=False).close()  # nothing placed: no device
+    DevicePrefetcher(iter([]), 2, device="cpu").close()  # nothing staged: no card
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--config", "cifar_resnet50", "--rounds", "1", "--native-loader"])

@@ -6,11 +6,13 @@ against the reference's ``DevicePrefetcher`` on the CPU.
   source's own.
 - ``on_done`` fires once an item, after the item is staged; a pooled
   source never has more than ``pool - 1`` items awaiting release when it
-  yields the next, as in the reference.
+  yields the next, and a source without a pool never more than ``depth``,
+  as in the reference.
 - A source's error reaches the consumer after the batches before it;
   ``close()`` mid-stream returns, stops the thread, closes the source and
-  releases every staged item; ``place=False`` refuses FeedItems with an
-  ``on_done``.
+  releases every staged item.
+- A read-only view (a ring slot's) becomes a tensor over its own bytes,
+  with no copy and no warning.
 - ``consensusml_feed_batches_total`` and the stall counters move as the
   reference's; ``batches_out``, ``stall_seconds_total`` and the staged
   bytes.
@@ -20,6 +22,7 @@ timeout, so a hang fails the test instead of stalling the suite.
 """
 
 import threading
+import warnings
 
 import numpy as np
 import pytest
@@ -31,7 +34,7 @@ from consensusml_tpu.data.prefetch import DevicePrefetcher as JaxPrefetcher
 from consensusml_tpu.data.prefetch import FeedItem as JaxItem
 from consensusml_tpu.data.prefetch import prefetch_to_device as jax_prefetch
 from consensusml_tpu_torch.data import native_pipeline as pipe
-from consensusml_tpu_torch.data.prefetch import DevicePrefetcher, FeedItem, prefetch_to_device
+from consensusml_tpu_torch.data.prefetch import DevicePrefetcher, FeedItem, _host_tensor, prefetch_to_device
 from consensusml_tpu_torch.data.synthetic import SyntheticClassification
 
 TIMEOUT = 30.0
@@ -76,7 +79,8 @@ def _bytes(seq):
 
 
 def _counter(obs, name):
-    return {m.key: m.value for m in obs.get_registry().metrics()}.get(name, 0.0)
+    # by name first: the registry also holds histograms, which have no .value
+    return next((m.value for m in obs.get_registry().metrics() if m.key == name), 0.0)
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2, 3])
@@ -170,13 +174,31 @@ def test_close_mid_stream_releases_and_stops():
     feed.close()  # idempotent
 
 
-def test_place_false_refuses_release_hooks():
-    src = _Pooled(FeedItem, 3, 2)
-    feed = DevicePrefetcher(iter(src), 2, place=False)
-    with pytest.raises(RuntimeError, match="require device placement"):
-        _bounded(lambda: list(feed))
-    plain = _bounded(lambda: list(DevicePrefetcher(iter(_batches(2)), 2, place=False)))
-    assert _bytes(plain) == _bytes(_batches(2)) and isinstance(plain[0]["image"], np.ndarray)
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_window_without_a_pool_is_the_depth(depth):
+    runs = {}
+    for name, make, item in [("ref", lambda s: JaxPrefetcher(s, depth), JaxItem),
+                             ("port", lambda s: DevicePrefetcher(s, depth, device="cpu"), FeedItem)]:
+        src = _Pooled(item, 8, None)
+        _bounded(lambda: list(make(iter(src))))
+        assert src.done == [1] * 8
+        runs[name] = max(src.held_at_yield)
+    assert runs["port"] == runs["ref"] == depth
+
+
+def test_read_only_views_alias_without_a_copy():
+    base = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    view = base.reshape(6, 4)
+    view.flags.writeable = False
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t = _host_tensor(view)
+    assert t.dtype == torch.float32 and tuple(t.shape) == (6, 4) and t.data_ptr() == base.ctypes.data
+    assert t.numpy().tobytes() == base.tobytes()
+    # a non-contiguous or empty view is copied, a writable one aliased as torch.from_numpy does
+    assert _host_tensor(base[:, :, ::2]).numpy().tobytes() == np.ascontiguousarray(base[:, :, ::2]).tobytes()
+    assert _host_tensor(np.empty((0, 3), np.uint8)).shape == (0, 3)
+    assert _host_tensor(base).data_ptr() == base.ctypes.data
 
 
 def test_batches_total_and_stall_counters_move_as_the_references():

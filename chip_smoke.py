@@ -311,7 +311,8 @@ round within tolerance.
     them with ``--trace-events``, ``--metrics-prom``, ``--metrics-port 0``
     and ``--flight-recorder``): ``train_resnet_faults``' counted rounds
     (on, off, on) and two more ``train_topk`` rounds after its profiled
-    one (off, on). Gates: the Chrome trace parses, round 0's spans
+    one (off, under the live ``/profile`` capture; on). Gates: the
+    Chrome trace parses, round 0's spans
     nested as the reference nests them (``ROUND0_SPANS``); the Prometheus
     file's fault counters equal the alive masks the phase reads; the
     flight recorder's dump holds the span ring; ``/metrics`` answers
@@ -371,7 +372,33 @@ round within tolerance.
     of each BN kernel a run and none of another,
     ``consensusml_feed_batches_total`` moved by 3 at depth 2 and by 0 at 0.
     Reports each round's feed stall (its ``round.feed`` span) and round ms
-    at both depths.
+    at both depths. The depth-2 run carries ``--cost-ledger`` (the cost
+    plane, below): its rounds must still equal depth 0's bit for bit and
+    its launches stay 53 x 8 x 3 a BN kernel (registration is analysis
+    only), and it must print the ``train.step`` and ``gossip.round``
+    rows, each row's measured/floor ratio >= 1, the three-way's analytic,
+    counted and live bytes positive with its three drifts.
+
+The cost plane (``obs/costs.py``, ``obs/memviz.py``, ``workcount.py``):
+the ``check`` line's ``cost_counts`` counts each of the 19 kernel wrappers
+at its first kernel-table shape three ways, on the kernel path (a launch
+under a ``WorkCounter``), the plain path (its non-card route on ``meta``
+copies) and the fake pass (``workcount.analyze``, no launch, no
+allocation): the three (flops, bytes) equal and equal to the table's
+bound formula (paged attention's at its static extent), each kernel's
+``queued_ms`` (operand sets rotating past the L2) at least its counted
+floor on the ledger's peaks. ``check.cost_counts.train_step`` registers
+``gpt2_topk`` full's ``train.step`` (4 workers) from a state built in a
+fake mode: no launch, no allocation, flops within
+``GPT2_STEP_ANALYTIC_RANGE`` of 6 N tokens plus the causal attention
+term. ``train_resnet_collective`` runs with ``--cost-ledger``: each
+rank's own ``train.step`` row, its ratio >= 1. ``serve_loadgen``'s socket
+engine runs ``Engine.register_costs`` after its warmup and before the
+traffic: no launch, no allocation, a row for every stage, and every wide
+event of the traffic ``cost_joined`` with flops > 0. ``train_topk``'s
+first telemetry round runs under one live ``GET /profile?ms=4500`` (200, a
+trace and a summary naming the flash and codec kernels) while a second
+request gets 409.
 
 The ``check`` line's ``feed_lm`` stages ``gpt2_topk`` full's round
 batches (4 workers x h 2 x 8 x 1024 tokens) from the native LM ring
@@ -425,6 +452,7 @@ the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -1667,29 +1695,23 @@ def profile_decode(torch, decode, pages, table, tokens, positions, samp, steps=1
         t0 = time.perf_counter()
         run()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device activity only (the host's ops cost the trace's processing)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run()
-    cuda = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    device_ms = sum(dev_us(e) for e in cuda) / 1e3 / steps
-    top = sorted(cuda, key=dev_us, reverse=True)[:6]
-    paged = [e for e in cuda if re.search(KERNEL_SYMBOLS["paged_attention"], e.key)]
+    cuda = device_totals(torch, prof)  # name -> [device us, calls]
+    device_ms = sum(us for us, _n in cuda.values()) / 1e3 / steps
+    top = sorted(cuda, key=lambda k: cuda[k][0], reverse=True)[:6]
+    paged = [k for k in cuda if re.search(KERNEL_SYMBOLS["paged_attention"], k)]
     return {
         "steps": steps, "wall_ms_per_step": wall_ms,
         "device_kernel_ms_per_step": device_ms if device_ms > 0 else None,
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
-        "paged_attention_ms_per_step": sum(dev_us(e) for e in paged) / 1e3 / steps if paged else None,
-        "paged_attention_calls_per_step": sum(e.count for e in paged) / steps,
-        "kernels_per_step": sum(e.count for e in cuda) / steps,
+        "paged_attention_ms_per_step": sum(cuda[k][0] for k in paged) / 1e3 / steps if paged else None,
+        "paged_attention_calls_per_step": sum(cuda[k][1] for k in paged) / steps,
+        "kernels_per_step": sum(n for _us, n in cuda.values()) / steps,
         "top_kernels": [
-            {"name": e.key[:80], "ms_per_step": dev_us(e) / 1e3 / steps, "calls_per_step": e.count / steps}
-            for e in top
+            {"name": k[:80], "ms_per_step": cuda[k][0] / 1e3 / steps, "calls_per_step": cuda[k][1] / steps}
+            for k in top
         ],
     }
 
@@ -2141,6 +2163,21 @@ def serve_loadgen_phase(torch, dev, art, obs_dir=None):
         healthz, body = http_get(server.metrics_address, "/healthz")
         if cold != 503 or healthz != 200 or not json.loads(body)["ready"]:
             raise AssertionError(f"/healthz answered {cold} before the warmup and {healthz} after: {body}")
+        # the cost plane: every stage counted before the traffic (no launch, no allocation)
+        torch.cuda.synchronize()
+        launched0, alloc0 = sum(kernels.launch_counts().values()), torch.cuda.memory_allocated(dev)
+        t_reg = time.perf_counter()
+        cost_rows = eng.register_costs()
+        reg_s = time.perf_counter() - t_reg
+        torch.cuda.synchronize()
+        reg_launches = sum(kernels.launch_counts().values()) - launched0
+        reg_alloc = torch.cuda.memory_allocated(dev) - alloc0
+        want_rows = {f"serve.{kind}prefill.b{b}" for b in eng.buckets for kind in ("", "prefix_")}
+        want_rows |= {"serve.decode", "serve.hotswap.stage"}
+        if reg_launches or reg_alloc or set(cost_rows) != want_rows:
+            raise AssertionError(f"register_costs: {reg_launches} launches, {reg_alloc} bytes allocated, rows "
+                                 f"{sorted(cost_rows)} against {sorted(want_rows)}")
+        marks.append(("register_costs", time.perf_counter()))
         completed = get_registry().counter("consensusml_serve_completed_total")
         completed0, emitted0 = completed.value, eng._events.emitted_total
         tenants0 = json.loads(http_get(server.metrics_address, "/tenants")[1])["tenants"]
@@ -2165,6 +2202,15 @@ def serve_loadgen_phase(torch, dev, art, obs_dir=None):
                  "loadgen_tenants": sum(t["completed"] for t in sock["tenants"].values())}
         if sock["errors"] or set(agree.values()) != {LOADGEN_SOCKET_REQUESTS}:
             raise AssertionError(f"socket mode: errors {sock['errors']} {sock['error_sample']}, completed {agree}")
+        events = eng._events.events(LOADGEN_SOCKET_REQUESTS)
+        unjoined = [e["request_id"] for e in events if not (e["cost_joined"] is True and e["flops"] > 0)]
+        if len(events) != LOADGEN_SOCKET_REQUESTS or unjoined:
+            raise AssertionError(f"wide events without a joined cost: {unjoined[:8]} of {len(events)}")
+        costs = {"rows": {n: {"flops": r.flops, "bytes_accessed": r.bytes_accessed, "peak_bytes": r.peak_bytes,
+                              "kind": r.kind, "analysis_s": r.compile_s} for n, r in sorted(cost_rows.items())},
+                 "register_s": reg_s, "launches": reg_launches, "allocated_bytes": reg_alloc,
+                 "events_joined": len(events),
+                 "event_tflops": [e["tflops"] for e in events[:4]]}
         stats_socket = eng.stats()
     finally:
         server.shutdown()
@@ -2202,7 +2248,8 @@ def serve_loadgen_phase(torch, dev, art, obs_dir=None):
                    "completed_agree": agree, "healthz": {"before_warmup": cold, "after_warmup": healthz},
                    "engine": {k: stats_socket[k] for k in ("ttft_p50_ms", "ttft_p99_ms", "intertoken_p50_ms",
                                                            "decode_tokens_per_sec", "decode_steps",
-                                                           "prefix_cache")}},
+                                                           "prefix_cache")},
+                   "cost_ledger": costs},
         "artifact": {"flags": "--spec-k 4 --swap-every 16", "requests": LOADGEN_ARTIFACT_REQUESTS,
                      **{k: spec[k] for k in keys}, "swaps_triggered": spec["swaps_triggered"],
                      "spec_proposed": spec["spec_proposed"], "spec_accepted": spec["spec_accepted"],
@@ -2415,37 +2462,48 @@ def profile_round(torch, step, state, batch):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     t1 = time.perf_counter()
-    cuda = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    device_ms = sum(dev_us(e) for e in cuda) / 1e3
-    top = sorted(cuda, key=dev_us, reverse=True)[:8]
+    cuda = device_totals(torch, prof)  # name -> [device us, calls]
+    device_ms = sum(us for us, _n in cuda.values()) / 1e3
+    top = sorted(cuda, key=lambda k: cuda[k][0], reverse=True)[:8]
     port = {}  # the port's kernels in this round, by name (templates summed)
     for name, sym in KERNEL_SYMBOLS.items():
         pat = re.compile(rf"(?<![A-Za-z0-9_]){sym}(?![A-Za-z0-9_])")
-        hits = [e for e in cuda if pat.search(e.key)]
+        hits = [k for k in cuda if pat.search(k)]
         if hits:
-            port[name] = {"ms": sum(dev_us(e) for e in hits) / 1e3, "calls": sum(e.count for e in hits)}
-    library_bn = [e for e in cuda if LIBRARY_BN.search(e.key)]
-    library_bn_bwd = [e for e in library_bn if LIBRARY_BN_BWD.search(e.key)]
+            port[name] = {"ms": sum(cuda[k][0] for k in hits) / 1e3, "calls": sum(cuda[k][1] for k in hits)}
+    library_bn = [k for k in cuda if LIBRARY_BN.search(k)]
+    library_bn_bwd = [k for k in library_bn if LIBRARY_BN_BWD.search(k)]
     return state, {
         "trace_processing_s": time.perf_counter() - t1,
         "wall_ms": wall_ms, "device_kernel_ms": device_ms if device_ms > 0 else None,
         "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
-        "kernels": sum(e.count for e in cuda),
-        "top_kernels": [
-            {"name": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count} for e in top
-        ],
+        "kernels": sum(n for _us, n in cuda.values()),
+        "top_kernels": [{"name": k[:80], "ms": cuda[k][0] / 1e3, "calls": cuda[k][1]} for k in top],
         "port_kernels": port,
         "library_bn_kernels": {
-            "ms": sum(dev_us(e) for e in library_bn) / 1e3, "calls": sum(e.count for e in library_bn),
-            "bwd_ms": sum(dev_us(e) for e in library_bn_bwd) / 1e3,
-            "bwd_calls": sum(e.count for e in library_bn_bwd),
-            "names": sorted({e.key[:80] for e in library_bn}),
+            "ms": sum(cuda[k][0] for k in library_bn) / 1e3, "calls": sum(cuda[k][1] for k in library_bn),
+            "bwd_ms": sum(cuda[k][0] for k in library_bn_bwd) / 1e3,
+            "bwd_calls": sum(cuda[k][1] for k in library_bn_bwd),
+            "names": sorted({k[:80] for k in library_bn}),
         },
     }
+
+
+def device_totals(torch, prof) -> dict:
+    """``{name: [device us, calls]}`` of a stopped profiler's device events
+    (kernels, copies, memsets), read from its kineto results: the sums
+    ``key_averages()`` gives its CUDA entries, without the Python event
+    objects it builds for every event (~15 s over a GPT-2-medium round's
+    ~6 x 10^4 kernels on the card's host)."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.duration_ns() / 1e3 if hasattr(e, "duration_ns") else e.duration_us()
+        row = out.setdefault(e.name(), [0.0, 0])
+        row[0] += us
+        row[1] += 1
+    return out
 
 
 class GcPauses:
@@ -2591,9 +2649,17 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False, pro
     telemetry = None
     if sink_rounds:
         sinks = TrainerSinks(torch, engine, state, cfg.h, "two_step")
+        # the live /profile capture over the first telemetry round (off), joined
+        # before the second: its trace's export must not stall a timed round
+        capture = ProfileCapture(sinks.tel.http)
+        profile = None
         for i, batch in enumerate(batches[2 + counted:]):
             state = sinks.round(step, state, batch, on=i % 2 == 1)[0]
+            if profile is None:
+                profile = capture.finish(("flash_attention_fwd", "flash_attention_bwd_dq",
+                                          "flash_attention_bwd_dkv", *CODEC_KERNELS[codec]))
         telemetry = sinks.close(state)
+        telemetry["profile_endpoint"] = profile
         marks.append(("telemetry_rounds", time.perf_counter()))
 
     for r in rounds:
@@ -3402,6 +3468,65 @@ ROUND0_SPANS = {
     "two_step": (("train.inner_loop", 1), ("bucket.pack", 2), ("bucket.unpack", 2), ("gossip.round", 1),
                  ("train.consensus_error", 1), ("train.round", 0), ("round.feed", 0), ("round.fence", 0)),
 }
+
+
+# the live capture's window: its settle, then the first telemetry round
+# (GPT-2-medium rounds take ~2.4-2.7 s; the codec kernels close a round)
+PROFILE_CAPTURE_MS = 4500
+PROFILE_SETTLE_S = 1.0
+
+
+class ProfileCapture:
+    """``GET /profile?ms=PROFILE_CAPTURE_MS`` on a thread of its own while
+    the caller runs rounds; once the capture is in flight a second request
+    must get 409 (single-flight). :meth:`finish` joins it and gates a 200
+    with a trace and a summary naming each of ``kernels`` (by CUDA symbol,
+    ``KERNEL_SYMBOLS``)."""
+
+    def __init__(self, http):
+        self.http = http
+        self.result = None
+        self.thread = threading.Thread(target=self._get, name="profile-capture", daemon=True)
+        self.thread.start()
+        deadline = time.time() + 10.0
+        while http._profile_inflight is None and time.time() < deadline and self.result is None:
+            time.sleep(0.005)
+        self.second = self._fetch("/profile?ms=50")
+        # the capture's CUDA activity tracing comes up within its first
+        # moments: the caller's work starts after them
+        time.sleep(PROFILE_SETTLE_S)
+
+    def _fetch(self, path):
+        try:
+            with urllib.request.urlopen(self.http.url(path), timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def _get(self):
+        self.result = self._fetch(f"/profile?ms={PROFILE_CAPTURE_MS}")
+
+    def finish(self, kernels: tuple) -> dict:
+        self.thread.join(timeout=120)
+        code, doc = self.result or (None, {})
+        summary = doc.get("summary") or {}
+        names = [o["op"] for o in summary.get("ops", [])]
+        missing = [k for k in kernels if not any(re.search(KERNEL_SYMBOLS[k], n) for n in names)]
+        problems = []
+        if code != 200 or not doc.get("trace_json") or not os.path.exists(doc["trace_json"]):
+            problems.append(f"the capture answered {code}: {str(doc)[:400]}")
+        if self.second[0] != 409 or self.second[1].get("capture_id") != doc.get("capture_id"):
+            problems.append(f"the concurrent request answered {self.second}")
+        if missing:
+            problems.append(f"the summary names none of {missing}: {names[:40]}")
+        shutil.rmtree(doc.get("dir") or "", ignore_errors=True)
+        if problems:
+            raise AssertionError("/profile: " + "; ".join(problems))
+        return {"status": code, "concurrent_status": self.second[0], "ms": doc["ms"],
+                "device_total_ms": summary["device_total_ms"], "kernel_count": summary["kernel_count"],
+                "port_kernels": {k: sum(o["ms"] for o in summary["ops"] if re.search(KERNEL_SYMBOLS[k], o["op"]))
+                                 for k in kernels},
+                "top_ops": summary["ops"][:5]}
 
 
 class TrainerSinks:
@@ -5034,12 +5159,322 @@ def check_feed_lm(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the cost plane: every kernel wrapper's work count, and a fake-pass train step
+# ---------------------------------------------------------------------------
+
+# bytes the rotating operand sets of a cost-count timing span at least (the
+# 50 MB L2 at twice over), so every timed call reads its operands from HBM
+COST_COUNT_SPAN_BYTES = 128 << 20
+
+
+def cost_count_cases(torch, tck, tfa, tpa, tln, tbn, dev):
+    """Each kernel wrapper at the first shape of PERF.md's kernel table:
+    ``name -> (make() -> operand tuple, call(*ops), (flops, bytes) of the
+    table's bound formula)``. The bound formulas are the ones the check
+    phases above price (each operand read once, each result written once;
+    attention's operations), written out here from the shapes alone;
+    paged attention's at its static extent (every position at the block
+    table's end)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    randn = lambda *shape, dtype=torch.float32: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)  # noqa: E731
+    cases = {}
+
+    def codec(name, rows, quant, dequant, code_bytes):
+        m = rows * 512
+        cases[f"quantize_{name}"] = (lambda: (randn(rows, 512),), quant, (3 * m, 4 * m + code_bytes * m + 4 * rows))
+        cases[f"dequantize_{name}"] = (lambda: quant(randn(rows, 512)), dequant,
+                                       (m, code_bytes * m + 4 * rows + 4 * m))
+
+    codec("int8", 4 * 1571 + 6, tck.quantize_int8, tck.dequantize_int8, 1)
+    codec("int4", 4 * 1571 + 6, tck.quantize_int4, tck.dequantize_int4, 0.5)
+    codec("fp8", 4 * 100_514 + 6, tck.quantize_fp8, tck.dequantize_fp8, 1)
+    rows, k = 4 * 100_514, 8
+    cases["chunked_topk"] = (lambda: (randn(rows, 512),), lambda x: tck.chunked_topk(x, k),
+                             (k * rows * 512, rows * 512 * 4 + rows * k * 8))
+    cases["chunk_scatter"] = (lambda: tck.chunked_topk(randn(rows, 512), k), lambda v, i: tck.chunk_scatter(v, i, 512),
+                              (2 * rows * k, rows * 512 * 4 + rows * k * 8))
+    n_enc = (4 * 8192 + 7) * 512
+    cases["fused_choco_encode"] = (lambda: (randn(4 * 8192 + 7, 512), randn(4 * 8192 + 7, 512)),
+                                   lambda x, h: tck.fused_pack_quantize(x, h, fmt="int8"),
+                                   (5 * n_enc, 2 * 4 * n_enc + n_enc + 4 * (4 * 8192 + 7) + 4 * n_enc))
+    rows_d = 4 * 100_514 + 6
+    n_dec = rows_d * 512
+
+    def decode_ops():
+        s = randn(rows_d, 512)
+        sources = [tuple(tck.fused_pack_quantize(randn(rows_d, 512), s, fmt="fp8")[:2]) for _ in range(3)]
+        return (s, sources)
+
+    cases["fused_dequantize_accumulate"] = (
+        decode_ops, lambda s, src: tck.fused_dequantize_accumulate(s, src, fmt="fp8", weights=(1 / 3,) * 3),
+        ((3 * 3 + 1) * n_dec, 4 * n_dec + 3 * (n_dec + 4 * rows_d) + 4 * n_dec))
+    b, s, h, d = 8, 1024, 16, 64
+    elems, pairs, rws = b * s * h * d, b * h * s * (s + 1) // 2, b * h * s
+    qkv = lambda: tuple(randn(b, s, h, d, dtype=torch.bfloat16) for _ in range(3))  # noqa: E731
+    cases["flash_attention_fwd"] = (qkv, lambda q, k_, v: tfa.flash_attention(q, k_, v, causal=True, return_lse=True),
+                                    (4 * d * pairs, 4 * elems * 2 + rws * 4))
+
+    def bwd_ops():
+        q, k_, v = qkv()
+        _o, lse = tfa.flash_attention(q, k_, v, causal=True, return_lse=True)
+        return q, k_, v, randn(b, s, h, d, dtype=torch.bfloat16), lse, randn(b, h, s)
+
+    cases["flash_attention_bwd_dq"] = (bwd_ops, lambda *a: tfa.flash_attention_bwd_dq(*a, causal=True),
+                                       (6 * d * pairs, 5 * elems * 2 + 2 * rws * 4))
+    cases["flash_attention_bwd_dkv"] = (bwd_ops, lambda *a: tfa.flash_attention_bwd_dkv(*a, causal=True),
+                                        (8 * d * pairs, 6 * elems * 2 + 2 * rws * 4))
+    slots, bs, nb = 8, 16, 64
+    n_pages = slots * nb + 1
+
+    def paged_ops():
+        table = (torch.randperm(n_pages - 1, generator=gen, device=dev)[: slots * nb] + 1).view(slots, nb)
+        pos = torch.full((slots, 1), nb * bs - 1, dtype=torch.int32, device=dev)  # the static extent
+        return (randn(slots, 1, h, d, dtype=torch.bfloat16), randn(n_pages, bs, h, d, dtype=torch.bfloat16),
+                randn(n_pages, bs, h, d, dtype=torch.bfloat16), table.to(torch.int32).contiguous(), pos)
+
+    keys = slots * nb * bs
+    cases["paged_attention"] = (paged_ops, tpa.paged_attention,
+                                (4 * keys * h * d, 2 * keys * h * d * 2 + 2 * slots * h * d * 2 + slots * nb * 4
+                                 + slots * 4))
+    m, hd = 8192, 1024
+    cases["ln_fwd"] = (lambda: (randn(m, hd, dtype=torch.bfloat16), randn(hd), randn(hd)),
+                       lambda x, g, b_: tln.ln_fwd(x, g, b_, 1e-6, out_dtype=torch.bfloat16),
+                       (8 * m * hd, 2 * 2 * m * hd + 8 * hd))
+    cases["ln_bwd"] = (lambda: (randn(m, hd, dtype=torch.bfloat16), randn(m, hd, dtype=torch.bfloat16), randn(hd)),
+                       lambda dy, x, g: tln.ln_bwd(dy, x, g, 1e-6), (16 * m * hd, 3 * 2 * m * hd + 12 * hd))
+    mb, c = 131072, 256
+    nbn, vec = mb * c, 4 * c
+    cases["bn_stats"] = (lambda: (randn(mb, c, dtype=torch.bfloat16),), tbn.bn_stats, (3 * nbn, 2 * nbn + 2 * vec))
+
+    def norm_ops():
+        x = randn(mb, c, dtype=torch.bfloat16)
+        return (x, randn(c), randn(c))
+
+    cases["bn_norm"] = (norm_ops, lambda x, sc, sh: tbn.bn_norm(x, sc, sh, True), (3 * nbn, 4 * nbn + 2 * vec))
+
+    def bwd_bn_ops():
+        x = randn(mb, c, dtype=torch.bfloat16)
+        mean, _var, scale, shift, rsqrt = tbn.bn_forward_stats(x, torch.ones(c, device=dev),
+                                                                torch.zeros(c, device=dev), 1e-5)
+        return (randn(mb, c, dtype=torch.bfloat16), x, scale, shift, mean, rsqrt)
+
+    cases["bn_bwd"] = (bwd_bn_ops, lambda *a: tbn.bn_bwd(*a, True), (11 * nbn, 6 * nbn + 6 * vec))
+    return cases
+
+
+def _meta(torch, x):
+    if isinstance(x, torch.Tensor):
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device="meta")
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta(torch, v) for v in x)
+    return x
+
+
+def check_cost_counts(torch, tck, tfa, tpa, tln, tbn, dev) -> dict:
+    """``check.cost_counts``: each of the 19 kernel wrappers at its first
+    kernel-table shape, counted three ways: on the kernel path (a launch on
+    the card under a ``WorkCounter``), on the plain path (the wrapper's
+    non-card route, fed ``meta`` copies: the plain version at the same
+    shapes, nothing computed) and in the fake pass
+    (``workcount.analyze``: no launch). Gates: the three (flops, bytes)
+    equal; equal to the kernel table's bound formula at those shapes; the
+    kernel's ``queued_ms`` (operand sets rotating past the L2) at least its
+    counted floor on the ledger's peaks for this card
+    (``obs.costs.DEVICE_PEAKS``), a ratio >= 1."""
+    from consensusml_tpu_torch import kernels, workcount
+    from consensusml_tpu_torch.obs.costs import DEVICE_PEAKS, TRANSFER_PEAKS, device_kind
+
+    peak_flops, peak_bytes = DEVICE_PEAKS[device_kind(dev)]
+    out, problems = {}, []
+    for name, (make, call, (bound_flops, bound_bytes)) in cost_count_cases(torch, tck, tfa, tpa, tln, tbn,
+                                                                           dev).items():
+        ops = make()
+        counted = {}
+        c = workcount.WorkCounter()
+        launched0 = kernels.launch_counts()[name]
+        with c:
+            call(*ops)
+        torch.cuda.synchronize()
+        counted["kernel"] = (c.flops, c.bytes)
+        if kernels.launch_counts()[name] != launched0 + 1:
+            problems.append(f"{name}: the kernel path launched {kernels.launch_counts()[name] - launched0} times")
+        mops = _meta(torch, ops)  # made before the counter: its ops are not the kernel's
+        c = workcount.WorkCounter()
+        with c:
+            call(*mops)
+        counted["plain"] = (c.flops, c.bytes)
+        launched0 = sum(kernels.launch_counts().values())
+        alloc0 = torch.cuda.memory_allocated(dev)
+        a = workcount.analyze(call, *ops)
+        counted["fake"] = (a.flops, a.bytes_accessed)
+        if sum(kernels.launch_counts().values()) != launched0 or torch.cuda.memory_allocated(dev) != alloc0:
+            problems.append(f"{name}: the fake pass launched or allocated")
+        if len(set(counted.values())) != 1:
+            problems.append(f"{name}: counts differ {counted}")
+        if counted["kernel"] != (float(bound_flops), float(bound_bytes)):
+            problems.append(f"{name}: counted {counted['kernel']} is not the bound formula's "
+                            f"{(bound_flops, bound_bytes)}")
+        nbytes = sum(t.numel() * t.element_size() for t in workcount._tensors(ops))
+        sets = [ops] + [make() for _ in range(min(7, max(1, -(-COST_COUNT_SPAN_BYTES // max(nbytes, 1)) - 1)))]
+        ms, _enq = queued_ms(torch, lambda i: call(*sets[i % len(sets)]), 4 * len(sets))
+        floor_ms = 1e3 * max(counted["kernel"][0] / peak_flops, counted["kernel"][1] / peak_bytes)
+        if not ms >= floor_ms:
+            problems.append(f"{name}: {ms} ms is under its counted floor {floor_ms} ms")
+        out[name] = {"flops": counted["kernel"][0], "bytes": counted["kernel"][1], "ms": ms, "floor_ms": floor_ms,
+                     "ratio_to_floor": ms / floor_ms, "operand_sets": len(sets)}
+        del ops, sets
+        torch.cuda.empty_cache()
+    if sorted(out) != sorted(kernels.KERNELS):
+        problems.append(f"counted {sorted(out)}, not every kernel of {sorted(kernels.KERNELS)}")
+    h2d = pinned_h2d_rate(torch, dev)
+    if not h2d < TRANSFER_PEAKS[device_kind(dev)]:
+        problems.append(f"a pinned copy at {h2d} B/s beats the ledger's transfer peak")
+    if problems:
+        raise AssertionError("check.cost_counts: " + "; ".join(problems))
+    return {"peaks": {"flops_per_s": peak_flops, "bytes_per_s": peak_bytes, "card": device_kind(dev),
+                      "transfer_bytes_per_s": TRANSFER_PEAKS[device_kind(dev)]},
+            "pinned_h2d_bytes_per_s": h2d, "kernels": out}
+
+
+def pinned_h2d_rate(torch, dev, nbytes: int = 256 << 20, iters: int = 10) -> float:
+    """Bytes a second of a page-locked host buffer copied to the card
+    (CUDA events over ``iters`` copies of ``nbytes``, one warm-up): what
+    the hot-swap stage's transfer row is floored against is the line
+    rate above it (``obs.costs.TRANSFER_PEAKS``)."""
+    host = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(iters):
+        dst.copy_(host, non_blocking=True)
+    ev[1].record()
+    ev[1].synchronize()
+    return nbytes * iters / (ev[0].elapsed_time(ev[1]) / 1e3)
+
+
+# the fake pass's GPT-2-medium train step against the standard analytic count
+# (6 N tokens + 6 L hidden S (S + 1) a sequence, causal attention's
+# products forward and twice backward): the counted work may exceed it by
+# the flash backward's recomputed scores (dq and dk/dv each recompute q.k:
+# 14 against 8 operations a pair, ~+3.5% at S = 1024) and the elementwise
+# ops (optimizer, norms, softmax, the codec; ~1-3%), and falls under it by
+# the position table, a gather the standard count prices as a product (N's
+# 1,048,576 of 354,823,168, 0.3%)
+GPT2_STEP_ANALYTIC_RANGE = (0.99, 1.10)
+
+
+def check_train_step_count(torch, dev) -> dict:
+    """``check.cost_counts``' train step: ``gpt2_topk`` full's ``train.step``
+    (4 workers) registered in the cost ledger from a state built entirely
+    in a fake mode (no GPT-2 state on the card; one worker's initial
+    parameters drawn on the host for their shapes): zero launches, zero
+    allocation, flops within ``GPT2_STEP_ANALYTIC_RANGE`` of the standard
+    analytic count. A host-only pass: the script runs it on a thread while
+    the 4-rank GPT-2 spawn holds the card and this process waits (its
+    gates read this process's launches and allocation, which the spawn's
+    ranks do not touch)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.obs.costs import CostLedger
+    from consensusml_tpu_torch.obs.metrics import MetricsRegistry
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+    from consensusml_tpu_torch.utils import tree as T
+
+    t0 = time.perf_counter()
+    bundle = configs.build("gpt2_topk", "full", world=4, device=dev)
+    params, model_state = bundle.convert(bundle.init_params(0, ranks=[0]))
+    batch = next(iter(bundle.batches(1, 0)))
+    torch.cuda.synchronize()
+    launched0, alloc0 = sum(kernels.launch_counts().values()), torch.cuda.memory_allocated(dev)
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        stacked = lambda t: torch.empty((4, *t.shape[1:]), dtype=t.dtype, device=dev)  # noqa: E731
+        state = init_stacked_state(bundle.cfg, {n: stacked(t) for n, t in params.items()}, 4,
+                                   model_state=T.tree_map(stacked, model_state))
+        fbatch = {k: torch.empty(tuple(v.shape), dtype=torch.as_tensor(v[:0]).dtype, device=dev)
+                  for k, v in batch.items()}
+    # the optimizer's host step counters are read by the step (int(count[w])):
+    # real zeros, as a fresh state holds
+    opt = state.opt_state
+    for f in dataclasses.fields(opt):
+        t = getattr(opt, f.name)
+        if isinstance(t, torch.Tensor) and t.device.type == "cpu" and not t.is_floating_point():
+            setattr(opt, f.name, torch.zeros(tuple(t.shape), dtype=t.dtype))
+    ledger = CostLedger(registry=MetricsRegistry(), platform=torch.cuda.get_device_name(dev))
+    row = ledger.register("train.step", make_simulated_train_step(bundle.cfg, bundle.loss_fn), state, fbatch)
+    torch.cuda.synchronize()
+    launched, alloc = sum(kernels.launch_counts().values()) - launched0, torch.cuda.memory_allocated(dev) - alloc0
+    n_params = sum(t.numel() for t in params.values())
+    w, h, bsz, seq = fbatch["input_ids"].shape
+    tokens = w * h * bsz * seq
+    mcfg = bundle.model.config
+    analytic = 6 * n_params * tokens + 6 * mcfg.layers * mcfg.hidden * seq * (seq + 1) * w * h * bsz
+    ratio = row.flops / analytic
+    out = {"config": "gpt2_topk full, 4 workers (fake state)", "flops": row.flops, "analytic_flops": analytic,
+           "ratio": ratio, "range": list(GPT2_STEP_ANALYTIC_RANGE), "bytes_accessed": row.bytes_accessed,
+           "peak_bytes": row.peak_bytes, "kernel_flops": row.meta["kernel_flops"],
+           "kernels": row.meta["kernels"], "ops": row.meta["ops"], "analysis_s": row.compile_s,
+           "launches": launched, "allocated_bytes": alloc, "params_per_worker": n_params, "tokens": tokens,
+           "seconds": time.perf_counter() - t0}
+    if launched or alloc or not GPT2_STEP_ANALYTIC_RANGE[0] <= ratio <= GPT2_STEP_ANALYTIC_RANGE[1]:
+        raise AssertionError(f"check.cost_counts train step: {out}")
+    return out
+
+
 def feed_stalls(trace: str) -> list:
     """Each round's wait for its batch: the ``round.feed`` spans' seconds."""
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
     spans = sorted((e["args"]["round"], e["dur"] / 1e6) for e in events if e.get("name") == "round.feed")
     return [s for _r, s in spans]
+
+
+def ledger_gauges(registry) -> dict:
+    """The cost plane's gauges a ``--cost-ledger`` run left in the registry:
+    per executable its counted flops and bytes, floor, measured time and
+    ratio; the three-way's sides and drifts."""
+    from consensusml_tpu_torch.obs.metrics import parse_metric_key
+
+    rows, hbm, drift = {}, {}, {}
+    fields = {"consensusml_cost_flops": "flops", "consensusml_cost_bytes_accessed": "bytes_accessed",
+              "consensusml_cost_peak_bytes": "peak_bytes", "consensusml_cost_expected_seconds": "expected_s",
+              "consensusml_cost_measured_seconds": "measured_s", "consensusml_cost_floor_ratio": "ratio_to_floor",
+              "consensusml_compile_seconds": "analysis_s"}
+    for m in registry.metrics():
+        name, labels = parse_metric_key(m.key)
+        if name in fields and "executable" in labels:
+            rows.setdefault(labels["executable"], {})[fields[name]] = m.value
+        elif name in ("consensusml_hbm_analytic_bytes", "consensusml_hbm_compiled_bytes",
+                      "consensusml_hbm_live_peak_bytes"):
+            hbm[name[len("consensusml_hbm_"):]] = m.value
+        elif name == "consensusml_hbm_drift_pct":
+            drift[labels["pair"]] = m.value
+    return {"rows": rows, "hbm": hbm, "drift_pct": drift}
+
+
+def ledger_problems(run: dict) -> list:
+    """``train_resnet_feed``'s ledger gates: the ``train.step`` and
+    ``gossip.round`` lines printed, each row's measured/floor ratio >= 1,
+    the three-way's sides present and positive with its drifts."""
+    problems = []
+    printed = " ".join(run["printed"])
+    for want in ("cost ledger: train.step", "cost ledger: gossip.round", "cost attribution: train.step",
+                 "hbm reconciliation:"):
+        if want not in printed:
+            problems.append(f"no {want!r} line in {run['printed']}")
+    led = run["cost_ledger"]
+    for name in ("train.step", "gossip.round"):
+        ratio = led["rows"].get(name, {}).get("ratio_to_floor")
+        if ratio is None or not ratio >= 1.0:
+            problems.append(f"{name}: measured/floor {ratio} (rows {led['rows']})")
+    sides = [led["hbm"].get(k) for k in ("analytic_bytes", "compiled_bytes", "live_peak_bytes")]
+    if not all(v is not None and v > 0 for v in sides) or len(led["drift_pct"]) != 3:
+        problems.append(f"the three-way: {led['hbm']}, drifts {led['drift_pct']}")
+    return problems
 
 
 def train_resnet_feed_phase(torch, dev, tmp: str, scale: str = "full"):
@@ -5079,7 +5514,9 @@ def train_resnet_feed_phase(torch, dev, tmp: str, scale: str = "full"):
             metrics, trace = os.path.join(tmp, f"feed-{depth}.jsonl"), os.path.join(tmp, f"feed-{depth}.json")
             argv = ["--config", "cifar_resnet50", "--scale", scale, "--norm-impl", "pallas", "--device", dev.type,
                     "--native-loader", "--rounds", str(FEED_ROUNDS), "--seed", str(FEED_SEED),
-                    "--prefetch-depth", str(depth), "--metrics-out", metrics, "--trace-events", trace]
+                    "--prefetch-depth", str(depth), "--metrics-out", metrics, "--trace-events", trace,
+                    # the cost plane on the first run: its rounds still equal the second's bit for bit
+                    *(["--cost-ledger"] if depth == FEED_DEPTHS[0] else [])]
             gc.collect()
             torch.cuda.empty_cache()
             tracer.clear()
@@ -5096,7 +5533,10 @@ def train_resnet_feed_phase(torch, dev, tmp: str, scale: str = "full"):
                 "rounds": [{k: r[k] for k in ("round", "loss", "consensus_error", "round_ms", "imgs_per_s")}
                            for r in rows],
                 "feed_stall_s": feed_stalls(trace), "feed_batches": counter.value - before,
-                "printed": [x for x in out.splitlines() if x.startswith(("native wire", "feed:", "BN:"))]}
+                "printed": [x for x in out.splitlines() if x.startswith(("native wire", "feed:", "BN:", "cost ",
+                                                                          "hbm "))]}
+            if depth == FEED_DEPTHS[0]:
+                runs[depth]["cost_ledger"] = ledger_gauges(registry)
             launches = add_counts(launches, counts)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
@@ -5114,7 +5554,8 @@ def train_resnet_feed_phase(torch, dev, tmp: str, scale: str = "full"):
             problems.append(f"depth {depth}: no u8 wire line in {run['printed']}")
     curve = {d: [(r["loss"], r["consensus_error"]) for r in run["rounds"]] for d, run in runs.items()}
     if curve[FEED_DEPTHS[0]] != curve[FEED_DEPTHS[1]]:
-        problems.append(f"the depths' rounds differ: {curve}")
+        problems.append(f"the depths' rounds differ (the first with --cost-ledger): {curve}")
+    problems += ledger_problems(runs[FEED_DEPTHS[0]])
     if problems:
         raise AssertionError("train_resnet_feed: " + "; ".join(problems))
     line = {"phase": "train_resnet_feed",
@@ -5559,7 +6000,48 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     }, launches, by_form
 
 
-def collective_phases(torch, dev, resume, elastic_final, obs_dir):
+def collective_ledger_gates(results: list) -> dict:
+    """``train_resnet_collective --cost-ledger``: each rank's own
+    ``train.step`` row (counted flops and bytes, its measured/floor ratio
+    at the end, >= 1); the launches are gated by :func:`collective_line`
+    as without the flag."""
+    per_rank, problems = [], []
+    for res in results:
+        rows = {r["executable"]: r for r in ((res.get("costs") or {}).get("executables") or [])}
+        row = rows.get("train.step")
+        if row is None or not row["flops"] > 0 or not row["ratio_to_floor"] >= 1.0:
+            problems.append(f"rank {res['rank']}: train.step row {row}")
+            continue
+        per_rank.append({k: row[k] for k in ("flops", "bytes_accessed", "peak_bytes", "expected_s", "measured_s",
+                                             "ratio_to_floor", "compile_s")})
+    if problems:
+        raise AssertionError("train_resnet_collective --cost-ledger: " + "; ".join(problems))
+    return {"train_step_per_rank": per_rank}
+
+
+class Background:
+    """``fn()`` on a thread of its own; :meth:`result` joins it and returns
+    what it returned (raising what it raised)."""
+
+    def __init__(self, fn):
+        self.out, self.error = None, None
+        self.thread = threading.Thread(target=self._run, args=(fn,), name="background", daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            self.out = fn()
+        except BaseException as e:  # re-raised by result()
+            self.error = e
+
+    def result(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
+def collective_phases(torch, dev, resume, elastic_final, obs_dir, during_gpt2_spawn=None):
     """``train_resnet_collective``, ``train_resnet_collective_pushsum`` and
     ``train_resnet_collective_resume`` (one spawn of 8 ranks for the three;
     ``resume`` is ``train_resnet_resume``'s round-2 checkpoint and its
@@ -5570,7 +6052,9 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
     (``--obs-cluster-dir``, ``--link-probes``, ``--telemetry-every 1``);
     ``train_resnet_collective_elastic`` (the 4-rank spawn) resumes the
     checkpoint at 4 ranks, held against ``elastic_final``, the simulated
-    shrink's. Returns the lines and the launches by phase."""
+    shrink's. ``during_gpt2_spawn`` (host-only work) runs on a thread
+    while the 4-rank spawn holds the card. Returns the lines, the launches
+    by phase and that work's result."""
     from consensusml_tpu_torch.comm.launch import launch
     from consensusml_tpu_torch.train import collective
 
@@ -5579,9 +6063,10 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
         ("cifar_resnet50", 8, [("train_resnet_collective",
                                 # 2 rounds (3 until train_resnet_feed joined the script's time)
                                 {**collective_spec("cifar_resnet50", "full", 8, 2, norm_impl="pallas"),
-                                 "obs_cluster_dir": obs_dir, "link_probes": True, "telemetry_every": 1},
+                                 "obs_cluster_dir": obs_dir, "link_probes": True, "telemetry_every": 1,
+                                 "cost_ledger": True},
                                 "cifar_resnet50 full --norm-impl pallas --backend collective --dist-backend gloo "
-                                "--link-probes --obs-cluster-dir D --telemetry-every 1",
+                                "--link-probes --obs-cluster-dir D --telemetry-every 1 --cost-ledger",
                                 None),
                                # push-sum under drawn faults on the directed one-peer graph;
                                # its check round masks workers 2 and 5 (step 1: phase 1)
@@ -5620,13 +6105,17 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
              None),
         ]),
     )
-    for _config, world, phases in runs:
+    background = None
+    for config, world, phases in runs:
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        job = Background(during_gpt2_spawn) if config == "gpt2_topk" and during_gpt2_spawn else None
         per_rank = launch(collective.train_runs, world, [spec for _n, spec, _f, _w in phases],
                           dist_backend="gloo", timeout=COLLECTIVE_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
+        if job is not None:
+            background = job.result()
         lines = {}
         for i, (name, spec, flags, expect_wire) in enumerate(phases):
             line, launches, forms = collective_line(torch, dev, name, spec, [r[i] for r in per_rank], flags,
@@ -5634,6 +6123,7 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
             line["spawn_to_exit_s"] = spawn_s
             if name == "train_resnet_collective":
                 line["cluster_view"] = cluster_view_gates(obs_dir, 8, spec["rounds"], 16)
+                line["cost_ledger"] = collective_ledger_gates([r[i] for r in per_rank])
             if name == "train_resnet_collective_elastic":
                 results = [r[i] for r in per_rank]
                 line["vs_simulated_shrink"] = collective_resume_compare(torch, results, elastic_final, resume[0])
@@ -5656,7 +6146,7 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir):
         del per_rank
         gc.collect()
         torch.cuda.empty_cache()
-    return out
+    return out, background
 
 
 # ---------------------------------------------------------------------------
@@ -6259,6 +6749,7 @@ def main() -> int:
     paged_llama = check_paged_llama(torch, tpa, dev)
     paged_window = check_paged_window(torch, tpa, dev)
     feed_lm = check_feed_lm(torch, dev)
+    cost_counts = check_cost_counts(torch, tck, tfa, tpa, tln, tbn, dev)
     emit({"phase": "check", "paged_attention": {f"W={w}": r for w, r in paged.items()},
           "paged_attention_llama": paged_llama, "paged_attention_window": paged_window,
           "flash_attention_fwd": {**{f"B=1 S={s}": r for s, r in flash.items()},
@@ -6270,7 +6761,7 @@ def main() -> int:
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
           "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals,
           "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600},
-          "flash_d128": d128, "feed_lm": feed_lm})
+          "flash_d128": d128, "feed_lm": feed_lm, "cost_counts": cost_counts})
     torch.cuda.empty_cache()
     b = bwd[1024]
     # the masked form (BERT's encoder, non-causal) beside each flash kernel's readings
@@ -6373,13 +6864,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         # the collective phases next, while this process holds the least of
         # the card: every rank is a process of its own on it
-        collective = collective_phases(torch, dev, (ckpt, final), elastic_final, obs_dir)
+        # the cost plane's fake-pass GPT-2 train step rides the GPT-2 spawn (host-only work)
+        collective, step_count = collective_phases(torch, dev, (ckpt, final), elastic_final, obs_dir,
+                                                   during_gpt2_spawn=lambda: check_train_step_count(torch, dev))
     except BaseException:
         shutil.rmtree(member_tmp, ignore_errors=True)
         raise
     finally:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
     del final, elastic_final
+    emit({"phase": "check.cost_counts.train_step", **step_count})
     for line, counts, by_form in collective:
         emit(line)
         for name, n in counts.items():

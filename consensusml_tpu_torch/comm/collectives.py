@@ -180,7 +180,7 @@ def combine(x: torch.Tensor, topology: Topology, recvs: list[torch.Tensor], f32_
     # then fma(w_j, r_j, acc) for each later shift. ``f32_terms``: the
     # terms are f32 values computed from x (the masked round's), which
     # the compiled program contracts as an f32 leaf's whatever x's dtype
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=x.device)  # noqa: E731
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32).to(x.device)  # noqa: E731
     xf = x.to(torch.float32)
     sw = f32(topology.self_weight)
     if not recvs:

@@ -140,6 +140,21 @@ class Transport(abc.ABC):
         """:meth:`all_reduce_sum` posted: ``wait()`` gives its result."""
 
     @staticmethod
+    def _counting(tensors: list[torch.Tensor], routes=None) -> InFlight | None:
+        """In a counting pass (fake tensors, ``workcount.analyze``) the
+        wire is not run: an exchange receives, and an all-reduce returns,
+        fakes shaped as what was sent. The wire's bytes cross the host
+        link or the network, not the card's memory, so the pass counts
+        none; None for real tensors."""
+        from consensusml_tpu_torch.workcount import is_fake
+
+        if not is_fake(tensors):
+            return None
+        if routes is None:
+            return InFlight(lambda: [t.clone() for t in tensors])
+        return InFlight(lambda: [[t.clone() for t in tensors] for _ in routes])
+
+    @staticmethod
     def _tag(route: int, item: int, items: int) -> int:
         # ring(2) sends both shifts to one peer: a tag per (route, item)
         # keeps every message apart
@@ -195,6 +210,9 @@ class GlooTransport(Transport):
         return out
 
     def exchange_start(self, tensors, routes):
+        counting = self._counting(tensors, routes)
+        if counting is not None:
+            return counting
         if not routes or not tensors:
             return InFlight(lambda: [[] for _ in routes])
         self._count_sent(tensors, len(routes))
@@ -221,6 +239,9 @@ class GlooTransport(Transport):
         return InFlight(finish)
 
     def all_reduce_sum_start(self, tensors):
+        counting = self._counting(tensors)
+        if counting is not None:
+            return counting
         if not tensors:
             return InFlight(list)
         self._count_sent(tensors, 1)
@@ -268,6 +289,9 @@ class NcclTransport(Transport):
         super().__init__(group, rank, device)
 
     def exchange_start(self, tensors, routes):
+        counting = self._counting(tensors, routes)
+        if counting is not None:
+            return counting
         if not routes or not tensors:
             return InFlight(lambda: [[] for _ in routes])
         self._count_sent(tensors, len(routes))
@@ -295,6 +319,9 @@ class NcclTransport(Transport):
         return InFlight(finish)
 
     def all_reduce_sum_start(self, tensors):
+        counting = self._counting(tensors)
+        if counting is not None:
+            return counting
         if not tensors:
             return InFlight(list)
         self._count_sent(tensors, 1)

@@ -5,7 +5,10 @@ wrapper runs the plain version for tensors on the CPU (and for shape-only
 ``meta`` tensors, which ``Compressor.wire_bytes`` compresses) and
 launches its CUDA kernel for CUDA tensors, raising on what the kernel
 does not take (never falling back). Each launch adds one to the
-wrapper's ``launches``.
+wrapper's ``launches``. Under a
+``workcount`` counter each wrapper reports its function's work from its
+shapes (``workcount.counted``) and runs with counting suspended; a fake
+tensor (the counting pass's) takes the plain route, on ``meta`` copies.
 
 - :func:`quantize_int8` / :func:`dequantize_int8`, :func:`quantize_fp8` /
   :func:`dequantize_fp8`: ``csrc/int8_codec.cu``;
@@ -63,6 +66,7 @@ from consensusml_tpu_torch.compress.reference import (
     unpack_int4,
 )
 from consensusml_tpu_torch.numerics import ftz
+from consensusml_tpu_torch.workcount import counted, on_card
 
 __all__ = [
     "PallasInt8Compressor",
@@ -176,6 +180,65 @@ def _check_codes(q: torch.Tensor, scales: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
+# each kernel's work, from its arguments' shapes (workcount.counted): the
+# figures its bound prices, operands read once and results written once
+# ---------------------------------------------------------------------------
+
+
+def _quantize_work(code_bytes: float):
+    """A per-row quantize of ``(R, C)`` f32: 3 operations an element
+    (scale, product, round); reads the rows, writes the codes
+    (``code_bytes`` each) and the scales."""
+    def work(chunks):
+        r, c = chunks.shape
+        m = r * c
+        return 3.0 * m, 4.0 * m + code_bytes * m + 4.0 * r
+    return work
+
+
+def _dequantize_work(values_per_code: int):
+    """A per-row dequantize to ``(R, C)`` f32: a product an element; reads
+    the codes and scales, writes the rows."""
+    def work(q, scales):
+        r = q.shape[0]
+        m = r * q.shape[1] * values_per_code
+        return float(m), float(q.numel() * q.element_size()) + 4.0 * r + 4.0 * m
+    return work
+
+
+def _topk_work(chunks, k):
+    """k extraction passes over each row; reads the rows, writes k values
+    and k int32 indices a row."""
+    r, c = chunks.shape
+    return float(k * r * c), 4.0 * r * c + 8.0 * r * k
+
+
+def _scatter_work(vals, idx, chunk, acc=None, weight=1.0):
+    """A product and a sum a value; reads the values and indices (and
+    ``acc``), writes the dense rows."""
+    r, k = vals.shape
+    return 2.0 * r * k, 4.0 * r * chunk * (2 if acc is not None else 1) + 8.0 * r * k
+
+
+def _wire_bytes(n: int, fmt: str) -> int:
+    return n // 2 if fmt == "int4" else n
+
+
+def _encode_work(x, xhat, *, fmt="int8"):
+    """5 operations an element (difference, scale, round, product, sum);
+    reads x and xhat, writes the codes, scales and xhat'."""
+    n, r = x.numel(), x.shape[0]
+    return 5.0 * n, 8.0 * n + _wire_bytes(n, fmt) + 4.0 * r + 4.0 * n
+
+
+def _decode_work(s, sources, *, fmt, weights):
+    """3 operations an element a source and the sum with ``s``; reads
+    ``s`` and every source's codes and scales, writes ``s'``."""
+    n, r, j = s.numel(), s.shape[0], len(weights)
+    return float((3 * j + 1) * n), 4.0 * n + j * (_wire_bytes(n, fmt) + 4.0 * r) + 4.0 * n
+
+
+# ---------------------------------------------------------------------------
 # int8, int4 and fp8 (e4m3) quantize / dequantize: kernels + plain versions
 # ---------------------------------------------------------------------------
 
@@ -188,6 +251,7 @@ def quantize_int8_plain(chunks: torch.Tensor):
     return round_clip_int8(y), scales
 
 
+@counted(_quantize_work(1.0))
 def quantize_int8(chunks: torch.Tensor):
     """Per-row symmetric int8 of ``(R, C)`` f32 rows: ``(q int8 (R, C),
     scales (R,) f32)``. CPU tensors run :func:`quantize_int8_plain`; CUDA
@@ -195,7 +259,7 @@ def quantize_int8(chunks: torch.Tensor):
     128) or raise."""
     if chunks.dim() != 2:
         raise ValueError(f"chunks must be (R, C), got {tuple(chunks.shape)}")
-    if not chunks.is_cuda:
+    if not on_card(chunks):
         return quantize_int8_plain(chunks)
     return _launch_quantize(quantize_int8, "int8_codec", chunks, torch.int8, chunks.shape[1])
 
@@ -208,12 +272,13 @@ def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor
     return dequantize_rows(q.to(torch.float32), scales)
 
 
+@counted(_dequantize_work(1))
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int8`: ``(R, C)`` int8 and ``(R,)`` f32
     scales -> ``(R, C)`` f32. CPU tensors run :func:`dequantize_int8_plain`;
     CUDA tensors launch ``csrc/int8_codec.cu`` or raise."""
     _check_codes(q, scales)
-    if not q.is_cuda:
+    if not on_card(q):
         return dequantize_int8_plain(q, scales)
     return _launch_dequantize(dequantize_int8, "int8_codec", q, scales, torch.int8, q.shape[1])
 
@@ -230,6 +295,7 @@ def quantize_int4_plain(chunks: torch.Tensor):
     return pack_int4(round_clip_int4(y)), scales
 
 
+@counted(_quantize_work(0.5))
 def quantize_int4(chunks: torch.Tensor):
     """Per-row symmetric int4 of ``(R, C)`` f32 rows, two codes a byte
     (see :func:`quantize_int4_plain`). CPU tensors run the plain version;
@@ -237,7 +303,7 @@ def quantize_int4(chunks: torch.Tensor):
     multiple of 128) or raise."""
     if chunks.dim() != 2 or chunks.shape[1] % 2:
         raise ValueError(f"chunks must be (R, C) with C even, got {tuple(chunks.shape)}")
-    if not chunks.is_cuda:
+    if not on_card(chunks):
         return quantize_int4_plain(chunks)
     return _launch_quantize(quantize_int4, "int4_codec", chunks, torch.uint8, chunks.shape[1] // 2)
 
@@ -251,13 +317,14 @@ def dequantize_int4_plain(packed: torch.Tensor, scales: torch.Tensor) -> torch.T
     return dequantize_rows(unpack_int4(packed).to(torch.float32), scales)
 
 
+@counted(_dequantize_work(2))
 def dequantize_int4(packed: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_int4`: ``(R, C / 2)`` uint8 and ``(R,)``
     f32 scales -> ``(R, C)`` f32. CPU tensors run
     :func:`dequantize_int4_plain`; CUDA tensors launch
     ``csrc/int4_codec.cu`` or raise."""
     _check_codes(packed, scales)
-    if not packed.is_cuda:
+    if not on_card(packed):
         return dequantize_int4_plain(packed, scales)
     return _launch_dequantize(dequantize_int4, "int4_codec", packed, scales, torch.uint8, 2 * packed.shape[1])
 
@@ -274,6 +341,7 @@ def quantize_fp8_plain(chunks: torch.Tensor):
     return to_e4m3(y), scales
 
 
+@counted(_quantize_work(1.0))
 def quantize_fp8(chunks: torch.Tensor):
     """Per-row scaled e4m3 of ``(R, C)`` f32 rows (see
     :func:`quantize_fp8_plain`). CPU tensors run the plain version; CUDA
@@ -281,7 +349,7 @@ def quantize_fp8(chunks: torch.Tensor):
     128) or raise."""
     if chunks.dim() != 2:
         raise ValueError(f"chunks must be (R, C), got {tuple(chunks.shape)}")
-    if not chunks.is_cuda:
+    if not on_card(chunks):
         return quantize_fp8_plain(chunks)
     return _launch_quantize(quantize_fp8, "int8_codec", chunks, torch.float8_e4m3fn, chunks.shape[1])
 
@@ -295,13 +363,14 @@ def dequantize_fp8_plain(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return dequantize_rows(from_e4m3(q), scales)
 
 
+@counted(_dequantize_work(1))
 def dequantize_fp8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_fp8`: ``(R, C)`` e4m3 and ``(R,)`` f32
     scales -> ``(R, C)`` f32. CPU tensors run :func:`dequantize_fp8_plain`;
     CUDA tensors launch ``csrc/int8_codec.cu`` (the int8 dequantize's
     kernel on e4m3 input) or raise."""
     _check_codes(q, scales)
-    if not q.is_cuda:
+    if not on_card(q):
         return dequantize_fp8_plain(q, scales)
     return _launch_dequantize(dequantize_fp8, "int8_codec", q, scales, torch.float8_e4m3fn, q.shape[1])
 
@@ -326,6 +395,7 @@ def chunked_topk_plain(chunks: torch.Tensor, k: int):
     return ftz(torch.gather(chunks, 1, idx.long())) + 0.0, idx
 
 
+@counted(_topk_work)
 def chunked_topk(chunks: torch.Tensor, k: int):
     """Top-k by magnitude per row of ``(R, C)`` f32 (see
     :func:`chunked_topk_plain`). CPU tensors run the plain version; CUDA
@@ -333,7 +403,7 @@ def chunked_topk(chunks: torch.Tensor, k: int):
     1024, k at most 64) or raise."""
     if chunks.dim() != 2 or not 0 < k <= chunks.shape[1]:
         raise ValueError(f"chunks must be (R, C) with 0 < k <= C, got {tuple(chunks.shape)}, k={k}")
-    if not chunks.is_cuda:
+    if not on_card(chunks):
         return chunked_topk_plain(chunks, k)
     rows, chunk = chunks.shape
     if chunk % _LANE or chunk > _TOPK_MAX_CHUNK or k > _TOPK_MAX_K:
@@ -370,7 +440,7 @@ def chunk_scatter_plain(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
     Every operand and result is flushed (:func:`~consensusml_tpu_torch.
     numerics.ftz`): a subnormal value or ``acc`` element comes out
     ``+0.0``, as from the reference's compiled kernel."""
-    v = ftz(ftz(vals.to(torch.float32)) * torch.tensor(np.float32(weight), device=vals.device)) + 0.0
+    v = ftz(ftz(vals.to(torch.float32)) * torch.full((), np.float32(weight), dtype=torch.float32, device=vals.device)) + 0.0
     base = acc.to(torch.float32) if acc is not None else torch.zeros(
         (vals.shape[0], chunk), dtype=torch.float32, device=vals.device)
     base = ftz(base) + 0.0
@@ -378,6 +448,7 @@ def chunk_scatter_plain(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
     return base.scatter(1, i, ftz(torch.gather(base, 1, i) + v))
 
 
+@counted(_scatter_work)
 def chunk_scatter(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
                   acc: torch.Tensor | None = None, weight: float = 1.0) -> torch.Tensor:
     """Densify ``(R, k)`` f32 values at distinct int32 chunk-local indices
@@ -389,7 +460,7 @@ def chunk_scatter(vals: torch.Tensor, idx: torch.Tensor, chunk: int,
         raise ValueError(f"vals and idx must be one (R, k) shape, got {tuple(vals.shape)} {tuple(idx.shape)}")
     if acc is not None and tuple(acc.shape) != (vals.shape[0], chunk):
         raise ValueError(f"acc must be ({vals.shape[0]}, {chunk}), got {tuple(acc.shape)}")
-    if not vals.is_cuda:
+    if not on_card(vals):
         return chunk_scatter_plain(vals, idx, chunk, acc, weight)
     rows, k = vals.shape
     _check_chunk("chunk scatter", chunk)
@@ -471,6 +542,7 @@ def fused_pack_quantize_plain(x: torch.Tensor, xhat: torch.Tensor, fmt: str = "i
     return data, scales, ftz(fma_f32(codes, scales[:, None], h))
 
 
+@counted(_encode_work)
 def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8"):
     """Fused wire ENCODE over ``(R, chunk)`` f32 rows: ``q = Q(x - xhat)``
     with per-row scales, plus the CHOCO tracking update ``xhat' = xhat +
@@ -486,7 +558,7 @@ def fused_pack_quantize(x: torch.Tensor, xhat: torch.Tensor, *, fmt: str = "int8
     if x.shape != xhat.shape or x.dim() != 2 or x.shape[1] % pack:
         raise ValueError(f"x and xhat must be one (R, chunk) shape (chunk a multiple of {pack}), "
                          f"got {tuple(x.shape)} {tuple(xhat.shape)}")
-    if not x.is_cuda:
+    if not on_card(x):
         return fused_pack_quantize_plain(x, xhat, fmt)
     rows, chunk = x.shape
     _check_chunk("encode", chunk)
@@ -515,7 +587,7 @@ def fused_dequantize_accumulate_plain(s: torch.Tensor, sources, *, fmt: str, wei
     .)``), and ``s`` joins last, on its own rounding; with one source it
     is ``fma(w0, d0, s)``. Subnormal inputs and results are zeros."""
     decs = [dequantize_rows(_code_values(data, fmt), scales) for data, scales in sources]
-    w = [torch.tensor(np.float32(wj), device=s.device) for wj in weights]
+    w = [torch.full((), np.float32(wj), dtype=torch.float32, device=s.device) for wj in weights]
     base = ftz(s)
     if len(decs) == 1:
         return ftz(fma_f32(w[0], decs[0], base))
@@ -525,6 +597,7 @@ def fused_dequantize_accumulate_plain(s: torch.Tensor, sources, *, fmt: str, wei
     return ftz(base + recv)
 
 
+@counted(_decode_work)
 def fused_dequantize_accumulate(s: torch.Tensor, sources, *, fmt: str, weights) -> torch.Tensor:
     """Fused wire DECODE: ``s' = s + sum_j weights[j] * dec(q_j)`` in one
     pass over ``(R, chunk)`` f32 rows (see
@@ -547,7 +620,7 @@ def fused_dequantize_accumulate(s: torch.Tensor, sources, *, fmt: str, weights) 
         if tuple(data.shape) != (rows, chunk // pack) or tuple(scales.shape) != (rows,):
             raise ValueError(f"a source must be ({rows}, {chunk // pack}) data and ({rows},) scales, "
                              f"got {tuple(data.shape)} {tuple(scales.shape)}")
-    if not s.is_cuda:
+    if not on_card(s):
         return fused_dequantize_accumulate_plain(s, sources, fmt=fmt, weights=weights)
     _check_chunk("decode", chunk)
     if len(sources) > _DECODE_MAX_SOURCES:

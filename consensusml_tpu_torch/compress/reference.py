@@ -106,7 +106,7 @@ def quantize_rows(chunks: torch.Tensor, levels: float = 127.0):
     x = ftz(chunks)
     absmax = x.abs().amax(dim=1)
     recip = np.float32(1.0) / np.float32(levels)
-    scales = ftz(absmax * torch.tensor(recip, dtype=torch.float32, device=absmax.device))
+    scales = ftz(absmax * torch.full((), recip, dtype=torch.float32, device=absmax.device))
     pos = scales > 0
     one = torch.ones_like(scales)
     inv = torch.where(pos, one / torch.where(pos, scales, one), torch.zeros_like(scales))
@@ -134,7 +134,7 @@ def from_e4m3(q: torch.Tensor) -> torch.Tensor:
     """``float8_e4m3fn`` -> f32, exact, a NaN code to the reference's f32
     NaN of its sign."""
     f = q.to(torch.float32)
-    nan = torch.tensor(_F32_QNAN, dtype=torch.int32, device=q.device).view(torch.float32)
+    nan = torch.tensor(_F32_QNAN, dtype=torch.int32).to(q.device).view(torch.float32)
     return torch.where(torch.isnan(f), torch.where(torch.signbit(f), nan[1], nan[0]), f)
 
 

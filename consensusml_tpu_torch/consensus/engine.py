@@ -843,7 +843,7 @@ class ConsensusEngine:
         x = plan.pack([t.to(torch.float32) for t in compressed], stacked=True)
         del compressed
         _check_state(x, state.choco.xhat, True)
-        gamma = torch.tensor(self.config.gamma, dtype=torch.float32, device=w.device)
+        gamma = torch.tensor(self.config.gamma, dtype=torch.float32).to(w.device)
         xhat, s, corr = [], [], []
         for i, (hb, sb) in enumerate(zip(state.choco.xhat, state.choco.s)):
             h, sn = self._exchange_bucket_simulated(x[i], hb, sb, w, fused)
@@ -912,7 +912,7 @@ class ConsensusEngine:
         del compressed, exact, theirs
         xhat, fold = self._exchange_start(topo, x, list(state.choco.xhat), fused, mesh, e_bufs, e_computed)
         del x
-        gamma = torch.tensor(self.config.gamma, dtype=torch.float32, device=mesh.device)
+        gamma = torch.tensor(self.config.gamma, dtype=torch.float32).to(mesh.device)
 
         def finish() -> OverlapState:
             s, e_mixed = fold(list(state.choco.s))
@@ -988,6 +988,56 @@ class ConsensusEngine:
             "wire_fused_kernel_calls_per_round": float(stages * fused_buckets * self.config.gossip_steps),
             "gossip_pipeline_depth": float(self.config.pipeline_depth),
         }
+
+    def register_costs(self, ledger: Any, params: Any, *, name: str = "gossip.round") -> Any:
+        """Count ONE simulated gossip round over ``params`` into the cost
+        ledger (:mod:`consensusml_tpu_torch.obs.costs`), tagged with the
+        active bucket plan (the reference's ``register_costs``).
+
+        ``params`` is the STACKED gossiped tree (leading worker axis), real
+        tensors or fakes: the round runs once on fake copies, its gossip
+        state built from them outside the count (nothing is allocated or
+        launched on the device, and the live state is not read). The row's
+        ``meta`` carries the transport facts: bucket count and per-bucket
+        packed element counts, per-worker wire bytes, fused-wire and
+        pipeline state. Overlap configs register their transport twin
+        (``overlap=False``), as the reference's: the innovation exchange is
+        the same program family and the delayed correction's bookkeeping
+        lives in the train step's row. Warm-up and refresh configs count a
+        steady (compressed) round: ``meta["step"]`` is the round counter
+        passed. Returns the :class:`~consensusml_tpu_torch.obs.costs.
+        ExecutableCost` row."""
+        eng = self
+        if self.config.overlap:
+            eng = ConsensusEngine(dataclasses.replace(self.config, overlap=False, pipeline_depth=1))
+        topo = eng.topology
+        w = simulated.phase_matrices(topo)[0] if topo.is_time_varying else simulated.mixing_matrix(topo)
+        cfg = eng.config
+        step = None
+        if cfg.codec_warmup_rounds > 0 or cfg.codec_refresh_every > 0:
+            step = cfg.codec_warmup_rounds
+            if cfg.codec_refresh_every > 0 and step % cfg.codec_refresh_every == 0:
+                step += 1
+
+        def round_fn(p, s):
+            return eng.round_simulated(p, s, w.to(T.leaves(p)[0].device), step=step)
+
+        per_worker = T.tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype, device="meta"), params)
+        plan = eng.bucket_plan(params, stacked=True)
+        meta = {
+            "topology": type(topo).__name__,
+            "world": topo.world_size,
+            "buckets": plan.num_buckets if plan is not None else 0,
+            "bucket_elems": [int(b.total) for b in plan.buckets] if plan is not None else [],
+            "wire_bytes_per_round": eng.wire_bytes_per_round(per_worker),
+            "fused_wire": eng.fused_wire_active,
+            "pipeline_depth": self.config.pipeline_depth,
+            "gossip_steps": cfg.gossip_steps,
+            "overlap_twin": self.config.overlap,
+            "step": step,
+        }
+        return ledger.register(name, round_fn, params, meta=meta,
+                               setup=lambda p: (eng.init_state(p, world_size=topo.world_size),))
 
     def choco_residual(self, state: Any) -> float | None:
         """The CHOCO tracking residual ``||s - xhat||`` of a gossip state

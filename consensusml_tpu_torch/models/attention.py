@@ -107,7 +107,7 @@ def dot_product_attention(
     logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * _scale(q.shape[-1]).to(q.device)
     if bias is not None:
         logits = logits + bias.float()
-    neg = torch.tensor(_NEG_INF, dtype=torch.float32, device=q.device)
+    neg = torch.full((), _NEG_INF, dtype=torch.float32, device=q.device)
     if mask is not None:
         logits = torch.where(mask[:, None], logits, neg)
     if causal:
@@ -282,7 +282,7 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0, device
     reference computes it: ``inv = 1 / theta ** (arange(0, D, 2) / D)``,
     angles ``t * inv``, then ``[cos, sin]`` on the last axis."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32).to(device), exps)
     freqs = torch.outer(torch.arange(max_len, dtype=torch.float32, device=device), inv)
     return torch.stack([torch.cos(freqs), torch.sin(freqs)], dim=-1)
 

@@ -37,7 +37,12 @@ Under autograd :func:`flash_attention` is a ``torch.autograd.Function``
 the backward computes ``delta = sum(do * o)`` in f32 with plain ops (the
 reference does this outside its kernels too) and launches the dq and
 dk/dv kernels. Every wrapper runs its plain version for tensors on the
-CPU and its kernel for CUDA tensors (or raises); it never falls back.
+CPU and its kernel for CUDA tensors (or raises); it never falls back. Under a
+``workcount`` counter each wrapper reports its function's work from its
+shapes (``workcount.counted``) and runs with counting suspended; a fake
+tensor (the counting pass's) takes the plain route, on ``meta`` copies. A
+masked row is priced at the static extent (every pair the causal flag
+leaves).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.numerics import ftz
+from consensusml_tpu_torch.workcount import counted, on_card, report, via_meta
 
 __all__ = [
     "flash_attention",
@@ -193,6 +199,47 @@ def _check_kv_mask(q, kv_mask) -> None:
         )
 
 
+# each kernel's work from its arguments' shapes (workcount.counted): the
+# figures its bound prices. A masked row is priced at the static extent
+# (every pair the causal flag leaves), as a compiled program is.
+
+
+def _pairs(q, causal: bool) -> int:
+    """(query, key) pairs a call computes, over batch and heads."""
+    b, s, h, _ = q.shape
+    return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
+def _mask_bytes(q, kv_mask) -> int:
+    return q.shape[0] * q.shape[1] * 4 if kv_mask is not None else 0
+
+
+def _fwd_work(q, k, v, *, causal=False, kv_mask=None, dtype=torch.bfloat16, return_lse=False, use_kernel=True):
+    """4 operations a pair a head dimension (q.k, p.v); reads q, k, v (and
+    the mask), writes the output and, when it is kept (returned, or saved
+    for the backward), the f32 lse."""
+    b, s, h, d = q.shape
+    keep_lse = return_lse or (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)))
+    nbytes = 4 * q.numel() * q.element_size() + (b * h * s * 4 if keep_lse else 0) + _mask_bytes(q, kv_mask)
+    return 4.0 * q.shape[3] * _pairs(q, causal), float(nbytes)
+
+
+def _dq_work(q, k, v, dout, lse, delta, *, causal=False, kv_mask=None):
+    """6 operations a pair a head dimension; reads q, k, v, dout, lse,
+    delta (and the mask), writes dq."""
+    b, s, h, d = q.shape
+    nbytes = 5 * q.numel() * q.element_size() + 2 * b * h * s * 4 + _mask_bytes(q, kv_mask)
+    return 6.0 * d * _pairs(q, causal), float(nbytes)
+
+
+def _dkv_work(q, k, v, dout, lse, delta, *, causal=False, kv_mask=None):
+    """8 operations a pair a head dimension; reads q, k, v, dout, lse,
+    delta (and the mask), writes dk and dv."""
+    b, s, h, d = q.shape
+    nbytes = 6 * q.numel() * q.element_size() + 2 * b * h * s * 4 + _mask_bytes(q, kv_mask)
+    return 8.0 * d * _pairs(q, causal), float(nbytes)
+
+
 def _mask_ptr(kv_mask):
     return kv_mask.data_ptr() if kv_mask is not None else None
 
@@ -273,6 +320,7 @@ def flash_attention_bwd_plain(q, k, v, out, dout, lse, *, causal: bool = False, 
     return _bwd_plain_parts(q, k, v, dout, lse, _delta(out, dout), causal, kv_mask)
 
 
+@counted(_dq_work)
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False, kv_mask=None):
     """dq through ``csrc/flash_attention_bwd.cu`` for CUDA tensors (bf16,
     contiguous, 16-byte aligned, head dim 64 or 128; ``lse``/``delta``
@@ -281,7 +329,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False, k
     ``flash_attention_bwd_dq.launches``, a masked one also to
     ``flash_attention_bwd_dq.masked_launches``, one at head dim 128 to
     ``flash_attention_bwd_dq.d128_launches``."""
-    if not q.is_cuda:
+    if not on_card(q):
         return _bwd_plain_parts(q, k, v, dout, lse, delta, causal, kv_mask)[0]
     ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
     _check_kernel_operands(q, ops, 16)
@@ -302,6 +350,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, *, causal: bool = False, k
     return dq
 
 
+@counted(_dkv_work)
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False, kv_mask=None):
     """``(dk, dv)`` through ``csrc/flash_attention_bwd.cu`` for CUDA
     tensors, the plain version for CPU tensors (same operand rules as
@@ -309,7 +358,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, *, causal: bool = False, 
     ``flash_attention_bwd_dkv.launches``, a masked one also to
     ``flash_attention_bwd_dkv.masked_launches``, one at head dim 128 to
     ``flash_attention_bwd_dkv.d128_launches``."""
-    if not q.is_cuda:
+    if not on_card(q):
         return _bwd_plain_parts(q, k, v, dout, lse, delta, causal, kv_mask)[1:]
     ops = (("q", q), ("k", k), ("v", v), ("dout", dout))
     _check_kernel_operands(q, ops, 16)
@@ -346,12 +395,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, use_kernel):
-        if q.is_cuda and use_kernel:
+        if on_card(q) and use_kernel:
             out, lse = _forward(q, k, v, causal, True, kv_mask)
         else:
-            out, lse = flash_attention_plain(
-                q, k, v, causal=causal, kv_mask=kv_mask, dtype=q.dtype, return_lse=True
-            )
+            out, lse = via_meta(flash_attention_plain, q, k, v, causal=causal, kv_mask=kv_mask, dtype=q.dtype,
+                                return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, kv_mask)
         ctx.mark_non_differentiable(lse)
         ctx.causal, ctx.use_kernel = causal, use_kernel
@@ -363,12 +411,17 @@ class _FlashAttention(torch.autograd.Function):
         dout = dout.contiguous()
         delta = _delta(out, dout)
         if not ctx.use_kernel:
-            return (*_bwd_plain_parts(q, k, v, dout, lse, delta, ctx.causal, kv_mask), None, None, None)
+            dq_f, dq_b = _dq_work(q, k, v, dout, lse, delta, causal=ctx.causal, kv_mask=kv_mask)
+            dkv_f, dkv_b = _dkv_work(q, k, v, dout, lse, delta, causal=ctx.causal, kv_mask=kv_mask)
+            with report("flash_attention_bwd", dq_f + dkv_f, dq_b + dkv_b):
+                grads = via_meta(_bwd_plain_parts, q, k, v, dout, lse, delta, ctx.causal, kv_mask)
+            return (*grads, None, None, None)
         dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=ctx.causal, kv_mask=kv_mask)
         dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=ctx.causal, kv_mask=kv_mask)
         return dq, dk, dv, None, None, None
 
 
+@counted(_fwd_work, meta_route=False)
 def flash_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,
@@ -403,10 +456,9 @@ def flash_attention(
         out, lse = _FlashAttention.apply(q, k, v, kv_mask, causal, use_kernel)
         out = out.to(dtype)
         return (out, lse) if return_lse else out
-    if not q.is_cuda or not use_kernel:
-        return flash_attention_plain(
-            q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype, return_lse=return_lse
-        )
+    if not on_card(q) or not use_kernel:
+        return via_meta(flash_attention_plain, q, k, v, causal=causal, kv_mask=kv_mask, dtype=dtype,
+                        return_lse=return_lse)
     out, lse = _forward(q, k, v, causal, return_lse, kv_mask)
     out = out.to(dtype)
     return (out, lse) if return_lse else out

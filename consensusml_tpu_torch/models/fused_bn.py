@@ -21,7 +21,10 @@ view (channels last) of f32 or bf16 input, all arithmetic in f32:
 Each wrapper runs its plain version (``*_plain``, beside it) for a CPU
 tensor and launches its kernel for a CUDA tensor, raising on what the
 kernel does not take (a non-contiguous view is refused, not copied); it
-never falls back. Each launch adds one to the wrapper's ``launches``.
+never falls back. Each launch adds one to the wrapper's ``launches``. Under a
+``workcount`` counter each wrapper reports its function's work from its
+shapes (``workcount.counted``) and runs with counting suspended; a fake
+tensor (the counting pass's) takes the plain route, on ``meta`` copies.
 
 Forward and backward (kernels, plain versions and the plain per-channel
 ops between them) flush f32 subnormals as the reference's compiled
@@ -61,6 +64,7 @@ from torch import nn
 
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.numerics import ftz, inv_rows
+from consensusml_tpu_torch.workcount import counted, on_card
 
 __all__ = [
     "IMPLS",
@@ -424,12 +428,34 @@ def _stats_launch(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps
     return out
 
 
+
+def _stats_work(x2, *_args):
+    """The statistics kernel: 3 operations an element; reads x, writes two
+    f32 per-channel vectors (the figures its bound prices)."""
+    n, c = x2.numel(), x2.shape[1]
+    return 3.0 * n, float(x2.element_size() * n + 8 * c)
+
+
+def _norm_work(x2, scale, shift, relu):
+    """3 operations an element; reads x and two f32 vectors, writes y."""
+    n, c = x2.numel(), x2.shape[1]
+    return 3.0 * n, float(2 * x2.element_size() * n + 8 * c)
+
+
+def _bwd_work(dy2, x2, *_args, plan=None):
+    """11 operations an element (the mask, xhat, the two sums, dx); reads
+    dy and x, writes dx, reads four f32 vectors and writes two."""
+    n, c = x2.numel(), x2.shape[1]
+    return 11.0 * n, float((dy2.element_size() + 2 * x2.element_size()) * n + 24 * c)
+
+
+@counted(_stats_work)
 def bn_stats(x2: torch.Tensor):
     """``(sum x, sum x**2)`` per channel of ``(M, C)`` ``x2`` (f32 or bf16),
     f32: for a CUDA tensor the sums of the forward's statistics launch
     (:func:`bn_forward_stats`'s, with gamma 1 and beta 0), for a CPU one
     :func:`bn_stats_plain`. Each launch adds one to ``bn_stats.launches``."""
-    if not x2.is_cuda:
+    if not on_card(x2):
         return bn_stats_plain(x2)
     c = x2.shape[1]
     ones = torch.ones(c, dtype=torch.float32, device=x2.device)
@@ -445,6 +471,7 @@ def bn_forward_stats_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Te
     return mean, var, scale, shift, rsqrt
 
 
+@counted(_stats_work, name="bn_stats")
 def bn_forward_stats(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float):
     """``(mean, var, scale, shift, rsqrt)`` of the forward, each ``(C,)``
     f32: for a CUDA tensor one launch of the statistics kernel whose fold
@@ -453,17 +480,18 @@ def bn_forward_stats(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, 
     runs no plain op between its two kernels; for a CPU tensor
     :func:`bn_forward_stats_plain`. Adds one to ``bn_stats.launches``."""
     gamma, beta = gamma.float(), beta.float()
-    if not x2.is_cuda:
+    if not on_card(x2):
         return bn_forward_stats_plain(x2, gamma, beta, eps)
     return tuple(_stats_launch(x2, gamma, beta, eps)[2:])
 
 
+@counted(_norm_work)
 def bn_norm(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bool) -> torch.Tensor:
     """``x * scale + shift`` (then relu) in x's dtype: ``csrc/fused_bn.cu``
     for a CUDA tensor, :func:`bn_norm_plain` for a CPU one. ``scale`` and
     ``shift`` are contiguous ``(C,)`` f32. Each launch adds one to
     ``bn_norm.launches``."""
-    if not x2.is_cuda:
+    if not on_card(x2):
         return bn_norm_plain(x2, scale, shift, relu)
     _check_view("x", x2)
     _check_vectors(x2, scale=scale, shift=shift)
@@ -477,13 +505,14 @@ def bn_norm(x2: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, relu: bo
     return y
 
 
+@counted(_bwd_work)
 def bn_bwd(dy2, x2, scale, shift, mean, rsqrt, relu: bool, *, plan: BwdPlan | None = None):
     """``(dx, dbeta, dgamma)``: the whole backward in one launch of
     ``csrc/fused_bn.cu`` for CUDA tensors (``plan``, by default
     :func:`bn_bwd_plan`'s), :func:`bn_bwd_plain` for CPU ones. ``dy2`` has
     x's shape and dtype; ``dx`` is in x's dtype, the sums f32. Each launch
     adds one to ``bn_bwd.launches``."""
-    if not x2.is_cuda:
+    if not on_card(x2):
         return bn_bwd_plain(dy2, x2, scale, shift, mean, rsqrt, relu)
     _check_view("x", x2)
     _check_view("dy", dy2, like=x2)

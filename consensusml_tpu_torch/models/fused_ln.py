@@ -15,7 +15,10 @@ view (normalised over H), all arithmetic in f32:
 Each wrapper runs its plain version (``*_plain``, beside it) for a CPU
 tensor and launches its kernel for a CUDA tensor, raising on what the
 kernel does not take (a non-contiguous view is refused, not copied); it
-never falls back. Each launch adds one to the wrapper's ``launches``.
+never falls back. Each launch adds one to the wrapper's ``launches``. Under a
+``workcount`` counter each wrapper reports its function's work from its
+shapes (``workcount.counted``) and runs with counting suspended; a fake
+tensor (the counting pass's) takes the plain route, on ``meta`` copies.
 
 :func:`fused_layer_norm` is the reference's ``custom_vjp`` as a
 ``torch.autograd.Function``: it saves only ``(x, gamma)`` and the
@@ -41,6 +44,7 @@ from torch import nn
 
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.numerics import ftz, inv_rows
+from consensusml_tpu_torch.workcount import counted, on_card
 
 __all__ = [
     "IMPLS",
@@ -198,6 +202,22 @@ def _launched(wrapper, rc: int) -> None:
     wrapper.launches += 1
 
 
+
+def _ln_fwd_work(x2, gamma, beta, eps=1e-6, out_dtype=None):
+    """8 operations an element; reads x, writes y (``out_dtype``), reads
+    gamma and beta (f32)."""
+    n, h = x2.numel(), x2.shape[-1]
+    return 8.0 * n, float(x2.element_size() * n + (out_dtype or torch.float32).itemsize * n + 8 * h)
+
+
+def _ln_bwd_work(dy2, x2, gamma, eps=1e-6, *, plan=None):
+    """16 operations an element; reads dy and x, writes dx, reads gamma and
+    writes dgamma and dbeta (f32)."""
+    n, h = x2.numel(), x2.shape[-1]
+    return 16.0 * n, float((dy2.element_size() + 2 * x2.element_size()) * n + 12 * h)
+
+
+@counted(_ln_fwd_work)
 def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6,
            out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Row LayerNorm of ``(M, H)`` ``x2`` (f32 or bf16) into ``out_dtype``
@@ -205,7 +225,7 @@ def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     :func:`ln_fwd_plain` for a CPU one. Each launch adds one to
     ``ln_fwd.launches``."""
     out_dtype = out_dtype or torch.float32
-    if not x2.is_cuda:
+    if not on_card(x2):
         return ln_fwd_plain(x2, gamma, beta, eps, out_dtype)
     _check_rows("x", x2)
     _check_vectors(x2, gamma=gamma, beta=beta)
@@ -222,6 +242,7 @@ def ln_fwd(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float
     return y
 
 
+@counted(_ln_bwd_work)
 def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6, *,
            plan: BwdPlan | None = None):
     """``(dx, dgamma, dbeta)`` of the row LayerNorm: ``dx`` in x's dtype,
@@ -231,7 +252,7 @@ def ln_bwd(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor, eps: float 
     order after an integer ticket: no float atomics, a rerun gives the same
     bits), :func:`ln_bwd_plain` for CPU ones. Each launch adds one to
     ``ln_bwd.launches``."""
-    if not x2.is_cuda:
+    if not on_card(x2):
         return ln_bwd_plain(dy2, x2, gamma, eps)
     _check_rows("x", x2)
     _check_rows("dy", dy2, like=x2)

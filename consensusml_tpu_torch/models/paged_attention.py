@@ -19,7 +19,10 @@ Tiers (``attn_impl``), resolved once by :func:`resolve_attention_impl`:
 - ``"cuda"``: :func:`paged_attention`, the kernel wrapper.
 
 ``"auto"`` is the kernel tier on a CUDA device and the plain tier on the
-CPU.
+CPU. Under a ``workcount`` counter the wrapper reports its work at the
+static extent of its call (every key the block table reaches, whatever the
+positions), as a compiled program is priced; a fake tensor takes the plain
+route.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from consensusml_tpu_torch import kernels
 from consensusml_tpu_torch.models.attention import gather_paged_kv
 from consensusml_tpu_torch.numerics import ftz
+from consensusml_tpu_torch.workcount import counted, on_card
 
 __all__ = [
     "ATTENTION_IMPLS",
@@ -293,6 +297,22 @@ def _lib():
     return lib
 
 
+
+def _paged_work(q, k_pages, v_pages, block_table, positions, dtype=torch.bfloat16, *, plan=None):
+    """Priced at the static extent of the call: every row of a slot may
+    attend every key its block table reaches (``nb * bs``), whatever its
+    position, as a compiled program is priced. 4 operations a (row, key)
+    pair a head dimension (q.k and p.v); reads q, each slot's K and V pages
+    once, the block table and positions, writes the output."""
+    s, w, h, d = q.shape
+    _n, bs, hkv, _d = k_pages.shape
+    keys = s * block_table.shape[-1] * bs
+    kv = 2 * keys * hkv * d * k_pages.element_size()
+    nbytes = kv + q.numel() * (q.element_size() + dtype.itemsize) + 4 * (block_table.numel() + positions.numel())
+    return 4.0 * w * keys * h * d, float(nbytes)
+
+
+@counted(_paged_work)
 def paged_attention(
     q: torch.Tensor,  # (S, W, H, D) bf16
     k_pages: torch.Tensor,  # (N, bs, Hkv, D) bf16
@@ -313,7 +333,7 @@ def paged_attention(
     over more than one cluster a slot (``plan.kv_heads < Hkv``), and one to
     ``paged_attention.window_launches`` where the window has more than 8
     rows (the tiled form)."""
-    if not q.is_cuda:
+    if not on_card(q):
         return paged_attention_plain(q, k_pages, v_pages, block_table, positions, dtype)
     s, w, h, d = q.shape
     n, bs, hkv, dk = k_pages.shape

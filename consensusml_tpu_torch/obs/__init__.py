@@ -18,8 +18,12 @@ against the reference reads the port unchanged).
 - :mod:`.flight`: the crash flight recorder (watchdog timeout, unhandled
   exception, SIGTERM).
 - :mod:`.httpd`: ``/metrics``, ``/traces``, ``/requests``, ``/events``,
-  ``/tenants``, ``/alerts``, ``/query``, ``/healthz``; ``/profile``
-  answers 501.
+  ``/tenants``, ``/alerts``, ``/query``, ``/healthz`` and ``/profile`` (an
+  on-demand ``torch.profiler`` capture, single-flight).
+- the cost plane: :mod:`.costs` (the per-executable cost ledger, counted
+  in one fake pass an executable, ``--cost-ledger`` and
+  ``Engine.register_costs``) and :mod:`.memviz` (live device-memory
+  gauges and the analytic / counted / live reconciliation).
 - the cluster plane: :mod:`.links` (per-edge probes, ``--link-probes``),
   :mod:`.health` (measured consensus decay against the spectral bound,
   always on in the round loop) and :mod:`.cluster` (per-rank snapshots,
@@ -33,8 +37,6 @@ Hot paths feed the process-wide singletons (``get_tracer()``,
 ``ServeServer(metrics_port=)`` the live plane of a serving process. With
 no sink configured the tracer stays disabled and metric updates are
 dict-cheap, so the instrumentation stays on everywhere.
-
-Not ported yet: the cost plane (``costs.py``, ``memviz.py``).
 """
 
 from consensusml_tpu_torch.obs.cluster import (  # noqa: F401
@@ -57,7 +59,13 @@ from consensusml_tpu_torch.obs.events import (  # noqa: F401
     peek_wide_event_log,
     sanitize_tenant,
 )
+from consensusml_tpu_torch.obs.costs import (  # noqa: F401
+    CostLedger,
+    ExecutableCost,
+    get_cost_ledger,
+)
 from consensusml_tpu_torch.obs.flight import FlightRecorder  # noqa: F401
+from consensusml_tpu_torch.obs.memviz import HbmAccountant  # noqa: F401
 from consensusml_tpu_torch.obs.history import (  # noqa: F401
     MetricsHistory,
     get_history,

@@ -30,9 +30,19 @@ textfile writer uses, freshly rendered per GET, so a Prometheus scraper
   TFLOPs, HBM gigabytes, block-seconds, worst-TTFT exemplars. Both
   PEEK the global log (wired ``events=`` wins): a scrape must never
   create one, so an un-armed process answers with an empty doc;
-- ``GET /profile`` — the reference's on-demand ``jax.profiler`` capture.
-  The port answers **501** with a JSON body saying the capture waits for
-  the cost plane (a CUDA profiler design); it fakes no capture.
+- ``GET /profile?ms=N`` — an ON-DEMAND ``torch.profiler`` capture of the
+  live process for N ms (default 500, at most 30 s): on a card its CUDA
+  activity, recorded card-wide (every kernel any thread launches in the
+  window: the train loop, a serving engine mid-traffic); on the CPU the
+  handler thread's own ops; the Chrome trace lands in
+  ``<profile_dir>/cap-<seq>-<time>/trace.json`` and the response carries
+  the machine-readable op summary (``consensusml_tpu_torch/tools/
+  profile_summary.py``: kernels by name). SINGLE-FLIGHT: one capture at
+  a time — a second request gets **409** with the in-flight capture's
+  id, and so does a request while the train CLI's ``--profile-dir``
+  window holds the process's profiler session (503 when another
+  profiler holds it). Capture directories rotate under ``profile_quota``
+  (oldest deleted).
 
 Surfaces: ``python -m consensusml_tpu_torch.train --metrics-port N`` and
 ``ServeServer(metrics_port=N)`` (``0`` picks a free port; read it back
@@ -53,11 +63,14 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from consensusml_tpu_torch.obs._annotations import guarded_by
 from consensusml_tpu_torch.obs.metrics import MetricsRegistry, get_registry
 from consensusml_tpu_torch.obs.requests import (
     RequestTraceRegistry,
@@ -82,8 +95,32 @@ def _jsonsafe(doc):
     return doc
 
 
+PROFILE_MAX_MS = 30_000  # one capture may stall a scraper thread this long
+PROFILE_DEFAULT_MS = 500
+
+
+def _profile_summary_json(trace_json: str) -> dict | None:
+    """The op summary of a capture (``tools/profile_summary.py``, loaded
+    through :func:`~consensusml_tpu_torch.obs.memviz.load_tool`); None when
+    the tool is absent or the parse fails."""
+    from consensusml_tpu_torch.obs.memviz import load_tool
+
+    try:
+        mod = load_tool("profile_summary")
+        return None if mod is None else mod.summarize(trace_json, top=500)
+    except Exception:
+        return None
+
+
+@guarded_by("_lock", "_profile_inflight", "_profile_seq")
 class MetricsServer:
-    """Threaded HTTP exporter over the process's observability state."""
+    """Threaded HTTP exporter over the process's observability state.
+
+    ``/profile``'s single-flight state is a flag under a plain ``with``
+    lock (the 409 loser reads the winner's capture id under it), and the
+    capture itself holds the process's profiler session
+    (:func:`~consensusml_tpu_torch.utils.profiling.claim_profiler`), which
+    the train CLI's ``--profile-dir`` window holds too."""
 
     def __init__(
         self,
@@ -97,6 +134,8 @@ class MetricsServer:
         tick_s: float = 0.0,
         events=None,
         ready_fn=None,
+        profile_dir: str | None = None,
+        profile_quota: int = 4,
     ):
         registry = registry if registry is not None else get_registry()
         tracer = tracer if tracer is not None else get_tracer()
@@ -119,6 +158,12 @@ class MetricsServer:
         # keeps the pre-fleet behavior: tick freshness alone decides.
         self.ready_fn = ready_fn
         server = self
+        # /profile: one capture at a time, captures rotating under a quota
+        self.profile_dir = profile_dir or os.path.join(tempfile.gettempdir(), f"cml-profiles-{os.getpid()}")
+        self.profile_quota = max(1, int(profile_quota))
+        self._lock = threading.Lock()
+        self._profile_seq = 0
+        self._profile_inflight: str | None = None
 
         self._m_captures = registry.counter(
             "consensusml_profile_captures_total",
@@ -345,14 +390,85 @@ class MetricsServer:
     # -- /profile ---------------------------------------------------------
 
     def _profile(self, query: dict) -> tuple[int, dict]:
-        """``/profile``: 501 until the cost plane brings a CUDA capture (the
-        reference captures with ``jax.profiler``); counted as refused."""
-        self._m_prof_rejected.inc()
-        return 501, {
-            "error": "/profile is not implemented in the PyTorch port yet: the on-demand capture waits for "
-                     "the cost plane; run the train CLI with --profile-dir for a torch.profiler trace",
-            "capture_id": None,
-        }
+        """One on-demand capture (the reference's ``_profile``). Returns
+        ``(http_status, doc)``. Runs on the scraper's handler thread: the
+        hot paths never wait on it. The locked check-and-set of
+        ``_profile_inflight`` is the single-flight guard; the process's
+        profiler session (held by a ``--profile-dir`` window) is the
+        second."""
+        import torch
+
+        from consensusml_tpu_torch.utils.profiling import (
+            PROFILER_SESSION,
+            claim_profiler,
+            profiler_activities,
+            release_profiler,
+        )
+
+        try:
+            ms = int(query.get("ms", [PROFILE_DEFAULT_MS])[0])
+        except (TypeError, ValueError):
+            return 400, {"error": "ms must be an integer"}
+        ms = min(max(ms, 10), PROFILE_MAX_MS)
+        with self._lock:
+            inflight = self._profile_inflight
+            if inflight is None:
+                self._profile_seq += 1
+                cap_id = f"cap-{self._profile_seq:05d}-{int(time.time())}"
+                self._profile_inflight = cap_id
+        if inflight is not None:
+            self._m_prof_rejected.inc()
+            return 409, {"error": "a profile capture is already in flight", "capture_id": inflight}
+        try:
+            if not claim_profiler(cap_id, wait=False):
+                self._m_prof_rejected.inc()
+                return 409, {"error": f"the profiler session is held by {PROFILER_SESSION['owner']!r}",
+                             "capture_id": PROFILER_SESSION["owner"]}
+            try:
+                cap_dir = os.path.join(self.profile_dir, cap_id)
+                os.makedirs(cap_dir, exist_ok=True)
+                # on a card its activity alone: the CPU side would record
+                # only this handler thread's ops, and cost the export time
+                acts = [torch.profiler.ProfilerActivity.CUDA] if torch.cuda.is_available() else profiler_activities()
+                prof = torch.profiler.profile(activities=acts)
+                try:
+                    prof.start()
+                except RuntimeError as e:
+                    # another profiler (not the --profile-dir window) holds the session
+                    self._m_prof_rejected.inc()
+                    shutil.rmtree(cap_dir, ignore_errors=True)
+                    return 503, {"error": f"profiler session unavailable: {e}", "capture_id": None}
+                try:
+                    time.sleep(ms / 1000.0)
+                finally:
+                    prof.stop()
+                trace_json = os.path.join(cap_dir, "trace.json")
+                prof.export_chrome_trace(trace_json)
+            finally:
+                release_profiler()
+            self._rotate_captures()
+            self._m_captures.inc()
+            return 200, {
+                "capture_id": cap_id,
+                "dir": cap_dir,
+                "ms": ms,
+                "trace_json": trace_json,
+                "summary": _profile_summary_json(trace_json),
+            }
+        finally:
+            with self._lock:
+                self._profile_inflight = None
+
+    def _rotate_captures(self) -> None:
+        """Keep the newest ``profile_quota`` capture dirs (ids sort by
+        sequence, so lexicographic order is capture order)."""
+        try:
+            caps = sorted(d for d in os.listdir(self.profile_dir)
+                          if d.startswith("cap-") and os.path.isdir(os.path.join(self.profile_dir, d)))
+        except OSError:
+            return
+        for stale in caps[: -self.profile_quota]:
+            shutil.rmtree(os.path.join(self.profile_dir, stale), ignore_errors=True)
 
     def url(self, path: str = "/metrics") -> str:
         return f"http://{self.address[0]}:{self.port}{path}"

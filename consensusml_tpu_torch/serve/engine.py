@@ -33,12 +33,13 @@ every ``consensusml_serve_*``, ``consensusml_pool_*``,
 ``consensusml_prefix_*`` and ``consensusml_spec_*`` family, the SLO
 histograms carrying request ids as exemplars; the per-tenant
 ``consensusml_tenant_*`` children; and one wide event a terminal request
-(:mod:`~consensusml_tpu_torch.obs.events`). The port has no cost ledger
-yet, so a wide event's cost is zeros with ``cost_joined: False``, as the
-reference's without one. None of it reads a device value.
+(:mod:`~consensusml_tpu_torch.obs.events`), which joins its request's
+device cost from the cost ledger once :meth:`Engine.register_costs` has
+counted every stage (before that, zeros with ``cost_joined: False``, as
+the reference's without a ledger). None of it reads a device value.
 
-Deferred to later slices: the cost ledger (``register_costs``) and the
-reference's per-slot (``kv_impl="slot"``) path.
+Deferred to later slices: the reference's per-slot (``kv_impl="slot"``)
+path.
 """
 
 from __future__ import annotations
@@ -175,6 +176,7 @@ class Engine:
             if self._prefix is not None:
                 # the draft's pages share the block geometry: a hit skips its prefill too
                 self._draft_prefix_prefill_fn = P.make_prefix_prefill_fn(sd, attn_impl=self.attn_impl)
+        self._cost_ledger = None  # set by register_costs()
         self._generation = 0  # artifact generation (load_engine seeds it)
         self._watcher = None
         # a score() holds this across its forward and a flip across its
@@ -435,6 +437,92 @@ class Engine:
                 torch.cuda.synchronize(dev)
         self._warmed.set()
         return counts
+
+    def register_costs(self, ledger: Any = None) -> dict[str, Any]:
+        """Count every serving stage into the cost ledger
+        (:mod:`consensusml_tpu_torch.obs.costs`; the reference's
+        ``register_costs``): one prefill row a prompt bucket
+        (``serve.prefill.b<L>``), with the prefix cache one suffix-prefill
+        row a bucket (``serve.prefix_prefill.b<L>``), the decode row
+        (``serve.decode``), with a draft its prefill rows, ``serve.spec.
+        propose`` and ``serve.spec.verify``, and the hot-swap staging
+        transfer (``serve.hotswap.stage``). Each stage runs once, at the
+        shapes :meth:`warmup` serves, on fake copies of the model, the
+        pages and its inputs (built in the pass): nothing launches, nothing
+        is allocated on the card, the live pages and parameters are not
+        written and the engine thread is not touched, so it may run beside
+        traffic (it costs one pass a stage on the caller's thread, so run
+        it with :meth:`warmup`, not per request). The rows price the
+        engine's resolved tier (``attn_impl``); the reference's ``.fused``
+        side-by-side rows have no counterpart (the port resolves one tier
+        an engine). From then on every wide event joins its request's rows.
+        Returns ``{name: ExecutableCost}``."""
+        if ledger is None:
+            from consensusml_tpu_torch.obs.costs import CostLedger, device_kind, get_cost_ledger
+
+            ledger = get_cost_ledger() if self.device.type == "cuda" else CostLedger(platform=device_kind("cpu"))
+        from consensusml_tpu_torch.workcount import fakes
+
+        cfg, dev, impl = self.config, self.device, self.attn_impl
+        s, bs, bps = cfg.num_slots, cfg.block_size, self._pool.blocks_per_slot
+        # one fake copy of the models and pages, shared by every stage's pass
+        dm, pages, draft_dm, draft_pages = fakes(self._dm, self._pages, getattr(self, "_draft_dm", None),
+                                                 getattr(self, "_draft_pages", None))
+        base = {"kv_impl": "paged", "num_slots": s, "max_len": self.max_len, "attn_impl": impl, "block_size": bs}
+        rows: dict[str, Any] = {}
+        z = lambda shape, dtype=torch.int32: torch.zeros(shape, dtype=dtype, device=dev)  # noqa: E731
+        samp = lambda: (z((s,), torch.float32), torch.ones((s,), device=dev), z((s,), torch.int64))  # noqa: E731
+
+        def prefill_rows(prefix: str, m: DecodeModel, pages, meta):
+            for b in self.buckets:
+                name = f"{prefix}prefill.b{b}"
+                rows[name] = ledger.register(
+                    name, lambda m, pg, ids, row: P.make_paged_prefill_fn(m, attn_impl=impl)(pg, ids, b, row, 0.0,
+                                                                                             1.0, 0),
+                    m, pages, setup=lambda m, pg: (z((1, b), torch.int64), z((b // bs,), torch.int64)),
+                    meta={**meta, "bucket": b})
+                if self._prefix is not None:
+                    name = f"{prefix}prefix_prefill.b{b}"
+                    rows[name] = ledger.register(
+                        name, lambda m, pg, ids, row: P.make_prefix_prefill_fn(m, attn_impl=impl)(
+                            pg, ids, b, 0, row, P.TRASH_BLOCK, P.TRASH_BLOCK, 0.0, 1.0, 0),
+                        m, pages, setup=lambda m, pg: (z((1, b), torch.int64), z((bps + b // bs,))),
+                        meta={**meta, "bucket": b})
+
+        prefill_rows("serve.", dm, pages, base)
+        rows["serve.decode"] = ledger.register(
+            "serve.decode", lambda m, pg, *a: P.make_paged_decode_fn(m, attn_impl=impl)(pg, *a), dm, pages,
+            setup=lambda m, pg: (z((s, bps)), z((s,)), z((s,)), *samp()),
+            meta={**base, "num_blocks": self._pool.num_blocks})
+        if self.spec is not None:
+            k = self.spec.k
+            cols = bps + self._spec_extra_cols
+            spec_meta = {**base, "k": k}
+            prefill_rows("serve.draft_", draft_dm, draft_pages, spec_meta)
+
+            def propose(m, pg, table, toks, pos, *sm):
+                return P.make_draft_propose_fn(m, k, attn_impl=impl)(pg, table, toks, pos, *sm)
+
+            rows["serve.spec.propose"] = ledger.register(
+                "serve.spec.propose", propose, draft_dm, draft_pages,
+                setup=lambda m, pg: (z((s, cols)), z((s,)), z((s,)), *samp()), meta=spec_meta)
+
+            def verify_inputs(m, pg, dmm, dpg):
+                table, toks, sm = z((s, cols)), z((s,)), samp()
+                with torch.inference_mode():
+                    props, q_sel, q_probs = propose(dmm, dpg, table, toks, toks, *sm)
+                return table, toks, props, q_sel, q_probs, toks, *sm
+
+            rows["serve.spec.verify"] = ledger.register(
+                "serve.spec.verify",
+                lambda m, pg, dmm, dpg, *a: P.make_verify_fn(m, k, attn_impl=impl)(pg, *a),
+                dm, pages, draft_dm, draft_pages, setup=verify_inputs, meta=spec_meta)
+        # the hot-swap stage is a transfer, not a program: one params tree
+        # staged onto the card by the watcher
+        rows["serve.hotswap.stage"] = ledger.register_transfer(
+            "serve.hotswap.stage", self._dm.model, meta={**base, "generation": self._generation})
+        self._cost_ledger = ledger
+        return rows
 
     def score(self, ids) -> torch.Tensor:
         """Prefill-only scoring: f32 logits ``(B, S, V)`` of a token batch
@@ -1088,9 +1176,44 @@ class Engine:
         }
         return m
 
-    # the wide event's cost join: the port has no cost ledger yet, so zeros
-    # and cost_joined False, as the reference's engine without one
-    _NO_COST = {"flops": 0.0, "hbm_bytes": 0.0, "tflops": 0.0, "cost_joined": False}
+    def _request_cost(self, req: Request) -> dict[str, Any]:
+        """Ledger-join one request's device cost (the reference's
+        ``_request_cost``): each admission's prefill-bucket row (the
+        suffix bucket's prefix-prefill row on a prefix hit; plus the
+        draft's on a speculative engine), plus ``decode_ticks`` x the step
+        row — ``serve.decode``, or ``serve.spec.propose + serve.spec.verify``
+        a round on the speculative path. Rows are counted from the
+        engine's own stages (:meth:`register_costs`), never guessed; with
+        no ledger registered the event still emits, zeros and
+        ``cost_joined: False``."""
+        ledger = self._cost_ledger
+        flops = bytes_ = 0.0
+        joined = ledger is not None
+        if ledger is not None:
+            rows = []
+            kinds = req.prefill_kinds or ["full"] * len(req.prefill_buckets)
+            for b, kind in zip(req.prefill_buckets, kinds):
+                rows.append(ledger.row(f"{'serve.prefix_prefill' if kind == 'prefix' else 'serve.prefill'}.b{b}"))
+                if self.spec is not None:
+                    stem = "serve.draft_prefix_prefill" if kind == "prefix" else "serve.draft_prefill"
+                    rows.append(ledger.row(f"{stem}.b{b}"))
+            if self.spec is not None:
+                step_rows = [ledger.row("serve.spec.propose"), ledger.row("serve.spec.verify")]
+            else:
+                step_rows = [ledger.row("serve.decode")]
+            for row in rows:
+                if row is None:
+                    joined = False
+                    continue
+                flops += row.flops
+                bytes_ += row.bytes_accessed
+            for row in step_rows:
+                if row is None:
+                    joined = False
+                    continue
+                flops += req.decode_ticks * row.flops
+                bytes_ += req.decode_ticks * row.bytes_accessed
+        return {"flops": flops, "hbm_bytes": bytes_, "tflops": flops / 1e12, "cost_joined": joined}
 
     _STAGES = ("submit", "admission", "prefill", "decode", "complete")
 
@@ -1133,7 +1256,7 @@ class Engine:
             "prefill_buckets": list(req.prefill_buckets),
             "stages_us": stages_us,
         }
-        ev.update(self._NO_COST)
+        ev.update(self._request_cost(req))
         self._events.emit(ev)
         tm = self._tenant_metrics(req.tenant)
         tm["requests"].inc()

@@ -53,10 +53,10 @@ def make_paged_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
         dev = last.device
         tok = sample_token(
             last[None],
-            torch.tensor([temperature], dtype=torch.float32, device=dev),
-            torch.tensor([top_p], dtype=torch.float32, device=dev),
-            torch.tensor([seed], dtype=torch.int64, device=dev),
-            torch.tensor([length - 1], dtype=torch.int64, device=dev),
+            torch.tensor([temperature], dtype=torch.float32).to(dev),
+            torch.tensor([top_p], dtype=torch.float32).to(dev),
+            torch.tensor([seed], dtype=torch.int64).to(dev),
+            torch.tensor([length - 1], dtype=torch.int64).to(dev),
         )[0]
         return tok, last
 
@@ -97,10 +97,10 @@ def make_prefix_prefill_fn(dm: Any, attn_impl: str = "auto") -> Callable:
         dev = last.device
         tok = sample_token(
             last[None],
-            torch.tensor([temperature], dtype=torch.float32, device=dev),
-            torch.tensor([top_p], dtype=torch.float32, device=dev),
-            torch.tensor([seed], dtype=torch.int64, device=dev),
-            torch.tensor([start_pos + suffix_len - 1], dtype=torch.int64, device=dev),
+            torch.tensor([temperature], dtype=torch.float32).to(dev),
+            torch.tensor([top_p], dtype=torch.float32).to(dev),
+            torch.tensor([seed], dtype=torch.int64).to(dev),
+            torch.tensor([start_pos + suffix_len - 1], dtype=torch.int64).to(dev),
         )[0]
         return tok, last
 

@@ -71,7 +71,12 @@ exit, ``--metrics-prom PATH`` the registry as a Prometheus textfile every
 ``/healthz`` live (0: a free port, printed), ``--flight-recorder DIR``
 dumps the last rounds' spans and metric snapshots on a watchdog timeout,
 an unhandled exception or SIGTERM, and ``--profile-dir DIR`` writes a
-``torch.profiler`` trace of rounds 2-3. The cluster plane: the
+``torch.profiler`` trace of rounds 2-3 (``/profile?ms=N`` on the
+endpoint captures the live loop on demand, 409 while that window is
+open). ``--cost-ledger`` counts the run's executables at round 0 (the
+``cost ledger:`` lines), samples the live memory gauges at telemetry
+cadence and prints the ``cost attribution:`` and ``hbm reconciliation:``
+lines at the end (``obs/costs.py``, ``obs/memviz.py``). The cluster plane: the
 consensus-health monitor is always on, ``--link-probes`` times a small
 transfer across every directed gossip edge at telemetry cadence, and
 ``--obs-cluster-dir DIR`` rewrites this rank's snapshot there (render the
@@ -125,9 +130,12 @@ whenever the membership is asymmetric::
     python -m consensusml_tpu_torch.train --config cifar_resnet50 --scale full --norm-impl pallas --native-loader \
         [--prefetch-depth 0] [--native-wire f32]
 
-Runs on the card unless ``--device cpu`` is given (no CPU fallback). The
-simulated backend draws and uploads the initial parameters a worker at a
-time (``configs.init_on_device``).
+Runs on the card unless ``--device cpu`` is given (no CPU fallback); before
+its first CUDA call it probes the card in a child process
+(``utils/gpu_health.py``; a probe that hangs or fails exits 2 with the
+reason; ``CONSENSUSML_SKIP_GPU_PROBE=1`` skips it). The simulated backend
+draws and uploads the initial parameters a worker at a time
+(``configs.init_on_device``).
 Prints the resolved codec path and wire and the norm path, then
 one line per logged round: loss, consensus error, the round's wall time,
 for image batches images per second and, with faults, the share of
@@ -245,6 +253,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="serve the live observability endpoints over HTTP on this port (0 = pick a free one): "
                         "/metrics (Prometheus text), /traces (merged Chrome trace), /requests, /alerts, /query, "
                         "/healthz")
+    p.add_argument("--cost-ledger", action="store_true",
+                   help="register the run's executables (train step, gossip round under its bucket plan) in the "
+                        "cost ledger: one counting pass each (FakeTensorMode; kernels by their shapes) into the "
+                        "consensusml_cost_*/consensusml_compile_* families, live memory gauges at --telemetry-every "
+                        "cadence, and the three-way analytic/counted/live memory drift (costs ONE analysis pass per "
+                        "executable at round 0: nothing launched, allocated or drawn)")
     p.add_argument("--telemetry-every", type=int, default=10, metavar="N",
                    help="cadence (rounds) for the heavier telemetry: metric snapshots, Prometheus rewrite, the "
                         "history-ring sample + SLO/alert rule evaluation, and the CHOCO ||s - xhat|| residual "
@@ -490,7 +504,8 @@ def _churn_loop(args, bundle, dev) -> int:
     if args.trace_events or args.metrics_prom or args.obs_cluster_dir:
         tracer.enabled = True
     history = alerts = None
-    if args.trace_events or args.metrics_prom or args.obs_cluster_dir or args.metrics_port is not None:
+    if (args.trace_events or args.metrics_prom or args.obs_cluster_dir or args.metrics_port is not None
+            or args.cost_ledger):
         from consensusml_tpu_torch.obs import get_alert_engine, get_history
 
         history, alerts = get_history(), get_alert_engine()
@@ -577,6 +592,14 @@ def main(argv=None) -> int:
     from consensusml_tpu_torch.utils.logging import MetricsLogger
 
     args = parse_args(argv)
+    if args.device == "cuda":
+        from consensusml_tpu_torch.utils.gpu_health import preflight
+
+        # a wedged card hangs the first CUDA call: probe it in a child first
+        probe_error = preflight()
+        if probe_error is not None:
+            print(probe_error, file=sys.stderr)
+            return 2
     if args.backend == "simulated":
         dev = resolve_device(args.device)
     error = _check_flags(args)
@@ -661,6 +684,8 @@ def main(argv=None) -> int:
     with tel, MetricsLogger(args.metrics_out) as logger, contextlib.closing(feed):
         for i, batch in enumerate(feed):
             rnd = start + i
+            if i == 0:
+                tel.register_costs(step, state, batch, engine=engine)
             with tel.round(i, rnd):
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
@@ -679,6 +704,8 @@ def main(argv=None) -> int:
                 logger.log(rnd, {"loss": loss, "consensus_error": err, "round_ms": ms, **extras,
                                  **({"alive_frac": alive_frac} if alive_frac is not None else {}),
                                  **({"imgs_per_s": m["imgs_per_s"]} if "imgs_per_s" in m else {})})
+            if "gossip_ms" in m:
+                tel.observe_cost("gossip.round", m["gossip_ms"] / 1e3)
             tel.after_round(rnd, err, alive_frac, mask, state, feed_s=getattr(feed, "last_stall_s", 0.0))
             if watchdog is not None:
                 watchdog.beat(f"round {rnd}")

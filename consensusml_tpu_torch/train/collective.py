@@ -273,6 +273,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     with tel, contextlib.closing(feed):  # the sinks are written on an exception too
         for i, batch in enumerate(feed):
             r = start + i
+            if i == 0:
+                tel.register_costs(step, state, batch)  # this rank's own train.step
             kernels.reset_launch_counts()
             with tel.round(i, r):
                 t0 = time.perf_counter()
@@ -346,7 +348,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     plan = engine.bucket_plan(gossiped)
     out = {"rank": rank, "rounds": rounds, "buckets": None if plan is None else plan.num_buckets,
            "wire_bytes_per_round": engine.wire_bytes_per_round(gossiped), "evals": evals, "checkpoint": ckpt_path,
-           "setup_s": setup_s, "seconds": time.perf_counter() - t_entry}
+           "setup_s": setup_s, "seconds": time.perf_counter() - t_entry,
+           "costs": tel.cost_snapshot(), "cost_report": tel.costs}
     del gossiped
     if device.type == "cuda":
         free, total = torch.cuda.mem_get_info(device)

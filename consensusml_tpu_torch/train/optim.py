@@ -103,7 +103,7 @@ class Adam:
         # optax: 1 - decay**count in float32, divided by as a tensor (a
         # Python-scalar divisor may become a reciprocal product)
         d = np.float32(decay) ** np.float32(count)
-        return torch.tensor(np.float32(1.0) - d, dtype=torch.float32, device=device)
+        return torch.tensor(np.float32(1.0) - d, dtype=torch.float32).to(device)
 
     @torch.no_grad()
     def update_(self, params: dict, grads: dict, state: AdamState, worker: int) -> None:

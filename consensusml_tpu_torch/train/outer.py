@@ -66,7 +66,7 @@ def _fma_(a, b: torch.Tensor, c: torch.Tensor, out: torch.Tensor) -> None:
     """``out = a * b + c`` rounded once to f32, a slice at a time
     (``out`` may be ``b`` or ``c``)."""
     o, bf, cf = out.view(-1), b.reshape(-1), c.reshape(-1)
-    a = torch.tensor(a, dtype=torch.float32, device=out.device)
+    a = torch.tensor(a, dtype=torch.float32).to(out.device)
     for lo in range(0, o.numel(), _SLICE):
         hi = lo + _SLICE
         o[lo:hi] = fma_f32(a, bf[lo:hi], cf[lo:hi])

@@ -17,9 +17,15 @@ and the Prometheus file, which holds every registered family: the
 feed's ``consensusml_feed_*`` (``data/prefetch.py``) and, with
 ``--native-loader``, the ring's ``consensusml_native_*``
 (``native/__init__.py``). ``--profile-dir`` traces rounds 2-3 with
-``torch.profiler``. Nothing here reads a device value the loop does not
-already fetch, but the tick's CHOCO residual and link probes, as the
-reference's.
+``torch.profiler``. ``--cost-ledger`` (the cost plane, the reference's
+``train.py:1305-1352`` and ``:1625-1670``): round 0 counts ``train.step``
+(and on the simulated backend ``gossip.round``) into a
+:class:`~consensusml_tpu_torch.obs.costs.CostLedger` (:meth:`Telemetry.
+register_costs`), each tick samples the live memory gauges and pairs the
+round's time with the row, and the end prints the attribution and the HBM
+three-way (:meth:`Telemetry.cost_report`). Nothing here reads a device
+value the loop does not already fetch, but the tick's CHOCO residual and
+link probes, as the reference's.
 
 The cluster plane (the reference's ``train.py:1260-1303``): the
 consensus-health monitor (:class:`~consensusml_tpu_torch.obs.health.
@@ -80,7 +86,7 @@ class Telemetry:
         self.every = max(1, int(spec.get("telemetry_every") or 10))
         port = spec.get("metrics_port")
         self.on = bool(self.trace_events or self.metrics_prom or spec.get("flight_recorder") or port is not None
-                       or spec.get("obs_cluster_dir") or spec.get("link_probes"))
+                       or spec.get("obs_cluster_dir") or spec.get("link_probes") or spec.get("cost_ledger"))
         self._was_enabled = tracer.enabled
         if self.on:
             # host span recording on; without a sink spans are bare ranges
@@ -129,6 +135,15 @@ class Telemetry:
                                          world_size=world_size, history=self.history, alerts=self.alerts)
             if verbose:
                 print(f"cluster snapshots: {self.cluster.path}", flush=True)
+        self.ledger = self.accountant = None
+        if spec.get("cost_ledger"):
+            from consensusml_tpu_torch.obs.costs import CostLedger, device_kind
+            from consensusml_tpu_torch.obs.memviz import HbmAccountant
+
+            # this card's peaks (the CPU's anchor on a CPU run), over the registry
+            self.ledger = CostLedger(registry=registry, platform=device_kind(device or "cpu"))
+            self.accountant = HbmAccountant(registry=registry, device=device)
+        self.costs = None  # the end's cost report (finish)
         self.timer = RoundTimer(warmup=1)  # round 0 builds kernels
         self.fence_s = 0.0
         self.prev_alive = None
@@ -200,12 +215,96 @@ class Telemetry:
         if self.on and (rnd + 1) % self.every == 0 and state is not None:
             self.tick(rnd, state)
 
+    # -- the cost plane (--cost-ledger) --------------------------------------
+    def register_costs(self, step, state, batch, engine=None) -> None:
+        """Round 0's ledger registration (the reference's
+        ``register_run_costs``): ``train.step`` counted in one fake pass of
+        ``step(state, batch)`` and, with ``engine`` (the simulated backend,
+        whose transport program is the stacked round), ``gossip.round``
+        under its bucket plan. Analysis only: nothing launches, nothing is
+        allocated on the card, no generator advances. A registration that
+        fails prints why and the run goes on without the ledger."""
+        if self.ledger is None:
+            return
+        try:
+            row = self.ledger.register("train.step", step, state, batch)
+            if self._verbose:
+                print(f"cost ledger: train.step {row.flops:.3g} flops {row.bytes_accessed:.3g} B accessed, "
+                      f"compile {row.compile_s * 1e3:.0f} ms", flush=True)
+            if engine is not None:
+                grow = engine.register_costs(self.ledger, {"params": state.params, "model_state": state.model_state})
+                if self._verbose:
+                    print(f"cost ledger: gossip.round {grow.flops:.3g} flops, {grow.meta['buckets']} bucket(s), "
+                          f"compile {grow.compile_s * 1e3:.0f} ms", flush=True)
+        except Exception as e:  # analysis must never kill a run
+            print(f"cost ledger: registration failed ({type(e).__name__}: {e}); continuing without", flush=True)
+            self.ledger = None
+
+    def observe_cost(self, name: str, seconds: float) -> None:
+        """Pair a measured time with ledger row ``name`` (the simulated
+        backend's ``gossip.round`` each round); nothing without the row."""
+        if self.ledger is not None and self.ledger.row(name) is not None:
+            self.ledger.observe_measured(name, seconds)
+
+    def cost_report(self) -> dict | None:
+        """End of the run (the reference's ``train.py:1625-1670``): the
+        ``cost attribution:`` line (``train.step``'s median steady round
+        against its floor) and the HBM three-way (``hbm_model.predict``
+        for this config, stacked over the workers on the simulated
+        backend; the ledger row's footprint; the allocator's peak). Returns
+        ``{"attribution", "hbm"}``, or None without a ledger."""
+        if self.ledger is None or self.accountant is None or not self.timer.last_lap_s:
+            return None
+        out = {"attribution": None, "hbm": None}
+        if self.ledger.row("train.step") is not None:
+            attr = self.ledger.observe_measured("train.step", self.timer.stats().p50_s)
+            out["attribution"] = attr
+            if self._verbose:
+                print(f"cost attribution: train.step measured {1e3 * attr['measured_s']:.1f} ms vs {attr['bound']}-"
+                      f"bound floor {1e3 * attr['expected_s']:.2f} ms ({attr['ratio_to_floor']:.1f}x)", flush=True)
+        analytic = None
+        try:
+            from consensusml_tpu_torch.obs.memviz import load_tool
+
+            hm = load_tool("hbm_model")
+            spec = self.spec
+            pred = hm.predict(spec.get("config", "gpt2_topk"), spec.get("scale", "smoke"), world=spec.get("workers"))
+            # predict() models ONE worker; the simulated backend stacks every
+            # worker on this card (the frozen base once)
+            analytic = float(hm.stacked_bytes(pred, pred["world"]) if spec.get("backend", "simulated") == "simulated"
+                             else pred["predicted_peak_bytes"])
+        except Exception as e:
+            print(f"hbm reconciliation: no analytic side ({e})", flush=True)
+        row = self.ledger.row("train.step")
+        self.accountant.tick()  # a run shorter than the cadence has no sample yet
+        rec = self.accountant.reconcile(analytic_bytes=analytic,
+                                        compiled_bytes=float(row.peak_bytes) if row else None)
+        out["hbm"] = rec
+        if self._verbose:
+            drift = ", ".join(f"{k} {v:+.1f}%" for k, v in sorted(rec["drift_pct"].items()))
+            print("hbm reconciliation: analytic "
+                  f"{(rec['analytic_bytes'] or 0) / 1e6:.1f} MB vs compiled "
+                  f"{(rec['compiled_bytes'] or 0) / 1e6:.1f} MB vs live "
+                  f"{(rec['live_peak_bytes'] or 0) / 1e6:.1f} MB" + (f" ({drift})" if drift else ""), flush=True)
+        return out
+
+    def cost_snapshot(self) -> dict | None:
+        """The ledger's table (rows, floors, measured times), or None."""
+        return None if self.ledger is None else self.ledger.snapshot()
+
     def tick(self, rnd: int, state) -> None:
-        """The heavier sampled telemetry: the link probes, the CHOCO
-        residual (one fetch), a registry snapshot, the history sample and
-        the alert rules, the Prometheus file, the cluster snapshot."""
+        """The heavier sampled telemetry: the link probes, the live memory
+        gauges and the ``train.step`` attribution (``--cost-ledger``), the
+        CHOCO residual (one fetch), a registry snapshot, the history
+        sample and the alert rules, the Prometheus file, the cluster
+        snapshot."""
         if self.prober is not None:
             self.prober.probe_round()
+        if self.accountant is not None:
+            self.accountant.tick()  # live memory gauges (host bookkeeping only)
+        if self.ledger is not None and self.ledger.row("train.step") is not None and self.timer.last_lap_s:
+            # the measured round paired with the counted row
+            self.ledger.observe_measured("train.step", self.timer.last_lap_s)
         resid = self._engine.choco_residual(state.gossip)
         if resid is not None:
             self.registry.gauge("consensusml_choco_residual", "CHOCO tracking residual ||s - xhat|| (sampled)"
@@ -220,11 +319,14 @@ class Telemetry:
             self.cluster.write(round=rnd)
 
     def finish(self, end: int, state) -> None:
-        """End of the loop: close a profiler window the run cut short, and
-        a final tick unless the cadence just ticked (then the cluster
-        snapshot's heartbeat alone is refreshed, a clean exit)."""
+        """End of the loop: close a profiler window the run cut short, the
+        cost report (``--cost-ledger``; before the last tick, so the last
+        snapshot carries the reconciled gauges), and a final tick unless
+        the cadence just ticked (then the cluster snapshot's heartbeat
+        alone is refreshed, a clean exit)."""
         if self._profiling is not None:
             self._end_profile()
+        self.costs = self.cost_report()
         if self.on and self.timer.last_lap_s and end % self.every != 0:
             self.tick(end - 1, state)
         elif self.cluster is not None:

@@ -20,6 +20,7 @@ import contextlib
 import dataclasses
 import math
 import os
+import threading
 import time
 from typing import Any, Iterator
 
@@ -130,19 +131,53 @@ class RoundTimer:
         )
 
 
+# the process's one profiler session (torch.profiler runs one at a time):
+# the batch window (:func:`trace`) and the live ``/profile`` capture
+# (obs/httpd.py) both hold it; ``PROFILER_SESSION["owner"]`` names the
+# holder ("profile-dir", or a /profile capture id), None when free
+PROFILER_LOCK = threading.Lock()
+PROFILER_SESSION: dict = {"owner": None}
+
+
+def profiler_activities() -> list:
+    """CPU, and CUDA where a card is present."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return acts
+
+
+def claim_profiler(owner: str, wait: bool) -> bool:
+    """Take the process's profiler session for ``owner`` (waiting for the
+    holder to end when ``wait``); False when it is held and not waited
+    for. Release with :func:`release_profiler`."""
+    if not PROFILER_LOCK.acquire(blocking=wait):
+        return False
+    PROFILER_SESSION["owner"] = owner
+    return True
+
+
+def release_profiler() -> None:
+    PROFILER_SESSION["owner"] = None
+    PROFILER_LOCK.release()
+
+
 @contextlib.contextmanager
 def trace(log_dir: str) -> Iterator[None]:
     """``torch.profiler`` (CPU and, where a card is present, CUDA
     activities) around the block; the Chrome trace lands in ``log_dir`` as
-    ``trace-<pid>.json``, also when the block raises."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    ``trace-<pid>.json``, also when the block raises. Holds the process's
+    profiler session (a live ``/profile`` capture in flight is waited for;
+    one requested during the window gets 409)."""
     os.makedirs(log_dir, exist_ok=True)
-    prof = torch.profiler.profile(activities=acts)
-    prof.__enter__()
+    claim_profiler("profile-dir", wait=True)
     try:
-        yield
+        prof = torch.profiler.profile(activities=profiler_activities())
+        prof.__enter__()
+        try:
+            yield
+        finally:
+            prof.__exit__(None, None, None)
+            prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}.json"))
     finally:
-        prof.__exit__(None, None, None)
-        prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}.json"))
+        release_profiler()

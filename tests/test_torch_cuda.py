@@ -2545,3 +2545,126 @@ def test_feed_ring_slots_are_page_locked_in_place(dev):
     loader.close()
     want.close()
     assert not loader._locked_runs
+
+
+# ---------------------------------------------------------------------------
+# the cost plane: work counts and analysis-only registration on the card
+# ---------------------------------------------------------------------------
+
+
+def _count(fn, *args):
+    from consensusml_tpu_torch.workcount import WorkCounter
+
+    c = WorkCounter()
+    with c:
+        fn(*args)
+    return c.flops, c.bytes
+
+
+def _cost_cases(dev):
+    """Each kernel wrapper at a small shape its kernel takes: name ->
+    (operands on ``dev``, call)."""
+    from consensusml_tpu_torch.compress import kernels as tck
+    from consensusml_tpu_torch.models import fused_bn as tbn
+    from consensusml_tpu_torch.models import fused_ln as tln
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s, dtype=torch.float32: torch.randn(*s, generator=g, device=dev, dtype=dtype)  # noqa: E731
+    x = r(37, 256)
+    q, k, v, do = (r(2, 128, 2, 64, dtype=torch.bfloat16) for _ in range(4))
+    _o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True)
+    delta = r(2, 2, 128)
+    pq, pk, pv, table, pos = _paged_case(dev, 1)
+    x2, g2 = r(64, 256, dtype=torch.bfloat16), r(256)
+    mean, _var, scale, shift, rsqrt = tbn.bn_forward_stats(x2, g2, r(256), 1e-5)
+    data, scales, _h = tck.fused_pack_quantize(x, x * 0.5, fmt="int8")
+    return {
+        "quantize_int8": ((x,), tck.quantize_int8), "dequantize_int8": (tck.quantize_int8(x), tck.dequantize_int8),
+        "quantize_int4": ((x,), tck.quantize_int4), "dequantize_int4": (tck.quantize_int4(x), tck.dequantize_int4),
+        "quantize_fp8": ((x,), tck.quantize_fp8), "dequantize_fp8": (tck.quantize_fp8(x), tck.dequantize_fp8),
+        "chunked_topk": ((x, 8), tck.chunked_topk),
+        "chunk_scatter": ((*tck.chunked_topk(x, 8), 256), tck.chunk_scatter),
+        "fused_choco_encode": ((x, x * 0.5), lambda a, b: tck.fused_pack_quantize(a, b, fmt="int8")),
+        "fused_dequantize_accumulate": ((x, [(data, scales)] * 2), lambda s, src: tck.fused_dequantize_accumulate(
+            s, src, fmt="int8", weights=(0.5, 0.25))),
+        "flash_attention_fwd": ((q, k, v), lambda *a: tfa.flash_attention(*a, causal=True, return_lse=True)),
+        "flash_attention_bwd_dq": ((q, k, v, do, lse, delta), lambda *a: tfa.flash_attention_bwd_dq(*a, causal=True)),
+        "flash_attention_bwd_dkv": ((q, k, v, do, lse, delta),
+                                    lambda *a: tfa.flash_attention_bwd_dkv(*a, causal=True)),
+        "paged_attention": ((pq, pk, pv, table, pos), tpa.paged_attention),
+        "ln_fwd": ((x2, g2, g2), lambda *a: tln.ln_fwd(*a, 1e-6, out_dtype=torch.bfloat16)),
+        "ln_bwd": ((x2, x2, g2), tln.ln_bwd),
+        "bn_stats": ((x2,), tbn.bn_stats),
+        "bn_norm": ((x2, scale, shift, True), tbn.bn_norm),
+        "bn_bwd": ((x2, x2, scale, shift, mean, rsqrt, True), tbn.bn_bwd),
+    }
+
+
+def _to(x, device):
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to(v, device) for v in x)
+    return x
+
+
+def test_each_kernel_counts_the_same_work_on_its_kernel_and_plain_paths(dev):
+    """Every one of the 19 wrappers: the (flops, bytes) it reports when it
+    launches its kernel equal the ones it reports on CPU copies (its plain
+    version) and in the fake pass; the kernel path launches once."""
+    from consensusml_tpu_torch import kernels, workcount
+
+    cases = _cost_cases(dev)
+    assert sorted(cases) == sorted(kernels.KERNELS)
+    for name, (ops, call) in cases.items():
+        before = kernels.launch_counts()[name]
+        on_card = _count(call, *ops)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()[name] == before + 1, name
+        plain = _count(call, *_to(ops, "cpu"))
+        launched, alloc = sum(kernels.launch_counts().values()), torch.cuda.memory_allocated(dev)
+        fake = workcount.analyze(call, *ops)
+        assert sum(kernels.launch_counts().values()) == launched and torch.cuda.memory_allocated(dev) == alloc
+        assert on_card == plain == (fake.flops, fake.bytes_accessed), name
+        assert on_card[0] > 0 and on_card[1] > 0, name
+
+
+def test_registration_launches_nothing_allocates_nothing_draws_nothing(dev):
+    """``--cost-ledger``'s registration on the card: the train step of
+    ``gpt2_topk`` smoke (its workers' generators) and its gossip round,
+    and a GPT-2 engine's stages: no kernel launched, no byte allocated, no
+    generator advanced, the state's tensors unchanged."""
+    from consensusml_tpu_torch import configs, kernels
+    from consensusml_tpu_torch.models.gpt2 import GPT2Config, GPT2LM
+    from consensusml_tpu_torch.obs.costs import CostLedger
+    from consensusml_tpu_torch.obs.metrics import MetricsRegistry
+    from consensusml_tpu_torch.serve import Engine, ServeConfig
+    from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
+
+    bundle = configs.build("gpt2_topk", "smoke", device=dev)
+    params, model_state = configs.init_on_device(bundle, 0, dev)
+    state = init_stacked_state(bundle.cfg, params, bundle.world_size, model_state=model_state)
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in next(iter(bundle.batches(1, 0))).items()}
+    ledger = CostLedger(registry=MetricsRegistry(), platform=torch.cuda.get_device_name(dev))
+    snap = {n: p.clone() for n, p in state.params.items()}
+    gens = [g.get_state().clone() for g in state.generators]
+    model = GPT2LM(GPT2Config(vocab_size=64, hidden=64, layers=2, heads=1, max_len=64, dropout=0.0), device=dev)
+    eng = Engine(model.init_weights(torch.Generator(device=dev).manual_seed(0)), ServeConfig(num_slots=2, block_size=16),
+                 device=dev)
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        launched, alloc = sum(kernels.launch_counts().values()), torch.cuda.memory_allocated(dev)
+        row = ledger.register("train.step", make_simulated_train_step(bundle.cfg, bundle.loss_fn), state, batch)
+        grow = bundle.cfg.engine().register_costs(ledger, {"params": state.params,
+                                                           "model_state": state.model_state})
+        rows = eng.register_costs(ledger)
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts().values()) == launched
+        assert torch.cuda.memory_allocated(dev) == alloc
+    finally:
+        eng.shutdown()
+    assert all(torch.equal(g.get_state(), s) for g, s in zip(state.generators, gens))
+    assert all(torch.equal(state.params[n], p) for n, p in snap.items())
+    assert row.flops > 0 and grow.flops > 0 and state.step == 0
+    assert {"serve.decode", "serve.hotswap.stage", *(f"serve.prefill.b{b}" for b in eng.buckets)} == set(rows)

@@ -11,11 +11,12 @@ the reference's (``consensusml_tpu.obs``): both fed the same updates.
 - spans, request traces and wide events: the same names, nesting, event
   sequences, rollups and JSON keys (times apart);
 - the flight recorder's dump and the HTTP endpoints: the same keys and
-  status codes (``/profile`` answers 501 in the port);
+  status codes (``/profile`` captures with ``torch.profiler`` in the port);
 - the lock contracts (``__guarded_by__``) of every ported class.
 """
 
 import json
+import os
 import math
 import urllib.error
 import urllib.request
@@ -427,12 +428,18 @@ def test_endpoints_give_the_references_codes_and_keys(ready):
     assert got[0]["/healthz"][0] == (200 if ready else 503)
 
 
-def test_profile_answers_501():
-    srv = Q.MetricsServer(port=0, registry=Q.MetricsRegistry())
+def test_profile_answers_501(tmp_path):
+    """``/profile`` no longer answers 501: it captures the live process
+    with ``torch.profiler`` (the name is kept from before the cost plane
+    was ported). One capture answers 200 with its trace and summary, and
+    counts on ``consensusml_profile_captures_total``."""
+    srv = Q.MetricsServer(port=0, registry=Q.MetricsRegistry(), profile_dir=str(tmp_path))
     try:
         code, body = _get(srv.url("/profile?ms=50"))
-        assert code == 501 and "not implemented" in json.loads(body)["error"]
-        assert "consensusml_profile_rejected_total 1" in _get(srv.url("/metrics"))[1]
+        doc = json.loads(body)
+        assert code == 200 and os.path.exists(doc["trace_json"]) and "device_total_ms" in doc["summary"]
+        text = _get(srv.url("/metrics"))[1]
+        assert "consensusml_profile_captures_total 1" in text and "consensusml_profile_rejected_total 0" in text
     finally:
         srv.close()
 

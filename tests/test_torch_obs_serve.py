@@ -166,7 +166,7 @@ def test_server_metrics_port_health_and_endpoints():
         assert "events" in json.loads(_get(base + "/events?n=1&tenant=acme")[1])
         assert {"active", "completed"} <= set(json.loads(_get(base + "/requests")[1]))
         assert json.loads(_get(base + "/alerts")[1])["enabled"] is True
-        assert _get(base + "/profile")[0] == 501
+        assert _get(base + "/profile?ms=50")[0] == 200  # a torch.profiler capture of the live engine
     finally:
         server.shutdown()
     assert server.metrics is not None and not eng._thread.is_alive()

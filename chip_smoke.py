@@ -55,7 +55,7 @@ Phases, each printed as one JSON line:
    1``: four workers stacked on the card, ring gossip, CHOCO through the
    fused int8 wire. First one worker step's gradients through the kernels
    against the same step on the plain versions (``attn_impl="torch"``);
-   then one warm-up round, two counted rounds (launch counters zeroed
+   then one warm-up round, one counted round (launch counters zeroed
    just before, read just after; loss, consensus error, round ms with the
    host's garbage-collection pauses in each, tokens/s, wire bytes, peak
    memory) and one more round under ``torch.profiler`` for the
@@ -65,7 +65,7 @@ Phases, each printed as one JSON line:
    of 512) + int8 values on the two-step bucketed wire, 25 buckets, each
    exchange launching the top-k, quantize, dequantize and scatter kernels
    once a bucket. The same initial parameters as ``train`` (drawn once),
-   one warm-up round, two counted rounds (launch counts gated against
+   one warm-up round, one counted round (launch counts gated against
    the code's prediction, buckets and wire bytes against the plan's) and
    one profiled round, which reads each of the port's kernels' device
    time by its CUDA symbol.
@@ -94,15 +94,15 @@ Phases, each printed as one JSON line:
    values on the two-step wire (14 buckets, 27,809,088 wire bytes). One
    worker step's gradients (flash + LN kernels) against the same step on
    the plain versions (``attn_impl="torch"``, ``norm_impl="jnp"``), then
-   one warm round, two counted rounds (launches gated: 784 a LN
-   kernel, 28 each codec kernel, 384 each flash kernel) and one profiled
+   one warm round, one counted round (launches gated: 392 a LN
+   kernel, 14 each codec kernel, 192 each flash kernel) and one profiled
    round (the LN and codec kernels' device time).
 
 10. ``train_int4`` and ``train_fp8``: ``gpt2_topk`` full ``--workers 4
     --codec-warmup 1 --codec int4|fp8``: the same initial parameters as
     ``train``, the fused one-pass wire in its int4 format (50 buckets,
     360,367,280 wire bytes) or fp8 format (123 buckets, 715,190,448). One
-    warm round, two counted rounds (launches gated: 384 each flash
+    warm round, one counted round (launches gated: 192 each flash
     kernel, the fused encode once a bucket a round, nothing else); no
     profiled round (cut to fit the script's time: the fused encode's
     device time is ``check``'s and ``train``'s). No gradient check: the
@@ -231,7 +231,7 @@ round within tolerance.
     1`` with ``GossipConfig.fused_codec=True``: the codec once over each
     worker's whole tree (354,823,168 f32 elements laid end to end; one
     call of each codec kernel a round over the four workers' rows), a warm
-    round and two counted rounds, the peak memory, then one whole-tree
+    round and one counted round, the peak memory, then one whole-tree
     round through the kernels (its outputs copied to host memory) and
     through their plain versions, bit for bit.
 19. ``train_resnet_overlap`` (after ``train_resnet_pushsum``):
@@ -259,7 +259,7 @@ round within tolerance.
 21. ``train_topk_sched`` (after ``train_perleaf_topk``, from ``train``'s
     initial parameters): ``gpt2_topk`` full ``--workers 4 --codec-warmup
     1 --lr-schedule linear --warmup-rounds 1 --grad-clip 1.0``: a warm
-    round and two counted ones with their learning rates, pre-clip norms
+    round and one counted one with its learning rate, pre-clip norms
     and clip factors (launches gated: the flash kernels 192 a round, each
     codec kernel 25), then one clipped Adam update of worker 0 through the
     flash kernels against their plain versions, with the run's clip and
@@ -426,6 +426,31 @@ the same ragged lengths, and gate only at B=4, S=600 (lengths 600, 513,
 100, 0), non-causal and causal, against their plain versions at the flash tolerances (a row that attends to no key: the
 reference's sum over its visited count, no gradient), timed by
 ``queued_ms`` beside SDPA with the mask as a boolean (B, 1, 1, T).
+
+The ``check`` line's ``flash_offsets`` holds the three flash kernels' q/k
+offset form (the ring's: ``q_offset``, ``k_offset`` the positions of row
+0) at GPT-2-medium's heads (B=1, S=2048, H=16, D=64) and Llama-2-7B's
+(H=32, D=128), causal, at the offsets (S, 0), (S, S), (2S, S) and (0, S),
+the last a block after every query (every row attends to no key), to
+their plain versions at the flash tolerances, timed by ``queued_ms``
+beside the aligned form at the same shape and SDPA at the aligned shape;
+the ``kernels`` line lists the form as an entry of its own, its launches
+from ``sequence_parallel``. ``sequence_parallel`` (after the collective
+spawns): 4 ``gloo`` ranks on the card, each a block of 2048 positions, at
+both head shapes, bf16, causal: ``ring_flash_attention``'s output and
+gradients against dense f32 attention of the gathered sequence
+(``SEQ_PARALLEL_REL_TOL`` of its largest magnitude), ``ring_attention``
+and ``ulysses_attention`` forward beside it, host ms a call and staging
+ms. ``train_collective_tp`` (in the 4-rank GPT-2 spawn):
+``gpt2_topk`` full at ``--workers 2 --model-axes tp=2`` (GPT-2-medium
+split over 2 ranks a worker, 8 heads a rank), its own codec on the logical
+bucket, 2 rounds; gates: the ranks' losses and errors one finite value,
+the logical worker's wire bytes those of the plan, the no-tp rank's
+launches (flash and codec kernels) a rank a counted round, and the check
+against the same program without model axes on the plain attention
+(``TP_CHECK``: a worker step's gradients at the existing tolerances, which
+holds the flash kernels at 8 heads against their plain version at this
+path's shape, and round 0's loss within 1e-3).
 
 The ``check`` line's ``subnormals.operand_probe`` holds the flash
 forward, dq and dk/dv kernels on bf16 subnormal operands whose products
@@ -2570,7 +2595,8 @@ def train_phase(torch, dev, init, codec, norm_impl="flax", keep_state=False, pro
     from consensusml_tpu_torch.models.gpt2 import GPT2LM
     from consensusml_tpu_torch.train.local_sgd import init_stacked_state, make_simulated_train_step
 
-    world, counted = 4, 2
+    # one counted round (two until PR 25's phases joined the script's time)
+    world, counted = 4, 1
     # train_topk, the most host-bound GPT-2 line, ends with the trainer's
     # sinks: rounds with telemetry off and on, in turns
     sink_rounds = TELEMETRY_AB_ROUNDS if codec is None else 0
@@ -5922,7 +5948,13 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     """One collective phase's line from its ranks' results, with gates 1-5
     (every rank returned, which ``launch`` already enforces; the seeded
     round against the simulated one; launches; transport bytes; sound
-    training values)."""
+    training values). Under model axes (``spec["model_axes"]``,
+    ``train_collective_tp``) the wire bytes are the logical worker's (each
+    rank carries the whole payload: the codec selects over the logical
+    bucket), each rank's launches the no-tp rank's (the flash kernels at
+    ``H/tp`` heads), and every rank's check against the program without
+    model axes (``TP_CHECK``) its worker's; the line adds the tensor-parallel
+    milliseconds and bytes."""
     from consensusml_tpu_torch.train.collective import spec_bundle
 
     bundle = spec_bundle(spec, dev)
@@ -5932,6 +5964,7 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
     counted = list(range(1, spec["rounds"]))  # round 0 warms (and, for GPT-2, is the codec's warm-up)
     expect, forms = collective_launches_expected(bundle, buckets)
     wire = results[0]["wire_bytes_per_round"]
+    per = spec["model_axes"][0][1] if spec.get("model_axes") else 1  # ranks a worker
     problems = []
     if expect_wire is not None and wire != expect_wire:
         problems.append(f"wire_bytes_per_round {wire} != {expect_wire}")
@@ -5943,6 +5976,8 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
             if rd["wire_bytes"] != wire + flag_bytes(engine, i):
                 problems.append(f"rank {r} round {i}: the transport sent {rd['wire_bytes']} bytes, not {wire} "
                                 f"and {flag_bytes(engine, i)} of flags")
+        if per > 1 and res["tp_check"] != results[r - r % per]["tp_check"]:
+            problems.append(f"rank {r}: tp_check {res['tp_check']} != its worker's")
     for i in range(spec["rounds"]):
         losses = {res["rounds"][i]["loss"] for res in results}
         errs = {res["rounds"][i]["consensus_error"] for res in results}
@@ -5955,6 +5990,8 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
         raise AssertionError(f"{phase}: " + "; ".join(problems))
     check = collective_check(torch, dev, bundle, results, spec["check"]) if spec["check"] else None
     keys = ("round_ms", "inner_ms", "gossip_ms", "metrics_ms", "staging_ms", "wire_ms")
+    if per > 1:
+        keys += ("tp_ms",)
     if engine.config.overlap:
         # the correction's issue before the local steps and the wait left after them
         keys += ("gossip_issue_ms", "gossip_wait_ms")
@@ -5973,15 +6010,23 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
                     if n:
                         by_form.setdefault(k, {})
                         by_form[k][form] = by_form[k].get(form, 0) + n
+    tp_line = {} if per == 1 else {
+        "workers": spec["workers"], "model_axes": spec["model_axes"],
+        "heads_per_rank": bundle.model.config.heads // per,
+        "tp_check_by_worker": [results[w * per]["tp_check"] for w in range(spec["workers"])],
+    }
+    tp_keys = ("wire_bytes_worker_ranks", "tp_bytes", "tp_gather_bytes") if per > 1 else ()
     return {
-        "phase": phase, "config": flags, "ranks": world, "transport": "gloo, staged through pinned host memory",
+        "phase": phase, "config": flags, "ranks": world, **tp_line,
+        "transport": "gloo, staged through pinned host memory",
         "device_of_every_rank": str(dev), "buckets": buckets, "wire_bytes_per_round": wire,
         "rounds": [{"step": i, "loss": results[0]["rounds"][i]["loss"],
                     "consensus_error": results[0]["rounds"][i]["consensus_error"],
                     **{k: results[0]["rounds"][i][k] for k in ("alive_frac", "alive_mask")
                        if k in results[0]["rounds"][i]},
                     "wire_bytes_per_rank": [res["rounds"][i]["wire_bytes"] for res in results],
-                    **{key: [res["rounds"][i][key] for res in results] for key in keys + ("bytes_staged",)}}
+                    **{key: [res["rounds"][i][key] for res in results]
+                       for key in keys + ("bytes_staged",) + tp_keys}}
                    for i in range(spec["rounds"])],
         "counted_rounds": counted,
         # a rank's seconds from its spec's start: the state built (and restored), and
@@ -5998,6 +6043,78 @@ def collective_line(torch, dev, phase, spec, results, flags, expect_wire=None):
         "device_used_bytes": max(res.get("device_used_bytes") or 0 for res in results),
         "collective_vs_simulated": check,
     }, launches, by_form
+
+
+# train_collective_tp's gates against the same program without model axes
+# on the plain attention: a worker step's gradients at the existing
+# tolerances, and round 0's loss (bf16 activations; the flash kernels
+# against the plain version, and the row-split products' partial sums
+# reduced in f32 and rounded once more, so the two programs round
+# differently)
+TP_CHECK = {"grad_rel_tol": GRAD_REL_TOL, "leaf_rel_tol": LEAF_REL_TOL, "loss_rtol": 1e-3}
+
+
+def tp_collective_spec(rounds: int = 2) -> dict:
+    """``gpt2_topk full --workers 2 --model-axes tp=2 --codec-warmup 1
+    --backend collective --dist-backend gloo`` (its own codec) as
+    :func:`~consensusml_tpu_torch.train.collective.train_rank` reads it,
+    with the check against the same program without model axes."""
+    spec = collective_spec("gpt2_topk", "full", 2, rounds)
+    spec.update(model_axes=[["tp", 2]], check=None, tp_check=TP_CHECK)
+    return spec
+
+
+# sequence_parallel: 4 ranks on the card, each a block of 2048 positions,
+# at GPT-2-medium's heads and Llama-2-7B's
+SEQ_PARALLEL_RANKS = 4
+SEQ_PARALLEL_SHAPES = ((1, 2048, 16, 64), (1, 2048, 32, 128))
+# ring flash attention (bf16 operands, a bf16 output a block merged in f32)
+# against dense f32 attention of the gathered sequence: each gate a share
+# of the reference's largest magnitude, a few bf16 ulps (2^-8 relative)
+SEQ_PARALLEL_REL_TOL = {"out": 2e-2, "dq": 2e-2, "dk": 2e-2, "dv": 2e-2}
+
+
+def sequence_parallel_phase(torch) -> tuple[dict, dict, dict]:
+    """``sequence_parallel``: ``parallel.check.sequence_parallel`` on
+    ``SEQ_PARALLEL_RANKS`` gloo ranks of the card at ``SEQ_PARALLEL_SHAPES``
+    (bf16, causal): ring flash attention's output and gradients against
+    dense attention of the gathered sequence (gates ``SEQ_PARALLEL_REL_TOL``
+    of the reference's largest magnitude), the dense ring's and Ulysses'
+    forward beside it, the host ms a call, the staging ms, and the flash
+    kernels' offset-form launches of one forward + backward a shape (the
+    counts zeroed just before it, read just after). Returns the line and
+    the launches by kernel and by form."""
+    from consensusml_tpu_torch.comm.launch import launch
+    from consensusml_tpu_torch.parallel.check import sequence_parallel
+
+    t0 = time.perf_counter()
+    per_rank = launch(sequence_parallel, SEQ_PARALLEL_RANKS, list(SEQ_PARALLEL_SHAPES), 0, 2, dist_backend="gloo",
+                      timeout=600)
+    problems, launches, offset = [], {}, {}
+    for r, rows in enumerate(per_rank):
+        for row in rows:
+            for key, tol in SEQ_PARALLEL_REL_TOL.items():
+                if not row["max_abs_err"][key] <= tol * row["max_abs_ref"][key]:
+                    problems.append(f"rank {r} {row['shape']} {key}: {row['max_abs_err'][key]} > {tol} x "
+                                    f"{row['max_abs_ref'][key]}")
+            for name, err in row["other_forward_max_abs_err"].items():
+                if not err <= SEQ_PARALLEL_REL_TOL["out"] * row["max_abs_ref"]["out"]:
+                    problems.append(f"rank {r} {row['shape']} {name}: {err}")
+            for k, v in row["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in row["offset_launches"].items():
+                offset[k] = offset.get(k, 0) + v
+    if not all(offset.get(k) for k in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")):
+        problems.append(f"a flash kernel's offset form never launched: {offset}")
+    if problems:
+        raise AssertionError("sequence_parallel: " + "; ".join(problems))
+    rows = {row["shape"]: {**row, "rank": r} for r, rs in enumerate(per_rank) for row in rs if r == 0}
+    return ({"phase": "sequence_parallel", "ranks": SEQ_PARALLEL_RANKS, "rel_tol": SEQ_PARALLEL_REL_TOL,
+             "rank0": rows, "worst_rel_err": {key: max(row["max_abs_err"][key] / row["max_abs_ref"][key]
+                                                       for rs in per_rank for row in rs)
+                                              for key in SEQ_PARALLEL_REL_TOL},
+             "spawn_to_exit_s": time.perf_counter() - t0},
+            launches, {k: {"offset": v} for k, v in offset.items()})
 
 
 def collective_ledger_gates(results: list) -> dict:
@@ -6097,6 +6214,10 @@ def collective_phases(torch, dev, resume, elastic_final, obs_dir, during_gpt2_sp
              "gpt2_topk full --workers 4 --codec int8 --codec-warmup 0 --codec-refresh 0 --overlap-gossip "
              "--backend collective --dist-backend gloo",
              715_190_448),
+            # 2 workers x tp 2 on the same 4 ranks: GPT-2-medium split by its tp rules
+            ("train_collective_tp", tp_collective_spec(),
+             "gpt2_topk full --workers 2 --model-axes tp=2 --codec-warmup 1 --backend collective --dist-backend gloo",
+             33_366_424),
             # train_resnet_resume's 8-worker checkpoint resumed at 4 ranks (an elastic shrink)
             ("train_resnet_collective_elastic", collective_elastic_spec(resume[0]),
              "cifar_resnet50 full --norm-impl pallas --lr-schedule cosine --warmup-rounds 1 --grad-clip 1.0 "
@@ -6364,6 +6485,116 @@ def check_flash_d128(torch, tfa, dev, b=None, s=2048, h=32, d=128):
     out["bwd_x_library"] = out["bwd_ms"] / sdpa_bwd
     out["dk_worst_err_over_tol"] = errs["dk"]["worst_err_over_tol"]
     out["dv_worst_err_over_tol"] = errs["dv"]["worst_err_over_tol"]
+    return out
+
+
+# the ring's blocks, in units of S: (q_offset, k_offset) of a block wholly
+# before the queries, the diagonal block, another before, and one wholly
+# after them (every row attends to no key)
+FLASH_OFFSETS = ((1, 0), (1, 1), (2, 1), (0, 1))
+# (B, S, H, D) of check.flash_offsets: GPT-2-medium's heads and Llama-2-7B's
+FLASH_OFFSET_SHAPES = ((1, 2048, 16, 64), (1, 2048, 32, 128))
+
+
+def check_flash_offsets(torch, tfa, dev):
+    """The three flash kernels' q/k offset form (the ring's) at
+    ``FLASH_OFFSET_SHAPES``, bf16, causal, at each of ``FLASH_OFFSETS``:
+    each kernel held against its plain version given the same offsets (the
+    forward's out and lse at ``FLASH_ATOL``/``FLASH_RTOL`` and ``LSE_TOL``,
+    the backward kernels fed the plain forward's lse and delta, at the
+    backward's gates; the fully masked block's out is the values' sum over
+    the reference's visited count and its lse -1e30 on both sides), one
+    offset launch each, then timed by :func:`queued_ms` beside the aligned
+    form (no offsets) at the same shape, the plain versions (CUDA events)
+    and SDPA at the aligned shape (the library yardstick: no library call
+    takes position offsets). Bounds from this call's pairs (a causal pair
+    is one with ``q_offset + i >= k_offset + j``): 4 d operations a pair
+    for the forward, 6 d for dq, 8 d for dk/dv, or the bytes each reads
+    and writes once, whichever is longer."""
+    import torch.nn.functional as F
+
+    fns = (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)
+    out = {}
+    for b, s, h, d in FLASH_OFFSET_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(s + h)
+        q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(4))
+        elems, rows = b * s * h * d, b * h * s
+        shape = f"B={b} S={s} H={h} D={d} causal"
+        # the aligned form at the same shape, and SDPA beside it
+        lse0 = tfa.flash_attention(q, k, v, causal=True, return_lse=True)[1]
+        delta0 = tfa._delta(tfa.flash_attention(q, k, v, causal=True), do)
+        aligned = {
+            "fwd": queued_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=True, return_lse=True), 20)[0],
+            "dq": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0, causal=True), 20)[0],
+            "dkv": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0, causal=True),
+                             20)[0],
+        }
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd(i):
+            y = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+            torch.autograd.grad(y, (qt, kt, vt), dot)
+
+        with torch.no_grad():
+            sdpa_fwd = queued_ms(torch, lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)[0]
+        sdpa_bwd = queued_ms(torch, sdpa_fwd_bwd, 20)[0] - sdpa_fwd
+        del qt, kt, vt
+        per_offset = {}
+        for qo, ko in FLASH_OFFSETS:
+            off = {"q_offset": qo * s, "k_offset": ko * s}
+            before = [f.offset_launches for f in fns]
+            o, lse = tfa.flash_attention(q, k, v, causal=True, return_lse=True, **off)
+            want_o, want_lse = tfa.flash_attention_plain(q, k, v, causal=True, return_lse=True, **off)
+            delta = tfa._delta(want_o, do)
+            dq = tfa.flash_attention_bwd_dq(q, k, v, do, want_lse, delta, causal=True, **off)
+            dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, want_lse, delta, causal=True, **off)
+            want = tfa._bwd_plain_parts(q, k, v, do, want_lse, delta, True, None, off["q_offset"], off["k_offset"])
+            torch.cuda.synchronize()
+            if [f.offset_launches - n for f, n in zip(fns, before)] != [1, 1, 1]:
+                raise AssertionError(f"check.flash_offsets {shape} {off}: a kernel did not launch its offset form once")
+            name = f"{shape} q_offset={qo}S k_offset={ko}S"
+            fwd_err = tol_check(f"flash_attention {name}", o, want_o, FLASH_ATOL, FLASH_RTOL)
+            lse_err = (lse - want_lse).abs().max().item()
+            if not lse_err <= LSE_TOL:
+                raise AssertionError(f"flash_attention {name}: lse err {lse_err} > {LSE_TOL}")
+            errs = {key: tol_check(f"flash_attention_bwd {key} {name}", g, w, FLASH_BWD_ATOL, FLASH_BWD_RTOL)
+                    for key, g, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+            del want, want_o, dq, dk, dv, o
+            pairs = tfa._pairs(q, True, off["q_offset"] - off["k_offset"])
+            bounds = {"fwd": bound_ms(4 * elems * 2 + rows * 4, 4 * d * pairs),
+                      "dq": bound_ms(5 * elems * 2 + 2 * rows * 4, 6 * d * pairs),
+                      "dkv": bound_ms(6 * elems * 2 + 2 * rows * 4, 8 * d * pairs)}
+            ms = {
+                "fwd": queued_ms(torch, lambda i: tfa.flash_attention(q, k, v, causal=True, return_lse=True, **off),
+                                 20)[0],
+                "dq": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True,
+                                                                            **off), 20)[0],
+                "dkv": queued_ms(torch, lambda i: tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                                                                              **off), 20)[0],
+            }
+            plain = {"fwd": cuda_ms(torch, lambda i: tfa.flash_attention_plain(q, k, v, causal=True, **off), 2,
+                                    warm=1),
+                     "bwd": cuda_ms(torch, lambda i: tfa._bwd_plain_parts(q, k, v, do, lse, delta, True, None,
+                                                                         off["q_offset"], off["k_offset"]), 2,
+                                    warm=1)}
+            row = {}
+            for key in ("fwd", "dq", "dkv"):
+                err = fwd_err if key == "fwd" else (errs["dq"] if key == "dq" else
+                                                   max(errs["dk"], errs["dv"], key=lambda e: e["worst_err_over_tol"]))
+                lib = sdpa_fwd if key == "fwd" else sdpa_bwd
+                row[key] = {**err, "pairs": pairs, "ms": ms[key], "aligned_ms": aligned[key],
+                            "plain_ms": plain["fwd" if key == "fwd" else "bwd"], "bound_ms": bounds[key][0],
+                            "bound_by": bounds[key][1], "library_ms": lib,
+                            "library": ("SDPA forward" if key == "fwd" else
+                                        "SDPA backward (forward + backward - forward)") + " at the aligned shape",
+                            "x_bound": ms[key] / bounds[key][0], "x_aligned": ms[key] / aligned[key]}
+            row["fwd"].update({"lse_max_abs_err": lse_err, "lse_tol": LSE_TOL})
+            per_offset[f"({qo}S, {ko}S)"] = row
+            del lse, delta
+        out[shape] = per_offset
+        del q, k, v, do
+        torch.cuda.empty_cache()
     return out
 
 
@@ -6746,6 +6977,7 @@ def main() -> int:
     subnormals = check_subnormals(torch, tfa, tpa, tln, dev)
     kv_masked, kv_masked_600 = check_flash_kv_mask(torch, tfa, dev)
     d128 = check_flash_d128(torch, tfa, dev)
+    offsets = check_flash_offsets(torch, tfa, dev)
     paged_llama = check_paged_llama(torch, tpa, dev)
     paged_window = check_paged_window(torch, tpa, dev)
     feed_lm = check_feed_lm(torch, dev)
@@ -6761,7 +6993,7 @@ def main() -> int:
           "fused_ln": {f"({m}, {h}) {dt}": r for (m, h, dt), r in ln.items()},
           "ln_row_rtol": LN_ROW_RTOL, "ln_sum_rtol": LN_SUM_RTOL, "subnormals": subnormals,
           "flash_kv_mask": {"B=8 S=1024 H=12": kv_masked, "B=4 S=600 H=12": kv_masked_600},
-          "flash_d128": d128, "feed_lm": feed_lm, "cost_counts": cost_counts})
+          "flash_d128": d128, "flash_offsets": offsets, "feed_lm": feed_lm, "cost_counts": cost_counts})
     torch.cuda.empty_cache()
     b = bwd[1024]
     # the masked form (BERT's encoder, non-causal) beside each flash kernel's readings
@@ -6874,6 +7106,9 @@ def main() -> int:
         shutil.rmtree(ckpt_tmp, ignore_errors=True)
     del final, elastic_final
     emit({"phase": "check.cost_counts.train_step", **step_count})
+    # sequence parallelism: the ring on the flash kernels' q/k offsets, 4 ranks on the card
+    seq_line, seq_counts, seq_forms = sequence_parallel_phase(torch)
+    collective.append((seq_line, seq_counts, seq_forms))
     for line, counts, by_form in collective:
         emit(line)
         for name, n in counts.items():
@@ -6936,11 +7171,12 @@ def main() -> int:
                 shutil.rmtree(art, ignore_errors=True)
             # the same codec on the per-leaf wire (--bucket-bytes 0), then
             # with a linear LR schedule and gradient clipping
-            line, counts = train_perleaf_phase(torch, tck, dev, init)
+            # one counted round each (two until PR 25's phases joined the script's time)
+            line, counts = train_perleaf_phase(torch, tck, dev, init, counted=1)
             emit(line)
             for name, n in counts.items():
                 launches[name]["train_perleaf_topk"] = n
-            line, counts = train_topk_sched_phase(torch, dev, init)
+            line, counts = train_topk_sched_phase(torch, dev, init, counted=1)
             emit(line)
             for name, n in counts.items():
                 launches[name]["train_topk_sched"] = n
@@ -6952,9 +7188,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # overlap gossip on the config's own codec, then the fused codec (one payload over the whole tree)
-    for path, phase in (("train_topk_overlap", train_topk_overlap_phase),
-                        ("train_fused_codec", train_fused_codec_phase)):
-        line, counts = phase(torch, tck, dev, init)
+    for path, phase, counted in (("train_topk_overlap", train_topk_overlap_phase, 2),
+                                 ("train_fused_codec", train_fused_codec_phase, 1)):
+        line, counts = phase(torch, tck, dev, init, counted=counted)
         emit(line)
         for name, n in counts.items():
             launches[name][path] = n
@@ -7063,6 +7299,17 @@ def main() -> int:
     d128_rows.append((f"{name} (window past 8 rows)", src, rep,
                       {**paged_window["GPT-2 W=1024"], "form_of": name, "by_shape": paged_window,
                        "launches_by_path": forms[name]["window"]}))
+    # the q/k offset form (the ring's): readings from check.flash_offsets at
+    # GPT-2-medium's heads on a block wholly before the queries (the ring's
+    # commonest), every offset and Llama-2-7B's heads beside; launches from
+    # sequence_parallel
+    gpt2_offsets = offsets["B=1 S=2048 H=16 D=64 causal"]
+    for key, (name, src, rep, _r) in zip(("fwd", "dq", "dkv"), rows[1:4]):
+        r = gpt2_offsets["(1S, 0S)"][key]
+        d128_rows.append((f"{name} (q/k offsets)", src, rep, {
+            **r, "form_of": name, "launches_by_path": forms[name]["offset"],
+            "shape": "B=1 S=2048 H=16 D=64 causal, q_offset=S k_offset=0",
+            "by_shape": {f"{shape} {off}": row[key] for shape, per in offsets.items() for off, row in per.items()}}))
     entries = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(launches[name].values()), "launches_by_path": launches[name],

@@ -85,9 +85,11 @@ def _rank_main(target: Callable, rank: int, world: int, init_method: str, dist_b
 
 
 def launch(target: Callable, world: int, *args: Any, dist_backend: str = "gloo", timeout: float | None = None,
-           threads: int | None = None) -> list:
-    """``[target(r, world, *args) for r in range(world)]``, each in its own
-    spawned process of one ``dist_backend`` process group. ``timeout`` is
+           threads: int | None = None, per_worker: int = 1) -> list:
+    """``[target(r, n, *args) for r in range(n)]`` with ``n = world *
+    per_worker`` (``per_worker``: the ranks of a worker under model axes,
+    :class:`~.mesh.WorkerMesh`), each in its own spawned process of one
+    ``dist_backend`` process group. ``timeout`` is
     the wall-clock limit in seconds (``None``: none). ``threads`` caps each
     rank's intra-op CPU threads (default: an even split of the host's
     cores, since the ranks share them; 0 leaves PyTorch's default).
@@ -95,8 +97,9 @@ def launch(target: Callable, world: int, *args: Any, dist_backend: str = "gloo",
     says; every rank is dead when it returns or raises."""
     import torch.multiprocessing as mp
 
-    if world < 1:
-        raise ValueError(f"world must be >= 1, got {world}")
+    if world < 1 or per_worker < 1:
+        raise ValueError(f"world and per_worker must be >= 1, got {world} and {per_worker}")
+    world *= per_worker
     if threads is None:
         threads = max(1, (os.cpu_count() or 1) // world)
     ctx = mp.get_context("spawn")

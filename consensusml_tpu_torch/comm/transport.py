@@ -21,6 +21,11 @@ rides either backend (``uint16`` top-k indices, ``float8_e4m3fn`` codes).
 A receive takes the shape and dtype of the sender's tensor in the same
 position: every rank runs one plan, so its tensors match its peers'.
 
+A transport may ride a subgroup of the ranks (a model-parallel run's
+gossip or tensor-parallel group): its routes and all-reduces then speak
+of the subgroup's ranks, 0 .. n-1, which ``ranks`` maps to the ranks of
+the whole world that ``torch.distributed``'s sends and receives take.
+
 Each transport counts what it moved (:class:`TransportStats`): the bytes
 it sent (a payload sent to two neighbours counts twice; an all-reduce
 counts its input once, one send of the wire model), the bytes it staged
@@ -112,11 +117,16 @@ class Transport(abc.ABC):
 
     name: str
 
-    def __init__(self, group, rank: int, device: torch.device):
+    def __init__(self, group, rank: int, device: torch.device, ranks: list[int] | None = None):
         self.group = group
         self.rank = rank
         self.device = device
+        self.ranks = ranks  # the group's ranks in the whole world, by group rank (None: the same)
         self.stats = TransportStats()
+
+    def _peer(self, r: int) -> int:
+        """The world rank of group rank ``r``."""
+        return r if self.ranks is None else self.ranks[r]
 
     def exchange(self, tensors: list[torch.Tensor], routes: list[tuple[int, int]]) -> list[list[torch.Tensor]]:
         """For each route ``(dst, src)``: send every tensor of ``tensors``
@@ -170,8 +180,8 @@ class GlooTransport(Transport):
 
     name = "gloo"
 
-    def __init__(self, group, rank: int, device: torch.device):
-        super().__init__(group, rank, device)
+    def __init__(self, group, rank: int, device: torch.device, ranks: list[int] | None = None):
+        super().__init__(group, rank, device, ranks)
         self._side = None  # the side CUDA stream the start stages on, made at first use
 
     def _to_host(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -225,8 +235,8 @@ class GlooTransport(Transport):
         for k, (dst, src) in enumerate(routes):
             for i, h in enumerate(host):
                 tag = self._tag(k, i, len(host))
-                reqs.append(dist.irecv(recv[k][i], src=src, group=self.group, tag=tag))
-                reqs.append(dist.isend(h, dst=dst, group=self.group, tag=tag))
+                reqs.append(dist.irecv(recv[k][i], src=self._peer(src), group=self.group, tag=tag))
+                reqs.append(dist.isend(h, dst=self._peer(dst), group=self.group, tag=tag))
 
         def finish():
             t0 = time.perf_counter()
@@ -283,10 +293,10 @@ class NcclTransport(Transport):
 
     name = "nccl"
 
-    def __init__(self, group, rank: int, device: torch.device):
+    def __init__(self, group, rank: int, device: torch.device, ranks: list[int] | None = None):
         if device.type != "cuda":
             raise ValueError(f"--dist-backend nccl moves CUDA tensors only; the rank's device is {device}")
-        super().__init__(group, rank, device)
+        super().__init__(group, rank, device, ranks)
 
     def exchange_start(self, tensors, routes):
         counting = self._counting(tensors, routes)
@@ -303,8 +313,8 @@ class NcclTransport(Transport):
         for k, (dst, src) in enumerate(routes):
             for i, r in enumerate(raw):
                 tag = self._tag(k, i, len(raw))
-                ops.append(dist.P2POp(dist.irecv, recv[k][i], src, self.group, tag))
-                ops.append(dist.P2POp(dist.isend, r, dst, self.group, tag))
+                ops.append(dist.P2POp(dist.irecv, recv[k][i], self._peer(src), self.group, tag))
+                ops.append(dist.P2POp(dist.isend, r, self._peer(dst), self.group, tag))
         reqs = dist.batch_isend_irecv(ops)
 
         def finish():
@@ -338,9 +348,12 @@ class NcclTransport(Transport):
         return InFlight(finish)
 
 
-def make_transport(dist_backend: str, group, rank: int, device: torch.device) -> Transport:
+def make_transport(dist_backend: str, group, rank: int, device: torch.device,
+                   ranks: list[int] | None = None) -> Transport:
+    """``rank``'s transport over ``group``; ``ranks`` maps the group's
+    ranks to the world's (None: the group is the world)."""
     if dist_backend == "gloo":
-        return GlooTransport(group, rank, device)
+        return GlooTransport(group, rank, device, ranks)
     if dist_backend == "nccl":
-        return NcclTransport(group, rank, device)
+        return NcclTransport(group, rank, device, ranks)
     raise ValueError(f"unknown dist backend {dist_backend!r} (one of {DIST_BACKENDS})")

@@ -244,6 +244,11 @@ class RunBundle:
     data_source: str = "synthetic"  # the data's origin: "synthetic" or a file reader's source
     # the native ring's source (--native-loader), a NativeSource
     native_batches: NativeSource | None = None
+    # hybrid model parallelism (collective backend only, --model-axes): each
+    # worker becomes prod(sizes) ranks, its parameters, optimizer and gossip
+    # state sharded over them by tp_rules(axis) (parallel/sharding.py)
+    model_axes: tuple[tuple[str, int], ...] = ()
+    tp_rules: Callable[[str], Any] | None = None
 
     def init_params(self, seed: int, ranks=None):
         """The stacked ``(W, ...)`` numpy initial variables in flax layout,
@@ -467,7 +472,23 @@ def build(name: str = "gpt2_topk", scale: str = "smoke", *, world: int | None = 
             bundle = _cifar_resnet50(scale, world, norm_impl, dev, data_dir)
     else:
         bundle = _gpt2_topk(scale, world, codec, gamma, codec_warmup, norm_impl, dev, data_dir)
+    bundle.model_axes, bundle.tp_rules = parallel_defaults(name, scale)
     return bundle if topology is None else with_topology(bundle, topology)
+
+
+def parallel_defaults(name: str, scale: str):
+    """``(model_axes, tp_rules)`` of config ``name`` at ``scale``, the
+    reference's: ``llama_lora`` full defaults to tp 4 a worker
+    (``consensusml_tpu/configs/__init__.py:380-382``) with the Llama rules;
+    ``gpt2_topk`` offers tp by ``--model-axes`` alone (:507); the other
+    configs have no rules."""
+    from consensusml_tpu_torch.parallel.sharding import gpt2_tp_rules, llama_tp_rules
+
+    if name == "llama_lora":
+        return ((("tp", 4),) if scale == "full" else ()), llama_tp_rules
+    if name == "gpt2_topk":
+        return (), gpt2_tp_rules
+    return (), None
 
 
 def _file_tokens(data_dir: str | None, seq: int, vocab: int):

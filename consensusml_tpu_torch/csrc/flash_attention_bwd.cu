@@ -17,6 +17,18 @@
 // dk/dv (which writes no row of a key past it). Tiles wholly above the
 // diagonal are skipped (the reference's nk_eff for dq and i0 for dk/dv).
 //
+// q/k offsets (the reference's q_offset, k_offset, _offsets_smem at :338,
+// read by both kernel bodies): the absolute positions of query row 0 and
+// key row 0, runtime arguments. The causal mask is q_off + query >= k_off
+// + key, i.e. key > query + shift masked with shift = q_off - k_off, and
+// the skips follow it: dq walks the key tiles up to the diagonal of its
+// last row (none when that row is before key 0, and dq is then 0), dk/dv
+// starts at the query tile of its first key's diagonal (past the last,
+// and dk, dv are then 0). A skipped tile gives p = 0 to every pair, so
+// the result is the reference's, which walks every block once offsets are
+// given. A row that attends to no key (lse -1e30 from the forward) lies
+// only in tiles that hold the diagonal, which mask per element: p = 0.
+//
 // kv_mask (the per-key padding mask, (B, S) f32, >0 = attend; nullptr for
 // none) selects each kernel's kHasMask instantiation, so the no-mask form
 // GPT-2 runs is the code it was. A masked key gets p = 0 by a select, as
@@ -129,7 +141,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
-    __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale) {
+    __nv_bfloat16* __restrict__ dq, int S, int H, int causal, float scale, int shift) {
   using namespace cml_sm90;
   constexpr int kAtoms = kD / kAtomCols;
   constexpr int kTile = tile_bytes(kD);
@@ -155,7 +167,10 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
   const int b = bh / H, h = bh % H;
   const int q0 = qt * kTileRows;
   int n_tiles = nq;
-  if (causal) n_tiles = min(n_tiles, qt + 1);  // skip tiles above the diagonal
+  if (causal) {  // skip the tiles after the diagonal of the tile's last row
+    const int last = q0 + kTileRows - 1 + shift;
+    n_tiles = last < 0 ? 0 : min(n_tiles, last / kTileRows + 1);
+  }
   // kHasMask, thread tid < 64: key tid of tile t's mask (0 past S)
   auto load_mask = [&](int t) {
     const int key = t * kTileRows + tid;
@@ -225,7 +240,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
     pin(dp);
 
     const int k0 = t * kTileRows;
-    const bool edge = kHasMask || k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > q0);
+    const bool edge = kHasMask || k0 + kTileRows > S || (causal && k0 + kTileRows - 1 > q0 + shift);
     const float* const tmask = smask + (kHasMask ? (t & 1) * kTileRows : 0);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -238,7 +253,7 @@ __global__ void __launch_bounds__(kDqThreads) flash_bwd_dq_kernel(
           if (edge) {
             const int col = 8 * j + 2 * (lane % 4) + c;
             const int key = k0 + col;
-            if (key >= S || (causal && key > row0 + 8 * i) || (kHasMask && !(tmask[col] > 0.f))) p = 0.f;
+            if (key >= S || (causal && key > row0 + 8 * i + shift) || (kHasMask && !(tmask[col] > 0.f))) p = 0.f;
           }
           s[e] = mul_ftz(p, sub_ftz(dp[e], dl[i]));  // ds; reads a subnormal p as 0
         }
@@ -293,7 +308,7 @@ __global__ void __launch_bounds__(kDkvThreads, dkv_min_blocks(kD)) flash_bwd_dkv
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const float* __restrict__ lse, const float* __restrict__ delta, const float* __restrict__ kv_mask,
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int causal,
-    float scale) {
+    float scale, int shift) {
   using namespace cml_sm90;
   constexpr int kAtoms = kD / kAtomCols;
   constexpr int kTile = tile_bytes(kD);
@@ -320,7 +335,9 @@ __global__ void __launch_bounds__(kDkvThreads, dkv_min_blocks(kD)) flash_bwd_dkv
   // the dims [64 half, 64 half + 64) of dK and dV this block writes (D = 64: 0, a constant)
   const int half = kAtoms > 1 ? static_cast<int>(blockIdx.z) : 0;
   const int k0 = kt * kTileRows;
-  const int first = causal ? kt : 0;  // query tiles above the diagonal never see these keys
+  // query tiles above the diagonal never see these keys: causal, the first
+  // tile walked holds query k0 - shift (none past the last: dk, dv are 0)
+  const int first = !causal || k0 - shift <= 0 ? 0 : min(nq, (k0 - shift) / kTileRows);
   const int n_tiles = nq - first;
 
   auto issue_qdo = [&](int i, int st) {
@@ -393,7 +410,7 @@ __global__ void __launch_bounds__(kDkvThreads, dkv_min_blocks(kD)) flash_bwd_dkv
     pin(dp);
 
     // element 4j + 2r + c: key key0 + 8r, query q0 + 8j + 2(lane % 4) + c
-    const bool edge = q0 + kTileRows > S || (causal && q0 < k0 + kTileRows - 1);
+    const bool edge = q0 + kTileRows > S || (causal && q0 + shift < k0 + kTileRows - 1);
     const float* const lse2 = stats[i & 1];
     const float* const dl = lse2 + kTileRows;
 #pragma unroll
@@ -409,7 +426,7 @@ __global__ void __launch_bounds__(kDkvThreads, dkv_min_blocks(kD)) flash_bwd_dkv
           float p = ftz(exp2f(s[e] * scale_log2 - (c ? l2.y : l2.x)));
           if (edge) {
             const int query = q0 + col + c;
-            if (query >= S || (causal && query < key0 + 8 * r)) p = 0.f;
+            if (query >= S || (causal && query + shift < key0 + 8 * r)) p = 0.f;
           }
           if (kHasMask && !keep[r]) p = 0.f;
           s[e] = p;
@@ -471,7 +488,7 @@ int encode_qkvdo(CUtensorMap (&m)[4], const void* q, const void* k, const void* 
 
 template <int kD, bool kHasMask>
 int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
-              void* dq, int B, int S, int H, int causal, float scale, void* stream) {
+              void* dq, int B, int S, int H, int causal, float scale, int shift, void* stream) {
   // per launch: the attribute belongs to the current device
   constexpr int kDqSmemBytes = dq_smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -479,13 +496,13 @@ int launch_dq(const CUtensorMap (&m)[4], const float* lse, const float* delta, c
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H);
   flash_bwd_dq_kernel<kD, kHasMask><<<grid, kDqThreads, kDqSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dq), S, H, causal, scale);
+      m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dq), S, H, causal, scale, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kD, bool kHasMask>
 int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, const float* kv_mask,
-               void* dk, void* dv, int B, int S, int H, int causal, float scale, void* stream) {
+               void* dk, void* dv, int B, int S, int H, int causal, float scale, int shift, void* stream) {
   // per launch: the attribute belongs to the current device
   constexpr int kDkvSmemBytes = dkv_smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -495,7 +512,7 @@ int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, 
   dim3 grid((S + sm90::kTileRows - 1) / sm90::kTileRows, B * H, kD / sm90::kAtomCols);
   flash_bwd_dkv_kernel<kD, kHasMask><<<grid, kDkvThreads, kDkvSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       m[0], m[1], m[2], m[3], lse, delta, kv_mask, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, H, causal, scale);
+      static_cast<__nv_bfloat16*>(dv), S, H, causal, scale, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -504,48 +521,54 @@ int launch_dkv(const CUtensorMap (&m)[4], const float* lse, const float* delta, 
 template <int kD>
 int launch_dq_masked_or_not(const CUtensorMap (&m)[4], const float* lse, const float* delta,
                             const float* mask, void* dq, int B, int S, int H, int causal, float scale,
-                            void* stream) {
-  return mask != nullptr ? launch_dq<kD, true>(m, lse, delta, mask, dq, B, S, H, causal, scale, stream)
-                         : launch_dq<kD, false>(m, lse, delta, mask, dq, B, S, H, causal, scale, stream);
+                            int shift, void* stream) {
+  return mask != nullptr ? launch_dq<kD, true>(m, lse, delta, mask, dq, B, S, H, causal, scale, shift, stream)
+                         : launch_dq<kD, false>(m, lse, delta, mask, dq, B, S, H, causal, scale, shift, stream);
 }
 
 template <int kD>
 int launch_dkv_masked_or_not(const CUtensorMap (&m)[4], const float* lse, const float* delta,
                              const float* mask, void* dk, void* dv, int B, int S, int H, int causal,
-                             float scale, void* stream) {
-  return mask != nullptr ? launch_dkv<kD, true>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, stream)
-                         : launch_dkv<kD, false>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, stream);
+                             float scale, int shift, void* stream) {
+  return mask != nullptr
+             ? launch_dkv<kD, true>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, shift, stream)
+             : launch_dkv<kD, false>(m, lse, delta, mask, dk, dv, B, S, H, causal, scale, shift, stream);
 }
 
 // Both return 0 once launched, else a CUDA error code: without launching,
 // cudaErrorInvalidValue for a head dim other than 64 and 128 or a tensor
 // map the driver refuses (e.g. a base address not 16-byte aligned); after
 // the launch, cudaGetLastError(). kv_mask: nullptr, or (B, S) f32.
+// q_offset, k_offset: the absolute positions of query and key row 0 (both
+// 0 in the reference's aligned form).
 extern "C" int cml_flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                                const void* dout, const void* lse, const void* delta,
                                                const void* kv_mask, void* dq, int B, int S, int H,
-                                               int D, int causal, float scale, void* stream) {
+                                               int D, int causal, float scale, int q_offset,
+                                               int k_offset, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
   const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H, D);
   if (rc != 0) return rc;
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
   const float* mask = static_cast<const float*>(kv_mask);
-  return D == 64 ? launch_dq_masked_or_not<64>(m, l, dl, mask, dq, B, S, H, causal, scale, stream)
-                 : launch_dq_masked_or_not<128>(m, l, dl, mask, dq, B, S, H, causal, scale, stream);
+  const int shift = q_offset - k_offset;
+  return D == 64 ? launch_dq_masked_or_not<64>(m, l, dl, mask, dq, B, S, H, causal, scale, shift, stream)
+                 : launch_dq_masked_or_not<128>(m, l, dl, mask, dq, B, S, H, causal, scale, shift, stream);
 }
 
 extern "C" int cml_flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                                 const void* dout, const void* lse,
                                                 const void* delta, const void* kv_mask, void* dk,
                                                 void* dv, int B, int S, int H, int D, int causal,
-                                                float scale, void* stream) {
+                                                float scale, int q_offset, int k_offset, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[4];
   const int rc = encode_qkvdo(m, q, k, v, dout, B, S, H, D);
   if (rc != 0) return rc;
   const float *l = static_cast<const float*>(lse), *dl = static_cast<const float*>(delta);
   const float* mask = static_cast<const float*>(kv_mask);
-  return D == 64 ? launch_dkv_masked_or_not<64>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream)
-                 : launch_dkv_masked_or_not<128>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, stream);
+  const int shift = q_offset - k_offset;
+  return D == 64 ? launch_dkv_masked_or_not<64>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, shift, stream)
+                 : launch_dkv_masked_or_not<128>(m, l, dl, mask, dk, dv, B, S, H, causal, scale, shift, stream);
 }

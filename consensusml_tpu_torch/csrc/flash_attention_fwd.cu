@@ -8,7 +8,25 @@
 // online softmax with a running row max m and row sum l over key tiles,
 // out = acc / max(l, 1e-30), and the per-row logsumexp m + log(l) saved
 // for the backward. Tiles wholly above the diagonal are skipped, as the
-// reference's nk_eff does. No q/k offsets.
+// reference's nk_eff does.
+//
+// q/k offsets (the reference's q_offset, k_offset: _offsets_smem at :338,
+// read by _fwd_kernel's q_pos and koff): the absolute positions of query
+// row 0 and key row 0, runtime arguments, so one instantiation serves
+// every block of a ring (parallel/ring_attention.py). The causal mask is
+// then q_off + row >= k_off + key, i.e. key > row + shift is masked, with
+// shift = q_off - k_off (0 in the aligned form). As in the reference, a
+// call given offsets is not "aligned": every masked key scores -1e30
+// (kMaskedScore) and a row that attends to no key (a whole block of keys
+// after its query, under a causal ring) gets the sum of the values over
+// the reference's visited count, which is then every key of the padded
+// sequence, ceil(S / 512) * 512, and lse -1e30; a ring's logsumexp merge
+// weighs such a block by exp(-1e30 - m) = 0. The reference walks every
+// key block then; this kernel skips the tiles after the diagonal of the
+// query tile's last row whenever its first row sees key 0 (so no row of
+// the tile is empty, and the skipped keys would give p = 0 to every row),
+// and walks them all otherwise. With kv_mask and offsets it walks every
+// tile (an empty row can then be anywhere).
 //
 // kv_mask (the per-key padding mask, (B, S) f32, >0 = attend; nullptr for
 // none) selects the kHasMask instantiation, so the no-mask form GPT-2 runs
@@ -100,7 +118,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const float* __restrict__ kv_mask,
     __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H, int causal,
-    float scale_log2) {
+    float scale_log2, int shift, int aligned) {
   constexpr int kAtoms = kD / kAtomCols;
   constexpr int kTile = kAtoms * kTileBytes;  // one tile: 64 rows of kD dims
   constexpr int kStageBytes = 2 * kTile;      // K then V
@@ -125,9 +143,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int q0 = qt * kBQ;
   int n_tiles = (S + kBK - 1) / kBK;
   // skip tiles above the diagonal; with a mask, those past the row's
-  // 512-key block of the reference (see above)
-  if (causal)
+  // 512-key block of the reference (see above); with offsets, those past
+  // the last row's diagonal when no row of the tile is empty
+  if (causal && aligned)
     n_tiles = min(n_tiles, kHasMask ? (q0 / kRefBlock + 1) * (kRefBlock / kBK) : (q0 + kBQ - 1) / kBK + 1);
+  else if (causal && !kHasMask && q0 + shift >= 0)
+    n_tiles = min(n_tiles, (q0 + kBQ - 1 + shift) / kBK + 1);
+  // the score of a masked key: -1e30 where a row may attend to no key
+  const float masked = kHasMask || !aligned ? kMaskedScore : neg_inf();
   // kHasMask, thread tid < kBK: key tid of tile t's mask (0 past S)
   auto load_mask = [&](int t) {
     const int key = t * kBK + tid;
@@ -184,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     pin(s);
 
     const int k0 = t * kBK;
-    const bool edge = kHasMask || k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    const bool edge = kHasMask || k0 + kBK > S || (causal && k0 + kBK - 1 > q0 + shift);
     const float* const tmask = smask + (kHasMask ? (t & 1) * kBK : 0);
     float mx[2] = {-1e30f, -1e30f};
 #pragma unroll
@@ -197,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
           if (edge) {
             const int col = 8 * j + 2 * (lane % 4) + c;
             const int key = k0 + col;
-            if (key >= S || (causal && key > row0 + 8 * i) || (kHasMask && !(tmask[col] > 0.f)))
-              x = kHasMask ? kMaskedScore : neg_inf();
+            if (key >= S || (causal && key > row0 + 8 * i + shift) || (kHasMask && !(tmask[col] > 0.f)))
+              x = masked;
           }
           s[4 * j + 2 * i + c] = x;
           mx[i] = fmaxf(mx[i], x);
@@ -263,8 +286,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int qi = row0 + 8 * i;
     // a row that attends to no key: the reference's count of visited keys
-    const bool empty = kHasMask && m[i] == kMaskedScore;
-    const int visited = causal ? kRefBlock * (qi / kRefBlock + 1) : kRefBlock * ((S + kRefBlock - 1) / kRefBlock);
+    const bool empty = (kHasMask || !aligned) && m[i] == kMaskedScore;
+    const int visited =
+        causal && aligned ? kRefBlock * (qi / kRefBlock + 1) : kRefBlock * ((S + kRefBlock - 1) / kRefBlock);
     const float l_safe = empty ? static_cast<float>(visited) : fmaxf(l[i], 1e-30f);
     inv[i] = 1.f / l_safe;
     if (lse != nullptr && lane % 4 == 0 && qi < S)
@@ -282,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 template <int kD, bool kHasMask>
 int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                const float* kv_mask, void* out, void* lse, int B, int S, int H, int causal,
-               float scale, void* stream) {
+               float scale, int shift, int aligned, void* stream) {
   // per launch: the attribute belongs to the current device
   constexpr int kSmemBytes = smem_bytes(kD);
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -291,7 +315,7 @@ int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<kD, kHasMask><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       tq, tk, tv, kv_mask, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), S, H, causal,
-      scale * kLog2e);
+      scale * kLog2e, shift, aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -300,19 +324,22 @@ int launch_fwd(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& 
 template <int kD>
 int launch_fwd_masked_or_not(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                              const float* mask, void* out, void* lse, int B, int S, int H, int causal,
-                             float scale, void* stream) {
-  return mask != nullptr ? launch_fwd<kD, true>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
-                         : launch_fwd<kD, false>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
+                             float scale, int shift, int aligned, void* stream) {
+  return mask != nullptr
+             ? launch_fwd<kD, true>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, shift, aligned, stream)
+             : launch_fwd<kD, false>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, shift, aligned, stream);
 }
 
 // Returns 0 once launched, else a CUDA error code without launching:
 // cudaErrorInvalidValue for a head dim other than 64 and 128 or a tensor
 // map the driver refuses (e.g. a base address not 16-byte aligned); then
 // cudaGetLastError() after the launch. kv_mask: nullptr, or (B, S) f32.
+// q_offset, k_offset: the absolute positions of query and key row 0;
+// aligned: 1 for the reference's call without offsets (both then 0).
 extern "C" int cml_flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
                                             const void* kv_mask, void* out, void* lse, int B,
                                             int S, int H, int D, int causal, float scale,
-                                            void* stream) {
+                                            int q_offset, int k_offset, int aligned, void* stream) {
   if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
   int rc = encode_bshd(&tq, q, B, S, H, D, kBQ);
@@ -320,6 +347,9 @@ extern "C" int cml_flash_attention_fwd_bf16(const void* q, const void* k, const 
   if (rc == 0) rc = encode_bshd(&tv, v, B, S, H, D, kTileRows);
   if (rc != 0) return rc;
   const float* mask = static_cast<const float*>(kv_mask);
-  return D == 64 ? launch_fwd_masked_or_not<64>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream)
-                 : launch_fwd_masked_or_not<128>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, stream);
+  const int shift = q_offset - k_offset;
+  return D == 64
+             ? launch_fwd_masked_or_not<64>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, shift, aligned, stream)
+             : launch_fwd_masked_or_not<128>(tq, tk, tv, mask, out, lse, B, S, H, causal, scale, shift, aligned,
+                                             stream);
 }

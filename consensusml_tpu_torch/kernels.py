@@ -16,9 +16,9 @@ Launch counts live on each kernel's wrapper as a plain integer
 :func:`reset_launch_counts` zeroes them. A wrapper whose kernel has
 forms also counts the launches of each (``wrapper.<form>_launches``:
 ``chunk_scatter.acc_launches``, its accumulating form; the flash
-kernels' ``masked_launches``, their ``kv_mask`` form, and
-``d128_launches``, their head-dim-128 form), which :func:`form_counts`
-reads.
+kernels' ``masked_launches``, their ``kv_mask`` form,
+``d128_launches``, their head-dim-128 form, and ``offset_launches``,
+their q/k offset form), which :func:`form_counts` reads.
 """
 
 from __future__ import annotations

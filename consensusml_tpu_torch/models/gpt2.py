@@ -34,6 +34,17 @@ reference's.
 - the residual stream is in the compute dtype; logits are a
   compute-dtype product with the tied embedding, cast to f32.
 
+Tensor parallelism (:meth:`GPT2LM.tensor_parallel`, the collective
+backend's ``--model-axes tp=N``): given the pieces
+:func:`~consensusml_tpu_torch.parallel.sharding.gpt2_tp_rules` cuts (the
+fused ``qkv`` and ``out`` on the heads dim, ``mlp_in`` by column and
+``mlp_out`` by row, ``wte``/``wpe`` on hidden), the full forward runs
+the logical program on ``H/tp`` heads a rank: each block's input enters
+the split products by ``copy_to``, the ``out`` and ``mlp_out`` partial
+sums leave by ``reduce_from`` (f32 sums) before their replicated bias, and
+the embedding tables are gathered whole (``gather_to``) for the lookup and
+the tied head, which every rank computes alike.
+
 Paths: the full forward (training, with autograd through the flash
 kernels), the prefill ``return_kv`` forward, the paged single-token
 decode step (``kv_cache`` + ``block_table``, ``positions`` ``(B,)``) and
@@ -63,6 +74,7 @@ from consensusml_tpu_torch.models.paged_attention import (
     fused_paged_attention_window,
     resolve_attention_impl,
 )
+from consensusml_tpu_torch.parallel.axis import copy_to, gather_to, reduce_from
 
 __all__ = ["NORM_IMPLS", "GPT2Config", "GPT2LM", "gpt2_loss_fn"]
 
@@ -143,15 +155,23 @@ class Dense(nn.Module):
     def __init__(self, in_shape: tuple, out_shape: tuple, dtype: torch.dtype, device=None):
         super().__init__()
         self.dtype = dtype
-        self.fan_in = math.prod(in_shape)
+        self.in_dims = len(in_shape)
         self.kernel = nn.Parameter(
             torch.empty(*in_shape, *out_shape, dtype=torch.float32, device=device)
         )
         self.bias = nn.Parameter(torch.zeros(*out_shape, dtype=torch.float32, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.kernel.to(self.dtype).reshape(self.fan_in, -1)
-        return x.to(self.dtype) @ kernel + self.bias.to(self.dtype).reshape(-1)
+    def forward(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
+        """``reduce`` (a model-parallel axis): the kernel is a row piece,
+        and the product's partial sums are reduced over the axis before the
+        bias is added."""
+        # (prod(in), prod(out)) of the kernel given, which under tensor
+        # parallelism is this rank's piece
+        kernel = self.kernel.to(self.dtype).reshape(-1, math.prod(self.kernel.shape[self.in_dims:]))
+        y = x.to(self.dtype) @ kernel
+        if reduce is not None:
+            y = reduce_from(y, reduce)
+        return y + self.bias.to(self.dtype).reshape(-1)
 
 
 class Embed(nn.Module):
@@ -170,8 +190,15 @@ class Embed(nn.Module):
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         return x.to(self.dtype) @ self.embedding.to(self.dtype).T
 
+    def table(self, tp) -> torch.Tensor:
+        """The table in the compute dtype, gathered whole over the
+        model-parallel axis ``tp`` from its pieces on the feature dim."""
+        return gather_to(self.embedding.to(self.dtype), tp, dim=1)
+
 
 class DecoderBlock(nn.Module):
+    tp = None  # the model-parallel Axis under tensor parallelism (GPT2LM.tensor_parallel)
+
     def __init__(self, config: GPT2Config, device=None):
         super().__init__()
         c = self.config = config
@@ -193,7 +220,8 @@ class DecoderBlock(nn.Module):
         attn_impl = resolve_attention_impl(attn_impl, x.device)
         b, s, _ = x.shape
         dh = c.head_dim
-        qkv = self.qkv(self.ln_1(x)).view(b, s, c.heads, 3 * dh)
+        heads = self.qkv.kernel.shape[1]  # this rank's heads (all of them without tensor parallelism)
+        qkv = self.qkv(copy_to(self.ln_1(x), self.tp)).view(b, s, heads, 3 * dh)
         q, k, v = (t.contiguous() for t in qkv.split(dh, dim=-1))
         kv = None
         if cache is not None and positions.dim() == 2:
@@ -213,10 +241,10 @@ class DecoderBlock(nn.Module):
                 q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl == "cuda"
             )
             kv = (k, v)
-        attn = self.out(attn.reshape(b, s, c.hidden))
+        attn = self.out(attn.reshape(b, s, heads * dh), reduce=self.tp)
         x = x + dropout(attn, c.dropout, deterministic, generator)
-        y = F.gelu(self.mlp_in(self.ln_2(x)), approximate="tanh")
-        y = self.mlp_out(y)
+        y = F.gelu(self.mlp_in(copy_to(self.ln_2(x), self.tp)), approximate="tanh")
+        y = self.mlp_out(y, reduce=self.tp)
         return x + dropout(y, c.dropout, deterministic, generator), kv
 
 
@@ -240,6 +268,18 @@ class GPT2LM(nn.Module):
     @property
     def blocks(self) -> list[DecoderBlock]:
         return [getattr(self, f"h_{i}") for i in range(self.config.layers)]
+
+    tp = None
+
+    def tensor_parallel(self, axis) -> "GPT2LM":
+        """Run the full forward on the pieces ``gpt2_tp_rules`` cuts over
+        the model-parallel :class:`~consensusml_tpu_torch.parallel.axis.
+        Axis` ``axis`` (module docstring); the paged serving paths are not
+        taken under it."""
+        self.tp = axis
+        for blk in self.blocks:
+            blk.tp = axis
+        return self
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, std: float = 0.02) -> "GPT2LM":
@@ -318,9 +358,16 @@ class GPT2LM(nn.Module):
             pos = torch.arange(s, device=input_ids.device)[None, :]
         else:
             pos = positions if multi else positions[:, None]
+        if self.tp is not None and (kv_cache is not None or return_kv):
+            raise NotImplementedError("the serving paths do not run under tensor parallelism")
         # clamp the table lookup only (raw positions drive scatter and
         # masks): PyTorch raises / device-asserts where JAX would clamp
-        x = self.wte(input_ids) + self.wpe(torch.clamp(pos, max=c.max_len - 1))
+        pos = torch.clamp(pos, max=c.max_len - 1)
+        if self.tp is None:
+            x = self.wte(input_ids) + self.wpe(pos)
+        else:
+            wte = self.wte.table(self.tp)
+            x = wte[input_ids] + self.wpe.table(self.tp)[pos]
         x = dropout(x, c.dropout, deterministic, generator)
         kvs = []
         for i, blk in enumerate(self.blocks):
@@ -335,7 +382,7 @@ class GPT2LM(nn.Module):
             )
             kvs.append(kv)
         x = self.ln_f(x)
-        logits = self.wte.attend(x).float()
+        logits = (self.wte.attend(x) if self.tp is None else x.to(c.dtype) @ wte.T).float()
         if return_kv:
             return logits, kvs
         return logits

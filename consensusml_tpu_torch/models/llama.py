@@ -46,6 +46,21 @@ hit's suffix: :func:`.attention.paged_update_kv_cache_window`, then
 :func:`.paged_attention.fused_paged_attention_window`), each token
 rotated at its own position.
 
+Tensor parallelism (:meth:`LlamaLM.tensor_parallel`, the collective
+backend's ``--model-axes tp=N``): given the pieces
+:func:`~consensusml_tpu_torch.parallel.sharding.llama_tp_rules` cuts
+(column-split q/k/v/gate/up and ``lm_head``, row-split o/down, ``tok_emb``
+on hidden, each adapter following its base: ``lora_b`` of q/k/v by column,
+``lora_a`` of o by row), the full forward runs the logical program: a
+column-split product's input enters by ``copy_to`` (a column adapter's
+``x @ lora_a``, whole on every rank, too), a row-split one's partial sums
+leave by ``reduce_from`` (a row adapter's ``x @ lora_a`` is reduced before
+``lora_b``, which is whole), and the embedding and head are gathered whole
+(``gather_to``). A rank's query heads are ``H/tp``; its key/value heads
+are its own pieces when the kv heads split evenly over the ranks, else
+(``llama_tiny``'s 2 at tp 4) k and v are gathered whole and each rank
+takes the kv head of each of its query heads.
+
 Not ported, raising ``NotImplementedError``: the reference's per-slot
 cache (``kv_cache`` without ``block_table``) and the chunked-vocab loss
 (``loss_vocab_chunk > 0``, ``return_hidden``).
@@ -74,6 +89,7 @@ from consensusml_tpu_torch.models.paged_attention import (
     resolve_attention_impl,
 )
 from consensusml_tpu_torch.numerics import ftz, inv_rows
+from consensusml_tpu_torch.parallel.axis import copy_to, gather_to, reduce_from
 
 __all__ = ["LlamaConfig", "LlamaLM", "LoRADense", "RMSNorm", "llama2_7b", "llama_tiny", "llama_loss_fn"]
 
@@ -121,8 +137,11 @@ class Dense(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, out_features, dtype=torch.float32, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype)
+    def forward(self, x: torch.Tensor, reduce=None) -> torch.Tensor:
+        """``reduce`` (a model-parallel axis): the kernel is a row piece,
+        its partial sums reduced over the axis."""
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return y if reduce is None else reduce_from(y, reduce)
 
 
 class LoRADense(nn.Module):
@@ -139,12 +158,19 @@ class LoRADense(nn.Module):
             self.lora_a = nn.Parameter(torch.empty(in_features, rank, dtype=torch.float32, device=device))
             self.lora_b = nn.Parameter(torch.empty(rank, features, dtype=torch.float32, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.base(x)
+    def forward(self, x: torch.Tensor, tp=None, row: bool = False) -> torch.Tensor:
+        """``tp`` (a model-parallel axis): the column pieces (``row``
+        false: ``base`` and ``lora_b`` by column) or the row pieces (``base``
+        and ``lora_a`` by row) of the projection (module docstring)."""
+        if tp is None:
+            y = self.base(x)
+        else:
+            y = self.base(x, reduce=tp) if row else self.base(copy_to(x, tp))
         if self.rank > 0:
-            xc = x.to(self.dtype)
-            lo = (xc @ self.lora_a.to(self.dtype)) @ self.lora_b.to(self.dtype)
-            y = y + (self.alpha / self.rank) * lo
+            u = x.to(self.dtype) @ self.lora_a.to(self.dtype)
+            if tp is not None:
+                u = reduce_from(u, tp) if row else copy_to(u, tp)
+            y = y + (self.alpha / self.rank) * (u @ self.lora_b.to(self.dtype))
         return y
 
 
@@ -188,6 +214,8 @@ class RMSNorm(nn.Module):
 
 
 class LlamaBlock(nn.Module):
+    tp = None  # the model-parallel Axis under tensor parallelism (LlamaLM.tensor_parallel)
+
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         c = self.config = config
@@ -217,9 +245,19 @@ class LlamaBlock(nn.Module):
         multi = positions is not None and positions.dim() == 2
         # (B, 1): each slot's own position; (B, S): each window token's
         pos = None if positions is None else positions if multi else positions[:, None]
-        q = apply_rope(self.q_proj(y).view(b, s, c.heads, d), rope_table, pos)
-        k = apply_rope(self.k_proj(y).view(b, s, c.kv_heads, d), rope_table, pos)
-        v = self.v_proj(y).view(b, s, c.kv_heads, d)
+        tp = self.tp
+        q, k, v = self.q_proj(y, tp), self.k_proj(y, tp), self.v_proj(y, tp)
+        # this rank's heads (all of them without tensor parallelism)
+        heads, kv_heads = q.shape[-1] // d, k.shape[-1] // d
+        pick = None
+        if tp is not None and c.kv_heads % tp.size:  # k and v whole, each query head's kv head picked
+            k, v = (copy_to(gather_to(t, tp, -1), tp) for t in (k, v))
+            kv_heads = c.kv_heads
+            rep = c.heads // c.kv_heads
+            pick = torch.tensor([(tp.index * heads + i) // rep for i in range(heads)], device=q.device)
+        q = apply_rope(q.view(b, s, heads, d), rope_table, pos)
+        k = apply_rope(k.view(b, s, kv_heads, d), rope_table, pos)
+        v = v.view(b, s, kv_heads, d)
         kv = None
         if cache is not None and multi:
             paged_update_kv_cache_window(cache, k, v, block_table, positions)
@@ -234,13 +272,14 @@ class LlamaBlock(nn.Module):
         else:
             if return_kv:
                 kv = (k, v)  # pre-repeat, for the prefill's page insertion
-            rep = c.heads // c.kv_heads
-            if rep != 1:  # grouped-query attention
-                k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+            if pick is not None:
+                k, v = k.index_select(2, pick), v.index_select(2, pick)
+            elif heads != kv_heads:  # grouped-query attention
+                k, v = k.repeat_interleave(heads // kv_heads, dim=2), v.repeat_interleave(heads // kv_heads, dim=2)
             attn = dot_product_attention(q, k, v, causal=True, dtype=c.dtype, use_kernel=attn_impl == "cuda")
-        x = x + self.o_proj(attn.reshape(b, s, c.heads * d))
-        y = self.mlp_norm(x)
-        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y)), kv
+        x = x + self.o_proj(attn.reshape(b, s, heads * d), tp, row=True)
+        y = copy_to(self.mlp_norm(x), tp)
+        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y), reduce=tp), kv
 
 
 class LlamaLM(nn.Module):
@@ -265,6 +304,18 @@ class LlamaLM(nn.Module):
     @property
     def layers(self) -> list[LlamaBlock]:
         return [getattr(self, f"layer_{i}") for i in range(self.config.layers)]
+
+    tp = None
+
+    def tensor_parallel(self, axis) -> "LlamaLM":
+        """Run the full forward on the pieces ``llama_tp_rules`` cuts over
+        the model-parallel :class:`~consensusml_tpu_torch.parallel.axis.
+        Axis` ``axis`` (module docstring); the serving paths are not taken
+        under it."""
+        self.tp = axis
+        for layer in self.layers:
+            layer.tp = axis
+        return self
 
     @torch.no_grad()
     def to_compute_dtype(self) -> "LlamaLM":
@@ -322,14 +373,20 @@ class LlamaLM(nn.Module):
         if return_hidden:
             raise NotImplementedError("the chunked-vocab loss path (return_hidden) is not ported yet")
         attn_impl = resolve_attention_impl(attn_impl, input_ids.device)
-        x = self.tok_emb(input_ids)
+        if self.tp is not None and (kv_cache is not None or return_kv):
+            raise NotImplementedError("the serving paths do not run under tensor parallelism")
+        x = self.tok_emb(input_ids) if self.tp is None else self.tok_emb.table(self.tp)[input_ids]
         table = rope_frequencies(c.head_dim, c.max_len, c.rope_theta, device=input_ids.device)
         kvs = []
         for i, layer in enumerate(self.layers):
             x, kv = layer(x, table, cache=None if kv_cache is None else kv_cache[i], positions=positions,
                           block_table=block_table, return_kv=return_kv, attn_impl=attn_impl)
             kvs.append(kv)
-        logits = self.lm_head(self.final_norm(x)).float()
+        if self.tp is None:
+            logits = self.lm_head(self.final_norm(x)).float()
+        else:
+            head = gather_to(self.lm_head.kernel.to(c.dtype), self.tp, dim=1)
+            logits = (self.final_norm(x).to(c.dtype) @ head).float()
         if return_kv:
             return logits, kvs
         return logits

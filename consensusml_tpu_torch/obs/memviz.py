@@ -261,7 +261,7 @@ def reconcile_config(
     if hbm_model is None:
         raise RuntimeError("consensusml_tpu_torch/tools/hbm_model.py not found: the reconciliation needs "
                            "the analytic side")
-    analytic = hbm_model.predict(name, scale, world=1)
+    analytic = hbm_model.predict(name, scale, world=1, model_axes=())  # the simulated step: no model axes
     if ledger is None:
         ledger = get_cost_ledger()
     acct = HbmAccountant(registry=registry, device=dev)

@@ -33,8 +33,13 @@ Differences from the reference's layouts, each named:
   models ONE worker, as the reference's; the trainer multiplies by the
   world on the simulated backend (the frozen base once), as the
   reference's ``train.py`` does.
-- ``model_axes`` (tensor parallelism) raises: ``parallel/`` is not
-  ported.
+- ``model_axes`` (tensor parallelism), the reference's: each state leaf
+  is divided by the sizes of the axes its rule names (the config's
+  ``tp_rules``, ``parallel/sharding.py``), the frozen base too (the port
+  splits it by the same rules), and the activations by the product of the
+  sizes; the gossip state's bucket buffers match no rule and stay whole,
+  as the reference's do. ``model_axes=None`` takes the config's default
+  (``llama_lora`` full: tp 4), as the reference's ``predict`` does.
 
 Usage::
 
@@ -66,6 +71,28 @@ _RESNET_SAVED_PER_CONV = 1.6  # conv output + BN/ReLU residuals, bf16 units
 
 def _bytes(tensors) -> int:
     return sum(math.prod(t.shape) * t.element_size() for t in tensors)
+
+
+def _tp_divider(bundle, model_axes):
+    """``(name, tensor) -> shard count`` from the bundle's own rules (the
+    reference's ``_tp_divider``), or None without model axes."""
+    if not model_axes or bundle.tp_rules is None:
+        return None
+    from consensusml_tpu_torch.parallel.sharding import spec_for_path, tree_path
+
+    sizes = dict(model_axes)
+    rules = bundle.tp_rules()  # default axis names, as WorkerMesh uses
+
+    def divide(name: str, t) -> int:
+        spec = spec_for_path(tree_path(name), len(t.shape), rules)
+        return math.prod(sizes.get(ax, 1) for ax in spec if ax is not None)
+
+    return divide
+
+
+def _named_bytes(named, divide=None) -> int:
+    """Bytes of ``(name, tensor)`` pairs, each divided by its shard count."""
+    return sum(math.prod(t.shape) * t.element_size() // (divide(n, t) if divide else 1) for n, t in named)
 
 
 def _transformer_act(B, S, hidden, mlp, layers, vocab, heads, mlp_tensors=_SAVED_PER_LAYER_MLP) -> int:
@@ -138,10 +165,10 @@ def _sample_shapes(bundle) -> dict:
     return out
 
 
-def _frozen_bytes(bundle) -> int:
+def _frozen_bytes(bundle, divide=None) -> int:
     """The LoRA base as ``TrainState.frozen`` holds it: every non-adapter
     leaf of the model, the norm scales f32, the rest in the compute
-    dtype."""
+    dtype; a rank's pieces of it under ``divide``."""
     if bundle.draw_frozen is None:
         return 0
     from consensusml_tpu_torch.models.lora import is_lora_path
@@ -152,12 +179,13 @@ def _frozen_bytes(bundle) -> int:
         if is_lora_path((n,)):
             continue
         size = 4 if n.endswith(".scale") else dtype.itemsize
-        total += math.prod(p.shape) * size
+        total += math.prod(p.shape) * size // (divide(n, p) if divide else 1)
     return total
 
 
 def predict(name: str, scale: str = "full", world: int | None = None, model_axes=None) -> dict:
-    """Per-device memory prediction for one config (one worker). Pure host
+    """Per-device memory prediction for one config (one worker; one rank of
+    it under ``model_axes``, ``None`` = the config's default). Pure host
     computation: draws one worker's initial parameters on the host for
     their shapes and builds nothing on a device."""
     import torch
@@ -166,10 +194,10 @@ def predict(name: str, scale: str = "full", world: int | None = None, model_axes
     from consensusml_tpu_torch.train.outer import slowmo_init
     from consensusml_tpu_torch.utils import tree as T
 
-    if model_axes:
-        raise NotImplementedError("model_axes (tensor parallelism) needs parallel/, which the port has not "
-                                  "ported; predict() models one unsharded worker")
     bundle = configs.build(name, scale, world=world, device="cpu")
+    axes = bundle.model_axes if model_axes is None else tuple(tuple(a) for a in model_axes)
+    tp = math.prod(s for _, s in axes) if axes else 1
+    divide = _tp_divider(bundle, axes)
     cfg = bundle.cfg
     engine = cfg.engine()
     p0, ms0 = bundle.convert(bundle.init_params(0, ranks=[0]))
@@ -181,15 +209,13 @@ def predict(name: str, scale: str = "full", world: int | None = None, model_axes
     gossiped = {"params": params, "model_state": model_state}
     gossip = engine.init_state(gossiped, world_size=1)
     outer = slowmo_init(params) if cfg.outer is not None else None
-    leaves = lambda tree: [t for t in T.leaves(tree) if isinstance(t, torch.Tensor)]  # noqa: E731
-    named_opt = [t for _, t in T.named_tensors(opt_state)]
     state = {
-        "params": _bytes(params.values()),
-        "model_state": _bytes(leaves(model_state)),
-        "opt": _bytes(named_opt),
-        "gossip": _bytes(leaves(gossip)) if gossip is not None else 0,
-        "outer": _bytes(leaves(outer)) if outer is not None else 0,
-        "frozen": _frozen_bytes(bundle),
+        "params": _named_bytes(params.items(), divide),
+        "model_state": _named_bytes(T.named_tensors(model_state), divide),
+        "opt": _named_bytes(T.named_tensors(opt_state), divide),
+        "gossip": _named_bytes(T.named_tensors(gossip), divide) if gossip is not None else 0,
+        "outer": _named_bytes(T.named_tensors(outer), divide) if outer is not None else 0,
+        "frozen": _frozen_bytes(bundle, divide),
     }
     shapes = _sample_shapes(bundle)
     if cfg.gossip.compressor is not None:
@@ -202,13 +228,13 @@ def predict(name: str, scale: str = "full", world: int | None = None, model_axes
         codec = {"codec_temp": 2 * n_gossiped * 4, "payloads": wire * (1 + shifts)}
     else:
         codec = {"codec_temp": 0, "payloads": 0}
-    act = _activation_bytes(bundle, shapes)
+    act = _activation_bytes(bundle, shapes) // tp
     total = sum(state.values()) + shapes["batch_bytes"] + max(act, codec["codec_temp"]) + codec["payloads"]
     return {
         "config": name,
         "scale": scale,
         "world": bundle.world_size,
-        "model_axes": [],
+        "model_axes": [list(a) for a in axes],
         "per_device": {**state, "batch": shapes["batch_bytes"], "activations": act, **codec},
         "predicted_peak_bytes": int(total),
         "predicted_peak_gib": round(total / GIB, 3),

@@ -283,6 +283,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=1)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--model-axes", default=None,
+                   help='hybrid model parallelism for the collective backend: "tp=N" gives every worker N ranks '
+                        "with params sharded per the config's TP rules (one axis only from the CLI); \"none\" "
+                        "disables a config's default (full-scale llama_lora defaults to tp=4). Devices here are "
+                        "the CUDA cards visible (the CPU counts as one): a config's default that needs more "
+                        "than workers x N of them is dropped with a note, an explicit value is honoured, the "
+                        "ranks sharing the cards (--dist-backend gloo)")
     p.add_argument("--backend", default="simulated", choices=["simulated", "collective"],
                    help="simulated: every worker stacked on one device; collective: one process per worker")
     p.add_argument("--dist-backend", default="gloo", choices=["nccl", "gloo"],
@@ -404,6 +411,73 @@ def _layout(engine, gossiped, stacked: bool) -> str:
     return "per-leaf wire" if plan is None else f"{plan.num_buckets} buckets"
 
 
+# what saves, restores, evaluates, exports or probes a worker's state, or
+# needs its whole gradient or the in-flight group: not under model axes yet
+_MODEL_AXES_REFUSED = (
+    ("--resume", lambda a: a.resume is not None),
+    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None),
+    ("--export-serving", lambda a: a.export_serving is not None),
+    ("--eval-batches", lambda a: a.eval_batches > 0),
+    ("--drop-prob", lambda a: a.drop_prob > 0),
+    ("--push-sum", lambda a: a.push_sum),
+    ("--overlap-gossip", lambda a: a.overlap_gossip),
+    ("--grad-clip", lambda a: a.grad_clip > 0),
+    ("--cost-ledger", lambda a: a.cost_ledger),
+    ("--link-probes", lambda a: a.link_probes),
+    ("--obs-cluster-dir", lambda a: a.obs_cluster_dir is not None),
+)
+
+
+def _devices(args) -> int:
+    """What ``--model-axes`` counts as devices: the CUDA cards visible, or
+    one for ``--device cpu``."""
+    return torch.cuda.device_count() if args.device == "cuda" else 1
+
+
+def _model_axes(args, bundle) -> tuple[tuple, str | None]:
+    """``(model_axes, error)``: the config's default (``bundle.model_axes``)
+    or ``--model-axes``, parsed, refused and noted as the reference's
+    ``train.py:682-760`` does (its ``note:`` line printed here)."""
+    model_axes = bundle.model_axes
+    user_set_axes = args.model_axes is not None
+    if user_set_axes:
+        if args.model_axes.strip().lower() in ("none", ""):
+            model_axes = ()
+        else:
+            try:
+                model_axes = tuple((kv.split("=")[0].strip(), int(kv.split("=")[1]))
+                                   for kv in args.model_axes.split(","))
+            except (IndexError, ValueError):
+                return (), f'error: bad --model-axes {args.model_axes!r} (expected e.g. "tp=2" or "none")'
+            if any(s < 1 for _, s in model_axes):
+                return (), f"error: bad --model-axes {args.model_axes!r} (axis sizes must be >= 1)"
+            if len(model_axes) > 1:
+                # a config's tp_rules shard over ONE axis; silently
+                # replicating over the extra axes would burn devices
+                return (), ('error: --model-axes supports a single axis from the CLI (got "' + args.model_axes
+                            + '"); multi-axis hybrid runs need a config with explicit rules (see '
+                            "WorkerMesh.create + parallel.sharding)")
+    if model_axes and bundle.tp_rules is None:
+        return (), f"error: config {bundle.name} has no model-sharding rules; --model-axes is not supported for it"
+    per_worker = 1
+    for _, s in model_axes:
+        per_worker *= s
+    if model_axes and not user_set_axes and _devices(args) < bundle.world_size * per_worker:
+        # the config's DEFAULT layout doesn't fit this host: drop it and
+        # continue rather than failing on a flag the user never passed
+        axes_str = ",".join(f"{n}={s}" for n, s in model_axes)
+        print(f"note: dropping config default model_axes={axes_str} (needs {bundle.world_size}x{per_worker} "
+              f"devices, have {_devices(args)}); pass --model-axes to force", flush=True)
+        model_axes, per_worker = (), 1
+    if args.backend == "simulated" and model_axes:
+        return (), (f"error: --model-axes needs the collective backend ({bundle.world_size}x{per_worker} "
+                    "devices)")
+    bad = [flag for flag, on in _MODEL_AXES_REFUSED if on(args)] if model_axes else []
+    if bad:
+        return (), f"error: --model-axes does not run with {', '.join(bad)} yet"
+    return model_axes, None
+
+
 def _main_collective(args, world, sched_start, elastic_from) -> int:
     from consensusml_tpu_torch.comm.launch import RankFailed
     from consensusml_tpu_torch.device import resolve_device
@@ -414,7 +488,8 @@ def _main_collective(args, world, sched_start, elastic_from) -> int:
     if error is not None:
         print(error, file=sys.stderr)
         return 2
-    error = feed.feed_error(bundle, args.native_loader, args.native_wire)
+    model_axes, error = _model_axes(args, bundle)
+    error = error or feed.feed_error(bundle, args.native_loader, args.native_wire)
     if error is not None:
         print(error, file=sys.stderr)
         return 2
@@ -424,9 +499,14 @@ def _main_collective(args, world, sched_start, elastic_from) -> int:
     _describe_feed(args, bundle)
     topo = engine.topology
     period = f", period {topo.period}" if topo.is_time_varying else ""
+    per = 1
+    for _, size in model_axes:
+        per *= size
+    axes = "".join(f", model axes {n}={size} ({bundle.world_size * per} ranks)" for n, size in model_axes)
     print(f"{args.config}/{args.scale}: {bundle.world_size} ranks (collective, --dist-backend "
-          f"{args.dist_backend}) on {args.device}, topology {topo.name}{period}", flush=True)
-    spec = {**vars(args), "workers": bundle.world_size, "sched_start": sched_start, "elastic_from": elastic_from}
+          f"{args.dist_backend}) on {args.device}, topology {topo.name}{period}{axes}", flush=True)
+    spec = {**vars(args), "workers": bundle.world_size, "sched_start": sched_start, "elastic_from": elastic_from,
+            "model_axes": [list(a) for a in model_axes]}
     try:
         collective.run(spec, bundle.world_size)
     except RankFailed as e:
@@ -439,6 +519,7 @@ def _main_collective(args, world, sched_start, elastic_from) -> int:
 
 _CHURN_REFUSED = (
     ("--backend collective", lambda a: a.backend == "collective"),
+    ("--model-axes", lambda a: a.model_axes is not None),
     ("--native-loader", lambda a: a.native_loader),
     ("--resume", lambda a: a.resume is not None),
     ("--drop-prob", lambda a: a.drop_prob > 0),
@@ -613,6 +694,8 @@ def main(argv=None) -> int:
     if args.backend == "collective":
         return _main_collective(args, world, sched_start, elastic_from)
     bundle, error = _bundle(args, dev, world, sched_start)
+    if error is None and args.churn_schedule is None:
+        error = _model_axes(args, bundle)[1]
     if error is not None:
         print(error, file=sys.stderr)
         return 2

@@ -25,6 +25,15 @@ eval (:func:`~consensusml_tpu_torch.train.evaluate.evaluate_collective`,
 printed by rank 0), the watchdog (one a rank) and ``--metrics-out``
 (rank 0's records). The telemetry flags act on every rank, each with its
 own registry and sinks (:mod:`~consensusml_tpu_torch.train.telemetry`).
+
+``--model-axes tp=N`` (``spec["model_axes"]``) makes each worker N ranks
+(:class:`~consensusml_tpu_torch.comm.mesh.WorkerMesh`'s model axes): a
+rank draws its worker's parameters, keeps its pieces of them (the
+config's ``tp_rules``, :class:`~consensusml_tpu_torch.parallel.tensor.
+TensorParallel`), sets the model to tensor parallelism, and steps with
+the tensor-parallel collective step; the worker's ranks read the same
+batches. The long-run flags that save, restore, evaluate or export a
+worker's state are refused by the CLI under it.
 """
 
 from __future__ import annotations
@@ -51,23 +60,32 @@ def check_flags(device: str, dist_backend: str, world: int, device_count: int) -
         check_nccl_world(world, device_count)
 
 
+def per_worker(spec: dict) -> int:
+    """Ranks a worker under ``spec["model_axes"]`` (1 without)."""
+    n = 1
+    for _name, size in spec.get("model_axes") or ():
+        n *= size
+    return n
+
+
 def run(spec: dict, world: int) -> list[dict]:
-    """Spawn ``world`` ranks of :func:`train_rank` over ``spec`` (the
-    parsed flags as a dict) and return their summaries. No wall-clock
-    limit: a rank that raises or dies, or a peer stalled past the process
-    group's own timeout, fails the run."""
+    """Spawn ``world`` workers' ranks of :func:`train_rank` (``world`` x
+    :func:`per_worker`) over ``spec`` (the parsed flags as a dict) and
+    return their summaries. No wall-clock limit: a rank that raises or
+    dies, or a peer stalled past the process group's own timeout, fails
+    the run."""
     from consensusml_tpu_torch.comm.launch import launch
     from consensusml_tpu_torch.device import resolve_device
 
     if spec["device"] != "cpu":
         resolve_device(spec["device"])  # raises without a GPU
     count = torch.cuda.device_count() if spec["device"] != "cpu" else 0
-    check_flags(spec["device"], spec["dist_backend"], world, count)
+    check_flags(spec["device"], spec["dist_backend"], world * per_worker(spec), count)
     if spec["device"] != "cpu":
         from consensusml_tpu_torch import kernels
 
         kernels.build()
-    return launch(train_rank, world, spec, dist_backend=spec["dist_backend"])
+    return launch(train_rank, world, spec, dist_backend=spec["dist_backend"], per_worker=per_worker(spec))
 
 
 def spec_bundle(spec: dict, device):
@@ -201,6 +219,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     (:func:`~consensusml_tpu_torch.comm.check.seeded_gossip_round`)."""
     from consensusml_tpu_torch import configs, kernels
     from consensusml_tpu_torch.comm.mesh import WorkerMesh, rank_device
+    from consensusml_tpu_torch.comm.transport import make_transport
     from consensusml_tpu_torch.train.evaluate import evaluate_collective
     from consensusml_tpu_torch.train.feed import feed_text, round_feed
     from consensusml_tpu_torch.train.local_sgd import init_state, make_collective_train_step
@@ -215,18 +234,39 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     if device.type == "cuda":
         torch.cuda.set_device(device)
     bundle = spec_bundle(spec, device)
-    mesh = WorkerMesh.create(bundle.cfg.gossip.topology, spec["dist_backend"], device)
+    model_axes = tuple(tuple(a) for a in spec.get("model_axes") or ())
+    mesh = WorkerMesh.create(bundle.cfg.gossip.topology, spec["dist_backend"], device, model_axes=model_axes)
+    tp = None
+    if model_axes:
+        from consensusml_tpu_torch.parallel.tensor import TensorParallel
+
+        if any(spec.get(k) for k in ("resume", "checkpoint_dir", "export_serving", "eval_batches", "check")):
+            raise NotImplementedError("saving, restoring, evaluating or checking a worker's state does not run "
+                                      "under model axes")
+        tp = TensorParallel(mesh.model, bundle.tp_rules(model_axes[0][0]))
+        bundle.model.tensor_parallel(mesh.model)
+    worker = mesh.rank  # this rank's worker (the rank itself without model axes)
     init = spec.get("init")
     if init is None:
-        init = bundle.init_params(spec["seed"], ranks=[rank])
+        init = bundle.init_params(spec["seed"], ranks=[worker])
     else:
-        init = T.tree_map(lambda a: np.ascontiguousarray(a[rank: rank + 1]), init)
+        init = T.tree_map(lambda a: np.ascontiguousarray(a[worker: worker + 1]), init)
     params, model_state = bundle.convert(init)
     params = {n: t[0].to(device) for n, t in params.items()}
     model_state = T.tree_map(lambda t: t[0].to(device), model_state)
     frozen = configs.frozen_on_device(bundle, device)
-    state = init_state(bundle.cfg, params, rank, seed=spec["seed"], model_state=model_state, frozen=frozen)
-    del params, model_state
+    logical = None
+    # spec["tp_check"]: the worker's initial parameters, held on the host for the check
+    init_host = ({n: t.detach().to("cpu", copy=True) for n, t in params.items()}
+                 if tp is not None and spec.get("tp_check") else None)
+    if tp is not None:
+        if bundle.cfg.gossip.compressor is not None:  # the codec's state is the logical tree's
+            logical = {"params": params, "model_state": model_state}
+        params, frozen = tp.shard_named(params), tp.shard_named(frozen)
+    state = init_state(bundle.cfg, params, worker, seed=spec["seed"], model_state=model_state, frozen=frozen)
+    if logical is not None:
+        state.gossip = bundle.cfg.engine().init_state(logical)
+    del params, model_state, logical
     if spec.get("resume"):
         elastic_from = spec.get("elastic_from")
         if elastic_from is not None and elastic_from != world:
@@ -241,7 +281,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     start = state.step
     end = start + spec["rounds"]
     setup_s = time.perf_counter() - t_entry
-    step = make_collective_train_step(bundle.cfg, bundle.loss_fn, mesh)
+    step = make_collective_train_step(bundle.cfg, bundle.loss_fn, mesh, tp=tp)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     evals: dict = {}
@@ -268,13 +308,19 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
         last_exported = r
 
     rounds = []
-    # this rank's rows of each round batch, staged on its own card
-    feed = round_feed(bundle, spec, spec["rounds"], start, device, rank=rank)
+    # this rank's worker's rows of each round batch, staged on its own card
+    feed = round_feed(bundle, spec, spec["rounds"], start, device, rank=worker)
+    # the table of every rank's times: over the world (the gossip group's
+    # ranks are one model index's under model axes)
+    table_transport = mesh.transport if tp is None else make_transport(spec["dist_backend"], None, rank, device)
     with tel, contextlib.closing(feed):  # the sinks are written on an exception too
+        batch0 = None
         for i, batch in enumerate(feed):
             r = start + i
             if i == 0:
                 tel.register_costs(step, state, batch)  # this rank's own train.step
+                if init_host is not None:
+                    batch0 = {k: v.detach().to("cpu", copy=True) for k, v in batch.items()}
             kernels.reset_launch_counts()
             with tel.round(i, r):
                 t0 = time.perf_counter()
@@ -289,7 +335,7 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
             row = torch.zeros((world, 5), dtype=torch.float32, device=device)
             row[rank] = torch.tensor([ms, m["staging_ms"], m["wire_ms"], m.get("imgs_per_s", 0.0),
                                       extras.get("grad_norm", 0.0)])
-            table = mesh.transport.all_reduce_sum([row])[0].cpu()
+            table = table_transport.all_reduce_sum([row])[0].cpu()
             # the line's norm as the simulated backend's: the largest over the workers
             line_extras = dict(extras)
             if "grad_norm" in extras:
@@ -302,6 +348,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
                            "staging_ms": m["staging_ms"], "wire_ms": m["wire_ms"],
                            "launches": {k: v for k, v in kernels.launch_counts().items() if v},
                            "forms": kernels.form_counts(),
+                           **{k: m[k] for k in ("wire_bytes_worker_ranks", "tp_bytes", "tp_ms", "tp_gather_bytes")
+                              if k in m},
                            **({"alive_frac": alive_frac, "alive_mask": mask} if alive_frac is not None else {}),
                            **extras})
             log_every = spec["log_every"]
@@ -343,13 +391,23 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     if spec.get("eval_batches", 0) > 0:
         run_eval(None)
     engine = bundle.cfg.engine()
+    tp_check = None
+    if init_host is not None:
+        from consensusml_tpu_torch.parallel.check import tp_reference_check
+
+        tp_check = tp_reference_check(spec, state, tp, mesh, bundle.loss_fn, init_host, batch0,
+                                      rounds[0]["loss"], device)
+        init_host = batch0 = None
     gossiped = {"params": {n: p[0] for n, p in state.params.items()},
                 "model_state": T.tree_map(lambda t: t[0], state.model_state)}
+    if tp is not None:  # the logical worker's plan and payload
+        gossiped["params"] = tp.gather_named(gossiped["params"])
     plan = engine.bucket_plan(gossiped)
     out = {"rank": rank, "rounds": rounds, "buckets": None if plan is None else plan.num_buckets,
            "wire_bytes_per_round": engine.wire_bytes_per_round(gossiped), "evals": evals, "checkpoint": ckpt_path,
            "setup_s": setup_s, "seconds": time.perf_counter() - t_entry,
-           "costs": tel.cost_snapshot(), "cost_report": tel.costs}
+           "costs": tel.cost_snapshot(), "cost_report": tel.costs,
+           **({"tp_check": tp_check} if tp_check is not None else {})}
     del gossiped
     if device.type == "cuda":
         free, total = torch.cuda.mem_get_info(device)
@@ -358,7 +416,8 @@ def train_rank(rank: int, world: int, spec: dict) -> dict:
     from consensusml_tpu_torch.comm.check import seeded_gossip_round, to_numpy
 
     if spec.get("return_params"):
-        out["params"] = to_numpy({n: p[0] for n, p in state.params.items()})
+        own = {n: p[0] for n, p in state.params.items()}
+        out["params"] = to_numpy(own if tp is None else tp.gather_named(own))  # the logical worker's
         out["model_state"] = to_numpy(T.tree_map(lambda t: t[0], state.model_state))
     if spec.get("check"):
         shapes = [(path, tuple(t.shape[1:])) for path, t in T.flatten_with_paths(

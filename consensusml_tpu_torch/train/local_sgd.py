@@ -71,6 +71,15 @@ its CHOCO state per worker, and its dropout generator, seeded as the
 simulated backend's worker ``rank``. Fed row ``rank`` of the simulated
 backend's stacked batch (:func:`rank_batch`), the two backends start and
 step identically.
+
+Under model axes (``make_collective_train_step(..., tp=)``, the
+reference's hybrid gossip-DP x tensor parallelism) a worker is several
+ranks, each holding its pieces of the worker's parameters, optimizer and
+gossip state (:mod:`~consensusml_tpu_torch.parallel.tensor`): the local
+steps run the model's tensor-parallel forward, the gossip runs by model
+index (exact) or on the gathered logical tree (a codec), and the loss,
+consensus error and wire bytes are the logical worker's, reduced over its
+ranks.
 """
 
 from __future__ import annotations
@@ -448,7 +457,25 @@ def make_simulated_train_step(cfg: LocalSGDConfig, loss_fn: LossFn):
     return step
 
 
-def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
+def _tp_consensus_error(params: dict, mesh, tp) -> torch.Tensor:
+    """The consensus error of the logical workers from their pieces
+    (exact gossip under tensor parallelism): each leaf's mean over the
+    workers by model index, a rank's squared deviation over its split
+    pieces (and, on model index 0, the replicated leaves), summed over the
+    worker's ranks, then :func:`~consensusml_tpu_torch.comm.collectives.
+    consensus_error`'s mean over the workers and square root."""
+    from consensusml_tpu_torch.parallel.axis import all_reduce_sum
+
+    split = tp.split_names(params)
+    names = [n for n in params if n in split or tp.axis.index == 0]
+    leaves = [params[n].to(torch.float32) for n in names]
+    means = collectives.all_reduce_mean(leaves, mesh) if leaves else []
+    sq = sum(((x - m) ** 2).sum() for x, m in zip(leaves, means)) if leaves else torch.zeros((), device=mesh.device)
+    sq = all_reduce_sum(torch.as_tensor(sq, dtype=torch.float32, device=mesh.device).reshape(1), tp.axis)
+    return torch.sqrt(collectives.all_reduce_mean([sq], mesh)[0][0])
+
+
+def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh, tp=None):
     """``step(state, batch) -> (state, metrics)`` for THIS rank's worker
     (:func:`init_state`; ``batch`` leaves ``(1, H, B, ...)``, its row of
     the stacked batch): H local steps (:func:`local_steps`), one
@@ -479,11 +506,55 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
     requests) plus ``gossip_wait_ms`` (the wait left after the local
     steps, the copy back and the receive's fold), and ``metrics_ms`` the
     consensus error's (on ``z``, before the local steps) and the loss's
-    all-reduces; the transport figures are the correction's."""
+    all-reduces; the transport figures are the correction's.
+
+    ``tp`` (a :class:`~consensusml_tpu_torch.parallel.tensor.TensorParallel`
+    over ``mesh.model``): the state holds this rank's pieces (a codec's
+    gossip state: the logical tree's, whole) and ``loss_fn`` runs a model
+    set to tensor parallelism. ``wire_bytes`` is then the logical worker's
+    payload (exact: its ranks' pieces summed; a codec: what each of its
+    ranks sent, the same payload, with ``wire_bytes_worker_ranks`` their
+    sum), and the metrics add ``tp_bytes`` and ``tp_ms`` (the model axis's
+    transport during the local steps: its all-reduces and gathers) and
+    ``tp_gather_bytes`` (a codec's gather of the logical tree). Faults and
+    overlap gossip do not run under it."""
     engine = cfg.engine()
     faults = cfg.gossip.faults
     if engine.topology != mesh.topology:
         raise ValueError("the mesh is bound to another topology than the config's")
+    if tp is not None and (faults is not None or cfg.gossip.overlap):
+        raise NotImplementedError("faults and overlap gossip do not run under model axes")
+    logical_round = tp is not None and cfg.gossip.compressor is not None
+
+    def gossip_round(state, alive):
+        """The round on this rank's tree: ``(mixed tree, the logical mixed
+        params or None, tp gather bytes)``."""
+        tree = _gossiped(*_row(state.params, state.model_state))
+        if tp is None:
+            mixed, state.gossip = engine.round_collective(tree, state.gossip, mesh, step=state.step, alive=alive)
+            return mixed, None, 0
+        if not logical_round:
+            # each model index mixes its pieces; the replicated leaves (and
+            # the model state) are mixed by index 0 alone, then sent to the
+            # worker's other ranks: the wire carries the logical payload once
+            split = tp.split_names(tree["params"])
+            own = tree if tp.axis.index == 0 else {"params": {n: t for n, t in tree["params"].items() if n in split},
+                                                   "model_state": {}}
+            mixed, state.gossip = engine.round_collective(own, state.gossip, mesh, step=state.step, alive=alive)
+            shared = [n for n in tree["params"] if n not in split]
+            ms_leaves, ms_spec = T.flatten(tree["model_state"])
+            if tp.axis.index == 0:
+                src = [mixed["params"][n] for n in shared] + T.leaves(mixed["model_state"])
+            else:
+                src = [torch.zeros_like(tree["params"][n]) for n in shared] + [torch.zeros_like(x) for x in ms_leaves]
+            got = tp.axis.transport.all_reduce_sum(src) if src else []
+            params = {n: mixed["params"][n] if n in split else got[shared.index(n)] for n in tree["params"]}
+            return {"params": params, "model_state": T.unflatten(ms_spec, got[len(shared):])}, None, 0
+        before = tp.axis.transport.stats.bytes_sent
+        logical = {"params": tp.gather_named(tree["params"]), "model_state": tree["model_state"]}
+        gathered = tp.axis.transport.stats.bytes_sent - before
+        mixed, state.gossip = engine.round_collective(logical, state.gossip, mesh, step=state.step, alive=alive)
+        return {"params": tp.shard_named(mixed["params"]), "model_state": mixed["model_state"]}, mixed, gathered
 
     def own_steps(state, batch):
         return local_steps(cfg, loss_fn, state, 0, [{k: v[0, i] for k, v in batch.items()} for i in range(cfg.h)])
@@ -557,15 +628,15 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
             return overlap_round(state, on_device(batch, device), sync)
         t0 = time.perf_counter()
         batch = on_device(batch, device)
+        tp_before = None if tp is None else tp.axis.transport.stats.snapshot()
         with _span("train.inner_loop", h=cfg.h):
             loss, ok = all_steps(state, batch, sync)
         alive = None if faults is None else draw_alive(state.fault_generators[0], faults.drop_prob) * ok
         sync()
+        tp_moved = None if tp is None else tp.axis.transport.stats.since(tp_before)
         t1 = time.perf_counter()
         before = mesh.transport.stats.snapshot()
-        mixed, state.gossip = engine.round_collective(
-            _gossiped(*_row(state.params, state.model_state)), state.gossip, mesh, step=state.step, alive=alive
-        )
+        mixed, logical, gathered = gossip_round(state, alive)
         wire = mesh.transport.stats.since(before)
         state.params = {n: t.unsqueeze(0) for n, t in mixed["params"].items()}
         state.model_state = T.tree_map(lambda t: t.unsqueeze(0), mixed["model_state"])
@@ -576,7 +647,13 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
         if mesh.shares_device:
             torch.cuda.empty_cache()  # the round's temporaries, before another rank's turn
         with _span("train.consensus_error"):
-            err = engine.consensus_error_collective(mixed["params"], mesh)
+            if tp is None:
+                err = engine.consensus_error_collective(mixed["params"], mesh)
+            elif logical is not None:  # the logical tree's, whole on every rank of the worker
+                err = engine.consensus_error_collective(logical["params"], mesh)
+            else:
+                err = _tp_consensus_error(mixed["params"], mesh, tp)
+        del logical
         if faults is None:
             mean_loss = collectives.all_reduce_mean([loss.reshape(1)], mesh)[0][0]
         else:
@@ -600,6 +677,12 @@ def make_collective_train_step(cfg: LocalSGDConfig, loss_fn: LossFn, mesh):
             "staging_ms": wire["staging_ms"],
             "wire_ms": wire["wire_ms"],
         }
+        if tp is not None:
+            sent = torch.tensor([wire["bytes_sent"]], dtype=torch.int64, device=device)
+            ranks_sent = int(tp.axis.transport.all_reduce_sum([sent])[0][0])
+            metrics.update(wire_bytes=wire["bytes_sent"] if logical_round else ranks_sent,
+                           wire_bytes_worker_ranks=ranks_sent, tp_bytes=tp_moved["bytes_sent"],
+                           tp_ms=tp_moved["wire_ms"] + tp_moved["staging_ms"], tp_gather_bytes=gathered)
         if faults is not None:
             metrics["alive_frac"] = mask.mean()
             metrics["alive_mask"] = mask

@@ -2668,3 +2668,42 @@ def test_registration_launches_nothing_allocates_nothing_draws_nothing(dev):
     assert all(torch.equal(state.params[n], p) for n, p in snap.items())
     assert row.flops > 0 and grow.flops > 0 and state.step == 0
     assert {"serve.decode", "serve.hotswap.stage", *(f"serve.prefill.b{b}" for b in eng.buckets)} == set(rows)
+
+
+# (q_offset, k_offset) in units of S, as the ring gives them, and two
+# shifts that are not whole tiles (the skips' partial tiles)
+OFFSET_FORMS = [(1, 0), (1, 1), (2, 1), (0, 1)]
+OFFSET_CASES = [(s, d, form) for s in (1, 65, 600, 1024) for d in (64, 128) for form in OFFSET_FORMS] + \
+    [(600, 64, (100, 37)), (600, 128, (0, 70)), (1024, 64, (5, 1000))]
+
+
+@pytest.mark.parametrize("s,d,form", OFFSET_CASES)
+def test_flash_kernels_with_offsets_match_plain(dev, s, d, form):
+    """The q/k offset form of the forward, dq and dk/dv kernels (the ring's,
+    ``chip_smoke.py``'s ``check.flash_offsets``) against their plain
+    versions given the same offsets, causal, at the flash gates, the
+    backward fed the plain forward's lse and delta: blocks wholly before
+    the queries, the diagonal, one wholly after them (every row attends to
+    no key: the values' sum over the reference's visited count, lse
+    -1e30, no gradient) and shifts that cut tiles; head dim 64 and 128,
+    without and with a ``kv_mask``. Each launch counts once in
+    ``offset_launches``."""
+    qo, ko = (form[0] * s, form[1] * s) if form in OFFSET_FORMS else form
+    off = {"q_offset": qo, "k_offset": ko}
+    q, k, v, do = _flash_case(dev, s, 1.0, b=2, d=d)
+    fns = (tfa.flash_attention, tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv)
+    for kv_mask in (None, _kv_mask(dev, s, True)[:2]):
+        before = [f.offset_launches for f in fns]
+        out, lse = tfa.flash_attention(q, k, v, causal=True, kv_mask=kv_mask, return_lse=True, **off)
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, causal=True, kv_mask=kv_mask, return_lse=True, **off)
+        delta = tfa._delta(ref, do)
+        dq = tfa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal=True, kv_mask=kv_mask, **off)
+        dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta, causal=True, kv_mask=kv_mask, **off)
+        want = tfa._bwd_plain_parts(q, k, v, do, ref_lse, delta, True, kv_mask, qo, ko)
+        torch.cuda.synchronize()
+        assert [f.offset_launches for f in fns] == [n + 1 for n in before]
+        msg = f"offsets {off}, mask {kv_mask is not None}"
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2.0**-6, atol=1e-4, msg=msg)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-5, msg=msg)
+        for name, got, plain in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+            torch.testing.assert_close(got.float(), plain.float(), rtol=2.0**-6, atol=3e-3, msg=f"{name}, {msg}")

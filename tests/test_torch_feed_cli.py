@@ -15,10 +15,20 @@
   ``--churn-schedule``; the collective backend refuses as the simulated one.
 - The u8 dequant's bits against ``jax.jit`` of the reference's expression
   over all 256 codes, for both affines.
+
+The reference's ring is its own ``native/`` library, which its loader
+builds with ``make`` when the ``.so`` is missing and loads under a lock of
+its own process only: under ``pytest -n`` another worker may be writing
+the ``.so`` when this one opens it (``object file has no loadable
+segments``), and the loader then keeps that failure for the rest of the
+process. ``_reference_native`` waits such a build out before the
+reference's ring is used: it retries the load, clearing the kept failure,
+until the library loads or a bound passes.
 """
 
 import dataclasses
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -69,9 +79,27 @@ def _ref_u8_loss(base, qscale, qoff):
     return loss_fn
 
 
+def _reference_native(timeout_s: float = 120.0, poll_s: float = 0.5):
+    """The reference's native library, loaded: a load that fails while
+    another process builds it is retried (its kept failure cleared) until
+    it loads; past ``timeout_s`` the last failure is raised."""
+    from consensusml_tpu import native as ref_native
+
+    deadline = time.monotonic() + timeout_s
+    while True:
+        lib = ref_native._load()
+        if lib is not None:
+            return lib
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the reference's native library did not load: {ref_native._load_failed}")
+        time.sleep(poll_s)
+        ref_native._load_failed = None
+
+
 def _reference_rounds(name, world, seed=0):
     """The reference's rounds on its ring's u8 batches from the port's
     initial parameters."""
+    _reference_native()
     bundle = jax_configs.build(name, "smoke", world=world)
     init = configs.build(name, "smoke", world=world, device="cpu").init_params(seed)
     state = jax_init_stacked_state(bundle.cfg, bundle.init_params, jax.random.key(0), world)

@@ -6,8 +6,8 @@
 five configs at smoke scale, except the named differences of its
 docstring: a LoRA run's frozen base is held once (``frozen``), not in
 every worker's ``params``. Its state components are exact claims, held to
-the state a run of the port allocates; ``model_axes`` raises until
-``parallel/`` is ported.
+the state a run of the port allocates; under ``model_axes`` it is held
+to the reference's at tp 2 and 4.
 """
 
 import importlib.util
@@ -98,9 +98,24 @@ def test_llama_frozen_base_is_held_once_in_its_dtypes():
         pred["per_device"]["frozen"]
 
 
-def test_model_axes_raise_until_parallel_is_ported():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        _port().predict("llama_lora", "smoke", model_axes=(("tp", 2),))
+@pytest.mark.parametrize("name", ["llama_lora", "gpt2_topk"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_model_axes_raise_until_parallel_is_ported(name, tp):
+    """``parallel/`` is ported: ``model_axes`` no longer raises, and the
+    prediction is the reference's component by component at tp 2 and 4
+    (each leaf divided by the axes its rule names, the activations by the
+    product), the LoRA base's named difference apart."""
+    want = ref.predict(name, "smoke", model_axes=(("tp", tp),))
+    got = _port().predict(name, "smoke", model_axes=(("tp", tp),))
+    w, g = want["per_device"], got["per_device"]
+    for key in set(w) - {"params"}:
+        assert g[key] == w[key], key
+    assert got["model_axes"] == want["model_axes"] == [["tp", tp]]
+    if name == "llama_lora":
+        assert g["frozen"] > 0
+        assert got["predicted_peak_bytes"] - g["params"] - g["frozen"] == want["predicted_peak_bytes"] - w["params"]
+    else:
+        assert g["params"] == w["params"] and got["predicted_peak_bytes"] == want["predicted_peak_bytes"]
 
 
 def test_cli_prints_the_predictions(capsys):

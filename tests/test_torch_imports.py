@@ -101,3 +101,26 @@ def test_feed_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     DevicePrefetcher(iter([]), 2, device="cpu").close()  # nothing staged: no card
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--config", "cifar_resnet50", "--rounds", "1", "--native-loader"])
+
+
+def test_scan_covers_the_parallel_modules():
+    """The scan above reads every module of ``parallel/`` (model, sequence
+    and pipeline parallelism) and the train CLI's tensor-parallel path."""
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for mod in ("__init__", "axis", "check", "pipeline", "ring_attention", "sharding", "tensor", "ulysses"):
+        assert f"consensusml_tpu_torch/parallel/{mod}.py" in names, mod
+
+
+def test_parallel_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    """``--model-axes`` on the collective backend and the sequence-parallel
+    check run on the card unless given ``--device cpu`` / ``device="cpu"``;
+    without one they raise."""
+    from consensusml_tpu_torch.parallel.check import sequence_parallel
+    from consensusml_tpu_torch.train.__main__ import main as train_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--config", "gpt2_topk", "--backend", "collective", "--workers", "2", "--model-axes", "tp=2",
+                    "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sequence_parallel(0, 1, [(1, 64, 2, 64)])

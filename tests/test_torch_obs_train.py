@@ -288,15 +288,18 @@ def test_fault_counters_under_passed_in_masks():
     pred = lambda n: n in ("consensusml_fault_rounds_total", "consensusml_worker_drops_total",  # noqa: E731
                            "consensusml_worker_drop_rounds_total", "consensusml_worker_recoveries_total",
                            "consensusml_alive_frac")
+    # the counters by their deltas; the alive_frac gauge by its value (a
+    # gauge's delta depends on what an earlier test in the process left)
+    counters = lambda n: pred(n) and n != "consensusml_alive_frac"  # noqa: E731
     got = []
     for obs, record in [(R, r_record), (Q, q_record)]:
-        before = _values(obs, pred)
+        before = _values(obs, counters)
         prev = None
         for mask in MASKS:
             record(sum(mask) / len(mask), alive=np.asarray(mask, np.float32), prev_alive=prev)
             prev = np.asarray(mask, np.float32)
         record(1.0)  # a scalar-only round
-        got.append((_delta(before, _values(obs, pred)), _values(obs, pred)["consensusml_alive_frac"]))
+        got.append((_delta(before, _values(obs, counters)), _values(obs, pred)["consensusml_alive_frac"]))
     assert got[0] == got[1]
     assert got[1][0]['consensusml_worker_recoveries_total{worker="1"}'] == 1
 
